@@ -1,0 +1,1 @@
+"""cli layer of the PyTorch port (see the matching rankpo_tpu.cli)."""

@@ -1,0 +1,1 @@
+"""index layer of the PyTorch port (see the matching rankpo_tpu.index)."""

@@ -1,0 +1,1 @@
+"""models layer of the PyTorch port (see the matching rankpo_tpu.models)."""

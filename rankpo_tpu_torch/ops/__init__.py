@@ -1,0 +1,1 @@
+"""ops layer of the PyTorch port (see the matching rankpo_tpu.ops)."""

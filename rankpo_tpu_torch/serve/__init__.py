@@ -1,0 +1,1 @@
+"""serve layer of the PyTorch port (see the matching rankpo_tpu.serve)."""

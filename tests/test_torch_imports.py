@@ -1,0 +1,61 @@
+"""The PyTorch port imports without jax: every module of the serving slice
+is imported in a fresh interpreter and ``jax`` must stay out of
+``sys.modules`` (any ``rankpo_tpu`` import would pull it in)."""
+
+import os
+import subprocess
+import sys
+
+MODULES = [
+    "rankpo_tpu_torch",
+    "rankpo_tpu_torch.models.config",
+    "rankpo_tpu_torch.data.tokenization",
+    "rankpo_tpu_torch.data.collators",
+    "rankpo_tpu_torch.data.datasets",
+    "rankpo_tpu_torch.models.hf_io",
+    "rankpo_tpu_torch.ops.attention",
+    "rankpo_tpu_torch.ops.flash_attention",
+    "rankpo_tpu_torch.ops._build",
+    "rankpo_tpu_torch.models.llama",
+    "rankpo_tpu_torch.models.pooling",
+    "rankpo_tpu_torch.models.encoder",
+    "rankpo_tpu_torch.ops.topk",
+    "rankpo_tpu_torch.index.flat",
+    "rankpo_tpu_torch.index.encoding",
+    "rankpo_tpu_torch.serve.service",
+    "rankpo_tpu_torch.serve.batching",
+    "rankpo_tpu_torch.cli.serve",
+]
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_never_loads_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'rankpo_tpu.')) or m == 'rankpo_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_no_jax_import_in_sources():
+    pkg = os.path.join(ROOT, "rankpo_tpu_torch")
+    offenders = []
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                with open(path) as f:
+                    for i, line in enumerate(f, 1):
+                        s = line.strip()
+                        if s.startswith(("import jax", "from jax", "import rankpo_tpu.", "from rankpo_tpu.", "from rankpo_tpu import")):
+                            offenders.append(f"{path}:{i}: {s}")
+    assert not offenders, offenders
