@@ -1,5 +1,5 @@
 """Text encoder: backbone forward -> pooling -> optional L2 normalisation
-(port of ``rankpo_tpu.models.encoder``). Serving and, later, training call
+(port of ``rankpo_tpu.models.encoder``). Serving and training both call
 :func:`embed`, so the embedding semantics live in one place."""
 
 from __future__ import annotations
@@ -34,8 +34,9 @@ def embed(
     """Sentence embeddings [B, H] for {'input_ids', 'attention_mask'} inputs.
 
     Pooling comes from ``model.config`` (reference src/modeling.py:224-232);
-    ``normalize`` defaults to ``config.normalize``. The compute dtype is the
-    model's parameter dtype (``LlamaEncoder.from_state_dict``)."""
+    ``normalize`` defaults to ``config.normalize``. The compute dtype, and
+    whether layers are recomputed in the backward pass, are the model's
+    (``LlamaEncoder.from_state_dict`` / ``LlamaEncoder.for_training``)."""
     config = model.config
     if normalize is None:
         normalize = config.normalize

@@ -13,6 +13,16 @@ Parameters use HuggingFace's names and its ``[out, in]`` Linear layout, so
 layers on a leading axis and stores kernels ``[in, out]``;
 ``hf_io.params_from_jax`` converts.
 
+Two builds: :meth:`LlamaEncoder.from_state_dict` (serving: frozen,
+parameters in the compute dtype) and :meth:`LlamaEncoder.for_training`
+(master parameters in the param dtype, trainable). The forward casts every
+weight to ``compute_dtype`` where it is used and gathers the embedding from
+the master table before casting, as ``rankpo_tpu.models.llama.apply`` does
+(``llama.py:264,280``), so autograd returns gradients in the master dtype.
+For the serving build the casts are no-ops. ``gradient_checkpointing``
+recomputes each layer in the backward pass (``torch.utils.checkpoint``,
+non-reentrant): the JAX ``remat_policy="full"``.
+
 Only the plain llama body is ported. Qwen2 / Mistral / Gemma (biases, sliding
 windows, (1+w) norms) and the Roberta family raise ``NotImplementedError``.
 """
@@ -20,11 +30,12 @@ windows, (1+w) norms) and the Roberta family raise ``NotImplementedError``.
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.ops.attention import multi_head_attention
@@ -113,7 +124,13 @@ class RMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.weight, self.eps)
+        # the weight in the activations' (compute) dtype, as JAX casts it
+        return rms_norm(x, self.weight.to(x.dtype), self.eps)
+
+
+def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``layer`` applied with its weight cast to the activations' dtype."""
+    return F.linear(x, layer.weight.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +157,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = nn.Linear(f, h, bias=False)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
+        gate = F.silu(_linear(y, self.gate_proj))
+        return _linear(gate * _linear(y, self.up_proj), self.down_proj)
 
 
 class LlamaLayer(nn.Module):
@@ -160,22 +178,25 @@ class LlamaLayer(nn.Module):
         d = cfg.head_dim
         attn = self.self_attn
         y = self.input_layernorm(x)
-        q = attn.q_proj(y).view(b, s, cfg.num_attention_heads, d)
-        k = attn.k_proj(y).view(b, s, cfg.num_key_value_heads, d)
-        v = attn.v_proj(y).view(b, s, cfg.num_key_value_heads, d)
+        q = _linear(y, attn.q_proj).view(b, s, cfg.num_attention_heads, d)
+        k = _linear(y, attn.k_proj).view(b, s, cfg.num_key_value_heads, d)
+        v = _linear(y, attn.v_proj).view(b, s, cfg.num_key_value_heads, d)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         # pad keys are masked everywhere, so pad query tiles may be skipped
         o = multi_head_attention(
             q, k, v, mask=key_mask, causal=True, impl=attn_impl,
             skip_pad_q=True,
         )
-        x = x + attn.o_proj(o.reshape(b, s, -1))
+        x = x + _linear(o.reshape(b, s, -1), attn.o_proj)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+
+CHECKPOINT_POLICIES = ("full",)
 
 
 class LlamaEncoder(nn.Module):
     """Token ids [B, S] + right-padded mask [B, S] -> last hidden [B, S, H]
-    in the parameters' dtype (the compute dtype)."""
+    in ``compute_dtype`` (by default the parameters' dtype)."""
 
     def __init__(self, config: EncoderConfig):
         super().__init__()
@@ -186,6 +207,40 @@ class LlamaEncoder(nn.Module):
             LlamaLayer(config) for _ in range(config.num_hidden_layers)
         )
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.compute_dtype: Optional[torch.dtype] = None
+        self.gradient_checkpointing = False
+
+    @classmethod
+    def for_training(
+        cls,
+        config: EncoderConfig,
+        state: Dict[str, torch.Tensor],
+        *,
+        device="cpu",
+        param_dtype: torch.dtype = torch.float32,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        gradient_checkpointing: bool = False,
+        checkpoint_policy: str = "full",
+    ) -> "LlamaEncoder":
+        """Trainable build: master parameters in ``param_dtype`` on
+        ``device``, forward in ``compute_dtype``. ``checkpoint_policy`` is
+        the JAX ``remat_policy``; only "full" is ported."""
+        if checkpoint_policy not in CHECKPOINT_POLICIES:
+            raise NotImplementedError(
+                f"gradient_checkpointing_policy {checkpoint_policy!r} is not "
+                "ported yet (ROADMAP.md Queue 1 item 2: remat 'dots'/'attn'); "
+                "use 'full'"
+            )
+        with torch.device("meta"):
+            model = cls(config)
+        # a copy even where device and dtype match: training updates the
+        # parameters in place and must not write into the caller's tensors
+        state = {n: t.to(device=device, dtype=param_dtype, copy=True)
+                 for n, t in state.items()}
+        model.load_state_dict(state, strict=True, assign=True)
+        model.compute_dtype = compute_dtype
+        model.gradient_checkpointing = gradient_checkpointing
+        return model.requires_grad_(True).train()
 
     @classmethod
     def from_state_dict(
@@ -213,14 +268,21 @@ class LlamaEncoder(nn.Module):
         attn_impl: str = "auto",
     ) -> torch.Tensor:
         b, s = input_ids.shape
-        x = self.embed_tokens(input_ids)
+        weight = self.embed_tokens.weight
+        # gathered from the master table, then cast (JAX llama.py:264)
+        x = F.embedding(input_ids, weight).to(self.compute_dtype or weight.dtype)
         # arange positions regardless of padding (HF default); with right
         # padding and causal attention, pad positions never reach real tokens
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
         cos, sin = rope_cos_sin(self.config, positions)
         key_mask = attention_mask.to(torch.bool)
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, cos, sin, key_mask, attn_impl)
+            if remat:
+                x = checkpoint(layer, x, cos, sin, key_mask, attn_impl,
+                               use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, key_mask, attn_impl)
         return self.norm(x)
 
 

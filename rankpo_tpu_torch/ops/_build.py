@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds). The library goes
+interface (no PyTorch headers, so the build takes seconds): one ``nvcc -c``
+per source, all started together, then one link. The library goes
 into ``ops/_build/`` (ignored by git) under a name keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the existing file. A failed build raises with nvcc's output; nothing falls
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -41,6 +42,14 @@ _SIGNATURES = {
     + [_LL] * 10  # q/k/v (batch, seq, head) strides, mask batch stride
     + [_I, _I, _P],  # causal skip_pad_q stream
 }
+_BWD_ARGTYPES = (
+    [_P] * 10  # q k v mask do lse delta dq dk dv
+    + [_I] * 6  # B Sq Sk Hq Hkv D
+    + [_LL] * 13  # q/k/v/do (batch, seq, head) strides, mask batch stride
+    + [_I, _I, _P]  # causal skip_pad_q stream
+)
+for _name in ("fused", "dkv", "dq"):
+    _SIGNATURES[f"rankpo_flash_bwd_{_name}_bf16"] = _BWD_ARGTYPES
 
 
 def find_nvcc() -> str:
@@ -71,16 +80,36 @@ def library_path() -> Path:
 def _compile(target: Path) -> None:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{target.stem}.{os.getpid()}"
+    sources = [s for s in _sources() if s.suffix == ".cu"]
+    objects = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+            for s, o in zip(sources, objects)]
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objects)]
+    log = ""
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        failed = []
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed.append(f"link failed ({proc.returncode}): {' '.join(link)}")
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("\n".join(failed) + "\n" + log)
+    finally:
+        for o in objects:
+            o.unlink(missing_ok=True)
     target.with_suffix(".log").write_text(log)
     os.replace(tmp, target)  # atomic: a concurrent process sees all or nothing
 

@@ -7,10 +7,13 @@ when Hq > Hkv (Hq % Hkv == 0); ``mask`` is a [B, Sk] key-validity mask
 bottom-right alignment when Sq != Sk.
 
 Dispatch is by device, never by a silent fallback: ``impl="auto"`` runs the
-CUDA kernel (``ops/flash_attention.py``) on a CUDA tensor and
+CUDA kernels (``ops/flash_attention.py``) on a CUDA tensor and
 :func:`attention_reference` on a CPU tensor. ``impl="plain"`` forces the
 reference (used to compare the two on the card); ``impl="flash"`` forces the
-kernel, which raises on a CPU tensor.
+kernels, which raise on a CPU tensor. When a gradient is needed, the kernel
+path goes through the ``FlashAttention`` autograd Function (forward K1, the
+backward kernels K2 or K3a + K3b); the reference is differentiated by
+autograd.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free for fully-masked rows
 
 IMPLS = ("auto", "plain", "flash")
+BWD_IMPLS = ("auto", "fused", "split")  # backward kernels on CUDA tensors
 
 
 def masked_logits(
@@ -82,13 +86,18 @@ def multi_head_attention(
     skip_pad_q: bool = False,
     window: Optional[int] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    bwd_impl: str = "auto",
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA, key mask, optional causality.
 
     ``skip_pad_q`` lets the kernel skip query tiles that start past the row's
-    valid length (their rows become zeros); the plain path computes them.
-    Only self-attention over right-padded rows may set it: pad keys are
-    masked everywhere, so pad rows never reach a valid row."""
+    valid length (their rows become zeros, and their gradients too); the
+    plain path computes them. Only self-attention over right-padded rows may
+    set it: pad keys are masked everywhere, so pad rows never reach a valid
+    row. ``bwd_impl`` ("auto" | "fused" | "split") picks the backward
+    kernels (``flash_attention.flash_attention_bwd``); "auto" is split,
+    which repeats bit for bit, under ``torch.use_deterministic_algorithms``
+    and fused otherwise."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if window is not None or segment_ids is not None:
@@ -98,9 +107,14 @@ def multi_head_attention(
         )
     if impl == "plain" or (impl == "auto" and q.device.type == "cpu"):
         return attention_reference(q, k, v, mask, causal)
-    from rankpo_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from rankpo_tpu_torch.ops import flash_attention as flash
 
-    out, _lse = flash_attention_fwd(
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return flash.flash_attention(
+            q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q,
+            bwd_impl=bwd_impl,
+        )
+    out, _lse = flash.flash_attention_fwd(
         q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q
     )
     return out

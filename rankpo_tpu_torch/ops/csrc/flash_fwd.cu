@@ -36,62 +36,9 @@
 // batches removes most of the work. wgmma, TMA and warp specialisation are
 // left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kTile = 64;          // query rows per block, keys per tile
-constexpr int kWarps = 4;          // 16 query rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;            // bf16 elements of row padding (16 bytes)
-constexpr float kNegInf = -1e30f;  // the JAX kernel's NEG_INF
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy rows [row0, row0 + 64) of a strided [rows, D] bf16 matrix into shared
-// memory (row stride D + kPad); rows at or past n_rows are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int n_rows) {
-  constexpr int kVecPerRow = D / 8;  // 8 bf16 = 16 bytes
-  for (int i = threadIdx.x; i < kTile * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -128,23 +75,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   // valid key extent: one past the last valid key (the valid key count on
   // right-padded rows, which is what bounds the JAX kernel's loop)
-  if (tid == 0) s_key_end = 0;
-  __syncthreads();
-  int local_end = 0;
-  for (int j = tid; j < Sk; j += kThreads) {
-    if (mrow[j] != 0) local_end = j + 1;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    local_end = max(local_end, __shfl_xor_sync(0xffffffffu, local_end, off));
-  }
-  if (lane == 0) atomicMax(&s_key_end, local_end);
+  const int key_end = block_key_end(mrow, Sk, &s_key_end);
 
   const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
   const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)hk * k_sh;
   const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)hk * v_sh;
   load_tile<D>(Qs, qb, q_ss, q_start, Sq);
   __syncthreads();
-  const int key_end = s_key_end;
 
   int n_tiles = (key_end + kTile - 1) / kTile;
   if (causal) {
@@ -156,17 +93,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   // this warp's Q rows as mma A fragments, kept in registers for all tiles
   uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* r0 = Qs + (warp * 16 + g) * LDS + 2 * t;
-    const __nv_bfloat16* r1 = r0 + 8 * LDS;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = ld_u32(r0 + kk * 16);
-      qf[kk][1] = ld_u32(r1 + kk * 16);
-      qf[kk][2] = ld_u32(r0 + kk * 16 + 8);
-      qf[kk][3] = ld_u32(r1 + kk * 16 + 8);
-    }
-  }
+  load_a_rows<D>(qf, Qs, warp, g, t);
 
   const int row_a = q_start + warp * 16 + g;  // this thread's two rows
   const int row_b = row_a + 8;
@@ -192,16 +119,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
     // S = Q K^T: 8 key columns per n-tile
     float s[kTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (j * 8 + g) * LDS + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bfrag[2] = {ld_u32(kr + kk * 16), ld_u32(kr + kk * 16 + 8)};
-        mma_16816(s[j], qf[kk], bfrag);
-      }
-    }
+    mma_a_tileT<D>(s, qf, Ks, g, t);
 
     // scale, mask, row max
     float mx_a = kNegInf, mx_b = kNegInf;
@@ -259,22 +177,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O += P V, with P rounded to bf16 (the S accumulator layout is the A
     // fragment layout of the next product)
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = Vs + (kk * 16 + 2 * t) * LDS + g;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vp = v0 + n * 8;
-        uint32_t bfrag[2] = {pack_pair(vp[0], vp[LDS]),
-                             pack_pair(vp[8 * LDS], vp[9 * LDS])};
-        mma_16816(acc[n], a, bfrag);
-      }
-    }
+    mma_c_tile<D>(acc, s, Vs, g, t);
     __syncthreads();  // before the next tile overwrites Ks/Vs/key_ok
   }
 

@@ -1,29 +1,36 @@
-"""Flash-attention forward on Hopper: wrapper, launch counter and plain version.
+"""Flash attention on Hopper: wrappers, launch counters and plain versions.
 
-Replaces ``rankpo_tpu/ops/flash_attention.py:_fwd_kernel`` (the Pallas TPU
-FlashAttention-2 forward, reached through ``_flash_fwd_impl`` /
-``flash_attention``) with a CUDA C++ kernel written for ``sm_90a``
-(``ops/csrc/flash_fwd.cu``), built with nvcc at first use
-(``ops/_build.py``) and called through a plain C entry point with ctypes.
+Replaces the Pallas TPU kernels of ``rankpo_tpu/ops/flash_attention.py``
+with CUDA C++ kernels written for ``sm_90a``, built with nvcc at first use
+(``ops/_build.py``) and called through plain C entry points with ctypes:
 
-What bounds it on an H100 at the serving shapes (S <= 512, D = 64, 32 query
-heads over 8 kv heads): per (batch, head) the K/V rows are at most 128 KB and
-are read about once per 64-row query tile, so the kernel is bound by latency
-and occupancy rather than HBM bandwidth or tensor-core peak, and attention
-is a small share of a layer's FLOPs next to the projections. The design keeps
-many small blocks in flight (one per 64 query rows of one head), runs both
-products on the tensor cores with ``mma.sync`` and skips whole key tiles past
-the valid length and above the causal diagonal (see the kernel's header).
+- ``_fwd_kernel`` (K1, the FlashAttention-2 forward, reached through
+  ``_flash_fwd_impl``) -> :func:`flash_attention_fwd`,
+  ``ops/csrc/flash_fwd.cu``;
+- ``_bwd_fused_kernel`` (K2, ``flash_bwd_fused``), ``_dq_kernel`` (K3a,
+  ``flash_dq``) and ``_dkv_kernel`` (K3b, ``flash_dkv``) ->
+  :func:`flash_attention_bwd`, ``ops/csrc/flash_bwd.cu``.
 
-The kernel takes bf16 only, head_dim 64 or 128, a key mask, causal and
+:class:`FlashAttention` is the ``torch.autograd.Function`` around them, in
+the role of JAX's ``_flash`` custom_vjp: its forward saves (q, k, v, mask,
+out, lse), its backward computes ``delta = rowsum(dO * O)`` in fp32 and runs
+the backward kernels.
+
+What bounds them on an H100 at the encoder's shapes (S <= 512, D = 64, 32
+query heads over 8 kv heads): per (batch, head) the K/V rows are at most
+64 KB and are read once per 64-row tile, so the kernels are bound by
+latency and occupancy rather than HBM bandwidth or tensor-core peak, and
+attention is a small share of a layer next to the projections. The design
+keeps many small blocks in flight, runs every product on the tensor cores
+with ``mma.sync`` and skips whole tiles past the valid length and above the
+causal diagonal (see the kernels' headers).
+
+The kernels take bf16 only, head_dim 64 or 128, a key mask, causal and
 ``skip_pad_q``. ``window`` and ``segment_ids`` are not ported yet and raise.
-It is forward-only: the backward kernels (``_bwd_fused_kernel``, or
-``_dq_kernel`` + ``_dkv_kernel``) are not ported, so a call that would need a
-gradient raises.
 
-:func:`flash_attention_fwd_reference` is the plain PyTorch version of the
-same contract, used by the CPU tests and by ``chip_smoke.py`` to check the
-kernel on the card.
+:func:`flash_attention_fwd_reference` and :func:`flash_attention_bwd_reference`
+are the plain PyTorch versions of the same contracts, used by the CPU tests
+and by ``chip_smoke.py`` to check the kernels on the card.
 """
 
 from __future__ import annotations
@@ -33,14 +40,25 @@ from typing import Optional, Tuple
 
 import torch
 
-from rankpo_tpu_torch.ops.attention import NEG_INF, masked_logits
+from rankpo_tpu_torch.ops.attention import BWD_IMPLS, NEG_INF, masked_logits
 
-# launches of the CUDA kernel in this process (read by chip_smoke.py to show
-# the main path went through it); incremented only after a launch succeeded
-launches = 0
+# launches of each CUDA kernel in this process (read by chip_smoke.py to show
+# the main path went through them); incremented only after a launch succeeded
+launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_dq": 0, "flash_dkv": 0}
 _count_lock = threading.Lock()
 
 HEAD_DIMS = (64, 128)
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launches[name] += 1
 
 
 def flash_attention_fwd_reference(
@@ -64,8 +82,56 @@ def flash_attention_fwd_reference(
     return out, lse.reshape(b, hq, sq)
 
 
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    *,
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward from the forward's stats, with the contract of JAX's
+    ``flash_bwd_fused``: q/do [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], lse and
+    delta [B, Hq, Sq] fp32. Returns fp32 (dq [B, Sq, Hq, D], dk, dv
+    [B, Sk, Hkv, D]), dk/dv summed over each GQA group.
+
+    s = scale * q.k in fp32; p = exp(s - lse) on valid entries and 0
+    elsewhere, and 0 on rows whose lse is NEG_INF (no key seen by the
+    forward); dv = p^T do with p cast to do's dtype; dp = do v^T;
+    ds = p (dp - delta) scale cast to q's dtype; dk = ds^T q; dq = ds k."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    groups = hq // hkv
+    scale = 1.0 / (d**0.5)
+    qf = q.to(torch.float32).reshape(b, sq, hkv, groups, d)
+    dof = do.to(torch.float32).reshape(b, sq, hkv, groups, d)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    valid = torch.ones(b, 1, 1, sq, sk, dtype=torch.bool, device=q.device)
+    if mask is not None:
+        valid = valid & mask.to(torch.bool)[:, None, None, None, :]
+    if causal:
+        allowed = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
+            diagonal=sk - sq
+        )
+        valid = valid & allowed
+    lse5 = lse.to(torch.float32).reshape(b, hkv, groups, sq, 1)
+    delta5 = delta.to(torch.float32).reshape(b, hkv, groups, sq, 1)
+    valid = valid & (lse5 > NEG_INF * 0.5)
+    p = torch.where(valid, torch.exp(torch.where(valid, s - lse5, 0.0)), 0.0)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).to(torch.float32), dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = (p * (dp - delta5) * scale).to(q.dtype).to(torch.float32)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
+    return dq, dk, dv
+
+
 def _check_rows(name: str, x: torch.Tensor) -> None:
-    """The kernel reads each [D] row with 16-byte vector loads."""
+    """The kernels read each [D] row with 16-byte vector loads."""
     if x.stride(3) != 1:
         raise ValueError(f"{name}: head_dim must be contiguous (stride 1)")
     if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
@@ -75,38 +141,7 @@ def _check_rows(name: str, x: torch.Tensor) -> None:
         )
 
 
-def flash_attention_fwd(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    mask: Optional[torch.Tensor] = None,
-    *,
-    causal: bool = False,
-    skip_pad_q: bool = False,
-    window: Optional[int] = None,
-    segment_ids: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] bf16 on
-    one CUDA device, mask [B, Sk] (non-zero = valid key, default all valid).
-    Returns (out [B, Sq, Hq, D] bf16, lse [B, Hq, Sq] fp32).
-
-    Strided inputs are read in place (no transpose copy). With
-    ``skip_pad_q``, query tiles that start at or past the valid key length
-    output zeros: compare only rows below the valid length."""
-    global launches
-    if window is not None or segment_ids is not None:
-        raise NotImplementedError(
-            "flash kernel: `window` and `segment_ids` are not ported yet "
-            "(ROADMAP.md Queue 2, K1 variants)"
-        )
-    if torch.is_grad_enabled() and any(
-        x.requires_grad for x in (q, k, v)
-    ):
-        raise NotImplementedError(
-            "flash kernel is forward-only: the backward kernels K2 "
-            "(_bwd_fused_kernel) and K3 (_dq_kernel/_dkv_kernel) are not "
-            "ported yet; run under torch.inference_mode()"
-        )
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(
@@ -131,11 +166,46 @@ def flash_attention_fwd(
         raise ValueError("flash kernel: empty sequence or batch")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_rows(name, x)
+
+
+def _int_mask(mask: Optional[torch.Tensor], b: int, sk: int,
+              device: torch.device) -> torch.Tensor:
     if mask is None:
-        mask = torch.ones((b, sk), dtype=torch.int32, device=q.device)
+        return torch.ones((b, sk), dtype=torch.int32, device=device)
     if mask.shape != (b, sk):
         raise ValueError(f"flash kernel: mask {tuple(mask.shape)} != {(b, sk)}")
-    mask = mask.to(device=q.device, dtype=torch.int32).contiguous()
+    return mask.to(device=device, dtype=torch.int32).contiguous()
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    skip_pad_q: bool = False,
+    window: Optional[int] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] bf16 on one CUDA
+    device, mask [B, Sk] (non-zero = valid key, default all valid).
+    Returns (out [B, Sq, Hq, D] bf16, lse [B, Hq, Sq] fp32). No gradient
+    flows through this call; :class:`FlashAttention` is the differentiable
+    form.
+
+    Strided inputs are read in place (no transpose copy). With
+    ``skip_pad_q``, query tiles that start at or past the valid key length
+    output zeros: compare only rows below the valid length."""
+    if window is not None or segment_ids is not None:
+        raise NotImplementedError(
+            "flash kernel: `window` and `segment_ids` are not ported yet "
+            "(ROADMAP.md Queue 2, K1 variants)"
+        )
+    _check_qkv(q, k, v)
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    mask = _int_mask(mask, b, sk, q.device)
 
     from rankpo_tpu_torch.ops._build import load_library
 
@@ -153,6 +223,144 @@ def flash_attention_fwd(
         )
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {rc}")
-    with _count_lock:
-        launches += 1
+    _count("flash_fwd")
     return out, lse
+
+
+def resolve_bwd_impl(bwd_impl: str) -> str:
+    """"fused" or "split" for a ``bwd_impl`` of :data:`BWD_IMPLS`: "auto" is
+    split (bit-reproducible) under ``torch.use_deterministic_algorithms``
+    and fused (dq by atomics) otherwise."""
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
+    if bwd_impl == "auto":
+        return "split" if torch.are_deterministic_algorithms_enabled() else "fused"
+    return bwd_impl
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    *,
+    causal: bool = False,
+    skip_pad_q: bool = False,
+    bwd_impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels on the forward's inputs and stats:
+    q/do [B, Sq, Hq, D] bf16, k/v [B, Sk, Hkv, D] bf16, lse and delta
+    [B, Hq, Sq] fp32. Returns (dq, dk, dv) in the inputs' dtype (bf16).
+
+    ``bwd_impl``:
+
+    - ``"fused"`` (K2): one pass per key tile; dq accumulates in fp32 through
+      atomics, so its summation order (and sometimes its last bf16 bit)
+      changes from run to run;
+    - ``"split"`` (K3a + K3b): the dq kernel loops over key tiles per query
+      tile and holds dq in registers, so dq, dk and dv repeat bit for bit;
+    - ``"auto"``: split when ``torch.are_deterministic_algorithms_enabled()``,
+      fused otherwise (:func:`resolve_bwd_impl`). The JAX package picks split
+      above 8·Sq·D > 4 MiB (``flash_attention.py:777``), a VMEM budget for
+      its resident dq block; the atomics design has no such budget, so the
+      one observable difference, reproducibility, decides.
+
+    dk/dv come out of the kernels per query head in fp32 and are summed over
+    each GQA group here, as ``flash_bwd_fused`` does."""
+    bwd_impl = resolve_bwd_impl(bwd_impl)
+    _check_qkv(q, k, v)
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash kernel: do {tuple(do.shape)} {do.dtype} must match q")
+    _check_rows("do", do)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, hq, sq) or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"flash kernel: {name} must be contiguous fp32 {(b, hq, sq)}")
+        if x.device != q.device:
+            raise ValueError(f"flash kernel: {name} must be on {q.device}")
+    mask = _int_mask(mask, b, sk, q.device)
+
+    from rankpo_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    dev = q.device
+    groups = hq // hkv
+    fused = bwd_impl == "fused"
+    dk_h = torch.empty((b, hq, sk, d), dtype=torch.float32, device=dev)
+    dv_h = torch.empty_like(dk_h)
+    if fused:
+        dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+        steps = (("flash_bwd_fused", lib.rankpo_flash_bwd_fused_bf16),)
+    else:
+        dq = torch.empty((b, sq, hq, d), dtype=torch.bfloat16, device=dev)
+        steps = (("flash_dq", lib.rankpo_flash_bwd_dq_bf16),
+                 ("flash_dkv", lib.rankpo_flash_bwd_dkv_bf16))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for name, fn in steps:
+            rc = fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),
+                b, sq, sk, hq, hkv, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *do.stride()[:3], mask.stride(0),
+                int(causal), int(skip_pad_q), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+            _count(name)
+    if fused:
+        dq = dq.permute(0, 2, 1, 3).to(q.dtype)
+    # per-head fp32 -> GQA group sums -> [B, Sk, Hkv, D] in the inputs' dtype
+    dk = dk_h.view(b, hkv, groups, sk, d).sum(2).permute(0, 2, 1, 3).to(k.dtype)
+    dv = dv_h.view(b, hkv, groups, sk, d).sum(2).permute(0, 2, 1, 3).to(v.dtype)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable K1 + backward kernels (JAX ``_flash`` custom_vjp,
+    ``flash_attention.py:497-547`` and ``_flash_bwd``, ``:666-682``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal: bool, skip_pad_q: bool,
+                bwd_impl: str):
+        out, lse = flash_attention_fwd(
+            q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q
+        )
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal, ctx.skip_pad_q, ctx.bwd_impl = causal, skip_pad_q, bwd_impl
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        # delta = rowsum(dO * O) in fp32 (flash_attention.py:669)
+        delta = (do.to(torch.float32) * out.to(torch.float32)).sum(-1)
+        delta = delta.permute(0, 2, 1).contiguous()
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, mask, do, lse, delta, causal=ctx.causal,
+            skip_pad_q=ctx.skip_pad_q, bwd_impl=ctx.bwd_impl,
+        )
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    skip_pad_q: bool = False,
+    bwd_impl: str = "auto",
+) -> torch.Tensor:
+    """Differentiable flash attention on CUDA tensors: out [B, Sq, Hq, D]."""
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
+    return FlashAttention.apply(q, k, v, mask, causal, skip_pad_q, bwd_impl)

@@ -1,0 +1,1 @@
+"""utils layer of the PyTorch port (see the matching rankpo_tpu.utils)."""

@@ -131,10 +131,14 @@ def test_dispatch_on_cpu():
 
 
 def test_kernel_wrapper_rejects_gradients_and_cpu():
+    """CPU tensors never reach a kernel: the forward wrapper and the
+    differentiable Function (what a gradient-needing call takes) both raise,
+    and no launch is counted."""
     q, k, v, mask = _port(*_inputs())
-    before = port_flash.launches
-    with pytest.raises(NotImplementedError, match="K2"):
-        flash_attention_fwd(q.requires_grad_(), k, v, mask, causal=True)
+    before = dict(port_flash.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_flash.flash_attention(q.bfloat16().requires_grad_(), k.bfloat16(),
+                                   v.bfloat16(), mask, causal=True)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(q.detach().bfloat16(), k.bfloat16(), v.bfloat16(), mask)
     assert port_flash.launches == before

@@ -213,7 +213,7 @@ def test_http_server(checkpoint):
         thread.join(timeout=30)
     assert not thread.is_alive()
     # the CPU path never reaches the CUDA kernel
-    assert port_flash.launches == 0
+    assert not any(port_flash.launches.values())
 
 
 @pytest.mark.parametrize("flag", [["--index_type", "ivf"], ["--index_dtype", "int8"],
