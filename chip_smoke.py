@@ -17,10 +17,14 @@ PyTorch version. Phases:
    that computes the same function (scaled_dot_product_attention, a
    yardstick the port never calls) and the least time the card could take;
 3. exact search on data with exact ties;
-4. serving path: a bf16 checkpoint written with the port's save_pretrained,
-   a 4096-passage corpus, the HTTP server started by the CLI in a thread,
-   single-query requests from 8 client threads and batched requests,
-   checked against an exact numpy search over the index rows;
+4. serving path, three times: a bf16 checkpoint written with the port's
+   save_pretrained, a 4096-passage corpus, the HTTP server started by the
+   CLI in a thread, single-query requests from 8 client threads and batched
+   requests. The flat index (K1) is checked against an exact numpy search
+   over the index rows; the IVF index with bf16 rows (``--index_type ivf``,
+   K1 and K4) and the IVF-PQ index (``--index_type IVF64,PQ64``, K1 and K5)
+   also take a request with a per-call nprobe and are checked against the
+   index's own search on the same query embeddings;
 5. training path: stage 1 (``run_contrastive.main``, 512 synthetic rows;
    "auto" picks the fused backward) then stage 2 (``run_rankpo.main`` on
    stage 1's output, 256 synthetic pairs, under
@@ -29,7 +33,14 @@ PyTorch version. Phases:
    kernels' launch counters rose; one micro-batch through the kernels and
    through the plain attention, both held against the plain attention in
    fp32 compute; one profiled stage-1 step;
-6. numbers.
+6. the IVF tier at scale: 2^20 unit rows at D 2048 (a mixture around 8192
+   centres) and 1024 held-out queries, made on the card; three indexes
+   built by the IVFIPIndex constructor (bf16 rows, PQ64 rows, PQ64
+   columns), each searched at k 100 and held to recall@100 >= 0.90
+   against its exact search; K4, K5 and K6 against their plain versions at
+   the indexes' own probe sets and storage (and at m 256 and a capacity off
+   the kernels' tiles), timed on cold data;
+7. numbers.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after. Any failure raises, so the exit code is not 0 and no result line is
@@ -83,6 +94,21 @@ SCORE_ATOL = 1e-5  # cuBLAS and numpy sum the 2048 fp32 products in other orders
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, HBM
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores (K4's FMAs, K5/K6's adds)
+# IVF kernels against their plain versions: fp32 sums of the same exact
+# products (K4) or table entries (K5/K6) in another order differ by a few
+# fp32 ulps of the largest partial sum, about 1e-6 of the largest score; the
+# limit is 1e-5 of it
+IVF_RTOL_OF_MAX = 1e-5
+IVF_RECALL_MIN = 0.90
+SCALE_N, SCALE_D, SCALE_CENTRES, SCALE_Q = 1 << 20, 2048, 8192, 1024
+SCALE_NOISE = 1.0  # |noise| / |centre|: rows of one centre at cosine ~0.5
+SERVE_TIERS = {  # tier -> (extra CLI flags, the kernel its search runs)
+    "flat": ([], None),
+    "ivf": (["--index_type", "ivf", "--index_dtype", "bfloat16",
+             "--recall_target", "0.95"], "ivf_probe_scores"),
+    "pq": (["--index_type", "IVF64,PQ64"], "pq_probe_scores"),
+}
 KERNELS = {  # name -> (TPU kernel it replaces, source, profiler name test)
     "flash_fwd": ("rankpo_tpu/ops/flash_attention.py:55", "flash_fwd.cu",
                   lambda n: "flash_fwd_kernel" in n),
@@ -92,6 +118,13 @@ KERNELS = {  # name -> (TPU kernel it replaces, source, profiler name test)
                  lambda n: "flash_bwd_dq_kernel" in n),
     "flash_dkv": ("rankpo_tpu/ops/flash_attention.py:240", "flash_bwd.cu",
                   lambda n: "flash_bwd_kv_kernel" in n and "false" in n),
+}
+IVF_KERNELS = {  # name -> (TPU kernel it replaces, source, launch counter)
+    "ivf_probe_scores": ("rankpo_tpu/ops/ivf_gather_pallas.py:43", "ivf_gather.cu",
+                         "ivf_probe_scores"),
+    "pq_probe_scores": ("rankpo_tpu/ops/pq_adc_pallas.py:126", "pq_adc.cu", "pq_adc_rows"),
+    "pq_probe_scores_t": ("rankpo_tpu/ops/pq_adc_pallas.py:186", "pq_adc.cu",
+                          "pq_adc_cols"),
 }
 
 
@@ -107,10 +140,13 @@ def card_line() -> str:
     return out[0]
 
 
-def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
-    """Median of n CUDA-event timings of fn() (after warmup calls)."""
+def cuda_ms(fn, n: int = 20, warmup: int = 3, before=None) -> float:
+    """Median of n CUDA-event timings of fn() (after warmup calls);
+    ``before()`` runs ahead of each call, outside the timed region."""
     times = []
     for i in range(warmup + n):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -224,9 +260,9 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
     return reads + writes, pairs * products * 2 * d
 
 
-def bound(cost) -> tuple:
+def bound(cost, peak_ops: float = PEAK_BF16_FLOPS) -> tuple:
     nbytes, flops = cost
-    t_bytes, t_flops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+    t_bytes, t_flops = nbytes / PEAK_HBM_BYTES, flops / peak_ops
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
@@ -418,12 +454,14 @@ def _http(port, path, payload=None):
         return r.status, body, time.perf_counter() - t0
 
 
-def _check_reply(status, body, n_queries, k):
+def _check_reply(status, body, n_queries, k, exact_k=True):
+    """An IVF reply may hold fewer than k hits: probed slots that hold no
+    row are never served."""
     if status != 200 or len(body["results"]) != n_queries:
         raise AssertionError(f"bad reply {status}: {str(body)[:200]}")
     for res in body["results"]:
         scores = [h["score"] for h in res["hits"]]
-        if len(scores) != k:
+        if len(scores) != k if exact_k else not 0 < len(scores) <= k:
             raise AssertionError(f"{len(scores)} hits, expected {k}")
         if any(a < b for a, b in zip(scores, scores[1:])):
             raise AssertionError("scores not non-increasing")
@@ -442,16 +480,12 @@ def _check_against_oracle(served_idx, served_scores, oracle_scores, oracle_idx):
     clear = gap.copy()
     clear[:, 1:] &= gap[:, :-1]
     if not np.array_equal(served_idx[clear], oracle_idx[:, :k][clear]):
-        raise AssertionError("served indices differ from numpy_search")
+        raise AssertionError("served indices differ from the oracle's")
     return int((~clear).sum())
 
 
-def phase_serving(seed: int, tmp: str, ckpt: str) -> dict:
-    """The serving path: the CLI's server over a corpus, queried by HTTP."""
-    from rankpo_tpu_torch.cli import serve as cli
-    from rankpo_tpu_torch.index.flat import numpy_search
-    from rankpo_tpu_torch.ops import flash_attention as flash
-
+def _serving_data(seed: int, tmp: str):
+    """The corpus file (4096 passages of 16-480 words) and 64 queries."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(16, 481, N_PASSAGES)
     corpus = [" ".join(rng.choice(WORDS, size=n)) for n in lengths]
@@ -461,12 +495,30 @@ def phase_serving(seed: int, tmp: str, ckpt: str) -> dict:
             f.write(json.dumps({"text": text}) + "\n")
     queries = [" ".join(rng.choice(WORDS, size=n))
                for n in rng.integers(4, 33, 64)]
+    return corpus, corpus_file, queries
 
+
+def _served(body):
+    idx = [[h["index"] for h in r["hits"]] for r in body["results"]]
+    sc = [[h["score"] for h in r["hits"]] for r in body["results"]]
+    return idx, sc
+
+
+def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
+    """The serving path: the CLI's server over a corpus, queried by HTTP,
+    with the index tier ``tier`` (SERVE_TIERS)."""
+    from rankpo_tpu_torch.cli import serve as cli
+    from rankpo_tpu_torch.index.flat import numpy_search
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    corpus, corpus_file, queries = _serving_data(seed, tmp)
+    extra, ivf_kernel = SERVE_TIERS[tier]
     port = _free_port()
     argv = ["--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256",
             "--corpus_data", corpus_file, "--max_query_length", "512",
             "--max_passage_length", "512", "--batch_size", "64",
-            "--device", "cuda", "--port", str(port), "--log_level", "warning"]
+            "--device", "cuda", "--port", str(port), "--log_level", "warning", *extra]
     holder: dict = {}
 
     def run_server():
@@ -479,6 +531,8 @@ def phase_serving(seed: int, tmp: str, ckpt: str) -> dict:
 
     # ---- the serving path: counters from 0, server start, requests ----
     flash.reset_launches()
+    ivf_gather.reset_launches()
+    pq_adc.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
     thread = threading.Thread(target=run_server, name="serve", daemon=True)
@@ -498,6 +552,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str) -> dict:
     startup_s = time.perf_counter() - t_start
     server = holder["server"]
     service = server.service
+    index = service.index
     try:
         with ThreadPoolExecutor(8) as pool:
             singles = list(pool.map(
@@ -508,78 +563,118 @@ def phase_serving(seed: int, tmp: str, ckpt: str) -> dict:
         for j, k in enumerate((10, 100, 10, 100)):
             group = queries[16 * j : 16 * (j + 1)]
             batched.append((_http(port, "/search", {"queries": group, "k": k}),
-                            group, k))
-        launches = flash.launches["flash_fwd"]
+                            group, k, None))
+        if ivf_kernel is not None:  # a per-call nprobe (bypasses the batcher)
+            nprobe = max(1, index.nprobe // 2)
+            group = queries[:16]
+            batched.append((_http(port, "/search", {"queries": group, "k": 100,
+                                                   "nprobe": nprobe}),
+                            group, 100, nprobe))
+        launches = {"flash_fwd": flash.launches["flash_fwd"],
+                    **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
+                       for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
         # ---- end of the serving path ----
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
+        exact_k = ivf_kernel is None
         for (status, body, _), i in singles:
-            _check_reply(status, body, 1, (10, 100)[i % 2])
-        for (status, body, _), group, k in batched:
-            _check_reply(status, body, len(group), k)
+            _check_reply(status, body, 1, (10, 100)[i % 2], exact_k)
+        for (status, body, _), group, k, _ in batched:
+            _check_reply(status, body, len(group), k, exact_k)
         stats = _http(port, "/statsz")[1]
-        log(f"served: 32 single queries from 8 clients in "
+        log(f"served ({tier}): 32 single queries from 8 clients in "
             f"{stats['microbatch_dispatches']} micro-batches, "
-            f"4 batched requests of 16")
+            f"{len(batched)} batched requests of 16")
 
         n_batches = -(-N_PASSAGES // 64)
-        if launches < 16 * n_batches:
+        if launches["flash_fwd"] < 16 * n_batches:
             raise AssertionError(
-                f"flash kernel launched {launches} times on the main path; "
-                f"expected >= {16 * n_batches} (16 layers x {n_batches} "
+                f"flash kernel launched {launches['flash_fwd']} times on the main "
+                f"path; expected >= {16 * n_batches} (16 layers x {n_batches} "
                 "encode batches)")
-        log(f"flash kernel launches on the serving path: {launches}")
+        counter = ivf_kernel and IVF_KERNELS[ivf_kernel][2]
+        if counter is not None and launches[counter] <= 0:
+            raise AssertionError(f"{ivf_kernel} was not launched on the {tier} path")
+        log(f"kernel launches on the {tier} serving path: {launches}")
 
-        # the index against the exact numpy oracle: each batched request
-        # embedded again exactly as the service embedded it
-        rows = service.index.rows()
-        n_near = 0
-        for (_, body, _), group, k in batched:
+        # each batched request embedded again exactly as the service embedded
+        # it: the flat tier against the exact numpy oracle over the index
+        # rows; the IVF tiers against the index's own search (same kernel,
+        # same inputs: a consistency check) and, for recall, its exact search
+        n_near, recalls = 0, []
+        rows = service.index.rows() if ivf_kernel is None else None
+        for (_, body, _), group, k, nprobe in batched:
             batch = service.encoder.prepare_batch(group, len(group), 512)
             q_emb = service.encoder.embed_batch(batch).cpu().numpy()
-            # one extra oracle rank: a near-tie across the k boundary
-            o_scores, o_idx = numpy_search(rows, q_emb, k + 1)
-            s_idx = np.array([[h["index"] for h in r["hits"]] for r in body["results"]])
-            s_sc = np.array([[h["score"] for h in r["hits"]] for r in body["results"]])
-            n_near += _check_against_oracle(s_idx, s_sc, o_scores, o_idx)
-        log(f"index: served top-k equal to numpy_search over the index rows "
-            f"({n_near} hits inside {SCORE_ATOL} near-ties not compared)")
+            s_idx, s_sc = _served(body)
+            if ivf_kernel is None:
+                # one extra oracle rank: a near-tie across the k boundary
+                o_scores, o_idx = numpy_search(rows, q_emb, k + 1)
+                n_near += _check_against_oracle(np.array(s_idx), np.array(s_sc),
+                                                o_scores, o_idx)
+                continue
+            # the server searched at k_max 100 and sliced to k
+            r_sc, r_idx = index.search(q_emb, k=100, nprobe=nprobe)
+            _, e_idx = index.exact_search(q_emb, k=k)
+            for r in range(len(group)):
+                keep = r_idx[r] >= 0
+                o_sc, o_idx = r_sc[r][keep][: k + 1], r_idx[r][keep][: k + 1]
+                n = len(s_idx[r])
+                if n != min(k, keep.sum()):
+                    raise AssertionError(f"{n} served hits, the index found {keep.sum()}")
+                o_sc = np.concatenate([o_sc, np.full(n + 1 - len(o_sc), -np.inf)])
+                o_idx = np.concatenate([o_idx, np.full(n + 1 - len(o_idx), -1)])
+                n_near += _check_against_oracle(
+                    np.array([s_idx[r]]), np.array([s_sc[r]]), o_sc[None], o_idx[None])
+                recalls.append(len(set(s_idx[r]) & set(e_idx[r].tolist())) / k)
+        oracle = "numpy_search over the index rows" if ivf_kernel is None else (
+            "the index's own search on the same embeddings")
+        log(f"index ({tier}): served top-k equal to {oracle} ({n_near} hits inside "
+            f"{SCORE_ATOL} near-ties not compared)")
+        numbers = {}
+        if ivf_kernel is not None:
+            numbers.update(
+                recall=float(np.mean(recalls)), nprobe=index.nprobe,
+                n_clusters=index.n_clusters, capacity=index.capacity,
+                build_s=dict(index.build_seconds))
+            log(f"index ({tier}): K {index.n_clusters}, capacity {index.capacity}, "
+                f"tuned nprobe {index.nprobe}, build {index.build_seconds}; recall@k of "
+                f"the served hits against the index's exact search "
+                f"{numbers['recall']:.4f} (random weights: printed, not held)")
+        else:
+            # the kernel inside the encoder against the plain attention
+            batch = service.encoder.prepare_batch(corpus[:64], 64, 512)
+            a = service.encoder.embed_batch(batch, attn_impl="auto")
+            p = service.encoder.embed_batch(batch, attn_impl="plain")
+            cos = torch.nn.functional.cosine_similarity(a, p).min().item()
+            log(f"encoder: min cosine kernel vs plain over 64 passages {cos:.6f}")
+            if cos < 0.999:
+                raise AssertionError("encoder embeddings through the kernel disagree")
 
-        # the kernel inside the encoder against the plain attention
-        batch = service.encoder.prepare_batch(corpus[:64], 64, 512)
-        a = service.encoder.embed_batch(batch, attn_impl="auto")
-        p = service.encoder.embed_batch(batch, attn_impl="plain")
-        cos = torch.nn.functional.cosine_similarity(a, p).min().item()
-        log(f"encoder: min cosine kernel vs plain over 64 passages {cos:.6f}")
-        if cos < 0.999:
-            raise AssertionError("encoder embeddings through the kernel disagree")
-
-        # numbers: a timed re-encode of the corpus, request latencies
-        tok = service.encoder.tokenizer
-        n_tokens = sum(len(x) for x in tok(corpus, max_length=512,
-                                           truncation=True)["input_ids"])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        emb, _ = service.encoder.encode_device(corpus, batch_size=64,
-                                               max_length=512)
-        torch.cuda.synchronize()
-        enc_s = time.perf_counter() - t0
-        if not torch.isfinite(emb).all():
-            raise AssertionError("non-finite corpus embeddings")
+            # numbers: a timed re-encode of the corpus
+            tok = service.encoder.tokenizer
+            n_tokens = sum(len(x) for x in tok(corpus, max_length=512,
+                                               truncation=True)["input_ids"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emb, _ = service.encoder.encode_device(corpus, batch_size=64,
+                                                   max_length=512)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+            if not torch.isfinite(emb).all():
+                raise AssertionError("non-finite corpus embeddings")
+            numbers.update(encode_s=enc_s, passages_per_s=N_PASSAGES / enc_s,
+                           tokens_per_s=n_tokens / enc_s, corpus_tokens=n_tokens)
         lat = np.array([r[0][2] for r in singles]) * 1e3
-        lat_b = np.array([r[0][2] for r in batched]) * 1e3
-        numbers = {
+        lat_b = np.array([r[0][2] for r in batched[:4]]) * 1e3
+        numbers.update({
             "startup_s": startup_s,
-            "encode_s": enc_s,
-            "passages_per_s": N_PASSAGES / enc_s,
-            "tokens_per_s": n_tokens / enc_s,
-            "corpus_tokens": n_tokens,
             "search_single_p50_ms": float(np.percentile(lat, 50)),
             "search_single_p99_ms": float(np.percentile(lat, 99)),
             "search_batch16_p50_ms": float(np.percentile(lat_b, 50)),
             "peak_mem_gib": peak_gib,
             "launches": launches,
-        }
+        })
     finally:
         server.shutdown()
         if server.batcher is not None:
@@ -833,6 +928,255 @@ def phase_training(ckpt: str, tmp: str, seed: int, base_state: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+def make_scale_data(seed: int):
+    """SCALE_N + SCALE_Q unit rows at SCALE_D on the card: a mixture around
+    SCALE_CENTRES random unit centres plus Gaussian noise of relative size
+    SCALE_NOISE (the last SCALE_Q rows are the held-out queries)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    n, d = SCALE_N + SCALE_Q, SCALE_D
+    centres = torch.nn.functional.normalize(
+        torch.randn(SCALE_CENTRES, d, generator=gen, device="cuda"), dim=1)
+    x = torch.empty(n, d, device="cuda")
+    for lo in range(0, n, 1 << 17):
+        hi = min(lo + (1 << 17), n)
+        pick = torch.randint(0, SCALE_CENTRES, (hi - lo,), generator=gen, device="cuda")
+        noise = torch.randn(hi - lo, d, generator=gen, device="cuda")
+        x[lo:hi] = torch.nn.functional.normalize(
+            centres[pick] + noise * (SCALE_NOISE / d**0.5), dim=1)
+    return x[:SCALE_N], x[SCALE_N:]
+
+
+def _l2_flush():
+    """Evict the 50 MB L2 between timed launches (the probed data is cold,
+    as a caller finds it), then keep the card busy for ~1 ms so that the
+    host enqueues the timed call before its start event fires: the events
+    then time the device work, not the wrapper's Python."""
+    if getattr(_l2_flush, "buf", None) is None:
+        _l2_flush.buf = torch.empty(1 << 27, dtype=torch.uint8, device="cuda")
+    _l2_flush.buf.zero_()
+    torch.cuda._sleep(1 << 21)
+
+
+def _kernel_check(name: str, fn, plain, compose, nbytes: int, ops: int, label: str):
+    """One IVF kernel against its plain version on the same inputs: error,
+    then CUDA-event times (cold L2) of the kernel, the plain version and the
+    shortest torch composition, and the bound."""
+    got, ref = fn(), plain()
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    limit = IVF_RTOL_OF_MAX * ref.abs().max().item()
+    if not err <= limit:
+        raise AssertionError(f"{name} disagrees with plain at {label}: max|err| {err:.3e} "
+                             f"(limit {limit:.3e})")
+    out = {"max_abs_err": err, "limit": limit}
+    if compose is not None:
+        out["ms"] = cuda_ms(fn, before=_l2_flush)
+        out["plain_ms"] = cuda_ms(plain, n=5, warmup=1, before=_l2_flush)
+        out["compose_ms"] = cuda_ms(compose, n=5, warmup=1, before=_l2_flush)
+        out["bound_ms"], out["bound_by"] = bound((nbytes, ops), PEAK_FP32_FLOPS)
+        out["library_ms"] = None  # no single PyTorch call computes a gathered block score
+        log(f"time {name} at {label}: kernel {out['ms']:.4f} ms (CUDA events, cold L2, "
+            "median of 20); "
+            f"plain {out['plain_ms']:.4f} ms; torch composition {out['compose_ms']:.4f} ms; "
+            f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}, {nbytes / 1e6:.1f} MB); "
+            f"max|err| {err:.3e} (limit {limit:.3e})")
+    else:
+        log(f"check {name} at {label}: max|err| {err:.3e} (limit {limit:.3e})")
+    return out
+
+
+def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
+    """The path's kernel against its plain version at the index's own probe
+    set (Q 64, the tuned nprobe; or the given ``probe`` [64, P] cluster ids)
+    and storage."""
+    from rankpo_tpu_torch.index.ivf import PQ_K, _bf16
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    q = queries[:64]
+    if probe is None:
+        p, _ = index._effective_probe(100, None)
+        probe, _ = index._probe_clusters(q, p)
+    p = probe.shape[1]
+    probe32 = probe.to(torch.int32)
+    cap, q_n = index.capacity, q.shape[0]
+    blocks = torch.unique(probe).numel()  # distinct probed blocks, read once
+    out_bytes, probe_bytes = q_n * p * cap * 4, probe32.numel() * 4
+    label = f"Q {q_n}, P {p} ({blocks} distinct blocks), cap {cap}"
+    res = {}
+    if kind == "bf16":
+        for dtype in (torch.bfloat16, torch.float32):
+            corpus = index.corpus if dtype == torch.bfloat16 else index.corpus.float()
+            d = corpus.shape[1]
+            qv = q.to(dtype)
+
+            def compose(corpus=corpus, qv=qv):
+                rows = corpus.view(-1, cap, d).index_select(0, probe.flatten())
+                return torch.bmm(rows.view(q_n, p * cap, d), qv[:, :, None])
+
+            nbytes = blocks * cap * d * corpus.element_size() + q.numel() * 4 + probe_bytes
+            res[str(dtype).split(".")[1]] = _kernel_check(
+                "ivf_probe_scores", lambda c=corpus: ivf_gather.probe_scores(c, probe32, q, cap=cap),
+                lambda c=corpus: ivf_gather.probe_scores_plain(c, probe32, q, cap=cap),
+                compose, nbytes + out_bytes, q_n * p * cap * d * 2,
+                f"{label}, D {d}, {dtype}")
+            del corpus
+        return res
+    m, ds = index.pq_m, index.dim // index.pq_m
+    q_sub = _bf16(q).reshape(q_n, m, ds).transpose(0, 1)
+    cbm = index.codebooks.to(torch.float32).view(m, PQ_K, ds)
+    lut = torch.bmm(q_sub, cbm.transpose(1, 2)).transpose(0, 1).contiguous()
+    codes = index.corpus
+    if kind == "pq_rows":
+        fn, plain, name = pq_adc.pq_probe_scores, pq_adc.pq_probe_scores_plain, "pq_probe_scores"
+        blocks_of = lambda: codes.view(-1, cap, m).index_select(0, probe.flatten())
+    else:
+        fn, plain, name = (pq_adc.pq_probe_scores_t, pq_adc.pq_probe_scores_t_plain,
+                           "pq_probe_scores_t")
+        blocks_of = lambda: codes.view(m, -1, cap).index_select(1, probe.flatten())
+
+    def compose():
+        b = blocks_of().long()  # the table gather and sum over the gathered codes
+        if kind == "pq_cols":
+            b = b.permute(1, 2, 0)
+        idx = (b + torch.arange(m, device=b.device) * PQ_K).reshape(q_n, -1)
+        return torch.gather(lut.view(q_n, -1), 1, idx).view(q_n, p * cap, m).sum(-1)
+
+    nbytes = blocks * cap * m + lut.numel() * 4 + probe_bytes + out_bytes
+    res[kind] = _kernel_check(
+        name, lambda: fn(codes, probe32, lut, cap=cap), lambda: plain(codes, probe32, lut, cap=cap),
+        compose, nbytes, q_n * p * cap * m, f"{label}, m {m}")
+    return res
+
+
+def _odd_shape_checks(seed: int) -> dict:
+    """K4, K5 and K6 at a capacity off every tile of the kernels (333 rows),
+    and K5/K6 at m 256 (the table staged in four chunks of 64 subspaces)."""
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    k_c, cap, q_n, p = 512, 333, 64, 8
+    probe = torch.randint(0, k_c, (q_n, p), generator=gen, device="cuda", dtype=torch.int32)
+    q = torch.nn.functional.normalize(torch.randn(q_n, SCALE_D, generator=gen, device="cuda"))
+    corpus = torch.nn.functional.normalize(
+        torch.randn(k_c * cap, SCALE_D, generator=gen, device="cuda")).bfloat16()
+    label = f"Q {q_n}, P {p}, cap {cap}"
+    errs = {"ivf_probe_scores": _kernel_check(
+        "ivf_probe_scores", lambda: ivf_gather.probe_scores(corpus, probe, q, cap=cap),
+        lambda: ivf_gather.probe_scores_plain(corpus, probe, q, cap=cap), None, 0, 0,
+        f"{label}, D {SCALE_D}, bf16")["max_abs_err"]}
+    del corpus
+    codes = torch.randint(0, 256, (k_c * cap, 256), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    lut = torch.randn(q_n, 256, 256, generator=gen, device="cuda") / 16
+    codes_t = codes.T.contiguous()
+    errs["pq_probe_scores"] = _kernel_check(
+        "pq_probe_scores", lambda: pq_adc.pq_probe_scores(codes, probe, lut, cap=cap),
+        lambda: pq_adc.pq_probe_scores_plain(codes, probe, lut, cap=cap), None, 0, 0,
+        f"{label}, m 256")["max_abs_err"]
+    errs["pq_probe_scores_t"] = _kernel_check(
+        "pq_probe_scores_t", lambda: pq_adc.pq_probe_scores_t(codes_t, probe, lut, cap=cap),
+        lambda: pq_adc.pq_probe_scores_t_plain(codes_t, probe, lut, cap=cap), None, 0, 0,
+        f"{label}, m 256")["max_abs_err"]
+    return errs
+
+
+def phase_index_scale(seed: int) -> dict:
+    """The IVF tier at scale: three indexes over 2^20 rows at D 2048, built
+    and searched through IVFIPIndex on the card; each path's kernel counter
+    from 0 to its read, then the kernels against plain at its shapes."""
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    t0 = time.perf_counter()
+    corpus, queries = make_scale_data(seed)
+    torch.cuda.synchronize()
+    q_host = queries.cpu().numpy()
+    log(f"scale data: {SCALE_N} rows + {SCALE_Q} queries at D {SCALE_D} around "
+        f"{SCALE_CENTRES} centres (noise {SCALE_NOISE}), {time.perf_counter() - t0:.2f} s")
+    configs = {"bf16": ({}, "ivf_probe_scores"),
+               "pq_rows": ({"pq_m": 64, "pq_layout": "rows"}, "pq_adc_rows"),
+               "pq_cols": ({"pq_m": 64, "pq_layout": "cols"}, "pq_adc_cols")}
+    results, kernels = {}, {}
+    for kind, (kw, counter) in configs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- the IVF path: counters from 0, build, search, counters read ----
+        ivf_gather.reset_launches()
+        pq_adc.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t_build = time.perf_counter()
+        index = IVFIPIndex(corpus, recall_target=0.95, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t_build
+        build_peak = torch.cuda.max_memory_allocated() / 2**30
+        batch_ms, hits = [], []
+        t_search = time.perf_counter()
+        for lo in range(0, SCALE_Q, 64):
+            t_b = time.perf_counter()
+            _, idx = index.search_tensor(queries[lo : lo + 64], 100)
+            hits.append(idx.cpu().numpy())
+            batch_ms.append((time.perf_counter() - t_b) * 1e3)
+        search_s = time.perf_counter() - t_search
+        launches = {**ivf_gather.launches, **pq_adc.launches}[counter]
+        # ---- end of the IVF path ----
+        if launches <= 0:
+            raise AssertionError(f"{counter} was not launched on the {kind} IVF path")
+        hits = np.concatenate(hits)
+        t_exact = time.perf_counter()
+        _, exact = index.exact_search(q_host, k=100)
+        exact_s = time.perf_counter() - t_exact
+        recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 100
+                                for a, b in zip(hits, exact)]))
+        results[kind] = {
+            "n_clusters": index.n_clusters, "capacity": index.capacity,
+            "nprobe": index.nprobe, "build_s": build_s, "build_steps_s": dict(index.build_seconds),
+            "peak_mem_gib": build_peak, "qps": SCALE_Q / search_s,
+            "batch_p50_ms": float(np.percentile(batch_ms, 50)), "recall": recall,
+            "launches": launches, "counter": counter, "exact_s": exact_s,
+        }
+        log(f"IVF {kind}: K {index.n_clusters}, capacity {index.capacity}, slots "
+            f"{index.n_clusters * index.capacity}, tuned nprobe {index.nprobe}; build "
+            f"{build_s:.2f} s by step {({k: round(v, 3) for k, v in index.build_seconds.items()})}; "
+            f"peak memory {build_peak:.2f} GiB; search {SCALE_Q} queries at k 100 in batches "
+            f"of 64: {results[kind]['qps']:.1f} queries/s, batch p50 "
+            f"{results[kind]['batch_p50_ms']:.3f} ms; recall@100 against exact_search "
+            f"{recall:.4f} (limit {IVF_RECALL_MIN}); {counter} launches {launches}; "
+            f"exact search {exact_s:.2f} s")
+        if not recall >= IVF_RECALL_MIN:
+            raise AssertionError(f"IVF {kind}: recall@100 {recall:.4f} < {IVF_RECALL_MIN}")
+        if kind == "bf16":
+            # why nprobe is what it is: rows stored outside their nearest
+            # cluster (capacity overflow spills them to the 2nd..8th) and
+            # the skew of the nearest-cluster fills
+            from rankpo_tpu_torch.index.ivf import _bf16_mm
+
+            nearest = torch.cat([torch.argmax(_bf16_mm(corpus[lo : lo + 65536],
+                                                       index.centroids.T), dim=1)
+                                 for lo in range(0, SCALE_N, 65536)])
+            stored = torch.from_numpy(index._cluster_of_row).to(nearest.device)
+            fills = torch.bincount(nearest, minlength=index.n_clusters)
+            moved = (stored != nearest).float().mean().item()
+            results[kind]["moved_share"] = moved
+            log(f"IVF {kind} layout: {moved:.4f} of rows stored outside their nearest "
+                f"cluster; nearest-cluster fill max {int(fills.max())}, mean "
+                f"{SCALE_N / index.n_clusters:.1f}, capacity {index.capacity}, "
+                f"{int((fills > index.capacity).sum())} clusters over capacity")
+        kernels.update(_probe_kernels(index, queries, kind))
+        if kind == "bf16":  # the bf16 index's (wider) probe set, for the PQ kernels too
+            p, _ = index._effective_probe(100, None)
+            wide_probe = index._probe_clusters(queries[:64], p)[0]
+        else:  # the same K 4096 clusters: the PQ kernels at the bf16 index's width
+            log(f"{kind} at the bf16 index's probe set (not the path's shape):")
+            kernels[f"{kind}_wide"] = _probe_kernels(index, queries, kind, wide_probe)[kind]
+        del index
+    del corpus, queries
+    gc.collect()
+    torch.cuda.empty_cache()
+    odd = _odd_shape_checks(seed)
+    return {"indexes": results, "kernels": kernels, "odd": odd}
+
+
+# ---------------------------------------------------------------------------
 def make_checkpoint(tmp: str, seed: int):
     """Random Llama-3.2-1B weights from the seed, written in bf16 with the
     port's save_pretrained. Returns (path, the state on the host)."""
@@ -871,10 +1215,15 @@ def main(argv=None) -> int:
     phase_search_ties()
     with tempfile.TemporaryDirectory(prefix="rankpo_smoke_") as tmp:
         ckpt, base_state = make_checkpoint(tmp, args.seed)
-        nums = phase_serving(args.seed, tmp, ckpt)
-        gc.collect()
-        torch.cuda.empty_cache()
+        serving = {}
+        for tier in SERVE_TIERS:
+            serving[tier] = phase_serving(args.seed, tmp, ckpt, tier)
+            gc.collect()
+            torch.cuda.empty_cache()
         train = phase_training(ckpt, tmp, args.seed, base_state)
+    del base_state
+    scale = phase_index_scale(args.seed)
+    nums = serving["flat"]
     log(f"numbers ({card}): serving startup (load + encode + index) "
         f"{nums['startup_s']:.2f} s; corpus encode {nums['encode_s']:.3f} s = "
         f"{nums['passages_per_s']:.1f} passages/s, {nums['tokens_per_s']:.0f} "
@@ -883,6 +1232,20 @@ def main(argv=None) -> int:
         f"{nums['search_single_p99_ms']:.2f} ms (8 clients); batch of 16 p50 "
         f"{nums['search_batch16_p50_ms']:.2f} ms; peak device memory "
         f"{nums['peak_mem_gib']:.2f} GiB")
+    for tier in ("ivf", "pq"):
+        n = serving[tier]
+        log(f"numbers ({card}): serving {' '.join(SERVE_TIERS[tier][0])}: startup "
+            f"{n['startup_s']:.2f} s (index build {n['build_s']}); K {n['n_clusters']}, "
+            f"capacity {n['capacity']}, nprobe {n['nprobe']}; /search single p50 "
+            f"{n['search_single_p50_ms']:.2f} ms p99 {n['search_single_p99_ms']:.2f} ms "
+            f"(8 clients); batch of 16 p50 {n['search_batch16_p50_ms']:.2f} ms; recall@k "
+            f"{n['recall']:.4f}; peak device memory {n['peak_mem_gib']:.2f} GiB; "
+            f"launches {n['launches']}")
+    for kind, n in scale["indexes"].items():
+        log(f"numbers ({card}): IVF {kind} at {SCALE_N} x {SCALE_D}: build {n['build_s']:.2f} s "
+            f"{({k: round(v, 3) for k, v in n['build_steps_s'].items()})}, nprobe {n['nprobe']}, "
+            f"{n['qps']:.1f} queries/s, batch-64 p50 {n['batch_p50_ms']:.3f} ms, recall@100 "
+            f"{n['recall']:.4f}, peak {n['peak_mem_gib']:.2f} GiB")
     for stage in ("stage1", "stage2"):
         s = train[stage]
         mfu = "not known for this card" if s["mfu"] is None else f"{s['mfu']:.4f}"
@@ -896,15 +1259,27 @@ def main(argv=None) -> int:
             f"K3a {s['launches']['flash_dq']}, K3b {s['launches']['flash_dkv']}")
     launches = {name: train["stage1"]["launches"][name] + train["stage2"]["launches"][name]
                 for name in KERNELS}
-    launches["flash_fwd"] += nums["launches"]
+    launches["flash_fwd"] += sum(n["launches"]["flash_fwd"] for n in serving.values())
+    for name, (_, _, counter) in IVF_KERNELS.items():
+        launches[name] = (sum(n["launches"][counter] for n in serving.values())
+                          + sum(n["launches"] for n in scale["indexes"].values()
+                                if n["counter"] == counter))
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main paths")
+    k = scale["kernels"]
+    ivf_rows = {"ivf_probe_scores": k["bfloat16"], "pq_probe_scores": k["pq_rows"],
+                "pq_probe_scores_t": k["pq_cols"]}
+    errs = {"ivf_probe_scores": max(k["bfloat16"]["max_abs_err"], k["float32"]["max_abs_err"],
+                                    scale["odd"]["ivf_probe_scores"]),
+            "pq_probe_scores": max(k["pq_rows"]["max_abs_err"], scale["odd"]["pq_probe_scores"]),
+            "pq_probe_scores_t": max(k["pq_cols"]["max_abs_err"],
+                                     scale["odd"]["pq_probe_scores_t"])}
     log(f"total run {time.perf_counter() - t_all:.1f} s")
     names = {"flash_fwd": "flash_attention_fwd",
              "flash_bwd_fused": "flash_attention_bwd_fused",
              "flash_dq": "flash_attention_bwd_dq", "flash_dkv": "flash_attention_bwd_dkv"}
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": names[name],
         "route": "cuda",
         "source": f"rankpo_tpu_torch/ops/csrc/{KERNELS[name][1]}",
@@ -916,7 +1291,21 @@ def main(argv=None) -> int:
         "bound_ms": kern[name]["bound_ms"],
         "bound_by": kern[name]["bound_by"],
         "library_ms": kern[name]["library_ms"],
-    } for name in KERNELS]}))
+    } for name in KERNELS]
+    rows += [{
+        "name": name,
+        "route": "cuda",
+        "source": f"rankpo_tpu_torch/ops/csrc/{IVF_KERNELS[name][1]}",
+        "replaces": IVF_KERNELS[name][0],
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": ivf_rows[name]["ms"],
+        "plain_ms": ivf_rows[name]["plain_ms"],
+        "bound_ms": ivf_rows[name]["bound_ms"],
+        "bound_by": ivf_rows[name]["bound_by"],
+        "library_ms": ivf_rows[name]["library_ms"],
+    } for name in IVF_KERNELS]
+    print(json.dumps({"kernels": rows}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

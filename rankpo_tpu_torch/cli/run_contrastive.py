@@ -42,7 +42,7 @@ from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.collators import ContrastiveCollator
 from rankpo_tpu_torch.data.datasets import ContrastiveDataset
 from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
-from rankpo_tpu_torch.index.encoding import resolve_device
+from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.models.hf_io import load_pretrained, save_pretrained
 from rankpo_tpu_torch.models.llama import LlamaEncoder
 from rankpo_tpu_torch.train.config import TrainConfig

@@ -1,10 +1,11 @@
-"""HTTP retrieval server over an exact flat index (port of
+"""HTTP retrieval server over a flat or IVF index (port of
 ``rankpo_tpu.cli.serve``).
 
     python -m rankpo_tpu_torch.cli.serve --model_name_or_path CKPT \\
-        --tokenizer_name hash:128256 --corpus_data corpus.jsonl --device cuda
+        --tokenizer_name hash:128256 --corpus_data corpus.jsonl --device cuda \\
+        [--index_type ivf --recall_target 0.95 | --index_type IVF4096,PQ64]
 
-POST /search {"queries": ["..."], "k": 10} -> {"results": [...]}
+POST /search {"queries": ["..."], "k": 10[, "nprobe": 8]} -> {"results": [...]}
 GET  /healthz -> {"status": "ok", "ntotal": N}
 GET  /statsz  -> serving counters
 
@@ -24,19 +25,22 @@ import torch
 
 from rankpo_tpu_torch.data.datasets import load_eval_corpus
 from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
-from rankpo_tpu_torch.index.encoding import InferenceEncoder, resolve_device
+from rankpo_tpu_torch.core.device import resolve_device
+from rankpo_tpu_torch.index.encoding import InferenceEncoder
 from rankpo_tpu_torch.models.hf_io import load_pretrained
 from rankpo_tpu_torch.serve.batching import MicroBatcher
-from rankpo_tpu_torch.serve.service import RetrievalService, finalize_hits
+from rankpo_tpu_torch.serve.service import RetrievalService, finalize_hits, resolve_tier
 
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1, {})"
+_INDEX_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 # flag -> (value that means "off", ROADMAP item that ports it)
 _UNPORTED_FLAGS = {
-    "index_type": ("flat", "index tiers"),
-    "index_dtype": ("float32", "bf16/int8 flat storage"),
+    "ivf_reduced_dim": (0, "item 4, the PCA hybrid"),
+    "ivf_candidates": ("auto", "item 4, the PCA hybrid"),
+    "ivf_balance_eta": (0.0, "item 4, balance_eta"),
     "pack_queries": (False, "packed query encode"),
     "stable_ids": (False, "serving endpoints"),
     "index_file": (None, "index persistence"),
@@ -109,20 +113,25 @@ def make_handler(service: RetrievalService, batcher=None, k_max: int = 100):
                     })
                     return
                 unported = [key for key in ("allowed_ids", "disallowed_ids",
-                                            "nprobe", "candidates")
+                                            "candidates")
                             if req.get(key) is not None]
                 if unported:
                     self._reply(400, {"error": f"{unported} " + _NOT_PORTED.format(
-                        "filtered search and per-call index knobs")})
+                        "filtered search and the two-stage candidate pool")})
                     return
-                if batcher is not None and len(queries) == 1:
+                # a per-call nprobe is per REQUEST: such requests bypass the
+                # micro-batcher, whose grouped dispatch shares one search
+                sel = {}
+                if req.get("nprobe") is not None:
+                    sel["nprobe"] = int(req["nprobe"])
+                if batcher is not None and len(queries) == 1 and not sel:
                     results = [batcher.query(queries[0], k=k)]
                 else:
                     k_eff = min(k_max, service.ntotal or k_max)
                     results = [
                         finalize_hits(r, k)
                         for r in service.query(queries, k=k_eff,
-                                               return_passages=True)
+                                               return_passages=True, **sel)
                     ]
                 self._reply(200, {"results": results})
             except Exception as e:  # a request boundary: report, keep serving
@@ -150,12 +159,34 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_passage_length", type=int, default=512)
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--recall_target", type=float, default=1.0,
-                        help="only 1.0 (exact search) is ported")
+                        help="the ivf tier's build-time tune target (1.0 "
+                             "tunes to 0.95); the flat tier takes only 1.0")
     parser.add_argument("--index_dtype", default="float32",
                         choices=["float32", "bfloat16", "int8"],
-                        help="only float32 is ported")
+                        help="ivf row storage; the flat tier takes only float32")
     parser.add_argument("--index_type", default="flat",
-                        help="only flat (exact brute force) is ported")
+                        help="flat = exact brute force (FAISS IndexFlatIP "
+                             "parity); ivf = clustered inverted-file probing "
+                             "(approximate, tuned to --recall_target); or a "
+                             "FAISS index_factory-style spec, e.g. "
+                             "'IVF4096,PQ64' (the spec then supplies the "
+                             "tier's knobs and the --ivf_* flags are ignored)")
+    parser.add_argument("--ivf_clusters", default="auto",
+                        help="ivf cluster count, or 'auto' (~4*sqrt(N))")
+    parser.add_argument("--ivf_nprobe", default="auto",
+                        help="ivf probed clusters per query, or 'auto' to "
+                             "tune at build time against --recall_target")
+    parser.add_argument("--ivf_pq_m", type=int, default=0,
+                        help="> 0 stores residual product-quantization codes "
+                             "(this many uint8 per row) instead of rows")
+    parser.add_argument("--ivf_pq_rotate", default="none",
+                        choices=("none", "random", "opq"),
+                        help="orthogonal pre-rotation for the PQ codec; "
+                             "requires --ivf_pq_m")
+    parser.add_argument("--ivf_reduced_dim", type=int, default=0, help="not ported")
+    parser.add_argument("--ivf_candidates", default="auto", help="not ported")
+    parser.add_argument("--ivf_balance_eta", type=float, default=0.0,
+                        help="not ported")
     parser.add_argument("--index_file", default=None, help="not ported")
     parser.add_argument("--pack_queries", action="store_true", help="not ported")
     parser.add_argument("--microbatch_wait_ms", type=float, default=3.0,
@@ -189,19 +220,40 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     for flag, (off, item) in _UNPORTED_FLAGS.items():
         if getattr(args, flag) != off:
             parser.error(f"--{flag} {getattr(args, flag)}: " + _NOT_PORTED.format(item))
-    if args.recall_target < 1.0:
-        parser.error("--recall_target < 1: approximate top-k is "
-                     + _NOT_PORTED.format("index tiers"))
+    dtype = _INDEX_DTYPES[args.index_dtype]
+    if args.index_type not in ("flat", "refine", "ivf") and args.index_dtype == "float32":
+        # factory spec: its storage component (or the tier default) goes
+        # through; a non-default --index_dtype still wins
+        dtype = None
+    index_kwargs = {}
+    if args.index_type == "ivf":
+        for key, flag in (("n_clusters", args.ivf_clusters), ("nprobe", args.ivf_nprobe)):
+            index_kwargs[key] = "auto" if flag == "auto" else int(flag)
+        if args.ivf_pq_m > 0:
+            index_kwargs["pq_m"] = args.ivf_pq_m
+            if args.ivf_pq_rotate != "none":
+                index_kwargs["pq_rotate"] = args.ivf_pq_rotate
+        elif args.ivf_pq_rotate != "none":
+            # fail loudly rather than build plain rows, 32x the memory of
+            # the codec that was asked for
+            parser.error("--ivf_pq_rotate requires --ivf_pq_m")
     logging.basicConfig(
         level=getattr(logging, args.log_level.upper()),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     device = resolve_device(args.device)  # before any loading: no CPU fallback
+    service_kw = dict(recall_target=args.recall_target, index_dtype=dtype,
+                      index_type=args.index_type, index_kwargs=index_kwargs)
+    try:  # the tier's checks, before the checkpoint loads
+        resolve_tier(**service_kw)
+    except (NotImplementedError, ValueError) as e:
+        parser.error(f"--index_type {args.index_type}: {e}")
     config, state = load_pretrained(args.model_name_or_path)
     tokenizer = resolve_tokenizer(args.tokenizer_name, args.model_name_or_path)
     encoder = InferenceEncoder(config, state, tokenizer, device=device)
     del state
-    service = RetrievalService(encoder, max_query_length=args.max_query_length)
+    service = RetrievalService(encoder, max_query_length=args.max_query_length,
+                               **service_kw)
     service.build_index(
         load_eval_corpus(args.corpus_data),
         max_passage_length=args.max_passage_length, batch_size=args.batch_size,

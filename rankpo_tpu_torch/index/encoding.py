@@ -22,25 +22,13 @@ from typing import Dict, List, Union
 import numpy as np
 import torch
 
+from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.data.collators import _pad_block
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.models.encoder import embed
 from rankpo_tpu_torch.models.llama import LlamaEncoder
 
 logger = logging.getLogger(__name__)
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device for ``device``; a CUDA request without a card raises
-    instead of carrying on on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is "
-            "False: no CUDA card is visible (pass --device cpu to run the "
-            "plain PyTorch path on the CPU)"
-        )
-    return device
 
 
 class InferenceEncoder:

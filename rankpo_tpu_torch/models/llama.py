@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.ops.attention import multi_head_attention
 
@@ -216,14 +217,15 @@ class LlamaEncoder(nn.Module):
         config: EncoderConfig,
         state: Dict[str, torch.Tensor],
         *,
-        device="cpu",
+        device="cuda",
         param_dtype: torch.dtype = torch.float32,
         compute_dtype: torch.dtype = torch.bfloat16,
         gradient_checkpointing: bool = False,
         checkpoint_policy: str = "full",
     ) -> "LlamaEncoder":
         """Trainable build: master parameters in ``param_dtype`` on
-        ``device``, forward in ``compute_dtype``. ``checkpoint_policy`` is
+        ``device`` (the card unless the caller asks for the CPU; no card
+        raises), forward in ``compute_dtype``. ``checkpoint_policy`` is
         the JAX ``remat_policy``; only "full" is ported."""
         if checkpoint_policy not in CHECKPOINT_POLICIES:
             raise NotImplementedError(
@@ -231,6 +233,7 @@ class LlamaEncoder(nn.Module):
                 "ported yet (ROADMAP.md Queue 1 item 2: remat 'dots'/'attn'); "
                 "use 'full'"
             )
+        device = resolve_device(device)
         with torch.device("meta"):
             model = cls(config)
         # a copy even where device and dtype match: training updates the
@@ -248,12 +251,14 @@ class LlamaEncoder(nn.Module):
         config: EncoderConfig,
         state: Dict[str, torch.Tensor],
         *,
-        device="cpu",
+        device="cuda",
         dtype: torch.dtype = torch.float32,
     ) -> "LlamaEncoder":
         """Build on the meta device (no throwaway random init) and adopt
-        ``state`` converted to ``dtype`` on ``device``. Every parameter must
+        ``state`` converted to ``dtype`` on ``device`` (the card unless the
+        caller asks for the CPU; no card raises). Every parameter must
         be present; the result is frozen (serving has no backward yet)."""
+        device = resolve_device(device)
         with torch.device("meta"):
             model = cls(config)
         state = {n: t.to(device=device, dtype=dtype) for n, t in state.items()}

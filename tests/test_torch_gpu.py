@@ -254,3 +254,130 @@ def test_encoder_training_step_flash_against_plain(cuda):
     for name in gf:
         cos = torch.nn.functional.cosine_similarity(gf[name], gp[name], dim=0).item()
         assert cos >= 0.99, (name, cos)
+
+
+# ---- the IVF kernels: K4 (probed-block scores), K5/K6 (PQ ADC, rows/cols) ----
+# fp32 sums of the same exact products in another order: the scores are of
+# order 1 (unit rows, or sums of m table entries), and the two orders differ
+# by a few fp32 ulps of the largest partial sum
+IVF_RTOL_OF_MAX = 1e-5
+
+
+def _probe(n_clusters, q_n, p_n, g):
+    probe = torch.stack([torch.randperm(n_clusters, generator=g)[:p_n] for _ in range(q_n)])
+    probe[0, 0], probe[-1, -1] = 0, n_clusters - 1  # boundary cluster ids
+    return probe.int()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_n,p_n,cap,d", [(64, 8, 336, 2048), (5, 3, 37, 64),
+                                           (3, 17, 64, 8), (130, 2, 129, 1024)])
+def test_probe_scores_kernel_matches_plain(cuda, dtype, q_n, p_n, cap, d):
+    from rankpo_tpu_torch.ops import ivf_gather
+
+    g = torch.Generator().manual_seed(cap + d)
+    n_clusters = max(p_n, 24)
+    corpus = torch.nn.functional.normalize(torch.randn(n_clusters * cap, d, generator=g), dim=1)
+    queries = torch.nn.functional.normalize(torch.randn(q_n, d, generator=g), dim=1)
+    probe = _probe(n_clusters, q_n, p_n, g)
+    corpus, queries, probe = corpus.to(cuda, dtype), queries.to(cuda), probe.to(cuda)
+    before = ivf_gather.launches["ivf_probe_scores"]
+    got = ivf_gather.probe_scores(corpus, probe, queries, cap=cap)
+    ref = ivf_gather.probe_scores_plain(corpus, probe, queries, cap=cap)
+    torch.cuda.synchronize()
+    assert ivf_gather.launches["ivf_probe_scores"] == before + 1
+    assert got.shape == (q_n, p_n, cap) and got.dtype == torch.float32
+    err = (got - ref).abs().max().item()
+    assert err <= IVF_RTOL_OF_MAX * ref.abs().max().item(), err
+
+
+def test_probe_scores_kernel_rounds_query_for_bf16_rows(cuda):
+    """bf16 rows score the bf16-rounded query (the TPU kernel's DEFAULT
+    precision): an fp32 query off the bf16 grid gives the rounded scores."""
+    from rankpo_tpu_torch.ops import ivf_gather
+
+    g = torch.Generator().manual_seed(5)
+    corpus = torch.randn(4 * 16, 128, generator=g).to(cuda, torch.bfloat16)
+    queries = (torch.randn(2, 128, generator=g) * (1 + 2.0**-12)).to(cuda)
+    probe = torch.tensor([[0, 3], [2, 1]], dtype=torch.int32, device=cuda)
+    got = ivf_gather.probe_scores(corpus, probe, queries, cap=16)
+    rounded = ivf_gather.probe_scores(corpus, probe, queries.bfloat16().float(), cap=16)
+    assert torch.equal(got, rounded)
+
+
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+@pytest.mark.parametrize("q_n,p_n,cap,m", [(64, 8, 384, 64), (5, 3, 37, 8),
+                                           (7, 4, 333, 256), (200, 1, 2049, 32)])
+def test_pq_adc_kernels_match_plain(cuda, layout, q_n, p_n, cap, m):
+    from rankpo_tpu_torch.ops import pq_adc
+
+    g = torch.Generator().manual_seed(cap + m)
+    n_clusters = max(p_n, 20)
+    codes = torch.randint(0, 256, (n_clusters * cap, m), generator=g, dtype=torch.uint8)
+    codes[:cap] = 255  # unsigned reads past 127
+    lut = torch.randn(q_n, m, pq_adc.PQ_K, generator=g) / m**0.5
+    probe = _probe(n_clusters, q_n, p_n, g)
+    if layout == "cols":
+        codes = codes.T.contiguous()
+    codes, lut, probe = codes.to(cuda), lut.to(cuda), probe.to(cuda)
+    fn, plain = ((pq_adc.pq_probe_scores, pq_adc.pq_probe_scores_plain) if layout == "rows"
+                 else (pq_adc.pq_probe_scores_t, pq_adc.pq_probe_scores_t_plain))
+    name = f"pq_adc_{layout}"
+    before = dict(pq_adc.launches)
+    got = fn(codes, probe, lut, cap=cap)
+    ref = plain(codes, probe, lut, cap=cap)
+    torch.cuda.synchronize()
+    assert {n: pq_adc.launches[n] - before[n] for n in before} == {
+        n: int(n == name) for n in before}
+    assert got.shape == (q_n, p_n, cap) and got.dtype == torch.float32
+    err = (got - ref).abs().max().item()
+    assert err <= IVF_RTOL_OF_MAX * ref.abs().max().item(), err
+    # int8 bits of the same codes read as unsigned
+    assert torch.equal(fn(codes.view(torch.int8), probe, lut, cap=cap), got)
+
+
+def test_ivf_kernels_reject_what_they_do_not_take(cuda):
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    probe = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ivf_gather.probe_scores(torch.zeros(4 * 16, 12, device=cuda), probe,
+                                torch.zeros(2, 12, device=cuda), cap=16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pq_adc.pq_probe_scores(torch.zeros(4 * 16, 12, dtype=torch.uint8, device=cuda),
+                               probe, torch.zeros(2, 12, 256, device=cuda), cap=16)
+
+
+@pytest.mark.parametrize("kw,kernel", [({}, "ivf_probe_scores"),
+                                       ({"store_dtype": torch.float32}, "ivf_probe_scores"),
+                                       ({"pq_m": 16, "pq_layout": "rows"}, "pq_adc_rows"),
+                                       ({"pq_m": 32, "pq_layout": "cols"}, "pq_adc_cols")])
+def test_ivf_index_on_card_matches_cpu(cuda, kw, kernel):
+    """An IVF index built on the card searches through its kernel and agrees
+    with the same index carried to the CPU (plain versions there): indices
+    equal outside 1e-5 near-ties, scores within 1e-5."""
+    from rankpo_tpu_torch.index import io as pio
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    rng = np.random.default_rng(0)
+    centres = rng.standard_normal((40, 128)).astype(np.float32)
+    x = centres[rng.integers(0, 40, 5000)] + 0.3 * rng.standard_normal((5000, 128))
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    index = IVFIPIndex(torch.from_numpy(x[:4900]).to(cuda), n_clusters=32,
+                       recall_target=0.9, **kw)
+    host = pio.index_from_state(pio.index_state(index), device="cpu")
+    counters = {**ivf_gather.launches, **pq_adc.launches}
+    s, i = index.search(x[4900:], k=20, batch_size=32)
+    hs, hi = host.search(x[4900:], k=20, batch_size=32)
+    after = {**ivf_gather.launches, **pq_adc.launches}
+    assert after[kernel] > counters[kernel]
+    np.testing.assert_allclose(s, hs, atol=1e-5, rtol=0)
+    gaps = np.abs(np.diff(hs, axis=1)) > 1e-5
+    clear = np.ones_like(hi, dtype=bool)
+    clear[:, 1:] &= gaps
+    clear[:, :-1] &= gaps
+    np.testing.assert_array_equal(i[clear], hi[clear])
+    es, ei = index.exact_search(x[4900:], k=20)
+    recall = np.mean([len(set(a) & set(b)) / 20 for a, b in zip(i, ei)])
+    assert recall >= 0.85

@@ -38,6 +38,12 @@ MODULES = [
     "rankpo_tpu_torch.cli.arguments",
     "rankpo_tpu_torch.cli.run_contrastive",
     "rankpo_tpu_torch.cli.run_rankpo",
+    "rankpo_tpu_torch.core.device",
+    "rankpo_tpu_torch.ops.ivf_gather",
+    "rankpo_tpu_torch.ops.pq_adc",
+    "rankpo_tpu_torch.index.factory",
+    "rankpo_tpu_torch.index.ivf",
+    "rankpo_tpu_torch.index.io",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -116,7 +116,8 @@ def _embed_both(scaling, lens, dtype):
     params = jenc.init_params(jax.random.key(0), jcfg)
     state = params_from_jax(jax.tree_util.tree_map(np.asarray, params), pcfg)
     model = llama.LlamaEncoder.from_state_dict(
-        pcfg, state, dtype=torch.float32 if dtype == "float32" else torch.bfloat16)
+        pcfg, state, device="cpu",
+        dtype=torch.float32 if dtype == "float32" else torch.bfloat16)
     ids, mask = _batch(lens)
     ref = np.asarray(jenc.embed(
         params, jcfg, {"input_ids": jnp.asarray(ids), "attention_mask": jnp.asarray(mask)},
@@ -146,7 +147,7 @@ def test_embed_matches_jax_bf16_cosine(scaling):
 def test_init_params_shapes_and_unported_bodies():
     _, pcfg = _configs()
     state = llama.init_params(pcfg, torch.Generator().manual_seed(0))
-    model = llama.LlamaEncoder.from_state_dict(pcfg, state)
+    model = llama.LlamaEncoder.from_state_dict(pcfg, state, device="cpu")
     assert list(model.state_dict()) == llama.state_names(pcfg)
     assert torch.all(state["norm.weight"] == 1.0)
     assert abs(float(state["embed_tokens.weight"].std()) - 0.02) < 2e-3

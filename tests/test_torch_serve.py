@@ -216,13 +216,102 @@ def test_http_server(checkpoint):
     assert not any(port_flash.launches.values())
 
 
-@pytest.mark.parametrize("flag", [["--index_type", "ivf"], ["--index_dtype", "int8"],
+@pytest.mark.parametrize("flag", [["--index_type", "refine"], ["--index_dtype", "int8"],
                                   ["--recall_target", "0.9"], ["--stable_ids"],
-                                  ["--num_processes", "2"]])
+                                  ["--num_processes", "2"],
+                                  ["--index_type", "ivf", "--ivf_reduced_dim", "8"],
+                                  ["--index_type", "ivf", "--ivf_candidates", "64"],
+                                  ["--index_type", "ivf", "--ivf_balance_eta", "0.1"],
+                                  ["--index_type", "PCA16,IVF8,Flat"], ["--index_type", "SQ8"]])
 def test_unported_flags_fail(checkpoint, flag, capsys):
+    """Each rejected with its ROADMAP.md item (the flat tier still takes
+    only fp32 rows and recall_target 1)."""
     with pytest.raises(SystemExit):
         cli.main(_argv(checkpoint, "--device", "cpu", *flag))
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported" in err and "ROADMAP.md" in err
+
+
+def test_ivf_flag_checks(checkpoint, capsys):
+    for flag in (["--index_type", "ivf", "--ivf_pq_rotate", "opq"], ["--index_type", "HNSW8"]):
+        with pytest.raises(SystemExit):
+            cli.main(_argv(checkpoint, "--device", "cpu", *flag))
+    err = capsys.readouterr().err
+    assert "--ivf_pq_rotate requires --ivf_pq_m" in err and "unknown" in err
+
+
+@pytest.mark.parametrize("flags,kind", [
+    (["--index_type", "ivf", "--recall_target", "0.9", "--ivf_clusters", "6"], "fp32"),
+    (["--index_type", "ivf", "--index_dtype", "bfloat16"], "bf16"),
+    (["--index_type", "IVF8,PQ8"], "pq"),
+])
+def test_http_server_ivf(checkpoint, flags, kind):
+    """The CLI over an IVF index on the CPU: single queries through the
+    micro-batcher, a batched request and a per-request nprobe (which
+    bypasses the batcher). Hits equal the index's own search on the same
+    query embeddings outside 1e-5 near-ties; probing every cluster of a row
+    index reaches the exact search over the stored rows (PQ's exact search
+    decodes rows, its search sums tables: two approximations). The checks run at k_max 20 and a
+    request k of 10."""
+    server = cli.make_server(_argv(checkpoint, "--device", "cpu", "--log_level", "warning",
+                                   *flags))
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    service = server.service
+    index = service.index
+    try:
+        assert type(index).__name__ == "IVFIPIndex"
+        assert {"fp32": index.store_dtype == torch.float32,
+                "bf16": index.store_dtype == torch.bfloat16,
+                "pq": index.pq_m == 8}[kind]
+        assert index.recall_target == (0.9 if kind == "fp32" else 0.95)
+        assert _get(port, "/healthz") == {"status": "ok", "ntotal": 50}
+        results = [None] * 3
+        def one(i):
+            results[i] = _post(port, "/search", {"query": QUERIES[i], "k": 5})
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert all(code == 200 and len(body["results"][0]["hits"]) == 5
+                   for code, body in results)
+        assert _get(port, "/statsz")["microbatch_queries"] == 3
+        for nprobe in (None, 1, index.n_clusters):
+            payload = {"queries": QUERIES, "k": 10}
+            if nprobe is not None:
+                payload["nprobe"] = nprobe
+            code, body = _post(port, "/search", payload)
+            assert code == 200
+            batch = service.encoder.prepare_batch(QUERIES, len(QUERIES), 32)
+            q_emb = service.encoder.embed_batch(batch).numpy()
+            # the server searches at its k_max (20), which also floors the
+            # probe count to reach it, and slices to the request's k
+            ref = index.search(q_emb, k=20, nprobe=nprobe)
+            if nprobe == index.n_clusters and kind != "pq":  # PQ: ADC != decode
+                ref = index.exact_search(q_emb, k=20)
+            for r, res in enumerate(body["results"]):
+                hits = res["hits"]
+                want = [{"index": int(i), "score": float(s)}
+                        for s, i in zip(*(a[r] for a in ref)) if i >= 0][:10]
+                assert len(hits) == len(want)
+                _assert_hits_match(hits, want)
+        assert _get(port, "/statsz")["microbatch_queries"] == 3  # nprobe bypassed it
+        code, body = _post(port, "/search", {"query": "x", "candidates": 8})
+        assert code == 400 and "not ported" in body["error"]
+    finally:
+        server.shutdown()
+        server.batcher.close()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+
+
+def test_nprobe_on_flat_service_is_rejected(services):
+    _, psvc = services
+    with pytest.raises(ValueError, match="IVF indexes only"):
+        psvc.query(QUERIES[0], k=3, nprobe=4)
 
 
 def test_cuda_device_without_card_fails(checkpoint):

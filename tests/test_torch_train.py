@@ -237,7 +237,7 @@ def _trace(stage, accum):
     jt = JTrainer(loss_fn=jloss, params=params, mesh=mesh,
                   config=JTrainConfig(**common), total_steps=4)
     jhist = jt.train(ds_j, co_j)
-    model = llama.LlamaEncoder.for_training(pcfg, state, compute_dtype=torch.float32)
+    model = llama.LlamaEncoder.for_training(pcfg, state, device="cpu", compute_dtype=torch.float32)
     pt = Trainer(loss_fn=ploss, model=model, config=TrainConfig(device="cpu", **common),
                  total_steps=4)
     phist = pt.train(ds_p, co_p)
@@ -283,7 +283,7 @@ class _Poisoned:
 def test_nonfinite_step_keeps_params_and_optimizer_state():
     _, pcfg = _tiny()
     state = llama.init_params(pcfg, torch.Generator().manual_seed(0))
-    model = llama.LlamaEncoder.for_training(pcfg, state, compute_dtype=torch.float32)
+    model = llama.LlamaEncoder.for_training(pcfg, state, device="cpu", compute_dtype=torch.float32)
     loss_fn = _Poisoned(make_contrastive_loss_fn(pcfg, temperature=0.05), bad_calls=[2])
     cfg = TrainConfig(device="cpu", learning_rate=1e-3, lr_scheduler_type="linear",
                       warmup_steps=0, warmup_ratio=0.0, max_steps=3,
@@ -319,7 +319,7 @@ def test_gradient_checkpointing_gives_plain_gradients():
     mask = torch.from_numpy((np.arange(16)[None] < lens[:, None]).astype(np.int32))
     grads = []
     for remat in (False, True):
-        model = llama.LlamaEncoder.for_training(pcfg, state, compute_dtype=torch.float32,
+        model = llama.LlamaEncoder.for_training(pcfg, state, device="cpu", compute_dtype=torch.float32,
                                                 gradient_checkpointing=remat)
         reps = embed(model, {"input_ids": ids, "attention_mask": mask})
         (reps * torch.arange(reps.shape[1])).sum().backward()
@@ -332,7 +332,7 @@ def test_unported_checkpoint_policy_and_options_raise():
     _, pcfg = _tiny()
     state = llama.init_params(pcfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llama.LlamaEncoder.for_training(pcfg, state, checkpoint_policy="dots")
+        llama.LlamaEncoder.for_training(pcfg, state, device="cpu", checkpoint_policy="dots")
     for field, value in (("optim", "adafactor"), ("fsdp", True), ("eval_strategy", "steps"),
                          ("resume_from_checkpoint", "latest"), ("profile_steps", 3),
                          ("async_checkpointing", True), ("model_parallel", 2)):
@@ -352,7 +352,7 @@ def test_epoch_logging_and_checkpoint_rotation(tmp_path):
     ds = pdata.ContrastiveDataset(_contrastive_rows(n=12), HashTokenizer(vocab_size=256), 12, 16)
     histories = []
     for strategy in ("steps", "epoch"):
-        model = llama.LlamaEncoder.for_training(pcfg, state, compute_dtype=torch.float32)
+        model = llama.LlamaEncoder.for_training(pcfg, state, device="cpu", compute_dtype=torch.float32)
         cfg = TrainConfig(device="cpu", learning_rate=1e-3, num_train_epochs=2,
                           per_device_train_batch_size=4, logging_strategy=strategy,
                           save_strategy="steps", save_steps=1, save_total_limit=2,
