@@ -1,8 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 accumulation.
 //
 // Replaces the Pallas TPU kernel rankpo_tpu/ops/flash_attention.py:_fwd_kernel
-// (FlashAttention-2 forward: online softmax over key blocks with fp32 running
-// max and sum, returning O and the logsumexp).
+// (line 55; FlashAttention-2 forward: online softmax over key blocks with fp32
+// running max and sum, returning O and the logsumexp).
 //
 // Contract (what _fwd_kernel computes):
 //   q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] bf16, read through their strides
@@ -15,73 +15,170 @@
 //   length runs no key tiles, so its rows output zeros (block-granular, as in
 //   the JAX kernel; only rows below the valid length are meaningful).
 //   The loop over key tiles stops at the last valid key and, when causal, at
-//   the diagonal.
+//   the diagonal. No atomics: out and lse repeat bit for bit.
 //
-// Design. One thread block of 4 warps owns one (batch*q-head, 64-row query
-// tile) pair; each warp owns 16 query rows. Key/value tiles of 64 rows are
-// staged in shared memory with 16-byte vector loads; Q K^T and P V run on the
-// tensor cores with mma.sync m16n8k16 (bf16 -> fp32). The online-softmax
-// state (row max m, row sum l, output accumulator) lives in registers, and P
-// goes from the S accumulators straight into the A operand of the PV product
-// without touching shared memory.
-//
-// What bounds it on this card. At the serving shapes (S <= 512, D = 64) the
-// whole per-head K/V is at most 128 KB, so the kernel reads each byte of
-// Q/K/V/O about once per query tile: it is bound by latency and occupancy,
-// not by HBM bandwidth or the tensor-core peak, and attention is a small share
-// of a layer next to the projections. The design answers with small tiles
-// (many blocks in flight: B*Hq*ceil(Sq/64) blocks, ~28 KB of shared memory
-// each at D = 64, so several blocks per SM) and with skipping whole key tiles
-// past the valid length and above the diagonal, which on right-padded
-// batches removes most of the work. wgmma, TMA and warp specialisation are
-// left for later work.
+// DEVELOPMENT STATE: bring-up switches kSWgmma / kPVWgmma select mma.sync or
+// wgmma for each product; they go before the design is final.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
+struct FwdTiles {
+  static constexpr int kAtoms = D / 64;  // 64-column swizzle atoms per row
+  static constexpr int kTileBytes = kAtoms * kSwizzleTileBytes;  // 64 rows
+  static constexpr int kStages = D == 64 ? 3 : 2;                 // K/V ring
+};
+
+// byte offset of (row, col) in a swizzled [64, D] tile (col even: the pair
+// (col, col + 1) lies in one 16-byte chunk)
+__device__ __forceinline__ int sw_off(int row, int col) {
+  const int atom = col >> 6, cc = col & 63;
+  return atom * kSwizzleTileBytes + row * 128 + ((((cc >> 3) ^ (row & 7))) << 4) +
+         ((cc & 7) << 1);
+}
+
+__device__ __forceinline__ uint32_t ld_sw32(const unsigned char* tile, int row, int col) {
+  return *reinterpret_cast<const uint32_t*>(tile + sw_off(row, col));
+}
+
+__device__ __forceinline__ __nv_bfloat16 ld_sw16(const unsigned char* tile, int row,
+                                                 int col) {
+  return *reinterpret_cast<const __nv_bfloat16*>(tile + sw_off(row, col));
+}
+
+// s[4j + e] = scores of this thread's rows against keys 8j + 2t + e (e < 2,
+// row g) and (e >= 2, row g + 8)
+template <int D, bool kSWgmma>
+__device__ __forceinline__ void scores(float (&s)[32], const unsigned char* Qt,
+                                       const unsigned char* Kt, int w, int g, int t) {
+  if constexpr (kSWgmma) {
+    const uint64_t dq = sw128_desc(Qt), dk = sw128_desc(Kt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kSwizzleTileBytes + (kk % 4) * 32;
+      wgmma_m64n64k16_ss(s, desc_add(dq, off), desc_add(dk, off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    const int ra = 16 * w + g;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c0 = 16 * kk + 2 * t;
+      uint32_t a[4] = {ld_sw32(Qt, ra, c0), ld_sw32(Qt, ra + 8, c0),
+                       ld_sw32(Qt, ra, c0 + 8), ld_sw32(Qt, ra + 8, c0 + 8)};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t b[2] = {ld_sw32(Kt, 8 * j + g, c0), ld_sw32(Kt, 8 * j + g, c0 + 8)};
+        mma_16816(&s[4 * j], a, b);
+      }
+    }
+  }
+}
+
+// o += P V, P given as bf16 A registers p[4 * kk .. 4 * kk + 4) per 16 keys
+template <int D, bool kPVWgmma>
+__device__ __forceinline__ void pv(float (&o)[D / 2], uint32_t (&p)[16],
+                                   const unsigned char* Vt, int g, int t) {
+  if constexpr (kPVWgmma) {
+    const uint64_t dv = sw128_desc(Vt);
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int a = 0; a < D / 64; ++a) {
+        wgmma_m64n64k16_rs_tb(&o[32 * a], &p[4 * kk],
+                              desc_add(dv, a * kSwizzleTileBytes + kk * 16 * 128));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int r0 = 16 * kk + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = 8 * n + g;
+        uint32_t b[2] = {pack_pair(ld_sw16(Vt, r0, col), ld_sw16(Vt, r0 + 1, col)),
+                         pack_pair(ld_sw16(Vt, r0 + 8, col), ld_sw16(Vt, r0 + 9, col))};
+        mma_16816(&o[4 * n], &p[4 * kk], b);
+      }
+    }
+  }
+}
+
+// Block = (batch, kv head, NC query heads of its GQA group, 64-row query
+// tile). Warps 0 .. 4 NC - 1 are NC consumer warpgroups, one per query head;
+// warp 4 NC is the producer.
+template <int D, int NC, bool kSWgmma, bool kPVWgmma>
+__global__ void __launch_bounds__(NC * 128 + 32, (D == 64 && NC <= 2) ? 2 : 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
                  const int* __restrict__ mask, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                 long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_ss, long long k_sh,
-                 long long v_sb, long long v_ss, long long v_sh,
                  long long mask_sb, float scale, int causal, int skip_pad_q) {
-  constexpr int LDS = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kTile * LDS;
-  __nv_bfloat16* Vs = Ks + kTile * LDS;
-  __shared__ int key_ok[kTile];
-  __shared__ int s_key_end;
+  using T = FwdTiles<D>;
+  constexpr int kStages = T::kStages;
+  constexpr int kTileBytes = T::kTileBytes;
+  constexpr int kWarpsAll = 4 * NC + 1;
 
-  const int bh = blockIdx.x;
-  const int b = bh / Hq;
-  const int h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int q_start = blockIdx.y * kTile;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries (the swizzle period)
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = Qs + NC * kTileBytes;
+  unsigned char* Vs = Ks + kStages * kTileBytes;
+  __shared__ uint64_t full_bar[kStages], empty_bar[kStages], q_bar;
+  __shared__ uint64_t key_bits[kStages];  // valid keys of the tile in a stage
+  __shared__ int warp_end[kWarpsAll];
+
+  const int groups = Hq / Hkv;
+  const int sets = groups / NC;
+  const int set = blockIdx.x % sets;
+  const int hk = (blockIdx.x / sets) % Hkv;
+  const int b = blockIdx.x / (sets * Hkv);
+  const int h0 = hk * groups + set * NC;                   // first query head
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kTile;  // long tiles first
   const int q_shift = Sk - Sq;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane / 4;  // mma group: rows g and g + 8 of the warp's 16
-  const int t = lane % 4;  // thread in group: columns 2t, 2t + 1 (+ 8)
-
   const int* mrow = mask + (long long)b * mask_sb;
 
-  // valid key extent: one past the last valid key (the valid key count on
-  // right-padded rows, which is what bounds the JAX kernel's loop)
-  const int key_end = block_key_end(mrow, Sk, &s_key_end);
-
-  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
-  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)hk * k_sh;
-  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)hk * v_sh;
-  load_tile<D>(Qs, qb, q_ss, q_start, Sq);
+  // one past the last valid key, reduced over the block with one barrier
+  int local_end = 0;
+  for (int j = tid; j < Sk; j += kWarpsAll * 32) {
+    if (mrow[j] != 0) local_end = j + 1;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    local_end = max(local_end, __shfl_xor_sync(0xffffffffu, local_end, off));
+  }
+  if (lane == 0) warp_end[warp] = local_end;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 4 * NC);  // lane 0 of every consumer warp
+    }
+    mbar_init(&q_bar, 1);
+    fence_barrier_init();
+  }
   __syncthreads();
+  int key_end = 0;
+#pragma unroll
+  for (int i = 0; i < kWarpsAll; ++i) key_end = max(key_end, warp_end[i]);
 
   int n_tiles = (key_end + kTile - 1) / kTile;
   if (causal) {
@@ -91,51 +188,83 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
   if (skip_pad_q && q_start + q_shift >= key_end) n_tiles = 0;
 
-  // this warp's Q rows as mma A fragments, kept in registers for all tiles
-  uint32_t qf[D / 16][4];
-  load_a_rows<D>(qf, Qs, warp, g, t);
+  if (warp == 4 * NC) {
+    // ---- producer: Q once, then K/V tiles through the ring ----
+    if (n_tiles == 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&q_bar, NC * kTileBytes);
+      for (int c = 0; c < NC; ++c) {
+        for (int a = 0; a < T::kAtoms; ++a) {
+          tma_load_4d(Qs + c * kTileBytes + a * kSwizzleTileBytes, &q_map, &q_bar,
+                      64 * a, q_start, h0 + c, b);
+        }
+      }
+    }
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int stage = kt % kStages;
+      mbar_wait(&empty_bar[stage], ((kt / kStages) & 1) ^ 1);
+      const int key0 = kt * kTile;
+      const int k_lo = key0 + lane, k_hi = key0 + 32 + lane;
+      const uint32_t lo = __ballot_sync(0xffffffffu, k_lo < Sk && mrow[k_lo] != 0);
+      const uint32_t hi = __ballot_sync(0xffffffffu, k_hi < Sk && mrow[k_hi] != 0);
+      if (lane == 0) {
+        key_bits[stage] = uint64_t(lo) | (uint64_t(hi) << 32);
+        mbar_arrive_expect_tx(&full_bar[stage], 2 * kTileBytes);
+        for (int a = 0; a < T::kAtoms; ++a) {
+          const int off = stage * kTileBytes + a * kSwizzleTileBytes;
+          tma_load_4d(Ks + off, &k_map, &full_bar[stage], 64 * a, key0, hk, b);
+          tma_load_4d(Vs + off, &v_map, &full_bar[stage], 64 * a, key0, hk, b);
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
 
-  const int row_a = q_start + warp * 16 + g;  // this thread's two rows
+  // ---- consumers: warpgroup c computes query head h0 + c ----
+  const int c = warp / 4;
+  const int w = warp % 4;
+  const int h = h0 + c;
+  const int g = lane / 4;  // rows g and g + 8 of the warp's 16
+  const int t = lane % 4;  // columns 2t, 2t + 1 of every 8
+  const unsigned char* Qt = Qs + c * kTileBytes;
+
+  const int row_a = q_start + w * 16 + g;  // this thread's two rows
   const int row_b = row_a + 8;
   const int pos_a = row_a + q_shift;
   const int pos_b = row_b + q_shift;
 
   float m_a = kNegInf, m_b = kNegInf;  // running row max
   float l_a = 0.f, l_b = 0.f;          // this thread's share of the row sum
-  float acc[D / 8][4];
+  float o[D / 2];                      // o[4n + e]: columns 8n + 2t (+1)
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
+  if (n_tiles > 0) mbar_wait(&q_bar, 0);
   for (int kt = 0; kt < n_tiles; ++kt) {
+    const int stage = kt % kStages;
+    mbar_wait(&full_bar[stage], (kt / kStages) & 1);
+    const uint64_t bits = key_bits[stage];
     const int key0 = kt * kTile;
-    load_tile<D>(Ks, kb, k_ss, key0, Sk);
-    load_tile<D>(Vs, vb, v_ss, key0, Sk);
-    if (tid < kTile) {
-      key_ok[tid] = (key0 + tid < Sk) ? (mrow[key0 + tid] != 0) : 0;
-    }
-    __syncthreads();
 
-    // S = Q K^T: 8 key columns per n-tile
-    float s[kTile / 8][4];
-    mma_a_tileT<D>(s, qf, Ks, g, t);
+    float s[32];
+    scores<D, kSWgmma>(s, Qt, Ks + stage * kTileBytes, w, g, t);
 
     // scale, mask, row max
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = j * 8 + 2 * t + e;
         const int key = key0 + col;
-        const bool ok = key_ok[col] != 0;
+        const bool ok = (bits >> col) & 1;
         const bool va = ok && (!causal || key <= pos_a);
-        const bool vb_ = ok && (!causal || key <= pos_b);
-        s[j][e] = va ? s[j][e] * scale : kNegInf;
-        s[j][2 + e] = vb_ ? s[j][2 + e] * scale : kNegInf;
-        mx_a = fmaxf(mx_a, s[j][e]);
-        mx_b = fmaxf(mx_b, s[j][2 + e]);
+        const bool vb = ok && (!causal || key <= pos_b);
+        s[4 * j + e] = va ? s[4 * j + e] * scale : kNegInf;
+        s[4 * j + 2 + e] = vb ? s[4 * j + 2 + e] * scale : kNegInf;
+        mx_a = fmaxf(mx_a, s[4 * j + e]);
+        mx_b = fmaxf(mx_b, s[4 * j + 2 + e]);
       }
     }
 #pragma unroll
@@ -154,13 +283,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     // no valid key keeps l == 0 and ends in the zeros path
     float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float pa = s[j][e] > kNegInf ? __expf(s[j][e] - mn_a) : 0.f;
-        const float pb = s[j][2 + e] > kNegInf ? __expf(s[j][2 + e] - mn_b) : 0.f;
-        s[j][e] = pa;
-        s[j][2 + e] = pb;
+        const float pa = s[4 * j + e] > kNegInf ? __expf(s[4 * j + e] - mn_a) : 0.f;
+        const float pb =
+            s[4 * j + 2 + e] > kNegInf ? __expf(s[4 * j + 2 + e] - mn_b) : 0.f;
+        s[4 * j + e] = pa;
+        s[4 * j + 2 + e] = pb;
         ps_a += pa;
         ps_b += pb;
       }
@@ -169,16 +299,28 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     l_b = l_b * alpha_b + ps_b;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha_a;
-      acc[n][1] *= alpha_a;
-      acc[n][2] *= alpha_b;
-      acc[n][3] *= alpha_b;
+      o[4 * n + 0] *= alpha_a;
+      o[4 * n + 1] *= alpha_a;
+      o[4 * n + 2] *= alpha_b;
+      o[4 * n + 3] *= alpha_b;
     }
 
-    // O += P V, with P rounded to bf16 (the S accumulator layout is the A
-    // fragment layout of the next product)
-    mma_c_tile<D>(acc, s, Vs, g, t);
-    __syncthreads();  // before the next tile overwrites Ks/Vs/key_ok
+    // P rounded to bf16: two neighbouring 8-key groups of S are the A
+    // registers of the PV product over those 16 keys
+    uint32_t p[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      p[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    pv<D, kPVWgmma>(o, p, Vs + stage * kTileBytes, g, t);
+
+    // this warp is done with the stage (wgmma_wait / mma.sync are
+    // warp-synchronous, so every lane's reads have completed)
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_bar[stage]);
   }
 
 #pragma unroll
@@ -190,69 +332,136 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const float ls_b = l_b == 0.f ? 1.f : l_b;
   const float inv_a = 1.f / ls_a;
   const float inv_b = 1.f / ls_b;
+  const long long bh = (long long)b * Hq + h;
 
   if (row_a < Sq) {
-    __nv_bfloat16* o = out + (((long long)b * Sq + row_a) * Hq + h) * D + 2 * t;
+    __nv_bfloat16* op = out + (((long long)b * Sq + row_a) * Hq + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(o + n * 8) =
-          pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
+      *reinterpret_cast<uint32_t*>(op + n * 8) =
+          pack_bf16(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
     }
-    if (t == 0) lse[(long long)bh * Sq + row_a] = m_a + logf(ls_a);
+    if (t == 0) lse[bh * Sq + row_a] = m_a + logf(ls_a);
   }
   if (row_b < Sq) {
-    __nv_bfloat16* o = out + (((long long)b * Sq + row_b) * Hq + h) * D + 2 * t;
+    __nv_bfloat16* op = out + (((long long)b * Sq + row_b) * Hq + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(o + n * 8) =
-          pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
+      *reinterpret_cast<uint32_t*>(op + n * 8) =
+          pack_bf16(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
     }
-    if (t == 0) lse[(long long)bh * Sq + row_b] = m_b + logf(ls_b);
+    if (t == 0) lse[bh * Sq + row_b] = m_b + logf(ls_b);
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const int* mask,
-           void* out, float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
-           long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-           long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-           long long v_sh, long long mask_sb, int causal, int skip_pad_q,
+// ---- host side ----
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found once through the runtime (no
+// link against libcuda)
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a strided [B, S, H, D] bf16 tensor, dimensions innermost
+// first (D, S, H, B), boxes of 64 rows x 64 columns of one (batch, head),
+// 128-byte swizzle; rows past S read as zeros.
+int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+               long long sb, long long ss, long long sh) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {64, kTile, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                  strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D, int NC, bool kSWgmma, bool kPVWgmma>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+           const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
+           int Hkv, long long mask_sb, int causal, int skip_pad_q,
            cudaStream_t stream) {
-  const int smem = 3 * kTile * (D + kPad) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using T = FwdTiles<D>;
+  constexpr int smem = 1024 + (NC + 2 * T::kStages) * T::kTileBytes;
+  auto kernel = flash_fwd_kernel<D, NC, kSWgmma, kPVWgmma>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * Hq, (Sq + kTile - 1) / kTile);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q),
-      reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(v), mask,
-      reinterpret_cast<__nv_bfloat16*>(out), lse, Sq, Sk, Hq, Hkv, q_sb, q_ss,
-      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, mask_sb,
-      rsqrtf((float)D), causal, skip_pad_q);
+  dim3 grid(B * Hq / NC, (Sq + kTile - 1) / kTile);
+  kernel<<<grid, NC * 128 + 32, smem, stream>>>(
+      qm, km, vm, mask, reinterpret_cast<__nv_bfloat16*>(out), lse, Sq, Sk, Hq, Hkv,
+      mask_sb, rsqrtf((float)D), causal, skip_pad_q);
   return (int)cudaGetLastError();
+}
+
+int g_variant = 0;  // DEVELOPMENT: bring-up variant
+
+template <int D>
+int dispatch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+             const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
+             int Hkv, long long mask_sb, int causal, int skip_pad_q,
+             cudaStream_t stream) {
+  const int groups = Hq / Hkv;
+#define RANKPO_LAUNCH(NC, SW, PW)                                                   \
+  return launch<D, NC, SW, PW>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv,    \
+                               mask_sb, causal, skip_pad_q, stream)
+  if (g_variant == 1 && groups % 2 == 0) RANKPO_LAUNCH(2, false, false);
+  if (g_variant == 2 && groups % 2 == 0) RANKPO_LAUNCH(2, true, false);
+  if (g_variant == 3) RANKPO_LAUNCH(1, true, true);
+  if (g_variant == 4 && groups % 4 == 0) RANKPO_LAUNCH(4, true, true);
+  if (groups % 2 == 0) RANKPO_LAUNCH(2, true, true);
+  RANKPO_LAUNCH(1, true, true);
+#undef RANKPO_LAUNCH
 }
 
 }  // namespace
 
+extern "C" void rankpo_flash_fwd_set_variant(int v) { g_variant = v; }
+
 // Plain C entry point (loaded with ctypes). Returns a cudaError_t value; 0 is
-// success. The caller validates shapes, types, strides and alignment.
+// success. The caller validates shapes, types, strides and alignment (TMA's
+// rules: a 16-byte-aligned base, strides that are multiples of 16 bytes).
 extern "C" int rankpo_flash_fwd_bf16(
     const void* q, const void* k, const void* v, const int* mask, void* out,
     float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long mask_sb, int causal, int skip_pad_q, void* stream) {
+  if ((D != 64 && D != 128) || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int rc = encode_map(&qm, q, B, Sq, Hq, D, q_sb, q_ss, q_sh);
+  if (rc == 0) rc = encode_map(&km, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh);
+  if (rc == 0) rc = encode_map(&vm, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh);
+  if (rc != 0) return rc;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64) {
-    return launch<64>(q, k, v, mask, out, lse, B, Sq, Sk, Hq, Hkv, q_sb, q_ss,
-                      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, mask_sb, causal,
-                      skip_pad_q, st);
+    return dispatch<64>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
+                        skip_pad_q, st);
   }
-  if (D == 128) {
-    return launch<128>(q, k, v, mask, out, lse, B, Sq, Sk, Hq, Hkv, q_sb, q_ss,
-                       q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, mask_sb,
-                       causal, skip_pad_q, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch<128>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
+                       skip_pad_q, st);
 }
