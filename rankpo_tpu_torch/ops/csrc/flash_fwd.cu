@@ -25,6 +25,44 @@
 
 namespace {
 
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x (MUFU.EX2; __expf is this with x * log2(e)); 2^-1e30 is exactly 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// max and sum of this thread's 16 entries of one row (E = 0: row g, E = 2:
+// row g + 8) as trees, for a short dependency chain
+template <int E>
+__device__ __forceinline__ float row_max(const float (&s)[32]) {
+  float m[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m[j] = fmaxf(s[4 * j + E], s[4 * j + E + 1]);
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1) {
+#pragma unroll
+    for (int j = 0; j < w; ++j) m[j] = fmaxf(m[j], m[j + w]);
+  }
+  return m[0];
+}
+
+template <int E>
+__device__ __forceinline__ float row_sum(const float (&s)[32]) {
+  float m[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m[j] = s[4 * j + E] + s[4 * j + E + 1];
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1) {
+#pragma unroll
+    for (int j = 0; j < w; ++j) m[j] += m[j + w];
+  }
+  return m[0];
+}
+
 template <int D>
 struct FwdTiles {
   static constexpr int kAtoms = D / 64;  // 64-column swizzle atoms per row
@@ -156,6 +194,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int* mrow = mask + (long long)b * mask_sb;
+  const float scale_log2 = scale * kLog2e;
 
   // one past the last valid key, reduced over the block with one barrier
   int local_end = 0;
@@ -250,23 +289,33 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     float s[32];
     scores<D, kSWgmma>(s, Qt, Ks + stage * kTileBytes, w, g, t);
 
-    // scale, mask, row max
-    float mx_a = kNegInf, mx_b = kNegInf;
+    // logits in base-2 units, x = s * scale * log2(e), so that P = 2^(x - m).
+    // An interior tile (every key valid and, when causal, every row of the
+    // warp at or past the tile's last key) needs no mask or causal test.
+    const bool interior = bits == ~0ull &&
+                          (!causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift);
+    if (interior) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+    } else {
+      // this thread's key bits and causal limits, relative to its columns
+      // 2t + 8j + e, so that every test below has a constant left side
+      const uint32_t bits_lo = uint32_t(bits) >> (2 * t);
+      const uint32_t bits_hi = uint32_t(bits >> 32) >> (2 * t);
+      const int lim_a = causal ? pos_a - key0 - 2 * t : kTile;
+      const int lim_b = causal ? pos_b - key0 - 2 * t : kTile;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const int key = key0 + col;
-        const bool ok = (bits >> col) & 1;
-        const bool va = ok && (!causal || key <= pos_a);
-        const bool vb = ok && (!causal || key <= pos_b);
-        s[4 * j + e] = va ? s[4 * j + e] * scale : kNegInf;
-        s[4 * j + 2 + e] = vb ? s[4 * j + 2 + e] * scale : kNegInf;
-        mx_a = fmaxf(mx_a, s[4 * j + e]);
-        mx_b = fmaxf(mx_b, s[4 * j + 2 + e]);
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + e;  // minus 2t
+          const bool ok = ((j < 4 ? bits_lo : bits_hi) >> (col % 32)) & 1;
+          s[4 * j + e] = ok && col <= lim_a ? s[4 * j + e] * scale_log2 : kNegInf;
+          s[4 * j + 2 + e] = ok && col <= lim_b ? s[4 * j + 2 + e] * scale_log2 : kNegInf;
+        }
       }
     }
+    float mx_a = row_max<0>(s), mx_b = row_max<2>(s);
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
@@ -274,27 +323,28 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     const float mn_a = fmaxf(m_a, mx_a);
     const float mn_b = fmaxf(m_b, mx_b);
-    const float alpha_a = __expf(m_a - mn_a);
-    const float alpha_b = __expf(m_b - mn_b);
+    const float alpha_a = exp2_approx(m_a - mn_a);
+    const float alpha_b = exp2_approx(m_b - mn_b);
     m_a = mn_a;
     m_b = mn_b;
 
-    // P = exp(S - m); masked entries are exactly 0, so a row that has seen
+    // P = 2^(x - m); masked entries are exactly 0, so a row that has seen
     // no valid key keeps l == 0 and ends in the zeros path
-    float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float pa = s[4 * j + e] > kNegInf ? __expf(s[4 * j + e] - mn_a) : 0.f;
-        const float pb =
-            s[4 * j + 2 + e] > kNegInf ? __expf(s[4 * j + 2 + e] - mn_b) : 0.f;
+        float pa = exp2_approx(s[4 * j + e] - mn_a);
+        float pb = exp2_approx(s[4 * j + 2 + e] - mn_b);
+        if (!interior) {
+          pa = s[4 * j + e] > kNegInf ? pa : 0.f;
+          pb = s[4 * j + 2 + e] > kNegInf ? pb : 0.f;
+        }
         s[4 * j + e] = pa;
         s[4 * j + 2 + e] = pb;
-        ps_a += pa;
-        ps_b += pb;
       }
     }
+    const float ps_a = row_sum<0>(s), ps_b = row_sum<2>(s);
     l_a = l_a * alpha_a + ps_a;
     l_b = l_b * alpha_b + ps_b;
 #pragma unroll
@@ -328,10 +378,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-  const float ls_a = l_a == 0.f ? 1.f : l_a;  // no valid key -> zeros, not NaN
-  const float ls_b = l_b == 0.f ? 1.f : l_b;
-  const float inv_a = 1.f / ls_a;
-  const float inv_b = 1.f / ls_b;
+  // no valid key: zeros (not NaN) and lse = NEG_INF
+  const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
+  const float inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+  const float lse_a = l_a == 0.f ? kNegInf : m_a * kLn2 + logf(l_a);
+  const float lse_b = l_b == 0.f ? kNegInf : m_b * kLn2 + logf(l_b);
   const long long bh = (long long)b * Hq + h;
 
   if (row_a < Sq) {
@@ -341,7 +392,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       *reinterpret_cast<uint32_t*>(op + n * 8) =
           pack_bf16(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
     }
-    if (t == 0) lse[bh * Sq + row_a] = m_a + logf(ls_a);
+    if (t == 0) lse[bh * Sq + row_a] = lse_a;
   }
   if (row_b < Sq) {
     __nv_bfloat16* op = out + (((long long)b * Sq + row_b) * Hq + h) * D + 2 * t;
@@ -350,7 +401,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       *reinterpret_cast<uint32_t*>(op + n * 8) =
           pack_bf16(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
     }
-    if (t == 0) lse[bh * Sq + row_b] = m_b + logf(ls_b);
+    if (t == 0) lse[bh * Sq + row_b] = lse_b;
   }
 }
 

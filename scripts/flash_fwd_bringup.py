@@ -118,7 +118,11 @@ def main() -> None:
     for cwd in sorted({c for _, c in runs}):
         t0 = time.time()
         subprocess.run([sys.executable, "-c", "from rankpo_tpu_torch.ops import _build; "
-                        "_build.load_library()"], cwd=cwd, check=True)
+                        "_build.load_library(); L = _build.build_log().splitlines(); "
+                        "[print('  ptxas', L[i].split('flash_fwd_kernel')[1][:40], '|', "
+                        "L[i + 2].strip(), '|', L[i + 3].strip()) for i in range(len(L) - 3) "
+                        "if 'Compiling entry' in L[i] and 'flash_fwd_kernel' in L[i]]"],
+                       cwd=cwd, check=True)
         print(f"build in {cwd}: {time.time() - t0:.1f} s", flush=True)
     failed = 0
     for variant, cwd in runs:
