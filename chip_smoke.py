@@ -12,10 +12,12 @@ PyTorch version. Phases:
 1. build: nvcc compiles the kernels from rankpo_tpu_torch/ops/csrc, one
    process per source, all started together;
 2. kernels against plain on the card at the encoder's shapes: K1 (flash
-   forward), K2 (fused backward), K3a (dq) and K3b (dk/dv), each with its
-   kernel time, the plain version's time, the time of the one PyTorch call
-   that computes the same function (scaled_dot_product_attention, a
-   yardstick the port never calls) and the least time the card could take;
+   forward; also one and eight query heads per kv head, Sq off the tile
+   below Sk, every length 1, and two launches bit-equal), K2 (fused
+   backward), K3a (dq) and K3b (dk/dv), each with its kernel time, the
+   plain version's time, the time of the one PyTorch call that computes
+   the same function (scaled_dot_product_attention, a yardstick the port
+   never calls) and the least time the card could take;
 3. exact search on data with exact ties;
 4. serving path, three times: a bf16 checkpoint written with the port's
    save_pretrained, a 4096-passage corpus, the HTTP server started by the
@@ -24,7 +26,8 @@ PyTorch version. Phases:
    over the index rows; the IVF index with bf16 rows (``--index_type ivf``,
    K1 and K4) and the IVF-PQ index (``--index_type IVF64,PQ64``, K1 and K5)
    also take a request with a per-call nprobe and are checked against the
-   index's own search on the same query embeddings;
+   index's own search on the same query embeddings; K1 is also timed over
+   the corpus encode's own batches;
 5. training path: stage 1 (``run_contrastive.main``, 512 synthetic rows;
    "auto" picks the fused backward) then stage 2 (``run_rankpo.main`` on
    stage 1's output, 256 synthetic pairs, under
@@ -91,6 +94,17 @@ BWD_REL_L2 = 1e-2
 # 700.00 W (PERF.md); the limit is about 10x that
 LOSS_REL_FP32 = 2e-3
 SCORE_ATOL = 1e-5  # cuBLAS and numpy sum the 2048 fp32 products in other orders
+# attention shapes (B, Sq, Sk, Hq, Hkv, D), all causal with skip_pad_q as the
+# encoder calls them: every kernel is checked at these (random lengths), and
+# timed at the first
+ENCODER_SHAPES = [(8, 512, 512, 32, 8, 64), (64, 64, 64, 32, 8, 64), (8, 40, 40, 32, 8, 64),
+                  (8, 64, 128, 32, 8, 64), (8, 256, 256, 16, 8, 128)]
+K1_SHAPES = [  # K1 alone: (shape, every key length or None for random)
+    ((8, 128, 128, 8, 8, 64), None),  # Hq = Hkv: one query head per block
+    ((8, 100, 100, 64, 8, 64), None),  # 8 query heads per kv head
+    ((8, 65, 200, 32, 8, 64), None),  # Sq off the 64-row tile, Sk > Sq
+    ((8, 64, 64, 32, 8, 64), 1),  # every row of length 1
+]
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, HBM
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -209,21 +223,44 @@ def phase_build() -> None:
     _build.load_library()
     log(f"build: {time.perf_counter() - t0:.2f} s ({_build.library_path().name})")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(key in line for key in ("registers", "spill", "Compiling entry",
+                                       "Performance Loss")):
             log(f"  ptxas: {line.strip()}")
 
 
-def _attention_inputs(b, sq, sk, hq, hkv, d, gen, full=False):
+def _attention_inputs(b, sq, sk, hq, hkv, d, gen, length=None):
+    """Random q/k/v/do and right-padded key lengths: random in [1, Sk] with
+    a length-1 and a full-length row, or all ``length``."""
     q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").bfloat16()
     k = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").bfloat16()
     v = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").bfloat16()
     do = torch.randn(b, sq, hq, d, generator=gen, device="cuda").bfloat16()
     lens = torch.randint(1, sk + 1, (b,), generator=gen, device="cuda")
     lens[0], lens[-1] = 1, sk  # include a length-1 and a full-length row
-    if full:
-        lens[:] = sk
+    if length is not None:
+        lens[:] = length
     mask = (torch.arange(sk, device="cuda")[None] < lens[:, None]).int()
     return q, k, v, do, mask, lens
+
+
+def _fwd_design_bytes(lens, sq, sk, hq, hkv, d) -> int:
+    """The bytes K1's design moves (causal, skip_pad_q): per block of
+    (batch, kv head, 2 query heads, or 1 when the group size is odd, 64-row
+    query tile) that runs key tiles, its Q tiles once and each K/V tile
+    once for all its heads, its mask row scan and the key bits of each
+    tile; out and lse written in full."""
+    heads = 2 if (hq // hkv) % 2 == 0 else 1
+    total = 0
+    for n in lens:
+        for q0 in range(0, sq, 64):
+            n_tiles = min(-(-n // 64), (q0 + 63 + sk - sq) // 64 + 1)
+            if q0 + sk - sq >= n or n_tiles <= 0:
+                total += hq // heads * sk * 4  # the mask row scan only
+                continue
+            kv_rows = min(n_tiles * 64, sk)
+            total += hq // heads * (heads * min(64, sq - q0) * d * 2
+                                    + 2 * kv_rows * d * 2 + sk * 4 + n_tiles * 64 * 4)
+    return int(total) + len(lens) * sq * hq * (d * 2 + 4)
 
 
 def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
@@ -232,9 +269,10 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
     query rows at or past the valid length and masked (query, key) pairs are
     not needed; the outputs are written in full, at the dtype and shape
     ``flash_attention_bwd`` returns (bf16; dk/dv summed over each GQA
-    group). With ``design``, the backward outputs are counted as the
-    kernels write them instead (fp32 dq for K2, fp32 dk/dv per query head):
-    the design's own traffic, not a bound."""
+    group). With ``design``, the bytes are the kernel's own traffic instead,
+    not a bound: K1's as ``_fwd_design_bytes`` counts them, the backward
+    outputs as the kernels write them (fp32 dq for K2, fp32 dk/dv per query
+    head)."""
     lens = np.asarray(lens.cpu(), dtype=np.int64)
     b = len(lens)
     shift = sk - sq
@@ -250,8 +288,9 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
     read_kv = 2 * k_rows * hkv * d * 2
     mask = b * sk * 4
     if kind == "flash_fwd":
-        return (read_q + read_kv + mask + b * sq * hq * d * 2 + b * hq * sq * 4,
-                pairs * 2 * 2 * d)
+        nbytes = (_fwd_design_bytes(lens, sq, sk, hq, hkv, d) if design else
+                  read_q + read_kv + mask + b * sq * hq * d * 2 + b * hq * sq * 4)
+        return nbytes, pairs * 2 * 2 * d
     reads = 2 * read_q + read_kv + mask + 2 * q_rows * hq * 4  # q, do, k, v, lse, delta
     dq_out = b * sq * hq * d * (4 if design and kind == "flash_bwd_fused" else 2)
     dkv_out = 2 * b * sk * d * (hq * 4 if design else hkv * 2)
@@ -272,8 +311,10 @@ def _sdpa_mask(mask, sq, sk):
 
 
 def phase_kernels(seed: int) -> dict:
-    """Every kernel against its plain version at the five encoder shapes,
-    then times at B 8, S 512 (random lengths and all full)."""
+    """Every kernel against its plain version at the five encoder shapes and
+    four more for K1 (one and eight query heads per kv head, a ragged Sq
+    below Sk, every key length 1), K1's two launches on the same inputs
+    bit for bit, then times at B 8, S 512 (random lengths and all full)."""
     import torch.nn.functional as F
 
     from rankpo_tpu_torch.ops.attention import multi_head_attention
@@ -284,24 +325,25 @@ def phase_kernels(seed: int) -> dict:
         flash_attention_fwd_reference,
     )
 
+    # the encoder shapes and the timed inputs draw from one generator, the
+    # K1-only shapes from another, so the timed inputs stay those of earlier
+    # versions of this script and times compare across versions
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shapes = [  # (B, Sq, Sk, Hq, Hkv, D), all causal with skip_pad_q as the encoder
-        (8, 512, 512, 32, 8, 64),
-        (64, 64, 64, 32, 8, 64),
-        (8, 40, 40, 32, 8, 64),
-        (8, 64, 128, 32, 8, 64),
-        (8, 256, 256, 16, 8, 128),
-    ]
+    k1_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    shapes = ([(shape, None, gen) for shape in ENCODER_SHAPES]
+              + [(shape, length, k1_gen) for shape, length in K1_SHAPES])
     err = {name: 0.0 for name in KERNELS}
     worst_lse = 0.0
-    for shape in shapes:
+    for shape, length, shape_gen in shapes:
         b, sq, sk = shape[:3]
-        q, k, v, do, mask, lens = _attention_inputs(*shape, gen)
+        q, k, v, do, mask, lens = _attention_inputs(*shape, shape_gen, length=length)
         with torch.no_grad():
             out, lse = flash_attention_fwd(q, k, v, mask, causal=True, skip_pad_q=True)
+            again = flash_attention_fwd(q, k, v, mask, causal=True, skip_pad_q=True)
             ref, rlse = flash_attention_fwd_reference(
                 q.float(), k.float(), v.float(), mask, causal=True)
         torch.cuda.synchronize()
+        repeats = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         # skip_pad_q zeroes whole query tiles past the valid length:
         # only rows below it are compared
         rows = (torch.arange(sq, device="cuda")[None] + sk - sq) < lens[:, None]
@@ -313,8 +355,18 @@ def phase_kernels(seed: int) -> dict:
         zeros = bool(torch.all(out.abs().amax(-1)[nokey] == 0))
         if out_err > OUT_ATOL or lse_err > LSE_ATOL or not zeros:
             raise AssertionError(f"K1 disagrees with plain at {shape}")
+        if not repeats:
+            raise AssertionError(f"K1's two launches differ at {shape}")
         err["flash_fwd"] = max(err["flash_fwd"], out_err)
         worst_lse = max(worst_lse, lse_err)
+        k1_line = (f"kernels {shape}{'' if length is None else f', every length {length}'}: "
+                   f"K1 max|out-plain| {out_err:.3e} max|lse-plain| {lse_err:.3e} no-key "
+                   f"rows zero {zeros}, two launches bit-equal {repeats}")
+        if length == 1:
+            # every valid row puts P = 1 on key 0: dq and dk are rounding
+            # noise around 0, so the backward's relative errors say nothing
+            log(k1_line + "; backward not compared (dq, dk are 0 up to rounding)")
+            continue
 
         # the backward kernels on the kernel's own stats, against the plain
         # backward on the same stats
@@ -343,18 +395,18 @@ def phase_kernels(seed: int) -> dict:
                         else ("flash_dq" if i == 0 else "flash_dkv"))
                 err[name] = max(err[name], e)
                 line.append(f"{impl} d{'qkv'[i]} {e:.2e}/{tol:.2e} rel {rel:.2e}")
-        log(f"kernels {shape}: K1 max|out-plain| {out_err:.3e} max|lse-plain| "
-            f"{lse_err:.3e} no-key rows zero {zeros}; backward max|err|/limit and "
+        log(k1_line + f"; backward max|err|/limit and "
             f"relative L2 (limit {BWD_REL_L2:.0e}): " + ", ".join(line)
             + "; median non-zero |plain| dq {:.2e} dk {:.2e} dv {:.2e}".format(*typical))
         del q, k, v, do, out, lse, ref, rlse, plain, got
 
     # ---- times at the encoder's training shape ----
-    shape = shapes[0]
+    shape = ENCODER_SHAPES[0]
     b, sq, sk, hq, hkv, d = shape
     res = {name: {} for name in KERNELS}
     for label in ("random", "full"):
-        q, k, v, do, mask, lens = _attention_inputs(*shape, gen, full=label == "full")
+        q, k, v, do, mask, lens = _attention_inputs(*shape, gen,
+                                                    length=sk if label == "full" else None)
         with torch.no_grad():
             out, lse = flash_attention_fwd(q, k, v, mask, causal=True, skip_pad_q=True)
         delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
@@ -414,9 +466,9 @@ def phase_kernels(seed: int) -> dict:
             "the dq zero-fill, GQA sums and casts)")
         del q, k, v, do, out, lse, delta, leaves
     torch.cuda.empty_cache()
-    log(f"kernels: max|err| K1 {err['flash_fwd']:.3e} (lse {worst_lse:.3e}), K2 "
-        f"{err['flash_bwd_fused']:.3e}, K3a {err['flash_dq']:.3e}, K3b "
-        f"{err['flash_dkv']:.3e} over the five shapes")
+    log(f"kernels: max|err| K1 {err['flash_fwd']:.3e} (lse {worst_lse:.3e}) over the "
+        f"{len(shapes)} shapes, K2 {err['flash_bwd_fused']:.3e}, K3a {err['flash_dq']:.3e}, "
+        f"K3b {err['flash_dkv']:.3e} over the {len(shapes) - 1} with random lengths")
     return {name: dict(res[name]["random"], max_abs_err=err[name],
                        full=res[name]["full"]) for name in KERNELS}
 
@@ -502,6 +554,59 @@ def _served(body):
     idx = [[h["index"] for h in r["hits"]] for r in body["results"]]
     sc = [[h["score"] for h in r["hits"]] for r in body["results"]]
     return idx, sc
+
+
+def encode_k1_inputs(encoder, corpus):
+    """The inputs K1 gets over one layer of the corpus encode: the encode's
+    own batches of 64 (sorted by length, each padded to its 64-token bucket,
+    its own key mask), q/k/v random at the model's heads (views of one
+    tensor of the longest bucket). Returns (q, k, v, masks); K1 runs on
+    q[:b, :s], k[:b, :s], v[:b, :s] for each [b, s] mask."""
+    order = np.argsort([len(text) for text in corpus], kind="stable")
+    texts = [corpus[i] for i in order]
+    chunks = [texts[lo : lo + 64] for lo in range(0, len(texts), 64)]
+    masks = [torch.from_numpy(encoder.prepare_batch(chunk, len(chunk), 512)
+                              ["attention_mask"]).cuda() for chunk in chunks]
+    cfg = encoder.config
+    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    s_max = max(m.shape[1] for m in masks)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(64, s_max, hq, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(64, s_max, hkv, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(64, s_max, hkv, d, generator=gen, device="cuda").bfloat16()
+    return q, k, v, masks
+
+
+def run_encode_k1(q, k, v, masks) -> None:
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    for m in masks:
+        b, s = m.shape
+        flash_attention_fwd(q[:b, :s], k[:b, :s], v[:b, :s], m, causal=True, skip_pad_q=True)
+
+
+def time_encode_k1(encoder, corpus) -> dict:
+    """K1 at the shapes the corpus encode launches (``encode_k1_inputs``), no
+    grad: device time of one layer's launches over the whole corpus, against
+    the summed bound and the design's traffic."""
+    q, k, v, masks = encode_k1_inputs(encoder, corpus)
+    hq, hkv, d = q.shape[2], k.shape[2], q.shape[3]
+    with torch.no_grad():
+        ms = kernel_ms(profile_device_ms(lambda: run_encode_k1(q, k, v, masks), n=5),
+                       "flash_fwd")
+    bound_ms = design = 0.0
+    for m in masks:
+        s = m.shape[1]
+        lens = m.sum(1)
+        bound_ms += bound(attention_cost(lens, s, s, hq, hkv, d, "flash_fwd"))[0]
+        design += attention_cost(lens, s, s, hq, hkv, d, "flash_fwd", design=True)[0]
+    widths = sorted({m.shape[1] for m in masks})
+    log(f"time flash_fwd at the corpus encode's shapes ({len(masks)} batches of 64, padded "
+        f"to {widths[0]}-{widths[-1]}, causal, skip_pad_q, no grad): kernel {ms:.4f} ms per "
+        f"layer over the corpus (device time, profiler; {ms / len(masks):.4f} ms per batch); "
+        f"bound {bound_ms:.4f} ms (summed over the batches); the design's own traffic "
+        f"{design / 1e6:.1f} MB")
+    return {"ms": ms, "bound_ms": bound_ms, "batches": len(masks)}
 
 
 def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
@@ -650,6 +755,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
             log(f"encoder: min cosine kernel vs plain over 64 passages {cos:.6f}")
             if cos < 0.999:
                 raise AssertionError("encoder embeddings through the kernel disagree")
+            numbers["k1_encode"] = time_encode_k1(service.encoder, corpus)
 
             # numbers: a timed re-encode of the corpus
             tok = service.encoder.tokenizer
@@ -1231,7 +1337,8 @@ def main(argv=None) -> int:
         f"{nums['search_single_p50_ms']:.2f} ms p99 "
         f"{nums['search_single_p99_ms']:.2f} ms (8 clients); batch of 16 p50 "
         f"{nums['search_batch16_p50_ms']:.2f} ms; peak device memory "
-        f"{nums['peak_mem_gib']:.2f} GiB")
+        f"{nums['peak_mem_gib']:.2f} GiB; K1 at the encode's shapes "
+        f"{nums['k1_encode']['ms']:.4f} ms per layer ({nums['k1_encode']['batches']} batches)")
     for tier in ("ivf", "pq"):
         n = serving[tier]
         log(f"numbers ({card}): serving {' '.join(SERVE_TIERS[tier][0])}: startup "

@@ -1,7 +1,8 @@
-// Tile machinery shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): 64-row tiles staged in shared memory with 16-byte vector
-// loads, mma.sync m16n8k16 (bf16 -> fp32) on the tensor cores, and the
-// block-wide extent of the valid keys of a mask row.
+// Tile machinery of the flash-attention backward kernels (flash_bwd.cu):
+// 64-row tiles staged in shared memory with 16-byte vector loads, mma.sync
+// m16n8k16 (bf16 -> fp32) on the tensor cores, and the block-wide extent of
+// the valid keys of a mask row. The forward (flash_fwd.cu) takes only the
+// constants and pack_bf16 from here; its tiles come by TMA (hopper.cuh).
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major): a[0] (row g, cols 2t, 2t+1), a[1] (row g+8),

@@ -9,34 +9,54 @@
 //   (the head_dim stride must be 1); mask [B, Sk] int32, non-zero = valid key.
 //   scale 1/sqrt(D); logits in fp32; causal alignment is bottom-right
 //   (query row r sits at position r + Sk - Sq); P is rounded to bf16 before the
-//   PV product; rows with no valid key output exact zeros; lse = m + log(l).
-//   GQA: query head h reads kv head h / (Hq / Hkv), K/V are never copied.
-//   skip_pad_q: a query tile whose first position is at or past the valid key
-//   length runs no key tiles, so its rows output zeros (block-granular, as in
-//   the JAX kernel; only rows below the valid length are meaningful).
-//   The loop over key tiles stops at the last valid key and, when causal, at
-//   the diagonal. No atomics: out and lse repeat bit for bit.
+//   PV product; rows with no valid key output exact zeros and lse = NEG_INF;
+//   lse = m + log(l). GQA: query head h reads kv head h / (Hq / Hkv), K/V are
+//   never copied. skip_pad_q: a query tile whose first position is at or past
+//   the valid key length runs no key tiles, so its rows output zeros
+//   (block-granular, as in the JAX kernel; only rows below the valid length
+//   are meaningful). The loop over key tiles stops at the last valid key and,
+//   when causal, at the diagonal. No atomics: out and lse repeat bit for bit.
 //
-// DEVELOPMENT STATE: bring-up switches kSWgmma / kPVWgmma select mma.sync or
-// wgmma for each product; they go before the design is final.
+// What bounds it on this card. At the encoder's shapes (S <= 512, D = 64, 32
+// query heads over 8 kv heads, causal) a (head, query tile) pair runs at most
+// 8 key tiles of 64, so the work per block is small and the kernel is bound
+// by the latency of each tile's chain (load, S = Q K^T, softmax, O += P V),
+// not by HBM bytes or the tensor-core peak; the softmax's ALU work was the
+// largest part of that chain.
+//
+// Design. Block = (batch, kv head, NC query heads of that GQA group, one
+// 64-row query tile); NC is 2 when the group size is even, else 1. Warps
+// 0 .. 4 NC - 1 are NC consumer warpgroups, one per query head; warp 4 NC is
+// the producer. All heads of a block need the same key tiles (same rows,
+// causal edge and valid length), so each K/V tile is loaded once for all of
+// them:
+//   - the producer loads the NC Q tiles once and then K/V tiles with TMA (4-D
+//     tensor maps over the caller's [B, S, H, D] strides, 128-byte swizzle,
+//     zero fill past S) into a ring of kStages stages, each with a full and
+//     an empty mbarrier; with each tile it posts the tile's 64 key-validity
+//     bits in the stage, so no consumer reads the mask;
+//   - each consumer warpgroup computes S = Q K^T by wgmma m64n64k16 with both
+//     operands in shared memory (K-major), the softmax in registers (mask and
+//     causal tests only on tiles that need them; __expf of natural-log
+//     logits and sums in the order of the mma.sync design this replaced,
+//     whose rounding the smoke's full-width training loss repeats), and
+//     O += P V by wgmma m64n64k16 with P from registers (the S accumulator
+//     layout packed to bf16 is the A operand layout) and V in shared memory
+//     (MN-major, the transposed-B form); D 128 runs two 64-column halves;
+//   - the valid key length is reduced once per block, behind one barrier.
+// Left out (ROADMAP Queue 2, K1): setmaxnreg register rebalancing between the
+// producer and the consumers, ping-pong scheduling of the consumer
+// warpgroups, overlap of the softmax with the next wgmma inside a warpgroup,
+// a persistent grid, clusters with TMA multicast, fp8, `window` and
+// `segment_ids`.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// 2^x (MUFU.EX2; __expf is this with x * log2(e)); 2^-1e30 is exactly 0
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// max and sum of this thread's 16 entries of one row (E = 0: row g, E = 2:
-// row g + 8) as trees, for a short dependency chain
+// max of this thread's 16 entries of one row (E = 0: row g, E = 2: row
+// g + 8) as a tree, for a short dependency chain (a max is exact in any order)
 template <int E>
 __device__ __forceinline__ float row_max(const float (&s)[32]) {
   float m[8];
@@ -50,19 +70,6 @@ __device__ __forceinline__ float row_max(const float (&s)[32]) {
   return m[0];
 }
 
-template <int E>
-__device__ __forceinline__ float row_sum(const float (&s)[32]) {
-  float m[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) m[j] = s[4 * j + E] + s[4 * j + E + 1];
-#pragma unroll
-  for (int w = 4; w > 0; w >>= 1) {
-#pragma unroll
-    for (int j = 0; j < w; ++j) m[j] += m[j + w];
-  }
-  return m[0];
-}
-
 template <int D>
 struct FwdTiles {
   static constexpr int kAtoms = D / 64;  // 64-column swizzle atoms per row
@@ -70,97 +77,49 @@ struct FwdTiles {
   static constexpr int kStages = D == 64 ? 3 : 2;                 // K/V ring
 };
 
-// byte offset of (row, col) in a swizzled [64, D] tile (col even: the pair
-// (col, col + 1) lies in one 16-byte chunk)
-__device__ __forceinline__ int sw_off(int row, int col) {
-  const int atom = col >> 6, cc = col & 63;
-  return atom * kSwizzleTileBytes + row * 128 + ((((cc >> 3) ^ (row & 7))) << 4) +
-         ((cc & 7) << 1);
-}
-
-__device__ __forceinline__ uint32_t ld_sw32(const unsigned char* tile, int row, int col) {
-  return *reinterpret_cast<const uint32_t*>(tile + sw_off(row, col));
-}
-
-__device__ __forceinline__ __nv_bfloat16 ld_sw16(const unsigned char* tile, int row,
-                                                 int col) {
-  return *reinterpret_cast<const __nv_bfloat16*>(tile + sw_off(row, col));
-}
-
-// s[4j + e] = scores of this thread's rows against keys 8j + 2t + e (e < 2,
-// row g) and (e >= 2, row g + 8)
-template <int D, bool kSWgmma>
+// s[4j + e] = S entries of this thread's rows against keys 8j + 2t + e
+// (e < 2: row g, e >= 2: row g + 8): Q K^T over D / 16 steps of 16
+template <int D>
 __device__ __forceinline__ void scores(float (&s)[32], const unsigned char* Qt,
-                                       const unsigned char* Kt, int w, int g, int t) {
-  if constexpr (kSWgmma) {
-    const uint64_t dq = sw128_desc(Qt), dk = sw128_desc(Kt);
-    wgmma_fence();
+                                       const unsigned char* Kt) {
+  const uint64_t dq = sw128_desc(Qt), dk = sw128_desc(Kt);
+  wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kSwizzleTileBytes + (kk % 4) * 32;
-      wgmma_m64n64k16_ss(s, desc_add(dq, off), desc_add(dk, off), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    const int ra = 16 * w + g;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c0 = 16 * kk + 2 * t;
-      uint32_t a[4] = {ld_sw32(Qt, ra, c0), ld_sw32(Qt, ra + 8, c0),
-                       ld_sw32(Qt, ra, c0 + 8), ld_sw32(Qt, ra + 8, c0 + 8)};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b[2] = {ld_sw32(Kt, 8 * j + g, c0), ld_sw32(Kt, 8 * j + g, c0 + 8)};
-        mma_16816(&s[4 * j], a, b);
-      }
-    }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kSwizzleTileBytes + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(s, desc_add(dq, off), desc_add(dk, off), kk > 0);
   }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
 }
 
-// o += P V, P given as bf16 A registers p[4 * kk .. 4 * kk + 4) per 16 keys
-template <int D, bool kPVWgmma>
+// o += P V: P as bf16 A registers p[4 kk .. 4 kk + 4) for keys 16 kk ..
+// 16 kk + 15, V a [64, D] tile; one product per 16 keys and 64 columns
+template <int D>
 __device__ __forceinline__ void pv(float (&o)[D / 2], uint32_t (&p)[16],
-                                   const unsigned char* Vt, int g, int t) {
-  if constexpr (kPVWgmma) {
-    const uint64_t dv = sw128_desc(Vt);
-    fence_regs(o);
-    fence_regs(p);
-    wgmma_fence();
+                                   const unsigned char* Vt) {
+  const uint64_t dv = sw128_desc(Vt);
+  fence_regs(o);
+  fence_regs(p);
+  wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int a = 0; a < D / 64; ++a) {
-        wgmma_m64n64k16_rs_tb(&o[32 * a], &p[4 * kk],
-                              desc_add(dv, a * kSwizzleTileBytes + kk * 16 * 128));
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int r0 = 16 * kk + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const int col = 8 * n + g;
-        uint32_t b[2] = {pack_pair(ld_sw16(Vt, r0, col), ld_sw16(Vt, r0 + 1, col)),
-                         pack_pair(ld_sw16(Vt, r0 + 8, col), ld_sw16(Vt, r0 + 9, col))};
-        mma_16816(&o[4 * n], &p[4 * kk], b);
-      }
+    for (int a = 0; a < D / 64; ++a) {
+      wgmma_m64n64k16_rs_tb(&o[32 * a], &p[4 * kk],
+                            desc_add(dv, a * kSwizzleTileBytes + kk * 16 * 128));
     }
   }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
 }
 
-// Block = (batch, kv head, NC query heads of its GQA group, 64-row query
-// tile). Warps 0 .. 4 NC - 1 are NC consumer warpgroups, one per query head;
-// warp 4 NC is the producer.
-template <int D, int NC, bool kSWgmma, bool kPVWgmma>
-__global__ void __launch_bounds__(NC * 128 + 32, (D == 64 && NC <= 2) ? 2 : 1)
+// One block per (batch, kv head, NC query heads, 64-row query tile); see the
+// header for the roles of its warps.
+template <int D, int NC>
+__global__ void __launch_bounds__(NC * 128 + 32, D == 64 ? 2 : 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map,
@@ -194,7 +153,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int* mrow = mask + (long long)b * mask_sb;
-  const float scale_log2 = scale * kLog2e;
 
   // one past the last valid key, reduced over the block with one barrier
   int local_end = 0;
@@ -287,16 +245,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     const int key0 = kt * kTile;
 
     float s[32];
-    scores<D, kSWgmma>(s, Qt, Ks + stage * kTileBytes, w, g, t);
+    scores<D>(s, Qt, Ks + stage * kTileBytes);
 
-    // logits in base-2 units, x = s * scale * log2(e), so that P = 2^(x - m).
-    // An interior tile (every key valid and, when causal, every row of the
-    // warp at or past the tile's last key) needs no mask or causal test.
+    // scale, mask. An interior tile (every key valid and, when causal, every
+    // row of the warp at or past the tile's last key) needs no mask or causal
+    // test.
     const bool interior = bits == ~0ull &&
                           (!causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift);
     if (interior) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+      for (int i = 0; i < 32; ++i) s[i] *= scale;
     } else {
       // this thread's key bits and causal limits, relative to its columns
       // 2t + 8j + e, so that every test below has a constant left side
@@ -310,8 +268,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * j + e;  // minus 2t
           const bool ok = ((j < 4 ? bits_lo : bits_hi) >> (col % 32)) & 1;
-          s[4 * j + e] = ok && col <= lim_a ? s[4 * j + e] * scale_log2 : kNegInf;
-          s[4 * j + 2 + e] = ok && col <= lim_b ? s[4 * j + 2 + e] * scale_log2 : kNegInf;
+          s[4 * j + e] = ok && col <= lim_a ? s[4 * j + e] * scale : kNegInf;
+          s[4 * j + 2 + e] = ok && col <= lim_b ? s[4 * j + 2 + e] * scale : kNegInf;
         }
       }
     }
@@ -323,28 +281,30 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     const float mn_a = fmaxf(m_a, mx_a);
     const float mn_b = fmaxf(m_b, mx_b);
-    const float alpha_a = exp2_approx(m_a - mn_a);
-    const float alpha_b = exp2_approx(m_b - mn_b);
+    const float alpha_a = __expf(m_a - mn_a);
+    const float alpha_b = __expf(m_b - mn_b);
     m_a = mn_a;
     m_b = mn_b;
 
-    // P = 2^(x - m); masked entries are exactly 0, so a row that has seen
+    // P = exp(S - m); masked entries are exactly 0, so a row that has seen
     // no valid key keeps l == 0 and ends in the zeros path
+    float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float pa = exp2_approx(s[4 * j + e] - mn_a);
-        float pb = exp2_approx(s[4 * j + 2 + e] - mn_b);
+        float pa = __expf(s[4 * j + e] - mn_a);
+        float pb = __expf(s[4 * j + 2 + e] - mn_b);
         if (!interior) {
           pa = s[4 * j + e] > kNegInf ? pa : 0.f;
           pb = s[4 * j + 2 + e] > kNegInf ? pb : 0.f;
         }
         s[4 * j + e] = pa;
         s[4 * j + 2 + e] = pb;
+        ps_a += pa;
+        ps_b += pb;
       }
     }
-    const float ps_a = row_sum<0>(s), ps_b = row_sum<2>(s);
     l_a = l_a * alpha_a + ps_a;
     l_b = l_b * alpha_b + ps_b;
 #pragma unroll
@@ -365,10 +325,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
       p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
-    pv<D, kPVWgmma>(o, p, Vs + stage * kTileBytes, g, t);
+    pv<D>(o, p, Vs + stage * kTileBytes);
 
-    // this warp is done with the stage (wgmma_wait / mma.sync are
-    // warp-synchronous, so every lane's reads have completed)
+    // this warp is done with the stage (wgmma_wait is warp-synchronous, so
+    // every lane's products have completed)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty_bar[stage]);
   }
@@ -381,8 +341,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   // no valid key: zeros (not NaN) and lse = NEG_INF
   const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
   const float inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
-  const float lse_a = l_a == 0.f ? kNegInf : m_a * kLn2 + logf(l_a);
-  const float lse_b = l_b == 0.f ? kNegInf : m_b * kLn2 + logf(l_b);
+  const float lse_a = l_a == 0.f ? kNegInf : m_a + logf(l_a);
+  const float lse_b = l_b == 0.f ? kNegInf : m_b + logf(l_b);
   const long long bh = (long long)b * Hq + h;
 
   if (row_a < Sq) {
@@ -412,8 +372,8 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, found once through the runtime (no
-// link against libcuda)
+// cuTensorMapEncodeTiled from libcuda, looked up once through the CUDA
+// runtime, so the library needs no link against libcuda
 EncodeTiledFn encode_tiled() {
   static const EncodeTiledFn fn = [] {
     void* p = nullptr;
@@ -451,14 +411,14 @@ int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D, int NC, bool kSWgmma, bool kPVWgmma>
+template <int D, int NC>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
            const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
            int Hkv, long long mask_sb, int causal, int skip_pad_q,
            cudaStream_t stream) {
   using T = FwdTiles<D>;
   constexpr int smem = 1024 + (NC + 2 * T::kStages) * T::kTileBytes;
-  auto kernel = flash_fwd_kernel<D, NC, kSWgmma, kPVWgmma>;
+  auto kernel = flash_fwd_kernel<D, NC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -469,29 +429,26 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
   return (int)cudaGetLastError();
 }
 
-int g_variant = 0;  // DEVELOPMENT: bring-up variant
+// Query heads per block where the group size is even: 2, or 1 when built
+// with -DRANKPO_FWD_HEADS=1 (scripts/flash_fwd_compare.py times both).
+#ifndef RANKPO_FWD_HEADS
+#define RANKPO_FWD_HEADS 2
+#endif
 
 template <int D>
 int dispatch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
              const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
              int Hkv, long long mask_sb, int causal, int skip_pad_q,
              cudaStream_t stream) {
-  const int groups = Hq / Hkv;
-#define RANKPO_LAUNCH(NC, SW, PW)                                                   \
-  return launch<D, NC, SW, PW>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv,    \
-                               mask_sb, causal, skip_pad_q, stream)
-  if (g_variant == 1 && groups % 2 == 0) RANKPO_LAUNCH(2, false, false);
-  if (g_variant == 2 && groups % 2 == 0) RANKPO_LAUNCH(2, true, false);
-  if (g_variant == 3) RANKPO_LAUNCH(1, true, true);
-  if (g_variant == 4 && groups % 4 == 0) RANKPO_LAUNCH(4, true, true);
-  if (groups % 2 == 0) RANKPO_LAUNCH(2, true, true);
-  RANKPO_LAUNCH(1, true, true);
-#undef RANKPO_LAUNCH
+  if (RANKPO_FWD_HEADS == 2 && (Hq / Hkv) % 2 == 0) {
+    return launch<D, 2>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
+                        skip_pad_q, stream);
+  }
+  return launch<D, 1>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
+                      skip_pad_q, stream);
 }
 
 }  // namespace
-
-extern "C" void rankpo_flash_fwd_set_variant(int v) { g_variant = v; }
 
 // Plain C entry point (loaded with ctypes). Returns a cudaError_t value; 0 is
 // success. The caller validates shapes, types, strides and alignment (TMA's

@@ -89,11 +89,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
 // ---- wgmma ----
 // Descriptor of a 128-byte-swizzled operand tile (layout type 1 in bits
 // 62-63). Addresses and offsets are in 16-byte units. SBO is the step from
@@ -126,7 +121,7 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Pin register values at this point of the program: the compiler may not
 // move their reads or writes across it (wgmma reads and writes its
-// registers asynchronously, between issue and wgmma_wait).
+// registers asynchronously, until wgmma_wait).
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll

@@ -19,11 +19,13 @@ the backward kernels.
 What bounds them on an H100 at the encoder's shapes (S <= 512, D = 64, 32
 query heads over 8 kv heads): per (batch, head) the K/V rows are at most
 64 KB and are read once per 64-row tile, so the kernels are bound by
-latency and occupancy rather than HBM bandwidth or tensor-core peak, and
-attention is a small share of a layer next to the projections. The design
-keeps many small blocks in flight, runs every product on the tensor cores
-with ``mma.sync`` and skips whole tiles past the valid length and above the
-causal diagonal (see the kernels' headers).
+latency rather than HBM bandwidth or tensor-core peak, and attention is a
+small share of a layer next to the projections. Every kernel skips whole
+tiles past the valid length and above the causal diagonal. K1 is built for
+Hopper (``sm_90a``): one producer warp loads K/V tiles with TMA into an
+mbarrier ring shared by the query heads of a GQA group, one consumer
+warpgroup per head, both products on ``wgmma``. The backward kernels still
+run ``mma.sync`` on tiles staged by all threads (see the kernels' headers).
 
 The kernels take bf16 only, head_dim 64 or 128, a key mask, causal and
 ``skip_pad_q``. ``window`` and ``segment_ids`` are not ported yet and raise.
@@ -131,7 +133,9 @@ def flash_attention_bwd_reference(
 
 
 def _check_rows(name: str, x: torch.Tensor) -> None:
-    """The kernels read each [D] row with 16-byte vector loads."""
+    """The backward kernels read each [D] row with 16-byte vector loads, and
+    K1 reads tiles by TMA, which needs a 16-byte-aligned base and strides
+    that are multiples of 16 bytes."""
     if x.stride(3) != 1:
         raise ValueError(f"{name}: head_dim must be contiguous (stride 1)")
     if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:

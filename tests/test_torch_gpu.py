@@ -47,13 +47,19 @@ BWD_TOL_OF_MAX = 2.0**-7
 # counted twice moves a whole block of entries, far past 1e-2
 BWD_REL_L2 = 1e-2
 
+# (B, Sq, Sk, Hq, Hkv, D), causal, skip_pad_q, every key length full
 SHAPES = [
-    ((8, 512, 512, 32, 8, 64), True, True),
-    ((16, 40, 40, 32, 8, 64), True, True),
-    ((4, 64, 128, 32, 8, 64), True, False),
-    ((4, 128, 64, 32, 8, 64), True, False),
-    ((4, 256, 256, 16, 8, 128), True, True),
-    ((4, 100, 100, 4, 4, 64), False, False),
+    ((8, 512, 512, 32, 8, 64), True, True, False),
+    ((16, 40, 40, 32, 8, 64), True, True, False),
+    ((4, 64, 128, 32, 8, 64), True, False, False),
+    ((4, 128, 64, 32, 8, 64), True, False, False),
+    ((4, 256, 256, 16, 8, 128), True, True, False),
+    ((4, 100, 100, 4, 4, 64), False, False, False),
+    ((4, 100, 100, 64, 8, 64), True, True, False),  # 8 query heads per kv head
+    ((4, 1, 128, 32, 8, 64), True, False, False),  # one query row
+    ((4, 65, 200, 32, 8, 64), True, True, False),  # ragged Sq < Sk
+    ((4, 256, 256, 32, 8, 128), True, True, False),  # D 128, 4 per kv head
+    ((8, 512, 512, 32, 8, 64), True, True, True),
 ]
 
 
@@ -64,7 +70,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(b, sq, sk, hq, hkv, d, seed=0, lens=None):
+def _inputs(b, sq, sk, hq, hkv, d, seed=0, lens=None, full=False):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(b, sq, hq, d, generator=g).bfloat16()
     k = torch.randn(b, sk, hkv, d, generator=g).bfloat16()
@@ -72,15 +78,17 @@ def _inputs(b, sq, sk, hq, hkv, d, seed=0, lens=None):
     if lens is None:
         lens = torch.randint(1, sk + 1, (b,), generator=g)
         lens[0], lens[-1] = 1, sk
+    if full:
+        lens = [sk] * b
     lens = torch.as_tensor(lens)
     mask = (torch.arange(sk)[None] < lens[:, None]).int()
     return q, k, v, mask, lens
 
 
-@pytest.mark.parametrize("shape,causal,skip", SHAPES)
-def test_kernel_matches_plain(cuda, shape, causal, skip):
+@pytest.mark.parametrize("shape,causal,skip,full", SHAPES)
+def test_kernel_matches_plain(cuda, shape, causal, skip, full):
     b, sq, sk = shape[:3]
-    q, k, v, mask, lens = (t.to(cuda) for t in _inputs(*shape))
+    q, k, v, mask, lens = (t.to(cuda) for t in _inputs(*shape, full=full))
     before = port_flash.launches["flash_fwd"]
     with torch.inference_mode():
         out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=skip)
@@ -111,6 +119,35 @@ def test_kernel_reads_strided_fused_qkv(cuda):
         out, _ = flash_attention_fwd(q, k, v, None, causal=True)
         ref, _ = flash_attention_fwd_reference(q.float(), k.float(), v.float(), None, causal=True)
     assert (out.float() - ref).abs().max().item() <= OUT_ATOL
+
+
+def test_kernel_reads_head_major_k(cuda):
+    """k and v as views of one head-major [B, 2 Hkv, S, D] projection: the
+    [B, S, H, D] views have the head stride above the sequence stride."""
+    b, s, hq, hkv, d = 4, 192, 32, 8, 64
+    g = torch.Generator().manual_seed(4)
+    q, _, _, mask, _ = (t.to(cuda) for t in _inputs(b, s, s, hq, hkv, d, seed=5))
+    kv = torch.randn(b, 2 * hkv, s, d, generator=g).bfloat16().to(cuda)
+    k, v = kv[:, :hkv].transpose(1, 2), kv[:, hkv:].transpose(1, 2)
+    assert k.stride(2) > k.stride(1)
+    with torch.inference_mode():
+        out, lse = flash_attention_fwd(q, k, v, mask, causal=True)
+        ref, rlse = flash_attention_fwd_reference(q.float(), k.float(), v.float(), mask,
+                                                  causal=True)
+    assert (out.float() - ref).abs().max().item() <= OUT_ATOL
+    has_key = rlse > -1e29
+    assert (lse - rlse).abs()[has_key].max().item() <= LSE_ATOL
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_kernel_repeats_bit_for_bit(cuda, full):
+    """No atomics: two launches on the same inputs give identical out and lse."""
+    q, k, v, mask, _ = (t.to(cuda) for t in _inputs(8, 512, 512, 32, 8, 64, seed=6,
+                                                      full=full))
+    with torch.inference_mode():
+        runs = [flash_attention_fwd(q, k, v, mask, causal=True, skip_pad_q=True)
+                for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
 
 
 def test_exact_search_tie_order_on_card(cuda):
@@ -149,8 +186,8 @@ def test_encoder_kernel_against_plain(cuda):
     assert torch.all(torch.nn.functional.cosine_similarity(a, p) >= 0.999)
 
 
-def _bwd_inputs(shape, causal, skip, cuda, seed=0):
-    q, k, v, mask, lens = (t.to(cuda) for t in _inputs(*shape, seed=seed))
+def _bwd_inputs(shape, causal, skip, cuda, seed=0, full=False):
+    q, k, v, mask, lens = (t.to(cuda) for t in _inputs(*shape, seed=seed, full=full))
     g = torch.Generator().manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=g).bfloat16().to(cuda)
     out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=skip)
@@ -159,9 +196,9 @@ def _bwd_inputs(shape, causal, skip, cuda, seed=0):
 
 
 @pytest.mark.parametrize("impl", ["fused", "split"])
-@pytest.mark.parametrize("shape,causal,skip", SHAPES)
-def test_bwd_kernels_match_plain(cuda, shape, causal, skip, impl):
-    q, k, v, mask, do, lse, delta = _bwd_inputs(shape, causal, skip, cuda)
+@pytest.mark.parametrize("shape,causal,skip,full", SHAPES)
+def test_bwd_kernels_match_plain(cuda, shape, causal, skip, full, impl):
+    q, k, v, mask, do, lse, delta = _bwd_inputs(shape, causal, skip, cuda, full=full)
     names = ["flash_bwd_fused"] if impl == "fused" else ["flash_dq", "flash_dkv"]
     before = dict(port_flash.launches)
     grads = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
