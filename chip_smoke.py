@@ -127,11 +127,11 @@ KERNELS = {  # name -> (TPU kernel it replaces, source, profiler name test)
     "flash_fwd": ("rankpo_tpu/ops/flash_attention.py:55", "flash_fwd.cu",
                   lambda n: "flash_fwd_kernel" in n),
     "flash_bwd_fused": ("rankpo_tpu/ops/flash_attention.py:341", "flash_bwd.cu",
-                        lambda n: "flash_bwd_kv_kernel" in n and "true" in n),
+                        lambda n: "flash_bwd_kv" in n and "true" in n),
     "flash_dq": ("rankpo_tpu/ops/flash_attention.py:161", "flash_bwd.cu",
                  lambda n: "flash_bwd_dq_kernel" in n),
     "flash_dkv": ("rankpo_tpu/ops/flash_attention.py:240", "flash_bwd.cu",
-                  lambda n: "flash_bwd_kv_kernel" in n and "false" in n),
+                  lambda n: "flash_bwd_kv" in n and "false" in n),
 }
 IVF_KERNELS = {  # name -> (TPU kernel it replaces, source, launch counter)
     "ivf_probe_scores": ("rankpo_tpu/ops/ivf_gather_pallas.py:43", "ivf_gather.cu",
@@ -263,6 +263,57 @@ def _fwd_design_bytes(lens, sq, sk, hq, hkv, d) -> int:
     return int(total) + len(lens) * sq * hq * (d * 2 + 4)
 
 
+def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
+    """The bytes the backward kernels' designs move (causal, skip_pad_q),
+    outside the wrapper's zero-fills, sums and casts:
+
+    - K2, and K3b at D 64 (the wgmma kv kernel): per block of (batch, kv
+      head, 64-key tile), its mask row scan, K and V once, and for each
+      (query head of the group, query tile) it runs, the Q and dO tiles and
+      their lse/delta rows, plus (K2) the fp32 dQ tile read and written
+      once; dK/dV written once as bf16 per kv head;
+    - K3b at D 128 (the mma.sync kv kernel): the same per query head, with
+      dK/dV written as fp32 per query head;
+    - K3a: per block of (batch, query head, 64-row query tile), its mask
+      row scan, Q and dO once and each key tile's K, V and mask entries;
+      dQ written as bf16."""
+    shift = sk - sq
+    nq, nk = -(-sq // 64), -(-sk // 64)
+    fused = kind == "flash_bwd_fused"
+    grouped = d == 64 or fused
+    total = 0
+    for n in lens:
+        n = int(n)
+        if kind == "flash_dq":
+            for q0 in range(0, sq, 64):
+                rows = min(64, sq - q0)
+                n_tiles = min(-(-n // 64), (q0 + 63 + shift) // 64 + 1)
+                total += hq * (sk * 4 + rows * d * 2)
+                if q0 + shift >= n or n_tiles <= 0:
+                    continue
+                kv_rows = min(n_tiles * 64, sk)
+                total += hq * (2 * rows * d * 2 + 2 * rows * 4 + 2 * kv_rows * d * 2
+                               + n_tiles * 64 * 4)
+            continue
+        lim = n - shift
+        q_end = min(nq, 0 if lim <= 0 else -(-lim // 64))
+        for kt in range(nk):
+            key0 = kt * 64
+            keys = min(64, sk - key0)
+            heads = hkv if grouped else hq  # blocks per (batch, key tile)
+            per_head_out = 2 * keys * d * (2 if grouped else 4)
+            total += heads * (sk * 4 + per_head_out)
+            q_begin = max(0, key0 - shift) // 64
+            if key0 >= n or q_end <= q_begin:
+                continue
+            step = 0
+            for qt in range(q_begin, q_end):
+                rows = min(64, sq - qt * 64)
+                step += 2 * rows * d * 2 + 2 * rows * 4 + (2 * rows * d * 4 if fused else 0)
+            total += heads * 2 * keys * d * 2 + hq * step
+    return int(total)
+
+
 def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
     """(bytes, FLOPs) the function of kernel ``kind`` must move and compute
     for these key lengths (causal, skip_pad_q, as the encoder calls it):
@@ -270,9 +321,8 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
     not needed; the outputs are written in full, at the dtype and shape
     ``flash_attention_bwd`` returns (bf16; dk/dv summed over each GQA
     group). With ``design``, the bytes are the kernel's own traffic instead,
-    not a bound: K1's as ``_fwd_design_bytes`` counts them, the backward
-    outputs as the kernels write them (fp32 dq for K2, fp32 dk/dv per query
-    head)."""
+    not a bound, as ``_fwd_design_bytes`` and ``_bwd_design_bytes`` count
+    them."""
     lens = np.asarray(lens.cpu(), dtype=np.int64)
     b = len(lens)
     shift = sk - sq
@@ -292,11 +342,13 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
                   read_q + read_kv + mask + b * sq * hq * d * 2 + b * hq * sq * 4)
         return nbytes, pairs * 2 * 2 * d
     reads = 2 * read_q + read_kv + mask + 2 * q_rows * hq * 4  # q, do, k, v, lse, delta
-    dq_out = b * sq * hq * d * (4 if design and kind == "flash_bwd_fused" else 2)
-    dkv_out = 2 * b * sk * d * (hq * 4 if design else hkv * 2)
+    dq_out = b * sq * hq * d * 2
+    dkv_out = 2 * b * sk * d * hkv * 2
     writes, products = {"flash_bwd_fused": (dq_out + dkv_out, 5),
                         "flash_dq": (dq_out, 3), "flash_dkv": (dkv_out, 4)}[kind]
-    return reads + writes, pairs * products * 2 * d
+    nbytes = (_bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind) if design
+              else reads + writes)
+    return nbytes, pairs * products * 2 * d
 
 
 def bound(cost, peak_ops: float = PEAK_BF16_FLOPS) -> tuple:
@@ -310,11 +362,13 @@ def _sdpa_mask(mask, sq, sk):
     return mask.bool()[:, None, None, :] & causal  # [B, 1, Sq, Sk]
 
 
-def phase_kernels(seed: int) -> dict:
+def phase_kernels(seed: int, tmp: str) -> dict:
     """Every kernel against its plain version at the five encoder shapes and
     four more for K1 (one and eight query heads per kv head, a ragged Sq
-    below Sk, every key length 1), K1's two launches on the same inputs
-    bit for bit, then times at B 8, S 512 (random lengths and all full)."""
+    below Sk, every key length 1; the backward at all but the last), two
+    launches of each on the same inputs bit for bit, then times at B 8, S
+    512 (random lengths and all full) and the backward's at one stage-1
+    micro-batch's shapes."""
     import torch.nn.functional as F
 
     from rankpo_tpu_torch.ops.attention import multi_head_attention
@@ -377,6 +431,11 @@ def phase_kernels(seed: int) -> dict:
                                            skip_pad_q=True, bwd_impl="fused")
         got["split"] = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True,
                                            skip_pad_q=True, bwd_impl="split")
+        for impl, grads in got.items():  # both give dq, dk, dv bit for bit again
+            again = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True,
+                                        skip_pad_q=True, bwd_impl=impl)
+            if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+                raise AssertionError(f"{impl} backward: two launches differ at {shape}")
         torch.cuda.synchronize()
         line = []
         typical = [r.abs()[r != 0].median().item() for r in plain]  # masked keys give 0
@@ -395,7 +454,7 @@ def phase_kernels(seed: int) -> dict:
                         else ("flash_dq" if i == 0 else "flash_dkv"))
                 err[name] = max(err[name], e)
                 line.append(f"{impl} d{'qkv'[i]} {e:.2e}/{tol:.2e} rel {rel:.2e}")
-        log(k1_line + f"; backward max|err|/limit and "
+        log(k1_line + f"; backward two launches bit-equal (fused, split), max|err|/limit and "
             f"relative L2 (limit {BWD_REL_L2:.0e}): " + ", ".join(line)
             + "; median non-zero |plain| dq {:.2e} dk {:.2e} dv {:.2e}".format(*typical))
         del q, k, v, do, out, lse, ref, rlse, plain, got
@@ -440,7 +499,12 @@ def phase_kernels(seed: int) -> dict:
             o = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
             torch.autograd.grad(o, leaves, dot)
 
-        lib_bwd = cuda_ms(lib_fwd_bwd)
+        lib_fwd_bwd_ms = cuda_ms(lib_fwd_bwd)
+        # the fair yardstick for a backward: SDPA's backward alone, its
+        # forward run once outside the timed region
+        o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, dot, retain_graph=True))
+        del o_lib
         kernel_times = {
             "flash_fwd": kernel_ms(traced["flash_fwd"], "flash_fwd"),
             "flash_bwd_fused": kernel_ms(traced["fused"], "flash_bwd_fused"),
@@ -456,21 +520,28 @@ def phase_kernels(seed: int) -> dict:
                 "library_ms": lib_fwd if fwd else lib_bwd,
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+            lib = ("library (SDPA forward)" if fwd else
+                   f"library (SDPA backward alone) {lib_bwd:.4f} ms, SDPA forward + backward "
+                   f"{lib_fwd_bwd_ms:.4f}")
+            if fwd:
+                lib += f" {lib_fwd:.4f} ms"
             log(f"time {name} at {shape} causal, {label} lengths: kernel {ms:.4f} ms "
                 f"(device time, profiler); plain {res[name][label]['plain_ms']:.4f} ms; "
-                f"library {res[name][label]['library_ms']:.4f} ms; bound {b_ms:.4f} ms "
-                f"({b_by}; the design's own traffic {design_mb:.1f} MB)")
+                f"{lib}; bound {b_ms:.4f} ms ({b_by}); the design's own traffic "
+                f"{design_mb:.1f} MB")
         log(f"time wrappers ({label} lengths, CUDA events, median of 20): K1 "
             f"{wrapper['flash_fwd']:.4f} ms, fused backward {wrapper['fused']:.4f} ms, "
             f"split backward {wrapper['split']:.4f} ms (backward wrappers include "
-            "the dq zero-fill, GQA sums and casts)")
+            f"the dq zero-fill and cast); SDPA backward alone {lib_bwd:.4f} ms")
         del q, k, v, do, out, lse, delta, leaves
+    torch.cuda.empty_cache()
+    stage1 = time_stage1_bwd(stage1_bwd_inputs(seed, tmp))
     torch.cuda.empty_cache()
     log(f"kernels: max|err| K1 {err['flash_fwd']:.3e} (lse {worst_lse:.3e}) over the "
         f"{len(shapes)} shapes, K2 {err['flash_bwd_fused']:.3e}, K3a {err['flash_dq']:.3e}, "
         f"K3b {err['flash_dkv']:.3e} over the {len(shapes) - 1} with random lengths")
-    return {name: dict(res[name]["random"], max_abs_err=err[name],
-                       full=res[name]["full"]) for name in KERNELS}
+    return {name: dict(res[name]["random"], max_abs_err=err[name], full=res[name]["full"],
+                       stage1=stage1.get(name)) for name in KERNELS}
 
 
 def phase_search_ties() -> None:
@@ -607,6 +678,77 @@ def time_encode_k1(encoder, corpus) -> dict:
         f"bound {bound_ms:.4f} ms (summed over the batches); the design's own traffic "
         f"{design / 1e6:.1f} MB")
     return {"ms": ms, "bound_ms": bound_ms, "batches": len(masks)}
+
+
+def stage1_bwd_inputs(seed: int, tmp: str) -> dict:
+    """The attention inputs of one stage-1 micro-batch: the key masks of the
+    first micro-batch of the profiled step's loader (``phase_profile``: 8
+    queries padded to 128 tokens, 32 passages padded to 512), q/k/v/do
+    random at Llama-3.2-1B's heads. Returns {field: (q, k, v, do, mask)}."""
+    from rankpo_tpu_torch.data.collators import ContrastiveCollator
+    from rankpo_tpu_torch.data.datasets import ContrastiveDataset, iter_jsonl
+    from rankpo_tpu_torch.data.loader import DataLoader
+    from rankpo_tpu_torch.data.tokenization import HashTokenizer
+    from rankpo_tpu_torch.models.config import EncoderConfig
+
+    train, _ = write_training_data(tmp, seed)
+    rows = [r for _, r in zip(range(32), iter_jsonl(train))]
+    ds = ContrastiveDataset(rows, HashTokenizer(vocab_size=128256), 128, 512)
+    loader = DataLoader(ds, ContrastiveCollator(0, 3, 128, 512, seed=seed), 8, seed=seed)
+    group = next(loader.epoch(0, stack=2))
+    cfg = EncoderConfig()
+    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    out = {}
+    for field in ("query", "passage"):
+        mask = torch.from_numpy(group[field]["attention_mask"][0]).cuda().int()
+        b, s = mask.shape
+        q = torch.randn(b, s, hq, d, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(b, s, hq, d, generator=gen, device="cuda").bfloat16()
+        out[field] = (q, k, v, do, mask)
+    return out
+
+
+def time_stage1_bwd(inputs: dict) -> dict:
+    """K2, K3a and K3b at one stage-1 micro-batch's shapes
+    (``stage1_bwd_inputs``): device time of one layer's backward over both
+    fields, against the summed bound and the designs' traffic; the
+    wrappers' times (CUDA events)."""
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    prepared = []
+    for q, k, v, do, mask in inputs.values():
+        with torch.no_grad():
+            out, lse = flash_attention_fwd(q, k, v, mask, causal=True, skip_pad_q=True)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        prepared.append((q, k, v, mask, do, lse, delta))
+
+    def run(impl):
+        for args in prepared:
+            flash_attention_bwd(*args, causal=True, skip_pad_q=True, bwd_impl=impl)
+
+    traced = {impl: profile_device_ms(lambda impl=impl: run(impl)) for impl in ("fused", "split")}
+    wrapper = {impl: cuda_ms(lambda impl=impl: run(impl)) for impl in ("fused", "split")}
+    res = {}
+    for name, impl in (("flash_bwd_fused", "fused"), ("flash_dq", "split"),
+                       ("flash_dkv", "split")):
+        ms = kernel_ms(traced[impl], name)
+        b_ms = design = 0.0
+        for q, k, _, mask, *_ in prepared:
+            shape = (q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3])
+            b_ms += bound(attention_cost(mask.sum(1), *shape, name))[0]
+            design += attention_cost(mask.sum(1), *shape, name, design=True)[0]
+        res[name] = {"ms": ms, "bound_ms": b_ms, "design_mb": design / 1e6}
+        log(f"time {name} at the stage-1 micro-batch's shapes (queries "
+            f"{tuple(inputs['query'][4].shape)}, passages {tuple(inputs['passage'][4].shape)}, "
+            f"causal, skip_pad_q): kernel {ms:.4f} ms per layer (device time, profiler); bound "
+            f"{b_ms:.4f} ms (summed); the design's own traffic {design / 1e6:.1f} MB")
+    log(f"time backward wrappers at the stage-1 micro-batch's shapes (CUDA events, median of "
+        f"20, both fields): fused {wrapper['fused']:.4f} ms, split {wrapper['split']:.4f} ms")
+    res["wrapper_ms"] = wrapper
+    return res
 
 
 def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
@@ -859,6 +1001,7 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
     log(f"{name}: 8 steps, losses {[round(x, 4) for x in losses]}; all "
         f"{len(state)} parameter tensors moved; {out_dir} loads with load_pretrained")
     return {
+        "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
         "first_loss": losses[0], "last_loss": losses[-1],
         "step_time_s": _median(history, "step_time"),
         "samples_per_sec": _median(history, "samples_per_sec"),
@@ -866,6 +1009,24 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
         "mfu": _median(history, "mfu"),
         "peak_mem_gib": peak_gib, "wall_s": wall, "launches": launches,
     }, state
+
+
+def rerun_stage1(main, argv, out_dir: str, first: dict) -> None:
+    """Stage 1 again from the same checkpoint, seed and settings, for 2 steps
+    (no warmup at 8 or 2 steps, so both runs take the same first update):
+    its losses and gradient norms must equal the first run's bit for bit,
+    as the JAX package promises (docs/DETERMINISM.md)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    history = main([*argv, "--output_dir", out_dir, "--max_steps", "2"])
+    got = ([h["loss"] for h in history], [h["grad_norm"] for h in history])
+    want = (first["losses"][:2], first["grad_norms"][:2])
+    log(f"stage 1 rerun, 2 steps from the same seed and state: losses {got[0]}, gradient "
+        f"norms {got[1]}; first run {want[0]}, {want[1]}; bit-equal {got == want}")
+    if got != want:
+        raise AssertionError("stage 1 does not repeat bit for bit from the same seed and state")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _device_batch(collated: dict) -> dict:
@@ -1001,12 +1162,14 @@ def phase_training(ckpt: str, tmp: str, seed: int, base_state: dict) -> dict:
               "--max_query_length", "128", "--max_passage_length", "512",
               "--save_strategy", "no", "--seed", str(seed), "--device", "cuda",
               "--log_level", "warning"]
-    stage1, s1_state = run_stage("stage 1 (contrastive, fused backward)",
-                                 run_contrastive.main, [
-        "--model_name_or_path", ckpt, "--train_data", train, "--output_dir", s1,
+    stage1_argv = [
+        "--model_name_or_path", ckpt, "--train_data", train,
         "--num_negatives", "3", "--gradient_accumulation_steps", "2",
         "--temperature", "0.02", "--lr_scheduler_type", "cosine",
-        "--warmup_ratio", "0.1", "--gradient_checkpointing", "True", *common], s1, base_state)
+        "--warmup_ratio", "0.1", "--gradient_checkpointing", "True", *common]
+    stage1, s1_state = run_stage("stage 1 (contrastive, fused backward)", run_contrastive.main,
+                                 [*stage1_argv, "--output_dir", s1], s1, base_state)
+    rerun_stage1(run_contrastive.main, stage1_argv, os.path.join(tmp, "stage1_rerun"), stage1)
     stage2, _ = run_stage("stage 2 (RankPO, deterministic: split backward)", run_rankpo.main, [
         "--model_name_or_path", s1, "--train_data", pairs, "--output_dir", s2,
         "--beta", "2.0", "--temperature", "0.1", "--loss_type", "sigmoid",
@@ -1317,9 +1480,9 @@ def main(argv=None) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = phase_environment()
     phase_build()
-    kern = phase_kernels(args.seed)
-    phase_search_ties()
     with tempfile.TemporaryDirectory(prefix="rankpo_smoke_") as tmp:
+        kern = phase_kernels(args.seed, tmp)
+        phase_search_ties()
         ckpt, base_state = make_checkpoint(tmp, args.seed)
         serving = {}
         for tier in SERVE_TIERS:

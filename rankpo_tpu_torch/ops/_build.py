@@ -43,13 +43,14 @@ _SIGNATURES = {
     + [_I, _I, _P],  # causal skip_pad_q stream
 }
 _BWD_ARGTYPES = (
-    [_P] * 10  # q k v mask do lse delta dq dk dv
+    [_P] * 11  # q k v mask do lse delta dq dk dv sync
     + [_I] * 6  # B Sq Sk Hq Hkv D
     + [_LL] * 13  # q/k/v/do (batch, seq, head) strides, mask batch stride
     + [_I, _I, _P]  # causal skip_pad_q stream
 )
 for _name in ("fused", "dkv", "dq"):
     _SIGNATURES[f"rankpo_flash_bwd_{_name}_bf16"] = _BWD_ARGTYPES
+_SIGNATURES["rankpo_flash_bwd_kv_grouped"] = [_I, _I]  # D fused
 # corpus probe queries out, K Q P cap D dtype, stream
 _SIGNATURES["rankpo_ivf_probe_scores"] = [_P] * 4 + [_I] * 6 + [_P]
 # codes probe lut out, K Q P cap m layout, stream

@@ -1,9 +1,10 @@
 // Flash-attention backward for Hopper (sm_90a), bf16 in, fp32 accumulation.
 //
 // Replaces the Pallas TPU kernels of rankpo_tpu/ops/flash_attention.py:
-//   _bwd_fused_kernel (flash_bwd_fused)  -> flash_bwd_kv_kernel<D, true>
-//   _dkv_kernel       (flash_dkv)        -> flash_bwd_kv_kernel<D, false>
+//   _bwd_fused_kernel (flash_bwd_fused)  -> flash_bwd_kv_wgmma<D, true>
+//   _dkv_kernel       (flash_dkv)        -> flash_bwd_kv_wgmma<D, false>
 //   _dq_kernel        (flash_dq)         -> flash_bwd_dq_kernel<D>
+// except K3b at D 128, which is flash_bwd_kv_kernel<128, false> (below).
 //
 // Contract (what the Pallas kernels compute), with the forward's contract
 // from flash_fwd.cu (layouts, strides, mask, bottom-right causal, GQA):
@@ -12,43 +13,62 @@
 //   s = scale * q.k in fp32; p = exp(s - lse) on valid entries, 0 elsewhere;
 //   dV += P^T dO with P rounded to bf16; dP = dO V^T;
 //   dS = p * (dP - delta) * scale, rounded to bf16; dK += dS^T Q; dQ += dS K.
-//   dK/dV are written per query head in fp32 ([B, Hq, Sk, D]); the caller
-//   sums each GQA group. The fused kernel adds dQ in fp32 into a zeroed
-//   [B, Hq, Sq, D] buffer; the dq kernel writes dQ as bf16 [B, Sq, Hq, D].
+//   The fused kernels add dQ in fp32 into a zeroed [B, Hq, Sq, D] buffer in
+//   key-tile order (below); the dq kernel writes dQ as bf16 [B, Sq, Hq, D].
+//   The wgmma kv kernel writes dK/dV as bf16 [B, Sk, Hkv, D], each GQA group
+//   summed in fp32 registers; the mma.sync kv kernel writes them per query
+//   head in fp32 ([B, Hq, Sk, D]) and the caller sums each group.
 //   Loop bounds are the forward's: keys end one past the last valid key;
 //   causal tiles above the diagonal are skipped; with skip_pad_q a query
 //   tile the forward skipped (it starts at or past the valid key extent)
 //   is skipped here too, so its rows give zero dQ and add nothing to dK/dV.
+//   Every output repeats bit for bit from launch to launch.
 //
-// Design. 4 warps per block, 16 tile rows per warp, both operands of every
-// product on the tensor cores through mma.sync m16n8k16, fragments of one
-// product's fp32 accumulators reused as the next product's bf16 A operand.
-//   * kv kernels: one block per (batch*q-head, 64-key tile), as the Pallas
-//     grid (bh, k_blocks). The key and value tile stay in shared memory; the
-//     block loops over 64-row query tiles (Q, dO, lse, delta staged each
-//     step). Each warp computes S^T for its 16 keys against the 64 queries,
-//     so dK and dV accumulate in registers over the whole loop.
-//   * Blocks on Hopper run in parallel and in no order, so the Pallas fused
-//     kernel's dq block resident across the sequential key axis has no
-//     counterpart: the fused variant stages dS (bf16, transposed) in shared
-//     memory, forms the 64 x D dQ contribution of its key tile and adds it
-//     to the fp32 buffer with atomicAdd. The summation order of those adds
-//     changes from run to run, so fused dQ is not bit-reproducible.
-//   * dq kernel: one block per (batch*q-head, 64-row query tile) looping over
-//     key tiles like the forward, dQ held in registers and rounded once:
-//     bit-reproducible.
+// dQ in key-tile order. Blocks on Hopper run in parallel and in no order, so
+// the Pallas fused kernel's dq block, resident across the sequential key
+// axis, has no counterpart. The loop bounds make the key tiles that reach a
+// query tile a prefix 0, 1, ..., N - 1, so key tile n is the n-th to add.
+// Each (batch * q-head, 64-row query tile) has an int32 counter in a zeroed
+// `sync` buffer; the adders of key tile n wait (acquire) until the counter
+// says tiles 0 .. n - 1 have added, add with plain loads and stores through
+// L2, fence and count themselves. sync[0] hands out the blocks' places in
+// the order they start, key tile slowest, so a block waits only on blocks
+// that started before it. dQ is then summed in key order, as in JAX.
 //
-// What bounds it on this card. At the training shapes (S <= 512, D = 64) a
-// tile pair costs 5 (fused), 4 (dkv) or 3 (dq) 64 x 64 x 64 products and each
-// kernel reads its inputs a few times from L2 (K/V per head are <= 64 KB), so
-// like the forward it is bound by latency and occupancy (128-thread blocks,
-// ~46 KB of shared memory at D = 64) and, for the fused kernel, by the fp32
-// atomics into dQ (one per dQ element per key tile). The causal and
-// valid-length bounds remove whole tiles, which on right-padded batches is
-// most of the work. wgmma, TMA and a dQ reduction without atomics are left
-// for later work.
+// Design of the wgmma kv kernel. One block per (batch, kv head, 64-key
+// tile), 160 threads (192 fused):
+//   - warp 4, the producer, loads the block's K and V tiles once by TMA
+//     (4-D tensor maps over the caller's strides, 128-byte swizzle), then
+//     streams the Q and dO tiles of every query head of the GQA group and
+//     every query tile inside the forward's bounds through a 2-stage
+//     mbarrier ring (3 stages for K3b, 2 for K2); its lanes post each
+//     tile's lse and delta rows;
+//   - warps 0-3, one consumer warpgroup, hold S^T for the block's 64 keys
+//     against 64 queries: S^T = K Q^T and dP^T = V dO^T by wgmma SS; P^T and
+//     dS^T in registers; dV += P^T dO and dK += dS^T Q by wgmma RS (dO and Q
+//     the MN-major transposed-B operand, K1's P V form); fused, dS^T staged
+//     as bf16 in shared memory (two buffers) and dQ = dS K by wgmma SS with
+//     both operands transposed. dK and dV accumulate over the whole group in
+//     fp32 registers and are written once;
+//   - warp 5 (fused), the dQ adder, takes each dQ tile from shared memory
+//     (two fp32 buffers) and adds it to the fp32 buffer in key-tile order,
+//     off the consumers' path.
+// K3b at D 128 keeps the first design (flash_bwd_kv_kernel: 4 warps, 16
+// rows each, mma.sync m16n8k16 on tiles staged by all threads, one block per
+// (batch * q-head, key tile)): at D 128 fp32 dK and dV are 128 registers a
+// thread of one warpgroup, and the wgmma kernel was no faster there. The dq
+// kernel: one block per (batch * q-head, 64-row query tile) looping over key
+// tiles like the forward, dQ held in registers and rounded once.
+//
+// What bounds them on this card. At the training shapes (S <= 512, D = 64)
+// a tile pair costs 5 (fused), 4 (dkv) or 3 (dq) 64 x 64 x 64 products; the
+// kernels are bound by the latency of each block's chain of tile pairs (a
+// kv block runs up to groups x 8 of them), not by HBM bytes or the
+// tensor-core peak. The causal and valid-length bounds remove whole tiles,
+// which on right-padded batches is most of the work.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -61,6 +81,42 @@ __device__ __forceinline__ void load_stats(float* dst, const float* src,
   }
 }
 
+// ---- dQ summed in key-tile order (the header): the counter of a query tile
+// counts adders, kWarps per block in the mma.sync kernel (each warp adds its
+// 16 rows), 1 per block in the wgmma kernel (its dQ adder warp) ----
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void wait_turn(const int* counter, int target) {
+  while (ld_acquire(counter) < target) __nanosleep(32);
+}
+
+// each lane's stores made visible at the device, then one count per warp
+__device__ __forceinline__ void end_turn(int* counter, int lane) {
+  __threadfence();
+  __syncwarp();
+  if (lane == 0) atomicAdd(counter, 1);
+}
+
+// dst[0..1] += (x, y) through L2 (another SM added the previous value)
+__device__ __forceinline__ void add_l2(float* dst, float x, float y) {
+  float2 v = __ldcg(reinterpret_cast<const float2*>(dst));
+  v.x += x;
+  v.y += y;
+  __stcg(reinterpret_cast<float2*>(dst), v);
+}
+
+// the block's place in the order blocks started (one atomic, one barrier)
+__device__ __forceinline__ int take_ticket(int* ticket, int* slot) {
+  if (threadIdx.x == 0) *slot = atomicAdd(ticket, 1);
+  __syncthreads();
+  return *slot;
+}
+
 struct BwdArgs {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
@@ -71,8 +127,11 @@ struct BwdArgs {
   const float* delta;
   float* dq_acc;          // fused: fp32 [B*Hq, Sq, D], zeroed by the caller
   __nv_bfloat16* dq;      // dq kernel: bf16 [B, Sq, Hq, D]
-  float* dk;              // kv kernels: fp32 [B*Hq, Sk, D]
+  float* dk;              // mma.sync kv kernel: fp32 [B*Hq, Sk, D]
   float* dv;
+  __nv_bfloat16* dk_g;    // wgmma kv kernel: bf16 [B, Sk, Hkv, D]
+  __nv_bfloat16* dv_g;
+  int* sync;              // fused: zeroed int32 [1 + B*Hq * q tiles]
   int Sq, Sk, Hq, Hkv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long do_sb, do_ss, do_sh, mask_sb;
@@ -95,12 +154,18 @@ flash_bwd_kv_kernel(const BwdArgs a) {
   __shared__ float delta_s[kTile];
   __shared__ int key_ok[kTile];
   __shared__ int s_key_end;
+  __shared__ int s_ticket;
 
-  const int bh = blockIdx.x;
+  // fused: blocks take (bh, key tile) in the order they start, key tile
+  // slowest, so the tiles before this one have started
+  const int place = kFusedDq ? take_ticket(a.sync, &s_ticket)
+                             : blockIdx.y * gridDim.x + blockIdx.x;
+  const int bh = place % gridDim.x;
+  const int kt = place / gridDim.x;
   const int b = bh / a.Hq;
   const int h = bh % a.Hq;
   const int hk = h / (a.Hq / a.Hkv);
-  const int key0 = blockIdx.y * kTile;
+  const int key0 = kt * kTile;
   const int q_shift = a.Sk - a.Sq;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -233,24 +298,22 @@ flash_bwd_kv_kernel(const BwdArgs a) {
           mma_16816(dq[n], af, bf);
         }
       }
+      // ... and added to the fp32 buffer after key tiles 0 .. kt - 1
       const int ra = q0 + warp * 16 + g;
       const int rb = ra + 8;
       float* dqa = a.dq_acc + ((long long)bh * a.Sq + ra) * D + 2 * t;
       float* dqb = dqa + 8 * D;
+      int* counter = a.sync + 1 + (long long)bh * ((a.Sq + kTile - 1) / kTile) + qt;
+      wait_turn(counter, kWarps * kt);
       if (ra < a.Sq) {
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          atomicAdd(dqa + n * 8, dq[n][0]);
-          atomicAdd(dqa + n * 8 + 1, dq[n][1]);
-        }
+        for (int n = 0; n < D / 8; ++n) add_l2(dqa + n * 8, dq[n][0], dq[n][1]);
       }
       if (rb < a.Sq) {
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          atomicAdd(dqb + n * 8, dq[n][2]);
-          atomicAdd(dqb + n * 8 + 1, dq[n][3]);
-        }
+        for (int n = 0; n < D / 8; ++n) add_l2(dqb + n * 8, dq[n][2], dq[n][3]);
       }
+      end_turn(counter, lane);
     }
     __syncthreads();  // before the next tile overwrites Qs/dOs/dSs/stats
   }
@@ -272,6 +335,378 @@ flash_bwd_kv_kernel(const BwdArgs a) {
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<float2*>(pk + n * 8) = make_float2(dk[n][2], dk[n][3]);
       *reinterpret_cast<float2*>(pv + n * 8) = make_float2(dv[n][2], dv[n][3]);
+    }
+  }
+}
+
+// ---- the wgmma kv kernel: K3b, and K2 with its dq ----
+
+template <int D, bool kFusedDq>
+struct KvTiles {
+  static constexpr int kAtoms = D / 64;  // 64-column swizzle atoms per row
+  static constexpr int kTileBytes = kAtoms * kSwizzleTileBytes;  // 64 rows
+  // Q/dO ring: 3 stages keep K3b 6% ahead of 2; K2 needs its shared memory
+  // for the dS and dQ buffers (2 blocks per SM at D 64)
+  static constexpr int kStages = kFusedDq ? 2 : 3;
+  static constexpr int kDqLd = D + 8;  // fp32 row stride of a staged dQ tile
+  static constexpr int kDqBytes = kTile * kDqLd * 4;
+};
+
+// warps 0-3: the consumer warpgroup; warp 4: the producer; warp 5
+// (fused): the dQ adder
+template <bool kFusedDq>
+constexpr int kKvThreads = kFusedDq ? 192 : 160;
+
+// acc (+)= A B^T over D, A and B [64, D] K-major tiles (S^T = K Q^T,
+// dP^T = V dO^T); issue only, the caller fences, commits and waits
+template <int D>
+__device__ __forceinline__ void issue_ss(float (&acc)[32], const unsigned char* At,
+                                         const unsigned char* Bt) {
+  const uint64_t da = sw128_desc(At), db = sw128_desc(Bt);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kSwizzleTileBytes + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(acc, desc_add(da, off), desc_add(db, off), kk > 0);
+  }
+}
+
+// acc += X B over 64: X as bf16 A registers x[4 kk .. 4 kk + 4) for rows
+// 16 kk .. 16 kk + 15 of B, B a [64, D] tile read MN-major (dV += P^T dO,
+// dK += dS^T Q)
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&x)[16],
+                                         const unsigned char* Bt) {
+  const uint64_t db = sw128_desc(Bt);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int a = 0; a < D / 64; ++a) {
+      wgmma_m64n64k16_rs_tb(&acc[32 * a], &x[4 * kk],
+                            desc_add(db, a * kSwizzleTileBytes + kk * 16 * 128));
+    }
+  }
+}
+
+// acc = X^T B over 64: X a [64, 64] tile and B a [64, D] tile, both read
+// MN-major (dQ = dS K from the staged dS^T and the K tile)
+template <int D>
+__device__ __forceinline__ void issue_tt(float (&acc)[D / 2], const unsigned char* Xt,
+                                         const unsigned char* Bt) {
+  const uint64_t dx = sw128_desc(Xt), db = sw128_desc(Bt);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int a = 0; a < D / 64; ++a) {
+      wgmma_m64n64k16_ss_tt(&acc[32 * a], desc_add(dx, kk * 16 * 128),
+                            desc_add(db, a * kSwizzleTileBytes + kk * 16 * 128), kk > 0);
+    }
+  }
+}
+
+// One block per (batch, kv head, 64-key tile), the key tile slowest; see the
+// header for the roles of its warps.
+template <int D, bool kFusedDq>
+__global__ void __launch_bounds__(kKvThreads<kFusedDq>, D == 64 ? 2 : 1)
+flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap do_map, const BwdArgs a) {
+  using T = KvTiles<D, kFusedDq>;
+  constexpr int kStages = T::kStages;
+  constexpr int kTileBytes = T::kTileBytes;
+  constexpr int kThreads = kKvThreads<kFusedDq>;
+
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries (the swizzle period)
+  unsigned char* Ks = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Vs = Ks + kTileBytes;
+  unsigned char* Qs = Vs + kTileBytes;              // [kStages] tiles
+  unsigned char* dOs = Qs + kStages * kTileBytes;   // [kStages] tiles
+  unsigned char* dSs = dOs + kStages * kTileBytes;  // fused: [2] dS^T tiles,
+  float* dQs = reinterpret_cast<float*>(dSs + 2 * kSwizzleTileBytes);  // [2] dQ
+  __shared__ uint64_t full_bar[kStages], empty_bar[kStages], kv_bar;
+  __shared__ uint64_t dq_full[2], dq_empty[2];
+  __shared__ float lse_s[kStages][kTile], delta_s[kStages][kTile];
+  __shared__ int warp_end[kThreads / 32];
+  __shared__ int s_ticket;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  if (tid == 0) {
+    if (kFusedDq) s_ticket = atomicAdd(a.sync, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 32);  // every producer lane (lse/delta rows)
+      mbar_init(&empty_bar[s], 4);  // lane 0 of every consumer warp
+    }
+    mbar_init(&kv_bar, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&dq_full[s], 128);  // every consumer thread
+      mbar_init(&dq_empty[s], 1);   // lane 0 of the dQ adder
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // fused: blocks take (batch * kv head, key tile) in the order they start,
+  // key tile slowest, so the key tiles before this one have started
+  const int place = kFusedDq ? s_ticket : blockIdx.y * gridDim.x + blockIdx.x;
+  const int bhk = place % gridDim.x;
+  const int kt = place / gridDim.x;
+  const int b = bhk / a.Hkv;
+  const int hk = bhk % a.Hkv;
+  const int groups = a.Hq / a.Hkv;
+  const int h0 = hk * groups;
+  const int key0 = kt * kTile;
+  const int q_shift = a.Sk - a.Sq;
+  const int* mrow = a.mask + (long long)b * a.mask_sb;
+
+  // one past the last valid key, reduced over the block with one barrier
+  int local_end = 0;
+  for (int j = tid; j < a.Sk; j += kThreads) {
+    if (mrow[j] != 0) local_end = j + 1;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    local_end = max(local_end, __shfl_xor_sync(0xffffffffu, local_end, off));
+  }
+  if (lane == 0) warp_end[warp] = local_end;
+  __syncthreads();
+  int key_end = 0;
+#pragma unroll
+  for (int i = 0; i < kThreads / 32; ++i) key_end = max(key_end, warp_end[i]);
+
+  // the query tiles of every head of the group: from the diagonal (causal)
+  // to the end of the tiles the forward ran; none past the valid keys
+  const int qt_begin = a.causal ? max(0, key0 - q_shift) / kTile : 0;
+  int qt_end = (a.Sq + kTile - 1) / kTile;
+  if (key0 >= key_end) qt_end = 0;
+  if (a.skip_pad_q) {
+    const int lim = key_end - q_shift;  // tile qt runs iff qt*64 < lim
+    qt_end = min(qt_end, lim <= 0 ? 0 : (lim + kTile - 1) / kTile);
+  }
+  const int n_qt = max(0, qt_end - qt_begin);
+  const int n_it = groups * n_qt;  // (head, query tile) pairs, head outer
+  const int n_q_tiles = (a.Sq + kTile - 1) / kTile;
+
+  if (kFusedDq && warp == 5) {
+    // ---- dQ adder: each staged dQ tile into the fp32 buffer, after the key
+    // tiles 0 .. kt - 1 added theirs; all of a pass's L2 loads in flight at
+    // once (one pass at D 64, two at D 128) ----
+    constexpr int kLanesPerRow = D / 4;                   // float4 columns
+    constexpr int kBatch = 32;                            // float4 per lane
+    constexpr int kRowsPerPass = kBatch * 32 / kLanesPerRow;
+    const int r0 = lane / kLanesPerRow;
+    const int c = 4 * (lane % kLanesPerRow);
+    for (int it = 0; it < n_it; ++it) {
+      const int buf = it & 1;
+      const long long bh = (long long)b * a.Hq + h0 + it / n_qt;
+      const int qt = qt_begin + it % n_qt;
+      const int q0 = qt * kTile;
+      const float* src = dQs + buf * kTile * T::kDqLd;
+      float* dst = a.dq_acc + (bh * a.Sq + q0) * D;
+      int* counter = a.sync + 1 + bh * n_q_tiles + qt;
+      mbar_wait(&dq_full[buf], (it >> 1) & 1);
+      if (kt > 0) wait_turn(counter, kt);  // key tile 0 adds to the zeros
+#pragma unroll 1
+      for (int pass = 0; pass < kTile / kRowsPerPass; ++pass) {
+        float4 sum[kBatch];
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int r = pass * kRowsPerPass + r0 + i * (32 / kLanesPerRow);
+          sum[i] = kt > 0 && q0 + r < a.Sq
+                       ? __ldcg(reinterpret_cast<const float4*>(dst + (long long)r * D + c))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int r = pass * kRowsPerPass + r0 + i * (32 / kLanesPerRow);
+          const float4 add = *reinterpret_cast<const float4*>(src + r * T::kDqLd + c);
+          sum[i].x += add.x;
+          sum[i].y += add.y;
+          sum[i].z += add.z;
+          sum[i].w += add.w;
+          if (q0 + r < a.Sq) {
+            __stcg(reinterpret_cast<float4*>(dst + (long long)r * D + c), sum[i]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&dq_empty[buf]);  // the staged tile is read
+      end_turn(counter, lane);
+    }
+    return;
+  }
+
+  if (warp == 4) {
+    // ---- producer: K and V once, then (Q, dO, lse, delta) through the ring ----
+    if (n_it == 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&kv_bar, 2 * kTileBytes);
+      for (int c = 0; c < T::kAtoms; ++c) {
+        const int off = c * kSwizzleTileBytes;
+        tma_load_4d(Ks + off, &k_map, &kv_bar, 64 * c, key0, hk, b);
+        tma_load_4d(Vs + off, &v_map, &kv_bar, 64 * c, key0, hk, b);
+      }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int stage = it % kStages;
+      const int h = h0 + it / n_qt;
+      const int q0 = (qt_begin + it % n_qt) * kTile;
+      mbar_wait(&empty_bar[stage], ((it / kStages) & 1) ^ 1);
+      if (lane == 0) {  // the tiles first, then the rows while they load
+        mbar_expect_tx(&full_bar[stage], 2 * kTileBytes);
+        for (int c = 0; c < T::kAtoms; ++c) {
+          const int off = stage * kTileBytes + c * kSwizzleTileBytes;
+          tma_load_4d(Qs + off, &q_map, &full_bar[stage], 64 * c, q0, h, b);
+          tma_load_4d(dOs + off, &do_map, &full_bar[stage], 64 * c, q0, h, b);
+        }
+      }
+      const long long row0 = ((long long)b * a.Hq + h) * a.Sq;
+#pragma unroll
+      for (int r = lane; r < kTile; r += 32) {
+        const bool in = q0 + r < a.Sq;
+        lse_s[stage][r] = in ? a.lse[row0 + q0 + r] : 0.f;
+        delta_s[stage][r] = in ? a.delta[row0 + q0 + r] : 0.f;
+      }
+      mbar_arrive(&full_bar[stage]);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: rows of S^T are this block's keys ----
+  const int w = warp;
+  const int g = lane / 4;  // keys 16w + g and 16w + g + 8
+  const int t = lane % 4;  // query columns 8j + 2t, 8j + 2t + 1
+  const int key_a = key0 + w * 16 + g;
+  const int key_b = key_a + 8;
+  const bool ok_a = key_a < a.Sk && mrow[key_a] != 0;
+  const bool ok_b = key_b < a.Sk && mrow[key_b] != 0;
+
+  float dk[D / 2], dv[D / 2];  // [4n + e]: columns 8n + 2t (+1) of keys a, b
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  if (n_it > 0) mbar_wait(&kv_bar, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it % kStages;
+    const int q0 = (qt_begin + it % n_qt) * kTile;
+    const unsigned char* Qt = Qs + stage * kTileBytes;
+    const unsigned char* dOt = dOs + stage * kTileBytes;
+    mbar_wait(&full_bar[stage], (it / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, one commit group
+    float st[32], dpt[32];
+    wgmma_fence();
+    issue_ss<D>(st, Ks, Qt);
+    issue_ss<D>(dpt, Vs, dOt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T = exp(s scale - lse) on valid entries, else 0, rounded to bf16 for
+    // dV; dS^T = P^T (dP^T - delta) scale, rounded to bf16 for dK and dQ.
+    // Two neighbouring 8-query groups of either are the A registers of a
+    // product over those 16 queries.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * 8 + 2 * t + e;
+        const int row = q0 + col;
+        const int pos = row + q_shift;
+        const bool qin = row < a.Sq;
+        const float l = lse_s[stage][col];
+        const float dl = delta_s[stage][col];
+        const bool va = qin && ok_a && (!a.causal || key_a <= pos);
+        const bool vb = qin && ok_b && (!a.causal || key_b <= pos);
+        st[4 * j + e] = va ? __expf(st[4 * j + e] * a.scale - l) : 0.f;
+        st[4 * j + 2 + e] = vb ? __expf(st[4 * j + 2 + e] * a.scale - l) : 0.f;
+        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl) * a.scale;
+        dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * (dpt[4 * j + 2 + e] - dl) * a.scale;
+      }
+    }
+    uint32_t p[16], ds[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[4 * kk + i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+        ds[4 * kk + i] = pack_bf16(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+      }
+    }
+
+    float dq[D / 2];
+    unsigned char* dSt = dSs + (it & 1) * kSwizzleTileBytes;
+    if constexpr (kFusedDq) {
+      // stage dS^T (keys as rows, 64 queries per 128-byte swizzled row) for
+      // dQ = dS K; two buffers, so a warp may write the next one while the
+      // others still read this one
+      const int ra = w * 16 + g;  // ra % 8 == (ra + 8) % 8 == g
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int chunk = ((j ^ g) * 16) + 4 * t;
+        *reinterpret_cast<uint32_t*>(dSt + ra * 128 + chunk) = ds[4 * (j / 2) + 2 * (j % 2)];
+        *reinterpret_cast<uint32_t*>(dSt + (ra + 8) * 128 + chunk) =
+            ds[4 * (j / 2) + 2 * (j % 2) + 1];
+      }
+      fence_proxy_async_shared();
+      named_barrier_sync(1, 128);
+    }
+
+    // dV += P^T dO, dK += dS^T Q and (fused) dQ = dS K, one commit group
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(p);
+    fence_regs(ds);
+    wgmma_fence();
+    issue_rs<D>(dv, p, dOt);
+    issue_rs<D>(dk, ds, Qt);
+    if constexpr (kFusedDq) issue_tt<D>(dq, dSt, Ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    if constexpr (kFusedDq) fence_regs(dq);
+
+    // this warp is done with the stage (all four warps' arrivals free it)
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_bar[stage]);
+
+    if constexpr (kFusedDq) {
+      // the dQ tile to the adders, once they are done with this buffer
+      const int buf = it & 1;
+      float* dqs = dQs + buf * kTile * T::kDqLd + (w * 16 + g) * T::kDqLd + 2 * t;
+      mbar_wait(&dq_empty[buf], ((it >> 1) & 1) ^ 1);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(dqs + n * 8) = make_float2(dq[4 * n], dq[4 * n + 1]);
+        *reinterpret_cast<float2*>(dqs + 8 * T::kDqLd + n * 8) =
+            make_float2(dq[4 * n + 2], dq[4 * n + 3]);
+      }
+      mbar_arrive(&dq_full[buf]);
+    }
+  }
+
+  // dK/dV of the whole group, bf16 [B, Sk, Hkv, D] (zeros for a key tile
+  // that ran no queries)
+  if (key_a < a.Sk) {
+    const long long o = (((long long)b * a.Sk + key_a) * a.Hkv + hk) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(a.dk_g + o + n * 8) = pack_bf16(dk[4 * n], dk[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(a.dv_g + o + n * 8) = pack_bf16(dv[4 * n], dv[4 * n + 1]);
+    }
+  }
+  if (key_b < a.Sk) {
+    const long long o = (((long long)b * a.Sk + key_b) * a.Hkv + hk) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(a.dk_g + o + n * 8) =
+          pack_bf16(dk[4 * n + 2], dk[4 * n + 3]);
+      *reinterpret_cast<uint32_t*>(a.dv_g + o + n * 8) =
+          pack_bf16(dv[4 * n + 2], dv[4 * n + 3]);
     }
   }
 }
@@ -402,16 +837,58 @@ int launch(Kernel kernel, const BwdArgs& a, int B, int rows, int smem,
 
 enum Which { kFused, kDkv, kDq };
 
+// Where the wgmma kv kernel serves, as bits: 1 for K2 and K3b at D 64, 2 for
+// K2 at D 128, 4 for K3b at D 128. At D 128 one warpgroup's fp32 dK, dV and
+// dQ exceed the registers; the wgmma K2 spills there and still beats the
+// mma.sync K2 with ordered dq, the wgmma K3b does not beat the mma.sync one
+// (PERF.md). scripts/flash_bwd_compare.py also times builds with
+// -DRANKPO_BWD_WGMMA_DIMS=0 (the mma.sync kv kernel everywhere, with the
+// ordered dq) and =7 (the wgmma kv kernel everywhere).
+#ifndef RANKPO_BWD_WGMMA_DIMS
+#define RANKPO_BWD_WGMMA_DIMS 3
+#endif
+template <int D, bool kFused>
+constexpr bool kWgmmaKv =
+    (RANKPO_BWD_WGMMA_DIMS >> (D == 64 ? 0 : kFused ? 1 : 2)) & 1;
+
+template <int D, bool kFused>
+int launch_wgmma(const BwdArgs& a, int B, cudaStream_t stream) {
+  using T = KvTiles<D, kFused>;
+  CUtensorMap qm, km, vm, dom;
+  int rc = encode_map(&qm, a.q, B, a.Sq, a.Hq, D, a.q_sb, a.q_ss, a.q_sh);
+  if (rc == 0) rc = encode_map(&km, a.k, B, a.Sk, a.Hkv, D, a.k_sb, a.k_ss, a.k_sh);
+  if (rc == 0) rc = encode_map(&vm, a.v, B, a.Sk, a.Hkv, D, a.v_sb, a.v_ss, a.v_sh);
+  if (rc == 0) rc = encode_map(&dom, a.dout, B, a.Sq, a.Hq, D, a.do_sb, a.do_ss, a.do_sh);
+  if (rc != 0) return rc;
+  constexpr int smem = 1024 + (2 + 2 * T::kStages) * T::kTileBytes +
+                       (kFused ? 2 * kSwizzleTileBytes + 2 * T::kDqBytes : 0);
+  auto kernel = flash_bwd_kv_wgmma<D, kFused>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * a.Hkv, (a.Sk + kTile - 1) / kTile);
+  kernel<<<grid, kKvThreads<kFused>, smem, stream>>>(qm, km, vm, dom, a);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int dispatch(Which which, const BwdArgs& a, int B, cudaStream_t st) {
   constexpr int tile_bytes = kTile * (D + kPad) * (int)sizeof(__nv_bfloat16);
   constexpr int dS_bytes = kTile * (kTile + kPad) * (int)sizeof(__nv_bfloat16);
   switch (which) {
     case kFused:
-      return launch(flash_bwd_kv_kernel<D, true>, a, B, a.Sk,
-                    4 * tile_bytes + dS_bytes, st);
+      if constexpr (kWgmmaKv<D, true>) {
+        return launch_wgmma<D, true>(a, B, st);
+      } else {
+        return launch(flash_bwd_kv_kernel<D, true>, a, B, a.Sk,
+                      4 * tile_bytes + dS_bytes, st);
+      }
     case kDkv:
-      return launch(flash_bwd_kv_kernel<D, false>, a, B, a.Sk, 4 * tile_bytes, st);
+      if constexpr (kWgmmaKv<D, false>) {
+        return launch_wgmma<D, false>(a, B, st);
+      } else {
+        return launch(flash_bwd_kv_kernel<D, false>, a, B, a.Sk, 4 * tile_bytes, st);
+      }
     default:
       return launch(flash_bwd_dq_kernel<D>, a, B, a.Sq, 4 * tile_bytes, st);
   }
@@ -419,8 +896,8 @@ int dispatch(Which which, const BwdArgs& a, int B, cudaStream_t st) {
 
 int run(Which which, const void* q, const void* k, const void* v,
         const int* mask, const void* dout, const float* lse,
-        const float* delta, void* dq, float* dk, float* dv, int B, int Sq,
-        int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
+        const float* delta, void* dq, void* dk, void* dv, int* sync, int B,
+        int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
         long long q_sh, long long k_sb, long long k_ss, long long k_sh,
         long long v_sb, long long v_ss, long long v_sh, long long do_sb,
         long long do_ss, long long do_sh, long long mask_sb, int causal,
@@ -435,8 +912,11 @@ int run(Which which, const void* q, const void* k, const void* v,
   a.delta = delta;
   a.dq_acc = which == kFused ? reinterpret_cast<float*>(dq) : nullptr;
   a.dq = which == kDq ? reinterpret_cast<__nv_bfloat16*>(dq) : nullptr;
-  a.dk = dk;
-  a.dv = dv;
+  a.dk = reinterpret_cast<float*>(dk);
+  a.dv = reinterpret_cast<float*>(dv);
+  a.dk_g = reinterpret_cast<__nv_bfloat16*>(dk);
+  a.dv_g = reinterpret_cast<__nv_bfloat16*>(dv);
+  a.sync = sync;
   a.Sq = Sq;
   a.Sk = Sk;
   a.Hq = Hq;
@@ -450,6 +930,7 @@ int run(Which which, const void* q, const void* k, const void* v,
   a.causal = causal;
   a.skip_pad_q = skip_pad_q;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (D == 64) return dispatch<64>(which, a, B, st);
   if (D == 128) return dispatch<128>(which, a, B, st);
   return (int)cudaErrorInvalidValue;
@@ -459,31 +940,43 @@ int run(Which which, const void* q, const void* k, const void* v,
 
 // Plain C entry points (loaded with ctypes). Each returns a cudaError_t
 // value; 0 is success. The caller validates shapes, types, strides and
-// alignment, and zeroes the fused kernel's fp32 dq buffer.
+// alignment (TMA's rules: a 16-byte-aligned base, strides that are multiples
+// of 16 bytes), zeroes the fused kernel's fp32 dq buffer and its int32
+// `sync` buffer (1 + B * Hq * ceil(Sq / 64) entries), and allocates dk/dv as
+// rankpo_flash_bwd_kv_grouped(D) says.
 #define RANKPO_BWD_PARAMS                                                     \
   const void *q, const void *k, const void *v, const int *mask,              \
       const void *dout, const float *lse, const float *delta, void *dq,      \
-      float *dk, float *dv, int B, int Sq, int Sk, int Hq, int Hkv, int D,   \
-      long long q_sb, long long q_ss, long long q_sh, long long k_sb,        \
+      void *dk, void *dv, int *sync, int B, int Sq, int Sk, int Hq, int Hkv, \
+      int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb, \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss,        \
       long long v_sh, long long do_sb, long long do_ss, long long do_sh,     \
       long long mask_sb, int causal, int skip_pad_q, void *stream
 #define RANKPO_BWD_ARGS                                                       \
-  q, k, v, mask, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, q_sb,  \
-      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,   \
-      mask_sb, causal, skip_pad_q, stream
+  q, k, v, mask, dout, lse, delta, dq, dk, dv, sync, B, Sq, Sk, Hq, Hkv, D,  \
+      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,    \
+      do_sh, mask_sb, causal, skip_pad_q, stream
 
-// K2: dq (fp32, atomics), dk, dv (fp32 per q-head) in one pass
+// 1 if the kv kernel at head_dim D (K2 when fused, else K3b) writes dk/dv
+// as bf16 [B, Sk, Hkv, D] (the wgmma kernel, GQA group summed), 0 if as
+// fp32 [B * Hq, Sk, D] per query head (the mma.sync kernel; the caller sums
+// each group)
+extern "C" int rankpo_flash_bwd_kv_grouped(int D, int fused) {
+  if (D == 64) return kWgmmaKv<64, true> ? 1 : 0;
+  return (fused ? kWgmmaKv<128, true> : kWgmmaKv<128, false>) ? 1 : 0;
+}
+
+// K2: dq (fp32, summed in key-tile order), dk, dv in one pass
 extern "C" int rankpo_flash_bwd_fused_bf16(RANKPO_BWD_PARAMS) {
   return run(kFused, RANKPO_BWD_ARGS);
 }
 
-// K3b: dk, dv (fp32 per q-head); dq is ignored
+// K3b: dk, dv; dq and sync are ignored
 extern "C" int rankpo_flash_bwd_dkv_bf16(RANKPO_BWD_PARAMS) {
   return run(kDkv, RANKPO_BWD_ARGS);
 }
 
-// K3a: dq (bf16, [B, Sq, Hq, D]); dk and dv are ignored
+// K3a: dq (bf16, [B, Sq, Hq, D]); dk, dv and sync are ignored
 extern "C" int rankpo_flash_bwd_dq_bf16(RANKPO_BWD_PARAMS) {
   return run(kDq, RANKPO_BWD_ARGS);
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in PTX: mbarriers, TMA tile loads, the
-// wgmma shared-memory descriptor for 128-byte swizzled tiles, and the
-// m64n64k16 bf16 -> fp32 warpgroup products with A from shared memory (SS)
-// or from registers (RS).
+// wgmma shared-memory descriptor for 128-byte swizzled tiles, the m64n64k16
+// bf16 -> fp32 warpgroup products with A from shared memory (SS, K-major or
+// both operands transposed) or from registers (RS), the proxy fence and
+// named barriers; on the host, the 4-D tensor maps of [B, S, H, D] tensors.
 //
 // Tile convention. Every operand tile in shared memory is 64 rows of 64 bf16
 // (128 bytes, one swizzle atom wide), written by a TMA load with
@@ -52,6 +53,15 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // arrive once and add `bytes` to the transactions the phase waits for
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// add `bytes` to the transactions the current phase waits for, without
+// arriving
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_u32(bar)),
                "r"(bytes)
                : "memory");
@@ -178,6 +188,82 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float* d, const uint32_t a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d[0..32) (+)= A . B over 16 of the contraction, both operands in shared
+// memory MN-major (the transposed forms): A is [16 x 64] with its 64 output
+// rows contiguous, B [16 x 64] with its 64 output columns contiguous.
+// scale_d 0 overwrites d, 1 accumulates.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_tt(float* d, uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : RANKPO_WGMMA_D32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 #undef RANKPO_WGMMA_D32
+
+// shared-memory writes of this thread made visible to the async proxy
+// (a wgmma that reads them), ahead of the barrier that orders them
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15) among `threads` threads of the block
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- host side: TMA tensor maps ----
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up once through the CUDA
+// runtime, so the library needs no link against libcuda
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a strided [B, S, H, D] bf16 tensor, dimensions innermost
+// first (D, S, H, B), boxes of 64 rows x 64 columns of one (batch, head),
+// 128-byte swizzle; rows past S read as zeros.
+int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+               long long sb, long long ss, long long sh) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                  strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
 
 }  // namespace

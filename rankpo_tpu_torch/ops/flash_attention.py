@@ -24,8 +24,13 @@ small share of a layer next to the projections. Every kernel skips whole
 tiles past the valid length and above the causal diagonal. K1 is built for
 Hopper (``sm_90a``): one producer warp loads K/V tiles with TMA into an
 mbarrier ring shared by the query heads of a GQA group, one consumer
-warpgroup per head, both products on ``wgmma``. The backward kernels still
+warpgroup per head, both products on ``wgmma``. K2, and K3b at head_dim
+64, are built the same way around one (batch, kv head, key tile): K and V
+loaded once, the Q/dO tiles of the whole GQA group streamed through the
+ring, every product on ``wgmma``, dK/dV summed over the group in the kernel;
+K2 adds each key tile's dQ in key-tile order. K3a, and K3b at head_dim 128,
 run ``mma.sync`` on tiles staged by all threads (see the kernels' headers).
+Every kernel repeats bit for bit.
 
 The kernels take bf16 only, head_dim 64 or 128, a key mask, causal and
 ``skip_pad_q``. ``window`` and ``segment_ids`` are not ported yet and raise.
@@ -233,8 +238,9 @@ def flash_attention_fwd(
 
 def resolve_bwd_impl(bwd_impl: str) -> str:
     """"fused" or "split" for a ``bwd_impl`` of :data:`BWD_IMPLS`: "auto" is
-    split (bit-reproducible) under ``torch.use_deterministic_algorithms``
-    and fused (dq by atomics) otherwise."""
+    split under ``torch.use_deterministic_algorithms`` and fused otherwise.
+    Both repeat bit for bit; the split kernels need no workspace and no
+    ordering between blocks."""
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
     if bwd_impl == "auto":
@@ -261,19 +267,20 @@ def flash_attention_bwd(
 
     ``bwd_impl``:
 
-    - ``"fused"`` (K2): one pass per key tile; dq accumulates in fp32 through
-      atomics, so its summation order (and sometimes its last bf16 bit)
-      changes from run to run;
+    - ``"fused"`` (K2): one pass per key tile; each key tile's dq is added in
+      fp32 in key-tile order (a zeroed int32 workspace of counters orders
+      the blocks), as JAX's resident dq block sums it;
     - ``"split"`` (K3a + K3b): the dq kernel loops over key tiles per query
-      tile and holds dq in registers, so dq, dk and dv repeat bit for bit;
+      tile and holds dq in registers;
     - ``"auto"``: split when ``torch.are_deterministic_algorithms_enabled()``,
       fused otherwise (:func:`resolve_bwd_impl`). The JAX package picks split
       above 8·Sq·D > 4 MiB (``flash_attention.py:777``), a VMEM budget for
-      its resident dq block; the atomics design has no such budget, so the
-      one observable difference, reproducibility, decides.
+      its resident dq block, which the ordered adds do not need.
 
-    dk/dv come out of the kernels per query head in fp32 and are summed over
-    each GQA group here, as ``flash_bwd_fused`` does."""
+    Both give dq, dk and dv that repeat bit for bit. The wgmma kv kernel
+    (K2 and K3b at head_dim 64, K2 at 128) sums each GQA group's dk/dv and
+    writes them in bf16; the mma.sync one (K3b at 128) writes fp32 per query
+    head, summed over each group here, as ``flash_bwd_fused`` does."""
     bwd_impl = resolve_bwd_impl(bwd_impl)
     _check_qkv(q, k, v)
     b, sq, hq, d = q.shape
@@ -292,12 +299,19 @@ def flash_attention_bwd(
 
     lib = load_library()
     dev = q.device
-    groups = hq // hkv
     fused = bwd_impl == "fused"
-    dk_h = torch.empty((b, hq, sk, d), dtype=torch.float32, device=dev)
-    dv_h = torch.empty_like(dk_h)
+    grouped = lib.rankpo_flash_bwd_kv_grouped(d, int(fused)) == 1
+    if grouped:  # the wgmma kv kernel sums each GQA group and writes bf16
+        dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=dev)
+        dv = torch.empty_like(dk)
+    else:  # fp32 per query head, summed over each group below
+        dk = torch.empty((b, hq, sk, d), dtype=torch.float32, device=dev)
+        dv = torch.empty_like(dk)
+    sync = None
     if fused:
         dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+        # the blocks' start order and one counter per (b * h, query tile)
+        sync = torch.zeros(1 + b * hq * -(-sq // 64), dtype=torch.int32, device=dev)
         steps = (("flash_bwd_fused", lib.rankpo_flash_bwd_fused_bf16),)
     else:
         dq = torch.empty((b, sq, hq, d), dtype=torch.bfloat16, device=dev)
@@ -309,7 +323,8 @@ def flash_attention_bwd(
             rc = fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                None if sync is None else sync.data_ptr(),
                 b, sq, sk, hq, hkv, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *do.stride()[:3], mask.stride(0),
@@ -320,9 +335,10 @@ def flash_attention_bwd(
             _count(name)
     if fused:
         dq = dq.permute(0, 2, 1, 3).to(q.dtype)
-    # per-head fp32 -> GQA group sums -> [B, Sk, Hkv, D] in the inputs' dtype
-    dk = dk_h.view(b, hkv, groups, sk, d).sum(2).permute(0, 2, 1, 3).to(k.dtype)
-    dv = dv_h.view(b, hkv, groups, sk, d).sum(2).permute(0, 2, 1, 3).to(v.dtype)
+    if not grouped:  # per-head fp32 -> group sums -> [B, Sk, Hkv, D] bf16
+        groups = hq // hkv
+        dk = dk.view(b, hkv, groups, sk, d).sum(2).permute(0, 2, 1, 3).to(k.dtype)
+        dv = dv.view(b, hkv, groups, sk, d).sum(2).permute(0, 2, 1, 3).to(v.dtype)
     return dq, dk, dv
 
 

@@ -56,6 +56,11 @@ CASES = {
     "sq_gt_sk": (2, 32, 16, 4, 2, 8, [16, 9], True, False),
     "all_masked_row": (2, 32, 32, 4, 2, 8, [32, 0], False, False),
     "skip_pad_q": (2, 32, 32, 4, 2, 8, [32, 10], True, True),
+    # a GQA group of 8 query heads, summed into one kv head's dk/dv
+    "gqa8": (2, 32, 32, 8, 1, 8, [32, 23], True, False),
+    # several key blocks reaching each query block, as the fused kernel's
+    # ordered dq sums them
+    "many_key_blocks": (2, 64, 64, 4, 2, 8, [64, 37], True, False),
 }
 
 

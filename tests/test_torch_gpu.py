@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from rankpo_tpu_torch.data.collators import ContrastiveCollator
+from rankpo_tpu_torch.data.datasets import ContrastiveDataset
+from rankpo_tpu_torch.data.tokenization import HashTokenizer
 from rankpo_tpu_torch.index.flat import FlatIPIndex, numpy_search
 from rankpo_tpu_torch.models import llama
 from rankpo_tpu_torch.models.config import tiny_llama_config
@@ -28,7 +31,9 @@ from rankpo_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_reference,
 )
+from rankpo_tpu_torch.train.config import TrainConfig
 from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn
+from rankpo_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.gpu
 
@@ -60,6 +65,11 @@ SHAPES = [
     ((4, 65, 200, 32, 8, 64), True, True, False),  # ragged Sq < Sk
     ((4, 256, 256, 32, 8, 128), True, True, False),  # D 128, 4 per kv head
     ((8, 512, 512, 32, 8, 64), True, True, True),
+    ((4, 128, 128, 32, 32, 64), True, True, False),  # one query head per kv head
+    ((4, 128, 128, 32, 32, 64), True, True, True),
+    ((4, 100, 100, 64, 8, 64), True, True, True),
+    ((4, 65, 200, 32, 8, 64), True, True, True),
+    ((4, 256, 256, 32, 8, 128), True, True, True),
 ]
 
 
@@ -207,12 +217,41 @@ def test_bwd_kernels_match_plain(cuda, shape, causal, skip, full, impl):
     torch.cuda.synchronize()
     for name in port_flash.launches:
         assert port_flash.launches[name] == before[name] + (name in names)
+    again = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
+                                skip_pad_q=skip, bwd_impl=impl)
+    for a, b, name in zip(grads, again, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), f"{name} differs between two launches"
     for a, r, name in zip(grads, ref, ("dq", "dk", "dv")):
         assert a.dtype == torch.bfloat16 and a.shape == r.shape
         err = (a.float() - r).abs().max().item()
         assert err <= BWD_TOL_OF_MAX * r.abs().max().item(), (name, err)
         rel = ((a.float() - r).norm() / r.norm()).item()
         assert rel <= BWD_REL_L2, (name, rel)
+
+
+def test_bwd_reads_strided_fused_qkv(cuda):
+    """The backward reads q/k/v as views of one fused projection output, as
+    the encoder hands them over, without a copy."""
+    b, s, hq, hkv, d = 4, 192, 32, 8, 64
+    g = torch.Generator().manual_seed(9)
+    fused = torch.randn(b, s, (hq + 2 * hkv) * d, generator=g).bfloat16().to(cuda)
+    q = fused[..., : hq * d].view(b, s, hq, d)
+    k = fused[..., hq * d : (hq + hkv) * d].view(b, s, hkv, d)
+    v = fused[..., (hq + hkv) * d :].view(b, s, hkv, d)
+    lens = torch.tensor([1, 70, 130, 192])
+    mask = (torch.arange(s)[None] < lens[:, None]).int().to(cuda)
+    do = torch.randn(q.shape, generator=g).bfloat16().to(cuda)
+    out, lse = flash_attention_fwd(q, k, v, mask, causal=True, skip_pad_q=True)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    ref = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=True)
+    for impl in ("fused", "split"):
+        grads = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True,
+                                    skip_pad_q=True, bwd_impl=impl)
+        for a, r, name in zip(grads, ref, ("dq", "dk", "dv")):
+            err = (a.float() - r).abs().max().item()
+            assert err <= BWD_TOL_OF_MAX * r.abs().max().item(), (impl, name, err)
+            rel = ((a.float() - r).norm() / r.norm()).item()
+            assert rel <= BWD_REL_L2, (impl, name, rel)
 
 
 def test_auto_bwd_under_deterministic_algorithms_runs_split(cuda):
@@ -228,20 +267,20 @@ def test_auto_bwd_under_deterministic_algorithms_runs_split(cuda):
     assert got == {"flash_fwd": 0, "flash_bwd_fused": 1, "flash_dq": 1, "flash_dkv": 1}
 
 
-def test_split_bwd_repeats_bit_for_bit_and_fused_dq_varies_by_rounding(cuda):
-    q, k, v, mask, do, lse, delta = _bwd_inputs(SHAPES[0][0], True, True, cuda, seed=4)
-    args = (q, k, v, mask, do, lse, delta)
-    split = [flash_attention_bwd(*args, causal=True, skip_pad_q=True, bwd_impl="split")
-             for _ in range(2)]
-    for a, b in zip(*split):
-        assert torch.equal(a, b)
-    fused = [flash_attention_bwd(*args, causal=True, skip_pad_q=True, bwd_impl="fused")
-             for _ in range(2)]
-    # dk/dv have no atomics; dq's fp32 atomic sums may end one bf16 ulp apart
-    assert torch.equal(fused[0][1], fused[1][1]) and torch.equal(fused[0][2], fused[1][2])
-    a, b = fused[0][0].float(), fused[1][0].float()
-    ulp = torch.maximum(a.abs(), b.abs()) * 2.0**-7
-    assert torch.all((a - b).abs() <= ulp)
+def test_fused_and_split_bwd_repeat_bit_for_bit(cuda):
+    """The split kernels hold dq in registers; the fused kernel adds each key
+    tile's dq in key-tile order. Both give identical dq, dk, dv on every
+    launch, with random and with full lengths."""
+    for full in (False, True):
+        q, k, v, mask, do, lse, delta = _bwd_inputs(SHAPES[0][0], True, True, cuda, seed=4,
+                                                    full=full)
+        args = (q, k, v, mask, do, lse, delta)
+        for impl in ("split", "fused"):
+            runs = [flash_attention_bwd(*args, causal=True, skip_pad_q=True, bwd_impl=impl)
+                    for _ in range(3)]
+            for grads in runs[1:]:
+                for a, b in zip(runs[0], grads):
+                    assert torch.equal(a, b), (impl, full)
 
 
 def test_autograd_step_through_function(cuda):
@@ -291,6 +330,45 @@ def test_encoder_training_step_flash_against_plain(cuda):
     for name in gf:
         cos = torch.nn.functional.cosine_similarity(gf[name], gp[name], dim=0).item()
         assert cos >= 0.99, (name, cos)
+
+
+def _trainer_losses(cuda, out_dir):
+    """Four Trainer steps on the card from seed 0 with default settings (so
+    the backward's "auto" picks the fused kernel): a small llama at head_dim
+    64, passages of up to 256 tokens (several 64-key tiles, so dq sums over
+    key tiles), batch 4 x group 4."""
+    cfg = dataclasses.replace(tiny_llama_config(vocab_size=512), hidden_size=256,
+                              intermediate_size=512, head_dim=64)
+    state = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(400)]
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, int(rng.integers(lo, hi))))
+
+    rows = [{"query": text(4, 60), "positives": [text(20, 250)],
+             "negatives": [text(20, 250) for _ in range(3)]} for _ in range(32)]
+    dataset = ContrastiveDataset(rows, HashTokenizer(vocab_size=512), 64, 256)
+    collator = ContrastiveCollator(0, 3, 64, 256, seed=3)
+    model = llama.LlamaEncoder.for_training(cfg, state, device=cuda)
+    config = TrainConfig(output_dir=str(out_dir), device="cuda", learning_rate=1e-3,
+                         max_steps=4, per_device_train_batch_size=4, save_strategy="no",
+                         save_on_preemption=False, seed=3)
+    trainer = Trainer(loss_fn=make_contrastive_loss_fn(cfg, temperature=0.05), model=model,
+                      config=config, total_steps=4)
+    return [h["loss"] for h in trainer.train(dataset, collator)]
+
+
+def test_trainer_loss_history_repeats_bit_for_bit(cuda, tmp_path):
+    """Two trainers built the same way give equal loss histories, as
+    tests/test_train.py asserts for the JAX package (docs/DETERMINISM.md)."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    before = port_flash.launches["flash_bwd_fused"]
+    first = _trainer_losses(cuda, tmp_path / "a")
+    assert port_flash.launches["flash_bwd_fused"] > before
+    second = _trainer_losses(cuda, tmp_path / "b")
+    assert len(first) == 4 and np.all(np.isfinite(first))
+    assert first == second
 
 
 # ---- the IVF kernels: K4 (probed-block scores), K5/K6 (PQ ADC, rows/cols) ----
