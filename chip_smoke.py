@@ -265,22 +265,19 @@ def _fwd_design_bytes(lens, sq, sk, hq, hkv, d) -> int:
 
 def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
     """The bytes the backward kernels' designs move (causal, skip_pad_q),
-    outside the wrapper's zero-fills, sums and casts:
+    outside the wrapper's zero-fills and casts:
 
-    - K2, and K3b at D 64 (the wgmma kv kernel): per block of (batch, kv
-      head, 64-key tile), its mask row scan, K and V once, and for each
-      (query head of the group, query tile) it runs, the Q and dO tiles and
-      their lse/delta rows, plus (K2) the fp32 dQ tile read and written
-      once; dK/dV written once as bf16 per kv head;
-    - K3b at D 128 (the mma.sync kv kernel): the same per query head, with
-      dK/dV written as fp32 per query head;
+    - K2 and K3b: per block of (batch, kv head, 64-key tile), its mask row
+      scan, K and V once, and for each (query head of the group, query
+      tile) it runs, the Q and dO tiles and their lse/delta rows, plus (K2)
+      the fp32 dQ tile read and written once; dK/dV written once as bf16
+      per kv head;
     - K3a: per block of (batch, query head, 64-row query tile), its mask
       row scan, Q and dO once and each key tile's K, V and mask entries;
       dQ written as bf16."""
     shift = sk - sq
     nq, nk = -(-sq // 64), -(-sk // 64)
     fused = kind == "flash_bwd_fused"
-    grouped = d == 64 or fused
     total = 0
     for n in lens:
         n = int(n)
@@ -300,9 +297,7 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
         for kt in range(nk):
             key0 = kt * 64
             keys = min(64, sk - key0)
-            heads = hkv if grouped else hq  # blocks per (batch, key tile)
-            per_head_out = 2 * keys * d * (2 if grouped else 4)
-            total += heads * (sk * 4 + per_head_out)
+            total += hkv * (sk * 4 + 2 * keys * d * 2)  # hkv blocks per key tile
             q_begin = max(0, key0 - shift) // 64
             if key0 >= n or q_end <= q_begin:
                 continue
@@ -310,7 +305,7 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
             for qt in range(q_begin, q_end):
                 rows = min(64, sq - qt * 64)
                 step += 2 * rows * d * 2 + 2 * rows * 4 + (2 * rows * d * 4 if fused else 0)
-            total += heads * 2 * keys * d * 2 + hq * step
+            total += hkv * 2 * keys * d * 2 + hq * step
     return int(total)
 
 

@@ -50,7 +50,6 @@ _BWD_ARGTYPES = (
 )
 for _name in ("fused", "dkv", "dq"):
     _SIGNATURES[f"rankpo_flash_bwd_{_name}_bf16"] = _BWD_ARGTYPES
-_SIGNATURES["rankpo_flash_bwd_kv_grouped"] = [_I, _I]  # D fused
 # corpus probe queries out, K Q P cap D dtype, stream
 _SIGNATURES["rankpo_ivf_probe_scores"] = [_P] * 4 + [_I] * 6 + [_P]
 # codes probe lut out, K Q P cap m layout, stream

@@ -4,7 +4,6 @@
 //   _bwd_fused_kernel (flash_bwd_fused)  -> flash_bwd_kv_wgmma<D, true>
 //   _dkv_kernel       (flash_dkv)        -> flash_bwd_kv_wgmma<D, false>
 //   _dq_kernel        (flash_dq)         -> flash_bwd_dq_kernel<D>
-// except K3b at D 128, which is flash_bwd_kv_kernel<128, false> (below).
 //
 // Contract (what the Pallas kernels compute), with the forward's contract
 // from flash_fwd.cu (layouts, strides, mask, bottom-right causal, GQA):
@@ -13,11 +12,10 @@
 //   s = scale * q.k in fp32; p = exp(s - lse) on valid entries, 0 elsewhere;
 //   dV += P^T dO with P rounded to bf16; dP = dO V^T;
 //   dS = p * (dP - delta) * scale, rounded to bf16; dK += dS^T Q; dQ += dS K.
-//   The fused kernels add dQ in fp32 into a zeroed [B, Hq, Sq, D] buffer in
+//   The fused kernel adds dQ in fp32 into a zeroed [B, Hq, Sq, D] buffer in
 //   key-tile order (below); the dq kernel writes dQ as bf16 [B, Sq, Hq, D].
-//   The wgmma kv kernel writes dK/dV as bf16 [B, Sk, Hkv, D], each GQA group
-//   summed in fp32 registers; the mma.sync kv kernel writes them per query
-//   head in fp32 ([B, Hq, Sk, D]) and the caller sums each group.
+//   The kv kernel writes dK/dV as bf16 [B, Sk, Hkv, D], each GQA group
+//   summed in fp32 registers.
 //   Loop bounds are the forward's: keys end one past the last valid key;
 //   causal tiles above the diagonal are skipped; with skip_pad_q a query
 //   tile the forward skipped (it starts at or past the valid key extent)
@@ -35,8 +33,8 @@
 // the order they start, key tile slowest, so a block waits only on blocks
 // that started before it. dQ is then summed in key order, as in JAX.
 //
-// Design of the wgmma kv kernel. One block per (batch, kv head, 64-key
-// tile), 160 threads (192 fused):
+// Design of the kv kernel. One block per (batch, kv head, 64-key tile), 160
+// threads (192 fused):
 //   - warp 4, the producer, loads the block's K and V tiles once by TMA
 //     (4-D tensor maps over the caller's strides, 128-byte swizzle), then
 //     streams the Q and dO tiles of every query head of the GQA group and
@@ -53,12 +51,11 @@
 //   - warp 5 (fused), the dQ adder, takes each dQ tile from shared memory
 //     (two fp32 buffers) and adds it to the fp32 buffer in key-tile order,
 //     off the consumers' path.
-// K3b at D 128 keeps the first design (flash_bwd_kv_kernel: 4 warps, 16
+// At D 128 fp32 dK, dV and (fused) dQ exceed one warpgroup's registers and
+// ptxas spills K2 (PERF.md has the times). The dq kernel: 4 warps, 16 query
 // rows each, mma.sync m16n8k16 on tiles staged by all threads, one block per
-// (batch * q-head, key tile)): at D 128 fp32 dK and dV are 128 registers a
-// thread of one warpgroup, and the wgmma kernel was no faster there. The dq
-// kernel: one block per (batch * q-head, 64-row query tile) looping over key
-// tiles like the forward, dQ held in registers and rounded once.
+// (batch * q-head, 64-row query tile) looping over key tiles like the
+// forward, dQ held in registers and rounded once.
 //
 // What bounds them on this card. At the training shapes (S <= 512, D = 64)
 // a tile pair costs 5 (fused), 4 (dkv) or 3 (dq) 64 x 64 x 64 products; the
@@ -72,18 +69,8 @@
 
 namespace {
 
-// lse/delta of query rows [row0, row0 + 64) into shared memory (0 past n)
-__device__ __forceinline__ void load_stats(float* dst, const float* src,
-                                           int row0, int n) {
-  if (threadIdx.x < kTile) {
-    const int r = row0 + threadIdx.x;
-    dst[threadIdx.x] = r < n ? src[r] : 0.f;
-  }
-}
-
 // ---- dQ summed in key-tile order (the header): the counter of a query tile
-// counts adders, kWarps per block in the mma.sync kernel (each warp adds its
-// 16 rows), 1 per block in the wgmma kernel (its dQ adder warp) ----
+// counts the key tiles that added (the dQ adder warp of each block) ----
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -102,21 +89,6 @@ __device__ __forceinline__ void end_turn(int* counter, int lane) {
   if (lane == 0) atomicAdd(counter, 1);
 }
 
-// dst[0..1] += (x, y) through L2 (another SM added the previous value)
-__device__ __forceinline__ void add_l2(float* dst, float x, float y) {
-  float2 v = __ldcg(reinterpret_cast<const float2*>(dst));
-  v.x += x;
-  v.y += y;
-  __stcg(reinterpret_cast<float2*>(dst), v);
-}
-
-// the block's place in the order blocks started (one atomic, one barrier)
-__device__ __forceinline__ int take_ticket(int* ticket, int* slot) {
-  if (threadIdx.x == 0) *slot = atomicAdd(ticket, 1);
-  __syncthreads();
-  return *slot;
-}
-
 struct BwdArgs {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
@@ -127,10 +99,8 @@ struct BwdArgs {
   const float* delta;
   float* dq_acc;          // fused: fp32 [B*Hq, Sq, D], zeroed by the caller
   __nv_bfloat16* dq;      // dq kernel: bf16 [B, Sq, Hq, D]
-  float* dk;              // mma.sync kv kernel: fp32 [B*Hq, Sk, D]
-  float* dv;
-  __nv_bfloat16* dk_g;    // wgmma kv kernel: bf16 [B, Sk, Hkv, D]
-  __nv_bfloat16* dv_g;
+  __nv_bfloat16* dk;      // kv kernel: bf16 [B, Sk, Hkv, D]
+  __nv_bfloat16* dv;
   int* sync;              // fused: zeroed int32 [1 + B*Hq * q tiles]
   int Sq, Sk, Hq, Hkv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -139,207 +109,7 @@ struct BwdArgs {
   int causal, skip_pad_q;
 };
 
-template <int D, bool kFusedDq>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_kv_kernel(const BwdArgs a) {
-  constexpr int LDS = D + kPad;
-  constexpr int LDP = kTile + kPad;  // row stride of the staged dS
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + kTile * LDS;
-  __nv_bfloat16* Qs = Vs + kTile * LDS;
-  __nv_bfloat16* dOs = Qs + kTile * LDS;
-  __nv_bfloat16* dSs = dOs + kTile * LDS;  // [64 queries][LDP], fused only
-  __shared__ float lse_s[kTile];
-  __shared__ float delta_s[kTile];
-  __shared__ int key_ok[kTile];
-  __shared__ int s_key_end;
-  __shared__ int s_ticket;
-
-  // fused: blocks take (bh, key tile) in the order they start, key tile
-  // slowest, so the tiles before this one have started
-  const int place = kFusedDq ? take_ticket(a.sync, &s_ticket)
-                             : blockIdx.y * gridDim.x + blockIdx.x;
-  const int bh = place % gridDim.x;
-  const int kt = place / gridDim.x;
-  const int b = bh / a.Hq;
-  const int h = bh % a.Hq;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int key0 = kt * kTile;
-  const int q_shift = a.Sk - a.Sq;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  const int* mrow = a.mask + (long long)b * a.mask_sb;
-  const int key_end = block_key_end(mrow, a.Sk, &s_key_end);
-
-  const __nv_bfloat16* qb = a.q + (long long)b * a.q_sb + (long long)h * a.q_sh;
-  const __nv_bfloat16* dob = a.dout + (long long)b * a.do_sb + (long long)h * a.do_sh;
-  const __nv_bfloat16* kb = a.k + (long long)b * a.k_sb + (long long)hk * a.k_sh;
-  const __nv_bfloat16* vb = a.v + (long long)b * a.v_sb + (long long)hk * a.v_sh;
-  const float* lse_row = a.lse + (long long)bh * a.Sq;
-  const float* delta_row = a.delta + (long long)bh * a.Sq;
-
-  load_tile<D>(Ks, kb, a.k_ss, key0, a.Sk);
-  load_tile<D>(Vs, vb, a.v_ss, key0, a.Sk);
-  if (tid < kTile) {
-    key_ok[tid] = (key0 + tid < a.Sk) ? (mrow[key0 + tid] != 0) : 0;
-  }
-  __syncthreads();
-
-  // this warp's 16 keys (rows of the S^T tile) as A fragments
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_rows<D>(kf, Ks, warp, g, t);
-  load_a_rows<D>(vf, Vs, warp, g, t);
-  const int key_a = key0 + warp * 16 + g;
-  const int key_b = key_a + 8;
-  const bool ok_a = key_ok[warp * 16 + g] != 0;
-  const bool ok_b = key_ok[warp * 16 + g + 8] != 0;
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
-
-  // query tiles: from the diagonal (causal) to the end of the tiles the
-  // forward ran; none when this key tile lies past the valid keys
-  int qt_begin = 0;
-  int qt_end = (a.Sq + kTile - 1) / kTile;
-  if (key0 >= key_end) qt_end = 0;
-  if (a.causal) qt_begin = max(0, key0 - q_shift) / kTile;
-  if (a.skip_pad_q) {
-    const int lim = key_end - q_shift;  // tile qt runs iff qt*64 < lim
-    qt_end = min(qt_end, lim <= 0 ? 0 : (lim + kTile - 1) / kTile);
-  }
-
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * kTile;
-    load_tile<D>(Qs, qb, a.q_ss, q0, a.Sq);
-    load_tile<D>(dOs, dob, a.do_ss, q0, a.Sq);
-    load_stats(lse_s, lse_row, q0, a.Sq);
-    load_stats(delta_s, delta_row, q0, a.Sq);
-    __syncthreads();
-
-    // S^T = K Q^T (16 keys x 64 queries per warp), then P^T in place
-    float st[kTile / 8][4];
-    mma_a_tileT<D>(st, kf, Qs, g, t);
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const int row = q0 + col;
-        const int pos = row + q_shift;
-        const bool qin = row < a.Sq;
-        const float l = lse_s[col];
-        const bool va = qin && ok_a && (!a.causal || key_a <= pos);
-        const bool vb_ = qin && ok_b && (!a.causal || key_b <= pos);
-        st[j][e] = va ? __expf(st[j][e] * a.scale - l) : 0.f;
-        st[j][2 + e] = vb_ ? __expf(st[j][2 + e] * a.scale - l) : 0.f;
-      }
-    }
-
-    // dV += P^T dO (P rounded to bf16)
-    mma_c_tile<D>(dv, st, dOs, g, t);
-
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale in place
-    float dpt[kTile / 8][4];
-    mma_a_tileT<D>(dpt, vf, dOs, g, t);
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float dl = delta_s[j * 8 + 2 * t + e];
-        st[j][e] = st[j][e] * (dpt[j][e] - dl) * a.scale;
-        st[j][2 + e] = st[j][2 + e] * (dpt[j][2 + e] - dl) * a.scale;
-      }
-    }
-
-    // dK += dS^T Q (dS rounded to bf16)
-    mma_c_tile<D>(dk, st, Qs, g, t);
-
-    if constexpr (kFusedDq) {
-      // stage dS as [query][key] (bf16, the rounding dK used) ...
-      const int r = warp * 16 + g;
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = j * 8 + 2 * t + e;
-          dSs[col * LDP + r] = __float2bfloat16_rn(st[j][e]);
-          dSs[col * LDP + r + 8] = __float2bfloat16_rn(st[j][2 + e]);
-        }
-      }
-      __syncthreads();
-      // ... then dQ rows [16 warp, 16 warp + 16) of this query tile over the
-      // block's 64 keys: dS (16 x 64) K (64 x D), added to the fp32 buffer
-      float dq[D / 8][4];
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-      }
-      const __nv_bfloat16* s0 = dSs + (warp * 16 + g) * LDP + 2 * t;
-      const __nv_bfloat16* s1 = s0 + 8 * LDP;
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t af[4] = {ld_u32(s0 + kk * 16), ld_u32(s1 + kk * 16),
-                          ld_u32(s0 + kk * 16 + 8), ld_u32(s1 + kk * 16 + 8)};
-        const __nv_bfloat16* k0 = Ks + (kk * 16 + 2 * t) * LDS + g;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          const __nv_bfloat16* kp = k0 + n * 8;
-          uint32_t bf[2] = {pack_pair(kp[0], kp[LDS]),
-                            pack_pair(kp[8 * LDS], kp[9 * LDS])};
-          mma_16816(dq[n], af, bf);
-        }
-      }
-      // ... and added to the fp32 buffer after key tiles 0 .. kt - 1
-      const int ra = q0 + warp * 16 + g;
-      const int rb = ra + 8;
-      float* dqa = a.dq_acc + ((long long)bh * a.Sq + ra) * D + 2 * t;
-      float* dqb = dqa + 8 * D;
-      int* counter = a.sync + 1 + (long long)bh * ((a.Sq + kTile - 1) / kTile) + qt;
-      wait_turn(counter, kWarps * kt);
-      if (ra < a.Sq) {
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) add_l2(dqa + n * 8, dq[n][0], dq[n][1]);
-      }
-      if (rb < a.Sq) {
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) add_l2(dqb + n * 8, dq[n][2], dq[n][3]);
-      }
-      end_turn(counter, lane);
-    }
-    __syncthreads();  // before the next tile overwrites Qs/dOs/dSs/stats
-  }
-
-  // dK/dV of this query head, fp32 (zeros for a tile that ran no queries)
-  if (key_a < a.Sk) {
-    float* pk = a.dk + ((long long)bh * a.Sk + key_a) * D + 2 * t;
-    float* pv = a.dv + ((long long)bh * a.Sk + key_a) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(pk + n * 8) = make_float2(dk[n][0], dk[n][1]);
-      *reinterpret_cast<float2*>(pv + n * 8) = make_float2(dv[n][0], dv[n][1]);
-    }
-  }
-  if (key_b < a.Sk) {
-    float* pk = a.dk + ((long long)bh * a.Sk + key_b) * D + 2 * t;
-    float* pv = a.dv + ((long long)bh * a.Sk + key_b) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(pk + n * 8) = make_float2(dk[n][2], dk[n][3]);
-      *reinterpret_cast<float2*>(pv + n * 8) = make_float2(dv[n][2], dv[n][3]);
-    }
-  }
-}
-
-// ---- the wgmma kv kernel: K3b, and K2 with its dq ----
+// ---- the kv kernel: K3b, and K2 with its dq ----
 
 template <int D, bool kFusedDq>
 struct KvTiles {
@@ -695,17 +465,17 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
     const long long o = (((long long)b * a.Sk + key_a) * a.Hkv + hk) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(a.dk_g + o + n * 8) = pack_bf16(dk[4 * n], dk[4 * n + 1]);
-      *reinterpret_cast<uint32_t*>(a.dv_g + o + n * 8) = pack_bf16(dv[4 * n], dv[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(a.dk + o + n * 8) = pack_bf16(dk[4 * n], dk[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(a.dv + o + n * 8) = pack_bf16(dv[4 * n], dv[4 * n + 1]);
     }
   }
   if (key_b < a.Sk) {
     const long long o = (((long long)b * a.Sk + key_b) * a.Hkv + hk) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(a.dk_g + o + n * 8) =
+      *reinterpret_cast<uint32_t*>(a.dk + o + n * 8) =
           pack_bf16(dk[4 * n + 2], dk[4 * n + 3]);
-      *reinterpret_cast<uint32_t*>(a.dv_g + o + n * 8) =
+      *reinterpret_cast<uint32_t*>(a.dv + o + n * 8) =
           pack_bf16(dv[4 * n + 2], dv[4 * n + 3]);
     }
   }
@@ -837,22 +607,8 @@ int launch(Kernel kernel, const BwdArgs& a, int B, int rows, int smem,
 
 enum Which { kFused, kDkv, kDq };
 
-// Where the wgmma kv kernel serves, as bits: 1 for K2 and K3b at D 64, 2 for
-// K2 at D 128, 4 for K3b at D 128. At D 128 one warpgroup's fp32 dK, dV and
-// dQ exceed the registers; the wgmma K2 spills there and still beats the
-// mma.sync K2 with ordered dq, the wgmma K3b does not beat the mma.sync one
-// (PERF.md). scripts/flash_bwd_compare.py also times builds with
-// -DRANKPO_BWD_WGMMA_DIMS=0 (the mma.sync kv kernel everywhere, with the
-// ordered dq) and =7 (the wgmma kv kernel everywhere).
-#ifndef RANKPO_BWD_WGMMA_DIMS
-#define RANKPO_BWD_WGMMA_DIMS 3
-#endif
 template <int D, bool kFused>
-constexpr bool kWgmmaKv =
-    (RANKPO_BWD_WGMMA_DIMS >> (D == 64 ? 0 : kFused ? 1 : 2)) & 1;
-
-template <int D, bool kFused>
-int launch_wgmma(const BwdArgs& a, int B, cudaStream_t stream) {
+int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   using T = KvTiles<D, kFused>;
   CUtensorMap qm, km, vm, dom;
   int rc = encode_map(&qm, a.q, B, a.Sq, a.Hq, D, a.q_sb, a.q_ss, a.q_sh);
@@ -874,21 +630,11 @@ int launch_wgmma(const BwdArgs& a, int B, cudaStream_t stream) {
 template <int D>
 int dispatch(Which which, const BwdArgs& a, int B, cudaStream_t st) {
   constexpr int tile_bytes = kTile * (D + kPad) * (int)sizeof(__nv_bfloat16);
-  constexpr int dS_bytes = kTile * (kTile + kPad) * (int)sizeof(__nv_bfloat16);
   switch (which) {
     case kFused:
-      if constexpr (kWgmmaKv<D, true>) {
-        return launch_wgmma<D, true>(a, B, st);
-      } else {
-        return launch(flash_bwd_kv_kernel<D, true>, a, B, a.Sk,
-                      4 * tile_bytes + dS_bytes, st);
-      }
+      return launch_kv<D, true>(a, B, st);
     case kDkv:
-      if constexpr (kWgmmaKv<D, false>) {
-        return launch_wgmma<D, false>(a, B, st);
-      } else {
-        return launch(flash_bwd_kv_kernel<D, false>, a, B, a.Sk, 4 * tile_bytes, st);
-      }
+      return launch_kv<D, false>(a, B, st);
     default:
       return launch(flash_bwd_dq_kernel<D>, a, B, a.Sq, 4 * tile_bytes, st);
   }
@@ -912,10 +658,8 @@ int run(Which which, const void* q, const void* k, const void* v,
   a.delta = delta;
   a.dq_acc = which == kFused ? reinterpret_cast<float*>(dq) : nullptr;
   a.dq = which == kDq ? reinterpret_cast<__nv_bfloat16*>(dq) : nullptr;
-  a.dk = reinterpret_cast<float*>(dk);
-  a.dv = reinterpret_cast<float*>(dv);
-  a.dk_g = reinterpret_cast<__nv_bfloat16*>(dk);
-  a.dv_g = reinterpret_cast<__nv_bfloat16*>(dv);
+  a.dk = reinterpret_cast<__nv_bfloat16*>(dk);
+  a.dv = reinterpret_cast<__nv_bfloat16*>(dv);
   a.sync = sync;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -943,7 +687,7 @@ int run(Which which, const void* q, const void* k, const void* v,
 // alignment (TMA's rules: a 16-byte-aligned base, strides that are multiples
 // of 16 bytes), zeroes the fused kernel's fp32 dq buffer and its int32
 // `sync` buffer (1 + B * Hq * ceil(Sq / 64) entries), and allocates dk/dv as
-// rankpo_flash_bwd_kv_grouped(D) says.
+// bf16 [B, Sk, Hkv, D].
 #define RANKPO_BWD_PARAMS                                                     \
   const void *q, const void *k, const void *v, const int *mask,              \
       const void *dout, const float *lse, const float *delta, void *dq,      \
@@ -956,15 +700,6 @@ int run(Which which, const void* q, const void* k, const void* v,
   q, k, v, mask, dout, lse, delta, dq, dk, dv, sync, B, Sq, Sk, Hq, Hkv, D,  \
       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,    \
       do_sh, mask_sb, causal, skip_pad_q, stream
-
-// 1 if the kv kernel at head_dim D (K2 when fused, else K3b) writes dk/dv
-// as bf16 [B, Sk, Hkv, D] (the wgmma kernel, GQA group summed), 0 if as
-// fp32 [B * Hq, Sk, D] per query head (the mma.sync kernel; the caller sums
-// each group)
-extern "C" int rankpo_flash_bwd_kv_grouped(int D, int fused) {
-  if (D == 64) return kWgmmaKv<64, true> ? 1 : 0;
-  return (fused ? kWgmmaKv<128, true> : kWgmmaKv<128, false>) ? 1 : 0;
-}
 
 // K2: dq (fp32, summed in key-tile order), dk, dv in one pass
 extern "C" int rankpo_flash_bwd_fused_bf16(RANKPO_BWD_PARAMS) {

@@ -24,12 +24,12 @@ small share of a layer next to the projections. Every kernel skips whole
 tiles past the valid length and above the causal diagonal. K1 is built for
 Hopper (``sm_90a``): one producer warp loads K/V tiles with TMA into an
 mbarrier ring shared by the query heads of a GQA group, one consumer
-warpgroup per head, both products on ``wgmma``. K2, and K3b at head_dim
-64, are built the same way around one (batch, kv head, key tile): K and V
-loaded once, the Q/dO tiles of the whole GQA group streamed through the
-ring, every product on ``wgmma``, dK/dV summed over the group in the kernel;
-K2 adds each key tile's dQ in key-tile order. K3a, and K3b at head_dim 128,
-run ``mma.sync`` on tiles staged by all threads (see the kernels' headers).
+warpgroup per head, both products on ``wgmma``. K2 and K3b are built the
+same way around one (batch, kv head, key tile): K and V loaded once, the
+Q/dO tiles of the whole GQA group streamed through the ring, every product
+on ``wgmma``, dK/dV summed over the group in the kernel; K2 adds each key
+tile's dQ in key-tile order. K3a runs ``mma.sync`` on tiles staged by all
+threads (see the kernels' headers).
 Every kernel repeats bit for bit.
 
 The kernels take bf16 only, head_dim 64 or 128, a key mask, causal and
@@ -277,10 +277,9 @@ def flash_attention_bwd(
       above 8·Sq·D > 4 MiB (``flash_attention.py:777``), a VMEM budget for
       its resident dq block, which the ordered adds do not need.
 
-    Both give dq, dk and dv that repeat bit for bit. The wgmma kv kernel
-    (K2 and K3b at head_dim 64, K2 at 128) sums each GQA group's dk/dv and
-    writes them in bf16; the mma.sync one (K3b at 128) writes fp32 per query
-    head, summed over each group here, as ``flash_bwd_fused`` does."""
+    Both give dq, dk and dv that repeat bit for bit. K2 and K3b sum each GQA
+    group's dk/dv in the kernel, as ``flash_bwd_fused`` sums them per
+    group, and write them in bf16."""
     bwd_impl = resolve_bwd_impl(bwd_impl)
     _check_qkv(q, k, v)
     b, sq, hq, d = q.shape
@@ -300,13 +299,8 @@ def flash_attention_bwd(
     lib = load_library()
     dev = q.device
     fused = bwd_impl == "fused"
-    grouped = lib.rankpo_flash_bwd_kv_grouped(d, int(fused)) == 1
-    if grouped:  # the wgmma kv kernel sums each GQA group and writes bf16
-        dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=dev)
-        dv = torch.empty_like(dk)
-    else:  # fp32 per query head, summed over each group below
-        dk = torch.empty((b, hq, sk, d), dtype=torch.float32, device=dev)
-        dv = torch.empty_like(dk)
+    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=dev)
+    dv = torch.empty_like(dk)
     sync = None
     if fused:
         dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
@@ -335,10 +329,6 @@ def flash_attention_bwd(
             _count(name)
     if fused:
         dq = dq.permute(0, 2, 1, 3).to(q.dtype)
-    if not grouped:  # per-head fp32 -> group sums -> [B, Sk, Hkv, D] bf16
-        groups = hq // hkv
-        dk = dk.view(b, hkv, groups, sk, d).sum(2).permute(0, 2, 1, 3).to(k.dtype)
-        dv = dv.view(b, hkv, groups, sk, d).sum(2).permute(0, 2, 1, 3).to(v.dtype)
     return dq, dk, dv
 
 

@@ -1,21 +1,13 @@
-"""The flash-attention backward kernels (K2, K3a, K3b) of several builds,
-timed in turns on one card.
+"""The flash-attention backward kernels (K2, K3a, K3b) of this checkout and
+of another, timed in turns on one card.
 
     python3 scripts/flash_bwd_compare.py [--parent DIR] [--seed 0]
 
 Versions, each from its own build and in a child process of its own:
-
-- ``parent``: the kernels of another checkout (e.g. the parent commit
-  unpacked with ``git archive``), with ``--parent``;
-- ``mma``: this checkout built with ``-DRANKPO_BWD_WGMMA_DIMS=0``: the
-  mma.sync kv kernel everywhere, with K2's dq summed in key-tile order;
-- ``wgmma``: this checkout as built by default (the wgmma kv kernel for K2
-  and K3b at D 64 and for K2 at D 128);
-- ``wgmma128``: this checkout built with ``-DRANKPO_BWD_WGMMA_DIMS=7`` (the
-  wgmma kv kernel for K3b at D 128 too), timed at the D 128 shape only.
-
-They run in the order parent, mma, wgmma, wgmma128, wgmma128, wgmma, mma,
-parent, on the same inputs:
+``parent``, the kernels of the checkout at ``--parent`` (e.g. the parent
+commit unpacked with ``git archive``), and ``change``, this checkout's.
+They run in the order parent, change, change, parent (change twice alone
+without ``--parent``), on the same inputs:
 
 - B 8, S 512, 32 q / 8 kv heads, D 64, causal, skip_pad_q, with the random
   and then the full lengths that ``chip_smoke.py`` times (drawn, as there,
@@ -25,7 +17,7 @@ parent, on the same inputs:
 - B 8, S 256, 16 q / 8 kv heads, D 128 (random lengths).
 
 Each child checks the fused and split backward against the plain version on
-the B 8 inputs (``chip_smoke``'s limits) and prints the device time
+the B 8 and D 128 inputs (``chip_smoke``'s limits) and prints the device time
 (torch.profiler) of each kernel and the wrappers' times (CUDA events) at
 each input set. The card's name and power limit open and close the output.
 """
@@ -39,7 +31,6 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLAGS = {"mma": "-DRANKPO_BWD_WGMMA_DIMS=0", "wgmma128": "-DRANKPO_BWD_WGMMA_DIMS=7"}
 D128_SHAPE = (8, 256, 256, 16, 8, 128)
 
 
@@ -52,11 +43,9 @@ def _smoke():
     return mod
 
 
-def _load(version: str):
+def _load():
     from rankpo_tpu_torch.ops import _build
 
-    if version in FLAGS:
-        _build.NVCC_FLAGS.append(FLAGS[version])
     t0 = time.perf_counter()
     _build.load_library()
     return time.perf_counter() - t0
@@ -118,7 +107,7 @@ def child(version: str, seed: int) -> None:
     import torch
 
     smoke = _smoke()
-    _load(version)
+    _load()
 
     def bound_of_sets(sets):
         def f(name):
@@ -127,23 +116,22 @@ def child(version: str, seed: int) -> None:
                 a[0].shape[3], name))[0] for a in sets)
         return f
 
-    if version != "wgmma128":
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        for shape in smoke.ENCODER_SHAPES:
-            smoke._attention_inputs(*shape, gen)
-        shape = smoke.ENCODER_SHAPES[0]
-        for label in ("random", "full"):
-            q, k, v, do, mask, _ = smoke._attention_inputs(
-                *shape, gen, length=shape[2] if label == "full" else None)
-            args = _prepare(q, k, v, do, mask)
-            _check(smoke, f"B 8 {label}", *args)
-            _time(smoke, version, f"B 8 {label}", [args], bound_of_sets([args]))
-            del q, k, v, do, mask, args
-        with tempfile.TemporaryDirectory() as tmp:
-            inputs = smoke.stage1_bwd_inputs(seed, tmp)
-        sets = [_prepare(*x) for x in inputs.values()]
-        _time(smoke, version, "stage-1 micro-batch", sets, bound_of_sets(sets))
-        del sets, inputs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for shape in smoke.ENCODER_SHAPES:
+        smoke._attention_inputs(*shape, gen)
+    shape = smoke.ENCODER_SHAPES[0]
+    for label in ("random", "full"):
+        q, k, v, do, mask, _ = smoke._attention_inputs(
+            *shape, gen, length=shape[2] if label == "full" else None)
+        args = _prepare(q, k, v, do, mask)
+        _check(smoke, f"B 8 {label}", *args)
+        _time(smoke, version, f"B 8 {label}", [args], bound_of_sets([args]))
+        del q, k, v, do, mask, args
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = smoke.stage1_bwd_inputs(seed, tmp)
+    sets = [_prepare(*x) for x in inputs.values()]
+    _time(smoke, version, "stage-1 micro-batch", sets, bound_of_sets(sets))
+    del sets, inputs
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     q, k, v, do, mask, _ = smoke._attention_inputs(*D128_SHAPE, gen)
     args = _prepare(q, k, v, do, mask)
@@ -164,8 +152,7 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    runs = [("mma", HERE), ("wgmma", HERE), ("wgmma128", HERE), ("wgmma128", HERE),
-            ("wgmma", HERE), ("mma", HERE)]
+    runs = [("change", HERE), ("change", HERE)]
     if args.parent:
         parent = os.path.abspath(args.parent)
         runs = [("parent", parent)] + runs + [("parent", parent)]
@@ -173,7 +160,7 @@ def main() -> None:
     builds = {(v, cwd): subprocess.Popen(
         [sys.executable, "-c", f"import sys; sys.path.insert(0, {cwd!r}); "
          f"sys.path.insert(0, {os.path.join(HERE, 'scripts')!r}); import flash_bwd_compare "
-         f"as m; print('build {v}: %.1f s' % m._load({v!r}))"], cwd=cwd)
+         f"as m; print('build {v}: %.1f s' % m._load())"], cwd=cwd)
         for v, cwd in dict.fromkeys(runs)}
     if any(p.wait() != 0 for p in builds.values()):
         raise SystemExit("a build failed")
