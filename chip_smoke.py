@@ -129,7 +129,7 @@ KERNELS = {  # name -> (TPU kernel it replaces, source, profiler name test)
     "flash_bwd_fused": ("rankpo_tpu/ops/flash_attention.py:341", "flash_bwd.cu",
                         lambda n: "flash_bwd_kv" in n and "true" in n),
     "flash_dq": ("rankpo_tpu/ops/flash_attention.py:161", "flash_bwd.cu",
-                 lambda n: "flash_bwd_dq_kernel" in n),
+                 lambda n: "flash_bwd_dq_wgmma" in n),
     "flash_dkv": ("rankpo_tpu/ops/flash_attention.py:240", "flash_bwd.cu",
                   lambda n: "flash_bwd_kv" in n and "false" in n),
 }
@@ -272,12 +272,15 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
       tile) it runs, the Q and dO tiles and their lse/delta rows, plus (K2)
       the fp32 dQ tile read and written once; dK/dV written once as bf16
       per kv head;
-    - K3a: per block of (batch, query head, 64-row query tile), its mask
-      row scan, Q and dO once and each key tile's K, V and mask entries;
-      dQ written as bf16."""
+    - K3a: per block of (batch, kv head, 2 query heads, or 1 when the
+      group size is odd, 64-row query tile), its mask row scan and its
+      heads' lse/delta rows; if it runs key tiles, its heads' Q and dO tiles
+      once and each K/V tile once for all its heads, with the tile's mask
+      entries; dQ written as bf16."""
     shift = sk - sq
     nq, nk = -(-sq // 64), -(-sk // 64)
     fused = kind == "flash_bwd_fused"
+    heads = 2 if (hq // hkv) % 2 == 0 else 1
     total = 0
     for n in lens:
         n = int(n)
@@ -285,12 +288,12 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
             for q0 in range(0, sq, 64):
                 rows = min(64, sq - q0)
                 n_tiles = min(-(-n // 64), (q0 + 63 + shift) // 64 + 1)
-                total += hq * (sk * 4 + rows * d * 2)
+                total += hq // heads * sk * 4 + hq * rows * (d * 2 + 2 * 4)
                 if q0 + shift >= n or n_tiles <= 0:
                     continue
                 kv_rows = min(n_tiles * 64, sk)
-                total += hq * (2 * rows * d * 2 + 2 * rows * 4 + 2 * kv_rows * d * 2
-                               + n_tiles * 64 * 4)
+                total += hq // heads * (2 * heads * rows * d * 2 + 2 * kv_rows * d * 2
+                                        + n_tiles * 64 * 4)
             continue
         lim = n - shift
         q_end = min(nq, 0 if lim <= 0 else -(-lim // 64))
@@ -1263,7 +1266,7 @@ def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
     p = probe.shape[1]
     probe32 = probe.to(torch.int32)
     cap, q_n = index.capacity, q.shape[0]
-    blocks = torch.unique(probe).numel()  # distinct probed blocks, read once
+    blocks, tile_reads = probe_block_reads(probe, index.n_clusters)
     out_bytes, probe_bytes = q_n * p * cap * 4, probe32.numel() * 4
     label = f"Q {q_n}, P {p} ({blocks} distinct blocks), cap {cap}"
     res = {}
@@ -1277,12 +1280,20 @@ def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
                 rows = corpus.view(-1, cap, d).index_select(0, probe.flatten())
                 return torch.bmm(rows.view(q_n, p * cap, d), qv[:, :, None])
 
-            nbytes = blocks * cap * d * corpus.element_size() + q.numel() * 4 + probe_bytes
-            res[str(dtype).split(".")[1]] = _kernel_check(
+            row_bytes = cap * d * corpus.element_size()
+            nbytes = blocks * row_bytes + q.numel() * 4 + probe_bytes
+            out = _kernel_check(
                 "ivf_probe_scores", lambda c=corpus: ivf_gather.probe_scores(c, probe32, q, cap=cap),
                 lambda c=corpus: ivf_gather.probe_scores_plain(c, probe32, q, cap=cap),
                 compose, nbytes + out_bytes, q_n * p * cap * d * 2,
                 f"{label}, D {d}, {dtype}")
+            # the design's own reads of the corpus: each probed block once
+            # per chunk of 8 of the queries that probe it
+            out["design_mb"] = tile_reads * row_bytes / 1e6
+            log(f"  ivf_probe_scores design: corpus read {out['design_mb']:.1f} MB "
+                f"({tile_reads} block reads: {blocks} distinct + {tile_reads - blocks} chunk "
+                f"re-reads) against the bound's {blocks * row_bytes / 1e6:.1f} MB")
+            res[str(dtype).split(".")[1]] = out
             del corpus
         return res
     m, ds = index.pq_m, index.dim // index.pq_m
@@ -1310,6 +1321,15 @@ def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
         name, lambda: fn(codes, probe32, lut, cap=cap), lambda: plain(codes, probe32, lut, cap=cap),
         compose, nbytes, q_n * p * cap * m, f"{label}, m {m}")
     return res
+
+
+def probe_block_reads(probe, n_clusters: int, chunk: int = 8):
+    """(distinct probed blocks, block reads of K4's design) for ``probe``
+    [Q, P]: the kernel reads each probed block once per chunk of ``chunk``
+    of the (query, probe) pairs that name it."""
+    ids = probe.flatten().long()
+    counts = torch.bincount(ids[(ids >= 0) & (ids < n_clusters)], minlength=n_clusters)
+    return int((counts > 0).sum()), int(((counts + chunk - 1) // chunk).sum())
 
 
 def _odd_shape_checks(seed: int) -> dict:

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernels of rankpo_tpu/ops/flash_attention.py:
 //   _bwd_fused_kernel (flash_bwd_fused)  -> flash_bwd_kv_wgmma<D, true>
 //   _dkv_kernel       (flash_dkv)        -> flash_bwd_kv_wgmma<D, false>
-//   _dq_kernel        (flash_dq)         -> flash_bwd_dq_kernel<D>
+//   _dq_kernel        (flash_dq)         -> flash_bwd_dq_wgmma<D, NC>
 //
 // Contract (what the Pallas kernels compute), with the forward's contract
 // from flash_fwd.cu (layouts, strides, mask, bottom-right causal, GQA):
@@ -52,17 +52,28 @@
 //     (two fp32 buffers) and adds it to the fp32 buffer in key-tile order,
 //     off the consumers' path.
 // At D 128 fp32 dK, dV and (fused) dQ exceed one warpgroup's registers and
-// ptxas spills K2 (PERF.md has the times). The dq kernel: 4 warps, 16 query
-// rows each, mma.sync m16n8k16 on tiles staged by all threads, one block per
-// (batch * q-head, 64-row query tile) looping over key tiles like the
-// forward, dQ held in registers and rounded once.
+// ptxas spills K2 (PERF.md has the times).
+//
+// Design of the dq kernel: K1's (flash_fwd.cu) with a third product. One
+// block per (batch, kv head, NC query heads of that GQA group, 64-row query
+// tile); NC is 2 when the group size is even, else 1. Warp 4 NC, the
+// producer, loads the NC Q and dO tiles once, then streams the K/V tiles
+// inside the forward's bounds through a TMA mbarrier ring shared by the NC
+// heads, posting each tile's 64 key-validity bits in its stage. Consumer
+// warpgroup c (warps 4c .. 4c + 3) computes query head c of the block: per
+// key tile S = Q K^T and dP = dO V^T by wgmma SS (K-major), P and dS in
+// registers (mask and causal tests only on tiles that need them), and
+// dQ += dS K by wgmma RS, with dS (the S accumulator layout packed to bf16)
+// as the A registers and K, read from the same swizzled stage, as the
+// MN-major transposed-B operand (K1's P V form). dQ stays in fp32 registers
+// across the key tiles and is written once as bf16: no atomics.
 //
 // What bounds them on this card. At the training shapes (S <= 512, D = 64)
 // a tile pair costs 5 (fused), 4 (dkv) or 3 (dq) 64 x 64 x 64 products; the
 // kernels are bound by the latency of each block's chain of tile pairs (a
-// kv block runs up to groups x 8 of them), not by HBM bytes or the
-// tensor-core peak. The causal and valid-length bounds remove whole tiles,
-// which on right-padded batches is most of the work.
+// kv block runs up to groups x 8 of them, a dq block up to 8), not by HBM
+// bytes or the tensor-core peak. The causal and valid-length bounds remove
+// whole tiles, which on right-padded batches is most of the work.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -232,14 +243,7 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int* mrow = a.mask + (long long)b * a.mask_sb;
 
   // one past the last valid key, reduced over the block with one barrier
-  int local_end = 0;
-  for (int j = tid; j < a.Sk; j += kThreads) {
-    if (mrow[j] != 0) local_end = j + 1;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    local_end = max(local_end, __shfl_xor_sync(0xffffffffu, local_end, off));
-  }
+  const int local_end = warp_key_end(mrow, a.Sk, tid, kThreads);
   if (lane == 0) warp_end[warp] = local_end;
   __syncthreads();
   int key_end = 0;
@@ -481,140 +485,267 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int LDS = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + kTile * LDS;
-  __nv_bfloat16* Ks = dOs + kTile * LDS;
-  __nv_bfloat16* Vs = Ks + kTile * LDS;
-  __shared__ int key_ok[kTile];
-  __shared__ int s_key_end;
+// ---- the dq kernel: K3a ----
 
-  const int bh = blockIdx.x;
-  const int b = bh / a.Hq;
-  const int h = bh % a.Hq;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int q_start = blockIdx.y * kTile;
+template <int D>
+struct DqTiles {
+  static constexpr int kAtoms = D / 64;  // 64-column swizzle atoms per row
+  static constexpr int kTileBytes = kAtoms * kSwizzleTileBytes;  // 64 rows
+  static constexpr int kStages = D == 64 ? 3 : 2;                 // K/V ring, as K1
+};
+
+// dS = P (dP - delta) scale in place of s, P = exp(s scale - lse) on valid
+// entries and 0 elsewhere, packed to bf16 as the A registers of dQ += dS K
+// (two neighbouring 8-key groups per 16 keys). kAll: every entry is valid
+// (an interior tile), so no test is made.
+template <bool kAll>
+__device__ __forceinline__ void dscores(uint32_t (&ds)[16], float (&s)[32], const float (&dp)[32],
+                                        uint64_t bits, int t, int lim_a, int lim_b, float lse_a,
+                                        float lse_b, float dl_a, float dl_b, float scale) {
+  // this thread's key bits and causal limits, relative to its columns
+  // 2t + 8j + e, so that every test below has a constant left side
+  const uint32_t bits_lo = uint32_t(bits) >> (2 * t);
+  const uint32_t bits_hi = uint32_t(bits >> 32) >> (2 * t);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + e;  // minus 2t
+      const bool ok = kAll || (((j < 4 ? bits_lo : bits_hi) >> (col % 32)) & 1);
+      const bool va = ok && (kAll || col <= lim_a);
+      const bool vb = ok && (kAll || col <= lim_b);
+      const float pa = va ? __expf(s[4 * j + e] * scale - lse_a) : 0.f;
+      const float pb = vb ? __expf(s[4 * j + 2 + e] * scale - lse_b) : 0.f;
+      s[4 * j + e] = pa * (dp[4 * j + e] - dl_a) * scale;
+      s[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl_b) * scale;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ds[4 * kk + i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  }
+}
+
+// One block per (batch, kv head, NC query heads, 64-row query tile); see the
+// header for the roles of its warps.
+template <int D, int NC>
+__global__ void __launch_bounds__(NC * 128 + 32, D == 64 ? 2 : 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap do_map, const BwdArgs a) {
+  using T = DqTiles<D>;
+  constexpr int kStages = T::kStages;
+  constexpr int kTileBytes = T::kTileBytes;
+  constexpr int kWarpsAll = 4 * NC + 1;
+
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries (the swizzle period)
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* dOs = Qs + NC * kTileBytes;
+  unsigned char* Ks = dOs + NC * kTileBytes;     // [kStages] tiles
+  unsigned char* Vs = Ks + kStages * kTileBytes;  // [kStages] tiles
+  __shared__ uint64_t full_bar[kStages], empty_bar[kStages], q_bar;
+  __shared__ uint64_t key_bits[kStages];  // valid keys of the tile in a stage
+  __shared__ int warp_end[kWarpsAll];
+
+  const int groups = a.Hq / a.Hkv;
+  const int sets = groups / NC;
+  const int set = blockIdx.x % sets;
+  const int hk = (blockIdx.x / sets) % a.Hkv;
+  const int b = blockIdx.x / (sets * a.Hkv);
+  const int h0 = hk * groups + set * NC;                     // first query head
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kTile;  // long tiles first
   const int q_shift = a.Sk - a.Sq;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
   const int* mrow = a.mask + (long long)b * a.mask_sb;
-  const int key_end = block_key_end(mrow, a.Sk, &s_key_end);
 
-  const __nv_bfloat16* qb = a.q + (long long)b * a.q_sb + (long long)h * a.q_sh;
-  const __nv_bfloat16* dob = a.dout + (long long)b * a.do_sb + (long long)h * a.do_sh;
-  const __nv_bfloat16* kb = a.k + (long long)b * a.k_sb + (long long)hk * a.k_sh;
-  const __nv_bfloat16* vb = a.v + (long long)b * a.v_sb + (long long)hk * a.v_sh;
-  load_tile<D>(Qs, qb, a.q_ss, q_start, a.Sq);
-  load_tile<D>(dOs, dob, a.do_ss, q_start, a.Sq);
+  // one past the last valid key, reduced over the block with one barrier
+  const int local_end = warp_key_end(mrow, a.Sk, tid, kWarpsAll * 32);
+  if (lane == 0) warp_end[warp] = local_end;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 4 * NC);  // lane 0 of every consumer warp
+    }
+    mbar_init(&q_bar, 1);
+    fence_barrier_init();
+  }
   __syncthreads();
+  int key_end = 0;
+#pragma unroll
+  for (int i = 0; i < kWarpsAll; ++i) key_end = max(key_end, warp_end[i]);
 
   // the forward's key-tile bounds
   int n_tiles = (key_end + kTile - 1) / kTile;
   if (a.causal) {
-    const int last_pos = q_start + kTile - 1 + q_shift;
+    const int last_pos = q_start + kTile - 1 + q_shift;  // last row's position
     const int diag_tiles = last_pos < 0 ? 0 : last_pos / kTile + 1;
     n_tiles = min(n_tiles, diag_tiles);
   }
   if (a.skip_pad_q && q_start + q_shift >= key_end) n_tiles = 0;
 
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_a_rows<D>(qf, Qs, warp, g, t);
-  load_a_rows<D>(dof, dOs, warp, g, t);
-
-  const int row_a = q_start + warp * 16 + g;
-  const int row_b = row_a + 8;
-  const int pos_a = row_a + q_shift;
-  const int pos_b = row_b + q_shift;
-  const float* lse_row = a.lse + (long long)bh * a.Sq;
-  const float* delta_row = a.delta + (long long)bh * a.Sq;
-  const float lse_a = row_a < a.Sq ? lse_row[row_a] : 0.f;
-  const float lse_b = row_b < a.Sq ? lse_row[row_b] : 0.f;
-  const float dl_a = row_a < a.Sq ? delta_row[row_a] : 0.f;
-  const float dl_b = row_b < a.Sq ? delta_row[row_b] : 0.f;
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  }
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int key0 = kt * kTile;
-    load_tile<D>(Ks, kb, a.k_ss, key0, a.Sk);
-    load_tile<D>(Vs, vb, a.v_ss, key0, a.Sk);
-    if (tid < kTile) {
-      key_ok[tid] = (key0 + tid < a.Sk) ? (mrow[key0 + tid] != 0) : 0;
-    }
-    __syncthreads();
-
-    float s[kTile / 8][4];
-    mma_a_tileT<D>(s, qf, Ks, g, t);  // S = Q K^T
-    float dp[kTile / 8][4];
-    mma_a_tileT<D>(dp, dof, Vs, g, t);  // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const int key = key0 + col;
-        const bool ok = key_ok[col] != 0;
-        const bool va = ok && (!a.causal || key <= pos_a);
-        const bool vb_ = ok && (!a.causal || key <= pos_b);
-        const float pa = va ? __expf(s[j][e] * a.scale - lse_a) : 0.f;
-        const float pb = vb_ ? __expf(s[j][2 + e] * a.scale - lse_b) : 0.f;
-        s[j][e] = pa * (dp[j][e] - dl_a) * a.scale;  // dS
-        s[j][2 + e] = pb * (dp[j][2 + e] - dl_b) * a.scale;
+  if (warp == 4 * NC) {
+    // ---- producer: Q and dO once, then K/V tiles through the ring ----
+    if (n_tiles == 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&q_bar, 2 * NC * kTileBytes);
+      for (int c = 0; c < NC; ++c) {
+        for (int at = 0; at < T::kAtoms; ++at) {
+          const int off = c * kTileBytes + at * kSwizzleTileBytes;
+          tma_load_4d(Qs + off, &q_map, &q_bar, 64 * at, q_start, h0 + c, b);
+          tma_load_4d(dOs + off, &do_map, &q_bar, 64 * at, q_start, h0 + c, b);
+        }
       }
     }
-    mma_c_tile<D>(dq, s, Ks, g, t);  // dQ += dS K (dS rounded to bf16)
-    __syncthreads();  // before the next tile overwrites Ks/Vs/key_ok
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int stage = kt % kStages;
+      mbar_wait(&empty_bar[stage], ((kt / kStages) & 1) ^ 1);
+      const int key0 = kt * kTile;
+      const int k_lo = key0 + lane, k_hi = key0 + 32 + lane;
+      const uint32_t lo = __ballot_sync(0xffffffffu, k_lo < a.Sk && mrow[k_lo] != 0);
+      const uint32_t hi = __ballot_sync(0xffffffffu, k_hi < a.Sk && mrow[k_hi] != 0);
+      if (lane == 0) {
+        key_bits[stage] = uint64_t(lo) | (uint64_t(hi) << 32);
+        mbar_arrive_expect_tx(&full_bar[stage], 2 * kTileBytes);
+        for (int at = 0; at < T::kAtoms; ++at) {
+          const int off = stage * kTileBytes + at * kSwizzleTileBytes;
+          tma_load_4d(Ks + off, &k_map, &full_bar[stage], 64 * at, key0, hk, b);
+          tma_load_4d(Vs + off, &v_map, &full_bar[stage], 64 * at, key0, hk, b);
+        }
+      }
+      __syncwarp();
+    }
+    return;
   }
 
+  // ---- consumers: warpgroup c computes query head h0 + c ----
+  const int c = warp / 4;
+  const int w = warp % 4;
+  const int h = h0 + c;
+  const int g = lane / 4;  // rows g and g + 8 of the warp's 16
+  const int t = lane % 4;  // columns 2t, 2t + 1 of every 8
+  const unsigned char* Qt = Qs + c * kTileBytes;
+  const unsigned char* dOt = dOs + c * kTileBytes;
+
+  const int row_a = q_start + w * 16 + g;  // this thread's two rows
+  const int row_b = row_a + 8;
+  const long long stats = ((long long)b * a.Hq + h) * a.Sq;
+  const float lse_a = row_a < a.Sq ? a.lse[stats + row_a] : 0.f;
+  const float lse_b = row_b < a.Sq ? a.lse[stats + row_b] : 0.f;
+  const float dl_a = row_a < a.Sq ? a.delta[stats + row_a] : 0.f;
+  const float dl_b = row_b < a.Sq ? a.delta[stats + row_b] : 0.f;
+
+  float dq[D / 2];  // dq[4n + e]: columns 8n + 2t (+1) of rows a, b
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  if (n_tiles > 0) mbar_wait(&q_bar, 0);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int stage = kt % kStages;
+    const unsigned char* Kt = Ks + stage * kTileBytes;
+    const unsigned char* Vt = Vs + stage * kTileBytes;
+    mbar_wait(&full_bar[stage], (kt / kStages) & 1);
+    const uint64_t bits = key_bits[stage];
+    const int key0 = kt * kTile;
+
+    // S = Q K^T and dP = dO V^T, one commit group
+    float s[32], dp[32];
+    wgmma_fence();
+    issue_ss<D>(s, Qt, Kt);
+    issue_ss<D>(dp, dOt, Vt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // an interior tile (every key valid and, when causal, every row of the
+    // warp at or past the tile's last key) needs no mask or causal test
+    uint32_t ds[16];
+    const bool interior = bits == ~0ull &&
+                          (!a.causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift);
+    if (interior) {
+      dscores<true>(ds, s, dp, bits, t, 0, 0, lse_a, lse_b, dl_a, dl_b, a.scale);
+    } else {
+      const int lim_a = a.causal ? row_a + q_shift - key0 - 2 * t : kTile;
+      const int lim_b = a.causal ? row_b + q_shift - key0 - 2 * t : kTile;
+      dscores<false>(ds, s, dp, bits, t, lim_a, lim_b, lse_a, lse_b, dl_a, dl_b, a.scale);
+    }
+
+    // dQ += dS K, K read MN-major from the same stage
+    fence_regs(dq);
+    fence_regs(ds);
+    wgmma_fence();
+    issue_rs<D>(dq, ds, Kt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+
+    // this warp is done with the stage (wgmma_wait is warp-synchronous, so
+    // every lane's products have completed)
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_bar[stage]);
+  }
+
+  // dQ as bf16 [B, Sq, Hq, D] (zeros for a query tile that ran no key tiles)
   if (row_a < a.Sq) {
     __nv_bfloat16* o = a.dq + (((long long)b * a.Sq + row_a) * a.Hq + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(o + n * 8) = pack_bf16(dq[n][0], dq[n][1]);
+      *reinterpret_cast<uint32_t*>(o + n * 8) = pack_bf16(dq[4 * n], dq[4 * n + 1]);
     }
   }
   if (row_b < a.Sq) {
     __nv_bfloat16* o = a.dq + (((long long)b * a.Sq + row_b) * a.Hq + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(o + n * 8) = pack_bf16(dq[n][2], dq[n][3]);
+      *reinterpret_cast<uint32_t*>(o + n * 8) = pack_bf16(dq[4 * n + 2], dq[4 * n + 3]);
     }
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, const BwdArgs& a, int B, int rows, int smem,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// the 4-D tensor maps of q, k, v and do over the caller's strides
+int encode_maps(CUtensorMap (&m)[4], const BwdArgs& a, int B, int D) {
+  int rc = encode_map(&m[0], a.q, B, a.Sq, a.Hq, D, a.q_sb, a.q_ss, a.q_sh);
+  if (rc == 0) rc = encode_map(&m[1], a.k, B, a.Sk, a.Hkv, D, a.k_sb, a.k_ss, a.k_sh);
+  if (rc == 0) rc = encode_map(&m[2], a.v, B, a.Sk, a.Hkv, D, a.v_sb, a.v_ss, a.v_sh);
+  if (rc == 0) rc = encode_map(&m[3], a.dout, B, a.Sq, a.Hq, D, a.do_sb, a.do_ss, a.do_sh);
+  return rc;
+}
+
+template <int D, int NC>
+int launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
+  using T = DqTiles<D>;
+  CUtensorMap m[4];
+  const int rc = encode_maps(m, a, B, D);
+  if (rc != 0) return rc;
+  constexpr int smem = 1024 + (2 * NC + 2 * T::kStages) * T::kTileBytes;
+  auto kernel = flash_bwd_dq_wgmma<D, NC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * a.Hq, (rows + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  dim3 grid(B * a.Hq / NC, (a.Sq + kTile - 1) / kTile);
+  kernel<<<grid, NC * 128 + 32, smem, stream>>>(m[0], m[1], m[2], m[3], a);
   return (int)cudaGetLastError();
 }
+
+// Query heads per dq block where the group size is even: 2, or 1 when built
+// with -DRANKPO_DQ_HEADS=1 (scripts/flash_bwd_compare.py times both).
+#ifndef RANKPO_DQ_HEADS
+#define RANKPO_DQ_HEADS 2
+#endif
 
 enum Which { kFused, kDkv, kDq };
 
 template <int D, bool kFused>
 int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   using T = KvTiles<D, kFused>;
-  CUtensorMap qm, km, vm, dom;
-  int rc = encode_map(&qm, a.q, B, a.Sq, a.Hq, D, a.q_sb, a.q_ss, a.q_sh);
-  if (rc == 0) rc = encode_map(&km, a.k, B, a.Sk, a.Hkv, D, a.k_sb, a.k_ss, a.k_sh);
-  if (rc == 0) rc = encode_map(&vm, a.v, B, a.Sk, a.Hkv, D, a.v_sb, a.v_ss, a.v_sh);
-  if (rc == 0) rc = encode_map(&dom, a.dout, B, a.Sq, a.Hq, D, a.do_sb, a.do_ss, a.do_sh);
+  CUtensorMap m[4];
+  const int rc = encode_maps(m, a, B, D);
   if (rc != 0) return rc;
   constexpr int smem = 1024 + (2 + 2 * T::kStages) * T::kTileBytes +
                        (kFused ? 2 * kSwizzleTileBytes + 2 * T::kDqBytes : 0);
@@ -623,20 +754,20 @@ int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * a.Hkv, (a.Sk + kTile - 1) / kTile);
-  kernel<<<grid, kKvThreads<kFused>, smem, stream>>>(qm, km, vm, dom, a);
+  kernel<<<grid, kKvThreads<kFused>, smem, stream>>>(m[0], m[1], m[2], m[3], a);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int dispatch(Which which, const BwdArgs& a, int B, cudaStream_t st) {
-  constexpr int tile_bytes = kTile * (D + kPad) * (int)sizeof(__nv_bfloat16);
   switch (which) {
     case kFused:
       return launch_kv<D, true>(a, B, st);
     case kDkv:
       return launch_kv<D, false>(a, B, st);
     default:
-      return launch(flash_bwd_dq_kernel<D>, a, B, a.Sq, 4 * tile_bytes, st);
+      if (RANKPO_DQ_HEADS == 2 && (a.Hq / a.Hkv) % 2 == 0) return launch_dq<D, 2>(a, B, st);
+      return launch_dq<D, 1>(a, B, st);
   }
 }
 

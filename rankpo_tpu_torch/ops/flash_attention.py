@@ -28,9 +28,10 @@ warpgroup per head, both products on ``wgmma``. K2 and K3b are built the
 same way around one (batch, kv head, key tile): K and V loaded once, the
 Q/dO tiles of the whole GQA group streamed through the ring, every product
 on ``wgmma``, dK/dV summed over the group in the kernel; K2 adds each key
-tile's dQ in key-tile order. K3a runs ``mma.sync`` on tiles staged by all
-threads (see the kernels' headers).
-Every kernel repeats bit for bit.
+tile's dQ in key-tile order. K3a is K1's design with a third product: per
+(batch, kv head, query heads of the group, query tile) the K/V tiles come
+through the ring, and dQ = dS K stays in registers across the key tiles (see
+the kernels' headers). Every kernel repeats bit for bit.
 
 The kernels take bf16 only, head_dim 64 or 128, a key mask, causal and
 ``skip_pad_q``. ``window`` and ``segment_ids`` are not ported yet and raise.

@@ -5,9 +5,11 @@ of another, timed in turns on one card.
 
 Versions, each from its own build and in a child process of its own:
 ``parent``, the kernels of the checkout at ``--parent`` (e.g. the parent
-commit unpacked with ``git archive``), and ``change``, this checkout's.
-They run in the order parent, change, change, parent (change twice alone
-without ``--parent``), on the same inputs:
+commit unpacked with ``git archive``), ``change``, this checkout's, and
+``1head``, this checkout's built with ``-DRANKPO_DQ_HEADS=1`` (K3a with one
+query head per block instead of two). They run in the order parent, change,
+1head, 1head, change, parent (without ``--parent``, the middle four), on
+the same inputs:
 
 - B 8, S 512, 32 q / 8 kv heads, D 64, causal, skip_pad_q, with the random
   and then the full lengths that ``chip_smoke.py`` times (drawn, as there,
@@ -32,6 +34,7 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D128_SHAPE = (8, 256, 256, 16, 8, 128)
+ONE_HEAD_FLAG = "-DRANKPO_DQ_HEADS=1"
 
 
 def _smoke():
@@ -43,12 +46,26 @@ def _smoke():
     return mod
 
 
-def _load():
+def _load(one_head: bool = False):
     from rankpo_tpu_torch.ops import _build
 
+    if one_head:
+        _build.NVCC_FLAGS.append(ONE_HEAD_FLAG)
     t0 = time.perf_counter()
     _build.load_library()
     return time.perf_counter() - t0
+
+
+def _ptxas(version):
+    """nvcc's register and spill report of the backward kernels."""
+    from rankpo_tpu_torch.ops import _build
+
+    ours = False
+    for line in _build.build_log().splitlines():
+        if "Compiling entry" in line:
+            ours = "flash_bwd" in line
+        if ours and any(key in line for key in ("Compiling entry", "registers", "spill")):
+            print(f"ptxas {version}: {line.strip()}", flush=True)
 
 
 def _check(smoke, label, q, k, v, mask, do, lse, delta):
@@ -107,7 +124,8 @@ def child(version: str, seed: int) -> None:
     import torch
 
     smoke = _smoke()
-    _load()
+    _load(version == "1head")
+    _ptxas(version)
 
     def bound_of_sets(sets):
         def f(name):
@@ -152,7 +170,7 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    runs = [("change", HERE), ("change", HERE)]
+    runs = [("change", HERE), ("1head", HERE), ("1head", HERE), ("change", HERE)]
     if args.parent:
         parent = os.path.abspath(args.parent)
         runs = [("parent", parent)] + runs + [("parent", parent)]
@@ -160,7 +178,7 @@ def main() -> None:
     builds = {(v, cwd): subprocess.Popen(
         [sys.executable, "-c", f"import sys; sys.path.insert(0, {cwd!r}); "
          f"sys.path.insert(0, {os.path.join(HERE, 'scripts')!r}); import flash_bwd_compare "
-         f"as m; print('build {v}: %.1f s' % m._load())"], cwd=cwd)
+         f"as m; print('build {v}: %.1f s' % m._load({v == '1head'}))"], cwd=cwd)
         for v, cwd in dict.fromkeys(runs)}
     if any(p.wait() != 0 for p in builds.values()):
         raise SystemExit("a build failed")
