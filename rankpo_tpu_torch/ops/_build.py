@@ -50,8 +50,8 @@ _BWD_ARGTYPES = (
 )
 for _name in ("fused", "dkv", "dq"):
     _SIGNATURES[f"rankpo_flash_bwd_{_name}_bf16"] = _BWD_ARGTYPES
-# corpus probe queries out, K Q P cap D dtype, stream
-_SIGNATURES["rankpo_ivf_probe_scores"] = [_P] * 4 + [_I] * 6 + [_P]
+# corpus pairs start cluster queries out, K Q P cap D groups dtype, stream
+_SIGNATURES["rankpo_ivf_probe_scores"] = [_P] * 6 + [_I] * 7 + [_P]
 # codes probe lut out, K Q P cap m layout, stream
 _SIGNATURES["rankpo_pq_adc_scores"] = [_P] * 4 + [_I] * 6 + [_P]
 

@@ -5,8 +5,10 @@ Replaces the Pallas TPU kernel ``_kernel`` (K4, reached through
 ``probe_scores``) with the CUDA C++ kernel ``ops/csrc/ivf_gather.cu`` for
 ``sm_90a``, built at first use (``ops/_build.py``) and called through its
 plain C entry point with ctypes. It is bound by HBM bytes (a gathered
-matrix-vector product); the source's header says what its design does about
-that.
+matrix-vector product) and reads each probed cluster block once for all the
+queries of the batch that probe it: :func:`group_probes` orders the
+(query, probe) pairs by cluster on the device, and the kernel takes one group
+per block (the source's header says more).
 
 Contract: ``probe_scores(corpus, probe, queries, cap=cap)`` returns fp32
 scores ``[Q, P, cap]`` equal to
@@ -62,6 +64,33 @@ def probe_scores_plain(corpus: torch.Tensor, probe: torch.Tensor,
     return torch.bmm(rows, qv[:, :, None]).reshape(q_n, p_n, cap)
 
 
+def group_probes(probe: torch.Tensor, n_clusters: int):
+    """The (query, probe) pairs of ``probe`` [Q, P] grouped by cluster id, on
+    ``probe``'s device and without a host sync. Returns int32 tensors
+
+    - ``pairs`` [Q * P]: the flat pair indices ``q * P + p``, in ascending
+      cluster id and, within a cluster, ascending pair index (a stable sort);
+    - ``start`` [G + 1]: group g holds ``pairs[start[g]:start[g + 1]]``;
+    - ``cluster`` [G]: the cluster id group g probes,
+
+    where G = min(Q * P, n_clusters + 1) bounds the group count. Every id
+    outside [0, n_clusters) is read as ``n_clusters``, so those pairs form one
+    group (whose scores the kernel sets to NaN). Groups past the last one
+    are empty (``start[g] == start[g + 1] == Q * P``). A cluster listed twice
+    by one query gives two pairs."""
+    n = probe.numel()
+    g_max = min(n, n_clusters + 1)
+    flat = probe.reshape(-1).long()
+    key = torch.where((flat >= 0) & (flat < n_clusters), flat, n_clusters)
+    key_sorted, order = torch.sort(key, stable=True)
+    first = torch.ones(n, dtype=torch.bool, device=probe.device)
+    first[1:] = key_sorted[1:] != key_sorted[:-1]
+    group_of = torch.cumsum(first, 0) - 1  # group of each sorted pair
+    start = torch.searchsorted(group_of, torch.arange(g_max + 1, device=probe.device))
+    cluster = key_sorted[start[:-1].clamp(max=n - 1)]
+    return order.int(), start.int(), cluster.int()
+
+
 def _check(corpus, probe, queries, cap):
     if corpus.dtype not in _DTYPES:
         raise ValueError(f"probe_scores: rows must be fp32 or bf16, got {corpus.dtype}")
@@ -94,17 +123,19 @@ def probe_scores(corpus: torch.Tensor, probe: torch.Tensor, queries: torch.Tenso
         raise ValueError(f"probe_scores: no kernel for device {corpus.device}")
     q_n, p_n = probe.shape
     d = corpus.shape[1]
-    if d % 8 or d * 4 > 227 * 1024:
+    if d % 8 or 8 * d * 4 > 227 * 1024:
         raise ValueError(f"probe_scores kernel: D {d} must be a multiple of 8 and "
-                         "its fp32 query fit in shared memory")
-    if q_n > 65535 or p_n > 65535:
-        raise ValueError(f"probe_scores kernel: Q {q_n} and P {p_n} must be <= 65535")
+                         "8 fp32 queries must fit in shared memory")
+    if q_n * p_n >= 2**31 or -(-cap // 64) > 65535:
+        raise ValueError(f"probe_scores kernel: Q * P ({q_n} x {p_n}) must be < 2^31 and "
+                         f"cap {cap} <= 65535 x 64")
     out = torch.empty((q_n, p_n, cap), dtype=torch.float32, device=corpus.device)
     if q_n == 0 or p_n == 0:
         return out
     if not corpus.is_contiguous() or corpus.data_ptr() % 16:
         raise ValueError("probe_scores kernel: corpus must be contiguous and 16-byte aligned")
-    probe32 = probe.to(torch.int32).contiguous()
+    n_clusters = corpus.shape[0] // cap
+    pairs, start, cluster = group_probes(probe, n_clusters)
     qf = queries.to(torch.float32).contiguous()
 
     from rankpo_tpu_torch.ops._build import load_library
@@ -113,8 +144,9 @@ def probe_scores(corpus: torch.Tensor, probe: torch.Tensor, queries: torch.Tenso
     with torch.cuda.device(corpus.device):
         stream = torch.cuda.current_stream(corpus.device).cuda_stream
         rc = lib.rankpo_ivf_probe_scores(
-            corpus.data_ptr(), probe32.data_ptr(), qf.data_ptr(), out.data_ptr(),
-            corpus.shape[0] // cap, q_n, p_n, cap, d, _DTYPES[corpus.dtype], stream,
+            corpus.data_ptr(), pairs.data_ptr(), start.data_ptr(), cluster.data_ptr(),
+            qf.data_ptr(), out.data_ptr(), n_clusters, q_n, p_n, cap, d,
+            cluster.numel(), _DTYPES[corpus.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(f"probe_scores kernel launch failed: cudaError {rc}")

@@ -70,6 +70,8 @@ SHAPES = [
     ((4, 100, 100, 64, 8, 64), True, True, True),
     ((4, 65, 200, 32, 8, 64), True, True, True),
     ((4, 256, 256, 32, 8, 128), True, True, True),
+    ((4, 128, 128, 16, 16, 128), True, True, False),  # D 128, one per kv head
+    ((4, 192, 192, 64, 8, 128), True, True, False),  # D 128, 8 per kv head
 ]
 
 
@@ -404,6 +406,53 @@ def test_probe_scores_kernel_matches_plain(cuda, dtype, q_n, p_n, cap, d):
     assert got.shape == (q_n, p_n, cap) and got.dtype == torch.float32
     err = (got - ref).abs().max().item()
     assert err <= IVF_RTOL_OF_MAX * ref.abs().max().item(), err
+
+
+def _skewed_probe(kind, n_clusters, q_n, p_n, g):
+    """Probe sets that stress K4's grouping: every query probing the same P
+    clusters (one group per cluster of Q pairs, more than one chunk of 8),
+    one hot cluster probed by every query beside random others, clusters
+    listed twice in a row, and ids outside [0, K)."""
+    probe = _probe(n_clusters, q_n, p_n, g).long()
+    if kind == "same":
+        probe[:] = probe[0]
+    elif kind == "hot":
+        probe[:, 0] = 3
+    elif kind == "duplicates":
+        probe[:, 1] = probe[:, 0]
+        probe[0, :] = probe[0, 0]
+    elif kind == "outside":
+        probe[::2, 1] = -1
+        probe[1::3, 0] = n_clusters
+        probe[-1, -1] = n_clusters + 100
+    return probe.int()
+
+
+@pytest.mark.parametrize("kind", ["same", "hot", "duplicates", "outside"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cap,d", [(333, 64), (336, 2048)])
+def test_probe_scores_kernel_on_skewed_probe_sets(cuda, kind, dtype, cap, d):
+    """K4 against the plain version where the (query, probe) groups are
+    large, repeated or invalid: scores within IVF_RTOL_OF_MAX of the largest,
+    NaN exactly over the blocks of ids outside [0, K); two launches
+    bit-equal."""
+    from rankpo_tpu_torch.ops import ivf_gather
+
+    g = torch.Generator().manual_seed(cap + d + len(kind))
+    n_clusters, q_n, p_n = 24, 21, 6
+    corpus = torch.nn.functional.normalize(torch.randn(n_clusters * cap, d, generator=g), dim=1)
+    queries = torch.nn.functional.normalize(torch.randn(q_n, d, generator=g), dim=1)
+    probe = _skewed_probe(kind, n_clusters, q_n, p_n, g)
+    corpus, queries, probe = corpus.to(cuda, dtype), queries.to(cuda), probe.to(cuda)
+    got = ivf_gather.probe_scores(corpus, probe, queries, cap=cap)
+    again = ivf_gather.probe_scores(corpus, probe, queries, cap=cap)
+    valid = (probe >= 0) & (probe < n_clusters)
+    ref = ivf_gather.probe_scores_plain(corpus, torch.where(valid, probe, 0), queries, cap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), ~valid[:, :, None].expand(-1, -1, cap))
+    assert torch.equal(got[valid], again[valid]) and again[~valid].isnan().all()
+    err = (got[valid] - ref[valid]).abs().max().item()
+    assert err <= IVF_RTOL_OF_MAX * ref[valid].abs().max().item(), err
 
 
 def test_probe_scores_kernel_rounds_query_for_bf16_rows(cuda):

@@ -8,6 +8,9 @@ CPU), on numpy inputs from a seed.
   queries. Rows and queries are unit-norm, as the index stores them, so
   scores lie in [-1, 1]; tolerance 1e-5 absolute covers two fp32 summation
   orders over D <= 256 products.
+- ``group_probes``, the index bookkeeping in front of the K4 kernel (pairs
+  ordered by cluster, group starts, each group's cluster), against a numpy
+  construction: exact integers.
 - K5 / K6 ``pq_probe_scores`` / ``pq_probe_scores_t``: sums of m fp32 table
   entries of order 1, tolerance 1e-5 absolute (fp32 summation order). K6
   runs only at cap 128: its JAX tiling needs a multiple of 128.
@@ -125,3 +128,60 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError, match="uint8"):
         pq_adc.pq_probe_scores(codes.float(), torch.zeros(3, 4, dtype=torch.int32),
                                torch.zeros(3, 8, 256), cap=16)
+
+
+# (Q, P, K, ids): Q * P above and below K, duplicate ids in one row, ids
+# outside [0, K) (negative and >= K), Q 1 and P 1
+GROUP_CASES = [(6, 5, 4, "valid"), (2, 3, 50, "valid"), (4, 6, 10, "duplicates"),
+               (5, 4, 8, "outside"), (1, 7, 5, "outside"), (9, 1, 3, "valid"),
+               (1, 1, 2, "outside"), (3, 4, 2, "duplicates")]
+
+
+def _group_probe(q_n, p_n, k, ids, seed):
+    rng = np.random.default_rng(seed)
+    probe = rng.integers(0, k, (q_n, p_n))
+    if ids == "duplicates":
+        probe[0, :] = probe[0, 0]  # one query lists one cluster P times
+    if ids == "outside":
+        probe.flat[:: 2] = rng.choice([-7, -1, k, k + 5], size=probe.flat[:: 2].shape)
+    return probe.astype(np.int32)
+
+
+@pytest.mark.parametrize("q_n,p_n,k,ids", GROUP_CASES)
+def test_group_probes_matches_numpy(q_n, p_n, k, ids):
+    probe = _group_probe(q_n, p_n, k, ids, seed=q_n * 100 + p_n * 10 + k)
+    pairs, start, cluster = ivf_gather.group_probes(torch.from_numpy(probe), k)
+    n = probe.size
+    key = np.where((probe >= 0) & (probe < k), probe, k).ravel()
+    order = np.argsort(key, kind="stable")
+    ids_sorted, first = np.unique(key[order], return_index=True)
+    g_max = min(n, k + 1)
+    want_start = np.full(g_max + 1, n)
+    want_start[: len(first)] = first
+    assert pairs.dtype == start.dtype == cluster.dtype == torch.int32
+    assert cluster.shape == (g_max,)
+    np.testing.assert_array_equal(pairs.numpy(), order)
+    np.testing.assert_array_equal(start.numpy(), want_start)
+    np.testing.assert_array_equal(cluster.numpy()[: len(first)], ids_sorted)
+
+
+@pytest.mark.parametrize("q_n,p_n,k,ids", GROUP_CASES)
+def test_group_probes_scattered_back_rebuild_probe(q_n, p_n, k, ids):
+    """Every pair appears once; each pair's group cluster, written back at
+    its (query, probe) place, rebuilds ``probe`` exactly, with every id
+    outside [0, K) read as K."""
+    probe = _group_probe(q_n, p_n, k, ids, seed=q_n + p_n + k)
+    pairs, start, cluster = (x.numpy() for x in ivf_gather.group_probes(
+        torch.from_numpy(probe), k))
+    n = probe.size
+    assert np.array_equal(np.sort(pairs), np.arange(n))
+    assert start[0] == 0 and np.all(np.diff(start) >= 0) and start[-1] == n
+    rebuilt = np.full(n, -100, dtype=np.int64)
+    for g in range(len(cluster)):
+        rebuilt[pairs[start[g] : start[g + 1]]] = cluster[g]
+    want = np.where((probe >= 0) & (probe < k), probe, k).ravel()
+    np.testing.assert_array_equal(rebuilt, want)
+    # one group per distinct id, in ascending id order
+    sizes = np.diff(start)
+    assert np.all(np.diff(cluster[sizes > 0]) > 0)
+    assert (sizes > 0).sum() == len(np.unique(want))
