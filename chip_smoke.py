@@ -129,7 +129,7 @@ KERNELS = {  # name -> (TPU kernel it replaces, source, profiler name test)
     "flash_bwd_fused": ("rankpo_tpu/ops/flash_attention.py:341", "flash_bwd.cu",
                         lambda n: "flash_bwd_kv" in n and "true" in n),
     "flash_dq": ("rankpo_tpu/ops/flash_attention.py:161", "flash_bwd.cu",
-                 lambda n: "flash_bwd_dq_wgmma" in n),
+                 lambda n: "flash_bwd_dq" in n),
     "flash_dkv": ("rankpo_tpu/ops/flash_attention.py:240", "flash_bwd.cu",
                   lambda n: "flash_bwd_kv" in n and "false" in n),
 }
@@ -249,7 +249,6 @@ def _fwd_design_bytes(lens, sq, sk, hq, hkv, d) -> int:
     query tile) that runs key tiles, its Q tiles once and each K/V tile
     once for all its heads, its mask row scan and the key bits of each
     tile; out and lse written in full."""
-    heads = 2 if (hq // hkv) % 2 == 0 else 1
     total = 0
     for n in lens:
         for q0 in range(0, sq, 64):
@@ -272,15 +271,12 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
       tile) it runs, the Q and dO tiles and their lse/delta rows, plus (K2)
       the fp32 dQ tile read and written once; dK/dV written once as bf16
       per kv head;
-    - K3a: per block of (batch, kv head, 2 query heads, or 1 when the
-      group size is odd, 64-row query tile), its mask row scan and its
-      heads' lse/delta rows; if it runs key tiles, its heads' Q and dO tiles
-      once and each K/V tile once for all its heads, with the tile's mask
-      entries; dQ written as bf16."""
+    - K3a: per block of (batch, query head, 64-row query tile), its mask
+      row scan and lse/delta rows; if it runs key tiles, its Q and dO tiles
+      once and each key tile's K, V and mask entries; dQ written as bf16."""
     shift = sk - sq
     nq, nk = -(-sq // 64), -(-sk // 64)
     fused = kind == "flash_bwd_fused"
-    heads = 2 if (hq // hkv) % 2 == 0 else 1
     total = 0
     for n in lens:
         n = int(n)
@@ -288,12 +284,11 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
             for q0 in range(0, sq, 64):
                 rows = min(64, sq - q0)
                 n_tiles = min(-(-n // 64), (q0 + 63 + shift) // 64 + 1)
-                total += hq // heads * sk * 4 + hq * rows * (d * 2 + 2 * 4)
+                total += hq * (sk * 4 + rows * (d * 2 + 2 * 4))
                 if q0 + shift >= n or n_tiles <= 0:
                     continue
                 kv_rows = min(n_tiles * 64, sk)
-                total += hq // heads * (2 * heads * rows * d * 2 + 2 * kv_rows * d * 2
-                                        + n_tiles * 64 * 4)
+                total += hq * (2 * rows * d * 2 + 2 * kv_rows * d * 2 + n_tiles * 64 * 4)
             continue
         lim = n - shift
         q_end = min(nq, 0 if lim <= 0 else -(-lim // 64))
@@ -1445,6 +1440,16 @@ def phase_index_scale(seed: int) -> dict:
                 f"cluster; nearest-cluster fill max {int(fills.max())}, mean "
                 f"{SCALE_N / index.n_clusters:.1f}, capacity {index.capacity}, "
                 f"{int((fills > index.capacity).sum())} clusters over capacity")
+            # where one batch's device time goes (K4, the probe product, the
+            # sort of the scores, the rest)
+            times = profile_device_ms(lambda: index.search_tensor(queries[:64], 100), n=5)
+            busy = sum(times.values())
+            k4 = sum(t for name, t in times.items() if "ivf_probe_scores" in name)
+            results[kind]["batch_busy_ms"], results[kind]["batch_k4_ms"] = busy, k4
+            top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+            log(f"IVF {kind} one batch of 64 at k 100 (device time, profiler, mean of 5): busy "
+                f"{busy:.4f} ms, K4 {k4:.4f} ms ({k4 / busy:.1%}); largest: "
+                + "; ".join(f"{t:.4f} ms {name[:70]}" for name, t in top))
         kernels.update(_probe_kernels(index, queries, kind))
         if kind == "bf16":  # the bf16 index's (wider) probe set, for the PQ kernels too
             p, _ = index._effective_probe(100, None)

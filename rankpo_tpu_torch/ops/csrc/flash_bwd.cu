@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernels of rankpo_tpu/ops/flash_attention.py:
 //   _bwd_fused_kernel (flash_bwd_fused)  -> flash_bwd_kv_wgmma<D, true>
 //   _dkv_kernel       (flash_dkv)        -> flash_bwd_kv_wgmma<D, false>
-//   _dq_kernel        (flash_dq)         -> flash_bwd_dq_wgmma<D, NC>
+//   _dq_kernel        (flash_dq)         -> flash_bwd_dq_wgmma<D>
 //
 // Contract (what the Pallas kernels compute), with the forward's contract
 // from flash_fwd.cu (layouts, strides, mask, bottom-right causal, GQA):
@@ -55,18 +55,20 @@
 // ptxas spills K2 (PERF.md has the times).
 //
 // Design of the dq kernel: K1's (flash_fwd.cu) with a third product. One
-// block per (batch, kv head, NC query heads of that GQA group, 64-row query
-// tile); NC is 2 when the group size is even, else 1. Warp 4 NC, the
-// producer, loads the NC Q and dO tiles once, then streams the K/V tiles
-// inside the forward's bounds through a TMA mbarrier ring shared by the NC
-// heads, posting each tile's 64 key-validity bits in its stage. Consumer
-// warpgroup c (warps 4c .. 4c + 3) computes query head c of the block: per
-// key tile S = Q K^T and dP = dO V^T by wgmma SS (K-major), P and dS in
+// block per (batch, query head, 64-row query tile), 160 threads. Warp 4, the
+// producer, loads the Q and dO tiles once, then streams the K/V tiles inside
+// the forward's bounds through a TMA mbarrier ring, posting each tile's 64
+// key-validity bits in its stage. Warps 0-3, one consumer warpgroup, compute
+// per key tile S = Q K^T and dP = dO V^T by wgmma SS (K-major), P and dS in
 // registers (mask and causal tests only on tiles that need them), and
 // dQ += dS K by wgmma RS, with dS (the S accumulator layout packed to bf16)
 // as the A registers and K, read from the same swizzled stage, as the
 // MN-major transposed-B operand (K1's P V form). dQ stays in fp32 registers
-// across the key tiles and is written once as bf16: no atomics.
+// across the key tiles and is written once as bf16: no atomics. Unlike K1,
+// a block serves one query head: with two (K/V loaded once for both, as
+// K1), dQ, S and dP (96 fp32 registers at D 64) spilled under the
+// two-blocks-per-SM bound of 288-thread blocks and the kernel ran 1.2-1.4x
+// slower (PERF.md, PR 7).
 //
 // What bounds them on this card. At the training shapes (S <= 512, D = 64)
 // a tile pair costs 5 (fused), 4 (dkv) or 3 (dq) 64 x 64 x 64 products; the
@@ -527,10 +529,13 @@ __device__ __forceinline__ void dscores(uint32_t (&ds)[16], float (&s)[32], cons
   }
 }
 
-// One block per (batch, kv head, NC query heads, 64-row query tile); see the
-// header for the roles of its warps.
-template <int D, int NC>
-__global__ void __launch_bounds__(NC * 128 + 32, D == 64 ? 2 : 1)
+// warps 0-3: the consumer warpgroup; warp 4: the producer
+constexpr int kDqThreads = 160;
+
+// One block per (batch, query head, 64-row query tile); see the header for
+// the roles of its warps.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, D == 64 ? 2 : 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
@@ -538,25 +543,22 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   using T = DqTiles<D>;
   constexpr int kStages = T::kStages;
   constexpr int kTileBytes = T::kTileBytes;
-  constexpr int kWarpsAll = 4 * NC + 1;
+  constexpr int kWarpsAll = kDqThreads / 32;
 
   extern __shared__ unsigned char smem_raw[];
   // swizzled tiles start on 1024-byte boundaries (the swizzle period)
   unsigned char* Qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* dOs = Qs + NC * kTileBytes;
-  unsigned char* Ks = dOs + NC * kTileBytes;     // [kStages] tiles
+  unsigned char* dOs = Qs + kTileBytes;
+  unsigned char* Ks = dOs + kTileBytes;           // [kStages] tiles
   unsigned char* Vs = Ks + kStages * kTileBytes;  // [kStages] tiles
   __shared__ uint64_t full_bar[kStages], empty_bar[kStages], q_bar;
   __shared__ uint64_t key_bits[kStages];  // valid keys of the tile in a stage
   __shared__ int warp_end[kWarpsAll];
 
-  const int groups = a.Hq / a.Hkv;
-  const int sets = groups / NC;
-  const int set = blockIdx.x % sets;
-  const int hk = (blockIdx.x / sets) % a.Hkv;
-  const int b = blockIdx.x / (sets * a.Hkv);
-  const int h0 = hk * groups + set * NC;                     // first query head
+  const int b = blockIdx.x / a.Hq;
+  const int h = blockIdx.x % a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
   const int q_start = (gridDim.y - 1 - blockIdx.y) * kTile;  // long tiles first
   const int q_shift = a.Sk - a.Sq;
   const int tid = threadIdx.x;
@@ -565,12 +567,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int* mrow = a.mask + (long long)b * a.mask_sb;
 
   // one past the last valid key, reduced over the block with one barrier
-  const int local_end = warp_key_end(mrow, a.Sk, tid, kWarpsAll * 32);
+  const int local_end = warp_key_end(mrow, a.Sk, tid, kDqThreads);
   if (lane == 0) warp_end[warp] = local_end;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full_bar[s], 1);
-      mbar_init(&empty_bar[s], 4 * NC);  // lane 0 of every consumer warp
+      mbar_init(&empty_bar[s], 4);  // lane 0 of every consumer warp
     }
     mbar_init(&q_bar, 1);
     fence_barrier_init();
@@ -589,17 +591,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
   if (a.skip_pad_q && q_start + q_shift >= key_end) n_tiles = 0;
 
-  if (warp == 4 * NC) {
+  if (warp == 4) {
     // ---- producer: Q and dO once, then K/V tiles through the ring ----
     if (n_tiles == 0) return;
     if (lane == 0) {
-      mbar_arrive_expect_tx(&q_bar, 2 * NC * kTileBytes);
-      for (int c = 0; c < NC; ++c) {
-        for (int at = 0; at < T::kAtoms; ++at) {
-          const int off = c * kTileBytes + at * kSwizzleTileBytes;
-          tma_load_4d(Qs + off, &q_map, &q_bar, 64 * at, q_start, h0 + c, b);
-          tma_load_4d(dOs + off, &do_map, &q_bar, 64 * at, q_start, h0 + c, b);
-        }
+      mbar_arrive_expect_tx(&q_bar, 2 * kTileBytes);
+      for (int at = 0; at < T::kAtoms; ++at) {
+        const int off = at * kSwizzleTileBytes;
+        tma_load_4d(Qs + off, &q_map, &q_bar, 64 * at, q_start, h, b);
+        tma_load_4d(dOs + off, &do_map, &q_bar, 64 * at, q_start, h, b);
       }
     }
     for (int kt = 0; kt < n_tiles; ++kt) {
@@ -623,14 +623,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     return;
   }
 
-  // ---- consumers: warpgroup c computes query head h0 + c ----
-  const int c = warp / 4;
-  const int w = warp % 4;
-  const int h = h0 + c;
+  // ---- consumer warpgroup ----
+  const int w = warp;
   const int g = lane / 4;  // rows g and g + 8 of the warp's 16
   const int t = lane % 4;  // columns 2t, 2t + 1 of every 8
-  const unsigned char* Qt = Qs + c * kTileBytes;
-  const unsigned char* dOt = dOs + c * kTileBytes;
 
   const int row_a = q_start + w * 16 + g;  // this thread's two rows
   const int row_b = row_a + 8;
@@ -656,8 +652,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     // S = Q K^T and dP = dO V^T, one commit group
     float s[32], dp[32];
     wgmma_fence();
-    issue_ss<D>(s, Qt, Kt);
-    issue_ss<D>(dp, dOt, Vt);
+    issue_ss<D>(s, Qs, Kt);
+    issue_ss<D>(dp, dOs, Vt);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -717,27 +713,21 @@ int encode_maps(CUtensorMap (&m)[4], const BwdArgs& a, int B, int D) {
   return rc;
 }
 
-template <int D, int NC>
+template <int D>
 int launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
   using T = DqTiles<D>;
   CUtensorMap m[4];
   const int rc = encode_maps(m, a, B, D);
   if (rc != 0) return rc;
-  constexpr int smem = 1024 + (2 * NC + 2 * T::kStages) * T::kTileBytes;
-  auto kernel = flash_bwd_dq_wgmma<D, NC>;
+  constexpr int smem = 1024 + (2 + 2 * T::kStages) * T::kTileBytes;
+  auto kernel = flash_bwd_dq_wgmma<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * a.Hq / NC, (a.Sq + kTile - 1) / kTile);
-  kernel<<<grid, NC * 128 + 32, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  dim3 grid(B * a.Hq, (a.Sq + kTile - 1) / kTile);
+  kernel<<<grid, kDqThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
   return (int)cudaGetLastError();
 }
-
-// Query heads per dq block where the group size is even: 2, or 1 when built
-// with -DRANKPO_DQ_HEADS=1 (scripts/flash_bwd_compare.py times both).
-#ifndef RANKPO_DQ_HEADS
-#define RANKPO_DQ_HEADS 2
-#endif
 
 enum Which { kFused, kDkv, kDq };
 
@@ -766,8 +756,7 @@ int dispatch(Which which, const BwdArgs& a, int B, cudaStream_t st) {
     case kDkv:
       return launch_kv<D, false>(a, B, st);
     default:
-      if (RANKPO_DQ_HEADS == 2 && (a.Hq / a.Hkv) % 2 == 0) return launch_dq<D, 2>(a, B, st);
-      return launch_dq<D, 1>(a, B, st);
+      return launch_dq<D>(a, B, st);
   }
 }
 

@@ -78,17 +78,17 @@ def group_probes(probe: torch.Tensor, n_clusters: int):
     group (whose scores the kernel sets to NaN). Groups past the last one
     are empty (``start[g] == start[g + 1] == Q * P``). A cluster listed twice
     by one query gives two pairs."""
-    n = probe.numel()
+    n, dev = probe.numel(), probe.device
     g_max = min(n, n_clusters + 1)
-    flat = probe.reshape(-1).long()
-    key = torch.where((flat >= 0) & (flat < n_clusters), flat, n_clusters)
+    flat = probe.reshape(-1)
+    key = torch.where(flat < 0, n_clusters, flat.clamp(max=n_clusters)).int()
     key_sorted, order = torch.sort(key, stable=True)
-    first = torch.ones(n, dtype=torch.bool, device=probe.device)
+    first = torch.ones(n, dtype=torch.int32, device=dev)
     first[1:] = key_sorted[1:] != key_sorted[:-1]
-    group_of = torch.cumsum(first, 0) - 1  # group of each sorted pair
-    start = torch.searchsorted(group_of, torch.arange(g_max + 1, device=probe.device))
-    cluster = key_sorted[start[:-1].clamp(max=n - 1)]
-    return order.int(), start.int(), cluster.int()
+    group_no = torch.cumsum(first, 0, dtype=torch.int32)  # 1 + group of each sorted pair
+    start = torch.searchsorted(group_no, torch.arange(1, g_max + 2, dtype=torch.int32, device=dev),
+                               out_int32=True)
+    return order.int(), start, key_sorted[start[:-1].clamp(max=n - 1)]
 
 
 def _check(corpus, probe, queries, cap):

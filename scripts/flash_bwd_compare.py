@@ -5,11 +5,9 @@ of another, timed in turns on one card.
 
 Versions, each from its own build and in a child process of its own:
 ``parent``, the kernels of the checkout at ``--parent`` (e.g. the parent
-commit unpacked with ``git archive``), ``change``, this checkout's, and
-``1head``, this checkout's built with ``-DRANKPO_DQ_HEADS=1`` (K3a with one
-query head per block instead of two). They run in the order parent, change,
-1head, 1head, change, parent (without ``--parent``, the middle four), on
-the same inputs:
+commit unpacked with ``git archive``), and ``change``, this checkout's.
+They run in the order parent, change, change, parent (change twice alone
+without ``--parent``), on the same inputs:
 
 - B 8, S 512, 32 q / 8 kv heads, D 64, causal, skip_pad_q, with the random
   and then the full lengths that ``chip_smoke.py`` times (drawn, as there,
@@ -34,7 +32,6 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D128_SHAPE = (8, 256, 256, 16, 8, 128)
-ONE_HEAD_FLAG = "-DRANKPO_DQ_HEADS=1"
 
 
 def _smoke():
@@ -46,11 +43,9 @@ def _smoke():
     return mod
 
 
-def _load(one_head: bool = False):
+def _load():
     from rankpo_tpu_torch.ops import _build
 
-    if one_head:
-        _build.NVCC_FLAGS.append(ONE_HEAD_FLAG)
     t0 = time.perf_counter()
     _build.load_library()
     return time.perf_counter() - t0
@@ -124,7 +119,7 @@ def child(version: str, seed: int) -> None:
     import torch
 
     smoke = _smoke()
-    _load(version == "1head")
+    _load()
     _ptxas(version)
 
     def bound_of_sets(sets):
@@ -170,7 +165,7 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    runs = [("change", HERE), ("1head", HERE), ("1head", HERE), ("change", HERE)]
+    runs = [("change", HERE), ("change", HERE)]
     if args.parent:
         parent = os.path.abspath(args.parent)
         runs = [("parent", parent)] + runs + [("parent", parent)]
@@ -178,7 +173,7 @@ def main() -> None:
     builds = {(v, cwd): subprocess.Popen(
         [sys.executable, "-c", f"import sys; sys.path.insert(0, {cwd!r}); "
          f"sys.path.insert(0, {os.path.join(HERE, 'scripts')!r}); import flash_bwd_compare "
-         f"as m; print('build {v}: %.1f s' % m._load({v == '1head'}))"], cwd=cwd)
+         f"as m; print('build {v}: %.1f s' % m._load())"], cwd=cwd)
         for v, cwd in dict.fromkeys(runs)}
     if any(p.wait() != 0 for p in builds.values()):
         raise SystemExit("a build failed")
