@@ -40,9 +40,10 @@ PyTorch version. Phases:
    centres) and 1024 held-out queries, made on the card; three indexes
    built by the IVFIPIndex constructor (bf16 rows, PQ64 rows, PQ64
    columns), each searched at k 100 and held to recall@100 >= 0.90
-   against its exact search; K4, K5 and K6 against their plain versions at
-   the indexes' own probe sets and storage (and at m 256 and a capacity off
-   the kernels' tiles), timed on cold data;
+   against its exact search; one bf16 search batch traced by kernel; K4, K5
+   and K6 against their plain versions at the indexes' own probe sets and
+   storage (and at m 256 and a capacity off the kernels' tiles), timed on
+   cold data, K4 beside the corpus bytes its design reads;
 7. numbers.
 
 Each path's launch counters are set to 0 just before it runs and read just
@@ -249,6 +250,7 @@ def _fwd_design_bytes(lens, sq, sk, hq, hkv, d) -> int:
     query tile) that runs key tiles, its Q tiles once and each K/V tile
     once for all its heads, its mask row scan and the key bits of each
     tile; out and lse written in full."""
+    heads = 2 if (hq // hkv) % 2 == 0 else 1
     total = 0
     for n in lens:
         for q0 in range(0, sq, 64):

@@ -86,8 +86,11 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build change: {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in _build.build_log().splitlines():
-        if "ivf_probe" in line or ("registers" in line and "ivf" in line):
+    ours = False
+    for line in _build.build_log().splitlines():  # nvcc's register and spill report
+        if "Compiling entry" in line:
+            ours = "ivf_probe" in line
+        if ours and any(key in line for key in ("Compiling entry", "registers", "spill")):
             print(f"ptxas: {line.strip()}", flush=True)
     versions = {"change": lambda c, p, q, cap: ivf_gather.probe_scores(c, p, q, cap=cap)}
     order = ["change", "change"]
