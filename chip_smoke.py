@@ -40,10 +40,11 @@ PyTorch version. Phases:
    centres) and 1024 held-out queries, made on the card; three indexes
    built by the IVFIPIndex constructor (bf16 rows, PQ64 rows, PQ64
    columns), each searched at k 100 and held to recall@100 >= 0.90
-   against its exact search; one bf16 search batch traced by kernel; K4, K5
-   and K6 against their plain versions at the indexes' own probe sets and
-   storage (and at m 256 and a capacity off the kernels' tiles), timed on
-   cold data, K4 beside the corpus bytes its design reads;
+   against its exact search; one search batch of each index traced by
+   kernel; K4, K5 and K6 against their plain versions at the indexes' own
+   probe sets and storage (and at m 256 and a capacity off the kernels'
+   tiles), timed on cold data, K4 beside the corpus bytes its design reads,
+   K5/K6 beside their lookup floor with the load route that ran;
 7. numbers.
 
 Each path's launch counters are set to 0 just before it runs and read just
@@ -110,6 +111,7 @@ K1_SHAPES = [  # K1 alone: (shape, every key length or None for random)
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores (K4's FMAs, K5/K6's adds)
+PQ_LOOKUPS_PER_CLOCK = 132 * 32  # K5/K6: shared-memory reads, 32 banks on each of 132 SMs
 # IVF kernels against their plain versions: fp32 sums of the same exact
 # products (K4) or table entries (K5/K6) in another order differ by a few
 # fp32 ulps of the largest partial sum, about 1e-6 of the largest score; the
@@ -153,6 +155,15 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock as nvidia-smi reads it (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return float(out[0])
 
 
 def cuda_ms(fn, n: int = 20, warmup: int = 3, before=None) -> float:
@@ -1314,9 +1325,21 @@ def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
         return torch.gather(lut.view(q_n, -1), 1, idx).view(q_n, p * cap, m).sum(-1)
 
     nbytes = blocks * cap * m + lut.numel() * 4 + probe_bytes + out_bytes
-    res[kind] = _kernel_check(
+    routes = dict(pq_adc.route_launches)
+    res[kind] = out = _kernel_check(
         name, lambda: fn(codes, probe32, lut, cap=cap), lambda: plain(codes, probe32, lut, cap=cap),
         compose, nbytes, q_n * p * cap * m, f"{label}, m {m}")
+    out["route"] = [r for r, n in pq_adc.route_launches.items() if n > routes[r]]
+    out["plan"] = pq_adc.adc_plan(q_n, p, cap, m, cols=kind == "pq_cols",
+                                  aligned=codes.data_ptr() % 16 == 0)
+    # the other floor: every lookup is a shared-memory read, 32 a clock on
+    # each SM at best (random codes put 3-4 words on a warp's busiest bank)
+    mhz = sm_clock_mhz()
+    out["lookup_floor_ms"] = q_n * p * cap * m / (PQ_LOOKUPS_PER_CLOCK * mhz * 1e6) * 1e3
+    log(f"  {name} route {', '.join(out['route'])}, {out['plan']}; lookup floor "
+        f"{out['lookup_floor_ms']:.4f} ms ({q_n * p * cap * m / 1e6:.1f} M lookups at "
+        f"{PQ_LOOKUPS_PER_CLOCK} a clock, {mhz:.0f} MHz) beside the byte bound "
+        f"{out['bound_ms']:.4f} ms")
     return res
 
 
@@ -1331,7 +1354,8 @@ def probe_block_reads(probe, n_clusters: int, chunk: int = 8):
 
 def _odd_shape_checks(seed: int) -> dict:
     """K4, K5 and K6 at a capacity off every tile of the kernels (333 rows),
-    and K5/K6 at m 256 (the table staged in four chunks of 64 subspaces)."""
+    and K5/K6 at m 256 (the table streamed through the kernel's ring; cap 333
+    takes the load route "ldg")."""
     from rankpo_tpu_torch.ops import ivf_gather, pq_adc
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
@@ -1425,6 +1449,18 @@ def phase_index_scale(seed: int) -> dict:
             f"exact search {exact_s:.2f} s")
         if not recall >= IVF_RECALL_MIN:
             raise AssertionError(f"IVF {kind}: recall@100 {recall:.4f} < {IVF_RECALL_MIN}")
+        if kind != "bf16":
+            # where one PQ batch's device time goes (K5 or K6, the probe and
+            # table products, the sorts, the rest)
+            times = profile_device_ms(lambda: index.search_tensor(queries[:64], 100), n=5)
+            busy = sum(times.values())
+            k56 = sum(t for name, t in times.items() if "pq_adc_kernel" in name)
+            results[kind]["batch_busy_ms"], results[kind]["batch_k56_ms"] = busy, k56
+            top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+            log(f"IVF {kind} one batch of 64 at k 100 (device time, profiler, mean of 5): busy "
+                f"{busy:.4f} ms, {'K5' if kind == 'pq_rows' else 'K6'} {k56:.4f} ms "
+                f"({k56 / busy:.1%}); largest: "
+                + "; ".join(f"{t:.4f} ms {name[:70]}" for name, t in top))
         if kind == "bf16":
             # why nprobe is what it is: rows stored outside their nearest
             # cluster (capacity overflow spills them to the 2nd..8th) and

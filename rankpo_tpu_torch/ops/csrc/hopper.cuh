@@ -1,4 +1,5 @@
-// Hopper (sm_90a) building blocks in PTX: mbarriers, TMA tile loads, the
+// Hopper (sm_90a) building blocks in PTX: mbarriers, TMA tile loads, 1-D
+// bulk copies (also multicast to a cluster), cluster rank and barrier, the
 // wgmma shared-memory descriptor for 128-byte swizzled tiles, the m64n64k16
 // bf16 -> fp32 warpgroup products with A from shared memory (SS, K-major or
 // both operands transposed) or from registers (RS), the proxy fence and
@@ -97,6 +98,52 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// `bytes` contiguous bytes from global into shared memory (1-D bulk copy);
+// completion is counted in bytes on `bar`. Both addresses and `bytes` must
+// be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// bulk_load into the same shared-memory offset of every block of the
+// cluster named in `mask` (bit i = cluster rank i); each of those blocks
+// counts the bytes on its own barrier at `bar`'s offset
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
+                                                    uint32_t bytes, uint64_t* bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+// ---- thread-block clusters ----
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; orders shared-memory writes
+// (and barrier inits) before it with the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ---- wgmma ----

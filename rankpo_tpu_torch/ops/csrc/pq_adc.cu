@@ -17,133 +17,417 @@
 //   probe id outside [0, K) writes NaN over its [cap] scores instead of
 //   reading out of bounds.
 //
-// What bounds it on this card: each probed code byte is read once and costs
-// one shared-memory lookup and one add. At the search shapes (Q 64, P ~32,
-// cap 384, m 64) the codes are ~50 MB and the tables ~4 MB, so HBM bytes bound
-// it at ~0.02 ms; the table loads and the launch are the visible costs. The
-// TPU kernel built a [cblk, 8, 256] one-hot mask per m-chunk because Mosaic
-// has no gather from VMEM; here the query's table sits in shared memory and
-// each code byte indexes it directly, which is the whole design:
-//   - one block per (query, tile of 2048 consecutive probed slots), so a
-//     block's table is loaded once for several probes of its query (cap 384:
-//     ~5 probes) while Q * ceil(P * cap / 2048) blocks still fill 132 SMs;
-//   - the table is staged 32 subspaces (32 KB) at a time, so every m fits
-//     (m 256 would need 256 KB, more than a block's 227 KB), each thread
-//     keeping the running sums of its 8 slots in registers across stages;
-//   - rows layout: each thread reads its slot's code bytes 8 at a time with
-//     one 8-byte load; cols layout: consecutive threads take consecutive
-//     slots, so each subspace's bytes are read coalesced across the warp.
+// What bounds it on this card. Each probed slot costs m table lookups in
+// shared memory and m adds. A warp's 32 lookups of one subspace hit random
+// banks (random 8-bit codes put 3-4 distinct words on the busiest bank), so
+// at large P (Q 64, P 179, cap 384, m 64: 282 M lookups) shared-memory
+// wavefronts bound it near 0.1 ms, above the ~0.035 ms byte bound. At small
+// P (P 1: 1.6 M lookups) the query tables (64 KB each) and the launch are
+// the cost. The design:
+//   - the query's table arrives by TMA (1-D bulk copies of 16 subspaces,
+//     16 KB, each on its own mbarrier, so lookups on a chunk overlap the
+//     arrival of the next). For m <= 128 the whole table stays resident and
+//     is loaded once per block however many tiles the block walks; the
+//     blocks of one query may form a cluster that receives the table by
+//     TMA multicast, each block issuing a share of the chunks. For m > 128
+//     the chunks stream through a ring of 4 stages, once per tile;
+//   - a query's P * cap probed slots are cut into tiles of `tile` slots
+//     (a multiple of 16, at most 1024: up to 4 slots per thread), and a
+//     query's tiles are split among `blocks` blocks. The wrapper sizes both
+//     from Q, P, cap and m (ops/pq_adc.py adc_plan), so that P 1 and a
+//     single served query still cover the 132 SMs and a large P walks many
+//     tiles per block with the table loaded once;
+//   - route "tma" (codes 16-byte aligned as the index lays them out, m <=
+//     128): each tile's codes arrive by bulk copies into a double buffer,
+//     one copy per probed segment (rows) or per subspace row of a segment
+//     (cols), while the previous tile is scored; threads read them from
+//     shared memory, 16 (or 8) subspaces per load in rows and one byte per
+//     lookup in cols (a warp's 32 consecutive bytes: no bank conflict).
+//     Route "ldg" (any other shape the contract admits: odd capacities, m
+//     not a multiple of 16 with an odd cap, m > 128, unaligned codes) reads
+//     the codes from global memory as the first design did: 8 bytes per load
+//     in rows, one byte per lookup in cols. Both routes use the same table
+//     staging, tiles and sum order;
+//   - every slot's sum starts at 0 and adds its m entries in order
+//     j = 0 .. m - 1, so scores are bit-equal to the first design's.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kAdcThreads = 256;
-constexpr int kSlotsPerThread = 8;
-constexpr int kSlotsPerBlock = kAdcThreads * kSlotsPerThread;  // 2048
-constexpr int kPqK = 256;    // entries per subspace table (8-bit codes)
-constexpr int kMChunk = 32;  // subspaces staged per pass: 32 KB of table
+constexpr int kMaxSlots = 4;                       // slots per thread per tile
+constexpr int kMaxTile = kAdcThreads * kMaxSlots;  // 1024
+constexpr int kPqK = 256;                          // entries per subspace table (8-bit codes)
+constexpr int kMChunk = 16;                        // subspaces per table chunk
+constexpr int kChunkFloats = kMChunk * kPqK;       // 16 KB
+constexpr int kResidentM = 128;                    // m <= 128: the table stays resident
+constexpr int kResidentChunks = kResidentM / kMChunk;
+constexpr int kRing = 4;                           // m > 128: table chunks in flight
+constexpr int kStageBytesMax = 32768;              // codes of one tile (route "tma")
+constexpr int kBarBytes = 128;                     // barriers at the front of shared memory
+constexpr int kMaxCluster = 8;
+constexpr int kSmemMax = 232448;
 
+struct AdcArgs {
+  const uint8_t* codes;
+  const int* probe;
+  const float* lut;
+  float* out;
+  long long n_slots;  // K * cap
+  int n_clusters, P, cap, m;
+  int tile;     // slots per tile, a multiple of 16
+  int n_tiles;  // tiles of one query's P * cap probed slots
+};
+
+__host__ __device__ __forceinline__ int stage_bytes(int tile, int m) {
+  return (tile * m + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ uint32_t chunk_bytes(int c, int m) {
+  return (uint32_t)min(kMChunk, m - c * kMChunk) * kPqK * 4;
+}
+
+// a code load: shared memory (route "tma") or global (route "ldg")
+template <bool kStaged, typename T>
+__device__ __forceinline__ T load_codes(const T* p) {
+  if constexpr (kStaged) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+// a + the table entries of four consecutive subspaces (t: the first one's
+// table) at the four code bytes of w, in subspace order
+__device__ __forceinline__ float add4(float a, const float* t, uint32_t w) {
+  a += t[w & 255u];
+  a += t[kPqK + ((w >> 8) & 255u)];
+  a += t[2 * kPqK + ((w >> 16) & 255u)];
+  a += t[3 * kPqK + (w >> 24)];
+  return a;
+}
+
+// Warp 0 of the block: bulk copies of tile [v0, v0 + w) of query q's
+// probed slots into `dst` (rows: [w, m] bytes; cols: [m][tile] bytes), one
+// per probed segment (rows) or per subspace row of a segment (cols);
+// segments under an id outside [0, K) are skipped (their scores are NaN).
 template <bool kCols>
-__global__ void __launch_bounds__(kAdcThreads)
-pq_adc_kernel(const uint8_t* __restrict__ codes, const int* __restrict__ probe,
-              const float* __restrict__ lut, float* __restrict__ out,
-              int n_clusters, int P, int cap, int m) {
-  __shared__ __align__(16) float lut_s[kMChunk * kPqK];
-  const int q = blockIdx.y;
-  const long long n_rows = (long long)P * cap;  // this query's probed slots
-  const long long n_slots = (long long)n_clusters * cap;
-  const long long v0 = (long long)blockIdx.x * kSlotsPerBlock + threadIdx.x;
+__device__ void issue_tile_codes(const AdcArgs& a, int q, long long v0, int w,
+                                 uint8_t* dst, uint64_t* bar, int lane) {
+  const int* probe_q = a.probe + (long long)q * a.P;
+  const int p0 = (int)(v0 / a.cap), p1 = (int)((v0 + w - 1) / a.cap);
+  if (lane == 0) {
+    uint32_t total = 0;
+    for (int p = p0; p <= p1; ++p) {
+      const int cl = probe_q[p];
+      if (cl < 0 || cl >= a.n_clusters) continue;
+      const long long vs = max(v0, (long long)p * a.cap);
+      const long long ve = min(v0 + w, (long long)(p + 1) * a.cap);
+      total += (uint32_t)(ve - vs) * a.m;
+    }
+    mbar_arrive_expect_tx(bar, total);
+  }
+  __syncwarp();
+  const int n_seg = p1 - p0 + 1;
+  const int n_copies = kCols ? n_seg * a.m : n_seg;
+  for (int i = lane; i < n_copies; i += 32) {
+    const int p = p0 + (kCols ? i / a.m : i);
+    const int cl = probe_q[p];
+    if (cl < 0 || cl >= a.n_clusters) continue;
+    const long long vs = max(v0, (long long)p * a.cap);
+    const long long ve = min(v0 + w, (long long)(p + 1) * a.cap);
+    const long long c0 = vs - (long long)p * a.cap;
+    const long long slot = (long long)cl * a.cap + c0;
+    if (kCols) {
+      const int j = i - (p - p0) * a.m;
+      bulk_load(dst + (long long)j * a.tile + (vs - v0), a.codes + j * a.n_slots + slot,
+                (uint32_t)(ve - vs), bar);
+    } else {
+      bulk_load(dst + (vs - v0) * a.m, a.codes + slot * a.m, (uint32_t)((ve - vs) * a.m), bar);
+    }
+  }
+}
 
-  // storage slot of each of this thread's probed rows; -1 past the end, -2
-  // under an out-of-range probe id
-  long long slot[kSlotsPerThread];
-  float acc[kSlotsPerThread];
-#pragma unroll
-  for (int i = 0; i < kSlotsPerThread; ++i) {
-    const long long v = v0 + (long long)i * kAdcThreads;
-    acc[i] = 0.f;
-    slot[i] = -1;
-    if (v < n_rows) {
-      const int p = (int)(v / cap);
-      const int c = (int)(v - (long long)p * cap);
-      const int cl = probe[(long long)q * P + p];
-      slot[i] = (cl >= 0 && cl < n_clusters) ? (long long)cl * cap + c : -2;
+// One block per (query, share of its tiles): blockIdx.y is the query,
+// blockIdx.x the share. kStaged: route "tma" (codes staged in shared memory
+// by bulk copies), else route "ldg".
+template <bool kCols, bool kStaged>
+__global__ void __launch_bounds__(kAdcThreads, 2)
+pq_adc_kernel(const AdcArgs a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* tab_bar = reinterpret_cast<uint64_t*>(smem);  // [kResidentChunks]
+  uint64_t* code_bar = tab_bar + kResidentChunks;         // [2]
+  float* tab = reinterpret_cast<float*>(smem + kBarBytes);
+  const int n_ch = (a.m + kMChunk - 1) / kMChunk;
+  const bool resident = a.m <= kResidentM;
+  const int tab_stages = resident ? n_ch : kRing;
+  uint8_t* codes_s = smem + kBarBytes + tab_stages * kChunkFloats * 4;
+  const int sbytes = stage_bytes(a.tile, a.m);
+
+  const int q = blockIdx.y;
+  const int t_begin = (int)((long long)blockIdx.x * a.n_tiles / gridDim.x);
+  const int n_my = (int)((long long)(blockIdx.x + 1) * a.n_tiles / gridDim.x) - t_begin;
+  const uint32_t n_cta = cluster_nctarank();  // 1 without a cluster
+  const uint32_t rank = cluster_ctarank();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const float* lut_q = a.lut + (long long)q * a.m * kPqK;
+  const long long n_rows = (long long)a.P * a.cap;  // this query's probed slots
+  const int steps = n_my * n_ch;                    // ring steps (m > 128)
+
+  if (tid == 0) {
+    for (int i = 0; i < kResidentChunks + 2; ++i) mbar_init(&tab_bar[i], 1);
+    fence_barrier_init();
+  }
+  if (n_cta > 1) {
+    cluster_sync();  // every block's barriers exist before a multicast lands
+  } else {
+    __syncthreads();
+  }
+  if (n_my > 0) {
+    if (tid == 0) {
+      if (resident) {
+        for (int c = 0; c < n_ch; ++c) {
+          const uint32_t bytes = chunk_bytes(c, a.m);
+          mbar_arrive_expect_tx(&tab_bar[c], bytes);
+          if (n_cta == 1) {
+            bulk_load(tab + c * kChunkFloats, lut_q + c * kChunkFloats, bytes, &tab_bar[c]);
+          } else if ((uint32_t)c % n_cta == rank) {
+            bulk_load_multicast(tab + c * kChunkFloats, lut_q + c * kChunkFloats, bytes,
+                                &tab_bar[c], (uint16_t)((1u << n_cta) - 1));
+          }
+        }
+      } else {
+        for (int k = 0; k < min(kRing, steps); ++k) {
+          const int c = k % n_ch;
+          mbar_arrive_expect_tx(&tab_bar[k], chunk_bytes(c, a.m));
+          bulk_load(tab + k * kChunkFloats, lut_q + c * kChunkFloats, chunk_bytes(c, a.m),
+                    &tab_bar[k]);
+        }
+      }
+    }
+    if (kStaged && tid < 32) {
+      for (int i = 0; i < min(2, n_my); ++i) {
+        const long long v0 = (long long)(t_begin + i) * a.tile;
+        issue_tile_codes<kCols>(a, q, v0, (int)min((long long)a.tile, n_rows - v0),
+                                codes_s + i * sbytes, &code_bar[i], lane);
+      }
     }
   }
 
-  const float* lut_q = lut + (long long)q * m * kPqK;
-  for (int m0 = 0; m0 < m; m0 += kMChunk) {
-    const int mc = min(kMChunk, m - m0);
-    __syncthreads();  // every thread is done with the previous stage
-    const float4* src = reinterpret_cast<const float4*>(lut_q + (long long)m0 * kPqK);
-    float4* dst = reinterpret_cast<float4*>(lut_s);
-    for (int i = threadIdx.x; i < mc * (kPqK / 4); i += kAdcThreads) {
-      dst[i] = __ldg(src + i);
-    }
-    __syncthreads();
+  for (int i = 0; i < n_my; ++i) {
+    const long long v0 = (long long)(t_begin + i) * a.tile;
+    const int w = (int)min((long long)a.tile, n_rows - v0);
+    const uint8_t* stage = codes_s + (i & 1) * sbytes;
+    // each slot's codes: route "tma" its place in the stage (rows: its row;
+    // cols: its column), route "ldg" its place in global memory (an id
+    // outside [0, K) reads cluster 0 and writes NaN)
+    const uint8_t* src[kMaxSlots];
+    bool live[kMaxSlots], valid[kMaxSlots];
+    float acc[kMaxSlots];
 #pragma unroll
-    for (int i = 0; i < kSlotsPerThread; ++i) {
-      if (slot[i] < 0) continue;
-      float a = acc[i];
-      if (kCols) {
-        const uint8_t* col = codes + (long long)m0 * n_slots + slot[i];
-#pragma unroll 8
-        for (int j = 0; j < mc; ++j) {
-          a += lut_s[j * kPqK + __ldg(col + (long long)j * n_slots)];
+    for (int k = 0; k < kMaxSlots; ++k) {
+      const int r = tid + k * kAdcThreads;
+      live[k] = r < w;
+      acc[k] = 0.f;
+      valid[k] = false;
+      src[k] = stage;
+      if (live[k]) {
+        const long long v = v0 + r;
+        const int p = (int)(v / a.cap);
+        const int cl = a.probe[(long long)q * a.P + p];
+        valid[k] = cl >= 0 && cl < a.n_clusters;
+        const long long slot = (long long)(valid[k] ? cl : 0) * a.cap + (v - (long long)p * a.cap);
+        if (kStaged) {
+          src[k] = stage + (kCols ? r : r * a.m);
+        } else {
+          src[k] = a.codes + (kCols ? slot : slot * a.m);
         }
+      }
+    }
+    if (kStaged) mbar_wait(&code_bar[i & 1], (i >> 1) & 1);
+    const long long cstride = kStaged ? a.tile : a.n_slots;  // cols: subspace step
+
+    for (int c = 0; c < n_ch; ++c) {
+      const int k_step = i * n_ch + c;
+      const float* t;
+      if (resident) {
+        mbar_wait(&tab_bar[c], 0);
+        t = tab + c * kChunkFloats;
       } else {
-        const uint8_t* row = codes + slot[i] * m + m0;
-        for (int j = 0; j < mc; j += 8) {
-          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(row + j));
+        mbar_wait(&tab_bar[k_step % kRing], (k_step / kRing) & 1);
+        t = tab + (k_step % kRing) * kChunkFloats;
+      }
+      const int j0 = c * kMChunk;
+      const int mc = min(kMChunk, a.m - j0);
+      if (kCols) {
+        if (mc == kMChunk) {
 #pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            a += lut_s[(j + b) * kPqK + ((raw.x >> (8 * b)) & 255u)];
+          for (int jj = 0; jj < kMChunk; ++jj) {
+#pragma unroll
+            for (int k = 0; k < kMaxSlots; ++k) {
+              if (!live[k]) continue;
+              acc[k] += t[jj * kPqK + load_codes<kStaged>(src[k] + (j0 + jj) * cstride)];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < kMChunk / 2; ++jj) {
+#pragma unroll
+            for (int k = 0; k < kMaxSlots; ++k) {
+              if (!live[k]) continue;
+              acc[k] += t[jj * kPqK + load_codes<kStaged>(src[k] + (j0 + jj) * cstride)];
+            }
+          }
+        }
+      } else if (kStaged && a.m % 16 == 0) {  // 16 codes per shared-memory load
+        uint4 raw[kMaxSlots];
+#pragma unroll
+        for (int k = 0; k < kMaxSlots; ++k) {
+          if (live[k]) raw[k] = *reinterpret_cast<const uint4*>(src[k] + j0);
+        }
+#pragma unroll
+        for (int k = 0; k < kMaxSlots; ++k) {
+          if (!live[k]) continue;
+          float s = acc[k];
+          s = add4(s, t, raw[k].x);
+          s = add4(s, t + 4 * kPqK, raw[k].y);
+          s = add4(s, t + 8 * kPqK, raw[k].z);
+          s = add4(s, t + 12 * kPqK, raw[k].w);
+          acc[k] = s;
+        }
+      } else {  // 8 codes per load
+        for (int jj = 0; jj < mc; jj += 8) {
+          uint2 raw[kMaxSlots];
+#pragma unroll
+          for (int k = 0; k < kMaxSlots; ++k) {
+            if (!live[k]) continue;
+            raw[k] = load_codes<kStaged>(reinterpret_cast<const uint2*>(src[k] + j0 + jj));
           }
 #pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            a += lut_s[(j + 4 + b) * kPqK + ((raw.y >> (8 * b)) & 255u)];
+          for (int k = 0; k < kMaxSlots; ++k) {
+            if (!live[k]) continue;
+            acc[k] = add4(add4(acc[k], t + jj * kPqK, raw[k].x), t + (jj + 4) * kPqK,
+                          raw[k].y);
           }
         }
       }
-      acc[i] = a;
+      if (!resident) {  // every thread is done with this stage: refill it
+        __syncthreads();
+        if (tid == 0 && k_step + kRing < steps) {
+          const int k = k_step + kRing, cn = k % n_ch;
+          mbar_arrive_expect_tx(&tab_bar[k % kRing], chunk_bytes(cn, a.m));
+          bulk_load(tab + (k % kRing) * kChunkFloats, lut_q + cn * kChunkFloats,
+                    chunk_bytes(cn, a.m), &tab_bar[k % kRing]);
+        }
+      }
+    }
+
+    float* out_q = a.out + (long long)q * n_rows + v0;
+#pragma unroll
+    for (int k = 0; k < kMaxSlots; ++k) {
+      if (live[k]) out_q[tid + k * kAdcThreads] = valid[k] ? acc[k] : nanf("");
+    }
+    if (kStaged) {
+      __syncthreads();  // every thread is done with this tile's stage: refill it
+      if (tid < 32 && i + 2 < n_my) {
+        const long long vn = (long long)(t_begin + i + 2) * a.tile;
+        issue_tile_codes<kCols>(a, q, vn, (int)min((long long)a.tile, n_rows - vn),
+                                codes_s + (i & 1) * sbytes, &code_bar[i & 1], lane);
+      }
     }
   }
+  // no block leaves while a multicast into another block may be in flight
+  if (n_cta > 1) cluster_sync();
+}
 
-  float* out_q = out + (long long)q * n_rows;
-#pragma unroll
-  for (int i = 0; i < kSlotsPerThread; ++i) {
-    const long long v = v0 + (long long)i * kAdcThreads;
-    if (v < n_rows) out_q[v] = slot[i] == -2 ? nanf("") : acc[i];
-  }
+template <bool kCols, bool kStaged>
+cudaError_t launch(const AdcArgs& a, int Q, int blocks, int cluster, int smem,
+                   cudaStream_t st) {
+  auto kernel = pq_adc_kernel<kCols, kStaged>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)Q);
+  cfg.blockDim = dim3(kAdcThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = (unsigned)cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 }  // namespace
 
-// layout: 0 = rows [K * cap, m], 1 = cols [m, K * cap]. m must be a multiple
-// of 8 and the codes 8-byte aligned.
+// layout: 0 = rows [K * cap, m], 1 = cols [m, K * cap]. staged: 1 = route
+// "tma" (the codes 16-byte aligned, m <= 128, rows with m % 16 == 0 or an
+// even cap, cols with cap % 16 == 0), 0 = route "ldg" (codes 8-byte
+// aligned). tile: slots per tile, a multiple of 16 up to 1024 (route "tma":
+// tile * m <= 32768). blocks: blocks per query, 1 .. the query's tile count.
+// cluster: 1, or 2..8 blocks of one query that share the table by multicast
+// (m <= 128, dividing blocks). lut 16-byte aligned. Anything else returns
+// cudaErrorInvalidValue without a launch.
 extern "C" int rankpo_pq_adc_scores(const void* codes, const int* probe,
                                     const float* lut, float* out,
                                     int n_clusters, int Q, int P, int cap,
-                                    int m, int layout, void* stream) {
+                                    int m, int layout, int staged, int tile,
+                                    int blocks, int cluster, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (m <= 0 || m % 8 != 0 || cap <= 0 || P <= 0 || Q <= 0 || Q > 65535 ||
-      n_clusters <= 0) {
+      n_clusters <= 0 || (layout != 0 && layout != 1) || tile < 16 || tile % 16 != 0 ||
+      tile > kMaxTile || reinterpret_cast<uintptr_t>(lut) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(codes) % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const long long n_rows = (long long)P * cap;
-  const dim3 grid((unsigned)((n_rows + kSlotsPerBlock - 1) / kSlotsPerBlock), Q);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  if (layout == 0) {
-    pq_adc_kernel<false><<<grid, kAdcThreads, 0, st>>>(c, probe, lut, out,
-                                                       n_clusters, P, cap, m);
-  } else if (layout == 1) {
-    pq_adc_kernel<true><<<grid, kAdcThreads, 0, st>>>(c, probe, lut, out,
-                                                      n_clusters, P, cap, m);
-  } else {
+  const long long n_tiles = (n_rows + tile - 1) / tile;
+  const bool resident = m <= kResidentM;
+  if (blocks < 1 || blocks > n_tiles || n_tiles > (1ll << 30)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (staged) {
+    const bool aligned = reinterpret_cast<uintptr_t>(codes) % 16 == 0 &&
+                         (layout == 1 ? cap % 16 == 0 : (m % 16 == 0 || cap % 2 == 0));
+    if (!aligned || !resident || tile * m > kStageBytesMax) return (int)cudaErrorInvalidValue;
+  }
+  if (cluster < 1 || cluster > kMaxCluster || blocks % cluster != 0 ||
+      (cluster > 1 && !resident)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_ch = (m + kMChunk - 1) / kMChunk;
+  const long long smem = kBarBytes + (long long)(resident ? n_ch : kRing) * kChunkFloats * 4 +
+                         (staged ? 2ll * stage_bytes(tile, m) : 0);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  AdcArgs a;
+  a.codes = static_cast<const uint8_t*>(codes);
+  a.probe = probe;
+  a.lut = lut;
+  a.out = out;
+  a.n_slots = (long long)n_clusters * cap;
+  a.n_clusters = n_clusters;
+  a.P = P;
+  a.cap = cap;
+  a.m = m;
+  a.tile = tile;
+  a.n_tiles = (int)n_tiles;
+  cudaError_t err;
+  if (layout == 0) {
+    err = staged ? launch<false, true>(a, Q, blocks, cluster, (int)smem, st)
+                 : launch<false, false>(a, Q, blocks, cluster, (int)smem, st);
+  } else {
+    err = staged ? launch<true, true>(a, Q, blocks, cluster, (int)smem, st)
+                 : launch<true, false>(a, Q, blocks, cluster, (int)smem, st);
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

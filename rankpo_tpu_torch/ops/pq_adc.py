@@ -4,13 +4,19 @@
 Replaces the Pallas TPU kernels ``_kernel`` (K5, ``pq_probe_scores``, codes
 in rows ``[K * cap, m]``) and ``_kernel_t`` (K6, ``pq_probe_scores_t``,
 transposed codes ``[m, K * cap]``) with one CUDA C++ kernel for ``sm_90a``,
-``ops/csrc/pq_adc.cu``, instantiated once per layout. The TPU kernels' one-hot
-mask and reduce, and their ``mxu`` / ``via_transpose`` variants, are Mosaic
-formulations; the port keeps the contract:
+``ops/csrc/pq_adc.cu``, instantiated per layout and load route. The TPU
+kernels' one-hot mask and reduce, and their ``mxu`` / ``via_transpose``
+variants, are Mosaic formulations; the port keeps the contract:
 
     scores[q, p, c] = sum_j lut[q, j, codes[probe[q, p] * cap + c, j] & 255]
 
-summed in fp32. m may be any multiple of 8 (the JAX gate) and cap any size.
+summed in fp32 in order j = 0 .. m - 1 (so every launch shape gives the same
+bits). m may be any multiple of 8 (the JAX gate) and cap any size.
+
+:func:`adc_plan` picks the launch from the shapes alone (no host sync): the
+load route (codes staged by TMA where their alignment allows, else read from
+global memory), the tile of slots, the blocks per query and the cluster that
+shares a query's table by multicast.
 
 For a CPU tensor the wrappers compute :func:`pq_probe_scores_plain` /
 :func:`pq_probe_scores_t_plain`; for a CUDA tensor they launch the kernel or
@@ -20,6 +26,7 @@ raise.
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -28,13 +35,77 @@ PQ_K = 256  # 8-bit codes: entries per subspace table
 # launches of the CUDA kernel per layout in this process (read by
 # chip_smoke.py); incremented only after a launch succeeded
 launches = {"pq_adc_rows": 0, "pq_adc_cols": 0}
+# the same launches by load route ("tma": codes staged by bulk copies;
+# "ldg": codes read from global memory)
+route_launches = {f"{name}/{route}": 0 for name in launches for route in ("tma", "ldg")}
 _count_lock = threading.Lock()
+
+# the kernel's shapes (ops/csrc/pq_adc.cu)
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_TILE = 1024  # 256 threads, up to 4 slots each
+RESIDENT_M = 128  # m <= 128: the whole table stays in shared memory
+TABLE_CHUNK = 16 * PQ_K * 4  # 16 subspaces, 16 KB
+RING = 4  # m > 128: table chunks in flight
+TWO_BLOCKS_SMEM = 113 * 1024  # two blocks fit on an SM (228 KB, 1 KB each reserved)
+MAX_CLUSTER = 8
 
 
 def reset_launches() -> None:
     with _count_lock:
-        for name in launches:
-            launches[name] = 0
+        for counts in (launches, route_launches):
+            for name in counts:
+                counts[name] = 0
+
+
+@dataclass(frozen=True)
+class AdcPlan:
+    """One launch of the kernel: ``route`` "tma" or "ldg", ``tile`` slots
+    per tile, ``blocks`` per query, ``cluster`` blocks sharing the table."""
+
+    route: str
+    tile: int
+    blocks: int
+    cluster: int
+
+
+def adc_plan(q_n: int, p_n: int, cap: int, m: int, *, cols: bool, aligned: bool,
+             sms: int = SMS) -> AdcPlan:
+    """The launch for Q queries of P probes over clusters of ``cap`` slots
+    with m subspaces; ``aligned``: the codes start on 16 bytes.
+
+    - Route "tma" where every bulk copy is 16-byte aligned and the table is
+      resident (m <= 128): cols need cap % 16 == 0; rows need m % 16 == 0
+      or an even cap. Its tile holds the codes of one stage, 16 KB (m <= 64)
+      or 32 KB. Route "ldg" otherwise, with tiles of up to 1024 slots.
+    - Blocks per query: as many as fill the card once, two per SM where the
+      shared memory allows, or one per tile if the query has fewer; tiles
+      shrink (to no fewer than 64 slots, 256 where the table streams) until
+      a query has that many.
+    - A cluster of all of a query's blocks (2 to 8) receives the table by
+      multicast when each block takes at most two tiles, where the table,
+      not the lookups, is most of a block's work.
+    """
+    staged = aligned and m <= RESIDENT_M and (
+        cap % 16 == 0 if cols else (m % 16 == 0 or cap % 2 == 0))
+    if staged:
+        stage = 16384 if m <= 64 else 32768
+        tile_max = min(MAX_TILE, stage // m // 16 * 16)
+    else:
+        tile_max = MAX_TILE
+    n_ch = -(-m // 16)
+    table = (n_ch if m <= RESIDENT_M else RING) * TABLE_CHUNK
+    smem = 128 + table + (2 * tile_max * m if staged else 0)
+    want = max(1, sms * (2 if smem <= TWO_BLOCKS_SMEM else 1) // q_n)
+    n = p_n * cap
+    per_block = -(-n // want)
+    least = 64 if m <= RESIDENT_M else 256  # a streamed table is loaded per tile
+    tile = min(tile_max, max(least, -(-per_block // 16) * 16), -(-n // 16) * 16)
+    n_tiles = -(-n // tile)
+    blocks = min(want, n_tiles)
+    cluster = 1
+    if m <= RESIDENT_M and 2 <= blocks <= MAX_CLUSTER and n_tiles <= 2 * blocks:
+        cluster = blocks
+    return AdcPlan("tma" if staged else "ldg", tile, blocks, cluster)
 
 
 def _lut_sum(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -74,7 +145,7 @@ def _check(codes, probe, lut, cap, m, n_slots):
         raise ValueError("pq scores: codes, probe and lut must be on one device")
 
 
-def _launch(codes, probe, lut, cap, m, n_slots, layout):
+def _launch(codes, probe, lut, cap, m, n_slots, layout, plan=None):
     name = ("pq_adc_rows", "pq_adc_cols")[layout]
     if codes.device.type != "cuda":
         raise ValueError(f"pq scores: no kernel for device {codes.device}")
@@ -90,6 +161,11 @@ def _launch(codes, probe, lut, cap, m, n_slots, layout):
         raise ValueError("pq scores kernel: codes must be contiguous and 8-byte aligned")
     probe32 = probe.to(torch.int32).contiguous()
     lutf = lut.to(torch.float32).contiguous()
+    if lutf.data_ptr() % 16:  # the table's bulk copies start on 16 bytes
+        lutf = lutf.clone()
+    if plan is None:
+        plan = adc_plan(q_n, p_n, cap, m, cols=bool(layout),
+                        aligned=codes.data_ptr() % 16 == 0)
 
     from rankpo_tpu_torch.ops._build import load_library
 
@@ -98,12 +174,14 @@ def _launch(codes, probe, lut, cap, m, n_slots, layout):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.rankpo_pq_adc_scores(
             codes.data_ptr(), probe32.data_ptr(), lutf.data_ptr(), out.data_ptr(),
-            n_slots // cap, q_n, p_n, cap, m, layout, stream,
+            n_slots // cap, q_n, p_n, cap, m, layout, int(plan.route == "tma"), plan.tile,
+            plan.blocks, plan.cluster, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"pq scores kernel ({name}) launch failed: cudaError {rc}")
+        raise RuntimeError(f"pq scores kernel ({name}, {plan}) launch failed: cudaError {rc}")
     with _count_lock:
         launches[name] += 1
+        route_launches[f"{name}/{plan.route}"] += 1
     return out
 
 

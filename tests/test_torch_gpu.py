@@ -469,10 +469,39 @@ def test_probe_scores_kernel_rounds_query_for_bf16_rows(cuda):
     assert torch.equal(got, rounded)
 
 
+def _sequential_adc(codes, probe, lut, cap, cols):
+    """The contract's sum, written as a torch loop of fp32 adds over j = 0 ..
+    m - 1 from 0; probe ids outside [0, K) read cluster 0 (the kernel writes
+    NaN there)."""
+    rows = codes.T if cols else codes
+    m = rows.shape[1]
+    n_clusters = rows.shape[0] // cap
+    ok = (probe >= 0) & (probe < n_clusters)
+    blocks = rows.view(-1, cap, m)[torch.where(ok, probe, 0).long()]  # [Q, P, cap, m]
+    q_n = probe.shape[0]
+    acc = torch.zeros(blocks.shape[:3], dtype=torch.float32, device=codes.device)
+    for j in range(m):
+        idx = (blocks[..., j].long() & 255).reshape(q_n, -1)
+        acc = acc + torch.gather(lut[:, j, :], 1, idx).view_as(acc)
+    return acc
+
+
+# (Q, P, cap, m, codes offset in bytes): the scale path (P 1), the served
+# IVF64,PQ64 tier (Q 1, P 18, cap 128), a wider probe set, m 256 (the table
+# streams), caps off every tile (37, 333, 2049), and shapes that take route
+# "ldg": m 8 or 24 with an odd cap in rows, any cap % 16 != 0 in cols, and
+# codes starting 8 bytes off a 16-byte boundary
+PQ_CASES = [(64, 1, 384, 64, 0), (1, 18, 128, 64, 0), (16, 18, 128, 64, 0),
+            (64, 8, 384, 64, 0), (5, 3, 37, 8, 0), (7, 4, 333, 256, 0),
+            (200, 1, 2049, 32, 0), (9, 5, 37, 24, 0), (6, 7, 384, 64, 8)]
+
+
 @pytest.mark.parametrize("layout", ["rows", "cols"])
-@pytest.mark.parametrize("q_n,p_n,cap,m", [(64, 8, 384, 64), (5, 3, 37, 8),
-                                           (7, 4, 333, 256), (200, 1, 2049, 32)])
-def test_pq_adc_kernels_match_plain(cuda, layout, q_n, p_n, cap, m):
+@pytest.mark.parametrize("q_n,p_n,cap,m,offset", PQ_CASES)
+def test_pq_adc_kernels_match_plain(cuda, layout, q_n, p_n, cap, m, offset):
+    """K5/K6 against the plain version, and bit-equal to the contract's
+    sequential fp32 sum over j, on the route adc_plan picks; ids outside
+    [0, K) give NaN; two launches are bit-equal."""
     from rankpo_tpu_torch.ops import pq_adc
 
     g = torch.Generator().manual_seed(cap + m)
@@ -481,23 +510,63 @@ def test_pq_adc_kernels_match_plain(cuda, layout, q_n, p_n, cap, m):
     codes[:cap] = 255  # unsigned reads past 127
     lut = torch.randn(q_n, m, pq_adc.PQ_K, generator=g) / m**0.5
     probe = _probe(n_clusters, q_n, p_n, g)
-    if layout == "cols":
+    if q_n > 1:
+        probe[1, 0], probe[-1, 0] = -3, n_clusters  # ids outside [0, K): NaN
+    cols = layout == "cols"
+    if cols:
         codes = codes.T.contiguous()
-    codes, lut, probe = codes.to(cuda), lut.to(cuda), probe.to(cuda)
-    fn, plain = ((pq_adc.pq_probe_scores, pq_adc.pq_probe_scores_plain) if layout == "rows"
-                 else (pq_adc.pq_probe_scores_t, pq_adc.pq_probe_scores_t_plain))
+    storage = torch.empty(codes.numel() + offset, dtype=torch.uint8, device=cuda)
+    codes_dev = storage[offset:].view(codes.shape)
+    codes_dev.copy_(codes)
+    codes, lut, probe = codes_dev, lut.to(cuda), probe.to(cuda)
+    fn, plain = ((pq_adc.pq_probe_scores_t, pq_adc.pq_probe_scores_t_plain) if cols
+                 else (pq_adc.pq_probe_scores, pq_adc.pq_probe_scores_plain))
     name = f"pq_adc_{layout}"
-    before = dict(pq_adc.launches)
+    plan = pq_adc.adc_plan(q_n, p_n, cap, m, cols=cols, aligned=codes.data_ptr() % 16 == 0)
+    aligned_shape = (cap % 16 == 0) if cols else (m % 16 == 0 or cap % 2 == 0)
+    assert plan.route == ("tma" if offset == 0 and m <= 128 and aligned_shape else "ldg")
+    before, routes = dict(pq_adc.launches), dict(pq_adc.route_launches)
     got = fn(codes, probe, lut, cap=cap)
-    ref = plain(codes, probe, lut, cap=cap)
     torch.cuda.synchronize()
     assert {n: pq_adc.launches[n] - before[n] for n in before} == {
         n: int(n == name) for n in before}
+    assert {n: pq_adc.route_launches[n] - routes[n] for n in routes} == {
+        n: int(n == f"{name}/{plan.route}") for n in routes}
     assert got.shape == (q_n, p_n, cap) and got.dtype == torch.float32
-    err = (got - ref).abs().max().item()
-    assert err <= IVF_RTOL_OF_MAX * ref.abs().max().item(), err
+    valid = (probe >= 0) & (probe < n_clusters)
+    assert torch.equal(got.isnan(), ~valid[:, :, None].expand(-1, -1, cap))
+    seq = _sequential_adc(codes, probe, lut, cap, cols)
+    assert torch.equal(got[valid], seq[valid])  # the contract's order, bit for bit
+    ref = plain(codes, torch.where(valid, probe, 0), lut, cap=cap)
+    err = (got[valid] - ref[valid]).abs().max().item()
+    assert err <= IVF_RTOL_OF_MAX * ref[valid].abs().max().item(), err
+    again = fn(codes, probe, lut, cap=cap)
+    assert torch.equal(again[valid], got[valid])
     # int8 bits of the same codes read as unsigned
-    assert torch.equal(fn(codes.view(torch.int8), probe, lut, cap=cap), got)
+    assert torch.equal(fn(codes.view(torch.int8), probe, lut, cap=cap)[valid], got[valid])
+
+
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_pq_adc_every_launch_shape_gives_the_same_bits(cuda, layout):
+    """The tile, the blocks per query, the cluster and the route change
+    nothing: at the scale path's shape every launch the kernel takes gives
+    the bits of the sequential sum."""
+    from rankpo_tpu_torch.ops import pq_adc
+
+    g = torch.Generator().manual_seed(11)
+    q_n, p_n, cap, m, n_clusters = 8, 3, 384, 64, 40
+    codes = torch.randint(0, 256, (n_clusters * cap, m), generator=g, dtype=torch.uint8)
+    lut = (torch.randn(q_n, m, pq_adc.PQ_K, generator=g) / 8).to(cuda)
+    probe = _probe(n_clusters, q_n, p_n, g).to(cuda)
+    cols = layout == "cols"
+    codes = (codes.T.contiguous() if cols else codes).to(cuda)
+    seq = _sequential_adc(codes, probe, lut, cap, cols)
+    n_slots = n_clusters * cap
+    for plan in [pq_adc.AdcPlan("tma", 64, 8, 8), pq_adc.AdcPlan("tma", 256, 4, 4),
+                 pq_adc.AdcPlan("tma", 256, 2, 1), pq_adc.AdcPlan("tma", 112, 1, 1),
+                 pq_adc.AdcPlan("ldg", 1024, 2, 2), pq_adc.AdcPlan("ldg", 48, 6, 3)]:
+        got = pq_adc._launch(codes, probe, lut, cap, m, n_slots, int(cols), plan)
+        assert torch.equal(got, seq), plan
 
 
 def test_ivf_kernels_reject_what_they_do_not_take(cuda):
