@@ -1330,8 +1330,8 @@ def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
         name, lambda: fn(codes, probe32, lut, cap=cap), lambda: plain(codes, probe32, lut, cap=cap),
         compose, nbytes, q_n * p * cap * m, f"{label}, m {m}")
     out["route"] = [r for r, n in pq_adc.route_launches.items() if n > routes[r]]
-    out["plan"] = pq_adc.adc_plan(q_n, p, cap, m, cols=kind == "pq_cols",
-                                  aligned=codes.data_ptr() % 16 == 0)
+    out["plan"] = pq_adc.adc_plan(
+        q_n, p, cap, m, aligned=codes.data_ptr() % 16 == 0 and codes.shape[1] % 16 == 0)
     # the other floor: every lookup is a shared-memory read, 32 a clock on
     # each SM at best (random codes put 3-4 words on a warp's busiest bank)
     mhz = sm_clock_mhz()

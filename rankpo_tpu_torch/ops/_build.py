@@ -52,8 +52,8 @@ for _name in ("fused", "dkv", "dq"):
     _SIGNATURES[f"rankpo_flash_bwd_{_name}_bf16"] = _BWD_ARGTYPES
 # corpus pairs start cluster queries out, K Q P cap D groups dtype, stream
 _SIGNATURES["rankpo_ivf_probe_scores"] = [_P] * 6 + [_I] * 7 + [_P]
-# codes probe lut out, K Q P cap m layout staged tile blocks cluster, stream
-_SIGNATURES["rankpo_pq_adc_scores"] = [_P] * 4 + [_I] * 10 + [_P]
+# codes probe lut out, K Q P cap m layout route tile blocks, stream
+_SIGNATURES["rankpo_pq_adc_scores"] = [_P] * 4 + [_I] * 9 + [_P]
 
 
 def find_nvcc() -> str:

@@ -1,9 +1,9 @@
-// Hopper (sm_90a) building blocks in PTX: mbarriers, TMA tile loads, 1-D
-// bulk copies (also multicast to a cluster), cluster rank and barrier, the
-// wgmma shared-memory descriptor for 128-byte swizzled tiles, the m64n64k16
-// bf16 -> fp32 warpgroup products with A from shared memory (SS, K-major or
-// both operands transposed) or from registers (RS), the proxy fence and
-// named barriers; on the host, the 4-D tensor maps of [B, S, H, D] tensors.
+// Hopper (sm_90a) building blocks in PTX: mbarriers, TMA tile loads (2-D
+// and 4-D), 1-D bulk copies, the wgmma shared-memory descriptor for 128-byte
+// swizzled tiles, the m64n64k16 bf16 -> fp32 warpgroup products with A from
+// shared memory (SS, K-major or both operands transposed) or from registers
+// (RS), the proxy fence and named barriers; on the host, the 4-D tensor
+// maps of [B, S, H, D] tensors and 2-D byte tensor maps.
 //
 // Tile convention. Every operand tile in shared memory is 64 rows of 64 bf16
 // (128 bytes, one swizzle atom wide), written by a TMA load with
@@ -86,6 +86,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---- TMA ----
+// one box of a 2-D tensor map into shared memory (128-byte aligned);
+// completion is counted in bytes on `bar`. Coordinates innermost first;
+// out-of-bounds elements are filled with zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // one box of a 4-D tensor map into shared memory; completion is counted in
 // bytes on `bar`. Coordinates are innermost first; out-of-bounds elements
 // are filled with zeros.
@@ -110,40 +122,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
-}
-
-// bulk_load into the same shared-memory offset of every block of the
-// cluster named in `mask` (bit i = cluster rank i); each of those blocks
-// counts the bytes on its own barrier at `bar`'s offset
-__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
-                                                    uint32_t bytes, uint64_t* bar,
-                                                    uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
-      : "memory");
-}
-
-// ---- thread-block clusters ----
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_nctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every block of the cluster; orders shared-memory writes
-// (and barrier inits) before it with the cluster's reads after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ---- wgmma ----
@@ -309,6 +287,25 @@ int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                   strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 2-D map over a row-major byte matrix [outer, inner] (row pitch
+// `pitch` bytes, a multiple of 16; base 16-byte aligned), boxes of
+// box_outer rows x box_inner bytes (box_inner a multiple of 16, both at most
+// 256), no swizzle; elements past either dimension read as zeros.
+int encode_map_u8(CUtensorMap* map, const void* ptr, long long inner, long long outer,
+                  long long pitch, int box_inner, int box_outer) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                  strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

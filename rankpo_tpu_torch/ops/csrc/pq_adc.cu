@@ -19,37 +19,38 @@
 //
 // What bounds it on this card. Each probed slot costs m table lookups in
 // shared memory and m adds. A warp's 32 lookups of one subspace hit random
-// banks (random 8-bit codes put 3-4 distinct words on the busiest bank), so
-// at large P (Q 64, P 179, cap 384, m 64: 282 M lookups) shared-memory
-// wavefronts bound it near 0.1 ms, above the ~0.035 ms byte bound. At small
-// P (P 1: 1.6 M lookups) the query tables (64 KB each) and the launch are
-// the cost. The design:
-//   - the query's table arrives by TMA (1-D bulk copies of 16 subspaces,
-//     16 KB, each on its own mbarrier, so lookups on a chunk overlap the
-//     arrival of the next). For m <= 128 the whole table stays resident and
-//     is loaded once per block however many tiles the block walks; the
-//     blocks of one query may form a cluster that receives the table by
-//     TMA multicast, each block issuing a share of the chunks. For m > 128
-//     the chunks stream through a ring of 4 stages, once per tile;
-//   - a query's P * cap probed slots are cut into tiles of `tile` slots
-//     (a multiple of 16, at most 1024: up to 4 slots per thread), and a
-//     query's tiles are split among `blocks` blocks. The wrapper sizes both
-//     from Q, P, cap and m (ops/pq_adc.py adc_plan), so that P 1 and a
-//     single served query still cover the 132 SMs and a large P walks many
-//     tiles per block with the table loaded once;
-//   - route "tma" (codes 16-byte aligned as the index lays them out, m <=
-//     128): each tile's codes arrive by bulk copies into a double buffer,
-//     one copy per probed segment (rows) or per subspace row of a segment
-//     (cols), while the previous tile is scored; threads read them from
-//     shared memory, 16 (or 8) subspaces per load in rows and one byte per
-//     lookup in cols (a warp's 32 consecutive bytes: no bank conflict).
-//     Route "ldg" (any other shape the contract admits: odd capacities, m
-//     not a multiple of 16 with an odd cap, m > 128, unaligned codes) reads
-//     the codes from global memory as the first design did: 8 bytes per load
-//     in rows, one byte per lookup in cols. Both routes use the same table
-//     staging, tiles and sum order;
+// banks (random 8-bit codes put 3-4 distinct words on the busiest bank), and
+// every byte of code read through L1 or shared memory takes its share of the
+// same data path. So at large P (Q 64, P 179, cap 384, m 64: 282 M lookups)
+// shared-memory wavefronts bound it near 0.1 ms, above the ~0.035 ms byte
+// bound; at small P (P 1: 1.6 M lookups) the query tables (64 KB each) and
+// the launch are the cost. The design:
+//   - the query's table arrives by TMA: 1-D bulk copies of 16 subspaces
+//     (16 KB), each on its own mbarrier, so lookups on a chunk overlap the
+//     arrival of the next. For m <= 128 the whole table stays resident and is
+//     loaded once per block however many tiles the block walks; for m > 128
+//     (route "ldg" only) the chunks stream through a ring of 4 stages, once
+//     per tile;
+//   - the wrapper sizes the work per block from Q, P, cap and m (ops/pq_adc.py
+//     adc_plan): a query's tiles are split among `blocks` blocks, so that P 1
+//     and a single served query still cover the 132 SMs and a large P walks
+//     many tiles per block with the table loaded once;
+//   - route "tma" (codes 16-byte aligned; rows with m % 16 == 0, cols with
+//     K * cap % 16 == 0; m <= 128): a tile is `tile` (<= 256) slots of one
+//     probed cluster, and a block takes up to 1024 / tile tiles at a time (a
+//     round, up to 4 slots per thread). For each chunk of 16 subspaces of a
+//     round, one 2-D TMA box per tile brings those 16 code bytes of every
+//     slot into a ring stage (rows: [tile slots][16 B], read 16 codes per
+//     conflict-free 16-byte load; cols: [16][tile slots], read 4 slots' codes
+//     per 4-byte load), while the previous chunks are scored;
+//   - route "ldg" (any other shape the contract admits: unaligned codes, m
+//     not a multiple of 16 in rows, K * cap not a multiple of 16 in cols,
+//     m > 128) reads the codes from global memory as the first design did:
+//     tiles of up to 1024 consecutive probed slots, 8 bytes per load in rows,
+//     one byte per lookup in cols;
 //   - every slot's sum starts at 0 and adds its m entries in order
-//     j = 0 .. m - 1, so scores are bit-equal to the first design's.
+//     j = 0 .. m - 1 on both routes, so scores are bit-equal to the first
+//     design's on any launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,18 +61,20 @@
 namespace {
 
 constexpr int kAdcThreads = 256;
-constexpr int kMaxSlots = 4;                       // slots per thread per tile
-constexpr int kMaxTile = kAdcThreads * kMaxSlots;  // 1024
+constexpr int kMaxSlots = 4;                       // slots per thread
+constexpr int kMaxTile = kAdcThreads * kMaxSlots;  // 1024 slots: a round (tma), a tile (ldg)
+constexpr int kMaxBox = 256;                       // route "tma": slots per tile (TMA box)
 constexpr int kPqK = 256;                          // entries per subspace table (8-bit codes)
-constexpr int kMChunk = 16;                        // subspaces per table chunk
+constexpr int kMChunk = 16;                        // subspaces per table chunk and code box
 constexpr int kChunkFloats = kMChunk * kPqK;       // 16 KB
 constexpr int kResidentM = 128;                    // m <= 128: the table stays resident
 constexpr int kResidentChunks = kResidentM / kMChunk;
-constexpr int kRing = 4;                           // m > 128: table chunks in flight
-constexpr int kStageBytesMax = 32768;              // codes of one tile (route "tma")
+constexpr int kRing = 4;                           // ldg, m > 128: table chunks in flight
+constexpr int kStageBytes = kMaxTile * kMChunk;    // tma: one round's codes of one chunk
+constexpr int kMaxStages = 3;
 constexpr int kBarBytes = 128;                     // barriers at the front of shared memory
-constexpr int kMaxCluster = 8;
-constexpr int kSmemMax = 232448;
+constexpr int kSortMax = 1024;                     // tma: a block's tiles walked in cluster order
+constexpr int kOrderBytes = kSortMax * 2;
 
 struct AdcArgs {
   const uint8_t* codes;
@@ -80,26 +83,13 @@ struct AdcArgs {
   float* out;
   long long n_slots;  // K * cap
   int n_clusters, P, cap, m;
-  int tile;     // slots per tile, a multiple of 16
-  int n_tiles;  // tiles of one query's P * cap probed slots
+  int tile;     // slots per tile
+  int n_tiles;  // tiles of one query
+  int stages;   // tma: ring stages of codes
 };
-
-__host__ __device__ __forceinline__ int stage_bytes(int tile, int m) {
-  return (tile * m + 15) / 16 * 16;
-}
 
 __device__ __forceinline__ uint32_t chunk_bytes(int c, int m) {
   return (uint32_t)min(kMChunk, m - c * kMChunk) * kPqK * 4;
-}
-
-// a code load: shared memory (route "tma") or global (route "ldg")
-template <bool kStaged, typename T>
-__device__ __forceinline__ T load_codes(const T* p) {
-  if constexpr (kStaged) {
-    return *p;
-  } else {
-    return __ldg(p);
-  }
 }
 
 // a + the table entries of four consecutive subspaces (t: the first one's
@@ -112,120 +102,222 @@ __device__ __forceinline__ float add4(float a, const float* t, uint32_t w) {
   return a;
 }
 
-// Warp 0 of the block: bulk copies of tile [v0, v0 + w) of query q's
-// probed slots into `dst` (rows: [w, m] bytes; cols: [m][tile] bytes), one
-// per probed segment (rows) or per subspace row of a segment (cols);
-// segments under an id outside [0, K) are skipped (their scores are NaN).
+// acc[i] + the entries of N subspaces (t: the first one's table) at the
+// codes of four consecutive slots: byte i of the 4-byte word at
+// codes + jj * pitch for subspace jj
+template <int N>
+__device__ __forceinline__ void cols_chunk(float (&acc)[kMaxSlots], const uint8_t* codes, int pitch,
+                                           const float* t) {
+#pragma unroll
+  for (int jj = 0; jj < N; ++jj) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(codes + jj * pitch);
+    const float* tj = t + jj * kPqK;
+    acc[0] += tj[w & 255u];
+    acc[1] += tj[(w >> 8) & 255u];
+    acc[2] += tj[(w >> 16) & 255u];
+    acc[3] += tj[w >> 24];
+  }
+}
+
+// this block's share [t_begin, t_begin + n_my) of the query's n_tiles tiles
+__device__ __forceinline__ void block_tiles(int n_tiles, int& t_begin, int& n_my) {
+  t_begin = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
+  n_my = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x) - t_begin;
+}
+
+// ---- route "tma" ----
+// One block per (query, share of its tiles): blockIdx.y is the query. map:
+// rows, [K * cap] x [m] bytes with boxes of 16 x tile; cols, [m] x [K * cap]
+// with boxes of tile x 16.
 template <bool kCols>
-__device__ void issue_tile_codes(const AdcArgs& a, int q, long long v0, int w,
-                                 uint8_t* dst, uint64_t* bar, int lane) {
+__global__ void __launch_bounds__(kAdcThreads, 2)
+pq_adc_tma_kernel(const __grid_constant__ CUtensorMap map, const AdcArgs a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* tab_bar = reinterpret_cast<uint64_t*>(smem);  // [kResidentChunks]
+  uint64_t* full = tab_bar + kResidentChunks;             // [kMaxStages]
+  const int n_ch = (a.m + kMChunk - 1) / kMChunk;
+  uint16_t* order = reinterpret_cast<uint16_t*>(smem + kBarBytes);  // [kSortMax]
+  float* tab = reinterpret_cast<float*>(smem + kBarBytes + kOrderBytes);
+  uint8_t* ring = smem + kBarBytes + kOrderBytes + n_ch * kChunkFloats * 4;
+  const int bw = a.tile, tp = (a.cap + bw - 1) / bw;  // tiles per probe
+  const int per_round = kMaxTile / bw, box = bw * kMChunk, S = a.stages;
+  const int q = blockIdx.y, tid = threadIdx.x;
   const int* probe_q = a.probe + (long long)q * a.P;
-  const int p0 = (int)(v0 / a.cap), p1 = (int)((v0 + w - 1) / a.cap);
-  if (lane == 0) {
-    uint32_t total = 0;
-    for (int p = p0; p <= p1; ++p) {
+  int t_begin, n_my;
+  block_tiles(a.n_tiles, t_begin, n_my);
+  const int rounds = (n_my + per_round - 1) / per_round;
+  const int steps = rounds * n_ch;  // (round, chunk) pairs
+
+  if (tid == 0) {
+    for (int i = 0; i < kResidentChunks + kMaxStages; ++i) mbar_init(&tab_bar[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (n_my == 0) return;
+
+  const float* lut_q = a.lut + (long long)q * a.m * kPqK;
+  if (tid == 0) {
+    for (int c = 0; c < n_ch; ++c) {
+      mbar_arrive_expect_tx(&tab_bar[c], chunk_bytes(c, a.m));
+      bulk_load(tab + c * kChunkFloats, lut_q + c * kChunkFloats, chunk_bytes(c, a.m),
+                &tab_bar[c]);
+    }
+  }
+  // The block walks its tiles in ascending cluster id (ties in tile order),
+  // so the blocks of all queries sweep the clusters together and a block
+  // probed by several queries is read from L2 after the first. order[i]:
+  // the i-th tile walked (the ring, still empty, holds the keys meanwhile).
+  const bool sorted = n_my <= kSortMax;
+  if (sorted) {
+    int* key = reinterpret_cast<int*>(ring);
+    for (int i = tid; i < n_my; i += kAdcThreads) {
+      const int cl = probe_q[(t_begin + i) / tp];
+      key[i] = cl >= 0 && cl < a.n_clusters ? cl : a.n_clusters;
+    }
+    __syncthreads();
+    for (int i = tid; i < n_my; i += kAdcThreads) {
+      const int ki = key[i];
+      int rank = 0;
+      for (int j = 0; j < n_my; ++j) {
+        const int kj = key[j];
+        rank += kj < ki || (kj == ki && j < i);
+      }
+      order[rank] = (uint16_t)i;
+    }
+    __syncthreads();
+  }
+  auto tile_at = [&](int i) { return t_begin + (sorted ? (int)order[i] : i); };
+
+  // thread 0: the boxes of step k (chunk k % n_ch of round k / n_ch) into
+  // stage k % S; tiles under an id outside [0, K) are skipped
+  const CUtensorMap* codes_map = &map;
+  auto issue = [&](int k) {
+    const int rr = k / n_ch, c = k % n_ch;
+    const int u_n = min(per_round, n_my - rr * per_round);
+    uint64_t* bar = &full[k % S];
+    uint8_t* dst = ring + (k % S) * kStageBytes;
+    int n_valid = 0;
+    for (int u = 0; u < u_n; ++u) {
+      const int cl = probe_q[tile_at(rr * per_round + u) / tp];
+      n_valid += cl >= 0 && cl < a.n_clusters;
+    }
+    mbar_arrive_expect_tx(bar, (uint32_t)(n_valid * box));
+    for (int u = 0; u < u_n; ++u) {
+      const int t = tile_at(rr * per_round + u), p = t / tp;
       const int cl = probe_q[p];
       if (cl < 0 || cl >= a.n_clusters) continue;
-      const long long vs = max(v0, (long long)p * a.cap);
-      const long long ve = min(v0 + w, (long long)(p + 1) * a.cap);
-      total += (uint32_t)(ve - vs) * a.m;
+      const int s0 = cl * a.cap + (t - p * tp) * bw;
+      if (kCols) {
+        tma_load_2d(dst + u * box, codes_map, bar, s0, c * kMChunk);
+      } else {
+        tma_load_2d(dst + u * box, codes_map, bar, c * kMChunk, s0);
+      }
     }
-    mbar_arrive_expect_tx(bar, total);
+  };
+  if (tid == 0) {
+    for (int k = 0; k < min(S, steps); ++k) issue(k);
   }
-  __syncwarp();
-  const int n_seg = p1 - p0 + 1;
-  const int n_copies = kCols ? n_seg * a.m : n_seg;
-  for (int i = lane; i < n_copies; i += 32) {
-    const int p = p0 + (kCols ? i / a.m : i);
-    const int cl = probe_q[p];
-    if (cl < 0 || cl >= a.n_clusters) continue;
-    const long long vs = max(v0, (long long)p * a.cap);
-    const long long ve = min(v0 + w, (long long)(p + 1) * a.cap);
-    const long long c0 = vs - (long long)p * a.cap;
-    const long long slot = (long long)cl * a.cap + c0;
-    if (kCols) {
-      const int j = i - (p - p0) * a.m;
-      bulk_load(dst + (long long)j * a.tile + (vs - v0), a.codes + j * a.n_slots + slot,
-                (uint32_t)(ve - vs), bar);
-    } else {
-      bulk_load(dst + (vs - v0) * a.m, a.codes + slot * a.m, (uint32_t)((ve - vs) * a.m), bar);
+
+  for (int rr = 0; rr < rounds; ++rr) {
+    const int u_n = min(per_round, n_my - rr * per_round);
+    // this thread's slots of the round: rows, round slots tid + 256 i
+    // (16 bytes each in a stage); cols, round slots 4 tid .. 4 tid + 3 (one
+    // 4-byte word of each of a stage's 16 rows of the tile)
+    long long dst[kMaxSlots];
+    bool live[kMaxSlots], valid[kMaxSlots];
+    int off[kMaxSlots];
+    float acc[kMaxSlots];
+#pragma unroll
+    for (int i = 0; i < kMaxSlots; ++i) {
+      const int s = kCols ? 4 * tid + i : tid + i * kAdcThreads;
+      const int u = s / bw, col = s - u * bw;
+      const int t = u < u_n ? tile_at(rr * per_round + u) : t_begin;
+      const int p = t / tp, sub = t - p * tp;
+      live[i] = u < u_n && sub * bw + col < a.cap;
+      const int cl = live[i] ? probe_q[p] : 0;
+      valid[i] = cl >= 0 && cl < a.n_clusters;
+      dst[i] = ((long long)q * a.P + p) * a.cap + sub * bw + col;
+      off[i] = kCols ? u * box + col : s * kMChunk;
+      acc[i] = 0.f;
+    }
+    for (int c = 0; c < n_ch; ++c) {
+      const int k = rr * n_ch + c;
+      if (rr == 0) mbar_wait(&tab_bar[c], 0);
+      mbar_wait(&full[k % S], (k / S) & 1);
+      const uint8_t* st = ring + (k % S) * kStageBytes;
+      const float* t = tab + c * kChunkFloats;
+      if (kCols) {
+        if (live[0] && a.m - c * kMChunk >= kMChunk) {
+          cols_chunk<kMChunk>(acc, st + off[0], bw, t);
+        } else if (live[0]) {  // the last 8 subspaces of an m % 16 == 8
+          cols_chunk<kMChunk / 2>(acc, st + off[0], bw, t);
+        }
+      } else {  // m % 16 == 0: 16 codes per conflict-free 16-byte load
+        uint4 raw[kMaxSlots];
+#pragma unroll
+        for (int i = 0; i < kMaxSlots; ++i) {
+          if (live[i]) raw[i] = *reinterpret_cast<const uint4*>(st + off[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kMaxSlots; ++i) {
+          if (!live[i]) continue;
+          float s = acc[i];
+          s = add4(s, t, raw[i].x);
+          s = add4(s, t + 4 * kPqK, raw[i].y);
+          s = add4(s, t + 8 * kPqK, raw[i].z);
+          s = add4(s, t + 12 * kPqK, raw[i].w);
+          acc[i] = s;
+        }
+      }
+      __syncthreads();  // every thread is done with this stage: refill it
+      if (tid == 0 && k + S < steps) issue(k + S);
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxSlots; ++i) {
+      if (live[i]) a.out[dst[i]] = valid[i] ? acc[i] : nanf("");
     }
   }
 }
 
-// One block per (query, share of its tiles): blockIdx.y is the query,
-// blockIdx.x the share. kStaged: route "tma" (codes staged in shared memory
-// by bulk copies), else route "ldg".
-template <bool kCols, bool kStaged>
+// ---- route "ldg" ----
+// One block per (query, share of its tiles); a tile is `tile` (<= 1024)
+// consecutive slots of the query's P * cap probed slots, slot tid + 256 i
+// per thread. The codes are read from global memory.
+template <bool kCols>
 __global__ void __launch_bounds__(kAdcThreads, 2)
-pq_adc_kernel(const AdcArgs a) {
+pq_adc_ldg_kernel(const AdcArgs a) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* tab_bar = reinterpret_cast<uint64_t*>(smem);  // [kResidentChunks]
-  uint64_t* code_bar = tab_bar + kResidentChunks;         // [2]
   float* tab = reinterpret_cast<float*>(smem + kBarBytes);
   const int n_ch = (a.m + kMChunk - 1) / kMChunk;
   const bool resident = a.m <= kResidentM;
-  const int tab_stages = resident ? n_ch : kRing;
-  uint8_t* codes_s = smem + kBarBytes + tab_stages * kChunkFloats * 4;
-  const int sbytes = stage_bytes(a.tile, a.m);
-
-  const int q = blockIdx.y;
-  const int t_begin = (int)((long long)blockIdx.x * a.n_tiles / gridDim.x);
-  const int n_my = (int)((long long)(blockIdx.x + 1) * a.n_tiles / gridDim.x) - t_begin;
-  const uint32_t n_cta = cluster_nctarank();  // 1 without a cluster
-  const uint32_t rank = cluster_ctarank();
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int q = blockIdx.y, tid = threadIdx.x;
   const float* lut_q = a.lut + (long long)q * a.m * kPqK;
   const long long n_rows = (long long)a.P * a.cap;  // this query's probed slots
-  const int steps = n_my * n_ch;                    // ring steps (m > 128)
+  int t_begin, n_my;
+  block_tiles(a.n_tiles, t_begin, n_my);
+  const int steps = n_my * n_ch;  // ring steps (m > 128)
 
   if (tid == 0) {
-    for (int i = 0; i < kResidentChunks + 2; ++i) mbar_init(&tab_bar[i], 1);
+    for (int i = 0; i < kResidentChunks; ++i) mbar_init(&tab_bar[i], 1);
     fence_barrier_init();
   }
-  if (n_cta > 1) {
-    cluster_sync();  // every block's barriers exist before a multicast lands
-  } else {
-    __syncthreads();
-  }
-  if (n_my > 0) {
-    if (tid == 0) {
-      if (resident) {
-        for (int c = 0; c < n_ch; ++c) {
-          const uint32_t bytes = chunk_bytes(c, a.m);
-          mbar_arrive_expect_tx(&tab_bar[c], bytes);
-          if (n_cta == 1) {
-            bulk_load(tab + c * kChunkFloats, lut_q + c * kChunkFloats, bytes, &tab_bar[c]);
-          } else if ((uint32_t)c % n_cta == rank) {
-            bulk_load_multicast(tab + c * kChunkFloats, lut_q + c * kChunkFloats, bytes,
-                                &tab_bar[c], (uint16_t)((1u << n_cta) - 1));
-          }
-        }
-      } else {
-        for (int k = 0; k < min(kRing, steps); ++k) {
-          const int c = k % n_ch;
-          mbar_arrive_expect_tx(&tab_bar[k], chunk_bytes(c, a.m));
-          bulk_load(tab + k * kChunkFloats, lut_q + c * kChunkFloats, chunk_bytes(c, a.m),
-                    &tab_bar[k]);
-        }
-      }
-    }
-    if (kStaged && tid < 32) {
-      for (int i = 0; i < min(2, n_my); ++i) {
-        const long long v0 = (long long)(t_begin + i) * a.tile;
-        issue_tile_codes<kCols>(a, q, v0, (int)min((long long)a.tile, n_rows - v0),
-                                codes_s + i * sbytes, &code_bar[i], lane);
-      }
+  __syncthreads();
+  if (n_my == 0) return;
+  if (tid == 0) {
+    for (int k = 0; k < (resident ? n_ch : min(kRing, steps)); ++k) {
+      const int c = k % n_ch;
+      mbar_arrive_expect_tx(&tab_bar[k], chunk_bytes(c, a.m));
+      bulk_load(tab + k * kChunkFloats, lut_q + c * kChunkFloats, chunk_bytes(c, a.m),
+                &tab_bar[k]);
     }
   }
 
   for (int i = 0; i < n_my; ++i) {
     const long long v0 = (long long)(t_begin + i) * a.tile;
     const int w = (int)min((long long)a.tile, n_rows - v0);
-    const uint8_t* stage = codes_s + (i & 1) * sbytes;
-    // each slot's codes: route "tma" its place in the stage (rows: its row;
-    // cols: its column), route "ldg" its place in global memory (an id
-    // outside [0, K) reads cluster 0 and writes NaN)
+    // each slot's codes in global memory (an id outside [0, K) reads
+    // cluster 0 and writes NaN)
     const uint8_t* src[kMaxSlots];
     bool live[kMaxSlots], valid[kMaxSlots];
     float acc[kMaxSlots];
@@ -235,22 +327,16 @@ pq_adc_kernel(const AdcArgs a) {
       live[k] = r < w;
       acc[k] = 0.f;
       valid[k] = false;
-      src[k] = stage;
+      src[k] = a.codes;
       if (live[k]) {
         const long long v = v0 + r;
         const int p = (int)(v / a.cap);
         const int cl = a.probe[(long long)q * a.P + p];
         valid[k] = cl >= 0 && cl < a.n_clusters;
         const long long slot = (long long)(valid[k] ? cl : 0) * a.cap + (v - (long long)p * a.cap);
-        if (kStaged) {
-          src[k] = stage + (kCols ? r : r * a.m);
-        } else {
-          src[k] = a.codes + (kCols ? slot : slot * a.m);
-        }
+        src[k] = a.codes + (kCols ? slot : slot * a.m);
       }
     }
-    if (kStaged) mbar_wait(&code_bar[i & 1], (i >> 1) & 1);
-    const long long cstride = kStaged ? a.tile : a.n_slots;  // cols: subspace step
 
     for (int c = 0; c < n_ch; ++c) {
       const int k_step = i * n_ch + c;
@@ -265,48 +351,18 @@ pq_adc_kernel(const AdcArgs a) {
       const int j0 = c * kMChunk;
       const int mc = min(kMChunk, a.m - j0);
       if (kCols) {
-        if (mc == kMChunk) {
+        for (int jj = 0; jj < mc; ++jj) {
 #pragma unroll
-          for (int jj = 0; jj < kMChunk; ++jj) {
-#pragma unroll
-            for (int k = 0; k < kMaxSlots; ++k) {
-              if (!live[k]) continue;
-              acc[k] += t[jj * kPqK + load_codes<kStaged>(src[k] + (j0 + jj) * cstride)];
-            }
+          for (int k = 0; k < kMaxSlots; ++k) {
+            if (live[k]) acc[k] += t[jj * kPqK + __ldg(src[k] + (j0 + jj) * a.n_slots)];
           }
-        } else {
-#pragma unroll
-          for (int jj = 0; jj < kMChunk / 2; ++jj) {
-#pragma unroll
-            for (int k = 0; k < kMaxSlots; ++k) {
-              if (!live[k]) continue;
-              acc[k] += t[jj * kPqK + load_codes<kStaged>(src[k] + (j0 + jj) * cstride)];
-            }
-          }
-        }
-      } else if (kStaged && a.m % 16 == 0) {  // 16 codes per shared-memory load
-        uint4 raw[kMaxSlots];
-#pragma unroll
-        for (int k = 0; k < kMaxSlots; ++k) {
-          if (live[k]) raw[k] = *reinterpret_cast<const uint4*>(src[k] + j0);
-        }
-#pragma unroll
-        for (int k = 0; k < kMaxSlots; ++k) {
-          if (!live[k]) continue;
-          float s = acc[k];
-          s = add4(s, t, raw[k].x);
-          s = add4(s, t + 4 * kPqK, raw[k].y);
-          s = add4(s, t + 8 * kPqK, raw[k].z);
-          s = add4(s, t + 12 * kPqK, raw[k].w);
-          acc[k] = s;
         }
       } else {  // 8 codes per load
         for (int jj = 0; jj < mc; jj += 8) {
           uint2 raw[kMaxSlots];
 #pragma unroll
           for (int k = 0; k < kMaxSlots; ++k) {
-            if (!live[k]) continue;
-            raw[k] = load_codes<kStaged>(reinterpret_cast<const uint2*>(src[k] + j0 + jj));
+            if (live[k]) raw[k] = __ldg(reinterpret_cast<const uint2*>(src[k] + j0 + jj));
           }
 #pragma unroll
           for (int k = 0; k < kMaxSlots; ++k) {
@@ -332,102 +388,83 @@ pq_adc_kernel(const AdcArgs a) {
     for (int k = 0; k < kMaxSlots; ++k) {
       if (live[k]) out_q[tid + k * kAdcThreads] = valid[k] ? acc[k] : nanf("");
     }
-    if (kStaged) {
-      __syncthreads();  // every thread is done with this tile's stage: refill it
-      if (tid < 32 && i + 2 < n_my) {
-        const long long vn = (long long)(t_begin + i + 2) * a.tile;
-        issue_tile_codes<kCols>(a, q, vn, (int)min((long long)a.tile, n_rows - vn),
-                                codes_s + (i & 1) * sbytes, &code_bar[i & 1], lane);
-      }
-    }
   }
-  // no block leaves while a multicast into another block may be in flight
-  if (n_cta > 1) cluster_sync();
 }
 
-template <bool kCols, bool kStaged>
-cudaError_t launch(const AdcArgs& a, int Q, int blocks, int cluster, int smem,
-                   cudaStream_t st) {
-  auto kernel = pq_adc_kernel<kCols, kStaged>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-  if (attr != cudaSuccess) return attr;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks, (unsigned)Q);
-  cfg.blockDim = dim3(kAdcThreads);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = st;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = (unsigned)cluster;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, a);
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int Q, int blocks, long long smem, cudaStream_t st,
+                   Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)blocks, (unsigned)Q), kAdcThreads, (size_t)smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// layout: 0 = rows [K * cap, m], 1 = cols [m, K * cap]. staged: 1 = route
-// "tma" (the codes 16-byte aligned, m <= 128, rows with m % 16 == 0 or an
-// even cap, cols with cap % 16 == 0), 0 = route "ldg" (codes 8-byte
-// aligned). tile: slots per tile, a multiple of 16 up to 1024 (route "tma":
-// tile * m <= 32768). blocks: blocks per query, 1 .. the query's tile count.
-// cluster: 1, or 2..8 blocks of one query that share the table by multicast
-// (m <= 128, dividing blocks). lut 16-byte aligned. Anything else returns
-// cudaErrorInvalidValue without a launch.
+// layout: 0 = rows [K * cap, m], 1 = cols [m, K * cap]. route: 1 = "tma"
+// (codes 16-byte aligned, m <= 128, rows with m % 16 == 0, cols with
+// K * cap % 16 == 0; tile: slots per TMA box, a multiple of 16 up to 256;
+// tiles of one query P * ceil(cap / tile)), 0 = "ldg" (codes 8-byte aligned;
+// tile: a multiple of 16 up to 1024; tiles of one query ceil(P * cap / tile)).
+// blocks: blocks per query, 1 .. the query's tile count. lut 16-byte
+// aligned. Anything else returns cudaErrorInvalidValue without a launch.
 extern "C" int rankpo_pq_adc_scores(const void* codes, const int* probe,
                                     const float* lut, float* out,
                                     int n_clusters, int Q, int P, int cap,
-                                    int m, int layout, int staged, int tile,
-                                    int blocks, int cluster, void* stream) {
+                                    int m, int layout, int route, int tile,
+                                    int blocks, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bool tma = route == 1;
+  const long long n_slots = (long long)n_clusters * cap;
   if (m <= 0 || m % 8 != 0 || cap <= 0 || P <= 0 || Q <= 0 || Q > 65535 ||
-      n_clusters <= 0 || (layout != 0 && layout != 1) || tile < 16 || tile % 16 != 0 ||
-      tile > kMaxTile || reinterpret_cast<uintptr_t>(lut) % 16 != 0 ||
+      n_clusters <= 0 || (layout != 0 && layout != 1) || (route != 0 && route != 1) ||
+      tile < 16 || tile % 16 != 0 || tile > (tma ? kMaxBox : kMaxTile) ||
+      reinterpret_cast<uintptr_t>(lut) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(codes) % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long n_rows = (long long)P * cap;
-  const long long n_tiles = (n_rows + tile - 1) / tile;
-  const bool resident = m <= kResidentM;
+  const long long n_tiles =
+      tma ? (long long)P * ((cap + tile - 1) / tile) : ((long long)P * cap + tile - 1) / tile;
   if (blocks < 1 || blocks > n_tiles || n_tiles > (1ll << 30)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (staged) {
-    const bool aligned = reinterpret_cast<uintptr_t>(codes) % 16 == 0 &&
-                         (layout == 1 ? cap % 16 == 0 : (m % 16 == 0 || cap % 2 == 0));
-    if (!aligned || !resident || tile * m > kStageBytesMax) return (int)cudaErrorInvalidValue;
-  }
-  if (cluster < 1 || cluster > kMaxCluster || blocks % cluster != 0 ||
-      (cluster > 1 && !resident)) {
-    return (int)cudaErrorInvalidValue;
-  }
   const int n_ch = (m + kMChunk - 1) / kMChunk;
-  const long long smem = kBarBytes + (long long)(resident ? n_ch : kRing) * kChunkFloats * 4 +
-                         (staged ? 2ll * stage_bytes(tile, m) : 0);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   AdcArgs a;
   a.codes = static_cast<const uint8_t*>(codes);
   a.probe = probe;
   a.lut = lut;
   a.out = out;
-  a.n_slots = (long long)n_clusters * cap;
+  a.n_slots = n_slots;
   a.n_clusters = n_clusters;
   a.P = P;
   a.cap = cap;
   a.m = m;
   a.tile = tile;
   a.n_tiles = (int)n_tiles;
+  a.stages = m <= 64 ? 2 : kMaxStages;  // m <= 64: two blocks share an SM
   cudaError_t err;
-  if (layout == 0) {
-    err = staged ? launch<false, true>(a, Q, blocks, cluster, (int)smem, st)
-                 : launch<false, false>(a, Q, blocks, cluster, (int)smem, st);
+  if (tma) {
+    const bool aligned = reinterpret_cast<uintptr_t>(codes) % 16 == 0 && m <= kResidentM &&
+                         (layout == 1 ? n_slots % 16 == 0 : m % 16 == 0) &&
+                         n_slots < (1ll << 31);
+    if (!aligned) return (int)cudaErrorInvalidValue;
+    CUtensorMap map;
+    const int rc = layout == 1
+                       ? encode_map_u8(&map, codes, n_slots, m, n_slots, tile, kMChunk)
+                       : encode_map_u8(&map, codes, m, n_slots, m, kMChunk, tile);
+    if (rc != 0) return rc;
+    const long long smem =
+        kBarBytes + kOrderBytes + (long long)n_ch * kChunkFloats * 4 +
+        (long long)a.stages * kStageBytes;
+    err = layout == 1 ? launch(pq_adc_tma_kernel<true>, Q, blocks, smem, st, map, a)
+                      : launch(pq_adc_tma_kernel<false>, Q, blocks, smem, st, map, a);
   } else {
-    err = staged ? launch<true, true>(a, Q, blocks, cluster, (int)smem, st)
-                 : launch<true, false>(a, Q, blocks, cluster, (int)smem, st);
+    const long long smem =
+        kBarBytes + (long long)(m <= kResidentM ? n_ch : kRing) * kChunkFloats * 4;
+    err = layout == 1 ? launch(pq_adc_ldg_kernel<true>, Q, blocks, smem, st, a)
+                      : launch(pq_adc_ldg_kernel<false>, Q, blocks, smem, st, a);
   }
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -15,8 +15,7 @@ bits). m may be any multiple of 8 (the JAX gate) and cap any size.
 
 :func:`adc_plan` picks the launch from the shapes alone (no host sync): the
 load route (codes staged by TMA where their alignment allows, else read from
-global memory), the tile of slots, the blocks per query and the cluster that
-shares a query's table by multicast.
+global memory), the tile of slots and the blocks per query.
 
 For a CPU tensor the wrappers compute :func:`pq_probe_scores_plain` /
 :func:`pq_probe_scores_t_plain`; for a CUDA tensor they launch the kernel or
@@ -42,12 +41,12 @@ _count_lock = threading.Lock()
 
 # the kernel's shapes (ops/csrc/pq_adc.cu)
 SMS = 132  # streaming multiprocessors of an H100 SXM
-MAX_TILE = 1024  # 256 threads, up to 4 slots each
+MAX_TILE = 1024  # route "ldg": slots per tile (256 threads, up to 4 slots each)
+MAX_BOX = 256  # route "tma": slots per tile, one TMA box
 RESIDENT_M = 128  # m <= 128: the whole table stays in shared memory
-TABLE_CHUNK = 16 * PQ_K * 4  # 16 subspaces, 16 KB
-RING = 4  # m > 128: table chunks in flight
-TWO_BLOCKS_SMEM = 113 * 1024  # two blocks fit on an SM (228 KB, 1 KB each reserved)
-MAX_CLUSTER = 8
+CHUNK = 16 * PQ_K * 4  # 16 subspaces of table (16 KB), or a ring stage of codes
+RING = 4  # route "ldg", m > 128: table chunks in flight
+TWO_BLOCKS_SMEM = 115712  # shared memory of each of two blocks on one SM
 
 
 def reset_launches() -> None:
@@ -60,52 +59,42 @@ def reset_launches() -> None:
 @dataclass(frozen=True)
 class AdcPlan:
     """One launch of the kernel: ``route`` "tma" or "ldg", ``tile`` slots
-    per tile, ``blocks`` per query, ``cluster`` blocks sharing the table."""
+    per tile, ``blocks`` per query."""
 
     route: str
     tile: int
     blocks: int
-    cluster: int
 
 
-def adc_plan(q_n: int, p_n: int, cap: int, m: int, *, cols: bool, aligned: bool,
+def adc_plan(q_n: int, p_n: int, cap: int, m: int, *, aligned: bool,
              sms: int = SMS) -> AdcPlan:
     """The launch for Q queries of P probes over clusters of ``cap`` slots
-    with m subspaces; ``aligned``: the codes start on 16 bytes.
+    with m subspaces; ``aligned``: the codes' start and row pitch (m bytes
+    for rows, K * cap for cols) are multiples of 16 bytes.
 
-    - Route "tma" where every bulk copy is 16-byte aligned and the table is
-      resident (m <= 128): cols need cap % 16 == 0; rows need m % 16 == 0
-      or an even cap. Its tile holds the codes of one stage, 16 KB (m <= 64)
-      or 32 KB. Route "ldg" otherwise, with tiles of up to 1024 slots.
+    - Route "tma" where the codes are aligned and the table is resident
+      (m <= 128): a tile is one TMA box of at most 256 slots of one probed
+      cluster, the cluster cut into equal tiles (cap 384: two of 192).
+      Route "ldg" otherwise: tiles of up to 1024 consecutive probed slots,
+      shrunk (to no fewer than 64 slots, 256 where the table streams) until
+      a query has as many tiles as it wants blocks.
     - Blocks per query: as many as fill the card once, two per SM where the
-      shared memory allows, or one per tile if the query has fewer; tiles
-      shrink (to no fewer than 64 slots, 256 where the table streams) until
-      a query has that many.
-    - A cluster of all of a query's blocks (2 to 8) receives the table by
-      multicast when each block takes at most two tiles, where the table,
-      not the lookups, is most of a block's work.
+      shared memory allows, or one per tile if the query has fewer.
     """
-    staged = aligned and m <= RESIDENT_M and (
-        cap % 16 == 0 if cols else (m % 16 == 0 or cap % 2 == 0))
-    if staged:
-        stage = 16384 if m <= 64 else 32768
-        tile_max = min(MAX_TILE, stage // m // 16 * 16)
-    else:
-        tile_max = MAX_TILE
     n_ch = -(-m // 16)
-    table = (n_ch if m <= RESIDENT_M else RING) * TABLE_CHUNK
-    smem = 128 + table + (2 * tile_max * m if staged else 0)
+    if aligned and m <= RESIDENT_M:
+        tile = -(-cap // -(-cap // MAX_BOX) // 16) * 16
+        n_tiles = p_n * -(-cap // tile)
+        smem = 128 + 2048 + (n_ch + (2 if m <= 64 else 3)) * CHUNK
+        want = max(1, sms * (2 if smem <= TWO_BLOCKS_SMEM else 1) // q_n)
+        return AdcPlan("tma", tile, min(want, n_tiles))
+    smem = 128 + (n_ch if m <= RESIDENT_M else RING) * CHUNK
     want = max(1, sms * (2 if smem <= TWO_BLOCKS_SMEM else 1) // q_n)
     n = p_n * cap
-    per_block = -(-n // want)
     least = 64 if m <= RESIDENT_M else 256  # a streamed table is loaded per tile
-    tile = min(tile_max, max(least, -(-per_block // 16) * 16), -(-n // 16) * 16)
+    tile = min(MAX_TILE, max(least, -(-(-(-n // want)) // 16) * 16), -(-n // 16) * 16)
     n_tiles = -(-n // tile)
-    blocks = min(want, n_tiles)
-    cluster = 1
-    if m <= RESIDENT_M and 2 <= blocks <= MAX_CLUSTER and n_tiles <= 2 * blocks:
-        cluster = blocks
-    return AdcPlan("tma" if staged else "ldg", tile, blocks, cluster)
+    return AdcPlan("ldg", tile, min(want, n_tiles))
 
 
 def _lut_sum(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -164,8 +153,8 @@ def _launch(codes, probe, lut, cap, m, n_slots, layout, plan=None):
     if lutf.data_ptr() % 16:  # the table's bulk copies start on 16 bytes
         lutf = lutf.clone()
     if plan is None:
-        plan = adc_plan(q_n, p_n, cap, m, cols=bool(layout),
-                        aligned=codes.data_ptr() % 16 == 0)
+        plan = adc_plan(q_n, p_n, cap, m,
+                        aligned=codes.data_ptr() % 16 == 0 and codes.shape[1] % 16 == 0)
 
     from rankpo_tpu_torch.ops._build import load_library
 
@@ -175,7 +164,7 @@ def _launch(codes, probe, lut, cap, m, n_slots, layout, plan=None):
         rc = lib.rankpo_pq_adc_scores(
             codes.data_ptr(), probe32.data_ptr(), lutf.data_ptr(), out.data_ptr(),
             n_slots // cap, q_n, p_n, cap, m, layout, int(plan.route == "tma"), plan.tile,
-            plan.blocks, plan.cluster, stream,
+            plan.blocks, stream,
         )
     if rc != 0:
         raise RuntimeError(f"pq scores kernel ({name}, {plan}) launch failed: cudaError {rc}")

@@ -15,9 +15,9 @@ this checkout's launch plan and route, each version's time, whether the
 two outputs are bit-equal, the byte bound (distinct probed blocks, tables,
 probe ids and scores at 3.35 TB/s) and the lookup floor: Q·P·cap·m table
 reads at 32 per clock on each of 132 SMs at the SM clock ``nvidia-smi``
-reads as the card's maximum. At P 1 and the served shapes it also times
-this checkout's kernel under other launch plans (no cluster, fewer blocks,
-route "ldg").
+reads as the card's maximum. It also times this checkout's kernel on
+route "ldg" (the plan for unaligned codes) at every shape and, at P 1 and
+the served shapes, with boxes of half the width on twice the blocks.
 
 Times: CUDA events around one call of each version on cold L2, median of
 20, in the order parent, change, change, parent (change twice alone without
@@ -127,8 +127,8 @@ def main() -> None:
         bound_ms = nbytes / smoke.PEAK_HBM_BYTES * 1e3
         lookups = q_n * p_n * cap * m
         floor_ms = lookups / (LOOKUPS_PER_CLOCK * clock_mhz * 1e6) * 1e3
-        plan = pq_adc.adc_plan(q_n, p_n, cap, m, cols=bool(layout),
-                               aligned=codes.data_ptr() % 16 == 0)
+        plan = pq_adc.adc_plan(q_n, p_n, cap, m,
+                               aligned=codes.data_ptr() % 16 == 0 and codes.shape[1] % 16 == 0)
         outs, times = {}, {v: [] for v in versions}
         for v in order:
             fn = versions[v]
@@ -153,16 +153,14 @@ def main() -> None:
                                before=smoke._l2_flush)
             print(f"  plan {other}: {ms:.4f} ms (bit-equal to the default plan)", flush=True)
 
-    def variants_of(plan, n_tiles):
-        out = []
-        if plan.cluster > 1:
-            out.append(pq_adc.AdcPlan(plan.route, plan.tile, plan.blocks, 1))
-        if plan.blocks > 1:  # half the blocks, twice the tile
-            tile = min(pq_adc.MAX_TILE, plan.tile * 2)
-            out.append(pq_adc.AdcPlan(plan.route, tile, max(1, plan.blocks // 2), 1))
-        if plan.route == "tma":
-            out.append(pq_adc.AdcPlan("ldg", plan.tile, plan.blocks, plan.cluster))
-        return [p for p in out if p.blocks <= n_tiles and (p.route == "ldg" or p.tile * 64 <= 32768)]
+    def variants_of(q_n, p_n, cap, wide):
+        plan = pq_adc.adc_plan(q_n, p_n, cap, m, aligned=True)
+        out = [pq_adc.adc_plan(q_n, p_n, cap, m, aligned=False)]
+        half = plan.tile // 2 // 16 * 16
+        if wide and half >= 16:
+            tiles = p_n * -(-cap // half)
+            out.append(pq_adc.AdcPlan("tma", half, min(tiles, plan.blocks * 2)))
+        return out
 
     t0 = time.perf_counter()
     corpus, queries = smoke.make_scale_data(args.seed)
@@ -183,10 +181,7 @@ def main() -> None:
     for p in P_SWEEP:
         probe32 = index._probe_clusters(q, p)[0].to(torch.int32).contiguous()
         for layout, codes in ((0, rows), (1, cols)):
-            plan = pq_adc.adc_plan(64, p, cap, m, cols=bool(layout), aligned=True)
-            n_tiles = -(-p * cap // plan.tile)
-            compare("scale", codes, probe32, lut, cap, layout,
-                    variants_of(plan, n_tiles) if p == 1 else ())
+            compare("scale", codes, probe32, lut, cap, layout, variants_of(64, p, cap, p == 1))
     del rows, cols, index
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 11)
@@ -198,9 +193,7 @@ def main() -> None:
                                for _ in range(q_n)]).to(torch.int32)
         lut = torch.randn(q_n, m, PQ_K, generator=gen, device="cuda") / 8
         for layout, c in ((0, codes), (1, codes.T.contiguous())):
-            plan = pq_adc.adc_plan(q_n, p, cap, m, cols=bool(layout), aligned=True)
-            compare("served", c, probe32, lut, cap, layout,
-                    variants_of(plan, -(-p * cap // plan.tile)))
+            compare("served", c, probe32, lut, cap, layout, variants_of(q_n, p, cap, True))
     print(f"card: {card}", flush=True)
 
 

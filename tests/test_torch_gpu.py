@@ -488,12 +488,14 @@ def _sequential_adc(codes, probe, lut, cap, cols):
 
 # (Q, P, cap, m, codes offset in bytes): the scale path (P 1), the served
 # IVF64,PQ64 tier (Q 1, P 18, cap 128), a wider probe set, m 256 (the table
-# streams), caps off every tile (37, 333, 2049), and shapes that take route
-# "ldg": m 8 or 24 with an odd cap in rows, any cap % 16 != 0 in cols, and
-# codes starting 8 bytes off a 16-byte boundary
+# streams), caps off every tile (37, 333, 2049), m 128 (one block per SM),
+# m 24 (a half chunk: cols read it by TMA, rows from global memory), and
+# shapes that take route "ldg": m not a multiple of 16 in rows, K * cap not
+# a multiple of 16 in cols, codes starting 8 bytes off a 16-byte boundary
 PQ_CASES = [(64, 1, 384, 64, 0), (1, 18, 128, 64, 0), (16, 18, 128, 64, 0),
             (64, 8, 384, 64, 0), (5, 3, 37, 8, 0), (7, 4, 333, 256, 0),
-            (200, 1, 2049, 32, 0), (9, 5, 37, 24, 0), (6, 7, 384, 64, 8)]
+            (200, 1, 2049, 32, 0), (9, 5, 37, 24, 0), (6, 7, 384, 64, 8),
+            (3, 5, 37, 128, 0), (4, 6, 64, 24, 0)]
 
 
 @pytest.mark.parametrize("layout", ["rows", "cols"])
@@ -522,9 +524,10 @@ def test_pq_adc_kernels_match_plain(cuda, layout, q_n, p_n, cap, m, offset):
     fn, plain = ((pq_adc.pq_probe_scores_t, pq_adc.pq_probe_scores_t_plain) if cols
                  else (pq_adc.pq_probe_scores, pq_adc.pq_probe_scores_plain))
     name = f"pq_adc_{layout}"
-    plan = pq_adc.adc_plan(q_n, p_n, cap, m, cols=cols, aligned=codes.data_ptr() % 16 == 0)
-    aligned_shape = (cap % 16 == 0) if cols else (m % 16 == 0 or cap % 2 == 0)
-    assert plan.route == ("tma" if offset == 0 and m <= 128 and aligned_shape else "ldg")
+    pitch = n_clusters * cap if cols else m  # bytes from one row of codes to the next
+    plan = pq_adc.adc_plan(q_n, p_n, cap, m,
+                           aligned=codes.data_ptr() % 16 == 0 and pitch % 16 == 0)
+    assert plan.route == ("tma" if offset == 0 and m <= 128 and pitch % 16 == 0 else "ldg")
     before, routes = dict(pq_adc.launches), dict(pq_adc.route_launches)
     got = fn(codes, probe, lut, cap=cap)
     torch.cuda.synchronize()
@@ -548,9 +551,9 @@ def test_pq_adc_kernels_match_plain(cuda, layout, q_n, p_n, cap, m, offset):
 
 @pytest.mark.parametrize("layout", ["rows", "cols"])
 def test_pq_adc_every_launch_shape_gives_the_same_bits(cuda, layout):
-    """The tile, the blocks per query, the cluster and the route change
-    nothing: at the scale path's shape every launch the kernel takes gives
-    the bits of the sequential sum."""
+    """The tile, the blocks per query and the route change nothing: at the
+    scale path's cap every launch the kernel takes gives the bits of the
+    sequential sum."""
     from rankpo_tpu_torch.ops import pq_adc
 
     g = torch.Generator().manual_seed(11)
@@ -562,9 +565,10 @@ def test_pq_adc_every_launch_shape_gives_the_same_bits(cuda, layout):
     codes = (codes.T.contiguous() if cols else codes).to(cuda)
     seq = _sequential_adc(codes, probe, lut, cap, cols)
     n_slots = n_clusters * cap
-    for plan in [pq_adc.AdcPlan("tma", 64, 8, 8), pq_adc.AdcPlan("tma", 256, 4, 4),
-                 pq_adc.AdcPlan("tma", 256, 2, 1), pq_adc.AdcPlan("tma", 112, 1, 1),
-                 pq_adc.AdcPlan("ldg", 1024, 2, 2), pq_adc.AdcPlan("ldg", 48, 6, 3)]:
+    for plan in [pq_adc.AdcPlan("tma", 192, 1), pq_adc.AdcPlan("tma", 192, 6),
+                 pq_adc.AdcPlan("tma", 64, 18), pq_adc.AdcPlan("tma", 128, 4),
+                 pq_adc.AdcPlan("tma", 256, 3), pq_adc.AdcPlan("ldg", 1024, 2),
+                 pq_adc.AdcPlan("ldg", 48, 6)]:
         got = pq_adc._launch(codes, probe, lut, cap, m, n_slots, int(cols), plan)
         assert torch.equal(got, seq), plan
 

@@ -185,3 +185,60 @@ def test_group_probes_scattered_back_rebuild_probe(q_n, p_n, k, ids):
     sizes = np.diff(start)
     assert np.all(np.diff(cluster[sizes > 0]) > 0)
     assert (sizes > 0).sum() == len(np.unique(want))
+
+
+# ---- K5/K6 launch plan (ops/pq_adc.py adc_plan): pure integer arithmetic ----
+# (Q, P, cap, m): the scale path (P 1) and the bf16 index's probe set (P
+# 179) at cap 384, the served IVF64,PQ64 tier (Q 1 and 16, P 18, cap 128), m
+# 8/24/120/256, caps off every tile (37, 333, 2049), Q above the SM count
+PLAN_SHAPES = [(64, 1, 384, 64), (64, 179, 384, 64), (1, 18, 128, 64), (16, 18, 128, 64),
+               (64, 8, 384, 64), (5, 3, 37, 8), (7, 4, 333, 256), (200, 1, 2049, 32),
+               (9, 5, 37, 24), (3, 2, 64, 120), (1, 1, 16, 8), (300, 40, 128, 128)]
+
+
+def _tiles(plan, p_n, cap):
+    """Each tile's probed slots [v0, v1) of one query, as the kernel cuts
+    them: route "tma" in boxes of ``tile`` slots of one cluster, route "ldg"
+    in runs of ``tile`` consecutive probed slots."""
+    if plan.route == "tma":
+        return [(p * cap + lo, p * cap + min(cap, lo + plan.tile))
+                for p in range(p_n) for lo in range(0, cap, plan.tile)]
+    n = p_n * cap
+    return [(lo, min(n, lo + plan.tile)) for lo in range(0, n, plan.tile)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("q_n,p_n,cap,m", PLAN_SHAPES)
+def test_adc_plan_is_a_launch_the_kernel_takes(q_n, p_n, cap, m, aligned):
+    """Route "tma" exactly where the codes are aligned and the table is
+    resident; tiles that are multiples of 16 within the route's limit (a
+    TMA box of at most 256 slots, a round of four boxes and more in 16 KB);
+    1 to the tile count of blocks per query, at most two blocks per SM in
+    all unless one per query; the shared memory of the kernel's launch
+    check; tiles that cover every probed slot of a query once."""
+    plan = pq_adc.adc_plan(q_n, p_n, cap, m, aligned=aligned)
+    assert plan.route == ("tma" if aligned and m <= pq_adc.RESIDENT_M else "ldg")
+    tiles = _tiles(plan, p_n, cap)
+    assert plan.tile % 16 == 0 and 16 <= plan.tile
+    if plan.route == "tma":
+        assert plan.tile <= pq_adc.MAX_BOX and plan.tile >= cap / -(-cap // pq_adc.MAX_BOX)
+        assert (pq_adc.MAX_TILE // plan.tile) * plan.tile * 16 <= pq_adc.CHUNK
+        smem = 128 + 2048 + (-(-m // 16) + (2 if m <= 64 else 3)) * pq_adc.CHUNK
+    else:
+        assert plan.tile <= pq_adc.MAX_TILE
+        smem = 128 + (-(-m // 16) if m <= pq_adc.RESIDENT_M else pq_adc.RING) * pq_adc.CHUNK
+    assert smem <= 232448
+    assert 1 <= plan.blocks <= len(tiles)
+    assert plan.blocks == 1 or q_n * plan.blocks <= 2 * pq_adc.SMS
+    slots = [v for lo, hi in tiles for v in range(lo, hi)]
+    assert slots == list(range(p_n * cap))
+
+
+def test_adc_plan_fills_the_card_at_small_nprobe():
+    """The scale path (Q 64, P 1: two 192-slot boxes per query, so 128
+    blocks) and one served query (Q 1, P 18: a block per probe) spread over
+    the SMs; the bf16 index's probe set (P 179) walks 90 tiles per block."""
+    assert pq_adc.adc_plan(64, 1, 384, 64, aligned=True) == pq_adc.AdcPlan("tma", 192, 2)
+    assert pq_adc.adc_plan(1, 18, 128, 64, aligned=True) == pq_adc.AdcPlan("tma", 128, 18)
+    assert pq_adc.adc_plan(64, 179, 384, 64, aligned=True) == pq_adc.AdcPlan("tma", 192, 4)
+    assert pq_adc.adc_plan(64, 179, 384, 64, aligned=False).route == "ldg"
