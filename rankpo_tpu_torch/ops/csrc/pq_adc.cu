@@ -18,12 +18,14 @@
 //   reading out of bounds.
 //
 // What bounds it on this card. Each probed slot costs m table lookups in
-// shared memory and m adds. A warp's 32 lookups of one subspace hit random
-// banks (random 8-bit codes put 3-4 distinct words on the busiest bank), and
-// every byte of code read through L1 or shared memory takes its share of the
-// same data path. So at large P (Q 64, P 179, cap 384, m 64: 282 M lookups)
-// shared-memory wavefronts bound it near 0.1 ms, above the ~0.035 ms byte
-// bound; at small P (P 1: 1.6 M lookups) the query tables (64 KB each) and
+// shared memory and m adds, and each (query, probe) pair reads its cluster's
+// codes: at the bf16 index's probe set (Q 64, P 179, cap 384, m 64) that is
+// 282 M lookups and 282 MB of code reads, of which 116 MB are distinct (the
+// byte bound, 0.035 ms). The lookups alone take about 0.1 ms (a warp's 32
+// lookups of one subspace hit random banks: ~2 distinct words on the busiest
+// bank for the index's codes, ~3 for uniform random ones); the code reads
+// alone, through L2, take longer, so the design's aim is to keep both going
+// at once. At small P (P 1: 1.6 M lookups) the query tables (64 KB each) and
 // the launch are the cost. The design:
 //   - the query's table arrives by TMA: 1-D bulk copies of 16 subspaces
 //     (16 KB), each on its own mbarrier, so lookups on a chunk overlap the
@@ -37,12 +39,15 @@
 //     many tiles per block with the table loaded once;
 //   - route "tma" (codes 16-byte aligned; rows with m % 16 == 0, cols with
 //     K * cap % 16 == 0; m <= 128): a tile is `tile` (<= 256) slots of one
-//     probed cluster, and a block takes up to 1024 / tile tiles at a time (a
-//     round, up to 4 slots per thread). For each chunk of 16 subspaces of a
-//     round, one 2-D TMA box per tile brings those 16 code bytes of every
-//     slot into a ring stage (rows: [tile slots][16 B], read 16 codes per
-//     conflict-free 16-byte load; cols: [16][tile slots], read 4 slots' codes
-//     per 4-byte load), while the previous chunks are scored;
+//     probed cluster, and a block takes several tiles at a time (a round of
+//     up to 1024 slots, up to 4 per thread). One producer warp issues, for
+//     each step of a round, one 2-D TMA box per tile into a 3-stage ring
+//     (two blocks share an SM at m 64): cols, 16 subspace rows of the tile's
+//     slots ([16][tile] bytes, 4 slots' codes per 4-byte load); rows, 32 code
+//     bytes of each slot (whole 32-byte L2 sectors; 16 where m % 32 != 0),
+//     read 16 codes per 16-byte load. The 8 consumer warps score a stage and
+//     release it on its own mbarrier, so the producer refills it while they
+//     score the next: no block-wide barrier per step;
 //   - route "ldg" (any other shape the contract admits: unaligned codes, m
 //     not a multiple of 16 in rows, K * cap not a multiple of 16 in cols,
 //     m > 128) reads the codes from global memory as the first design did:
@@ -71,10 +76,9 @@ constexpr int kResidentM = 128;                    // m <= 128: the table stays 
 constexpr int kResidentChunks = kResidentM / kMChunk;
 constexpr int kRing = 4;                           // ldg, m > 128: table chunks in flight
 constexpr int kStageBytes = kMaxTile * kMChunk;    // tma: one round's codes of one chunk
-constexpr int kMaxStages = 3;
+constexpr int kMaxStages = 4;
 constexpr int kBarBytes = 128;                     // barriers at the front of shared memory
-constexpr int kSortMax = 1024;                     // tma: a block's tiles walked in cluster order
-constexpr int kOrderBytes = kSortMax * 2;
+static_assert((kResidentChunks + 2 * kMaxStages) * 8 <= kBarBytes, "barriers");
 
 struct AdcArgs {
   const uint8_t* codes;
@@ -119,6 +123,11 @@ __device__ __forceinline__ void cols_chunk(float (&acc)[kMaxSlots], const uint8_
   }
 }
 
+// route "tma", rows: code bytes of a slot per step. 32 (two table chunks)
+// where m allows, so that a box row is a whole 32-byte sector of L2; 16
+// otherwise.
+__host__ __device__ __forceinline__ int row_step(int m) { return m % 32 == 0 ? 32 : 16; }
+
 // this block's share [t_begin, t_begin + n_my) of the query's n_tiles tiles
 __device__ __forceinline__ void block_tiles(int n_tiles, int& t_begin, int& n_my) {
   t_begin = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
@@ -126,102 +135,88 @@ __device__ __forceinline__ void block_tiles(int n_tiles, int& t_begin, int& n_my
 }
 
 // ---- route "tma" ----
-// One block per (query, share of its tiles): blockIdx.y is the query. map:
-// rows, [K * cap] x [m] bytes with boxes of 16 x tile; cols, [m] x [K * cap]
-// with boxes of tile x 16.
+// One block per (query, share of its tiles): blockIdx.y is the query; 8
+// consumer warps and one producer warp. map:
+// rows, [K * cap] x [m] bytes with boxes of row_step(m) x tile; cols,
+// [m] x [K * cap] with boxes of tile x 16.
 template <bool kCols>
-__global__ void __launch_bounds__(kAdcThreads, 2)
+__global__ void __launch_bounds__(kAdcThreads + 32, 2)
 pq_adc_tma_kernel(const __grid_constant__ CUtensorMap map, const AdcArgs a) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* tab_bar = reinterpret_cast<uint64_t*>(smem);  // [kResidentChunks]
-  uint64_t* full = tab_bar + kResidentChunks;             // [kMaxStages]
+  uint64_t* full = tab_bar + kResidentChunks;             // [kMaxStages] codes arrived
+  uint64_t* empty = full + kMaxStages;                    // [kMaxStages] codes read
   const int n_ch = (a.m + kMChunk - 1) / kMChunk;
-  uint16_t* order = reinterpret_cast<uint16_t*>(smem + kBarBytes);  // [kSortMax]
-  float* tab = reinterpret_cast<float*>(smem + kBarBytes + kOrderBytes);
-  uint8_t* ring = smem + kBarBytes + kOrderBytes + n_ch * kChunkFloats * 4;
+  float* tab = reinterpret_cast<float*>(smem + kBarBytes);
+  uint8_t* ring = smem + kBarBytes + n_ch * kChunkFloats * 4;
   const int bw = a.tile, tp = (a.cap + bw - 1) / bw;  // tiles per probe
-  const int per_round = kMaxTile / bw, box = bw * kMChunk, S = a.stages;
+  // a step brings, for each tile of a round, 16 subspaces (cols) or rb code
+  // bytes of every slot (rows); a stage holds a round's step
+  const int rb = kCols ? kMChunk : row_step(a.m), n_st = kCols ? n_ch : a.m / rb;
+  const int per_round = min(kMaxTile, kStageBytes / rb) / bw, box = bw * rb, S = a.stages;
   const int q = blockIdx.y, tid = threadIdx.x;
   const int* probe_q = a.probe + (long long)q * a.P;
   int t_begin, n_my;
   block_tiles(a.n_tiles, t_begin, n_my);
   const int rounds = (n_my + per_round - 1) / per_round;
-  const int steps = rounds * n_ch;  // (round, chunk) pairs
+  const int steps = rounds * n_st;  // (round, step of the round) pairs
 
   if (tid == 0) {
     for (int i = 0; i < kResidentChunks + kMaxStages; ++i) mbar_init(&tab_bar[i], 1);
+    for (int i = 0; i < kMaxStages; ++i) mbar_init(&empty[i], kAdcThreads / 32);
     fence_barrier_init();
   }
   __syncthreads();
   if (n_my == 0) return;
 
-  const float* lut_q = a.lut + (long long)q * a.m * kPqK;
-  if (tid == 0) {
-    for (int c = 0; c < n_ch; ++c) {
-      mbar_arrive_expect_tx(&tab_bar[c], chunk_bytes(c, a.m));
-      bulk_load(tab + c * kChunkFloats, lut_q + c * kChunkFloats, chunk_bytes(c, a.m),
-                &tab_bar[c]);
-    }
-  }
-  // The block walks its tiles in ascending cluster id (ties in tile order),
-  // so the blocks of all queries sweep the clusters together and a block
-  // probed by several queries is read from L2 after the first. order[i]:
-  // the i-th tile walked (the ring, still empty, holds the keys meanwhile).
-  const bool sorted = n_my <= kSortMax;
-  if (sorted) {
-    int* key = reinterpret_cast<int*>(ring);
-    for (int i = tid; i < n_my; i += kAdcThreads) {
-      const int cl = probe_q[(t_begin + i) / tp];
-      key[i] = cl >= 0 && cl < a.n_clusters ? cl : a.n_clusters;
-    }
-    __syncthreads();
-    for (int i = tid; i < n_my; i += kAdcThreads) {
-      const int ki = key[i];
-      int rank = 0;
-      for (int j = 0; j < n_my; ++j) {
-        const int kj = key[j];
-        rank += kj < ki || (kj == ki && j < i);
-      }
-      order[rank] = (uint16_t)i;
-    }
-    __syncthreads();
-  }
-  auto tile_at = [&](int i) { return t_begin + (sorted ? (int)order[i] : i); };
-
-  // thread 0: the boxes of step k (chunk k % n_ch of round k / n_ch) into
-  // stage k % S; tiles under an id outside [0, K) are skipped
+  // the producer: the last warp's lane 0 loads the table, then keeps the
+  // ring full, refilling a stage once the 8 consumer warps have read it
   const CUtensorMap* codes_map = &map;
-  auto issue = [&](int k) {
-    const int rr = k / n_ch, c = k % n_ch;
+  auto issue = [&](int k) {  // the boxes of step k (step k % n_st of round
+                             // k / n_st) into stage k % S; tiles under an id
+                             // outside [0, K) are skipped
+    const int rr = k / n_st, c = k % n_st;
     const int u_n = min(per_round, n_my - rr * per_round);
     uint64_t* bar = &full[k % S];
     uint8_t* dst = ring + (k % S) * kStageBytes;
     int n_valid = 0;
     for (int u = 0; u < u_n; ++u) {
-      const int cl = probe_q[tile_at(rr * per_round + u) / tp];
+      const int cl = probe_q[(t_begin + rr * per_round + u) / tp];
       n_valid += cl >= 0 && cl < a.n_clusters;
     }
     mbar_arrive_expect_tx(bar, (uint32_t)(n_valid * box));
     for (int u = 0; u < u_n; ++u) {
-      const int t = tile_at(rr * per_round + u), p = t / tp;
+      const int t = t_begin + rr * per_round + u, p = t / tp;
       const int cl = probe_q[p];
       if (cl < 0 || cl >= a.n_clusters) continue;
       const int s0 = cl * a.cap + (t - p * tp) * bw;
       if (kCols) {
         tma_load_2d(dst + u * box, codes_map, bar, s0, c * kMChunk);
       } else {
-        tma_load_2d(dst + u * box, codes_map, bar, c * kMChunk, s0);
+        tma_load_2d(dst + u * box, codes_map, bar, c * rb, s0);
       }
     }
   };
-  if (tid == 0) {
-    for (int k = 0; k < min(S, steps); ++k) issue(k);
+  if (tid >= kAdcThreads) {
+    if (tid == kAdcThreads) {
+      const float* lut_q = a.lut + (long long)q * a.m * kPqK;
+      for (int c = 0; c < n_ch; ++c) {
+        mbar_arrive_expect_tx(&tab_bar[c], chunk_bytes(c, a.m));
+        bulk_load(tab + c * kChunkFloats, lut_q + c * kChunkFloats, chunk_bytes(c, a.m),
+                  &tab_bar[c]);
+      }
+      for (int k = 0; k < steps; ++k) {
+        if (k >= S) mbar_wait(&empty[k % S], (k / S - 1) & 1);
+        issue(k);
+      }
+    }
+    return;
   }
 
   for (int rr = 0; rr < rounds; ++rr) {
     const int u_n = min(per_round, n_my - rr * per_round);
     // this thread's slots of the round: rows, round slots tid + 256 i
-    // (16 bytes each in a stage); cols, round slots 4 tid .. 4 tid + 3 (one
+    // (rb bytes each in a stage); cols, round slots 4 tid .. 4 tid + 3 (one
     // 4-byte word of each of a stage's 16 rows of the tile)
     long long dst[kMaxSlots];
     bool live[kMaxSlots], valid[kMaxSlots];
@@ -231,46 +226,50 @@ pq_adc_tma_kernel(const __grid_constant__ CUtensorMap map, const AdcArgs a) {
     for (int i = 0; i < kMaxSlots; ++i) {
       const int s = kCols ? 4 * tid + i : tid + i * kAdcThreads;
       const int u = s / bw, col = s - u * bw;
-      const int t = u < u_n ? tile_at(rr * per_round + u) : t_begin;
-      const int p = t / tp, sub = t - p * tp;
+      const int t = t_begin + rr * per_round + u, p = t / tp, sub = t - p * tp;
       live[i] = u < u_n && sub * bw + col < a.cap;
       const int cl = live[i] ? probe_q[p] : 0;
       valid[i] = cl >= 0 && cl < a.n_clusters;
       dst[i] = ((long long)q * a.P + p) * a.cap + sub * bw + col;
-      off[i] = kCols ? u * box + col : s * kMChunk;
+      off[i] = kCols ? u * box + col : s * rb;
       acc[i] = 0.f;
     }
-    for (int c = 0; c < n_ch; ++c) {
-      const int k = rr * n_ch + c;
-      if (rr == 0) mbar_wait(&tab_bar[c], 0);
+    for (int c = 0; c < n_st; ++c) {
+      const int k = rr * n_st + c;
       mbar_wait(&full[k % S], (k / S) & 1);
       const uint8_t* st = ring + (k % S) * kStageBytes;
-      const float* t = tab + c * kChunkFloats;
       if (kCols) {
+        const float* t = tab + c * kChunkFloats;
+        if (rr == 0) mbar_wait(&tab_bar[c], 0);
         if (live[0] && a.m - c * kMChunk >= kMChunk) {
           cols_chunk<kMChunk>(acc, st + off[0], bw, t);
         } else if (live[0]) {  // the last 8 subspaces of an m % 16 == 8
           cols_chunk<kMChunk / 2>(acc, st + off[0], bw, t);
         }
-      } else {  // m % 16 == 0: 16 codes per conflict-free 16-byte load
-        uint4 raw[kMaxSlots];
+      } else {  // m % 16 == 0: 16 codes per 16-byte load, one table chunk each
+        for (int h = 0; h < rb / kMChunk; ++h) {
+          const int ch = c * (rb / kMChunk) + h;
+          if (rr == 0) mbar_wait(&tab_bar[ch], 0);
+          const float* t = tab + ch * kChunkFloats;
+          uint4 raw[kMaxSlots];
 #pragma unroll
-        for (int i = 0; i < kMaxSlots; ++i) {
-          if (live[i]) raw[i] = *reinterpret_cast<const uint4*>(st + off[i]);
-        }
+          for (int i = 0; i < kMaxSlots; ++i) {
+            if (live[i]) raw[i] = *reinterpret_cast<const uint4*>(st + off[i] + h * kMChunk);
+          }
 #pragma unroll
-        for (int i = 0; i < kMaxSlots; ++i) {
-          if (!live[i]) continue;
-          float s = acc[i];
-          s = add4(s, t, raw[i].x);
-          s = add4(s, t + 4 * kPqK, raw[i].y);
-          s = add4(s, t + 8 * kPqK, raw[i].z);
-          s = add4(s, t + 12 * kPqK, raw[i].w);
-          acc[i] = s;
+          for (int i = 0; i < kMaxSlots; ++i) {
+            if (!live[i]) continue;
+            float s = acc[i];
+            s = add4(s, t, raw[i].x);
+            s = add4(s, t + 4 * kPqK, raw[i].y);
+            s = add4(s, t + 8 * kPqK, raw[i].z);
+            s = add4(s, t + 12 * kPqK, raw[i].w);
+            acc[i] = s;
+          }
         }
       }
-      __syncthreads();  // every thread is done with this stage: refill it
-      if (tid == 0 && k + S < steps) issue(k + S);
+      __syncwarp();  // the warp is done with this stage
+      if ((tid & 31) == 0) mbar_arrive(&empty[k % S]);
     }
 #pragma unroll
     for (int i = 0; i < kMaxSlots; ++i) {
@@ -392,12 +391,12 @@ pq_adc_ldg_kernel(const AdcArgs a) {
 }
 
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int Q, int blocks, long long smem, cudaStream_t st,
-                   Args... args) {
+cudaError_t launch(Kernel kernel, int Q, int blocks, int threads, long long smem,
+                   cudaStream_t st, Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((unsigned)blocks, (unsigned)Q), kAdcThreads, (size_t)smem, st>>>(args...);
+  kernel<<<dim3((unsigned)blocks, (unsigned)Q), threads, (size_t)smem, st>>>(args...);
   return cudaGetLastError();
 }
 
@@ -443,7 +442,7 @@ extern "C" int rankpo_pq_adc_scores(const void* codes, const int* probe,
   a.m = m;
   a.tile = tile;
   a.n_tiles = (int)n_tiles;
-  a.stages = m <= 64 ? 2 : kMaxStages;  // m <= 64: two blocks share an SM
+  a.stages = m <= 64 ? 3 : kMaxStages;  // m <= 64: two blocks share an SM
   cudaError_t err;
   if (tma) {
     const bool aligned = reinterpret_cast<uintptr_t>(codes) % 16 == 0 && m <= kResidentM &&
@@ -453,18 +452,18 @@ extern "C" int rankpo_pq_adc_scores(const void* codes, const int* probe,
     CUtensorMap map;
     const int rc = layout == 1
                        ? encode_map_u8(&map, codes, n_slots, m, n_slots, tile, kMChunk)
-                       : encode_map_u8(&map, codes, m, n_slots, m, kMChunk, tile);
+                       : encode_map_u8(&map, codes, m, n_slots, m, row_step(m), tile);
     if (rc != 0) return rc;
     const long long smem =
-        kBarBytes + kOrderBytes + (long long)n_ch * kChunkFloats * 4 +
-        (long long)a.stages * kStageBytes;
-    err = layout == 1 ? launch(pq_adc_tma_kernel<true>, Q, blocks, smem, st, map, a)
-                      : launch(pq_adc_tma_kernel<false>, Q, blocks, smem, st, map, a);
+        kBarBytes + (long long)n_ch * kChunkFloats * 4 + (long long)a.stages * kStageBytes;
+    err = layout == 1
+              ? launch(pq_adc_tma_kernel<true>, Q, blocks, kAdcThreads + 32, smem, st, map, a)
+              : launch(pq_adc_tma_kernel<false>, Q, blocks, kAdcThreads + 32, smem, st, map, a);
   } else {
     const long long smem =
         kBarBytes + (long long)(m <= kResidentM ? n_ch : kRing) * kChunkFloats * 4;
-    err = layout == 1 ? launch(pq_adc_ldg_kernel<true>, Q, blocks, smem, st, a)
-                      : launch(pq_adc_ldg_kernel<false>, Q, blocks, smem, st, a);
+    err = layout == 1 ? launch(pq_adc_ldg_kernel<true>, Q, blocks, kAdcThreads, smem, st, a)
+                      : launch(pq_adc_ldg_kernel<false>, Q, blocks, kAdcThreads, smem, st, a);
   }
   return (int)err;
 }

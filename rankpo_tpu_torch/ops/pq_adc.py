@@ -85,7 +85,7 @@ def adc_plan(q_n: int, p_n: int, cap: int, m: int, *, aligned: bool,
     if aligned and m <= RESIDENT_M:
         tile = -(-cap // -(-cap // MAX_BOX) // 16) * 16
         n_tiles = p_n * -(-cap // tile)
-        smem = 128 + 2048 + (n_ch + (2 if m <= 64 else 3)) * CHUNK
+        smem = 128 + (n_ch + (3 if m <= 64 else 4)) * CHUNK
         want = max(1, sms * (2 if smem <= TWO_BLOCKS_SMEM else 1) // q_n)
         return AdcPlan("tma", tile, min(want, n_tiles))
     smem = 128 + (n_ch if m <= RESIDENT_M else RING) * CHUNK

@@ -1,7 +1,7 @@
 """K5/K6 (PQ ADC scores) of this checkout and of another, on the same inputs,
 in turns on one card.
 
-    python3 scripts/pq_adc_compare.py [--parent DIR] [--seed 0]
+    python3 scripts/pq_adc_compare.py [--parent DIR] [--seed 0] [--split]
 
 Builds the scale phase's data and PQ64 index from the seed through
 ``chip_smoke``'s helpers (2^20 unit rows at D 2048 around 8192 centres,
@@ -18,6 +18,17 @@ reads at 32 per clock on each of 132 SMs at the SM clock ``nvidia-smi``
 reads as the card's maximum. It also times this checkout's kernel on
 route "ldg" (the plan for unaligned codes) at every shape and, at P 1 and
 the served shapes, with boxes of half the width on twice the blocks.
+
+With ``--split`` it also builds two altered copies of this checkout's
+kernel and times them at P 1 and 179 (route "tma"): one without the table
+reads (each code adds its own value, so only the code boxes and the
+pipeline remain) and one without the code boxes (the ring's barriers are
+released at once and the lookups read whatever the ring holds). Their
+outputs are not scores; they show which side bounds the kernel. It also
+prints the mean bank conflict of the lookups: over warps of 32 consecutive
+probed slots (8 queries at P 179) and each subspace, the most distinct
+table words that one of the 32 banks is asked for (1 is conflict-free),
+beside the same for uniform random codes.
 
 Times: CUDA events around one call of each version on cold L2, median of
 20, in the order parent, change, change, parent (change twice alone without
@@ -83,10 +94,56 @@ def _parent_fn(parent: str):
     return scores
 
 
+# --split: the altered copies of ops/csrc/pq_adc.cu, as (old text, new text)
+SPLIT_EDITS = {
+    "no table reads": [
+        ("  a += t[w & 255u];\n  a += t[kPqK + ((w >> 8) & 255u)];\n"
+         "  a += t[2 * kPqK + ((w >> 16) & 255u)];\n  a += t[3 * kPqK + (w >> 24)];",
+         "  a += (float)(w & 255u);"),
+        ("    acc[0] += tj[w & 255u];\n    acc[1] += tj[(w >> 8) & 255u];\n"
+         "    acc[2] += tj[(w >> 16) & 255u];\n    acc[3] += tj[w >> 24];",
+         "    acc[0] += (float)(w & 255u);"),
+    ],
+    "no code boxes": [
+        ("mbar_arrive_expect_tx(bar, (uint32_t)(n_valid * box));", "mbar_arrive(bar);"),
+        ("tma_load_2d(dst + u * box, codes_map, bar, s0, c * kMChunk);", "(void)s0;"),
+        ("tma_load_2d(dst + u * box, codes_map, bar, c * rb, s0);", "(void)s0;"),
+    ],
+}
+
+
+def _split_fns(build_dir: str):
+    """ctypes entry points of the --split copies, built with nvcc."""
+    from rankpo_tpu_torch.ops import _build
+
+    os.makedirs(build_dir, exist_ok=True)
+    src = (_build.CSRC / "pq_adc.cu").read_text()
+    fns = {}
+    for name, edits in SPLIT_EDITS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"--split: the kernel source no longer has {old!r}")
+            text = text.replace(old, new)
+        tag = name.replace(" ", "_")
+        cu, so = os.path.join(build_dir, f"{tag}.cu"), os.path.join(build_dir, f"{tag}.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                        "-shared", "-o", so, cu], check=True, capture_output=True)
+        fn = ctypes.CDLL(so).rankpo_pq_adc_scores
+        fn.argtypes = _build._SIGNATURES["rankpo_pq_adc_scores"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", default=None, help="another checkout's root")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--split", action="store_true",
+                        help="also time the kernel without table reads and without code boxes")
     args = parser.parse_args()
     card = _nvidia_smi("name,power.limit")
     clock_mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
@@ -178,10 +235,44 @@ def main() -> None:
     lut = torch.bmm(q_sub, cbm.transpose(1, 2)).transpose(0, 1).contiguous()
     rows = index.corpus
     cols = rows.T.contiguous()
+    split = _split_fns(os.path.join(HERE, "rankpo_tpu_torch", "ops", "_build", "split")) \
+        if args.split else {}
     for p in P_SWEEP:
         probe32 = index._probe_clusters(q, p)[0].to(torch.int32).contiguous()
         for layout, codes in ((0, rows), (1, cols)):
             compare("scale", codes, probe32, lut, cap, layout, variants_of(64, p, cap, p == 1))
+            if p not in (1, 179):
+                continue
+            plan = pq_adc.adc_plan(64, p, cap, m, aligned=True)
+            for name, fn in split.items():
+                out = torch.empty((64, p, cap), dtype=torch.float32, device="cuda")
+
+                def call(fn=fn, codes=codes, out=out, layout=layout):
+                    rc = fn(codes.data_ptr(), probe32.data_ptr(), lut.data_ptr(),
+                            out.data_ptr(), index.n_clusters, 64, p, cap, m, layout, 1,
+                            plan.tile, plan.blocks, torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"--split copy launch failed: cudaError {rc}")
+
+                ms = smoke.cuda_ms(call, before=smoke._l2_flush)
+                print(f"  split {('rows', 'cols')[layout]} P {p}, {name}: {ms:.4f} ms",
+                      flush=True)
+    if args.split:
+        def worst_bank(codes32):  # [W, 32 slots, m] -> mean of the busiest bank's words
+            total = 0.0
+            for lo in range(0, codes32.shape[0], 4096):
+                b = codes32[lo:lo + 4096].long()
+                words = torch.zeros(b.shape[0], m, PQ_K, dtype=torch.bool, device="cuda")
+                words.scatter_(2, b.permute(0, 2, 1), True)
+                total += words.view(b.shape[0], m, 8, 32).sum(2).amax(-1).float().sum().item()
+            return total / (codes32.shape[0] * m)
+
+        probe8 = index._probe_clusters(q[:8], 179)[0]
+        warps = rows.view(-1, cap, m)[probe8.long()].reshape(-1, 32, m)
+        rand = torch.randint(0, 256, warps.shape, device="cuda", dtype=torch.uint8)
+        print(f"  split: busiest bank, distinct words per warp lookup: index codes "
+              f"{worst_bank(warps):.3f}, uniform random codes {worst_bank(rand):.3f}",
+              flush=True)
     del rows, cols, index
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 11)

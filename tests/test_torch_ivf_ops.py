@@ -223,7 +223,7 @@ def test_adc_plan_is_a_launch_the_kernel_takes(q_n, p_n, cap, m, aligned):
     if plan.route == "tma":
         assert plan.tile <= pq_adc.MAX_BOX and plan.tile >= cap / -(-cap // pq_adc.MAX_BOX)
         assert (pq_adc.MAX_TILE // plan.tile) * plan.tile * 16 <= pq_adc.CHUNK
-        smem = 128 + 2048 + (-(-m // 16) + (2 if m <= 64 else 3)) * pq_adc.CHUNK
+        smem = 128 + (-(-m // 16) + (3 if m <= 64 else 4)) * pq_adc.CHUNK
     else:
         assert plan.tile <= pq_adc.MAX_TILE
         smem = 128 + (-(-m // 16) if m <= pq_adc.RESIDENT_M else pq_adc.RING) * pq_adc.CHUNK
