@@ -1330,10 +1330,9 @@ def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
         name, lambda: fn(codes, probe32, lut, cap=cap), lambda: plain(codes, probe32, lut, cap=cap),
         compose, nbytes, q_n * p * cap * m, f"{label}, m {m}")
     out["route"] = [r for r, n in pq_adc.route_launches.items() if n > routes[r]]
-    out["plan"] = pq_adc.adc_plan(
-        q_n, p, cap, m, aligned=codes.data_ptr() % 16 == 0 and codes.shape[1] % 16 == 0)
+    out["plan"] = pq_adc.plan_for(codes, probe32, cap, m)
     # the other floor: every lookup is a shared-memory read, 32 a clock on
-    # each SM at best (random codes put 3-4 words on a warp's busiest bank)
+    # each SM at best (random codes ask one bank for about 3 words at once)
     mhz = sm_clock_mhz()
     out["lookup_floor_ms"] = q_n * p * cap * m / (PQ_LOOKUPS_PER_CLOCK * mhz * 1e6) * 1e3
     log(f"  {name} route {', '.join(out['route'])}, {out['plan']}; lookup floor "
@@ -1454,7 +1453,7 @@ def phase_index_scale(seed: int) -> dict:
             # table products, the sorts, the rest)
             times = profile_device_ms(lambda: index.search_tensor(queries[:64], 100), n=5)
             busy = sum(times.values())
-            k56 = sum(t for name, t in times.items() if "pq_adc_kernel" in name)
+            k56 = sum(t for name, t in times.items() if "pq_adc_" in name)
             results[kind]["batch_busy_ms"], results[kind]["batch_k56_ms"] = busy, k56
             top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
             log(f"IVF {kind} one batch of 64 at k 100 (device time, profiler, mean of 5): busy "

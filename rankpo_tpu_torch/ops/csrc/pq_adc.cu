@@ -75,7 +75,7 @@ constexpr int kChunkFloats = kMChunk * kPqK;       // 16 KB
 constexpr int kResidentM = 128;                    // m <= 128: the table stays resident
 constexpr int kResidentChunks = kResidentM / kMChunk;
 constexpr int kRing = 4;                           // ldg, m > 128: table chunks in flight
-constexpr int kStageBytes = kMaxTile * kMChunk;    // tma: one round's codes of one chunk
+constexpr int kStageBytes = kMaxTile * kMChunk;    // tma: one round's codes of one step
 constexpr int kMaxStages = 4;
 constexpr int kBarBytes = 128;                     // barriers at the front of shared memory
 static_assert((kResidentChunks + 2 * kMaxStages) * 8 <= kBarBytes, "barriers");
@@ -110,8 +110,8 @@ __device__ __forceinline__ float add4(float a, const float* t, uint32_t w) {
 // codes of four consecutive slots: byte i of the 4-byte word at
 // codes + jj * pitch for subspace jj
 template <int N>
-__device__ __forceinline__ void cols_chunk(float (&acc)[kMaxSlots], const uint8_t* codes, int pitch,
-                                           const float* t) {
+__device__ __forceinline__ void cols_chunk(float (&acc)[kMaxSlots], const uint8_t* codes,
+                                           int pitch, const float* t) {
 #pragma unroll
   for (int jj = 0; jj < N; ++jj) {
     const uint32_t w = *reinterpret_cast<const uint32_t*>(codes + jj * pitch);

@@ -66,8 +66,11 @@ class AdcPlan:
     blocks: int
 
 
-def adc_plan(q_n: int, p_n: int, cap: int, m: int, *, aligned: bool,
-             sms: int = SMS) -> AdcPlan:
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def adc_plan(q_n: int, p_n: int, cap: int, m: int, *, aligned: bool) -> AdcPlan:
     """The launch for Q queries of P probes over clusters of ``cap`` slots
     with m subspaces; ``aligned``: the codes' start and row pitch (m bytes
     for rows, K * cap for cols) are multiples of 16 bytes.
@@ -81,20 +84,27 @@ def adc_plan(q_n: int, p_n: int, cap: int, m: int, *, aligned: bool,
     - Blocks per query: as many as fill the card once, two per SM where the
       shared memory allows, or one per tile if the query has fewer.
     """
-    n_ch = -(-m // 16)
+    n_ch = _cdiv(m, 16)
     if aligned and m <= RESIDENT_M:
-        tile = -(-cap // -(-cap // MAX_BOX) // 16) * 16
-        n_tiles = p_n * -(-cap // tile)
+        tile = _cdiv(_cdiv(cap, _cdiv(cap, MAX_BOX)), 16) * 16
+        n_tiles = p_n * _cdiv(cap, tile)
         smem = 128 + (n_ch + (3 if m <= 64 else 4)) * CHUNK
-        want = max(1, sms * (2 if smem <= TWO_BLOCKS_SMEM else 1) // q_n)
+        want = max(1, SMS * (2 if smem <= TWO_BLOCKS_SMEM else 1) // q_n)
         return AdcPlan("tma", tile, min(want, n_tiles))
     smem = 128 + (n_ch if m <= RESIDENT_M else RING) * CHUNK
-    want = max(1, sms * (2 if smem <= TWO_BLOCKS_SMEM else 1) // q_n)
+    want = max(1, SMS * (2 if smem <= TWO_BLOCKS_SMEM else 1) // q_n)
     n = p_n * cap
     least = 64 if m <= RESIDENT_M else 256  # a streamed table is loaded per tile
-    tile = min(MAX_TILE, max(least, -(-(-(-n // want)) // 16) * 16), -(-n // 16) * 16)
-    n_tiles = -(-n // tile)
-    return AdcPlan("ldg", tile, min(want, n_tiles))
+    tile = min(MAX_TILE, max(least, _cdiv(_cdiv(n, want), 16) * 16), _cdiv(n, 16) * 16)
+    return AdcPlan("ldg", tile, min(want, _cdiv(n, tile)))
+
+
+def plan_for(codes: torch.Tensor, probe: torch.Tensor, cap: int, m: int) -> AdcPlan:
+    """:func:`adc_plan` for these codes (rows ``[K * cap, m]`` or cols
+    ``[m, K * cap]``: ``codes.shape[1]`` is the row pitch either way) and
+    probe ``[Q, P]``."""
+    return adc_plan(probe.shape[0], probe.shape[1], cap, m,
+                    aligned=codes.data_ptr() % 16 == 0 and codes.shape[1] % 16 == 0)
 
 
 def _lut_sum(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -153,8 +163,7 @@ def _launch(codes, probe, lut, cap, m, n_slots, layout, plan=None):
     if lutf.data_ptr() % 16:  # the table's bulk copies start on 16 bytes
         lutf = lutf.clone()
     if plan is None:
-        plan = adc_plan(q_n, p_n, cap, m,
-                        aligned=codes.data_ptr() % 16 == 0 and codes.shape[1] % 16 == 0)
+        plan = plan_for(codes, probe, cap, m)
 
     from rankpo_tpu_torch.ops._build import load_library
 

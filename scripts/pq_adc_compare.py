@@ -53,7 +53,6 @@ import torch  # noqa: E402
 
 P_SWEEP = (1, 8, 32, 64, 179)
 SERVED = (64, 128, 18)  # K, cap, P of the served IVF64,PQ64 tier
-LOOKUPS_PER_CLOCK = 132 * 32  # shared-memory reads without a bank conflict
 
 
 def _module(name, path):
@@ -61,11 +60,6 @@ def _module(name, path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def _nvidia_smi(query: str) -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def _parent_fn(parent: str):
@@ -145,11 +139,9 @@ def main() -> None:
     parser.add_argument("--split", action="store_true",
                         help="also time the kernel without table reads and without code boxes")
     args = parser.parse_args()
-    card = _nvidia_smi("name,power.limit")
-    clock_mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
-    print(f"card: {card}; SM clock (max) {clock_mhz:.0f} MHz", flush=True)
-
     smoke = _module("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    card, clock_mhz = smoke.card_line(), smoke.sm_clock_mhz()
+    print(f"card: {card}; SM clock (max) {clock_mhz:.0f} MHz", flush=True)
     from rankpo_tpu_torch.index.ivf import PQ_K, IVFIPIndex, _bf16
     from rankpo_tpu_torch.ops import _build, pq_adc
 
@@ -183,9 +175,8 @@ def main() -> None:
                   + q_n * p_n * cap * 4)
         bound_ms = nbytes / smoke.PEAK_HBM_BYTES * 1e3
         lookups = q_n * p_n * cap * m
-        floor_ms = lookups / (LOOKUPS_PER_CLOCK * clock_mhz * 1e6) * 1e3
-        plan = pq_adc.adc_plan(q_n, p_n, cap, m,
-                               aligned=codes.data_ptr() % 16 == 0 and codes.shape[1] % 16 == 0)
+        floor_ms = lookups / (smoke.PQ_LOOKUPS_PER_CLOCK * clock_mhz * 1e6) * 1e3
+        plan = pq_adc.plan_for(codes, probe32, cap, m)
         outs, times = {}, {v: [] for v in versions}
         for v in order:
             fn = versions[v]

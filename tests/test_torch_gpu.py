@@ -525,8 +525,7 @@ def test_pq_adc_kernels_match_plain(cuda, layout, q_n, p_n, cap, m, offset):
                  else (pq_adc.pq_probe_scores, pq_adc.pq_probe_scores_plain))
     name = f"pq_adc_{layout}"
     pitch = n_clusters * cap if cols else m  # bytes from one row of codes to the next
-    plan = pq_adc.adc_plan(q_n, p_n, cap, m,
-                           aligned=codes.data_ptr() % 16 == 0 and pitch % 16 == 0)
+    plan = pq_adc.plan_for(codes, probe, cap, m)
     assert plan.route == ("tma" if offset == 0 and m <= 128 and pitch % 16 == 0 else "ldg")
     before, routes = dict(pq_adc.launches), dict(pq_adc.route_launches)
     got = fn(codes, probe, lut, cap=cap)

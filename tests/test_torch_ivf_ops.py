@@ -242,3 +242,16 @@ def test_adc_plan_fills_the_card_at_small_nprobe():
     assert pq_adc.adc_plan(1, 18, 128, 64, aligned=True) == pq_adc.AdcPlan("tma", 128, 18)
     assert pq_adc.adc_plan(64, 179, 384, 64, aligned=True) == pq_adc.AdcPlan("tma", 192, 4)
     assert pq_adc.adc_plan(64, 179, 384, 64, aligned=False).route == "ldg"
+
+
+@pytest.mark.parametrize("layout,m,cap,route", [("rows", 64, 384, "tma"), ("rows", 24, 384, "ldg"),
+                                                ("cols", 24, 384, "tma"), ("cols", 64, 37, "ldg")])
+def test_plan_for_reads_the_codes_pitch(layout, m, cap, route):
+    """The route follows the codes' row pitch: m bytes for rows, K * cap for
+    cols (K 6 here, so cap 37 gives an odd pitch)."""
+    n_slots = K * cap
+    codes = torch.zeros((n_slots, m) if layout == "rows" else (m, n_slots), dtype=torch.uint8)
+    assert codes.data_ptr() % 16 == 0
+    plan = pq_adc.plan_for(codes, torch.zeros(Q, P, dtype=torch.int32), cap, m)
+    assert plan == pq_adc.adc_plan(Q, P, cap, m, aligned=route == "tma")
+    assert plan.route == route
