@@ -21,12 +21,13 @@
 // shared memory and m adds, and each (query, probe) pair reads its cluster's
 // codes: at the bf16 index's probe set (Q 64, P 179, cap 384, m 64) that is
 // 282 M lookups and 282 MB of code reads, of which 116 MB are distinct (the
-// byte bound, 0.035 ms). The lookups alone take about 0.1 ms (a warp's 32
-// lookups of one subspace hit random banks: ~2 distinct words on the busiest
-// bank for the index's codes, ~3 for uniform random ones); the code reads
-// alone, through L2, take longer, so the design's aim is to keep both going
-// at once. At small P (P 1: 1.6 M lookups) the query tables (64 KB each) and
-// the launch are the cost. The design:
+// byte bound, 0.035 ms). On an H100 the lookups alone take 0.10-0.14 ms (a
+// warp's 32 lookups of one subspace hit random banks: ~2 distinct words on
+// the busiest bank for the index's codes, ~3 for uniform random ones) and
+// the code reads alone 0.11-0.13 ms (scripts/pq_adc_compare.py --split), so
+// the design's aim is to keep both going at once. At small P (P 1: 1.6 M
+// lookups) the query tables (64 KB each) and the launch are the cost. The
+// design:
 //   - the query's table arrives by TMA: 1-D bulk copies of 16 subspaces
 //     (16 KB), each on its own mbarrier, so lookups on a chunk overlap the
 //     arrival of the next. For m <= 128 the whole table stays resident and is
