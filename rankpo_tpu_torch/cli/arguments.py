@@ -1,5 +1,5 @@
-"""Dataclass-driven CLI parsing for the training entry points (port of
-``rankpo_tpu.cli.arguments``).
+"""Dataclass-driven CLI parsing for the training, evaluation, mining and
+prediction entry points (port of ``rankpo_tpu.cli.arguments``).
 
 The flag surface is the JAX package's (itself the reference's
 ``src/arguments.py``), so the published shell recipes translate unchanged:
@@ -70,6 +70,23 @@ def parse_dataclasses(classes: Sequence[Type], argv: Optional[Sequence[str]] = N
 
 def _json_str(obj) -> str:
     return json.dumps(dataclasses.asdict(obj), indent=2, default=str)
+
+
+def parse_index_kwargs(raw: str) -> Optional[dict]:
+    """Parse the ``index_kwargs`` JSON field (extra ivf constructor knobs on
+    the offline CLIs: the ``index_kwargs`` dict the evaluator and the tools
+    accept, as one flag)."""
+    if not raw:
+        return None
+    try:
+        out = json.loads(raw)
+    except json.JSONDecodeError as e:
+        raise ValueError(f"--index_kwargs is not valid JSON: {e}") from e
+    if not isinstance(out, dict):
+        raise ValueError(
+            f"--index_kwargs must be a JSON object, got {type(out).__name__}"
+        )
+    return out
 
 
 def check_unported(args, unported: dict) -> None:
@@ -189,6 +206,97 @@ class RankPOArguments:
     lora_r: int = dataclasses.field(default=8)
     lora_alpha: float = dataclasses.field(default=16.0)
     lora_target_modules: str = dataclasses.field(default="auto")
+
+    def to_json_string(self):
+        return _json_str(self)
+
+
+_INDEX_TYPE_HELP = ("flat = exact FAISS-parity search; ivf = clustered "
+                    "inverted-file probing (approximate); or a FAISS "
+                    "index_factory-style spec, e.g. 'IVF4096,PQ64'; refine "
+                    "is not ported yet (ROADMAP.md Queue 1 item 4)")
+_INDEX_KWARGS_HELP = ("JSON dict of extra ivf index-constructor knobs, e.g. "
+                      "'{\"pq_m\": 64, \"n_clusters\": 4096}'")
+_DEVICE_HELP = "torch device; 'cuda' fails when no card is visible"
+
+
+@dataclasses.dataclass
+class EvaluateArguments:
+    model_name_or_path: str = dataclasses.field(default=None)
+    tokenizer_name: Optional[str] = dataclasses.field(default=None)
+    query_data: str = dataclasses.field(default=None)
+    corpus_data: str = dataclasses.field(default=None)
+    output_dir: str = dataclasses.field(default="")
+    overwrite_output_dir: bool = dataclasses.field(default=False)
+    evaluate_all_checkpoints: bool = dataclasses.field(default=False)
+    batch_size: int = dataclasses.field(default=256)
+    max_query_length: int = dataclasses.field(default=32)
+    max_passage_length: int = dataclasses.field(default=128)
+    k: int = dataclasses.field(default=100)
+    cutoffs: str = dataclasses.field(default="1,5,10,20,100")
+    bf16: bool = dataclasses.field(default=False)
+    index_type: str = dataclasses.field(default="flat", metadata={"help": _INDEX_TYPE_HELP})
+    index_recall_target: float = dataclasses.field(
+        default=0.95, metadata={"help": "ivf index build-time recall-tune target"})
+    index_kwargs: str = dataclasses.field(default="", metadata={"help": _INDEX_KWARGS_HELP})
+    wandb_project: str = dataclasses.field(default="")
+    log_level: str = dataclasses.field(default="info")
+    device: str = dataclasses.field(default="cuda", metadata={"help": _DEVICE_HELP})
+
+    def to_json_string(self):
+        return _json_str(self)
+
+
+@dataclasses.dataclass
+class HardNegativeArguments:
+    model_name_or_path: str = dataclasses.field(default=None)
+    tokenizer_name: Optional[str] = dataclasses.field(default=None)
+    input_file: str = dataclasses.field(default=None)
+    output_prefix: str = dataclasses.field(default=None)
+    batch_size: int = dataclasses.field(default=32)
+    max_query_length: int = dataclasses.field(default=32)
+    max_passage_length: int = dataclasses.field(default=128)
+    search_range: str = dataclasses.field(default="0-100")
+    method: Optional[str] = dataclasses.field(
+        default=None, metadata={"help": "topk | sample | cluster (comma-joined)"}
+    )
+    num_negatives: int = dataclasses.field(default=10)
+    num_clusters: int = dataclasses.field(default=10)
+    lambda_: Optional[float] = dataclasses.field(default=None)
+    bf16: bool = dataclasses.field(default=False)
+    index_type: str = dataclasses.field(default="flat", metadata={"help": _INDEX_TYPE_HELP})
+    index_recall_target: float = dataclasses.field(
+        default=0.95, metadata={"help": "ivf index build-time recall-tune target"})
+    index_kwargs: str = dataclasses.field(default="", metadata={"help": _INDEX_KWARGS_HELP})
+    seed: int = dataclasses.field(default=42)
+    log_level: str = dataclasses.field(default="info")
+    device: str = dataclasses.field(default="cuda", metadata={"help": _DEVICE_HELP})
+
+    def to_json_string(self):
+        return _json_str(self)
+
+
+@dataclasses.dataclass
+class PredictionArguments:
+    model_name_or_path: str = dataclasses.field(default=None)
+    tokenizer_name: Optional[str] = dataclasses.field(default=None)
+    query_data: str = dataclasses.field(default=None)
+    corpus_data: str = dataclasses.field(default=None)
+    output_file: str = dataclasses.field(default=None)
+    batch_size: int = dataclasses.field(default=32)
+    max_query_length: int = dataclasses.field(default=32)
+    max_passage_length: int = dataclasses.field(default=128)
+    search_range: str = dataclasses.field(default="0-100")
+    method: str = dataclasses.field(default="topk")
+    num_predictions: int = dataclasses.field(default=10)
+    bf16: bool = dataclasses.field(default=False)
+    index_type: str = dataclasses.field(default="flat", metadata={"help": _INDEX_TYPE_HELP})
+    index_recall_target: float = dataclasses.field(
+        default=0.95, metadata={"help": "ivf index build-time recall-tune target"})
+    index_kwargs: str = dataclasses.field(default="", metadata={"help": _INDEX_KWARGS_HELP})
+    seed: int = dataclasses.field(default=42)
+    log_level: str = dataclasses.field(default="info")
+    device: str = dataclasses.field(default="cuda", metadata={"help": _DEVICE_HELP})
 
     def to_json_string(self):
         return _json_str(self)

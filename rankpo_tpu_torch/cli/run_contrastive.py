@@ -10,11 +10,13 @@
 Output-dir guard, seed, model and tokenizer, the jsonl dataset, the seeded
 collator, then the single-card ``Trainer``; the final model is saved at the
 output directory's root with train_results.json and trainer_history.json.
-``--device cuda`` (the default) fails when no card is visible; ``--device
-cpu`` runs the plain PyTorch path. Not ported yet, each rejected with its
-ROADMAP.md item: HF tokenizers' special tokens and embedding resize,
-streaming, packing, gradient caching, evaluation during training. wandb and
-the model card are skipped with a log line.
+Every saved model directory gets the model card (``README.md``) the JAX
+package writes; ``--wandb_project`` logs the trainer's lines to wandb when
+it is installed and warns otherwise. ``--device cuda`` (the default) fails
+when no card is visible; ``--device cpu`` runs the plain PyTorch path. Not
+ported yet, each rejected with its ROADMAP.md item: HF tokenizers' special
+tokens and embedding resize, streaming, packing, gradient caching,
+evaluation during training.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from rankpo_tpu_torch.train.config import TrainConfig
 from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn
 from rankpo_tpu_torch.train.trainer import Trainer
 from rankpo_tpu_torch.utils.flops import contrastive_sample_flops, contrastive_sample_tokens
+from rankpo_tpu_torch.utils.model_card import write_model_card
+from rankpo_tpu_torch.utils.wandb_utils import maybe_init_wandb
 
 logger = logging.getLogger(__name__)
 
@@ -97,18 +101,16 @@ def build_model(config, state, train_cfg: TrainConfig, device) -> LlamaEncoder:
     )
 
 
-def make_save_fn(config, stage: str):
+def make_save_fn(config, **card):
+    """The trainer's save function: the fp32 model files (the JAX package's
+    load_pretrained reads them too) and the model card, whose arguments
+    ``card`` (stage, tags, base_model, training_args) are the JAX CLI's."""
     def save_params_fn(directory: str, model: torch.nn.Module) -> None:
-        # fp32 files: the JAX package's load_pretrained reads them too
         save_pretrained(directory, config, model.state_dict(), dtype=torch.float32)
-        logger.info("%s: model card not written (ROADMAP.md Queue 1 item 3)", stage)
+        # push_to_hub tagging analog (reference rankpo_trainer.py:647-654)
+        write_model_card(directory, **card)
 
     return save_params_fn
-
-
-def log_skipped(train_cfg: TrainConfig) -> None:
-    if train_cfg.wandb_project:
-        logger.info("wandb logging is not ported; skipped (ROADMAP.md Queue 1 item 3)")
 
 
 def write_results(train_cfg: TrainConfig, trainer: Trainer, history, n_rows: int,
@@ -140,7 +142,6 @@ def main(argv=None):
     device = resolve_device(train_cfg.device)  # before any loading: no CPU fallback
     guard_output_dir(train_cfg)
     set_seed(train_cfg.seed)
-    log_skipped(train_cfg)
     logger.info("model args:\n%s", model_args.to_json_string())
     logger.info("data args:\n%s", data_args.to_json_string())
     logger.info("train config:\n%s", train_cfg.to_json_string())
@@ -174,10 +175,21 @@ def main(argv=None):
         attn_impl=model_args.attn_impl,
     )
     group_size = 1 + data_args.num_negatives
-    save_fn = make_save_fn(config, "contrastive")
+    save_fn = make_save_fn(
+        config, stage="contrastive",
+        tags=["rankpo_tpu", "contrastive", "dense-retrieval"],
+        base_model=model_args.model_name_or_path,
+        training_args={
+            "temperature": c_args.temperature,
+            "negatives_cross_device": c_args.negatives_cross_device,
+            "learning_rate": train_cfg.learning_rate,
+            "per_device_train_batch_size": train_cfg.per_device_train_batch_size,
+        },
+    )
     trainer = Trainer(
         loss_fn=loss_fn, model=model, config=train_cfg,
         total_steps=max(total_steps, 1), save_params_fn=save_fn,
+        log_fn=maybe_init_wandb(train_cfg.wandb_project, train_cfg.run_name),
         # analytic FLOPs and tokens at the static padded lengths
         sample_flops=contrastive_sample_flops(
             config, query_len=data_args.max_query_length,

@@ -10,8 +10,10 @@
 Loads the stage-1 checkpoint, optionally a frozen reference model (unless
 ``--reference_free``; kept in the compute dtype and run under
 ``torch.no_grad``), the annotated pair jsonl, and trains with the
-sigmoid/hinge preference loss on the single-card ``Trainer``. LoRA is not
-ported yet (ROADMAP.md Queue 1 item 7).
+sigmoid/hinge preference loss on the single-card ``Trainer``; the saved
+directories get the JAX package's model card, and ``--wandb_project`` logs
+to wandb when it is installed. LoRA is not ported yet (ROADMAP.md Queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from rankpo_tpu_torch.cli.arguments import (
 from rankpo_tpu_torch.cli.run_contrastive import (
     build_model,
     guard_output_dir,
-    log_skipped,
     make_save_fn,
     set_seed,
     setup_model_and_tokenizer,
@@ -48,6 +49,7 @@ from rankpo_tpu_torch.train.config import TrainConfig
 from rankpo_tpu_torch.train.steps import make_rankpo_loss_fn
 from rankpo_tpu_torch.train.trainer import Trainer
 from rankpo_tpu_torch.utils.flops import rankpo_sample_flops, rankpo_sample_tokens
+from rankpo_tpu_torch.utils.wandb_utils import maybe_init_wandb
 
 logger = logging.getLogger(__name__)
 
@@ -63,7 +65,6 @@ def main(argv=None):
     device = resolve_device(train_cfg.device)  # before any loading: no CPU fallback
     guard_output_dir(train_cfg)
     set_seed(train_cfg.seed)
-    log_skipped(train_cfg)
     logger.info("model args:\n%s", model_args.to_json_string())
     logger.info("rankpo args:\n%s", r_args.to_json_string())
 
@@ -105,10 +106,22 @@ def main(argv=None):
         reference_free=r_args.reference_free, ref_model=ref_model,
         disable_dropout=r_args.disable_dropout, attn_impl=model_args.attn_impl,
     )
-    save_fn = make_save_fn(config, "rankpo")
+    save_fn = make_save_fn(
+        config, stage="rankpo",
+        tags=["rankpo_tpu", "rankpo", "preference-optimization", "dense-retrieval"],
+        base_model=model_args.model_name_or_path,
+        training_args={
+            "loss_type": r_args.loss_type,
+            "beta": r_args.beta,
+            "temperature": r_args.temperature,
+            "reference_free": r_args.reference_free,
+            "learning_rate": train_cfg.learning_rate,
+        },
+    )
     trainer = Trainer(
         loss_fn=loss_fn, model=model, config=train_cfg,
         total_steps=max(total_steps, 1), save_params_fn=save_fn,
+        log_fn=maybe_init_wandb(train_cfg.wandb_project, train_cfg.run_name),
         sample_flops=rankpo_sample_flops(
             config, query_len=data_args.max_query_length,
             passage_len=data_args.max_passage_length,

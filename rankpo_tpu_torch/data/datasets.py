@@ -1,5 +1,5 @@
-"""Tokenized in-memory datasets for training and corpus loading for serving
-(port of ``rankpo_tpu.data.datasets`` and ``rankpo_tpu.utils.jsonl.iter_jsonl``).
+"""Tokenized in-memory datasets for training, and the loaders of the eval,
+corpus and mining files (port of ``rankpo_tpu.data.datasets``).
 
 Rows are tokenized eagerly on load with one batched tokenizer call per field;
 the result is plain lists of variable-length id sequences consumed by the
@@ -8,21 +8,43 @@ static-shape collators (``data/collators.py``).
 
 from __future__ import annotations
 
-import json
-from typing import Iterator, List
+from typing import List, Tuple
+
+from rankpo_tpu_torch.utils.jsonl import iter_jsonl
 
 
-def iter_jsonl(path: str) -> Iterator[dict]:
-    with open(path, "r", encoding="utf-8") as f:
-        for line in f:
-            line = line.strip()
-            if line:
-                yield json.loads(line)
+def load_eval_queries(path: str) -> Tuple[List[str], List[List[int]]]:
+    """Eval query file: {"query": {"text"}, "positives": {"index"}}
+    (reference evaluate.py:144-151). Returns (query texts, label index lists)."""
+    queries, labels = [], []
+    for d in iter_jsonl(path):
+        queries.append(d["query"]["text"])
+        labels.append(d["positives"]["index"])
+    return queries, labels
 
 
 def load_eval_corpus(path: str) -> List[str]:
     """Eval corpus file: {"text": ...} per line (reference evaluate.py:153-158)."""
     return [d["text"] for d in iter_jsonl(path)]
+
+
+def load_mining_rows(path: str) -> Tuple[List[dict], List[str], List[str]]:
+    """Mining input: rows with {"query": {"text"}, "positives": {"text": []},
+    optional "negatives": {"text": []}} (reference get_hard_negatives.py:186-218).
+    Returns (train rows with raw text, query texts, deduped corpus). The
+    corpus keeps first-insertion order (positives, then negatives, row by
+    row): mined files index into it, so the order is part of the format."""
+    train_rows, queries, corpus = [], [], []
+    for d in iter_jsonl(path):
+        positives = d["positives"]["text"]
+        if not isinstance(positives, list):
+            raise ValueError(f"positives.text must be a list, got {type(positives).__name__}")
+        corpus.extend(positives)
+        if "negatives" in d:
+            corpus.extend(d["negatives"]["text"])
+        train_rows.append({"query": d["query"]["text"], "positives": positives})
+        queries.append(d["query"]["text"])
+    return train_rows, queries, list(dict.fromkeys(corpus))
 
 
 def _rows(path_or_rows) -> List[dict]:

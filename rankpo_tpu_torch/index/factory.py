@@ -14,6 +14,11 @@ one spec string -> (index_type, kwargs), with the same grammar and errors.
 Storage dtypes are torch dtypes (``torch.int8``, ``torch.bfloat16``). The
 grammar covers tiers the port has not built yet (refine, the PCA hybrid,
 bf16/int8 flat storage); the consumers reject those with their ROADMAP item.
+
+``resolve_offline_index`` and ``build_offline_index`` are the index step of
+the offline tools (evaluation, mining, predictions), as their JAX versions
+build it: the flat tier over fp32 rows, or an IVF index tuned to the tool's
+recall target under the caller's explicit kwargs.
 """
 
 from __future__ import annotations
@@ -160,3 +165,41 @@ def resolve_index_spec(index_type: str, index_kwargs=None) -> Tuple[str, dict]:
     kind, kwargs = parse_index_spec(index_type)
     kwargs.update(index_kwargs)
     return kind, kwargs
+
+
+_NOT_PORTED = "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1, {})"
+
+
+def resolve_offline_index(index_type: str, index_kwargs=None) -> Tuple[str, dict]:
+    """:func:`resolve_index_spec`, then reject what the port has not built.
+    Called before any encode, so a bad spec fails in milliseconds."""
+    kind, kwargs = resolve_index_spec(index_type, index_kwargs)
+    if kind == "refine":
+        raise NotImplementedError(
+            f"index_type {index_type!r} (refine tier): "
+            + _NOT_PORTED.format("item 4, index/refined.py"))
+    if kind == "ivf" and kwargs.get("reduced_dim") is not None:
+        raise NotImplementedError(
+            "ivf reduced_dim: " + _NOT_PORTED.format("item 4, the PCA hybrid"))
+    if kind == "flat" and kwargs.get("dtype", torch.float32) != torch.float32:
+        raise NotImplementedError(
+            f"flat index dtype {kwargs['dtype']}: "
+            + _NOT_PORTED.format("item 5, bf16/int8 flat storage"))
+    return kind, kwargs
+
+
+def build_offline_index(embeddings, n_total: int, index_type: str,
+                        index_kwargs: dict, recall_target: float):
+    """The index over ``embeddings`` [N_buf, D] (rows past ``n_total`` are
+    padding) on their device, for a tier from :func:`resolve_offline_index`."""
+    if index_type == "ivf":
+        from rankpo_tpu_torch.index.ivf import IVFIPIndex
+
+        kwargs = dict(recall_target=recall_target)
+        kwargs.update(index_kwargs)
+        with torch.inference_mode():
+            return IVFIPIndex(embeddings, n_total=n_total, **kwargs)
+    from rankpo_tpu_torch.index.flat import FlatIPIndex
+
+    kwargs = {k: v for k, v in index_kwargs.items() if k != "dtype"}  # fp32 only
+    return FlatIPIndex(embeddings, n_total=n_total, **kwargs)

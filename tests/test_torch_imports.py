@@ -44,6 +44,21 @@ MODULES = [
     "rankpo_tpu_torch.index.factory",
     "rankpo_tpu_torch.index.ivf",
     "rankpo_tpu_torch.index.io",
+    "rankpo_tpu_torch.utils.jsonl",
+    "rankpo_tpu_torch.utils.model_card",
+    "rankpo_tpu_torch.utils.wandb_utils",
+    "rankpo_tpu_torch.eval",
+    "rankpo_tpu_torch.eval.metrics",
+    "rankpo_tpu_torch.eval.evaluator",
+    "rankpo_tpu_torch.tools",
+    "rankpo_tpu_torch.tools.random_negatives",
+    "rankpo_tpu_torch.tools.hard_negatives",
+    "rankpo_tpu_torch.tools.predictions",
+    "rankpo_tpu_torch.cli.evaluate",
+    "rankpo_tpu_torch.cli.get_random_negatives",
+    "rankpo_tpu_torch.cli.get_hard_negatives",
+    "rankpo_tpu_torch.cli.get_predictions",
+    "rankpo_tpu_torch.cli.run_pipeline",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -88,8 +88,9 @@ def test_two_stages_end_to_end_on_cpu(workdir):
         hist1[0]["samples_per_sec"] * (16 + 4 * 32), rel=0.01)
     s1 = _assert_loads_in_both(d / "s1", base)
     assert sorted(os.listdir(d / "s1")) == [
-        "checkpoint-3", "config.json", "model.safetensors", "train_results.json",
-        "trainer_history.json"]
+        "README.md", "checkpoint-3", "config.json", "model.safetensors",
+        "train_results.json", "trainer_history.json"]
+    assert os.path.isfile(d / "s1" / "checkpoint-3" / "README.md")  # the model card
     with open(d / "s1" / "checkpoint-3" / "trainer_state.json") as f:
         assert json.load(f) == {"global_step": 3, "epoch": 0}
     with open(d / "s1" / "train_results.json") as f:
