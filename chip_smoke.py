@@ -45,7 +45,21 @@ PyTorch version. Phases:
    probe sets and storage (and at m 256 and a capacity off the kernels'
    tiles), timed on cold data, K4 beside the corpus bytes its design reads,
    K5/K6 beside their lookup floor with the load route that ran;
-7. numbers.
+7. evaluation path (run after 5, while the checkpoint is still on disk):
+   ``rankpo_tpu_torch.cli.evaluate`` with 256 queries, each a span cut from
+   one of the 4096 passages and labelled with it, flat (K1) then
+   ``--index_type ivf`` (K1, K4): the saved metrics bit-equal to
+   ``compute_metrics`` recomputed on the host over the saved arrays, the
+   flat hits equal to numpy_search over the same embeddings outside
+   near-ties; wall time, queries/s and passages/s per call, and which
+   metric path (sklearn or numpy) ran;
+8. mining and pipeline paths (after 7): ``get_hard_negatives --method
+   topk,cluster --lambda_ 0.5`` over 512 rows (no negative is the query
+   or a positive of its row, every row has its count), ``get_predictions``
+   (Q x C(5, 2) pair rows), and ``run_pipeline --iterations 2`` over 64
+   rows at full width (K1, K2): its final model, its prediction pairs and
+   its peak device memory; which k-means path ran;
+9. numbers.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after. Any failure raises, so the exit code is not 0 and no result line is
@@ -59,6 +73,7 @@ import argparse
 import gc
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -80,6 +95,10 @@ LLAMA3_SCALING = {
 N_PASSAGES = 4096
 N_TRAIN_ROWS = 512
 N_PAIRS = 256
+N_EVAL_QUERIES = 256  # phase 7: spans cut from the serving corpus's passages
+N_MINING_ROWS = 512  # phase 8: hard-negative mining input
+N_PIPELINE_ROWS = 64  # phase 8: run_pipeline's input (its first rows)
+EVAL_CUTOFFS = [1, 5, 10, 20, 100]
 WORDS = [f"w{i}" for i in range(30000)]
 OUT_ATOL = 1.5e-2  # bf16 output rounding (values of order 1) and bf16 P
 LSE_ATOL = 1e-5
@@ -1203,6 +1222,289 @@ def phase_training(ckpt: str, tmp: str, seed: int, base_state: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+def write_eval_queries(tmp: str, seed: int, corpus):
+    """N_EVAL_QUERIES queries, each a span of 4-32 words cut from one
+    passage of ``corpus`` and labelled with that passage's index."""
+    rng = np.random.default_rng(seed + 3)
+    path = os.path.join(tmp, "eval_queries.jsonl")
+    queries, labels = [], []
+    with open(path, "w") as f:
+        for _ in range(N_EVAL_QUERIES):
+            i = int(rng.integers(len(corpus)))
+            words = corpus[i].split()
+            n = min(len(words), int(rng.integers(4, 33)))
+            lo = int(rng.integers(len(words) - n + 1))
+            queries.append(" ".join(words[lo : lo + n]))
+            labels.append([i])
+            f.write(json.dumps({"query": {"text": queries[-1]},
+                                "positives": {"index": labels[-1]}}) + "\n")
+    return path, queries, labels
+
+
+def _sklearn_paths() -> str:
+    """Which metric and k-means paths the port takes on this machine."""
+    from rankpo_tpu_torch.eval import metrics
+
+    try:
+        import sklearn.cluster  # noqa: F401
+        kmeans = "sklearn KMeans"
+    except ImportError:
+        kmeans = "the numpy Lloyd fallback"
+    metric = "sklearn" if metrics._HAS_SKLEARN else "the numpy fallbacks"
+    return f"metrics through {metric}, k-means through {kmeans}"
+
+
+def phase_evaluate(seed: int, tmp: str, ckpt: str) -> dict:
+    """The evaluation path: ``rankpo_tpu_torch.cli.evaluate`` over the
+    serving corpus and N_EVAL_QUERIES span queries, flat (K1) then
+    ``--index_type ivf`` (K1, K4). The saved metrics must be bit-equal to
+    ``compute_metrics`` recomputed on the host over the saved arrays, and
+    the flat hits equal to numpy_search over the embeddings the CLI made
+    (read from its encoder as it returns them) outside SCORE_ATOL
+    near-ties. Each encode is timed in the run (a sync on either side)."""
+    from rankpo_tpu_torch.cli import evaluate
+    from rankpo_tpu_torch.eval.metrics import compute_metrics
+    from rankpo_tpu_torch.index.encoding import InferenceEncoder
+    from rankpo_tpu_torch.index.flat import numpy_search
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.ops import ivf_gather
+
+    corpus, corpus_file, _ = _serving_data(seed, tmp)
+    query_file, _, labels = write_eval_queries(tmp, seed, corpus)
+    common = ["--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256",
+              "--query_data", query_file, "--corpus_data", corpus_file, "--bf16",
+              "--k", "100", "--batch_size", "64", "--max_query_length", "64",
+              "--max_passage_length", "512", "--device", "cuda", "--log_level", "warning"]
+    encode_device = InferenceEncoder.encode_device
+    encodes = []  # (embeddings on the card, rows, seconds) per encode of the run
+
+    def timed_encode(self, sentences, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        emb, n = encode_device(self, sentences, **kwargs)
+        torch.cuda.synchronize()
+        encodes.append((emb, n, time.perf_counter() - t))
+        return emb, n
+
+    out = {}
+    for tier, extra in (("flat", []), ("ivf", ["--index_type", "ivf"])):
+        out_dir = os.path.join(tmp, f"eval_{tier}")
+        encodes.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- the evaluate path: counters from 0, the CLI, counters read ----
+        flash.reset_launches()
+        ivf_gather.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        InferenceEncoder.encode_device = timed_encode
+        t0 = time.perf_counter()
+        try:
+            results = evaluate.main([*common, "--output_dir", out_dir, *extra])
+            torch.cuda.synchronize()
+        finally:
+            InferenceEncoder.encode_device = encode_device
+        wall = time.perf_counter() - t0
+        launches = {"flash_fwd": flash.launches["flash_fwd"],
+                    "ivf_probe_scores": ivf_gather.launches["ivf_probe_scores"]}
+        # ---- end of the evaluate path ----
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        stem = os.path.join(out_dir, os.path.basename(ckpt), "main")
+        with open(stem + ".json") as f:
+            saved = json.load(f)
+        idx, scores = np.load(stem + "-indices.npy"), np.load(stem + "-scores.npy")
+        if idx.shape != (N_EVAL_QUERIES, 100) or idx.dtype != np.int64 \
+                or scores.dtype != np.float32 or not np.isfinite(scores).all():
+            raise AssertionError(f"evaluate ({tier}): bad arrays {idx.shape} {idx.dtype} "
+                                 f"{scores.dtype}")
+        t_metrics = time.perf_counter()
+        host = compute_metrics(idx, scores, labels, cutoffs=EVAL_CUTOFFS)
+        t_metrics = time.perf_counter() - t_metrics
+        if saved != host or results["main"] != host:
+            raise AssertionError(f"evaluate ({tier}): saved metrics differ from the "
+                                 "host recompute over the saved arrays")
+        n_batches = -(-N_PASSAGES // 64) + -(-N_EVAL_QUERIES // 64)
+        if launches["flash_fwd"] < 16 * n_batches:
+            raise AssertionError(f"evaluate ({tier}): flash_fwd launched "
+                                 f"{launches['flash_fwd']} times, expected >= {16 * n_batches}")
+        if tier == "ivf" and launches["ivf_probe_scores"] <= 0:
+            raise AssertionError("evaluate (ivf): ivf_probe_scores was not launched")
+        if [n for _, n, _ in encodes] != [N_EVAL_QUERIES, N_PASSAGES]:
+            raise AssertionError(f"evaluate ({tier}): encodes of {[n for _, n, _ in encodes]}")
+        (q_emb, _, q_s), (c_emb, _, c_s) = encodes
+        log(f"evaluate ({tier}): {N_EVAL_QUERIES} queries over {N_PASSAGES} passages in "
+            f"{wall:.2f} s wall = {N_EVAL_QUERIES / wall:.1f} queries/s, "
+            f"{N_PASSAGES / wall:.1f} passages/s (query encode {q_s:.3f} s, corpus encode "
+            f"{c_s:.3f} s, the rest checkpoint load, index, search, metrics and files); "
+            f"peak {peak_gib:.2f} GiB; launches {launches}; metrics bit-equal to the host "
+            f"recompute ({t_metrics:.3f} s): MRR@10 {host['MRR@10']:.4f}, Recall@100 "
+            f"{host['Recall@100']:.4f}, AUC@100 {host['AUC@100']:.4f}, nDCG@10 "
+            f"{host['nDCG@10']:.4f}")
+        out[tier] = {"wall_s": wall, "queries_per_s": N_EVAL_QUERIES / wall,
+                     "passages_per_s": N_PASSAGES / wall, "peak_mem_gib": peak_gib,
+                     "launches": launches, "idx": idx, "scores": scores,
+                     "metrics_s": t_metrics, "encode_s": {"queries": q_s, "corpus": c_s}}
+        if tier == "flat":
+            q_host, c_host = q_emb.cpu().numpy(), c_emb.cpu().numpy()
+        encodes.clear()
+
+    # the flat hits against the exact numpy search over the CLI's embeddings
+    o_scores, o_idx = numpy_search(c_host, q_host, 101)
+    n_near = _check_against_oracle(out["flat"]["idx"], out["flat"]["scores"], o_scores, o_idx)
+    overlap = np.mean([len(set(a) & set(b)) / 100 for a, b in
+                       zip(out["ivf"]["idx"].tolist(), out["flat"]["idx"].tolist())])
+    log(f"evaluate (flat): hits equal to numpy_search over the same embeddings "
+        f"({n_near} hits inside {SCORE_ATOL} near-ties not compared); ivf hits share "
+        f"{overlap:.4f} of the flat top-100 (random weights: printed, not held); "
+        f"{_sklearn_paths()}")
+    for tier in out:
+        del out[tier]["idx"], out[tier]["scores"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_mining_data(tmp: str, seed: int):
+    """N_MINING_ROWS mining rows (a query of 4-32 words, 1-2 positives and one
+    old negative of 16-256 words); the first N_PIPELINE_ROWS of them as
+    run_pipeline's input, with an eval-format query and corpus file over
+    their deduplicated passages for its prediction pairs."""
+    from rankpo_tpu_torch.data.datasets import load_mining_rows
+
+    rng = np.random.default_rng(seed + 4)
+    rows = [{"query": {"text": _text(rng, 4, 33)},
+             "positives": {"text": [_text(rng, 16, 257)
+                                    for _ in range(int(rng.integers(1, 3)))]},
+             "negatives": {"text": [_text(rng, 16, 257)]}}
+            for _ in range(N_MINING_ROWS)]
+    mining, raw = os.path.join(tmp, "mining.jsonl"), os.path.join(tmp, "pipeline_raw.jsonl")
+    for path, part in ((mining, rows), (raw, rows[:N_PIPELINE_ROWS])):
+        with open(path, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in part)
+    _, _, corpus = load_mining_rows(raw)
+    where = {text: i for i, text in enumerate(corpus)}
+    queries, corpus_file = (os.path.join(tmp, f"pipeline_{n}.jsonl")
+                            for n in ("queries", "corpus"))
+    with open(queries, "w") as f:
+        f.writelines(json.dumps({"query": r["query"], "positives": {
+            "index": [where[t] for t in r["positives"]["text"]]}}) + "\n"
+            for r in rows[:N_PIPELINE_ROWS])
+    with open(corpus_file, "w") as f:
+        f.writelines(json.dumps({"text": t}) + "\n" for t in corpus)
+    return mining, raw, queries, corpus_file, rows
+
+
+def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str) -> dict:
+    """The mining and prediction paths: ``get_hard_negatives`` (topk and
+    cluster, λ 0.5) over N_MINING_ROWS rows, ``get_predictions`` over the
+    eval queries and the serving corpus, then ``run_pipeline --iterations
+    2`` over N_PIPELINE_ROWS rows at full width (random bootstrap, stage-1
+    training, mining with the fresh model, training again, prediction
+    pairs). Every mined negative is neither the query nor a positive of its
+    row, and every row has its count."""
+    from rankpo_tpu_torch.cli import get_hard_negatives, get_predictions, run_pipeline
+    from rankpo_tpu_torch.data.datasets import iter_jsonl
+    from rankpo_tpu_torch.ops import flash_attention as flash
+
+    mining, raw, p_queries, p_corpus, rows = write_mining_data(tmp, seed)
+    n_neg, n_pred = 8, 5
+    common = ["--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256", "--bf16",
+              "--batch_size", "64", "--max_query_length", "64", "--device", "cuda",
+              "--seed", str(seed), "--log_level", "warning"]
+    out = {}
+
+    def run(name, main, argv):
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- one path: counters from 0, the CLI, counters read ----
+        flash.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(flash.launches)
+        # ---- end of the path ----
+        out[name] = {"wall_s": wall, "launches": launches,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if launches["flash_fwd"] <= 0:
+            raise AssertionError(f"{name}: flash_fwd was not launched")
+        return result
+
+    mined_dir = os.path.join(tmp, "mined")
+    outputs = run("mining", get_hard_negatives.main, [
+        *common, "--input_file", mining, "--output_prefix", mined_dir,
+        "--max_passage_length", "256", "--method", "topk,cluster", "--lambda_", "0.5",
+        "--num_negatives", str(n_neg), "--search_range", "0-100", "--num_clusters", "10"])
+    if sorted(outputs) != ["cluster5.jsonl", "topk.jsonl"]:
+        raise AssertionError(f"mining wrote {sorted(outputs)}")
+    for name, path in outputs.items():
+        mined = list(iter_jsonl(path))
+        if len(mined) != N_MINING_ROWS:
+            raise AssertionError(f"{name}: {len(mined)} rows")
+        for row, src in zip(mined, rows):
+            negs = row["negatives"]
+            if len(negs) != n_neg or len(set(negs)) != n_neg:
+                raise AssertionError(f"{name}: a row has {len(negs)} negatives")
+            if row["query"] != src["query"]["text"] or any(
+                    t == row["query"] or t in src["positives"]["text"] for t in negs):
+                raise AssertionError(f"{name}: a mined negative is the query or a positive")
+    m = out["mining"]
+    log(f"mining: {N_MINING_ROWS} rows, topk and cluster (λ 0.5) files of {n_neg} "
+        f"filtered negatives each, in {m['wall_s']:.2f} s wall = "
+        f"{N_MINING_ROWS / m['wall_s']:.1f} rows/s; peak {m['peak_mem_gib']:.2f} GiB; "
+        f"launches {m['launches']}; {_sklearn_paths()}")
+
+    _, corpus_file, _ = _serving_data(seed, tmp)
+    preds_file = os.path.join(tmp, "prediction_pairs.jsonl")
+    pairs = run("predictions", get_predictions.main, [
+        *common, "--query_data", eval_queries, "--corpus_data", corpus_file,
+        "--output_file", preds_file, "--max_passage_length", "512",
+        "--num_predictions", str(n_pred), "--search_range", "0-100"])
+    want = N_EVAL_QUERIES * n_pred * (n_pred - 1) // 2
+    if len(pairs) != want or sum(1 for _ in iter_jsonl(preds_file)) != want:
+        raise AssertionError(f"predictions: {len(pairs)} pair rows, expected {want}")
+    if any(r["passage_rank1"] >= r["passage_rank2"] for r in pairs):
+        raise AssertionError("predictions: pair ranks out of order")
+    p = out["predictions"]
+    log(f"predictions: {want} pair rows (Q {N_EVAL_QUERIES} x C({n_pred}, 2)) in "
+        f"{p['wall_s']:.2f} s wall; launches {p['launches']}")
+
+    pipe_dir = os.path.join(tmp, "pipeline")
+    final = run("pipeline", run_pipeline.main, [
+        "--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256",
+        "--raw_data", raw, "--output_dir", pipe_dir, "--iterations", "2",
+        "--num_negatives", "3", "--search_range", "0-50",
+        "--per_device_train_batch_size", "8", "--learning_rate", "1e-5",
+        "--max_query_length", "64", "--max_passage_length", "256",
+        "--batch_size", "64", "--query_data", p_queries, "--corpus_data", p_corpus,
+        "--num_predictions", "3", "--bf16", "--gradient_checkpointing",
+        "--seed", str(seed), "--device", "cuda", "--log_level", "warning"])
+    if final != os.path.join(pipe_dir, "iter1"):
+        raise AssertionError(f"pipeline ended at {final}")
+    for path in ("iter0/model.safetensors", "iter1/model.safetensors", "iter1/README.md",
+                 "mined_iter0/topk.jsonl", "train_iter0.jsonl"):
+        if not os.path.isfile(os.path.join(pipe_dir, path)):
+            raise AssertionError(f"pipeline: no {path}")
+    history = []
+    for it in (0, 1):
+        with open(os.path.join(pipe_dir, f"iter{it}", "trainer_history.json")) as f:
+            history += [h["loss"] for h in json.load(f)]
+    n_pairs = sum(1 for _ in iter_jsonl(os.path.join(pipe_dir, "prediction_pairs.jsonl")))
+    if n_pairs != N_PIPELINE_ROWS * 3 or not history or not np.all(np.isfinite(history)):
+        raise AssertionError(f"pipeline: {n_pairs} pairs, losses {history}")
+    pl = out["pipeline"]
+    if pl["launches"]["flash_bwd_fused"] <= 0:
+        raise AssertionError("pipeline: flash_bwd_fused was not launched")
+    log(f"pipeline: 2 iterations over {N_PIPELINE_ROWS} rows at full width in "
+        f"{pl['wall_s']:.2f} s wall; {len(history)} finite losses "
+        f"{[round(x, 4) for x in history]}; {n_pairs} prediction pairs; peak device "
+        f"memory {pl['peak_mem_gib']:.2f} GiB; launches {pl['launches']}")
+    for path in (pipe_dir, mined_dir):
+        shutil.rmtree(path)
+    return out
+
+
+# ---------------------------------------------------------------------------
 def make_scale_data(seed: int):
     """SCALE_N + SCALE_Q unit rows at SCALE_D on the card: a mixture around
     SCALE_CENTRES random unit centres plus Gaussian noise of relative size
@@ -1547,7 +1849,11 @@ def main(argv=None) -> int:
             gc.collect()
             torch.cuda.empty_cache()
         train = phase_training(ckpt, tmp, args.seed, base_state)
-    del base_state
+        del base_state
+        for stage_dir in ("stage1", "stage1_rerun", "stage2"):  # ~15 GB of fp32 files
+            shutil.rmtree(os.path.join(tmp, stage_dir))
+        evaluation = phase_evaluate(args.seed, tmp, ckpt)
+        mining = phase_mining(args.seed, tmp, ckpt, os.path.join(tmp, "eval_queries.jsonl"))
     scale = phase_index_scale(args.seed)
     nums = serving["flat"]
     log(f"numbers ({card}): serving startup (load + encode + index) "
@@ -1584,13 +1890,23 @@ def main(argv=None) -> int:
             f"{s['last_loss']:.4f}; wall {s['wall_s']:.1f} s; K1 launches "
             f"{s['launches']['flash_fwd']}, K2 {s['launches']['flash_bwd_fused']}, "
             f"K3a {s['launches']['flash_dq']}, K3b {s['launches']['flash_dkv']}")
+    for tier, n in evaluation.items():
+        log(f"numbers ({card}): evaluate {tier}: {n['wall_s']:.2f} s wall, "
+            f"{n['queries_per_s']:.1f} queries/s, {n['passages_per_s']:.1f} passages/s, "
+            f"encodes {n['encode_s']}, metrics on the host {n['metrics_s']:.3f} s, peak "
+            f"{n['peak_mem_gib']:.2f} GiB, launches {n['launches']}")
+    for name, n in mining.items():
+        log(f"numbers ({card}): {name}: {n['wall_s']:.2f} s wall, peak device memory "
+            f"{n['peak_mem_gib']:.2f} GiB, launches {n['launches']}")
     launches = {name: train["stage1"]["launches"][name] + train["stage2"]["launches"][name]
-                for name in KERNELS}
-    launches["flash_fwd"] += sum(n["launches"]["flash_fwd"] for n in serving.values())
+                + sum(n["launches"][name] for n in mining.values()) for name in KERNELS}
+    launches["flash_fwd"] += sum(n["launches"]["flash_fwd"]
+                                 for n in (*serving.values(), *evaluation.values()))
     for name, (_, _, counter) in IVF_KERNELS.items():
         launches[name] = (sum(n["launches"][counter] for n in serving.values())
                           + sum(n["launches"] for n in scale["indexes"].values()
-                                if n["counter"] == counter))
+                                if n["counter"] == counter)
+                          + sum(n["launches"].get(counter, 0) for n in evaluation.values()))
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main paths")
