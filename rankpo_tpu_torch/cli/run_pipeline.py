@@ -1,4 +1,4 @@
-"""End-to-end stage-1 iteration driver (port of ``rankpo_tpu.cli.run_pipeline``).
+"""End-to-end stage-1 iteration loop (port of ``rankpo_tpu.cli.run_pipeline``).
 
 The reference's README pipeline ("Stage 1 iterated n times": rule-labeled
 data -> contrastive learning -> hard-negative mining -> retrain) as one
