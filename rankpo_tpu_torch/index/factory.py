@@ -12,13 +12,14 @@ one spec string -> (index_type, kwargs), with the same grammar and errors.
     PCA128,IVF4096,Flat   -> ivf + PCA probe-scoring hybrid (reduced_dim)
 
 Storage dtypes are torch dtypes (``torch.int8``, ``torch.bfloat16``). The
-grammar covers tiers the port has not built yet (refine, the PCA hybrid,
-bf16/int8 flat storage); the consumers reject those with their ROADMAP item.
+grammar also covers bf16/int8 flat storage, which the port has not built
+yet; the consumers reject it with its ROADMAP item.
 
 ``resolve_offline_index`` and ``build_offline_index`` are the index step of
 the offline tools (evaluation, mining, predictions), as their JAX versions
-build it: the flat tier over fp32 rows, or an IVF index tuned to the tool's
-recall target under the caller's explicit kwargs.
+build it: the flat tier over fp32 rows, the refine tier (``reduced_dim``
+min(256, D) unless the kwargs name one) or an IVF index, tuned to the
+tool's recall target under the caller's explicit kwargs.
 """
 
 from __future__ import annotations
@@ -174,13 +175,6 @@ def resolve_offline_index(index_type: str, index_kwargs=None) -> Tuple[str, dict
     """:func:`resolve_index_spec`, then reject what the port has not built.
     Called before any encode, so a bad spec fails in milliseconds."""
     kind, kwargs = resolve_index_spec(index_type, index_kwargs)
-    if kind == "refine":
-        raise NotImplementedError(
-            f"index_type {index_type!r} (refine tier): "
-            + _NOT_PORTED.format("item 4, index/refined.py"))
-    if kind == "ivf" and kwargs.get("reduced_dim") is not None:
-        raise NotImplementedError(
-            "ivf reduced_dim: " + _NOT_PORTED.format("item 4, the PCA hybrid"))
     if kind == "flat" and kwargs.get("dtype", torch.float32) != torch.float32:
         raise NotImplementedError(
             f"flat index dtype {kwargs['dtype']}: "
@@ -189,16 +183,28 @@ def resolve_offline_index(index_type: str, index_kwargs=None) -> Tuple[str, dict
 
 
 def build_offline_index(embeddings, n_total: int, index_type: str,
-                        index_kwargs: dict, recall_target: float):
+                        index_kwargs: dict, recall_target: float, *,
+                        refine_moment_of_stored: bool = False):
     """The index over ``embeddings`` [N_buf, D] (rows past ``n_total`` are
-    padding) on their device, for a tier from :func:`resolve_offline_index`."""
-    if index_type == "ivf":
+    padding) on their device, for a tier from :func:`resolve_offline_index`.
+    The refine tier takes its PCA second moment of the fp32 rows
+    (``RefineIPIndex.from_sharded``, as the JAX evaluator and prediction
+    tool build it) or, with ``refine_moment_of_stored``, of the stored rows
+    (the constructor, as the JAX mining tool builds it)."""
+    if index_type in ("ivf", "refine"):
         from rankpo_tpu_torch.index.ivf import IVFIPIndex
+        from rankpo_tpu_torch.index.refined import RefineIPIndex
 
         kwargs = dict(recall_target=recall_target)
+        if index_type == "refine":
+            kwargs["reduced_dim"] = min(256, int(embeddings.shape[1]))
         kwargs.update(index_kwargs)
         with torch.inference_mode():
-            return IVFIPIndex(embeddings, n_total=n_total, **kwargs)
+            if index_type == "ivf":
+                return IVFIPIndex(embeddings, n_total=n_total, **kwargs)
+            if refine_moment_of_stored:
+                return RefineIPIndex(embeddings, n_total=n_total, **kwargs)
+            return RefineIPIndex.from_sharded(embeddings, n_total, **kwargs)
     from rankpo_tpu_torch.index.flat import FlatIPIndex
 
     kwargs = {k: v for k, v in index_kwargs.items() if k != "dtype"}  # fp32 only

@@ -1,6 +1,8 @@
 """Exact inner-product index on one device (port of
 ``rankpo_tpu.index.flat``: ``numpy_search`` and ``FlatIPIndex``, fp32
-storage).
+storage), and the helpers every index tier shares: the append-argument
+contract, the ``IDSelector``-style filter mask and its tail rewrite, and the
+reconstruct id check and row gather.
 
 The corpus matrix stays on the device it was encoded on; a search runs the
 fp32 matmul and the tie-stable top-k of ``ops/topk.py`` there. Results match
@@ -15,6 +17,91 @@ import numpy as np
 import torch
 
 from rankpo_tpu_torch.ops.topk import dense_matmul_topk, require_fp32_matmul
+
+_RECON_BATCH = 1024  # reconstruct gathers ids in chunks of this many
+
+
+def validate_append_args(new_rows, n_new, headroom, dim, n_shards=1) -> int:
+    """The argument contract of every tier's ``append_sharded``:
+    ``new_rows`` is [n_buf >= n_new, dim] with n_buf divisible by the shard
+    count (1 on one device), and ``headroom`` >= 0. Returns int n_new."""
+    n_new = int(n_new)
+    if n_new < 1:
+        raise ValueError("append_sharded needs n_new >= 1")
+    if headroom < 0.0:
+        raise ValueError("headroom must be >= 0")
+    if int(new_rows.shape[1]) != dim:
+        raise ValueError(f"new rows dim {new_rows.shape[1]} != index dim {dim}")
+    if int(new_rows.shape[0]) < n_new or int(new_rows.shape[0]) % n_shards:
+        raise ValueError(
+            f"new rows buffer ({new_rows.shape[0]}) must be >= n_new "
+            f"({n_new}) and divisible by {n_shards} shards"
+        )
+    return n_new
+
+
+def build_selector_mask(n_total: int, allowed_ids=None, disallowed_ids=None,
+                        selector=None) -> Optional[np.ndarray]:
+    """The FAISS ``IDSelector`` analog shared by the index tiers: a bool
+    eligibility mask over corpus positions (True = may be returned), from at
+    most one of ``allowed_ids`` (only these), ``disallowed_ids`` (all but
+    these) or ``selector`` (a prebuilt bool [n_total] mask). None when no
+    filter is given."""
+    given = [x is not None for x in (allowed_ids, disallowed_ids, selector)]
+    if sum(given) == 0:
+        return None
+    if sum(given) > 1:
+        raise ValueError("give at most one of allowed_ids / disallowed_ids / selector")
+    if selector is not None:
+        mask = np.asarray(selector)
+        if mask.dtype != np.bool_ or mask.shape != (n_total,):
+            raise ValueError(
+                f"selector must be a bool array of shape ({n_total},); got "
+                f"{mask.dtype} {mask.shape}"
+            )
+        return mask.copy()
+    ids = np.asarray(
+        allowed_ids if allowed_ids is not None else disallowed_ids, np.int64
+    ).reshape(-1)
+    if ids.size and (ids.min() < 0 or ids.max() >= n_total):
+        raise IndexError(
+            f"selector ids must be in [0, {n_total}); got [{ids.min()}, {ids.max()}]"
+        )
+    if allowed_ids is not None:
+        mask = np.zeros(n_total, np.bool_)
+        mask[ids] = True
+    else:
+        mask = np.ones(n_total, np.bool_)
+        mask[ids] = False
+    return mask
+
+
+def mask_filtered_misses(scores: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """A filtered search's unfillable tail (score -inf) gets index -1, as
+    FAISS pads it."""
+    return np.where(np.isfinite(scores), indices, -1).astype(indices.dtype, copy=False)
+
+
+def _canonical_recon_ids(ids, n_total: int) -> np.ndarray:
+    """A reconstruct id argument (scalar or 1-D) as bounds-checked int64."""
+    ids = np.atleast_1d(np.asarray(ids, np.int64))
+    if ids.ndim != 1:
+        raise ValueError("ids must be a scalar or 1-D sequence")
+    if ids.size and (ids.min() < 0 or ids.max() >= n_total):
+        raise IndexError(
+            f"ids must be in [0, {n_total}); got [{ids.min()}, {ids.max()}]"
+        )
+    return ids
+
+
+def _chunked_row_gather(fn, idx: np.ndarray, device) -> np.ndarray:
+    """``fn(idx_chunk) -> fp32 rows`` on ``device`` over chunks of
+    ``_RECON_BATCH`` ids, concatenated on the host."""
+    out = [
+        fn(torch.from_numpy(idx[lo : lo + _RECON_BATCH]).to(device)).cpu().numpy()
+        for lo in range(0, idx.size, _RECON_BATCH)
+    ]
+    return np.concatenate(out).astype(np.float32, copy=False)
 
 
 def numpy_search(

@@ -1,14 +1,16 @@
 """Structural index persistence (port of ``rankpo_tpu.index.io``, the FAISS
-``write_index`` / ``read_index`` analog) for the ``flat`` and ``ivf`` kinds.
+``write_index`` / ``read_index`` analog) for the ``flat``, ``refine`` and
+``ivf`` kinds.
 
 The format is the JAX package's ``rankpo-index-v1``: one ``.npz`` holding the
 index's arrays (bf16 stored as a uint16 view, since npy has no bfloat16, with
 per-array dtype names recorded) plus a ``__index_config__`` JSON string (kind,
 shapes, tuned knobs and the shard count the knobs were tuned at). A file
 written by either package loads in the other and searches alike: a load is
-pure placement (no k-means, no tuning). Kinds and options the port has not
-built yet (refine, bf16/int8 flat storage, the PCA hybrid, balanced k-means)
-raise with their ROADMAP.md item.
+pure placement (no k-means, no PCA, no tuning). IVF files carry every option
+(balanced, split-built, the PCA hybrid, PQ) and mutated layouts (grown
+capacity, freed slots). bf16/int8 flat storage raises with its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.index.flat import FlatIPIndex
-from rankpo_tpu_torch.index.ivf import IVFIPIndex
+from rankpo_tpu_torch.index.ivf import IVFIPIndex, _as_dtype
+from rankpo_tpu_torch.index.refined import RefineIPIndex
 from rankpo_tpu_torch.ops.topk import require_fp32_matmul
 
 CONFIG_KEY = "__index_config__"
@@ -31,6 +34,7 @@ FORMAT = "rankpo-index-v1"
 
 _DTYPE_NAMES = ("float32", "bfloat16", "int8", "int32", "uint8")
 _NOT_PORTED = "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1, {})"
+_STORE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int8: "int8"}
 
 
 def _pack(out: Dict[str, np.ndarray], meta: Dict[str, str], name: str, arr,
@@ -70,7 +74,7 @@ def _unpack(data: Mapping, meta: Dict[str, str], name: str, device
 def index_state(index) -> Dict[str, np.ndarray]:
     """Flat dict of host arrays plus a JSON config capturing everything
     needed to rebuild ``index`` without training or tuning."""
-    if not isinstance(index, (FlatIPIndex, IVFIPIndex)):
+    if not isinstance(index, (FlatIPIndex, RefineIPIndex, IVFIPIndex)):
         raise TypeError(f"unsupported index type {type(index).__name__}")
     out: Dict[str, np.ndarray] = {}
     meta: Dict[str, str] = {}
@@ -82,21 +86,32 @@ def index_state(index) -> Dict[str, np.ndarray]:
         cfg["recall_target"] = 1.0
         cfg["precision"] = None
         _pack(out, meta, "corpus", index.corpus, trim=index.n_total)
+    elif isinstance(index, RefineIPIndex):
+        cfg["kind"] = "refine"
+        cfg["store_dtype"] = _STORE_NAMES[index.store_dtype]
+        cfg["recall_target"] = index.recall_target
+        cfg["reduced_dim"] = index.reduced_dim
+        cfg["candidates"] = int(index.candidates)
+        _pack(out, meta, "corpus", index.corpus, trim=index.n_total)
+        _pack(out, meta, "corpus_low", index.corpus_low, trim=index.n_total)
+        _pack(out, meta, "proj", index.proj)
     else:
         cfg["kind"] = "ivf"
-        cfg["store_dtype"] = {torch.float32: "float32", torch.bfloat16: "bfloat16",
-                              torch.int8: "int8"}[index.store_dtype]
+        cfg["store_dtype"] = _STORE_NAMES[index.store_dtype]
         cfg["recall_target"] = index.recall_target
         cfg["n_clusters"] = index.n_clusters
         cfg["capacity"] = index.capacity
         cfg["nprobe"] = int(min(index.nprobe, index.local_clusters))
         cfg["spherical"] = index.spherical
-        cfg["reduced_dim"] = None
+        cfg["reduced_dim"] = index.reduced_dim
         cfg["pq_m"] = index.pq_m
         cfg["pq_rotate"] = index.pq_rotate
         cfg["pq_layout"] = index.pq_layout
-        cfg["balance_eta"] = 0.0
-        cfg["kmeans_split"] = 0
+        cfg["balance_eta"] = index.balance_eta
+        cfg["kmeans_split"] = index.kmeans_split
+        if index._assign_bias_host is not None:
+            # appends to a loaded index place rows by the build's biased scores
+            _pack(out, meta, "assign_bias", index._assign_bias_host)
         cfg["candidates"] = index.candidates
         _pack(out, meta, "corpus", index.corpus)
         _pack(out, meta, "row_ids", index.row_ids)
@@ -109,6 +124,9 @@ def index_state(index) -> Dict[str, np.ndarray]:
             _pack(out, meta, "pq_codebooks", index._codebooks_host)
             if index._rotation_host is not None:
                 _pack(out, meta, "pq_rotation", index._rotation_host)
+        if index.reduced_dim is not None:
+            _pack(out, meta, "proj", index.proj)
+            _pack(out, meta, "corpus_low", index.corpus_low)
     cfg["arrays"] = meta
     out[CONFIG_KEY] = np.asarray(json.dumps(cfg))
     return out
@@ -122,15 +140,23 @@ def _load_flat(cfg, data, meta, device):
     return FlatIPIndex(corpus, n_total=int(cfg["n_total"]))
 
 
+def _load_refine(cfg, data, meta, device):
+    require_fp32_matmul()
+    self = RefineIPIndex.__new__(RefineIPIndex)
+    self.device = device
+    self.n_total = self.n_padded = int(cfg["n_total"])
+    self.dim = int(cfg["dim"])
+    self.reduced_dim = int(cfg["reduced_dim"])
+    self.recall_target = cfg["recall_target"]
+    self.store_dtype = _as_dtype(cfg["store_dtype"])
+    self.candidates = int(cfg["candidates"])
+    self.corpus = _unpack(data, meta, "corpus", device)
+    self.corpus_low = _unpack(data, meta, "corpus_low", device)
+    self.proj = _unpack(data, meta, "proj", device)
+    return self
+
+
 def _load_ivf(cfg, data, meta, device):
-    for key, off, item in (("reduced_dim", None, "the PCA hybrid"),
-                           ("balance_eta", 0.0, "balance_eta")):
-        if cfg.get(key, off) != off:
-            raise NotImplementedError(f"ivf index {key}={cfg[key]!r}: "
-                                      + _NOT_PORTED.format(f"item 4, {item}"))
-    if "assign_bias" in meta:
-        raise NotImplementedError("ivf index assign_bias: "
-                                  + _NOT_PORTED.format("item 4, balance_eta"))
     require_fp32_matmul()
     self = IVFIPIndex.__new__(IVFIPIndex)
     self.device = device
@@ -139,11 +165,15 @@ def _load_ivf(cfg, data, meta, device):
     self._set_store(cfg["store_dtype"])
     self.recall_target = cfg["recall_target"]
     self.spherical = bool(cfg["spherical"])
-    self._set_hybrid(cfg["candidates"])
+    self._set_hybrid(cfg.get("reduced_dim"), cfg["candidates"])
     # the layout is a physical property of the saved codes: restore it
     # verbatim (files older than pq_layout are rows)
     self._set_pq(cfg.get("pq_m"), 1, cfg.get("pq_rotate", "none"),
                  cfg.get("pq_layout") or "rows")
+    self.balance_eta = float(cfg.get("balance_eta", 0.0))
+    self.kmeans_split = int(cfg.get("kmeans_split", 0))
+    self._set_assign_bias(
+        np.array(data["assign_bias"], np.float32) if "assign_bias" in meta else None)
     self.n_clusters = int(cfg["n_clusters"])
     self.capacity = int(cfg["capacity"])
     self.local_clusters = self.n_clusters
@@ -164,10 +194,15 @@ def _load_ivf(cfg, data, meta, device):
         if self.pq_rotate != "none":
             self._rotation_host = np.array(data["pq_rotation"], np.float32)
         self._place_codebooks()
+    if self.reduced_dim is not None:
+        self.proj = _unpack(data, meta, "proj", device).to(torch.float32)
+        self.corpus_low = _unpack(data, meta, "corpus_low", device)
+    else:
+        self.proj = self.corpus_low = None
     return self
 
 
-_LOADERS = {"flat": _load_flat, "ivf": _load_ivf}
+_LOADERS = {"flat": _load_flat, "refine": _load_refine, "ivf": _load_ivf}
 
 
 def index_from_state(data: Mapping, device="cuda"):
@@ -178,9 +213,6 @@ def index_from_state(data: Mapping, device="cuda"):
     if cfg.get("format") != FORMAT:
         raise ValueError(f"unknown index file format {cfg.get('format')!r}")
     kind = cfg["kind"]
-    if kind == "refine":
-        raise NotImplementedError("refine index: "
-                                  + _NOT_PORTED.format("item 4, index/refined.py"))
     if kind not in _LOADERS:
         raise ValueError(f"unknown index kind {kind!r}")
     return _LOADERS[kind](cfg, data, cfg["arrays"], resolve_device(device))

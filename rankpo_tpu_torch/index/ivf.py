@@ -8,7 +8,11 @@ Build, on the device the embeddings live on:
   product of bf16-rounded operands with an fp32 result (JAX's
   ``preferred_element_type=float32``), argmax per row; the update sums each
   cluster's rows in fp32. Rows stream in chunks (bigger on the card than
-  JAX's VMEM-sized ones: only the summation order changes);
+  JAX's VMEM-sized ones: only the summation order changes). Options:
+  ``kmeans_split`` (each iteration but the last, the emptiest clusters give
+  their centroid to split the fullest ones) and ``balance_eta`` (a
+  per-cluster assignment bias that prices full clusters up; probing then
+  ranks clusters by the same biased scores);
 - each row's top ``ASSIGN_CANDIDATES`` clusters, then the deterministic host
   fill ``_greedy_fill`` (numpy, verbatim from the JAX package) lays the rows
   out cluster-major as ``[K * capacity, D]`` with ``row_ids == -1`` marking
@@ -16,23 +20,28 @@ Build, on the device the embeddings live on:
 - storage: fp32 or bf16 rows, int8 rows with a per-slot max-abs scale, or
   residual product-quantization codes (``pq_m`` bytes per slot, optionally
   after a random or OPQ rotation) in rows ``[slots, m]`` or transposed
-  ``[m, slots]`` layout;
+  ``[m, slots]`` layout; with ``reduced_dim``, the PCA hybrid's projected
+  bf16 rows ``[slots, d']`` beside them;
 - ``nprobe`` tuned against ``recall_target``: analytic ranks from one exact
-  search, then up to 3 verifying searches.
+  search, then up to 3 verifying searches (4 for the hybrid, which may grow
+  its candidate pool instead).
+
+``from_chunk_fn`` builds the same index from row chunks made on demand, so
+the fp32 corpus never exists whole; ``append_sharded`` / ``remove_rows``
+mutate a built index (fixed centroids and codebooks, FAISS ``add`` /
+``remove_ids`` semantics) and ``reconstruct`` decodes stored rows.
 
 Search: the queries' top-``nprobe`` clusters by the bf16 centroid product,
 then every probed slot scored by a hand-written kernel on the card
 (``ops/ivf_gather.py`` for fp32/bf16 rows, ``ops/pq_adc.py`` for PQ codes;
-the plain versions on a CPU tensor), empty slots masked, and a stable top-k
-(ties to the lower position, as ``lax.top_k``). int8 rows take the JAX
-package's own path without a kernel: gather, product, scale.
+the plain versions on a CPU tensor), empty and filtered-out slots masked,
+and a stable top-k (ties to the lower position, as ``lax.top_k``). int8 rows
+and the PCA hybrid take the JAX package's own paths without a kernel
+(gather and product; the hybrid scores the projected rows, then reranks its
+top candidates at full width). A mesh raises (ROADMAP.md Queue 1 item 8).
 
 Every random draw is numpy's ``default_rng`` with the JAX package's seeds, so
-both packages draw the same numbers. Not ported yet, each raising with its
-ROADMAP.md item: the PCA hybrid (``reduced_dim``), ``balance_eta``,
-``kmeans_split``, the streamed build (``from_chunk_fn``), mutation
-(``append_sharded`` / ``remove_rows``), ``reconstruct``, selector filtering
-and a mesh.
+both packages draw the same numbers.
 """
 
 from __future__ import annotations
@@ -45,6 +54,14 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from rankpo_tpu_torch.core.device import resolve_device
+from rankpo_tpu_torch.index.flat import (
+    _canonical_recon_ids,
+    _chunked_row_gather,
+    build_selector_mask,
+    mask_filtered_misses,
+    validate_append_args,
+)
 from rankpo_tpu_torch.ops.ivf_gather import probe_scores
 from rankpo_tpu_torch.ops.pq_adc import PQ_K, pq_probe_scores, pq_probe_scores_t
 from rankpo_tpu_torch.ops.topk import exact_topk, require_fp32_matmul
@@ -80,7 +97,9 @@ _OPQ_OUTER = 8  # OPQ alternations (Lloyd fit <-> Procrustes rotation)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
-_NOT_PORTED = "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1 item 4, {})"
+_NOT_PORTED = "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1 item {})"
+# rows per chunk of the PCA second moment and projection
+_PROJ_CHUNK = 1 << 16
 
 
 def _resolve_clusters(n_total: int, n_shards: int, requested) -> int:
@@ -131,47 +150,109 @@ def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _bf16(a) @ _bf16(b)
 
 
+def _bf16_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 batched ``a @ b`` of the bf16-rounded operands (exact products
+    summed in fp32), as :func:`_bf16_mm`."""
+    if a.is_cuda:
+        return torch.bmm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                         out_dtype=torch.float32)
+    return torch.bmm(_bf16(a), _bf16(b))
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=1, keepdim=True), 1e-12)
+
+
+def _grow_slots(x: torch.Tensor, k_c: int, cap: int, new_cap: int, fill=0,
+                axis: int = 0) -> torch.Tensor:
+    """``x`` with its cluster-major slot axis ``axis`` (K * cap) widened to
+    K * new_cap; each cluster's new slots hold ``fill``."""
+    shape = list(x.shape)
+    blocks = x.reshape(shape[:axis] + [k_c, cap] + shape[axis + 1:])
+    out = x.new_full(shape[:axis] + [k_c, new_cap] + shape[axis + 1:], fill)
+    out.narrow(axis + 1, 0, cap).copy_(blocks)
+    return out.reshape(shape[:axis] + [k_c * new_cap] + shape[axis + 1:])
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def _lloyd_body(corpus: torch.Tensor, centroids: torch.Tensor, *, n_iters: int,
-                chunk: int, spherical: bool) -> torch.Tensor:
+                chunk: int, spherical: bool, balance_eta: float = 0.0,
+                split_r: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Lloyd loop over fp32 rows ``corpus`` [N, D] from ``centroids``
-    [K, D] (JAX ``_lloyd_body`` with ``balance_eta=0`` and ``split_r=0``).
-    Empty clusters keep their previous centroid."""
+    [K, D] (JAX ``_lloyd_body``). Empty clusters keep their previous
+    centroid. Returns ``(centroids, bias)``.
+
+    ``balance_eta > 0``: rows assign to ``argmax(score - bias)`` and after
+    every iteration ``bias += eta * tanh(count / target - 1)`` (balanced
+    k-means). ``split_r > 0``: every iteration but the last, the ``split_r``
+    emptiest clusters give their centroid slot to split the ``split_r``
+    fullest (those above 1.5x the mean fill): the full centroid becomes a
+    pair perturbed by +-1% with alternating signs over the dimensions.
+    Fullest and emptiest come from stable sorts of the counts, so tied
+    counts pick the lower cluster ids, as JAX's ``argsort`` does."""
     k, d = centroids.shape
+    dev = centroids.device
     cents = centroids
-    for _ in range(n_iters):
+    bias = torch.zeros(k, dtype=torch.float32, device=dev)
+    sign = (1.0 - 2.0 * (torch.arange(d, device=dev) % 2)).to(torch.float32)[None, :]
+    for it in range(n_iters):
         cb_t = cents.T
-        sums = torch.zeros((k, d), dtype=torch.float32, device=cents.device)
-        counts = torch.zeros(k, dtype=torch.float32, device=cents.device)
+        sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
+        counts = torch.zeros(k, dtype=torch.float32, device=dev)
         for lo in range(0, corpus.shape[0], chunk):
             rows_b = _bf16(corpus[lo : lo + chunk])
-            assign = torch.argmax(_bf16_mm(rows_b, cb_t), dim=1)
+            scores = _bf16_mm(rows_b, cb_t)
+            if balance_eta:
+                scores = scores - bias[None, :]
+            assign = torch.argmax(scores, dim=1)
             sums.index_add_(0, assign, rows_b)
             counts += torch.bincount(assign, minlength=k).to(torch.float32)
         new = sums / torch.clamp_min(counts, 1.0)[:, None]
         new = torch.where((counts > 0.0)[:, None], new, cents)
         if spherical:
-            norm = torch.linalg.vector_norm(new, dim=1, keepdim=True)
-            new = new / torch.clamp_min(norm, 1e-12)
+            new = _unit_rows(new)
+        if balance_eta:
+            target = torch.clamp_min(torch.sum(counts) / k, 1.0)
+            bias = bias + balance_eta * torch.tanh(counts / target - 1.0)
+        if split_r:
+            target = torch.clamp_min(torch.sum(counts) / k, 1.0)
+            recv = torch.argsort(-counts, stable=True)[:split_r]  # fullest
+            donor = torch.argsort(counts, stable=True)[:split_r]  # emptiest
+            should = ((counts[recv] > 1.5 * target) & (it < n_iters - 1))[:, None]
+            recv_c = new[recv]
+            split_a = recv_c * (1.0 + 0.01 * sign)
+            split_b = recv_c * (1.0 - 0.01 * sign)
+            if spherical:
+                split_a, split_b = _unit_rows(split_a), _unit_rows(split_b)
+            # donors first, then receivers, as JAX's two scatters (a cluster
+            # in both lists ends with its receiver value)
+            new[donor] = torch.where(should, split_a, new[donor])
+            new[recv] = torch.where(should, split_b, recv_c)
         cents = new
-    return cents
+    return cents, bias
 
 
 def _assign_top2_body(corpus: torch.Tensor, centroids: torch.Tensor, *,
-                      chunk: int, n_cand: int = 2) -> torch.Tensor:
+                      chunk: int, n_cand: int = 2,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-row top-``n_cand`` nearest centroids [N, n_cand] int32, ties to
-    the lower cluster id; fewer clusters than ``n_cand`` repeat the last."""
+    the lower cluster id; fewer clusters than ``n_cand`` repeat the last.
+    ``bias``: the balanced build's assignment bias, subtracted from the
+    scores as in training."""
     k = centroids.shape[0]
     take = min(n_cand, k)
     cb_t = centroids.T
     out = torch.empty((corpus.shape[0], n_cand), dtype=torch.int32,
                       device=corpus.device)
     for lo in range(0, corpus.shape[0], chunk):
-        _, topc = exact_topk(_bf16_mm(corpus[lo : lo + chunk], cb_t), take)
+        scores = _bf16_mm(corpus[lo : lo + chunk], cb_t)
+        if bias is not None:
+            scores = scores - bias[None, :]
+        _, topc = exact_topk(scores, take)
         if take < n_cand:
             topc = torch.cat([topc] + [topc[:, -1:]] * (n_cand - take), dim=1)
         out[lo : lo + chunk] = topc.to(torch.int32)
@@ -239,11 +320,17 @@ def _pq_reconstruct(codes: torch.Tensor, codebooks_flat: torch.Tensor, m: int,
     return codebooks_flat[flat].reshape(codes.shape[:-1] + (m * ds,))
 
 
-def _quantize_rows_int8(rows: torch.Tensor):
+def _quantize_rows_int8(rows: torch.Tensor, *, times_reciprocal: bool = False):
     """Symmetric per-row max-abs int8 codes and fp32 scales (the JAX
-    package's scheme; zero rows get scale 1e-12 and zero codes)."""
+    package's scheme; zero rows get scale 1e-12 and zero codes). The JAX
+    constructor quantizes on the host (``max / 127``); its streamed build
+    and appends quantize through XLA, which computes ``max * (1 / 127)``,
+    one fp32 ulp apart in ~4% of rows: ``times_reciprocal`` takes that
+    rounding, so both packages store the same scales on every path."""
     rows = rows.to(torch.float32)
-    scale = torch.clamp_min(rows.abs().amax(dim=1) / 127.0, 1e-12)
+    peak = rows.abs().amax(dim=1)
+    scale = peak * (1.0 / 127.0) if times_reciprocal else peak / 127.0
+    scale = torch.clamp_min(scale, 1e-12)
     codes = torch.clamp(torch.round(rows / scale[:, None]), -127, 127)
     return codes.to(torch.int8), scale
 
@@ -310,11 +397,13 @@ class IVFIPIndex:
     ``store_dtype`` (fp32, bf16, or int8 with ``slot_scale``), or PQ codes
     (``pq_m``) ``[slots, m]`` / ``[m, slots]`` uint8 with bf16 ``codebooks``
     [m*256, D/m] (and an fp32 ``rotation`` for ``pq_rotate``); ``row_ids``
-    [K * capacity] int32 (-1 = empty slot); ``centroids`` [K, D] fp32.
-    Contract: approximate (the hit set may miss true neighbours); scores are
-    exact at storage precision (int8: against the quantized rows; PQ: ADC
-    approximations); a query whose probed clusters hold fewer than k rows
-    pads with index -1 / score -inf."""
+    [K * capacity] int32 (-1 = empty slot); ``centroids`` [K, D] fp32;
+    ``assign_bias`` [K] fp32 for a balanced build; with ``reduced_dim``, the
+    PCA basis ``proj`` [D, d'] fp32 and ``corpus_low`` [K * capacity, d']
+    bf16. Contract: approximate (the hit set may miss true neighbours);
+    scores are exact at storage precision (int8: against the quantized rows;
+    PQ: ADC approximations); a query whose probed clusters hold fewer than k
+    (eligible) rows pads with index -1 / score -inf."""
 
     def __init__(
         self,
@@ -343,40 +432,22 @@ class IVFIPIndex:
         mesh=None,
     ):
         require_fp32_matmul()
-        for name, value, off, item in (
-            ("mesh", mesh, None, "multi-card IVF"),
-            ("balance_eta", balance_eta, 0.0, "balance_eta"),
-            ("kmeans_split", kmeans_split, 0, "kmeans_split"),
-            ("reduced_dim", reduced_dim, None, "the PCA hybrid"),
-        ):
-            if value != off:
-                raise NotImplementedError(
-                    f"IVFIPIndex {name}={value!r}: " + _NOT_PORTED.format(item))
+        if mesh is not None:
+            raise NotImplementedError("IVFIPIndex mesh: " + _NOT_PORTED.format("8, multi-card IVF"))
         # a tensor keeps its device; a numpy array becomes a CPU tensor
         corpus = torch.as_tensor(embeddings, dtype=torch.float32)
         if corpus.dim() != 2:
             raise ValueError(f"embeddings must be [N, D], got {tuple(corpus.shape)}")
-        self.n_total = int(corpus.shape[0] if n_total is None else n_total)
-        if self.n_total < 1:
-            raise ValueError("IVFIPIndex needs a non-empty corpus")
-        if self.n_total > corpus.shape[0]:
-            raise ValueError(f"n_total {self.n_total} > {corpus.shape[0]} rows")
-        corpus = corpus[: self.n_total]
-        self.device = corpus.device
-        self.dim = int(corpus.shape[1])
-        self._set_store(store_dtype)
-        if capacity_slack < 1.0:
-            raise ValueError("capacity_slack must be >= 1.0")
-        self.recall_target = float(recall_target)
-        self.spherical = bool(spherical)
-        self._set_hybrid(candidates)
-        self._set_pq(pq_m, pq_iters, pq_rotate, pq_layout)
-        self.n_clusters = _resolve_clusters(self.n_total, 1, n_clusters)
-        self.capacity = _resolve_capacity(
-            self.n_total, self.n_clusters, capacity_slack,
-            multiple=self._capacity_multiple(),
-        )
-        self.build_seconds = {}
+        n_total = int(corpus.shape[0] if n_total is None else n_total)
+        if n_total > corpus.shape[0]:
+            raise ValueError(f"n_total {n_total} > {corpus.shape[0]} rows")
+        corpus = corpus[:n_total]
+        self._setup(n_total, int(corpus.shape[1]), corpus.device, store_dtype=store_dtype,
+                    recall_target=recall_target, capacity_slack=capacity_slack,
+                    spherical=spherical, balance_eta=balance_eta,
+                    kmeans_split=kmeans_split, reduced_dim=reduced_dim,
+                    candidates=candidates, pq_m=pq_m, pq_iters=pq_iters,
+                    pq_rotate=pq_rotate, pq_layout=pq_layout, n_clusters=n_clusters)
 
         # --- train: k-means on the device ---
         t0 = time.perf_counter()
@@ -403,7 +474,9 @@ class IVFIPIndex:
         self._place_storage(corpus, row_ids, seed)
         _sync(self.device)
         t3 = time.perf_counter()
+        self._init_projection()
 
+        t_tune = time.perf_counter()
         self._finish_tuning(
             nprobe, max_nprobe, tune_sample, tune_k, seed,
             sample_fn=lambda idx: corpus[torch.from_numpy(idx).to(self.device)]
@@ -411,7 +484,43 @@ class IVFIPIndex:
         )
         t4 = time.perf_counter()
         self.build_seconds.update(kmeans=t1 - t0, fill=t2 - t1, storage=t3 - t2,
-                                  tune=t4 - t3)
+                                  tune=t4 - t_tune)
+        self._log_build()
+
+    def _setup(self, n_total: int, dim: int, device, *, store_dtype, recall_target,
+               capacity_slack, spherical, balance_eta, kmeans_split, reduced_dim,
+               candidates, pq_m, pq_iters, pq_rotate, pq_layout, n_clusters):
+        """Validate and set the options both constructors share, the cluster
+        count and the capacity."""
+        self.n_total = int(n_total)
+        self.dim = int(dim)
+        self.device = device
+        if self.n_total < 1:
+            raise ValueError("IVFIPIndex needs a non-empty corpus")
+        self._set_store(store_dtype)
+        if capacity_slack < 1.0:
+            raise ValueError("capacity_slack must be >= 1.0")
+        self.recall_target = float(recall_target)
+        self.spherical = bool(spherical)
+        self.balance_eta = float(balance_eta)
+        self._set_hybrid(reduced_dim, candidates)
+        self._set_pq(pq_m, pq_iters, pq_rotate, pq_layout)
+        self.n_clusters = _resolve_clusters(self.n_total, 1, n_clusters)
+        self.kmeans_split = int(kmeans_split)
+        if not 0 <= self.kmeans_split <= self.n_clusters // 2:
+            # past K // 2 the fullest and the emptiest clusters overlap, and
+            # a receiver's write would undo a donor's split
+            raise ValueError(
+                f"kmeans_split={kmeans_split} must be in [0, n_clusters // 2 = "
+                f"{self.n_clusters // 2}]")
+        self.capacity = _resolve_capacity(
+            self.n_total, self.n_clusters, capacity_slack,
+            multiple=self._capacity_multiple(),
+        )
+        self._set_assign_bias(None)
+        self.build_seconds = {}
+
+    def _log_build(self) -> None:
         logger.info(
             "IVFIPIndex: %d rows, K %d, capacity %d, nprobe %d; build %s",
             self.n_total, self.n_clusters, self.capacity, self.nprobe,
@@ -420,21 +529,171 @@ class IVFIPIndex:
 
     # ------------------------------------------------------------------
     @classmethod
-    def from_chunk_fn(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "IVFIPIndex.from_chunk_fn: " + _NOT_PORTED.format("the streamed build"))
+    def from_chunk_fn(
+        cls,
+        get_chunk,
+        n_total: int,
+        dim: int,
+        *,
+        chunk_rows: int = 262144,
+        train_rows: Optional[int] = None,
+        n_clusters: Union[int, str] = "auto",
+        nprobe: Union[int, str] = "auto",
+        recall_target: float = 0.95,
+        store_dtype=torch.bfloat16,
+        kmeans_iters: int = 10,
+        capacity_slack: float = 1.3,
+        spherical: bool = True,
+        balance_eta: float = 0.0,
+        kmeans_split: int = 0,
+        reduced_dim: Optional[int] = None,
+        candidates: Union[int, str] = "auto",
+        pq_m: Optional[int] = None,
+        pq_iters: int = 25,
+        pq_rotate: str = "none",
+        pq_layout: str = "auto",
+        tune_sample: int = TUNE_SAMPLE,
+        tune_k: int = TUNE_K,
+        max_nprobe: Optional[int] = None,
+        seed: int = 0,
+        device="cuda",
+    ) -> "IVFIPIndex":
+        """Streamed build on ``device``: the fp32 corpus never exists whole.
 
-    def append_sharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "IVFIPIndex.append_sharded: " + _NOT_PORTED.format("mutation"))
+        ``get_chunk(lo, hi)`` returns fp32 rows ``[hi - lo, D]`` (numpy or a
+        tensor on any device) for the global range [lo, hi); ranges are
+        asked for in ascending order: whole chunks evenly spaced for the
+        k-means sample (``train_rows``, default ~64 per cluster and at least
+        65536), then every range once to assign and once to place. Device
+        memory holds the final storage, the k-means sample and one fp32
+        chunk. Pseudo-queries for the nprobe tuner are decoded stored rows
+        (``reconstruct``)."""
+        require_fp32_matmul()
+        self = cls.__new__(cls)
+        self._setup(n_total, dim, resolve_device(device), store_dtype=store_dtype,
+                    recall_target=recall_target, capacity_slack=capacity_slack,
+                    spherical=spherical, balance_eta=balance_eta,
+                    kmeans_split=kmeans_split, reduced_dim=reduced_dim,
+                    candidates=candidates, pq_m=pq_m, pq_iters=pq_iters,
+                    pq_rotate=pq_rotate, pq_layout=pq_layout, n_clusters=n_clusters)
+        dev, k_c = self.device, self.n_clusters
+        chunk_rows = max(1, int(chunk_rows))
+        budget = _CHUNK_BUDGET_CUDA if dev.type == "cuda" else _CHUNK_BUDGET
 
-    def remove_rows(self, *args, **kwargs):
-        raise NotImplementedError(
-            "IVFIPIndex.remove_rows: " + _NOT_PORTED.format("mutation"))
+        def fetch(lo, hi):
+            rows = torch.as_tensor(get_chunk(lo, hi), dtype=torch.float32).to(dev)
+            if rows.shape != (hi - lo, self.dim):
+                raise ValueError(f"get_chunk({lo}, {hi}) gave {tuple(rows.shape)}, "
+                                 f"expected {(hi - lo, self.dim)}")
+            return rows
 
-    def reconstruct(self, ids):
-        raise NotImplementedError(
-            "IVFIPIndex.reconstruct: " + _NOT_PORTED.format("reconstruct"))
+        def ranges():
+            for lo in range(0, self.n_total, chunk_rows):
+                yield lo, min(lo + chunk_rows, self.n_total)
+
+        # --- pass 0: whole chunks, evenly spaced, as the k-means sample ---
+        t0 = time.perf_counter()
+        s_target = int(train_rows if train_rows is not None
+                       else min(self.n_total, max(64 * k_c, 1 << 16)))
+        n_full = max(self.n_total // chunk_rows, 1)
+        chunks_needed = min(n_full, max(1, -(-s_target // chunk_rows)))
+        picked = sorted({round(i * (n_full - 1) / max(chunks_needed - 1, 1))
+                         for i in range(chunks_needed)})
+        train = torch.empty((len(picked) * chunk_rows, self.dim), dtype=torch.float32,
+                            device=dev)
+        n_train = 0
+        for ci in picked:  # only the global last chunk is partial, and it is last
+            rows = fetch(ci * chunk_rows, min((ci + 1) * chunk_rows, self.n_total))
+            train[n_train : n_train + rows.shape[0]] = rows
+            n_train += rows.shape[0]
+        del rows
+        train = train[:n_train]
+        init_idx = np.random.default_rng(seed).choice(
+            n_train, size=k_c, replace=k_c > n_train)
+        init = train[torch.from_numpy(init_idx).to(dev)].cpu().numpy()
+        if self.spherical:  # on the host, as the constructor does
+            init = init / np.maximum(np.linalg.norm(init, axis=1, keepdims=True), 1e-12)
+        cents, bias = _lloyd_body(
+            train, torch.from_numpy(init).to(dev), n_iters=max(0, int(kmeans_iters)),
+            chunk=_chunk_rows(n_train, k_c, budget), spherical=self.spherical,
+            balance_eta=self.balance_eta, split_r=self.kmeans_split)
+        self._set_centroids(cents)
+        self._set_assign_bias(bias.cpu().numpy())
+        t1 = time.perf_counter()
+        if self.pq_m is not None:
+            # codebooks train on the sample's top-1 residuals (FAISS IVFPQ
+            # trains so); placement encodes each row against its slot's
+            # cluster
+            pq_target = min(n_train, 1 << 17)
+            rows = train[:: max(1, n_train // pq_target)][:pq_target]
+            top1 = _assign_top2_body(rows, cents, chunk=_chunk_rows(rows.shape[0], k_c, budget),
+                                     bias=self.assign_bias)[:, 0]
+            self._fit_pq_codebooks(rows - cents[top1.long()], seed)
+            del rows, top1
+        del train
+        t2 = time.perf_counter()
+
+        # --- pass 1: streamed top-8 assignment ---
+        cand = np.empty((self.n_total, ASSIGN_CANDIDATES), np.int32)
+        a_chunk = _chunk_rows(chunk_rows, k_c, budget)
+        for lo, hi in ranges():
+            cand[lo:hi] = _assign_top2_body(
+                fetch(lo, hi), cents, chunk=a_chunk, n_cand=ASSIGN_CANDIDATES,
+                bias=self.assign_bias).cpu().numpy()
+        row_ids = _greedy_fill(cand, self.n_total, k_c, self.capacity)
+        del cand
+        self._set_layout_maps(row_ids)
+        self.row_ids = torch.from_numpy(row_ids).to(dev)
+        t3 = time.perf_counter()
+
+        # --- pass 2: streamed placement into storage (empty slots stay 0) ---
+        n_slots = k_c * self.capacity
+        m = self.pq_m
+        if m is not None:
+            self.corpus = torch.zeros((m, n_slots) if self._pq_cols else (n_slots, m),
+                                      dtype=torch.uint8, device=dev)
+        else:
+            self.corpus = torch.zeros((n_slots, self.dim), dtype=self.store_dtype, device=dev)
+        self.slot_scale = (torch.zeros(n_slots, dtype=torch.float32, device=dev)
+                           if self.quantized else None)
+        for lo, hi in ranges():
+            self._write_slots(fetch(lo, hi), torch.from_numpy(self._slot_of_row[lo:hi]).to(dev),
+                              self.corpus, self.slot_scale, self.capacity)
+        _sync(dev)
+        t4 = time.perf_counter()
+        self._init_projection()
+        t_tune = time.perf_counter()
+        self._finish_tuning(nprobe, max_nprobe, tune_sample, tune_k, seed,
+                            sample_fn=self.reconstruct)
+        self.build_seconds.update(kmeans=t1 - t0, pq_fit=t2 - t1, assign_fill=t3 - t2,
+                                  storage=t4 - t3, tune=time.perf_counter() - t_tune)
+        if m is None:
+            del self.build_seconds["pq_fit"]
+        self._log_build()
+        return self
+
+    def _write_slots(self, rows: torch.Tensor, slots: torch.Tensor, corpus, slot_scale,
+                     capacity: int) -> None:
+        """Encode fp32 ``rows`` at the storage codec and write them into
+        ``corpus`` (and ``slot_scale``) at ``slots``: int8 codes and scales,
+        PQ codes of the residual to the slot's cluster (fixed codebooks),
+        or cast rows. Chunked so the PQ score transient stays small."""
+        if self.pq_m is None:
+            if self.quantized:
+                corpus[slots], slot_scale[slots] = _quantize_rows_int8(
+                    rows, times_reciprocal=True)
+            else:
+                corpus[slots] = rows.to(self.store_dtype)
+            return
+        cb = torch.from_numpy(self._codebooks_host).to(self.device)
+        for lo in range(0, rows.shape[0], _ENCODE_CHUNK):
+            sl = slots[lo : lo + _ENCODE_CHUNK]
+            res = rows[lo : lo + _ENCODE_CHUNK] - self.centroids[sl // capacity]
+            codes = _pq_encode_block(res, cb, self.rotation)
+            if self._pq_cols:
+                corpus[:, sl] = codes.T
+            else:
+                corpus[sl] = codes
 
     # ------------------------------------------------------------------
     @property
@@ -465,15 +724,32 @@ class IVFIPIndex:
         self.quantized = dtype == torch.int8
         self.store_dtype = dtype
 
-    def _set_hybrid(self, candidates):
-        """The PCA hybrid is not ported: ``reduced_dim`` is always None here;
-        ``candidates`` is validated and kept for the file format."""
-        self.reduced_dim = None
+    def _set_hybrid(self, reduced_dim, candidates):
+        """The PCA hybrid's knobs: probed rows score in a projected d' space
+        (``reduced_dim``), and the top ``candidates`` rerank at full width."""
+        if reduced_dim is not None:
+            rd = int(reduced_dim)
+            if not 0 < rd <= self.dim:
+                raise ValueError(f"reduced_dim={reduced_dim} must be in (0, {self.dim}]")
+            self.reduced_dim = rd
+        else:
+            self.reduced_dim = None
         if candidates != "auto":
             if int(candidates) < 1:
                 raise ValueError("candidates must be >= 1")
             candidates = int(candidates)
         self.candidates = candidates
+
+    def _set_assign_bias(self, bias: Optional[np.ndarray]):
+        """The balanced build's assignment bias (None or all zero: off).
+        Probing ranks clusters by ``q . centroid - bias``, the metric the
+        rows were assigned by; score terms stay raw."""
+        if bias is None or self.balance_eta == 0.0 or not np.any(bias):
+            self._assign_bias_host = None
+            self.assign_bias = None
+        else:
+            self._assign_bias_host = np.asarray(bias, np.float32)
+            self.assign_bias = torch.from_numpy(self._assign_bias_host).to(self.device)
 
     def _set_pq(self, pq_m, pq_iters, pq_rotate="none", pq_layout="auto"):
         """Validate the product-quantization knobs (residual PQ: ``pq_m``
@@ -512,6 +788,11 @@ class IVFIPIndex:
                 "pq_m and int8 store_dtype are exclusive storage codecs — "
                 "pick one"
             )
+        if self.reduced_dim is not None:
+            raise ValueError(
+                "pq_m and reduced_dim are exclusive (PQ codes already cut the "
+                "probed-row reads below the d'-projection's bytes)"
+            )
         self.pq_m = m
         self.pq_iters = max(1, int(pq_iters))
         if pq_layout == "auto":
@@ -539,22 +820,26 @@ class IVFIPIndex:
     def _train_and_assign(self, corpus: torch.Tensor, init_centroids: np.ndarray,
                           kmeans_iters) -> np.ndarray:
         """The Lloyd loop and the top-``ASSIGN_CANDIDATES`` pass; sets the
-        centroids and returns host [N, C] candidate cluster ids."""
+        centroids (and the balanced build's bias) and returns host [N, C]
+        candidate cluster ids."""
         budget = _CHUNK_BUDGET_CUDA if corpus.is_cuda else _CHUNK_BUDGET
         chunk = _chunk_rows(corpus.shape[0], self.n_clusters, budget)
-        cents = _lloyd_body(
+        cents, bias = _lloyd_body(
             corpus, torch.from_numpy(init_centroids).to(self.device),
             n_iters=max(0, int(kmeans_iters)), chunk=chunk,
-            spherical=self.spherical,
+            spherical=self.spherical, balance_eta=self.balance_eta,
+            split_r=self.kmeans_split,
         )
-        cand = _assign_top2_body(corpus, cents, chunk=chunk,
-                                 n_cand=ASSIGN_CANDIDATES)
+        cand = _assign_top2_body(corpus, cents, chunk=chunk, n_cand=ASSIGN_CANDIDATES,
+                                 bias=bias if self.balance_eta else None)
         self._set_centroids(cents)
+        self._set_assign_bias(bias.cpu().numpy())
         return cand.cpu().numpy()
 
     def _set_layout_maps(self, row_ids: np.ndarray):
-        """Host-side row -> cluster / slot maps, kept for the analytic nprobe
-        tuner (recall(p) follows from each true hit's cluster probe-rank)."""
+        """Host-side row -> cluster / slot maps: the analytic nprobe tuner
+        (recall(p) follows from each true hit's cluster probe-rank),
+        ``reconstruct`` and the mutations read them."""
         row_ids = np.asarray(row_ids, np.int32)
         self._row_ids_host = row_ids
         cluster = np.zeros(self.n_total, np.int32)
@@ -691,6 +976,35 @@ class IVFIPIndex:
             if self._rotation_host is not None else None
         )
 
+
+    def _init_projection(self):
+        """The PCA hybrid's basis and projected rows, from the STORED rows
+        (int8 dequantized): the uncentred second moment summed on the device
+        in fp32 (empty slots are zero rows and add nothing), its top
+        ``reduced_dim`` eigenvectors by ``np.linalg.eigh`` on the host, and
+        the bf16 projections of every slot."""
+        if self.reduced_dim is None:
+            self.proj = None
+            self.corpus_low = None
+            return
+        t0 = time.perf_counter()
+        n_slots = self.corpus.shape[0]
+        cov = torch.zeros((self.dim, self.dim), dtype=torch.float32, device=self.device)
+        for lo in range(0, n_slots, _PROJ_CHUNK):
+            rows = self._slot_rows(torch.arange(lo, min(lo + _PROJ_CHUNK, n_slots),
+                                                device=self.device))
+            cov += rows.T @ rows
+        _, v = np.linalg.eigh(cov.cpu().numpy())  # ascending eigenvalues
+        self.proj = torch.from_numpy(
+            np.ascontiguousarray(v[:, -self.reduced_dim:], np.float32)).to(self.device)
+        self.corpus_low = torch.empty((n_slots, self.reduced_dim), dtype=torch.bfloat16,
+                                      device=self.device)
+        for lo in range(0, n_slots, _PROJ_CHUNK):
+            sl = torch.arange(lo, min(lo + _PROJ_CHUNK, n_slots), device=self.device)
+            self.corpus_low[sl] = (self._slot_rows(sl) @ self.proj).to(torch.bfloat16)
+        _sync(self.device)
+        self.build_seconds["projection"] = time.perf_counter() - t0
+
     # ------------------------------------------------------------------
     def _finish_tuning(self, nprobe, max_nprobe, tune_sample, tune_k, seed,
                        *, sample_fn):
@@ -715,10 +1029,13 @@ class IVFIPIndex:
         """The smallest nprobe meeting ``recall_target`` against the
         storage-precision exact search over corpus-row pseudo-queries.
         Analytic: at probe count p the hit set is the rows whose cluster
-        ranks below p among the query's centroid scores, so one exact search
-        and a host rank computation give recall(p) for every p; the choice
-        is then verified with real searches and bumped a bounded number of
-        times if short."""
+        ranks below p among the query's centroid scores (minus the balanced
+        build's bias), so one exact search and a host rank computation give
+        recall(p) for every p; the choice is then verified with real
+        searches and bumped a bounded number of times if short. For the
+        hybrid a bump that does not raise recall (more probed rows crowd the
+        fixed candidate pool) doubles the candidate pool instead, which
+        sticks to the instance."""
         k = min(k, self.n_total)
         cap = min(max_nprobe, self.local_clusters)
         n_sample = len(sample)
@@ -732,6 +1049,8 @@ class IVFIPIndex:
             return _bf16(x).numpy()
 
         scores = bf16_host(sample) @ bf16_host(self._centroids_host).T  # [S, K]
+        if self._assign_bias_host is not None:
+            scores = scores - self._assign_bias_host[None, :]
         local_clusters = self.local_clusters
         order = np.argsort(-scores, axis=1, kind="stable")
         rank = np.empty_like(order)
@@ -751,19 +1070,30 @@ class IVFIPIndex:
             "IVFIPIndex tune (analytic): nprobe=%d predicted recall=%.4f "
             "(target %.2f)", p, float((need < p).mean()), self.recall_target,
         )
-        for _ in range(3):
+        hybrid = self.reduced_dim is not None
+        prev_recall = -1.0
+        for _ in range(4 if hybrid else 3):
             _, idx = self.search(sample, k=k, nprobe=p)
             recall = float(np.mean([
                 len(set(idx[r].tolist()) & ref_sets[r]) / k
                 for r in range(n_sample)
             ]))
             logger.info(
-                "IVFIPIndex tune (verify): nprobe=%d recall=%.4f (target %.2f)",
-                p, recall, self.recall_target,
+                "IVFIPIndex tune (verify): nprobe=%d candidates=%s recall=%.4f "
+                "(target %.2f)", p, self.candidates, recall, self.recall_target,
             )
-            if recall >= self.recall_target or p >= cap:
+            if recall >= self.recall_target:
                 break
-            p = min(max(p + 1, int(p * 1.5)), cap)
+            if hybrid and recall <= prev_recall:
+                self.candidates = min(2 * self._effective_candidates(k, None),
+                                      p * self.capacity)
+                logger.info("IVFIPIndex tune: probe bump did not raise recall; "
+                            "candidates -> %d", self.candidates)
+            elif p >= cap:
+                break
+            else:
+                p = min(max(p + 1, int(p * 1.5)), cap)
+            prev_recall = recall
         else:
             logger.warning(
                 "IVFIPIndex: recall below target %.2f at nprobe=%d after "
@@ -781,15 +1111,28 @@ class IVFIPIndex:
         p = min(p, self.local_clusters)
         return p, min(k, p * self.capacity)
 
-    def _gather_bytes_per_query(self, p_used: int) -> float:
+    def _effective_candidates(self, k: int, candidates) -> int:
+        """The hybrid's rerank pool: the call's, else the instance's, else
+        max(2k, 128); never below k."""
+        c = candidates if candidates is not None else self.candidates
+        if c == "auto":
+            c = max(2 * k, 128)
+        return max(int(c), k)
+
+    def _gather_bytes_per_query(self, p_used: int, c_used: int = 0) -> float:
         """Per-query device bytes of one search's transients, for search()'s
         batch shrink: every probed slot's fp32 score with its stable sort
-        (values and int64 order) and its int64 row id, plus, where the
-        probed rows are gathered (int8 storage, or the plain versions on
-        the CPU), the gathered rows or codes and their fp32 copy."""
+        (values and int64 order) and its int64 row id, plus what is gathered:
+        the hybrid's projected bf16 rows (and their fp32 copy on the CPU) and
+        its ``c_used`` full rows; int8 rows, or on the CPU the rows or codes
+        the plain versions gather, with their fp32 copy."""
         n = p_used * self.capacity
         transients = n * 24
-        if self.device.type == "cuda" and not self.quantized:
+        cpu = self.device.type != "cuda"
+        if self.reduced_dim is not None:
+            low = n * self.reduced_dim * (6 if cpu else 2)
+            return transients + low + c_used * self.dim * (self.corpus.element_size() + 4)
+        if not cpu and not self.quantized:
             return transients  # the kernels read the probed rows in place
         if self.pq_m is not None:
             return transients + n * self.pq_m * 13  # codes, int64 index, fp32
@@ -797,9 +1140,44 @@ class IVFIPIndex:
 
     def _probe_clusters(self, queries: torch.Tensor, p: int):
         """Each query's top-p clusters by the bf16 centroid product (fp32
-        result), ties to the lower id: (probe [Q, p] int64, scores [Q, p])."""
-        cent_s, probe = exact_topk(_bf16_mm(queries, self.centroids.T), p)
-        return probe, cent_s
+        result), ties to the lower id; a balanced build ranks by the product
+        minus its bias and keeps the raw product for the PQ score. Returns
+        (probe [Q, p] int64, the probed raw scores [Q, p])."""
+        qc = _bf16_mm(queries, self.centroids.T)
+        if self.assign_bias is None:
+            cent_s, probe = exact_topk(qc, p)
+            return probe, cent_s
+        _, probe = exact_topk(qc - self.assign_bias[None, :], p)
+        return probe, torch.gather(qc, 1, probe)
+
+    def _slot_rows(self, slots: torch.Tensor) -> torch.Tensor:
+        """Stored rows of ``slots`` as fp32: fp32/bf16 rows as stored, int8
+        codes times their scale, PQ as the codebook decode (un-rotated) plus
+        the slot's centroid."""
+        if self.pq_m is None:
+            rows = self.corpus[slots].to(torch.float32)
+            if self.quantized:
+                rows = rows * self.slot_scale[slots][:, None]
+            return rows
+        stored = self.corpus[:, slots].T if self._pq_cols else self.corpus[slots]
+        m = self.pq_m
+        z = _pq_reconstruct(stored, self.codebooks, m, self.dim // m).to(torch.float32)
+        if self.rotation is not None:
+            z = z @ self.rotation.T  # codes hold z = residual @ rot
+        return z + self.centroids[slots // self.capacity]
+
+    def _rerank_scores(self, queries: torch.Tensor, rows: torch.Tensor,
+                       slots: torch.Tensor) -> torch.Tensor:
+        """fp32 [Q, C] scores of stored ``rows`` [Q, C, D] (of ``slots``
+        [Q, C]) at storage precision: true fp32 products for fp32 rows,
+        bf16 operands with fp32 sums for bf16 rows and int8 codes, the
+        latter times their slot scales."""
+        if rows.dtype == torch.float32:
+            return torch.bmm(rows, queries[:, :, None])[..., 0]
+        s = _bf16_bmm(rows, queries[:, :, None])[..., 0]
+        if self.quantized:
+            s = s * self.slot_scale[slots]
+        return s
 
     def _probe_block(self, queries: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
         """Rows: fp32 [Q, p * cap] scores of every probed slot."""
@@ -810,9 +1188,7 @@ class IVFIPIndex:
         # product with fp32 sums, then the slot scales
         slots = (probe[:, :, None] * cap
                  + torch.arange(cap, device=probe.device)).reshape(q_n, -1)
-        rows = self.corpus[slots].to(torch.float32)  # [Q, p*cap, D]
-        s = torch.bmm(rows, _bf16(queries)[:, :, None])[..., 0]
-        return s * self.slot_scale[slots]
+        return self._rerank_scores(queries, self.corpus[slots], slots)
 
     def _probe_block_pq(self, queries: torch.Tensor, probe: torch.Tensor,
                         cent_s: torch.Tensor) -> torch.Tensor:
@@ -829,22 +1205,51 @@ class IVFIPIndex:
         s = adc(self.corpus, probe, lut, cap=cap).reshape(q_n, -1)
         return s + torch.repeat_interleave(cent_s, cap, dim=1)
 
+    def _search_hybrid(self, queries, probe, hit_ids, ok, k: int, kk: int, candidates):
+        """PCA hybrid: every probed slot scored in the projected space (bf16
+        operands, fp32 sums), ineligible slots masked BEFORE the candidate
+        pick, the top C slots (exact top-k, lowest position first; JAX's
+        ``approx_max_k`` with ``aggregate_to_topk`` is this exact top-k on
+        the CPU) reranked at full width and storage precision."""
+        q_n, cap = queries.shape[0], self.capacity
+        slots = (probe[:, :, None] * cap
+                 + torch.arange(cap, device=probe.device)).reshape(q_n, -1)
+        cc = min(self._effective_candidates(k, candidates), slots.shape[1])
+        q_low = (queries @ self.proj).to(torch.bfloat16)
+        s1 = _bf16_bmm(self.corpus_low[slots], q_low[:, :, None])[..., 0]
+        s1 = torch.where(ok, s1, NEG_INF)
+        _, cpos = exact_topk(s1, cc)
+        slots_sel = torch.gather(slots, 1, cpos)
+        cand_ids = torch.gather(hit_ids, 1, cpos)
+        s2 = self._rerank_scores(queries, self.corpus[slots_sel], slots_sel)
+        s2 = torch.where(torch.gather(ok, 1, cpos), s2, NEG_INF)
+        top_s, pos = exact_topk(s2, min(kk, cc))
+        return top_s, torch.gather(cand_ids, 1, pos).long()
+
     def search_tensor(self, queries: torch.Tensor, k: int,
-                      nprobe: Optional[int] = None):
+                      nprobe: Optional[int] = None, candidates: Optional[int] = None,
+                      *, sel: Optional[torch.Tensor] = None):
         """Device-side search: (scores fp32 [Q, k'], indices int64 [Q, k'])
-        on the index's device, k' = min(k, ntotal); unreachable tail slots
-        are -inf / -1."""
+        on the index's device, k' = min(k, ntotal). ``sel``: a bool [ntotal]
+        eligibility mask on the index's device (ineligible rows score -inf
+        after the kernels, before the top-k; the probed clusters do not
+        change). Unreachable tail slots are -inf / -1."""
         k = min(k, self.n_total)
         p, kk = self._effective_probe(k, nprobe)
         q = queries.to(self.device, torch.float32)
         probe, cent_s = self._probe_clusters(q, p)
         hit_ids = self.row_ids.view(self.n_clusters, self.capacity)[probe]
         hit_ids = hit_ids.reshape(q.shape[0], -1)
+        ok = hit_ids >= 0  # filled slots, and of those the rows the filter allows
+        if sel is not None:
+            ok &= sel[hit_ids.clamp_min(0).long()]
+        if self.reduced_dim is not None:
+            return self._search_hybrid(q, probe, hit_ids, ok, k, kk, candidates)
         if self.pq_m is not None:
             s = self._probe_block_pq(q, probe, cent_s)
         else:
             s = self._probe_block(q, probe)
-        s = torch.where(hit_ids >= 0, s, NEG_INF)
+        s = torch.where(ok, s, NEG_INF)
         top_s, pos = exact_topk(s, kk)
         return top_s, torch.gather(hit_ids, 1, pos).long()
 
@@ -862,30 +1267,192 @@ class IVFIPIndex:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Batched probe-and-score search from host queries. Returns numpy
         fp32 scores and int32 indices [Q, k'] (FlatIPIndex's surface); tail
-        slots no probe reaches are -inf / -1, as in FAISS IVF."""
-        if candidates is not None:
-            raise NotImplementedError("IVFIPIndex.search candidates: "
-                                      + _NOT_PORTED.format("the PCA hybrid"))
-        if any(x is not None for x in (allowed_ids, disallowed_ids, selector)):
-            raise NotImplementedError("IVFIPIndex.search filters: "
-                                      + _NOT_PORTED.format("selector filtering"))
+        slots no probe reaches are -inf / -1, as in FAISS IVF.
+        ``candidates``: the hybrid's rerank pool for this call.
+        ``allowed_ids`` / ``disallowed_ids`` / ``selector`` (at most one)
+        restrict the hits to a subset of rows (FAISS ``IDSelector``); the
+        unfillable tail of a filtered search is -inf / -1."""
         k = min(k, self.n_total)
+        sel_mask = build_selector_mask(self.n_total, allowed_ids, disallowed_ids, selector)
         p_used, _ = self._effective_probe(k, nprobe)
-        max_bq = max(1, int(_GATHER_BUDGET // max(self._gather_bytes_per_query(p_used), 1)))
+        c_used = (self._effective_candidates(k, candidates)
+                  if self.reduced_dim is not None else 0)
+        per_q = self._gather_bytes_per_query(p_used, c_used)
+        max_bq = max(1, int(_GATHER_BUDGET // max(per_q, 1)))
         if max_bq < batch_size:
             logger.info("IVF search: shrinking query batch %d -> %d (nprobe %d x "
                         "capacity %d)", batch_size, max_bq, p_used, self.capacity)
             batch_size = max_bq
+        sel = None if sel_mask is None else torch.from_numpy(sel_mask).to(self.device)
         queries = np.asarray(queries, np.float32)
         scores, indices = [], []
         for lo in range(0, queries.shape[0], batch_size):
             block = torch.from_numpy(queries[lo : lo + batch_size]).to(self.device)
-            s, i = self.search_tensor(block, k, nprobe)
+            s, i = self.search_tensor(block, k, nprobe, candidates, sel=sel)
             scores.append(s.cpu().numpy())
             indices.append(i.to(torch.int32).cpu().numpy())
         if not scores:
             return np.zeros((0, k), np.float32), np.zeros((0, k), np.int32)
-        return np.concatenate(scores), np.concatenate(indices)
+        out_s, out_i = np.concatenate(scores), np.concatenate(indices)
+        if sel_mask is not None:
+            out_i = mask_filtered_misses(out_s, out_i)
+        return out_s, out_i
+
+    # ------------------------------------------------------------------
+    # mutation (FAISS add / remove_ids analogs): each returns a NEW index;
+    # the old one keeps its tensors, so searches running on it stay valid
+    _CLONE_FIELDS = (
+        "device", "dim", "quantized", "store_dtype", "recall_target",
+        "spherical", "reduced_dim", "candidates", "pq_m", "pq_iters",
+        "pq_rotate", "pq_layout", "codebooks", "_codebooks_host", "rotation",
+        "_rotation_host", "n_clusters", "centroids", "_centroids_host",
+        "proj", "nprobe", "local_clusters", "balance_eta",
+        "_assign_bias_host", "assign_bias", "kmeans_split",
+    )
+
+    def _clone_shell(self) -> "IVFIPIndex":
+        """A new index with this one's trained parts (centroids, codebooks,
+        rotation, PCA basis, bias) and tuned knobs, but no row storage."""
+        out = IVFIPIndex.__new__(IVFIPIndex)
+        for name in self._CLONE_FIELDS:
+            setattr(out, name, getattr(self, name))
+        out.build_seconds = {}
+        return out
+
+    def _grown_storage(self, new_cap: int):
+        """Every slot array widened to ``new_cap`` slots per cluster (new
+        slots empty: zero rows and codes, scale 1e-12, id -1). Returns
+        (corpus, slot_scale, corpus_low, row_ids_host)."""
+        k_c, cap = self.n_clusters, self.capacity
+        corpus = _grow_slots(self.corpus, k_c, cap, new_cap, axis=1 if self._pq_cols else 0)
+        slot_scale = (_grow_slots(self.slot_scale, k_c, cap, new_cap, fill=1e-12)
+                      if self.slot_scale is not None else None)
+        corpus_low = (_grow_slots(self.corpus_low, k_c, cap, new_cap)
+                      if self.corpus_low is not None else None)
+        row_ids_host = np.pad(self._row_ids_host.reshape(k_c, cap),
+                              ((0, 0), (0, new_cap - cap)), constant_values=-1).reshape(-1)
+        return corpus, slot_scale, corpus_low, row_ids_host
+
+    def _place_free(self, row_ids_host: np.ndarray, cand: np.ndarray,
+                    capacity: int) -> np.ndarray:
+        """Slots for new rows: a free slot in the first-choice cluster, else
+        the second choice, else any free slot (spill). Run-rank placement
+        over the free-slot list (removal leaves holes anywhere); the caller
+        guarantees enough free slots. Deterministic (the JAX package's)."""
+        n_new = cand.shape[0]
+        free = np.nonzero(row_ids_host < 0)[0]  # ascending == cluster-major
+        free_cluster = free // capacity
+        k_c = self.n_clusters
+        starts = np.searchsorted(free_cluster, np.arange(k_c))
+        counts = np.searchsorted(free_cluster, np.arange(k_c), side="right") - starts
+        used = np.zeros(k_c, np.int64)
+        taken = np.zeros(free.size, bool)
+        slots = np.full(n_new, -1, np.int64)
+        remaining = np.arange(n_new)
+        for choice in range(cand.shape[1]):
+            if remaining.size == 0:
+                break
+            c = cand[remaining, choice].astype(np.int64)
+            order = np.argsort(c, kind="stable")
+            cs = c[order]
+            rank = np.arange(len(cs)) - np.searchsorted(cs, cs, side="left")
+            pos = used[cs] + rank
+            ok = pos < counts[cs]
+            fidx = starts[cs[ok]] + pos[ok]
+            slots[remaining[order[ok]]] = free[fidx]
+            taken[fidx] = True
+            used += np.bincount(cs[ok], minlength=k_c)
+            remaining = remaining[order[~ok]]
+        if remaining.size:
+            slots[remaining] = free[~taken][: remaining.size]
+            logger.info(
+                "IVFIPIndex.append: %d of %d new rows (%.2f%%) spilled outside "
+                "their top-2 clusters (capacity %d)", remaining.size, n_new,
+                100.0 * remaining.size / n_new, capacity)
+        return slots
+
+    def append_sharded(self, new_rows, n_new: int, *,
+                       headroom: float = 0.0) -> "IVFIPIndex":
+        """Append rows (FAISS ``IndexIVF.add``): ``new_rows`` fp32 [n_buf,
+        D] (a tensor, moved to the index's device, or numpy), rows past
+        ``n_new`` ignored. Centroids, PQ codebooks, the rotation and the PCA
+        basis stay fixed; new rows take a free slot of their nearest cluster
+        (second choice, then spill); when free slots run out, every
+        cluster's capacity grows by the same multiple of the slot rounding
+        (``headroom`` pre-pays extra free slots). ``nprobe`` survives.
+        Returns a new index."""
+        rows = torch.as_tensor(new_rows, dtype=torch.float32)
+        n_new = validate_append_args(rows, n_new, headroom, self.dim)
+        rows = rows[:n_new].to(self.device)
+        budget = _CHUNK_BUDGET_CUDA if self.device.type == "cuda" else _CHUNK_BUDGET
+        cand = _assign_top2_body(rows, self.centroids,
+                                 chunk=_chunk_rows(n_new, self.n_clusters, budget),
+                                 bias=self.assign_bias).cpu().numpy()
+        out = self._clone_shell()
+        total_free = int((self._row_ids_host < 0).sum())
+        if total_free < n_new:
+            mult = self._capacity_multiple()
+            extra = int(np.ceil(headroom * (self.n_total + n_new)))
+            grow = -(-(n_new - total_free + extra) // self.n_clusters)
+            out.capacity = self.capacity + -(-grow // mult) * mult
+            corpus, slot_scale, corpus_low, row_ids_host = self._grown_storage(out.capacity)
+        else:
+            out.capacity = self.capacity
+            corpus = self.corpus.clone()
+            slot_scale = self.slot_scale.clone() if self.slot_scale is not None else None
+            corpus_low = self.corpus_low.clone() if self.corpus_low is not None else None
+            row_ids_host = self._row_ids_host
+        slots_np = out._place_free(row_ids_host, cand, out.capacity)
+        slots = torch.from_numpy(slots_np).to(self.device)
+        out._write_slots(rows, slots, corpus, slot_scale, out.capacity)
+        if corpus_low is not None:
+            corpus_low[slots] = (rows @ self.proj).to(torch.bfloat16)
+        out.corpus, out.slot_scale, out.corpus_low = corpus, slot_scale, corpus_low
+        new_row_ids = row_ids_host.copy()
+        new_row_ids[slots_np] = np.arange(self.n_total, self.n_total + n_new,
+                                          dtype=new_row_ids.dtype)
+        out.row_ids = torch.from_numpy(new_row_ids).to(self.device)
+        out.n_total = self.n_total + n_new
+        out._set_layout_maps(new_row_ids)
+        return out
+
+    def remove_rows(self, removed) -> "IVFIPIndex":
+        """Drop rows by corpus position (FAISS ``remove_ids``): survivors
+        renumber down in order. Only ``row_ids`` changes (removed slots
+        become empty, -1); the storage tensors are shared with this index,
+        and freed slots take later appends."""
+        removed = np.unique(np.asarray(removed, np.int64).reshape(-1))
+        if removed.size == 0:
+            return self
+        if removed[0] < 0 or removed[-1] >= self.n_total:
+            raise IndexError(
+                f"remove ids must be in [0, {self.n_total}); got "
+                f"[{removed[0]}, {removed[-1]}]"
+            )
+        if removed.size >= self.n_total:
+            raise ValueError("cannot remove every row; build a new index")
+        out = self._clone_shell()
+        out.capacity = self.capacity
+        out.n_total = self.n_total - int(removed.size)
+        out.corpus = self.corpus
+        out.slot_scale = self.slot_scale
+        out.corpus_low = self.corpus_low
+        r = self._row_ids_host
+        is_removed = np.isin(r, removed.astype(r.dtype)) & (r >= 0)
+        shift = np.searchsorted(removed, np.clip(r, 0, None)).astype(r.dtype)
+        new_row_ids = np.where((r < 0) | is_removed, np.int32(-1), r - shift)
+        out.row_ids = torch.from_numpy(new_row_ids).to(self.device)
+        out._set_layout_maps(new_row_ids)
+        return out
+
+    def reconstruct(self, ids) -> np.ndarray:
+        """Stored rows of corpus ids as fp32 (FAISS ``reconstruct_batch``):
+        fp32/bf16 rows at storage precision, int8 dequantized, PQ as centroid
+        plus codebook decode (un-rotated)."""
+        ids = _canonical_recon_ids(ids, self.n_total)
+        if ids.size == 0:
+            return np.zeros((0, self.dim), np.float32)
+        return _chunked_row_gather(self._slot_rows, self._slot_of_row[ids], self.device)
 
     # ------------------------------------------------------------------
     def _exact_scan(self, queries: torch.Tensor, k: int):

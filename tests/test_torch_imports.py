@@ -43,6 +43,7 @@ MODULES = [
     "rankpo_tpu_torch.ops.pq_adc",
     "rankpo_tpu_torch.index.factory",
     "rankpo_tpu_torch.index.ivf",
+    "rankpo_tpu_torch.index.refined",
     "rankpo_tpu_torch.index.io",
     "rankpo_tpu_torch.utils.jsonl",
     "rankpo_tpu_torch.utils.model_card",

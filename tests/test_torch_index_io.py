@@ -110,9 +110,11 @@ def test_unported_kinds_and_formats_raise(tmp_path):
     jio.write_index(JaxFlat(corpus, dtype=jnp.int8), str(tmp_path / "int8"))
     with pytest.raises(NotImplementedError, match="flat storage"):
         pio.read_index(str(tmp_path / "int8.npz"), device="cpu")
+    # the PCA hybrid loads (it raised before the port had it)
     j = JaxIVF(corpus, n_clusters=4, nprobe=2, reduced_dim=8)
-    with pytest.raises(NotImplementedError, match="PCA hybrid"):
-        pio.index_from_state(jio.index_state(j), device="cpu")
+    p = pio.index_from_state(jio.index_state(j), device="cpu")
+    assert p.reduced_dim == 8 and p.corpus_low.dtype == torch.bfloat16
+    np.testing.assert_array_equal(p.search(corpus[:3], k=5)[1], j.search(corpus[:3], k=5)[1])
     state = jio.index_state(JaxFlat(corpus))
     cfg = json.loads(str(state[pio.CONFIG_KEY]))
     cfg["format"] = "other"

@@ -121,8 +121,8 @@ def test_lloyd_and_top8_match_jax_from_shared_init():
         return cents, jivf._assign_top2_body(c, cents, chunk=chunk, n_cand=8)
 
     j_cents, j_cand = jax_fit(padded, jnp.asarray(init))
-    p_cents = pivf._lloyd_body(torch.from_numpy(corpus), torch.from_numpy(init),
-                               n_iters=6, chunk=chunk, spherical=True)
+    p_cents, _ = pivf._lloyd_body(torch.from_numpy(corpus), torch.from_numpy(init),
+                                  n_iters=6, chunk=chunk, spherical=True)
     p_cand = pivf._assign_top2_body(torch.from_numpy(corpus), p_cents, chunk=chunk, n_cand=8)
     np.testing.assert_allclose(p_cents.numpy(), np.asarray(j_cents), atol=1e-5, rtol=0)
     np.testing.assert_array_equal(p_cand.numpy(), np.asarray(j_cand)[: len(corpus)])
@@ -239,20 +239,14 @@ def test_tensor_input_keeps_device_and_pads():
 
 
 def test_unported_options_raise():
+    """A mesh is not ported (ROADMAP.md Queue 1 item 8); bad storage and PQ
+    options raise ValueError, as in the JAX package."""
     corpus, _ = _corpus_queries(n=200, n_q=1, d=16, seed=4)
-    for kw, item in (({"reduced_dim": 8}, "PCA hybrid"), ({"balance_eta": 0.1}, "balance_eta"),
-                     ({"kmeans_split": 2}, "kmeans_split"), ({"mesh": object()}, "multi-card")):
-        with pytest.raises(NotImplementedError, match=item):
-            pivf.IVFIPIndex(corpus, **kw)
-    index = pivf.IVFIPIndex(corpus, n_clusters=4, nprobe=2)
-    with pytest.raises(NotImplementedError, match="selector"):
-        index.search(corpus[:2], k=3, allowed_ids=[1])
-    with pytest.raises(NotImplementedError, match="reconstruct"):
-        index.reconstruct([0])
-    with pytest.raises(NotImplementedError, match="streamed"):
-        pivf.IVFIPIndex.from_chunk_fn(lambda lo, hi: corpus[lo:hi], 200, 16)
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        pivf.IVFIPIndex(corpus, mesh=object())
     for kw in ({"store_dtype": "float16"}, {"capacity_slack": 0.5}, {"pq_m": 5},
                {"pq_m": 8, "pq_layout": "cols"}, {"pq_rotate": "random"},
-               {"pq_m": 4, "store_dtype": torch.int8}):
+               {"pq_m": 4, "store_dtype": torch.int8}, {"pq_m": 4, "reduced_dim": 8},
+               {"reduced_dim": 17}, {"candidates": 0}):
         with pytest.raises(ValueError):
             pivf.IVFIPIndex(corpus, **kw)
