@@ -211,12 +211,13 @@ class RankPOArguments:
         return _json_str(self)
 
 
-_INDEX_TYPE_HELP = ("flat = exact FAISS-parity search; ivf = clustered "
-                    "inverted-file probing (approximate); or a FAISS "
-                    "index_factory-style spec, e.g. 'IVF4096,PQ64'; refine "
-                    "is not ported yet (ROADMAP.md Queue 1 item 4)")
-_INDEX_KWARGS_HELP = ("JSON dict of extra ivf index-constructor knobs, e.g. "
-                      "'{\"pq_m\": 64, \"n_clusters\": 4096}'")
+_INDEX_TYPE_HELP = ("flat = exact FAISS-parity search; refine = PCA "
+                    "prefilter + exact rerank; ivf = clustered inverted-file "
+                    "probing (both approximate); or a FAISS "
+                    "index_factory-style spec, e.g. 'IVF4096,PQ64' or "
+                    "'PCA128,Flat'")
+_INDEX_KWARGS_HELP = ("JSON dict of extra refine/ivf index-constructor knobs, "
+                      "e.g. '{\"pq_m\": 64, \"n_clusters\": 4096}'")
 _DEVICE_HELP = "torch device; 'cuda' fails when no card is visible"
 
 
@@ -237,7 +238,7 @@ class EvaluateArguments:
     bf16: bool = dataclasses.field(default=False)
     index_type: str = dataclasses.field(default="flat", metadata={"help": _INDEX_TYPE_HELP})
     index_recall_target: float = dataclasses.field(
-        default=0.95, metadata={"help": "ivf index build-time recall-tune target"})
+        default=0.95, metadata={"help": "refine/ivf index build-time recall-tune target"})
     index_kwargs: str = dataclasses.field(default="", metadata={"help": _INDEX_KWARGS_HELP})
     wandb_project: str = dataclasses.field(default="")
     log_level: str = dataclasses.field(default="info")
@@ -266,7 +267,7 @@ class HardNegativeArguments:
     bf16: bool = dataclasses.field(default=False)
     index_type: str = dataclasses.field(default="flat", metadata={"help": _INDEX_TYPE_HELP})
     index_recall_target: float = dataclasses.field(
-        default=0.95, metadata={"help": "ivf index build-time recall-tune target"})
+        default=0.95, metadata={"help": "refine/ivf index build-time recall-tune target"})
     index_kwargs: str = dataclasses.field(default="", metadata={"help": _INDEX_KWARGS_HELP})
     seed: int = dataclasses.field(default=42)
     log_level: str = dataclasses.field(default="info")
@@ -292,7 +293,7 @@ class PredictionArguments:
     bf16: bool = dataclasses.field(default=False)
     index_type: str = dataclasses.field(default="flat", metadata={"help": _INDEX_TYPE_HELP})
     index_recall_target: float = dataclasses.field(
-        default=0.95, metadata={"help": "ivf index build-time recall-tune target"})
+        default=0.95, metadata={"help": "refine/ivf index build-time recall-tune target"})
     index_kwargs: str = dataclasses.field(default="", metadata={"help": _INDEX_KWARGS_HELP})
     seed: int = dataclasses.field(default=42)
     log_level: str = dataclasses.field(default="info")

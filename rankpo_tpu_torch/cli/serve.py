@@ -1,11 +1,13 @@
-"""HTTP retrieval server over a flat or IVF index (port of
+"""HTTP retrieval server over a flat, refine or IVF index (port of
 ``rankpo_tpu.cli.serve``).
 
     python -m rankpo_tpu_torch.cli.serve --model_name_or_path CKPT \\
         --tokenizer_name hash:128256 --corpus_data corpus.jsonl --device cuda \\
-        [--index_type ivf --recall_target 0.95 | --index_type IVF4096,PQ64]
+        [--index_type ivf --recall_target 0.95 | --index_type IVF4096,PQ64 |
+         --index_type refine --refine_dim 256]
 
-POST /search {"queries": ["..."], "k": 10[, "nprobe": 8]} -> {"results": [...]}
+POST /search {"queries": ["..."], "k": 10[, "nprobe": 8][, "candidates": 512]}
+    -> {"results": [...]}
 GET  /healthz -> {"status": "ok", "ntotal": N}
 GET  /statsz  -> serving counters
 
@@ -38,9 +40,6 @@ _INDEX_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": t
 
 # flag -> (value that means "off", ROADMAP item that ports it)
 _UNPORTED_FLAGS = {
-    "ivf_reduced_dim": (0, "item 4, the PCA hybrid"),
-    "ivf_candidates": ("auto", "item 4, the PCA hybrid"),
-    "ivf_balance_eta": (0.0, "item 4, balance_eta"),
     "pack_queries": (False, "packed query encode"),
     "stable_ids": (False, "serving endpoints"),
     "index_file": (None, "index persistence"),
@@ -112,18 +111,17 @@ def make_handler(service: RetrievalService, batcher=None, k_max: int = 100):
                                  "(start the server with --serving_k_max)"
                     })
                     return
-                unported = [key for key in ("allowed_ids", "disallowed_ids",
-                                            "candidates")
+                unported = [key for key in ("allowed_ids", "disallowed_ids")
                             if req.get(key) is not None]
                 if unported:
                     self._reply(400, {"error": f"{unported} " + _NOT_PORTED.format(
-                        "filtered search and the two-stage candidate pool")})
+                        "item 5, request-level filters")})
                     return
-                # a per-call nprobe is per REQUEST: such requests bypass the
-                # micro-batcher, whose grouped dispatch shares one search
-                sel = {}
-                if req.get("nprobe") is not None:
-                    sel["nprobe"] = int(req["nprobe"])
+                # a per-call nprobe or candidates is per REQUEST: such
+                # requests bypass the micro-batcher, whose grouped dispatch
+                # shares one search
+                sel = {key: int(req[key]) for key in ("nprobe", "candidates")
+                       if req.get(key) is not None}
                 if batcher is not None and len(queries) == 1 and not sel:
                     results = [batcher.query(queries[0], k=k)]
                 else:
@@ -159,18 +157,27 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_passage_length", type=int, default=512)
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--recall_target", type=float, default=1.0,
-                        help="the ivf tier's build-time tune target (1.0 "
+                        help="the refine/ivf tiers' build-time tune target (1.0 "
                              "tunes to 0.95); the flat tier takes only 1.0")
     parser.add_argument("--index_dtype", default="float32",
                         choices=["float32", "bfloat16", "int8"],
-                        help="ivf row storage; the flat tier takes only float32")
+                        help="refine/ivf row storage (int8: ivf only); the flat "
+                             "tier takes only float32")
     parser.add_argument("--index_type", default="flat",
                         help="flat = exact brute force (FAISS IndexFlatIP "
-                             "parity); ivf = clustered inverted-file probing "
-                             "(approximate, tuned to --recall_target); or a "
-                             "FAISS index_factory-style spec, e.g. "
-                             "'IVF4096,PQ64' (the spec then supplies the "
-                             "tier's knobs and the --ivf_* flags are ignored)")
+                             "parity); refine = two-stage PCA prefilter + "
+                             "exact rerank; ivf = clustered inverted-file "
+                             "probing (both approximate, tuned to "
+                             "--recall_target); or a FAISS "
+                             "index_factory-style spec, e.g. 'IVF4096,PQ64' "
+                             "or 'PCA128,Flat' (the spec then supplies the "
+                             "tier's knobs and the --refine_*/--ivf_* flags "
+                             "are ignored)")
+    parser.add_argument("--refine_dim", type=int, default=256,
+                        help="refine index stage-1 PCA dimension")
+    parser.add_argument("--refine_candidates", default="auto",
+                        help="refine rerank candidate count, or 'auto' to "
+                             "tune at build time against --recall_target")
     parser.add_argument("--ivf_clusters", default="auto",
                         help="ivf cluster count, or 'auto' (~4*sqrt(N))")
     parser.add_argument("--ivf_nprobe", default="auto",
@@ -183,10 +190,15 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=("none", "random", "opq"),
                         help="orthogonal pre-rotation for the PQ codec; "
                              "requires --ivf_pq_m")
-    parser.add_argument("--ivf_reduced_dim", type=int, default=0, help="not ported")
-    parser.add_argument("--ivf_candidates", default="auto", help="not ported")
+    parser.add_argument("--ivf_reduced_dim", type=int, default=0,
+                        help="> 0 enables the IVF+PCA hybrid: probed rows "
+                             "score in this projected dimension, the top "
+                             "candidates rerank at full width")
+    parser.add_argument("--ivf_candidates", default="auto",
+                        help="hybrid rerank pool size, or 'auto' (~2k)")
     parser.add_argument("--ivf_balance_eta", type=float, default=0.0,
-                        help="not ported")
+                        help="balanced k-means assignment-bias step for IVF "
+                             "builds (0 = off)")
     parser.add_argument("--index_file", default=None, help="not ported")
     parser.add_argument("--pack_queries", action="store_true", help="not ported")
     parser.add_argument("--microbatch_wait_ms", type=float, default=3.0,
@@ -225,10 +237,19 @@ def make_server(argv=None) -> ThreadingHTTPServer:
         # factory spec: its storage component (or the tier default) goes
         # through; a non-default --index_dtype still wins
         dtype = None
+    def auto_or_int(flag):
+        return "auto" if flag == "auto" else int(flag)
+
     index_kwargs = {}
-    if args.index_type == "ivf":
+    if args.index_type == "refine":
+        index_kwargs["reduced_dim"] = args.refine_dim
+        index_kwargs["candidates"] = auto_or_int(args.refine_candidates)
+    elif args.index_type == "ivf":
         for key, flag in (("n_clusters", args.ivf_clusters), ("nprobe", args.ivf_nprobe)):
-            index_kwargs[key] = "auto" if flag == "auto" else int(flag)
+            index_kwargs[key] = auto_or_int(flag)
+        if args.ivf_reduced_dim > 0:
+            index_kwargs["reduced_dim"] = args.ivf_reduced_dim
+            index_kwargs["candidates"] = auto_or_int(args.ivf_candidates)
         if args.ivf_pq_m > 0:
             index_kwargs["pq_m"] = args.ivf_pq_m
             if args.ivf_pq_rotate != "none":
@@ -237,6 +258,10 @@ def make_server(argv=None) -> ThreadingHTTPServer:
             # fail loudly rather than build plain rows, 32x the memory of
             # the codec that was asked for
             parser.error("--ivf_pq_rotate requires --ivf_pq_m")
+        if args.ivf_balance_eta:
+            index_kwargs["balance_eta"] = args.ivf_balance_eta
+    if args.ivf_balance_eta and args.index_type != "ivf":
+        parser.error("--ivf_balance_eta requires --index_type ivf")
     logging.basicConfig(
         level=getattr(logging, args.log_level.upper()),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",

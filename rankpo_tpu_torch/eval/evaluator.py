@@ -89,9 +89,9 @@ def evaluate_checkpoint(
 
     Returns ``(metrics, indices, scores)``: the metric dict plus the raw
     [Q, k] search arrays the caller saves. ``index_type``: "flat" (exact,
-    FAISS IndexFlatIP order), "ivf" (approximate, tuned to
-    ``index_recall_target``) or a factory spec such as "IVF4096,PQ64";
-    "refine" raises (ROADMAP.md Queue 1 item 4)."""
+    FAISS IndexFlatIP order), "refine" (PCA prefilter and exact rerank) or
+    "ivf" (both approximate, tuned to ``index_recall_target``), or a
+    factory spec such as "IVF4096,PQ64" or "PCA128,Flat"."""
     # an invalid or unported spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_offline_index(index_type, index_kwargs)
     if encoder is None:

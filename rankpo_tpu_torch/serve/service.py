@@ -1,14 +1,16 @@
 """Retrieval serving: encoder + index behind one query API (port of
-``rankpo_tpu.serve.service`` for the flat and IVF tiers).
+``rankpo_tpu.serve.service`` for the flat, refine and IVF tiers).
 
 The corpus embeddings are encoded on the device and stay there as the
 index; a query is tokenized, embedded and searched on the device, and only
 the [Q, k] scores and indices come back to the host. Ported: ``build_index``
-(``index_type`` "flat", "ivf" or a factory spec such as "IVF4096,PQ64"),
-``query`` (with a per-call ``nprobe`` for IVF), ``warmup``,
-``finalize_hits``. Not ported yet (ROADMAP.md): the refine tier and the PCA
-hybrid, bf16/int8 flat storage, approximate flat top-k, packed queries,
-stable ids, passage add/remove, index persistence and filtered search.
+(``index_type`` "flat", "refine", "ivf" or a factory spec such as
+"IVF4096,PQ64" or "PCA128,Flat"), ``adopt_index`` (serve an index built
+elsewhere, e.g. by ``IVFIPIndex.from_chunk_fn``), ``query`` (with a
+per-call ``nprobe`` for IVF and ``candidates`` for the two-stage tiers),
+``warmup``, ``finalize_hits``. Not ported yet (ROADMAP.md Queue 1 item 5):
+bf16/int8 flat storage, approximate flat top-k, packed queries, stable ids,
+passage add/remove, index persistence and request-level filters.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from rankpo_tpu_torch.index.encoding import InferenceEncoder
 from rankpo_tpu_torch.index.factory import resolve_index_spec
 from rankpo_tpu_torch.index.flat import FlatIPIndex
 from rankpo_tpu_torch.index.ivf import IVFIPIndex
+from rankpo_tpu_torch.index.refined import RefineIPIndex
 
 logger = logging.getLogger(__name__)
 
@@ -47,29 +50,28 @@ def resolve_tier(index_type: str = "flat", index_dtype: Optional[torch.dtype] = 
     """(tier, storage dtype, index kwargs) for the service's arguments; a
     tier or option the port has not built raises NotImplementedError.
 
-    ``index_type``: "flat" (exact), "ivf" (clustered inverted file,
-    approximate, tuned to ``recall_target`` at build; 1.0 tunes to 0.95),
-    or a FAISS index_factory-style spec ("IVF4096,PQ64", ...;
+    ``index_type``: "flat" (exact), "refine" (PCA prefilter and exact
+    rerank) or "ivf" (clustered inverted file; both approximate, tuned to
+    ``recall_target`` at build, 1.0 tuning to 0.95), or a FAISS
+    index_factory-style spec ("IVF4096,PQ64", "PCA128,Flat", ...;
     ``index/factory.py``) whose components fill the kwargs (explicit
-    ``index_kwargs`` win). ``index_dtype``: the IVF row storage (fp32, bf16
-    or int8); a spec without a storage component keeps the tier's bf16
-    default."""
+    ``index_kwargs`` win). ``index_dtype``: the refine/IVF row storage
+    (fp32, bf16; int8 for IVF only); a spec without a storage component
+    keeps the tier's bf16 default."""
     if index_type not in ("flat", "refine", "ivf"):
         index_type, spec_kwargs = resolve_index_spec(index_type, index_kwargs)
         if index_type == "flat" and "dtype" in spec_kwargs:
             dtype = spec_kwargs.pop("dtype")
             if index_dtype is None:
                 index_dtype = dtype
-        if index_type == "ivf" and index_dtype is None and "pq_m" not in spec_kwargs:
+        if (index_type in ("refine", "ivf") and index_dtype is None
+                and "pq_m" not in spec_kwargs):
             spec_kwargs.setdefault("store_dtype", torch.bfloat16)
         index_kwargs = spec_kwargs
     index_dtype = index_dtype if index_dtype is not None else torch.float32
-    if index_type == "refine":
-        raise NotImplementedError(
-            "index_type='refine': " + _NOT_PORTED.format("item 4, index/refined.py"))
-    if index_type == "ivf" and (index_kwargs or {}).get("reduced_dim") is not None:
-        raise NotImplementedError(
-            "ivf reduced_dim: " + _NOT_PORTED.format("item 4, the PCA hybrid"))
+    if index_type == "refine" and index_dtype == torch.int8:
+        raise ValueError("index_type='refine' stores fp32/bf16 rerank rows; int8 "
+                         "storage is an IVF option")
     if index_type == "flat":
         if index_dtype != torch.float32:
             raise NotImplementedError(
@@ -106,8 +108,8 @@ class RetrievalService:
         self._state: tuple = (None, [])
 
     def _approx_kwargs(self) -> Dict:
-        """IVF constructor kwargs: the service's recall_target is the build
-        tune target (1.0 would ladder the tuner to its cap chasing
+        """Refine/IVF constructor kwargs: the service's recall_target is the
+        build tune target (1.0 would ladder the tuner to its cap chasing
         exactness, so it defaults to 0.95), and ``index_dtype`` the row
         storage unless the kwargs name one."""
         kwargs = dict(self.index_kwargs)
@@ -135,10 +137,26 @@ class RetrievalService:
         if self.index_type == "ivf":
             with torch.inference_mode():
                 index = IVFIPIndex(emb, n_total=n, **self._approx_kwargs())
+        elif self.index_type == "refine":
+            with torch.inference_mode():
+                index = RefineIPIndex.from_sharded(emb, n, **self._approx_kwargs())
         else:
             index = FlatIPIndex(emb, n_total=n, **self.index_kwargs)
         self._state = (index, list(corpus_texts))
         logger.info("indexed %d passages in %.1fs", n, time.perf_counter() - t0)
+
+    def adopt_index(self, index, corpus_texts: Sequence[str]) -> None:
+        """Serve an index built elsewhere (e.g. ``IVFIPIndex.from_chunk_fn``,
+        whose fp32 corpus never existed whole): its rows must be the encoder's
+        width and one per text."""
+        dim = getattr(index, "dim", None)
+        if dim is not None and dim != self.encoder.config.hidden_size:
+            raise ValueError(
+                f"index dim {dim} != encoder hidden {self.encoder.config.hidden_size}")
+        if index.ntotal != len(corpus_texts):
+            raise ValueError(
+                f"index has {index.ntotal} rows, got {len(corpus_texts)} corpus texts")
+        self._state = (index, list(corpus_texts))
 
     @property
     def index(self):
@@ -152,7 +170,8 @@ class RetrievalService:
     def ntotal(self) -> int:
         return self.index.ntotal if self.index is not None else 0
 
-    def search_texts(self, texts: List[str], k: int, nprobe: Optional[int] = None):
+    def search_texts(self, texts: List[str], k: int, nprobe: Optional[int] = None,
+                     candidates: Optional[int] = None):
         """(scores fp32 [Q, k'], indices int64 [Q, k'], corpus texts) numpy,
         k' = min(k, ntotal), from one ``(index, texts)`` snapshot."""
         index, corpus_texts = self._state
@@ -163,6 +182,12 @@ class RetrievalService:
             if not isinstance(index, IVFIPIndex):
                 raise ValueError("nprobe applies to IVF indexes only (--index_type ivf)")
             search_kw["nprobe"] = int(nprobe)
+        if candidates is not None:
+            if not hasattr(index, "candidates"):
+                raise ValueError(
+                    "candidates applies to two-stage indexes only (--index_type "
+                    "refine, or ivf with --ivf_reduced_dim)")
+            search_kw["candidates"] = int(candidates)
         k_eff = min(k, index.ntotal)
         scores, indices = [], []
         for lo in range(0, len(texts), self.query_batch_size):
@@ -187,15 +212,18 @@ class RetrievalService:
         *,
         return_passages: bool = True,
         nprobe: Optional[int] = None,
+        candidates: Optional[int] = None,
     ) -> List[Dict] | Dict:
         """Top-k passages per query text; hits carry ``index`` (corpus
         position), ``score`` and, with ``return_passages``, ``passage``.
-        ``nprobe`` overrides the IVF index's tuned probe count for this call
-        (FAISS ``SearchParametersIVF``)."""
+        ``nprobe`` (IVF) and ``candidates`` (the refine tier and the IVF PCA
+        hybrid's rerank pool) override the tuned knobs for this call (FAISS
+        ``SearchParametersIVF``)."""
         single = isinstance(texts, str)
         if single:
             texts = [texts]
-        scores, indices, corpus_texts = self.search_texts(list(texts), k, nprobe)
+        scores, indices, corpus_texts = self.search_texts(list(texts), k, nprobe,
+                                                          candidates)
         results = []
         for qi, text in enumerate(texts):
             hits = []

@@ -191,8 +191,10 @@ def find_hard_negatives(
     c_dev, n_corpus = encoder.encode_device(corpus, batch_size=batch_size,
                                             max_length=max_passage_length)
     c_emb = c_dev.cpu().numpy()  # the cluster policy's embeddings, on the host
+    # the refine tier's PCA moment of the stored rows, as the JAX mining
+    # tool's host constructor takes it
     index = build_offline_index(c_dev, n_corpus, index_type, index_kwargs,
-                                index_recall_target)
+                                index_recall_target, refine_moment_of_stored=True)
     _scores, indices = index.search(q_emb, k=hi, batch_size=batch_size)
     del index, c_dev
     # drop IVF's -1 tail padding (unreachable slots) before sampling

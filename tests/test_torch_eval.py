@@ -4,7 +4,8 @@
 ``rankpo_tpu.eval.metrics.compute_metrics`` on both the sklearn and the
 numpy paths; the save-path helpers take the JAX tests' cases; and
 ``evaluate_path`` runs over a tiny two-checkpoint tree (written by the
-port's ``save_pretrained``, read by both packages) in fp32, flat and IVF:
+port's ``save_pretrained``, read by both packages) in fp32, flat, IVF and
+refine:
 the same files, scores within 1e-5 (fp32 round-off of two frameworks'
 summation orders through 2 layers and a 64-wide dot), metrics bit-equal to
 JAX ``compute_metrics`` over the port's own arrays, and equal to the JAX
@@ -181,7 +182,7 @@ def _files(out):
                   for d, _, fs in os.walk(out) for f in fs)
 
 
-@pytest.mark.parametrize("index", ["flat", "ivf"])
+@pytest.mark.parametrize("index", ["flat", "ivf", "refine"])
 def test_evaluate_path_matches_jax(tree, tmp_path, index):
     root, qf, cf = tree
     models = str(root / "models" / "tiny")
@@ -262,9 +263,9 @@ def test_evaluate_checkpoint_ivf_inf_padding(tree):
 
 def test_refine_raises_before_loading(tmp_path):
     # the spec is checked first: no checkpoint is needed to see the error
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="refine tier reranks on fp32/bf16"):
         evaluator.evaluate_checkpoint(str(tmp_path / "missing"), ["q"], [[0]], ["d"],
-                                      device="cpu", index_type="refine")
-    with pytest.raises(NotImplementedError, match="item 4"):
+                                      device="cpu", index_type="PCA16,SQ8")
+    with pytest.raises(NotImplementedError, match="item 5"):
         evaluator.evaluate_checkpoint(str(tmp_path / "missing"), ["q"], [[0]], ["d"],
-                                      device="cpu", index_type="PCA16,Flat")
+                                      device="cpu", index_type="SQ8")

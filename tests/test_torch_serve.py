@@ -216,13 +216,11 @@ def test_http_server(checkpoint):
     assert not any(port_flash.launches.values())
 
 
-@pytest.mark.parametrize("flag", [["--index_type", "refine"], ["--index_dtype", "int8"],
+@pytest.mark.parametrize("flag", [["--index_dtype", "int8"],
                                   ["--recall_target", "0.9"], ["--stable_ids"],
-                                  ["--num_processes", "2"],
-                                  ["--index_type", "ivf", "--ivf_reduced_dim", "8"],
-                                  ["--index_type", "ivf", "--ivf_candidates", "64"],
-                                  ["--index_type", "ivf", "--ivf_balance_eta", "0.1"],
-                                  ["--index_type", "PCA16,IVF8,Flat"], ["--index_type", "SQ8"]])
+                                  ["--num_processes", "2"], ["--index_file", "i.npz"],
+                                  ["--pack_queries"], ["--index_type", "SQ8"],
+                                  ["--index_type", "flat", "--index_dtype", "bfloat16"]])
 def test_unported_flags_fail(checkpoint, flag, capsys):
     """Each rejected with its ROADMAP.md item (the flat tier still takes
     only fp32 rows and recall_target 1)."""
@@ -233,26 +231,35 @@ def test_unported_flags_fail(checkpoint, flag, capsys):
 
 
 def test_ivf_flag_checks(checkpoint, capsys):
-    for flag in (["--index_type", "ivf", "--ivf_pq_rotate", "opq"], ["--index_type", "HNSW8"]):
+    for flag in (["--index_type", "ivf", "--ivf_pq_rotate", "opq"], ["--index_type", "HNSW8"],
+                 ["--ivf_balance_eta", "0.1"],
+                 ["--index_type", "refine", "--index_dtype", "int8"]):
         with pytest.raises(SystemExit):
             cli.main(_argv(checkpoint, "--device", "cpu", *flag))
     err = capsys.readouterr().err
     assert "--ivf_pq_rotate requires --ivf_pq_m" in err and "unknown" in err
+    assert "--ivf_balance_eta requires --index_type ivf" in err
+    assert "refine' stores fp32/bf16 rerank rows" in err
 
 
 @pytest.mark.parametrize("flags,kind", [
     (["--index_type", "ivf", "--recall_target", "0.9", "--ivf_clusters", "6"], "fp32"),
     (["--index_type", "ivf", "--index_dtype", "bfloat16"], "bf16"),
     (["--index_type", "IVF8,PQ8"], "pq"),
+    (["--index_type", "ivf", "--ivf_clusters", "6", "--ivf_reduced_dim", "8",
+      "--ivf_candidates", "24"], "hybrid"),
+    (["--index_type", "PCA16,IVF6,Flat"], "hybrid_spec"),
+    (["--index_type", "ivf", "--ivf_clusters", "6", "--ivf_balance_eta", "0.2"], "balanced"),
 ])
 def test_http_server_ivf(checkpoint, flags, kind):
     """The CLI over an IVF index on the CPU: single queries through the
     micro-batcher, a batched request and a per-request nprobe (which
-    bypasses the batcher). Hits equal the index's own search on the same
-    query embeddings outside 1e-5 near-ties; probing every cluster of a row
-    index reaches the exact search over the stored rows (PQ's exact search
-    decodes rows, its search sums tables: two approximations). The checks run at k_max 20 and a
-    request k of 10."""
+    bypasses the batcher), and a per-request candidate pool. Hits equal the
+    index's own search on the same query embeddings outside 1e-5 near-ties;
+    probing every cluster of a row index reaches the exact search over the
+    stored rows (PQ's exact search decodes rows, its search sums tables: two
+    approximations; the hybrid reranks only its candidate pool). The checks
+    run at k_max 20 and a request k of 10."""
     server = cli.make_server(_argv(checkpoint, "--device", "cpu", "--log_level", "warning",
                                    *flags))
     port = server.server_address[1]
@@ -264,7 +271,10 @@ def test_http_server_ivf(checkpoint, flags, kind):
         assert type(index).__name__ == "IVFIPIndex"
         assert {"fp32": index.store_dtype == torch.float32,
                 "bf16": index.store_dtype == torch.bfloat16,
-                "pq": index.pq_m == 8}[kind]
+                "pq": index.pq_m == 8,
+                "hybrid": (index.reduced_dim, index.candidates) == (8, 24),
+                "hybrid_spec": (index.reduced_dim, index.store_dtype) == (16, torch.bfloat16),
+                "balanced": index.balance_eta == 0.2}[kind]
         assert index.recall_target == (0.9 if kind == "fp32" else 0.95)
         assert _get(port, "/healthz") == {"status": "ok", "ntotal": 50}
         results = [None] * 3
@@ -289,7 +299,8 @@ def test_http_server_ivf(checkpoint, flags, kind):
             # the server searches at its k_max (20), which also floors the
             # probe count to reach it, and slices to the request's k
             ref = index.search(q_emb, k=20, nprobe=nprobe)
-            if nprobe == index.n_clusters and kind != "pq":  # PQ: ADC != decode
+            if nprobe == index.n_clusters and kind in ("fp32", "bf16", "balanced"):
+                # PQ: ADC != decode; the hybrid reranks only its pool
                 ref = index.exact_search(q_emb, k=20)
             for r, res in enumerate(body["results"]):
                 hits = res["hits"]
@@ -297,8 +308,19 @@ def test_http_server_ivf(checkpoint, flags, kind):
                         for s, i in zip(*(a[r] for a in ref)) if i >= 0][:10]
                 assert len(hits) == len(want)
                 _assert_hits_match(hits, want)
-        assert _get(port, "/statsz")["microbatch_queries"] == 3  # nprobe bypassed it
-        code, body = _post(port, "/search", {"query": "x", "candidates": 8})
+        # a per-request candidate pool (the hybrid's; the other IVF indexes
+        # take and ignore it, as the JAX service does)
+        code, body = _post(port, "/search", {"queries": QUERIES, "k": 10, "candidates": 12})
+        assert code == 200
+        batch = service.encoder.prepare_batch(QUERIES, len(QUERIES), 32)
+        q_emb = service.encoder.embed_batch(batch).numpy()
+        ref = index.search(q_emb, k=20, candidates=12)
+        for r, res in enumerate(body["results"]):
+            want = [{"index": int(i), "score": float(s)}
+                    for s, i in zip(*(a[r] for a in ref)) if i >= 0][:10]
+            _assert_hits_match(res["hits"], want)
+        assert _get(port, "/statsz")["microbatch_queries"] == 3  # both bypassed it
+        code, body = _post(port, "/search", {"query": "x", "allowed_ids": [1]})
         assert code == 400 and "not ported" in body["error"]
     finally:
         server.shutdown()
@@ -306,6 +328,116 @@ def test_http_server_ivf(checkpoint, flags, kind):
         server.server_close()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+@pytest.mark.parametrize("flags,store", [
+    (["--index_type", "refine", "--refine_dim", "16", "--recall_target", "0.9"],
+     torch.float32),
+    (["--index_type", "PCA16,Flat", "--refine_candidates", "999"], torch.bfloat16),
+])
+def test_http_server_refine(checkpoint, flags, store):
+    """The CLI over the refine tier on the CPU: single queries through the
+    micro-batcher, batched requests with and without a per-request
+    ``candidates`` (which bypasses the batcher); hits equal the index's own
+    search on the same query embeddings outside 1e-5 near-ties, and at
+    ``candidates`` 50 (every row reranked) the exact search over its stored
+    rows. A factory spec keeps the tier's bf16 rows and tunes C (the
+    --refine_* flags are ignored)."""
+    server = cli.make_server(_argv(checkpoint, "--device", "cpu", "--log_level", "warning",
+                                   *flags))
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    service = server.service
+    index = service.index
+    try:
+        assert type(index).__name__ == "RefineIPIndex"
+        assert (index.reduced_dim, index.store_dtype) == (16, store)
+        assert index.candidates != 999 and index.ntotal == 50
+        results = [None] * 3
+        def one(i):
+            results[i] = _post(port, "/search", {"query": QUERIES[i], "k": 5})
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert all(code == 200 and len(body["results"][0]["hits"]) == 5
+                   for code, body in results)
+        batch = service.encoder.prepare_batch(QUERIES, len(QUERIES), 32)
+        q_emb = service.encoder.embed_batch(batch).numpy()
+        stored = index.reconstruct(np.arange(50))
+        for cand in (None, 20, 50):
+            payload = {"queries": QUERIES, "k": 10}
+            if cand is not None:
+                payload["candidates"] = cand
+            code, body = _post(port, "/search", payload)
+            assert code == 200
+            ref = index.search(q_emb, k=20, candidates=cand)
+            if cand == 50:
+                qv = torch.from_numpy(q_emb).to(store).float().numpy()
+                scores = qv @ stored.T
+                order = np.argsort(-scores, axis=1, kind="stable")[:, :20]
+                ref = (np.take_along_axis(scores, order, axis=1), order)
+            for r, res in enumerate(body["results"]):
+                want = [{"index": int(i), "score": float(s)}
+                        for s, i in zip(*(a[r] for a in ref))][:10]
+                _assert_hits_match(res["hits"], want)
+        assert _get(port, "/statsz")["microbatch_queries"] == 3  # candidates bypassed it
+        code, body = _post(port, "/search", {"query": "x", "nprobe": 2})
+        assert code == 400 and "IVF indexes only" in body["error"]
+    finally:
+        server.shutdown()
+        server.batcher.close()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+
+
+@pytest.mark.parametrize("candidates", [None, 30])
+def test_refine_service_matches_jax(checkpoint, candidates):
+    """Both services over the refine tier in fp32 (d' 16, tuned to 0.9):
+    the same tuned C, hits within 1e-5 outside near-ties, with and without
+    a per-call candidate pool."""
+    path, cfg, params, corpus, _ = checkpoint
+    kw = dict(max_query_length=32, query_batch_size=8, recall_target=0.9,
+              index_type="refine", index_kwargs={"reduced_dim": 16})
+    jsvc = JaxService(JaxEncoder(cfg, params, JaxHashTokenizer(VOCAB), mesh=None,
+                                 compute_dtype=jnp.float32), mesh=None, **kw)
+    psvc = RetrievalService(InferenceEncoder.from_pretrained(
+        path, tokenizer=HashTokenizer(VOCAB), device="cpu", compute_dtype=torch.float32), **kw)
+    for svc in (jsvc, psvc):
+        svc.build_index(corpus, max_passage_length=48, batch_size=16)
+    assert psvc.index.candidates == jsvc.index.candidates
+    assert psvc.index.store_dtype == torch.float32
+    jres = jsvc.query(QUERIES, k=10, candidates=candidates)
+    pres = psvc.query(QUERIES, k=10, candidates=candidates)
+    for p, j in zip(pres, jres):
+        _assert_hits_match(p["hits"], j["hits"])
+
+
+def test_adopt_index_serves_a_streamed_build(services):
+    """An index built elsewhere (here the streamed IVF build over the
+    service's own corpus embeddings) served through ``adopt_index``."""
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+
+    _, psvc = services
+    emb = psvc.index.rows()
+    texts = list(psvc.corpus_texts)
+    streamed = IVFIPIndex.from_chunk_fn(lambda lo, hi: emb[lo:hi], len(emb), emb.shape[1],
+                                        chunk_rows=16, n_clusters=4, nprobe=4,
+                                        store_dtype=torch.float32, device="cpu")
+    flat = psvc.index
+    try:
+        psvc.adopt_index(streamed, texts)
+        hits = psvc.query(QUERIES[0], k=5)["hits"]
+        psvc.adopt_index(flat, texts)
+        want = psvc.query(QUERIES[0], k=5)["hits"]
+        _assert_hits_match(hits, want)
+        with pytest.raises(ValueError, match="rows"):
+            psvc.adopt_index(streamed, texts[:-1])
+    finally:
+        psvc.adopt_index(flat, texts)
 
 
 def test_nprobe_on_flat_service_is_rejected(services):

@@ -232,14 +232,37 @@ def test_index_kwargs_reach_constructor(tmp_path, encoders, monkeypatch):
 
 @pytest.mark.parametrize("tool", ["mining", "predictions"])
 def test_refine_raises(tmp_path, encoders, tool):
-    port, _ = encoders
-    with pytest.raises(NotImplementedError, match="item 4"):
+    """A refine spec the tier cannot take raises before any file is read;
+    the refine tier itself (PCA prefilter and exact rerank, reduced_dim
+    min(256, D), tuned to the tool's recall target) gives the JAX tool's
+    rows."""
+    port, jax_enc = encoders
+    with pytest.raises(ValueError, match="refine tier"):
         if tool == "mining":
             find_hard_negatives(port, str(tmp_path / "missing.jsonl"), str(tmp_path / "o"),
-                                index_type="refine")
+                                index_type="PCA16,SQ8")
         else:
             generate_predictions(port, str(tmp_path / "q"), str(tmp_path / "c"),
-                                 str(tmp_path / "o.jsonl"), index_type="refine")
+                                 str(tmp_path / "o.jsonl"), index_type="PCA16,SQ8")
+    if tool == "mining":
+        inp = _mining_file(tmp_path, n=6, n_pos=2)
+        from rankpo_tpu_torch.data.datasets import load_mining_rows
+
+        _, queries, corpus = load_mining_rows(inp)
+        _assert_separated(jax_enc, queries, corpus, 10)
+        kw = dict(MINE_KW, method="topk", index_type="refine")
+        got = find_hard_negatives(port, inp, str(tmp_path / "port"), **kw)
+        want = j_find_hard(jax_enc, inp, str(tmp_path / "jax"), mesh=None, **kw)
+        assert sorted(got) == sorted(want) == ["topk.jsonl"]
+        assert _rows(got["topk.jsonl"]) == _rows(want["topk.jsonl"])
+    else:
+        qf, cf, queries, corpus = _qc_files(tmp_path)
+        _assert_separated(jax_enc, queries, corpus, 8)
+        kw = dict(max_query_length=16, max_passage_length=16, search_range=(0, 8),
+                  method="topk", num_predictions=3, batch_size=8, index_type="refine")
+        got = generate_predictions(port, qf, cf, str(tmp_path / "p.jsonl"), **kw)
+        want = j_predictions(jax_enc, qf, cf, str(tmp_path / "j.jsonl"), mesh=None, **kw)
+        assert got == want and len(got) == 9
 
 
 def _qc_files(tmp_path, n_q=3, n_c=12):
