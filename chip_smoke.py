@@ -19,15 +19,16 @@ PyTorch version. Phases:
    the same function (scaled_dot_product_attention, a yardstick the port
    never calls) and the least time the card could take;
 3. exact search on data with exact ties;
-4. serving path, three times: a bf16 checkpoint written with the port's
+4. serving path, four times: a bf16 checkpoint written with the port's
    save_pretrained, a 4096-passage corpus, the HTTP server started by the
    CLI in a thread, single-query requests from 8 client threads and batched
    requests. The flat index (K1) is checked against an exact numpy search
    over the index rows; the IVF index with bf16 rows (``--index_type ivf``,
    K1 and K4) and the IVF-PQ index (``--index_type IVF64,PQ64``, K1 and K5)
-   also take a request with a per-call nprobe and are checked against the
-   index's own search on the same query embeddings; K1 is also timed over
-   the corpus encode's own batches;
+   also take a request with a per-call nprobe, the refine index
+   (``--index_type refine``, K1) one with a per-call candidate pool, and are
+   checked against the index's own search on the same query embeddings; K1
+   is also timed over the corpus encode's own batches;
 5. training path: stage 1 (``run_contrastive.main``, 512 synthetic rows;
    "auto" picks the fused backward) then stage 2 (``run_rankpo.main`` on
    stage 1's output, 256 synthetic pairs, under
@@ -36,19 +37,32 @@ PyTorch version. Phases:
    kernels' launch counters rose; one micro-batch through the kernels and
    through the plain attention, both held against the plain attention in
    fp32 compute; one profiled stage-1 step;
-6. the IVF tier at scale: 2^20 unit rows at D 2048 (a mixture around 8192
-   centres) and 1024 held-out queries, made on the card; three indexes
-   built by the IVFIPIndex constructor (bf16 rows, PQ64 rows, PQ64
+6. the IVF and refine tiers at scale: 2^20 unit rows at D 2048 (a mixture
+   around 8192 centres) and 1024 held-out queries, made on the card; three
+   indexes built by the IVFIPIndex constructor (bf16 rows, PQ64 rows, PQ64
    columns), each searched at k 100 and held to recall@100 >= 0.90
    against its exact search; one search batch of each index traced by
-   kernel; K4, K5 and K6 against their plain versions at the indexes' own
-   probe sets and storage (and at m 256 and a capacity off the kernels'
-   tiles), timed on cold data, K4 beside the corpus bytes its design reads,
-   K5/K6 beside their lookup floor with the load route that ran;
+   kernel; (b) a search filtered to a seeded half of the rows on the bf16
+   and PQ64-rows indexes at an nprobe tuned for the filter (every id
+   allowed, recall against the exact search over the allowed rows, K4/K5
+   launched); (c) on the bf16 index 65,536
+   rows appended and 65,536 removed (K4 launched, recall against the
+   mutated index's exact search, 1024 appended rows reconstructed
+   bit-equal); (a) a bf16 index built with kmeans_split 128, printed beside
+   the one without (spill, fill, nprobe, batch p50, K4's share, recall);
+   (e) the PCA hybrid (d' 256) and (f) the refine tier (d' 256, held
+   against an exact fp32 search); (d) a streamed bf16 build
+   (``from_chunk_fn``) from chunks of 262,144 rows each made on demand from
+   its own generator, its peak device memory beside the constructor's; K4,
+   K5 and K6 against their plain versions at the indexes' own probe sets
+   and storage (and at m 256 and a capacity off the kernels' tiles), timed
+   on cold data, K4 beside the corpus bytes its design reads, K5/K6 beside
+   their lookup floor with the load route that ran;
 7. evaluation path (run after 5, while the checkpoint is still on disk):
    ``rankpo_tpu_torch.cli.evaluate`` with 256 queries, each a span cut from
-   one of the 4096 passages and labelled with it, flat (K1) then
-   ``--index_type ivf`` (K1, K4): the saved metrics bit-equal to
+   one of the 4096 passages and labelled with it, flat (K1), then
+   ``--index_type ivf`` (K1, K4) and ``--index_type refine`` (K1): the
+   saved metrics bit-equal to
    ``compute_metrics`` recomputed on the host over the saved arrays, the
    flat hits equal to numpy_search over the same embeddings outside
    near-ties; wall time, queries/s and passages/s per call, and which
@@ -59,7 +73,7 @@ PyTorch version. Phases:
    (Q x C(5, 2) pair rows), and ``run_pipeline --iterations 2`` over 64
    rows at full width (K1, K2): its final model, its prediction pairs and
    its peak device memory; which k-means path ran;
-9. numbers.
+9. numbers, and each phase's wall seconds.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after. Any failure raises, so the exit code is not 0 and no result line is
@@ -72,6 +86,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import shutil
 import socket
@@ -139,11 +154,17 @@ IVF_RTOL_OF_MAX = 1e-5
 IVF_RECALL_MIN = 0.90
 SCALE_N, SCALE_D, SCALE_CENTRES, SCALE_Q = 1 << 20, 2048, 8192, 1024
 SCALE_NOISE = 1.0  # |noise| / |centre|: rows of one centre at cosine ~0.5
+SCALE_SPLIT = 128  # phase 6a: kmeans_split, K / 32 at K 4096
+SCALE_MUTATE = 65536  # phase 6c: rows appended, then rows removed
+SCALE_CHUNK = 262144  # phase 6d: rows per chunk of the streamed build
+SCALE_REDUCED = 256  # phase 6e/6f: the PCA dimension of the hybrid and refine
 SERVE_TIERS = {  # tier -> (extra CLI flags, the kernel its search runs)
     "flat": ([], None),
     "ivf": (["--index_type", "ivf", "--index_dtype", "bfloat16",
              "--recall_target", "0.95"], "ivf_probe_scores"),
     "pq": (["--index_type", "IVF64,PQ64"], "pq_probe_scores"),
+    "refine": (["--index_type", "refine", "--index_dtype", "bfloat16",
+                "--recall_target", "0.95"], None),
 }
 KERNELS = {  # name -> (TPU kernel it replaces, source, profiler name test)
     "flash_fwd": ("rankpo_tpu/ops/flash_attention.py:55", "flash_fwd.cu",
@@ -786,6 +807,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
 
     corpus, corpus_file, queries = _serving_data(seed, tmp)
     extra, ivf_kernel = SERVE_TIERS[tier]
+    flat = tier == "flat"
     port = _free_port()
     argv = ["--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256",
             "--corpus_data", corpus_file, "--max_query_length", "512",
@@ -835,20 +857,22 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
         for j, k in enumerate((10, 100, 10, 100)):
             group = queries[16 * j : 16 * (j + 1)]
             batched.append((_http(port, "/search", {"queries": group, "k": k}),
-                            group, k, None))
-        if ivf_kernel is not None:  # a per-call nprobe (bypasses the batcher)
-            nprobe = max(1, index.nprobe // 2)
+                            group, k, {}))
+        # a per-call nprobe (IVF) or candidate pool (refine); such requests
+        # bypass the batcher
+        per_call = ({"nprobe": max(1, index.nprobe // 2)} if ivf_kernel is not None
+                    else {"candidates": 2 * index.candidates} if tier == "refine" else None)
+        if per_call is not None:
             group = queries[:16]
-            batched.append((_http(port, "/search", {"queries": group, "k": 100,
-                                                   "nprobe": nprobe}),
-                            group, 100, nprobe))
+            batched.append((_http(port, "/search", {"queries": group, "k": 100, **per_call}),
+                            group, 100, per_call))
         launches = {"flash_fwd": flash.launches["flash_fwd"],
                     **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
                        for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
         # ---- end of the serving path ----
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-        exact_k = ivf_kernel is None
+        exact_k = ivf_kernel is None  # flat and refine fill every k
         for (status, body, _), i in singles:
             _check_reply(status, body, 1, (10, 100)[i % 2], exact_k)
         for (status, body, _), group, k, _ in batched:
@@ -871,23 +895,31 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
 
         # each batched request embedded again exactly as the service embedded
         # it: the flat tier against the exact numpy oracle over the index
-        # rows; the IVF tiers against the index's own search (same kernel,
-        # same inputs: a consistency check) and, for recall, its exact search
+        # rows; the IVF and refine tiers against the index's own search (same
+        # kernel, same inputs: a consistency check) and, for recall, the
+        # exact search over the stored rows
         n_near, recalls = 0, []
-        rows = service.index.rows() if ivf_kernel is None else None
-        for (_, body, _), group, k, nprobe in batched:
+        if flat:
+            rows = service.index.rows()
+        elif tier == "refine":  # the stored rerank rows, for the exact search
+            rows = index.reconstruct(np.arange(index.ntotal))
+        for (_, body, _), group, k, search_kw in batched:
             batch = service.encoder.prepare_batch(group, len(group), 512)
             q_emb = service.encoder.embed_batch(batch).cpu().numpy()
             s_idx, s_sc = _served(body)
-            if ivf_kernel is None:
+            if flat:
                 # one extra oracle rank: a near-tie across the k boundary
                 o_scores, o_idx = numpy_search(rows, q_emb, k + 1)
                 n_near += _check_against_oracle(np.array(s_idx), np.array(s_sc),
                                                 o_scores, o_idx)
                 continue
             # the server searched at k_max 100 and sliced to k
-            r_sc, r_idx = index.search(q_emb, k=100, nprobe=nprobe)
-            _, e_idx = index.exact_search(q_emb, k=k)
+            r_sc, r_idx = index.search(q_emb, k=100, **search_kw)
+            if tier == "refine":
+                q_b = torch.from_numpy(q_emb).bfloat16().float().numpy()
+                e_idx = numpy_search(rows, q_b, k)[1]
+            else:
+                _, e_idx = index.exact_search(q_emb, k=k)
             for r in range(len(group)):
                 keep = r_idx[r] >= 0
                 o_sc, o_idx = r_sc[r][keep][: k + 1], r_idx[r][keep][: k + 1]
@@ -899,12 +931,19 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
                 n_near += _check_against_oracle(
                     np.array([s_idx[r]]), np.array([s_sc[r]]), o_sc[None], o_idx[None])
                 recalls.append(len(set(s_idx[r]) & set(e_idx[r].tolist())) / k)
-        oracle = "numpy_search over the index rows" if ivf_kernel is None else (
+        oracle = "numpy_search over the index rows" if flat else (
             "the index's own search on the same embeddings")
         log(f"index ({tier}): served top-k equal to {oracle} ({n_near} hits inside "
             f"{SCORE_ATOL} near-ties not compared)")
         numbers = {}
-        if ivf_kernel is not None:
+        if tier == "refine":
+            numbers.update(recall=float(np.mean(recalls)), candidates=index.candidates,
+                           reduced_dim=index.reduced_dim, per_call=per_call)
+            log(f"index (refine): d' {index.reduced_dim}, tuned candidates "
+                f"{index.candidates}, per-call {per_call}; recall@k of the served hits "
+                f"against the exact search over the stored rows {numbers['recall']:.4f} "
+                "(random weights: printed, not held)")
+        elif ivf_kernel is not None:
             numbers.update(
                 recall=float(np.mean(recalls)), nprobe=index.nprobe,
                 n_clusters=index.n_clusters, capacity=index.capacity,
@@ -913,7 +952,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
                 f"tuned nprobe {index.nprobe}, build {index.build_seconds}; recall@k of "
                 f"the served hits against the index's exact search "
                 f"{numbers['recall']:.4f} (random weights: printed, not held)")
-        else:
+        if flat:
             # the kernel inside the encoder against the plain attention
             batch = service.encoder.prepare_batch(corpus[:64], 64, 512)
             a = service.encoder.embed_batch(batch, attn_impl="auto")
@@ -1256,8 +1295,8 @@ def _sklearn_paths() -> str:
 
 def phase_evaluate(seed: int, tmp: str, ckpt: str) -> dict:
     """The evaluation path: ``rankpo_tpu_torch.cli.evaluate`` over the
-    serving corpus and N_EVAL_QUERIES span queries, flat (K1) then
-    ``--index_type ivf`` (K1, K4). The saved metrics must be bit-equal to
+    serving corpus and N_EVAL_QUERIES span queries, flat (K1), then
+    ``--index_type ivf`` (K1, K4) and ``--index_type refine`` (K1). The saved metrics must be bit-equal to
     ``compute_metrics`` recomputed on the host over the saved arrays, and
     the flat hits equal to numpy_search over the embeddings the CLI made
     (read from its encoder as it returns them) outside SCORE_ATOL
@@ -1287,7 +1326,8 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str) -> dict:
         return emb, n
 
     out = {}
-    for tier, extra in (("flat", []), ("ivf", ["--index_type", "ivf"])):
+    for tier, extra in (("flat", []), ("ivf", ["--index_type", "ivf"]),
+                        ("refine", ["--index_type", "refine"])):
         out_dir = os.path.join(tmp, f"eval_{tier}")
         encodes.clear()
         gc.collect()
@@ -1350,12 +1390,13 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str) -> dict:
     # the flat hits against the exact numpy search over the CLI's embeddings
     o_scores, o_idx = numpy_search(c_host, q_host, 101)
     n_near = _check_against_oracle(out["flat"]["idx"], out["flat"]["scores"], o_scores, o_idx)
-    overlap = np.mean([len(set(a) & set(b)) / 100 for a, b in
-                       zip(out["ivf"]["idx"].tolist(), out["flat"]["idx"].tolist())])
+    overlap = {tier: np.mean([len(set(a) & set(b)) / 100 for a, b in
+                              zip(out[tier]["idx"].tolist(), out["flat"]["idx"].tolist())])
+               for tier in ("ivf", "refine")}
     log(f"evaluate (flat): hits equal to numpy_search over the same embeddings "
         f"({n_near} hits inside {SCORE_ATOL} near-ties not compared); ivf hits share "
-        f"{overlap:.4f} of the flat top-100 (random weights: printed, not held); "
-        f"{_sklearn_paths()}")
+        f"{overlap['ivf']:.4f}, refine hits {overlap['refine']:.4f} of the flat top-100 "
+        f"(random weights: printed, not held); {_sklearn_paths()}")
     for tier in out:
         del out[tier]["idx"], out[tier]["scores"]
     gc.collect()
@@ -1505,22 +1546,37 @@ def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-def make_scale_data(seed: int):
-    """SCALE_N + SCALE_Q unit rows at SCALE_D on the card: a mixture around
-    SCALE_CENTRES random unit centres plus Gaussian noise of relative size
-    SCALE_NOISE (the last SCALE_Q rows are the held-out queries)."""
+def scale_centres(seed: int):
+    """(generator, SCALE_CENTRES random unit centres at SCALE_D) on the card;
+    the generator goes on to make the scale rows."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
-    n, d = SCALE_N + SCALE_Q, SCALE_D
     centres = torch.nn.functional.normalize(
-        torch.randn(SCALE_CENTRES, d, generator=gen, device="cuda"), dim=1)
+        torch.randn(SCALE_CENTRES, SCALE_D, generator=gen, device="cuda"), dim=1)
+    return gen, centres
+
+
+def mixture_rows(gen, centres, n: int):
+    """n unit rows on the card, each a random centre plus Gaussian noise of
+    relative size SCALE_NOISE, made in slabs of 2^17 rows."""
+    d = centres.shape[1]
     x = torch.empty(n, d, device="cuda")
     for lo in range(0, n, 1 << 17):
         hi = min(lo + (1 << 17), n)
-        pick = torch.randint(0, SCALE_CENTRES, (hi - lo,), generator=gen, device="cuda")
+        pick = torch.randint(0, centres.shape[0], (hi - lo,), generator=gen, device="cuda")
         noise = torch.randn(hi - lo, d, generator=gen, device="cuda")
         x[lo:hi] = torch.nn.functional.normalize(
             centres[pick] + noise * (SCALE_NOISE / d**0.5), dim=1)
-    return x[:SCALE_N], x[SCALE_N:]
+    return x
+
+
+def make_scale_data(seed: int):
+    """SCALE_N + SCALE_Q unit rows at SCALE_D on the card, around
+    SCALE_CENTRES random unit centres (the last SCALE_Q rows are the
+    held-out queries)."""
+    gen, centres = scale_centres(seed)
+    x = mixture_rows(gen, centres, SCALE_N + SCALE_Q)
+    # the queries get their own storage, so that dropping the corpus frees it
+    return x[:SCALE_N], x[SCALE_N:].clone()
 
 
 def _l2_flush():
@@ -1686,17 +1742,232 @@ def _odd_shape_checks(seed: int) -> dict:
     return errs
 
 
-def phase_index_scale(seed: int) -> dict:
-    """The IVF tier at scale: three indexes over 2^20 rows at D 2048, built
-    and searched through IVFIPIndex on the card; each path's kernel counter
-    from 0 to its read, then the kernels against plain at its shapes."""
-    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+def _ivf_counts() -> dict:
     from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    return {**ivf_gather.launches, **pq_adc.launches}
+
+
+def _reset_ivf_counts() -> None:
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    ivf_gather.reset_launches()
+    pq_adc.reset_launches()
+
+
+def _search_batches(index, queries):
+    """search_tensor over the queries in batches of 64 at k 100: (host hits
+    [Q, 100], per-batch host ms, seconds)."""
+    batch_ms, hits = [], []
+    t0 = time.perf_counter()
+    for lo in range(0, queries.shape[0], 64):
+        t_b = time.perf_counter()
+        _, idx = index.search_tensor(queries[lo : lo + 64], 100)
+        hits.append(idx.cpu().numpy())
+        batch_ms.append((time.perf_counter() - t_b) * 1e3)
+    return np.concatenate(hits), batch_ms, time.perf_counter() - t0
+
+
+def _recall(hits, exact) -> float:
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 100
+                          for a, b in zip(hits, exact)]))
+
+
+def _hold_recall(label: str, recall: float) -> None:
+    if not recall >= IVF_RECALL_MIN:
+        raise AssertionError(f"{label}: recall@100 {recall:.4f} < {IVF_RECALL_MIN}")
+
+
+def _trace_batch(index, queries, label: str, kernel: str, short: str) -> dict:
+    """Where one search batch of 64 at k 100 spends its device time: busy ms
+    and the share of the kernels whose names hold ``kernel``."""
+    times = profile_device_ms(lambda: index.search_tensor(queries[:64], 100), n=5)
+    busy = sum(times.values())
+    own = sum(t for name, t in times.items() if kernel in name)
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+    log(f"{label} one batch of 64 at k 100 (device time, profiler, mean of 5): busy "
+        f"{busy:.4f} ms, {short} {own:.4f} ms ({own / busy:.1%}); largest: "
+        + "; ".join(f"{t:.4f} ms {name[:70]}" for name, t in top))
+    return {"batch_busy_ms": busy, "batch_kernel_ms": own, "kernel_share": own / busy}
+
+
+def _layout(index, corpus, label: str) -> dict:
+    """Rows stored outside their nearest cluster (capacity overflow spills
+    them to the 2nd..8th) and the skew of the nearest-cluster fills."""
+    from rankpo_tpu_torch.index.ivf import _bf16_mm
+
+    nearest = torch.cat([torch.argmax(_bf16_mm(corpus[lo : lo + 65536], index.centroids.T),
+                                      dim=1) for lo in range(0, SCALE_N, 65536)])
+    stored = torch.from_numpy(index._cluster_of_row).to(nearest.device)
+    fills = torch.bincount(nearest, minlength=index.n_clusters)
+    out = {"moved_share": (stored != nearest).float().mean().item(),
+           "fill_max": int(fills.max()), "over_capacity": int((fills > index.capacity).sum())}
+    log(f"{label} layout: {out['moved_share']:.4f} of rows stored outside their nearest "
+        f"cluster; nearest-cluster fill max {out['fill_max']}, mean "
+        f"{SCALE_N / index.n_clusters:.1f}, capacity {index.capacity}, "
+        f"{out['over_capacity']} clusters over capacity")
+    return out
+
+
+def _build_and_search(label: str, build, corpus_queries, counter) -> tuple:
+    """One IVF-style path at scale: counters from 0, ``build()``, the held
+    out queries searched in batches of 64, counters read; then recall@100
+    against the index's exact search at storage precision (held). Returns
+    (index, result dict)."""
+    queries, q_host = corpus_queries
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    # ---- the path: counters from 0, build, search, counters read ----
+    _reset_ivf_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    index = build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    hits, batch_ms, search_s = _search_batches(index, queries)
+    launches = _ivf_counts()[counter] if counter else 0
+    # ---- end of the path ----
+    if counter and launches <= 0:
+        raise AssertionError(f"{counter} was not launched on the {label} path")
+    t_exact = time.perf_counter()
+    _, exact = index.exact_search(q_host, k=100)
+    exact_s = time.perf_counter() - t_exact
+    recall = _recall(hits, exact)
+    res = {
+        "n_clusters": index.n_clusters, "capacity": index.capacity, "nprobe": index.nprobe,
+        "build_s": build_s, "build_steps_s": dict(index.build_seconds),
+        "peak_mem_gib": build_peak, "resident_gib": resident, "qps": SCALE_Q / search_s,
+        "batch_p50_ms": float(np.percentile(batch_ms, 50)), "recall": recall,
+        "launches": launches, "counter": counter, "exact_s": exact_s,
+    }
+    log(f"{label}: K {index.n_clusters}, capacity {index.capacity}, slots "
+        f"{index.n_clusters * index.capacity}, tuned nprobe {index.nprobe}; build "
+        f"{build_s:.2f} s by step {({k: round(v, 3) for k, v in index.build_seconds.items()})}; "
+        f"peak memory {build_peak:.2f} GiB ({resident:.2f} GiB resident before); search "
+        f"{SCALE_Q} queries at k 100 in batches of 64: {res['qps']:.1f} queries/s, batch p50 "
+        f"{res['batch_p50_ms']:.3f} ms; recall@100 against exact_search {recall:.4f} (limit "
+        f"{IVF_RECALL_MIN}); {counter or 'no kernel'} launches {launches}; exact search "
+        f"{exact_s:.2f} s")
+    _hold_recall(label, recall)
+    return index, res
+
+
+def _filtered_path(index, corpus, q_host, label: str, counter: str, seed: int) -> dict:
+    """Phase 6b: searches restricted to a seeded half of the rows. A filter
+    leaves the probed clusters as they are (FAISS IVF semantics), so the
+    eligible rows a probe reaches halve: the filtered nprobe is tuned as the
+    build tunes nprobe (the smallest on a ladder of multiples of the
+    unfiltered one to reach 0.95 recall@100 on 256 corpus-row
+    pseudo-queries), then the held-out queries are searched at it. Every
+    returned id must be allowed, the kernel must launch, and recall@100
+    against the exact search over the allowed rows at storage precision
+    (the same index with the other rows removed, ids mapped back) is held;
+    the recall at the unfiltered nprobe is printed."""
+    rng = np.random.default_rng(seed + 10)
+    allowed = np.sort(rng.choice(SCALE_N, SCALE_N // 2, replace=False))
+    mask = np.zeros(SCALE_N, bool)
+    mask[allowed] = True
+    masked = index.remove_rows(np.nonzero(~mask)[0])  # the allowed rows alone
+
+    def exact(q):
+        return allowed[masked.exact_search(q, k=100)[1]]
+
+    sample = corpus[torch.from_numpy(rng.choice(SCALE_N, 256, replace=False)).cuda()]
+    sample = sample.cpu().numpy()
+    ref = exact(sample)
+    ladder = sorted({min(index.n_clusters, int(math.ceil(index.nprobe * f)))
+                     for f in (1, 1.5, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)})
+    for nprobe in ladder:
+        tune_recall = _recall(index.search(sample, k=100, nprobe=nprobe,
+                                           allowed_ids=allowed)[1], ref)
+        if tune_recall >= 0.95:
+            break
+    # ---- the filtered path: counters from 0, search, counters read ----
+    _reset_ivf_counts()
+    t0 = time.perf_counter()
+    _, idx = index.search(q_host, k=100, nprobe=nprobe, allowed_ids=allowed)
+    search_s = time.perf_counter() - t0
+    launches = _ivf_counts()[counter]
+    # ---- end of the filtered path ----
+    if launches <= 0:
+        raise AssertionError(f"{counter} was not launched on the filtered {label} path")
+    if not mask[idx[idx >= 0]].all():
+        raise AssertionError(f"filtered {label}: a returned id is not allowed")
+    ref = exact(q_host)
+    recall = _recall(idx, ref)
+    at_unfiltered = _recall(index.search(q_host, k=100, allowed_ids=allowed)[1], ref)
+    log(f"filtered {label}: allowed {len(allowed)} of {SCALE_N} rows; filtered nprobe "
+        f"{nprobe} (tuned on the ladder {ladder} to {tune_recall:.4f} on 256 pseudo-queries; "
+        f"unfiltered {index.nprobe}); {SCALE_Q} queries at k 100: "
+        f"{SCALE_Q / search_s:.1f} queries/s, every id allowed, recall@100 against the "
+        f"exact search over the allowed rows {recall:.4f} (at the unfiltered nprobe "
+        f"{at_unfiltered:.4f}); {counter} launches {launches}")
+    _hold_recall(f"filtered {label}", recall)
+    return {"nprobe": nprobe, "recall": recall, "recall_at_unfiltered_nprobe": at_unfiltered,
+            "qps": SCALE_Q / search_s, "launches": launches, "counter": counter}
+
+
+def _mutation_path(index, queries, q_host, centres, seed: int) -> dict:
+    """Phase 6c: append SCALE_MUTATE new rows of the same mixture, then
+    remove SCALE_MUTATE seeded rows; the mutated index searched (K4 must
+    launch) and held to recall@100 >= IVF_RECALL_MIN against its own exact
+    search; 1024 appended rows reconstructed bit-equal to their bf16
+    values."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    new = mixture_rows(gen, centres, SCALE_MUTATE)
+    removed = np.random.default_rng(seed + 11).choice(SCALE_N + SCALE_MUTATE, SCALE_MUTATE,
+                                                      replace=False)
+    torch.cuda.synchronize()
+    # ---- the mutation path: counters from 0, append, remove, search ----
+    _reset_ivf_counts()
+    t0 = time.perf_counter()
+    appended = index.append_sharded(new, SCALE_MUTATE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mutated = appended.remove_rows(removed)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    hits, batch_ms, search_s = _search_batches(mutated, queries)
+    launches = _ivf_counts()["ivf_probe_scores"]
+    # ---- end of the mutation path ----
+    if launches <= 0:
+        raise AssertionError("ivf_probe_scores was not launched on the mutated path")
+    got = appended.reconstruct(np.arange(SCALE_N, SCALE_N + 1024))
+    if not np.array_equal(got, new[:1024].bfloat16().float().cpu().numpy()):
+        raise AssertionError("reconstruct of appended rows differs from their bf16 values")
+    _, exact = mutated.exact_search(q_host, k=100)
+    recall = _recall(hits, exact)
+    res = {"append_s": t1 - t0, "remove_s": t2 - t1, "capacity": appended.capacity,
+           "n_total": mutated.n_total, "qps": SCALE_Q / search_s,
+           "batch_p50_ms": float(np.percentile(batch_ms, 50)), "recall": recall,
+           "launches": launches, "counter": "ivf_probe_scores"}
+    log(f"mutated bf16: append {SCALE_MUTATE} rows {res['append_s']:.2f} s (capacity "
+        f"{index.capacity} -> {appended.capacity}), remove {SCALE_MUTATE} rows "
+        f"{res['remove_s']:.3f} s, {mutated.n_total} rows; search {res['qps']:.1f} "
+        f"queries/s, batch p50 {res['batch_p50_ms']:.3f} ms; recall@100 against the "
+        f"mutated index's exact_search {recall:.4f}; reconstruct of 1024 appended rows "
+        f"bit-equal to bf16; ivf_probe_scores launches {launches}")
+    _hold_recall("mutated bf16", recall)
+    return res
+
+
+def phase_index_scale(seed: int) -> dict:
+    """The IVF and refine tiers at scale over 2^20 rows at D 2048, built and
+    searched on the card; each path's kernel counter from 0 to its read,
+    then the kernels against plain at its shapes. Each index is freed
+    before the next."""
+    from rankpo_tpu_torch.index.flat import FlatIPIndex
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+    from rankpo_tpu_torch.index.refined import RefineIPIndex
 
     t0 = time.perf_counter()
     corpus, queries = make_scale_data(seed)
+    _, centres = scale_centres(seed)
     torch.cuda.synchronize()
     q_host = queries.cpu().numpy()
+    cq = (queries, q_host)
     log(f"scale data: {SCALE_N} rows + {SCALE_Q} queries at D {SCALE_D} around "
         f"{SCALE_CENTRES} centres (noise {SCALE_NOISE}), {time.perf_counter() - t0:.2f} s")
     configs = {"bf16": ({}, "ivf_probe_scores"),
@@ -1704,91 +1975,23 @@ def phase_index_scale(seed: int) -> dict:
                "pq_cols": ({"pq_m": 64, "pq_layout": "cols"}, "pq_adc_cols")}
     results, kernels = {}, {}
     for kind, (kw, counter) in configs.items():
-        gc.collect()
-        torch.cuda.empty_cache()
-        # ---- the IVF path: counters from 0, build, search, counters read ----
-        ivf_gather.reset_launches()
-        pq_adc.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t_build = time.perf_counter()
-        index = IVFIPIndex(corpus, recall_target=0.95, **kw)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t_build
-        build_peak = torch.cuda.max_memory_allocated() / 2**30
-        batch_ms, hits = [], []
-        t_search = time.perf_counter()
-        for lo in range(0, SCALE_Q, 64):
-            t_b = time.perf_counter()
-            _, idx = index.search_tensor(queries[lo : lo + 64], 100)
-            hits.append(idx.cpu().numpy())
-            batch_ms.append((time.perf_counter() - t_b) * 1e3)
-        search_s = time.perf_counter() - t_search
-        launches = {**ivf_gather.launches, **pq_adc.launches}[counter]
-        # ---- end of the IVF path ----
-        if launches <= 0:
-            raise AssertionError(f"{counter} was not launched on the {kind} IVF path")
-        hits = np.concatenate(hits)
-        t_exact = time.perf_counter()
-        _, exact = index.exact_search(q_host, k=100)
-        exact_s = time.perf_counter() - t_exact
-        recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 100
-                                for a, b in zip(hits, exact)]))
-        results[kind] = {
-            "n_clusters": index.n_clusters, "capacity": index.capacity,
-            "nprobe": index.nprobe, "build_s": build_s, "build_steps_s": dict(index.build_seconds),
-            "peak_mem_gib": build_peak, "qps": SCALE_Q / search_s,
-            "batch_p50_ms": float(np.percentile(batch_ms, 50)), "recall": recall,
-            "launches": launches, "counter": counter, "exact_s": exact_s,
-        }
-        log(f"IVF {kind}: K {index.n_clusters}, capacity {index.capacity}, slots "
-            f"{index.n_clusters * index.capacity}, tuned nprobe {index.nprobe}; build "
-            f"{build_s:.2f} s by step {({k: round(v, 3) for k, v in index.build_seconds.items()})}; "
-            f"peak memory {build_peak:.2f} GiB; search {SCALE_Q} queries at k 100 in batches "
-            f"of 64: {results[kind]['qps']:.1f} queries/s, batch p50 "
-            f"{results[kind]['batch_p50_ms']:.3f} ms; recall@100 against exact_search "
-            f"{recall:.4f} (limit {IVF_RECALL_MIN}); {counter} launches {launches}; "
-            f"exact search {exact_s:.2f} s")
-        if not recall >= IVF_RECALL_MIN:
-            raise AssertionError(f"IVF {kind}: recall@100 {recall:.4f} < {IVF_RECALL_MIN}")
-        if kind != "bf16":
-            # where one PQ batch's device time goes (K5 or K6, the probe and
-            # table products, the sorts, the rest)
-            times = profile_device_ms(lambda: index.search_tensor(queries[:64], 100), n=5)
-            busy = sum(times.values())
-            k56 = sum(t for name, t in times.items() if "pq_adc_" in name)
-            results[kind]["batch_busy_ms"], results[kind]["batch_k56_ms"] = busy, k56
-            top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
-            log(f"IVF {kind} one batch of 64 at k 100 (device time, profiler, mean of 5): busy "
-                f"{busy:.4f} ms, {'K5' if kind == 'pq_rows' else 'K6'} {k56:.4f} ms "
-                f"({k56 / busy:.1%}); largest: "
-                + "; ".join(f"{t:.4f} ms {name[:70]}" for name, t in top))
+        index, results[kind] = _build_and_search(
+            f"IVF {kind}", lambda kw=kw: IVFIPIndex(corpus, recall_target=0.95, **kw),
+            cq, counter)
         if kind == "bf16":
-            # why nprobe is what it is: rows stored outside their nearest
-            # cluster (capacity overflow spills them to the 2nd..8th) and
-            # the skew of the nearest-cluster fills
-            from rankpo_tpu_torch.index.ivf import _bf16_mm
-
-            nearest = torch.cat([torch.argmax(_bf16_mm(corpus[lo : lo + 65536],
-                                                       index.centroids.T), dim=1)
-                                 for lo in range(0, SCALE_N, 65536)])
-            stored = torch.from_numpy(index._cluster_of_row).to(nearest.device)
-            fills = torch.bincount(nearest, minlength=index.n_clusters)
-            moved = (stored != nearest).float().mean().item()
-            results[kind]["moved_share"] = moved
-            log(f"IVF {kind} layout: {moved:.4f} of rows stored outside their nearest "
-                f"cluster; nearest-cluster fill max {int(fills.max())}, mean "
-                f"{SCALE_N / index.n_clusters:.1f}, capacity {index.capacity}, "
-                f"{int((fills > index.capacity).sum())} clusters over capacity")
-            # where one batch's device time goes (K4, the probe product, the
-            # sort of the scores, the rest)
-            times = profile_device_ms(lambda: index.search_tensor(queries[:64], 100), n=5)
-            busy = sum(times.values())
-            k4 = sum(t for name, t in times.items() if "ivf_probe_scores" in name)
-            results[kind]["batch_busy_ms"], results[kind]["batch_k4_ms"] = busy, k4
-            top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
-            log(f"IVF {kind} one batch of 64 at k 100 (device time, profiler, mean of 5): busy "
-                f"{busy:.4f} ms, K4 {k4:.4f} ms ({k4 / busy:.1%}); largest: "
-                + "; ".join(f"{t:.4f} ms {name[:70]}" for name, t in top))
+            # why nprobe is what it is, then where one batch's device time goes
+            results[kind].update(_layout(index, corpus, "IVF bf16"))
+            results[kind].update(_trace_batch(index, queries, "IVF bf16", "ivf_probe_scores",
+                                              "K4"))
+            results["bf16_filtered"] = _filtered_path(index, corpus, q_host, "bf16",
+                                                      "ivf_probe_scores", seed)
+            results["bf16_mutated"] = _mutation_path(index, queries, q_host, centres, seed)
+        else:
+            results[kind].update(_trace_batch(index, queries, f"IVF {kind}", "pq_adc_",
+                                              "K5" if kind == "pq_rows" else "K6"))
+            if kind == "pq_rows":
+                results["pq_rows_filtered"] = _filtered_path(index, corpus, q_host,
+                                                             "pq_rows", "pq_adc_rows", seed)
         kernels.update(_probe_kernels(index, queries, kind))
         if kind == "bf16":  # the bf16 index's (wider) probe set, for the PQ kernels too
             p, _ = index._effective_probe(100, None)
@@ -1797,7 +2000,74 @@ def phase_index_scale(seed: int) -> dict:
             log(f"{kind} at the bf16 index's probe set (not the path's shape):")
             kernels[f"{kind}_wide"] = _probe_kernels(index, queries, kind, wide_probe)[kind]
         del index
-    del corpus, queries
+
+    # 6a: the bf16 index built with kmeans_split, beside the one without
+    index, split = _build_and_search(
+        f"IVF bf16 kmeans_split {SCALE_SPLIT}",
+        lambda: IVFIPIndex(corpus, recall_target=0.95, kmeans_split=SCALE_SPLIT),
+        cq, "ivf_probe_scores")
+    split.update(_layout(index, corpus, "IVF bf16 split"))
+    split.update(_trace_batch(index, queries, "IVF bf16 split", "ivf_probe_scores", "K4"))
+    results["bf16_split"] = split
+    base = results["bf16"]
+    log("kmeans_split beside no split (bf16 rows): " + "; ".join(
+        f"{key} {base[key]:.4g} -> {split[key]:.4g}" for key in
+        ("moved_share", "fill_max", "nprobe", "batch_p50_ms", "kernel_share", "recall",
+         "qps")))
+    del index
+
+    # 6e: the PCA hybrid (bf16 rows, d' SCALE_REDUCED); no kernel on its path
+    index, hybrid = _build_and_search(
+        f"IVF bf16 hybrid d' {SCALE_REDUCED}",
+        lambda: IVFIPIndex(corpus, recall_target=0.95, reduced_dim=SCALE_REDUCED),
+        cq, None)
+    hybrid["candidates"] = index.candidates
+    log(f"IVF hybrid: tuned nprobe {index.nprobe}, candidates {index.candidates}")
+    results["hybrid"] = hybrid
+    del index
+
+    # 6f: the refine tier, held against an exact fp32 search
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    index = RefineIPIndex.from_sharded(corpus, SCALE_N, reduced_dim=SCALE_REDUCED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hits, batch_ms, search_s = _search_batches(index, queries)
+    _, exact = FlatIPIndex(corpus).search(q_host, k=100)
+    recall = _recall(hits, exact)
+    results["refine"] = {"candidates": index.candidates, "build_s": build_s,
+                         "peak_mem_gib": peak, "resident_gib": resident,
+                         "qps": SCALE_Q / search_s,
+                         "batch_p50_ms": float(np.percentile(batch_ms, 50)),
+                         "recall": recall, "launches": 0, "counter": None}
+    log(f"refine d' {SCALE_REDUCED}: tuned C {index.candidates}; build {build_s:.2f} s, peak "
+        f"memory {peak:.2f} GiB ({resident:.2f} GiB resident before); search {SCALE_Q} "
+        f"queries at k 100 in batches of 64: {SCALE_Q / search_s:.1f} queries/s, batch p50 "
+        f"{results['refine']['batch_p50_ms']:.3f} ms; recall@100 against the exact fp32 "
+        f"search {recall:.4f} (limit {IVF_RECALL_MIN})")
+    _hold_recall("refine", recall)
+    del index, corpus
+
+    # 6d: the streamed build; each chunk made on demand from its own
+    # generator, so the fp32 corpus never exists whole
+    def get_chunk(lo, hi):
+        gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + 100 + lo // SCALE_CHUNK)
+        return mixture_rows(gen, centres, hi - lo)
+
+    index, streamed = _build_and_search(
+        "IVF bf16 streamed (from_chunk_fn)",
+        lambda: IVFIPIndex.from_chunk_fn(get_chunk, SCALE_N, SCALE_D, chunk_rows=SCALE_CHUNK,
+                                         recall_target=0.95),
+        cq, "ivf_probe_scores")
+    results["bf16_streamed"] = streamed
+    log(f"peak device memory of the builds: constructor {base['peak_mem_gib']:.2f} GiB (the "
+        f"{SCALE_N * SCALE_D * 4 / 2**30:.0f} GiB fp32 corpus resident), streamed "
+        f"{streamed['peak_mem_gib']:.2f} GiB (chunks of {SCALE_CHUNK} rows)")
+    del index, queries, centres
     gc.collect()
     torch.cuda.empty_cache()
     odd = _odd_shape_checks(seed)
@@ -1838,23 +2108,32 @@ def main(argv=None) -> int:
     # already picks on Hopper.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = phase_environment()
-    phase_build()
+    wall = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        wall[name] = wall.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    timed("1 build", phase_build)
     with tempfile.TemporaryDirectory(prefix="rankpo_smoke_") as tmp:
-        kern = phase_kernels(args.seed, tmp)
-        phase_search_ties()
-        ckpt, base_state = make_checkpoint(tmp, args.seed)
+        kern = timed("2 kernels", phase_kernels, args.seed, tmp)
+        timed("3 search ties", phase_search_ties)
+        ckpt, base_state = timed("checkpoint", make_checkpoint, tmp, args.seed)
         serving = {}
         for tier in SERVE_TIERS:
-            serving[tier] = phase_serving(args.seed, tmp, ckpt, tier)
+            serving[tier] = timed("4 serving", phase_serving, args.seed, tmp, ckpt, tier)
             gc.collect()
             torch.cuda.empty_cache()
-        train = phase_training(ckpt, tmp, args.seed, base_state)
+        train = timed("5 training", phase_training, ckpt, tmp, args.seed, base_state)
         del base_state
         for stage_dir in ("stage1", "stage1_rerun", "stage2"):  # ~15 GB of fp32 files
             shutil.rmtree(os.path.join(tmp, stage_dir))
-        evaluation = phase_evaluate(args.seed, tmp, ckpt)
-        mining = phase_mining(args.seed, tmp, ckpt, os.path.join(tmp, "eval_queries.jsonl"))
-    scale = phase_index_scale(args.seed)
+        evaluation = timed("7 evaluate", phase_evaluate, args.seed, tmp, ckpt)
+        mining = timed("8 mining and pipeline", phase_mining, args.seed, tmp, ckpt,
+                       os.path.join(tmp, "eval_queries.jsonl"))
+    scale = timed("6 index scale", phase_index_scale, args.seed)
     nums = serving["flat"]
     log(f"numbers ({card}): serving startup (load + encode + index) "
         f"{nums['startup_s']:.2f} s; corpus encode {nums['encode_s']:.3f} s = "
@@ -1865,20 +2144,21 @@ def main(argv=None) -> int:
         f"{nums['search_batch16_p50_ms']:.2f} ms; peak device memory "
         f"{nums['peak_mem_gib']:.2f} GiB; K1 at the encode's shapes "
         f"{nums['k1_encode']['ms']:.4f} ms per layer ({nums['k1_encode']['batches']} batches)")
-    for tier in ("ivf", "pq"):
+    for tier in ("ivf", "pq", "refine"):
         n = serving[tier]
+        knobs = (f"candidates {n['candidates']} (d' {n['reduced_dim']})" if tier == "refine"
+                 else f"index build {n['build_s']}; K {n['n_clusters']}, capacity "
+                      f"{n['capacity']}, nprobe {n['nprobe']}")
         log(f"numbers ({card}): serving {' '.join(SERVE_TIERS[tier][0])}: startup "
-            f"{n['startup_s']:.2f} s (index build {n['build_s']}); K {n['n_clusters']}, "
-            f"capacity {n['capacity']}, nprobe {n['nprobe']}; /search single p50 "
+            f"{n['startup_s']:.2f} s ({knobs}); /search single p50 "
             f"{n['search_single_p50_ms']:.2f} ms p99 {n['search_single_p99_ms']:.2f} ms "
             f"(8 clients); batch of 16 p50 {n['search_batch16_p50_ms']:.2f} ms; recall@k "
             f"{n['recall']:.4f}; peak device memory {n['peak_mem_gib']:.2f} GiB; "
             f"launches {n['launches']}")
     for kind, n in scale["indexes"].items():
-        log(f"numbers ({card}): IVF {kind} at {SCALE_N} x {SCALE_D}: build {n['build_s']:.2f} s "
-            f"{({k: round(v, 3) for k, v in n['build_steps_s'].items()})}, nprobe {n['nprobe']}, "
-            f"{n['qps']:.1f} queries/s, batch-64 p50 {n['batch_p50_ms']:.3f} ms, recall@100 "
-            f"{n['recall']:.4f}, peak {n['peak_mem_gib']:.2f} GiB")
+        log(f"numbers ({card}): scale {kind} at {SCALE_N} x {SCALE_D}: " + ", ".join(
+            f"{key} {value:.4f}" if isinstance(value, float) else f"{key} {value}"
+            for key, value in n.items() if key not in ("counter",)))
     for stage in ("stage1", "stage2"):
         s = train[stage]
         mfu = "not known for this card" if s["mfu"] is None else f"{s['mfu']:.4f}"
@@ -1918,6 +2198,7 @@ def main(argv=None) -> int:
             "pq_probe_scores": max(k["pq_rows"]["max_abs_err"], scale["odd"]["pq_probe_scores"]),
             "pq_probe_scores_t": max(k["pq_cols"]["max_abs_err"],
                                      scale["odd"]["pq_probe_scores_t"])}
+    log("phase wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(wall.items())))
     log(f"total run {time.perf_counter() - t_all:.1f} s")
     names = {"flash_fwd": "flash_attention_fwd",
              "flash_bwd_fused": "flash_attention_bwd_fused",

@@ -617,3 +617,96 @@ def test_ivf_index_on_card_matches_cpu(cuda, kw, kernel):
     es, ei = index.exact_search(x[4900:], k=20)
     recall = np.mean([len(set(a) & set(b)) / 20 for a, b in zip(i, ei)])
     assert recall >= 0.85
+
+
+def _same_hits(s, i, hs, hi, tol=1e-5):
+    """Indices equal outside ``tol`` near-ties of the reference, scores
+    within ``tol`` (-inf tails equal)."""
+    np.testing.assert_array_equal(np.isneginf(s), np.isneginf(hs))
+    fin = np.isfinite(hs)
+    np.testing.assert_allclose(s[fin], hs[fin], atol=tol, rtol=0)
+    ref = np.where(fin, hs, -1e9)
+    gaps = np.abs(np.diff(ref, axis=1)) > tol
+    clear = np.ones_like(hi, dtype=bool)
+    clear[:, 1:] &= gaps
+    clear[:, :-1] &= gaps
+    np.testing.assert_array_equal(i[clear], hi[clear])
+
+
+def _card_data(n=5000, d=128, seed=0):
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((40, d)).astype(np.float32)
+    x = centres[rng.integers(0, 40, n)] + 0.3 * rng.standard_normal((n, d))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kw,kernel", [({}, "ivf_probe_scores"),
+                                       ({"store_dtype": torch.float32}, "ivf_probe_scores"),
+                                       ({"pq_m": 16, "pq_layout": "rows"}, "pq_adc_rows"),
+                                       ({"pq_m": 32, "pq_layout": "cols"}, "pq_adc_cols")])
+def test_filtered_and_mutated_search_launch_kernels(cuda, kw, kernel):
+    """Filtered search, and search after an append that grows the capacity
+    and after a removal, launch the index's kernel on the card (the filter
+    masks its output), and equal the same searches through the plain
+    versions (the same index carried to the CPU)."""
+    from rankpo_tpu_torch.index import io as pio
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    x = _card_data()
+    queries = x[4900:]
+    index = IVFIPIndex(torch.from_numpy(x[:3000]).to(cuda), n_clusters=32, nprobe=8,
+                       capacity_slack=1.05, **kw)
+    allowed = np.random.default_rng(1).choice(3000, size=1500, replace=False)
+    grown = index.append_sharded(torch.from_numpy(x[3000:4900]).to(cuda), 1900)
+    assert grown.capacity > index.capacity
+    assert grown.capacity % grown._capacity_multiple() == 0
+    removed = grown.remove_rows(np.arange(0, 4900, 3))
+    for idx, filt in ((index, {"allowed_ids": allowed}), (grown, {}),
+                      (removed, {"disallowed_ids": np.arange(100)})):
+        host = pio.index_from_state(pio.index_state(idx), device="cpu")
+        before = {**ivf_gather.launches, **pq_adc.launches}[kernel]
+        s, i = idx.search(queries, k=20, batch_size=32, **filt)
+        assert {**ivf_gather.launches, **pq_adc.launches}[kernel] > before
+        _same_hits(s, i, *host.search(queries, k=20, batch_size=32, **filt))
+    host = pio.index_from_state(pio.index_state(grown), device="cpu")
+    ids = np.arange(2990, 3064)
+    np.testing.assert_array_equal(grown.reconstruct(ids), host.reconstruct(ids))
+
+
+@pytest.mark.parametrize("kw", [{"kmeans_split": 8}, {"balance_eta": 0.05},
+                                {"pq_m": 16, "pq_rotate": "random"}])
+def test_streamed_and_split_builds_on_card_match_cpu(cuda, kw):
+    """``from_chunk_fn`` on the card (with the k-means options) launches its
+    kernel and equals the same streamed build's search on the CPU."""
+    from rankpo_tpu_torch.index import io as pio
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    x = _card_data()
+    index = IVFIPIndex.from_chunk_fn(lambda lo, hi: torch.from_numpy(x[lo:hi]), 4800, 128,
+                                     chunk_rows=1000, n_clusters=32, recall_target=0.9,
+                                     device="cuda", **kw)
+    host = pio.index_from_state(pio.index_state(index), device="cpu")
+    counter = "pq_adc_rows" if "pq_m" in kw else "ivf_probe_scores"
+    before = {**ivf_gather.launches, **pq_adc.launches}[counter]
+    s, i = index.search(x[4800:], k=20)
+    assert {**ivf_gather.launches, **pq_adc.launches}[counter] > before
+    _same_hits(s, i, *host.search(x[4800:], k=20))
+
+
+def test_refine_and_hybrid_on_card_match_cpu(cuda):
+    """The two-stage tiers (torch products, no kernel) on the card against
+    the same indexes on the CPU."""
+    from rankpo_tpu_torch.index import io as pio
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+    from rankpo_tpu_torch.index.refined import RefineIPIndex
+
+    x = _card_data()
+    rows = torch.from_numpy(x[:4800]).to(cuda)
+    for index in (RefineIPIndex.from_sharded(rows, 4800, reduced_dim=32, recall_target=0.9),
+                  IVFIPIndex(rows, n_clusters=32, reduced_dim=32, recall_target=0.9)):
+        host = pio.index_from_state(pio.index_state(index), device="cpu")
+        _same_hits(*index.search(x[4800:], k=20), *host.search(x[4800:], k=20))
+        sel = {"allowed_ids": np.arange(0, 4800, 2)}
+        _same_hits(*index.search(x[4800:], k=20, **sel), *host.search(x[4800:], k=20, **sel))
