@@ -37,7 +37,7 @@ from rankpo_tpu.index.flat import (
 from rankpo_tpu_torch.index import flat as pflat
 from rankpo_tpu_torch.index import io as pio
 from rankpo_tpu_torch.index import ivf as pivf
-from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+from rankpo_tpu_torch.ops import ivf_gather
 
 from test_torch_ivf import TOL, _assert_same_hits, _blobs, _corpus_queries, _storage_bits
 

@@ -26,7 +26,7 @@ from rankpo_tpu_torch.index import io as pio
 from rankpo_tpu_torch.index.factory import build_offline_index, resolve_offline_index
 from rankpo_tpu_torch.index.refined import RefineIPIndex
 
-from test_torch_ivf import TOL, _assert_same_hits, _corpus_queries, _storage_bits
+from test_torch_ivf import TOL, _assert_same_hits, _storage_bits
 
 torch.set_num_threads(2)
 
