@@ -173,7 +173,7 @@ def test_validation():
         RefineIPIndex.from_sharded(torch.from_numpy(corpus), 101)
 
 
-def test_offline_builder_takes_the_tool_constructor():
+def test_build_offline_index_takes_the_tool_constructor():
     """``build_offline_index`` makes refine as the JAX tools do: reduced_dim
     min(256, D); the moment of the fp32 rows (evaluator, predictions) or of
     the stored rows (mining)."""
