@@ -86,7 +86,6 @@ from __future__ import annotations
 import argparse
 import gc
 import json
-import math
 import os
 import shutil
 import socket
@@ -1618,10 +1617,11 @@ def _kernel_check(name: str, fn, plain, compose, nbytes: int, ops: int, label: s
     return out
 
 
-def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
+def _probe_kernels(index, queries, kind: str, probe=None, timed: bool = True) -> dict:
     """The path's kernel against its plain version at the index's own probe
     set (Q 64, the tuned nprobe; or the given ``probe`` [64, P] cluster ids)
-    and storage."""
+    and storage; with ``timed`` also timed (bf16 rows: at fp32 too) beside
+    the plain version, the torch composition and the bound."""
     from rankpo_tpu_torch.index.ivf import PQ_K, _bf16
     from rankpo_tpu_torch.ops import ivf_gather, pq_adc
 
@@ -1637,7 +1637,7 @@ def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
     label = f"Q {q_n}, P {p} ({blocks} distinct blocks), cap {cap}"
     res = {}
     if kind == "bf16":
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float32) if timed else (torch.bfloat16,):
             corpus = index.corpus if dtype == torch.bfloat16 else index.corpus.float()
             d = corpus.shape[1]
             qv = q.to(dtype)
@@ -1646,19 +1646,30 @@ def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
                 rows = corpus.view(-1, cap, d).index_select(0, probe.flatten())
                 return torch.bmm(rows.view(q_n, p * cap, d), qv[:, :, None])
 
+            def plain(c=corpus):
+                if timed:
+                    return ivf_gather.probe_scores_plain(c, probe32, q, cap=cap)
+                # the check alone: the plain version's gather (and its fp32
+                # copy) a few queries at a time, at most ~16 GiB each
+                n = max(1, (16 << 30) // (p * cap * d * (c.element_size() + 4)))
+                return torch.cat([ivf_gather.probe_scores_plain(c, probe32[lo : lo + n],
+                                                                q[lo : lo + n], cap=cap)
+                                  for lo in range(0, q_n, n)])
+
             row_bytes = cap * d * corpus.element_size()
             nbytes = blocks * row_bytes + q.numel() * 4 + probe_bytes
             out = _kernel_check(
                 "ivf_probe_scores", lambda c=corpus: ivf_gather.probe_scores(c, probe32, q, cap=cap),
-                lambda c=corpus: ivf_gather.probe_scores_plain(c, probe32, q, cap=cap),
-                compose, nbytes + out_bytes, q_n * p * cap * d * 2,
+                plain,
+                compose if timed else None, nbytes + out_bytes, q_n * p * cap * d * 2,
                 f"{label}, D {d}, {dtype}")
             # the design's own reads of the corpus: each probed block once
             # per chunk of 8 of the queries that probe it
             out["design_mb"] = tile_reads * row_bytes / 1e6
-            log(f"  ivf_probe_scores design: corpus read {out['design_mb']:.1f} MB "
-                f"({tile_reads} block reads: {blocks} distinct + {tile_reads - blocks} chunk "
-                f"re-reads) against the bound's {blocks * row_bytes / 1e6:.1f} MB")
+            if timed:
+                log(f"  ivf_probe_scores design: corpus read {out['design_mb']:.1f} MB "
+                    f"({tile_reads} block reads: {blocks} distinct + {tile_reads - blocks} "
+                    f"chunk re-reads) against the bound's {blocks * row_bytes / 1e6:.1f} MB")
             res[str(dtype).split(".")[1]] = out
             del corpus
         return res
@@ -1686,7 +1697,9 @@ def _probe_kernels(index, queries, kind: str, probe=None) -> dict:
     routes = dict(pq_adc.route_launches)
     res[kind] = out = _kernel_check(
         name, lambda: fn(codes, probe32, lut, cap=cap), lambda: plain(codes, probe32, lut, cap=cap),
-        compose, nbytes, q_n * p * cap * m, f"{label}, m {m}")
+        compose if timed else None, nbytes, q_n * p * cap * m, f"{label}, m {m}")
+    if not timed:
+        return res
     out["route"] = [r for r, n in pq_adc.route_launches.items() if n > routes[r]]
     out["plan"] = pq_adc.plan_for(codes, probe32, cap, m)
     # the other floor: every lookup is a shared-memory read, 32 a clock on
@@ -1854,67 +1867,58 @@ def _build_and_search(label: str, build, corpus_queries, counter) -> tuple:
     return index, res
 
 
-def _filtered_path(index, corpus, q_host, label: str, counter: str, seed: int) -> dict:
+def _filtered_path(index, queries, q_host, kind: str, counter: str, seed: int) -> tuple:
     """Phase 6b: searches restricted to a seeded half of the rows. A filter
     leaves the probed clusters as they are (FAISS IVF semantics), so the
-    eligible rows a probe reaches halve: the filtered nprobe is tuned as the
-    build tunes nprobe (the smallest on a ladder of multiples of the
-    unfiltered one to reach 0.95 recall@100 on 256 corpus-row
-    pseudo-queries), then the held-out queries are searched at it. Every
+    eligible rows a probe reaches halve; the index tunes the nprobe for the
+    filter (``tune_filtered_nprobe``, the build's tuner under the filter),
+    and the held-out queries are searched with ``nprobe="filtered"``. Every
     returned id must be allowed, the kernel must launch, and recall@100
-    against the exact search over the allowed rows at storage precision
-    (the same index with the other rows removed, ids mapped back) is held;
-    the recall at the unfiltered nprobe is printed."""
+    against the index's exact search over the allowed rows at storage
+    precision is held; the recall at the build's nprobe is printed. Returns
+    (result, the kernel against plain at the filtered probe set)."""
     rng = np.random.default_rng(seed + 10)
     allowed = np.sort(rng.choice(SCALE_N, SCALE_N // 2, replace=False))
     mask = np.zeros(SCALE_N, bool)
     mask[allowed] = True
-    masked = index.remove_rows(np.nonzero(~mask)[0])  # the allowed rows alone
-
-    def exact(q):
-        return allowed[masked.exact_search(q, k=100)[1]]
-
-    sample = corpus[torch.from_numpy(rng.choice(SCALE_N, 256, replace=False)).cuda()]
-    sample = sample.cpu().numpy()
-    ref = exact(sample)
-    ladder = sorted({min(index.n_clusters, int(math.ceil(index.nprobe * f)))
-                     for f in (1, 1.5, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)})
-    for nprobe in ladder:
-        tune_recall = _recall(index.search(sample, k=100, nprobe=nprobe,
-                                           allowed_ids=allowed)[1], ref)
-        if tune_recall >= 0.95:
-            break
+    t0 = time.perf_counter()
+    nprobe = index.tune_filtered_nprobe(100, allowed_ids=allowed)
+    tune_s = time.perf_counter() - t0
     # ---- the filtered path: counters from 0, search, counters read ----
     _reset_ivf_counts()
     t0 = time.perf_counter()
-    _, idx = index.search(q_host, k=100, nprobe=nprobe, allowed_ids=allowed)
+    _, idx = index.search(q_host, k=100, nprobe="filtered", allowed_ids=allowed)
     search_s = time.perf_counter() - t0
     launches = _ivf_counts()[counter]
     # ---- end of the filtered path ----
     if launches <= 0:
-        raise AssertionError(f"{counter} was not launched on the filtered {label} path")
+        raise AssertionError(f"{counter} was not launched on the filtered {kind} path")
     if not mask[idx[idx >= 0]].all():
-        raise AssertionError(f"filtered {label}: a returned id is not allowed")
-    ref = exact(q_host)
+        raise AssertionError(f"filtered {kind}: a returned id is not allowed")
+    ref = index.exact_search(q_host, k=100, allowed_ids=allowed)[1]
     recall = _recall(idx, ref)
-    at_unfiltered = _recall(index.search(q_host, k=100, allowed_ids=allowed)[1], ref)
-    log(f"filtered {label}: allowed {len(allowed)} of {SCALE_N} rows; filtered nprobe "
-        f"{nprobe} (tuned on the ladder {ladder} to {tune_recall:.4f} on 256 pseudo-queries; "
-        f"unfiltered {index.nprobe}); {SCALE_Q} queries at k 100: "
-        f"{SCALE_Q / search_s:.1f} queries/s, every id allowed, recall@100 against the "
-        f"exact search over the allowed rows {recall:.4f} (at the unfiltered nprobe "
-        f"{at_unfiltered:.4f}); {counter} launches {launches}")
-    _hold_recall(f"filtered {label}", recall)
-    return {"nprobe": nprobe, "recall": recall, "recall_at_unfiltered_nprobe": at_unfiltered,
-            "qps": SCALE_Q / search_s, "launches": launches, "counter": counter}
+    at_build = _recall(index.search(q_host, k=100, allowed_ids=allowed)[1], ref)
+    log(f"filtered {kind}: allowed {len(allowed)} of {SCALE_N} rows; the index's filtered "
+        f"nprobe {nprobe} (tune_filtered_nprobe, {tune_s:.2f} s; the build's {index.nprobe}); "
+        f"{SCALE_Q} queries at k 100: {SCALE_Q / search_s:.1f} queries/s, every id allowed, "
+        f"recall@100 against the exact search over the allowed rows {recall:.4f} (at the "
+        f"build's nprobe {at_build:.4f}); {counter} launches {launches}")
+    _hold_recall(f"filtered {kind}", recall)
+    log(f"filtered {kind} kernel at its probe set:")
+    probe = index._probe_clusters(queries[:64], index._effective_probe(100, nprobe)[0])[0]
+    check = _probe_kernels(index, queries, kind, probe, timed=False)
+    return ({"nprobe": nprobe, "tune_s": tune_s, "recall": recall,
+             "recall_at_build_nprobe": at_build, "qps": SCALE_Q / search_s,
+             "launches": launches, "counter": counter},
+            check["bfloat16" if kind == "bf16" else kind])
 
 
-def _mutation_path(index, queries, q_host, centres, seed: int) -> dict:
+def _mutation_path(index, queries, q_host, centres, seed: int) -> tuple:
     """Phase 6c: append SCALE_MUTATE new rows of the same mixture, then
     remove SCALE_MUTATE seeded rows; the mutated index searched (K4 must
     launch) and held to recall@100 >= IVF_RECALL_MIN against its own exact
     search; 1024 appended rows reconstructed bit-equal to their bf16
-    values."""
+    values. Returns (result, K4 against plain on the mutated storage)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     new = mixture_rows(gen, centres, SCALE_MUTATE)
     removed = np.random.default_rng(seed + 11).choice(SCALE_N + SCALE_MUTATE, SCALE_MUTATE,
@@ -1950,7 +1954,8 @@ def _mutation_path(index, queries, q_host, centres, seed: int) -> dict:
         f"mutated index's exact_search {recall:.4f}; reconstruct of 1024 appended rows "
         f"bit-equal to bf16; ivf_probe_scores launches {launches}")
     _hold_recall("mutated bf16", recall)
-    return res
+    log("mutated bf16 kernel at its probe set:")
+    return res, _probe_kernels(mutated, queries, "bf16", timed=False)["bfloat16"]
 
 
 def phase_index_scale(seed: int) -> dict:
@@ -1983,15 +1988,16 @@ def phase_index_scale(seed: int) -> dict:
             results[kind].update(_layout(index, corpus, "IVF bf16"))
             results[kind].update(_trace_batch(index, queries, "IVF bf16", "ivf_probe_scores",
                                               "K4"))
-            results["bf16_filtered"] = _filtered_path(index, corpus, q_host, "bf16",
-                                                      "ivf_probe_scores", seed)
-            results["bf16_mutated"] = _mutation_path(index, queries, q_host, centres, seed)
+            results["bf16_filtered"], kernels["bf16_filtered"] = _filtered_path(
+                index, queries, q_host, "bf16", "ivf_probe_scores", seed)
+            results["bf16_mutated"], kernels["bf16_mutated"] = _mutation_path(
+                index, queries, q_host, centres, seed)
         else:
             results[kind].update(_trace_batch(index, queries, f"IVF {kind}", "pq_adc_",
                                               "K5" if kind == "pq_rows" else "K6"))
             if kind == "pq_rows":
-                results["pq_rows_filtered"] = _filtered_path(index, corpus, q_host,
-                                                             "pq_rows", "pq_adc_rows", seed)
+                results["pq_rows_filtered"], kernels["pq_rows_filtered"] = _filtered_path(
+                    index, queries, q_host, "pq_rows", "pq_adc_rows", seed)
         kernels.update(_probe_kernels(index, queries, kind))
         if kind == "bf16":  # the bf16 index's (wider) probe set, for the PQ kernels too
             p, _ = index._effective_probe(100, None)
@@ -2008,6 +2014,8 @@ def phase_index_scale(seed: int) -> dict:
         cq, "ivf_probe_scores")
     split.update(_layout(index, corpus, "IVF bf16 split"))
     split.update(_trace_batch(index, queries, "IVF bf16 split", "ivf_probe_scores", "K4"))
+    log("IVF bf16 split kernel at its probe set:")
+    kernels["bf16_split"] = _probe_kernels(index, queries, "bf16", timed=False)["bfloat16"]
     results["bf16_split"] = split
     base = results["bf16"]
     log("kmeans_split beside no split (bf16 rows): " + "; ".join(
@@ -2064,6 +2072,8 @@ def phase_index_scale(seed: int) -> dict:
                                          recall_target=0.95),
         cq, "ivf_probe_scores")
     results["bf16_streamed"] = streamed
+    log("IVF bf16 streamed kernel at its probe set:")
+    kernels["bf16_streamed"] = _probe_kernels(index, queries, "bf16", timed=False)["bfloat16"]
     log(f"peak device memory of the builds: constructor {base['peak_mem_gib']:.2f} GiB (the "
         f"{SCALE_N * SCALE_D * 4 / 2**30:.0f} GiB fp32 corpus resident), streamed "
         f"{streamed['peak_mem_gib']:.2f} GiB (chunks of {SCALE_CHUNK} rows)")
@@ -2193,11 +2203,15 @@ def main(argv=None) -> int:
     k = scale["kernels"]
     ivf_rows = {"ivf_probe_scores": k["bfloat16"], "pq_probe_scores": k["pq_rows"],
                 "pq_probe_scores_t": k["pq_cols"]}
-    errs = {"ivf_probe_scores": max(k["bfloat16"]["max_abs_err"], k["float32"]["max_abs_err"],
-                                    scale["odd"]["ivf_probe_scores"]),
-            "pq_probe_scores": max(k["pq_rows"]["max_abs_err"], scale["odd"]["pq_probe_scores"]),
-            "pq_probe_scores_t": max(k["pq_cols"]["max_abs_err"],
-                                     scale["odd"]["pq_probe_scores_t"])}
+    # every shape a path ran, held against plain: the timed probe sets, the
+    # PQ kernels at the bf16 probe set, the filtered, mutated, split-built
+    # and streamed indexes' probe sets, and the odd shapes
+    checked = {"ivf_probe_scores": ("bfloat16", "float32", "bf16_filtered", "bf16_mutated",
+                                    "bf16_split", "bf16_streamed"),
+               "pq_probe_scores": ("pq_rows", "pq_rows_wide", "pq_rows_filtered"),
+               "pq_probe_scores_t": ("pq_cols", "pq_cols_wide")}
+    errs = {name: max([k[key]["max_abs_err"] for key in keys] + [scale["odd"][name]])
+            for name, keys in checked.items()}
     log("phase wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(wall.items())))
     log(f"total run {time.perf_counter() - t_all:.1f} s")
     names = {"flash_fwd": "flash_attention_fwd",

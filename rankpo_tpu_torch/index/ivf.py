@@ -46,6 +46,7 @@ both packages draw the same numbers.
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import math
 import time
@@ -1025,7 +1026,8 @@ class IVFIPIndex:
             if self.nprobe < 1:
                 raise ValueError("nprobe must be >= 1")
 
-    def _tune_nprobe(self, sample: np.ndarray, k: int, max_nprobe: int) -> int:
+    def _tune_nprobe(self, sample: np.ndarray, k: int, max_nprobe: int,
+                     sel_mask: Optional[np.ndarray] = None) -> int:
         """The smallest nprobe meeting ``recall_target`` against the
         storage-precision exact search over corpus-row pseudo-queries.
         Analytic: at probe count p the hit set is the rows whose cluster
@@ -1035,12 +1037,14 @@ class IVFIPIndex:
         searches and bumped a bounded number of times if short. For the
         hybrid a bump that does not raise recall (more probed rows crowd the
         fixed candidate pool) doubles the candidate pool instead, which
-        sticks to the instance."""
+        sticks to the instance. ``sel_mask``: searches and the reference
+        under this filter (then the pool never grows)."""
         k = min(k, self.n_total)
         cap = min(max_nprobe, self.local_clusters)
         n_sample = len(sample)
-        _, ref_idx = self.exact_search(sample, k=k)
-        ref_sets = [set(row.tolist()) for row in ref_idx]
+        _, ref_idx = self.exact_search(sample, k=k, selector=sel_mask)
+        # a filter may leave fewer than k eligible rows: -1 tails
+        ref_sets = [set(row[row >= 0].tolist()) for row in ref_idx]
 
         # per-query centroid ranks as the device computes them: bf16-rounded
         # inputs, fp32 products, ties to the lower index (stable sort)
@@ -1059,7 +1063,7 @@ class IVFIPIndex:
             np.broadcast_to(np.arange(local_clusters), order.shape), axis=1,
         )
         cluster = self._cluster_of_row[ref_idx]  # [S, k]
-        need = rank[np.arange(n_sample)[:, None], cluster].ravel()
+        need = rank[np.arange(n_sample)[:, None], cluster][ref_idx >= 0]
         required = int(math.ceil(self.recall_target * need.size))
         if required <= 0:
             p = 1
@@ -1070,12 +1074,12 @@ class IVFIPIndex:
             "IVFIPIndex tune (analytic): nprobe=%d predicted recall=%.4f "
             "(target %.2f)", p, float((need < p).mean()), self.recall_target,
         )
-        hybrid = self.reduced_dim is not None
+        hybrid = self.reduced_dim is not None and sel_mask is None
         prev_recall = -1.0
         for _ in range(4 if hybrid else 3):
-            _, idx = self.search(sample, k=k, nprobe=p)
+            _, idx = self.search(sample, k=k, nprobe=p, selector=sel_mask)
             recall = float(np.mean([
-                len(set(idx[r].tolist()) & ref_sets[r]) / k
+                len(set(idx[r].tolist()) & ref_sets[r]) / max(len(ref_sets[r]), 1)
                 for r in range(n_sample)
             ]))
             logger.info(
@@ -1101,6 +1105,32 @@ class IVFIPIndex:
                 "lower n_clusters, or use FlatIPIndex", self.recall_target, p,
             )
         return p
+
+    def tune_filtered_nprobe(self, k: int = TUNE_K, *, allowed_ids=None, disallowed_ids=None,
+                             selector=None, tune_sample: int = TUNE_SAMPLE,
+                             seed: int = 0) -> int:
+        """The nprobe at which searches under this filter reach the index's
+        ``recall_target``. A filter leaves the probed clusters as they are
+        (FAISS IVF semantics), so each probe reaches fewer eligible rows and
+        recall at the build's nprobe falls as the filter narrows. This is the
+        build's tuner under the filter: ``tune_sample`` seeded stored rows
+        (as :meth:`reconstruct` gives them) as pseudo-queries, the exact
+        search over the allowed stored rows as the reference, an analytic
+        nprobe verified by filtered searches. Cached per filter and k;
+        ``search(..., nprobe="filtered")`` calls it."""
+        k = min(k, self.n_total)
+        mask = build_selector_mask(self.n_total, allowed_ids, disallowed_ids, selector)
+        if mask is None:
+            return self.nprobe
+        key = (k, hashlib.sha1(np.packbits(mask).tobytes()).hexdigest())
+        cache = self.__dict__.setdefault("_filtered_nprobes", {})
+        if key not in cache:
+            rng = np.random.default_rng(seed)
+            sample_idx = rng.choice(self.n_total, size=min(tune_sample, self.n_total),
+                                    replace=False)
+            cache[key] = self._tune_nprobe(self.reconstruct(sample_idx), k,
+                                           self.local_clusters, sel_mask=mask)
+        return cache[key]
 
     # ------------------------------------------------------------------
     def _effective_probe(self, k: int, nprobe: Optional[int]) -> Tuple[int, int]:
@@ -1258,7 +1288,7 @@ class IVFIPIndex:
         queries,
         k: int = 100,
         batch_size: int = 64,
-        nprobe: Optional[int] = None,
+        nprobe: Union[int, str, None] = None,
         candidates: Optional[int] = None,
         *,
         allowed_ids=None,
@@ -1271,9 +1301,14 @@ class IVFIPIndex:
         ``candidates``: the hybrid's rerank pool for this call.
         ``allowed_ids`` / ``disallowed_ids`` / ``selector`` (at most one)
         restrict the hits to a subset of rows (FAISS ``IDSelector``); the
-        unfillable tail of a filtered search is -inf / -1."""
+        unfillable tail of a filtered search is -inf / -1. The probes do not
+        change with the filter unless ``nprobe="filtered"``: then the nprobe
+        is :meth:`tune_filtered_nprobe`'s for this filter (tuned on the first
+        such call, cached), and the build's without a filter."""
         k = min(k, self.n_total)
         sel_mask = build_selector_mask(self.n_total, allowed_ids, disallowed_ids, selector)
+        if nprobe == "filtered":
+            nprobe = self.tune_filtered_nprobe(k, selector=sel_mask)
         p_used, _ = self._effective_probe(k, nprobe)
         c_used = (self._effective_candidates(k, candidates)
                   if self.reduced_dim is not None else 0)
@@ -1455,10 +1490,11 @@ class IVFIPIndex:
         return _chunked_row_gather(self._slot_rows, self._slot_of_row[ids], self.device)
 
     # ------------------------------------------------------------------
-    def _exact_scan(self, queries: torch.Tensor, k: int):
+    def _exact_scan(self, queries: torch.Tensor, k: int, sel: Optional[torch.Tensor] = None):
         """Exact top-k over the STORED rows (int8 dequantized through the
         slot scale, PQ decoded as centroid + codebook rows in bf16), chunk
-        by chunk with a running stable top-k merge."""
+        by chunk with a running stable top-k merge; ``sel`` as in
+        :meth:`search_tensor`."""
         cap, dev = self.capacity, self.device
         n_slots = self.n_clusters * cap
         q_n = queries.shape[0]
@@ -1496,26 +1532,36 @@ class IVFIPIndex:
                 s = _bf16_mm(queries, self.corpus[lo:hi].T)
                 if self.quantized:
                     s = s * self.slot_scale[lo:hi][None, :]
-            s = torch.where(ids_c[None, :] >= 0, s, NEG_INF)
+            ok = ids_c >= 0
+            if sel is not None:
+                ok &= sel[ids_c.clamp_min(0)]
+            s = torch.where(ok[None, :], s, NEG_INF)
             cat_s = torch.cat([best_s, s], dim=1)
             cat_i = torch.cat([best_i, ids_c[None, :].expand(q_n, -1)], dim=1)
             best_s, pos = exact_topk(cat_s, k_local)
             best_i = torch.gather(cat_i, 1, pos)
         return best_s, best_i
 
-    def exact_search(self, queries, k: int = 100, batch_size: int = 256
+    def exact_search(self, queries, k: int = 100, batch_size: int = 256, *,
+                     allowed_ids=None, disallowed_ids=None, selector=None
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """Exact (at storage precision) brute-force search over the stored
-        rows, with search()'s output surface: the tuner's reference and a
-        recall oracle where no second fp32 corpus copy exists."""
+        rows, with search()'s output surface and filters: the tuner's
+        reference and a recall oracle where no second fp32 corpus copy
+        exists."""
         k = min(k, self.n_total)
+        sel_mask = build_selector_mask(self.n_total, allowed_ids, disallowed_ids, selector)
+        sel = None if sel_mask is None else torch.from_numpy(sel_mask).to(self.device)
         queries = np.asarray(queries, np.float32)
         scores, indices = [], []
         for lo in range(0, queries.shape[0], batch_size):
             block = torch.from_numpy(queries[lo : lo + batch_size]).to(self.device)
-            s, i = self._exact_scan(block, k)
+            s, i = self._exact_scan(block, k, sel)
             scores.append(s.cpu().numpy())
             indices.append(i.to(torch.int32).cpu().numpy())
         if not scores:
             return np.zeros((0, k), np.float32), np.zeros((0, k), np.int32)
-        return np.concatenate(scores), np.concatenate(indices)
+        out_s, out_i = np.concatenate(scores), np.concatenate(indices)
+        if sel_mask is not None:
+            out_i = mask_filtered_misses(out_s, out_i)
+        return out_s, out_i

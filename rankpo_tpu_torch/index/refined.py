@@ -32,7 +32,6 @@ import numpy as np
 import torch
 
 from rankpo_tpu_torch.index.flat import (
-    FlatIPIndex,
     _canonical_recon_ids,
     _chunked_row_gather,
     build_selector_mask,
@@ -155,11 +154,7 @@ class RefineIPIndex:
             sample_idx = rng.choice(self.n_total, size=min(tune_sample, self.n_total),
                                     replace=False)
             sample = emb[torch.from_numpy(sample_idx).to(self.device)].cpu().numpy()
-            # the exact reference at storage precision: what a perfect
-            # candidate stage could recover from the stored rows
-            exact = FlatIPIndex(self.corpus.to(torch.float32), n_total=self.n_total)
-            self.candidates = self._tune_candidates(sample, exact, tune_k, max_candidates)
-            del exact
+            self.candidates = self._tune_candidates(sample, tune_k, max_candidates)
         else:
             self.candidates = int(candidates)
             if self.candidates < 1:
@@ -188,16 +183,33 @@ class RefineIPIndex:
             counts += (s1[:, None, :] > hs[:, :, None]).sum(dim=2)
         return counts.cpu().numpy()
 
-    def _tune_candidates(self, sample: np.ndarray, exact_index, k: int,
-                         max_candidates: int) -> int:
+    def _exact_stored(self, sample: np.ndarray, k: int) -> np.ndarray:
+        """Ids [S, k] of the exact top-k over the stored rows at storage
+        precision (fp32 products of the rows as stored): what a perfect
+        candidate stage could recover. Chunk by chunk with a running
+        tie-stable merge, so no fp32 copy of the corpus is made (the JAX
+        package searches one); the hits are the same."""
+        q = torch.from_numpy(np.ascontiguousarray(sample, np.float32)).to(self.device)
+        best_s = torch.full((q.shape[0], 0), NEG_INF, device=self.device)
+        best_i = torch.zeros((q.shape[0], 0), dtype=torch.int64, device=self.device)
+        for lo in range(0, self.n_total, _ROW_CHUNK):
+            hi = min(lo + _ROW_CHUNK, self.n_total)
+            s = q @ self.corpus[lo:hi].to(torch.float32).T
+            ids = torch.arange(lo, hi, device=self.device).expand(q.shape[0], -1)
+            cat_s, cat_i = torch.cat([best_s, s], dim=1), torch.cat([best_i, ids], dim=1)
+            best_s, pos = exact_topk(cat_s, min(k, cat_s.shape[1]))
+            best_i = torch.gather(cat_i, 1, pos)
+        return best_i.cpu().numpy()
+
+    def _tune_candidates(self, sample: np.ndarray, k: int, max_candidates: int) -> int:
         """Smallest C whose two-stage recall meets ``recall_target`` against
-        ``exact_index`` over the ``sample`` pseudo-queries: analytic from the
-        hit ranks, then verified with real searches and bumped a bounded
-        number of times if short."""
+        the exact search at storage precision over the ``sample``
+        pseudo-queries: analytic from the hit ranks, then verified with real
+        searches and bumped a bounded number of times if short."""
         k = min(k, self.n_total)
         n_sample = len(sample)
         cap = min(max_candidates, self.n_total)
-        _, ref_idx = exact_index.search(sample, k=k)
+        ref_idx = self._exact_stored(sample, k)
         ref_sets = [set(row.tolist()) for row in ref_idx]
         need = self._hit_ranks(sample, ref_idx).ravel()
         required = int(np.ceil(self.recall_target * need.size))

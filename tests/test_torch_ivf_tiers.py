@@ -292,6 +292,62 @@ def test_filtered_full_probe_equals_flat_oracle(filtered, name):
     _assert_same_hits(got_s, got_i, o_s, allowed[o_i].astype(np.int32))
 
 
+@pytest.mark.parametrize("name", ["bf16", "int8", "pq_rows"])
+def test_filtered_exact_search_equals_flat_oracle(filtered, name):
+    """exact_search under a filter: the exact search over the allowed stored
+    rows (PQ: the decoded rows, in bf16 as the scan decodes them)."""
+    corpus, queries, indexes = filtered
+    _, p = indexes[name]
+    allowed = _filters(len(corpus))["allowed"]["allowed_ids"]
+    got_s, got_i = p.exact_search(queries, k=10, allowed_ids=allowed)
+    assert np.isin(got_i, allowed).all()
+    if name == "pq_rows":
+        unfiltered = p.exact_search(queries, k=len(corpus))[1]
+        keep = [row[np.isin(row, allowed)][:10] for row in unfiltered]
+        np.testing.assert_array_equal(got_i, np.stack(keep))
+        return
+    stored = p.reconstruct(np.arange(len(corpus)))
+    qv = torch.from_numpy(queries).bfloat16().float().numpy()
+    o_s, o_i = numpy_search(stored[allowed], qv, 10)
+    _assert_same_hits(got_s, got_i, o_s, allowed[o_i].astype(np.int32))
+
+
+@pytest.mark.parametrize("kw", [{}, {"pq_m": 8}, {"reduced_dim": 16, "candidates": 64}],
+                         ids=["bf16", "pq_rows", "hybrid"])
+def test_filtered_nprobe_is_tuned_by_the_index(kw, monkeypatch):
+    """nprobe="filtered": the build's tuner under the filter. Its nprobe
+    reaches the recall target on its own pseudo-queries (or probes every
+    cluster), is at least the build's for a narrow filter, is cached per
+    filter, and the search at it equals the search at that int; without a
+    filter it is the build's nprobe, and search(allowed_ids=...) alone keeps
+    the build's probes (FAISS semantics, as the JAX package)."""
+    corpus, queries = _corpus_queries()
+    p = pivf.IVFIPIndex(corpus, n_clusters=16, kmeans_iters=5, pq_iters=8, recall_target=0.9,
+                        tune_sample=64, tune_k=10, **kw)
+    allowed = np.sort(np.random.default_rng(4).choice(len(corpus), len(corpus) // 8,
+                                                      replace=False))
+    assert p.tune_filtered_nprobe(10) == p.nprobe
+    tuned = p.tune_filtered_nprobe(10, allowed_ids=allowed)
+    assert p.nprobe <= tuned <= p.n_clusters
+    sample = p.reconstruct(np.random.default_rng(0).choice(len(corpus), 64, replace=False))
+    ref = p.exact_search(sample, k=10, allowed_ids=allowed)[1]
+    hits = p.search(sample, k=10, nprobe=tuned, allowed_ids=allowed)[1]
+    recall = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(hits, ref)])
+    assert recall >= 0.9 or tuned == p.n_clusters
+    calls = []
+    monkeypatch.setattr(p, "_tune_nprobe", lambda *a, **k: calls.append(a) or 1)
+    for a, b in zip(p.search(queries, k=10, nprobe="filtered", allowed_ids=allowed),
+                    p.search(queries, k=10, nprobe=tuned, allowed_ids=allowed)):
+        np.testing.assert_array_equal(a, b)
+    assert not calls  # the cached nprobe
+    mask = np.zeros(len(corpus), bool)
+    mask[allowed] = True
+    assert p.tune_filtered_nprobe(10, selector=mask) == tuned
+    assert p.tune_filtered_nprobe(10, disallowed_ids=allowed) == 1 and len(calls) == 1
+    for a, b in zip(p.search(queries, k=10, nprobe="filtered"), p.search(queries, k=10)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_selector_helpers_match_jax():
     n = 50
     for kw in ({"allowed_ids": [1, 4, 4]}, {"disallowed_ids": np.arange(10)},
