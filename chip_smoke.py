@@ -19,16 +19,26 @@ PyTorch version. Phases:
    the same function (scaled_dot_product_attention, a yardstick the port
    never calls) and the least time the card could take;
 3. exact search on data with exact ties;
-4. serving path, four times: a bf16 checkpoint written with the port's
+4. serving path, seven times: a bf16 checkpoint written with the port's
    save_pretrained, a 4096-passage corpus, the HTTP server started by the
    CLI in a thread, single-query requests from 8 client threads and batched
-   requests. The flat index (K1) is checked against an exact numpy search
-   over the index rows; the IVF index with bf16 rows (``--index_type ivf``,
+   requests. The flat index (K1) and its bf16 and int8 rows
+   (``--index_type SQbf16`` / ``SQ8``) are checked against an exact numpy
+   search over the reconstructed rows, with the queries as the index scores
+   them; the approximate flat tier (``--recall_target 0.95``) is held to
+   recall@k >= 0.95 against it; the IVF index with bf16 rows (``--index_type ivf``,
    K1 and K4) and the IVF-PQ index (``--index_type IVF64,PQ64``, K1 and K5)
    also take a request with a per-call nprobe, the refine index
    (``--index_type refine``, K1) one with a per-call candidate pool, and are
    checked against the index's own search on the same query embeddings; K1
    is also timed over the corpus encode's own batches;
+4m. mutation and persistence over HTTP on flat fp32, ``SQ8``, ``ivf`` (K4)
+   and ``IVF64,PQ64`` (K5), the server run with ``--stable_ids --autosave
+   --index_file``: /add of 256 passages (each its own rank 1 as a query),
+   /remove of 256 ids (none comes back), a request filtered to a seeded
+   half of the ids (every hit allowed), K4/K5 against plain at the mutated
+   probe set, then a restart from the file without the corpus encode that
+   returns the same hits and scores;
 5. training path: stage 1 (``run_contrastive.main``, 512 synthetic rows;
    "auto" picks the fused backward) then stage 2 (``run_rankpo.main`` on
    stage 1's output, 256 synthetic pairs, under
@@ -57,7 +67,12 @@ PyTorch version. Phases:
    K5 and K6 against their plain versions at the indexes' own probe sets
    and storage (and at m 256 and a capacity off the kernels' tiles), timed
    on cold data, K4 beside the corpus bytes its design reads, K5/K6 beside
-   their lookup floor with the load route that ran;
+   their lookup floor with the load route that ran; (g) first, the flat
+   tier over the same rows: exact fp32 (the reference), bf16 rows, int8
+   rows and fp32 at recall target 0.95, each with queries/s, batch p50,
+   recall@100 and peak memory; (h) last, ``python -m
+   rankpo_tpu_torch.cli.autotune`` on a synthetic 65,536 x 2048 corpus
+   (Flat's recall 1.0, the recommendation at its target);
 7. evaluation path (run after 5, while the checkpoint is still on disk):
    ``rankpo_tpu_torch.cli.evaluate`` with 256 queries, each a span cut from
    one of the 4096 passages and labelled with it, flat (K1), then
@@ -84,6 +99,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import os
@@ -113,7 +129,8 @@ N_EVAL_QUERIES = 256  # phase 7: spans cut from the serving corpus's passages
 N_MINING_ROWS = 512  # phase 8: hard-negative mining input
 N_PIPELINE_ROWS = 64  # phase 8: run_pipeline's input (its first rows)
 EVAL_CUTOFFS = [1, 5, 10, 20, 100]
-WORDS = [f"w{i}" for i in range(30000)]
+# an array: rng.choice converts a list to one on every call, 30000 strings
+WORDS = np.array([f"w{i}" for i in range(30000)])
 OUT_ATOL = 1.5e-2  # bf16 output rounding (values of order 1) and bf16 P
 LSE_ATOL = 1e-5
 # backward kernels (bf16 dq/dk/dv) against the plain backward in fp32 on the
@@ -157,13 +174,25 @@ SCALE_SPLIT = 128  # phase 6a: kmeans_split, K / 32 at K 4096
 SCALE_MUTATE = 65536  # phase 6c: rows appended, then rows removed
 SCALE_CHUNK = 262144  # phase 6d: rows per chunk of the streamed build
 SCALE_REDUCED = 256  # phase 6e/6f: the PCA dimension of the hybrid and refine
+AUTOTUNE_ROWS = 65536  # phase 6h: the synthetic corpus of cli.autotune
 SERVE_TIERS = {  # tier -> (extra CLI flags, the kernel its search runs)
     "flat": ([], None),
+    "sqbf16": (["--index_type", "SQbf16"], None),
+    "sq8": (["--index_type", "SQ8"], None),
+    "approx": (["--recall_target", "0.95"], None),
     "ivf": (["--index_type", "ivf", "--index_dtype", "bfloat16",
              "--recall_target", "0.95"], "ivf_probe_scores"),
     "pq": (["--index_type", "IVF64,PQ64"], "pq_probe_scores"),
     "refine": (["--index_type", "refine", "--index_dtype", "bfloat16",
                 "--recall_target", "0.95"], None),
+}
+N_MUTATE = 256  # phase 4m: passages added, then ids removed
+MUTATE_TIERS = {  # tier -> (extra CLI flags, the kernel counter, _probe_kernels kind)
+    "flat": ([], None, None),
+    "sq8": (["--index_type", "SQ8"], None, None),
+    "ivf": (["--index_type", "ivf", "--index_dtype", "bfloat16", "--recall_target", "0.95"],
+            "ivf_probe_scores", "bf16"),
+    "pq": (["--index_type", "IVF64,PQ64"], "pq_adc_rows", "pq_rows"),
 }
 KERNELS = {  # name -> (TPU kernel it replaces, source, profiler name test)
     "flash_fwd": ("rankpo_tpu/ops/flash_attention.py:55", "flash_fwd.cu",
@@ -622,7 +651,17 @@ def _http(port, path, payload=None):
         return r.status, body, time.perf_counter() - t0
 
 
-def _check_reply(status, body, n_queries, k, exact_k=True):
+# |score| bound of unit queries and rows as a tier stores and scores them:
+# bf16 rounding puts each vector's norm within 2^-8 of 1; int8 rows (and on
+# the card the queries) hold max|x| / 127 per entry, a dequantized unit
+# vector's norm within a few percent of 1; PQ's ADC score adds the codec's
+# residual error
+SCORE_BOUNDS = {"fp32": 1 + 1e-3, "bf16": 1 + 2**-7, "int8": 1.05, "pq": 1.5}
+TIER_STORAGE = {"flat": "fp32", "approx": "fp32", "sqbf16": "bf16", "ivf": "bf16",
+                "refine": "bf16", "sq8": "int8", "pq": "pq"}
+
+
+def _check_reply(status, body, n_queries, k, exact_k=True, score_bound=1 + 1e-3):
     """An IVF reply may hold fewer than k hits: probed slots that hold no
     row are never served."""
     if status != 200 or len(body["results"]) != n_queries:
@@ -633,8 +672,8 @@ def _check_reply(status, body, n_queries, k, exact_k=True):
             raise AssertionError(f"{len(scores)} hits, expected {k}")
         if any(a < b for a, b in zip(scores, scores[1:])):
             raise AssertionError("scores not non-increasing")
-        if max(abs(s) for s in scores) > 1 + 1e-3:
-            raise AssertionError("|score| > 1 for normalised embeddings")
+        if max(abs(s) for s in scores) > score_bound:
+            raise AssertionError(f"|score| > {score_bound} for normalised embeddings")
 
 
 def _check_against_oracle(served_idx, served_scores, oracle_scores, oracle_idx):
@@ -652,8 +691,10 @@ def _check_against_oracle(served_idx, served_scores, oracle_scores, oracle_idx):
     return int((~clear).sum())
 
 
+@functools.lru_cache(maxsize=None)
 def _serving_data(seed: int, tmp: str):
-    """The corpus file (4096 passages of 16-480 words) and 64 queries."""
+    """The corpus file (4096 passages of 16-480 words) and 64 queries, made
+    once per seed and directory (every serving phase reads the same)."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(16, 481, N_PASSAGES)
     corpus = [" ".join(rng.choice(WORDS, size=n)) for n in lengths]
@@ -664,6 +705,25 @@ def _serving_data(seed: int, tmp: str):
     queries = [" ".join(rng.choice(WORDS, size=n))
                for n in rng.integers(4, 33, 64)]
     return corpus, corpus_file, queries
+
+
+FLAT_EXACT_TIERS = ("flat", "sqbf16", "sq8")
+
+
+def scored_queries(index, q_emb: np.ndarray) -> np.ndarray:
+    """The queries as a flat index scores them, for an oracle over its
+    decoded rows: fp32 rows take them as they are, bf16 and int8 (dequant)
+    rows rounded to bf16, int8 rows on the card quantized per row (the int8
+    product's codec) and dequantized."""
+    from rankpo_tpu_torch.ops.topk import int8_product_available, quantize_queries_int8
+
+    if index.dtype == torch.float32:
+        return q_emb
+    qb = torch.from_numpy(q_emb).bfloat16()
+    if index.quantized and int8_product_available(index.corpus):
+        q8, q_scale = quantize_queries_int8(qb)
+        return (q8.float() * q_scale[:, None]).numpy()
+    return qb.float().numpy()
 
 
 def _served(body):
@@ -799,53 +859,27 @@ def time_stage1_bwd(inputs: dict) -> dict:
 def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
     """The serving path: the CLI's server over a corpus, queried by HTTP,
     with the index tier ``tier`` (SERVE_TIERS)."""
-    from rankpo_tpu_torch.cli import serve as cli
     from rankpo_tpu_torch.index.flat import numpy_search
     from rankpo_tpu_torch.ops import flash_attention as flash
     from rankpo_tpu_torch.ops import ivf_gather, pq_adc
 
     corpus, corpus_file, queries = _serving_data(seed, tmp)
     extra, ivf_kernel = SERVE_TIERS[tier]
-    flat = tier == "flat"
+    flat = tier in FLAT_EXACT_TIERS
     port = _free_port()
     argv = ["--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256",
             "--corpus_data", corpus_file, "--max_query_length", "512",
             "--max_passage_length", "512", "--batch_size", "64",
             "--device", "cuda", "--port", str(port), "--log_level", "warning", *extra]
-    holder: dict = {}
-
-    def run_server():
-        try:
-            holder["server"] = cli.make_server(argv)
-            holder["server"].serve_forever()
-        except BaseException as e:  # reported by the polling loop below
-            holder["error"] = e
-            raise
-
     # ---- the serving path: counters from 0, server start, requests ----
     flash.reset_launches()
     ivf_gather.reset_launches()
     pq_adc.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    t_start = time.perf_counter()
-    thread = threading.Thread(target=run_server, name="serve", daemon=True)
-    thread.start()
-    while True:
-        if "error" in holder:
-            raise RuntimeError("server failed to start") from holder["error"]
-        if not thread.is_alive():
-            raise RuntimeError("server thread ended")
-        if "server" in holder:
-            _, health, _ = _http(port, "/healthz")
-            if health["ntotal"] == N_PASSAGES:
-                break
-        if time.perf_counter() - t_start > 900:
-            raise TimeoutError("server did not come up")
-        time.sleep(0.5)
-    startup_s = time.perf_counter() - t_start
-    server = holder["server"]
+    server, thread, startup_s = start_server(argv, port)
     service = server.service
     index = service.index
+    t_requests = time.perf_counter()
     try:
         with ThreadPoolExecutor(8) as pool:
             singles = list(pool.map(
@@ -871,15 +905,17 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
         # ---- end of the serving path ----
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-        exact_k = ivf_kernel is None  # flat and refine fill every k
+        exact_k = ivf_kernel is None  # the flat tiers and refine fill every k
+        bound = SCORE_BOUNDS[TIER_STORAGE[tier]]
         for (status, body, _), i in singles:
-            _check_reply(status, body, 1, (10, 100)[i % 2], exact_k)
+            _check_reply(status, body, 1, (10, 100)[i % 2], exact_k, bound)
         for (status, body, _), group, k, _ in batched:
-            _check_reply(status, body, len(group), k, exact_k)
+            _check_reply(status, body, len(group), k, exact_k, bound)
         stats = _http(port, "/statsz")[1]
         log(f"served ({tier}): 32 single queries from 8 clients in "
             f"{stats['microbatch_dispatches']} micro-batches, "
-            f"{len(batched)} batched requests of 16")
+            f"{len(batched)} batched requests of 16; start {startup_s:.2f} s, requests "
+            f"{time.perf_counter() - t_requests:.2f} s")
 
         n_batches = -(-N_PASSAGES // 64)
         if launches["flash_fwd"] < 16 * n_batches:
@@ -898,19 +934,22 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
         # kernel, same inputs: a consistency check) and, for recall, the
         # exact search over the stored rows
         n_near, recalls = 0, []
-        if flat:
-            rows = service.index.rows()
-        elif tier == "refine":  # the stored rerank rows, for the exact search
+        if flat or tier in ("approx", "refine"):  # the stored rows, decoded
             rows = index.reconstruct(np.arange(index.ntotal))
         for (_, body, _), group, k, search_kw in batched:
             batch = service.encoder.prepare_batch(group, len(group), 512)
             q_emb = service.encoder.embed_batch(batch).cpu().numpy()
             s_idx, s_sc = _served(body)
             if flat:
-                # one extra oracle rank: a near-tie across the k boundary
-                o_scores, o_idx = numpy_search(rows, q_emb, k + 1)
+                # one extra oracle rank: a near-tie across the k boundary;
+                # the queries as the search scores them
+                o_scores, o_idx = numpy_search(rows, scored_queries(index, q_emb), k + 1)
                 n_near += _check_against_oracle(np.array(s_idx), np.array(s_sc),
                                                 o_scores, o_idx)
+                continue
+            if tier == "approx":
+                e_idx = numpy_search(rows, q_emb, k)[1]
+                recalls += [len(set(a) & set(b.tolist())) / k for a, b in zip(s_idx, e_idx)]
                 continue
             # the server searched at k_max 100 and sliced to k
             r_sc, r_idx = index.search(q_emb, k=100, **search_kw)
@@ -930,11 +969,18 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
                 n_near += _check_against_oracle(
                     np.array([s_idx[r]]), np.array([s_sc[r]]), o_sc[None], o_idx[None])
                 recalls.append(len(set(s_idx[r]) & set(e_idx[r].tolist())) / k)
-        oracle = "numpy_search over the index rows" if flat else (
-            "the index's own search on the same embeddings")
-        log(f"index ({tier}): served top-k equal to {oracle} ({n_near} hits inside "
-            f"{SCORE_ATOL} near-ties not compared)")
         numbers = {}
+        if tier == "approx":
+            numbers["recall"] = float(np.mean(recalls))
+            log(f"index (approx, recall_target 0.95): recall@k of the served hits against "
+                f"the exact numpy_search {numbers['recall']:.4f} (limit 0.95)")
+            if not numbers["recall"] >= 0.95:
+                raise AssertionError(f"approximate flat recall {numbers['recall']:.4f} < 0.95")
+        else:
+            oracle = ("numpy_search over the reconstructed rows, the queries as scored"
+                      if flat else "the index's own search on the same embeddings")
+            log(f"index ({tier}): served top-k equal to {oracle} ({n_near} hits inside "
+                f"{SCORE_ATOL} near-ties not compared)")
         if tier == "refine":
             numbers.update(recall=float(np.mean(recalls)), candidates=index.candidates,
                            reduced_dim=index.reduced_dim, per_call=per_call)
@@ -951,7 +997,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
                 f"tuned nprobe {index.nprobe}, build {index.build_seconds}; recall@k of "
                 f"the served hits against the index's exact search "
                 f"{numbers['recall']:.4f} (random weights: printed, not held)")
-        if flat:
+        if tier == "flat":
             # the kernel inside the encoder against the plain attention
             batch = service.encoder.prepare_batch(corpus[:64], 64, 512)
             a = service.encoder.embed_batch(batch, attn_impl="auto")
@@ -987,12 +1033,180 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
             "launches": launches,
         })
     finally:
-        server.shutdown()
-        if server.batcher is not None:
-            server.batcher.close()
-        server.server_close()
-        thread.join(timeout=60)
+        t_stop = time.perf_counter()
+        stop_server(server, thread)
+    log(f"served ({tier}): server stopped in {time.perf_counter() - t_stop:.2f} s")
     return numbers
+
+
+def start_server(argv, port: int):
+    """The CLI's server (``cli.serve.make_server``) serving in a thread:
+    (server, thread, seconds until /healthz answered with N_PASSAGES)."""
+    from rankpo_tpu_torch.cli import serve as cli
+
+    holder: dict = {}
+
+    def run_server():
+        try:
+            holder["server"] = cli.make_server(argv)
+            holder["server"].serve_forever()
+        except BaseException as e:  # reported by the polling loop below
+            holder["error"] = e
+            raise
+
+    t_start = time.perf_counter()
+    thread = threading.Thread(target=run_server, name="serve", daemon=True)
+    thread.start()
+    while True:
+        if "error" in holder:
+            raise RuntimeError("server failed to start") from holder["error"]
+        if not thread.is_alive():
+            raise RuntimeError("server thread ended")
+        if "server" in holder:
+            _, health, _ = _http(port, "/healthz")
+            if health["ntotal"] == N_PASSAGES:
+                break
+        if time.perf_counter() - t_start > 900:
+            raise TimeoutError("server did not come up")
+        time.sleep(0.5)
+    return holder["server"], thread, time.perf_counter() - t_start
+
+
+def stop_server(server, thread) -> None:
+    server.shutdown()
+    if server.batcher is not None:
+        server.batcher.close()
+    server.server_close()
+    thread.join(timeout=60)
+
+
+def _hits(body):
+    """(ids, scores) of a reply under --stable_ids: the external ids."""
+    return ([[h["id"] for h in r["hits"]] for r in body["results"]],
+            [[h["score"] for h in r["hits"]] for r in body["results"]])
+
+
+def phase_mutation(seed: int, tmp: str, ckpt: str, tier: str) -> dict:
+    """Phase 4m, mutation and persistence over HTTP on the tier ``tier``
+    (MUTATE_TIERS): the server runs with ``--stable_ids --autosave
+    --index_file``; /add of N_MUTATE new passages (each, sent as a query,
+    returns its own id at rank 1), /remove of N_MUTATE seeded ids (none
+    comes back), one request filtered to a seeded half of the live ids
+    (every hit allowed); the path's kernels held against plain at the
+    mutated index's probe set; then a restart from the autosaved file, with
+    no corpus encode, returning the same hits and scores as before."""
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    corpus, corpus_file, queries = _serving_data(seed, tmp)
+    extra, kernel, kind = MUTATE_TIERS[tier]
+    rng = np.random.default_rng(seed + 20)
+    added = [" ".join(rng.choice(WORDS, size=n)) for n in rng.integers(16, 481, N_MUTATE)]
+    index_file = os.path.join(tmp, f"index_{tier}.npz")
+    port = _free_port()
+    argv = ["--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256",
+            "--corpus_data", corpus_file, "--max_query_length", "512",
+            "--max_passage_length", "512", "--batch_size", "64", "--device", "cuda",
+            "--port", str(port), "--log_level", "warning", "--stable_ids", "--autosave",
+            "--index_file", index_file, *extra]
+    res = {}
+    # ---- the mutation path: counters from 0, start, add, remove, filter ----
+    flash.reset_launches()
+    ivf_gather.reset_launches()
+    pq_adc.reset_launches()
+    server, thread, res["startup_s"] = start_server(argv, port)
+    try:
+        status, body, res["add_s"] = _http(port, "/add", {"passages": added})
+        if (status, body) != (200, {"status": "ok", "ntotal": N_PASSAGES + N_MUTATE,
+                                     "saved": index_file}):
+            raise AssertionError(f"/add answered {status} {body}")
+        new_ids = list(range(N_PASSAGES, N_PASSAGES + N_MUTATE))
+        status, body, res["self_s"] = _http(port, "/search", {"queries": added, "k": 10})
+        res["self_rank1"] = sum(ids[0] == i for ids, i in zip(_hits(body)[0], new_ids))
+        if kernel is not None:
+            # an added row takes a free slot of its nearest cluster, else of
+            # its second, else any (a full cluster spills it): the tuned
+            # probes need not reach it, every cluster's do. PQ's ADC scores
+            # carry the codec's error (64 bytes for 2048 dims): its own row
+            # is held within the served k_max, its rank printed
+            n_clusters = server.service.index.n_clusters
+            status, body, _ = _http(port, "/search", {"queries": added, "k": 100,
+                                                      "nprobe": n_clusters})
+        ranks = [ids.index(i) if i in ids else None for ids, i in zip(_hits(body)[0], new_ids)]
+        res["self_ranks"] = {r: ranks.count(r) for r in sorted(set(ranks), key=str)}
+        allowed_rank = 99 if kind == "pq_rows" else 0
+        if any(r is None or r > allowed_rank for r in ranks):
+            raise AssertionError(f"added passages not found at rank <= {allowed_rank + 1}: "
+                                 f"ranks {res['self_ranks']}")
+        removed = np.sort(rng.choice(N_PASSAGES + N_MUTATE, N_MUTATE, replace=False))
+        status, body, res["remove_s"] = _http(port, "/remove", {"ids": removed.tolist()})
+        if (status, body["removed"], body["ntotal"]) != (200, N_MUTATE, N_PASSAGES):
+            raise AssertionError(f"/remove answered {status} {body}")
+        live = np.setdiff1d(np.arange(N_PASSAGES + N_MUTATE), removed)
+        requests = [{"queries": queries[:16], "k": 100}, {"queries": added[:16], "k": 100}]
+        allowed = np.sort(rng.choice(live, live.size // 2, replace=False))
+        requests.append({"queries": queries[16:32], "k": 100, "allowed_ids": allowed.tolist()})
+        before = [_http(port, "/search", r)[1] for r in requests]
+        bound = SCORE_BOUNDS[TIER_STORAGE[tier]]
+        for r, body in zip(requests, before):
+            _check_reply(200, body, len(r["queries"]), 100, kernel is None, bound)
+        hit_ids = np.array([i for b in before for ids in _hits(b)[0] for i in ids])
+        if np.isin(hit_ids, removed).any():
+            raise AssertionError("a removed id came back")
+        if not np.isin(np.array([i for ids in _hits(before[2])[0] for i in ids]),
+                       allowed).all():
+            raise AssertionError("a filtered request returned an id it does not allow")
+        launches = {"flash_fwd": flash.launches["flash_fwd"],
+                    **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
+                       for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
+        # ---- end of the mutation path ----
+        if launches["flash_fwd"] <= 0 or (kernel and launches[kernel] <= 0):
+            raise AssertionError(f"a kernel of the {tier} mutation path did not launch: "
+                                 f"{launches}")
+        index = server.service.index
+        if kind is not None:
+            log(f"mutated served {tier} kernel at its probe set:")
+            batch = server.service.encoder.prepare_batch(queries, 64, 512)
+            q = server.service.encoder.embed_batch(batch)
+            check = _probe_kernels(index, q, kind, timed=False)
+            res["kernel_err"] = check["bfloat16" if kind == "bf16" else kind]["max_abs_err"]
+    finally:
+        t_stop = time.perf_counter()
+        stop_server(server, thread)
+        res["stop_s"] = time.perf_counter() - t_stop
+    del server, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- the restart: counters from 0, start from the file, requests ----
+    flash.reset_launches()
+    ivf_gather.reset_launches()
+    pq_adc.reset_launches()
+    server, thread, res["restart_s"] = start_server(argv, port)
+    try:
+        after = [_http(port, "/search", r)[1] for r in requests]
+        restart = {"flash_fwd": flash.launches["flash_fwd"],
+                   **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
+                      for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
+    finally:
+        stop_server(server, thread)
+    if [_hits(b) for b in after] != [_hits(b) for b in before]:
+        raise AssertionError(f"{tier}: hits or scores after the restart differ")
+    encode_launches = 16 * -(-N_PASSAGES // 64)
+    if restart["flash_fwd"] >= encode_launches:
+        raise AssertionError(f"the restart encoded the corpus ({restart['flash_fwd']} K1 "
+                             "launches)")
+    res["launches"] = {name: launches[name] + restart[name] for name in launches}
+    log(f"mutated {tier} ({' '.join(extra) or 'flat fp32'}): start {res['startup_s']:.2f} s; "
+        f"/add {N_MUTATE} passages {res['add_s']:.2f} s (autosave included), each found by "
+        f"its own text {'probing every cluster ' if kernel else ''}at ranks "
+        f"{res['self_ranks']} ({res['self_rank1']} at rank 1 with the tuned probes); "
+        f"/remove {N_MUTATE} ids {res['remove_s']:.2f} s, none came back; a request "
+        f"filtered to {allowed.size} of {live.size} ids, every hit allowed; restart from "
+        f"{os.path.basename(index_file)} ({os.path.getsize(index_file) / 2**20:.1f} MiB) "
+        f"{res['restart_s']:.2f} s with {restart['flash_fwd']} K1 launches (a corpus encode "
+        f"takes {encode_launches}): hits and scores equal to before; launches {launches} "
+        f"then {restart}; self queries {res['self_s']:.2f} s, server stop {res['stop_s']:.2f} s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1958,6 +2172,90 @@ def _mutation_path(index, queries, q_host, centres, seed: int) -> tuple:
     return res, _probe_kernels(mutated, queries, "bf16", timed=False)["bfloat16"]
 
 
+def _flat_tiers_at_scale(corpus, queries) -> dict:
+    """Phase 6g: the flat tier over the scale rows, exact fp32 (the
+    reference), bf16 rows (``SQbf16``), int8 rows (``SQ8``, the int8
+    product) and fp32 rows at recall target 0.95 (one pass of bf16
+    operands, ``torch.topk``): queries/s and batch p50 (batches of 64 at k
+    100, host clock), recall@100 against the exact fp32 search, peak device
+    memory. SQbf16 and SQ8 are held to IVF_RECALL_MIN, the approximate mode
+    to its target."""
+    from rankpo_tpu_torch.index.flat import FlatIPIndex
+
+    configs = {"fp32": {}, "sqbf16": {"dtype": torch.bfloat16},
+               "sq8": {"dtype": torch.int8},
+               "fp32_approx": {"recall_target": 0.95}}
+    res, exact = {}, None
+    for label, kw in configs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = FlatIPIndex.from_sharded(corpus, SCALE_N, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        hits, batch_ms, search_s = _search_batches(index, queries)
+        exact = hits if exact is None else exact
+        storage = index.corpus.numel() * index.corpus.element_size() + (
+            0 if index.row_scale is None else index.row_scale.numel() * 4)
+        res[label] = {"qps": SCALE_Q / search_s,
+                      "batch_p50_ms": float(np.percentile(batch_ms, 50)),
+                      "recall": _recall(hits, exact), "build_s": build_s,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "resident_gib": resident, "storage_gib": storage / 2**30,
+                      "launches": 0, "counter": None}
+        log(f"flat {label} at {SCALE_N} x {SCALE_D}: storage {storage / 2**30:.3f} GiB, "
+            f"build {build_s:.2f} s; {SCALE_Q} queries at k 100 in batches of 64: "
+            f"{res[label]['qps']:.1f} queries/s, batch p50 {res[label]['batch_p50_ms']:.3f} "
+            f"ms; recall@100 against the exact fp32 search {res[label]['recall']:.4f}; peak "
+            f"memory {res[label]['peak_mem_gib']:.2f} GiB ({resident:.2f} GiB resident before)")
+        del index
+    _hold_recall("flat sqbf16", res["sqbf16"]["recall"])
+    _hold_recall("flat sq8", res["sq8"]["recall"])
+    if not res["fp32_approx"]["recall"] >= 0.95:
+        raise AssertionError(f"flat approximate recall {res['fp32_approx']['recall']:.4f} "
+                             "< its target 0.95")
+    return res
+
+
+def phase_autotune() -> dict:
+    """Phase 6h: ``python -m rankpo_tpu_torch.cli.autotune`` in synthetic
+    mode at 65,536 x 2048 (its default ladder, k 100, target 0.95), its
+    table printed; Flat's recall must be 1.0 and the recommended spec must
+    meet the target (the CLI exits 1 when none does)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="rankpo_autotune_") as tmp:
+        out = os.path.join(tmp, "report.json")
+        cmd = [sys.executable, "-m", "rankpo_tpu_torch.cli.autotune", "--synthetic_rows",
+               str(AUTOTUNE_ROWS), "--synthetic_dim", str(SCALE_D), "--k", "100",
+               "--recall_target", "0.95", "--device", "cuda", "--output_file", out]
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=900)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if not line.startswith("{") and ("qps" in line or "FAILED" in line
+                                             or "recommended" in line):
+                log("autotune | " + line.split("]  ", 1)[-1])
+        if proc.returncode != 0:
+            raise RuntimeError(f"cli.autotune exited {proc.returncode}: "
+                               f"{(proc.stderr or proc.stdout)[-2000:]}")
+        with open(out) as f:
+            report = json.load(f)
+    by_spec = {r["spec"]: r for r in report["results"]}
+    best = by_spec[report["best"]]
+    if by_spec["Flat"].get("recall") != 1.0:
+        raise AssertionError(f"autotune: Flat recall {by_spec['Flat'].get('recall')} != 1.0")
+    if not (best["feasible"] and best["recall"] >= 0.95):
+        raise AssertionError(f"autotune recommended {report['best']} below its target")
+    log(f"autotune at {AUTOTUNE_ROWS} x {SCALE_D}: {len(report['results'])} specs in "
+        f"{wall:.1f} s (process included); recommended {report['best']} (recall "
+        f"{best['recall']}, {best['qps']} queries/s, {best['memory_mb']} MB)")
+    return {"wall_s": wall, "report": report}
+
+
 def phase_index_scale(seed: int) -> dict:
     """The IVF and refine tiers at scale over 2^20 rows at D 2048, built and
     searched on the card; each path's kernel counter from 0 to its read,
@@ -1975,6 +2273,10 @@ def phase_index_scale(seed: int) -> dict:
     cq = (queries, q_host)
     log(f"scale data: {SCALE_N} rows + {SCALE_Q} queries at D {SCALE_D} around "
         f"{SCALE_CENTRES} centres (noise {SCALE_NOISE}), {time.perf_counter() - t0:.2f} s")
+    t_flat = time.perf_counter()
+    flat_tiers = _flat_tiers_at_scale(corpus, queries)
+    flat_s = time.perf_counter() - t_flat
+    log(f"6g flat tiers at scale: {flat_s:.1f} s")
     configs = {"bf16": ({}, "ivf_probe_scores"),
                "pq_rows": ({"pq_m": 64, "pq_layout": "rows"}, "pq_adc_rows"),
                "pq_cols": ({"pq_m": 64, "pq_layout": "cols"}, "pq_adc_cols")}
@@ -2081,7 +2383,8 @@ def phase_index_scale(seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     odd = _odd_shape_checks(seed)
-    return {"indexes": results, "kernels": kernels, "odd": odd}
+    return {"indexes": results, "kernels": kernels, "odd": odd, "flat": flat_tiers,
+            "flat_s": flat_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2131,9 +2434,13 @@ def main(argv=None) -> int:
         kern = timed("2 kernels", phase_kernels, args.seed, tmp)
         timed("3 search ties", phase_search_ties)
         ckpt, base_state = timed("checkpoint", make_checkpoint, tmp, args.seed)
-        serving = {}
+        serving, mutation = {}, {}
         for tier in SERVE_TIERS:
             serving[tier] = timed("4 serving", phase_serving, args.seed, tmp, ckpt, tier)
+            gc.collect()
+            torch.cuda.empty_cache()
+        for tier in MUTATE_TIERS:
+            mutation[tier] = timed("4m mutation", phase_mutation, args.seed, tmp, ckpt, tier)
             gc.collect()
             torch.cuda.empty_cache()
         train = timed("5 training", phase_training, ckpt, tmp, args.seed, base_state)
@@ -2144,6 +2451,9 @@ def main(argv=None) -> int:
         mining = timed("8 mining and pipeline", phase_mining, args.seed, tmp, ckpt,
                        os.path.join(tmp, "eval_queries.jsonl"))
     scale = timed("6 index scale", phase_index_scale, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    autotune = timed("6h autotune", phase_autotune)
     nums = serving["flat"]
     log(f"numbers ({card}): serving startup (load + encode + index) "
         f"{nums['startup_s']:.2f} s; corpus encode {nums['encode_s']:.3f} s = "
@@ -2165,6 +2475,25 @@ def main(argv=None) -> int:
             f"(8 clients); batch of 16 p50 {n['search_batch16_p50_ms']:.2f} ms; recall@k "
             f"{n['recall']:.4f}; peak device memory {n['peak_mem_gib']:.2f} GiB; "
             f"launches {n['launches']}")
+    for tier in ("sqbf16", "sq8", "approx"):
+        n = serving[tier]
+        log(f"numbers ({card}): serving {' '.join(SERVE_TIERS[tier][0])}: startup "
+            f"{n['startup_s']:.2f} s; /search single p50 {n['search_single_p50_ms']:.2f} ms "
+            f"p99 {n['search_single_p99_ms']:.2f} ms (8 clients); batch of 16 p50 "
+            f"{n['search_batch16_p50_ms']:.2f} ms; "
+            + (f"recall@k {n['recall']:.4f}; " if "recall" in n else "")
+            + f"peak device memory {n['peak_mem_gib']:.2f} GiB; launches {n['launches']}")
+    for tier, n in mutation.items():
+        log(f"numbers ({card}): mutation {tier}: start {n['startup_s']:.2f} s, /add "
+            f"{N_MUTATE} {n['add_s']:.2f} s, /remove {N_MUTATE} {n['remove_s']:.2f} s, "
+            f"restart {n['restart_s']:.2f} s; launches {n['launches']}")
+    for label, n in scale["flat"].items():
+        log(f"numbers ({card}): scale flat {label} at {SCALE_N} x {SCALE_D}: " + ", ".join(
+            f"{key} {value:.4f}" for key, value in n.items() if isinstance(value, float)))
+    best = {r["spec"]: r for r in autotune["report"]["results"]}[autotune["report"]["best"]]
+    log(f"numbers ({card}): autotune at {AUTOTUNE_ROWS} x {SCALE_D}: "
+        f"{autotune['wall_s']:.1f} s, recommended {autotune['report']['best']} "
+        f"({best['qps']} queries/s, recall {best['recall']}, {best['memory_mb']} MB)")
     for kind, n in scale["indexes"].items():
         log(f"numbers ({card}): scale {kind} at {SCALE_N} x {SCALE_D}: " + ", ".join(
             f"{key} {value:.4f}" if isinstance(value, float) else f"{key} {value}"
@@ -2190,10 +2519,11 @@ def main(argv=None) -> int:
             f"{n['peak_mem_gib']:.2f} GiB, launches {n['launches']}")
     launches = {name: train["stage1"]["launches"][name] + train["stage2"]["launches"][name]
                 + sum(n["launches"][name] for n in mining.values()) for name in KERNELS}
-    launches["flash_fwd"] += sum(n["launches"]["flash_fwd"]
-                                 for n in (*serving.values(), *evaluation.values()))
+    launches["flash_fwd"] += sum(n["launches"]["flash_fwd"] for n in (
+        *serving.values(), *mutation.values(), *evaluation.values()))
     for name, (_, _, counter) in IVF_KERNELS.items():
-        launches[name] = (sum(n["launches"][counter] for n in serving.values())
+        launches[name] = (sum(n["launches"][counter]
+                              for n in (*serving.values(), *mutation.values()))
                           + sum(n["launches"] for n in scale["indexes"].values()
                                 if n["counter"] == counter)
                           + sum(n["launches"].get(counter, 0) for n in evaluation.values()))
@@ -2210,7 +2540,10 @@ def main(argv=None) -> int:
                                     "bf16_split", "bf16_streamed"),
                "pq_probe_scores": ("pq_rows", "pq_rows_wide", "pq_rows_filtered"),
                "pq_probe_scores_t": ("pq_cols", "pq_cols_wide")}
-    errs = {name: max([k[key]["max_abs_err"] for key in keys] + [scale["odd"][name]])
+    served = {"ivf_probe_scores": [mutation["ivf"]["kernel_err"]],
+              "pq_probe_scores": [mutation["pq"]["kernel_err"]], "pq_probe_scores_t": []}
+    errs = {name: max([k[key]["max_abs_err"] for key in keys] + [scale["odd"][name]]
+                      + served[name])
             for name, keys in checked.items()}
     log("phase wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(wall.items())))
     log(f"total run {time.perf_counter() - t_all:.1f} s")

@@ -13,9 +13,11 @@ output directory's root with train_results.json and trainer_history.json.
 Every saved model directory gets the model card (``README.md``) the JAX
 package writes; ``--wandb_project`` logs the trainer's lines to wandb when
 it is installed and warns otherwise. ``--device cuda`` (the default) fails
-when no card is visible; ``--device cpu`` runs the plain PyTorch path. Not
-ported yet, each rejected with its ROADMAP.md item: HF tokenizers' special
-tokens and embedding resize, streaming, packing, gradient caching,
+when no card is visible; ``--device cpu`` runs the plain PyTorch path. An
+HF tokenizer gets the reference's pad-token rule and seven domain special
+tokens, the embedding table is resized to match, and every saved model
+directory holds the tokenizer beside the weights. Not ported yet, each
+rejected with its ROADMAP.md item: streaming, packing, gradient caching,
 evaluation during training.
 """
 
@@ -43,8 +45,9 @@ from rankpo_tpu_torch.cli.arguments import (
 from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.collators import ContrastiveCollator
 from rankpo_tpu_torch.data.datasets import ContrastiveDataset
-from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
+from rankpo_tpu_torch.data.tokenization import prepare_tokenizer, resolve_tokenizer
 from rankpo_tpu_torch.core.device import resolve_device
+from rankpo_tpu_torch.models.encoder import resize_token_embeddings
 from rankpo_tpu_torch.models.hf_io import load_pretrained, save_pretrained
 from rankpo_tpu_torch.models.llama import LlamaEncoder
 from rankpo_tpu_torch.train.config import TrainConfig
@@ -75,16 +78,18 @@ def set_seed(seed: int) -> None:
 
 
 def setup_model_and_tokenizer(model_args: ModelArguments):
-    """(config, CPU state dict, tokenizer, pad id). HF tokenizers need the
-    reference's special tokens and an embedding resize, not ported yet."""
+    """(config, CPU state dict, tokenizer, pad id). An HF tokenizer gets the
+    pad-token rule and the domain special tokens, and the embedding table is
+    resized to its vocabulary (reference :101-148)."""
     config, state = load_pretrained(model_args.model_name_or_path)
     tokenizer = resolve_tokenizer(model_args.tokenizer_name, model_args.model_name_or_path)
-    if hasattr(tokenizer, "add_special_tokens"):
-        raise NotImplementedError(
-            "HF tokenizers (pad-token rule, domain special tokens, embedding "
-            "resize) are not ported to rankpo_tpu_torch yet (ROADMAP.md "
-            "Queue 1 item 6); use --tokenizer_name hash:<vocab>"
-        )
+    if hasattr(tokenizer, "add_special_tokens"):  # an HF tokenizer
+        new_size = prepare_tokenizer(tokenizer)
+        if new_size != config.vocab_size:
+            state, config = resize_token_embeddings(state, config, new_size)
+            logger.info("resized token embeddings to %d", new_size)
+        if config.pad_token_id is None:
+            config.pad_token_id = tokenizer.pad_token_id
     pad_id = getattr(tokenizer, "pad_token_id", None)
     if pad_id is None:
         pad_id = config.pad_token_id or 0
@@ -101,12 +106,16 @@ def build_model(config, state, train_cfg: TrainConfig, device) -> LlamaEncoder:
     )
 
 
-def make_save_fn(config, **card):
+def make_save_fn(config, tokenizer=None, **card):
     """The trainer's save function: the fp32 model files (the JAX package's
-    load_pretrained reads them too) and the model card, whose arguments
-    ``card`` (stage, tags, base_model, training_args) are the JAX CLI's."""
+    load_pretrained reads them too), an HF ``tokenizer`` beside them (so a
+    later stage, evaluation and serving load the added tokens) and the model
+    card, whose arguments ``card`` (stage, tags, base_model, training_args)
+    are the JAX CLI's."""
     def save_params_fn(directory: str, model: torch.nn.Module) -> None:
         save_pretrained(directory, config, model.state_dict(), dtype=torch.float32)
+        if hasattr(tokenizer, "save_pretrained"):
+            tokenizer.save_pretrained(directory)
         # push_to_hub tagging analog (reference rankpo_trainer.py:647-654)
         write_model_card(directory, **card)
 
@@ -176,7 +185,7 @@ def main(argv=None):
     )
     group_size = 1 + data_args.num_negatives
     save_fn = make_save_fn(
-        config, stage="contrastive",
+        config, tokenizer, stage="contrastive",
         tags=["rankpo_tpu", "contrastive", "dense-retrieval"],
         base_model=model_args.model_name_or_path,
         training_args={

@@ -107,7 +107,7 @@ def main(argv=None):
         disable_dropout=r_args.disable_dropout, attn_impl=model_args.attn_impl,
     )
     save_fn = make_save_fn(
-        config, stage="rankpo",
+        config, tokenizer, stage="rankpo",
         tags=["rankpo_tpu", "rankpo", "preference-optimization", "dense-retrieval"],
         base_model=model_args.model_name_or_path,
         training_args={

@@ -3,17 +3,25 @@
 
     python -m rankpo_tpu_torch.cli.serve --model_name_or_path CKPT \\
         --tokenizer_name hash:128256 --corpus_data corpus.jsonl --device cuda \\
-        [--index_type ivf --recall_target 0.95 | --index_type IVF4096,PQ64 |
-         --index_type refine --refine_dim 256]
+        [--index_type SQ8 | --recall_target 0.95 | --index_type ivf |
+         --index_type IVF4096,PQ64 | --index_type refine --refine_dim 256] \\
+        [--stable_ids] [--index_file index.npz [--autosave]]
 
-POST /search {"queries": ["..."], "k": 10[, "nprobe": 8][, "candidates": 512]}
+POST /search {"queries": ["..."], "k": 10[, "nprobe": 8][, "candidates": 512]
+              [, "allowed_ids": [...] | "disallowed_ids": [...]]}
     -> {"results": [...]}
+POST /add    {"passages": ["..."][, "ids": [...]]} -> extends the index
+POST /remove {"ids": [...]} -> drops passages (FAISS renumbering, or
+             external ids under --stable_ids)
+POST /save   [{"path": "..."}] -> persists the live index
 GET  /healthz -> {"status": "ok", "ntotal": N}
 GET  /statsz  -> serving counters
 
-The flags keep the JAX CLI's names. Flags of tiers and features the port
-does not have yet are rejected with the ROADMAP.md item that will bring
-them; /add, /remove and /save answer that they are not ported yet.
+The flags keep the JAX CLI's names. ``--index_file`` loads the index from
+that file when it exists (no corpus encode, no build) and otherwise builds
+from ``--corpus_data`` and saves it there. Flags of features the port does
+not have yet are rejected with the ROADMAP.md item that will bring them:
+packed queries (item 7) and multi-host serving (item 8).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -40,21 +49,21 @@ _INDEX_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": t
 
 # flag -> (value that means "off", ROADMAP item that ports it)
 _UNPORTED_FLAGS = {
-    "pack_queries": (False, "packed query encode"),
-    "stable_ids": (False, "serving endpoints"),
-    "index_file": (None, "index persistence"),
-    "autosave": (False, "index persistence"),
-    "rewarm_after_mutations": (False, "serving endpoints"),
-    "coordinator_address": (None, "multi-host serving"),
-    "num_processes": (None, "multi-host serving"),
-    "process_id": (None, "multi-host serving"),
+    "pack_queries": (False, "item 7, packed queries with K1-K3 segment_ids"),
+    "pack_max_segments": (16, "item 7, packed queries with K1-K3 segment_ids"),
+    "coordinator_address": (None, "item 8, multi-host serving"),
+    "num_processes": (None, "item 8, multi-host serving"),
+    "process_id": (None, "item 8, multi-host serving"),
 }
 
 
-def make_handler(service: RetrievalService, batcher=None, k_max: int = 100):
+def make_handler(service: RetrievalService, batcher=None, k_max: int = 100,
+                 index_file: str | None = None, autosave: bool = False):
     """``batcher``: a MicroBatcher; single-query requests route through it
     so concurrent clients share device work. Every path searches at
-    ``k_max`` and slices to the client's k."""
+    ``k_max`` and slices to the client's k. ``index_file``: the default
+    target of POST /save and of ``autosave``, which persists the index after
+    every successful /add and /remove (the reply waits for the save)."""
 
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: dict):
@@ -82,10 +91,60 @@ def make_handler(service: RetrievalService, batcher=None, k_max: int = 100):
             else:
                 self._reply(404, {"error": "not found"})
 
+        def _body(self) -> dict:
+            length = int(self.headers.get("Content-Length", 0))
+            return json.loads(self.rfile.read(length)) if length else {}
+
+        def _reply_mutated(self, extra: dict) -> None:
+            """The reply to a mutation that already committed. A failed
+            autosave answers 500 with ``mutated`` true: the mutation stands,
+            and a client must not retry it."""
+            payload = {"status": "ok", "ntotal": service.ntotal, **extra}
+            if autosave and index_file:
+                try:
+                    service.save_index(index_file)
+                    payload["saved"] = index_file
+                except Exception as e:
+                    self._reply(500, {"error": f"autosave failed: {e}", "mutated": True,
+                                      "ntotal": service.ntotal, **extra})
+                    return
+            self._reply(200, payload)
+
         def do_POST(self):
-            if self.path in ("/add", "/remove", "/save"):
-                self._reply(501, {"error": f"{self.path} is " + _NOT_PORTED.format(
-                    "serving endpoints")})
+            if self.path == "/add":
+                # FAISS add: encode and extend the live index; searches in
+                # flight finish on the old one (the state swaps atomically)
+                try:
+                    req = self._body()
+                    service.add_passages(req["passages"], ids=req.get("ids"))
+                except Exception as e:
+                    self._reply(400, {"error": str(e)})
+                    return
+                self._reply_mutated({})
+                return
+            if self.path == "/remove":
+                # FAISS remove_ids: by corpus position (the rest shift down),
+                # or by external id under --stable_ids
+                try:
+                    removed = service.remove_passages(self._body()["ids"])
+                except Exception as e:
+                    self._reply(400, {"error": str(e)})
+                    return
+                self._reply_mutated({"removed": removed})
+                return
+            if self.path == "/save":
+                # FAISS write_index of the live index, mutations included;
+                # the body may name {"path": ...}, else --index_file
+                try:
+                    path = self._body().get("path") or index_file
+                    if not path:
+                        raise ValueError("no save target: pass {'path': ...} or start "
+                                         "the server with --index_file")
+                    service.save_index(path)
+                    self._reply(200, {"status": "ok", "saved": path,
+                                      "ntotal": service.ntotal})
+                except Exception as e:
+                    self._reply(400, {"error": str(e)})
                 return
             if self.path != "/search":
                 self._reply(404, {"error": "not found"})
@@ -111,17 +170,15 @@ def make_handler(service: RetrievalService, batcher=None, k_max: int = 100):
                                  "(start the server with --serving_k_max)"
                     })
                     return
-                unported = [key for key in ("allowed_ids", "disallowed_ids")
-                            if req.get(key) is not None]
-                if unported:
-                    self._reply(400, {"error": f"{unported} " + _NOT_PORTED.format(
-                        "item 5, request-level filters")})
-                    return
-                # a per-call nprobe or candidates is per REQUEST: such
+                # FAISS SearchParameters: IDSelector filters (external ids
+                # under --stable_ids, corpus positions otherwise) and a
+                # per-call nprobe or candidates are per REQUEST: such
                 # requests bypass the micro-batcher, whose grouped dispatch
                 # shares one search
-                sel = {key: int(req[key]) for key in ("nprobe", "candidates")
+                sel = {key: req[key] for key in ("allowed_ids", "disallowed_ids")
                        if req.get(key) is not None}
+                sel.update({key: int(req[key]) for key in ("nprobe", "candidates")
+                            if req.get(key) is not None})
                 if batcher is not None and len(queries) == 1 and not sel:
                     results = [batcher.query(queries[0], k=k)]
                 else:
@@ -147,8 +204,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model_name_or_path", required=True)
     parser.add_argument("--tokenizer_name", default=None,
                         help="'hash:<vocab>' for the hermetic tokenizer")
-    parser.add_argument("--corpus_data", required=True,
-                        help='jsonl corpus, {"text": ...} per line')
+    parser.add_argument("--corpus_data", default=None,
+                        help='jsonl corpus, {"text": ...} per line; optional when '
+                             "--index_file exists")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cuda' fails when no card is visible")
     parser.add_argument("--host", default="127.0.0.1")
@@ -157,12 +215,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_passage_length", type=int, default=512)
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--recall_target", type=float, default=1.0,
-                        help="the refine/ivf tiers' build-time tune target (1.0 "
-                             "tunes to 0.95); the flat tier takes only 1.0")
+                        help="< 1: the flat tier's approximate top-k; the "
+                             "refine/ivf tiers' build-time tune target (1.0 "
+                             "tunes to 0.95)")
     parser.add_argument("--index_dtype", default="float32",
                         choices=["float32", "bfloat16", "int8"],
-                        help="refine/ivf row storage (int8: ivf only); the flat "
-                             "tier takes only float32")
+                        help="row storage: fp32 / bf16 (half the memory) / int8 "
+                             "(a quarter; flat and ivf)")
     parser.add_argument("--index_type", default="flat",
                         help="flat = exact brute force (FAISS IndexFlatIP "
                              "parity); refine = two-stage PCA prefilter + "
@@ -199,8 +258,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ivf_balance_eta", type=float, default=0.0,
                         help="balanced k-means assignment-bias step for IVF "
                              "builds (0 = off)")
-    parser.add_argument("--index_file", default=None, help="not ported")
-    parser.add_argument("--pack_queries", action="store_true", help="not ported")
+    parser.add_argument("--index_file", default=None,
+                        help="persisted index (.npz): loaded if it exists, else "
+                             "built from --corpus_data and saved here")
+    parser.add_argument("--pack_queries", action="store_true",
+                        help="not ported (ROADMAP.md Queue 1 item 7)")
+    parser.add_argument("--pack_max_segments", type=int, default=16,
+                        help="not ported (ROADMAP.md Queue 1 item 7)")
     parser.add_argument("--microbatch_wait_ms", type=float, default=3.0,
                         help="dynamic micro-batching window for concurrent "
                              "single-query requests; 0 disables")
@@ -208,18 +272,29 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--serving_k_max", type=int, default=100,
                         help="all requests search once at this k and slice "
                              "to the client's k; requests above it get a 400")
-    parser.add_argument("--stable_ids", action="store_true", help="not ported")
+    parser.add_argument("--stable_ids", action="store_true",
+                        help="FAISS IndexIDMap analog: passages carry external "
+                             "int64 ids that survive /remove; /add takes 'ids', "
+                             "/remove and filters take external ids, hits gain "
+                             "an 'id' field")
     parser.add_argument("--warmup", default="full",
                         choices=["full", "fast", "off"],
                         help="'full' and 'fast' both run one small pass that "
                              "builds the kernels before the first request")
     parser.add_argument("--rewarm_after_mutations", action="store_true",
-                        help="not ported")
-    parser.add_argument("--autosave", action="store_true", help="not ported")
+                        help="/add and /remove replay the startup warmup before "
+                             "they return")
+    parser.add_argument("--autosave", action="store_true",
+                        help="persist the index to --index_file after every "
+                             "successful /add and /remove (the reply waits)")
+    parser.add_argument("--mutation_headroom", type=float, default=0.25,
+                        help="extra fraction of rows (or IVF slots) an /add "
+                             "that outgrows the storage pre-pays for later adds")
     parser.add_argument("--log_level", default="info")
-    parser.add_argument("--coordinator_address", default=None, help="not ported")
-    parser.add_argument("--num_processes", type=int, default=None, help="not ported")
-    parser.add_argument("--process_id", type=int, default=None, help="not ported")
+    for flag, kind in (("--coordinator_address", str), ("--num_processes", int),
+                       ("--process_id", int)):
+        parser.add_argument(flag, type=kind, default=None,
+                            help="not ported (ROADMAP.md Queue 1 item 8)")
     return parser
 
 
@@ -232,6 +307,16 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     for flag, (off, item) in _UNPORTED_FLAGS.items():
         if getattr(args, flag) != off:
             parser.error(f"--{flag} {getattr(args, flag)}: " + _NOT_PORTED.format(item))
+    if args.autosave and not args.index_file:
+        parser.error("--autosave needs --index_file as the save target")
+    if args.index_file and not args.index_file.endswith(".npz"):
+        # the writer appends .npz; without this a restart would never find
+        # the file and would re-encode the corpus every time
+        args.index_file += ".npz"
+    restart = bool(args.index_file) and os.path.exists(args.index_file)
+    if not restart and args.corpus_data is None:
+        parser.error("--corpus_data is required unless --index_file points at an "
+                     "existing persisted index")
     dtype = _INDEX_DTYPES[args.index_dtype]
     if args.index_type not in ("flat", "refine", "ivf") and args.index_dtype == "float32":
         # factory spec: its storage component (or the tier default) goes
@@ -270,19 +355,26 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     service_kw = dict(recall_target=args.recall_target, index_dtype=dtype,
                       index_type=args.index_type, index_kwargs=index_kwargs)
     try:  # the tier's checks, before the checkpoint loads
-        resolve_tier(**service_kw)
-    except (NotImplementedError, ValueError) as e:
+        resolve_tier(args.index_type, dtype, index_kwargs)
+    except ValueError as e:
         parser.error(f"--index_type {args.index_type}: {e}")
     config, state = load_pretrained(args.model_name_or_path)
     tokenizer = resolve_tokenizer(args.tokenizer_name, args.model_name_or_path)
     encoder = InferenceEncoder(config, state, tokenizer, device=device)
     del state
-    service = RetrievalService(encoder, max_query_length=args.max_query_length,
-                               **service_kw)
-    service.build_index(
-        load_eval_corpus(args.corpus_data),
-        max_passage_length=args.max_passage_length, batch_size=args.batch_size,
-    )
+    service = RetrievalService(
+        encoder, max_query_length=args.max_query_length, stable_ids=args.stable_ids,
+        rewarm_after_mutation=args.rewarm_after_mutations,
+        mutation_headroom=args.mutation_headroom, **service_kw)
+    if restart:
+        service.load_index_file(args.index_file)  # no corpus encode, no build
+    else:
+        service.build_index(
+            load_eval_corpus(args.corpus_data),
+            max_passage_length=args.max_passage_length, batch_size=args.batch_size,
+        )
+        if args.index_file:
+            service.save_index(args.index_file)
     if args.warmup != "off":
         service.warmup(k=args.serving_k_max)
     batcher = None
@@ -293,7 +385,8 @@ def make_server(argv=None) -> ThreadingHTTPServer:
         )
     server = ThreadingHTTPServer(
         (args.host, args.port),
-        make_handler(service, batcher, k_max=args.serving_k_max),
+        make_handler(service, batcher, k_max=args.serving_k_max,
+                     index_file=args.index_file, autosave=args.autosave),
     )
     server.service = service
     server.batcher = batcher

@@ -1,11 +1,16 @@
-"""Tokenizers for the port (a copy of ``rankpo_tpu.data.tokenization``'s
-serving half).
+"""Tokenizers for the port (a copy of ``rankpo_tpu.data.tokenization``).
 
 ``HashTokenizer`` is the hermetic word-hash tokenizer; it must produce the
 same ids as the JAX package's copy, which the cross-package serving test
 relies on. ``load_tokenizer`` imports ``transformers`` only when called: the
 machine with the card has no ``transformers``, so runs there use
 ``hash:<vocab>`` tokenizers (``resolve_tokenizer``).
+
+``prepare_tokenizer`` applies the reference's two rules to a HuggingFace
+tokenizer (reference src/run_contrastive.py:110-143): Llama-3.2's reserved
+pad token (EOS when the vocabulary lacks it) and the seven domain special
+tokens of the title/abstract corpus format; the caller then resizes the
+embedding table (``models/encoder.py`` ``resize_token_embeddings``).
 """
 
 from __future__ import annotations
@@ -13,11 +18,38 @@ from __future__ import annotations
 import hashlib
 from typing import Optional, Sequence, Union
 
+LLAMA_PAD_TOKEN = "<|finetune_right_pad_id|>"
+
+DOMAIN_SPECIAL_TOKENS = [
+    "<keyword>",
+    "</keyword>",
+    "<title>",
+    "</title>",
+    "<abstract>",
+    "</abstract>",
+    "<sep>",
+]
+
 
 def load_tokenizer(path: str, use_fast: bool = True):
     from transformers import AutoTokenizer
 
     return AutoTokenizer.from_pretrained(path, use_fast=use_fast)
+
+
+def prepare_tokenizer(tokenizer) -> int:
+    """Apply the pad-token and special-token rules in place. Returns the
+    vocabulary size the model's embedding table must be resized to."""
+    if tokenizer.pad_token is None:
+        # Llama-3.2 rule; EOS for tokenizers lacking the reserved token
+        pad_id = tokenizer.convert_tokens_to_ids(LLAMA_PAD_TOKEN)
+        if pad_id is not None and pad_id != getattr(tokenizer, "unk_token_id", None):
+            tokenizer.pad_token = LLAMA_PAD_TOKEN
+            tokenizer.pad_token_id = pad_id
+        else:
+            tokenizer.pad_token = tokenizer.eos_token
+    tokenizer.add_special_tokens({"additional_special_tokens": DOMAIN_SPECIAL_TOKENS})
+    return len(tokenizer)
 
 
 def resolve_tokenizer(name_or_path: Optional[str], model_path: str):

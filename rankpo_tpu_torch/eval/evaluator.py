@@ -26,7 +26,7 @@ import numpy as np
 from rankpo_tpu_torch.data.datasets import load_eval_corpus, load_eval_queries
 from rankpo_tpu_torch.eval.metrics import compute_metrics
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import build_offline_index, resolve_offline_index
+from rankpo_tpu_torch.index.factory import build_offline_index, resolve_index_spec
 
 logger = logging.getLogger(__name__)
 
@@ -92,8 +92,8 @@ def evaluate_checkpoint(
     FAISS IndexFlatIP order), "refine" (PCA prefilter and exact rerank) or
     "ivf" (both approximate, tuned to ``index_recall_target``), or a
     factory spec such as "IVF4096,PQ64" or "PCA128,Flat"."""
-    # an invalid or unported spec fails here, not after the corpus encode
-    index_type, index_kwargs = resolve_offline_index(index_type, index_kwargs)
+    # an invalid spec fails here, not after the corpus encode
+    index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
     if encoder is None:
         kwargs = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
         encoder = InferenceEncoder.from_pretrained(

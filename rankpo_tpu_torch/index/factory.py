@@ -11,15 +11,14 @@ one spec string -> (index_type, kwargs), with the same grammar and errors.
     RR64,IVF4096,PQ64     -> same, with the seeded random rotation
     PCA128,IVF4096,Flat   -> ivf + PCA probe-scoring hybrid (reduced_dim)
 
-Storage dtypes are torch dtypes (``torch.int8``, ``torch.bfloat16``). The
-grammar also covers bf16/int8 flat storage, which the port has not built
-yet; the consumers reject it with its ROADMAP item.
+Storage dtypes are torch dtypes (``torch.int8``, ``torch.bfloat16``).
 
-``resolve_offline_index`` and ``build_offline_index`` are the index step of
-the offline tools (evaluation, mining, predictions), as their JAX versions
-build it: the flat tier over fp32 rows, the refine tier (``reduced_dim``
-min(256, D) unless the kwargs name one) or an IVF index, tuned to the
-tool's recall target under the caller's explicit kwargs.
+``build_offline_index`` is the index step of the offline tools
+(evaluation, mining, predictions; each resolves its spec first with
+``resolve_index_spec``, before any encode), as their JAX versions build
+it: the flat tier over fp32, bf16 or int8 rows, the refine tier
+(``reduced_dim`` min(256, D) unless the kwargs name one) or an IVF index,
+tuned to the tool's recall target under the caller's explicit kwargs.
 """
 
 from __future__ import annotations
@@ -168,29 +167,16 @@ def resolve_index_spec(index_type: str, index_kwargs=None) -> Tuple[str, dict]:
     return kind, kwargs
 
 
-_NOT_PORTED = "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1, {})"
-
-
-def resolve_offline_index(index_type: str, index_kwargs=None) -> Tuple[str, dict]:
-    """:func:`resolve_index_spec`, then reject what the port has not built.
-    Called before any encode, so a bad spec fails in milliseconds."""
-    kind, kwargs = resolve_index_spec(index_type, index_kwargs)
-    if kind == "flat" and kwargs.get("dtype", torch.float32) != torch.float32:
-        raise NotImplementedError(
-            f"flat index dtype {kwargs['dtype']}: "
-            + _NOT_PORTED.format("item 5, bf16/int8 flat storage"))
-    return kind, kwargs
-
-
 def build_offline_index(embeddings, n_total: int, index_type: str,
                         index_kwargs: dict, recall_target: float, *,
-                        refine_moment_of_stored: bool = False):
+                        as_constructor: bool = False):
     """The index over ``embeddings`` [N_buf, D] (rows past ``n_total`` are
-    padding) on their device, for a tier from :func:`resolve_offline_index`.
-    The refine tier takes its PCA second moment of the fp32 rows
-    (``RefineIPIndex.from_sharded``, as the JAX evaluator and prediction
-    tool build it) or, with ``refine_moment_of_stored``, of the stored rows
-    (the constructor, as the JAX mining tool builds it)."""
+    padding) on their device, for a tier from :func:`resolve_index_spec`.
+    The refine and flat tiers build as the JAX evaluator and prediction tool
+    build them (``from_sharded``: refine's PCA second moment of the fp32
+    rows, flat int8 scales rounded as XLA rounds them) or, with
+    ``as_constructor``, as the JAX mining tool does (the constructors: the
+    moment of the stored rows, the host's int8 rounding)."""
     if index_type in ("ivf", "refine"):
         from rankpo_tpu_torch.index.ivf import IVFIPIndex
         from rankpo_tpu_torch.index.refined import RefineIPIndex
@@ -202,10 +188,11 @@ def build_offline_index(embeddings, n_total: int, index_type: str,
         with torch.inference_mode():
             if index_type == "ivf":
                 return IVFIPIndex(embeddings, n_total=n_total, **kwargs)
-            if refine_moment_of_stored:
+            if as_constructor:
                 return RefineIPIndex(embeddings, n_total=n_total, **kwargs)
             return RefineIPIndex.from_sharded(embeddings, n_total, **kwargs)
     from rankpo_tpu_torch.index.flat import FlatIPIndex
 
-    kwargs = {k: v for k, v in index_kwargs.items() if k != "dtype"}  # fp32 only
-    return FlatIPIndex(embeddings, n_total=n_total, **kwargs)
+    if as_constructor:
+        return FlatIPIndex(embeddings, n_total=n_total, **index_kwargs)
+    return FlatIPIndex.from_sharded(embeddings, n_total, **index_kwargs)

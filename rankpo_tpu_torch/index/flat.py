@@ -1,12 +1,17 @@
-"""Exact inner-product index on one device (port of
-``rankpo_tpu.index.flat``: ``numpy_search`` and ``FlatIPIndex``, fp32
-storage), and the helpers every index tier shares: the append-argument
-contract, the ``IDSelector``-style filter mask and its tail rewrite, and the
-reconstruct id check and row gather.
+"""Brute-force inner-product index on one device (port of
+``rankpo_tpu.index.flat``: ``numpy_search`` and ``FlatIPIndex``), and the
+helpers every index tier shares: the append-argument contract, the int8
+row codec, the ``IDSelector``-style filter mask and its tail rewrite, and
+the reconstruct id check and row gather.
 
-The corpus matrix stays on the device it was encoded on; a search runs the
-fp32 matmul and the tie-stable top-k of ``ops/topk.py`` there. Results match
-FAISS ``IndexFlatIP``: exact fp32 scores, descending, ties by lower index.
+The corpus matrix stays on the device it was encoded on, stored as fp32
+rows (FAISS ``IndexFlatIP`` parity: exact fp32 scores, descending, ties by
+lower index), bf16 rows (``SQbf16``) or int8 codes with a per-row scale
+(``SQ8``). A search runs ``ops/topk.py``'s ``matmul_topk`` there, exact or,
+with ``recall_target < 1``, approximate. ``append_sharded`` /
+``remove_rows`` mutate it (FAISS ``add`` / ``remove_ids``, each returning a
+new index), ``reconstruct`` decodes stored rows, ``range_search`` returns
+every row above a radius.
 """
 
 from __future__ import annotations
@@ -16,9 +21,39 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from rankpo_tpu_torch.ops.topk import dense_matmul_topk, require_fp32_matmul
+from rankpo_tpu_torch.ops.topk import bf16_mm, divide_exact, matmul_topk, require_fp32_matmul
 
 _RECON_BATCH = 1024  # reconstruct gathers ids in chunks of this many
+_QUANT_CHUNK = 1 << 16  # rows per chunk of the int8 and bf16 storage casts
+_ROW_MULTIPLE = 8  # int8 storage rows: cuBLASLt's int8 GEMM takes N % 8 == 0
+
+
+def quantize_rows_int8(rows: torch.Tensor, *, times_reciprocal: bool = False):
+    """Symmetric per-row max-abs int8 codes and fp32 scales: the JAX
+    package's one row codec, for the flat and IVF tiers (zero rows get
+    scale 1e-12 and zero codes). Its host constructors compute the scale as
+    ``max / 127``; its device path (``from_sharded``, the streamed build,
+    appends) through XLA, which computes ``max * (1 / 127)``, one fp32 ulp
+    apart in ~4% of rows: ``times_reciprocal`` takes that rounding, so both
+    packages store the same scales on every path, on the card too
+    (:func:`divide_exact`). Returns ``(codes int8 [N, D], scale fp32
+    [N])``."""
+    rows = rows.to(torch.float32)
+    peak = rows.abs().amax(dim=1)
+    scale = peak * (1.0 / 127.0) if times_reciprocal else divide_exact(peak, 127.0)
+    scale = torch.clamp_min(scale, 1e-12)
+    codes = torch.clamp(torch.round(rows / scale[:, None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _as_store_dtype(dtype) -> torch.dtype:
+    """A storage dtype given as a torch dtype or its name."""
+    if isinstance(dtype, str):
+        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int8": torch.int8}[dtype]
+    if dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"flat storage dtype must be fp32, bf16 or int8, got {dtype}")
+    return dtype
 
 
 def validate_append_args(new_rows, n_new, headroom, dim, n_shards=1) -> int:
@@ -118,25 +153,99 @@ def numpy_search(
 
 
 class FlatIPIndex:
-    """Exact inner-product index over fp32 rows on one device (the device
-    of ``embeddings`` when it is a tensor, else the CPU).
+    """Brute-force inner-product index over fp32, bf16 or int8 rows on one
+    device (the device of ``embeddings`` when it is a tensor, else the CPU).
 
     ``embeddings``: [N_buf, D] numpy array or tensor; rows at or past
-    ``n_total`` (default N_buf) are padding and never returned."""
+    ``n_total`` (default N_buf) are padding and never returned. ``dtype``:
+    the storage, fp32 (exact FAISS parity), bf16 (half the memory) or
+    ``torch.int8`` (a quarter: symmetric per-row max-abs codes, the scale
+    applied to the scores). ``recall_target < 1``: approximate top-k (the
+    serving mode); ``precision``: the fp32 rows' product ("float32" or
+    "default", ``ops/topk.py``). The constructor quantizes with the JAX
+    constructor's rounding, :meth:`from_sharded` and appends with its
+    device path's."""
 
-    def __init__(self, embeddings, *, n_total: Optional[int] = None):
+    def __init__(self, embeddings, *, n_total: Optional[int] = None, dtype=torch.float32,
+                 recall_target: float = 1.0, precision: Optional[str] = None):
+        self._init(embeddings, n_total, dtype, recall_target, precision,
+                   times_reciprocal=False)
+
+    @classmethod
+    def from_sharded(cls, embeddings, n_total: int, *, dtype=torch.float32,
+                     recall_target: float = 1.0, precision: Optional[str] = None
+                     ) -> "FlatIPIndex":
+        """Build from device-resident fp32 rows (``InferenceEncoder.
+        encode_device``'s layout, rows past ``n_total`` ignored), int8
+        codes rounded as the JAX package's device path rounds them."""
+        self = cls.__new__(cls)
+        self._init(embeddings, n_total, dtype, recall_target, precision,
+                   times_reciprocal=True)
+        return self
+
+    def _init(self, embeddings, n_total, dtype, recall_target, precision, *,
+              times_reciprocal: bool) -> None:
         require_fp32_matmul()
-        # a tensor keeps its device; a numpy array becomes a CPU tensor
-        corpus = torch.as_tensor(embeddings, dtype=torch.float32)
-        if corpus.dim() != 2:
-            raise ValueError(f"embeddings must be [N, D], got {tuple(corpus.shape)}")
-        self.corpus = corpus
-        self.n_total = int(corpus.shape[0] if n_total is None else n_total)
-        if not 0 < self.n_total <= corpus.shape[0]:
-            raise ValueError(
-                f"n_total {self.n_total} outside (0, {corpus.shape[0]}]"
-            )
-        self.dim = int(corpus.shape[1])
+        self.dtype = _as_store_dtype(dtype)
+        self.quantized = self.dtype == torch.int8
+        self.recall_target = float(recall_target)
+        self.precision = precision
+        # a tensor keeps its device (and, as fp32, its storage); numpy goes
+        # to the CPU
+        rows = torch.as_tensor(embeddings)
+        if rows.dim() != 2:
+            raise ValueError(f"embeddings must be [N, D], got {tuple(rows.shape)}")
+        self.n_total = int(rows.shape[0] if n_total is None else n_total)
+        if not 0 < self.n_total <= rows.shape[0]:
+            raise ValueError(f"n_total {self.n_total} outside (0, {rows.shape[0]}]")
+        self.dim = int(rows.shape[1])
+        if self.dtype == torch.float32:
+            self.corpus = rows.to(torch.float32)
+            self.row_scale = None
+        else:
+            self.corpus, self.row_scale = self._encode_rows(
+                rows[: self.n_total], self._storage_rows(self.n_total),
+                times_reciprocal=times_reciprocal)
+        self.n_padded = int(self.corpus.shape[0])
+        # the row count written into storage the index owns: an append writes
+        # in place only into rows no other index on that storage has written.
+        # fp32 rows are the caller's tensor (or numpy memory): never written
+        self._fill = [-1 if self.dtype == torch.float32 else self.n_total]
+
+    def _storage_rows(self, rows: int) -> int:
+        return -(-rows // _ROW_MULTIPLE) * _ROW_MULTIPLE if self.quantized else rows
+
+    def _encode_rows(self, rows: torch.Tensor, n_rows: Optional[int] = None, *,
+                     times_reciprocal: bool = True):
+        """(stored rows, scales or None) of fp32 rows, cast or quantized
+        chunk by chunk into storage of ``n_rows`` rows (default: as many as
+        ``rows``; the rest zero rows of scale 1e-12), so that a 2^20-row
+        corpus needs no second copy of its storage."""
+        n = rows.shape[0]
+        corpus, scale = self._empty_storage(n if n_rows is None else n_rows, rows.device)
+        for lo in range(0, n, _QUANT_CHUNK):
+            block = rows[lo : lo + _QUANT_CHUNK].to(torch.float32)
+            hi = lo + block.shape[0]
+            if self.quantized:
+                corpus[lo:hi], scale[lo:hi] = quantize_rows_int8(
+                    block, times_reciprocal=times_reciprocal)
+            else:
+                corpus[lo:hi] = block
+        return corpus, scale
+
+    def _empty_storage(self, n_rows: int, device):
+        """(zero rows [n_rows, D] of the storage dtype, scales of the
+        codec's zero-row floor 1e-12 or None)."""
+        corpus = torch.zeros(n_rows, self.dim, dtype=self.dtype, device=device)
+        scale = torch.full((n_rows,), 1e-12, device=device) if self.quantized else None
+        return corpus, scale
+
+    def _clone_shell(self) -> "FlatIPIndex":
+        """A new index with this one's configuration and no storage."""
+        out = FlatIPIndex.__new__(FlatIPIndex)
+        for name in ("dtype", "quantized", "recall_target", "precision", "dim"):
+            setattr(out, name, getattr(self, name))
+        return out
 
     @property
     def ntotal(self) -> int:
@@ -146,28 +255,177 @@ class FlatIPIndex:
     def device(self) -> torch.device:
         return self.corpus.device
 
-    def search_tensor(self, queries: torch.Tensor, k: int):
-        """Device-side search: (scores fp32 [Q, k'], indices int64 [Q, k'])
-        on the index's device, k' = min(k, ntotal)."""
-        k = min(k, self.n_total)
-        return dense_matmul_topk(queries.to(self.device), self.corpus, k=k,
-                                 n_valid=self.n_total)
+    # ------------------------------------------------------------------
+    def _row_mask(self, sel: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if sel is None:
+            return None
+        mask = torch.zeros(self.n_padded, dtype=torch.bool, device=self.device)
+        mask[: self.n_total] = sel.to(self.device)
+        return mask
 
-    def search(self, queries, k: int = 100, batch_size: int = 256):
-        """Batched exact top-k from host queries (analog of the reference's
-        faiss_search). Returns numpy fp32 scores and int32 indices [Q, k']."""
+    def search_tensor(self, queries: torch.Tensor, k: int, *,
+                      sel: Optional[torch.Tensor] = None):
+        """Device-side search: (scores fp32 [Q, k'], indices int64 [Q, k'])
+        on the index's device, k' = min(k, ntotal). ``sel``: a bool
+        [ntotal] eligibility mask (ineligible rows score -inf). int8 storage
+        takes bf16 queries, as the JAX package casts them."""
         k = min(k, self.n_total)
+        q = queries.to(self.device)
+        if self.quantized:
+            q = q.to(torch.bfloat16)
+        return matmul_topk(q, self.corpus, k=k, n_valid=self.n_total,
+                           recall_target=self.recall_target, col_scale=self.row_scale,
+                           precision=self.precision, row_mask=self._row_mask(sel))
+
+    def search(self, queries, k: int = 100, batch_size: int = 256, *, allowed_ids=None,
+               disallowed_ids=None, selector=None):
+        """Batched top-k from host queries (analog of the reference's
+        faiss_search). Returns numpy fp32 scores and int32 indices [Q, k'].
+        ``allowed_ids`` / ``disallowed_ids`` / ``selector`` (at most one)
+        restrict the search to a subset of rows (FAISS ``IDSelector``); when
+        fewer than k rows are eligible the tail is -inf / -1."""
+        k = min(k, self.n_total)
+        sel_mask = build_selector_mask(self.n_total, allowed_ids, disallowed_ids, selector)
+        sel = None if sel_mask is None else torch.from_numpy(sel_mask).to(self.device)
         queries = np.asarray(queries, np.float32)
         scores, indices = [], []
         for lo in range(0, queries.shape[0], batch_size):
             block = torch.from_numpy(queries[lo : lo + batch_size])
-            s, i = self.search_tensor(block, k)
+            s, i = self.search_tensor(block, k, sel=sel)
             scores.append(s.cpu().numpy())
             indices.append(i.to(torch.int32).cpu().numpy())
         if not scores:
             return np.zeros((0, k), np.float32), np.zeros((0, k), np.int32)
-        return np.concatenate(scores), np.concatenate(indices)
+        out_s, out_i = np.concatenate(scores), np.concatenate(indices)
+        if sel_mask is not None:
+            out_i = mask_filtered_misses(out_s, out_i)
+        return out_s, out_i
+
+    # ------------------------------------------------------------------
+    def append_sharded(self, new_rows, n_new: int, *, headroom: float = 0.0
+                       ) -> "FlatIPIndex":
+        """Append rows (FAISS ``index.add``): ``new_rows`` fp32 [n_buf, D]
+        (a tensor, moved to the index's device, or numpy), rows past
+        ``n_new`` ignored. Existing rows ride over bit-exactly (int8 codes
+        and scales are copied, never requantized); the new rows are cast or
+        quantized with the device path's rounding. When they fit the pad
+        rows that no other index on this storage has written, they are
+        written there in place; otherwise the storage grows to
+        ``(n_total + n_new) * (1 + headroom)`` rows, the headroom being pad
+        rows for later appends. Returns a new index."""
+        rows = torch.as_tensor(new_rows, dtype=torch.float32)
+        n_new = validate_append_args(rows, n_new, headroom, self.dim)
+        new_store, new_scale = self._encode_rows(rows[:n_new].to(self.device))
+        out = self._clone_shell()
+        n_old, out.n_total = self.n_total, self.n_total + n_new
+        if out.n_total <= self.n_padded and self._fill[0] == n_old:
+            corpus, scale = self.corpus, self.row_scale
+            out._fill = self._fill
+        else:
+            want = max(out.n_total, int(np.ceil(out.n_total * (1.0 + headroom))))
+            corpus, scale = self._empty_storage(self._storage_rows(want), self.device)
+            corpus[:n_old] = self.corpus[:n_old]
+            if scale is not None:
+                scale[:n_old] = self.row_scale[:n_old]
+            out._fill = [n_old]
+        with torch.inference_mode():  # storage a service made is an inference tensor
+            corpus[n_old : out.n_total] = new_store
+            if scale is not None:
+                scale[n_old : out.n_total] = new_scale
+        out._fill[0] = out.n_total
+        out.corpus, out.row_scale = corpus, scale
+        out.n_padded = int(corpus.shape[0])
+        return out
+
+    def remove_rows(self, removed) -> "FlatIPIndex":
+        """Drop rows by corpus position (FAISS ``remove_ids``): survivors
+        shift down in order; codes and scales are gathered, never
+        requantized. The padded row count is kept, the freed rows becoming
+        pad rows for later appends. Returns a new index."""
+        removed = np.unique(np.asarray(removed, np.int64).reshape(-1))
+        if removed.size == 0:
+            return self
+        if removed[0] < 0 or removed[-1] >= self.n_total:
+            raise IndexError(f"remove ids must be in [0, {self.n_total}); got "
+                             f"[{removed[0]}, {removed[-1]}]")
+        keep = np.ones(self.n_total, bool)
+        keep[removed] = False
+        keep_idx = torch.from_numpy(np.nonzero(keep)[0]).to(self.device)
+        if keep_idx.numel() == 0:
+            raise ValueError("cannot remove every row; build a new index")
+        out = self._clone_shell()
+        out.n_total = int(keep_idx.numel())
+        out.corpus, out.row_scale = self._empty_storage(self.n_padded, self.device)
+        torch.index_select(self.corpus, 0, keep_idx, out=out.corpus[: out.n_total])
+        if self.quantized:
+            torch.index_select(self.row_scale, 0, keep_idx, out=out.row_scale[: out.n_total])
+        out.n_padded = self.n_padded
+        out._fill = [out.n_total]
+        return out
+
+    def _decoded(self, idx: torch.Tensor) -> torch.Tensor:
+        rows = self.corpus[idx].to(torch.float32)
+        if self.quantized:
+            rows = rows * self.row_scale[idx][:, None]
+        return rows
+
+    def reconstruct(self, ids) -> np.ndarray:
+        """Stored rows of corpus ids as fp32 (FAISS ``reconstruct_batch``):
+        fp32 exactly, bf16 at storage precision, int8 codes times their
+        scale (the stored approximation, not the original row)."""
+        ids = _canonical_recon_ids(ids, self.n_total)
+        if ids.size == 0:
+            return np.zeros((0, self.dim), np.float32)
+        return _chunked_row_gather(self._decoded, ids, self.device)
 
     def rows(self) -> np.ndarray:
-        """The stored rows [ntotal, D] as host fp32."""
-        return self.corpus[: self.n_total].cpu().numpy()
+        """The stored rows [ntotal, D] as host fp32 (decoded)."""
+        return self.reconstruct(np.arange(self.n_total))
+
+    def _range_counts(self, queries: torch.Tensor, radius: float) -> torch.Tensor:
+        """Per query, the rows whose bf16-pass score clears ``radius`` (the
+        JAX count pass: bf16 operands, fp32 sums, times the int8 scale)."""
+        counts = torch.zeros(queries.shape[0], dtype=torch.int64, device=self.device)
+        step = max(_ROW_MULTIPLE, (1 << 28) // max(queries.shape[0] * 4, 1))
+        for lo in range(0, self.n_total, step):
+            hi = min(lo + step, self.n_total)
+            s = bf16_mm(queries, self.corpus[lo:hi].T)
+            if self.quantized:
+                s = s * self.row_scale[lo:hi][None, :]
+            counts += (s > radius).sum(dim=1)
+        return counts
+
+    def range_search(self, queries, radius: float, *, batch_size: int = 256
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Every row scoring strictly above ``radius`` per query (FAISS
+        ``range_search`` for inner product). Returns CSR ``(lims [Q+1]
+        int64, scores fp32, ids int64)``: query q's hits are
+        ``ids[lims[q]:lims[q+1]]``, descending. A bf16 count pass sizes the
+        top-k of each query batch (the largest count, rounded up to a power
+        of two); while the k-th returned score still clears the radius (the
+        two passes round differently at the boundary) the search reruns at
+        twice the k. Membership always comes from the search's scores."""
+        queries = np.asarray(queries, np.float32)
+        radius = float(radius)
+        n_q = queries.shape[0]
+        per_s, per_i = [], []
+        for lo in range(0, n_q, batch_size):
+            block = queries[lo : lo + batch_size]
+            counts = self._range_counts(torch.from_numpy(block).to(self.device), radius)
+            # the count pass is bf16: with no count, still probe the top 1
+            max_c = max(1, int(counts.max()))
+            k = min(self.n_total, 1 << (max_c - 1).bit_length())
+            while True:
+                s, i = self.search(block, k=k, batch_size=batch_size)
+                if k >= self.n_total or not (s[:, -1] > radius).any():
+                    break
+                k = min(self.n_total, k * 2)
+            for r in range(block.shape[0]):
+                m = s[r] > radius
+                per_s.append(s[r][m])
+                per_i.append(i[r][m].astype(np.int64))
+        lims = np.zeros(n_q + 1, np.int64)
+        np.cumsum([len(x) for x in per_i], out=lims[1:])
+        scores = np.concatenate(per_s) if per_s else np.zeros(0, np.float32)
+        ids = np.concatenate(per_i) if per_i else np.zeros(0, np.int64)
+        return lims, scores.astype(np.float32, copy=False), ids

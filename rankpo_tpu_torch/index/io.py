@@ -9,8 +9,9 @@ shapes, tuned knobs and the shard count the knobs were tuned at). A file
 written by either package loads in the other and searches alike: a load is
 pure placement (no k-means, no PCA, no tuning). IVF files carry every option
 (balanced, split-built, the PCA hybrid, PQ) and mutated layouts (grown
-capacity, freed slots). bf16/int8 flat storage raises with its ROADMAP.md
-item.
+capacity, freed slots); flat files carry fp32, bf16 or int8 rows (codes and
+their per-row scales, restored bit-equal, never requantized) and the
+approximate mode's knobs.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ CONFIG_KEY = "__index_config__"
 FORMAT = "rankpo-index-v1"
 
 _DTYPE_NAMES = ("float32", "bfloat16", "int8", "int32", "uint8")
-_NOT_PORTED = "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1, {})"
 _STORE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int8: "int8"}
 
 
@@ -82,10 +82,12 @@ def index_state(index) -> Dict[str, np.ndarray]:
                  "tuned_shards": 1}
     if isinstance(index, FlatIPIndex):
         cfg["kind"] = "flat"
-        cfg["dtype"] = "float32"
-        cfg["recall_target"] = 1.0
-        cfg["precision"] = None
+        cfg["dtype"] = _STORE_NAMES[index.dtype]
+        cfg["recall_target"] = index.recall_target
+        cfg["precision"] = index.precision
         _pack(out, meta, "corpus", index.corpus, trim=index.n_total)
+        if index.quantized:
+            _pack(out, meta, "row_scale", index.row_scale, trim=index.n_total)
     elif isinstance(index, RefineIPIndex):
         cfg["kind"] = "refine"
         cfg["store_dtype"] = _STORE_NAMES[index.store_dtype]
@@ -132,12 +134,32 @@ def index_state(index) -> Dict[str, np.ndarray]:
     return out
 
 
+def is_index_state(data: Mapping) -> bool:
+    """Whether ``data`` (a loaded npz or an ``index_state`` dict) is a
+    structural index file rather than the serving layer's legacy format."""
+    return CONFIG_KEY in getattr(data, "files", data)
+
+
+def state_kind(data: Mapping) -> str:
+    return json.loads(str(np.asarray(data[CONFIG_KEY])))["kind"]
+
+
 def _load_flat(cfg, data, meta, device):
-    if cfg["dtype"] != "float32":
-        raise NotImplementedError(f"flat index dtype {cfg['dtype']}: "
-                                  + _NOT_PORTED.format("item 5, bf16/int8 flat storage"))
-    corpus = _unpack(data, meta, "corpus", device)
-    return FlatIPIndex(corpus, n_total=int(cfg["n_total"]))
+    require_fp32_matmul()
+    self = FlatIPIndex.__new__(FlatIPIndex)
+    self.dtype = _as_dtype(cfg["dtype"])
+    self.quantized = self.dtype == torch.int8
+    self.recall_target = float(cfg["recall_target"])
+    self.precision = cfg["precision"]
+    self.n_total = n = int(cfg["n_total"])
+    self.dim = int(cfg["dim"])
+    self.corpus, self.row_scale = self._empty_storage(self._storage_rows(n), device)
+    self.corpus[:n] = _unpack(data, meta, "corpus", device)
+    if self.quantized:
+        self.row_scale[:n] = _unpack(data, meta, "row_scale", device)
+    self.n_padded = int(self.corpus.shape[0])
+    self._fill = [self.n_total]
+    return self
 
 
 def _load_refine(cfg, data, meta, device):

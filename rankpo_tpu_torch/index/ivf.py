@@ -61,10 +61,12 @@ from rankpo_tpu_torch.index.flat import (
     _chunked_row_gather,
     build_selector_mask,
     mask_filtered_misses,
+    quantize_rows_int8,
     validate_append_args,
 )
 from rankpo_tpu_torch.ops.ivf_gather import probe_scores
 from rankpo_tpu_torch.ops.pq_adc import PQ_K, pq_probe_scores, pq_probe_scores_t
+from rankpo_tpu_torch.ops.topk import bf16_mm as _bf16_mm
 from rankpo_tpu_torch.ops.topk import exact_topk, require_fp32_matmul
 
 logger = logging.getLogger(__name__)
@@ -139,16 +141,6 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=float32``; torch's bf16 matmul would round the
     result to bf16)."""
     return x.to(torch.bfloat16).to(torch.float32)
-
-
-def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """fp32 ``a @ b`` of the bf16-rounded operands: exact products summed in
-    fp32. On the card one bf16 tensor-core GEMM with an fp32 output; on the
-    CPU an fp32 product of the rounded values (the same contract)."""
-    if a.is_cuda:
-        return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
-                        out_dtype=torch.float32)
-    return _bf16(a) @ _bf16(b)
 
 
 def _bf16_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -319,21 +311,6 @@ def _pq_reconstruct(codes: torch.Tensor, codebooks_flat: torch.Tensor, m: int,
     [m*256, ds] (subvector blocks are contiguous)."""
     flat = codes.long() + torch.arange(m, device=codes.device) * PQ_K
     return codebooks_flat[flat].reshape(codes.shape[:-1] + (m * ds,))
-
-
-def _quantize_rows_int8(rows: torch.Tensor, *, times_reciprocal: bool = False):
-    """Symmetric per-row max-abs int8 codes and fp32 scales (the JAX
-    package's scheme; zero rows get scale 1e-12 and zero codes). The JAX
-    constructor quantizes on the host (``max / 127``); its streamed build
-    and appends quantize through XLA, which computes ``max * (1 / 127)``,
-    one fp32 ulp apart in ~4% of rows: ``times_reciprocal`` takes that
-    rounding, so both packages store the same scales on every path."""
-    rows = rows.to(torch.float32)
-    peak = rows.abs().amax(dim=1)
-    scale = peak * (1.0 / 127.0) if times_reciprocal else peak / 127.0
-    scale = torch.clamp_min(scale, 1e-12)
-    codes = torch.clamp(torch.round(rows / scale[:, None]), -127, 127)
-    return codes.to(torch.int8), scale
 
 
 def _greedy_fill(cand: np.ndarray, n_total: int, k: int, capacity: int
@@ -681,7 +658,7 @@ class IVFIPIndex:
         or cast rows. Chunked so the PQ score transient stays small."""
         if self.pq_m is None:
             if self.quantized:
-                corpus[slots], slot_scale[slots] = _quantize_rows_int8(
+                corpus[slots], slot_scale[slots] = quantize_rows_int8(
                     rows, times_reciprocal=True)
             else:
                 corpus[slots] = rows.to(self.store_dtype)
@@ -868,7 +845,7 @@ class IVFIPIndex:
             sl = slice(lo, lo + _ENCODE_CHUNK)
             rows = torch.where(valid[sl, None], corpus[perm[sl]], 0.0)
             if self.quantized:
-                out[sl], scale[sl] = _quantize_rows_int8(rows)
+                out[sl], scale[sl] = quantize_rows_int8(rows)
             else:
                 out[sl] = rows.to(self.store_dtype)
         self.corpus = out

@@ -1,10 +1,13 @@
 """Text encoder: backbone forward -> pooling -> optional L2 normalisation
 (port of ``rankpo_tpu.models.encoder``). Serving and training both call
-:func:`embed`, so the embedding semantics live in one place."""
+:func:`embed`, so the embedding semantics live in one place;
+:func:`resize_token_embeddings` grows the vocabulary after a tokenizer gains
+special tokens."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,3 +50,55 @@ def embed(
     if normalize:
         reps = l2_normalize(reps)
     return reps
+
+
+def _tree_sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """[1, H] fp32 sum of the rows of ``x`` [N, H] in the order XLA's CPU
+    tree reduction takes: windows of 32 rows (zero rows padding the count
+    to a multiple of 32, half before, half after) summed in order, level by
+    level, until 32 or fewer remain, then those in order. The JAX package
+    takes its mean as this sum times the fp32 reciprocal of the count, so
+    the resized rows are bit-equal to its rows."""
+    while x.shape[0] > 32:
+        n, h = x.shape
+        pad = -n % 32
+        x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2)).view(-1, 32, h)
+        acc = torch.zeros_like(x[:, 0])
+        for i in range(32):
+            acc = acc + x[:, i]
+        x = acc
+    acc = torch.zeros_like(x[:1])
+    for i in range(x.shape[0]):
+        acc = acc + x[i : i + 1]
+    return acc
+
+
+def resize_token_embeddings(
+    state: Dict[str, torch.Tensor],
+    config,
+    new_size: int,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Dict[str, torch.Tensor], object]:
+    """(state, config) with the embedding table grown or cut to ``new_size``
+    rows (reference run_contrastive.py:132-143 adds 7 special tokens and
+    resizes). New rows are the mean of the old rows, taken in fp32
+    (:func:`_tree_sum_rows`) and cast to the table's dtype (HF's
+    ``mean_resizing``), or normal(0.02) rows
+    drawn in fp32 from ``generator`` when one is given. The input state is
+    not modified."""
+    name = "embed_tokens.weight"
+    table = state[name]
+    old_size, h = table.shape
+    if new_size <= old_size:
+        new_table = table[:new_size]
+    elif generator is None:
+        mean = _tree_sum_rows(table.to(torch.float32)) * torch.tensor(
+            1.0 / old_size, dtype=torch.float32)
+        new_table = torch.cat([table, mean.expand(new_size - old_size, h).to(table.dtype)])
+    else:
+        rows = torch.randn(new_size - old_size, h, generator=generator, dtype=torch.float32,
+                           device=generator.device) * 0.02
+        new_table = torch.cat([table, rows.to(table.device, table.dtype)])
+    new_state = dict(state)
+    new_state[name] = new_table
+    return new_state, dataclasses.replace(config, vocab_size=new_size)

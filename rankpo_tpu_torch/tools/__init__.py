@@ -10,6 +10,8 @@ _EXPORTS = {
     "find_hard_negatives": "rankpo_tpu_torch.tools.hard_negatives",
     "select_negative_ids": "rankpo_tpu_torch.tools.hard_negatives",
     "generate_predictions": "rankpo_tpu_torch.tools.predictions",
+    "autotune_index": "rankpo_tpu_torch.tools.autotune",
+    "default_specs": "rankpo_tpu_torch.tools.autotune",
 }
 __all__ = sorted(_EXPORTS)
 

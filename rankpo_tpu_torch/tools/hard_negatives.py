@@ -29,7 +29,7 @@ import numpy as np
 
 from rankpo_tpu_torch.data.datasets import load_mining_rows
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import build_offline_index, resolve_offline_index
+from rankpo_tpu_torch.index.factory import build_offline_index, resolve_index_spec
 
 logger = logging.getLogger(__name__)
 
@@ -175,8 +175,8 @@ def find_hard_negatives(
         methods = list(_METHODS)
     lambdas = [lambda_] if lambda_ is not None else [x / 10.0 for x in range(9, 0, -1)]
 
-    # an invalid or unported spec fails here, not after the corpus encode
-    index_type, index_kwargs = resolve_offline_index(index_type, index_kwargs)
+    # an invalid spec fails here, not after the corpus encode
+    index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
 
     train_rows, queries, corpus = load_mining_rows(input_file)
     # the reference samples ONE positive per row at load time (:207) for the
@@ -194,7 +194,7 @@ def find_hard_negatives(
     # the refine tier's PCA moment of the stored rows, as the JAX mining
     # tool's host constructor takes it
     index = build_offline_index(c_dev, n_corpus, index_type, index_kwargs,
-                                index_recall_target, refine_moment_of_stored=True)
+                                index_recall_target, as_constructor=True)
     _scores, indices = index.search(q_emb, k=hi, batch_size=batch_size)
     del index, c_dev
     # drop IVF's -1 tail padding (unreachable slots) before sampling

@@ -29,7 +29,7 @@ import numpy as np
 
 from rankpo_tpu_torch.data.datasets import load_eval_corpus, load_eval_queries
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import build_offline_index, resolve_offline_index
+from rankpo_tpu_torch.index.factory import build_offline_index, resolve_index_spec
 from rankpo_tpu_torch.utils.jsonl import write_jsonl
 
 logger = logging.getLogger(__name__)
@@ -66,8 +66,8 @@ def generate_predictions(
         lo, hi = search_range
     rng = np.random.default_rng(seed)
 
-    # an invalid or unported spec fails here, not after the corpus encode
-    index_type, index_kwargs = resolve_offline_index(index_type, index_kwargs)
+    # an invalid spec fails here, not after the corpus encode
+    index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
     queries, _labels = load_eval_queries(query_data)
     corpus = load_eval_corpus(corpus_data)
 

@@ -182,7 +182,7 @@ def _files(out):
                   for d, _, fs in os.walk(out) for f in fs)
 
 
-@pytest.mark.parametrize("index", ["flat", "ivf", "refine"])
+@pytest.mark.parametrize("index", ["flat", "ivf", "refine", "SQ8", "SQbf16"])
 def test_evaluate_path_matches_jax(tree, tmp_path, index):
     root, qf, cf = tree
     models = str(root / "models" / "tiny")
@@ -266,6 +266,8 @@ def test_refine_raises_before_loading(tmp_path):
     with pytest.raises(ValueError, match="refine tier reranks on fp32/bf16"):
         evaluator.evaluate_checkpoint(str(tmp_path / "missing"), ["q"], [[0]], ["d"],
                                       device="cpu", index_type="PCA16,SQ8")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # the flat tier's int8 rows are served (the parity is
+    # test_evaluate_path_matches_jax[SQ8]): a missing checkpoint is the error
+    with pytest.raises(FileNotFoundError):
         evaluator.evaluate_checkpoint(str(tmp_path / "missing"), ["q"], [[0]], ["d"],
                                       device="cpu", index_type="SQ8")

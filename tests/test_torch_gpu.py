@@ -179,6 +179,82 @@ def test_exact_search_tie_order_on_card(cuda):
         np.testing.assert_array_equal(i, ri)
 
 
+@pytest.mark.parametrize("q_n", [1, 16, 64])
+def test_int8_product_on_card(cuda, q_n):
+    """cuBLASLt's int8 GEMM (``torch._int_mm``, the left operand padded past
+    16 rows, N past a multiple of 8) gives the exact integer sums."""
+    from rankpo_tpu_torch.ops.topk import int8_product
+
+    gen = torch.Generator().manual_seed(q_n)
+    q8 = torch.randint(-127, 128, (q_n, 2048), generator=gen, dtype=torch.int8)
+    codes = torch.randint(-127, 128, (1003, 2048), generator=gen, dtype=torch.int8)
+    got = int8_product(q8.to(cuda), codes.to(cuda)).cpu()
+    assert torch.equal(got, (q8.long() @ codes.long().T).int())
+
+
+def test_int8_codecs_on_card_match_cpu(cuda):
+    """The row codec on both rounding paths and the query codec give the
+    CPU's bits on the card (no division by a host scalar turned into a
+    product with its reciprocal)."""
+    from rankpo_tpu_torch.index.flat import quantize_rows_int8
+    from rankpo_tpu_torch.ops.topk import quantize_queries_int8
+
+    x = torch.randn(4096, 512, generator=torch.Generator().manual_seed(3))
+    for recip in (False, True):
+        dev = quantize_rows_int8(x.to(cuda), times_reciprocal=recip)
+        cpu = quantize_rows_int8(x, times_reciprocal=recip)
+        assert torch.equal(dev[0].cpu(), cpu[0]) and torch.equal(dev[1].cpu(), cpu[1])
+    dev = quantize_queries_int8(x.to(cuda).bfloat16())
+    cpu = quantize_queries_int8(x.bfloat16())
+    assert torch.equal(dev[0].cpu(), cpu[0]) and torch.equal(dev[1].cpu(), cpu[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("approx", [False, True])
+def test_flat_storage_on_card_matches_cpu(cuda, dtype, approx):
+    """bf16 and int8 flat rows on the card: the same stored rows as on the
+    CPU; exact mode's hits equal the CPU's outside 1e-5 near-ties (int8:
+    against the int8 product's own oracle, the queries quantized as it
+    quantizes them); the approximate mode at or above its recall target;
+    filtered search, append and remove as on the CPU."""
+    from rankpo_tpu_torch.ops.topk import quantize_queries_int8
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((5000, 256)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[:64] + 0.05 * rng.standard_normal((64, 256)).astype(np.float32)
+    kw = {"recall_target": 0.9} if approx else {}
+    dev = FlatIPIndex.from_sharded(torch.from_numpy(x).to(cuda), 5000, dtype=dtype, **kw)
+    cpu = FlatIPIndex.from_sharded(torch.from_numpy(x), 5000, dtype=dtype, **kw)
+    ids = np.arange(5000)
+    np.testing.assert_array_equal(dev.reconstruct(ids), cpu.reconstruct(ids))
+    s, i = dev.search(q, k=20)
+    rows = cpu.reconstruct(ids)
+    qb = torch.from_numpy(q).bfloat16()
+    if dtype == torch.int8:
+        q8, qs = quantize_queries_int8(qb)
+        q_eff = (q8.float() * qs[:, None]).numpy()
+    else:
+        q_eff = qb.float().numpy()
+    rs, ri = numpy_search(rows, q_eff, 21)
+    if approx:
+        assert np.mean([len(set(a) & set(b)) / 20 for a, b in zip(i, ri)]) >= 0.9
+    else:
+        np.testing.assert_allclose(s, rs[:, :20], atol=1e-5, rtol=0)
+        gap = np.abs(np.diff(rs, axis=1)) > 1e-5
+        clear = gap[:, 1:] & gap[:, :-1]
+        np.testing.assert_array_equal(i[:, 1:][clear], ri[:, 1:20][clear])
+    allowed = ids[::7]
+    fs, fi = dev.search(q, k=20, allowed_ids=allowed)
+    assert np.isin(fi, allowed).all()
+    grown = dev.append_sharded(torch.from_numpy(q).to(cuda), 64).remove_rows([0, 4999])
+    assert grown.ntotal == 5062 and grown.device.type == "cuda"
+    np.testing.assert_array_equal(
+        grown.reconstruct([4997, 4998, 5061]),
+        cpu.append_sharded(torch.from_numpy(q), 64).remove_rows([0, 4999])
+        .reconstruct([4997, 4998, 5061]))
+
+
 def test_encoder_kernel_against_plain(cuda):
     """A tiny random llama in bf16: embeddings through the kernel and through
     the plain attention agree to cosine >= 0.999 per row."""

@@ -60,6 +60,8 @@ MODULES = [
     "rankpo_tpu_torch.cli.get_hard_negatives",
     "rankpo_tpu_torch.cli.get_predictions",
     "rankpo_tpu_torch.cli.run_pipeline",
+    "rankpo_tpu_torch.tools.autotune",
+    "rankpo_tpu_torch.cli.autotune",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

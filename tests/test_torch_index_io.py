@@ -106,10 +106,14 @@ def test_flat_files_both_ways(tmp_path):
 
 
 def test_unported_kinds_and_formats_raise(tmp_path):
-    corpus, _ = _data(n=64, seed=3)
-    jio.write_index(JaxFlat(corpus, dtype=jnp.int8), str(tmp_path / "int8"))
-    with pytest.raises(NotImplementedError, match="flat storage"):
-        pio.read_index(str(tmp_path / "int8.npz"), device="cpu")
+    corpus, queries = _data(n=64, seed=3)
+    # int8 flat storage loads now (it raised before the port had it): the
+    # codes and scales as written, the JAX index's hits
+    j8 = JaxFlat(corpus, dtype=jnp.int8)
+    jio.write_index(j8, str(tmp_path / "int8"))
+    p8 = pio.read_index(str(tmp_path / "int8.npz"), device="cpu")
+    np.testing.assert_array_equal(p8.corpus[:64].numpy(), np.asarray(j8.corpus)[:64])
+    _same_hits(p8.search(queries, k=7), j8.search(queries, k=7))
     # the PCA hybrid loads (it raised before the port had it)
     j = JaxIVF(corpus, n_clusters=4, nprobe=2, reduced_dim=8)
     p = pio.index_from_state(jio.index_state(j), device="cpu")
@@ -123,6 +127,35 @@ def test_unported_kinds_and_formats_raise(tmp_path):
         pio.index_from_state(state, device="cpu")
     with pytest.raises(TypeError):
         pio.index_state(object())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("approx", [False, True])
+def test_flat_storage_files_both_ways(tmp_path, dtype, approx):
+    """Flat bf16 / int8 files (with the approximate mode's recall_target)
+    cross the packages both ways: stored rows bit-equal, the same knobs,
+    hits as the writer's index (exact mode)."""
+    corpus, queries = _data(n=100, seed=4)
+    kw = {"recall_target": 0.9} if approx else {}
+    j = JaxFlat(corpus, dtype=getattr(jnp, dtype), **kw)
+    p = FlatIPIndex(corpus, dtype=getattr(torch, dtype), **kw)
+    jio.write_index(j, str(tmp_path / "j"))
+    pio.write_index(p.append_sharded(torch.from_numpy(queries), 4), str(tmp_path / "p"))
+    from_j = pio.read_index(str(tmp_path / "j.npz"), device="cpu")
+    from_p = jio.read_index(str(tmp_path / "p.npz"))
+    assert from_j.dtype == getattr(torch, dtype) and from_j.recall_target == j.recall_target
+    assert from_p.dtype == getattr(jnp, dtype) and from_p.ntotal == 104
+    assert from_p.recall_target == p.recall_target
+    ids = np.arange(100)
+    np.testing.assert_array_equal(from_j.reconstruct(ids), j.reconstruct(ids))
+    np.testing.assert_array_equal(from_p.reconstruct(np.arange(104)),
+                                  p.append_sharded(torch.from_numpy(queries), 4)
+                                  .reconstruct(np.arange(104)))
+    if not approx:
+        _same_hits(from_j.search(queries, k=7), j.search(queries, k=7))
+    assert pio.is_index_state(jio.index_state(j)) and pio.state_kind(
+        pio.index_state(p)) == jio.state_kind(jio.index_state(j)) == "flat"
+    assert not pio.is_index_state({"embeddings": corpus})
 
 
 def test_read_defaults_to_the_card(tmp_path):

@@ -23,7 +23,7 @@ from rankpo_tpu.index import io as jio
 from rankpo_tpu.index.flat import numpy_search
 from rankpo_tpu.index.refined import RefineIPIndex as JaxRefine
 from rankpo_tpu_torch.index import io as pio
-from rankpo_tpu_torch.index.factory import build_offline_index, resolve_offline_index
+from rankpo_tpu_torch.index.factory import build_offline_index, resolve_index_spec
 from rankpo_tpu_torch.index.refined import RefineIPIndex
 
 from test_torch_ivf import TOL, _assert_same_hits, _storage_bits
@@ -178,13 +178,13 @@ def test_build_offline_index_takes_the_tool_constructor():
     min(256, D); the moment of the fp32 rows (evaluator, predictions) or of
     the stored rows (mining)."""
     corpus, queries = _spectral(n=600, seed=26)
-    kind, kw = resolve_offline_index("PCA16,Flat")
+    kind, kw = resolve_index_spec("PCA16,Flat")
     assert (kind, kw) == ("refine", {"reduced_dim": 16})
     default = build_offline_index(torch.from_numpy(corpus), 600, "refine", {}, 0.9)
     assert default.reduced_dim == 64  # min(256, D)
     for stored in (False, True):
         p = build_offline_index(torch.from_numpy(corpus), 600, "refine", kw, 0.9,
-                                refine_moment_of_stored=stored)
+                                as_constructor=stored)
         j = (JaxRefine(corpus, reduced_dim=16, recall_target=0.9) if stored else
              JaxRefine.from_sharded(jnp.asarray(corpus), 600, reduced_dim=16,
                                     recall_target=0.9))

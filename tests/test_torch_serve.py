@@ -202,10 +202,16 @@ def test_http_server(checkpoint):
         assert stats["microbatch_queries"] == 4
         assert _post(port, "/search", {"query": "x", "k": 21})[0] == 400
         assert _post(port, "/search", {"queries": "not a list"})[0] == 400
-        code, body = _post(port, "/search", {"query": "x", "allowed_ids": [1]})
-        assert code == 400 and "not ported" in body["error"]
+        # a request-level filter bypasses the batcher; every hit is allowed
+        code, body = _post(port, "/search", {"queries": QUERIES, "k": 5,
+                                             "allowed_ids": [1, 3, 4]})
+        assert code == 200 and _get(port, "/statsz")["microbatch_queries"] == 4
+        assert all({h["index"] for h in r["hits"]} == {1, 3, 4}
+                   for r in body["results"])
         code, body = _post(port, "/add", {"passages": ["new"]})
-        assert code == 501 and "not ported" in body["error"]
+        assert code == 200 and body == {"status": "ok", "ntotal": 51}
+        code, body = _post(port, "/save", {})
+        assert code == 400 and "no save target" in body["error"]
     finally:
         server.shutdown()
         server.batcher.close()
@@ -216,18 +222,55 @@ def test_http_server(checkpoint):
     assert not any(port_flash.launches.values())
 
 
-@pytest.mark.parametrize("flag", [["--index_dtype", "int8"],
-                                  ["--recall_target", "0.9"], ["--stable_ids"],
-                                  ["--num_processes", "2"], ["--index_file", "i.npz"],
-                                  ["--pack_queries"], ["--index_type", "SQ8"],
-                                  ["--index_type", "flat", "--index_dtype", "bfloat16"]])
-def test_unported_flags_fail(checkpoint, flag, capsys):
-    """Each rejected with its ROADMAP.md item (the flat tier still takes
-    only fp32 rows and recall_target 1)."""
+@pytest.mark.parametrize("flag,item", [(["--num_processes", "2"], "item 8"),
+                                       (["--pack_queries"], "item 7")])
+def test_unported_flags_fail(checkpoint, flag, item, capsys):
+    """Each rejected with its ROADMAP.md item: multi-host serving (8) and
+    packed queries (7)."""
     with pytest.raises(SystemExit):
         cli.main(_argv(checkpoint, "--device", "cpu", *flag))
     err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP.md" in err
+    assert "not ported" in err and "ROADMAP.md" in err and item in err
+
+
+@pytest.mark.parametrize("flag,check", [
+    (["--index_dtype", "int8"], lambda idx: idx.dtype == torch.int8),
+    (["--recall_target", "0.9"], lambda idx: idx.recall_target == 0.9),
+    (["--stable_ids"], lambda idx: idx.dtype == torch.float32),
+    (["--index_file", "{tmp}/i.npz"], lambda idx: idx.dtype == torch.float32),
+    (["--index_type", "SQ8"], lambda idx: idx.dtype == torch.int8),
+    (["--index_type", "flat", "--index_dtype", "bfloat16"],
+     lambda idx: idx.dtype == torch.bfloat16),
+])
+def test_formerly_unported_flags_serve(checkpoint, flag, check, tmp_path):
+    """The flags the flat tier refused before bf16/int8 storage, the
+    approximate mode, stable ids and persistence were ported: the server
+    starts on the CPU with each and answers one /search over the flat tier
+    with its storage (hits as the service's own query; under
+    ``--stable_ids`` each hit carries its id; ``--index_file`` writes the
+    file)."""
+    flag = [f.format(tmp=tmp_path) for f in flag]
+    server = cli.make_server(_argv(checkpoint, "--device", "cpu", "--log_level", "warning",
+                                   *flag))
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        index = server.service.index
+        assert type(index).__name__ == "FlatIPIndex" and check(index)
+        code, body = _post(port, "/search", {"queries": QUERIES[:2], "k": 5})
+        assert code == 200
+        for res, direct in zip(body["results"], server.service.query(QUERIES[:2], k=5)):
+            assert len(res["hits"]) == 5
+            _assert_hits_match(res["hits"], direct["hits"])
+            assert all(("id" in h) == ("--stable_ids" in flag) for h in res["hits"])
+        if "--index_file" in flag:
+            assert (tmp_path / "i.npz").exists()
+    finally:
+        server.shutdown()
+        server.batcher.close()
+        server.server_close()
+        thread.join(timeout=30)
 
 
 def test_ivf_flag_checks(checkpoint, capsys):
@@ -320,8 +363,18 @@ def test_http_server_ivf(checkpoint, flags, kind):
                     for s, i in zip(*(a[r] for a in ref)) if i >= 0][:10]
             _assert_hits_match(res["hits"], want)
         assert _get(port, "/statsz")["microbatch_queries"] == 3  # both bypassed it
-        code, body = _post(port, "/search", {"query": "x", "allowed_ids": [1]})
-        assert code == 400 and "not ported" in body["error"]
+        # a request filter keeps the build's probes: hits are the index's
+        # own filtered search, every one allowed
+        allowed = list(range(0, 50, 3))
+        code, body = _post(port, "/search", {"queries": QUERIES, "k": 10,
+                                             "allowed_ids": allowed})
+        assert code == 200
+        ref = index.search(q_emb, k=20, allowed_ids=allowed)
+        for r, res in enumerate(body["results"]):
+            assert {h["index"] for h in res["hits"]} <= set(allowed)
+            want = [{"index": int(i), "score": float(s)}
+                    for s, i in zip(*(a[r] for a in ref)) if i >= 0][:10]
+            _assert_hits_match(res["hits"], want)
     finally:
         server.shutdown()
         server.batcher.close()

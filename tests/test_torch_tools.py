@@ -265,6 +265,35 @@ def test_refine_raises(tmp_path, encoders, tool):
         assert got == want and len(got) == 9
 
 
+@pytest.mark.parametrize("spec", ["SQ8", "SQbf16"])
+@pytest.mark.parametrize("tool", ["mining", "predictions"])
+def test_flat_storage_tiers_equal_jax(tmp_path, encoders, tool, spec):
+    """Mining and prediction pairs over the flat tier's int8 and bf16 rows
+    (factory specs SQ8 / SQbf16): the JAX tools' rows. Mining builds as the
+    JAX constructor (host int8 rounding), predictions as ``from_sharded``."""
+    port, jax_enc = encoders
+    if tool == "mining":
+        inp = _mining_file(tmp_path, n=6, n_pos=2)
+        from rankpo_tpu_torch.data.datasets import load_mining_rows
+
+        _, queries, corpus = load_mining_rows(inp)
+        _assert_separated(jax_enc, queries, corpus, 10)
+        kw = dict(MINE_KW, method="topk,cluster", lambda_=0.5, index_type=spec)
+        got = find_hard_negatives(port, inp, str(tmp_path / "port"), **kw)
+        want = j_find_hard(jax_enc, inp, str(tmp_path / "jax"), mesh=None, **kw)
+        assert sorted(got) == sorted(want)
+        for name in got:
+            assert _rows(got[name]) == _rows(want[name]), name
+    else:
+        qf, cf, queries, corpus = _qc_files(tmp_path)
+        _assert_separated(jax_enc, queries, corpus, 8)
+        kw = dict(max_query_length=16, max_passage_length=16, search_range=(0, 8),
+                  method="topk", num_predictions=3, batch_size=8, index_type=spec)
+        got = generate_predictions(port, qf, cf, str(tmp_path / "p.jsonl"), **kw)
+        want = j_predictions(jax_enc, qf, cf, str(tmp_path / "j.jsonl"), mesh=None, **kw)
+        assert got == want and len(got) == 9
+
+
 def _qc_files(tmp_path, n_q=3, n_c=12):
     corpus = [f"candidate doc {i}" for i in range(n_c)]
     qf, cf = tmp_path / "q.jsonl", tmp_path / "c.jsonl"
