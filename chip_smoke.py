@@ -1110,6 +1110,13 @@ def phase_mutation(seed: int, tmp: str, ckpt: str, tier: str) -> dict:
             "--port", str(port), "--log_level", "warning", "--stable_ids", "--autosave",
             "--index_file", index_file, *extra]
     res = {}
+    uncounted = {}
+
+    def launch_counts():
+        return {"flash_fwd": flash.launches["flash_fwd"],
+                **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
+                   for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
+
     # ---- the mutation path: counters from 0, start, add, remove, filter ----
     flash.reset_launches()
     ivf_gather.reset_launches()
@@ -1123,18 +1130,22 @@ def phase_mutation(seed: int, tmp: str, ckpt: str, tier: str) -> dict:
         new_ids = list(range(N_PASSAGES, N_PASSAGES + N_MUTATE))
         status, body, res["self_s"] = _http(port, "/search", {"queries": added, "k": 10})
         res["self_rank1"] = sum(ids[0] == i for ids, i in zip(_hits(body)[0], new_ids))
+        # PQ's ADC scores carry the codec's error (64 bytes for 2048 dims):
+        # its own row is held within the served k_max, its rank printed
+        allowed_rank = 99 if kind == "pq_rows" else 0
         if kernel is not None:
             # an added row takes a free slot of its nearest cluster, else of
-            # its second, else any (a full cluster spills it): the tuned
-            # probes need not reach it, every cluster's do. PQ's ADC scores
-            # carry the codec's error (64 bytes for 2048 dims): its own row
-            # is held within the served k_max, its rank printed
+            # its second, else any: the tuned probes reach it only where they
+            # probe its cluster (held in-process, its launches not counted),
+            # and every cluster's probes always do (held over HTTP)
+            before = launch_counts()
+            res.update(_check_ivf_append(server.service, added, new_ids, allowed_rank))
+            uncounted = {name: n - before[name] for name, n in launch_counts().items()}
             n_clusters = server.service.index.n_clusters
             status, body, _ = _http(port, "/search", {"queries": added, "k": 100,
                                                       "nprobe": n_clusters})
         ranks = [ids.index(i) if i in ids else None for ids, i in zip(_hits(body)[0], new_ids)]
         res["self_ranks"] = {r: ranks.count(r) for r in sorted(set(ranks), key=str)}
-        allowed_rank = 99 if kind == "pq_rows" else 0
         if any(r is None or r > allowed_rank for r in ranks):
             raise AssertionError(f"added passages not found at rank <= {allowed_rank + 1}: "
                                  f"ranks {res['self_ranks']}")
@@ -1156,9 +1167,7 @@ def phase_mutation(seed: int, tmp: str, ckpt: str, tier: str) -> dict:
         if not np.isin(np.array([i for ids in _hits(before[2])[0] for i in ids]),
                        allowed).all():
             raise AssertionError("a filtered request returned an id it does not allow")
-        launches = {"flash_fwd": flash.launches["flash_fwd"],
-                    **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
-                       for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
+        launches = {name: n - uncounted.get(name, 0) for name, n in launch_counts().items()}
         # ---- end of the mutation path ----
         if launches["flash_fwd"] <= 0 or (kernel and launches[kernel] <= 0):
             raise AssertionError(f"a kernel of the {tier} mutation path did not launch: "
@@ -1184,9 +1193,7 @@ def phase_mutation(seed: int, tmp: str, ckpt: str, tier: str) -> dict:
     server, thread, res["restart_s"] = start_server(argv, port)
     try:
         after = [_http(port, "/search", r)[1] for r in requests]
-        restart = {"flash_fwd": flash.launches["flash_fwd"],
-                   **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
-                      for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
+        restart = launch_counts()
     finally:
         stop_server(server, thread)
     if [_hits(b) for b in after] != [_hits(b) for b in before]:
@@ -1196,10 +1203,15 @@ def phase_mutation(seed: int, tmp: str, ckpt: str, tier: str) -> dict:
         raise AssertionError(f"the restart encoded the corpus ({restart['flash_fwd']} K1 "
                              "launches)")
     res["launches"] = {name: launches[name] + restart[name] for name in launches}
+    placed = (f"placed {res['append_first']} in their nearest cluster, "
+              f"{res['append_second']} in their second, {res['append_spilled']} spilled (the "
+              f"append rule held); at the tuned nprobe {res['tuned_nprobe']} {res['tuned_probed']} "
+              f"lie in a probed cluster, each found at rank <= {allowed_rank + 1}, the rest "
+              f"not found; " if kernel else "")
     log(f"mutated {tier} ({' '.join(extra) or 'flat fp32'}): start {res['startup_s']:.2f} s; "
-        f"/add {N_MUTATE} passages {res['add_s']:.2f} s (autosave included), each found by "
-        f"its own text {'probing every cluster ' if kernel else ''}at ranks "
-        f"{res['self_ranks']} ({res['self_rank1']} at rank 1 with the tuned probes); "
+        f"/add {N_MUTATE} passages {res['add_s']:.2f} s (autosave included), {placed}each "
+        f"found by its own text {'probing every cluster ' if kernel else ''}at ranks "
+        f"{res['self_ranks']} ({res['self_rank1']} at rank 1 as served); "
         f"/remove {N_MUTATE} ids {res['remove_s']:.2f} s, none came back; a request "
         f"filtered to {allowed.size} of {live.size} ids, every hit allowed; restart from "
         f"{os.path.basename(index_file)} ({os.path.getsize(index_file) / 2**20:.1f} MiB) "
@@ -1207,6 +1219,56 @@ def phase_mutation(seed: int, tmp: str, ckpt: str, tier: str) -> dict:
         f"takes {encode_launches}): hits and scores equal to before; launches {launches} "
         f"then {restart}; self queries {res['self_s']:.2f} s, server stop {res['stop_s']:.2f} s")
     return res
+
+
+def _check_ivf_append(service, texts, new_ids, allowed_rank: int) -> dict:
+    """An IVF tier just after /add of ``texts`` (corpus positions
+    ``new_ids``). Each added row must sit where the append rule
+    (``IVFIPIndex._place_free``, the JAX package's) puts it: in its nearest
+    cluster, else in its second with the nearest left with no free slot,
+    else anywhere with both left with none. The nearest two come from the
+    /add encode run again (the same call on the same card). At the served
+    nprobe for k 100, the index's own search over the texts' query
+    embeddings must return each added row whose cluster its query probes at
+    rank <= ``allowed_rank`` + 1, and none whose cluster it does not probe.
+    Returns the counts."""
+    from rankpo_tpu_torch.index.ivf import _assign_top2_body
+
+    index, encoder = service.index, service.encoder
+    new_ids = np.asarray(new_ids)
+    with torch.inference_mode():
+        rows, n = encoder.encode_device(list(texts), batch_size=256, max_length=512)
+        cand = _assign_top2_body(rows[:n], index.centroids, chunk=n,
+                                 bias=index.assign_bias).cpu().numpy()
+        q = torch.cat([encoder.embed_batch(encoder.prepare_batch(texts[lo : lo + 64],
+                                                                 len(texts[lo : lo + 64]), 512))
+                       for lo in range(0, len(texts), 64)]).float()
+        p, _ = index._effective_probe(100, None)
+        probe, _ = index._probe_clusters(q, p)
+        hits = index.search_tensor(q, 100)[1].cpu().numpy()
+    cluster = index._cluster_of_row[new_ids]
+    free = (index._row_ids_host.reshape(index.n_clusters, index.capacity) < 0).sum(1)
+    full0, full1 = free[cand[:, 0]] == 0, free[cand[:, 1]] == 0
+    first = cluster == cand[:, 0]
+    second = ~first & (cluster == cand[:, 1]) & full0
+    spilled = ~first & (cluster != cand[:, 1]) & full0 & full1
+    if not (first | second | spilled).all():
+        bad = np.nonzero(~(first | second | spilled))[0][:8]
+        raise AssertionError(f"added rows {new_ids[bad].tolist()} sit in clusters "
+                             f"{cluster[bad].tolist()}, not where the append rule puts them "
+                             f"(nearest two {cand[bad].tolist()}, free slots left "
+                             f"{free[cand[bad]].tolist()})")
+    probed = (probe.cpu().numpy() == cluster[:, None]).any(1)
+    ranks = np.array([int(np.argmax(h == i)) if (h == i).any() else -1
+                      for h, i in zip(hits, new_ids)])
+    if ((ranks[probed] < 0) | (ranks[probed] > allowed_rank)).any():
+        raise AssertionError(f"added rows in a probed cluster not found at rank <= "
+                             f"{allowed_rank + 1}: ranks {ranks[probed].tolist()}")
+    if (ranks[~probed] >= 0).any():
+        raise AssertionError("the search returned an added row whose cluster it did not probe")
+    return {"append_first": int(first.sum()), "append_second": int(second.sum()),
+            "append_spilled": int(spilled.sum()), "tuned_nprobe": p,
+            "tuned_probed": int(probed.sum())}
 
 
 # ---------------------------------------------------------------------------
@@ -2222,8 +2284,10 @@ def _flat_tiers_at_scale(corpus, queries) -> dict:
 def phase_autotune() -> dict:
     """Phase 6h: ``python -m rankpo_tpu_torch.cli.autotune`` in synthetic
     mode at 65,536 x 2048 (its default ladder, k 100, target 0.95), its
-    table printed; Flat's recall must be 1.0 and the recommended spec must
-    meet the target (the CLI exits 1 when none does)."""
+    table printed; every spec of the ladder must build and search (the
+    tuner reports a spec that raised as a row with an ``error``), Flat's
+    recall must be 1.0 and the recommended spec must meet the target (the
+    CLI exits 1 when none does)."""
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="rankpo_autotune_") as tmp:
         out = os.path.join(tmp, "report.json")
@@ -2244,6 +2308,9 @@ def phase_autotune() -> dict:
                                f"{(proc.stderr or proc.stdout)[-2000:]}")
         with open(out) as f:
             report = json.load(f)
+    failed = {r["spec"]: r["error"] for r in report["results"] if "error" in r}
+    if failed:
+        raise AssertionError(f"autotune: specs failed on the card: {failed}")
     by_spec = {r["spec"]: r for r in report["results"]}
     best = by_spec[report["best"]]
     if by_spec["Flat"].get("recall") != 1.0:

@@ -58,7 +58,10 @@ def _tree_sum_rows(x: torch.Tensor) -> torch.Tensor:
     to a multiple of 32, half before, half after) summed in order, level by
     level, until 32 or fewer remain, then those in order. The JAX package
     takes its mean as this sum times the fp32 reciprocal of the count, so
-    the resized rows are bit-equal to its rows."""
+    the resized rows are bit-equal to its rows. The order is XLA's
+    implementation, not its contract: should a jax release change it, the
+    bit-equal test fails and ``table.float().mean(0)`` (within an ulp)
+    takes this function's place."""
     while x.shape[0] > 32:
         n, h = x.shape
         pad = -n % 32

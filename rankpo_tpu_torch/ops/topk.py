@@ -191,9 +191,7 @@ def matmul_topk(
     *,
     k: int,
     n_valid: Optional[int] = None,
-    index_offset: int = 0,
     block_size: int = 4096,
-    allow_dense: bool = True,
     recall_target: float = 1.0,
     col_scale: Optional[torch.Tensor] = None,
     precision: Optional[str] = None,
@@ -202,7 +200,8 @@ def matmul_topk(
     row_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """queries [Q, D], corpus [N, D] -> (scores fp32 [Q, k'], indices int64
-    [Q, k']), k' = min(k, N); the arguments are :func:`dense_matmul_topk`'s.
+    [Q, k']), k' = min(k, N); the other arguments are
+    :func:`dense_matmul_topk`'s.
 
     One dense pass when the fp32 score matrix fits ``score_budget`` (None:
     ``DENSE_SCORE_BUDGET``) and no more than ``CAST_BUDGET`` bytes of rows
@@ -220,10 +219,9 @@ def matmul_topk(
         chunk = min(chunk, max(block_size, CAST_BUDGET // max(4 * d, 1)))
     chunk = max(8, chunk // 8 * 8)
     kwargs = dict(recall_target=recall_target, precision=precision, int8_mm=int8_mm)
-    if allow_dense and chunk >= n:
+    if chunk >= n:
         return dense_matmul_topk(queries, corpus, k=k, n_valid=n_valid,
-                                 index_offset=index_offset, col_scale=col_scale,
-                                 row_mask=row_mask, **kwargs)
+                                 col_scale=col_scale, row_mask=row_mask, **kwargs)
     n_valid = n if n_valid is None else n_valid
     best_s = best_i = None
     for lo in range(0, n, chunk):
@@ -242,4 +240,4 @@ def matmul_topk(
         cat_i = torch.cat([best_i, blk_i], dim=1)
         best_s, pos = exact_topk(cat_s, min(k, cat_s.shape[1]))
         best_i = torch.gather(cat_i, 1, pos)
-    return best_s, best_i + index_offset
+    return best_s, best_i

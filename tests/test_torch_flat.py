@@ -229,10 +229,11 @@ def test_chunked_matmul_topk_equals_dense(k):
     np.testing.assert_array_equal(chunked[1].numpy(), ref[1])
     mask = torch.ones(80, dtype=torch.bool)
     mask[[5, 32]] = False
-    kw = dict(k=k, n_valid=75, row_mask=mask, index_offset=1000)
-    for a, b in zip(ptopk.dense_matmul_topk(queries, corpus, **kw),
-                    ptopk.matmul_topk(queries, corpus, block_size=32, score_budget=1, **kw)):
-        assert torch.equal(a, b)
+    kw = dict(k=k, n_valid=75, row_mask=mask)
+    dense_s, dense_i = ptopk.dense_matmul_topk(queries, corpus, index_offset=1000, **kw)
+    chunk_s, chunk_i = ptopk.matmul_topk(queries, corpus, block_size=32, score_budget=1, **kw)
+    assert torch.equal(dense_s, chunk_s)
+    assert torch.equal(dense_i, chunk_i + 1000)
     j = jtopk.matmul_topk(jnp.asarray(queries.numpy()), jnp.asarray(corpus.numpy()),
                           k=min(k, 73), n_valid=75, row_mask=jnp.asarray(mask.numpy()),
                           block_size=32, score_budget=1, precision="float32")

@@ -444,6 +444,34 @@ def test_mutation_chain_matches_jax(mutated, name):
             assert np.mean([len(set(a) & set(b)) / 15 for a, b in zip(got, ref)]) >= 0.95
 
 
+@pytest.mark.parametrize("store", ["bfloat16", "int8"])
+def test_appended_rows_self_retrieval_matches_jax(store):
+    """Rows of one tight blob appended into slots freed anywhere, each sent
+    back as a query at the index's nprobe: the append rule (nearest
+    cluster, else second, else any free slot) spills the same rows into the
+    same clusters in both packages, outside their queries' probes, so the
+    same rows come back at rank 1 and the same rows do not."""
+    corpus, _ = _corpus_queries(n=600, n_q=8, d=32, seed=12)
+    j = jivf.IVFIPIndex(corpus, n_clusters=8, nprobe=2, kmeans_iters=5,
+                        capacity_slack=1.05, store_dtype=getattr(jnp, store))
+    p = pio.index_from_state(jio.index_state(j), device="cpu")
+    removed = np.sort(np.random.default_rng(1).choice(600, size=150, replace=False))
+    rng = np.random.default_rng(2)
+    blob = (corpus[7] + 0.05 * rng.standard_normal((120, 32))).astype(np.float32)
+    blob /= np.linalg.norm(blob, axis=1, keepdims=True)
+    j = j.remove_rows(removed).append_sharded(jnp.asarray(blob), len(blob))
+    p = p.remove_rows(removed).append_sharded(torch.from_numpy(blob), len(blob))
+    new = np.arange(p.n_total - len(blob), p.n_total)
+    j_ids = np.asarray(j.row_ids)
+    j_cluster = np.empty(j.n_total, np.int64)
+    j_cluster[j_ids[j_ids >= 0]] = np.nonzero(j_ids >= 0)[0] // j.capacity
+    np.testing.assert_array_equal(p._cluster_of_row[new], j_cluster[new])
+    got = p.search(blob, k=1)[1][:, 0] == new
+    ref = np.asarray(j.search(jnp.asarray(blob), k=1)[1])[:, 0] == new
+    np.testing.assert_array_equal(got, ref)
+    assert 0 < got.sum() < len(new)  # the spilled rows lie outside the probes
+
+
 def test_mutation_details():
     corpus, queries = _corpus_queries(n=600, n_q=8, d=32, seed=12)
     p = pivf.IVFIPIndex(corpus, n_clusters=8, nprobe=8, capacity_slack=1.0,
