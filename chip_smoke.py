@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's two main paths once through their normal entry points at
-the full width and depth of meta-llama/Llama-3.2-1B, with random weights
+the full width and depth of meta-llama/Llama-3.2-1B, and the other bodies
+at the published widths and depths of BAAI/bge-m3 (XLM-Roberta),
+BAAI/bge-large-en-v1.5 (BERT) and Qwen/Qwen2-1.5B, with random weights
 made from a seed, and checks every hand-written kernel against its plain
 PyTorch version. Phases:
 
@@ -17,7 +19,10 @@ PyTorch version. Phases:
    backward), K3a (dq) and K3b (dk/dv), each with its kernel time, the
    plain version's time, the time of the one PyTorch call that computes
    the same function (scaled_dot_product_attention, a yardstick the port
-   never calls) and the least time the card could take;
+   never calls) and the least time the card could take; also at the two
+   regimes the other bodies add (``REGIME_SHAPES``: non-causal with one
+   query head per kv head at D 64, causal with 6 per kv head at D 128),
+   checked and timed;
 3. exact search on data with exact ties;
 4. serving path, seven times: a bf16 checkpoint written with the port's
    save_pretrained, a 4096-passage corpus, the HTTP server started by the
@@ -88,10 +93,26 @@ PyTorch version. Phases:
    (Q x C(5, 2) pair rows), and ``run_pipeline --iterations 2`` over 64
    rows at full width (K1, K2): its final model, its prediction pairs and
    its peak device memory; which k-means path ran;
+5b. bge-m3: stage 1 through ``run_contrastive.main`` with the config's
+   dropout live (attention takes the plain path with attention-probs
+   dropout; no flash launch), then stage 2 through ``run_rankpo.main``
+   with ``--disable_dropout`` under deterministic algorithms (K1, K3a,
+   K3b): finite losses, every parameter moved, the outputs load; one
+   stage-1 micro-batch with dropout off through the kernels and plain;
+7b. ``cli.evaluate`` flat on bge-m3's stage-2 output (K1, CLS pooling):
+   metrics bit-equal to the host recompute, hits equal to numpy_search;
+4b. ``cli.serve`` flat from a bge-large-en-v1.5 checkpoint (BERT
+   positions, 2 token types) and from a Qwen2-1.5B one (q/k/v biases,
+   GQA 6:1 at D 128): the corpus encode, single and batched /search
+   requests held to the numpy oracle as phase 4 holds them;
+5q. Qwen2-1.5B: 4 stage-1 steps through ``run_contrastive.main`` (K1,
+   K2): finite losses, every parameter moved;
 9. numbers, and each phase's wall seconds.
 
-Each path's launch counters are set to 0 just before it runs and read just
-after. Any failure raises, so the exit code is not 0 and no result line is
+The hash tokenizer takes each checkpoint's pad id (``hash_special_ids``:
+XLM-Roberta pads with 1 and puts CLS at 0), so the Roberta position rule
+sees the ids it would see from the model's own tokenizer. Each path's
+launch counters are set to 0 just before it runs and read just after. Any failure raises, so the exit code is not 0 and no result line is
 printed. The last line of standard output is a JSON object naming the
 device.
 """
@@ -99,6 +120,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -116,12 +138,40 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-# Llama-3.2-1B (public config.json): the widths of the repo's EncoderConfig
-# defaults plus its llama3 RoPE scaling; tied embeddings
 LLAMA3_SCALING = {
     "rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192,
 }
+# the published config.json widths of each body (random weights from the
+# seed; dropout rates as published): Llama on the main paths, the others in
+# phases 4b, 5b, 7b and 5q
+MODELS = {
+    # meta-llama/Llama-3.2-1B: the widths of the repo's EncoderConfig
+    # defaults plus its llama3 RoPE scaling; tied embeddings
+    "llama-3.2-1b": dict(rope_scaling=LLAMA3_SCALING, pad_token_id=0,
+                         architectures=("LlamaForCausalLM",)),
+    "bge-m3": dict(  # BAAI/bge-m3, XLMRobertaModel
+        model_type="xlm-roberta", vocab_size=250002, hidden_size=1024,
+        intermediate_size=4096, num_hidden_layers=24, num_attention_heads=16,
+        num_key_value_heads=16, max_position_embeddings=8194, type_vocab_size=1,
+        layer_norm_eps=1e-5, pad_token_id=1, hidden_act="gelu", hidden_dropout=0.1,
+        attention_dropout=0.1, tie_word_embeddings=False, pooling="cls",
+        architectures=("XLMRobertaModel",)),
+    "bge-large-en-v1.5": dict(  # BAAI/bge-large-en-v1.5, BertModel
+        model_type="bert", vocab_size=30522, hidden_size=1024, intermediate_size=4096,
+        num_hidden_layers=24, num_attention_heads=16, num_key_value_heads=16,
+        max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
+        pad_token_id=0, hidden_act="gelu", hidden_dropout=0.1, attention_dropout=0.1,
+        tie_word_embeddings=False, pooling="cls", architectures=("BertModel",)),
+    "qwen2-1.5b": dict(  # Qwen/Qwen2-1.5B, the Qwen2ForCausalLM body
+        model_type="qwen2", vocab_size=151936, hidden_size=1536, intermediate_size=8960,
+        num_hidden_layers=28, num_attention_heads=12, num_key_value_heads=2, head_dim=128,
+        max_position_embeddings=131072, rope_theta=1e6, rms_norm_eps=1e-6,
+        attention_qkv_bias=True, tie_word_embeddings=True, pooling="last_token",
+        architectures=("Qwen2ForCausalLM",)),
+}
+BGE_STEPS = 4  # phase 5b: optimizer steps of each bge-m3 stage
+QWEN2_STEPS = 4  # phase 5q
 N_PASSAGES = 4096
 N_TRAIN_ROWS = 512
 N_PAIRS = 256
@@ -151,6 +201,10 @@ SCORE_ATOL = 1e-5  # cuBLAS and numpy sum the 2048 fp32 products in other orders
 # timed at the first
 ENCODER_SHAPES = [(8, 512, 512, 32, 8, 64), (64, 64, 64, 32, 8, 64), (8, 40, 40, 32, 8, 64),
                   (8, 64, 128, 32, 8, 64), (8, 256, 256, 16, 8, 128)]
+# the regimes the BGE and Qwen2 bodies add, (shape, causal), skip_pad_q and
+# random lengths: bge-m3 / bge-large (non-causal, one query head per kv
+# head, D 64) and Qwen2-1.5B (causal, 6 query heads per kv head, D 128)
+REGIME_SHAPES = [((8, 512, 512, 16, 16, 64), False), ((8, 512, 512, 12, 2, 128), True)]
 K1_SHAPES = [  # K1 alone: (shape, every key length or None for random)
     ((8, 128, 128, 8, 8, 64), None),  # Hq = Hkv: one query head per block
     ((8, 100, 100, 64, 8, 64), None),  # 8 query heads per kv head
@@ -323,8 +377,8 @@ def _attention_inputs(b, sq, sk, hq, hkv, d, gen, length=None):
     return q, k, v, do, mask, lens
 
 
-def _fwd_design_bytes(lens, sq, sk, hq, hkv, d) -> int:
-    """The bytes K1's design moves (causal, skip_pad_q): per block of
+def _fwd_design_bytes(lens, sq, sk, hq, hkv, d, causal: bool = True) -> int:
+    """The bytes K1's design moves (skip_pad_q): per block of
     (batch, kv head, 2 query heads, or 1 when the group size is odd, 64-row
     query tile) that runs key tiles, its Q tiles once and each K/V tile
     once for all its heads, its mask row scan and the key bits of each
@@ -333,7 +387,9 @@ def _fwd_design_bytes(lens, sq, sk, hq, hkv, d) -> int:
     total = 0
     for n in lens:
         for q0 in range(0, sq, 64):
-            n_tiles = min(-(-n // 64), (q0 + 63 + sk - sq) // 64 + 1)
+            n_tiles = -(-n // 64)
+            if causal:
+                n_tiles = min(n_tiles, (q0 + 63 + sk - sq) // 64 + 1)
             if q0 + sk - sq >= n or n_tiles <= 0:
                 total += hq // heads * sk * 4  # the mask row scan only
                 continue
@@ -343,8 +399,8 @@ def _fwd_design_bytes(lens, sq, sk, hq, hkv, d) -> int:
     return int(total) + len(lens) * sq * hq * (d * 2 + 4)
 
 
-def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
-    """The bytes the backward kernels' designs move (causal, skip_pad_q),
+def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str, causal: bool = True) -> int:
+    """The bytes the backward kernels' designs move (skip_pad_q),
     outside the wrapper's zero-fills and casts:
 
     - K2 and K3b: per block of (batch, kv head, 64-key tile), its mask row
@@ -364,7 +420,9 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
         if kind == "flash_dq":
             for q0 in range(0, sq, 64):
                 rows = min(64, sq - q0)
-                n_tiles = min(-(-n // 64), (q0 + 63 + shift) // 64 + 1)
+                n_tiles = -(-n // 64)
+                if causal:
+                    n_tiles = min(n_tiles, (q0 + 63 + shift) // 64 + 1)
                 total += hq * (sk * 4 + rows * (d * 2 + 2 * 4))
                 if q0 + shift >= n or n_tiles <= 0:
                     continue
@@ -377,7 +435,7 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
             key0 = kt * 64
             keys = min(64, sk - key0)
             total += hkv * (sk * 4 + 2 * keys * d * 2)  # hkv blocks per key tile
-            q_begin = max(0, key0 - shift) // 64
+            q_begin = max(0, key0 - shift) // 64 if causal else 0
             if key0 >= n or q_end <= q_begin:
                 continue
             step = 0
@@ -388,9 +446,11 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str) -> int:
     return int(total)
 
 
-def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
+def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False,
+                   causal: bool = True):
     """(bytes, FLOPs) the function of kernel ``kind`` must move and compute
-    for these key lengths (causal, skip_pad_q, as the encoder calls it):
+    for these key lengths (skip_pad_q, as the encoders call it; causal for
+    the llama body, bidirectional for the Roberta body):
     query rows at or past the valid length and masked (query, key) pairs are
     not needed; the outputs are written in full, at the dtype and shape
     ``flash_attention_bwd`` returns (bf16; dk/dv summed over each GQA
@@ -404,7 +464,8 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
     pairs = q_rows = 0
     for n in lens:
         valid_rows = rows[rows + shift < n]
-        pairs += int(np.clip(np.minimum(n, valid_rows + shift + 1), 0, None).sum())
+        keys = np.minimum(n, valid_rows + shift + 1) if causal else np.full(len(valid_rows), n)
+        pairs += int(np.clip(keys, 0, None).sum())
         q_rows += len(valid_rows)
     k_rows = int(lens.sum())
     pairs *= hq
@@ -412,7 +473,7 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
     read_kv = 2 * k_rows * hkv * d * 2
     mask = b * sk * 4
     if kind == "flash_fwd":
-        nbytes = (_fwd_design_bytes(lens, sq, sk, hq, hkv, d) if design else
+        nbytes = (_fwd_design_bytes(lens, sq, sk, hq, hkv, d, causal) if design else
                   read_q + read_kv + mask + b * sq * hq * d * 2 + b * hq * sq * 4)
         return nbytes, pairs * 2 * 2 * d
     reads = 2 * read_q + read_kv + mask + 2 * q_rows * hq * 4  # q, do, k, v, lse, delta
@@ -420,7 +481,7 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False):
     dkv_out = 2 * b * sk * d * hkv * 2
     writes, products = {"flash_bwd_fused": (dq_out + dkv_out, 5),
                         "flash_dq": (dq_out, 3), "flash_dkv": (dkv_out, 4)}[kind]
-    nbytes = (_bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind) if design
+    nbytes = (_bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind, causal) if design
               else reads + writes)
     return nbytes, pairs * products * 2 * d
 
@@ -431,21 +492,21 @@ def bound(cost, peak_ops: float = PEAK_BF16_FLOPS) -> tuple:
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def _sdpa_mask(mask, sq, sk):
-    causal = torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril(sk - sq)
-    return mask.bool()[:, None, None, :] & causal  # [B, 1, Sq, Sk]
+def _sdpa_mask(mask, sq, sk, causal: bool = True):
+    keys = mask.bool()[:, None, None, :]
+    if not causal:
+        return keys.expand(-1, 1, sq, sk)  # [B, 1, Sq, Sk]
+    return keys & torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril(sk - sq)
 
 
 def phase_kernels(seed: int, tmp: str) -> dict:
-    """Every kernel against its plain version at the five encoder shapes and
+    """Every kernel against its plain version at the five encoder shapes,
     four more for K1 (one and eight query heads per kv head, a ragged Sq
-    below Sk, every key length 1; the backward at all but the last), two
-    launches of each on the same inputs bit for bit, then times at B 8, S
-    512 (random lengths and all full) and the backward's at one stage-1
-    micro-batch's shapes."""
-    import torch.nn.functional as F
-
-    from rankpo_tpu_torch.ops.attention import multi_head_attention
+    below Sk, every key length 1; the backward at all but the last) and the
+    two regimes of the BGE and Qwen2 bodies (REGIME_SHAPES), two launches of
+    each on the same inputs bit for bit, then times (``time_shape``) at B 8,
+    S 512 (random lengths and all full), at the two regimes (random
+    lengths) and the backward's at one stage-1 micro-batch's shapes."""
     from rankpo_tpu_torch.ops.flash_attention import (
         flash_attention_bwd,
         flash_attention_bwd_reference,
@@ -454,22 +515,25 @@ def phase_kernels(seed: int, tmp: str) -> dict:
     )
 
     # the encoder shapes and the timed inputs draw from one generator, the
-    # K1-only shapes from another, so the timed inputs stay those of earlier
-    # versions of this script and times compare across versions
+    # K1-only shapes and the regimes from others, so the timed inputs stay
+    # those of earlier versions of this script and times compare across
+    # versions
     gen = torch.Generator(device="cuda").manual_seed(seed)
     k1_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    shapes = ([(shape, None, gen) for shape in ENCODER_SHAPES]
-              + [(shape, length, k1_gen) for shape, length in K1_SHAPES])
+    regime_gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    shapes = ([(shape, None, gen, True) for shape in ENCODER_SHAPES]
+              + [(shape, length, k1_gen, True) for shape, length in K1_SHAPES]
+              + [(shape, None, regime_gen, causal) for shape, causal in REGIME_SHAPES])
     err = {name: 0.0 for name in KERNELS}
     worst_lse = 0.0
-    for shape, length, shape_gen in shapes:
+    for shape, length, shape_gen, causal in shapes:
         b, sq, sk = shape[:3]
         q, k, v, do, mask, lens = _attention_inputs(*shape, shape_gen, length=length)
         with torch.no_grad():
-            out, lse = flash_attention_fwd(q, k, v, mask, causal=True, skip_pad_q=True)
-            again = flash_attention_fwd(q, k, v, mask, causal=True, skip_pad_q=True)
+            out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=True)
+            again = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=True)
             ref, rlse = flash_attention_fwd_reference(
-                q.float(), k.float(), v.float(), mask, causal=True)
+                q.float(), k.float(), v.float(), mask, causal=causal)
         torch.cuda.synchronize()
         repeats = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         # skip_pad_q zeroes whole query tiles past the valid length:
@@ -487,7 +551,8 @@ def phase_kernels(seed: int, tmp: str) -> dict:
             raise AssertionError(f"K1's two launches differ at {shape}")
         err["flash_fwd"] = max(err["flash_fwd"], out_err)
         worst_lse = max(worst_lse, lse_err)
-        k1_line = (f"kernels {shape}{'' if length is None else f', every length {length}'}: "
+        k1_line = (f"kernels {shape}{'' if causal else ' non-causal'}"
+                   f"{'' if length is None else f', every length {length}'}: "
                    f"K1 max|out-plain| {out_err:.3e} max|lse-plain| {lse_err:.3e} no-key "
                    f"rows zero {zeros}, two launches bit-equal {repeats}")
         if length == 1:
@@ -499,14 +564,14 @@ def phase_kernels(seed: int, tmp: str) -> dict:
         # the backward kernels on the kernel's own stats, against the plain
         # backward on the same stats
         delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-        plain = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=True)
+        plain = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal)
         got = {}
-        got["fused"] = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True,
+        got["fused"] = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
                                            skip_pad_q=True, bwd_impl="fused")
-        got["split"] = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True,
+        got["split"] = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
                                            skip_pad_q=True, bwd_impl="split")
         for impl, grads in got.items():  # both give dq, dk, dv bit for bit again
-            again = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True,
+            again = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
                                         skip_pad_q=True, bwd_impl=impl)
             if not all(torch.equal(x, y) for x, y in zip(grads, again)):
                 raise AssertionError(f"{impl} backward: two launches differ at {shape}")
@@ -533,81 +598,16 @@ def phase_kernels(seed: int, tmp: str) -> dict:
             + "; median non-zero |plain| dq {:.2e} dk {:.2e} dv {:.2e}".format(*typical))
         del q, k, v, do, out, lse, ref, rlse, plain, got
 
-    # ---- times at the encoder's training shape ----
-    shape = ENCODER_SHAPES[0]
-    b, sq, sk, hq, hkv, d = shape
+    # ---- times at the encoder's training shape, then at the two regimes ----
     res = {name: {} for name in KERNELS}
     for label in ("random", "full"):
-        q, k, v, do, mask, lens = _attention_inputs(*shape, gen,
-                                                    length=sk if label == "full" else None)
-        with torch.no_grad():
-            out, lse = flash_attention_fwd(q, k, v, mask, causal=True, skip_pad_q=True)
-        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-        calls = {
-            "flash_fwd": lambda: flash_attention_fwd(q, k, v, mask, causal=True,
-                                                     skip_pad_q=True),
-            "fused": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True,
-                                                 skip_pad_q=True, bwd_impl="fused"),
-            "split": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True,
-                                                 skip_pad_q=True, bwd_impl="split"),
-        }
-        with torch.no_grad():
-            traced = {key: profile_device_ms(fn) for key, fn in calls.items()}
-            wrapper = {key: cuda_ms(fn) for key, fn in calls.items()}
-            plain_fwd = cuda_ms(lambda: multi_head_attention(q, k, v, mask=mask, causal=True,
-                                                             impl="plain"))
-            plain_bwd = cuda_ms(lambda: flash_attention_bwd_reference(
-                q, k, v, mask, do, lse, delta, causal=True))
-            # the yardstick: one PyTorch call on the same inputs (K/V expanded
-            # to the query heads outside the timed region) and boolean mask
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            kt = kt.repeat_interleave(hq // hkv, dim=1)
-            vt = vt.repeat_interleave(hq // hkv, dim=1)
-            bmask = _sdpa_mask(mask, sq, sk)
-            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                     attn_mask=bmask))
-        leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
-        dot = do.transpose(1, 2)
-
-        def lib_fwd_bwd():
-            o = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
-            torch.autograd.grad(o, leaves, dot)
-
-        lib_fwd_bwd_ms = cuda_ms(lib_fwd_bwd)
-        # the fair yardstick for a backward: SDPA's backward alone, its
-        # forward run once outside the timed region
-        o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, dot, retain_graph=True))
-        del o_lib
-        kernel_times = {
-            "flash_fwd": kernel_ms(traced["flash_fwd"], "flash_fwd"),
-            "flash_bwd_fused": kernel_ms(traced["fused"], "flash_bwd_fused"),
-            "flash_dq": kernel_ms(traced["split"], "flash_dq"),
-            "flash_dkv": kernel_ms(traced["split"], "flash_dkv"),
-        }
-        for name, ms in kernel_times.items():
-            fwd = name == "flash_fwd"
-            b_ms, b_by = bound(attention_cost(lens, sq, sk, hq, hkv, d, name))
-            design_mb = attention_cost(lens, sq, sk, hq, hkv, d, name, design=True)[0] / 1e6
-            res[name][label] = {
-                "ms": ms, "plain_ms": plain_fwd if fwd else plain_bwd,
-                "library_ms": lib_fwd if fwd else lib_bwd,
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            lib = ("library (SDPA forward)" if fwd else
-                   f"library (SDPA backward alone) {lib_bwd:.4f} ms, SDPA forward + backward "
-                   f"{lib_fwd_bwd_ms:.4f}")
-            if fwd:
-                lib += f" {lib_fwd:.4f} ms"
-            log(f"time {name} at {shape} causal, {label} lengths: kernel {ms:.4f} ms "
-                f"(device time, profiler); plain {res[name][label]['plain_ms']:.4f} ms; "
-                f"{lib}; bound {b_ms:.4f} ms ({b_by}); the design's own traffic "
-                f"{design_mb:.1f} MB")
-        log(f"time wrappers ({label} lengths, CUDA events, median of 20): K1 "
-            f"{wrapper['flash_fwd']:.4f} ms, fused backward {wrapper['fused']:.4f} ms, "
-            f"split backward {wrapper['split']:.4f} ms (backward wrappers include "
-            f"the dq zero-fill and cast); SDPA backward alone {lib_bwd:.4f} ms")
-        del q, k, v, do, out, lse, delta, leaves
+        length = ENCODER_SHAPES[0][2] if label == "full" else None
+        for name, row in time_shape(ENCODER_SHAPES[0], True, gen, length, label).items():
+            res[name][label] = row
+    regimes = {name: {} for name in KERNELS}
+    for shape, causal in REGIME_SHAPES:
+        for name, row in time_shape(shape, causal, regime_gen, None, "random").items():
+            regimes[name][shape] = row
     torch.cuda.empty_cache()
     stage1 = time_stage1_bwd(stage1_bwd_inputs(seed, tmp))
     torch.cuda.empty_cache()
@@ -615,7 +615,96 @@ def phase_kernels(seed: int, tmp: str) -> dict:
         f"{len(shapes)} shapes, K2 {err['flash_bwd_fused']:.3e}, K3a {err['flash_dq']:.3e}, "
         f"K3b {err['flash_dkv']:.3e} over the {len(shapes) - 1} with random lengths")
     return {name: dict(res[name]["random"], max_abs_err=err[name], full=res[name]["full"],
-                       stage1=stage1.get(name)) for name in KERNELS}
+                       stage1=stage1.get(name), regimes=regimes[name]) for name in KERNELS}
+
+
+def time_shape(shape, causal: bool, gen, length, label: str) -> dict:
+    """Each kernel's device time at one attention shape (skip_pad_q; random
+    key lengths, or all ``length``) beside the plain version's, the one
+    PyTorch call that computes the same function (SDPA; its backward alone
+    for the backward kernels) and the bound. Returns {kernel: numbers}."""
+    import torch.nn.functional as F
+
+    from rankpo_tpu_torch.ops.attention import multi_head_attention
+    from rankpo_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+    )
+
+    b, sq, sk, hq, hkv, d = shape
+    tag = f"{shape} {'causal' if causal else 'non-causal'}"
+    res = {}
+    q, k, v, do, mask, lens = _attention_inputs(*shape, gen, length=length)
+    with torch.no_grad():
+        out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=True)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    calls = {
+        "flash_fwd": lambda: flash_attention_fwd(q, k, v, mask, causal=causal,
+                                                 skip_pad_q=True),
+        "fused": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
+                                             skip_pad_q=True, bwd_impl="fused"),
+        "split": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
+                                             skip_pad_q=True, bwd_impl="split"),
+    }
+    with torch.no_grad():
+        traced = {key: profile_device_ms(fn) for key, fn in calls.items()}
+        wrapper = {key: cuda_ms(fn) for key, fn in calls.items()}
+        plain_fwd = cuda_ms(lambda: multi_head_attention(q, k, v, mask=mask, causal=causal,
+                                                         impl="plain"))
+        plain_bwd = cuda_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, mask, do, lse, delta, causal=causal))
+        # the yardstick: one PyTorch call on the same inputs (K/V expanded
+        # to the query heads outside the timed region) and boolean mask
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kt = kt.repeat_interleave(hq // hkv, dim=1)
+        vt = vt.repeat_interleave(hq // hkv, dim=1)
+        bmask = _sdpa_mask(mask, sq, sk, causal)
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                 attn_mask=bmask))
+    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+    dot = do.transpose(1, 2)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
+        torch.autograd.grad(o, leaves, dot)
+
+    lib_fwd_bwd_ms = cuda_ms(lib_fwd_bwd)
+    # the fair yardstick for a backward: SDPA's backward alone, its
+    # forward run once outside the timed region
+    o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, dot, retain_graph=True))
+    del o_lib
+    kernel_times = {
+        "flash_fwd": kernel_ms(traced["flash_fwd"], "flash_fwd"),
+        "flash_bwd_fused": kernel_ms(traced["fused"], "flash_bwd_fused"),
+        "flash_dq": kernel_ms(traced["split"], "flash_dq"),
+        "flash_dkv": kernel_ms(traced["split"], "flash_dkv"),
+    }
+    for name, ms in kernel_times.items():
+        fwd = name == "flash_fwd"
+        b_ms, b_by = bound(attention_cost(lens, sq, sk, hq, hkv, d, name, causal=causal))
+        design_mb = attention_cost(lens, sq, sk, hq, hkv, d, name, design=True,
+                                   causal=causal)[0] / 1e6
+        res[name] = {
+            "ms": ms, "plain_ms": plain_fwd if fwd else plain_bwd,
+            "library_ms": lib_fwd if fwd else lib_bwd,
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        lib = ("library (SDPA forward)" if fwd else
+               f"library (SDPA backward alone) {lib_bwd:.4f} ms, SDPA forward + backward "
+               f"{lib_fwd_bwd_ms:.4f}")
+        if fwd:
+            lib += f" {lib_fwd:.4f} ms"
+        log(f"time {name} at {tag}, {label} lengths: kernel {ms:.4f} ms "
+            f"(device time, profiler); plain {res[name]['plain_ms']:.4f} ms; "
+            f"{lib}; bound {b_ms:.4f} ms ({b_by}); the design's own traffic "
+            f"{design_mb:.1f} MB")
+    log(f"time wrappers at {tag} ({label} lengths, CUDA events, median of 20): K1 "
+        f"{wrapper['flash_fwd']:.4f} ms, fused backward {wrapper['fused']:.4f} ms, "
+        f"split backward {wrapper['split']:.4f} ms (backward wrappers include "
+        f"the dq zero-fill and cast); SDPA backward alone {lib_bwd:.4f} ms")
+    return res
 
 
 def phase_search_ties() -> None:
@@ -753,12 +842,13 @@ def encode_k1_inputs(encoder, corpus):
     return q, k, v, masks
 
 
-def run_encode_k1(q, k, v, masks) -> None:
+def run_encode_k1(q, k, v, masks, causal: bool = True) -> None:
     from rankpo_tpu_torch.ops.flash_attention import flash_attention_fwd
 
     for m in masks:
         b, s = m.shape
-        flash_attention_fwd(q[:b, :s], k[:b, :s], v[:b, :s], m, causal=True, skip_pad_q=True)
+        flash_attention_fwd(q[:b, :s], k[:b, :s], v[:b, :s], m, causal=causal,
+                            skip_pad_q=True)
 
 
 def time_encode_k1(encoder, corpus) -> dict:
@@ -767,18 +857,22 @@ def time_encode_k1(encoder, corpus) -> dict:
     the summed bound and the design's traffic."""
     q, k, v, masks = encode_k1_inputs(encoder, corpus)
     hq, hkv, d = q.shape[2], k.shape[2], q.shape[3]
+    causal = encoder.config.is_llama
     with torch.no_grad():
-        ms = kernel_ms(profile_device_ms(lambda: run_encode_k1(q, k, v, masks), n=5),
+        ms = kernel_ms(profile_device_ms(lambda: run_encode_k1(q, k, v, masks, causal), n=5),
                        "flash_fwd")
     bound_ms = design = 0.0
     for m in masks:
         s = m.shape[1]
         lens = m.sum(1)
-        bound_ms += bound(attention_cost(lens, s, s, hq, hkv, d, "flash_fwd"))[0]
-        design += attention_cost(lens, s, s, hq, hkv, d, "flash_fwd", design=True)[0]
+        bound_ms += bound(attention_cost(lens, s, s, hq, hkv, d, "flash_fwd",
+                                         causal=causal))[0]
+        design += attention_cost(lens, s, s, hq, hkv, d, "flash_fwd", design=True,
+                                 causal=causal)[0]
     widths = sorted({m.shape[1] for m in masks})
     log(f"time flash_fwd at the corpus encode's shapes ({len(masks)} batches of 64, padded "
-        f"to {widths[0]}-{widths[-1]}, causal, skip_pad_q, no grad): kernel {ms:.4f} ms per "
+        f"to {widths[0]}-{widths[-1]}, {'causal' if causal else 'non-causal'}, Hq {hq}, Hkv "
+        f"{hkv}, D {d}, skip_pad_q, no grad): kernel {ms:.4f} ms per "
         f"layer over the corpus (device time, profiler; {ms / len(masks):.4f} ms per batch); "
         f"bound {bound_ms:.4f} ms (summed over the batches); the design's own traffic "
         f"{design / 1e6:.1f} MB")
@@ -856,18 +950,23 @@ def time_stage1_bwd(inputs: dict) -> dict:
     return res
 
 
-def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
+def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str = "") -> dict:
     """The serving path: the CLI's server over a corpus, queried by HTTP,
-    with the index tier ``tier`` (SERVE_TIERS)."""
+    with the index tier ``tier`` (SERVE_TIERS), from the checkpoint ``ckpt``
+    of any ported body (``model`` names it in the log)."""
     from rankpo_tpu_torch.index.flat import numpy_search
+    from rankpo_tpu_torch.models.config import EncoderConfig
     from rankpo_tpu_torch.ops import flash_attention as flash
     from rankpo_tpu_torch.ops import ivf_gather, pq_adc
 
+    config = EncoderConfig.from_pretrained(ckpt)
+    layers = config.num_hidden_layers
+    label = f"{model}, {tier}" if model else tier
     corpus, corpus_file, queries = _serving_data(seed, tmp)
     extra, ivf_kernel = SERVE_TIERS[tier]
     flat = tier in FLAT_EXACT_TIERS
     port = _free_port()
-    argv = ["--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256",
+    argv = ["--model_name_or_path", ckpt, "--tokenizer_name", f"hash:{config.vocab_size}",
             "--corpus_data", corpus_file, "--max_query_length", "512",
             "--max_passage_length", "512", "--batch_size", "64",
             "--device", "cuda", "--port", str(port), "--log_level", "warning", *extra]
@@ -912,21 +1011,21 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
         for (status, body, _), group, k, _ in batched:
             _check_reply(status, body, len(group), k, exact_k, bound)
         stats = _http(port, "/statsz")[1]
-        log(f"served ({tier}): 32 single queries from 8 clients in "
+        log(f"served ({label}): 32 single queries from 8 clients in "
             f"{stats['microbatch_dispatches']} micro-batches, "
             f"{len(batched)} batched requests of 16; start {startup_s:.2f} s, requests "
             f"{time.perf_counter() - t_requests:.2f} s")
 
         n_batches = -(-N_PASSAGES // 64)
-        if launches["flash_fwd"] < 16 * n_batches:
+        if launches["flash_fwd"] < layers * n_batches:
             raise AssertionError(
                 f"flash kernel launched {launches['flash_fwd']} times on the main "
-                f"path; expected >= {16 * n_batches} (16 layers x {n_batches} "
+                f"path; expected >= {layers * n_batches} ({layers} layers x {n_batches} "
                 "encode batches)")
         counter = ivf_kernel and IVF_KERNELS[ivf_kernel][2]
         if counter is not None and launches[counter] <= 0:
-            raise AssertionError(f"{ivf_kernel} was not launched on the {tier} path")
-        log(f"kernel launches on the {tier} serving path: {launches}")
+            raise AssertionError(f"{ivf_kernel} was not launched on the {label} path")
+        log(f"kernel launches on the {label} serving path: {launches}")
 
         # each batched request embedded again exactly as the service embedded
         # it: the flat tier against the exact numpy oracle over the index
@@ -979,7 +1078,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
         else:
             oracle = ("numpy_search over the reconstructed rows, the queries as scored"
                       if flat else "the index's own search on the same embeddings")
-            log(f"index ({tier}): served top-k equal to {oracle} ({n_near} hits inside "
+            log(f"index ({label}): served top-k equal to {oracle} ({n_near} hits inside "
                 f"{SCORE_ATOL} near-ties not compared)")
         if tier == "refine":
             numbers.update(recall=float(np.mean(recalls)), candidates=index.candidates,
@@ -993,7 +1092,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
                 recall=float(np.mean(recalls)), nprobe=index.nprobe,
                 n_clusters=index.n_clusters, capacity=index.capacity,
                 build_s=dict(index.build_seconds))
-            log(f"index ({tier}): K {index.n_clusters}, capacity {index.capacity}, "
+            log(f"index ({label}): K {index.n_clusters}, capacity {index.capacity}, "
                 f"tuned nprobe {index.nprobe}, build {index.build_seconds}; recall@k of "
                 f"the served hits against the index's exact search "
                 f"{numbers['recall']:.4f} (random weights: printed, not held)")
@@ -1035,7 +1134,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat") -> dict:
     finally:
         t_stop = time.perf_counter()
         stop_server(server, thread)
-    log(f"served ({tier}): server stopped in {time.perf_counter() - t_stop:.2f} s")
+    log(f"served ({label}): server stopped in {time.perf_counter() - t_stop:.2f} s")
     return numbers
 
 
@@ -1302,7 +1401,7 @@ def _median(history, key):
 
 
 def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
-              deterministic: bool = False):
+              deterministic: bool = False, steps: int = 8):
     """One training stage through its CLI, under
     ``torch.use_deterministic_algorithms(deterministic)``; checks and
     numbers."""
@@ -1328,8 +1427,8 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
     gc.collect()
     torch.cuda.empty_cache()
     losses = [h["loss"] for h in history]
-    if len(history) != 8 or not np.all(np.isfinite(losses)):
-        raise AssertionError(f"{name}: expected 8 finite losses, got {losses}")
+    if len(history) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: expected {steps} finite losses, got {losses}")
     if not all(np.isfinite(h["grad_norm"]) for h in history):
         raise AssertionError(f"{name}: non-finite gradient norm")
     _, state = load_pretrained(out_dir)
@@ -1337,7 +1436,7 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
     if still:
         raise AssertionError(f"{name}: {len(still)} parameter tensors did not move, "
                              f"e.g. {still[:3]}")
-    log(f"{name}: 8 steps, losses {[round(x, 4) for x in losses]}; all "
+    log(f"{name}: {steps} steps, losses {[round(x, 4) for x in losses]}; all "
         f"{len(state)} parameter tensors moved; {out_dir} loads with load_pretrained")
     return {
         "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
@@ -1374,7 +1473,7 @@ def _device_batch(collated: dict) -> dict:
             for field, block in collated.items()}
 
 
-def phase_flash_vs_plain(config, state, train_file: str, seed: int):
+def phase_flash_vs_plain(config, state, train_file: str, seed: int, ckpt: str):
     """One stage-1 micro-batch (2 queries x group 4) at full width through
     the kernels (bf16) and through the plain attention (bf16), each held
     against the plain path in fp32 compute, the reference.
@@ -1383,26 +1482,44 @@ def phase_flash_vs_plain(config, state, train_file: str, seed: int):
     path's own rounding (bf16 softmax) moves its loss by about 2e-2 from
     fp32: the kernels' loss (fp32 softmax statistics) is held to the fp32
     loss within LOSS_REL_FP32, and every gradient tensor within cosine 0.99
-    of the plain bf16 one."""
+    of the plain bf16 one. The micro-batch takes no dropout generator, so
+    the Roberta body runs it with dropout off, through the kernels.
+
+    The Roberta body also runs it through the kernels' contract on plain
+    ops (``ContractAttention``: dS rounded to bf16 before the dQ and dK
+    products, as JAX's kernels and every flash backward round it), where
+    autograd through the plain attention keeps dS in fp32. Bidirectional
+    rows put P ~ 1/512 on every key and the keys share a large common part
+    (the token-type row, the residual stream), so the rounded dS's nonzero
+    row sum leaves a q/k gradient error the fp32 dS does not. So each
+    gradient tensor of the kernels is held to fp32 as the contract on plain
+    ops stands to it: a cosine with the fp32 gradient no more than 0.01
+    below the contract's (the 0.99 limit's margin)."""
     from rankpo_tpu_torch.data.collators import ContrastiveCollator
     from rankpo_tpu_torch.data.datasets import ContrastiveDataset, iter_jsonl
-    from rankpo_tpu_torch.data.tokenization import HashTokenizer
-    from rankpo_tpu_torch.models.llama import LlamaEncoder
+    from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
+    from rankpo_tpu_torch.models.encoder import encoder_class
     from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn
 
     rows = [r for _, r in zip(range(2), iter_jsonl(train_file))]
-    ds = ContrastiveDataset(rows, HashTokenizer(vocab_size=128256), 128, 512)
-    batch = _device_batch(ContrastiveCollator(0, 3, 128, 512, seed=seed)([ds[0], ds[1]]))
-    model = LlamaEncoder.for_training(config, state, device="cuda")
+    tok = resolve_tokenizer(f"hash:{config.vocab_size}", ckpt)
+    ds = ContrastiveDataset(rows, tok, 128, 512)
+    batch = _device_batch(ContrastiveCollator(tok.pad_token_id, 3, 128, 512,
+                                              seed=seed)([ds[0], ds[1]]))
+    model = encoder_class(config).for_training(config, state, device="cuda")
     params = list(model.named_parameters())
     results = {}
-    for label, impl, dtype in (("flash", "flash", torch.bfloat16),
-                               ("plain", "plain", torch.bfloat16),
-                               ("fp32", "plain", torch.float32)):
+    runs = [("flash", "flash", torch.bfloat16), ("plain", "plain", torch.bfloat16),
+            ("fp32", "plain", torch.float32)]
+    if not config.is_llama:
+        runs.append(("contract", "contract", torch.bfloat16))
+    for label, impl, dtype in runs:
         model.compute_dtype = dtype
-        loss, _ = make_contrastive_loss_fn(config, temperature=0.02, attn_impl=impl)(
-            model, batch)
-        loss.backward()
+        with contract_attention(config) if impl == "contract" else contextlib.nullcontext():
+            loss, _ = make_contrastive_loss_fn(
+                config, temperature=0.02, attn_impl="plain" if impl == "contract" else impl)(
+                    model, batch)
+            loss.backward()
         results[label] = (loss.item(), [p.grad for _, p in params])
         for _, p in params:
             p.grad = None
@@ -1413,21 +1530,115 @@ def phase_flash_vs_plain(config, state, train_file: str, seed: int):
         return [torch.nn.functional.cosine_similarity(x.flatten(), y.flatten(), dim=0).item()
                 for x, y in zip(a, b)]
 
-    cos, cos32 = cosines(gf, gp), cosines(gf, g32)
+    cos, cos32, cos_p32 = cosines(gf, gp), cosines(gf, g32), cosines(gp, g32)
     rel, rel_f32, rel_p32 = abs(lf - lp) / abs(lp), abs(lf - l32) / abs(l32), abs(lp - l32) / abs(l32)
-    worst = int(np.argmin(cos))
-    log(f"flash vs plain, one micro-batch at full width: loss flash {lf:.6f}, plain "
-        f"{lp:.6f}, plain fp32 {l32:.6f}; relative difference flash-plain {rel:.3e}, "
-        f"flash-fp32 {rel_f32:.3e} (limit {LOSS_REL_FP32:.0e}), plain-fp32 {rel_p32:.3e}; "
-        f"gradient cosine flash-plain min {cos[worst]:.6f} ({params[worst][0]}), median "
-        f"{np.median(cos):.6f} over {len(cos)} tensors (limit 0.99); flash-fp32 min "
-        f"{min(cos32):.6f}")
-    if rel_f32 > LOSS_REL_FP32 or min(cos) < 0.99:
+    # a key bias adds q.b to every logit of a row, which the softmax cancels:
+    # its gradient is 0 in exact arithmetic, so its direction is rounding
+    # noise (printed with its size against the query bias's, not held)
+    noise = [i for i, (n, _) in enumerate(params) if n.endswith("attention.self.key.bias")]
+    held = [i for i in range(len(params)) if i not in noise]
+    worst = min(held, key=lambda i: cos[i])
+    lowest = sorted(held, key=lambda i: cos[i])[:4]
+    log(f"flash vs plain ({config.model_type}), one micro-batch at full width: loss flash "
+        f"{lf:.6f}, plain {lp:.6f}, plain fp32 {l32:.6f}; relative difference flash-plain "
+        f"{rel:.3e}, flash-fp32 {rel_f32:.3e}, plain-fp32 {rel_p32:.3e} (limit "
+        f"{LOSS_REL_FP32:.0e}); gradient cosine flash-plain min {cos[worst]:.6f} "
+        f"({params[worst][0]}), median {np.median([cos[i] for i in held]):.6f} over "
+        f"{len(held)} tensors (limit 0.99), lowest "
+        + ", ".join(f"{params[i][0]} {cos[i]:.4f}" for i in lowest)
+        + f"; flash-fp32 min {min(cos32[i] for i in held):.6f}, plain-fp32 min "
+        f"{min(cos_p32[i] for i in held):.6f}")
+    if noise:
+        ratio = max(gp[i].norm().item() / gp[i - 2].norm().item() for i in noise)
+        log(f"  key biases (gradient 0 in exact arithmetic, not held): {len(noise)} tensors, "
+            f"largest |grad| / |query-bias grad| {ratio:.2e}, cosines "
+            f"{min(cos[i] for i in noise):.3f}..{max(cos[i] for i in noise):.3f}")
+    if config.is_llama:
+        loss_ok = rel_f32 <= LOSS_REL_FP32
+        grads_ok = cos[worst] >= 0.99
+    else:
+        # the Roberta body's own bf16 rounding outside attention (post-LN
+        # residuals and LayerNorms in bf16) moves the plain bf16 path from
+        # fp32 by more than the limit: the kernels are held to the plain
+        # attention at the same rounding elsewhere, and may add no more than
+        # the limit to the plain path's distance from fp32; every gradient
+        # tensor as close to fp32 as the kernels' contract on plain ops,
+        # within 0.01 of cosine
+        lc, gc_ = results["contract"]
+        cos_c = cosines(gf, gc_)
+        cos_c32 = cosines(gc_, g32)
+        rel_c = abs(lf - lc) / abs(lc)
+        loss_ok = (rel <= LOSS_REL_FP32 and rel_c <= LOSS_REL_FP32
+                   and rel_f32 <= rel_p32 + LOSS_REL_FP32)
+        worst_c = min(held, key=lambda i: cos32[i] - cos_c32[i])
+        grads_ok = cos32[worst_c] >= cos_c32[worst_c] - 0.01
+        below = [i for i in held if cos[i] < 0.99]
+        log(f"  against the kernels' contract on plain ops (bf16 dS): loss {lc:.6f}, "
+            f"relative difference flash-contract {rel_c:.3e} (limit {LOSS_REL_FP32:.0e}); "
+            f"cosine with fp32, flash minus contract, min "
+            f"{cos32[worst_c] - cos_c32[worst_c]:+.4f} ({params[worst_c][0]}; limit -0.01); "
+            f"gradient cosine flash-contract min {min(cos_c[i] for i in held):.6f}, "
+            f"contract-fp32 min {min(cos_c32[i] for i in held):.6f}; "
+            f"{len(below)} tensors below cosine 0.99 of plain bf16, against fp32 (flash / "
+            "contract / plain bf16): " + ", ".join(
+                f"{params[i][0]} {cos32[i]:.4f} / {cos_c32[i]:.4f} / {cos_p32[i]:.4f}"
+                for i in sorted(below, key=lambda i: cos[i])[:6]))
+        del gc_
+    if not loss_ok or not grads_ok:
         raise AssertionError("training gradients through the kernels disagree with plain")
     del results, gf, gp, g32
     return model, {"loss_rel_flash_plain": rel, "loss_rel_flash_fp32": rel_f32,
                    "loss_rel_plain_fp32": rel_p32, "min_grad_cosine": cos[worst],
                    "min_grad_cosine_fp32": min(cos32)}
+
+
+class ContractAttention(torch.autograd.Function):
+    """The flash kernels' contract on plain PyTorch ops: the forward of
+    ``flash_attention_fwd_reference`` (bf16 P) and the backward of
+    ``flash_attention_bwd_reference`` (dS rounded to bf16), so a model
+    can run with the kernels' rounding but none of their code."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        from rankpo_tpu_torch.ops.flash_attention import flash_attention_fwd_reference
+
+        out, lse = flash_attention_fwd_reference(q, k, v, mask, causal=causal)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd_reference
+
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        grads = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta,
+                                              causal=ctx.causal)
+        return (*(g.to(q.dtype) for g in grads), None, None)
+
+
+@contextlib.contextmanager
+def contract_attention(config):
+    """Within the block, the config's body calls ``ContractAttention`` for
+    attention without dropout."""
+    from rankpo_tpu_torch.models import llama, roberta
+
+    body = llama if config.is_llama else roberta
+    original = body.multi_head_attention
+
+    def attention(q, k, v, *, mask=None, causal=False, dropout_rate=0.0, generator=None,
+                  **_):
+        if dropout_rate > 0.0 and generator is not None:
+            return original(q, k, v, mask=mask, causal=causal, impl="plain",
+                            dropout_rate=dropout_rate, generator=generator)
+        return ContractAttention.apply(q, k, v, mask, causal)
+
+    body.multi_head_attention = attention
+    try:
+        yield
+    finally:
+        body.multi_head_attention = original
 
 
 _CATEGORIES = (  # (label, test on the lower-cased kernel name), first match wins
@@ -1526,13 +1737,121 @@ def phase_training(ckpt: str, tmp: str, seed: int, base_state: dict) -> dict:
                                      f"{nums['launches'][kernel]} times, expected >= {least}")
         log(f"{stage} kernel launches: {nums['launches']}")
     config = EncoderConfig.from_pretrained(ckpt)
-    model, compare = phase_flash_vs_plain(config, base_state, train, seed)
+    model, compare = phase_flash_vs_plain(config, base_state, train, seed, ckpt)
     profile_nums = phase_profile(model, config, train, seed)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     return {"stage1": stage1, "stage2": stage2, "compare": compare,
             "profile": profile_nums}
+
+
+def phase_training_bge(tmp: str, seed: int) -> dict:
+    """Phase 5b, bge-m3 at full width and depth: stage 1 through
+    ``run_contrastive.main`` with the config's dropout live (so attention
+    runs the plain path with attention-probs dropout, as the JAX dispatcher
+    sends it to XLA, and no flash kernel launches), then stage 2 through
+    ``run_rankpo.main`` on stage 1's output with ``--disable_dropout`` under
+    ``torch.use_deterministic_algorithms`` (K1, K3a, K3b); finite losses,
+    every parameter moved, the outputs load; one stage-1 micro-batch with
+    dropout off through the kernels and through plain
+    (``phase_flash_vs_plain``)."""
+    from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
+    from rankpo_tpu_torch.models.config import EncoderConfig
+
+    ckpt, base_state = make_model_checkpoint(tmp, seed, "bge-m3")
+    config = EncoderConfig.from_pretrained(ckpt)
+    train, pairs = write_training_data(tmp, seed)
+    s1, s2 = os.path.join(tmp, "bge_stage1"), os.path.join(tmp, "bge_stage2")
+    common = ["--tokenizer_name", f"hash:{config.vocab_size}", "--bf16", "True",
+              "--max_steps", str(BGE_STEPS), "--per_device_train_batch_size", "8",
+              "--learning_rate", "1e-5", "--max_query_length", "128",
+              "--max_passage_length", "512", "--save_strategy", "no", "--seed", str(seed),
+              "--device", "cuda", "--log_level", "warning"]
+    stage1, s1_state = run_stage(
+        "bge-m3 stage 1 (contrastive, dropout live: plain attention)", run_contrastive.main,
+        ["--model_name_or_path", ckpt, "--train_data", train, "--output_dir", s1,
+         "--num_negatives", "3", "--gradient_accumulation_steps", "2",
+         "--temperature", "0.02", "--gradient_checkpointing", "True", *common],
+        s1, base_state, steps=BGE_STEPS)
+    log(f"bge-m3 stage 1: hidden dropout {config.hidden_dropout}, attention-probs dropout "
+        f"{config.attention_dropout}, live on every step: attention ran the plain path "
+        f"with dropout (the JAX dispatch), flash launches {stage1['launches']}")
+    if any(stage1["launches"].values()):
+        raise AssertionError("bge-m3 stage 1 launched a flash kernel with dropout live")
+    stage2, _ = run_stage(
+        "bge-m3 stage 2 (RankPO, disable_dropout, deterministic: split backward)",
+        run_rankpo.main,
+        ["--model_name_or_path", s1, "--train_data", pairs, "--output_dir", s2,
+         "--beta", "2.0", "--temperature", "0.1", "--loss_type", "sigmoid",
+         "--reference_free", "True", "--disable_dropout", "True", *common],
+        s2, s1_state, deterministic=True, steps=BGE_STEPS)
+    del s1_state
+    layers = config.num_hidden_layers
+    for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if stage2["launches"][kernel] < layers * 2 * BGE_STEPS:
+            raise AssertionError(f"bge-m3 stage 2: {kernel} launched "
+                                 f"{stage2['launches'][kernel]} times")
+    log(f"bge-m3 stage 2 kernel launches: {stage2['launches']}")
+    model, compare = phase_flash_vs_plain(config, base_state, train, seed, ckpt)
+    del model, base_state
+    shutil.rmtree(s1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stage1": stage1, "stage2": stage2, "compare": compare, "stage2_dir": s2}
+
+
+def phase_training_qwen2(tmp: str, seed: int, ckpt: str, base_state: dict) -> dict:
+    """Phase 5q, Qwen2-1.5B at full width and depth: QWEN2_STEPS stage-1
+    steps through ``run_contrastive.main`` (K1 and K2 at D 128, 6 query
+    heads per kv head); finite losses, every parameter moved."""
+    from rankpo_tpu_torch.cli import run_contrastive
+    from rankpo_tpu_torch.models.config import EncoderConfig
+
+    config = EncoderConfig.from_pretrained(ckpt)
+    train, _ = write_training_data(tmp, seed)
+    out = os.path.join(tmp, "qwen2_stage1")
+    stage1, _ = run_stage(
+        "qwen2-1.5b stage 1 (contrastive, fused backward)", run_contrastive.main,
+        ["--model_name_or_path", ckpt, "--train_data", train, "--output_dir", out,
+         "--tokenizer_name", f"hash:{config.vocab_size}", "--bf16", "True",
+         "--max_steps", str(QWEN2_STEPS), "--per_device_train_batch_size", "8",
+         "--gradient_accumulation_steps", "2", "--num_negatives", "3",
+         "--learning_rate", "1e-5", "--temperature", "0.02",
+         "--max_query_length", "128", "--max_passage_length", "512",
+         "--gradient_checkpointing", "True", "--save_strategy", "no", "--seed", str(seed),
+         "--device", "cuda", "--log_level", "warning"],
+        out, base_state, steps=QWEN2_STEPS)
+    layers = config.num_hidden_layers
+    need = {"flash_fwd": 2 * layers * 2 * 2 * QWEN2_STEPS,
+            "flash_bwd_fused": layers * 2 * 2 * QWEN2_STEPS}
+    for kernel, least in need.items():
+        if stage1["launches"][kernel] < least:
+            raise AssertionError(f"qwen2-1.5b stage 1: {kernel} launched "
+                                 f"{stage1['launches'][kernel]} times, expected >= {least}")
+    log(f"qwen2-1.5b stage 1 kernel launches: {stage1['launches']}")
+    shutil.rmtree(out)
+    return {"stage1": stage1}
+
+
+def make_model_checkpoint(tmp: str, seed: int, name: str):
+    """Random weights of MODELS[name] from the seed, written in bf16 with the
+    port's save_pretrained. Returns (path, the state on the host)."""
+    from rankpo_tpu_torch.models.config import EncoderConfig
+    from rankpo_tpu_torch.models.encoder import init_params, n_params
+    from rankpo_tpu_torch.models.hf_io import save_pretrained
+
+    config = EncoderConfig(**MODELS[name])
+    t0 = time.perf_counter()
+    state = init_params(config, torch.Generator(device="cuda").manual_seed(seed),
+                        dtype=torch.bfloat16)
+    ckpt = os.path.join(tmp, name)
+    save_pretrained(ckpt, config, state, dtype=torch.bfloat16)
+    state = {n: t.cpu() for n, t in state.items()}
+    torch.cuda.empty_cache()
+    log(f"checkpoint {name}: {n_params(config) / 1e9:.3f}B parameters, bf16, "
+        f"{time.perf_counter() - t0:.1f} s to make and write")
+    return ckpt, state
 
 
 # ---------------------------------------------------------------------------
@@ -1568,10 +1887,15 @@ def _sklearn_paths() -> str:
     return f"metrics through {metric}, k-means through {kmeans}"
 
 
-def phase_evaluate(seed: int, tmp: str, ckpt: str) -> dict:
+EVAL_TIERS = {"flat": [], "ivf": ["--index_type", "ivf"],
+              "refine": ["--index_type", "refine"]}
+
+
+def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> dict:
     """The evaluation path: ``rankpo_tpu_torch.cli.evaluate`` over the
     serving corpus and N_EVAL_QUERIES span queries, flat (K1), then
-    ``--index_type ivf`` (K1, K4) and ``--index_type refine`` (K1). The saved metrics must be bit-equal to
+    ``--index_type ivf`` (K1, K4) and ``--index_type refine`` (K1), or the
+    ``tiers`` asked for, from a checkpoint of any ported body. The saved metrics must be bit-equal to
     ``compute_metrics`` recomputed on the host over the saved arrays, and
     the flat hits equal to numpy_search over the embeddings the CLI made
     (read from its encoder as it returns them) outside SCORE_ATOL
@@ -1580,12 +1904,15 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str) -> dict:
     from rankpo_tpu_torch.eval.metrics import compute_metrics
     from rankpo_tpu_torch.index.encoding import InferenceEncoder
     from rankpo_tpu_torch.index.flat import numpy_search
+    from rankpo_tpu_torch.models.config import EncoderConfig
     from rankpo_tpu_torch.ops import flash_attention as flash
     from rankpo_tpu_torch.ops import ivf_gather
 
+    config = EncoderConfig.from_pretrained(ckpt)
+    layers = config.num_hidden_layers
     corpus, corpus_file, _ = _serving_data(seed, tmp)
     query_file, _, labels = write_eval_queries(tmp, seed, corpus)
-    common = ["--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256",
+    common = ["--model_name_or_path", ckpt, "--tokenizer_name", f"hash:{config.vocab_size}",
               "--query_data", query_file, "--corpus_data", corpus_file, "--bf16",
               "--k", "100", "--batch_size", "64", "--max_query_length", "64",
               "--max_passage_length", "512", "--device", "cuda", "--log_level", "warning"]
@@ -1601,9 +1928,9 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str) -> dict:
         return emb, n
 
     out = {}
-    for tier, extra in (("flat", []), ("ivf", ["--index_type", "ivf"]),
-                        ("refine", ["--index_type", "refine"])):
-        out_dir = os.path.join(tmp, f"eval_{tier}")
+    for tier in tiers:
+        extra = EVAL_TIERS[tier]
+        out_dir = os.path.join(tmp, f"eval_{config.model_type}_{tier}")
         encodes.clear()
         gc.collect()
         torch.cuda.empty_cache()
@@ -1638,15 +1965,16 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str) -> dict:
             raise AssertionError(f"evaluate ({tier}): saved metrics differ from the "
                                  "host recompute over the saved arrays")
         n_batches = -(-N_PASSAGES // 64) + -(-N_EVAL_QUERIES // 64)
-        if launches["flash_fwd"] < 16 * n_batches:
+        if launches["flash_fwd"] < layers * n_batches:
             raise AssertionError(f"evaluate ({tier}): flash_fwd launched "
-                                 f"{launches['flash_fwd']} times, expected >= {16 * n_batches}")
+                                 f"{launches['flash_fwd']} times, expected >= "
+                                 f"{layers * n_batches}")
         if tier == "ivf" and launches["ivf_probe_scores"] <= 0:
             raise AssertionError("evaluate (ivf): ivf_probe_scores was not launched")
         if [n for _, n, _ in encodes] != [N_EVAL_QUERIES, N_PASSAGES]:
             raise AssertionError(f"evaluate ({tier}): encodes of {[n for _, n, _ in encodes]}")
         (q_emb, _, q_s), (c_emb, _, c_s) = encodes
-        log(f"evaluate ({tier}): {N_EVAL_QUERIES} queries over {N_PASSAGES} passages in "
+        log(f"evaluate ({config.model_type}, {tier}): {N_EVAL_QUERIES} queries over {N_PASSAGES} passages in "
             f"{wall:.2f} s wall = {N_EVAL_QUERIES / wall:.1f} queries/s, "
             f"{N_PASSAGES / wall:.1f} passages/s (query encode {q_s:.3f} s, corpus encode "
             f"{c_s:.3f} s, the rest checkpoint load, index, search, metrics and files); "
@@ -1665,13 +1993,15 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str) -> dict:
     # the flat hits against the exact numpy search over the CLI's embeddings
     o_scores, o_idx = numpy_search(c_host, q_host, 101)
     n_near = _check_against_oracle(out["flat"]["idx"], out["flat"]["scores"], o_scores, o_idx)
-    overlap = {tier: np.mean([len(set(a) & set(b)) / 100 for a, b in
-                              zip(out[tier]["idx"].tolist(), out["flat"]["idx"].tolist())])
-               for tier in ("ivf", "refine")}
-    log(f"evaluate (flat): hits equal to numpy_search over the same embeddings "
-        f"({n_near} hits inside {SCORE_ATOL} near-ties not compared); ivf hits share "
-        f"{overlap['ivf']:.4f}, refine hits {overlap['refine']:.4f} of the flat top-100 "
-        f"(random weights: printed, not held); {_sklearn_paths()}")
+    overlap = ", ".join(
+        f"{tier} hits share " + "{:.4f}".format(np.mean([
+            len(set(a) & set(b)) / 100 for a, b in
+            zip(out[tier]["idx"].tolist(), out["flat"]["idx"].tolist())]))
+        for tier in tiers if tier != "flat")
+    log(f"evaluate ({config.model_type}, flat): hits equal to numpy_search over the same "
+        f"embeddings ({n_near} hits inside {SCORE_ATOL} near-ties not compared); "
+        + (f"{overlap} of the flat top-100 (random weights: printed, not held); "
+           if overlap else "") + _sklearn_paths())
     for tier in out:
         del out[tier]["idx"], out[tier]["scores"]
     gc.collect()
@@ -2455,27 +2785,6 @@ def phase_index_scale(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-def make_checkpoint(tmp: str, seed: int):
-    """Random Llama-3.2-1B weights from the seed, written in bf16 with the
-    port's save_pretrained. Returns (path, the state on the host)."""
-    from rankpo_tpu_torch.models.config import EncoderConfig
-    from rankpo_tpu_torch.models.hf_io import save_pretrained
-    from rankpo_tpu_torch.models.llama import init_params, n_params
-
-    config = EncoderConfig(rope_scaling=LLAMA3_SCALING, pad_token_id=0,
-                           architectures=("LlamaForCausalLM",))
-    t0 = time.perf_counter()
-    state = init_params(config, torch.Generator(device="cuda").manual_seed(seed),
-                        dtype=torch.bfloat16)
-    ckpt = os.path.join(tmp, "ckpt")
-    save_pretrained(ckpt, config, state, dtype=torch.bfloat16)
-    state = {n: t.cpu() for n, t in state.items()}
-    torch.cuda.empty_cache()
-    log(f"checkpoint: {n_params(config) / 1e9:.3f}B parameters, bf16, "
-        f"{time.perf_counter() - t0:.1f} s to make and write")
-    return ckpt, state
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2500,7 +2809,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="rankpo_smoke_") as tmp:
         kern = timed("2 kernels", phase_kernels, args.seed, tmp)
         timed("3 search ties", phase_search_ties)
-        ckpt, base_state = timed("checkpoint", make_checkpoint, tmp, args.seed)
+        ckpt, base_state = timed("checkpoint", make_model_checkpoint, tmp, args.seed,
+                                 "llama-3.2-1b")
         serving, mutation = {}, {}
         for tier in SERVE_TIERS:
             serving[tier] = timed("4 serving", phase_serving, args.seed, tmp, ckpt, tier)
@@ -2517,6 +2827,25 @@ def main(argv=None) -> int:
         evaluation = timed("7 evaluate", phase_evaluate, args.seed, tmp, ckpt)
         mining = timed("8 mining and pipeline", phase_mining, args.seed, tmp, ckpt,
                        os.path.join(tmp, "eval_queries.jsonl"))
+        # the other bodies at the published widths: bge-m3 trained and
+        # evaluated, bge-large-en-v1.5 and Qwen2-1.5B served, Qwen2 trained
+        bge = timed("5b bge-m3 training", phase_training_bge, tmp, args.seed)
+        evaluation_bge = timed("7b bge-m3 evaluate", phase_evaluate, args.seed, tmp,
+                               bge["stage2_dir"], ("flat",))
+        shutil.rmtree(bge["stage2_dir"])
+        shutil.rmtree(os.path.join(tmp, "bge-m3"))
+        serving_models = {}
+        for name in ("bge-large-en-v1.5", "qwen2-1.5b"):
+            ckpt_m, state_m = timed("checkpoint", make_model_checkpoint, tmp, args.seed, name)
+            serving_models[name] = timed("4b serving", phase_serving, args.seed, tmp, ckpt_m,
+                                         "flat", name)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if name == "qwen2-1.5b":
+                qwen2 = timed("5q qwen2-1.5b training", phase_training_qwen2, tmp, args.seed,
+                              ckpt_m, state_m)
+            del state_m
+            shutil.rmtree(ckpt_m)
     scale = timed("6 index scale", phase_index_scale, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2565,18 +2894,39 @@ def main(argv=None) -> int:
         log(f"numbers ({card}): scale {kind} at {SCALE_N} x {SCALE_D}: " + ", ".join(
             f"{key} {value:.4f}" if isinstance(value, float) else f"{key} {value}"
             for key, value in n.items() if key not in ("counter",)))
-    for stage in ("stage1", "stage2"):
-        s = train[stage]
+    stages = [("stage1", train["stage1"], 8), ("stage2", train["stage2"], 8),
+              ("bge-m3 stage1 (dropout, plain attention)", bge["stage1"], BGE_STEPS),
+              ("bge-m3 stage2", bge["stage2"], BGE_STEPS),
+              ("qwen2-1.5b stage1", qwen2["stage1"], QWEN2_STEPS)]
+    for stage, s, steps in stages:
         mfu = "not known for this card" if s["mfu"] is None else f"{s['mfu']:.4f}"
         log(f"numbers ({card}): {stage}: median step {s['step_time_s']:.4f} s "
-            f"(steps 2-8); {s['samples_per_sec']:.2f} samples/s, "
+            f"(steps 2-{steps}); {s['samples_per_sec']:.2f} samples/s, "
             f"{s['tokens_per_sec']:.1f} tokens/s (padded, as the trainer logs them); "
             f"MFU {mfu} (trainer's log, 989 TFLOP/s peak); peak device memory "
             f"{s['peak_mem_gib']:.2f} GiB; loss {s['first_loss']:.4f} -> "
             f"{s['last_loss']:.4f}; wall {s['wall_s']:.1f} s; K1 launches "
             f"{s['launches']['flash_fwd']}, K2 {s['launches']['flash_bwd_fused']}, "
             f"K3a {s['launches']['flash_dq']}, K3b {s['launches']['flash_dkv']}")
-    for tier, n in evaluation.items():
+    for name, n in serving_models.items():
+        log(f"numbers ({card}): serving {name} (flat): startup (load + encode + index) "
+            f"{n['startup_s']:.2f} s; corpus encode {n['encode_s']:.3f} s = "
+            f"{n['passages_per_s']:.1f} passages/s, {n['tokens_per_s']:.0f} tokens/s; "
+            f"/search single p50 {n['search_single_p50_ms']:.2f} ms p99 "
+            f"{n['search_single_p99_ms']:.2f} ms (8 clients); batch of 16 p50 "
+            f"{n['search_batch16_p50_ms']:.2f} ms; peak device memory "
+            f"{n['peak_mem_gib']:.2f} GiB; K1 at the encode's shapes "
+            f"{n['k1_encode']['ms']:.4f} ms per layer; launches {n['launches']}")
+    for shape, causal in REGIME_SHAPES:
+        log(f"numbers ({card}): kernels at {shape} {'causal' if causal else 'non-causal'}, "
+            "random lengths: " + "; ".join(
+                f"{name} {kern[name]['regimes'][shape]['ms']:.4f} ms (plain "
+                f"{kern[name]['regimes'][shape]['plain_ms']:.4f}, SDPA "
+                f"{kern[name]['regimes'][shape]['library_ms']:.4f}, bound "
+                f"{kern[name]['regimes'][shape]['bound_ms']:.4f} "
+                f"{kern[name]['regimes'][shape]['bound_by']})" for name in KERNELS))
+    for tier, n in (*evaluation.items(), *(("bge-m3 " + t, n) for t, n in
+                                            evaluation_bge.items())):
         log(f"numbers ({card}): evaluate {tier}: {n['wall_s']:.2f} s wall, "
             f"{n['queries_per_s']:.1f} queries/s, {n['passages_per_s']:.1f} passages/s, "
             f"encodes {n['encode_s']}, metrics on the host {n['metrics_s']:.3f} s, peak "
@@ -2584,10 +2934,12 @@ def main(argv=None) -> int:
     for name, n in mining.items():
         log(f"numbers ({card}): {name}: {n['wall_s']:.2f} s wall, peak device memory "
             f"{n['peak_mem_gib']:.2f} GiB, launches {n['launches']}")
-    launches = {name: train["stage1"]["launches"][name] + train["stage2"]["launches"][name]
-                + sum(n["launches"][name] for n in mining.values()) for name in KERNELS}
+    trained = (train["stage1"], train["stage2"], bge["stage1"], bge["stage2"], qwen2["stage1"],
+               *mining.values())
+    launches = {name: sum(n["launches"][name] for n in trained) for name in KERNELS}
     launches["flash_fwd"] += sum(n["launches"]["flash_fwd"] for n in (
-        *serving.values(), *mutation.values(), *evaluation.values()))
+        *serving.values(), *mutation.values(), *evaluation.values(),
+        *evaluation_bge.values(), *serving_models.values()))
     for name, (_, _, counter) in IVF_KERNELS.items():
         launches[name] = (sum(n["launches"][counter]
                               for n in (*serving.values(), *mutation.values()))

@@ -47,11 +47,11 @@ from rankpo_tpu_torch.data.collators import ContrastiveCollator
 from rankpo_tpu_torch.data.datasets import ContrastiveDataset
 from rankpo_tpu_torch.data.tokenization import prepare_tokenizer, resolve_tokenizer
 from rankpo_tpu_torch.core.device import resolve_device
-from rankpo_tpu_torch.models.encoder import resize_token_embeddings
+from rankpo_tpu_torch.models.base import EncoderModule
+from rankpo_tpu_torch.models.encoder import encoder_class, resize_token_embeddings
 from rankpo_tpu_torch.models.hf_io import load_pretrained, save_pretrained
-from rankpo_tpu_torch.models.llama import LlamaEncoder
 from rankpo_tpu_torch.train.config import TrainConfig
-from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn
+from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn, uses_dropout
 from rankpo_tpu_torch.train.trainer import Trainer
 from rankpo_tpu_torch.utils.flops import contrastive_sample_flops, contrastive_sample_tokens
 from rankpo_tpu_torch.utils.model_card import write_model_card
@@ -96,9 +96,10 @@ def setup_model_and_tokenizer(model_args: ModelArguments):
     return config, state, tokenizer, pad_id
 
 
-def build_model(config, state, train_cfg: TrainConfig, device) -> LlamaEncoder:
+def build_model(config, state, train_cfg: TrainConfig, device) -> EncoderModule:
+    """The config's body (llama/Qwen2 or Roberta/BERT), trainable."""
     policy = policy_from_flags(train_cfg.bf16, train_cfg.pure_bf16)
-    return LlamaEncoder.for_training(
+    return encoder_class(config).for_training(
         config, state, device=device, param_dtype=policy.param_dtype,
         compute_dtype=policy.compute_dtype,
         gradient_checkpointing=train_cfg.gradient_checkpointing,
@@ -203,11 +204,14 @@ def main(argv=None):
         sample_flops=contrastive_sample_flops(
             config, query_len=data_args.max_query_length,
             passage_len=data_args.max_passage_length, group_size=group_size,
+            causal=config.is_llama,
         ),
         sample_tokens=contrastive_sample_tokens(
             query_len=data_args.max_query_length,
             passage_len=data_args.max_passage_length, group_size=group_size,
         ),
+        # the Roberta body's dropout at the config's rates on every step
+        dropout_seed=train_cfg.seed if uses_dropout(config) else None,
     )
     t0 = time.time()
     history = trainer.train(dataset, collator)

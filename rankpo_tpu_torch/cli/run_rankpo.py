@@ -43,10 +43,10 @@ from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.collators import RankPOCollator
 from rankpo_tpu_torch.data.datasets import PairPreferenceDataset
 from rankpo_tpu_torch.core.device import resolve_device
+from rankpo_tpu_torch.models.encoder import encoder_class
 from rankpo_tpu_torch.models.hf_io import load_pretrained
-from rankpo_tpu_torch.models.llama import LlamaEncoder
 from rankpo_tpu_torch.train.config import TrainConfig
-from rankpo_tpu_torch.train.steps import make_rankpo_loss_fn
+from rankpo_tpu_torch.train.steps import make_rankpo_loss_fn, uses_dropout
 from rankpo_tpu_torch.train.trainer import Trainer
 from rankpo_tpu_torch.utils.flops import rankpo_sample_flops, rankpo_sample_tokens
 from rankpo_tpu_torch.utils.wandb_utils import maybe_init_wandb
@@ -75,7 +75,7 @@ def main(argv=None):
         ref_path = r_args.ref_model_name_or_path or model_args.model_name_or_path
         _, ref_state = load_pretrained(ref_path)
         # frozen, in the compute dtype: the forward casts to it anyway
-        ref_model = LlamaEncoder.from_state_dict(
+        ref_model = encoder_class(config).from_state_dict(
             config, ref_state, device=device, dtype=policy.compute_dtype
         )
         logger.info("loaded frozen reference model from %s", ref_path)
@@ -125,12 +125,15 @@ def main(argv=None):
         sample_flops=rankpo_sample_flops(
             config, query_len=data_args.max_query_length,
             passage_len=data_args.max_passage_length,
-            reference_free=ref_model is None,
+            reference_free=ref_model is None, causal=config.is_llama,
         ),
         sample_tokens=rankpo_sample_tokens(
             query_len=data_args.max_query_length,
             passage_len=data_args.max_passage_length,
         ),
+        # the policy's dropout only when the run asks for it
+        dropout_seed=(train_cfg.seed if uses_dropout(config) and not r_args.disable_dropout
+                      else None),
     )
     t0 = time.time()
     history = trainer.train(dataset, collator)

@@ -16,6 +16,8 @@ embedding table (``models/encoder.py`` ``resize_token_embeddings``).
 from __future__ import annotations
 
 import hashlib
+import json
+import os
 from typing import Optional, Sequence, Union
 
 LLAMA_PAD_TOKEN = "<|finetune_right_pad_id|>"
@@ -54,11 +56,40 @@ def prepare_tokenizer(tokenizer) -> int:
 
 def resolve_tokenizer(name_or_path: Optional[str], model_path: str):
     """'hash:<vocab>' -> HashTokenizer (hermetic); otherwise HF AutoTokenizer
-    (``rankpo_tpu.cli.arguments.resolve_tokenizer``)."""
+    (``rankpo_tpu.cli.arguments.resolve_tokenizer``). The HashTokenizer's
+    pad and CLS ids follow the model's ``config.json`` (:func:`hash_special_ids`)."""
     target = name_or_path or model_path
     if target and target.startswith("hash:"):
-        return HashTokenizer(vocab_size=int(target.split(":", 1)[1]))
+        return HashTokenizer(vocab_size=int(target.split(":", 1)[1]),
+                             **hash_special_ids(model_path))
     return load_tokenizer(target)
+
+
+def hash_special_ids(model_path: Optional[str]) -> dict:
+    """Pad and CLS ids of a HashTokenizer for the model at ``model_path``:
+    the config's ``pad_token_id`` when it is one of the reserved ids 0-2,
+    with CLS at 0 when the pad is 1 (XLM-Roberta's ``<s>`` 0 and ``<pad>``
+    1) and at 1 otherwise; the defaults (pad 0, CLS 1) without a config.
+    The Roberta position rule counts every id other than the config's pad
+    as text, so an XLM-Roberta model must be fed its own pad; a pad id
+    outside the reserved range would collide with word ids and raises for
+    the Roberta family (the llama body reads only the mask)."""
+    path = os.path.join(model_path, "config.json") if model_path else None
+    if not path or not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        config = json.load(f)
+    pad = config.get("pad_token_id")
+    if pad is None:
+        return {}
+    if pad not in (0, 1, 2):
+        if config.get("model_type") in ("xlm-roberta", "roberta", "bert"):
+            raise ValueError(
+                f"{model_path}: pad_token_id {pad} lies in the hash tokenizer's "
+                "word ids; a hash:<vocab> tokenizer needs a pad id of 0, 1 or 2"
+            )
+        return {}
+    return {"pad_token_id": pad, "cls_token_id": 0 if pad == 1 else 1}
 
 
 class HashTokenizer:

@@ -25,8 +25,7 @@ import torch
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.data.collators import _pad_block
 from rankpo_tpu_torch.models.config import EncoderConfig
-from rankpo_tpu_torch.models.encoder import embed
-from rankpo_tpu_torch.models.llama import LlamaEncoder
+from rankpo_tpu_torch.models.encoder import embed, encoder_class
 
 logger = logging.getLogger(__name__)
 
@@ -51,7 +50,7 @@ class InferenceEncoder:
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
         self.length_multiple = length_multiple
-        self.model = LlamaEncoder.from_state_dict(
+        self.model = encoder_class(config).from_state_dict(
             config, state, device=self.device, dtype=compute_dtype
         )
 

@@ -251,3 +251,42 @@ def tiny_llama_config(vocab_size: int = 512) -> EncoderConfig:
         architectures=("LlamaModel",),
         pooling="last_token",
     )
+
+
+def tiny_qwen2_config(vocab_size: int = 512) -> EncoderConfig:
+    """Small qwen2-family config (q/k/v biases on the llama body)."""
+    return EncoderConfig(
+        model_type="qwen2",
+        vocab_size=vocab_size,
+        hidden_size=64,
+        intermediate_size=128,
+        num_hidden_layers=2,
+        num_attention_heads=4,
+        num_key_value_heads=2,
+        max_position_embeddings=2048,
+        rope_theta=10000.0,
+        pad_token_id=0,
+        architectures=("Qwen2Model",),
+        pooling="last_token",
+        attention_qkv_bias=True,
+    )
+
+
+def tiny_roberta_config(vocab_size: int = 512) -> EncoderConfig:
+    return EncoderConfig(
+        model_type="xlm-roberta",
+        vocab_size=vocab_size,
+        hidden_size=64,
+        intermediate_size=128,
+        num_hidden_layers=2,
+        num_attention_heads=4,
+        num_key_value_heads=4,
+        max_position_embeddings=520,
+        layer_norm_eps=1e-5,
+        type_vocab_size=1,
+        pad_token_id=1,
+        tie_word_embeddings=False,
+        hidden_act="gelu",
+        architectures=("XLMRobertaModel",),
+        pooling="cls",
+    )

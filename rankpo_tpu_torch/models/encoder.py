@@ -1,50 +1,93 @@
 """Text encoder: backbone forward -> pooling -> optional L2 normalisation
 (port of ``rankpo_tpu.models.encoder``). Serving and training both call
 :func:`embed`, so the embedding semantics live in one place;
+:func:`encoder_class` picks the body from the config (the llama body for
+``config.is_llama``, else the Roberta/BERT body), as the JAX dispatch does;
 :func:`resize_token_embeddings` grows the vocabulary after a tokenizer gains
 special tokens."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Type
 
 import torch
 
-from rankpo_tpu_torch.models.llama import LlamaEncoder
+from rankpo_tpu_torch.models import llama, roberta
+from rankpo_tpu_torch.models.base import EncoderModule
+from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.models.pooling import l2_normalize, pool
 
 
+def _body(config: EncoderConfig):
+    return llama if config.is_llama else roberta
+
+
+def encoder_class(config: EncoderConfig) -> Type[EncoderModule]:
+    """``LlamaEncoder`` or ``RobertaEncoder``; raises for a body that is not
+    ported yet."""
+    check_supported(config)
+    return llama.LlamaEncoder if config.is_llama else roberta.RobertaEncoder
+
+
+def check_supported(config: EncoderConfig) -> None:
+    _body(config).check_supported(config)
+
+
+def state_names(config: EncoderConfig):
+    """HF tensor names of the config's body, in state_dict order."""
+    return _body(config).state_names(config)
+
+
+def init_params(config: EncoderConfig, generator: torch.Generator, **kwargs):
+    """Random HF-named state dict of the config's body (``llama`` /
+    ``roberta`` ``init_params``)."""
+    return _body(config).init_params(config, generator, **kwargs)
+
+
+def n_params(config: EncoderConfig) -> int:
+    """Parameter count of the encoder body (tied LM head, pooler not
+    counted)."""
+    with torch.device("meta"):
+        return sum(p.numel() for p in encoder_class(config)(config).parameters())
+
+
 def forward_hidden(
-    model: LlamaEncoder,
+    model: EncoderModule,
     input_ids: torch.Tensor,
     attention_mask: torch.Tensor,
     *,
     attn_impl: str = "auto",
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Last hidden state [B, S, H] in the model's (compute) dtype."""
-    return model(input_ids, attention_mask, attn_impl=attn_impl)
+    """Last hidden state [B, S, H] in the model's (compute) dtype; dropout
+    is live when a ``generator`` is given and the body has any."""
+    return model(input_ids, attention_mask, attn_impl=attn_impl, generator=generator)
 
 
 def embed(
-    model: LlamaEncoder,
+    model: EncoderModule,
     batch: Dict[str, torch.Tensor],
     *,
     normalize: Optional[bool] = None,
     attn_impl: str = "auto",
     output_dtype: torch.dtype = torch.float32,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Sentence embeddings [B, H] for {'input_ids', 'attention_mask'} inputs.
 
     Pooling comes from ``model.config`` (reference src/modeling.py:224-232);
     ``normalize`` defaults to ``config.normalize``. The compute dtype, and
     whether layers are recomputed in the backward pass, are the model's
-    (``LlamaEncoder.from_state_dict`` / ``LlamaEncoder.for_training``)."""
+    (``from_state_dict`` / ``for_training``, ``models/base.py``). With a
+    ``generator`` the Roberta body's dropout is live (the JAX
+    ``deterministic=False`` with a ``dropout_key``)."""
     config = model.config
     if normalize is None:
         normalize = config.normalize
     hidden = forward_hidden(
-        model, batch["input_ids"], batch["attention_mask"], attn_impl=attn_impl
+        model, batch["input_ids"], batch["attention_mask"], attn_impl=attn_impl,
+        generator=generator,
     )
     reps = pool(hidden, batch["attention_mask"], config.pooling).to(output_dtype)
     if normalize:
@@ -87,9 +130,12 @@ def resize_token_embeddings(
     resizes). New rows are the mean of the old rows, taken in fp32
     (:func:`_tree_sum_rows`) and cast to the table's dtype (HF's
     ``mean_resizing``), or normal(0.02) rows
-    drawn in fp32 from ``generator`` when one is given. The input state is
+    drawn in fp32 from ``generator`` when one is given. The table is
+    ``embed_tokens.weight`` (llama body) or
+    ``embeddings.word_embeddings.weight`` (Roberta body). The input state is
     not modified."""
-    name = "embed_tokens.weight"
+    name = ("embed_tokens.weight" if config.is_llama
+            else "embeddings.word_embeddings.weight")
     table = state[name]
     old_size, h = table.shape
     if new_size <= old_size:

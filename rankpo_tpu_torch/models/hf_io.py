@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from rankpo_tpu_torch.models.config import EncoderConfig
-from rankpo_tpu_torch.models.llama import check_supported, state_names
+from rankpo_tpu_torch.models.encoder import check_supported, state_names
 
 _DTYPES = {"F32": torch.float32, "BF16": torch.bfloat16}
 _NAMES = {v: k for k, v in _DTYPES.items()}
@@ -80,17 +80,19 @@ def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
 
 
 def _strip_prefix(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """A saved LlamaForCausalLM prefixes 'model.'; bare saves have none."""
-    prefix = "model."
-    if any(k.startswith(prefix) for k in state):
-        state = {(k[len(prefix):] if k.startswith(prefix) else k): v
-                 for k, v in state.items()}
+    """A saved LlamaForCausalLM prefixes 'model.', an XLMRobertaForX
+    'roberta.', a BertForX 'bert.'; bare AutoModel saves have none."""
+    for prefix in ("model.", "roberta.", "bert."):
+        if any(k.startswith(prefix) for k in state):
+            state = {(k[len(prefix):] if k.startswith(prefix) else k): v
+                     for k, v in state.items()}
     return state
 
 
 def load_pretrained(path: str):
     """(config, state dict of CPU tensors) from an HF-format directory. Only
-    the encoder's tensors are kept (an LM head, if present, is dropped)."""
+    the encoder's tensors are kept (an LM head or a pooler, if present, is
+    dropped)."""
     config = EncoderConfig.from_pretrained(path)
     check_supported(config)
     files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
@@ -124,25 +126,49 @@ def save_pretrained(
 
 
 def params_from_jax(params: dict, config: EncoderConfig) -> Dict[str, torch.Tensor]:
-    """The JAX llama pytree (stacked layers, kernels ``[L, in, out]``, as
-    numpy arrays or anything ``np.asarray`` takes) -> the port's fp32 state
-    dict (HF names, ``[out, in]``)."""
+    """A JAX pytree (stacked layers, kernels ``[L, in, out]``, as numpy
+    arrays or anything ``np.asarray`` takes) -> the port's fp32 state dict
+    (HF names, ``[out, in]``), for the llama body (with Qwen2's or
+    ``attention_bias``'s biases) and the Roberta/BERT body."""
     check_supported(config)
 
     def t(x) -> torch.Tensor:
         return torch.from_numpy(np.array(x, dtype=np.float32))
 
     layers = params["layers"]
+    if not config.is_llama:
+        emb = params["embeddings"]
+        state = {f"embeddings.{n}.weight": t(emb[n]["weight"]) for n in
+                 ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+        state["embeddings.LayerNorm.weight"] = t(emb["layer_norm"]["weight"])
+        state["embeddings.LayerNorm.bias"] = t(emb["layer_norm"]["bias"])
+        dense = {"attention.self.query": "query", "attention.self.key": "key",
+                 "attention.self.value": "value", "attention.output.dense": "attn_output",
+                 "intermediate.dense": "intermediate", "output.dense": "output"}
+        norms = {"attention.output.LayerNorm": "attn_layer_norm",
+                 "output.LayerNorm": "output_layer_norm"}
+        for i in range(config.num_hidden_layers):
+            p = f"encoder.layer.{i}."
+            for hf, jx in dense.items():
+                state[p + hf + ".weight"] = t(layers[jx]["kernel"][i]).T.contiguous()
+                state[p + hf + ".bias"] = t(layers[jx]["bias"][i])
+            for hf, jx in norms.items():
+                state[p + hf + ".weight"] = t(layers[jx]["weight"][i])
+                state[p + hf + ".bias"] = t(layers[jx]["bias"][i])
+        return {n: state[n] for n in state_names(config)}
+
     state = {"embed_tokens.weight": t(params["embed_tokens"]["weight"])}
     for i in range(config.num_hidden_layers):
         p = f"layers.{i}."
         state[p + "input_layernorm.weight"] = t(layers["input_layernorm"]["weight"][i])
         for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
             state[p + f"self_attn.{proj}.weight"] = t(layers[proj]["kernel"][i]).T.contiguous()
+            if "bias" in layers[proj]:
+                state[p + f"self_attn.{proj}.bias"] = t(layers[proj]["bias"][i])
         state[p + "post_attention_layernorm.weight"] = t(
             layers["post_attention_layernorm"]["weight"][i]
         )
         for proj in ("gate_proj", "up_proj", "down_proj"):
             state[p + f"mlp.{proj}.weight"] = t(layers[proj]["kernel"][i]).T.contiguous()
     state["norm.weight"] = t(params["norm"]["weight"])
-    return state
+    return {n: state[n] for n in state_names(config)}

@@ -23,8 +23,10 @@ For the serving build the casts are no-ops. ``gradient_checkpointing``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``,
 non-reentrant): the JAX ``remat_policy="full"``.
 
-Only the plain llama body is ported. Qwen2 / Mistral / Gemma (biases, sliding
-windows, (1+w) norms) and the Roberta family raise ``NotImplementedError``.
+The llama body and Qwen2's (q/k/v biases; Llama's ``attention_bias`` adds
+the o bias too) are ported. Mistral and Gemma (sliding windows, (1+w) norms,
+GeGLU, scaled embeddings, head_dim 256) raise ``NotImplementedError``; the
+Roberta family has its own body (``models/roberta.py``).
 """
 
 from __future__ import annotations
@@ -37,26 +39,30 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from rankpo_tpu_torch.core.device import resolve_device
+from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.ops.attention import multi_head_attention
+
+MODEL_TYPES = ("llama", "qwen2")
 
 
 def check_supported(config: EncoderConfig) -> None:
     """Raise for configurations whose body is not ported yet (ROADMAP.md)."""
-    if config.model_type != "llama":
+    if config.model_type not in MODEL_TYPES:
         raise NotImplementedError(
             f"model_type {config.model_type!r} is not ported to rankpo_tpu_torch "
-            "yet (ROADMAP.md Queue 1: Qwen2/Mistral/Gemma/Roberta bodies)"
+            "yet (ROADMAP.md Queue 1 item 6.3: the Mistral and Gemma bodies)"
         )
-    if config.attention_qkv_bias or config.attention_o_bias:
-        raise NotImplementedError("llama attention_bias is not ported yet")
     if config.sliding_window is not None:
         raise NotImplementedError(
-            "sliding-window attention is not ported yet (flash kernel `window`)"
+            "sliding-window attention is not ported yet (ROADMAP.md Queue 1 "
+            "item 6.3: the `window` variants of K1, K2, K3a and K3b)"
         )
     if config.hidden_act != "silu":
-        raise NotImplementedError(f"hidden_act {config.hidden_act!r} is not ported")
+        raise NotImplementedError(
+            f"hidden_act {config.hidden_act!r} is not ported (ROADMAP.md Queue 1 "
+            "item 6.3: GeGLU)"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -129,11 +135,6 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight.to(x.dtype), self.eps)
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """``layer`` applied with its weight cast to the activations' dtype."""
-    return F.linear(x, layer.weight.to(x.dtype))
-
-
 # ---------------------------------------------------------------------------
 # Modules (HF names, so state_dict keys are the safetensors tensor names)
 # ---------------------------------------------------------------------------
@@ -143,10 +144,11 @@ class LlamaAttention(nn.Module):
         super().__init__()
         h, d = config.hidden_size, config.head_dim
         hq, hkv = config.num_attention_heads, config.num_key_value_heads
-        self.q_proj = nn.Linear(h, hq * d, bias=False)
-        self.k_proj = nn.Linear(h, hkv * d, bias=False)
-        self.v_proj = nn.Linear(h, hkv * d, bias=False)
-        self.o_proj = nn.Linear(hq * d, h, bias=False)
+        qkv_bias = config.attention_qkv_bias  # Qwen2; Llama attention_bias
+        self.q_proj = nn.Linear(h, hq * d, bias=qkv_bias)
+        self.k_proj = nn.Linear(h, hkv * d, bias=qkv_bias)
+        self.v_proj = nn.Linear(h, hkv * d, bias=qkv_bias)
+        self.o_proj = nn.Linear(hq * d, h, bias=config.attention_o_bias)
 
 
 class LlamaMLP(nn.Module):
@@ -158,8 +160,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = nn.Linear(f, h, bias=False)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        gate = F.silu(_linear(y, self.gate_proj))
-        return _linear(gate * _linear(y, self.up_proj), self.down_proj)
+        gate = F.silu(linear(y, self.gate_proj))
+        return linear(gate * linear(y, self.up_proj), self.down_proj)
 
 
 class LlamaLayer(nn.Module):
@@ -179,91 +181,31 @@ class LlamaLayer(nn.Module):
         d = cfg.head_dim
         attn = self.self_attn
         y = self.input_layernorm(x)
-        q = _linear(y, attn.q_proj).view(b, s, cfg.num_attention_heads, d)
-        k = _linear(y, attn.k_proj).view(b, s, cfg.num_key_value_heads, d)
-        v = _linear(y, attn.v_proj).view(b, s, cfg.num_key_value_heads, d)
+        q = linear(y, attn.q_proj).view(b, s, cfg.num_attention_heads, d)
+        k = linear(y, attn.k_proj).view(b, s, cfg.num_key_value_heads, d)
+        v = linear(y, attn.v_proj).view(b, s, cfg.num_key_value_heads, d)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         # pad keys are masked everywhere, so pad query tiles may be skipped
         o = multi_head_attention(
             q, k, v, mask=key_mask, causal=True, impl=attn_impl,
             skip_pad_q=True,
         )
-        x = x + _linear(o.reshape(b, s, -1), attn.o_proj)
+        x = x + linear(o.reshape(b, s, -1), attn.o_proj)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-CHECKPOINT_POLICIES = ("full",)
-
-
-class LlamaEncoder(nn.Module):
+class LlamaEncoder(EncoderModule):
     """Token ids [B, S] + right-padded mask [B, S] -> last hidden [B, S, H]
     in ``compute_dtype`` (by default the parameters' dtype)."""
 
     def __init__(self, config: EncoderConfig):
-        super().__init__()
         check_supported(config)
-        self.config = config
+        super().__init__(config)
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
         self.layers = nn.ModuleList(
             LlamaLayer(config) for _ in range(config.num_hidden_layers)
         )
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.compute_dtype: Optional[torch.dtype] = None
-        self.gradient_checkpointing = False
-
-    @classmethod
-    def for_training(
-        cls,
-        config: EncoderConfig,
-        state: Dict[str, torch.Tensor],
-        *,
-        device="cuda",
-        param_dtype: torch.dtype = torch.float32,
-        compute_dtype: torch.dtype = torch.bfloat16,
-        gradient_checkpointing: bool = False,
-        checkpoint_policy: str = "full",
-    ) -> "LlamaEncoder":
-        """Trainable build: master parameters in ``param_dtype`` on
-        ``device`` (the card unless the caller asks for the CPU; no card
-        raises), forward in ``compute_dtype``. ``checkpoint_policy`` is
-        the JAX ``remat_policy``; only "full" is ported."""
-        if checkpoint_policy not in CHECKPOINT_POLICIES:
-            raise NotImplementedError(
-                f"gradient_checkpointing_policy {checkpoint_policy!r} is not "
-                "ported yet (ROADMAP.md Queue 1 item 2: remat 'dots'/'attn'); "
-                "use 'full'"
-            )
-        device = resolve_device(device)
-        with torch.device("meta"):
-            model = cls(config)
-        # a copy even where device and dtype match: training updates the
-        # parameters in place and must not write into the caller's tensors
-        state = {n: t.to(device=device, dtype=param_dtype, copy=True)
-                 for n, t in state.items()}
-        model.load_state_dict(state, strict=True, assign=True)
-        model.compute_dtype = compute_dtype
-        model.gradient_checkpointing = gradient_checkpointing
-        return model.requires_grad_(True).train()
-
-    @classmethod
-    def from_state_dict(
-        cls,
-        config: EncoderConfig,
-        state: Dict[str, torch.Tensor],
-        *,
-        device="cuda",
-        dtype: torch.dtype = torch.float32,
-    ) -> "LlamaEncoder":
-        """Build on the meta device (no throwaway random init) and adopt
-        ``state`` converted to ``dtype`` on ``device`` (the card unless the
-        caller asks for the CPU; no card raises). Every parameter must
-        be present; the result is frozen (serving has no backward yet)."""
-        device = resolve_device(device)
-        with torch.device("meta"):
-            model = cls(config)
-        state = {n: t.to(device=device, dtype=dtype) for n, t in state.items()}
-        model.load_state_dict(state, strict=True, assign=True)
-        return model.requires_grad_(False).eval()
 
     def forward(
         self,
@@ -271,7 +213,11 @@ class LlamaEncoder(nn.Module):
         attention_mask: torch.Tensor,
         *,
         attn_impl: str = "auto",
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        """``generator`` is taken for the callers' sake and unused: the
+        llama body has no dropout."""
+        del generator
         b, s = input_ids.shape
         weight = self.embed_tokens.weight
         # gathered from the master table, then cast (JAX llama.py:264)
@@ -294,14 +240,15 @@ class LlamaEncoder(nn.Module):
 def state_names(config: EncoderConfig) -> List[str]:
     """HF tensor names of a llama encoder, in state_dict order."""
     names = ["embed_tokens.weight"]
+    qkv = ["weight", "bias"] if config.attention_qkv_bias else ["weight"]
+    o = ["weight", "bias"] if config.attention_o_bias else ["weight"]
     for i in range(config.num_hidden_layers):
         p = f"layers.{i}."
+        names += [p + "input_layernorm.weight"]
+        names += [p + f"self_attn.{proj}.{t}" for proj in ("q_proj", "k_proj", "v_proj")
+                  for t in qkv]
+        names += [p + f"self_attn.o_proj.{t}" for t in o]
         names += [
-            p + "input_layernorm.weight",
-            p + "self_attn.q_proj.weight",
-            p + "self_attn.k_proj.weight",
-            p + "self_attn.v_proj.weight",
-            p + "self_attn.o_proj.weight",
             p + "post_attention_layernorm.weight",
             p + "mlp.gate_proj.weight",
             p + "mlp.up_proj.weight",
@@ -317,26 +264,14 @@ def init_params(
     device=None,
     dtype: torch.dtype = torch.float32,
 ) -> Dict[str, torch.Tensor]:
-    """Random init (normal 0.02 like HF, norms at one) as an HF-named state
-    dict. Each tensor is drawn in fp32 from ``generator`` (whose device it is
-    made on) and then cast, so the peak extra memory is one fp32 tensor."""
+    """Random init (normal 0.02 like HF, norms at one, biases at zero) as an
+    HF-named state dict. Each tensor is drawn in fp32 from ``generator``
+    (whose device it is made on) and then cast, so the peak extra memory is
+    one fp32 tensor."""
     check_supported(config)
     device = generator.device if device is None else torch.device(device)
     with torch.device("meta"):
         shapes = {n: t.shape for n, t in LlamaEncoder(config).state_dict().items()}
-    state = {}
-    for name in state_names(config):
-        shape = shapes[name]
-        if name.endswith("norm.weight"):
-            state[name] = torch.ones(shape, dtype=dtype, device=device)
-        else:
-            w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=device)
-            state[name] = (w * 0.02).to(dtype)
-    return state
-
-
-def n_params(config: EncoderConfig) -> int:
-    """Parameter count of the encoder body (tied LM head not counted)."""
-    with torch.device("meta"):
-        return sum(p.numel() for p in LlamaEncoder(config).parameters())
+    return init_state(state_names(config), shapes, generator, device, dtype,
+                      ones=lambda n: n.endswith("norm.weight"),
+                      zeros=lambda n: n.endswith(".bias"))

@@ -14,6 +14,11 @@ kernels, which raise on a CPU tensor. When a gradient is needed, the kernel
 path goes through the ``FlashAttention`` autograd Function (forward K1, the
 backward kernels K2 or K3a + K3b); the reference is differentiated by
 autograd.
+
+Attention-probs dropout (``dropout_rate`` > 0 with a ``generator``) runs
+:func:`attention_reference` on every device, as the JAX dispatcher sends it
+to its XLA path (``rankpo_tpu/ops/attention.py:122-126``): the kernels, like
+the Pallas kernel, have no dropout.
 """
 
 from __future__ import annotations
@@ -54,16 +59,32 @@ def masked_logits(
     return logits
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the JAX package's rule (``roberta._dropout``):
+    each entry kept with probability 1 - rate (drawn from ``generator``,
+    which must be on x's device) and divided by 1 - rate in x's dtype.
+    The identity for rate 0 or no generator."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     mask: Optional[torch.Tensor],
     causal: bool,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Plain attention, ported from ``rankpo_tpu.ops.attention._xla_attention``:
     fp32 logits and softmax, probabilities cast to v's dtype for the PV
-    product, rows with no valid key output zeros. Returns [B, Sq, Hq, D]."""
+    product, rows with no valid key output zeros, then attention-probs
+    dropout when ``dropout_rate`` > 0 and a ``generator`` is given (JAX
+    ``attention.py:71-74``). Returns [B, Sq, Hq, D]."""
     b, sq, hq, d = q.shape
     logits = masked_logits(q, k, mask, causal)
     probs = torch.softmax(logits, dim=-1)
@@ -71,6 +92,7 @@ def attention_reference(
     # logits is a meaningless uniform average); the kernel does the same
     any_valid = logits.amax(dim=-1, keepdim=True) > NEG_INF * 0.5
     probs = torch.where(any_valid, probs, 0.0).to(v.dtype)
+    probs = dropout(probs, dropout_rate, generator)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, hq, d)
 
@@ -87,6 +109,8 @@ def multi_head_attention(
     window: Optional[int] = None,
     segment_ids: Optional[torch.Tensor] = None,
     bwd_impl: str = "auto",
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA, key mask, optional causality.
 
@@ -97,14 +121,23 @@ def multi_head_attention(
     row. ``bwd_impl`` ("auto" | "fused" | "split") picks the backward
     kernels (``flash_attention.flash_attention_bwd``); "auto" is split,
     which repeats bit for bit, under ``torch.use_deterministic_algorithms``
-    and fused otherwise."""
+    and fused otherwise. ``dropout_rate`` > 0 with a ``generator`` runs the
+    plain path with attention-probs dropout on any device and any ``impl``,
+    as the JAX dispatcher does."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if window is not None or segment_ids is not None:
+    if window is not None:
         raise NotImplementedError(
-            "sliding-window and segment_ids (packed) attention are not ported "
-            "yet (ROADMAP.md Queue 2, K1 variants)"
+            "sliding-window attention is not ported yet (ROADMAP.md Queue 1 "
+            "item 6.3: the `window` variants of K1, K2, K3a and K3b)"
         )
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "segment_ids (packed) attention is not ported yet (ROADMAP.md "
+            "Queue 1 item 7: sequence packing)"
+        )
+    if dropout_rate > 0.0 and generator is not None:
+        return attention_reference(q, k, v, mask, causal, dropout_rate, generator)
     if impl == "plain" or (impl == "auto" and q.device.type == "cpu"):
         return attention_reference(q, k, v, mask, causal)
     from rankpo_tpu_torch.ops import flash_attention as flash

@@ -4,7 +4,10 @@
 Each factory returns ``loss_fn(model, batch) -> (loss, metrics)`` for the
 single-card ``Trainer``; ``batch`` holds 'query' and 'passage' blocks of
 device tensors ({'input_ids', 'attention_mask'}). The model carries the
-compute dtype and gradient checkpointing (``LlamaEncoder.for_training``).
+compute dtype and gradient checkpointing (``models/base.py``
+``for_training``). A loss function that uses dropout also takes a
+``generator`` (``loss_fn(model, batch, generator)``, the trainer's
+``dropout_seed``); :func:`uses_dropout` says when it does.
 """
 
 from __future__ import annotations
@@ -24,6 +27,13 @@ from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.models.encoder import embed
 
 
+def uses_dropout(model_config: EncoderConfig) -> bool:
+    """Whether the body draws dropout masks at the config's rates (the
+    Roberta family; the llama body has none)."""
+    return not model_config.is_llama and (
+        model_config.hidden_dropout > 0 or model_config.attention_dropout > 0)
+
+
 def make_contrastive_loss_fn(
     model_config: EncoderConfig,
     *,
@@ -38,15 +48,17 @@ def make_contrastive_loss_fn(
     batch is global, so ``negatives_cross_device`` is the global in-batch
     loss; with ``num_data_shards`` > 1 and neither cross-device negatives
     the per-block loss runs, as in the JAX package. The temperature guards
-    (modeling.py:186-191) are applied at build time."""
+    (modeling.py:186-191) are applied at build time. With a ``generator``
+    dropout is live, as the JAX stage 1 passes an rng on every step
+    (``steps.py:70-86``)."""
     del model_config  # the model carries its config
     temperature = validate_temperature(normalize_embeddings, temperature)
 
-    def loss_fn(model, batch):
+    def loss_fn(model, batch, generator=None):
         q_reps = embed(model, batch["query"], normalize=normalize_embeddings,
-                       attn_impl=attn_impl)
+                       attn_impl=attn_impl, generator=generator)
         p_reps = embed(model, batch["passage"], normalize=normalize_embeddings,
-                       attn_impl=attn_impl)
+                       attn_impl=attn_impl, generator=generator)
         b = q_reps.shape[0]
         group_size = p_reps.shape[0] // b
         row_valid = batch.get("row_valid")
@@ -96,9 +108,11 @@ def make_rankpo_loss_fn(
     Faithful quirk: the reference RankPO forward ALWAYS L2-normalises
     (rankpo_trainer.py:417 ignores normalize_embeddings), so scores are
     cosines; so does this. With ``reference_free=False`` the frozen
-    ``ref_model`` scores the same batch under ``torch.no_grad``. The llama
-    body has no dropout, so ``disable_dropout`` changes nothing here."""
-    del model_config, disable_dropout
+    ``ref_model`` scores the same batch under ``torch.no_grad``, without
+    dropout. With ``disable_dropout`` (the reference's default) a
+    ``generator`` is ignored; otherwise it makes the policy's dropout live
+    (JAX ``steps.py:164-196``)."""
+    del model_config
     if loss_type == "hinge" and label_smoothing > 0:
         # reference behaviour (rankpo_trainer.py:215-218): warn and ignore
         warnings.warn(
@@ -106,14 +120,16 @@ def make_rankpo_loss_fn(
             "label_smoothing"
         )
 
-    def _scores(model, batch):
-        q_reps = embed(model, batch["query"], normalize=True, attn_impl=attn_impl)
-        p_reps = embed(model, batch["passage"], normalize=True, attn_impl=attn_impl)
+    def _scores(model, batch, generator=None):
+        q_reps = embed(model, batch["query"], normalize=True, attn_impl=attn_impl,
+                       generator=generator)
+        p_reps = embed(model, batch["passage"], normalize=True, attn_impl=attn_impl,
+                       generator=generator)
         grouped = p_reps.reshape(q_reps.shape[0], 2, -1)  # [chosen, rejected]
         return torch.einsum("bh,bgh->bg", q_reps.float(), grouped.float())
 
-    def loss_fn(model, batch):
-        scores = _scores(model, batch)
+    def loss_fn(model, batch, generator=None):
+        scores = _scores(model, batch, None if disable_dropout else generator)
         ref_scores = None
         if not reference_free and ref_model is not None:
             with torch.no_grad():

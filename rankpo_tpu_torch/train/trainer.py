@@ -14,6 +14,12 @@ takes it (``trainer.py:208-312``):
   the loss or the gradient norm is not finite, neither the parameters nor
   the optimizer state change, so the schedule does not advance either.
 
+- dropout: with ``dropout_seed`` the loss function is called as
+  ``loss_fn(model, batch, generator)`` with a CPU generator seeded from
+  (``dropout_seed``, step, micro-batch), so every step and micro-batch
+  draws new masks and a rerun from the same seed draws the same ones (the
+  JAX trainer's ``fold_in(rng, step)`` then ``split(.., accum)``).
+
 ``_train_loop`` (``trainer.py:482``) logs interval means with the JAX
 package's ordered keys, plus ``step_time``, ``samples_per_sec``,
 ``tokens_per_sec`` and ``mfu`` (utils/flops.py), stops at ``max_steps``,
@@ -85,13 +91,15 @@ class Trainer:
         sample_flops: Optional[float] = None,
         sample_tokens: Optional[float] = None,
         peak_flops: Optional[float] = None,
+        dropout_seed: Optional[int] = None,
     ):
         """loss_fn(model, batch) -> (loss, metrics) on one micro-batch of
         device tensors. save_params_fn(directory, model) writes the model
         (the caller owns config and tokenizer). sample_flops/sample_tokens:
         per-sample model FLOPs and padded tokens (utils/flops.py) for
         ``tokens_per_sec`` and ``mfu``; ``peak_flops`` defaults to the card's
-        (``peak_flops_per_chip``)."""
+        (``peak_flops_per_chip``). ``dropout_seed``: see the module
+        docstring; None calls ``loss_fn(model, batch)``."""
         config.check_supported()
         self.loss_fn = loss_fn
         self.model = model
@@ -101,6 +109,7 @@ class Trainer:
         self.log_fn = log_fn
         self.sample_flops = sample_flops
         self.sample_tokens = sample_tokens
+        self.dropout_seed = dropout_seed
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.device = self.params[0].device
         if peak_flops is None and sample_flops is not None:
@@ -125,7 +134,11 @@ class Trainer:
         loss_sum = None
         metric_sums: Dict[str, torch.Tensor] = {}
         for i in range(accum):
-            loss, metrics = self.loss_fn(self.model, _micro_batch(group, i, self.device))
+            batch = _micro_batch(group, i, self.device)
+            if self.dropout_seed is None:
+                loss, metrics = self.loss_fn(self.model, batch)
+            else:
+                loss, metrics = self.loss_fn(self.model, batch, self._generator(i))
             loss.backward()  # sums into .grad across the group
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -161,6 +174,11 @@ class Trainer:
             p.grad = None
         self.step += 1
         return out
+
+    def _generator(self, micro: int) -> torch.Generator:
+        """The dropout generator of micro-batch ``micro`` of this step."""
+        seed = np.random.SeedSequence([self.dropout_seed, self.step, micro])
+        return torch.Generator().manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
 
     # ------------------------------------------------------------------
     def train(self, dataset, collator) -> List[Dict]:

@@ -72,6 +72,13 @@ SHAPES = [
     ((4, 256, 256, 32, 8, 128), True, True, True),
     ((4, 128, 128, 16, 16, 128), True, True, False),  # D 128, one per kv head
     ((4, 192, 192, 64, 8, 128), True, True, False),  # D 128, 8 per kv head
+    # the BGE encoders: non-causal, skip_pad_q, one query head per kv head
+    ((8, 512, 512, 16, 16, 64), False, True, False),
+    ((8, 512, 512, 16, 16, 64), False, True, True),
+    ((4, 100, 100, 16, 16, 64), False, True, False),  # ragged S
+    # Qwen2-1.5B: causal, D 128, 6 query heads per kv head
+    ((8, 512, 512, 12, 2, 128), True, True, False),
+    ((8, 512, 512, 12, 2, 128), True, True, True),
 ]
 
 

@@ -17,6 +17,8 @@ MODULES = [
     "rankpo_tpu_torch.ops.flash_attention",
     "rankpo_tpu_torch.ops._build",
     "rankpo_tpu_torch.models.llama",
+    "rankpo_tpu_torch.models.base",
+    "rankpo_tpu_torch.models.roberta",
     "rankpo_tpu_torch.models.pooling",
     "rankpo_tpu_torch.models.encoder",
     "rankpo_tpu_torch.ops.topk",
