@@ -5,9 +5,10 @@
 Drives the port's two main paths once through their normal entry points at
 the full width and depth of meta-llama/Llama-3.2-1B, and the other bodies
 at the published widths and depths of BAAI/bge-m3 (XLM-Roberta),
-BAAI/bge-large-en-v1.5 (BERT) and Qwen/Qwen2-1.5B, with random weights
-made from a seed, and checks every hand-written kernel against its plain
-PyTorch version. Phases:
+BAAI/bge-large-en-v1.5 (BERT), Qwen/Qwen2-1.5B and
+intfloat/e5-mistral-7b-instruct (sliding-window attention; trained at
+reduced depth), with random weights made from a seed, and checks every
+hand-written kernel against its plain PyTorch version. Phases:
 
 0. environment: versions, the card's name and power limit; a CUDA card of
    compute capability 9.0 is required;
@@ -22,7 +23,12 @@ PyTorch version. Phases:
    never calls) and the least time the card could take; also at the two
    regimes the other bodies add (``REGIME_SHAPES``: non-causal with one
    query head per kv head at D 64, causal with 6 per kv head at D 128),
-   checked and timed;
+   checked and timed; and with a sliding window (``WINDOW_SHAPES``:
+   Mistral's B 2, S 8192, window 4096 with every row longer than the
+   window, checked and timed against its band's bound and SDPA with the
+   band as a boolean mask; a window of 100 keys; long pad tails without
+   skip_pad_q, so rows see no key), the plain versions run one (batch, kv
+   head) at a time where the whole call would not fit;
 3. exact search on data with exact ties;
 4. serving path, seven times: a bf16 checkpoint written with the port's
    save_pretrained, a 4096-passage corpus, the HTTP server started by the
@@ -107,6 +113,19 @@ PyTorch version. Phases:
    requests held to the numpy oracle as phase 4 holds them;
 5q. Qwen2-1.5B: 4 stage-1 steps through ``run_contrastive.main`` (K1,
    K2): finite losses, every parameter moved;
+4w. intfloat/e5-mistral-7b-instruct (sliding window 4096) at full width and
+   depth: ``cli.serve`` flat over the first 1024 passages (cut from 4096
+   for the time limit), held to the numpy oracle as phase 4 holds it,
+   every encode batch's K1 launches windowed; two passages of 8192 and
+   6001 tokens through the kernels held to the plain attention and shown
+   to differ from the same model without the window;
+5w. e5-mistral at full width and 4 of its 32 layers (AdamW's state of 7B
+   parameters does not fit one card): stage 1 (K1, K2) then stage 2 under
+   deterministic algorithms (K1, K3a, K3b), 3 steps each, every passage
+   4200-6000 words, past the window; windowed launches on every layer; one
+   stage-1 micro-batch through the kernels and through plain;
+7w. ``cli.evaluate`` flat on phase 5w's stage-2 output: metrics bit-equal
+   to the host recompute, hits equal to numpy_search;
 9. numbers, and each phase's wall seconds.
 
 The hash tokenizer takes each checkpoint's pad id (``hash_special_ids``:
@@ -121,6 +140,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -169,7 +189,22 @@ MODELS = {
         max_position_embeddings=131072, rope_theta=1e6, rms_norm_eps=1e-6,
         attention_qkv_bias=True, tie_word_embeddings=True, pooling="last_token",
         architectures=("Qwen2ForCausalLM",)),
+    # intfloat/e5-mistral-7b-instruct, MistralModel: sliding-window attention
+    # over 4096 keys, pad 2 (its eos), untied embeddings
+    "e5-mistral-7b-instruct": dict(
+        model_type="mistral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+        max_position_embeddings=32768, rope_theta=1e4, rms_norm_eps=1e-5,
+        sliding_window=4096, pad_token_id=2, tie_word_embeddings=False,
+        pooling="last_token", architectures=("MistralModel",)),
 }
+MISTRAL = "e5-mistral-7b-instruct"
+MISTRAL_PASSAGES = 1024  # phase 4w: the serving corpus cut from 4096 for the time limit
+MISTRAL_LONG_WORDS = (8191, 6000)  # phase 4w: passages past the window (tokens: + CLS)
+MISTRAL_TRAIN_LAYERS = 4  # phase 5w: depth cut from 32 so AdamW's state fits one card
+MISTRAL_STEPS = 3  # phase 5w: optimizer steps of each stage
+MISTRAL_TRAIN = dict(rows=24, pairs=12, words=(4200, 6000), max_passage=6144,
+                     compare_passage=4608)  # phase 5w: passages past the window
 BGE_STEPS = 4  # phase 5b: optimizer steps of each bge-m3 stage
 QWEN2_STEPS = 4  # phase 5q
 N_PASSAGES = 4096
@@ -195,6 +230,9 @@ BWD_REL_L2 = 1e-2
 # plain attention's fp32 loss: 2.265e-4 read on NVIDIA H100 80GB HBM3,
 # 700.00 W (PERF.md); the limit is about 10x that
 LOSS_REL_FP32 = 2e-3
+# a windowed body's embeddings through the kernels against fp32: no farther
+# than the plain attention's in bf16, plus phase 4's 0.999 limit's margin
+ENCODE_MARGIN = 1e-3
 SCORE_ATOL = 1e-5  # cuBLAS and numpy sum the 2048 fp32 products in other orders
 # attention shapes (B, Sq, Sk, Hq, Hkv, D), all causal with skip_pad_q as the
 # encoder calls them: every kernel is checked at these (random lengths), and
@@ -205,6 +243,17 @@ ENCODER_SHAPES = [(8, 512, 512, 32, 8, 64), (64, 64, 64, 32, 8, 64), (8, 40, 40,
 # random lengths: bge-m3 / bge-large (non-causal, one query head per kv
 # head, D 64) and Qwen2-1.5B (causal, 6 query heads per kv head, D 128)
 REGIME_SHAPES = [((8, 512, 512, 16, 16, 64), False), ((8, 512, 512, 12, 2, 128), True)]
+# the sliding window (causal, random lengths in [lo, hi] or [1, Sk] for
+# None): (shape, window, lengths, skip_pad_q). Mistral's own shape (window
+# 4096, every row longer than the window), a window off the 64-key tile, and
+# long pad tails without skip_pad_q, so that rows see no valid key. Every
+# kernel is checked at each and timed at the first.
+WINDOW_SHAPES = [((2, 8192, 8192, 32, 8, 128), 4096, (4097, 8192), True),
+                 ((8, 512, 512, 32, 8, 64), 100, None, True),
+                 ((4, 1024, 1024, 32, 8, 128), 128, (64, 384), False)]
+# the plain versions run one (batch, kv head) at a time where one call's
+# fp32 logits would pass this
+PLAIN_CHUNK_BYTES = 2**31
 K1_SHAPES = [  # K1 alone: (shape, every key length or None for random)
     ((8, 128, 128, 8, 8, 64), None),  # Hq = Hkv: one query head per block
     ((8, 100, 100, 64, 8, 64), None),  # 8 query heads per kv head
@@ -362,27 +411,40 @@ def phase_build() -> None:
             log(f"  ptxas: {line.strip()}")
 
 
-def _attention_inputs(b, sq, sk, hq, hkv, d, gen, length=None):
+def _attention_inputs(b, sq, sk, hq, hkv, d, gen, length=None, lens_range=None):
     """Random q/k/v/do and right-padded key lengths: random in [1, Sk] with
-    a length-1 and a full-length row, or all ``length``."""
+    a length-1 and a full-length row, or in ``lens_range`` [lo, hi] with a
+    row of hi, or all ``length``."""
     q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").bfloat16()
     k = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").bfloat16()
     v = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").bfloat16()
     do = torch.randn(b, sq, hq, d, generator=gen, device="cuda").bfloat16()
-    lens = torch.randint(1, sk + 1, (b,), generator=gen, device="cuda")
-    lens[0], lens[-1] = 1, sk  # include a length-1 and a full-length row
+    if lens_range is None:
+        lens = torch.randint(1, sk + 1, (b,), generator=gen, device="cuda")
+        lens[0], lens[-1] = 1, sk  # include a length-1 and a full-length row
+    else:
+        lens = torch.randint(lens_range[0], lens_range[1] + 1, (b,), generator=gen,
+                             device="cuda")
+        lens[-1] = lens_range[1]
     if length is not None:
         lens[:] = length
     mask = (torch.arange(sk, device="cuda")[None] < lens[:, None]).int()
     return q, k, v, do, mask, lens
 
 
-def _fwd_design_bytes(lens, sq, sk, hq, hkv, d, causal: bool = True) -> int:
-    """The bytes K1's design moves (skip_pad_q): per block of
-    (batch, kv head, 2 query heads, or 1 when the group size is odd, 64-row
-    query tile) that runs key tiles, its Q tiles once and each K/V tile
-    once for all its heads, its mask row scan and the key bits of each
-    tile; out and lse written in full."""
+def _first_key_tile(q0, shift, causal, window) -> int:
+    """The first key tile K1 and K3a run for the query tile at q0: the band
+    of its first row with a window, else 0."""
+    return max(0, q0 + shift - window + 1) // 64 if causal and window else 0
+
+
+def _fwd_design_bytes(lens, sq, sk, hq, hkv, d, causal: bool = True, window=None,
+                      skip: bool = True) -> int:
+    """The bytes K1's design moves: per block of (batch, kv head, 2 query
+    heads, or 1 when the group size is odd, 64-row query tile) that runs key
+    tiles, its Q tiles once and each K/V tile inside its bounds (the valid
+    length, the diagonal, the window's band) once for all its heads, its mask
+    row scan and the key bits of each tile; out and lse written in full."""
     heads = 2 if (hq // hkv) % 2 == 0 else 1
     total = 0
     for n in lens:
@@ -390,16 +452,19 @@ def _fwd_design_bytes(lens, sq, sk, hq, hkv, d, causal: bool = True) -> int:
             n_tiles = -(-n // 64)
             if causal:
                 n_tiles = min(n_tiles, (q0 + 63 + sk - sq) // 64 + 1)
-            if q0 + sk - sq >= n or n_tiles <= 0:
+            kt0 = _first_key_tile(q0, sk - sq, causal, window)
+            if (skip and q0 + sk - sq >= n) or n_tiles <= kt0:
                 total += hq // heads * sk * 4  # the mask row scan only
                 continue
-            kv_rows = min(n_tiles * 64, sk)
+            kv_rows = min(n_tiles * 64, sk) - kt0 * 64
             total += hq // heads * (heads * min(64, sq - q0) * d * 2
-                                    + 2 * kv_rows * d * 2 + sk * 4 + n_tiles * 64 * 4)
+                                    + 2 * kv_rows * d * 2 + sk * 4
+                                    + (n_tiles - kt0) * 64 * 4)
     return int(total) + len(lens) * sq * hq * (d * 2 + 4)
 
 
-def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str, causal: bool = True) -> int:
+def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str, causal: bool = True,
+                      window=None, skip: bool = True) -> int:
     """The bytes the backward kernels' designs move (skip_pad_q),
     outside the wrapper's zero-fills and casts:
 
@@ -423,19 +488,25 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str, causal: bool = True) 
                 n_tiles = -(-n // 64)
                 if causal:
                     n_tiles = min(n_tiles, (q0 + 63 + shift) // 64 + 1)
+                kt0 = _first_key_tile(q0, shift, causal, window)
                 total += hq * (sk * 4 + rows * (d * 2 + 2 * 4))
-                if q0 + shift >= n or n_tiles <= 0:
+                if (skip and q0 + shift >= n) or n_tiles <= kt0:
                     continue
-                kv_rows = min(n_tiles * 64, sk)
-                total += hq * (2 * rows * d * 2 + 2 * kv_rows * d * 2 + n_tiles * 64 * 4)
+                kv_rows = min(n_tiles * 64, sk) - kt0 * 64
+                total += hq * (2 * rows * d * 2 + 2 * kv_rows * d * 2
+                               + (n_tiles - kt0) * 64 * 4)
             continue
         lim = n - shift
-        q_end = min(nq, 0 if lim <= 0 else -(-lim // 64))
+        q_skip = min(nq, 0 if lim <= 0 else -(-lim // 64)) if skip else nq
         for kt in range(nk):
             key0 = kt * 64
             keys = min(64, sk - key0)
             total += hkv * (sk * 4 + 2 * keys * d * 2)  # hkv blocks per key tile
             q_begin = max(0, key0 - shift) // 64 if causal else 0
+            q_end = q_skip
+            if causal and window:  # the last row whose band reaches these keys
+                last_row = key0 + 62 + window - shift
+                q_end = min(q_end, 0 if last_row < 0 else last_row // 64 + 1)
             if key0 >= n or q_end <= q_begin:
                 continue
             step = 0
@@ -447,11 +518,12 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str, causal: bool = True) 
 
 
 def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False,
-                   causal: bool = True):
+                   causal: bool = True, window=None, skip: bool = True):
     """(bytes, FLOPs) the function of kernel ``kind`` must move and compute
-    for these key lengths (skip_pad_q, as the encoders call it; causal for
-    the llama body, bidirectional for the Roberta body):
-    query rows at or past the valid length and masked (query, key) pairs are
+    for these key lengths (skip_pad_q by default, as the encoders call it;
+    causal for the llama body, bidirectional for the Roberta body; with a
+    ``window``, the band's pairs only): query rows at or past the valid
+    length (with skip_pad_q) and masked (query, key) pairs are
     not needed; the outputs are written in full, at the dtype and shape
     ``flash_attention_bwd`` returns (bf16; dk/dv summed over each GQA
     group). With ``design``, the bytes are the kernel's own traffic instead,
@@ -463,8 +535,10 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False,
     rows = np.arange(sq)
     pairs = q_rows = 0
     for n in lens:
-        valid_rows = rows[rows + shift < n]
+        valid_rows = rows[rows + shift < n] if skip else rows
         keys = np.minimum(n, valid_rows + shift + 1) if causal else np.full(len(valid_rows), n)
+        if causal and window:  # keys below the band of each row are not seen
+            keys = keys - np.clip(valid_rows + shift - window + 1, 0, None)
         pairs += int(np.clip(keys, 0, None).sum())
         q_rows += len(valid_rows)
     k_rows = int(lens.sum())
@@ -473,7 +547,8 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False,
     read_kv = 2 * k_rows * hkv * d * 2
     mask = b * sk * 4
     if kind == "flash_fwd":
-        nbytes = (_fwd_design_bytes(lens, sq, sk, hq, hkv, d, causal) if design else
+        nbytes = (_fwd_design_bytes(lens, sq, sk, hq, hkv, d, causal, window, skip)
+                  if design else
                   read_q + read_kv + mask + b * sq * hq * d * 2 + b * hq * sq * 4)
         return nbytes, pairs * 2 * 2 * d
     reads = 2 * read_q + read_kv + mask + 2 * q_rows * hq * 4  # q, do, k, v, lse, delta
@@ -481,8 +556,8 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False,
     dkv_out = 2 * b * sk * d * hkv * 2
     writes, products = {"flash_bwd_fused": (dq_out + dkv_out, 5),
                         "flash_dq": (dq_out, 3), "flash_dkv": (dkv_out, 4)}[kind]
-    nbytes = (_bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind, causal) if design
-              else reads + writes)
+    nbytes = (_bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind, causal, window, skip)
+              if design else reads + writes)
     return nbytes, pairs * products * 2 * d
 
 
@@ -492,27 +567,99 @@ def bound(cost, peak_ops: float = PEAK_BF16_FLOPS) -> tuple:
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def _sdpa_mask(mask, sq, sk, causal: bool = True):
+def _sdpa_mask(mask, sq, sk, causal: bool = True, window=None):
+    """SDPA's boolean mask [B, 1, Sq, Sk]: the key mask, the causal triangle
+    and, with a window, its band (SDPA has no window argument)."""
     keys = mask.bool()[:, None, None, :]
     if not causal:
         return keys.expand(-1, 1, sq, sk)  # [B, 1, Sq, Sk]
-    return keys & torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril(sk - sq)
+    ones = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+    allowed = ones.tril(sk - sq)
+    if window:
+        allowed &= ones.triu(sk - sq - window + 1)
+    return keys & allowed
+
+
+def _plain_slices(q, k):
+    """(batch, query heads, kv head) index slices for the plain versions: the
+    whole call, or one (batch, kv head) with its GQA group at a time where
+    the call's fp32 logits would pass PLAIN_CHUNK_BYTES."""
+    b, sq, hq, _ = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if b * hq * sq * sk * 4 <= PLAIN_CHUNK_BYTES:
+        return [(slice(None), slice(None), slice(None))]
+    g = hq // hkv
+    return [(slice(i, i + 1), slice(h * g, (h + 1) * g), slice(h, h + 1))
+            for i in range(b) for h in range(hkv)]
+
+
+def plain_fwd(q, k, v, mask, causal: bool, window=None):
+    """``flash_attention_fwd_reference`` in fp32 (out fp32, lse), sliced by
+    ``_plain_slices``."""
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_fwd_reference
+
+    slices = _plain_slices(q, k)
+    if len(slices) == 1:
+        return flash_attention_fwd_reference(q.float(), k.float(), v.float(), mask,
+                                             causal=causal, window=window)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
+                      device=q.device)
+    for bs, qh, kh in slices:
+        out[bs, :, qh], lse[bs, qh] = flash_attention_fwd_reference(
+            q[bs, :, qh].float(), k[bs, :, kh].float(), v[bs, :, kh].float(), mask[bs],
+            causal=causal, window=window)
+    return out, lse
+
+
+def plain_attention(q, k, v, mask, causal: bool, window=None):
+    """The plain attention (``attention_reference``, the port's
+    ``impl="plain"``) in the inputs' dtype, sliced by ``_plain_slices``."""
+    from rankpo_tpu_torch.ops.attention import attention_reference
+
+    slices = _plain_slices(q, k)
+    if len(slices) == 1:
+        return attention_reference(q, k, v, mask, causal, window=window)
+    out = torch.empty_like(q)
+    for bs, qh, kh in slices:
+        out[bs, :, qh] = attention_reference(q[bs, :, qh], k[bs, :, kh], v[bs, :, kh],
+                                             mask[bs], causal, window=window)
+    return out
+
+
+def plain_bwd(q, k, v, mask, do, lse, delta, causal: bool, window=None):
+    """``flash_attention_bwd_reference`` (fp32 dq, dk, dv), sliced by
+    ``_plain_slices``: each slice holds a kv head's whole GQA group, so its
+    dk/dv sum is the group's."""
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd_reference
+
+    slices = _plain_slices(q, k)
+    if len(slices) == 1:
+        return flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal,
+                                             window=window)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for bs, qh, kh in slices:
+        dq[bs, :, qh], dk[bs, :, kh], dv[bs, :, kh] = flash_attention_bwd_reference(
+            q[bs, :, qh], k[bs, :, kh], v[bs, :, kh], mask[bs], do[bs, :, qh],
+            lse[bs, qh].contiguous(), delta[bs, qh].contiguous(), causal=causal,
+            window=window)
+    return dq, dk, dv
 
 
 def phase_kernels(seed: int, tmp: str) -> dict:
     """Every kernel against its plain version at the five encoder shapes,
     four more for K1 (one and eight query heads per kv head, a ragged Sq
     below Sk, every key length 1; the backward at all but the last) and the
-    two regimes of the BGE and Qwen2 bodies (REGIME_SHAPES), two launches of
+    two regimes of the BGE and Qwen2 bodies (REGIME_SHAPES) and the three
+    sliding windows (WINDOW_SHAPES, Mistral's among them), two launches of
     each on the same inputs bit for bit, then times (``time_shape``) at B 8,
     S 512 (random lengths and all full), at the two regimes (random
-    lengths) and the backward's at one stage-1 micro-batch's shapes."""
-    from rankpo_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd,
-        flash_attention_bwd_reference,
-        flash_attention_fwd,
-        flash_attention_fwd_reference,
-    )
+    lengths), at Mistral's windowed shape and the backward's at one stage-1
+    micro-batch's shapes."""
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
     # the encoder shapes and the timed inputs draw from one generator, the
     # K1-only shapes and the regimes from others, so the timed inputs stay
@@ -521,24 +668,35 @@ def phase_kernels(seed: int, tmp: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     k1_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     regime_gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-    shapes = ([(shape, None, gen, True) for shape in ENCODER_SHAPES]
-              + [(shape, length, k1_gen, True) for shape, length in K1_SHAPES]
-              + [(shape, None, regime_gen, causal) for shape, causal in REGIME_SHAPES])
+    window_gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    # (shape, every length, generator, causal, window, lengths range, skip_pad_q)
+    shapes = ([(shape, None, gen, True, None, None, True) for shape in ENCODER_SHAPES]
+              + [(shape, length, k1_gen, True, None, None, True)
+                 for shape, length in K1_SHAPES]
+              + [(shape, None, regime_gen, causal, None, None, True)
+                 for shape, causal in REGIME_SHAPES]
+              + [(shape, None, window_gen, True, window, lens_range, skip)
+                 for shape, window, lens_range, skip in WINDOW_SHAPES])
     err = {name: 0.0 for name in KERNELS}
     worst_lse = 0.0
-    for shape, length, shape_gen, causal in shapes:
+    flash.reset_launches()
+    for shape, length, shape_gen, causal, window, lens_range, skip in shapes:
         b, sq, sk = shape[:3]
-        q, k, v, do, mask, lens = _attention_inputs(*shape, shape_gen, length=length)
+        q, k, v, do, mask, lens = _attention_inputs(*shape, shape_gen, length=length,
+                                                    lens_range=lens_range)
         with torch.no_grad():
-            out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=True)
-            again = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=True)
-            ref, rlse = flash_attention_fwd_reference(
-                q.float(), k.float(), v.float(), mask, causal=causal)
+            out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=skip,
+                                           window=window)
+            again = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=skip,
+                                        window=window)
+            ref, rlse = plain_fwd(q, k, v, mask, causal, window)
         torch.cuda.synchronize()
         repeats = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         # skip_pad_q zeroes whole query tiles past the valid length:
         # only rows below it are compared
         rows = (torch.arange(sq, device="cuda")[None] + sk - sq) < lens[:, None]
+        if not skip:
+            rows = torch.ones_like(rows)
         out_err = (out.float() - ref).abs().amax(dim=(2, 3))[rows].max().item()
         has_key = rlse > -1e29
         keep = rows[:, None, :] & has_key
@@ -552,7 +710,10 @@ def phase_kernels(seed: int, tmp: str) -> dict:
         err["flash_fwd"] = max(err["flash_fwd"], out_err)
         worst_lse = max(worst_lse, lse_err)
         k1_line = (f"kernels {shape}{'' if causal else ' non-causal'}"
-                   f"{'' if length is None else f', every length {length}'}: "
+                   f"{'' if length is None else f', every length {length}'}"
+                   f"{'' if window is None else f', window {window}'}"
+                   f"{'' if lens_range is None else f', lengths in {list(lens_range)}'}"
+                   f"{'' if skip else ', no skip_pad_q'}: "
                    f"K1 max|out-plain| {out_err:.3e} max|lse-plain| {lse_err:.3e} no-key "
                    f"rows zero {zeros}, two launches bit-equal {repeats}")
         if length == 1:
@@ -564,15 +725,14 @@ def phase_kernels(seed: int, tmp: str) -> dict:
         # the backward kernels on the kernel's own stats, against the plain
         # backward on the same stats
         delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-        plain = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal)
+        plain = plain_bwd(q, k, v, mask, do, lse, delta, causal, window)
         got = {}
-        got["fused"] = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
-                                           skip_pad_q=True, bwd_impl="fused")
-        got["split"] = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
-                                           skip_pad_q=True, bwd_impl="split")
+        for impl in ("fused", "split"):
+            got[impl] = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
+                                            skip_pad_q=skip, window=window, bwd_impl=impl)
         for impl, grads in got.items():  # both give dq, dk, dv bit for bit again
             again = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
-                                        skip_pad_q=True, bwd_impl=impl)
+                                        skip_pad_q=skip, window=window, bwd_impl=impl)
             if not all(torch.equal(x, y) for x, y in zip(grads, again)):
                 raise AssertionError(f"{impl} backward: two launches differ at {shape}")
         torch.cuda.synchronize()
@@ -596,7 +756,13 @@ def phase_kernels(seed: int, tmp: str) -> dict:
         log(k1_line + f"; backward two launches bit-equal (fused, split), max|err|/limit and "
             f"relative L2 (limit {BWD_REL_L2:.0e}): " + ", ".join(line)
             + "; median non-zero |plain| dq {:.2e} dk {:.2e} dv {:.2e}".format(*typical))
-        del q, k, v, do, out, lse, ref, rlse, plain, got
+        del q, k, v, do, out, lse, ref, rlse, plain, got, again
+        torch.cuda.empty_cache()
+    windowed = dict(flash.window_launches)
+    log(f"kernels: windowed launches over the {len(WINDOW_SHAPES)} window shapes (checks and "
+        f"repeats) {windowed}")
+    if not all(windowed.values()):
+        raise AssertionError(f"a kernel ran no windowed launch: {windowed}")
 
     # ---- times at the encoder's training shape, then at the two regimes ----
     res = {name: {} for name in KERNELS}
@@ -609,59 +775,63 @@ def phase_kernels(seed: int, tmp: str) -> dict:
         for name, row in time_shape(shape, causal, regime_gen, None, "random").items():
             regimes[name][shape] = row
     torch.cuda.empty_cache()
+    shape, window, lens_range, skip = WINDOW_SHAPES[0]
+    mistral = time_shape(shape, True, window_gen, None, f"in {list(lens_range)}",
+                         window=window, lens_range=lens_range, skip=skip, n=5)
+    torch.cuda.empty_cache()
     stage1 = time_stage1_bwd(stage1_bwd_inputs(seed, tmp))
     torch.cuda.empty_cache()
     log(f"kernels: max|err| K1 {err['flash_fwd']:.3e} (lse {worst_lse:.3e}) over the "
         f"{len(shapes)} shapes, K2 {err['flash_bwd_fused']:.3e}, K3a {err['flash_dq']:.3e}, "
         f"K3b {err['flash_dkv']:.3e} over the {len(shapes) - 1} with random lengths")
     return {name: dict(res[name]["random"], max_abs_err=err[name], full=res[name]["full"],
-                       stage1=stage1.get(name), regimes=regimes[name]) for name in KERNELS}
+                       stage1=stage1.get(name), regimes=regimes[name],
+                       mistral=mistral[name]) for name in KERNELS}
 
 
-def time_shape(shape, causal: bool, gen, length, label: str) -> dict:
+def time_shape(shape, causal: bool, gen, length, label: str, window=None, lens_range=None,
+               skip: bool = True, n: int = 20) -> dict:
     """Each kernel's device time at one attention shape (skip_pad_q; random
-    key lengths, or all ``length``) beside the plain version's, the one
-    PyTorch call that computes the same function (SDPA; its backward alone
-    for the backward kernels) and the bound. Returns {kernel: numbers}."""
+    key lengths, in ``lens_range``, or all ``length``; with a ``window``,
+    its band) beside the plain version's, the one PyTorch call that
+    computes the same function (SDPA with the boolean mask; its backward
+    alone for the backward kernels) and the bound, each over ``n`` calls.
+    Returns {kernel: numbers}."""
     import torch.nn.functional as F
 
-    from rankpo_tpu_torch.ops.attention import multi_head_attention
-    from rankpo_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd,
-        flash_attention_bwd_reference,
-        flash_attention_fwd,
-    )
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
     b, sq, sk, hq, hkv, d = shape
-    tag = f"{shape} {'causal' if causal else 'non-causal'}"
+    tag = (f"{shape} {'causal' if causal else 'non-causal'}"
+           f"{'' if window is None else f', window {window}'}")
     res = {}
-    q, k, v, do, mask, lens = _attention_inputs(*shape, gen, length=length)
+    q, k, v, do, mask, lens = _attention_inputs(*shape, gen, length=length,
+                                                lens_range=lens_range)
+    kw = dict(causal=causal, skip_pad_q=skip, window=window)
     with torch.no_grad():
-        out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=True)
+        out, lse = flash_attention_fwd(q, k, v, mask, **kw)
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     calls = {
-        "flash_fwd": lambda: flash_attention_fwd(q, k, v, mask, causal=causal,
-                                                 skip_pad_q=True),
-        "fused": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
-                                             skip_pad_q=True, bwd_impl="fused"),
-        "split": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
-                                             skip_pad_q=True, bwd_impl="split"),
+        "flash_fwd": lambda: flash_attention_fwd(q, k, v, mask, **kw),
+        "fused": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, **kw,
+                                             bwd_impl="fused"),
+        "split": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, **kw,
+                                             bwd_impl="split"),
     }
     with torch.no_grad():
-        traced = {key: profile_device_ms(fn) for key, fn in calls.items()}
-        wrapper = {key: cuda_ms(fn) for key, fn in calls.items()}
-        plain_fwd = cuda_ms(lambda: multi_head_attention(q, k, v, mask=mask, causal=causal,
-                                                         impl="plain"))
-        plain_bwd = cuda_ms(lambda: flash_attention_bwd_reference(
-            q, k, v, mask, do, lse, delta, causal=causal))
+        traced = {key: profile_device_ms(fn, n) for key, fn in calls.items()}
+        wrapper = {key: cuda_ms(fn, n) for key, fn in calls.items()}
+        plain_fwd_ms = cuda_ms(lambda: plain_attention(q, k, v, mask, causal, window), n)
+        plain_bwd_ms = cuda_ms(lambda: plain_bwd(q, k, v, mask, do, lse, delta, causal,
+                                                 window), n)
         # the yardstick: one PyTorch call on the same inputs (K/V expanded
         # to the query heads outside the timed region) and boolean mask
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         kt = kt.repeat_interleave(hq // hkv, dim=1)
         vt = vt.repeat_interleave(hq // hkv, dim=1)
-        bmask = _sdpa_mask(mask, sq, sk, causal)
+        bmask = _sdpa_mask(mask, sq, sk, causal, window)
         lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                 attn_mask=bmask))
+                                                                 attn_mask=bmask), n)
     leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
     dot = do.transpose(1, 2)
 
@@ -669,11 +839,11 @@ def time_shape(shape, causal: bool, gen, length, label: str) -> dict:
         o = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
         torch.autograd.grad(o, leaves, dot)
 
-    lib_fwd_bwd_ms = cuda_ms(lib_fwd_bwd)
+    lib_fwd_bwd_ms = cuda_ms(lib_fwd_bwd, n)
     # the fair yardstick for a backward: SDPA's backward alone, its
     # forward run once outside the timed region
     o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, dot, retain_graph=True))
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, dot, retain_graph=True), n)
     del o_lib
     kernel_times = {
         "flash_fwd": kernel_ms(traced["flash_fwd"], "flash_fwd"),
@@ -683,11 +853,12 @@ def time_shape(shape, causal: bool, gen, length, label: str) -> dict:
     }
     for name, ms in kernel_times.items():
         fwd = name == "flash_fwd"
-        b_ms, b_by = bound(attention_cost(lens, sq, sk, hq, hkv, d, name, causal=causal))
+        cost_kw = dict(causal=causal, window=window, skip=skip)
+        b_ms, b_by = bound(attention_cost(lens, sq, sk, hq, hkv, d, name, **cost_kw))
         design_mb = attention_cost(lens, sq, sk, hq, hkv, d, name, design=True,
-                                   causal=causal)[0] / 1e6
+                                   **cost_kw)[0] / 1e6
         res[name] = {
-            "ms": ms, "plain_ms": plain_fwd if fwd else plain_bwd,
+            "ms": ms, "plain_ms": plain_fwd_ms if fwd else plain_bwd_ms,
             "library_ms": lib_fwd if fwd else lib_bwd,
             "bound_ms": b_ms, "bound_by": b_by,
         }
@@ -700,7 +871,7 @@ def time_shape(shape, causal: bool, gen, length, label: str) -> dict:
             f"(device time, profiler); plain {res[name]['plain_ms']:.4f} ms; "
             f"{lib}; bound {b_ms:.4f} ms ({b_by}); the design's own traffic "
             f"{design_mb:.1f} MB")
-    log(f"time wrappers at {tag} ({label} lengths, CUDA events, median of 20): K1 "
+    log(f"time wrappers at {tag} ({label} lengths, CUDA events, median of {n}): K1 "
         f"{wrapper['flash_fwd']:.4f} ms, fused backward {wrapper['fused']:.4f} ms, "
         f"split backward {wrapper['split']:.4f} ms (backward wrappers include "
         f"the dq zero-fill and cast); SDPA backward alone {lib_bwd:.4f} ms")
@@ -781,13 +952,15 @@ def _check_against_oracle(served_idx, served_scores, oracle_scores, oracle_idx):
 
 
 @functools.lru_cache(maxsize=None)
-def _serving_data(seed: int, tmp: str):
-    """The corpus file (4096 passages of 16-480 words) and 64 queries, made
-    once per seed and directory (every serving phase reads the same)."""
+def _serving_data(seed: int, tmp: str, n_passages: int = N_PASSAGES):
+    """The corpus file (the first ``n_passages`` of 4096 passages of 16-480
+    words) and 64 queries, made once per seed and directory (every serving
+    phase reads the same)."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(16, 481, N_PASSAGES)
-    corpus = [" ".join(rng.choice(WORDS, size=n)) for n in lengths]
-    corpus_file = os.path.join(tmp, "corpus.jsonl")
+    corpus = [" ".join(rng.choice(WORDS, size=n)) for n in lengths][:n_passages]
+    corpus_file = os.path.join(
+        tmp, "corpus.jsonl" if n_passages == N_PASSAGES else f"corpus_{n_passages}.jsonl")
     with open(corpus_file, "w") as f:
         for text in corpus:
             f.write(json.dumps({"text": text}) + "\n")
@@ -842,13 +1015,13 @@ def encode_k1_inputs(encoder, corpus):
     return q, k, v, masks
 
 
-def run_encode_k1(q, k, v, masks, causal: bool = True) -> None:
+def run_encode_k1(q, k, v, masks, causal: bool = True, window=None) -> None:
     from rankpo_tpu_torch.ops.flash_attention import flash_attention_fwd
 
     for m in masks:
         b, s = m.shape
         flash_attention_fwd(q[:b, :s], k[:b, :s], v[:b, :s], m, causal=causal,
-                            skip_pad_q=True)
+                            skip_pad_q=True, window=window)
 
 
 def time_encode_k1(encoder, corpus) -> dict:
@@ -857,18 +1030,18 @@ def time_encode_k1(encoder, corpus) -> dict:
     the summed bound and the design's traffic."""
     q, k, v, masks = encode_k1_inputs(encoder, corpus)
     hq, hkv, d = q.shape[2], k.shape[2], q.shape[3]
-    causal = encoder.config.is_llama
+    causal, window = encoder.config.is_llama, encoder.config.sliding_window
     with torch.no_grad():
-        ms = kernel_ms(profile_device_ms(lambda: run_encode_k1(q, k, v, masks, causal), n=5),
-                       "flash_fwd")
+        ms = kernel_ms(profile_device_ms(
+            lambda: run_encode_k1(q, k, v, masks, causal, window), n=5), "flash_fwd")
     bound_ms = design = 0.0
     for m in masks:
         s = m.shape[1]
         lens = m.sum(1)
         bound_ms += bound(attention_cost(lens, s, s, hq, hkv, d, "flash_fwd",
-                                         causal=causal))[0]
+                                         causal=causal, window=window))[0]
         design += attention_cost(lens, s, s, hq, hkv, d, "flash_fwd", design=True,
-                                 causal=causal)[0]
+                                 causal=causal, window=window)[0]
     widths = sorted({m.shape[1] for m in masks})
     log(f"time flash_fwd at the corpus encode's shapes ({len(masks)} batches of 64, padded "
         f"to {widths[0]}-{widths[-1]}, {'causal' if causal else 'non-causal'}, Hq {hq}, Hkv "
@@ -950,10 +1123,14 @@ def time_stage1_bwd(inputs: dict) -> dict:
     return res
 
 
-def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str = "") -> dict:
-    """The serving path: the CLI's server over a corpus, queried by HTTP,
-    with the index tier ``tier`` (SERVE_TIERS), from the checkpoint ``ckpt``
-    of any ported body (``model`` names it in the log)."""
+def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str = "",
+                  n_passages: int = N_PASSAGES) -> dict:
+    """The serving path: the CLI's server over a corpus (the first
+    ``n_passages`` of the 4096), queried by HTTP, with the index tier
+    ``tier`` (SERVE_TIERS), from the checkpoint ``ckpt`` of any ported body
+    (``model`` names it in the log). A windowed body must launch K1 with its
+    window on every layer of every encode batch, and (flat) encode passages
+    longer than the window (``window_bites``)."""
     from rankpo_tpu_torch.index.flat import numpy_search
     from rankpo_tpu_torch.models.config import EncoderConfig
     from rankpo_tpu_torch.ops import flash_attention as flash
@@ -962,7 +1139,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
     config = EncoderConfig.from_pretrained(ckpt)
     layers = config.num_hidden_layers
     label = f"{model}, {tier}" if model else tier
-    corpus, corpus_file, queries = _serving_data(seed, tmp)
+    corpus, corpus_file, queries = _serving_data(seed, tmp, n_passages)
     extra, ivf_kernel = SERVE_TIERS[tier]
     flat = tier in FLAT_EXACT_TIERS
     port = _free_port()
@@ -975,7 +1152,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
     ivf_gather.reset_launches()
     pq_adc.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    server, thread, startup_s = start_server(argv, port)
+    server, thread, startup_s = start_server(argv, port, n_passages)
     service = server.service
     index = service.index
     t_requests = time.perf_counter()
@@ -1001,6 +1178,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
         launches = {"flash_fwd": flash.launches["flash_fwd"],
                     **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
                        for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
+        windowed = flash.window_launches["flash_fwd"]
         # ---- end of the serving path ----
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1016,16 +1194,20 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
             f"{len(batched)} batched requests of 16; start {startup_s:.2f} s, requests "
             f"{time.perf_counter() - t_requests:.2f} s")
 
-        n_batches = -(-N_PASSAGES // 64)
+        n_batches = -(-n_passages // 64)
         if launches["flash_fwd"] < layers * n_batches:
             raise AssertionError(
                 f"flash kernel launched {launches['flash_fwd']} times on the main "
                 f"path; expected >= {layers * n_batches} ({layers} layers x {n_batches} "
                 "encode batches)")
+        if config.sliding_window is not None and windowed < layers * n_batches:
+            raise AssertionError(f"K1 ran {windowed} windowed launches on the {label} path")
         counter = ivf_kernel and IVF_KERNELS[ivf_kernel][2]
         if counter is not None and launches[counter] <= 0:
             raise AssertionError(f"{ivf_kernel} was not launched on the {label} path")
-        log(f"kernel launches on the {label} serving path: {launches}")
+        log(f"kernel launches on the {label} serving path: {launches}"
+            + ("" if config.sliding_window is None else
+               f"; K1 with the window of {config.sliding_window} keys: {windowed}"))
 
         # each batched request embedded again exactly as the service embedded
         # it: the flat tier against the exact numpy oracle over the index
@@ -1103,8 +1285,13 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
             p = service.encoder.embed_batch(batch, attn_impl="plain")
             cos = torch.nn.functional.cosine_similarity(a, p).min().item()
             log(f"encoder: min cosine kernel vs plain over 64 passages {cos:.6f}")
-            if cos < 0.999:
+            if config.sliding_window is None and cos < 0.999:
                 raise AssertionError("encoder embeddings through the kernel disagree")
+            if config.sliding_window is not None:
+                # 32 random layers of 4096 carry bf16 rounding past that
+                # limit on any two bf16 paths: both are held to fp32
+                hold_to_fp32(a, p, fp32_embed(service.encoder, batch), "64 passages")
+                numbers["window_bites"] = window_bites(service.encoder, seed)
             numbers["k1_encode"] = time_encode_k1(service.encoder, corpus)
 
             # numbers: a timed re-encode of the corpus
@@ -1119,7 +1306,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
             enc_s = time.perf_counter() - t0
             if not torch.isfinite(emb).all():
                 raise AssertionError("non-finite corpus embeddings")
-            numbers.update(encode_s=enc_s, passages_per_s=N_PASSAGES / enc_s,
+            numbers.update(encode_s=enc_s, passages_per_s=n_passages / enc_s,
                            tokens_per_s=n_tokens / enc_s, corpus_tokens=n_tokens)
         lat = np.array([r[0][2] for r in singles]) * 1e3
         lat_b = np.array([r[0][2] for r in batched[:4]]) * 1e3
@@ -1130,6 +1317,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
             "search_batch16_p50_ms": float(np.percentile(lat_b, 50)),
             "peak_mem_gib": peak_gib,
             "launches": launches,
+            "window_launches": windowed,
         })
     finally:
         t_stop = time.perf_counter()
@@ -1138,9 +1326,78 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
     return numbers
 
 
-def start_server(argv, port: int):
+def fp32_embed(encoder, batch) -> torch.Tensor:
+    """The encoder's embeddings with fp32 activations over its bf16 weights
+    (each cast up exactly where it is used) and the plain attention: the
+    exact result that the bf16 paths round."""
+    model = encoder.model
+    dtype = model.compute_dtype
+    model.compute_dtype = torch.float32
+    try:
+        with torch.inference_mode():
+            return encoder.embed_batch(batch, attn_impl="plain")
+    finally:
+        model.compute_dtype = dtype
+
+
+def hold_to_fp32(kernels, plain, exact, label: str) -> torch.Tensor:
+    """Each row's embedding through the kernels (bf16) as close to the fp32
+    result as the plain attention's in bf16, within ENCODE_MARGIN of
+    1 - cosine. Returns each row's limit."""
+    cos = torch.nn.functional.cosine_similarity
+    d_kernels, d_plain = 1 - cos(kernels, exact), 1 - cos(plain, exact)
+    limit = d_plain + ENCODE_MARGIN
+    log(f"encoder ({label}): 1 - cosine with the fp32 result, kernels "
+        f"{d_kernels.max().item():.3e} (worst row), plain bf16 {d_plain.max().item():.3e}; "
+        f"each row's kernels held within its plain distance + {ENCODE_MARGIN:.0e}; kernels "
+        f"vs plain min cosine {cos(kernels, plain).min().item():.6f}")
+    if bool((d_kernels > limit).any()):
+        raise AssertionError(f"encoder ({label}): the kernels are farther from fp32 than "
+                             "the plain attention")
+    return limit
+
+
+def window_bites(encoder, seed: int) -> dict:
+    """Passages longer than the served model's window (MISTRAL_LONG_WORDS
+    words, one per batch, up to 8192 tokens): through the kernels, held to
+    fp32 as the plain attention in bf16 is (``hold_to_fp32``), and farther
+    than that limit from the same model's encode without the window (the
+    model's config is shared by its layers; it is restored)."""
+    config = encoder.model.config
+    if encoder.model.layers[0].config is not config:
+        raise AssertionError("the layers do not read the model's config")
+    window = config.sliding_window
+    rng = np.random.default_rng(seed + 7)
+    texts = [" ".join(rng.choice(WORDS, size=n)) for n in MISTRAL_LONG_WORDS]
+    batches = [encoder.prepare_batch([text], 1, 8192) for text in texts]
+    tokens = [int(b["attention_mask"].sum()) for b in batches]
+    emb = {}
+    try:
+        for label, win, impl in (("kernels", window, "auto"), ("plain", window, "plain"),
+                                 ("fp32", window, None), ("no window", None, "auto")):
+            config.sliding_window = win
+            emb[label] = torch.cat([
+                fp32_embed(encoder, b) if impl is None else encoder.embed_batch(b, attn_impl=impl)
+                for b in batches])
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        config.sliding_window = window
+    limit = hold_to_fp32(emb["kernels"], emb["plain"], emb["fp32"],
+                         f"{len(texts)} passages of {tokens} tokens, window {window}")
+    moved = 1 - torch.nn.functional.cosine_similarity(emb["kernels"], emb["no window"])
+    log(f"window bites: 1 - cosine between the kernels' embeddings with and without the "
+        f"window {[f'{x:.3e}' for x in moved.tolist()]}, each above its row's limit "
+        f"{[f'{x:.3e}' for x in limit.tolist()]}")
+    if bool((moved <= limit).any()):
+        raise AssertionError("long passages: the window changed the embeddings by no more "
+                             "than the rounding limit")
+    return {"tokens": tokens, "moved": moved.tolist(), "limit": limit.tolist()}
+
+
+def start_server(argv, port: int, n_passages: int = N_PASSAGES):
     """The CLI's server (``cli.serve.make_server``) serving in a thread:
-    (server, thread, seconds until /healthz answered with N_PASSAGES)."""
+    (server, thread, seconds until /healthz answered with ``n_passages``)."""
     from rankpo_tpu_torch.cli import serve as cli
 
     holder: dict = {}
@@ -1163,7 +1420,7 @@ def start_server(argv, port: int):
             raise RuntimeError("server thread ended")
         if "server" in holder:
             _, health, _ = _http(port, "/healthz")
-            if health["ntotal"] == N_PASSAGES:
+            if health["ntotal"] == n_passages:
                 break
         if time.perf_counter() - t_start > 900:
             raise TimeoutError("server did not come up")
@@ -1422,6 +1679,7 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(flash.launches)
+    window_launches = dict(flash.window_launches)
     # ---- end of the stage's path ----
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     gc.collect()
@@ -1446,6 +1704,7 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
         "tokens_per_sec": _median(history, "tokens_per_sec"),
         "mfu": _median(history, "mfu"),
         "peak_mem_gib": peak_gib, "wall_s": wall, "launches": launches,
+        "window_launches": window_launches,
     }, state
 
 
@@ -1473,10 +1732,24 @@ def _device_batch(collated: dict) -> dict:
             for field, block in collated.items()}
 
 
-def phase_flash_vs_plain(config, state, train_file: str, seed: int, ckpt: str):
-    """One stage-1 micro-batch (2 queries x group 4) at full width through
-    the kernels (bf16) and through the plain attention (bf16), each held
-    against the plain path in fp32 compute, the reference.
+def phase_flash_vs_plain(config, state, train_file: str, seed: int, ckpt: str,
+                         n_rows: int = 2, negatives: int = 3, lengths=(128, 512),
+                         checkpointing: bool = False):
+    """One stage-1 micro-batch (``n_rows`` queries x group ``negatives`` + 1,
+    truncated to ``lengths``; by default 2 x 4 at 128 / 512 tokens) at full
+    width through the kernels (bf16) and through the plain attention (bf16),
+    each held against the plain path in fp32 compute, the reference; with
+    ``checkpointing`` the layers are recomputed in the backward pass (the
+    plain attention's fp32 logits of long passages do not fit otherwise).
+
+    For a windowed body (e5-mistral, its passages past the window) the
+    loss is printed, not held: at temperature 0.02 one query's loss moves by
+    1e-2 to 5e-2 between any two roundings of these embeddings, the plain
+    bf16 path's and the unwindowed kernels' included (PERF.md;
+    ``scripts/window_rounding.py``).
+    Instead each embedding of the micro-batch through the kernels is held to
+    fp32 as the plain attention's in bf16 is (``hold_to_fp32``); the
+    gradients are held as for the other llama bodies.
 
     At temperature 0.02 the logits are cosines x 50, so the plain bf16
     path's own rounding (bf16 softmax) moves its loss by about 2e-2 from
@@ -1498,21 +1771,24 @@ def phase_flash_vs_plain(config, state, train_file: str, seed: int, ckpt: str):
     from rankpo_tpu_torch.data.collators import ContrastiveCollator
     from rankpo_tpu_torch.data.datasets import ContrastiveDataset, iter_jsonl
     from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
-    from rankpo_tpu_torch.models.encoder import encoder_class
+    from rankpo_tpu_torch.models.encoder import embed, encoder_class
     from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn
 
-    rows = [r for _, r in zip(range(2), iter_jsonl(train_file))]
+    rows = [r for _, r in zip(range(n_rows), iter_jsonl(train_file))]
     tok = resolve_tokenizer(f"hash:{config.vocab_size}", ckpt)
-    ds = ContrastiveDataset(rows, tok, 128, 512)
-    batch = _device_batch(ContrastiveCollator(tok.pad_token_id, 3, 128, 512,
-                                              seed=seed)([ds[0], ds[1]]))
-    model = encoder_class(config).for_training(config, state, device="cuda")
+    ds = ContrastiveDataset(rows, tok, *lengths)
+    batch = _device_batch(ContrastiveCollator(tok.pad_token_id, negatives, *lengths,
+                                              seed=seed)([ds[i] for i in range(n_rows)]))
+    model = encoder_class(config).for_training(config, state, device="cuda",
+                                               gradient_checkpointing=checkpointing)
     params = list(model.named_parameters())
     results = {}
     runs = [("flash", "flash", torch.bfloat16), ("plain", "plain", torch.bfloat16),
             ("fp32", "plain", torch.float32)]
     if not config.is_llama:
         runs.append(("contract", "contract", torch.bfloat16))
+    embeddings_to_fp32 = config.sliding_window is not None
+    embeddings = {}
     for label, impl, dtype in runs:
         model.compute_dtype = dtype
         with contract_attention(config) if impl == "contract" else contextlib.nullcontext():
@@ -1521,6 +1797,10 @@ def phase_flash_vs_plain(config, state, train_file: str, seed: int, ckpt: str):
                     model, batch)
             loss.backward()
         results[label] = (loss.item(), [p.grad for _, p in params])
+        if embeddings_to_fp32:
+            with torch.no_grad():
+                embeddings[label] = torch.cat([embed(model, batch[field], attn_impl=impl)
+                                               for field in ("query", "passage")])
         for _, p in params:
             p.grad = None
     model.compute_dtype = torch.bfloat16
@@ -1539,10 +1819,12 @@ def phase_flash_vs_plain(config, state, train_file: str, seed: int, ckpt: str):
     held = [i for i in range(len(params)) if i not in noise]
     worst = min(held, key=lambda i: cos[i])
     lowest = sorted(held, key=lambda i: cos[i])[:4]
-    log(f"flash vs plain ({config.model_type}), one micro-batch at full width: loss flash "
+    shapes = {field: tuple(block["input_ids"].shape) for field, block in batch.items()}
+    log(f"flash vs plain ({config.model_type}), one micro-batch at full width {shapes}: loss flash "
         f"{lf:.6f}, plain {lp:.6f}, plain fp32 {l32:.6f}; relative difference flash-plain "
-        f"{rel:.3e}, flash-fp32 {rel_f32:.3e}, plain-fp32 {rel_p32:.3e} (limit "
-        f"{LOSS_REL_FP32:.0e}); gradient cosine flash-plain min {cos[worst]:.6f} "
+        f"{rel:.3e}, flash-fp32 {rel_f32:.3e}, plain-fp32 {rel_p32:.3e} ("
+        + ("printed, not held" if embeddings_to_fp32 else f"limit {LOSS_REL_FP32:.0e}")
+        + f"); gradient cosine flash-plain min {cos[worst]:.6f} "
         f"({params[worst][0]}), median {np.median([cos[i] for i in held]):.6f} over "
         f"{len(held)} tensors (limit 0.99), lowest "
         + ", ".join(f"{params[i][0]} {cos[i]:.4f}" for i in lowest)
@@ -1553,7 +1835,12 @@ def phase_flash_vs_plain(config, state, train_file: str, seed: int, ckpt: str):
         log(f"  key biases (gradient 0 in exact arithmetic, not held): {len(noise)} tensors, "
             f"largest |grad| / |query-bias grad| {ratio:.2e}, cosines "
             f"{min(cos[i] for i in noise):.3f}..{max(cos[i] for i in noise):.3f}")
-    if config.is_llama:
+    if config.is_llama and embeddings_to_fp32:
+        hold_to_fp32(embeddings["flash"], embeddings["plain"], embeddings["fp32"],
+                     f"the micro-batch's {len(embeddings['flash'])} embeddings")  # raises
+        loss_ok = True
+        grads_ok = cos[worst] >= 0.99
+    elif config.is_llama:
         loss_ok = rel_f32 <= LOSS_REL_FP32
         grads_ok = cos[worst] >= 0.99
     else:
@@ -1801,6 +2088,95 @@ def phase_training_bge(tmp: str, seed: int) -> dict:
     return {"stage1": stage1, "stage2": stage2, "compare": compare, "stage2_dir": s2}
 
 
+def write_long_training_data(tmp: str, seed: int):
+    """Phase 5w's data: MISTRAL_TRAIN["rows"] contrastive rows (a query of 4-32
+    words, 1 positive and 1 negative) and MISTRAL_TRAIN["pairs"] preference
+    pairs, every passage MISTRAL_TRAIN["words"] words long (past the 4096-key
+    window; one token a word, plus CLS)."""
+    rng = np.random.default_rng(seed + 9)
+    lo, hi = MISTRAL_TRAIN["words"]
+    train = os.path.join(tmp, "long_train.jsonl")
+    with open(train, "w") as f:
+        for _ in range(MISTRAL_TRAIN["rows"]):
+            f.write(json.dumps({"query": _text(rng, 4, 33), "positives": [_text(rng, lo, hi)],
+                                "negatives": [_text(rng, lo, hi)]}) + "\n")
+    pairs = os.path.join(tmp, "long_pairs.jsonl")
+    with open(pairs, "w") as f:
+        for _ in range(MISTRAL_TRAIN["pairs"]):
+            f.write(json.dumps({
+                "query": _text(rng, 4, 33), "passage1": _text(rng, lo, hi),
+                "passage2": _text(rng, lo, hi),
+                "preferred": "AB"[int(rng.integers(2))]}) + "\n")
+    return train, pairs
+
+
+def phase_training_mistral(tmp: str, seed: int) -> dict:
+    """Phase 5w, e5-mistral-7b-instruct at full width and MISTRAL_TRAIN_LAYERS
+    layers (a full fine-tune of 7B with AdamW does not fit one card):
+    MISTRAL_STEPS steps of stage 1 through ``run_contrastive.main`` (K1, K2
+    with the window) then of stage 2 through ``run_rankpo.main`` on stage
+    1's output under ``torch.use_deterministic_algorithms`` (K1, K3a, K3b
+    with the window), every passage past the window; finite losses, every
+    parameter moved, the outputs load, windowed launches on every layer;
+    one stage-1 micro-batch through the kernels and through plain
+    (``phase_flash_vs_plain``, checkpointed)."""
+    from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
+    from rankpo_tpu_torch.models.config import EncoderConfig
+
+    ckpt, base_state = make_model_checkpoint(tmp, seed, MISTRAL, layers=MISTRAL_TRAIN_LAYERS)
+    config = EncoderConfig.from_pretrained(ckpt)
+    train, pairs = write_long_training_data(tmp, seed)
+    s1, s2 = os.path.join(tmp, "mistral_stage1"), os.path.join(tmp, "mistral_stage2")
+    log(f"e5-mistral training: depth cut from {MODELS[MISTRAL]['num_hidden_layers']} to "
+        f"{config.num_hidden_layers} layers (AdamW's fp32 state of 7B parameters does not fit "
+        f"one card); passages of {MISTRAL_TRAIN['words']} words, max_passage_length "
+        f"{MISTRAL_TRAIN['max_passage']}, past the window of {config.sliding_window}")
+    common = ["--tokenizer_name", f"hash:{config.vocab_size}", "--bf16", "True",
+              "--max_steps", str(MISTRAL_STEPS), "--per_device_train_batch_size", "2",
+              "--learning_rate", "1e-5", "--max_query_length", "64",
+              "--max_passage_length", str(MISTRAL_TRAIN["max_passage"]),
+              "--gradient_checkpointing", "True", "--save_strategy", "no",
+              "--seed", str(seed), "--device", "cuda", "--log_level", "warning"]
+    stage1, s1_state = run_stage(
+        "e5-mistral stage 1 (contrastive, window, fused backward)", run_contrastive.main,
+        ["--model_name_or_path", ckpt, "--train_data", train, "--output_dir", s1,
+         "--num_negatives", "1", "--temperature", "0.02", *common],
+        s1, base_state, steps=MISTRAL_STEPS)
+    stage2, _ = run_stage(
+        "e5-mistral stage 2 (RankPO, window, deterministic: split backward)",
+        run_rankpo.main,
+        ["--model_name_or_path", s1, "--train_data", pairs, "--output_dir", s2,
+         "--beta", "2.0", "--temperature", "0.1", "--loss_type", "sigmoid",
+         "--reference_free", "True", *common],
+        s2, s1_state, deterministic=True, steps=MISTRAL_STEPS)
+    del s1_state
+    shutil.rmtree(s1)
+    layers = config.num_hidden_layers
+    # 2 fields (query, passage) x steps; stage 1 also runs each forward
+    # again in the checkpointed backward
+    need = {"stage1": {"flash_fwd": 2 * layers * 2 * MISTRAL_STEPS,
+                       "flash_bwd_fused": layers * 2 * MISTRAL_STEPS},
+            "stage2": {"flash_fwd": 2 * layers * 2 * MISTRAL_STEPS,
+                       "flash_dq": layers * 2 * MISTRAL_STEPS,
+                       "flash_dkv": layers * 2 * MISTRAL_STEPS}}
+    for stage, nums in (("stage1", stage1), ("stage2", stage2)):
+        for kernel, least in need[stage].items():
+            if nums["window_launches"][kernel] < least:
+                raise AssertionError(
+                    f"e5-mistral {stage}: {kernel} ran {nums['window_launches'][kernel]} "
+                    f"windowed launches, expected >= {least}")
+        log(f"e5-mistral {stage} kernel launches: {nums['launches']}; with the window "
+            f"{nums['window_launches']}")
+    model, compare = phase_flash_vs_plain(
+        config, base_state, train, seed, ckpt, n_rows=1, negatives=1,
+        lengths=(64, MISTRAL_TRAIN["compare_passage"]), checkpointing=True)
+    del model, base_state
+    shutil.rmtree(ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stage1": stage1, "stage2": stage2, "compare": compare, "stage2_dir": s2}
+
+
 def phase_training_qwen2(tmp: str, seed: int, ckpt: str, base_state: dict) -> dict:
     """Phase 5q, Qwen2-1.5B at full width and depth: QWEN2_STEPS stage-1
     steps through ``run_contrastive.main`` (K1 and K2 at D 128, 6 query
@@ -1834,22 +2210,27 @@ def phase_training_qwen2(tmp: str, seed: int, ckpt: str, base_state: dict) -> di
     return {"stage1": stage1}
 
 
-def make_model_checkpoint(tmp: str, seed: int, name: str):
-    """Random weights of MODELS[name] from the seed, written in bf16 with the
-    port's save_pretrained. Returns (path, the state on the host)."""
+def make_model_checkpoint(tmp: str, seed: int, name: str, layers=None,
+                          host_state: bool = True):
+    """Random weights of MODELS[name] from the seed (``layers`` cuts the
+    depth), written in bf16 with the port's save_pretrained. Returns (path,
+    the state on the host, or None without ``host_state``)."""
     from rankpo_tpu_torch.models.config import EncoderConfig
     from rankpo_tpu_torch.models.encoder import init_params, n_params
     from rankpo_tpu_torch.models.hf_io import save_pretrained
 
     config = EncoderConfig(**MODELS[name])
+    if layers is not None:
+        config = dataclasses.replace(config, num_hidden_layers=layers)
     t0 = time.perf_counter()
     state = init_params(config, torch.Generator(device="cuda").manual_seed(seed),
                         dtype=torch.bfloat16)
-    ckpt = os.path.join(tmp, name)
+    ckpt = os.path.join(tmp, name if layers is None else f"{name}-{layers}-layers")
     save_pretrained(ckpt, config, state, dtype=torch.bfloat16)
-    state = {n: t.cpu() for n, t in state.items()}
+    state = {n: t.cpu() for n, t in state.items()} if host_state else None
     torch.cuda.empty_cache()
-    log(f"checkpoint {name}: {n_params(config) / 1e9:.3f}B parameters, bf16, "
+    log(f"checkpoint {name}: {config.num_hidden_layers} layers, "
+        f"{n_params(config) / 1e9:.3f}B parameters, bf16, "
         f"{time.perf_counter() - t0:.1f} s to make and write")
     return ckpt, state
 
@@ -1948,6 +2329,7 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> d
         wall = time.perf_counter() - t0
         launches = {"flash_fwd": flash.launches["flash_fwd"],
                     "ivf_probe_scores": ivf_gather.launches["ivf_probe_scores"]}
+        windowed = flash.window_launches["flash_fwd"]
         # ---- end of the evaluate path ----
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         stem = os.path.join(out_dir, os.path.basename(ckpt), "main")
@@ -1969,6 +2351,8 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> d
             raise AssertionError(f"evaluate ({tier}): flash_fwd launched "
                                  f"{launches['flash_fwd']} times, expected >= "
                                  f"{layers * n_batches}")
+        if config.sliding_window is not None and windowed < layers * n_batches:
+            raise AssertionError(f"evaluate ({tier}): K1 ran {windowed} windowed launches")
         if tier == "ivf" and launches["ivf_probe_scores"] <= 0:
             raise AssertionError("evaluate (ivf): ivf_probe_scores was not launched")
         if [n for _, n, _ in encodes] != [N_EVAL_QUERIES, N_PASSAGES]:
@@ -1978,13 +2362,15 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> d
             f"{wall:.2f} s wall = {N_EVAL_QUERIES / wall:.1f} queries/s, "
             f"{N_PASSAGES / wall:.1f} passages/s (query encode {q_s:.3f} s, corpus encode "
             f"{c_s:.3f} s, the rest checkpoint load, index, search, metrics and files); "
-            f"peak {peak_gib:.2f} GiB; launches {launches}; metrics bit-equal to the host "
+            f"peak {peak_gib:.2f} GiB; launches {launches}"
+            + ("" if config.sliding_window is None else f" ({windowed} windowed)")
+            + "; metrics bit-equal to the host "
             f"recompute ({t_metrics:.3f} s): MRR@10 {host['MRR@10']:.4f}, Recall@100 "
             f"{host['Recall@100']:.4f}, AUC@100 {host['AUC@100']:.4f}, nDCG@10 "
             f"{host['nDCG@10']:.4f}")
         out[tier] = {"wall_s": wall, "queries_per_s": N_EVAL_QUERIES / wall,
                      "passages_per_s": N_PASSAGES / wall, "peak_mem_gib": peak_gib,
-                     "launches": launches, "idx": idx, "scores": scores,
+                     "launches": launches, "window_launches": windowed, "idx": idx, "scores": scores,
                      "metrics_s": t_metrics, "encode_s": {"queries": q_s, "corpus": c_s}}
         if tier == "flat":
             q_host, c_host = q_emb.cpu().numpy(), c_emb.cpu().numpy()
@@ -2846,6 +3232,19 @@ def main(argv=None) -> int:
                               ckpt_m, state_m)
             del state_m
             shutil.rmtree(ckpt_m)
+        # e5-mistral-7b-instruct (sliding window 4096): served at full depth,
+        # trained at cut depth, the trained model evaluated
+        ckpt_m, _ = timed("checkpoint", make_model_checkpoint, tmp, args.seed, MISTRAL, None,
+                          False)
+        serving_models[MISTRAL] = timed("4w e5-mistral serving", phase_serving, args.seed,
+                                        tmp, ckpt_m, "flat", MISTRAL, MISTRAL_PASSAGES)
+        shutil.rmtree(ckpt_m)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mistral = timed("5w e5-mistral training", phase_training_mistral, tmp, args.seed)
+        evaluation_mistral = timed("7w e5-mistral evaluate", phase_evaluate, args.seed, tmp,
+                                   mistral["stage2_dir"], ("flat",))
+        shutil.rmtree(mistral["stage2_dir"])
     scale = timed("6 index scale", phase_index_scale, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2897,7 +3296,12 @@ def main(argv=None) -> int:
     stages = [("stage1", train["stage1"], 8), ("stage2", train["stage2"], 8),
               ("bge-m3 stage1 (dropout, plain attention)", bge["stage1"], BGE_STEPS),
               ("bge-m3 stage2", bge["stage2"], BGE_STEPS),
-              ("qwen2-1.5b stage1", qwen2["stage1"], QWEN2_STEPS)]
+              ("qwen2-1.5b stage1", qwen2["stage1"], QWEN2_STEPS),
+              (f"e5-mistral stage1 ({MISTRAL_TRAIN_LAYERS} layers, window; MFU counts the "
+               "whole causal triangle, as the JAX formula does)", mistral["stage1"],
+               MISTRAL_STEPS),
+              (f"e5-mistral stage2 ({MISTRAL_TRAIN_LAYERS} layers, window)", mistral["stage2"],
+               MISTRAL_STEPS)]
     for stage, s, steps in stages:
         mfu = "not known for this card" if s["mfu"] is None else f"{s['mfu']:.4f}"
         log(f"numbers ({card}): {stage}: median step {s['step_time_s']:.4f} s "
@@ -2925,8 +3329,20 @@ def main(argv=None) -> int:
                 f"{kern[name]['regimes'][shape]['library_ms']:.4f}, bound "
                 f"{kern[name]['regimes'][shape]['bound_ms']:.4f} "
                 f"{kern[name]['regimes'][shape]['bound_by']})" for name in KERNELS))
+    log(f"numbers ({card}): kernels at Mistral's shape {WINDOW_SHAPES[0][0]}, window "
+        f"{WINDOW_SHAPES[0][1]}, lengths in {list(WINDOW_SHAPES[0][2])}: " + "; ".join(
+            f"{name} {kern[name]['mistral']['ms']:.4f} ms (plain "
+            f"{kern[name]['mistral']['plain_ms']:.4f}, SDPA with the band mask "
+            f"{kern[name]['mistral']['library_ms']:.4f}, band bound "
+            f"{kern[name]['mistral']['bound_ms']:.4f} {kern[name]['mistral']['bound_by']})"
+            for name in KERNELS))
+    wb = serving_models[MISTRAL]["window_bites"]
+    log(f"numbers ({card}): e5-mistral window bites on {wb['tokens']} tokens: 1 - cosine with "
+        f"and without the window {wb['moved']}, limits {wb['limit']}; flash vs plain "
+        f"(stage-1 micro-batch) {mistral['compare']}")
     for tier, n in (*evaluation.items(), *(("bge-m3 " + t, n) for t, n in
-                                            evaluation_bge.items())):
+                                            evaluation_bge.items()),
+                    *(("e5-mistral " + t, n) for t, n in evaluation_mistral.items())):
         log(f"numbers ({card}): evaluate {tier}: {n['wall_s']:.2f} s wall, "
             f"{n['queries_per_s']:.1f} queries/s, {n['passages_per_s']:.1f} passages/s, "
             f"encodes {n['encode_s']}, metrics on the host {n['metrics_s']:.3f} s, peak "
@@ -2935,11 +3351,20 @@ def main(argv=None) -> int:
         log(f"numbers ({card}): {name}: {n['wall_s']:.2f} s wall, peak device memory "
             f"{n['peak_mem_gib']:.2f} GiB, launches {n['launches']}")
     trained = (train["stage1"], train["stage2"], bge["stage1"], bge["stage2"], qwen2["stage1"],
-               *mining.values())
+               mistral["stage1"], mistral["stage2"], *mining.values())
     launches = {name: sum(n["launches"][name] for n in trained) for name in KERNELS}
     launches["flash_fwd"] += sum(n["launches"]["flash_fwd"] for n in (
         *serving.values(), *mutation.values(), *evaluation.values(),
-        *evaluation_bge.values(), *serving_models.values()))
+        *evaluation_bge.values(), *evaluation_mistral.values(), *serving_models.values()))
+    windowed = {name: mistral["stage1"]["window_launches"][name]
+                + mistral["stage2"]["window_launches"][name] for name in KERNELS}
+    windowed["flash_fwd"] += (serving_models[MISTRAL]["window_launches"]
+                              + evaluation_mistral["flat"]["window_launches"])
+    log(f"numbers ({card}): windowed launches on the e5-mistral paths (serving, both "
+        f"stages, evaluate): {windowed}")
+    for name, n in windowed.items():
+        if n <= 0:
+            raise AssertionError(f"{name} ran no windowed launch on the e5-mistral paths")
     for name, (_, _, counter) in IVF_KERNELS.items():
         launches[name] = (sum(n["launches"][counter]
                               for n in (*serving.values(), *mutation.values()))

@@ -97,7 +97,7 @@ def setup_model_and_tokenizer(model_args: ModelArguments):
 
 
 def build_model(config, state, train_cfg: TrainConfig, device) -> EncoderModule:
-    """The config's body (llama/Qwen2 or Roberta/BERT), trainable."""
+    """The config's body (Llama, Qwen2 or Mistral; Roberta/BERT), trainable."""
     policy = policy_from_flags(train_cfg.bf16, train_cfg.pure_bf16)
     return encoder_class(config).for_training(
         config, state, device=device, param_dtype=policy.param_dtype,

@@ -23,10 +23,15 @@ For the serving build the casts are no-ops. ``gradient_checkpointing``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``,
 non-reentrant): the JAX ``remat_policy="full"``.
 
-The llama body and Qwen2's (q/k/v biases; Llama's ``attention_bias`` adds
-the o bias too) are ported. Mistral and Gemma (sliding windows, (1+w) norms,
-GeGLU, scaled embeddings, head_dim 256) raise ``NotImplementedError``; the
-Roberta family has its own body (``models/roberta.py``).
+The llama body, Qwen2's (q/k/v biases; Llama's ``attention_bias`` adds the
+o bias too) and Mistral's (Llama's tensors, no biases) are ported, with
+sliding-window attention wherever the config sets ``sliding_window``
+(Mistral, and Qwen2 with ``use_sliding_window`` on every layer): every layer
+passes the window to the attention, in the checkpointed recompute too, and
+on a CUDA tensor the kernels skip the tiles outside the band. Gemma ((1+w)
+norms, GeGLU, scaled embeddings, head_dim 256) raises
+``NotImplementedError``; the Roberta family has its own body
+(``models/roberta.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.ops.attention import multi_head_attention
 
-MODEL_TYPES = ("llama", "qwen2")
+MODEL_TYPES = ("llama", "qwen2", "mistral")
 
 
 def check_supported(config: EncoderConfig) -> None:
@@ -51,17 +56,12 @@ def check_supported(config: EncoderConfig) -> None:
     if config.model_type not in MODEL_TYPES:
         raise NotImplementedError(
             f"model_type {config.model_type!r} is not ported to rankpo_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 6.3: the Mistral and Gemma bodies)"
-        )
-    if config.sliding_window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP.md Queue 1 "
-            "item 6.3: the `window` variants of K1, K2, K3a and K3b)"
+            "yet (ROADMAP.md Queue 1 item 6.3b: the Gemma body)"
         )
     if config.hidden_act != "silu":
         raise NotImplementedError(
             f"hidden_act {config.hidden_act!r} is not ported (ROADMAP.md Queue 1 "
-            "item 6.3: GeGLU)"
+            "item 6.3b: GeGLU)"
         )
 
 
@@ -188,7 +188,7 @@ class LlamaLayer(nn.Module):
         # pad keys are masked everywhere, so pad query tiles may be skipped
         o = multi_head_attention(
             q, k, v, mask=key_mask, causal=True, impl=attn_impl,
-            skip_pad_q=True,
+            skip_pad_q=True, window=cfg.sliding_window,
         )
         x = x + linear(o.reshape(b, s, -1), attn.o_proj)
         return x + self.mlp(self.post_attention_layernorm(x))

@@ -4,7 +4,9 @@ flash-attention kernel (port of ``rankpo_tpu.ops.attention``).
 Shapes follow the JAX package: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] with GQA
 when Hq > Hkv (Hq % Hkv == 0); ``mask`` is a [B, Sk] key-validity mask
 (non-zero = valid); ``causal`` adds the autoregressive constraint with
-bottom-right alignment when Sq != Sk.
+bottom-right alignment when Sq != Sk, and ``window`` (with ``causal`` only,
+the HF Mistral/Qwen2 sliding-window rule) keeps the keys with
+q_pos - k_pos < window, where q_pos = row + Sk - Sq.
 
 Dispatch is by device, never by a silent fallback: ``impl="auto"`` runs the
 CUDA kernels (``ops/flash_attention.py``) on a CUDA tensor and
@@ -33,14 +35,31 @@ IMPLS = ("auto", "plain", "flash")
 BWD_IMPLS = ("auto", "fused", "split")  # backward kernels on CUDA tensors
 
 
+def allowed_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+                  device) -> Optional[torch.Tensor]:
+    """[Sq, Sk] bool of the (query, key) pairs causality and the window
+    allow (bottom-right aligned), or None when every pair is allowed. The
+    window applies only under ``causal``, as in JAX's ``_xla_attention``
+    (``attention.py:60-67``): keys with k_pos > q_pos - window."""
+    if not causal:
+        return None
+    ones = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    allowed = ones.tril(diagonal=sk - sq)
+    if window is not None:
+        allowed &= ones.triu(diagonal=sk - sq - window + 1)
+    return allowed
+
+
 def masked_logits(
     q: torch.Tensor,
     k: torch.Tensor,
     mask: Optional[torch.Tensor],
     causal: bool,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Scaled fp32 logits [B, Hkv, G, Sq, Sk] with masked entries at NEG_INF.
-    GQA groups ride a reshape of q, so K is never repeated."""
+    """Scaled fp32 logits [B, Hkv, G, Sq, Sk] with masked entries at NEG_INF
+    (pad keys, and the pairs :func:`allowed_pairs` leaves out). GQA groups
+    ride a reshape of q, so K is never repeated."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     groups = hq // hkv
@@ -50,12 +69,10 @@ def masked_logits(
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(torch.float32))
     if mask is not None:
         key_valid = mask.to(torch.bool)[:, None, None, None, :]
-        logits = logits.masked_fill(~key_valid, NEG_INF)
-    if causal:
-        allowed = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
-            diagonal=sk - sq
-        )
-        logits = logits.masked_fill(~allowed, NEG_INF)
+        logits.masked_fill_(~key_valid, NEG_INF)
+    allowed = allowed_pairs(sq, sk, causal, window, q.device)
+    if allowed is not None:
+        logits.masked_fill_(~allowed, NEG_INF)
     return logits
 
 
@@ -79,14 +96,16 @@ def attention_reference(
     causal: bool,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain attention, ported from ``rankpo_tpu.ops.attention._xla_attention``:
     fp32 logits and softmax, probabilities cast to v's dtype for the PV
-    product, rows with no valid key output zeros, then attention-probs
+    product, rows with no valid key (all pad, or a window past every valid
+    key) output zeros, then attention-probs
     dropout when ``dropout_rate`` > 0 and a ``generator`` is given (JAX
     ``attention.py:71-74``). Returns [B, Sq, Hq, D]."""
     b, sq, hq, d = q.shape
-    logits = masked_logits(q, k, mask, causal)
+    logits = masked_logits(q, k, mask, causal, window)
     probs = torch.softmax(logits, dim=-1)
     # rows with NO attendable key output zeros (softmax over all-NEG_INF
     # logits is a meaningless uniform average); the kernel does the same
@@ -118,36 +137,34 @@ def multi_head_attention(
     valid length (their rows become zeros, and their gradients too); the
     plain path computes them. Only self-attention over right-padded rows may
     set it: pad keys are masked everywhere, so pad rows never reach a valid
-    row. ``bwd_impl`` ("auto" | "fused" | "split") picks the backward
-    kernels (``flash_attention.flash_attention_bwd``); "auto" is split,
-    which repeats bit for bit, under ``torch.use_deterministic_algorithms``
-    and fused otherwise. ``dropout_rate`` > 0 with a ``generator`` runs the
+    row. ``window`` (sliding-window attention, with ``causal``) runs on both
+    paths: the kernels skip the key tiles outside the band. ``bwd_impl``
+    ("auto" | "fused" | "split") picks the backward kernels
+    (``flash_attention.flash_attention_bwd``); "auto" is split, which
+    repeats bit for bit, under ``torch.use_deterministic_algorithms`` and
+    fused otherwise. ``dropout_rate`` > 0 with a ``generator`` runs the
     plain path with attention-probs dropout on any device and any ``impl``,
     as the JAX dispatcher does."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP.md Queue 1 "
-            "item 6.3: the `window` variants of K1, K2, K3a and K3b)"
-        )
     if segment_ids is not None:
         raise NotImplementedError(
             "segment_ids (packed) attention is not ported yet (ROADMAP.md "
             "Queue 1 item 7: sequence packing)"
         )
     if dropout_rate > 0.0 and generator is not None:
-        return attention_reference(q, k, v, mask, causal, dropout_rate, generator)
+        return attention_reference(q, k, v, mask, causal, dropout_rate, generator,
+                                   window=window)
     if impl == "plain" or (impl == "auto" and q.device.type == "cpu"):
-        return attention_reference(q, k, v, mask, causal)
+        return attention_reference(q, k, v, mask, causal, window=window)
     from rankpo_tpu_torch.ops import flash_attention as flash
 
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return flash.flash_attention(
             q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q,
-            bwd_impl=bwd_impl,
+            window=window, bwd_impl=bwd_impl,
         )
     out, _lse = flash.flash_attention_fwd(
-        q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q
+        q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q, window=window
     )
     return out

@@ -16,22 +16,29 @@
 //   key-tile order (below); the dq kernel writes dQ as bf16 [B, Sq, Hq, D].
 //   The kv kernel writes dK/dV as bf16 [B, Sk, Hkv, D], each GQA group
 //   summed in fp32 registers.
+//   window (> 0, with causal; -1 = none): the forward's sliding window, row r
+//   sees keys with k_pos > q_pos - window.
 //   Loop bounds are the forward's: keys end one past the last valid key;
-//   causal tiles above the diagonal are skipped; with skip_pad_q a query
-//   tile the forward skipped (it starts at or past the valid key extent)
-//   is skipped here too, so its rows give zero dQ and add nothing to dK/dV.
-//   Every output repeats bit for bit from launch to launch.
+//   causal tiles above the diagonal are skipped; with a window, tiles below
+//   the band are skipped (the dq kernel starts at the first key tile inside
+//   the band of its query tile's first row, the kv kernel ends at the last
+//   query tile whose rows reach its keys); with skip_pad_q a query tile the
+//   forward skipped (it starts at or past the valid key extent) is skipped
+//   here too, so its rows give zero dQ and add nothing to dK/dV. Every
+//   output repeats bit for bit from launch to launch.
 //
 // dQ in key-tile order. Blocks on Hopper run in parallel and in no order, so
 // the Pallas fused kernel's dq block, resident across the sequential key
 // axis, has no counterpart. The loop bounds make the key tiles that reach a
-// query tile a prefix 0, 1, ..., N - 1, so key tile n is the n-th to add.
-// Each (batch * q-head, 64-row query tile) has an int32 counter in a zeroed
-// `sync` buffer; the adders of key tile n wait (acquire) until the counter
-// says tiles 0 .. n - 1 have added, add with plain loads and stores through
-// L2, fence and count themselves. sync[0] hands out the blocks' places in
-// the order they start, key tile slowest, so a block waits only on blocks
-// that started before it. dQ is then summed in key order, as in JAX.
+// query tile a range f, f + 1, ..., N - 1 (f = 0 without a window, else
+// first_kt below), so key tile n is the (n - f)-th to add. Each
+// (batch * q-head, 64-row query tile) has an int32 counter in a zeroed `sync`
+// buffer; the adders of key tile n wait (acquire) until the counter says
+// tiles f .. n - 1 have added, add with plain loads and stores through L2
+// (tile f adds to zeros), fence and count themselves. sync[0] hands out the
+// blocks' places in the order they start, key tile slowest, so a block waits
+// only on blocks that started before it. dQ is then summed in key order, as
+// in JAX.
 //
 // Design of the kv kernel. One block per (batch, kv head, 64-key tile), 160
 // threads (192 fused):
@@ -102,6 +109,23 @@ __device__ __forceinline__ void end_turn(int* counter, int lane) {
   if (lane == 0) atomicAdd(counter, 1);
 }
 
+// With a window, the last query row that sees a key of the tile starting at
+// key0 is key0 + 63 + window - 1 - q_shift: the kv kernel's query tiles end
+// at (that row) / 64 + 1, none if it is negative.
+__device__ __forceinline__ int window_q_end(int key0, int window, int q_shift) {
+  const int last_row = key0 + kTile - 2 + window - q_shift;
+  return last_row < 0 ? 0 : last_row / kTile + 1;
+}
+
+// The first key tile whose window_q_end passes query tile qt: the least kt
+// with qt * 64 <= kt * 64 + 62 + window - q_shift. The window's key tiles
+// of qt are first_kt(qt) .. the causal and valid-length end, so key tile kt
+// is the (kt - first_kt)-th to add qt's dQ.
+__device__ __forceinline__ int first_kt(int qt, int window, int q_shift) {
+  const int x = qt * kTile + q_shift - window - (kTile - 2);
+  return x <= 0 ? 0 : (x + kTile - 1) / kTile;
+}
+
 struct BwdArgs {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
@@ -120,6 +144,7 @@ struct BwdArgs {
   long long do_sb, do_ss, do_sh, mask_sb;
   float scale;
   int causal, skip_pad_q;
+  int window;  // > 0 with causal, else -1
 };
 
 // ---- the kv kernel: K3b, and K2 with its dq ----
@@ -187,8 +212,9 @@ __device__ __forceinline__ void issue_tt(float (&acc)[D / 2], const unsigned cha
 }
 
 // One block per (batch, kv head, 64-key tile), the key tile slowest; see the
-// header for the roles of its warps.
-template <int D, bool kFusedDq>
+// header for the roles of its warps. kWindow: built with the window's bounds
+// and tests (window > 0, causal), so the kernel without them is unchanged.
+template <int D, bool kFusedDq, bool kWindow>
 __global__ void __launch_bounds__(kKvThreads<kFusedDq>, D == 64 ? 2 : 1)
 flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
@@ -253,9 +279,12 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < kThreads / 32; ++i) key_end = max(key_end, warp_end[i]);
 
   // the query tiles of every head of the group: from the diagonal (causal)
-  // to the end of the tiles the forward ran; none past the valid keys
+  // to the end of the tiles the forward ran and, with a window, of the rows
+  // whose band reaches these keys; none past the valid keys
+  constexpr bool windowed = kWindow;
   const int qt_begin = a.causal ? max(0, key0 - q_shift) / kTile : 0;
   int qt_end = (a.Sq + kTile - 1) / kTile;
+  if (windowed) qt_end = min(qt_end, window_q_end(key0, a.window, q_shift));
   if (key0 >= key_end) qt_end = 0;
   if (a.skip_pad_q) {
     const int lim = key_end - q_shift;  // tile qt runs iff qt*64 < lim
@@ -267,8 +296,8 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
 
   if (kFusedDq && warp == 5) {
     // ---- dQ adder: each staged dQ tile into the fp32 buffer, after the key
-    // tiles 0 .. kt - 1 added theirs; all of a pass's L2 loads in flight at
-    // once (one pass at D 64, two at D 128) ----
+    // tiles first .. kt - 1 added theirs; all of a pass's L2 loads in flight
+    // at once (one pass at D 64, two at D 128) ----
     constexpr int kLanesPerRow = D / 4;                   // float4 columns
     constexpr int kBatch = 32;                            // float4 per lane
     constexpr int kRowsPerPass = kBatch * 32 / kLanesPerRow;
@@ -282,15 +311,17 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
       const float* src = dQs + buf * kTile * T::kDqLd;
       float* dst = a.dq_acc + (bh * a.Sq + q0) * D;
       int* counter = a.sync + 1 + bh * n_q_tiles + qt;
+      // the turns before this key tile's: first is the first to add
+      const int turn = kt - (windowed ? first_kt(qt, a.window, q_shift) : 0);
       mbar_wait(&dq_full[buf], (it >> 1) & 1);
-      if (kt > 0) wait_turn(counter, kt);  // key tile 0 adds to the zeros
+      if (turn > 0) wait_turn(counter, turn);  // the first adds to the zeros
 #pragma unroll 1
       for (int pass = 0; pass < kTile / kRowsPerPass; ++pass) {
         float4 sum[kBatch];
 #pragma unroll
         for (int i = 0; i < kBatch; ++i) {
           const int r = pass * kRowsPerPass + r0 + i * (32 / kLanesPerRow);
-          sum[i] = kt > 0 && q0 + r < a.Sq
+          sum[i] = turn > 0 && q0 + r < a.Sq
                        ? __ldcg(reinterpret_cast<const float4*>(dst + (long long)r * D + c))
                        : make_float4(0.f, 0.f, 0.f, 0.f);
         }
@@ -395,8 +426,10 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
         const bool qin = row < a.Sq;
         const float l = lse_s[stage][col];
         const float dl = delta_s[stage][col];
-        const bool va = qin && ok_a && (!a.causal || key_a <= pos);
-        const bool vb = qin && ok_b && (!a.causal || key_b <= pos);
+        const bool va = qin && ok_a && (!a.causal || key_a <= pos) &&
+                        (!windowed || key_a > pos - a.window);
+        const bool vb = qin && ok_b && (!a.causal || key_b <= pos) &&
+                        (!windowed || key_b > pos - a.window);
         st[4 * j + e] = va ? __expf(st[4 * j + e] * a.scale - l) : 0.f;
         st[4 * j + 2 + e] = vb ? __expf(st[4 * j + 2 + e] * a.scale - l) : 0.f;
         dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl) * a.scale;
@@ -502,10 +535,12 @@ struct DqTiles {
 // (an interior tile), so no test is made.
 template <bool kAll>
 __device__ __forceinline__ void dscores(uint32_t (&ds)[16], float (&s)[32], const float (&dp)[32],
-                                        uint64_t bits, int t, int lim_a, int lim_b, float lse_a,
-                                        float lse_b, float dl_a, float dl_b, float scale) {
-  // this thread's key bits and causal limits, relative to its columns
-  // 2t + 8j + e, so that every test below has a constant left side
+                                        uint64_t bits, int t, int lim_a, int lim_b, int lo_a,
+                                        int lo_b, float lse_a, float lse_b, float dl_a, float dl_b,
+                                        float scale) {
+  // this thread's key bits, causal limits and window floors (lim, lo),
+  // relative to its columns 2t + 8j + e, so that every test below has a
+  // constant left side
   const uint32_t bits_lo = uint32_t(bits) >> (2 * t);
   const uint32_t bits_hi = uint32_t(bits >> 32) >> (2 * t);
 #pragma unroll
@@ -514,8 +549,8 @@ __device__ __forceinline__ void dscores(uint32_t (&ds)[16], float (&s)[32], cons
     for (int e = 0; e < 2; ++e) {
       const int col = 8 * j + e;  // minus 2t
       const bool ok = kAll || (((j < 4 ? bits_lo : bits_hi) >> (col % 32)) & 1);
-      const bool va = ok && (kAll || col <= lim_a);
-      const bool vb = ok && (kAll || col <= lim_b);
+      const bool va = ok && (kAll || (col <= lim_a && col >= lo_a));
+      const bool vb = ok && (kAll || (col <= lim_b && col >= lo_b));
       const float pa = va ? __expf(s[4 * j + e] * scale - lse_a) : 0.f;
       const float pb = vb ? __expf(s[4 * j + 2 + e] * scale - lse_b) : 0.f;
       s[4 * j + e] = pa * (dp[4 * j + e] - dl_a) * scale;
@@ -533,8 +568,8 @@ __device__ __forceinline__ void dscores(uint32_t (&ds)[16], float (&s)[32], cons
 constexpr int kDqThreads = 160;
 
 // One block per (batch, query head, 64-row query tile); see the header for
-// the roles of its warps.
-template <int D>
+// the roles of its warps. kWindow as in the kv kernel.
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kDqThreads, D == 64 ? 2 : 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
@@ -590,10 +625,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     n_tiles = min(n_tiles, diag_tiles);
   }
   if (a.skip_pad_q && q_start + q_shift >= key_end) n_tiles = 0;
+  // the window: key tiles below the band of the tile's first row are skipped
+  constexpr bool windowed = kWindow;
+  const int kt_begin = windowed ? max(0, q_start + q_shift - a.window + 1) / kTile : 0;
+  // the ring's stage and parity count the tiles run (it), not the tile index
+  const int n_run = max(0, n_tiles - kt_begin);
 
   if (warp == 4) {
     // ---- producer: Q and dO once, then K/V tiles through the ring ----
-    if (n_tiles == 0) return;
+    if (n_run == 0) return;
     if (lane == 0) {
       mbar_arrive_expect_tx(&q_bar, 2 * kTileBytes);
       for (int at = 0; at < T::kAtoms; ++at) {
@@ -602,10 +642,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
         tma_load_4d(dOs + off, &do_map, &q_bar, 64 * at, q_start, h, b);
       }
     }
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int stage = kt % kStages;
-      mbar_wait(&empty_bar[stage], ((kt / kStages) & 1) ^ 1);
-      const int key0 = kt * kTile;
+    for (int it = 0; it < n_run; ++it) {
+      const int stage = it % kStages;
+      mbar_wait(&empty_bar[stage], ((it / kStages) & 1) ^ 1);
+      const int key0 = (kt_begin + it) * kTile;
       const int k_lo = key0 + lane, k_hi = key0 + 32 + lane;
       const uint32_t lo = __ballot_sync(0xffffffffu, k_lo < a.Sk && mrow[k_lo] != 0);
       const uint32_t hi = __ballot_sync(0xffffffffu, k_hi < a.Sk && mrow[k_hi] != 0);
@@ -640,14 +680,14 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-  if (n_tiles > 0) mbar_wait(&q_bar, 0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int stage = kt % kStages;
+  if (n_run > 0) mbar_wait(&q_bar, 0);
+  for (int it = 0; it < n_run; ++it) {
+    const int stage = it % kStages;
     const unsigned char* Kt = Ks + stage * kTileBytes;
     const unsigned char* Vt = Vs + stage * kTileBytes;
-    mbar_wait(&full_bar[stage], (kt / kStages) & 1);
+    mbar_wait(&full_bar[stage], (it / kStages) & 1);
     const uint64_t bits = key_bits[stage];
-    const int key0 = kt * kTile;
+    const int key0 = (kt_begin + it) * kTile;
 
     // S = Q K^T and dP = dO V^T, one commit group
     float s[32], dp[32];
@@ -660,16 +700,21 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     fence_regs(dp);
 
     // an interior tile (every key valid and, when causal, every row of the
-    // warp at or past the tile's last key) needs no mask or causal test
+    // warp at or past the tile's last key and, with a window, every key
+    // inside the band of the warp's last row) needs no mask or causal test
     uint32_t ds[16];
-    const bool interior = bits == ~0ull &&
-                          (!a.causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift);
+    const bool interior =
+        bits == ~0ull && (!a.causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift) &&
+        (!windowed || key0 > q_start + 16 * w + 15 + q_shift - a.window);
     if (interior) {
-      dscores<true>(ds, s, dp, bits, t, 0, 0, lse_a, lse_b, dl_a, dl_b, a.scale);
+      dscores<true>(ds, s, dp, bits, t, 0, 0, 0, 0, lse_a, lse_b, dl_a, dl_b, a.scale);
     } else {
       const int lim_a = a.causal ? row_a + q_shift - key0 - 2 * t : kTile;
       const int lim_b = a.causal ? row_b + q_shift - key0 - 2 * t : kTile;
-      dscores<false>(ds, s, dp, bits, t, lim_a, lim_b, lse_a, lse_b, dl_a, dl_b, a.scale);
+      const int lo_a = windowed ? row_a + q_shift - a.window + 1 - key0 - 2 * t : -kTile;
+      const int lo_b = windowed ? row_b + q_shift - a.window + 1 - key0 - 2 * t : -kTile;
+      dscores<false>(ds, s, dp, bits, t, lim_a, lim_b, lo_a, lo_b, lse_a, lse_b, dl_a, dl_b,
+                     a.scale);
     }
 
     // dQ += dS K, K read MN-major from the same stage
@@ -713,14 +758,14 @@ int encode_maps(CUtensorMap (&m)[4], const BwdArgs& a, int B, int D) {
   return rc;
 }
 
-template <int D>
+template <int D, bool kWindow>
 int launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
   using T = DqTiles<D>;
   CUtensorMap m[4];
   const int rc = encode_maps(m, a, B, D);
   if (rc != 0) return rc;
   constexpr int smem = 1024 + (2 + 2 * T::kStages) * T::kTileBytes;
-  auto kernel = flash_bwd_dq_wgmma<D>;
+  auto kernel = flash_bwd_dq_wgmma<D, kWindow>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -731,7 +776,7 @@ int launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
 
 enum Which { kFused, kDkv, kDq };
 
-template <int D, bool kFused>
+template <int D, bool kFused, bool kWindow>
 int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   using T = KvTiles<D, kFused>;
   CUtensorMap m[4];
@@ -739,7 +784,7 @@ int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   if (rc != 0) return rc;
   constexpr int smem = 1024 + (2 + 2 * T::kStages) * T::kTileBytes +
                        (kFused ? 2 * kSwizzleTileBytes + 2 * T::kDqBytes : 0);
-  auto kernel = flash_bwd_kv_wgmma<D, kFused>;
+  auto kernel = flash_bwd_kv_wgmma<D, kFused, kWindow>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -748,16 +793,22 @@ int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int dispatch(Which which, const BwdArgs& a, int B, cudaStream_t st) {
+template <int D, bool kWindow>
+int dispatch_kernel(Which which, const BwdArgs& a, int B, cudaStream_t st) {
   switch (which) {
     case kFused:
-      return launch_kv<D, true>(a, B, st);
+      return launch_kv<D, true, kWindow>(a, B, st);
     case kDkv:
-      return launch_kv<D, false>(a, B, st);
+      return launch_kv<D, false, kWindow>(a, B, st);
     default:
-      return launch_dq<D>(a, B, st);
+      return launch_dq<D, kWindow>(a, B, st);
   }
+}
+
+template <int D>
+int dispatch(Which which, const BwdArgs& a, int B, cudaStream_t st) {
+  return a.window > 0 ? dispatch_kernel<D, true>(which, a, B, st)
+                      : dispatch_kernel<D, false>(which, a, B, st);
 }
 
 int run(Which which, const void* q, const void* k, const void* v,
@@ -767,7 +818,7 @@ int run(Which which, const void* q, const void* k, const void* v,
         long long q_sh, long long k_sb, long long k_ss, long long k_sh,
         long long v_sb, long long v_ss, long long v_sh, long long do_sb,
         long long do_ss, long long do_sh, long long mask_sb, int causal,
-        int skip_pad_q, void* stream) {
+        int skip_pad_q, int window, void* stream) {
   BwdArgs a;
   a.q = reinterpret_cast<const __nv_bfloat16*>(q);
   a.k = reinterpret_cast<const __nv_bfloat16*>(k);
@@ -793,6 +844,7 @@ int run(Which which, const void* q, const void* k, const void* v,
   a.scale = rsqrtf((float)D);
   a.causal = causal;
   a.skip_pad_q = skip_pad_q;
+  a.window = causal && window > 0 ? window : -1;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (D == 64) return dispatch<64>(which, a, B, st);
@@ -815,11 +867,11 @@ int run(Which which, const void* q, const void* k, const void* v,
       int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb, \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss,        \
       long long v_sh, long long do_sb, long long do_ss, long long do_sh,     \
-      long long mask_sb, int causal, int skip_pad_q, void *stream
+      long long mask_sb, int causal, int skip_pad_q, int window, void *stream
 #define RANKPO_BWD_ARGS                                                       \
   q, k, v, mask, dout, lse, delta, dq, dk, dv, sync, B, Sq, Sk, Hq, Hkv, D,  \
       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,    \
-      do_sh, mask_sb, causal, skip_pad_q, stream
+      do_sh, mask_sb, causal, skip_pad_q, window, stream
 
 // K2: dq (fp32, summed in key-tile order), dk, dv in one pass
 extern "C" int rankpo_flash_bwd_fused_bf16(RANKPO_BWD_PARAMS) {

@@ -14,8 +14,13 @@
 //   never copied. skip_pad_q: a query tile whose first position is at or past
 //   the valid key length runs no key tiles, so its rows output zeros
 //   (block-granular, as in the JAX kernel; only rows below the valid length
-//   are meaningful). The loop over key tiles stops at the last valid key and,
-//   when causal, at the diagonal. No atomics: out and lse repeat bit for bit.
+//   are meaningful). window (> 0, with causal; -1 = none): row r sees keys
+//   with k_pos > q_pos - window (the HF Mistral/Qwen2 rule); a row with no
+//   visible valid key outputs zeros and lse = NEG_INF. The loop over key
+//   tiles stops at the last valid key and, when causal, at the diagonal;
+//   with a window it starts at the first tile inside the band of the query
+//   tile's first row, so the work grows with S * window, not S^2. No atomics:
+//   out and lse repeat bit for bit.
 //
 // What bounds it on this card. At the encoder's shapes (S <= 512, D = 64, 32
 // query heads over 8 kv heads, causal) a (head, query tile) pair runs at most
@@ -47,8 +52,7 @@
 // Left out (ROADMAP Queue 2, K1): setmaxnreg register rebalancing between the
 // producer and the consumers, ping-pong scheduling of the consumer
 // warpgroups, overlap of the softmax with the next wgmma inside a warpgroup,
-// a persistent grid, clusters with TMA multicast, fp8, `window` and
-// `segment_ids`.
+// a persistent grid, clusters with TMA multicast, fp8 and `segment_ids`.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -117,15 +121,17 @@ __device__ __forceinline__ void pv(float (&o)[D / 2], uint32_t (&p)[16],
 }
 
 // One block per (batch, kv head, NC query heads, 64-row query tile); see the
-// header for the roles of its warps.
-template <int D, int NC>
+// header for the roles of its warps. kWindow: built with the window's bounds
+// and tests (window > 0, causal), so the kernel without them is unchanged.
+template <int D, int NC, bool kWindow>
 __global__ void __launch_bounds__(NC * 128 + 32, D == 64 ? 2 : 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map,
                  const int* __restrict__ mask, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                 long long mask_sb, float scale, int causal, int skip_pad_q) {
+                 long long mask_sb, float scale, int causal, int skip_pad_q,
+                 int window) {
   using T = FwdTiles<D>;
   constexpr int kStages = T::kStages;
   constexpr int kTileBytes = T::kTileBytes;
@@ -184,10 +190,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     n_tiles = min(n_tiles, diag_tiles);
   }
   if (skip_pad_q && q_start + q_shift >= key_end) n_tiles = 0;
+  // the window: key tiles below the band of the tile's first row are skipped
+  constexpr bool windowed = kWindow;
+  const int kt_begin = windowed ? max(0, q_start + q_shift - window + 1) / kTile : 0;
+  // the ring's stage and parity count the tiles run (it), not the tile index
+  const int n_run = max(0, n_tiles - kt_begin);
 
   if (warp == 4 * NC) {
     // ---- producer: Q once, then K/V tiles through the ring ----
-    if (n_tiles == 0) return;
+    if (n_run == 0) return;
     if (lane == 0) {
       mbar_arrive_expect_tx(&q_bar, NC * kTileBytes);
       for (int c = 0; c < NC; ++c) {
@@ -197,10 +208,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         }
       }
     }
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int stage = kt % kStages;
-      mbar_wait(&empty_bar[stage], ((kt / kStages) & 1) ^ 1);
-      const int key0 = kt * kTile;
+    for (int it = 0; it < n_run; ++it) {
+      const int stage = it % kStages;
+      mbar_wait(&empty_bar[stage], ((it / kStages) & 1) ^ 1);
+      const int key0 = (kt_begin + it) * kTile;
       const int k_lo = key0 + lane, k_hi = key0 + 32 + lane;
       const uint32_t lo = __ballot_sync(0xffffffffu, k_lo < Sk && mrow[k_lo] != 0);
       const uint32_t hi = __ballot_sync(0xffffffffu, k_hi < Sk && mrow[k_hi] != 0);
@@ -237,39 +248,46 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
-  if (n_tiles > 0) mbar_wait(&q_bar, 0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int stage = kt % kStages;
-    mbar_wait(&full_bar[stage], (kt / kStages) & 1);
+  if (n_run > 0) mbar_wait(&q_bar, 0);
+  for (int it = 0; it < n_run; ++it) {
+    const int stage = it % kStages;
+    mbar_wait(&full_bar[stage], (it / kStages) & 1);
     const uint64_t bits = key_bits[stage];
-    const int key0 = kt * kTile;
+    const int key0 = (kt_begin + it) * kTile;
 
     float s[32];
     scores<D>(s, Qt, Ks + stage * kTileBytes);
 
     // scale, mask. An interior tile (every key valid and, when causal, every
-    // row of the warp at or past the tile's last key) needs no mask or causal
+    // row of the warp at or past the tile's last key and, with a window, every
+    // key inside the band of the warp's last row) needs no mask or causal
     // test.
-    const bool interior = bits == ~0ull &&
-                          (!causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift);
+    const bool interior =
+        bits == ~0ull && (!causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift) &&
+        (!windowed || key0 > q_start + 16 * w + 15 + q_shift - window);
     if (interior) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] *= scale;
     } else {
-      // this thread's key bits and causal limits, relative to its columns
-      // 2t + 8j + e, so that every test below has a constant left side
+      // this thread's key bits, causal limits and window floors, relative to
+      // its columns 2t + 8j + e, so that every test below has a constant left
+      // side
       const uint32_t bits_lo = uint32_t(bits) >> (2 * t);
       const uint32_t bits_hi = uint32_t(bits >> 32) >> (2 * t);
       const int lim_a = causal ? pos_a - key0 - 2 * t : kTile;
       const int lim_b = causal ? pos_b - key0 - 2 * t : kTile;
+      const int lo_a = windowed ? pos_a - window + 1 - key0 - 2 * t : -kTile;
+      const int lo_b = windowed ? pos_b - window + 1 - key0 - 2 * t : -kTile;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * j + e;  // minus 2t
           const bool ok = ((j < 4 ? bits_lo : bits_hi) >> (col % 32)) & 1;
-          s[4 * j + e] = ok && col <= lim_a ? s[4 * j + e] * scale : kNegInf;
-          s[4 * j + 2 + e] = ok && col <= lim_b ? s[4 * j + 2 + e] * scale : kNegInf;
+          s[4 * j + e] =
+              ok && col <= lim_a && col >= lo_a ? s[4 * j + e] * scale : kNegInf;
+          s[4 * j + 2 + e] =
+              ok && col <= lim_b && col >= lo_b ? s[4 * j + 2 + e] * scale : kNegInf;
         }
       }
     }
@@ -366,21 +384,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---- host side (tensor maps: encode_map in hopper.cuh) ----
-template <int D, int NC>
+template <int D, int NC, bool kWindow>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
            const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
-           int Hkv, long long mask_sb, int causal, int skip_pad_q,
+           int Hkv, long long mask_sb, int causal, int skip_pad_q, int window,
            cudaStream_t stream) {
   using T = FwdTiles<D>;
   constexpr int smem = 1024 + (NC + 2 * T::kStages) * T::kTileBytes;
-  auto kernel = flash_fwd_kernel<D, NC>;
+  auto kernel = flash_fwd_kernel<D, NC, kWindow>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * Hq / NC, (Sq + kTile - 1) / kTile);
   kernel<<<grid, NC * 128 + 32, smem, stream>>>(
       qm, km, vm, mask, reinterpret_cast<__nv_bfloat16*>(out), lse, Sq, Sk, Hq, Hkv,
-      mask_sb, rsqrtf((float)D), causal, skip_pad_q);
+      mask_sb, rsqrtf((float)D), causal, skip_pad_q, window);
   return (int)cudaGetLastError();
 }
 
@@ -390,17 +408,30 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 #define RANKPO_FWD_HEADS 2
 #endif
 
+template <int D, bool kWindow>
+int dispatch_heads(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                   const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
+                   int Hkv, long long mask_sb, int causal, int skip_pad_q, int window,
+                   cudaStream_t stream) {
+  if (RANKPO_FWD_HEADS == 2 && (Hq / Hkv) % 2 == 0) {
+    return launch<D, 2, kWindow>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
+                                 causal, skip_pad_q, window, stream);
+  }
+  return launch<D, 1, kWindow>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
+                               causal, skip_pad_q, window, stream);
+}
+
 template <int D>
 int dispatch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
              const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
-             int Hkv, long long mask_sb, int causal, int skip_pad_q,
+             int Hkv, long long mask_sb, int causal, int skip_pad_q, int window,
              cudaStream_t stream) {
-  if (RANKPO_FWD_HEADS == 2 && (Hq / Hkv) % 2 == 0) {
-    return launch<D, 2>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
-                        skip_pad_q, stream);
+  if (causal && window > 0) {
+    return dispatch_heads<D, true>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
+                                   causal, skip_pad_q, window, stream);
   }
-  return launch<D, 1>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
-                      skip_pad_q, stream);
+  return dispatch_heads<D, false>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
+                                  causal, skip_pad_q, -1, stream);
 }
 
 }  // namespace
@@ -413,7 +444,7 @@ extern "C" int rankpo_flash_fwd_bf16(
     float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long mask_sb, int causal, int skip_pad_q, void* stream) {
+    long long mask_sb, int causal, int skip_pad_q, int window, void* stream) {
   if ((D != 64 && D != 128) || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
   int rc = encode_map(&qm, q, B, Sq, Hq, D, q_sb, q_ss, q_sh);
@@ -423,8 +454,8 @@ extern "C" int rankpo_flash_fwd_bf16(
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64) {
     return dispatch<64>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
-                        skip_pad_q, st);
+                        skip_pad_q, window, st);
   }
   return dispatch<128>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
-                       skip_pad_q, st);
+                       skip_pad_q, window, st);
 }

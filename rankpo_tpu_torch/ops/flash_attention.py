@@ -33,8 +33,12 @@ tile's dQ in key-tile order. K3a is K1's design with a third product: per
 through the ring, and dQ = dS K stays in registers across the key tiles (see
 the kernels' headers). Every kernel repeats bit for bit.
 
-The kernels take bf16 only, head_dim 64 or 128, a key mask, causal and
-``skip_pad_q``. ``window`` and ``segment_ids`` are not ported yet and raise.
+The kernels take bf16 only, head_dim 64 or 128, a key mask, causal,
+``skip_pad_q`` and ``window`` (sliding-window attention, with ``causal``:
+row q sees keys with q_pos - k_pos < window). With a window every kernel
+skips the key tiles (K1, K3a) or query tiles (K2, K3b) outside the band, as
+the JAX kernels skip blocks, so its work grows with S * window rather than
+S^2. ``segment_ids`` is not ported yet and raises.
 
 :func:`flash_attention_fwd_reference` and :func:`flash_attention_bwd_reference`
 are the plain PyTorch versions of the same contracts, used by the CPU tests
@@ -48,11 +52,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from rankpo_tpu_torch.ops.attention import BWD_IMPLS, NEG_INF, masked_logits
+from rankpo_tpu_torch.ops.attention import BWD_IMPLS, NEG_INF, allowed_pairs, masked_logits
 
 # launches of each CUDA kernel in this process (read by chip_smoke.py to show
-# the main path went through them); incremented only after a launch succeeded
+# the main path went through them); incremented only after a launch
+# succeeded. ``window_launches`` counts the launches among them that ran with
+# a sliding window.
 launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_dq": 0, "flash_dkv": 0}
+window_launches = dict(launches)
 _count_lock = threading.Lock()
 
 HEAD_DIMS = (64, 128)
@@ -62,11 +69,27 @@ def reset_launches() -> None:
     with _count_lock:
         for name in launches:
             launches[name] = 0
+            window_launches[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, window: Optional[int]) -> None:
     with _count_lock:
         launches[name] += 1
+        if window is not None:
+            window_launches[name] += 1
+
+
+def _check_window(window: Optional[int], causal: bool) -> int:
+    """The kernels' window argument: -1 for none. As JAX's
+    ``flash_attention`` (``flash_attention.py:722-725``): a window needs
+    ``causal`` and must be positive."""
+    if window is None:
+        return -1
+    if not causal:
+        raise ValueError("window requires causal attention (HF SWA rule)")
+    if window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    return int(window)
 
 
 def flash_attention_fwd_reference(
@@ -76,12 +99,13 @@ def flash_attention_fwd_reference(
     mask: Optional[torch.Tensor] = None,
     *,
     causal: bool = False,
+    window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel: (out [B, Sq, Hq, D] in v's dtype,
     lse [B, Hq, Sq] fp32). Rows with no valid key give zeros and
     lse = NEG_INF, as the kernel does. Computes every row (no skip_pad_q)."""
     b, sq, hq, d = q.shape
-    logits = masked_logits(q, k, mask, causal)  # [B, Hkv, G, Sq, Sk]
+    logits = masked_logits(q, k, mask, causal, window)  # [B, Hkv, G, Sq, Sk]
     any_valid = logits.amax(dim=-1) > NEG_INF * 0.5
     lse = torch.where(any_valid, torch.logsumexp(logits, dim=-1), NEG_INF)
     probs = torch.softmax(logits, dim=-1)
@@ -100,6 +124,7 @@ def flash_attention_bwd_reference(
     delta: torch.Tensor,
     *,
     causal: bool = False,
+    window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward from the forward's stats, with the contract of JAX's
     ``flash_bwd_fused``: q/do [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], lse and
@@ -121,10 +146,8 @@ def flash_attention_bwd_reference(
     valid = torch.ones(b, 1, 1, sq, sk, dtype=torch.bool, device=q.device)
     if mask is not None:
         valid = valid & mask.to(torch.bool)[:, None, None, None, :]
-    if causal:
-        allowed = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
-            diagonal=sk - sq
-        )
+    allowed = allowed_pairs(sq, sk, causal, window, q.device)
+    if allowed is not None:
         valid = valid & allowed
     lse5 = lse.to(torch.float32).reshape(b, hkv, groups, sq, 1)
     delta5 = delta.to(torch.float32).reshape(b, hkv, groups, sq, 1)
@@ -206,12 +229,15 @@ def flash_attention_fwd(
 
     Strided inputs are read in place (no transpose copy). With
     ``skip_pad_q``, query tiles that start at or past the valid key length
-    output zeros: compare only rows below the valid length."""
-    if window is not None or segment_ids is not None:
+    output zeros: compare only rows below the valid length. ``window``
+    (with ``causal``): rows see keys with q_pos - k_pos < window; a row
+    that sees no valid key outputs zeros and lse NEG_INF."""
+    if segment_ids is not None:
         raise NotImplementedError(
-            "flash kernel: `window` and `segment_ids` are not ported yet "
-            "(ROADMAP.md Queue 2, K1 variants)"
+            "flash kernel: `segment_ids` is not ported yet (ROADMAP.md Queue 1 "
+            "item 7: sequence packing)"
         )
+    win = _check_window(window, causal)
     _check_qkv(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -229,11 +255,11 @@ def flash_attention_fwd(
             out.data_ptr(), lse.data_ptr(),
             b, sq, sk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], mask.stride(0),
-            int(causal), int(skip_pad_q), stream,
+            int(causal), int(skip_pad_q), win, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {rc}")
-    _count("flash_fwd")
+    _count("flash_fwd", window)
     return out, lse
 
 
@@ -260,6 +286,7 @@ def flash_attention_bwd(
     *,
     causal: bool = False,
     skip_pad_q: bool = False,
+    window: Optional[int] = None,
     bwd_impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels on the forward's inputs and stats:
@@ -280,8 +307,9 @@ def flash_attention_bwd(
 
     Both give dq, dk and dv that repeat bit for bit. K2 and K3b sum each GQA
     group's dk/dv in the kernel, as ``flash_bwd_fused`` sums them per
-    group, and write them in bf16."""
+    group, and write them in bf16. ``window`` is the forward's."""
     bwd_impl = resolve_bwd_impl(bwd_impl)
+    win = _check_window(window, causal)
     _check_qkv(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -323,11 +351,11 @@ def flash_attention_bwd(
                 b, sq, sk, hq, hkv, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *do.stride()[:3], mask.stride(0),
-                int(causal), int(skip_pad_q), stream,
+                int(causal), int(skip_pad_q), win, stream,
             )
             if rc != 0:
                 raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-            _count(name)
+            _count(name, window)
     if fused:
         dq = dq.permute(0, 2, 1, 3).to(q.dtype)
     return dq, dk, dv
@@ -339,12 +367,13 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal: bool, skip_pad_q: bool,
-                bwd_impl: str):
+                bwd_impl: str, window: Optional[int] = None):
         out, lse = flash_attention_fwd(
-            q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q
+            q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q, window=window
         )
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.causal, ctx.skip_pad_q, ctx.bwd_impl = causal, skip_pad_q, bwd_impl
+        ctx.window = window
         return out
 
     @staticmethod
@@ -356,9 +385,9 @@ class FlashAttention(torch.autograd.Function):
         delta = delta.permute(0, 2, 1).contiguous()
         dq, dk, dv = flash_attention_bwd(
             q, k, v, mask, do, lse, delta, causal=ctx.causal,
-            skip_pad_q=ctx.skip_pad_q, bwd_impl=ctx.bwd_impl,
+            skip_pad_q=ctx.skip_pad_q, window=ctx.window, bwd_impl=ctx.bwd_impl,
         )
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -369,9 +398,11 @@ def flash_attention(
     *,
     causal: bool = False,
     skip_pad_q: bool = False,
+    window: Optional[int] = None,
     bwd_impl: str = "auto",
 ) -> torch.Tensor:
     """Differentiable flash attention on CUDA tensors: out [B, Sq, Hq, D]."""
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
-    return FlashAttention.apply(q, k, v, mask, causal, skip_pad_q, bwd_impl)
+    _check_window(window, causal)
+    return FlashAttention.apply(q, k, v, mask, causal, skip_pad_q, bwd_impl, window)

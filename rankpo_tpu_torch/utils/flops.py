@@ -38,7 +38,10 @@ def _per_layer_matmul_flops(config) -> float:
 def encoder_fwd_flops(config, seq_len: int, *, causal: bool = True) -> float:
     """Forward FLOPs of ONE sequence of ``seq_len`` (padded) tokens: the
     layers' products plus attention's score and value products
-    (``4 * q_dim * s_kv`` per token; causal halves the mean context)."""
+    (``4 * q_dim * s_kv`` per token; causal halves the mean context). A
+    sliding window is not counted: like the JAX package's formula, this
+    counts the whole causal triangle, so a windowed model's MFU counts
+    attention work its kernels skip past the window."""
     h = config.hidden_size
     head_dim = getattr(config, "head_dim", None) or (h // config.num_attention_heads)
     q_dim = config.num_attention_heads * head_dim

@@ -124,8 +124,13 @@ def test_dispatch_on_cpu():
     assert torch.equal(auto, plain)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         multi_head_attention(q, k, v, mask=mask, causal=True, impl="flash")
-    with pytest.raises(NotImplementedError):
-        multi_head_attention(q, k, v, mask=mask, causal=True, window=8)
+    # a window runs on the CPU through the plain version, and bites on the
+    # 32-key row
+    windowed = multi_head_attention(q, k, v, mask=mask, causal=True, window=8)
+    assert torch.equal(windowed, multi_head_attention(q, k, v, mask=mask, causal=True,
+                                                      impl="plain", window=8))
+    assert torch.equal(windowed, attention_reference(q, k, v, mask, True, window=8))
+    assert (windowed - auto).abs().max() > 1e-3
     with pytest.raises(ValueError, match="impl"):
         multi_head_attention(q, k, v, mask=mask, impl="xla")
 

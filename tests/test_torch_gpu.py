@@ -52,33 +52,45 @@ BWD_TOL_OF_MAX = 2.0**-7
 # counted twice moves a whole block of entries, far past 1e-2
 BWD_REL_L2 = 1e-2
 
-# (B, Sq, Sk, Hq, Hkv, D), causal, skip_pad_q, every key length full
+# (B, Sq, Sk, Hq, Hkv, D), causal, skip_pad_q, every key length full, window
 SHAPES = [
-    ((8, 512, 512, 32, 8, 64), True, True, False),
-    ((16, 40, 40, 32, 8, 64), True, True, False),
-    ((4, 64, 128, 32, 8, 64), True, False, False),
-    ((4, 128, 64, 32, 8, 64), True, False, False),
-    ((4, 256, 256, 16, 8, 128), True, True, False),
-    ((4, 100, 100, 4, 4, 64), False, False, False),
-    ((4, 100, 100, 64, 8, 64), True, True, False),  # 8 query heads per kv head
-    ((4, 1, 128, 32, 8, 64), True, False, False),  # one query row
-    ((4, 65, 200, 32, 8, 64), True, True, False),  # ragged Sq < Sk
-    ((4, 256, 256, 32, 8, 128), True, True, False),  # D 128, 4 per kv head
-    ((8, 512, 512, 32, 8, 64), True, True, True),
-    ((4, 128, 128, 32, 32, 64), True, True, False),  # one query head per kv head
-    ((4, 128, 128, 32, 32, 64), True, True, True),
-    ((4, 100, 100, 64, 8, 64), True, True, True),
-    ((4, 65, 200, 32, 8, 64), True, True, True),
-    ((4, 256, 256, 32, 8, 128), True, True, True),
-    ((4, 128, 128, 16, 16, 128), True, True, False),  # D 128, one per kv head
-    ((4, 192, 192, 64, 8, 128), True, True, False),  # D 128, 8 per kv head
+    ((8, 512, 512, 32, 8, 64), True, True, False, None),
+    ((16, 40, 40, 32, 8, 64), True, True, False, None),
+    ((4, 64, 128, 32, 8, 64), True, False, False, None),
+    ((4, 128, 64, 32, 8, 64), True, False, False, None),
+    ((4, 256, 256, 16, 8, 128), True, True, False, None),
+    ((4, 100, 100, 4, 4, 64), False, False, False, None),
+    ((4, 100, 100, 64, 8, 64), True, True, False, None),  # 8 query heads per kv head
+    ((4, 1, 128, 32, 8, 64), True, False, False, None),  # one query row
+    ((4, 65, 200, 32, 8, 64), True, True, False, None),  # ragged Sq < Sk
+    ((4, 256, 256, 32, 8, 128), True, True, False, None),  # D 128, 4 per kv head
+    ((8, 512, 512, 32, 8, 64), True, True, True, None),
+    ((4, 128, 128, 32, 32, 64), True, True, False, None),  # one query head per kv head
+    ((4, 128, 128, 32, 32, 64), True, True, True, None),
+    ((4, 100, 100, 64, 8, 64), True, True, True, None),
+    ((4, 65, 200, 32, 8, 64), True, True, True, None),
+    ((4, 256, 256, 32, 8, 128), True, True, True, None),
+    ((4, 128, 128, 16, 16, 128), True, True, False, None),  # D 128, one per kv head
+    ((4, 192, 192, 64, 8, 128), True, True, False, None),  # D 128, 8 per kv head
     # the BGE encoders: non-causal, skip_pad_q, one query head per kv head
-    ((8, 512, 512, 16, 16, 64), False, True, False),
-    ((8, 512, 512, 16, 16, 64), False, True, True),
-    ((4, 100, 100, 16, 16, 64), False, True, False),  # ragged S
+    ((8, 512, 512, 16, 16, 64), False, True, False, None),
+    ((8, 512, 512, 16, 16, 64), False, True, True, None),
+    ((4, 100, 100, 16, 16, 64), False, True, False, None),  # ragged S
     # Qwen2-1.5B: causal, D 128, 6 query heads per kv head
-    ((8, 512, 512, 12, 2, 128), True, True, False),
-    ((8, 512, 512, 12, 2, 128), True, True, True),
+    ((8, 512, 512, 12, 2, 128), True, True, False, None),
+    ((8, 512, 512, 12, 2, 128), True, True, True, None),
+    # sliding windows (causal): off the tile, a multiple of it, Mistral's
+    # heads at D 128, rows with no visible key (no skip_pad_q, long pad
+    # tails), Sq < Sk and Sq > Sk, a window of three keys (of one:
+    # test_kernel_window_of_one_key)
+    ((4, 512, 512, 32, 8, 64), True, True, False, 100),
+    ((4, 512, 512, 32, 8, 64), True, True, True, 128),
+    ((2, 1024, 1024, 32, 8, 128), True, True, False, 256),
+    ((2, 1024, 1024, 32, 8, 128), True, True, True, 300),
+    ((4, 256, 256, 32, 8, 64), True, False, False, 40),
+    ((4, 65, 200, 32, 8, 64), True, True, False, 50),
+    ((4, 200, 100, 16, 8, 64), True, False, False, 30),
+    ((4, 128, 128, 32, 32, 64), True, True, False, 3),
 ]
 
 
@@ -104,17 +116,20 @@ def _inputs(b, sq, sk, hq, hkv, d, seed=0, lens=None, full=False):
     return q, k, v, mask, lens
 
 
-@pytest.mark.parametrize("shape,causal,skip,full", SHAPES)
-def test_kernel_matches_plain(cuda, shape, causal, skip, full):
+@pytest.mark.parametrize("shape,causal,skip,full,window", SHAPES)
+def test_kernel_matches_plain(cuda, shape, causal, skip, full, window):
     b, sq, sk = shape[:3]
     q, k, v, mask, lens = (t.to(cuda) for t in _inputs(*shape, full=full))
     before = port_flash.launches["flash_fwd"]
+    before_w = port_flash.window_launches["flash_fwd"]
     with torch.inference_mode():
-        out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=skip)
+        out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=skip,
+                                       window=window)
         ref, rlse = flash_attention_fwd_reference(
-            q.float(), k.float(), v.float(), mask, causal=causal)
+            q.float(), k.float(), v.float(), mask, causal=causal, window=window)
     torch.cuda.synchronize()
     assert port_flash.launches["flash_fwd"] == before + 1
+    assert port_flash.window_launches["flash_fwd"] == before_w + (window is not None)
     pos = torch.arange(sq, device=cuda)[None] + (sk - sq)
     rows = pos < lens[:, None] if skip else torch.ones_like(pos, dtype=torch.bool).expand(b, sq)
     err = (out.float() - ref).abs().amax(dim=(2, 3))[rows]
@@ -156,6 +171,22 @@ def test_kernel_reads_head_major_k(cuda):
     assert (out.float() - ref).abs().max().item() <= OUT_ATOL
     has_key = rlse > -1e29
     assert (lse - rlse).abs()[has_key].max().item() <= LSE_ATOL
+
+
+def test_kernel_window_of_one_key(cuda):
+    """Window 1: every row sees its own key only, so out is that key's V row
+    (rounded to bf16) and lse its scaled logit. (The backward is not
+    compared here: with P = 1, dS = P (dP - delta) is 0 up to rounding.)"""
+    q, k, v, mask, lens = (t.to(cuda) for t in _inputs(4, 128, 128, 32, 32, 64, seed=5))
+    with torch.inference_mode():
+        out, lse = flash_attention_fwd(q, k, v, mask, causal=True, window=1)
+        ref, rlse = flash_attention_fwd_reference(q.float(), k.float(), v.float(), mask,
+                                                  causal=True, window=1)
+    torch.cuda.synchronize()
+    has_key = (torch.arange(128, device=cuda)[None] < lens[:, None])
+    assert torch.equal(out[has_key], v[has_key])
+    assert torch.all(out[~has_key] == 0)
+    assert (lse - rlse).abs().max().item() <= LSE_ATOL
 
 
 @pytest.mark.parametrize("full", [False, True])
@@ -262,12 +293,17 @@ def test_flat_storage_on_card_matches_cpu(cuda, dtype, approx):
         .reconstruct([4997, 4998, 5061]))
 
 
-def test_encoder_kernel_against_plain(cuda):
-    """A tiny random llama in bf16: embeddings through the kernel and through
-    the plain attention agree to cosine >= 0.999 per row."""
+@pytest.mark.parametrize("window", [None, 40])
+def test_encoder_kernel_against_plain(cuda, window):
+    """A tiny random llama in bf16 (and a Mistral with a window of 40 keys):
+    embeddings through the kernel and through the plain attention agree to
+    cosine >= 0.999 per row; the windowed kernel launched once per layer."""
     # head_dim 64: the kernel takes 64 or 128
     cfg = dataclasses.replace(tiny_llama_config(vocab_size=512), hidden_size=256,
                               intermediate_size=512, head_dim=64)
+    if window is not None:
+        cfg = dataclasses.replace(cfg, model_type="mistral", sliding_window=window)
+    before = port_flash.window_launches["flash_fwd"]
     state = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
     model = llama.LlamaEncoder.from_state_dict(cfg, state, device=cuda,
                                                dtype=torch.bfloat16)
@@ -279,31 +315,39 @@ def test_encoder_kernel_against_plain(cuda):
         a = embed(model, batch, attn_impl="auto")
         p = embed(model, batch, attn_impl="plain")
     assert torch.all(torch.nn.functional.cosine_similarity(a, p) >= 0.999)
+    assert port_flash.window_launches["flash_fwd"] - before == (
+        0 if window is None else cfg.num_hidden_layers)
 
 
-def _bwd_inputs(shape, causal, skip, cuda, seed=0, full=False):
+def _bwd_inputs(shape, causal, skip, cuda, seed=0, full=False, window=None):
     q, k, v, mask, lens = (t.to(cuda) for t in _inputs(*shape, seed=seed, full=full))
     g = torch.Generator().manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=g).bfloat16().to(cuda)
-    out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=skip)
+    out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=skip,
+                                   window=window)
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     return q, k, v, mask, do, lse, delta
 
 
 @pytest.mark.parametrize("impl", ["fused", "split"])
-@pytest.mark.parametrize("shape,causal,skip,full", SHAPES)
-def test_bwd_kernels_match_plain(cuda, shape, causal, skip, full, impl):
-    q, k, v, mask, do, lse, delta = _bwd_inputs(shape, causal, skip, cuda, full=full)
+@pytest.mark.parametrize("shape,causal,skip,full,window", SHAPES)
+def test_bwd_kernels_match_plain(cuda, shape, causal, skip, full, window, impl):
+    q, k, v, mask, do, lse, delta = _bwd_inputs(shape, causal, skip, cuda, full=full,
+                                                window=window)
     names = ["flash_bwd_fused"] if impl == "fused" else ["flash_dq", "flash_dkv"]
     before = dict(port_flash.launches)
+    before_w = dict(port_flash.window_launches)
     grads = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
-                                skip_pad_q=skip, bwd_impl=impl)
-    ref = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal)
+                                skip_pad_q=skip, window=window, bwd_impl=impl)
+    ref = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal,
+                                        window=window)
     torch.cuda.synchronize()
     for name in port_flash.launches:
         assert port_flash.launches[name] == before[name] + (name in names)
+        assert port_flash.window_launches[name] == before_w[name] + (
+            name in names and window is not None)
     again = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
-                                skip_pad_q=skip, bwd_impl=impl)
+                                skip_pad_q=skip, window=window, bwd_impl=impl)
     for a, b, name in zip(grads, again, ("dq", "dk", "dv")):
         assert torch.equal(a, b), f"{name} differs between two launches"
     for a, r, name in zip(grads, ref, ("dq", "dk", "dv")):
@@ -354,30 +398,33 @@ def test_auto_bwd_under_deterministic_algorithms_runs_split(cuda):
 
 def test_fused_and_split_bwd_repeat_bit_for_bit(cuda):
     """The split kernels hold dq in registers; the fused kernel adds each key
-    tile's dq in key-tile order. Both give identical dq, dk, dv on every
-    launch, with random and with full lengths."""
-    for full in (False, True):
+    tile's dq in key-tile order (with a window, from the first key tile that
+    reaches the query tile). Both give identical dq, dk, dv on every launch,
+    with random and with full lengths, with and without a window."""
+    for full, window in ((False, None), (True, None), (False, 100), (True, 128)):
         q, k, v, mask, do, lse, delta = _bwd_inputs(SHAPES[0][0], True, True, cuda, seed=4,
-                                                    full=full)
+                                                    full=full, window=window)
         args = (q, k, v, mask, do, lse, delta)
         for impl in ("split", "fused"):
-            runs = [flash_attention_bwd(*args, causal=True, skip_pad_q=True, bwd_impl=impl)
+            runs = [flash_attention_bwd(*args, causal=True, skip_pad_q=True, window=window,
+                                        bwd_impl=impl)
                     for _ in range(3)]
             for grads in runs[1:]:
                 for a, b in zip(runs[0], grads):
-                    assert torch.equal(a, b), (impl, full)
+                    assert torch.equal(a, b), (impl, full, window)
 
 
-def test_autograd_step_through_function(cuda):
+@pytest.mark.parametrize("window", [None, 70])
+def test_autograd_step_through_function(cuda, window):
     """One backward through the FlashAttention Function against autograd
-    through attention_reference (both bf16): gradients agree to 2^-6 of
-    their largest entry (bf16 roundings sit at other places in the two) and
-    to cosine >= 0.999."""
+    through attention_reference (both bf16, with and without a window):
+    gradients agree to 2^-6 of their largest entry (bf16 roundings sit at
+    other places in the two) and to cosine >= 0.999."""
     q, k, v, mask, lens = (t.to(cuda) for t in _inputs(4, 192, 192, 32, 8, 64, seed=7))
     w = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)).to(cuda)
     grads = []
-    for fn in (lambda *a: flash_attention(*a, mask, causal=True),
-               lambda *a: attention_reference(*a, mask, True)):
+    for fn in (lambda *a: flash_attention(*a, mask, causal=True, window=window),
+               lambda *a: attention_reference(*a, mask, True, window=window)):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         (fn(*leaves).float() * w).sum().backward()
         grads.append([x.grad.float() for x in leaves])

@@ -158,9 +158,17 @@ def test_init_params_shapes_and_unported_bodies():
     assert list(qmodel.state_dict()) == llama.state_names(qwen)
     assert torch.all(qstate["layers.0.self_attn.q_proj.bias"] == 0.0)
     assert "layers.0.self_attn.o_proj.bias" not in qstate
-    # Mistral and Gemma still raise, naming the queue item that ports them
-    for model_type in ("mistral", "gemma"):
-        with pytest.raises(NotImplementedError, match="6.3"):
-            llama.LlamaEncoder(dataclasses.replace(qwen, model_type=model_type))
-    with pytest.raises(NotImplementedError, match="6.3"):
-        llama.LlamaEncoder(dataclasses.replace(qwen, sliding_window=64))
+    # Gemma still raises, naming the queue item that ports it; Mistral builds
+    with pytest.raises(NotImplementedError, match="6.3b"):
+        llama.LlamaEncoder(dataclasses.replace(qwen, model_type="gemma"))
+    mistral = dataclasses.replace(pcfg, model_type="mistral", sliding_window=4)
+    assert list(llama.LlamaEncoder(mistral).state_dict()) == llama.state_names(pcfg)
+    # a sliding window runs, as the plain windowed attention, and bites
+    windowed = llama.LlamaEncoder.from_state_dict(
+        dataclasses.replace(pcfg, sliding_window=4), state, device="cpu")
+    ids = torch.arange(3, 15)[None]
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        got = windowed(ids, mask)
+        assert torch.equal(got, windowed(ids, mask, attn_impl="plain"))
+        assert (got - model(ids, mask)).abs().max() > 1e-4
