@@ -5,10 +5,11 @@
 Drives the port's two main paths once through their normal entry points at
 the full width and depth of meta-llama/Llama-3.2-1B, and the other bodies
 at the published widths and depths of BAAI/bge-m3 (XLM-Roberta),
-BAAI/bge-large-en-v1.5 (BERT), Qwen/Qwen2-1.5B and
+BAAI/bge-large-en-v1.5 (BERT), Qwen/Qwen2-1.5B,
 intfloat/e5-mistral-7b-instruct (sliding-window attention; trained at
-reduced depth), with random weights made from a seed, and checks every
-hand-written kernel against its plain PyTorch version. Phases:
+reduced depth) and google/gemma-2b (head_dim 256), with random weights made
+from a seed, and checks every hand-written kernel against its plain PyTorch
+version. Phases:
 
 0. environment: versions, the card's name and power limit; a CUDA card of
    compute capability 9.0 is required;
@@ -28,7 +29,10 @@ hand-written kernel against its plain PyTorch version. Phases:
    window, checked and timed against its band's bound and SDPA with the
    band as a boolean mask; a window of 100 keys; long pad tails without
    skip_pad_q, so rows see no key), the plain versions run one (batch, kv
-   head) at a time where the whole call would not fit;
+   head) at a time where the whole call would not fit; and at head_dim 256
+   (``D256_SHAPES``: gemma-2b's 8 query heads over one kv head, timed with
+   random and full lengths, gemma-7b's 16 / 16 and B 2, S 4096, both
+   timed, a non-causal shape, a ragged Sq < Sk, a window);
 3. exact search on data with exact ties;
 4. serving path, seven times: a bf16 checkpoint written with the port's
    save_pretrained, a 4096-passage corpus, the HTTP server started by the
@@ -126,6 +130,17 @@ hand-written kernel against its plain PyTorch version. Phases:
    stage-1 micro-batch through the kernels and through plain;
 7w. ``cli.evaluate`` flat on phase 5w's stage-2 output: metrics bit-equal
    to the host recompute, hits equal to numpy_search;
+4g. google/gemma-2b ((1 + w) norms drawn N(0, 0.1), GeGLU, scaled
+   embeddings, 8 query heads over one kv head of 256) at full width and
+   depth: ``cli.serve`` flat over the 4096 passages, held to the numpy
+   oracle and the kernels' encoder to the plain attention as phase 4 holds
+   them, every encode layer's K1 launch at head_dim 256;
+5g. gemma-2b at full width and depth: stage 1 (K1, K2) then stage 2 under
+   deterministic algorithms (K1, K3a, K3b), 4 steps each at phase 5's
+   shapes, launches at head_dim 256 on every layer; one stage-1
+   micro-batch through the kernels, plain and in fp32;
+7g. ``cli.evaluate`` flat on phase 5g's stage-2 output: metrics bit-equal
+   to the host recompute, hits equal to numpy_search;
 9. numbers, and each phase's wall seconds.
 
 The hash tokenizer takes each checkpoint's pad id (``hash_special_ids``:
@@ -197,7 +212,20 @@ MODELS = {
         max_position_embeddings=32768, rope_theta=1e4, rms_norm_eps=1e-5,
         sliding_window=4096, pad_token_id=2, tie_word_embeddings=False,
         pooling="last_token", architectures=("MistralModel",)),
+    # google/gemma-2b, GemmaForCausalLM: 8 query heads over one kv head of
+    # 256, (1 + w) RMSNorm, the GeGLU gate (tanh form), embeddings scaled by
+    # sqrt(hidden), pad 0, tied embeddings; norm weights drawn N(0, 0.1)
+    # (make_model_checkpoint) so that (1 + w) bites
+    "gemma-2b": dict(
+        model_type="gemma", vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+        num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+        max_position_embeddings=8192, rope_theta=1e4, rms_norm_eps=1e-6,
+        hidden_act="gelu_pytorch_tanh", pad_token_id=0, tie_word_embeddings=True,
+        pooling="last_token", architectures=("GemmaForCausalLM",)),
 }
+GEMMA = "gemma-2b"
+GEMMA_STEPS = 4  # phase 5g: optimizer steps of each stage
+GEMMA_NORM_STD = 0.1  # the norm offsets' draw
 MISTRAL = "e5-mistral-7b-instruct"
 MISTRAL_PASSAGES = 1024  # phase 4w: the serving corpus cut from 4096 for the time limit
 MISTRAL_LONG_WORDS = (8191, 6000)  # phase 4w: passages past the window (tokens: + CLS)
@@ -251,6 +279,18 @@ REGIME_SHAPES = [((8, 512, 512, 16, 16, 64), False), ((8, 512, 512, 12, 2, 128),
 WINDOW_SHAPES = [((2, 8192, 8192, 32, 8, 128), 4096, (4097, 8192), True),
                  ((8, 512, 512, 32, 8, 64), 100, None, True),
                  ((4, 1024, 1024, 32, 8, 128), 128, (64, 384), False)]
+# head_dim 256 (Gemma; random lengths): (shape, causal, window, skip_pad_q):
+# gemma-2b's 8 query heads over one kv head
+# (also timed, with random and full lengths), gemma-7b's 16 / 16 (timed),
+# many key tiles (timed), non-causal, ragged Sq < Sk without skip_pad_q,
+# and a window (the D 256 builds take it too)
+D256_SHAPES = [((8, 512, 512, 8, 1, 256), True, None, True),
+               ((8, 512, 512, 16, 16, 256), True, None, True),
+               ((2, 4096, 4096, 8, 1, 256), True, None, True),
+               ((8, 512, 512, 8, 1, 256), False, None, True),
+               ((8, 200, 512, 8, 1, 256), True, None, False),
+               ((4, 1024, 1024, 8, 1, 256), True, 300, True)]
+D256_TIMED = 3  # the first shapes of D256_SHAPES are timed
 # the plain versions run one (batch, kv head) at a time where one call's
 # fp32 logits would pass this
 PLAIN_CHUNK_BYTES = 2**31
@@ -441,11 +481,12 @@ def _first_key_tile(q0, shift, causal, window) -> int:
 def _fwd_design_bytes(lens, sq, sk, hq, hkv, d, causal: bool = True, window=None,
                       skip: bool = True) -> int:
     """The bytes K1's design moves: per block of (batch, kv head, 2 query
-    heads, or 1 when the group size is odd, 64-row query tile) that runs key
-    tiles, its Q tiles once and each K/V tile inside its bounds (the valid
-    length, the diagonal, the window's band) once for all its heads, its mask
-    row scan and the key bits of each tile; out and lse written in full."""
-    heads = 2 if (hq // hkv) % 2 == 0 else 1
+    heads, or 1 when the group size is odd or D is 256, 64-row query tile)
+    that runs key tiles, its Q tiles once and each K/V tile inside its
+    bounds (the valid length, the diagonal, the window's band) once for all
+    its heads, its mask row scan and the key bits of each tile; out and lse
+    written in full."""
+    heads = 2 if d != 256 and (hq // hkv) % 2 == 0 else 1
     total = 0
     for n in lens:
         for q0 in range(0, sq, 64):
@@ -468,17 +509,18 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str, causal: bool = True,
     """The bytes the backward kernels' designs move (skip_pad_q),
     outside the wrapper's zero-fills and casts:
 
-    - K2 and K3b: per block of (batch, kv head, 64-key tile), its mask row
-      scan, K and V once, and for each (query head of the group, query
-      tile) it runs, the Q and dO tiles and their lse/delta rows, plus (K2)
-      the fp32 dQ tile read and written once; dK/dV written once as bf16
-      per kv head;
+    - K2 and K3b: per block of (batch, kv head, 64-key tile; at D 256 two,
+      one per column half), its mask row scan, K and V once, and for each
+      (query head of the group, query tile) it runs, the Q and dO tiles and
+      their lse/delta rows, plus (K2) its columns of the fp32 dQ tile read
+      and written once; dK/dV written once as bf16 per kv head;
     - K3a: per block of (batch, query head, 64-row query tile), its mask
       row scan and lse/delta rows; if it runs key tiles, its Q and dO tiles
       once and each key tile's K, V and mask entries; dQ written as bf16."""
     shift = sk - sq
     nq, nk = -(-sq // 64), -(-sk // 64)
     fused = kind == "flash_bwd_fused"
+    split = 2 if d == 256 else 1  # kv blocks per key tile
     total = 0
     for n in lens:
         n = int(n)
@@ -501,7 +543,7 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str, causal: bool = True,
         for kt in range(nk):
             key0 = kt * 64
             keys = min(64, sk - key0)
-            total += hkv * (sk * 4 + 2 * keys * d * 2)  # hkv blocks per key tile
+            total += split * hkv * (sk * 4 + 2 * keys * d * 2)  # blocks per key tile
             q_begin = max(0, key0 - shift) // 64 if causal else 0
             q_end = q_skip
             if causal and window:  # the last row whose band reaches these keys
@@ -512,7 +554,8 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str, causal: bool = True,
             step = 0
             for qt in range(q_begin, q_end):
                 rows = min(64, sq - qt * 64)
-                step += 2 * rows * d * 2 + 2 * rows * 4 + (2 * rows * d * 4 if fused else 0)
+                step += (split * (2 * rows * d * 2 + 2 * rows * 4)
+                         + (2 * rows * d * 4 if fused else 0))
             total += hkv * 2 * keys * d * 2 + hq * step
     return int(total)
 
@@ -652,12 +695,13 @@ def phase_kernels(seed: int, tmp: str) -> dict:
     """Every kernel against its plain version at the five encoder shapes,
     four more for K1 (one and eight query heads per kv head, a ragged Sq
     below Sk, every key length 1; the backward at all but the last) and the
-    two regimes of the BGE and Qwen2 bodies (REGIME_SHAPES) and the three
-    sliding windows (WINDOW_SHAPES, Mistral's among them), two launches of
-    each on the same inputs bit for bit, then times (``time_shape``) at B 8,
-    S 512 (random lengths and all full), at the two regimes (random
-    lengths), at Mistral's windowed shape and the backward's at one stage-1
-    micro-batch's shapes."""
+    two regimes of the BGE and Qwen2 bodies (REGIME_SHAPES), the three
+    sliding windows (WINDOW_SHAPES, Mistral's among them) and the six head_dim
+    256 shapes (D256_SHAPES), two launches of each on the same inputs bit
+    for bit, then times (``time_shape``) at B 8, S 512 (random lengths and
+    all full), at the two regimes (random lengths), at Mistral's windowed
+    shape, at the backward's one stage-1 micro-batch's shapes and at the
+    first three D 256 shapes (gemma-2b's with random and full lengths)."""
     from rankpo_tpu_torch.ops import flash_attention as flash
     from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
@@ -669,6 +713,7 @@ def phase_kernels(seed: int, tmp: str) -> dict:
     k1_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     regime_gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     window_gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    d256_gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     # (shape, every length, generator, causal, window, lengths range, skip_pad_q)
     shapes = ([(shape, None, gen, True, None, None, True) for shape in ENCODER_SHAPES]
               + [(shape, length, k1_gen, True, None, None, True)
@@ -676,7 +721,9 @@ def phase_kernels(seed: int, tmp: str) -> dict:
               + [(shape, None, regime_gen, causal, None, None, True)
                  for shape, causal in REGIME_SHAPES]
               + [(shape, None, window_gen, True, window, lens_range, skip)
-                 for shape, window, lens_range, skip in WINDOW_SHAPES])
+                 for shape, window, lens_range, skip in WINDOW_SHAPES]
+              + [(shape, None, d256_gen, causal, window, None, skip)
+                 for shape, causal, window, skip in D256_SHAPES])
     err = {name: 0.0 for name in KERNELS}
     worst_lse = 0.0
     flash.reset_launches()
@@ -758,11 +805,12 @@ def phase_kernels(seed: int, tmp: str) -> dict:
             + "; median non-zero |plain| dq {:.2e} dk {:.2e} dv {:.2e}".format(*typical))
         del q, k, v, do, out, lse, ref, rlse, plain, got, again
         torch.cuda.empty_cache()
-    windowed = dict(flash.window_launches)
-    log(f"kernels: windowed launches over the {len(WINDOW_SHAPES)} window shapes (checks and "
-        f"repeats) {windowed}")
-    if not all(windowed.values()):
-        raise AssertionError(f"a kernel ran no windowed launch: {windowed}")
+    windowed, d256 = dict(flash.window_launches), dict(flash.d256_launches)
+    log(f"kernels: windowed launches over the {len(WINDOW_SHAPES)} window shapes and the "
+        f"D 256 one (checks and repeats) {windowed}; launches at head_dim 256 over the "
+        f"{len(D256_SHAPES)} D 256 shapes {d256}")
+    if not all(windowed.values()) or not all(d256.values()):
+        raise AssertionError(f"a kernel ran no windowed or no D 256 launch: {windowed}, {d256}")
 
     # ---- times at the encoder's training shape, then at the two regimes ----
     res = {name: {} for name in KERNELS}
@@ -779,6 +827,16 @@ def phase_kernels(seed: int, tmp: str) -> dict:
     mistral = time_shape(shape, True, window_gen, None, f"in {list(lens_range)}",
                          window=window, lens_range=lens_range, skip=skip, n=5)
     torch.cuda.empty_cache()
+    # head_dim 256: gemma-2b's shape with random and full lengths, then the
+    # other timed shapes with random lengths
+    gemma = {name: {} for name in KERNELS}
+    timed = [(D256_SHAPES[0], "random"), (D256_SHAPES[0], "full")] + [
+        (shape, "random") for shape in D256_SHAPES[1:D256_TIMED]]
+    for (shape, causal, _, _), label in timed:
+        length = shape[2] if label == "full" else None
+        for name, row in time_shape(shape, causal, d256_gen, length, label).items():
+            gemma[name][(shape, label)] = row
+        torch.cuda.empty_cache()
     stage1 = time_stage1_bwd(stage1_bwd_inputs(seed, tmp))
     torch.cuda.empty_cache()
     log(f"kernels: max|err| K1 {err['flash_fwd']:.3e} (lse {worst_lse:.3e}) over the "
@@ -786,7 +844,7 @@ def phase_kernels(seed: int, tmp: str) -> dict:
         f"K3b {err['flash_dkv']:.3e} over the {len(shapes) - 1} with random lengths")
     return {name: dict(res[name]["random"], max_abs_err=err[name], full=res[name]["full"],
                        stage1=stage1.get(name), regimes=regimes[name],
-                       mistral=mistral[name]) for name in KERNELS}
+                       mistral=mistral[name], gemma=gemma[name]) for name in KERNELS}
 
 
 def time_shape(shape, causal: bool, gen, length, label: str, window=None, lens_range=None,
@@ -1179,6 +1237,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
                     **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
                        for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
         windowed = flash.window_launches["flash_fwd"]
+        d256 = flash.d256_launches["flash_fwd"]
         # ---- end of the serving path ----
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1202,12 +1261,15 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
                 "encode batches)")
         if config.sliding_window is not None and windowed < layers * n_batches:
             raise AssertionError(f"K1 ran {windowed} windowed launches on the {label} path")
+        if config.head_dim == 256 and d256 < layers * n_batches:
+            raise AssertionError(f"K1 ran {d256} launches at head_dim 256 on the {label} path")
         counter = ivf_kernel and IVF_KERNELS[ivf_kernel][2]
         if counter is not None and launches[counter] <= 0:
             raise AssertionError(f"{ivf_kernel} was not launched on the {label} path")
         log(f"kernel launches on the {label} serving path: {launches}"
             + ("" if config.sliding_window is None else
-               f"; K1 with the window of {config.sliding_window} keys: {windowed}"))
+               f"; K1 with the window of {config.sliding_window} keys: {windowed}")
+            + ("" if config.head_dim != 256 else f"; K1 at head_dim 256: {d256}"))
 
         # each batched request embedded again exactly as the service embedded
         # it: the flat tier against the exact numpy oracle over the index
@@ -1318,6 +1380,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
             "peak_mem_gib": peak_gib,
             "launches": launches,
             "window_launches": windowed,
+            "d256_launches": d256,
         })
     finally:
         t_stop = time.perf_counter()
@@ -1680,6 +1743,7 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
     wall = time.perf_counter() - t0
     launches = dict(flash.launches)
     window_launches = dict(flash.window_launches)
+    d256_launches = dict(flash.d256_launches)
     # ---- end of the stage's path ----
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     gc.collect()
@@ -1704,7 +1768,7 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
         "tokens_per_sec": _median(history, "tokens_per_sec"),
         "mfu": _median(history, "mfu"),
         "peak_mem_gib": peak_gib, "wall_s": wall, "launches": launches,
-        "window_launches": window_launches,
+        "window_launches": window_launches, "d256_launches": d256_launches,
     }, state
 
 
@@ -1746,7 +1810,9 @@ def phase_flash_vs_plain(config, state, train_file: str, seed: int, ckpt: str,
     loss is printed, not held: at temperature 0.02 one query's loss moves by
     1e-2 to 5e-2 between any two roundings of these embeddings, the plain
     bf16 path's and the unwindowed kernels' included (PERF.md;
-    ``scripts/window_rounding.py``).
+    ``scripts/window_rounding.py``). So for Gemma, whose plain bf16 path
+    alone moves the loss 7.6e-3 from fp32 at 18 random layers (read on
+    NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), past the limit.
     Instead each embedding of the micro-batch through the kernels is held to
     fp32 as the plain attention's in bf16 is (``hold_to_fp32``); the
     gradients are held as for the other llama bodies.
@@ -1787,7 +1853,7 @@ def phase_flash_vs_plain(config, state, train_file: str, seed: int, ckpt: str,
             ("fp32", "plain", torch.float32)]
     if not config.is_llama:
         runs.append(("contract", "contract", torch.bfloat16))
-    embeddings_to_fp32 = config.sliding_window is not None
+    embeddings_to_fp32 = config.sliding_window is not None or config.is_gemma
     embeddings = {}
     for label, impl, dtype in runs:
         model.compute_dtype = dtype
@@ -2210,11 +2276,70 @@ def phase_training_qwen2(tmp: str, seed: int, ckpt: str, base_state: dict) -> di
     return {"stage1": stage1}
 
 
+def phase_training_gemma(tmp: str, seed: int, ckpt: str, base_state: dict) -> dict:
+    """Phase 5g, google/gemma-2b at full width and depth (head_dim 256):
+    GEMMA_STEPS steps of stage 1 through ``run_contrastive.main`` (K1, K2)
+    then of stage 2 through ``run_rankpo.main`` on stage 1's output under
+    ``torch.use_deterministic_algorithms`` (K1, K3a, K3b), at the Llama
+    stage shapes (phase 5); finite losses, every parameter moved, the
+    outputs load, launches at head_dim 256 on every layer; one stage-1
+    micro-batch through the kernels, through plain and in fp32
+    (``phase_flash_vs_plain``)."""
+    from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
+    from rankpo_tpu_torch.models.config import EncoderConfig
+
+    config = EncoderConfig.from_pretrained(ckpt)
+    train, pairs = write_training_data(tmp, seed)
+    s1, s2 = os.path.join(tmp, "gemma_stage1"), os.path.join(tmp, "gemma_stage2")
+    common = ["--tokenizer_name", f"hash:{config.vocab_size}", "--bf16", "True",
+              "--max_steps", str(GEMMA_STEPS), "--per_device_train_batch_size", "8",
+              "--learning_rate", "1e-5", "--max_query_length", "128",
+              "--max_passage_length", "512", "--save_strategy", "no", "--seed", str(seed),
+              "--device", "cuda", "--log_level", "warning"]
+    stage1, s1_state = run_stage(
+        "gemma-2b stage 1 (contrastive, fused backward)", run_contrastive.main,
+        ["--model_name_or_path", ckpt, "--train_data", train, "--output_dir", s1,
+         "--num_negatives", "3", "--gradient_accumulation_steps", "2",
+         "--temperature", "0.02", "--gradient_checkpointing", "True", *common],
+        s1, base_state, steps=GEMMA_STEPS)
+    stage2, _ = run_stage(
+        "gemma-2b stage 2 (RankPO, deterministic: split backward)", run_rankpo.main,
+        ["--model_name_or_path", s1, "--train_data", pairs, "--output_dir", s2,
+         "--beta", "2.0", "--temperature", "0.1", "--loss_type", "sigmoid",
+         "--reference_free", "True", *common],
+        s2, s1_state, deterministic=True, steps=GEMMA_STEPS)
+    del s1_state
+    shutil.rmtree(s1)
+    layers = config.num_hidden_layers
+    # 2 fields (query, passage) x micro-steps; stage 1 (accumulation 2) also
+    # runs each forward again in the checkpointed backward
+    need = {"stage1": {"flash_fwd": 2 * layers * 2 * 2 * GEMMA_STEPS,
+                       "flash_bwd_fused": layers * 2 * 2 * GEMMA_STEPS},
+            "stage2": {"flash_fwd": 2 * layers * GEMMA_STEPS,
+                       "flash_dq": 2 * layers * GEMMA_STEPS,
+                       "flash_dkv": 2 * layers * GEMMA_STEPS}}
+    for stage, nums in (("stage1", stage1), ("stage2", stage2)):
+        for kernel, least in need[stage].items():
+            if nums["d256_launches"][kernel] < least:
+                raise AssertionError(
+                    f"gemma-2b {stage}: {kernel} ran {nums['d256_launches'][kernel]} "
+                    f"launches at head_dim 256, expected >= {least}")
+        log(f"gemma-2b {stage} kernel launches: {nums['launches']}; at head_dim 256 "
+            f"{nums['d256_launches']}")
+    model, compare = phase_flash_vs_plain(config, base_state, train, seed, ckpt,
+                                          checkpointing=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stage1": stage1, "stage2": stage2, "compare": compare, "stage2_dir": s2}
+
+
 def make_model_checkpoint(tmp: str, seed: int, name: str, layers=None,
                           host_state: bool = True):
     """Random weights of MODELS[name] from the seed (``layers`` cuts the
-    depth), written in bf16 with the port's save_pretrained. Returns (path,
-    the state on the host, or None without ``host_state``)."""
+    depth; Gemma's norm offsets drawn N(0, GEMMA_NORM_STD)), written in bf16
+    with the port's save_pretrained. Returns (path, the state on the host,
+    or None without ``host_state``)."""
     from rankpo_tpu_torch.models.config import EncoderConfig
     from rankpo_tpu_torch.models.encoder import init_params, n_params
     from rankpo_tpu_torch.models.hf_io import save_pretrained
@@ -2223,8 +2348,12 @@ def make_model_checkpoint(tmp: str, seed: int, name: str, layers=None,
     if layers is not None:
         config = dataclasses.replace(config, num_hidden_layers=layers)
     t0 = time.perf_counter()
-    state = init_params(config, torch.Generator(device="cuda").manual_seed(seed),
-                        dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = init_params(config, gen, dtype=torch.bfloat16)
+    if config.is_gemma:  # the (1 + w) offsets away from their zero init
+        for n, t in state.items():
+            if n.endswith("norm.weight"):
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * GEMMA_NORM_STD)
     ckpt = os.path.join(tmp, name if layers is None else f"{name}-{layers}-layers")
     save_pretrained(ckpt, config, state, dtype=torch.bfloat16)
     state = {n: t.cpu() for n, t in state.items()} if host_state else None
@@ -2330,6 +2459,7 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> d
         launches = {"flash_fwd": flash.launches["flash_fwd"],
                     "ivf_probe_scores": ivf_gather.launches["ivf_probe_scores"]}
         windowed = flash.window_launches["flash_fwd"]
+        d256 = flash.d256_launches["flash_fwd"]
         # ---- end of the evaluate path ----
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         stem = os.path.join(out_dir, os.path.basename(ckpt), "main")
@@ -2353,6 +2483,8 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> d
                                  f"{layers * n_batches}")
         if config.sliding_window is not None and windowed < layers * n_batches:
             raise AssertionError(f"evaluate ({tier}): K1 ran {windowed} windowed launches")
+        if config.head_dim == 256 and d256 < layers * n_batches:
+            raise AssertionError(f"evaluate ({tier}): K1 ran {d256} launches at head_dim 256")
         if tier == "ivf" and launches["ivf_probe_scores"] <= 0:
             raise AssertionError("evaluate (ivf): ivf_probe_scores was not launched")
         if [n for _, n, _ in encodes] != [N_EVAL_QUERIES, N_PASSAGES]:
@@ -2364,13 +2496,15 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> d
             f"{c_s:.3f} s, the rest checkpoint load, index, search, metrics and files); "
             f"peak {peak_gib:.2f} GiB; launches {launches}"
             + ("" if config.sliding_window is None else f" ({windowed} windowed)")
+            + ("" if config.head_dim != 256 else f" ({d256} at head_dim 256)")
             + "; metrics bit-equal to the host "
             f"recompute ({t_metrics:.3f} s): MRR@10 {host['MRR@10']:.4f}, Recall@100 "
             f"{host['Recall@100']:.4f}, AUC@100 {host['AUC@100']:.4f}, nDCG@10 "
             f"{host['nDCG@10']:.4f}")
         out[tier] = {"wall_s": wall, "queries_per_s": N_EVAL_QUERIES / wall,
                      "passages_per_s": N_PASSAGES / wall, "peak_mem_gib": peak_gib,
-                     "launches": launches, "window_launches": windowed, "idx": idx, "scores": scores,
+                     "launches": launches, "window_launches": windowed, "d256_launches": d256,
+                     "idx": idx, "scores": scores,
                      "metrics_s": t_metrics, "encode_s": {"queries": q_s, "corpus": c_s}}
         if tier == "flat":
             q_host, c_host = q_emb.cpu().numpy(), c_emb.cpu().numpy()
@@ -3245,6 +3379,20 @@ def main(argv=None) -> int:
         evaluation_mistral = timed("7w e5-mistral evaluate", phase_evaluate, args.seed, tmp,
                                    mistral["stage2_dir"], ("flat",))
         shutil.rmtree(mistral["stage2_dir"])
+        # google/gemma-2b (head_dim 256) at full width and depth: served,
+        # trained, the trained model evaluated
+        ckpt_g, state_g = timed("checkpoint", make_model_checkpoint, tmp, args.seed, GEMMA)
+        serving_models[GEMMA] = timed("4g gemma-2b serving", phase_serving, args.seed, tmp,
+                                      ckpt_g, "flat", GEMMA)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gemma = timed("5g gemma-2b training", phase_training_gemma, tmp, args.seed, ckpt_g,
+                      state_g)
+        del state_g
+        shutil.rmtree(ckpt_g)
+        evaluation_gemma = timed("7g gemma-2b evaluate", phase_evaluate, args.seed, tmp,
+                                 gemma["stage2_dir"], ("flat",))
+        shutil.rmtree(gemma["stage2_dir"])
     scale = timed("6 index scale", phase_index_scale, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3301,7 +3449,9 @@ def main(argv=None) -> int:
                "whole causal triangle, as the JAX formula does)", mistral["stage1"],
                MISTRAL_STEPS),
               (f"e5-mistral stage2 ({MISTRAL_TRAIN_LAYERS} layers, window)", mistral["stage2"],
-               MISTRAL_STEPS)]
+               MISTRAL_STEPS),
+              ("gemma-2b stage1 (head_dim 256)", gemma["stage1"], GEMMA_STEPS),
+              ("gemma-2b stage2 (head_dim 256)", gemma["stage2"], GEMMA_STEPS)]
     for stage, s, steps in stages:
         mfu = "not known for this card" if s["mfu"] is None else f"{s['mfu']:.4f}"
         log(f"numbers ({card}): {stage}: median step {s['step_time_s']:.4f} s "
@@ -3336,13 +3486,20 @@ def main(argv=None) -> int:
             f"{kern[name]['mistral']['library_ms']:.4f}, band bound "
             f"{kern[name]['mistral']['bound_ms']:.4f} {kern[name]['mistral']['bound_by']})"
             for name in KERNELS))
+    for shape, label in kern["flash_fwd"]["gemma"]:
+        rows = {name: kern[name]["gemma"][(shape, label)] for name in KERNELS}
+        log(f"numbers ({card}): kernels at head_dim 256 {shape}, {label} lengths: " + "; ".join(
+            f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} {r['bound_by']})" for name, r in rows.items()))
+    log(f"numbers ({card}): gemma-2b flash vs plain (stage-1 micro-batch) {gemma['compare']}")
     wb = serving_models[MISTRAL]["window_bites"]
     log(f"numbers ({card}): e5-mistral window bites on {wb['tokens']} tokens: 1 - cosine with "
         f"and without the window {wb['moved']}, limits {wb['limit']}; flash vs plain "
         f"(stage-1 micro-batch) {mistral['compare']}")
     for tier, n in (*evaluation.items(), *(("bge-m3 " + t, n) for t, n in
                                             evaluation_bge.items()),
-                    *(("e5-mistral " + t, n) for t, n in evaluation_mistral.items())):
+                    *(("e5-mistral " + t, n) for t, n in evaluation_mistral.items()),
+                    *(("gemma-2b " + t, n) for t, n in evaluation_gemma.items())):
         log(f"numbers ({card}): evaluate {tier}: {n['wall_s']:.2f} s wall, "
             f"{n['queries_per_s']:.1f} queries/s, {n['passages_per_s']:.1f} passages/s, "
             f"encodes {n['encode_s']}, metrics on the host {n['metrics_s']:.3f} s, peak "
@@ -3351,11 +3508,13 @@ def main(argv=None) -> int:
         log(f"numbers ({card}): {name}: {n['wall_s']:.2f} s wall, peak device memory "
             f"{n['peak_mem_gib']:.2f} GiB, launches {n['launches']}")
     trained = (train["stage1"], train["stage2"], bge["stage1"], bge["stage2"], qwen2["stage1"],
-               mistral["stage1"], mistral["stage2"], *mining.values())
+               mistral["stage1"], mistral["stage2"], gemma["stage1"], gemma["stage2"],
+               *mining.values())
     launches = {name: sum(n["launches"][name] for n in trained) for name in KERNELS}
     launches["flash_fwd"] += sum(n["launches"]["flash_fwd"] for n in (
         *serving.values(), *mutation.values(), *evaluation.values(),
-        *evaluation_bge.values(), *evaluation_mistral.values(), *serving_models.values()))
+        *evaluation_bge.values(), *evaluation_mistral.values(), *evaluation_gemma.values(),
+        *serving_models.values()))
     windowed = {name: mistral["stage1"]["window_launches"][name]
                 + mistral["stage2"]["window_launches"][name] for name in KERNELS}
     windowed["flash_fwd"] += (serving_models[MISTRAL]["window_launches"]
@@ -3365,6 +3524,15 @@ def main(argv=None) -> int:
     for name, n in windowed.items():
         if n <= 0:
             raise AssertionError(f"{name} ran no windowed launch on the e5-mistral paths")
+    d256 = {name: gemma["stage1"]["d256_launches"][name]
+            + gemma["stage2"]["d256_launches"][name] for name in KERNELS}
+    d256["flash_fwd"] += (serving_models[GEMMA]["d256_launches"]
+                          + evaluation_gemma["flat"]["d256_launches"])
+    log(f"numbers ({card}): launches at head_dim 256 on the gemma-2b paths (serving, both "
+        f"stages, evaluate): {d256}")
+    for name, n in d256.items():
+        if n <= 0:
+            raise AssertionError(f"{name} ran no launch at head_dim 256 on the gemma-2b paths")
     for name, (_, _, counter) in IVF_KERNELS.items():
         launches[name] = (sum(n["launches"][counter]
                               for n in (*serving.values(), *mutation.values()))

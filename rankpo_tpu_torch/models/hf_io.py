@@ -80,8 +80,9 @@ def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
 
 
 def _strip_prefix(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """A saved LlamaForCausalLM prefixes 'model.', an XLMRobertaForX
-    'roberta.', a BertForX 'bert.'; bare AutoModel saves have none."""
+    """A saved LlamaForCausalLM (or Qwen2's, Mistral's, Gemma's) prefixes
+    'model.', an XLMRobertaForX 'roberta.', a BertForX 'bert.'; bare
+    AutoModel saves have none."""
     for prefix in ("model.", "roberta.", "bert."):
         if any(k.startswith(prefix) for k in state):
             state = {(k[len(prefix):] if k.startswith(prefix) else k): v
@@ -129,7 +130,9 @@ def params_from_jax(params: dict, config: EncoderConfig) -> Dict[str, torch.Tens
     """A JAX pytree (stacked layers, kernels ``[L, in, out]``, as numpy
     arrays or anything ``np.asarray`` takes) -> the port's fp32 state dict
     (HF names, ``[out, in]``), for the llama body (with Qwen2's or
-    ``attention_bias``'s biases) and the Roberta/BERT body."""
+    ``attention_bias``'s biases; Mistral's and Gemma's tensors are
+    Llama's, Gemma's norm weights the (1 + w) offsets both packages store)
+    and the Roberta/BERT body."""
     check_supported(config)
 
     def t(x) -> torch.Tensor:

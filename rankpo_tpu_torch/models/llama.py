@@ -5,7 +5,9 @@ The layer math follows the JAX body step for step (``_layer_qkv`` /
 ``_layer_post``): RMSNorm with fp32 statistics and the weight applied in the
 compute dtype, HF rotate-half RoPE with the llama3 frequency scaling, GQA
 attention through :func:`rankpo_tpu_torch.ops.attention.multi_head_attention`
-(the hand-written flash kernel on a CUDA tensor), SwiGLU MLP.
+(the hand-written flash kernel on a CUDA tensor), a gated MLP whose gate
+takes the config's ``hidden_act`` (JAX ``_ACTS``: SwiGLU for ``silu``,
+GeGLU for the GELUs).
 
 Parameters use HuggingFace's names and its ``[out, in]`` Linear layout, so
 ``LlamaEncoder.state_dict()`` keys are exactly the tensor names of an HF
@@ -28,10 +30,15 @@ o bias too) and Mistral's (Llama's tensors, no biases) are ported, with
 sliding-window attention wherever the config sets ``sliding_window``
 (Mistral, and Qwen2 with ``use_sliding_window`` on every layer): every layer
 passes the window to the attention, in the checkpointed recompute too, and
-on a CUDA tensor the kernels skip the tiles outside the band. Gemma ((1+w)
-norms, GeGLU, scaled embeddings, head_dim 256) raises
-``NotImplementedError``; the Roberta family has its own body
-(``models/roberta.py``).
+on a CUDA tensor the kernels skip the tiles outside the band. Gemma runs
+on the same body (HF ``GemmaModel``, JAX ``config.is_gemma``): RMSNorm
+weights stored as offsets from 1 and applied as (1 + w) in fp32 before the
+cast, zero-initialised; the GeGLU gate (``gelu_pytorch_tanh``); and the
+embeddings scaled by sqrt(hidden) rounded to the compute dtype first. The
+scale sits outside the layers, so the checkpointed recompute and the
+training build take it as serving does. Its head_dim of 256 (2B and 7B
+alike) runs the kernels' D 256 builds on a CUDA tensor. The Roberta family
+has its own body (``models/roberta.py``).
 """
 
 from __future__ import annotations
@@ -46,22 +53,25 @@ from torch.utils.checkpoint import checkpoint
 
 from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear
 from rankpo_tpu_torch.models.config import EncoderConfig
+from rankpo_tpu_torch.models.roberta import ACTIVATIONS as GELUS
 from rankpo_tpu_torch.ops.attention import multi_head_attention
 
-MODEL_TYPES = ("llama", "qwen2", "mistral")
+MODEL_TYPES = ("llama", "qwen2", "mistral", "gemma")
+# the MLP gate's activation, JAX ``_ACTS`` (llama.py:98-104)
+ACTIVATIONS = {"silu": F.silu, **GELUS}
 
 
 def check_supported(config: EncoderConfig) -> None:
-    """Raise for configurations whose body is not ported yet (ROADMAP.md)."""
+    """Raise for configurations the llama body does not take: another
+    model_type, or an activation JAX's ``_ACTS`` has no entry for."""
     if config.model_type not in MODEL_TYPES:
         raise NotImplementedError(
-            f"model_type {config.model_type!r} is not ported to rankpo_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 6.3b: the Gemma body)"
+            f"model_type {config.model_type!r} is not a llama-family body "
+            f"(one of {MODEL_TYPES})"
         )
-    if config.hidden_act != "silu":
+    if config.hidden_act not in ACTIVATIONS:
         raise NotImplementedError(
-            f"hidden_act {config.hidden_act!r} is not ported (ROADMAP.md Queue 1 "
-            "item 6.3b: GeGLU)"
+            f"hidden_act {config.hidden_act!r} is not ported; one of {sorted(ACTIVATIONS)}"
         )
 
 
@@ -115,24 +125,30 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # Norm
 # ---------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """fp32 statistics; the weight multiplies in the input dtype (HF
-    LlamaRMSNorm, ``rankpo_tpu.models.llama.rms_norm``)."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, *,
+             gemma: bool = False) -> torch.Tensor:
+    """fp32 statistics. Llama's weight multiplies in the input dtype (HF
+    LlamaRMSNorm); Gemma's, stored as an offset from 1, is applied as
+    (1 + w) in fp32 before the cast back (HF GemmaRMSNorm), as
+    ``rankpo_tpu.models.llama.rms_norm`` does."""
     xf = x.to(torch.float32)
     var = xf.square().mean(dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
+    if gemma:
+        return ((1.0 + weight.to(torch.float32)) * xf).to(x.dtype)
     return weight * xf.to(x.dtype)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, hidden: int, eps: float):
+    def __init__(self, hidden: int, eps: float, gemma: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(hidden))
         self.eps = eps
+        self.gemma = gemma
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the weight in the activations' (compute) dtype, as JAX casts it
-        return rms_norm(x, self.weight.to(x.dtype), self.eps)
+        return rms_norm(x, self.weight.to(x.dtype), self.eps, gemma=self.gemma)
 
 
 # ---------------------------------------------------------------------------
@@ -158,9 +174,10 @@ class LlamaMLP(nn.Module):
         self.gate_proj = nn.Linear(h, f, bias=False)
         self.up_proj = nn.Linear(h, f, bias=False)
         self.down_proj = nn.Linear(f, h, bias=False)
+        self.act = ACTIVATIONS[config.hidden_act]
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        gate = F.silu(linear(y, self.gate_proj))
+        gate = self.act(linear(y, self.gate_proj))
         return linear(gate * linear(y, self.up_proj), self.down_proj)
 
 
@@ -168,10 +185,11 @@ class LlamaLayer(nn.Module):
     def __init__(self, config: EncoderConfig):
         super().__init__()
         self.config = config
-        self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        gemma = config.is_gemma
+        self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, gemma)
         self.self_attn = LlamaAttention(config)
         self.post_attention_layernorm = RMSNorm(
-            config.hidden_size, config.rms_norm_eps
+            config.hidden_size, config.rms_norm_eps, gemma
         )
         self.mlp = LlamaMLP(config)
 
@@ -205,7 +223,7 @@ class LlamaEncoder(EncoderModule):
         self.layers = nn.ModuleList(
             LlamaLayer(config) for _ in range(config.num_hidden_layers)
         )
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, config.is_gemma)
 
     def forward(
         self,
@@ -222,6 +240,10 @@ class LlamaEncoder(EncoderModule):
         weight = self.embed_tokens.weight
         # gathered from the master table, then cast (JAX llama.py:264)
         x = F.embedding(input_ids, weight).to(self.compute_dtype or weight.dtype)
+        if self.config.is_gemma:
+            # sqrt(hidden), rounded to the compute dtype first (HF
+            # GemmaModel, JAX llama.py:265-268)
+            x = x * torch.tensor(self.config.hidden_size**0.5, dtype=x.dtype)
         # arange positions regardless of padding (HF default); with right
         # padding and causal attention, pad positions never reach real tokens
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
@@ -264,14 +286,17 @@ def init_params(
     device=None,
     dtype: torch.dtype = torch.float32,
 ) -> Dict[str, torch.Tensor]:
-    """Random init (normal 0.02 like HF, norms at one, biases at zero) as an
-    HF-named state dict. Each tensor is drawn in fp32 from ``generator``
-    (whose device it is made on) and then cast, so the peak extra memory is
-    one fp32 tensor."""
+    """Random init (normal 0.02 like HF, norms at one, or at zero for Gemma's
+    (1 + w) offsets, biases at zero) as an HF-named state dict. Each tensor
+    is drawn in fp32 from ``generator`` (whose device it is made on) and
+    then cast, so the peak extra memory is one fp32 tensor."""
     check_supported(config)
     device = generator.device if device is None else torch.device(device)
     with torch.device("meta"):
         shapes = {n: t.shape for n, t in LlamaEncoder(config).state_dict().items()}
+    def norm(n):
+        return n.endswith("norm.weight")
+
     return init_state(state_names(config), shapes, generator, device, dtype,
-                      ones=lambda n: n.endswith("norm.weight"),
-                      zeros=lambda n: n.endswith(".bias"))
+                      ones=lambda n: norm(n) and not config.is_gemma,
+                      zeros=lambda n: n.endswith(".bias") or (norm(n) and config.is_gemma))

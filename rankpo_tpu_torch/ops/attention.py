@@ -15,7 +15,10 @@ reference (used to compare the two on the card); ``impl="flash"`` forces the
 kernels, which raise on a CPU tensor. When a gradient is needed, the kernel
 path goes through the ``FlashAttention`` autograd Function (forward K1, the
 backward kernels K2 or K3a + K3b); the reference is differentiated by
-autograd.
+autograd. The kernels take head_dim 64, 128 and 256 (Gemma's): any other
+head_dim raises on a CUDA tensor (ROADMAP.md Queue 2), where the JAX
+dispatcher sends such shapes to its XLA path
+(``rankpo_tpu/ops/attention.py:83-89``).
 
 Attention-probs dropout (``dropout_rate`` > 0 with a ``generator``) runs
 :func:`attention_reference` on every device, as the JAX dispatcher sends it

@@ -61,6 +61,23 @@
 // At D 128 fp32 dK, dV and (fused) dQ exceed one warpgroup's registers and
 // ptxas spills K2 (PERF.md has the times).
 //
+// The kv kernel at D 256 (Gemma). fp32 dK and dV of 64 keys at D 256 are
+// 2 x 64 x 256 / 128 = 256 registers a consumer thread, which one warpgroup
+// cannot hold. So two blocks share each key tile, one per 128-column half
+// of dK, dV and (fused) dQ (KvTiles::kCols, kSplit; the grid's x is
+// batch x kv head x half): each block's registers are D 128's. S^T = K Q^T
+// and dP^T = V dO^T contract over all 256 columns, so both blocks load the
+// whole K, V, Q and dO tiles and compute P^T and dS^T, and each runs dV, dK
+// (and dQ) over its own columns: 1.5x the products of one block owning all
+// columns (1.4x fused), and twice the tile loads, for no exchange between
+// warpgroups and no setmaxnreg. Shared memory: K and V resident (64 KB), the
+// Q/dO ring at 64 KB a stage: 2 stages for K3b (193 KB); 1 for K2, beside
+// its two dS^T tiles (16 KB) and two fp32 dQ tiles of 64 x (128 + 8) (68
+// KB), 213 KB. K2's dQ order is kept per half: each (batch * q-head, query
+// tile, half) has its own counter, so each column of dQ is still summed in
+// key-tile order and K2 repeats bit for bit. Left (ROADMAP Queue 2): one
+// block of two consumer warpgroups sharing the tile loads and S^T/dP^T.
+//
 // Design of the dq kernel: K1's (flash_fwd.cu) with a third product. One
 // block per (batch, query head, 64-row query tile), 160 threads. Warp 4, the
 // producer, loads the Q and dO tiles once, then streams the K/V tiles inside
@@ -76,6 +93,9 @@
 // K1), dQ, S and dP (96 fp32 registers at D 64) spilled under the
 // two-blocks-per-SM bound of 288-thread blocks and the kernel ran 1.2-1.4x
 // slower (PERF.md, PR 7).
+// At D 256 the same code: dQ is 128 fp32 registers a thread, S and dP 32
+// each, and the Q and dO tiles (32 KB each) and a 2-stage K/V ring (128 KB)
+// take 193 KB of shared memory.
 //
 // What bounds them on this card. At the training shapes (S <= 512, D = 64)
 // a tile pair costs 5 (fused), 4 (dkv) or 3 (dq) 64 x 64 x 64 products; the
@@ -153,10 +173,15 @@ template <int D, bool kFusedDq>
 struct KvTiles {
   static constexpr int kAtoms = D / 64;  // 64-column swizzle atoms per row
   static constexpr int kTileBytes = kAtoms * kSwizzleTileBytes;  // 64 rows
+  // the dK/dV (and dQ) columns a block owns: at D 256 two blocks share a
+  // key tile, one 128-column half each (the header)
+  static constexpr int kCols = D == 256 ? 128 : D;
+  static constexpr int kSplit = D / kCols;
   // Q/dO ring: 3 stages keep K3b 6% ahead of 2; K2 needs its shared memory
-  // for the dS and dQ buffers (2 blocks per SM at D 64)
-  static constexpr int kStages = kFusedDq ? 2 : 3;
-  static constexpr int kDqLd = D + 8;  // fp32 row stride of a staged dQ tile
+  // for the dS and dQ buffers (2 blocks per SM at D 64). At D 256 a stage
+  // is 64 KB: 2 for K3b, 1 for K2 beside its two 34 KB dQ buffers
+  static constexpr int kStages = D == 256 ? (kFusedDq ? 1 : 2) : (kFusedDq ? 2 : 3);
+  static constexpr int kDqLd = kCols + 8;  // fp32 row stride of a staged dQ tile
   static constexpr int kDqBytes = kTile * kDqLd * 4;
 };
 
@@ -257,11 +282,14 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
     fence_barrier_init();
   }
   __syncthreads();
-  // fused: blocks take (batch * kv head, key tile) in the order they start,
-  // key tile slowest, so the key tiles before this one have started
+  // fused: blocks take (batch * kv head, column half, key tile) in the
+  // order they start, key tile slowest, so the key tiles before this one
+  // have started
   const int place = kFusedDq ? s_ticket : blockIdx.y * gridDim.x + blockIdx.x;
-  const int bhk = place % gridDim.x;
+  const int half = (place % gridDim.x) % T::kSplit;  // 0 but at D 256
+  const int bhk = (place % gridDim.x) / T::kSplit;
   const int kt = place / gridDim.x;
+  const int col0 = half * T::kCols;  // this block's first dK/dV/dQ column
   const int b = bhk / a.Hkv;
   const int hk = bhk % a.Hkv;
   const int groups = a.Hq / a.Hkv;
@@ -295,10 +323,11 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int n_q_tiles = (a.Sq + kTile - 1) / kTile;
 
   if (kFusedDq && warp == 5) {
-    // ---- dQ adder: each staged dQ tile into the fp32 buffer, after the key
-    // tiles first .. kt - 1 added theirs; all of a pass's L2 loads in flight
-    // at once (one pass at D 64, two at D 128) ----
-    constexpr int kLanesPerRow = D / 4;                   // float4 columns
+    // ---- dQ adder: each staged dQ tile (this block's columns) into the
+    // fp32 buffer, after the key tiles first .. kt - 1 added theirs; all of
+    // a pass's L2 loads in flight at once (one pass at D 64, two at D 128
+    // and at D 256's halves); one counter per column half ----
+    constexpr int kLanesPerRow = T::kCols / 4;            // float4 columns
     constexpr int kBatch = 32;                            // float4 per lane
     constexpr int kRowsPerPass = kBatch * 32 / kLanesPerRow;
     const int r0 = lane / kLanesPerRow;
@@ -309,8 +338,8 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
       const int qt = qt_begin + it % n_qt;
       const int q0 = qt * kTile;
       const float* src = dQs + buf * kTile * T::kDqLd;
-      float* dst = a.dq_acc + (bh * a.Sq + q0) * D;
-      int* counter = a.sync + 1 + bh * n_q_tiles + qt;
+      float* dst = a.dq_acc + (bh * a.Sq + q0) * D + col0;
+      int* counter = a.sync + 1 + (bh * n_q_tiles + qt) * T::kSplit + half;
       // the turns before this key tile's: first is the first to add
       const int turn = kt - (windowed ? first_kt(qt, a.window, q_shift) : 0);
       mbar_wait(&dq_full[buf], (it >> 1) & 1);
@@ -390,9 +419,13 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
   const bool ok_a = key_a < a.Sk && mrow[key_a] != 0;
   const bool ok_b = key_b < a.Sk && mrow[key_b] != 0;
 
-  float dk[D / 2], dv[D / 2];  // [4n + e]: columns 8n + 2t (+1) of keys a, b
+  // [4n + e]: columns col0 + 8n + 2t (+1) of keys a, b
+  constexpr int kCols = T::kCols;
+  float dk[kCols / 2], dv[kCols / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < kCols / 2; ++i) dk[i] = dv[i] = 0.f;
+  // this block's columns of a [64, D] tile: its first swizzle atom
+  const int col_off = (col0 / 64) * kSwizzleTileBytes;
 
   if (n_it > 0) mbar_wait(&kv_bar, 0);
   for (int it = 0; it < n_it; ++it) {
@@ -446,7 +479,7 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
       }
     }
 
-    float dq[D / 2];
+    float dq[kCols / 2];
     unsigned char* dSt = dSs + (it & 1) * kSwizzleTileBytes;
     if constexpr (kFusedDq) {
       // stage dS^T (keys as rows, 64 queries per 128-byte swizzled row) for
@@ -464,15 +497,16 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
       named_barrier_sync(1, 128);
     }
 
-    // dV += P^T dO, dK += dS^T Q and (fused) dQ = dS K, one commit group
+    // dV += P^T dO, dK += dS^T Q and (fused) dQ = dS K over this block's
+    // columns, one commit group
     fence_regs(dv);
     fence_regs(dk);
     fence_regs(p);
     fence_regs(ds);
     wgmma_fence();
-    issue_rs<D>(dv, p, dOt);
-    issue_rs<D>(dk, ds, Qt);
-    if constexpr (kFusedDq) issue_tt<D>(dq, dSt, Ks);
+    issue_rs<kCols>(dv, p, dOt + col_off);
+    issue_rs<kCols>(dk, ds, Qt + col_off);
+    if constexpr (kFusedDq) issue_tt<kCols>(dq, dSt, Ks + col_off);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv);
@@ -489,7 +523,7 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
       float* dqs = dQs + buf * kTile * T::kDqLd + (w * 16 + g) * T::kDqLd + 2 * t;
       mbar_wait(&dq_empty[buf], ((it >> 1) & 1) ^ 1);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < kCols / 8; ++n) {
         *reinterpret_cast<float2*>(dqs + n * 8) = make_float2(dq[4 * n], dq[4 * n + 1]);
         *reinterpret_cast<float2*>(dqs + 8 * T::kDqLd + n * 8) =
             make_float2(dq[4 * n + 2], dq[4 * n + 3]);
@@ -498,20 +532,20 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
   }
 
-  // dK/dV of the whole group, bf16 [B, Sk, Hkv, D] (zeros for a key tile
-  // that ran no queries)
+  // dK/dV of the whole group, bf16 [B, Sk, Hkv, D], this block's columns
+  // (zeros for a key tile that ran no queries)
   if (key_a < a.Sk) {
-    const long long o = (((long long)b * a.Sk + key_a) * a.Hkv + hk) * D + 2 * t;
+    const long long o = (((long long)b * a.Sk + key_a) * a.Hkv + hk) * D + col0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < kCols / 8; ++n) {
       *reinterpret_cast<uint32_t*>(a.dk + o + n * 8) = pack_bf16(dk[4 * n], dk[4 * n + 1]);
       *reinterpret_cast<uint32_t*>(a.dv + o + n * 8) = pack_bf16(dv[4 * n], dv[4 * n + 1]);
     }
   }
   if (key_b < a.Sk) {
-    const long long o = (((long long)b * a.Sk + key_b) * a.Hkv + hk) * D + 2 * t;
+    const long long o = (((long long)b * a.Sk + key_b) * a.Hkv + hk) * D + col0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < kCols / 8; ++n) {
       *reinterpret_cast<uint32_t*>(a.dk + o + n * 8) =
           pack_bf16(dk[4 * n + 2], dk[4 * n + 3]);
       *reinterpret_cast<uint32_t*>(a.dv + o + n * 8) =
@@ -788,7 +822,7 @@ int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * a.Hkv, (a.Sk + kTile - 1) / kTile);
+  dim3 grid(B * a.Hkv * T::kSplit, (a.Sk + kTile - 1) / kTile);
   kernel<<<grid, kKvThreads<kFused>, smem, stream>>>(m[0], m[1], m[2], m[3], a);
   return (int)cudaGetLastError();
 }
@@ -849,6 +883,7 @@ int run(Which which, const void* q, const void* k, const void* v,
   if (Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (D == 64) return dispatch<64>(which, a, B, st);
   if (D == 128) return dispatch<128>(which, a, B, st);
+  if (D == 256) return dispatch<256>(which, a, B, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -858,8 +893,9 @@ int run(Which which, const void* q, const void* k, const void* v,
 // value; 0 is success. The caller validates shapes, types, strides and
 // alignment (TMA's rules: a 16-byte-aligned base, strides that are multiples
 // of 16 bytes), zeroes the fused kernel's fp32 dq buffer and its int32
-// `sync` buffer (1 + B * Hq * ceil(Sq / 64) entries), and allocates dk/dv as
-// bf16 [B, Sk, Hkv, D].
+// `sync` buffer (1 + B * Hq * ceil(Sq / 64) * split entries, split 2 at
+// D 256 and 1 otherwise: KvTiles::kSplit), and allocates dk/dv as bf16
+// [B, Sk, Hkv, D].
 #define RANKPO_BWD_PARAMS                                                     \
   const void *q, const void *k, const void *v, const int *mask,              \
       const void *dout, const float *lse, const float *delta, void *dq,      \

@@ -30,7 +30,8 @@
 // largest part of that chain.
 //
 // Design. Block = (batch, kv head, NC query heads of that GQA group, one
-// 64-row query tile); NC is 2 when the group size is even, else 1. Warps
+// 64-row query tile); NC is 2 when the group size is even, else 1, and 1 at
+// D 256 (below). Warps
 // 0 .. 4 NC - 1 are NC consumer warpgroups, one per query head; warp 4 NC is
 // the producer. All heads of a block need the same key tiles (same rows,
 // causal edge and valid length), so each K/V tile is loaded once for all of
@@ -47,8 +48,16 @@
 //     whose rounding the smoke's full-width training loss repeats), and
 //     O += P V by wgmma m64n64k16 with P from registers (the S accumulator
 //     layout packed to bf16 is the A operand layout) and V in shared memory
-//     (MN-major, the transposed-B form); D 128 runs two 64-column halves;
+//     (MN-major, the transposed-B form); D 128 runs two 64-column halves
+//     and D 256 four;
 //   - the valid key length is reduced once per block, behind one barrier.
+// D 256 (Gemma): a 64-row tile is four swizzle atoms, 32 KB. The O
+// accumulator alone is D / 2 = 128 fp32 registers a thread (plus 32 for S
+// and 16 for P), so a block takes one query head (NC 1: 160 threads, up to
+// 255 registers each; two heads would be 288 threads at ~200 registers,
+// more than an SM holds) and a 2-stage K/V ring: 1 KB + (1 + 2 x 2) x 32 KB
+// = 161 KB of shared memory. The same code, instantiated at D 256; the
+// D 64 and D 128 instantiations are unchanged.
 // Left out (ROADMAP Queue 2, K1): setmaxnreg register rebalancing between the
 // producer and the consumers, ping-pong scheduling of the consumer
 // warpgroups, overlap of the softmax with the next wgmma inside a warpgroup,
@@ -413,9 +422,11 @@ int dispatch_heads(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorM
                    const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
                    int Hkv, long long mask_sb, int causal, int skip_pad_q, int window,
                    cudaStream_t stream) {
-  if (RANKPO_FWD_HEADS == 2 && (Hq / Hkv) % 2 == 0) {
-    return launch<D, 2, kWindow>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
-                                 causal, skip_pad_q, window, stream);
+  if constexpr (D != 256) {  // D 256: one query head per block (the header)
+    if (RANKPO_FWD_HEADS == 2 && (Hq / Hkv) % 2 == 0) {
+      return launch<D, 2, kWindow>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
+                                   causal, skip_pad_q, window, stream);
+    }
   }
   return launch<D, 1, kWindow>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
                                causal, skip_pad_q, window, stream);
@@ -445,7 +456,7 @@ extern "C" int rankpo_flash_fwd_bf16(
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long mask_sb, int causal, int skip_pad_q, int window, void* stream) {
-  if ((D != 64 && D != 128) || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if ((D != 64 && D != 128 && D != 256) || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
   int rc = encode_map(&qm, q, B, Sq, Hq, D, q_sb, q_ss, q_sh);
   if (rc == 0) rc = encode_map(&km, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh);
@@ -455,6 +466,10 @@ extern "C" int rankpo_flash_fwd_bf16(
   if (D == 64) {
     return dispatch<64>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
                         skip_pad_q, window, st);
+  }
+  if (D == 256) {
+    return dispatch<256>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
+                         skip_pad_q, window, st);
   }
   return dispatch<128>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
                        skip_pad_q, window, st);

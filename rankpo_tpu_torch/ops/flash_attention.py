@@ -33,12 +33,16 @@ tile's dQ in key-tile order. K3a is K1's design with a third product: per
 through the ring, and dQ = dS K stays in registers across the key tiles (see
 the kernels' headers). Every kernel repeats bit for bit.
 
-The kernels take bf16 only, head_dim 64 or 128, a key mask, causal,
+The kernels take bf16 only, head_dim 64, 128 or 256, a key mask, causal,
 ``skip_pad_q`` and ``window`` (sliding-window attention, with ``causal``:
 row q sees keys with q_pos - k_pos < window). With a window every kernel
 skips the key tiles (K1, K3a) or query tiles (K2, K3b) outside the band, as
 the JAX kernels skip blocks, so its work grows with S * window rather than
-S^2. ``segment_ids`` is not ported yet and raises.
+S^2. ``segment_ids`` is not ported yet and raises. At head_dim 256
+(Gemma) K1 and K3a run one query head per block, and K2 and K3b two
+blocks per key tile, one per 128-column half of dK/dV/dQ, each computing
+the whole S^T and dP^T (``flash_bwd.cu``'s header). Other head dims raise
+on a CUDA tensor (ROADMAP.md Queue 2).
 
 :func:`flash_attention_fwd_reference` and :func:`flash_attention_bwd_reference`
 are the plain PyTorch versions of the same contracts, used by the CPU tests
@@ -57,12 +61,13 @@ from rankpo_tpu_torch.ops.attention import BWD_IMPLS, NEG_INF, allowed_pairs, ma
 # launches of each CUDA kernel in this process (read by chip_smoke.py to show
 # the main path went through them); incremented only after a launch
 # succeeded. ``window_launches`` counts the launches among them that ran with
-# a sliding window.
+# a sliding window, ``d256_launches`` those at head_dim 256.
 launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_dq": 0, "flash_dkv": 0}
 window_launches = dict(launches)
+d256_launches = dict(launches)
 _count_lock = threading.Lock()
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launches() -> None:
@@ -70,13 +75,16 @@ def reset_launches() -> None:
         for name in launches:
             launches[name] = 0
             window_launches[name] = 0
+            d256_launches[name] = 0
 
 
-def _count(name: str, window: Optional[int]) -> None:
+def _count(name: str, window: Optional[int], head_dim: int) -> None:
     with _count_lock:
         launches[name] += 1
         if window is not None:
             window_launches[name] += 1
+        if head_dim == 256:
+            d256_launches[name] += 1
 
 
 def _check_window(window: Optional[int], causal: bool) -> int:
@@ -188,7 +196,10 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel: head_dim {d} not in {HEAD_DIMS}")
+        raise ValueError(
+            f"flash kernel: head_dim {d} not in {HEAD_DIMS} (other head dims are "
+            "not ported yet: ROADMAP.md Queue 2)"
+        )
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash kernel: shapes q {q.shape} k {k.shape} v {v.shape}")
     if hq % hkv:
@@ -259,7 +270,7 @@ def flash_attention_fwd(
         )
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {rc}")
-    _count("flash_fwd", window)
+    _count("flash_fwd", window, d)
     return out, lse
 
 
@@ -333,8 +344,11 @@ def flash_attention_bwd(
     sync = None
     if fused:
         dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
-        # the blocks' start order and one counter per (b * h, query tile)
-        sync = torch.zeros(1 + b * hq * -(-sq // 64), dtype=torch.int32, device=dev)
+        # the blocks' start order and one counter per (b * h, query tile,
+        # column half: two at head_dim 256, flash_bwd.cu KvTiles::kSplit)
+        halves = 2 if d == 256 else 1
+        sync = torch.zeros(1 + b * hq * -(-sq // 64) * halves, dtype=torch.int32,
+                           device=dev)
         steps = (("flash_bwd_fused", lib.rankpo_flash_bwd_fused_bf16),)
     else:
         dq = torch.empty((b, sq, hq, d), dtype=torch.bfloat16, device=dev)
@@ -355,7 +369,7 @@ def flash_attention_bwd(
             )
             if rc != 0:
                 raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-            _count(name, window)
+            _count(name, window, d)
     if fused:
         dq = dq.permute(0, 2, 1, 3).to(q.dtype)
     return dq, dk, dv

@@ -91,6 +91,17 @@ SHAPES = [
     ((4, 65, 200, 32, 8, 64), True, True, False, 50),
     ((4, 200, 100, 16, 8, 64), True, False, False, 30),
     ((4, 128, 128, 32, 32, 64), True, True, False, 3),
+    # head_dim 256 (Gemma): google/gemma-2b's 8 query heads over one kv
+    # head, random and full lengths; gemma-7b's 16 / 16; non-causal; ragged
+    # Sq < Sk and Sq > Sk (no skip_pad_q); a window; many key tiles
+    ((8, 512, 512, 8, 1, 256), True, True, False, None),
+    ((8, 512, 512, 8, 1, 256), True, True, True, None),
+    ((4, 256, 256, 16, 16, 256), True, True, False, None),
+    ((4, 100, 100, 4, 4, 256), False, False, False, None),
+    ((4, 65, 200, 8, 1, 256), True, True, False, None),
+    ((4, 200, 100, 8, 2, 256), True, False, False, None),
+    ((4, 512, 512, 8, 1, 256), True, True, False, 100),
+    ((2, 1024, 1024, 8, 1, 256), True, True, True, None),
 ]
 
 
@@ -122,6 +133,7 @@ def test_kernel_matches_plain(cuda, shape, causal, skip, full, window):
     q, k, v, mask, lens = (t.to(cuda) for t in _inputs(*shape, full=full))
     before = port_flash.launches["flash_fwd"]
     before_w = port_flash.window_launches["flash_fwd"]
+    before_d = port_flash.d256_launches["flash_fwd"]
     with torch.inference_mode():
         out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, skip_pad_q=skip,
                                        window=window)
@@ -130,6 +142,7 @@ def test_kernel_matches_plain(cuda, shape, causal, skip, full, window):
     torch.cuda.synchronize()
     assert port_flash.launches["flash_fwd"] == before + 1
     assert port_flash.window_launches["flash_fwd"] == before_w + (window is not None)
+    assert port_flash.d256_launches["flash_fwd"] == before_d + (shape[5] == 256)
     pos = torch.arange(sq, device=cuda)[None] + (sk - sq)
     rows = pos < lens[:, None] if skip else torch.ones_like(pos, dtype=torch.bool).expand(b, sq)
     err = (out.float() - ref).abs().amax(dim=(2, 3))[rows]
@@ -298,7 +311,6 @@ def test_encoder_kernel_against_plain(cuda, window):
     """A tiny random llama in bf16 (and a Mistral with a window of 40 keys):
     embeddings through the kernel and through the plain attention agree to
     cosine >= 0.999 per row; the windowed kernel launched once per layer."""
-    # head_dim 64: the kernel takes 64 or 128
     cfg = dataclasses.replace(tiny_llama_config(vocab_size=512), hidden_size=256,
                               intermediate_size=512, head_dim=64)
     if window is not None:
@@ -319,6 +331,34 @@ def test_encoder_kernel_against_plain(cuda, window):
         0 if window is None else cfg.num_hidden_layers)
 
 
+def test_gemma_encoder_kernel_against_plain(cuda):
+    """A tiny random Gemma in bf16 at head_dim 256 ((1+w) norms drawn
+    N(0, 0.1), GeGLU, scaled embeddings): embeddings through the kernel and
+    through the plain attention agree to cosine >= 0.999 per row, K1 at
+    head_dim 256 launched once per layer."""
+    cfg = dataclasses.replace(tiny_llama_config(vocab_size=512), model_type="gemma",
+                              hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                              num_key_value_heads=1, head_dim=256,
+                              hidden_act="gelu_pytorch_tanh", architectures=("GemmaModel",))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = llama.init_params(cfg, g)
+    for name, t in state.items():
+        if name.endswith("norm.weight"):
+            t.normal_(0.0, 0.1, generator=g)
+    model = llama.LlamaEncoder.from_state_dict(cfg, state, device=cuda,
+                                               dtype=torch.bfloat16)
+    lens = torch.tensor([1, 37, 64, 100, 128, 5])
+    ids = torch.randint(3, 512, (6, 128), generator=torch.Generator().manual_seed(1))
+    mask = (torch.arange(128)[None] < lens[:, None]).int()
+    batch = {"input_ids": ids.to(cuda), "attention_mask": mask.to(cuda)}
+    before = port_flash.d256_launches["flash_fwd"]
+    with torch.inference_mode():
+        a = embed(model, batch, attn_impl="auto")
+        p = embed(model, batch, attn_impl="plain")
+    assert torch.all(torch.nn.functional.cosine_similarity(a, p) >= 0.999)
+    assert port_flash.d256_launches["flash_fwd"] - before == cfg.num_hidden_layers
+
+
 def _bwd_inputs(shape, causal, skip, cuda, seed=0, full=False, window=None):
     q, k, v, mask, lens = (t.to(cuda) for t in _inputs(*shape, seed=seed, full=full))
     g = torch.Generator().manual_seed(seed + 1)
@@ -337,6 +377,7 @@ def test_bwd_kernels_match_plain(cuda, shape, causal, skip, full, window, impl):
     names = ["flash_bwd_fused"] if impl == "fused" else ["flash_dq", "flash_dkv"]
     before = dict(port_flash.launches)
     before_w = dict(port_flash.window_launches)
+    before_d = dict(port_flash.d256_launches)
     grads = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
                                 skip_pad_q=skip, window=window, bwd_impl=impl)
     ref = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal,
@@ -346,6 +387,8 @@ def test_bwd_kernels_match_plain(cuda, shape, causal, skip, full, window, impl):
         assert port_flash.launches[name] == before[name] + (name in names)
         assert port_flash.window_launches[name] == before_w[name] + (
             name in names and window is not None)
+        assert port_flash.d256_launches[name] == before_d[name] + (
+            name in names and shape[5] == 256)
     again = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal,
                                 skip_pad_q=skip, window=window, bwd_impl=impl)
     for a, b, name in zip(grads, again, ("dq", "dk", "dv")):
@@ -412,6 +455,35 @@ def test_fused_and_split_bwd_repeat_bit_for_bit(cuda):
             for grads in runs[1:]:
                 for a, b in zip(runs[0], grads):
                     assert torch.equal(a, b), (impl, full, window)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("full", [False, True])
+def test_d256_bwd_repeats_bit_for_bit(cuda, full, window):
+    """At head_dim 256 the kv kernels run two blocks per key tile, one per
+    column half, and K2 adds each half's dq in key-tile order on its own
+    counters: both backwards give identical dq, dk, dv on every launch."""
+    shape = (8, 512, 512, 8, 1, 256)
+    q, k, v, mask, do, lse, delta = _bwd_inputs(shape, True, True, cuda, seed=5, full=full,
+                                                window=window)
+    for impl in ("split", "fused"):
+        runs = [flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True,
+                                    skip_pad_q=True, window=window, bwd_impl=impl)
+                for _ in range(3)]
+        for grads in runs[1:]:
+            for a, b in zip(runs[0], grads):
+                assert torch.equal(a, b), (impl, full, window)
+
+
+def test_other_head_dims_raise_on_card(cuda):
+    """Head dims other than 64, 128 and 256 raise on a CUDA tensor, naming
+    the queue that ports them, and launch nothing."""
+    before = dict(port_flash.launches)
+    for d in (80, 96, 512):
+        q, k, v, mask, _ = (t.to(cuda) for t in _inputs(2, 64, 64, 4, 2, d))
+        with pytest.raises(ValueError, match="Queue 2"):
+            flash_attention_fwd(q, k, v, mask, causal=True)
+    assert port_flash.launches == before
 
 
 @pytest.mark.parametrize("window", [None, 70])

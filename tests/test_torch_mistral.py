@@ -455,11 +455,26 @@ def test_qwen2_hybrid_window_raises():
             cls.from_hf_dict(d)
 
 
-@pytest.mark.parametrize("change", [dict(model_type="gemma"), dict(hidden_act="gelu")])
+@pytest.mark.parametrize("change", [dict(model_type="gemma"), dict(hidden_act="gelu"),
+                                    dict(hidden_act="relu")])
 def test_gemma_still_raises(change):
-    cfg = dataclasses.replace(_setup()[2], **change)
-    with pytest.raises(NotImplementedError, match="6.3b"):
-        penc.encoder_class(cfg)
+    """Gemma ((1 + w) norms, scaled embeddings) and the GELU gates of JAX's
+    ``_ACTS`` build the llama body and match ``rankpo_tpu.models`` on the
+    windowed config (tests/test_torch_gemma.py holds the Gemma body in
+    full); an activation ``_ACTS`` has no entry for still raises."""
+    jcfg, params, pcfg, state = _setup()
+    pcfg = dataclasses.replace(pcfg, **change)
+    if change.get("hidden_act") == "relu":
+        with pytest.raises(NotImplementedError, match="relu"):
+            penc.encoder_class(pcfg)
+        return
+    jcfg = dataclasses.replace(jcfg, **change)
+    model = penc.encoder_class(pcfg).from_state_dict(pcfg, state, device="cpu")
+    ids, mask = _batch([16, 11])
+    ref = np.asarray(jenc.embed(params, jcfg, _jax(ids, mask), compute_dtype=jnp.float32))
+    with torch.inference_mode():
+        out = penc.embed(model, _torch(ids, mask)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------

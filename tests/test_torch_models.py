@@ -158,9 +158,12 @@ def test_init_params_shapes_and_unported_bodies():
     assert list(qmodel.state_dict()) == llama.state_names(qwen)
     assert torch.all(qstate["layers.0.self_attn.q_proj.bias"] == 0.0)
     assert "layers.0.self_attn.o_proj.bias" not in qstate
-    # Gemma still raises, naming the queue item that ports it; Mistral builds
-    with pytest.raises(NotImplementedError, match="6.3b"):
-        llama.LlamaEncoder(dataclasses.replace(qwen, model_type="gemma"))
+    # Gemma builds the llama body (the names are Llama's; its norms start at
+    # zero, the (1 + w) offsets); Mistral builds
+    gemma = dataclasses.replace(pcfg, model_type="gemma", hidden_act="gelu_pytorch_tanh")
+    assert list(llama.LlamaEncoder(gemma).state_dict()) == llama.state_names(pcfg)
+    gstate = llama.init_params(gemma, torch.Generator().manual_seed(0))
+    assert torch.all(gstate["norm.weight"] == 0.0)
     mistral = dataclasses.replace(pcfg, model_type="mistral", sliding_window=4)
     assert list(llama.LlamaEncoder(mistral).state_dict()) == llama.state_names(pcfg)
     # a sliding window runs, as the plain windowed attention, and bites

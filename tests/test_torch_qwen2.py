@@ -185,11 +185,10 @@ def test_qwen2_parity_with_transformers(tmp_path):
 
 @pytest.mark.parametrize("model_type", ["mistral", "gemma"])
 def test_unported_decoder_bodies_raise(model_type):
-    """Gemma raises, naming the queue item that ports it (6.3b); Mistral,
-    ported, builds the llama body (tests/test_torch_mistral.py)."""
+    """Mistral and Gemma, both ported, build the llama body
+    (tests/test_torch_mistral.py, tests/test_torch_gemma.py); a model_type
+    outside the llama family raises."""
     cfg = dataclasses.replace(_setup("qwen2")[2], model_type=model_type)
-    if model_type == "mistral":
-        assert penc.encoder_class(cfg) is llama.LlamaEncoder
-        return
-    with pytest.raises(NotImplementedError, match="6.3b"):
-        penc.encoder_class(cfg)
+    assert penc.encoder_class(cfg) is llama.LlamaEncoder
+    with pytest.raises(NotImplementedError, match="llama-family"):
+        llama.check_supported(dataclasses.replace(cfg, model_type="gemma2"))
