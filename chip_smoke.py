@@ -33,6 +33,14 @@ version. Phases:
    (``D256_SHAPES``: gemma-2b's 8 query heads over one kv head, timed with
    random and full lengths, gemma-7b's 16 / 16 and B 2, S 4096, both
    timed, a non-causal shape, a ragged Sq < Sk, a window);
+2p. the packed variants of K1, K2, K3a and K3b (``segment_ids``,
+   ``PACKED_SHAPES``: BGE's 16 / 16 non-causal, Llama's 32 / 8, Qwen2's
+   12 / 2 at D 128, gemma-2b's 8 / 1 at D 256, each over the smoke's
+   passage mix packed 16 to a row, and Mistral's window over texts longer
+   than it) against their plain versions, two launches of each bit-equal,
+   fused and split dk/dv bit-equal; timed at Llama's shape against the
+   segments' bound, plain, SDPA with the block-diagonal mask and the
+   unpacked kernels on the same texts padded one per row;
 3. exact search on data with exact ties;
 4. serving path, seven times: a bf16 checkpoint written with the port's
    save_pretrained, a 4096-passage corpus, the HTTP server started by the
@@ -47,6 +55,11 @@ version. Phases:
    (``--index_type refine``, K1) one with a per-call candidate pool, and are
    checked against the index's own search on the same query embeddings; K1
    is also timed over the corpus encode's own batches;
+4p. packed query serving: ``cli.serve --pack_queries --pack_max_segments
+   16`` flat over the same corpus and requests, the served hits equal to
+   numpy_search with the packed query embeddings, those within cosine
+   0.999 of the unpacked service's, K1 launched with segments; /search
+   p50/p99 beside phase 4's;
 4m. mutation and persistence over HTTP on flat fp32, ``SQ8``, ``ivf`` (K4)
    and ``IVF64,PQ64`` (K5), the server run with ``--stable_ids --autosave
    --index_file``: /add of 256 passages (each its own rank 1 as a query),
@@ -62,6 +75,15 @@ version. Phases:
    kernels' launch counters rose; one micro-batch through the kernels and
    through the plain attention, both held against the plain attention in
    fp32 compute; one profiled stage-1 step;
+5p. packed training (after 5): stage 1 from the base checkpoint and stage 2
+   from phase 5's stage-1 output with ``--pack_sequences True``, 4 steps
+   each at phase 5's shapes: the first step's loss, against the exact
+   (fp32) loss on the same sampled examples, no farther than the unpacked
+   run's plus 2e-3 (relative; both printed, and packed against unpacked),
+   packed stage 1
+   repeating bit for bit from the seed, K1/K2 and K1/K3a/K3b launched with
+   segments; step time, real tokens/s, the pad share packed and unpacked,
+   peak memory;
 6. the IVF and refine tiers at scale: 2^20 unit rows at D 2048 (a mixture
    around 8192 centres) and 1024 held-out queries, made on the card; three
    indexes built by the IVFIPIndex constructor (bf16 rows, PQ64 rows, PQ64
@@ -291,6 +313,21 @@ D256_SHAPES = [((8, 512, 512, 8, 1, 256), True, None, True),
                ((8, 200, 512, 8, 1, 256), True, None, False),
                ((4, 1024, 1024, 8, 1, 256), True, 300, True)]
 D256_TIMED = 3  # the first shapes of D256_SHAPES are timed
+# sequence packing (segment_ids; phases 2, 4p, 5p): (B, S, Hq, Hkv, D),
+# causal, window, text lengths [lo, hi] in tokens, packed best-fit at most
+# PACK_MAX_SEGMENTS a row (``data/packing.py``), the first B rows taken:
+# BGE's non-causal 16 / 16 at D 64, Llama's causal 32 / 8 (timed), Qwen2's
+# 12 / 2 at D 128 and gemma-2b's 8 / 1 at D 256 over the smoke's passage mix
+# (16-480 words and a CLS), and Mistral's window of 4096 over texts of up
+# to 6000 tokens, longer than the window
+PACKED_SHAPES = [((8, 512, 16, 16, 64), False, None, (17, 481)),
+                 ((8, 512, 32, 8, 64), True, None, (17, 481)),
+                 ((8, 512, 12, 2, 128), True, None, (17, 481)),
+                 ((8, 512, 8, 1, 256), True, None, (17, 481)),
+                 ((2, 8192, 32, 8, 128), True, 4096, (1024, 6000))]
+PACKED_TIMED = 1  # Llama's shape
+PACK_MAX_SEGMENTS = 16
+PACKED_STEPS = 4  # phase 5p: optimizer steps of each packed stage
 # the plain versions run one (batch, kv head) at a time where one call's
 # fp32 logits would pass this
 PLAIN_CHUNK_BYTES = 2**31
@@ -636,7 +673,13 @@ def _plain_slices(q, k):
             for i in range(b) for h in range(hkv)]
 
 
-def plain_fwd(q, k, v, mask, causal: bool, window=None):
+def _rows_of(x, bs):
+    """The batch slice ``bs`` of a [B, S] mask or segment tensor (None stays
+    None)."""
+    return None if x is None else x[bs]
+
+
+def plain_fwd(q, k, v, mask, causal: bool, window=None, segment_ids=None):
     """``flash_attention_fwd_reference`` in fp32 (out fp32, lse), sliced by
     ``_plain_slices``."""
     from rankpo_tpu_torch.ops.flash_attention import flash_attention_fwd_reference
@@ -644,33 +687,37 @@ def plain_fwd(q, k, v, mask, causal: bool, window=None):
     slices = _plain_slices(q, k)
     if len(slices) == 1:
         return flash_attention_fwd_reference(q.float(), k.float(), v.float(), mask,
-                                             causal=causal, window=window)
+                                             causal=causal, window=window,
+                                             segment_ids=segment_ids)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
                       device=q.device)
     for bs, qh, kh in slices:
         out[bs, :, qh], lse[bs, qh] = flash_attention_fwd_reference(
-            q[bs, :, qh].float(), k[bs, :, kh].float(), v[bs, :, kh].float(), mask[bs],
-            causal=causal, window=window)
+            q[bs, :, qh].float(), k[bs, :, kh].float(), v[bs, :, kh].float(),
+            _rows_of(mask, bs), causal=causal, window=window,
+            segment_ids=_rows_of(segment_ids, bs))
     return out, lse
 
 
-def plain_attention(q, k, v, mask, causal: bool, window=None):
+def plain_attention(q, k, v, mask, causal: bool, window=None, segment_ids=None):
     """The plain attention (``attention_reference``, the port's
     ``impl="plain"``) in the inputs' dtype, sliced by ``_plain_slices``."""
     from rankpo_tpu_torch.ops.attention import attention_reference
 
     slices = _plain_slices(q, k)
     if len(slices) == 1:
-        return attention_reference(q, k, v, mask, causal, window=window)
+        return attention_reference(q, k, v, mask, causal, window=window,
+                                   segment_ids=segment_ids)
     out = torch.empty_like(q)
     for bs, qh, kh in slices:
         out[bs, :, qh] = attention_reference(q[bs, :, qh], k[bs, :, kh], v[bs, :, kh],
-                                             mask[bs], causal, window=window)
+                                             _rows_of(mask, bs), causal, window=window,
+                                             segment_ids=_rows_of(segment_ids, bs))
     return out
 
 
-def plain_bwd(q, k, v, mask, do, lse, delta, causal: bool, window=None):
+def plain_bwd(q, k, v, mask, do, lse, delta, causal: bool, window=None, segment_ids=None):
     """``flash_attention_bwd_reference`` (fp32 dq, dk, dv), sliced by
     ``_plain_slices``: each slice holds a kv head's whole GQA group, so its
     dk/dv sum is the group's."""
@@ -679,15 +726,15 @@ def plain_bwd(q, k, v, mask, do, lse, delta, causal: bool, window=None):
     slices = _plain_slices(q, k)
     if len(slices) == 1:
         return flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal,
-                                             window=window)
+                                             window=window, segment_ids=segment_ids)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     for bs, qh, kh in slices:
         dq[bs, :, qh], dk[bs, :, kh], dv[bs, :, kh] = flash_attention_bwd_reference(
-            q[bs, :, qh], k[bs, :, kh], v[bs, :, kh], mask[bs], do[bs, :, qh],
+            q[bs, :, qh], k[bs, :, kh], v[bs, :, kh], _rows_of(mask, bs), do[bs, :, qh],
             lse[bs, qh].contiguous(), delta[bs, qh].contiguous(), causal=causal,
-            window=window)
+            window=window, segment_ids=_rows_of(segment_ids, bs))
     return dq, dk, dv
 
 
@@ -933,6 +980,255 @@ def time_shape(shape, causal: bool, gen, length, label: str, window=None, lens_r
         f"{wrapper['flash_fwd']:.4f} ms, fused backward {wrapper['fused']:.4f} ms, "
         f"split backward {wrapper['split']:.4f} ms (backward wrappers include "
         f"the dq zero-fill and cast); SDPA backward alone {lib_bwd:.4f} ms")
+    return res
+
+
+def packed_layout(b: int, s: int, lens_range, seed: int):
+    """A packed batch of the texts of the lengths in ``lens_range`` (tokens,
+    drawn from the seed until they fill 1.25 B rows): best-fit packed into
+    rows of ``s`` tokens, at most PACK_MAX_SEGMENTS a row
+    (``data/packing.py``), the first ``b`` rows kept. Segments start
+    mid-tile, cross tiles and leave pad tails. Returns (segment ids [B, S]
+    int32 on the card, the kept texts' lengths)."""
+    from rankpo_tpu_torch.data.packing import pack_lengths
+
+    rng = np.random.default_rng(seed)
+    lengths = []
+    while sum(lengths) < 1.25 * b * s:
+        lengths.append(int(rng.integers(lens_range[0], lens_range[1] + 1)))
+    bins = pack_lengths(lengths, s, PACK_MAX_SEGMENTS)[:b]
+    seg = np.zeros((b, s), np.int32)
+    kept = []
+    for r, items in enumerate(bins):
+        pos = 0
+        for i, idx in enumerate(items):
+            seg[r, pos : pos + lengths[idx]] = i + 1
+            pos += lengths[idx]
+            kept.append(lengths[idx])
+    return torch.from_numpy(seg).cuda(), kept
+
+
+def packed_attention_cost(seg, hq, hkv, d, kind: str, causal: bool, window=None):
+    """(bytes, FLOPs) the function of kernel ``kind`` must move and compute
+    on a packed batch: the pairs inside each segment (with ``causal`` the
+    triangle, with a ``window`` its band), the segments' query and key rows
+    read once (pad rows are not needed), the segment row read, the outputs
+    written in full (as ``attention_cost``)."""
+    seg = seg.cpu().numpy()
+    b, s = seg.shape
+    pairs = 0
+    for row in seg:
+        for n in np.unique(row[row != 0], return_counts=True)[1].astype(np.int64):
+            if not causal:
+                pairs += n * n
+            else:
+                pairs += n * (n + 1) // 2
+                if window and n > window:
+                    pairs -= (n - window) * (n - window + 1) // 2
+    rows = int((seg != 0).sum())
+    pairs *= hq
+    read_q = rows * hq * d * 2
+    read_kv = 2 * rows * hkv * d * 2
+    if kind == "flash_fwd":
+        return read_q + read_kv + b * s * 4 + b * s * hq * (d * 2 + 4), pairs * 2 * 2 * d
+    reads = 2 * read_q + read_kv + b * s * 4 + 2 * rows * hq * 4
+    dq_out = b * s * hq * d * 2
+    dkv_out = 2 * b * s * d * hkv * 2
+    writes, products = {"flash_bwd_fused": (dq_out + dkv_out, 5),
+                        "flash_dq": (dq_out, 3), "flash_dkv": (dkv_out, 4)}[kind]
+    return reads + writes, pairs * products * 2 * d
+
+
+def _packed_sdpa_mask(seg, causal: bool, window=None):
+    """SDPA's boolean mask [B, 1, S, S] of a packed batch: block-diagonal by
+    segment, the causal triangle and the window's band; a pad row sees
+    itself only, so SDPA's softmax stays finite (a pad row's output is not
+    used)."""
+    b, s = seg.shape
+    keys = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] != 0)
+    ones = torch.ones(s, s, dtype=torch.bool, device=seg.device)
+    if causal:
+        keys &= ones.tril()
+        if window:
+            keys &= ones.triu(1 - window)
+    keys |= (seg == 0)[:, :, None] & torch.eye(s, dtype=torch.bool, device=seg.device)
+    return keys[:, None]
+
+
+def phase_kernels_packed(seed: int) -> dict:
+    """Phase 2, packed: K1, K2, K3a and K3b with segment_ids at every
+    PACKED_SHAPES shape against their plain versions (out and lse on every
+    row, pad rows zeros with lse NEG_INF; dq, dk, dv with phase 2's limits),
+    two launches of each bit-equal, the fused and split backwards' dk and
+    dv bit-equal (their dq is printed), each launch counted as packed; then
+    times at Llama's shape against the bound of the segments' pairs, the
+    plain versions, SDPA with the block-diagonal boolean mask and the
+    unpacked kernels on the same texts padded one per row to S."""
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    err = {name: 0.0 for name in KERNELS}
+    flash.reset_launches()
+    for i, ((b, s, hq, hkv, d), causal, window, lens_range) in enumerate(PACKED_SHAPES):
+        seg, texts = packed_layout(b, s, lens_range, seed + 100 + i)
+        q = torch.randn(b, s, hq, d, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(b, s, hq, d, generator=gen, device="cuda").bfloat16()
+        kw = dict(causal=causal, window=window, segment_ids=seg)
+        before = dict(flash.packed_launches)
+        with torch.no_grad():
+            out, lse = flash_attention_fwd(q, k, v, None, skip_pad_q=True, **kw)
+            again = flash_attention_fwd(q, k, v, None, skip_pad_q=True, **kw)
+            ref, rlse = plain_fwd(q, k, v, None, **kw)
+        torch.cuda.synchronize()
+        has_key = rlse > -1e29
+        out_err = (out.float() - ref).abs().max().item()
+        lse_err = (lse - rlse).abs()[has_key].max().item()
+        pad_zero = bool(torch.all(out.abs().amax(-1)[~has_key.permute(0, 2, 1)] == 0)
+                        and torch.all(lse[~has_key] == rlse[~has_key]))
+        repeats = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        tag = (f"packed {(b, s, hq, hkv, d)} {'causal' if causal else 'non-causal'}"
+               f"{'' if window is None else f', window {window}'}, {len(texts)} texts of "
+               f"{min(texts)}-{max(texts)} tokens, {int((seg != 0).sum())} of {b * s} "
+               "positions in segments")
+        if out_err > OUT_ATOL or lse_err > LSE_ATOL or not pad_zero or not repeats:
+            raise AssertionError(f"K1 with segments at {tag}: max|out-plain| {out_err:.3e}, "
+                                 f"max|lse-plain| {lse_err:.3e}, pad rows zero {pad_zero}, "
+                                 f"two launches bit-equal {repeats}")
+        err["flash_fwd"] = max(err["flash_fwd"], out_err)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        plain = plain_bwd(q, k, v, None, do, lse, delta, **kw)
+        got, line = {}, []
+        for impl in ("fused", "split"):
+            got[impl] = flash_attention_bwd(q, k, v, None, do, lse, delta, skip_pad_q=True,
+                                            bwd_impl=impl, **kw)
+            again = flash_attention_bwd(q, k, v, None, do, lse, delta, skip_pad_q=True,
+                                        bwd_impl=impl, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got[impl], again)):
+                raise AssertionError(f"{impl} backward with segments: two launches differ "
+                                     f"at {tag}")
+            for j, (a, r) in enumerate(zip(got[impl], plain)):
+                diff = a.float() - r
+                e = diff.abs().max().item()
+                tol = BWD_TOL_OF_MAX * r.abs().max().item()
+                rel = (diff.norm() / r.norm()).item()
+                if not (e <= tol and rel <= BWD_REL_L2):
+                    raise AssertionError(
+                        f"{impl} d{'qkv'[j]} with segments disagrees with plain at {tag}: "
+                        f"max|err| {e:.3e} (limit {tol:.3e}), relative L2 {rel:.3e}")
+                name = ("flash_bwd_fused" if impl == "fused"
+                        else ("flash_dq" if j == 0 else "flash_dkv"))
+                err[name] = max(err[name], e)
+                line.append(f"{impl} d{'qkv'[j]} {e:.2e}/{tol:.2e} rel {rel:.2e}")
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(got["fused"], got["split"])]
+        if not (same[1] and same[2]):
+            raise AssertionError(f"fused and split dk/dv differ with segments at {tag}")
+        dq_gap = (got["fused"][0].float() - got["split"][0].float()).abs().max().item()
+        counted = {n: flash.packed_launches[n] - before[n] for n in before}
+        if counted != {"flash_fwd": 2, "flash_bwd_fused": 2, "flash_dq": 2, "flash_dkv": 2}:
+            raise AssertionError(f"packed launches at {tag}: {counted}")
+        log(f"kernels {tag}: K1 max|out-plain| {out_err:.3e} max|lse-plain| {lse_err:.3e}, "
+            f"pad rows zero {pad_zero}; two launches of each kernel bit-equal; backward "
+            "max|err|/limit and relative L2: " + ", ".join(line)
+            + f"; fused vs split bit-equal dq {same[0]} (max gap {dq_gap:.2e}), dk "
+            f"{same[1]}, dv {same[2]}")
+        del q, k, v, do, out, lse, ref, rlse, plain, got, again
+        torch.cuda.empty_cache()
+    log(f"kernels with segments: max|err| K1 {err['flash_fwd']:.3e}, K2 "
+        f"{err['flash_bwd_fused']:.3e}, K3a {err['flash_dq']:.3e}, K3b {err['flash_dkv']:.3e} "
+        f"over the {len(PACKED_SHAPES)} packed shapes")
+    res = time_packed(seed, gen)
+    for name in KERNELS:
+        res[name]["max_abs_err"] = err[name]
+    return res
+
+
+def time_packed(seed: int, gen) -> dict:
+    """Each kernel's device time with segments at Llama's packed shape
+    (PACKED_SHAPES[PACKED_TIMED]) beside the bound of the segments' pairs,
+    the plain version, SDPA with the block-diagonal boolean mask (its
+    backward alone for the backward kernels) and the same kernel unpacked on
+    the same texts, one per row padded to S."""
+    import torch.nn.functional as F
+
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    (b, s, hq, hkv, d), causal, window, lens_range = PACKED_SHAPES[PACKED_TIMED]
+    seg, texts = packed_layout(b, s, lens_range, seed + 100 + PACKED_TIMED)
+    q = torch.randn(b, s, hq, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(b, s, hq, d, generator=gen, device="cuda").bfloat16()
+    kw = dict(causal=causal, skip_pad_q=True, window=window, segment_ids=seg)
+    with torch.no_grad():
+        out, lse = flash_attention_fwd(q, k, v, None, **kw)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    # the same texts unpacked: one per row, padded to S, their own key mask
+    n = len(texts)
+    lens = torch.tensor(texts, device="cuda")
+    mask = (torch.arange(s, device="cuda")[None] < lens[:, None]).int()
+    uq = torch.randn(n, s, hq, d, generator=gen, device="cuda").bfloat16()
+    uk = torch.randn(n, s, hkv, d, generator=gen, device="cuda").bfloat16()
+    uv = torch.randn(n, s, hkv, d, generator=gen, device="cuda").bfloat16()
+    udo = torch.randn(n, s, hq, d, generator=gen, device="cuda").bfloat16()
+    ukw = dict(causal=causal, skip_pad_q=True, window=window)
+    with torch.no_grad():
+        uout, ulse = flash_attention_fwd(uq, uk, uv, mask, **ukw)
+    udelta = (udo.float() * uout.float()).sum(-1).permute(0, 2, 1).contiguous()
+    ugrads = [flash_attention_bwd(uq, uk, uv, mask, udo, ulse, udelta, **ukw, bwd_impl=impl)
+              for impl in ("fused", "split")]
+    log("unpacked kernels on the same texts: fused vs split bit-equal dq "
+        f"{torch.equal(ugrads[0][0], ugrads[1][0])} (max gap "
+        f"{(ugrads[0][0].float() - ugrads[1][0].float()).abs().max().item():.2e}), dk "
+        f"{torch.equal(ugrads[0][1], ugrads[1][1])}, dv {torch.equal(ugrads[0][2], ugrads[1][2])}")
+    del ugrads
+    calls = {
+        "flash_fwd": lambda: flash_attention_fwd(q, k, v, None, **kw),
+        "fused": lambda: flash_attention_bwd(q, k, v, None, do, lse, delta, **kw,
+                                             bwd_impl="fused"),
+        "split": lambda: flash_attention_bwd(q, k, v, None, do, lse, delta, **kw,
+                                             bwd_impl="split"),
+        "u_fwd": lambda: flash_attention_fwd(uq, uk, uv, mask, **ukw),
+        "u_fused": lambda: flash_attention_bwd(uq, uk, uv, mask, udo, ulse, udelta, **ukw,
+                                               bwd_impl="fused"),
+        "u_split": lambda: flash_attention_bwd(uq, uk, uv, mask, udo, ulse, udelta, **ukw,
+                                               bwd_impl="split"),
+    }
+    with torch.no_grad():
+        traced = {key: profile_device_ms(fn) for key, fn in calls.items()}
+        plain_fwd_ms = cuda_ms(lambda: plain_attention(q, k, v, None, causal, window, seg))
+        plain_bwd_ms = cuda_ms(lambda: plain_bwd(q, k, v, None, do, lse, delta, causal,
+                                                 window, seg))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kt = kt.repeat_interleave(hq // hkv, dim=1)
+        vt = vt.repeat_interleave(hq // hkv, dim=1)
+        bmask = _packed_sdpa_mask(seg, causal, window)
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask))
+    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+    o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
+    dot = do.transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, dot, retain_graph=True))
+    del o_lib
+    res = {}
+    for name, key in (("flash_fwd", "flash_fwd"), ("flash_bwd_fused", "fused"),
+                      ("flash_dq", "split"), ("flash_dkv", "split")):
+        fwd = name == "flash_fwd"
+        ms = kernel_ms(traced[key], name)
+        unpacked_ms = kernel_ms(traced["u_" + key.replace("flash_", "")], name)
+        b_ms, b_by = bound(packed_attention_cost(seg, hq, hkv, d, name, causal, window))
+        res[name] = {"ms": ms, "plain_ms": plain_fwd_ms if fwd else plain_bwd_ms,
+                     "library_ms": lib_fwd if fwd else lib_bwd, "bound_ms": b_ms,
+                     "bound_by": b_by, "unpacked_ms": unpacked_ms}
+        log(f"time {name} with segments at {(b, s, hq, hkv, d)} "
+            f"{'causal' if causal else 'non-causal'}, {n} texts of {min(texts)}-{max(texts)} "
+            f"tokens in {b} rows: kernel {ms:.4f} ms (device time, profiler); plain "
+            f"{res[name]['plain_ms']:.4f} ms; library (SDPA with the block-diagonal mask"
+            f"{', forward' if fwd else ', backward alone'}) {res[name]['library_ms']:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}); the unpacked kernel on the same texts, {n} rows "
+            f"padded to {s}: {unpacked_ms:.4f} ms")
     return res
 
 
@@ -1389,6 +1685,95 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
     return numbers
 
 
+def phase_serving_packed(seed: int, tmp: str, ckpt: str, unpacked: dict) -> dict:
+    """Phase 4p, packed query serving: ``cli.serve --pack_queries
+    --pack_max_segments 16`` over phase 4's corpus, flat, the same 32 single
+    queries from 8 clients and 4 requests of 16. Every reply is checked, the
+    query encodes launch K1 with segments, each batched request's served hits
+    equal numpy_search over the index rows with its packed embeddings (the
+    queries as the service embeds them), and those embeddings are within
+    cosine 0.999 of the unpacked service's (``unpacked`` is phase 4's flat
+    numbers, whose latencies are printed beside these)."""
+    from rankpo_tpu_torch.index.flat import numpy_search
+    from rankpo_tpu_torch.models.config import EncoderConfig
+    from rankpo_tpu_torch.ops import flash_attention as flash
+
+    config = EncoderConfig.from_pretrained(ckpt)
+    corpus, corpus_file, queries = _serving_data(seed, tmp)
+    port = _free_port()
+    argv = ["--model_name_or_path", ckpt, "--tokenizer_name", f"hash:{config.vocab_size}",
+            "--corpus_data", corpus_file, "--max_query_length", "512",
+            "--max_passage_length", "512", "--batch_size", "64", "--device", "cuda",
+            "--port", str(port), "--log_level", "warning", "--pack_queries",
+            "--pack_max_segments", str(PACK_MAX_SEGMENTS)]
+    # ---- the packed serving path: counters from 0, server start, requests ----
+    flash.reset_launches()
+    server, thread, startup_s = start_server(argv, port)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            singles = list(pool.map(
+                lambda i: (_http(port, "/search", {"query": queries[i],
+                                                   "k": (10, 100)[i % 2]}), i),
+                range(32)))
+        batched = []
+        for j, k in enumerate((10, 100, 10, 100)):
+            group = queries[16 * j : 16 * (j + 1)]
+            batched.append((_http(port, "/search", {"queries": group, "k": k}), group, k))
+        packed = dict(flash.packed_launches)
+        # ---- end of the packed serving path ----
+        for (status, body, _), i in singles:
+            _check_reply(status, body, 1, (10, 100)[i % 2])
+        for (status, body, _), group, k in batched:
+            _check_reply(status, body, len(group), k)
+        if packed["flash_fwd"] < config.num_hidden_layers:
+            raise AssertionError(f"packed serving: K1 ran {packed['flash_fwd']} launches with "
+                                 "segments")
+        service = server.service
+        rows = service.index.reconstruct(np.arange(service.index.ntotal))
+        n_near, cosines, same_hits, total_hits = 0, [], 0, 0
+        for (_, body, _), group, k in batched:
+            ids, segs, slot_idx, slots = service._prepare_packed_queries(group)
+            q_packed = service.encoder.embed_packed_batch(ids, segs, slot_idx, len(slots))
+            q_packed = q_packed[: len(group)].cpu().numpy()
+            batch = service.encoder.prepare_batch(group, len(group), 512)
+            q_plain = service.encoder.embed_batch(batch).cpu().numpy()
+            cosines += (np.sum(q_packed * q_plain, 1) / np.linalg.norm(q_packed, axis=1)
+                        / np.linalg.norm(q_plain, axis=1)).tolist()
+            s_idx, s_sc = _served(body)
+            o_scores, o_idx = numpy_search(rows, q_packed, k + 1)
+            n_near += _check_against_oracle(np.array(s_idx), np.array(s_sc), o_scores, o_idx)
+            plain_idx = numpy_search(rows, q_plain, k)[1]
+            for a, b_ in zip(s_idx, plain_idx):
+                same_hits += len(set(a) & set(b_.tolist()))
+                total_hits += k
+        if min(cosines) < 0.999:
+            raise AssertionError(f"packed query embeddings: min cosine {min(cosines):.6f} "
+                                 "against the unpacked service's (limit 0.999)")
+        lat = np.array([r[0][2] for r in singles]) * 1e3
+        lat_b = np.array([r[0][2] for r in batched]) * 1e3
+        numbers = {
+            "startup_s": startup_s, "packed_launches": packed,
+            "search_single_p50_ms": float(np.percentile(lat, 50)),
+            "search_single_p99_ms": float(np.percentile(lat, 99)),
+            "search_batch16_p50_ms": float(np.percentile(lat_b, 50)),
+            "min_cosine": min(cosines), "hit_overlap": same_hits / total_hits,
+        }
+        log(f"served (flat, --pack_queries): the served hits equal numpy_search over the "
+            f"index rows with the packed query embeddings ({n_near} hits inside "
+            f"{SCORE_ATOL} near-ties not compared); packed query embeddings against the "
+            f"unpacked service's: min cosine {numbers['min_cosine']:.6f} (limit 0.999), "
+            f"top-k overlap {numbers['hit_overlap']:.4f}; K1 launches with segments "
+            f"{packed['flash_fwd']}; /search single p50 "
+            f"{numbers['search_single_p50_ms']:.2f} ms p99 "
+            f"{numbers['search_single_p99_ms']:.2f} ms (unpacked, phase 4: "
+            f"{unpacked['search_single_p50_ms']:.2f} / {unpacked['search_single_p99_ms']:.2f}); "
+            f"batch of 16 p50 {numbers['search_batch16_p50_ms']:.2f} ms (unpacked "
+            f"{unpacked['search_batch16_p50_ms']:.2f})")
+    finally:
+        stop_server(server, thread)
+    return numbers
+
+
 def fp32_embed(encoder, batch) -> torch.Tensor:
     """The encoder's embeddings with fp32 activations over its bf16 weights
     (each cast up exactly where it is used) and the plain attention: the
@@ -1744,6 +2129,7 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
     launches = dict(flash.launches)
     window_launches = dict(flash.window_launches)
     d256_launches = dict(flash.d256_launches)
+    packed_launches = dict(flash.packed_launches)
     # ---- end of the stage's path ----
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     gc.collect()
@@ -1769,6 +2155,7 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
         "mfu": _median(history, "mfu"),
         "peak_mem_gib": peak_gib, "wall_s": wall, "launches": launches,
         "window_launches": window_launches, "d256_launches": d256_launches,
+        "packed_launches": packed_launches,
     }, state
 
 
@@ -2097,6 +2484,166 @@ def phase_training(ckpt: str, tmp: str, seed: int, base_state: dict) -> dict:
     torch.cuda.empty_cache()
     return {"stage1": stage1, "stage2": stage2, "compare": compare,
             "profile": profile_nums}
+
+
+def _stage_groups(tmp: str, seed: int, stage: str, packed: bool, steps: int):
+    """The first ``steps`` accumulation groups of a Llama stage at phase 5's
+    settings, from the loader and collator its CLI builds (the same seed:
+    the same batches)."""
+    from rankpo_tpu_torch.data.collators import ContrastiveCollator, RankPOCollator
+    from rankpo_tpu_torch.data.datasets import ContrastiveDataset, PairPreferenceDataset
+    from rankpo_tpu_torch.data.loader import DataLoader
+    from rankpo_tpu_torch.data.packing import PackedContrastiveCollator, PackedRankPOCollator
+    from rankpo_tpu_torch.data.tokenization import HashTokenizer
+
+    train, pairs = write_training_data(tmp, seed)
+    tok = HashTokenizer(vocab_size=128256)
+    lengths = dict(max_query_length=128, max_passage_length=512)
+    seg = dict(query_max_segments=PACK_MAX_SEGMENTS, passage_max_segments=PACK_MAX_SEGMENTS)
+    if stage == "stage1":
+        dataset = ContrastiveDataset(train, tok, 128, 512)
+        collator = (PackedContrastiveCollator(0, 3, **lengths, **seg, seed=seed) if packed
+                    else ContrastiveCollator(0, 3, **lengths, seed=seed))
+        accum = 2
+    else:
+        dataset = PairPreferenceDataset(pairs, tok, 128, 512)
+        collator = (PackedRankPOCollator(0, **lengths, **seg) if packed
+                    else RankPOCollator(0, **lengths))
+        accum = 1
+    loader = DataLoader(dataset, collator, 8, seed=seed)
+    return [group for _, group in zip(range(steps), loader.epoch(0, stack=accum))]
+
+
+def _real_tokens(tmp: str, seed: int, stage: str, packed: bool, steps: int) -> tuple:
+    """(real tokens, token slots) over the first ``steps`` optimizer steps of
+    a Llama stage at phase 5's settings: the tokens of the texts against
+    the positions the batches hold."""
+    real = slots = 0
+    for group in _stage_groups(tmp, seed, stage, packed, steps):
+        for block in group.values():
+            filled = block["segment_ids"] if packed else block["attention_mask"]
+            real += int((filled != 0).sum())
+            slots += filled.size
+    return real, slots
+
+
+def first_loss_fp32(tmp: str, seed: int, stage: str, start: str) -> float:
+    """The first optimizer step's loss of a Llama stage at phase 5's settings
+    computed exactly: fp32 activations over the weights at ``start`` (the
+    stage's starting checkpoint), the plain attention, the same unpacked
+    micro-batches, the mean over the accumulation group as the trainer
+    takes it."""
+    from rankpo_tpu_torch.models.encoder import encoder_class
+    from rankpo_tpu_torch.models.hf_io import load_pretrained
+    from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn, make_rankpo_loss_fn
+
+    config, state = load_pretrained(start)
+    model = encoder_class(config).from_state_dict(config, state, device="cuda",
+                                                  dtype=torch.float32)
+    del state
+    if stage == "stage1":
+        loss_fn = make_contrastive_loss_fn(config, temperature=0.02, attn_impl="plain")
+    else:
+        loss_fn = make_rankpo_loss_fn(config, beta=2.0, temperature=0.1, loss_type="sigmoid",
+                                      reference_free=True, attn_impl="plain")
+    group = _stage_groups(tmp, seed, stage, False, 1)[0]
+    accum = group["query"]["input_ids"].shape[0]
+    with torch.no_grad():
+        losses = [loss_fn(model, _device_batch({f: {k: v[i] for k, v in block.items()}
+                                                for f, block in group.items()}))[0].item()
+                  for i in range(accum)]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(np.mean(losses))
+
+
+def phase_training_packed(ckpt: str, tmp: str, seed: int, base_state: dict,
+                          unpacked: dict) -> dict:
+    """Phase 5p, packed training at Llama-3.2-1B's full width and depth:
+    stage 1 with ``--pack_sequences True`` from the base checkpoint and stage
+    2 with it from phase 5's stage-1 output (so each starts where its
+    unpacked run started), PACKED_STEPS steps each at phase 5's shapes. The
+    first step's loss is held to the unpacked run's on the same sampled
+    examples (LOSS_REL_FP32), packed stage 1 rerun for 2 steps repeats bit
+    for bit, K1/K2 (stage 1) and K1/K3a/K3b (stage 2) launch with segments;
+    step time, real tokens/s, the pad share packed and unpacked and peak
+    memory are printed. The first step's loss of each stage is also
+    computed in fp32 (``first_loss_fp32``): two bf16 paths may differ by
+    more than the limit, so the packed loss is held to the exact loss no
+    farther than the unpacked run's distance to it plus LOSS_REL_FP32."""
+    from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
+    from rankpo_tpu_torch.models.hf_io import load_pretrained
+
+    train, pairs = write_training_data(tmp, seed)
+    s1 = os.path.join(tmp, "stage1_packed")
+    common = ["--tokenizer_name", "hash:128256", "--bf16", "True",
+              "--max_steps", str(PACKED_STEPS), "--per_device_train_batch_size", "8",
+              "--learning_rate", "1e-5", "--max_query_length", "128",
+              "--max_passage_length", "512", "--save_strategy", "no", "--seed", str(seed),
+              "--device", "cuda", "--log_level", "warning", "--pack_sequences", "True",
+              "--pack_max_segments", str(PACK_MAX_SEGMENTS)]
+    stage1_argv = [
+        "--model_name_or_path", ckpt, "--train_data", train, "--num_negatives", "3",
+        "--gradient_accumulation_steps", "2", "--temperature", "0.02",
+        "--lr_scheduler_type", "cosine", "--warmup_ratio", "0.1",
+        "--gradient_checkpointing", "True", *common]
+    stage1, _ = run_stage("stage 1 packed (contrastive, fused backward)", run_contrastive.main,
+                          [*stage1_argv, "--output_dir", s1], s1, base_state,
+                          steps=PACKED_STEPS)
+    rerun_stage1(run_contrastive.main, stage1_argv, os.path.join(tmp, "stage1_packed_rerun"),
+                 stage1)
+    shutil.rmtree(s1)
+    shutil.rmtree(os.path.join(tmp, "stage1_packed_rerun"))
+    s1_unpacked = os.path.join(tmp, "stage1")
+    exact = {"stage1": first_loss_fp32(tmp, seed, "stage1", ckpt),
+             "stage2": first_loss_fp32(tmp, seed, "stage2", s1_unpacked)}
+    _, s1_state = load_pretrained(s1_unpacked)
+    s2 = os.path.join(tmp, "stage2_packed")
+    stage2, _ = run_stage("stage 2 packed (RankPO, deterministic: split backward)",
+                          run_rankpo.main, [
+                              "--model_name_or_path", s1_unpacked, "--train_data", pairs,
+                              "--output_dir", s2, "--beta", "2.0", "--temperature", "0.1",
+                              "--loss_type", "sigmoid", "--reference_free", "True", *common],
+                          s2, s1_state, deterministic=True, steps=PACKED_STEPS)
+    del s1_state
+    shutil.rmtree(s2)
+    need = {"stage1": ("flash_fwd", "flash_bwd_fused"),
+            "stage2": ("flash_fwd", "flash_dq", "flash_dkv")}
+    out = {}
+    for stage, nums in (("stage1", stage1), ("stage2", stage2)):
+        packed = nums["packed_launches"]
+        if any(packed[name] <= 0 for name in need[stage]):
+            raise AssertionError(f"packed {stage}: launches with segments {packed}")
+        first, want, fp32 = nums["first_loss"], unpacked[stage]["first_loss"], exact[stage]
+        rel = abs(first - want) / abs(want)
+        rel_fp32, u_rel_fp32 = abs(first - fp32) / abs(fp32), abs(want - fp32) / abs(fp32)
+        real, slots = _real_tokens(tmp, seed, stage, True, PACKED_STEPS)
+        u_real, u_slots = _real_tokens(tmp, seed, stage, False, PACKED_STEPS)
+        if real != u_real:
+            raise AssertionError(f"{stage}: packed batches hold {real} tokens, unpacked {u_real}")
+        per_step = real / PACKED_STEPS
+        nums.update(first_loss_rel=rel, first_loss_rel_fp32=rel_fp32,
+                    unpacked_first_loss_rel_fp32=u_rel_fp32, real_tokens_per_step=per_step,
+                    real_tokens_per_s=per_step / nums["step_time_s"],
+                    unpacked_real_tokens_per_s=per_step / unpacked[stage]["step_time_s"],
+                    pad_share=1 - real / slots, unpacked_pad_share=1 - u_real / u_slots)
+        log(f"{stage} packed: first loss {first:.6f} against the unpacked run's {want:.6f} "
+            f"on the same examples, relative {rel:.3e}; the exact (fp32, plain attention) "
+            f"loss {fp32:.6f}: packed {rel_fp32:.3e} from it, unpacked {u_rel_fp32:.3e} "
+            f"(limit: the unpacked distance + {LOSS_REL_FP32:.0e}); median "
+            f"step {nums['step_time_s']:.4f} s (unpacked {unpacked[stage]['step_time_s']:.4f}); "
+            f"real tokens/s {nums['real_tokens_per_s']:.1f} (unpacked "
+            f"{nums['unpacked_real_tokens_per_s']:.1f}; {per_step:.0f} real tokens a step); "
+            f"pad share {nums['pad_share']:.4f} (unpacked {nums['unpacked_pad_share']:.4f}); "
+            f"peak device memory {nums['peak_mem_gib']:.2f} GiB (unpacked "
+            f"{unpacked[stage]['peak_mem_gib']:.2f}); launches {nums['launches']}, with "
+            f"segments {packed}")
+        if not rel_fp32 <= u_rel_fp32 + LOSS_REL_FP32:
+            raise AssertionError(f"{stage} packed: first loss {first}, unpacked {want}, "
+                                 f"exact {fp32}")
+        out[stage] = nums
+    return out
 
 
 def phase_training_bge(tmp: str, seed: int) -> dict:
@@ -3328,6 +3875,9 @@ def main(argv=None) -> int:
     timed("1 build", phase_build)
     with tempfile.TemporaryDirectory(prefix="rankpo_smoke_") as tmp:
         kern = timed("2 kernels", phase_kernels, args.seed, tmp)
+        kern_packed = timed("2p packed kernels", phase_kernels_packed, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
         timed("3 search ties", phase_search_ties)
         ckpt, base_state = timed("checkpoint", make_model_checkpoint, tmp, args.seed,
                                  "llama-3.2-1b")
@@ -3336,11 +3886,17 @@ def main(argv=None) -> int:
             serving[tier] = timed("4 serving", phase_serving, args.seed, tmp, ckpt, tier)
             gc.collect()
             torch.cuda.empty_cache()
+        serving_packed = timed("4p packed serving", phase_serving_packed, args.seed, tmp, ckpt,
+                               serving["flat"])
+        gc.collect()
+        torch.cuda.empty_cache()
         for tier in MUTATE_TIERS:
             mutation[tier] = timed("4m mutation", phase_mutation, args.seed, tmp, ckpt, tier)
             gc.collect()
             torch.cuda.empty_cache()
         train = timed("5 training", phase_training, ckpt, tmp, args.seed, base_state)
+        train_packed = timed("5p packed training", phase_training_packed, ckpt, tmp, args.seed,
+                             base_state, train)
         del base_state
         for stage_dir in ("stage1", "stage1_rerun", "stage2"):  # ~15 GB of fp32 files
             shutil.rmtree(os.path.join(tmp, stage_dir))
@@ -3492,6 +4048,32 @@ def main(argv=None) -> int:
             f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} {r['bound_by']})" for name, r in rows.items()))
     log(f"numbers ({card}): gemma-2b flash vs plain (stage-1 micro-batch) {gemma['compare']}")
+    (pb, ps, phq, phkv, pd), pcausal, _, _ = PACKED_SHAPES[PACKED_TIMED]
+    log(f"numbers ({card}): kernels with segments at {(pb, ps, phq, phkv, pd)} "
+        f"{'causal' if pcausal else 'non-causal'}: " + "; ".join(
+            f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA with the "
+            f"block-diagonal mask {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"{r['bound_by']}, unpacked on the same texts {r['unpacked_ms']:.4f})"
+            for name, r in kern_packed.items()))
+    sp = serving_packed
+    log(f"numbers ({card}): packed serving (--pack_queries): startup {sp['startup_s']:.2f} s; "
+        f"/search single p50 {sp['search_single_p50_ms']:.2f} ms p99 "
+        f"{sp['search_single_p99_ms']:.2f} ms (8 clients; unpacked "
+        f"{serving['flat']['search_single_p50_ms']:.2f} / "
+        f"{serving['flat']['search_single_p99_ms']:.2f}); batch of 16 p50 "
+        f"{sp['search_batch16_p50_ms']:.2f} ms (unpacked "
+        f"{serving['flat']['search_batch16_p50_ms']:.2f}); min cosine to unpacked "
+        f"{sp['min_cosine']:.6f}; launches with segments {sp['packed_launches']}")
+    for stage, s_ in train_packed.items():
+        log(f"numbers ({card}): {stage} packed: median step {s_['step_time_s']:.4f} s "
+            f"(unpacked {train[stage]['step_time_s']:.4f}); real tokens/s "
+            f"{s_['real_tokens_per_s']:.1f} (unpacked {s_['unpacked_real_tokens_per_s']:.1f}); "
+            f"pad share {s_['pad_share']:.4f} (unpacked {s_['unpacked_pad_share']:.4f}); "
+            f"peak device memory {s_['peak_mem_gib']:.2f} GiB (unpacked "
+            f"{train[stage]['peak_mem_gib']:.2f}); first loss relative to unpacked "
+            f"{s_['first_loss_rel']:.3e}, to fp32 {s_['first_loss_rel_fp32']:.3e} (unpacked "
+            f"{s_['unpacked_first_loss_rel_fp32']:.3e}); launches with segments "
+            f"{s_['packed_launches']}")
     wb = serving_models[MISTRAL]["window_bites"]
     log(f"numbers ({card}): e5-mistral window bites on {wb['tokens']} tokens: 1 - cosine with "
         f"and without the window {wb['moved']}, limits {wb['limit']}; flash vs plain "
@@ -3533,6 +4115,14 @@ def main(argv=None) -> int:
     for name, n in d256.items():
         if n <= 0:
             raise AssertionError(f"{name} ran no launch at head_dim 256 on the gemma-2b paths")
+    packed = {name: sum(n["packed_launches"][name] for n in train_packed.values())
+              for name in KERNELS}
+    packed["flash_fwd"] += serving_packed["packed_launches"]["flash_fwd"]
+    log(f"numbers ({card}): launches with segments on the packed paths (4p serving, 5p both "
+        f"stages): {packed}")
+    for name, n in packed.items():
+        if n <= 0:
+            raise AssertionError(f"{name} ran no launch with segments on the packed paths")
     for name, (_, _, counter) in IVF_KERNELS.items():
         launches[name] = (sum(n["launches"][counter]
                               for n in (*serving.values(), *mutation.values()))
@@ -3574,6 +4164,19 @@ def main(argv=None) -> int:
         "bound_ms": kern[name]["bound_ms"],
         "bound_by": kern[name]["bound_by"],
         "library_ms": kern[name]["library_ms"],
+    } for name in KERNELS]
+    rows += [{
+        "name": names[name] + "_packed",
+        "route": "cuda",
+        "source": f"rankpo_tpu_torch/ops/csrc/{KERNELS[name][1]}",
+        "replaces": KERNELS[name][0],
+        "launches": packed[name],
+        "max_abs_err": kern_packed[name]["max_abs_err"],
+        "ms": kern_packed[name]["ms"],
+        "plain_ms": kern_packed[name]["plain_ms"],
+        "bound_ms": kern_packed[name]["bound_ms"],
+        "bound_by": kern_packed[name]["bound_by"],
+        "library_ms": kern_packed[name]["library_ms"],
     } for name in KERNELS]
     rows += [{
         "name": name,

@@ -165,8 +165,15 @@ class TrainDataArguments:
         metadata={"help": "Bucketed padding multiple (None = fixed max length)."},
     )
     streaming: bool = dataclasses.field(default=False, metadata={"help": "not ported"})
-    pack_sequences: bool = dataclasses.field(default=False, metadata={"help": "not ported"})
-    pack_max_segments: int = dataclasses.field(default=16)
+    pack_sequences: bool = dataclasses.field(
+        default=False,
+        metadata={"help": "Sequence packing: several texts per row with "
+                          "block-diagonal attention; the same sampled examples "
+                          "and loss as unpacked (data/packing.py)."},
+    )
+    pack_max_segments: int = dataclasses.field(
+        default=16, metadata={"help": "Packing: max texts per packed row."}
+    )
     retrieval_eval_query_file: Optional[str] = dataclasses.field(
         default=None, metadata={"help": "not ported (in-training retrieval eval)"}
     )
@@ -307,7 +314,6 @@ class PredictionArguments:
 UNPORTED_DATA = {
     "eval_data": (None, ("evaluation during training", 2)),
     "streaming": (False, ("the streaming dataset", 7)),
-    "pack_sequences": (False, ("sequence packing", 7)),
     "retrieval_eval_query_file": (None, ("in-training retrieval eval", 7)),
 }
 UNPORTED_CONTRASTIVE = {"grad_cache": (False, ("gradient caching", 7))}

@@ -16,9 +16,10 @@ it is installed and warns otherwise. ``--device cuda`` (the default) fails
 when no card is visible; ``--device cpu`` runs the plain PyTorch path. An
 HF tokenizer gets the reference's pad-token rule and seven domain special
 tokens, the embedding table is resized to match, and every saved model
-directory holds the tokenizer beside the weights. Not ported yet, each
-rejected with its ROADMAP.md item: streaming, packing, gradient caching,
-evaluation during training.
+directory holds the tokenizer beside the weights. ``--pack_sequences True``
+packs each micro-batch's texts several to a row (``data/packing.py``,
+block-diagonal attention). Not ported yet, each rejected with its
+ROADMAP.md item: streaming, gradient caching, evaluation during training.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from rankpo_tpu_torch.cli.arguments import (
 from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.collators import ContrastiveCollator
 from rankpo_tpu_torch.data.datasets import ContrastiveDataset
+from rankpo_tpu_torch.data.packing import PackedContrastiveCollator
 from rankpo_tpu_torch.data.tokenization import prepare_tokenizer, resolve_tokenizer
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.models.base import EncoderModule
@@ -163,12 +165,23 @@ def main(argv=None):
         max_query_length=data_args.max_query_length,
         max_passage_length=data_args.max_passage_length,
     )
-    collator = ContrastiveCollator(
-        pad_token_id=pad_id, num_negatives=data_args.num_negatives,
-        max_query_length=data_args.max_query_length,
-        max_passage_length=data_args.max_passage_length,
-        pad_multiple=data_args.pad_multiple, seed=train_cfg.seed,
-    )
+    if data_args.pack_sequences:
+        # JAX run_contrastive.py:121-135; one card, so rows_multiple 1
+        collator = PackedContrastiveCollator(
+            pad_token_id=pad_id, num_negatives=data_args.num_negatives,
+            max_query_length=data_args.max_query_length,
+            max_passage_length=data_args.max_passage_length,
+            query_max_segments=data_args.pack_max_segments,
+            passage_max_segments=data_args.pack_max_segments,
+            rows_multiple=1, seed=train_cfg.seed,
+        )
+    else:
+        collator = ContrastiveCollator(
+            pad_token_id=pad_id, num_negatives=data_args.num_negatives,
+            max_query_length=data_args.max_query_length,
+            max_passage_length=data_args.max_passage_length,
+            pad_multiple=data_args.pad_multiple, seed=train_cfg.seed,
+        )
     steps_per_epoch = len(dataset) // (
         train_cfg.per_device_train_batch_size * train_cfg.gradient_accumulation_steps
     )

@@ -42,6 +42,7 @@ from rankpo_tpu_torch.cli.run_contrastive import (
 from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.collators import RankPOCollator
 from rankpo_tpu_torch.data.datasets import PairPreferenceDataset
+from rankpo_tpu_torch.data.packing import PackedRankPOCollator
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.models.encoder import encoder_class
 from rankpo_tpu_torch.models.hf_io import load_pretrained
@@ -85,11 +86,20 @@ def main(argv=None):
         max_query_length=data_args.max_query_length,
         max_passage_length=data_args.max_passage_length,
     )
-    collator = RankPOCollator(
-        pad_token_id=pad_id, max_query_length=data_args.max_query_length,
-        max_passage_length=data_args.max_passage_length,
-        pad_multiple=data_args.pad_multiple,
-    )
+    if data_args.pack_sequences:
+        # JAX run_rankpo.py:75-90; one card, so rows_multiple 1
+        collator = PackedRankPOCollator(
+            pad_token_id=pad_id, max_query_length=data_args.max_query_length,
+            max_passage_length=data_args.max_passage_length,
+            query_max_segments=data_args.pack_max_segments,
+            passage_max_segments=data_args.pack_max_segments, rows_multiple=1,
+        )
+    else:
+        collator = RankPOCollator(
+            pad_token_id=pad_id, max_query_length=data_args.max_query_length,
+            max_passage_length=data_args.max_passage_length,
+            pad_multiple=data_args.pad_multiple,
+        )
     steps_per_epoch = len(dataset) // (
         train_cfg.per_device_train_batch_size * train_cfg.gradient_accumulation_steps
     )

@@ -5,7 +5,8 @@
         --tokenizer_name hash:128256 --corpus_data corpus.jsonl --device cuda \\
         [--index_type SQ8 | --recall_target 0.95 | --index_type ivf |
          --index_type IVF4096,PQ64 | --index_type refine --refine_dim 256] \\
-        [--stable_ids] [--index_file index.npz [--autosave]]
+        [--stable_ids] [--index_file index.npz [--autosave]] \
+        [--pack_queries [--pack_max_segments 16]]
 
 POST /search {"queries": ["..."], "k": 10[, "nprobe": 8][, "candidates": 512]
               [, "allowed_ids": [...] | "disallowed_ids": [...]]}
@@ -19,9 +20,11 @@ GET  /statsz  -> serving counters
 
 The flags keep the JAX CLI's names. ``--index_file`` loads the index from
 that file when it exists (no corpus encode, no build) and otherwise builds
-from ``--corpus_data`` and saves it there. Flags of features the port does
-not have yet are rejected with the ROADMAP.md item that will bring them:
-packed queries (item 7) and multi-host serving (item 8).
+from ``--corpus_data`` and saves it there. ``--pack_queries`` packs each
+group's queries several to a row (``--pack_max_segments`` at most), with
+block-diagonal attention. Flags of features the port does not have yet are
+rejected with the ROADMAP.md item that will bring them: multi-host serving
+(item 8).
 """
 
 from __future__ import annotations
@@ -49,8 +52,6 @@ _INDEX_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": t
 
 # flag -> (value that means "off", ROADMAP item that ports it)
 _UNPORTED_FLAGS = {
-    "pack_queries": (False, "item 7, packed queries with K1-K3 segment_ids"),
-    "pack_max_segments": (16, "item 7, packed queries with K1-K3 segment_ids"),
     "coordinator_address": (None, "item 8, multi-host serving"),
     "num_processes": (None, "item 8, multi-host serving"),
     "process_id": (None, "item 8, multi-host serving"),
@@ -262,9 +263,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="persisted index (.npz): loaded if it exists, else "
                              "built from --corpus_data and saved here")
     parser.add_argument("--pack_queries", action="store_true",
-                        help="not ported (ROADMAP.md Queue 1 item 7)")
+                        help="sequence-pack each group's queries several to a row "
+                             "of --max_query_length tokens (block-diagonal "
+                             "attention); hits as unpacked")
     parser.add_argument("--pack_max_segments", type=int, default=16,
-                        help="not ported (ROADMAP.md Queue 1 item 7)")
+                        help="packing: max queries per packed row")
     parser.add_argument("--microbatch_wait_ms", type=float, default=3.0,
                         help="dynamic micro-batching window for concurrent "
                              "single-query requests; 0 disables")
@@ -365,7 +368,8 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     service = RetrievalService(
         encoder, max_query_length=args.max_query_length, stable_ids=args.stable_ids,
         rewarm_after_mutation=args.rewarm_after_mutations,
-        mutation_headroom=args.mutation_headroom, **service_kw)
+        mutation_headroom=args.mutation_headroom, pack_queries=args.pack_queries,
+        pack_max_segments=args.pack_max_segments, **service_kw)
     if restart:
         service.load_index_file(args.index_file)  # no corpus encode, no build
     else:

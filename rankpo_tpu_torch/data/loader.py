@@ -21,11 +21,20 @@ from typing import Callable, Iterator
 import numpy as np
 
 
-def _stack(groups: list):
-    """np.stack each leaf of a list of equally-shaped nested dicts."""
+def _stack(groups: list, key=None):
+    """np.stack each leaf of a list of nested dicts. Where the leaves'
+    shapes differ (packed micro-batches whose row budgets differ,
+    ``data/packing.py``), the row dimension is padded to the group's
+    largest first: ``slot_index`` with -1 (no slot), every other array with
+    0 (segment 0 is no text), as JAX ``_stack_microbatches`` pads them."""
     first = groups[0]
     if isinstance(first, dict):
-        return {k: _stack([g[k] for g in groups]) for k in first}
+        return {k: _stack([g[k] for g in groups], k) for k in first}
+    if len({g.shape for g in groups}) > 1:
+        rows = max(g.shape[0] for g in groups)
+        fill = -1 if key == "slot_index" else 0
+        groups = [np.pad(g, [(0, rows - g.shape[0])] + [(0, 0)] * (g.ndim - 1),
+                         constant_values=fill) for g in groups]
     return np.stack(groups, axis=0)
 
 

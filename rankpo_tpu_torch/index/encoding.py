@@ -8,10 +8,11 @@ order so each batch is length-homogeneous, then restore the input order.
 ``encode_device`` keeps the result on the device for the index build;
 ``encode`` returns host fp32.
 
-Dropped from the JAX version, because they exist for XLA's static shapes or
-for a device mesh: batch-size padding of the last chunk, the bounded
-in-flight D2H window, mesh sharding, and the sequence-packed encode (not yet
-ported, ROADMAP.md).
+``embed_packed_batch`` embeds sequence-packed query rows (serving's
+``pack_queries``). Dropped from the JAX version, because they exist for
+XLA's static shapes or for a device mesh: batch-size padding of the last
+chunk, the bounded in-flight D2H window, mesh sharding; the sequence-packed
+corpus encode (``encode_packed``) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.data.collators import _pad_block
 from rankpo_tpu_torch.models.config import EncoderConfig
-from rankpo_tpu_torch.models.encoder import embed, encoder_class
+from rankpo_tpu_torch.models.encoder import embed, embed_packed, encoder_class
+from rankpo_tpu_torch.models.packing import scatter_packed_reps
 
 logger = logging.getLogger(__name__)
 
@@ -100,6 +102,21 @@ class InferenceEncoder:
         }
         return embed(self.model, dev, normalize=self.normalize,
                      attn_impl=attn_impl or self.attn_impl)
+
+    @torch.inference_mode()
+    def embed_packed_batch(self, input_ids: np.ndarray, segment_ids: np.ndarray,
+                           slot_index: np.ndarray, num_slots: int) -> torch.Tensor:
+        """fp32 [num_slots, H] embeddings on the device of packed rows
+        ([R, S] ids and segment ids, [R, M] slot table): each segment's
+        embedding at its slot, zeros at slots no segment fills."""
+        dev = {
+            "input_ids": torch.from_numpy(input_ids).to(self.device, torch.int64),
+            "segment_ids": torch.from_numpy(segment_ids).to(self.device),
+        }
+        reps, _valid = embed_packed(self.model, dev, slot_index.shape[1],
+                                    normalize=self.normalize, attn_impl=self.attn_impl)
+        return scatter_packed_reps(reps, torch.from_numpy(slot_index).to(self.device),
+                                   num_slots)
 
     @torch.inference_mode()
     def encode_device(

@@ -20,7 +20,9 @@ CHECKPOINT_POLICIES = ("full",)
 
 class EncoderModule(nn.Module):
     """Token ids [B, S] + right-padded mask [B, S] -> last hidden [B, S, H]
-    in ``compute_dtype`` (by default the parameters' dtype)."""
+    in ``compute_dtype`` (by default the parameters' dtype). Every body's
+    ``forward`` also takes ``segment_ids`` [B, S] (sequence packing,
+    ``models/packing.py``) in place of the mask."""
 
     def __init__(self, config: EncoderConfig):
         super().__init__()

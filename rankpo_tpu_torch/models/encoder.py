@@ -4,7 +4,8 @@
 :func:`encoder_class` picks the body from the config (the llama body for
 ``config.is_llama``, else the Roberta/BERT body), as the JAX dispatch does;
 :func:`resize_token_embeddings` grows the vocabulary after a tokenizer gains
-special tokens."""
+special tokens. :func:`embed_packed` embeds sequence-packed rows
+(``data/packing.py``): one embedding per segment."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from rankpo_tpu_torch.models import llama, roberta
 from rankpo_tpu_torch.models.base import EncoderModule
 from rankpo_tpu_torch.models.config import EncoderConfig
+from rankpo_tpu_torch.models.packing import packed_pool
 from rankpo_tpu_torch.models.pooling import l2_normalize, pool
 
 
@@ -59,10 +61,13 @@ def forward_hidden(
     *,
     attn_impl: str = "auto",
     generator: Optional[torch.Generator] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Last hidden state [B, S, H] in the model's (compute) dtype; dropout
-    is live when a ``generator`` is given and the body has any."""
-    return model(input_ids, attention_mask, attn_impl=attn_impl, generator=generator)
+    is live when a ``generator`` is given and the body has any. With
+    ``segment_ids`` (packed rows) ``attention_mask`` is not read."""
+    return model(input_ids, attention_mask, attn_impl=attn_impl, generator=generator,
+                 segment_ids=segment_ids)
 
 
 def embed(
@@ -93,6 +98,35 @@ def embed(
     if normalize:
         reps = l2_normalize(reps)
     return reps
+
+
+def embed_packed(
+    model: EncoderModule,
+    batch: Dict[str, torch.Tensor],
+    max_segments: int,
+    *,
+    normalize: Optional[bool] = None,
+    attn_impl: str = "auto",
+    output_dtype: torch.dtype = torch.float32,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sentence embeddings of sequence-packed rows (JAX ``embed_packed``,
+    ``encoder.py:115-165``): {'input_ids' [R, S], 'segment_ids' [R, S]}
+    with several texts per row as contiguous segments 1..n and a 0-id pad
+    tail. Returns (reps [R, max_segments, H], valid [R, max_segments]):
+    slot j of row r embeds segment j + 1, as :func:`embed` embeds that text
+    alone; invalid slots are zeros."""
+    config = model.config
+    if normalize is None:
+        normalize = config.normalize
+    segment_ids = batch["segment_ids"]
+    hidden = forward_hidden(model, batch["input_ids"], None, attn_impl=attn_impl,
+                            generator=generator, segment_ids=segment_ids)
+    reps, valid = packed_pool(hidden, segment_ids, max_segments, config.pooling)
+    reps = reps.to(output_dtype)
+    if normalize:
+        reps = l2_normalize(reps)
+    return torch.where(valid[..., None], reps, 0.0), valid
 
 
 def _tree_sum_rows(x: torch.Tensor) -> torch.Tensor:

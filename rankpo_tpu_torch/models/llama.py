@@ -39,6 +39,12 @@ scale sits outside the layers, so the checkpointed recompute and the
 training build take it as serving does. Its head_dim of 256 (2B and 7B
 alike) runs the kernels' D 256 builds on a CUDA tensor. The Roberta family
 has its own body (``models/roberta.py``).
+
+``segment_ids`` [B, S] (sequence packing, in place of the attention mask;
+JAX ``llama.py:269-275``): several texts per row as contiguous segments,
+RoPE positions restart at each segment (``models/packing.py``), attention
+is block-diagonal and takes no key mask; every layer passes the segments
+to the attention, in the checkpointed recompute too.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear
 from rankpo_tpu_torch.models.config import EncoderConfig
+from rankpo_tpu_torch.models.packing import packed_positions
 from rankpo_tpu_torch.models.roberta import ACTIVATIONS as GELUS
 from rankpo_tpu_torch.ops.attention import multi_head_attention
 
@@ -193,7 +200,7 @@ class LlamaLayer(nn.Module):
         )
         self.mlp = LlamaMLP(config)
 
-    def forward(self, x, cos, sin, key_mask, attn_impl: str):
+    def forward(self, x, cos, sin, key_mask, attn_impl: str, segment_ids=None):
         cfg = self.config
         b, s, _ = x.shape
         d = cfg.head_dim
@@ -206,15 +213,16 @@ class LlamaLayer(nn.Module):
         # pad keys are masked everywhere, so pad query tiles may be skipped
         o = multi_head_attention(
             q, k, v, mask=key_mask, causal=True, impl=attn_impl,
-            skip_pad_q=True, window=cfg.sliding_window,
+            skip_pad_q=True, window=cfg.sliding_window, segment_ids=segment_ids,
         )
         x = x + linear(o.reshape(b, s, -1), attn.o_proj)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class LlamaEncoder(EncoderModule):
-    """Token ids [B, S] + right-padded mask [B, S] -> last hidden [B, S, H]
-    in ``compute_dtype`` (by default the parameters' dtype)."""
+    """Token ids [B, S] + right-padded mask [B, S] (or packed
+    ``segment_ids``) -> last hidden [B, S, H] in ``compute_dtype`` (by
+    default the parameters' dtype)."""
 
     def __init__(self, config: EncoderConfig):
         check_supported(config)
@@ -228,13 +236,15 @@ class LlamaEncoder(EncoderModule):
     def forward(
         self,
         input_ids: torch.Tensor,
-        attention_mask: torch.Tensor,
+        attention_mask: Optional[torch.Tensor],
         *,
         attn_impl: str = "auto",
         generator: Optional[torch.Generator] = None,
+        segment_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """``generator`` is taken for the callers' sake and unused: the
-        llama body has no dropout."""
+        llama body has no dropout. With ``segment_ids`` the attention mask
+        is not read (see the module docstring)."""
         del generator
         b, s = input_ids.shape
         weight = self.embed_tokens.weight
@@ -244,18 +254,23 @@ class LlamaEncoder(EncoderModule):
             # sqrt(hidden), rounded to the compute dtype first (HF
             # GemmaModel, JAX llama.py:265-268)
             x = x * torch.tensor(self.config.hidden_size**0.5, dtype=x.dtype)
-        # arange positions regardless of padding (HF default); with right
-        # padding and causal attention, pad positions never reach real tokens
-        positions = torch.arange(s, device=input_ids.device).expand(b, s)
+        if segment_ids is not None:
+            positions = packed_positions(segment_ids)
+            key_mask = None
+        else:
+            # arange positions regardless of padding (HF default); with right
+            # padding and causal attention, pad positions never reach real
+            # tokens
+            positions = torch.arange(s, device=input_ids.device).expand(b, s)
+            key_mask = attention_mask.to(torch.bool)
         cos, sin = rope_cos_sin(self.config, positions)
-        key_mask = attention_mask.to(torch.bool)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
-                x = checkpoint(layer, x, cos, sin, key_mask, attn_impl,
+                x = checkpoint(layer, x, cos, sin, key_mask, attn_impl, segment_ids,
                                use_reentrant=False)
             else:
-                x = layer(x, cos, sin, key_mask, attn_impl)
+                x = layer(x, cos, sin, key_mask, attn_impl, segment_ids)
         return self.norm(x)
 
 

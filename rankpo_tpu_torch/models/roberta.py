@@ -14,7 +14,12 @@ takes fp32 statistics and applies its weight and bias in the compute dtype
 
 Positions: ``xlm-roberta`` counts the non-pad tokens from
 ``pad_token_id + 1`` and gives pads ``pad_token_id`` (HF
-``create_position_ids_from_input_ids``); ``bert`` is a plain arange.
+``create_position_ids_from_input_ids``); ``bert`` is a plain arange. With
+``segment_ids`` (sequence packing, in place of the attention mask; JAX
+``roberta.py:199-215``) both rules restart at every segment: ``bert`` takes
+the within-segment position, ``xlm-roberta`` ``pad_token_id + 1`` plus it
+for segment tokens and ``pad_token_id`` for the pad tail; attention is
+block-diagonal.
 
 Dropout, as HF and the JAX body place it: hidden dropout at the embedding
 output and after the attention output projection and the MLP output of each
@@ -42,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear
 from rankpo_tpu_torch.models.config import EncoderConfig
+from rankpo_tpu_torch.models.packing import packed_positions
 from rankpo_tpu_torch.ops.attention import dropout, multi_head_attention
 
 MODEL_TYPES = ("xlm-roberta", "bert")
@@ -85,13 +91,19 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.eps)
 
 
-def position_ids(config: EncoderConfig, input_ids: torch.Tensor) -> torch.Tensor:
+def position_ids(config: EncoderConfig, input_ids: torch.Tensor,
+                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, S] absolute positions: the Roberta pad-offset rule for
-    ``xlm-roberta``, arange for ``bert``."""
+    ``xlm-roberta``, arange for ``bert``; per segment when packed."""
     b, s = input_ids.shape
+    pad = config.pad_token_id if config.pad_token_id is not None else 1
+    if segment_ids is not None:
+        within = packed_positions(segment_ids)
+        if config.model_type == "bert":
+            return within
+        return torch.where(segment_ids != 0, within + pad + 1, pad)
     if config.model_type == "bert":
         return torch.arange(s, device=input_ids.device).expand(b, s)
-    pad = config.pad_token_id if config.pad_token_id is not None else 1
     mask = (input_ids != pad).to(torch.int64)
     return torch.cumsum(mask, dim=-1) * mask + pad
 
@@ -164,7 +176,7 @@ class RobertaLayer(nn.Module):
         self.intermediate = _Dense(h, f)
         self.output = _Dense(f, h, config.layer_norm_eps)
 
-    def forward(self, x, key_mask, attn_impl: str, seed: Optional[int]):
+    def forward(self, x, key_mask, attn_impl: str, seed: Optional[int], segment_ids=None):
         cfg = self.config
         b, s, h = x.shape
         nh = cfg.num_attention_heads
@@ -177,7 +189,7 @@ class RobertaLayer(nn.Module):
         attn = multi_head_attention(
             q, k, v, mask=key_mask, causal=False, impl=attn_impl, skip_pad_q=True,
             dropout_rate=cfg.attention_dropout if gen is not None else 0.0,
-            generator=gen,
+            generator=gen, segment_ids=segment_ids,
         )
         out = self.attention.output
         a = dropout(linear(attn.reshape(b, s, h), out.dense), cfg.hidden_dropout, gen)
@@ -194,8 +206,9 @@ class _Layers(nn.Module):
 
 
 class RobertaEncoder(EncoderModule):
-    """Token ids [B, S] + right-padded mask [B, S] -> last hidden [B, S, H]
-    in ``compute_dtype`` (by default the parameters' dtype)."""
+    """Token ids [B, S] + right-padded mask [B, S] (or packed
+    ``segment_ids``) -> last hidden [B, S, H] in ``compute_dtype`` (by
+    default the parameters' dtype)."""
 
     def __init__(self, config: EncoderConfig):
         check_supported(config)
@@ -206,31 +219,35 @@ class RobertaEncoder(EncoderModule):
     def forward(
         self,
         input_ids: torch.Tensor,
-        attention_mask: torch.Tensor,
+        attention_mask: Optional[torch.Tensor],
         *,
         attn_impl: str = "auto",
         generator: Optional[torch.Generator] = None,
+        segment_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """With a ``generator`` (any device) every dropout site is live at
-        the config's rates; without one the forward is deterministic."""
+        the config's rates; without one the forward is deterministic. With
+        ``segment_ids`` the attention mask is not read."""
         cfg = self.config
         emb = self.embeddings
         dtype = self.compute_dtype or emb.word_embeddings.weight.dtype
         # gathered from the master tables and summed there, then cast
         # (JAX roberta.py:221-225)
         x = (F.embedding(input_ids, emb.word_embeddings.weight)
-             + F.embedding(position_ids(cfg, input_ids), emb.position_embeddings.weight)
+             + F.embedding(position_ids(cfg, input_ids, segment_ids),
+                           emb.position_embeddings.weight)
              + emb.token_type_embeddings.weight[0]).to(dtype)
         x = emb.LayerNorm(x)
         seeds = layer_seeds(generator, cfg.num_hidden_layers + 1)
         x = dropout(x, cfg.hidden_dropout, site_generator(seeds[0], x.device))
-        key_mask = attention_mask.to(torch.bool)
+        key_mask = None if segment_ids is not None else attention_mask.to(torch.bool)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for layer, seed in zip(self.encoder.layer, seeds[1:]):
             if remat:
-                x = checkpoint(layer, x, key_mask, attn_impl, seed, use_reentrant=False)
+                x = checkpoint(layer, x, key_mask, attn_impl, seed, segment_ids,
+                               use_reentrant=False)
             else:
-                x = layer(x, key_mask, attn_impl, seed)
+                x = layer(x, key_mask, attn_impl, seed, segment_ids)
         return x
 
 

@@ -40,13 +40,13 @@ _SIGNATURES = {
     "rankpo_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P]  # q k v mask out lse
     + [_I] * 6  # B Sq Sk Hq Hkv D
     + [_LL] * 10  # q/k/v (batch, seq, head) strides, mask batch stride
-    + [_I, _I, _I, _P],  # causal skip_pad_q window (-1: none) stream
+    + [_I, _I, _I, _I, _P],  # causal skip_pad_q window (-1: none) packed stream
 }
 _BWD_ARGTYPES = (
     [_P] * 11  # q k v mask do lse delta dq dk dv sync
     + [_I] * 6  # B Sq Sk Hq Hkv D
     + [_LL] * 13  # q/k/v/do (batch, seq, head) strides, mask batch stride
-    + [_I, _I, _I, _P]  # causal skip_pad_q window (-1: none) stream
+    + [_I, _I, _I, _I, _P]  # causal skip_pad_q window (-1: none) packed stream
 )
 for _name in ("fused", "dkv", "dq"):
     _SIGNATURES[f"rankpo_flash_bwd_{_name}_bf16"] = _BWD_ARGTYPES

@@ -24,8 +24,14 @@
 //   the band of its query tile's first row, the kv kernel ends at the last
 //   query tile whose rows reach its keys); with skip_pad_q a query tile the
 //   forward skipped (it starts at or past the valid key extent) is skipped
-//   here too, so its rows give zero dQ and add nothing to dK/dV. Every
-//   output repeats bit for bit from launch to launch.
+//   here too, so its rows give zero dQ and add nothing to dK/dV.
+//   Packed (kPacked; Sq == Sk): the mask row carries segment ids; a pair is
+//   valid when the key's segment is non-zero and equal to the query row's,
+//   ANDed with the tests above, and the tiles run are bounded to the span of
+//   the block's tile's segments (packed_span in flash_common.cuh): the dq
+//   kernel's key tiles as K1's, the kv kernel's query tiles as JAX's
+//   flash_attention.py:314-328. Every output repeats bit for bit from
+//   launch to launch.
 //
 // dQ in key-tile order. Blocks on Hopper run in parallel and in no order, so
 // the Pallas fused kernel's dq block, resident across the sequential key
@@ -39,6 +45,14 @@
 // blocks' places in the order they start, key tile slowest, so a block waits
 // only on blocks that started before it. dQ is then summed in key order, as
 // in JAX.
+//   Packed, the key tiles that add to a query tile are fewer: those whose
+// segments meet the query tile's. The counters keep counting the unpacked
+// range all the same: for each (head, query tile) of its unpacked range
+// that its packed span leaves out, the dQ adder of a block takes its turn
+// and passes it on without adding (a tick). So the turn a block waits for
+// is still kt - f, whatever the segment layout, and no block can wait on a
+// key tile that never counts. A query tile's first real adder adds to the
+// zeros of the buffer.
 //
 // Design of the kv kernel. One block per (batch, kv head, 64-key tile), 160
 // threads (192 fused):
@@ -57,7 +71,9 @@
 //     fp32 registers and are written once;
 //   - warp 5 (fused), the dQ adder, takes each dQ tile from shared memory
 //     (two fp32 buffers) and adds it to the fp32 buffer in key-tile order,
-//     off the consumers' path.
+//     off the consumers' path;
+//   - packed: the producer's lanes also post each query tile's 64 segment
+//     ids beside its lse and delta rows.
 // At D 128 fp32 dK, dV and (fused) dQ exceed one warpgroup's registers and
 // ptxas spills K2 (PERF.md has the times).
 //
@@ -238,8 +254,9 @@ __device__ __forceinline__ void issue_tt(float (&acc)[D / 2], const unsigned cha
 
 // One block per (batch, kv head, 64-key tile), the key tile slowest; see the
 // header for the roles of its warps. kWindow: built with the window's bounds
-// and tests (window > 0, causal), so the kernel without them is unchanged.
-template <int D, bool kFusedDq, bool kWindow>
+// and tests (window > 0, causal), and kPacked with the segments' (the mask
+// row holds segment ids), so the kernel without them is unchanged.
+template <int D, bool kFusedDq, bool kWindow, bool kPacked>
 __global__ void __launch_bounds__(kKvThreads<kFusedDq>, D == 64 ? 2 : 1)
 flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
@@ -259,6 +276,10 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
   unsigned char* dOs = Qs + kStages * kTileBytes;   // [kStages] tiles
   unsigned char* dSs = dOs + kStages * kTileBytes;  // fused: [2] dS^T tiles,
   float* dQs = reinterpret_cast<float*>(dSs + 2 * kSwizzleTileBytes);  // [2] dQ
+  // packed: the query segment ids of each stage's tile, after the fused
+  // buffers (or where they would start)
+  int* qseg_s = reinterpret_cast<int*>(
+      kFusedDq ? reinterpret_cast<unsigned char*>(dQs + 2 * kTile * T::kDqLd) : dSs);
   __shared__ uint64_t full_bar[kStages], empty_bar[kStages], kv_bar;
   __shared__ uint64_t dq_full[2], dq_empty[2];
   __shared__ float lse_s[kStages][kTile], delta_s[kStages][kTile];
@@ -310,13 +331,21 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
   // to the end of the tiles the forward ran and, with a window, of the rows
   // whose band reaches these keys; none past the valid keys
   constexpr bool windowed = kWindow;
-  const int qt_begin = a.causal ? max(0, key0 - q_shift) / kTile : 0;
+  int qt_begin = a.causal ? max(0, key0 - q_shift) / kTile : 0;
   int qt_end = (a.Sq + kTile - 1) / kTile;
   if (windowed) qt_end = min(qt_end, window_q_end(key0, a.window, q_shift));
   if (key0 >= key_end) qt_end = 0;
   if (a.skip_pad_q) {
     const int lim = key_end - q_shift;  // tile qt runs iff qt*64 < lim
     qt_end = min(qt_end, lim <= 0 ? 0 : (lim + kTile - 1) / kTile);
+  }
+  // fused and packed: the range whose dQ turns the adder takes (the header)
+  const int turn_begin = qt_begin;
+  const int n_turn_qt = max(0, qt_end - qt_begin);
+  if constexpr (kPacked) {  // only the query tiles of the key tile's segments
+    const int2 span = packed_span<kThreads>(mrow, a.Sk, key0, tid);
+    qt_begin = max(qt_begin, span.x / kTile);
+    qt_end = min(qt_end, (span.y + kTile - 1) / kTile);
   }
   const int n_qt = max(0, qt_end - qt_begin);
   const int n_it = groups * n_qt;  // (head, query tile) pairs, head outer
@@ -332,17 +361,28 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
     constexpr int kRowsPerPass = kBatch * 32 / kLanesPerRow;
     const int r0 = lane / kLanesPerRow;
     const int c = 4 * (lane % kLanesPerRow);
-    for (int it = 0; it < n_it; ++it) {
-      const int buf = it & 1;
-      const long long bh = (long long)b * a.Hq + h0 + it / n_qt;
-      const int qt = qt_begin + it % n_qt;
+    // packed: every (head, query tile) of the unpacked range takes its
+    // turn; `it` counts the staged tiles, those of the packed range
+    const int n_pairs = kPacked ? groups * n_turn_qt : n_it;
+    int it = 0;
+    for (int pair = 0; pair < n_pairs; ++pair) {
+      const int n_row = kPacked ? n_turn_qt : n_qt;
+      const int staged = kPacked ? it : pair;  // unpacked, every pair is staged
+      const int buf = staged & 1;
+      const long long bh = (long long)b * a.Hq + h0 + pair / n_row;
+      const int qt = (kPacked ? turn_begin : qt_begin) + pair % n_row;
       const int q0 = qt * kTile;
       const float* src = dQs + buf * kTile * T::kDqLd;
       float* dst = a.dq_acc + (bh * a.Sq + q0) * D + col0;
       int* counter = a.sync + 1 + (bh * n_q_tiles + qt) * T::kSplit + half;
       // the turns before this key tile's: first is the first to add
       const int turn = kt - (windowed ? first_kt(qt, a.window, q_shift) : 0);
-      mbar_wait(&dq_full[buf], (it >> 1) & 1);
+      if (kPacked && (qt < qt_begin || qt >= qt_end)) {  // a tick (the header)
+        if (turn > 0) wait_turn(counter, turn);
+        end_turn(counter, lane);
+        continue;
+      }
+      mbar_wait(&dq_full[buf], (staged >> 1) & 1);
       if (turn > 0) wait_turn(counter, turn);  // the first adds to the zeros
 #pragma unroll 1
       for (int pass = 0; pass < kTile / kRowsPerPass; ++pass) {
@@ -370,6 +410,7 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
       __syncwarp();
       if (lane == 0) mbar_arrive(&dq_empty[buf]);  // the staged tile is read
       end_turn(counter, lane);
+      if constexpr (kPacked) ++it;
     }
     return;
   }
@@ -404,6 +445,7 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
         const bool in = q0 + r < a.Sq;
         lse_s[stage][r] = in ? a.lse[row0 + q0 + r] : 0.f;
         delta_s[stage][r] = in ? a.delta[row0 + q0 + r] : 0.f;
+        if constexpr (kPacked) qseg_s[stage * kTile + r] = in ? mrow[q0 + r] : 0;
       }
       mbar_arrive(&full_bar[stage]);
     }
@@ -418,6 +460,9 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int key_b = key_a + 8;
   const bool ok_a = key_a < a.Sk && mrow[key_a] != 0;
   const bool ok_b = key_b < a.Sk && mrow[key_b] != 0;
+  // packed: the two keys' segments (valid keys' are non-zero)
+  const int kseg_a = kPacked && key_a < a.Sk ? mrow[key_a] : 0;
+  const int kseg_b = kPacked && key_b < a.Sk ? mrow[key_b] : 0;
 
   // [4n + e]: columns col0 + 8n + 2t (+1) of keys a, b
   constexpr int kCols = T::kCols;
@@ -459,10 +504,15 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
         const bool qin = row < a.Sq;
         const float l = lse_s[stage][col];
         const float dl = delta_s[stage][col];
-        const bool va = qin && ok_a && (!a.causal || key_a <= pos) &&
-                        (!windowed || key_a > pos - a.window);
-        const bool vb = qin && ok_b && (!a.causal || key_b <= pos) &&
-                        (!windowed || key_b > pos - a.window);
+        bool va = qin && ok_a && (!a.causal || key_a <= pos) &&
+                  (!windowed || key_a > pos - a.window);
+        bool vb = qin && ok_b && (!a.causal || key_b <= pos) &&
+                  (!windowed || key_b > pos - a.window);
+        if constexpr (kPacked) {
+          const int qs = qseg_s[stage * kTile + col];
+          va = va && qs == kseg_a;
+          vb = vb && qs == kseg_b;
+        }
         st[4 * j + e] = va ? __expf(st[4 * j + e] * a.scale - l) : 0.f;
         st[4 * j + 2 + e] = vb ? __expf(st[4 * j + 2 + e] * a.scale - l) : 0.f;
         dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl) * a.scale;
@@ -566,12 +616,14 @@ struct DqTiles {
 // dS = P (dP - delta) scale in place of s, P = exp(s scale - lse) on valid
 // entries and 0 elsewhere, packed to bf16 as the A registers of dQ += dS K
 // (two neighbouring 8-key groups per 16 keys). kAll: every entry is valid
-// (an interior tile), so no test is made.
-template <bool kAll>
+// (an interior tile), so no test is made. kPacked: a key is valid for a row
+// only in the row's segment (kseg: the stage's key segments from column 2t;
+// seg_a, seg_b: the rows').
+template <bool kAll, bool kPacked>
 __device__ __forceinline__ void dscores(uint32_t (&ds)[16], float (&s)[32], const float (&dp)[32],
                                         uint64_t bits, int t, int lim_a, int lim_b, int lo_a,
                                         int lo_b, float lse_a, float lse_b, float dl_a, float dl_b,
-                                        float scale) {
+                                        float scale, const int* kseg, int seg_a, int seg_b) {
   // this thread's key bits, causal limits and window floors (lim, lo),
   // relative to its columns 2t + 8j + e, so that every test below has a
   // constant left side
@@ -583,8 +635,14 @@ __device__ __forceinline__ void dscores(uint32_t (&ds)[16], float (&s)[32], cons
     for (int e = 0; e < 2; ++e) {
       const int col = 8 * j + e;  // minus 2t
       const bool ok = kAll || (((j < 4 ? bits_lo : bits_hi) >> (col % 32)) & 1);
-      const bool va = ok && (kAll || (col <= lim_a && col >= lo_a));
-      const bool vb = ok && (kAll || (col <= lim_b && col >= lo_b));
+      bool ok_a = ok, ok_b = ok;
+      if constexpr (kPacked && !kAll) {
+        const int ks = kseg[col];
+        ok_a = ok && ks == seg_a;
+        ok_b = ok && ks == seg_b;
+      }
+      const bool va = ok_a && (kAll || (col <= lim_a && col >= lo_a));
+      const bool vb = ok_b && (kAll || (col <= lim_b && col >= lo_b));
       const float pa = va ? __expf(s[4 * j + e] * scale - lse_a) : 0.f;
       const float pb = vb ? __expf(s[4 * j + 2 + e] * scale - lse_b) : 0.f;
       s[4 * j + e] = pa * (dp[4 * j + e] - dl_a) * scale;
@@ -602,8 +660,9 @@ __device__ __forceinline__ void dscores(uint32_t (&ds)[16], float (&s)[32], cons
 constexpr int kDqThreads = 160;
 
 // One block per (batch, query head, 64-row query tile); see the header for
-// the roles of its warps. kWindow as in the kv kernel.
-template <int D, bool kWindow>
+// the roles of its warps. kWindow and kPacked as in the kv kernel; packed,
+// the producer posts each stage's key segments as K1's does.
+template <int D, bool kWindow, bool kPacked>
 __global__ void __launch_bounds__(kDqThreads, D == 64 ? 2 : 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
@@ -621,6 +680,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   unsigned char* dOs = Qs + kTileBytes;
   unsigned char* Ks = dOs + kTileBytes;           // [kStages] tiles
   unsigned char* Vs = Ks + kStages * kTileBytes;  // [kStages] tiles
+  // packed: K1's key segments and one-segment flags of each stage
+  int* key_seg = reinterpret_cast<int*>(Vs + kStages * kTileBytes);
+  int* key_useg = key_seg + kStages * kTile;
   __shared__ uint64_t full_bar[kStages], empty_bar[kStages], q_bar;
   __shared__ uint64_t key_bits[kStages];  // valid keys of the tile in a stage
   __shared__ int warp_end[kWarpsAll];
@@ -640,7 +702,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   if (lane == 0) warp_end[warp] = local_end;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full_bar[s], 1);
+      mbar_init(&full_bar[s], kPacked ? 32 : 1);  // packed: every producer lane
       mbar_init(&empty_bar[s], 4);  // lane 0 of every consumer warp
     }
     mbar_init(&q_bar, 1);
@@ -661,7 +723,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   if (a.skip_pad_q && q_start + q_shift >= key_end) n_tiles = 0;
   // the window: key tiles below the band of the tile's first row are skipped
   constexpr bool windowed = kWindow;
-  const int kt_begin = windowed ? max(0, q_start + q_shift - a.window + 1) / kTile : 0;
+  int kt_begin = windowed ? max(0, q_start + q_shift - a.window + 1) / kTile : 0;
+  if constexpr (kPacked) {  // only the keys of the query tile's segments
+    const int2 span = packed_span<kDqThreads>(mrow, a.Sk, q_start, tid);
+    kt_begin = max(kt_begin, span.x / kTile);
+    n_tiles = min(n_tiles, (span.y + kTile - 1) / kTile);
+  }
   // the ring's stage and parity count the tiles run (it), not the tile index
   const int n_run = max(0, n_tiles - kt_begin);
 
@@ -683,6 +750,16 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
       const int k_lo = key0 + lane, k_hi = key0 + 32 + lane;
       const uint32_t lo = __ballot_sync(0xffffffffu, k_lo < a.Sk && mrow[k_lo] != 0);
       const uint32_t hi = __ballot_sync(0xffffffffu, k_hi < a.Sk && mrow[k_hi] != 0);
+      if constexpr (kPacked) {
+        const int s_lo = k_lo < a.Sk ? mrow[k_lo] : 0;
+        const int s_hi = k_hi < a.Sk ? mrow[k_hi] : 0;
+        key_seg[stage * kTile + lane] = s_lo;
+        key_seg[stage * kTile + 32 + lane] = s_hi;
+        const int s0 = __shfl_sync(0xffffffffu, s_lo, 0);
+        const bool one = __all_sync(0xffffffffu, s_lo == s0 && s_hi == s0);
+        if (lane == 0) key_useg[stage] = one && s0 != 0 ? s0 : -2;
+        if (lane != 0) mbar_arrive(&full_bar[stage]);  // after this lane's posts
+      }
       if (lane == 0) {
         key_bits[stage] = uint64_t(lo) | (uint64_t(hi) << 32);
         mbar_arrive_expect_tx(&full_bar[stage], 2 * kTileBytes);
@@ -709,6 +786,14 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   const float lse_b = row_b < a.Sq ? a.lse[stats + row_b] : 0.f;
   const float dl_a = row_a < a.Sq ? a.delta[stats + row_a] : 0.f;
   const float dl_b = row_b < a.Sq ? a.delta[stats + row_b] : 0.f;
+  // packed: the rows' segments and the warp's one segment, as in K1
+  int seg_a = 0, seg_b = 0, warp_seg = -1;
+  if constexpr (kPacked) {
+    seg_a = row_a < a.Sq ? mrow[row_a] : 0;
+    seg_b = row_b < a.Sq ? mrow[row_b] : 0;
+    const int s0 = __shfl_sync(0xffffffffu, seg_a, 0);
+    if (__all_sync(0xffffffffu, seg_a == s0 && seg_b == s0) && s0 != 0) warp_seg = s0;
+  }
 
   float dq[D / 2];  // dq[4n + e]: columns 8n + 2t (+1) of rows a, b
 #pragma unroll
@@ -735,20 +820,24 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 
     // an interior tile (every key valid and, when causal, every row of the
     // warp at or past the tile's last key and, with a window, every key
-    // inside the band of the warp's last row) needs no mask or causal test
+    // inside the band of the warp's last row; packed, the tile's keys and the
+    // warp's rows all in one segment) needs no mask or causal test
     uint32_t ds[16];
+    const int* kseg = key_seg + stage * kTile + 2 * t;
+    const bool all_keys = kPacked ? key_useg[stage] == warp_seg : bits == ~0ull;
     const bool interior =
-        bits == ~0ull && (!a.causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift) &&
+        all_keys && (!a.causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift) &&
         (!windowed || key0 > q_start + 16 * w + 15 + q_shift - a.window);
     if (interior) {
-      dscores<true>(ds, s, dp, bits, t, 0, 0, 0, 0, lse_a, lse_b, dl_a, dl_b, a.scale);
+      dscores<true, kPacked>(ds, s, dp, bits, t, 0, 0, 0, 0, lse_a, lse_b, dl_a, dl_b, a.scale,
+                             kseg, seg_a, seg_b);
     } else {
       const int lim_a = a.causal ? row_a + q_shift - key0 - 2 * t : kTile;
       const int lim_b = a.causal ? row_b + q_shift - key0 - 2 * t : kTile;
       const int lo_a = windowed ? row_a + q_shift - a.window + 1 - key0 - 2 * t : -kTile;
       const int lo_b = windowed ? row_b + q_shift - a.window + 1 - key0 - 2 * t : -kTile;
-      dscores<false>(ds, s, dp, bits, t, lim_a, lim_b, lo_a, lo_b, lse_a, lse_b, dl_a, dl_b,
-                     a.scale);
+      dscores<false, kPacked>(ds, s, dp, bits, t, lim_a, lim_b, lo_a, lo_b, lse_a, lse_b, dl_a,
+                              dl_b, a.scale, kseg, seg_a, seg_b);
     }
 
     // dQ += dS K, K read MN-major from the same stage
@@ -792,14 +881,15 @@ int encode_maps(CUtensorMap (&m)[4], const BwdArgs& a, int B, int D) {
   return rc;
 }
 
-template <int D, bool kWindow>
+template <int D, bool kWindow, bool kPacked>
 int launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
   using T = DqTiles<D>;
   CUtensorMap m[4];
   const int rc = encode_maps(m, a, B, D);
   if (rc != 0) return rc;
-  constexpr int smem = 1024 + (2 + 2 * T::kStages) * T::kTileBytes;
-  auto kernel = flash_bwd_dq_wgmma<D, kWindow>;
+  constexpr int smem = 1024 + (2 + 2 * T::kStages) * T::kTileBytes +
+                       (kPacked ? T::kStages * (kTile + 1) * 4 : 0);
+  auto kernel = flash_bwd_dq_wgmma<D, kWindow, kPacked>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -810,15 +900,16 @@ int launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
 
 enum Which { kFused, kDkv, kDq };
 
-template <int D, bool kFused, bool kWindow>
+template <int D, bool kFused, bool kWindow, bool kPacked>
 int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   using T = KvTiles<D, kFused>;
   CUtensorMap m[4];
   const int rc = encode_maps(m, a, B, D);
   if (rc != 0) return rc;
   constexpr int smem = 1024 + (2 + 2 * T::kStages) * T::kTileBytes +
-                       (kFused ? 2 * kSwizzleTileBytes + 2 * T::kDqBytes : 0);
-  auto kernel = flash_bwd_kv_wgmma<D, kFused, kWindow>;
+                       (kFused ? 2 * kSwizzleTileBytes + 2 * T::kDqBytes : 0) +
+                       (kPacked ? T::kStages * kTile * 4 : 0);
+  auto kernel = flash_bwd_kv_wgmma<D, kFused, kWindow, kPacked>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -827,22 +918,28 @@ int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D, bool kWindow>
+template <int D, bool kWindow, bool kPacked>
 int dispatch_kernel(Which which, const BwdArgs& a, int B, cudaStream_t st) {
   switch (which) {
     case kFused:
-      return launch_kv<D, true, kWindow>(a, B, st);
+      return launch_kv<D, true, kWindow, kPacked>(a, B, st);
     case kDkv:
-      return launch_kv<D, false, kWindow>(a, B, st);
+      return launch_kv<D, false, kWindow, kPacked>(a, B, st);
     default:
-      return launch_dq<D, kWindow>(a, B, st);
+      return launch_dq<D, kWindow, kPacked>(a, B, st);
   }
 }
 
+template <int D, bool kPacked>
+int dispatch_window(Which which, const BwdArgs& a, int B, cudaStream_t st) {
+  return a.window > 0 ? dispatch_kernel<D, true, kPacked>(which, a, B, st)
+                      : dispatch_kernel<D, false, kPacked>(which, a, B, st);
+}
+
 template <int D>
-int dispatch(Which which, const BwdArgs& a, int B, cudaStream_t st) {
-  return a.window > 0 ? dispatch_kernel<D, true>(which, a, B, st)
-                      : dispatch_kernel<D, false>(which, a, B, st);
+int dispatch(Which which, const BwdArgs& a, int B, int packed, cudaStream_t st) {
+  return packed ? dispatch_window<D, true>(which, a, B, st)
+                : dispatch_window<D, false>(which, a, B, st);
 }
 
 int run(Which which, const void* q, const void* k, const void* v,
@@ -852,7 +949,7 @@ int run(Which which, const void* q, const void* k, const void* v,
         long long q_sh, long long k_sb, long long k_ss, long long k_sh,
         long long v_sb, long long v_ss, long long v_sh, long long do_sb,
         long long do_ss, long long do_sh, long long mask_sb, int causal,
-        int skip_pad_q, int window, void* stream) {
+        int skip_pad_q, int window, int packed, void* stream) {
   BwdArgs a;
   a.q = reinterpret_cast<const __nv_bfloat16*>(q);
   a.k = reinterpret_cast<const __nv_bfloat16*>(k);
@@ -880,10 +977,10 @@ int run(Which which, const void* q, const void* k, const void* v,
   a.skip_pad_q = skip_pad_q;
   a.window = causal && window > 0 ? window : -1;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  if (D == 64) return dispatch<64>(which, a, B, st);
-  if (D == 128) return dispatch<128>(which, a, B, st);
-  if (D == 256) return dispatch<256>(which, a, B, st);
+  if (Hq % Hkv != 0 || (packed && Sq != Sk)) return (int)cudaErrorInvalidValue;
+  if (D == 64) return dispatch<64>(which, a, B, packed, st);
+  if (D == 128) return dispatch<128>(which, a, B, packed, st);
+  if (D == 256) return dispatch<256>(which, a, B, packed, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -895,7 +992,7 @@ int run(Which which, const void* q, const void* k, const void* v,
 // of 16 bytes), zeroes the fused kernel's fp32 dq buffer and its int32
 // `sync` buffer (1 + B * Hq * ceil(Sq / 64) * split entries, split 2 at
 // D 256 and 1 otherwise: KvTiles::kSplit), and allocates dk/dv as bf16
-// [B, Sk, Hkv, D].
+// [B, Sk, Hkv, D]. packed: mask holds segment ids (Sq == Sk).
 #define RANKPO_BWD_PARAMS                                                     \
   const void *q, const void *k, const void *v, const int *mask,              \
       const void *dout, const float *lse, const float *delta, void *dq,      \
@@ -903,11 +1000,12 @@ int run(Which which, const void* q, const void* k, const void* v,
       int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb, \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss,        \
       long long v_sh, long long do_sb, long long do_ss, long long do_sh,     \
-      long long mask_sb, int causal, int skip_pad_q, int window, void *stream
+      long long mask_sb, int causal, int skip_pad_q, int window, int packed, \
+      void *stream
 #define RANKPO_BWD_ARGS                                                       \
   q, k, v, mask, dout, lse, delta, dq, dk, dv, sync, B, Sq, Sk, Hq, Hkv, D,  \
       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,    \
-      do_sh, mask_sb, causal, skip_pad_q, window, stream
+      do_sh, mask_sb, causal, skip_pad_q, window, packed, stream
 
 // K2: dq (fp32, summed in key-tile order), dk, dv in one pass
 extern "C" int rankpo_flash_bwd_fused_bf16(RANKPO_BWD_PARAMS) {

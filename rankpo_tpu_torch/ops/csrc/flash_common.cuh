@@ -1,7 +1,7 @@
 // What the flash-attention kernels (flash_fwd.cu, flash_bwd.cu) share beside
 // the Hopper pieces of hopper.cuh: the tile size, the JAX kernel's NEG_INF,
-// the bf16 pair packing of an A operand, and the valid key extent of a mask
-// row.
+// the bf16 pair packing of an A operand, the valid key extent of a mask
+// row, and the span of a tile's segments in packed mode.
 
 #pragma once
 
@@ -33,6 +33,55 @@ __device__ __forceinline__ int warp_key_end(const int* mrow, int Sk, int tid, in
     local_end = max(local_end, __shfl_xor_sync(0xffffffffu, local_end, off));
   }
   return local_end;
+}
+
+// Sequence packing (the kPacked builds): the mask row carries segment ids,
+// contiguous runs 1..n with a 0-id pad tail. The rows (or keys) of the
+// 64-position tile at p0 pair only with positions [lo, hi) of the row:
+// lo = #(0 < m < m[p0]) and hi = #(0 < m <= max(m[p0 .. p0 + 63])), the JAX
+// kernels' counts (flash_attention.py:137-147, :315-328); a tile that starts
+// in the pad tail has hi = 0. Every thread of the block calls it (two
+// barriers) and gets the same span.
+template <int kThreads>
+__device__ __forceinline__ int2 packed_span(const int* mrow, int S, int p0, int tid) {
+  constexpr int kWarps = kThreads / 32;
+  static_assert(kWarps >= 2, "the tile's 64 entries are read by warps 0 and 1");
+  __shared__ int tile_max[2];
+  __shared__ int warp_lo[kWarps], warp_hi[kWarps];
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  if (warp < 2) {
+    int m = p0 + tid < S ? mrow[p0 + tid] : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) tile_max[warp] = m;
+  }
+  __syncthreads();
+  const int first = mrow[p0];
+  const int last = max(tile_max[0], tile_max[1]);
+  int lo = 0, hi = 0;
+  for (int j = tid; j < S; j += kThreads) {
+    const int m = mrow[j];
+    lo += m != 0 && m < first;
+    hi += m != 0 && m <= last;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo += __shfl_xor_sync(0xffffffffu, lo, off);
+    hi += __shfl_xor_sync(0xffffffffu, hi, off);
+  }
+  if (lane == 0) {
+    warp_lo[warp] = lo;
+    warp_hi[warp] = hi;
+  }
+  __syncthreads();
+  lo = hi = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    lo += warp_lo[i];
+    hi += warp_hi[i];
+  }
+  return make_int2(lo, hi);
 }
 
 }  // namespace

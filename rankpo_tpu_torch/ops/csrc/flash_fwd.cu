@@ -19,8 +19,15 @@
 //   visible valid key outputs zeros and lse = NEG_INF. The loop over key
 //   tiles stops at the last valid key and, when causal, at the diagonal;
 //   with a window it starts at the first tile inside the band of the query
-//   tile's first row, so the work grows with S * window, not S^2. No atomics:
-//   out and lse repeat bit for bit.
+//   tile's first row, so the work grows with S * window, not S^2.
+//   Packed (kPacked; Sq == Sk): the mask row carries segment ids,
+//   contiguous runs 1..n with a 0-id pad tail; a pair is valid when the
+//   key's segment is non-zero and equal to the query row's, ANDed with the
+//   tests above. The key tiles run are further bounded to the span of the
+//   query tile's segments (packed_span in flash_common.cuh, JAX's
+//   flash_attention.py:132-147), so a row's work grows with its segment's
+//   length, and a query tile in the pad tail runs none. No atomics: out
+//   and lse repeat bit for bit.
 //
 // What bounds it on this card. At the encoder's shapes (S <= 512, D = 64, 32
 // query heads over 8 kv heads, causal) a (head, query tile) pair runs at most
@@ -50,7 +57,12 @@
 //     layout packed to bf16 is the A operand layout) and V in shared memory
 //     (MN-major, the transposed-B form); D 128 runs two 64-column halves
 //     and D 256 four;
-//   - the valid key length is reduced once per block, behind one barrier.
+//   - the valid key length is reduced once per block, behind one barrier;
+//   - packed: the producer also posts the tile's 64 segment ids and
+//     whether they are all one segment, and every producer lane arrives on
+//     the stage's full barrier; each consumer thread compares its two rows'
+//     segments with its columns' keys. A warp whose 16 rows and the tile's
+//     64 keys all lie in one segment takes the interior path.
 // D 256 (Gemma): a 64-row tile is four swizzle atoms, 32 KB. The O
 // accumulator alone is D / 2 = 128 fp32 registers a thread (plus 32 for S
 // and 16 for P), so a block takes one query head (NC 1: 160 threads, up to
@@ -61,7 +73,7 @@
 // Left out (ROADMAP Queue 2, K1): setmaxnreg register rebalancing between the
 // producer and the consumers, ping-pong scheduling of the consumer
 // warpgroups, overlap of the softmax with the next wgmma inside a warpgroup,
-// a persistent grid, clusters with TMA multicast, fp8 and `segment_ids`.
+// a persistent grid, clusters with TMA multicast, fp8.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -131,8 +143,9 @@ __device__ __forceinline__ void pv(float (&o)[D / 2], uint32_t (&p)[16],
 
 // One block per (batch, kv head, NC query heads, 64-row query tile); see the
 // header for the roles of its warps. kWindow: built with the window's bounds
-// and tests (window > 0, causal), so the kernel without them is unchanged.
-template <int D, int NC, bool kWindow>
+// and tests (window > 0, causal), and kPacked with the segments' (the mask
+// row holds segment ids), so the kernel without them is unchanged.
+template <int D, int NC, bool kWindow, bool kPacked>
 __global__ void __launch_bounds__(NC * 128 + 32, D == 64 ? 2 : 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
@@ -152,6 +165,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* Ks = Qs + NC * kTileBytes;
   unsigned char* Vs = Ks + kStages * kTileBytes;
+  // packed: each stage's 64 key segment ids, then per stage the tiles'
+  // one segment (-2 when its keys are not all of one non-zero segment)
+  int* key_seg = reinterpret_cast<int*>(Vs + kStages * kTileBytes);
+  int* key_useg = key_seg + kStages * kTile;
   __shared__ uint64_t full_bar[kStages], empty_bar[kStages], q_bar;
   __shared__ uint64_t key_bits[kStages];  // valid keys of the tile in a stage
   __shared__ int warp_end[kWarpsAll];
@@ -181,7 +198,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   if (lane == 0) warp_end[warp] = local_end;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full_bar[s], 1);
+      mbar_init(&full_bar[s], kPacked ? 32 : 1);  // packed: every producer lane
       mbar_init(&empty_bar[s], 4 * NC);  // lane 0 of every consumer warp
     }
     mbar_init(&q_bar, 1);
@@ -201,7 +218,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   if (skip_pad_q && q_start + q_shift >= key_end) n_tiles = 0;
   // the window: key tiles below the band of the tile's first row are skipped
   constexpr bool windowed = kWindow;
-  const int kt_begin = windowed ? max(0, q_start + q_shift - window + 1) / kTile : 0;
+  int kt_begin = windowed ? max(0, q_start + q_shift - window + 1) / kTile : 0;
+  if constexpr (kPacked) {  // only the keys of the query tile's segments
+    const int2 span = packed_span<kWarpsAll * 32>(mrow, Sk, q_start, tid);
+    kt_begin = max(kt_begin, span.x / kTile);
+    n_tiles = min(n_tiles, (span.y + kTile - 1) / kTile);
+  }
   // the ring's stage and parity count the tiles run (it), not the tile index
   const int n_run = max(0, n_tiles - kt_begin);
 
@@ -224,6 +246,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       const int k_lo = key0 + lane, k_hi = key0 + 32 + lane;
       const uint32_t lo = __ballot_sync(0xffffffffu, k_lo < Sk && mrow[k_lo] != 0);
       const uint32_t hi = __ballot_sync(0xffffffffu, k_hi < Sk && mrow[k_hi] != 0);
+      if constexpr (kPacked) {
+        const int s_lo = k_lo < Sk ? mrow[k_lo] : 0;
+        const int s_hi = k_hi < Sk ? mrow[k_hi] : 0;
+        key_seg[stage * kTile + lane] = s_lo;
+        key_seg[stage * kTile + 32 + lane] = s_hi;
+        const int s0 = __shfl_sync(0xffffffffu, s_lo, 0);
+        const bool one = __all_sync(0xffffffffu, s_lo == s0 && s_hi == s0);
+        if (lane == 0) key_useg[stage] = one && s0 != 0 ? s0 : -2;
+        if (lane != 0) mbar_arrive(&full_bar[stage]);  // after this lane's posts
+      }
       if (lane == 0) {
         key_bits[stage] = uint64_t(lo) | (uint64_t(hi) << 32);
         mbar_arrive_expect_tx(&full_bar[stage], 2 * kTileBytes);
@@ -250,6 +282,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int row_b = row_a + 8;
   const int pos_a = row_a + q_shift;
   const int pos_b = row_b + q_shift;
+  // packed: the two rows' segments (0 past Sq: such rows see no key) and
+  // the warp's one segment (-1 when its 16 rows span more than one)
+  int seg_a = 0, seg_b = 0, warp_seg = -1;
+  if constexpr (kPacked) {
+    seg_a = row_a < Sq ? mrow[row_a] : 0;
+    seg_b = row_b < Sq ? mrow[row_b] : 0;
+    const int s0 = __shfl_sync(0xffffffffu, seg_a, 0);
+    if (__all_sync(0xffffffffu, seg_a == s0 && seg_b == s0) && s0 != 0) warp_seg = s0;
+  }
 
   float m_a = kNegInf, m_b = kNegInf;  // running row max
   float l_a = 0.f, l_b = 0.f;          // this thread's share of the row sum
@@ -269,10 +310,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 
     // scale, mask. An interior tile (every key valid and, when causal, every
     // row of the warp at or past the tile's last key and, with a window, every
-    // key inside the band of the warp's last row) needs no mask or causal
-    // test.
+    // key inside the band of the warp's last row; packed, the tile's keys and
+    // the warp's rows all in one segment) needs no mask or causal test.
+    const bool all_keys = kPacked ? key_useg[stage] == warp_seg : bits == ~0ull;
     const bool interior =
-        bits == ~0ull && (!causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift) &&
+        all_keys && (!causal || key0 + kTile - 1 <= q_start + 16 * w + q_shift) &&
         (!windowed || key0 > q_start + 16 * w + 15 + q_shift - window);
     if (interior) {
 #pragma unroll
@@ -287,16 +329,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       const int lim_b = causal ? pos_b - key0 - 2 * t : kTile;
       const int lo_a = windowed ? pos_a - window + 1 - key0 - 2 * t : -kTile;
       const int lo_b = windowed ? pos_b - window + 1 - key0 - 2 * t : -kTile;
+      const int* kseg = key_seg + stage * kTile + 2 * t;  // packed: column 8j + e
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * j + e;  // minus 2t
           const bool ok = ((j < 4 ? bits_lo : bits_hi) >> (col % 32)) & 1;
+          bool ok_a = ok, ok_b = ok;
+          if constexpr (kPacked) {
+            const int ks = kseg[col];
+            ok_a = ok && ks == seg_a;
+            ok_b = ok && ks == seg_b;
+          }
           s[4 * j + e] =
-              ok && col <= lim_a && col >= lo_a ? s[4 * j + e] * scale : kNegInf;
+              ok_a && col <= lim_a && col >= lo_a ? s[4 * j + e] * scale : kNegInf;
           s[4 * j + 2 + e] =
-              ok && col <= lim_b && col >= lo_b ? s[4 * j + 2 + e] * scale : kNegInf;
+              ok_b && col <= lim_b && col >= lo_b ? s[4 * j + 2 + e] * scale : kNegInf;
         }
       }
     }
@@ -393,14 +442,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---- host side (tensor maps: encode_map in hopper.cuh) ----
-template <int D, int NC, bool kWindow>
+template <int D, int NC, bool kWindow, bool kPacked>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
            const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
            int Hkv, long long mask_sb, int causal, int skip_pad_q, int window,
            cudaStream_t stream) {
   using T = FwdTiles<D>;
-  constexpr int smem = 1024 + (NC + 2 * T::kStages) * T::kTileBytes;
-  auto kernel = flash_fwd_kernel<D, NC, kWindow>;
+  constexpr int smem = 1024 + (NC + 2 * T::kStages) * T::kTileBytes +
+                       (kPacked ? T::kStages * (kTile + 1) * 4 : 0);
+  auto kernel = flash_fwd_kernel<D, NC, kWindow, kPacked>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -417,32 +467,45 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 #define RANKPO_FWD_HEADS 2
 #endif
 
-template <int D, bool kWindow>
+template <int D, bool kWindow, bool kPacked>
 int dispatch_heads(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                    const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
                    int Hkv, long long mask_sb, int causal, int skip_pad_q, int window,
                    cudaStream_t stream) {
   if constexpr (D != 256) {  // D 256: one query head per block (the header)
     if (RANKPO_FWD_HEADS == 2 && (Hq / Hkv) % 2 == 0) {
-      return launch<D, 2, kWindow>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
-                                   causal, skip_pad_q, window, stream);
+      return launch<D, 2, kWindow, kPacked>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv,
+                                            mask_sb, causal, skip_pad_q, window, stream);
     }
   }
-  return launch<D, 1, kWindow>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
-                               causal, skip_pad_q, window, stream);
+  return launch<D, 1, kWindow, kPacked>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv,
+                                        mask_sb, causal, skip_pad_q, window, stream);
+}
+
+template <int D, bool kPacked>
+int dispatch_window(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                    const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
+                    int Hkv, long long mask_sb, int causal, int skip_pad_q, int window,
+                    cudaStream_t stream) {
+  if (causal && window > 0) {
+    return dispatch_heads<D, true, kPacked>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv,
+                                            mask_sb, causal, skip_pad_q, window, stream);
+  }
+  return dispatch_heads<D, false, kPacked>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv,
+                                           mask_sb, causal, skip_pad_q, -1, stream);
 }
 
 template <int D>
 int dispatch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
              const int* mask, void* out, float* lse, int B, int Sq, int Sk, int Hq,
-             int Hkv, long long mask_sb, int causal, int skip_pad_q, int window,
+             int Hkv, long long mask_sb, int causal, int skip_pad_q, int window, int packed,
              cudaStream_t stream) {
-  if (causal && window > 0) {
-    return dispatch_heads<D, true>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
-                                   causal, skip_pad_q, window, stream);
+  if (packed) {
+    return dispatch_window<D, true>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
+                                    causal, skip_pad_q, window, stream);
   }
-  return dispatch_heads<D, false>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
-                                  causal, skip_pad_q, -1, stream);
+  return dispatch_window<D, false>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb,
+                                   causal, skip_pad_q, window, stream);
 }
 
 }  // namespace
@@ -450,13 +513,16 @@ int dispatch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm
 // Plain C entry point (loaded with ctypes). Returns a cudaError_t value; 0 is
 // success. The caller validates shapes, types, strides and alignment (TMA's
 // rules: a 16-byte-aligned base, strides that are multiples of 16 bytes).
+// packed: mask holds segment ids (Sq == Sk).
 extern "C" int rankpo_flash_fwd_bf16(
     const void* q, const void* k, const void* v, const int* mask, void* out,
     float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long mask_sb, int causal, int skip_pad_q, int window, void* stream) {
-  if ((D != 64 && D != 128 && D != 256) || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+    long long mask_sb, int causal, int skip_pad_q, int window, int packed, void* stream) {
+  if ((D != 64 && D != 128 && D != 256) || Hq % Hkv != 0 || (packed && Sq != Sk)) {
+    return (int)cudaErrorInvalidValue;
+  }
   CUtensorMap qm, km, vm;
   int rc = encode_map(&qm, q, B, Sq, Hq, D, q_sb, q_ss, q_sh);
   if (rc == 0) rc = encode_map(&km, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh);
@@ -465,12 +531,12 @@ extern "C" int rankpo_flash_fwd_bf16(
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64) {
     return dispatch<64>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
-                        skip_pad_q, window, st);
+                        skip_pad_q, window, packed, st);
   }
   if (D == 256) {
     return dispatch<256>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
-                         skip_pad_q, window, st);
+                         skip_pad_q, window, packed, st);
   }
   return dispatch<128>(qm, km, vm, mask, out, lse, B, Sq, Sk, Hq, Hkv, mask_sb, causal,
-                       skip_pad_q, window, st);
+                       skip_pad_q, window, packed, st);
 }

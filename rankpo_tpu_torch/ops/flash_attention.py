@@ -38,11 +38,16 @@ The kernels take bf16 only, head_dim 64, 128 or 256, a key mask, causal,
 row q sees keys with q_pos - k_pos < window). With a window every kernel
 skips the key tiles (K1, K3a) or query tiles (K2, K3b) outside the band, as
 the JAX kernels skip blocks, so its work grows with S * window rather than
-S^2. ``segment_ids`` is not ported yet and raises. At head_dim 256
-(Gemma) K1 and K3a run one query head per block, and K2 and K3b two
-blocks per key tile, one per 128-column half of dK/dV/dQ, each computing
-the whole S^T and dP^T (``flash_bwd.cu``'s header). Other head dims raise
-on a CUDA tensor (ROADMAP.md Queue 2).
+S^2. ``segment_ids`` (sequence packing, Sq == Sk, in place of the mask)
+makes attention block-diagonal: the mask buffer carries the segment ids, as
+JAX's wrapper passes them (``flash_attention.py:741``), and builds of each
+kernel with ``kPacked`` test each pair's segments and visit only the tiles
+of a query tile's (K1, K3a) or key tile's (K2, K3b) segments, JAX's bounds
+(``flash_attention.py:132-147``, ``:222-233``, ``:314-328``, ``:429-442``).
+At head_dim 256 (Gemma) K1 and K3a run one query head per block, and K2
+and K3b two blocks per key tile, one per 128-column half of dK/dV/dQ, each
+computing the whole S^T and dP^T (``flash_bwd.cu``'s header). Other head
+dims raise on a CUDA tensor (ROADMAP.md Queue 2).
 
 :func:`flash_attention_fwd_reference` and :func:`flash_attention_bwd_reference`
 are the plain PyTorch versions of the same contracts, used by the CPU tests
@@ -56,15 +61,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from rankpo_tpu_torch.ops.attention import BWD_IMPLS, NEG_INF, allowed_pairs, masked_logits
+from rankpo_tpu_torch.ops.attention import (BWD_IMPLS, NEG_INF, allowed_pairs,
+                                            check_segments, masked_logits)
 
 # launches of each CUDA kernel in this process (read by chip_smoke.py to show
 # the main path went through them); incremented only after a launch
 # succeeded. ``window_launches`` counts the launches among them that ran with
-# a sliding window, ``d256_launches`` those at head_dim 256.
+# a sliding window, ``d256_launches`` those at head_dim 256,
+# ``packed_launches`` those with ``segment_ids``.
 launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_dq": 0, "flash_dkv": 0}
 window_launches = dict(launches)
 d256_launches = dict(launches)
+packed_launches = dict(launches)
 _count_lock = threading.Lock()
 
 HEAD_DIMS = (64, 128, 256)
@@ -76,15 +84,18 @@ def reset_launches() -> None:
             launches[name] = 0
             window_launches[name] = 0
             d256_launches[name] = 0
+            packed_launches[name] = 0
 
 
-def _count(name: str, window: Optional[int], head_dim: int) -> None:
+def _count(name: str, window: Optional[int], head_dim: int, packed: bool) -> None:
     with _count_lock:
         launches[name] += 1
         if window is not None:
             window_launches[name] += 1
         if head_dim == 256:
             d256_launches[name] += 1
+        if packed:
+            packed_launches[name] += 1
 
 
 def _check_window(window: Optional[int], causal: bool) -> int:
@@ -108,12 +119,15 @@ def flash_attention_fwd_reference(
     *,
     causal: bool = False,
     window: Optional[int] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel: (out [B, Sq, Hq, D] in v's dtype,
-    lse [B, Hq, Sq] fp32). Rows with no valid key give zeros and
-    lse = NEG_INF, as the kernel does. Computes every row (no skip_pad_q)."""
+    lse [B, Hq, Sq] fp32). Rows with no valid key (pad rows of a packed
+    row among them) give zeros and lse = NEG_INF, as the kernel does.
+    Computes every row (no skip_pad_q)."""
     b, sq, hq, d = q.shape
-    logits = masked_logits(q, k, mask, causal, window)  # [B, Hkv, G, Sq, Sk]
+    check_segments(segment_ids, mask, b, sq, k.shape[1])
+    logits = masked_logits(q, k, mask, causal, window, segment_ids)  # [B, Hkv, G, Sq, Sk]
     any_valid = logits.amax(dim=-1) > NEG_INF * 0.5
     lse = torch.where(any_valid, torch.logsumexp(logits, dim=-1), NEG_INF)
     probs = torch.softmax(logits, dim=-1)
@@ -133,6 +147,7 @@ def flash_attention_bwd_reference(
     *,
     causal: bool = False,
     window: Optional[int] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward from the forward's stats, with the contract of JAX's
     ``flash_bwd_fused``: q/do [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], lse and
@@ -145,6 +160,7 @@ def flash_attention_bwd_reference(
     ds = p (dp - delta) scale cast to q's dtype; dk = ds^T q; dq = ds k."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
+    check_segments(segment_ids, mask, b, sq, sk)
     groups = hq // hkv
     scale = 1.0 / (d**0.5)
     qf = q.to(torch.float32).reshape(b, sq, hkv, groups, d)
@@ -154,7 +170,7 @@ def flash_attention_bwd_reference(
     valid = torch.ones(b, 1, 1, sq, sk, dtype=torch.bool, device=q.device)
     if mask is not None:
         valid = valid & mask.to(torch.bool)[:, None, None, None, :]
-    allowed = allowed_pairs(sq, sk, causal, window, q.device)
+    allowed = allowed_pairs(sq, sk, causal, window, q.device, segment_ids)
     if allowed is not None:
         valid = valid & allowed
     lse5 = lse.to(torch.float32).reshape(b, hkv, groups, sq, 1)
@@ -212,8 +228,12 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         _check_rows(name, x)
 
 
-def _int_mask(mask: Optional[torch.Tensor], b: int, sk: int,
-              device: torch.device) -> torch.Tensor:
+def _int_mask(mask: Optional[torch.Tensor], segment_ids: Optional[torch.Tensor], b: int,
+              sk: int, device: torch.device) -> torch.Tensor:
+    """The kernels' int32 [B, Sk] mask buffer: the key mask (all valid by
+    default), or the segment ids in packed mode."""
+    if segment_ids is not None:
+        mask = segment_ids
     if mask is None:
         return torch.ones((b, sk), dtype=torch.int32, device=device)
     if mask.shape != (b, sk):
@@ -242,17 +262,16 @@ def flash_attention_fwd(
     ``skip_pad_q``, query tiles that start at or past the valid key length
     output zeros: compare only rows below the valid length. ``window``
     (with ``causal``): rows see keys with q_pos - k_pos < window; a row
-    that sees no valid key outputs zeros and lse NEG_INF."""
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "flash kernel: `segment_ids` is not ported yet (ROADMAP.md Queue 1 "
-            "item 7: sequence packing)"
-        )
+    that sees no valid key outputs zeros and lse NEG_INF. ``segment_ids``
+    [B, S] (Sq == Sk, no ``mask``): contiguous segments 1..n with a 0-id
+    pad tail, attention within each segment only."""
     win = _check_window(window, causal)
+    check_segments(segment_ids, mask, q.shape[0], q.shape[1], k.shape[1])
     _check_qkv(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    mask = _int_mask(mask, b, sk, q.device)
+    mask = _int_mask(mask, segment_ids, b, sk, q.device)
+    packed = segment_ids is not None
 
     from rankpo_tpu_torch.ops._build import load_library
 
@@ -266,11 +285,11 @@ def flash_attention_fwd(
             out.data_ptr(), lse.data_ptr(),
             b, sq, sk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], mask.stride(0),
-            int(causal), int(skip_pad_q), win, stream,
+            int(causal), int(skip_pad_q), win, int(packed), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {rc}")
-    _count("flash_fwd", window, d)
+    _count("flash_fwd", window, d, packed)
     return out, lse
 
 
@@ -298,6 +317,7 @@ def flash_attention_bwd(
     causal: bool = False,
     skip_pad_q: bool = False,
     window: Optional[int] = None,
+    segment_ids: Optional[torch.Tensor] = None,
     bwd_impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels on the forward's inputs and stats:
@@ -318,9 +338,11 @@ def flash_attention_bwd(
 
     Both give dq, dk and dv that repeat bit for bit. K2 and K3b sum each GQA
     group's dk/dv in the kernel, as ``flash_bwd_fused`` sums them per
-    group, and write them in bf16. ``window`` is the forward's."""
+    group, and write them in bf16. ``window`` and ``segment_ids`` are the
+    forward's."""
     bwd_impl = resolve_bwd_impl(bwd_impl)
     win = _check_window(window, causal)
+    check_segments(segment_ids, mask, q.shape[0], q.shape[1], k.shape[1])
     _check_qkv(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -332,7 +354,8 @@ def flash_attention_bwd(
             raise ValueError(f"flash kernel: {name} must be contiguous fp32 {(b, hq, sq)}")
         if x.device != q.device:
             raise ValueError(f"flash kernel: {name} must be on {q.device}")
-    mask = _int_mask(mask, b, sk, q.device)
+    mask = _int_mask(mask, segment_ids, b, sk, q.device)
+    packed = segment_ids is not None
 
     from rankpo_tpu_torch.ops._build import load_library
 
@@ -365,11 +388,11 @@ def flash_attention_bwd(
                 b, sq, sk, hq, hkv, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *do.stride()[:3], mask.stride(0),
-                int(causal), int(skip_pad_q), win, stream,
+                int(causal), int(skip_pad_q), win, int(packed), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-            _count(name, window, d)
+            _count(name, window, d, packed)
     if fused:
         dq = dq.permute(0, 2, 1, 3).to(q.dtype)
     return dq, dk, dv
@@ -381,27 +404,30 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal: bool, skip_pad_q: bool,
-                bwd_impl: str, window: Optional[int] = None):
+                bwd_impl: str, window: Optional[int] = None,
+                segment_ids: Optional[torch.Tensor] = None):
         out, lse = flash_attention_fwd(
-            q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q, window=window
+            q, k, v, mask, causal=causal, skip_pad_q=skip_pad_q, window=window,
+            segment_ids=segment_ids,
         )
-        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.save_for_backward(q, k, v, mask, segment_ids, out, lse)
         ctx.causal, ctx.skip_pad_q, ctx.bwd_impl = causal, skip_pad_q, bwd_impl
         ctx.window = window
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, mask, out, lse = ctx.saved_tensors
+        q, k, v, mask, segment_ids, out, lse = ctx.saved_tensors
         do = do.contiguous()
         # delta = rowsum(dO * O) in fp32 (flash_attention.py:669)
         delta = (do.to(torch.float32) * out.to(torch.float32)).sum(-1)
         delta = delta.permute(0, 2, 1).contiguous()
         dq, dk, dv = flash_attention_bwd(
             q, k, v, mask, do, lse, delta, causal=ctx.causal,
-            skip_pad_q=ctx.skip_pad_q, window=ctx.window, bwd_impl=ctx.bwd_impl,
+            skip_pad_q=ctx.skip_pad_q, window=ctx.window, segment_ids=segment_ids,
+            bwd_impl=ctx.bwd_impl,
         )
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -413,10 +439,12 @@ def flash_attention(
     causal: bool = False,
     skip_pad_q: bool = False,
     window: Optional[int] = None,
+    segment_ids: Optional[torch.Tensor] = None,
     bwd_impl: str = "auto",
 ) -> torch.Tensor:
     """Differentiable flash attention on CUDA tensors: out [B, Sq, Hq, D]."""
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
     _check_window(window, causal)
-    return FlashAttention.apply(q, k, v, mask, causal, skip_pad_q, bwd_impl, window)
+    return FlashAttention.apply(q, k, v, mask, causal, skip_pad_q, bwd_impl, window,
+                                segment_ids)

@@ -21,7 +21,8 @@ The JAX service's fused-program cache (``_get_fused``, ``_build_fused*``,
 keep XLA compiles and remote dispatches off the request path, and the port
 compiles nothing per shape. So a mutation keeps nothing to rebind, and
 ``rewarm_after_mutation`` replays the last warmup after every mutation.
-Packed queries are not ported (ROADMAP.md Queue 1 item 7).
+``pack_queries`` packs each group's queries several to a row
+(``data/packing.py``) and embeds them with block-diagonal attention.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rankpo_tpu_torch.data.packing import pack_token_lists
 from rankpo_tpu_torch.index import io as index_io
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
 from rankpo_tpu_torch.index.factory import resolve_index_spec
@@ -119,6 +121,8 @@ class RetrievalService:
         stable_ids: bool = False,
         rewarm_after_mutation: bool = False,
         mutation_headroom: float = 0.25,
+        pack_queries: bool = False,
+        pack_max_segments: int = 16,
     ):
         """The index arguments are :func:`resolve_tier`'s; ``recall_target
         < 1`` is also the flat tier's approximate mode. ``stable_ids``:
@@ -129,7 +133,10 @@ class RetrievalService:
         ``remove_ids`` renumbering. ``mutation_headroom``: when an add
         outgrows the index's storage, the new storage holds this fraction of
         extra rows (or slots) for later adds. ``rewarm_after_mutation``: a
-        mutation replays the last :meth:`warmup` before it returns."""
+        mutation replays the last :meth:`warmup` before it returns.
+        ``pack_queries``: each group of up to ``query_batch_size`` queries is
+        bin-packed into rows of ``max_query_length`` tokens, at most
+        ``pack_max_segments`` queries a row (JAX ``service.py:983-1030``)."""
         self.encoder = encoder
         self.max_query_length = max_query_length
         self.query_batch_size = query_batch_size
@@ -137,6 +144,8 @@ class RetrievalService:
         self.index_type, self.index_dtype, self.index_kwargs = resolve_tier(
             index_type, index_dtype, index_kwargs)
         self.stable_ids = stable_ids
+        self.pack_queries = pack_queries
+        self.pack_max_segments = pack_max_segments
         self.rewarm_after_mutation = rewarm_after_mutation
         if mutation_headroom < 0.0:
             raise ValueError("mutation_headroom must be >= 0")
@@ -487,6 +496,36 @@ class RetrievalService:
             return {"allowed_ids": allowed_ids}
         return {"disallowed_ids": disallowed_ids}
 
+    @staticmethod
+    def _rows_bucket(rows: int) -> int:
+        """Power-of-two packed row counts (JAX ``service.py:974``, one
+        device): a group's rows round up, so few shapes recur."""
+        b = 1
+        while b < rows:
+            b *= 2
+        return b
+
+    def _prepare_packed_queries(self, chunk: List[str]):
+        """Tokenize and bin-pack one group of queries: (ids, segment ids
+        [R, max_query_length], slot table [R, pack_max_segments], slots).
+        The slot table maps segments to the group's request order, so
+        result row i is request i; the slot block is ``query_batch_size``
+        wide for every group, as the JAX service fixes it."""
+        pad_id = self.encoder.config.pad_token_id or 0
+        encoded = self.encoder.tokenizer(list(chunk), max_length=self.max_query_length,
+                                         truncation=True)
+        ids_list = [x or [pad_id] for x in encoded["input_ids"]]
+        packed = pack_token_lists(ids_list, self.max_query_length, self.pack_max_segments,
+                                  pad_id)
+        pad_rows = self._rows_bucket(packed.n_rows) - packed.n_rows
+        ids = np.pad(packed.input_ids, ((0, pad_rows), (0, 0)), constant_values=pad_id)
+        segs = np.pad(packed.segment_ids, ((0, pad_rows), (0, 0)))
+        slot_idx = np.pad(packed.text_index,
+                          ((0, pad_rows), (0, self.pack_max_segments - packed.max_segments)),
+                          constant_values=-1)
+        slots = np.arange(self.query_batch_size, dtype=np.int32)
+        return ids, segs, slot_idx, slots
+
     def search_texts(self, texts: List[str], k: int, nprobe: Optional[int] = None,
                      candidates: Optional[int] = None, *, allowed_ids=None,
                      disallowed_ids=None):
@@ -515,9 +554,15 @@ class RetrievalService:
         scores, indices = [], []
         for lo in range(0, len(texts), self.query_batch_size):
             chunk = texts[lo : lo + self.query_batch_size]
-            batch = self.encoder.prepare_batch(chunk, len(chunk), self.max_query_length)
             with torch.inference_mode():
-                reps = self.encoder.embed_batch(batch)
+                if self.pack_queries:
+                    ids, segs, slot_idx, slots = self._prepare_packed_queries(chunk)
+                    reps = self.encoder.embed_packed_batch(ids, segs, slot_idx, len(slots))
+                    reps = reps[: len(chunk)]
+                else:
+                    batch = self.encoder.prepare_batch(chunk, len(chunk),
+                                                       self.max_query_length)
+                    reps = self.encoder.embed_batch(batch)
                 s, i = index.search_tensor(reps, k_eff, **search_kw)
             scores.append(s.cpu().numpy())
             indices.append(i.cpu().numpy())

@@ -3,7 +3,9 @@
 
 Each factory returns ``loss_fn(model, batch) -> (loss, metrics)`` for the
 single-card ``Trainer``; ``batch`` holds 'query' and 'passage' blocks of
-device tensors ({'input_ids', 'attention_mask'}). The model carries the
+device tensors ({'input_ids', 'attention_mask'}, or a packed block from
+``data/packing.py``'s collators: {'input_ids', 'segment_ids',
+'slot_index', 'slots'}). The model carries the
 compute dtype and gradient checkpointing (``models/base.py``
 ``for_training``). A loss function that uses dropout also takes a
 ``generator`` (``loss_fn(model, batch, generator)``, the trainer's
@@ -24,7 +26,20 @@ from rankpo_tpu_torch.losses.contrastive import (
 )
 from rankpo_tpu_torch.losses.rankpo import rankpo_batch_loss
 from rankpo_tpu_torch.models.config import EncoderConfig
-from rankpo_tpu_torch.models.encoder import embed
+from rankpo_tpu_torch.models.encoder import embed, embed_packed
+from rankpo_tpu_torch.models.packing import scatter_packed_reps
+
+
+def _embed_field(model, block, **kwargs) -> torch.Tensor:
+    """Embed one batch field (the query or the passage block), packed or
+    plain (JAX ``steps.py:27-44``). A packed block runs the block-diagonal
+    forward and scatters each segment's embedding back to its batch
+    position: the plain path's values on the same texts, without the pad
+    tokens' work."""
+    if "segment_ids" in block:
+        reps, _valid = embed_packed(model, block, block["slot_index"].shape[1], **kwargs)
+        return scatter_packed_reps(reps, block["slot_index"], block["slots"].shape[0])
+    return embed(model, block, **kwargs)
 
 
 def uses_dropout(model_config: EncoderConfig) -> bool:
@@ -55,10 +70,10 @@ def make_contrastive_loss_fn(
     temperature = validate_temperature(normalize_embeddings, temperature)
 
     def loss_fn(model, batch, generator=None):
-        q_reps = embed(model, batch["query"], normalize=normalize_embeddings,
-                       attn_impl=attn_impl, generator=generator)
-        p_reps = embed(model, batch["passage"], normalize=normalize_embeddings,
-                       attn_impl=attn_impl, generator=generator)
+        q_reps = _embed_field(model, batch["query"], normalize=normalize_embeddings,
+                              attn_impl=attn_impl, generator=generator)
+        p_reps = _embed_field(model, batch["passage"], normalize=normalize_embeddings,
+                              attn_impl=attn_impl, generator=generator)
         b = q_reps.shape[0]
         group_size = p_reps.shape[0] // b
         row_valid = batch.get("row_valid")
@@ -121,10 +136,10 @@ def make_rankpo_loss_fn(
         )
 
     def _scores(model, batch, generator=None):
-        q_reps = embed(model, batch["query"], normalize=True, attn_impl=attn_impl,
-                       generator=generator)
-        p_reps = embed(model, batch["passage"], normalize=True, attn_impl=attn_impl,
-                       generator=generator)
+        q_reps = _embed_field(model, batch["query"], normalize=True, attn_impl=attn_impl,
+                              generator=generator)
+        p_reps = _embed_field(model, batch["passage"], normalize=True, attn_impl=attn_impl,
+                              generator=generator)
         grouped = p_reps.reshape(q_reps.shape[0], 2, -1)  # [chosen, rejected]
         return torch.einsum("bh,bgh->bg", q_reps.float(), grouped.float())
 

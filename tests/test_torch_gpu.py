@@ -475,6 +475,142 @@ def test_d256_bwd_repeats_bit_for_bit(cuda, full, window):
                 assert torch.equal(a, b), (impl, full, window)
 
 
+# sequence packing (segment_ids): (B, S, Hq, Hkv, D), causal, window, the
+# longest segment. BGE's non-causal 16 / 16 at D 64, Llama's causal 32 / 8,
+# Qwen2's 12 / 2 at D 128, gemma-2b's 8 / 1 at D 256, a window shorter than
+# the segments, and S off the 64-row tile
+PACKED_SHAPES = [
+    ((4, 512, 16, 16, 64), False, None, 300),
+    ((4, 512, 32, 8, 64), True, None, 300),
+    ((4, 512, 32, 8, 64), True, None, 40),  # many segments per tile
+    ((4, 256, 12, 2, 128), True, None, 150),
+    ((4, 512, 8, 1, 256), True, None, 300),
+    ((2, 1024, 32, 8, 128), True, 100, 700),
+    ((4, 200, 32, 8, 64), True, None, 90),
+]
+
+
+def _packed_segments(b, s, max_len, seed=0):
+    """[B, S] int32 segment ids, contiguous runs 1..n and a pad tail: row 0
+    one segment over the whole row, row 1 all pad (a row the packer padded
+    on), the others segments of random lengths in [1, max_len] that start
+    mid-tile and cross tiles, then a pad tail of up to a quarter of the row,
+    so whole query tiles lie in the pad."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((b, s), np.int32)
+    seg[0] = 1
+    for r in range(2, b):
+        end = s - int(rng.integers(0, s // 4 + 1))
+        pos, i = 0, 1
+        while pos < end:
+            n = min(int(rng.integers(1, max_len + 1)), end - pos)
+            seg[r, pos : pos + n] = i
+            pos, i = pos + n, i + 1
+    return torch.from_numpy(seg)
+
+
+def _packed_inputs(shape, max_len, cuda, seed=0):
+    b, s, hq, hkv, d = shape
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, s, hq, d, generator=g).bfloat16().to(cuda)
+    k = torch.randn(b, s, hkv, d, generator=g).bfloat16().to(cuda)
+    v = torch.randn(b, s, hkv, d, generator=g).bfloat16().to(cuda)
+    do = torch.randn(b, s, hq, d, generator=g).bfloat16().to(cuda)
+    return q, k, v, do, _packed_segments(b, s, max_len, seed).to(cuda)
+
+
+@pytest.mark.parametrize("shape,causal,window,max_len", PACKED_SHAPES)
+def test_packed_kernels_match_plain(cuda, shape, causal, window, max_len):
+    """K1, K2, K3a and K3b with segment_ids against their plain versions
+    (every row: pad rows give zeros, lse NEG_INF and zero gradients), two
+    launches of each bit-equal, each launch counted as packed."""
+    q, k, v, do, seg = _packed_inputs(shape, max_len, cuda)
+    kw = dict(causal=causal, window=window, segment_ids=seg)
+    before = dict(port_flash.packed_launches)
+    with torch.inference_mode():
+        out, lse = flash_attention_fwd(q, k, v, None, skip_pad_q=True, **kw)
+        again = flash_attention_fwd(q, k, v, None, skip_pad_q=True, **kw)
+        ref, rlse = flash_attention_fwd_reference(q.float(), k.float(), v.float(), None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert (out.float() - ref).abs().max().item() <= OUT_ATOL
+    has_key = rlse > -1e29
+    assert (lse - rlse).abs()[has_key].max().item() <= LSE_ATOL
+    assert torch.all(lse[~has_key] == rlse[~has_key])
+    assert torch.all(out.abs().amax(-1)[~has_key.permute(0, 2, 1)] == 0)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    plain = flash_attention_bwd_reference(q, k, v, None, do, lse, delta, **kw)
+    got = {}
+    for impl in ("fused", "split"):
+        got[impl] = flash_attention_bwd(q, k, v, None, do, lse, delta, skip_pad_q=True,
+                                        bwd_impl=impl, **kw)
+        again = flash_attention_bwd(q, k, v, None, do, lse, delta, skip_pad_q=True,
+                                    bwd_impl=impl, **kw)
+        for a, b_, name in zip(got[impl], again, ("dq", "dk", "dv")):
+            assert torch.equal(a, b_), f"{impl} {name} differs between two launches"
+        for a, r, name in zip(got[impl], plain, ("dq", "dk", "dv")):
+            err = (a.float() - r).abs().max().item()
+            assert err <= BWD_TOL_OF_MAX * r.abs().max().item(), (impl, name, err)
+            rel = ((a.float() - r).norm() / r.norm()).item()
+            assert rel <= BWD_REL_L2, (impl, name, rel)
+    torch.cuda.synchronize()
+    # dk and dv come from the same code in K2 and K3b
+    for a, b_, name in zip(got["fused"][1:], got["split"][1:], ("dk", "dv")):
+        assert torch.equal(a, b_), f"fused and split {name} differ"
+    assert {n: port_flash.packed_launches[n] - before[n] for n in before} == {
+        "flash_fwd": 2, "flash_bwd_fused": 2, "flash_dq": 2, "flash_dkv": 2}
+
+
+def test_packed_fused_dq_order_with_pad_tiles(cuda):
+    """K2's dq order with segments: layouts whose query tiles lie wholly in
+    the pad, whose segments start mid-tile and span several tiles, and whose
+    key tiles meet no query tile of theirs but the first (one long segment
+    then one-token ones). Each finishes (no block waits on a key tile that
+    never counts), repeats bit for bit and agrees with split."""
+    b, s, hq, hkv, d = 3, 768, 8, 2, 64
+    seg = np.zeros((b, s), np.int32)
+    seg[0, :650] = 1  # one segment over 11 tiles, then 2 pad tiles
+    seg[1, :100], seg[1, 100:101], seg[1, 101:700] = 1, 2, 3  # starts mid-tile
+    seg[2, :500] = 1
+    seg[2, 500:530] = np.arange(2, 32)  # one-token segments in a tile
+    g = torch.Generator().manual_seed(11)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g).bfloat16().to(cuda)
+                   for h in (hq, hkv, hkv, hq))
+    seg = torch.from_numpy(seg).to(cuda)
+    for causal in (True, False):
+        out, lse = flash_attention_fwd(q, k, v, None, causal=causal, skip_pad_q=True,
+                                       segment_ids=seg)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        args = (q, k, v, None, do, lse, delta)
+        runs = {impl: [flash_attention_bwd(*args, causal=causal, skip_pad_q=True,
+                                           segment_ids=seg, bwd_impl=impl) for _ in range(3)]
+                for impl in ("fused", "split")}
+        torch.cuda.synchronize()
+        for impl, grads in runs.items():
+            for again in grads[1:]:
+                assert all(torch.equal(x, y) for x, y in zip(grads[0], again)), impl
+        plain = flash_attention_bwd_reference(*args, causal=causal, segment_ids=seg)
+        for impl, grads in runs.items():
+            for a, r, name in zip(grads[0], plain, ("dq", "dk", "dv")):
+                rel = ((a.float() - r).norm() / r.norm()).item()
+                assert rel <= BWD_REL_L2, (causal, impl, name, rel)
+
+
+def test_packed_autograd_through_function(cuda):
+    """The FlashAttention Function with segment_ids against autograd through
+    the plain attention (both bf16): gradients agree to cosine >= 0.999."""
+    q, k, v, do, seg = _packed_inputs((4, 384, 32, 8, 64), 120, cuda, seed=3)
+    grads = []
+    for fn in (lambda *a: flash_attention(*a, None, causal=True, segment_ids=seg),
+               lambda *a: attention_reference(*a, None, True, segment_ids=seg)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        (fn(*leaves).float() * do.float()).sum().backward()
+        grads.append([x.grad.float() for x in leaves])
+    for a, r, name in zip(*grads, ("dq", "dk", "dv")):
+        cos = torch.nn.functional.cosine_similarity(a.flatten(), r.flatten(), dim=0)
+        assert cos.item() >= 0.999, name
+
+
 def test_other_head_dims_raise_on_card(cuda):
     """Head dims other than 64, 128 and 256 raise on a CUDA tensor, naming
     the queue that ports them, and launch nothing."""

@@ -64,6 +64,8 @@ MODULES = [
     "rankpo_tpu_torch.cli.run_pipeline",
     "rankpo_tpu_torch.tools.autotune",
     "rankpo_tpu_torch.cli.autotune",
+    "rankpo_tpu_torch.data.packing",
+    "rankpo_tpu_torch.models.packing",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

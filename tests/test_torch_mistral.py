@@ -226,7 +226,7 @@ def test_window_arguments_are_checked():
         flash_attention_fwd(qb.detach(), kb, vb, mask, causal=True, window=4)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         multi_head_attention(q, k, v, mask=mask, causal=True, impl="flash", window=4)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="not both"):  # JAX's rule (flash_attention.py:737)
         flash_attention_fwd(qb.detach(), kb, vb, mask, causal=True, segment_ids=mask)
     assert (port_flash.launches, port_flash.window_launches) == before
     port_flash.reset_launches()

@@ -223,14 +223,33 @@ def test_http_server(checkpoint):
 
 
 @pytest.mark.parametrize("flag,item", [(["--num_processes", "2"], "item 8"),
-                                       (["--pack_queries"], "item 7")])
+                                       (["--process_id", "0"], "item 8")])
 def test_unported_flags_fail(checkpoint, flag, item, capsys):
-    """Each rejected with its ROADMAP.md item: multi-host serving (8) and
-    packed queries (7)."""
+    """Each rejected with its ROADMAP.md item: multi-host serving (8)."""
     with pytest.raises(SystemExit):
         cli.main(_argv(checkpoint, "--device", "cpu", *flag))
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP.md" in err and item in err
+
+
+def test_pack_queries_serves_the_unpacked_hits(checkpoint):
+    """``--pack_queries`` (several queries to a row, block-diagonal
+    attention): the server's service packs, and its hits for QUERIES are
+    the unpacked service's (the same indices, scores within 1e-5)."""
+    services = [cli.make_server(_argv(checkpoint, "--device", "cpu", *flags))
+                for flags in ([], ["--pack_queries", "--pack_max_segments", "3"])]
+    try:
+        plain, packed = (server.service for server in services)
+        assert packed.pack_queries and packed.pack_max_segments == 3
+        assert not plain.pack_queries
+        for p, u in zip(packed.query(QUERIES, k=10), plain.query(QUERIES, k=10)):
+            assert [h["index"] for h in p["hits"]] == [h["index"] for h in u["hits"]]
+            np.testing.assert_allclose([h["score"] for h in p["hits"]],
+                                       [h["score"] for h in u["hits"]], atol=1e-5)
+    finally:
+        for server in services:
+            server.batcher.close()
+            server.server_close()
 
 
 @pytest.mark.parametrize("flag,check", [

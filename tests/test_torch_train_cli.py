@@ -115,7 +115,7 @@ def test_two_stages_end_to_end_on_cpu(workdir):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--use_lora", "True"], ["--pack_sequences", "True"], ["--streaming", "True"],
+    ["--use_lora", "True"], ["--retrieval_eval_query_file", "q.jsonl"], ["--streaming", "True"],
     ["--optim", "adafactor"], ["--gradient_checkpointing_policy", "dots"],
     ["--eval_strategy", "epoch"], ["--grad_cache", "True"],
 ])
@@ -129,6 +129,17 @@ def test_unported_flags_fail(workdir, tmp_path, flag):
         argv = _stage1_argv(workdir, tmp_path, *flag)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         module.main(argv)
+
+
+def test_pack_sequences_trains(workdir, tmp_path):
+    """``--pack_sequences True``: stage 1 packs each micro-batch's texts
+    several to a row and trains; the output loads in both packages."""
+    _, base = load_pretrained(str(workdir / "base"))
+    hist = run_contrastive.main(_stage1_argv(workdir, tmp_path, "--pack_sequences", "True",
+                                             "--pack_max_segments", "8"))
+    assert [h["global_step"] for h in hist] == [1, 2, 3]
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist)
+    _assert_loads_in_both(tmp_path, base)
 
 
 def test_cuda_device_without_card_fails(workdir, tmp_path):
