@@ -84,6 +84,27 @@ version. Phases:
    repeating bit for bit from the seed, K1/K2 and K1/K3a/K3b launched with
    segments; step time, real tokens/s, the pad share packed and unpacked,
    peak memory;
+5f. the single-card training features (after 5p) at Llama-3.2-1B's full
+   width and depth, phase 5's settings, through the CLIs: stage 1 under
+   gradient checkpointing "full", "dots" and "attn" (bit-equal losses
+   and gradient norms; "attn" launches half of "full"'s K1, the same K2);
+   ``--optim adamw8bit`` and ``adafactor`` (first loss bit-equal to
+   AdamW's); stage 2 for 2 steps with its optimizer state, resumed with
+   ``--resume_from_checkpoint latest`` for 2 more, losses and final
+   model.safetensors bit-equal to 4 straight steps (AdamW with a
+   synchronous save; the 8-bit AdamW with ``--async_checkpointing``);
+   SIGTERM to ``python -m
+   rankpo_tpu_torch.cli.run_rankpo`` (2 of 16 layers) after its first
+   step: exit 0 with a checkpoint, then resumed; stage 2 with
+   ``--eval_data --eval_strategy steps --eval_steps 2`` (``eval_loss``
+   bit-equal to a no-grad loss over the file outside the trainer, printed
+   beside the plain attention's in bf16 and fp32);
+   stage 1 at batch 8 x accumulation 4 with ``--grad_cache True`` (the
+   first loss held to one fp32 InfoNCE over all 32 rows; one more K1 per
+   layer, field and micro-batch) beside plain accumulation; a run with
+   ``--profile_steps 2`` (its trace names the K1 kernel) and one with
+   ``--debug_nans True``; step times, peak memory, checkpoint seconds and
+   GB;
 6. the IVF and refine tiers at scale: 2^20 unit rows at D 2048 (a mixture
    around 8192 centres) and 1024 held-out queries, made on the card; three
    indexes built by the IVFIPIndex constructor (bf16 rows, PQ64 rows, PQ64
@@ -183,6 +204,7 @@ import gc
 import json
 import os
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -190,6 +212,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -2646,6 +2669,466 @@ def phase_training_packed(ckpt: str, tmp: str, seed: int, base_state: dict,
     return out
 
 
+FEATURE_STEPS = 4  # steps of each 5f run
+FEATURE_SHORT_STEPS = 3  # the profiled and debug_nans runs
+GRADCACHE_STEPS = 2  # the gradient-cache run and plain accumulation beside it
+SIGTERM_LAYERS = 2  # 5f's SIGTERM run: the body cut to 2 of 16 layers
+N_EVAL_PAIRS = 32  # 5f's held-out pairs
+
+
+def _feature_argv(ckpt: str, data: str, out: str, seed: int, stage: str, steps: int,
+                  *extra) -> list:
+    """Phase 5's settings for ``stage`` (batch 8, 128 / 512 tokens; stage 1
+    with group 4, accumulation 2 and checkpointing), ``steps`` steps."""
+    argv = ["--model_name_or_path", ckpt, "--train_data", data, "--output_dir", out,
+            "--tokenizer_name", "hash:128256", "--bf16", "True", "--max_steps", str(steps),
+            "--per_device_train_batch_size", "8", "--learning_rate", "1e-5",
+            "--max_query_length", "128", "--max_passage_length", "512",
+            "--save_strategy", "no", "--seed", str(seed), "--device", "cuda",
+            "--log_level", "warning"]
+    if stage == "stage1":
+        argv += ["--num_negatives", "3", "--gradient_accumulation_steps", "2",
+                 "--temperature", "0.02", "--lr_scheduler_type", "cosine",
+                 "--warmup_ratio", "0.1", "--gradient_checkpointing", "True"]
+    else:
+        argv += ["--beta", "2.0", "--temperature", "0.1", "--loss_type", "sigmoid",
+                 "--reference_free", "True"]
+    return [*argv, *extra]
+
+
+def run_feature(name: str, main, argv, deterministic: bool = False, keep: bool = False) -> dict:
+    """One 5f run through its CLI: the launch counters from 0 just before,
+    read just after; losses, gradient norms, median step time (steps 2 on),
+    peak device memory and wall seconds. The output directory (a 5 GB fp32
+    model) is removed unless ``keep``."""
+    from rankpo_tpu_torch.ops import flash_attention as flash
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        history = main(argv)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = [h for h in history if "loss" in h]
+    losses = [h["loss"] for h in steps]
+    if not steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    if not keep:
+        shutil.rmtree(argv[argv.index("--output_dir") + 1])
+    return {"history": history, "losses": losses, "grad_norms": [h["grad_norm"] for h in steps],
+            "step_time_s": _median(steps, "step_time"), "peak_mem_gib": peak_gib,
+            "wall_s": wall, "launches": launches}
+
+
+def _feature_line(label: str, n: dict) -> str:
+    return (f"{label}: losses {[round(x, 6) for x in n['losses']]}, median step "
+            f"{n['step_time_s']:.4f} s, peak device memory {n['peak_mem_gib']:.2f} GiB, wall "
+            f"{n['wall_s']:.1f} s, K1 {n['launches']['flash_fwd']}, K2 "
+            f"{n['launches']['flash_bwd_fused']}, K3a {n['launches']['flash_dq']}, K3b "
+            f"{n['launches']['flash_dkv']}")
+
+
+class _SaveClock:
+    """Wall seconds of ``Trainer.save_checkpoint``, ``Trainer.resume_from``
+    and the waits for the background writer while the context is open
+    (5f's resume runs)."""
+
+    def __enter__(self):
+        from rankpo_tpu_torch.train import trainer
+
+        self.save_s = self.wait_s = self.resume_s = 0.0
+        cls = trainer.Trainer
+        self._saved = (cls.save_checkpoint, cls.resume_from, trainer.ckpt.wait_for_saves)
+        save, resume, wait = self._saved
+
+        def clocked(fn, field):
+            def run(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    setattr(self, field, getattr(self, field) + time.perf_counter() - t)
+            return run
+
+        cls.save_checkpoint = clocked(save, "save_s")
+        cls.resume_from = clocked(resume, "resume_s")
+        trainer.ckpt.wait_for_saves = clocked(wait, "wait_s")
+        return self
+
+    def __exit__(self, *exc):
+        from rankpo_tpu_torch.train import trainer
+
+        cls = trainer.Trainer
+        cls.save_checkpoint, cls.resume_from, trainer.ckpt.wait_for_saves = self._saved
+        return False
+
+
+def _file_crc(path: str) -> tuple:
+    """(size, CRC-32) of a file: the equality check of two model files one
+    of which is already removed."""
+    crc = 0
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            crc = zlib.crc32(chunk, crc)
+    return os.path.getsize(path), crc
+
+
+def _resume_pair(tmp: str, ckpt: str, pairs: str, seed: int, optim: str,
+                 asynchronous: bool) -> dict:
+    """Stage 2 under deterministic algorithms, constant LR (so a 2-step
+    run's schedule is a 4-step run's), ``--optim optim``: 4 straight steps;
+    then 2 steps that end in a checkpoint with the optimizer state
+    (``--save_only_model False``, synchronous or ``--async_checkpointing``),
+    then ``--resume_from_checkpoint latest`` for 2 more. The losses and the
+    final model.safetensors must be the straight run's bit for bit (size and
+    CRC-32). Each model file is checked and removed as soon as it is
+    written, so the disk holds one checkpoint and one model at a time (the
+    run's disk writes stay small)."""
+    from rankpo_tpu_torch.cli import run_rankpo
+
+    label = f"{optim}, {'async' if asynchronous else 'sync'}"
+    common = ["--lr_scheduler_type", "constant", "--optim", optim]
+    straight_dir = os.path.join(tmp, "stage2_straight")
+    straight = run_feature(f"5f stage 2 straight ({label})", run_rankpo.main,
+                           _feature_argv(ckpt, pairs, straight_dir, seed, "stage2",
+                                         FEATURE_STEPS, *common),
+                           deterministic=True, keep=True)
+    want = _file_crc(os.path.join(straight_dir, "model.safetensors"))
+    shutil.rmtree(straight_dir)
+    out = os.path.join(tmp, "stage2_resume")
+    saves = [*common, "--save_strategy", "steps", "--save_steps", "1000",
+             "--save_only_model", "False", "--async_checkpointing", str(asynchronous)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        with _SaveClock() as first_clock:
+            first = run_rankpo.main(_feature_argv(ckpt, pairs, out, seed, "stage2", 2, *saves))
+        os.remove(os.path.join(out, "model.safetensors"))  # the 2-step model: not read
+        directory = os.path.join(out, "checkpoint-2")
+        model_gb = os.path.getsize(os.path.join(directory, "model.safetensors")) / 1e9
+        opt_gb = os.path.getsize(os.path.join(directory, "opt_state.pt")) / 1e9
+        with _SaveClock() as clock:
+            resumed = run_rankpo.main(_feature_argv(
+                ckpt, pairs, out, seed, "stage2", FEATURE_STEPS, *saves,
+                "--resume_from_checkpoint", "latest"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = [h["loss"] for h in first] + [h["loss"] for h in resumed]
+    same_model = _file_crc(os.path.join(out, "model.safetensors")) == want
+    shutil.rmtree(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"5f resume ({label}): checkpoint-2 (model {model_gb:.3f} GB, optimizer state "
+        f"{opt_gb:.3f} GB) saved in {first_clock.save_s:.2f} s, waits for the writer "
+        f"{first_clock.wait_s:.2f} s; restored in {clock.resume_s:.2f} s; 2 + 2 steps: losses "
+        f"{[round(x, 6) for x in losses]} against 4 straight steps' "
+        f"{[round(x, 6) for x in straight['losses']]}: bit-equal "
+        f"{losses == straight['losses']}; final model.safetensors bit-equal {same_model}")
+    if losses != straight["losses"] or not same_model:
+        raise AssertionError(f"5f resume ({label}) is not the straight run bit for bit")
+    return {"straight": straight, "save_s": first_clock.save_s,
+            "wait_s": first_clock.wait_s, "resume_s": clock.resume_s, "model_gb": model_gb,
+            "opt_gb": opt_gb}
+
+
+def _sigterm_check(tmp: str, seed: int, pairs: str) -> dict:
+    """``python -m rankpo_tpu_torch.cli.run_rankpo`` in a subprocess on the
+    card (the body cut to SIGTERM_LAYERS layers at full width: what this
+    tests is host logic), SIGTERM after its first logged step: exit 0,
+    "preempted: checkpoint", a checkpoint with opt_state.pt; then the run
+    resumed in this process to 2 steps past it."""
+    from rankpo_tpu_torch.cli import run_rankpo
+    from rankpo_tpu_torch.train.checkpoint import latest_checkpoint
+
+    ckpt2, _ = make_model_checkpoint(tmp, seed, "llama-3.2-1b", SIGTERM_LAYERS, False)
+    out = os.path.join(tmp, "stage2_sigterm")
+    argv = _feature_argv(ckpt2, pairs, out, seed, "stage2", 100000, "--log_level", "info",
+                         "--num_train_epochs", "1000", "--save_strategy", "steps",
+                         "--save_steps", "1000000", "--save_only_model", "False")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "rankpo_tpu_torch.cli.run_rankpo", *argv],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, signalled, rest = [], None, ""
+    try:
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if "'global_step': 1," in line:  # the first logged step
+                signalled = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    output = "".join(lines) + (rest or "")
+    found = latest_checkpoint(out)
+    step = None
+    if found is not None and os.path.isfile(os.path.join(found, "opt_state.pt")):
+        with open(os.path.join(found, "trainer_state.json")) as f:
+            step = json.load(f)["global_step"]
+    if not (signalled is not None and proc.returncode == 0
+            and "preempted: checkpoint" in output and step is not None and step >= 1):
+        raise AssertionError(f"5f SIGTERM: exit {proc.returncode}, checkpoint {found}, "
+                             f"output tail:\n{output[-3000:]}")
+    after = time.perf_counter() - signalled
+    resumed = run_rankpo.main([*argv, "--max_steps", str(step + 2), "--save_strategy", "no",
+                               "--resume_from_checkpoint", "latest", "--log_level", "warning"])
+    steps = [h["global_step"] for h in resumed]
+    log(f"5f SIGTERM ({SIGTERM_LAYERS} of 16 layers, full width): the subprocess exited 0 "
+        f"{after:.1f} s after the signal with checkpoint-{step} (opt_state.pt) and "
+        f"'preempted: checkpoint' in its log ({time.perf_counter() - t0:.1f} s in all); "
+        f"resumed to steps {steps}")
+    if steps != [step + 1, step + 2]:
+        raise AssertionError(f"5f SIGTERM: the resumed run logged steps {steps}")
+    shutil.rmtree(out)
+    shutil.rmtree(ckpt2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"exit_after_s": after, "checkpoint_step": step}
+
+
+def _no_grad_losses(start: str, batches, loss_for, runs) -> dict:
+    """The no-grad loss over ``batches`` (a mean weighted by rows, as
+    ``Trainer.evaluate`` combines them) from the weights at ``start``, for
+    each (label, attn_impl, compute dtype) of ``runs``."""
+    from rankpo_tpu_torch.models.encoder import encoder_class
+    from rankpo_tpu_torch.models.hf_io import load_pretrained
+
+    config, state = load_pretrained(start)
+    out = {}
+    for label, impl, dtype in runs:
+        model = encoder_class(config).from_state_dict(config, state, device="cuda", dtype=dtype)
+        loss_fn = loss_for(config, impl)
+        total = rows = 0
+        with torch.no_grad():
+            for b in batches:
+                n = b["query"]["input_ids"].shape[0]
+                total += loss_fn(model, _device_batch(b))[0].item() * n
+                rows += n
+        out[label] = total / rows
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rankpo_loss_for(config, impl):
+    from rankpo_tpu_torch.train.steps import make_rankpo_loss_fn
+
+    return make_rankpo_loss_fn(config, beta=2.0, temperature=0.1, loss_type="sigmoid",
+                               reference_free=True, attn_impl=impl)
+
+
+def _contrastive_loss_for(config, impl):
+    from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn
+
+    return make_contrastive_loss_fn(config, temperature=0.02, attn_impl=impl)
+
+
+def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
+    """Phase 5f, the single-card training features at Llama-3.2-1B's full
+    width and depth, phase 5's settings (``_feature_argv``), each run
+    through its CLI with the launch counters from 0:
+
+    1. stage 1 under gradient checkpointing "full", "dots" and "attn":
+       losses and gradient norms bit-equal to "full"'s; K1 launches 2 x 16
+       layers x 2 fields x micro-batches ("attn": half), K2 16 x 2 x
+       micro-batches under each;
+    2. stage 1 with ``--optim adamw8bit`` and ``adafactor``: the first loss
+       bit-equal to AdamW's (no update has happened yet);
+    3. stage 2 under deterministic algorithms with ``--save_only_model
+       False``: 2 steps, then ``--resume_from_checkpoint latest`` for 2
+       more, losses and model.safetensors bit-equal to 4 straight steps;
+       with AdamW and a synchronous save, then with the 8-bit AdamW and
+       ``--async_checkpointing True`` (its state is a quarter of AdamW's,
+       which keeps the run's disk writes small);
+    4. SIGTERM to ``python -m rankpo_tpu_torch.cli.run_rankpo`` (2 of 16
+       layers) after its first step: exit 0 with a checkpoint, then resumed;
+    5. stage 2 with ``--eval_data`` and ``--eval_strategy steps
+       --eval_steps 2``: ``eval_loss`` in the history; the last one held
+       bit-equal to the no-grad loss over the same batches computed outside
+       the trainer from the saved weights through the kernels, and printed
+       beside the plain attention's in bf16 and in fp32 (stage 2's bf16
+       margins put any two bf16 paths ~3e-3 apart and 1e-2 to 2e-2 from
+       fp32, past LOSS_REL_FP32);
+    6. stage 1 at batch 8 x accumulation 4 with ``--grad_cache True``: the
+       first loss within LOSS_REL_FP32 of one no-grad InfoNCE over all 32
+       rows in fp32; pass 1 adds one K1 per layer, field and micro-batch;
+       step time and memory beside plain accumulation at the same batch;
+    7. ``--profile_steps 2`` writes a trace naming the K1 kernel;
+       ``--debug_nans True`` trains, its step time beside the plain run's.
+    """
+    from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
+    from rankpo_tpu_torch.data.collators import ContrastiveCollator, RankPOCollator
+    from rankpo_tpu_torch.data.datasets import ContrastiveDataset, PairPreferenceDataset
+    from rankpo_tpu_torch.data.loader import DataLoader
+    from rankpo_tpu_torch.data.tokenization import HashTokenizer
+
+    train, pairs = write_training_data(tmp, seed)
+    out = {}
+
+    def s1(label, steps, *extra, keep=False):
+        path = os.path.join(tmp, f"stage1_{label}")
+        return run_feature(f"5f stage 1 {label}", run_contrastive.main,
+                           _feature_argv(ckpt, train, path, seed, "stage1", steps, *extra),
+                           keep=keep)
+
+    def timed_step(label):
+        t = time.perf_counter()
+        return lambda: log(f"5f step {label}: {time.perf_counter() - t:.1f} s")
+
+    # ---- 1. checkpointing policies ----
+    done = timed_step("1 remat")
+    micro = FEATURE_STEPS * 2
+    for policy in ("full", "dots", "attn"):
+        n = out[policy] = s1(policy, FEATURE_STEPS, "--gradient_checkpointing_policy", policy)
+        log(_feature_line(f"5f stage 1 remat {policy!r}", n))
+        k1 = (1 if policy == "attn" else 2) * 16 * 2 * micro
+        got = (n["launches"]["flash_fwd"], n["launches"]["flash_bwd_fused"])
+        if got != (k1, 16 * 2 * micro):
+            raise AssertionError(f"remat {policy}: K1, K2 launched {got}, expected "
+                                 f"{(k1, 16 * 2 * micro)}")
+        same = (n["losses"], n["grad_norms"]) == (out["full"]["losses"], out["full"]["grad_norms"])
+        log(f"5f remat {policy!r}: losses and gradient norms bit-equal to 'full': {same}")
+        if not same:
+            raise AssertionError(f"remat {policy}: not bit-equal to 'full'")
+    done()
+    # ---- 2. optimizers ----
+    done = timed_step("2 optimizers")
+    adamw = out["full"]
+    for optim in ("adamw8bit", "adafactor"):
+        n = out[optim] = s1(optim, FEATURE_STEPS, "--optim", optim)
+        log(_feature_line(f"5f stage 1 --optim {optim}", n)
+            + f"; AdamW: losses {[round(x, 6) for x in adamw['losses']]}, median step "
+            f"{adamw['step_time_s']:.4f} s, peak {adamw['peak_mem_gib']:.2f} GiB")
+        if n["losses"][0] != adamw["losses"][0]:
+            raise AssertionError(f"{optim}: first loss {n['losses'][0]} is not AdamW's "
+                                 f"{adamw['losses'][0]}")
+    done()
+    # ---- 3. resume: AdamW with a synchronous save, the 8-bit AdamW async ----
+    done = timed_step("3 resume")
+    out["resume"] = {"sync": _resume_pair(tmp, ckpt, pairs, seed, "adamw", False),
+                     "async": _resume_pair(tmp, ckpt, pairs, seed, "adamw8bit", True)}
+    out["straight"] = out["resume"]["sync"]["straight"]
+    out["straight8"] = out["resume"]["async"]["straight"]
+    done()
+    # ---- 4. SIGTERM ----
+    done = timed_step("4 SIGTERM")
+    out["sigterm"] = _sigterm_check(tmp, seed, pairs)
+    done()
+    # ---- 5. evaluate ----
+    done = timed_step("5 evaluate")
+    eval_pairs = os.path.join(tmp, "eval_pairs.jsonl")
+    rng = np.random.default_rng(seed + 11)
+    with open(eval_pairs, "w") as f:
+        for _ in range(N_EVAL_PAIRS):
+            f.write(json.dumps({"query": _text(rng, 4, 33), "passage1": _text(rng, 16, 481),
+                                "passage2": _text(rng, 16, 481),
+                                "preferred": "AB"[int(rng.integers(2))]}) + "\n")
+    eval_dir = os.path.join(tmp, "stage2_eval")
+    n = out["eval"] = run_feature("5f stage 2 eval", run_rankpo.main, _feature_argv(
+        ckpt, pairs, eval_dir, seed, "stage2", FEATURE_STEPS, "--eval_data", eval_pairs,
+        "--eval_strategy", "steps", "--eval_steps", "2"), keep=True)
+    evals = [(h["global_step"], h["eval_loss"]) for h in n["history"] if "eval_loss" in h]
+    if [s for s, _ in evals] != [2, 4]:
+        raise AssertionError(f"5f evaluate: eval rows at steps {evals}")
+    ds = PairPreferenceDataset(eval_pairs, HashTokenizer(vocab_size=128256), 128, 512)
+    batches = list(DataLoader(ds, RankPOCollator(0, 128, 512), 8, shuffle=False,
+                              drop_last=False).epoch(0))
+    ref = _no_grad_losses(eval_dir, batches, _rankpo_loss_for,
+                          (("kernels", "auto", torch.bfloat16),
+                           ("plain", "plain", torch.bfloat16),
+                           ("fp32", "plain", torch.float32)))
+    shutil.rmtree(eval_dir)
+    last = evals[-1][1]
+    rel = {k: abs(last - v) / abs(v) for k, v in ref.items()}
+    out["eval"].update(eval_losses=evals, reference=ref, rel=rel)
+    log(f"5f evaluate: eval_loss at steps {[s for s, _ in evals]}: "
+        f"{[round(v, 6) for _, v in evals]}; the last against the no-grad loss over the "
+        f"{N_EVAL_PAIRS} held-out pairs from the final weights, outside the trainer: kernels "
+        f"bf16 {ref['kernels']:.6f} ({rel['kernels']:.3e}, held bit-equal), plain bf16 "
+        f"{ref['plain']:.6f} ({rel['plain']:.3e}), plain fp32 {ref['fp32']:.6f} "
+        f"({rel['fp32']:.3e}; plain bf16 is {abs(ref['plain'] - ref['fp32']) / ref['fp32']:.3e} "
+        f"from it)")
+    if last != ref["kernels"]:
+        raise AssertionError(f"5f evaluate: eval_loss {last} is not the no-grad loss "
+                             f"{ref['kernels']} over the same batches")
+    done()
+    # ---- 6. gradient caching ----
+    done = timed_step("6 gradient caching")
+    group4 = ["--gradient_accumulation_steps", "4"]
+    out["gradcache"] = n = s1("grad_cache", GRADCACHE_STEPS, *group4, "--grad_cache", "True")
+    out["accum4"] = plain = s1("accum4", GRADCACHE_STEPS, *group4)
+    loader = DataLoader(ContrastiveDataset(train, HashTokenizer(vocab_size=128256), 128, 512),
+                        ContrastiveCollator(0, 3, 128, 512, seed=seed), 8, seed=seed)
+    group = next(iter(loader.epoch(0, stack=4)))
+    flat = {f: {k: v.reshape((-1,) + v.shape[2:]) for k, v in block.items()}
+            for f, block in group.items()}
+    ref = _no_grad_losses(ckpt, [flat], _contrastive_loss_for,
+                          (("kernels", "auto", torch.bfloat16),
+                           ("fp32", "plain", torch.float32)))
+    first = n["losses"][0]
+    rel = abs(first - ref["fp32"]) / abs(ref["fp32"])
+    micro = GRADCACHE_STEPS * 4
+    want = {"gradcache": (3 * 16 * 2 * micro, 16 * 2 * micro),
+            "accum4": (2 * 16 * 2 * micro, 16 * 2 * micro)}
+    for label, nums in (("gradcache", n), ("accum4", plain)):
+        got = (nums["launches"]["flash_fwd"], nums["launches"]["flash_bwd_fused"])
+        if got != want[label]:
+            raise AssertionError(f"5f {label}: K1, K2 launched {got}, expected {want[label]}")
+    n.update(reference=ref, first_loss_rel_fp32=rel)
+    log(_feature_line("5f stage 1 batch 8 x accumulation 4 --grad_cache True", n))
+    log(_feature_line("5f stage 1 batch 8 x accumulation 4, plain accumulation", plain))
+    log(f"5f gradient caching: first loss {first:.6f} against one no-grad InfoNCE over all "
+        f"32 rows: fp32 plain {ref['fp32']:.6f} ({rel:.3e}; limit {LOSS_REL_FP32:.0e}), "
+        f"kernels bf16 {ref['kernels']:.6f}; plain accumulation's first loss (the mean of 4 "
+        f"micro-batch losses) {plain['losses'][0]:.6f}")
+    if not rel <= LOSS_REL_FP32:
+        raise AssertionError(f"5f gradient caching: first loss {first} against {ref['fp32']}")
+    done()
+    # ---- 7. profiler and debug_nans ----
+    done = timed_step("7 profiler and debug_nans")
+    n = out["profile"] = s1("profile", FEATURE_SHORT_STEPS, "--profile_steps", "2",
+                            "--profile_start_step", "1", keep=True)
+    trace = os.path.join(tmp, "stage1_profile", "profile", "trace.json")
+    size = os.path.getsize(trace)
+    with open(trace) as f:
+        names_k1 = "flash_fwd" in f.read()
+    shutil.rmtree(os.path.join(tmp, "stage1_profile"))
+    log(f"5f --profile_steps 2: {trace} {size / 1e6:.1f} MB, names flash_fwd {names_k1}; "
+        f"wall {n['wall_s']:.1f} s")
+    if not size or not names_k1:
+        raise AssertionError("5f profile: the trace is empty or does not name flash_fwd")
+    n = out["debug_nans"] = s1("debug_nans", FEATURE_SHORT_STEPS, "--debug_nans", "True")
+    # its 3-step schedule is the 4-step one's until the second update
+    same = (n["losses"][:2], n["grad_norms"][:2]) == (adamw["losses"][:2],
+                                                     adamw["grad_norms"][:2])
+    log(_feature_line("5f stage 1 --debug_nans True", n)
+        + f"; the plain run's median step {adamw['step_time_s']:.4f} s; the first two losses "
+        f"and gradient norms bit-equal to the plain run's: {same}")
+    if not same:
+        raise AssertionError("5f debug_nans changed the losses")
+    done()
+    return out
+
+
 def phase_training_bge(tmp: str, seed: int) -> dict:
     """Phase 5b, bge-m3 at full width and depth: stage 1 through
     ``run_contrastive.main`` with the config's dropout live (so attention
@@ -3900,6 +4383,7 @@ def main(argv=None) -> int:
         del base_state
         for stage_dir in ("stage1", "stage1_rerun", "stage2"):  # ~15 GB of fp32 files
             shutil.rmtree(os.path.join(tmp, stage_dir))
+        features = timed("5f training features", phase_training_features, ckpt, tmp, args.seed)
         evaluation = timed("7 evaluate", phase_evaluate, args.seed, tmp, ckpt)
         mining = timed("8 mining and pipeline", phase_mining, args.seed, tmp, ckpt,
                        os.path.join(tmp, "eval_queries.jsonl"))
@@ -4089,9 +4573,15 @@ def main(argv=None) -> int:
     for name, n in mining.items():
         log(f"numbers ({card}): {name}: {n['wall_s']:.2f} s wall, peak device memory "
             f"{n['peak_mem_gib']:.2f} GiB, launches {n['launches']}")
+    feature_keys = ("full", "dots", "attn", "adamw8bit", "adafactor", "straight", "straight8",
+                    "eval", "gradcache", "accum4", "profile", "debug_nans")
+    feature_runs = [features[k] for k in feature_keys]
+    log(f"numbers ({card}): 5f launches (K1, K2, K3a, K3b): " + "; ".join(
+        f"{k} {tuple(features[k]['launches'][name] for name in KERNELS)}"
+        for k in feature_keys))
     trained = (train["stage1"], train["stage2"], bge["stage1"], bge["stage2"], qwen2["stage1"],
                mistral["stage1"], mistral["stage2"], gemma["stage1"], gemma["stage2"],
-               *mining.values())
+               *mining.values(), *feature_runs)
     launches = {name: sum(n["launches"][name] for n in trained) for name in KERNELS}
     launches["flash_fwd"] += sum(n["launches"]["flash_fwd"] for n in (
         *serving.values(), *mutation.values(), *evaluation.values(),

@@ -153,7 +153,9 @@ class TrainDataArguments:
         default=None, metadata={"help": "Path to the training jsonl."}
     )
     eval_data: Optional[str] = dataclasses.field(
-        default=None, metadata={"help": "not ported (evaluation during training)"}
+        default=None,
+        metadata={"help": "Held-out jsonl of the stage's format, evaluated by "
+                          "--eval_strategy / --eval_steps (Trainer.evaluate)."},
     )
     num_negatives: int = dataclasses.field(
         default=5, metadata={"help": "Negatives sampled per query."}
@@ -191,7 +193,11 @@ class ContrastiveArguments:
     negatives_cross_device: bool = dataclasses.field(default=True)
     temperature: float = dataclasses.field(default=0.02)
     normalize_embeddings: bool = dataclasses.field(default=True)
-    grad_cache: bool = dataclasses.field(default=False, metadata={"help": "not ported"})
+    grad_cache: bool = dataclasses.field(
+        default=False,
+        metadata={"help": "Gradient caching: InfoNCE over the whole accumulation "
+                          "group's reps (train/gradcache.py)."},
+    )
 
     def to_json_string(self):
         return _json_str(self)
@@ -312,9 +318,7 @@ class PredictionArguments:
 
 # fields of the groups above whose features this slice does not port
 UNPORTED_DATA = {
-    "eval_data": (None, ("evaluation during training", 2)),
     "streaming": (False, ("the streaming dataset", 7)),
     "retrieval_eval_query_file": (None, ("in-training retrieval eval", 7)),
 }
-UNPORTED_CONTRASTIVE = {"grad_cache": (False, ("gradient caching", 7))}
 UNPORTED_RANKPO = {"use_lora": (False, ("LoRA", 7))}

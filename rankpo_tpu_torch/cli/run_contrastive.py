@@ -18,8 +18,13 @@ HF tokenizer gets the reference's pad-token rule and seven domain special
 tokens, the embedding table is resized to match, and every saved model
 directory holds the tokenizer beside the weights. ``--pack_sequences True``
 packs each micro-batch's texts several to a row (``data/packing.py``,
-block-diagonal attention). Not ported yet, each rejected with its
-ROADMAP.md item: streaming, gradient caching, evaluation during training.
+block-diagonal attention). ``--resume_from_checkpoint`` (``latest``,
+``true`` or a directory) loads the checkpoint's weights before the model is
+built and then its optimizer state and counters (``Trainer.resume_from``);
+``--grad_cache True`` trains on InfoNCE over the whole accumulation group
+(``train/gradcache.py``); ``--eval_data`` is evaluated by
+``--eval_strategy``. Not ported yet, each rejected with its ROADMAP.md
+item: streaming, in-training retrieval evaluation.
 """
 
 from __future__ import annotations
@@ -34,7 +39,6 @@ import numpy as np
 import torch
 
 from rankpo_tpu_torch.cli.arguments import (
-    UNPORTED_CONTRASTIVE,
     UNPORTED_DATA,
     ContrastiveArguments,
     ModelArguments,
@@ -52,7 +56,9 @@ from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.models.base import EncoderModule
 from rankpo_tpu_torch.models.encoder import encoder_class, resize_token_embeddings
 from rankpo_tpu_torch.models.hf_io import load_pretrained, save_pretrained
+from rankpo_tpu_torch.train.checkpoint import latest_checkpoint
 from rankpo_tpu_torch.train.config import TrainConfig
+from rankpo_tpu_torch.train.gradcache import make_contrastive_gradcache_grad_fn
 from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn, uses_dropout
 from rankpo_tpu_torch.train.trainer import Trainer
 from rankpo_tpu_torch.utils.flops import contrastive_sample_flops, contrastive_sample_tokens
@@ -63,9 +69,10 @@ logger = logging.getLogger(__name__)
 
 
 def guard_output_dir(cfg: TrainConfig) -> None:
-    """Refuse to clobber a non-empty output dir (reference :49-57)."""
+    """Refuse to clobber a non-empty output dir (reference :49-57), unless
+    the run resumes."""
     if (os.path.exists(cfg.output_dir) and os.listdir(cfg.output_dir)
-            and not cfg.overwrite_output_dir):
+            and not cfg.overwrite_output_dir and not cfg.resume_from_checkpoint):
         raise ValueError(
             f"Output directory ({cfg.output_dir}) already exists and is not "
             "empty. Use --overwrite_output_dir to overcome."
@@ -96,6 +103,27 @@ def setup_model_and_tokenizer(model_args: ModelArguments):
     if pad_id is None:
         pad_id = config.pad_token_id or 0
     return config, state, tokenizer, pad_id
+
+
+def resolve_resume(train_cfg: TrainConfig):
+    """The checkpoint directory to resume from: ``latest`` / ``true`` pick
+    the newest ``checkpoint-N`` of the output directory (None when there is
+    none: a fresh start), anything else is a directory (JAX
+    ``run_contrastive.py:99-108``)."""
+    resume = train_cfg.resume_from_checkpoint
+    if resume in ("true", "True", "latest"):
+        resume = latest_checkpoint(train_cfg.output_dir)
+    return resume or None
+
+
+def load_resume_weights(resume, config, state):
+    """(config, state) from the resume checkpoint, or the given ones: the
+    weights must come from the checkpoint before the model is built, or
+    training would continue from the base weights at a mid-schedule LR."""
+    if not resume:
+        return config, state
+    logger.info("resume: loading weights from %s", resume)
+    return load_pretrained(resume)
 
 
 def build_model(config, state, train_cfg: TrainConfig, device) -> EncoderModule:
@@ -149,7 +177,6 @@ def main(argv=None):
     )
     setup_logging(train_cfg.log_level)
     check_unported(data_args, UNPORTED_DATA)
-    check_unported(c_args, UNPORTED_CONTRASTIVE)
     train_cfg.check_supported()
     device = resolve_device(train_cfg.device)  # before any loading: no CPU fallback
     guard_output_dir(train_cfg)
@@ -159,29 +186,34 @@ def main(argv=None):
     logger.info("train config:\n%s", train_cfg.to_json_string())
 
     config, state, tokenizer, pad_id = setup_model_and_tokenizer(model_args)
+    resume = resolve_resume(train_cfg)
+    config, state = load_resume_weights(resume, config, state)
     config.normalize = c_args.normalize_embeddings
     dataset = ContrastiveDataset(
         data_args.train_data, tokenizer,
         max_query_length=data_args.max_query_length,
         max_passage_length=data_args.max_passage_length,
     )
-    if data_args.pack_sequences:
-        # JAX run_contrastive.py:121-135; one card, so rows_multiple 1
-        collator = PackedContrastiveCollator(
-            pad_token_id=pad_id, num_negatives=data_args.num_negatives,
-            max_query_length=data_args.max_query_length,
-            max_passage_length=data_args.max_passage_length,
-            query_max_segments=data_args.pack_max_segments,
-            passage_max_segments=data_args.pack_max_segments,
-            rows_multiple=1, seed=train_cfg.seed,
-        )
-    else:
-        collator = ContrastiveCollator(
+
+    def make_collator():
+        if data_args.pack_sequences:
+            # JAX run_contrastive.py:121-135; one card, so rows_multiple 1
+            return PackedContrastiveCollator(
+                pad_token_id=pad_id, num_negatives=data_args.num_negatives,
+                max_query_length=data_args.max_query_length,
+                max_passage_length=data_args.max_passage_length,
+                query_max_segments=data_args.pack_max_segments,
+                passage_max_segments=data_args.pack_max_segments,
+                rows_multiple=1, seed=train_cfg.seed,
+            )
+        return ContrastiveCollator(
             pad_token_id=pad_id, num_negatives=data_args.num_negatives,
             max_query_length=data_args.max_query_length,
             max_passage_length=data_args.max_passage_length,
             pad_multiple=data_args.pad_multiple, seed=train_cfg.seed,
         )
+
+    collator = make_collator()
     steps_per_epoch = len(dataset) // (
         train_cfg.per_device_train_batch_size * train_cfg.gradient_accumulation_steps
     )
@@ -197,6 +229,15 @@ def main(argv=None):
         normalize_embeddings=c_args.normalize_embeddings,
         attn_impl=model_args.attn_impl,
     )
+    grad_fn = None
+    if c_args.grad_cache:
+        grad_fn = make_contrastive_gradcache_grad_fn(
+            config, temperature=c_args.temperature,
+            normalize_embeddings=c_args.normalize_embeddings,
+            use_inbatch_neg=c_args.use_inbatch_neg, attn_impl=model_args.attn_impl,
+        )
+        logger.info("gradient caching: the negative pool spans all %d accumulation steps",
+                    train_cfg.gradient_accumulation_steps)
     group_size = 1 + data_args.num_negatives
     save_fn = make_save_fn(
         config, tokenizer, stage="contrastive",
@@ -210,7 +251,7 @@ def main(argv=None):
         },
     )
     trainer = Trainer(
-        loss_fn=loss_fn, model=model, config=train_cfg,
+        loss_fn=loss_fn, grad_fn=grad_fn, model=model, config=train_cfg,
         total_steps=max(total_steps, 1), save_params_fn=save_fn,
         log_fn=maybe_init_wandb(train_cfg.wandb_project, train_cfg.run_name),
         # analytic FLOPs and tokens at the static padded lengths
@@ -226,8 +267,21 @@ def main(argv=None):
         # the Roberta body's dropout at the config's rates on every step
         dropout_seed=train_cfg.seed if uses_dropout(config) else None,
     )
+    if resume:
+        logger.info("resuming trainer state from %s", resume)
+        trainer.resume_from(resume)
+    eval_dataset = None
+    if data_args.eval_data:
+        eval_dataset = ContrastiveDataset(
+            data_args.eval_data, tokenizer,
+            max_query_length=data_args.max_query_length,
+            max_passage_length=data_args.max_passage_length,
+        )
     t0 = time.time()
-    history = trainer.train(dataset, collator)
+    # the eval set gets a collator of its own: the training collator's
+    # sampling stream stays that of a run without evaluation
+    history = trainer.train(dataset, collator, eval_dataset=eval_dataset,
+                            eval_collator=make_collator() if eval_dataset else None)
     write_results(train_cfg, trainer, history, len(dataset), t0, save_fn)
     return history
 

@@ -12,8 +12,10 @@ Loads the stage-1 checkpoint, optionally a frozen reference model (unless
 ``torch.no_grad``), the annotated pair jsonl, and trains with the
 sigmoid/hinge preference loss on the single-card ``Trainer``; the saved
 directories get the JAX package's model card, and ``--wandb_project`` logs
-to wandb when it is installed. LoRA is not ported yet (ROADMAP.md Queue 1
-item 7).
+to wandb when it is installed. ``--resume_from_checkpoint`` and
+``--eval_data`` work as in stage 1 (``cli/run_contrastive.py``; JAX
+``run_rankpo.py:52-61, 239-241, 263-273``). LoRA is not ported yet
+(ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ from rankpo_tpu_torch.cli.arguments import (
 from rankpo_tpu_torch.cli.run_contrastive import (
     build_model,
     guard_output_dir,
+    load_resume_weights,
     make_save_fn,
+    resolve_resume,
     set_seed,
     setup_model_and_tokenizer,
     write_results,
@@ -70,6 +74,8 @@ def main(argv=None):
     logger.info("rankpo args:\n%s", r_args.to_json_string())
 
     config, state, tokenizer, pad_id = setup_model_and_tokenizer(model_args)
+    resume = resolve_resume(train_cfg)
+    config, state = load_resume_weights(resume, config, state)
     policy = policy_from_flags(train_cfg.bf16, train_cfg.pure_bf16)
     ref_model = None
     if not r_args.reference_free:
@@ -86,20 +92,23 @@ def main(argv=None):
         max_query_length=data_args.max_query_length,
         max_passage_length=data_args.max_passage_length,
     )
-    if data_args.pack_sequences:
-        # JAX run_rankpo.py:75-90; one card, so rows_multiple 1
-        collator = PackedRankPOCollator(
-            pad_token_id=pad_id, max_query_length=data_args.max_query_length,
-            max_passage_length=data_args.max_passage_length,
-            query_max_segments=data_args.pack_max_segments,
-            passage_max_segments=data_args.pack_max_segments, rows_multiple=1,
-        )
-    else:
-        collator = RankPOCollator(
+
+    def make_collator():
+        if data_args.pack_sequences:
+            # JAX run_rankpo.py:75-90; one card, so rows_multiple 1
+            return PackedRankPOCollator(
+                pad_token_id=pad_id, max_query_length=data_args.max_query_length,
+                max_passage_length=data_args.max_passage_length,
+                query_max_segments=data_args.pack_max_segments,
+                passage_max_segments=data_args.pack_max_segments, rows_multiple=1,
+            )
+        return RankPOCollator(
             pad_token_id=pad_id, max_query_length=data_args.max_query_length,
             max_passage_length=data_args.max_passage_length,
             pad_multiple=data_args.pad_multiple,
         )
+
+    collator = make_collator()
     steps_per_epoch = len(dataset) // (
         train_cfg.per_device_train_batch_size * train_cfg.gradient_accumulation_steps
     )
@@ -145,8 +154,19 @@ def main(argv=None):
         dropout_seed=(train_cfg.seed if uses_dropout(config) and not r_args.disable_dropout
                       else None),
     )
+    if resume:
+        logger.info("resuming trainer state from %s", resume)
+        trainer.resume_from(resume)
+    eval_dataset = None
+    if data_args.eval_data:
+        eval_dataset = PairPreferenceDataset(
+            data_args.eval_data, tokenizer,
+            max_query_length=data_args.max_query_length,
+            max_passage_length=data_args.max_passage_length,
+        )
     t0 = time.time()
-    history = trainer.train(dataset, collator)
+    history = trainer.train(dataset, collator, eval_dataset=eval_dataset,
+                            eval_collator=make_collator() if eval_dataset else None)
     write_results(train_cfg, trainer, history, len(dataset), t0, save_fn)
     return history
 

@@ -7,6 +7,9 @@ collator runs in a background thread that keeps ``prefetch`` batches ahead,
 so collation overlaps the device's work. ``stack`` groups that many
 consecutive micro-batches into one [stack, B, ...] array per leaf (the
 gradient-accumulation group); a trailing partial group is dropped.
+:meth:`DataLoader.replay` runs the collator over the batches a resumed run
+skips, so a collator with state (the contrastive collator's sampling RNG,
+the packer's row budget) stands where the uninterrupted run left it.
 
 Multi-process sharding (``process_count > 1``) is not ported: the port
 trains on one card (ROADMAP.md Queue 1 item 8).
@@ -76,6 +79,21 @@ class DataLoader:
         if self.shuffle:
             return np.random.default_rng((self.seed, epoch)).permutation(n)
         return np.arange(n)
+
+    def replay(self, epoch: int, start_step: int) -> None:
+        """Collate, and drop, every micro-batch an uninterrupted run would
+        have collated before micro-batch ``start_step`` of ``epoch``: all of
+        each earlier epoch's (a trailing partial group's too), then the
+        first ``start_step`` of ``epoch``. A resumed run that then calls
+        :meth:`epoch` from ``start_step`` draws the uninterrupted run's
+        batches. Host work only; the JAX package restarts the collator
+        instead."""
+        steps = self.steps_per_epoch()
+        for e in range(epoch + 1):
+            order = self._epoch_order(e)
+            for step in range(steps if e < epoch else min(start_step, steps)):
+                lo = step * self.batch_size
+                self.collator([self.dataset[int(i)] for i in order[lo : lo + self.batch_size]])
 
     def epoch(self, epoch: int = 0, start_step: int = 0, stack: int = 0) -> Iterator[dict]:
         """Iterate one epoch's batches from ``start_step``; with ``stack`` > 0,

@@ -8,7 +8,7 @@
 - Cross-device negatives (``axis_name``) all-gather the passages of every
   device first. This port trains on one card, where the global batch IS the
   local batch: ``negatives_cross_device=True`` is the plain global in-batch
-  loss, and passing ``axis_name`` raises (ROADMAP.md Queue 1 item 2:
+  loss, and passing ``axis_name`` raises (ROADMAP.md Queue 1 item 8:
   cross-device negatives over ``torch.distributed``).
 
 Loss = mean cross-entropy, computed in fp32.
@@ -61,7 +61,7 @@ def info_nce_loss(
     if axis_name is not None:
         raise NotImplementedError(
             "cross-device negatives (axis_name) are not ported: one card holds "
-            "the whole batch (ROADMAP.md Queue 1 item 2, torch.distributed)"
+            "the whole batch (ROADMAP.md Queue 1 item 8, torch.distributed)"
         )
     b = q_reps.shape[0]
     group_size = p_reps.shape[0] // b

@@ -3,19 +3,54 @@
 parameters in the compute dtype) and :meth:`EncoderModule.for_training`
 (master parameters in the param dtype, trainable). Both build on the meta
 device, so no throwaway random init is made, and adopt an HF-named state
-dict."""
+dict. :func:`remat` runs a body's layer (or part of one) under a
+gradient-checkpointing policy."""
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.models.config import EncoderConfig
 
-CHECKPOINT_POLICIES = ("full",)
+# the JAX remat_policy values (llama.py:286-323, roberta.py:261-285):
+# "full" recomputes the whole layer in the backward pass; "dots" keeps the
+# products without batch dimensions (the projections) and recomputes the
+# rest; "attn" recomputes all but the attention call, whose saved tensors
+# (q, k, v, out, lse) serve the backward, so K1 does not run again
+CHECKPOINT_POLICIES = ("full", "dots", "attn")
+
+# products without batch dimensions: F.linear's mm / addmm (jax
+# dots_with_no_batch_dims_saveable); aten.bmm (the plain attention's
+# batched products) is recomputed
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str, *args):
+    """``fn(*args)`` recomputed in the backward pass (non-reentrant
+    ``torch.utils.checkpoint``): everything under "full" (and for the two
+    regions of "attn", which the bodies split around the attention call),
+    all but the saved products under "dots" (selective checkpointing)."""
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_products))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class EncoderModule(nn.Module):
@@ -29,6 +64,7 @@ class EncoderModule(nn.Module):
         self.config = config
         self.compute_dtype: Optional[torch.dtype] = None
         self.gradient_checkpointing = False
+        self.checkpoint_policy = "full"
 
     @classmethod
     def for_training(
@@ -45,13 +81,11 @@ class EncoderModule(nn.Module):
         """Trainable build: master parameters in ``param_dtype`` on
         ``device`` (the card unless the caller asks for the CPU; no card
         raises), forward in ``compute_dtype``. ``checkpoint_policy`` is
-        the JAX ``remat_policy``; only "full" is ported."""
+        the JAX ``remat_policy`` (:data:`CHECKPOINT_POLICIES`), applied
+        with ``gradient_checkpointing``."""
         if checkpoint_policy not in CHECKPOINT_POLICIES:
-            raise NotImplementedError(
-                f"gradient_checkpointing_policy {checkpoint_policy!r} is not "
-                "ported yet (ROADMAP.md Queue 1 item 2: remat 'dots'/'attn'); "
-                "use 'full'"
-            )
+            raise ValueError(f"unknown remat_policy {checkpoint_policy!r}; "
+                             f"one of {list(CHECKPOINT_POLICIES)}")
         device = resolve_device(device)
         with torch.device("meta"):
             model = cls(config)
@@ -62,6 +96,7 @@ class EncoderModule(nn.Module):
         model.load_state_dict(state, strict=True, assign=True)
         model.compute_dtype = compute_dtype
         model.gradient_checkpointing = gradient_checkpointing
+        model.checkpoint_policy = checkpoint_policy
         return model.requires_grad_(True).train()
 
     @classmethod

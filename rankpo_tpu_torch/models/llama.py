@@ -23,7 +23,10 @@ the master table before casting, as ``rankpo_tpu.models.llama.apply`` does
 (``llama.py:264,280``), so autograd returns gradients in the master dtype.
 For the serving build the casts are no-ops. ``gradient_checkpointing``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``,
-non-reentrant): the JAX ``remat_policy="full"``.
+non-reentrant) under the model's ``checkpoint_policy``, the JAX
+``remat_policy``: "full", "dots" (the projections' outputs kept) or "attn"
+(the layer cut into ``qkv`` and ``post``, each recomputed, with the
+attention call between them kept: K1's saved tensors serve the backward).
 
 The llama body, Qwen2's (q/k/v biases; Llama's ``attention_bias`` adds the
 o bias too) and Mistral's (Llama's tensors, no biases) are ported, with
@@ -55,9 +58,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
-from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear
+from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear, remat
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.models.packing import packed_positions
 from rankpo_tpu_torch.models.roberta import ACTIVATIONS as GELUS
@@ -200,7 +201,8 @@ class LlamaLayer(nn.Module):
         )
         self.mlp = LlamaMLP(config)
 
-    def forward(self, x, cos, sin, key_mask, attn_impl: str, segment_ids=None):
+    def qkv(self, x, cos, sin):
+        """The input norm, the q/k/v projections and RoPE (JAX ``_layer_qkv``)."""
         cfg = self.config
         b, s, _ = x.shape
         d = cfg.head_dim
@@ -209,14 +211,36 @@ class LlamaLayer(nn.Module):
         q = linear(y, attn.q_proj).view(b, s, cfg.num_attention_heads, d)
         k = linear(y, attn.k_proj).view(b, s, cfg.num_key_value_heads, d)
         v = linear(y, attn.v_proj).view(b, s, cfg.num_key_value_heads, d)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+    def attend(self, q, k, v, key_mask, attn_impl: str, segment_ids=None):
         # pad keys are masked everywhere, so pad query tiles may be skipped
-        o = multi_head_attention(
+        return multi_head_attention(
             q, k, v, mask=key_mask, causal=True, impl=attn_impl,
-            skip_pad_q=True, window=cfg.sliding_window, segment_ids=segment_ids,
+            skip_pad_q=True, window=self.config.sliding_window, segment_ids=segment_ids,
         )
-        x = x + linear(o.reshape(b, s, -1), attn.o_proj)
+
+    def post(self, x, o):
+        """The output projection, the residual and the MLP (JAX ``_layer_post``)."""
+        b, s, _ = x.shape
+        x = x + linear(o.reshape(b, s, -1), self.self_attn.o_proj)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward(self, x, cos, sin, key_mask, attn_impl: str, segment_ids=None):
+        q, k, v = self.qkv(x, cos, sin)
+        return self.post(x, self.attend(q, k, v, key_mask, attn_impl, segment_ids))
+
+    def remat_forward(self, policy: str, x, cos, sin, key_mask, attn_impl: str,
+                      segment_ids=None):
+        """The layer recomputed in the backward pass under ``policy``
+        (``models/base.py``). "attn" checkpoints the two regions around the
+        attention call (JAX ``llama.py:294-312``); the window and the
+        segments reach the attention either way."""
+        if policy != "attn":
+            return remat(self, policy, x, cos, sin, key_mask, attn_impl, segment_ids)
+        q, k, v = remat(self.qkv, "full", x, cos, sin)
+        o = self.attend(q, k, v, key_mask, attn_impl, segment_ids)
+        return remat(self.post, "full", x, o)
 
 
 class LlamaEncoder(EncoderModule):
@@ -264,11 +288,11 @@ class LlamaEncoder(EncoderModule):
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
             key_mask = attention_mask.to(torch.bool)
         cos, sin = rope_cos_sin(self.config, positions)
-        remat = self.gradient_checkpointing and torch.is_grad_enabled()
+        remat_on = self.gradient_checkpointing and torch.is_grad_enabled()
         for layer in self.layers:
-            if remat:
-                x = checkpoint(layer, x, cos, sin, key_mask, attn_impl, segment_ids,
-                               use_reentrant=False)
+            if remat_on:
+                x = layer.remat_forward(self.checkpoint_policy, x, cos, sin, key_mask,
+                                        attn_impl, segment_ids)
             else:
                 x = layer(x, cos, sin, key_mask, attn_impl, segment_ids)
         return self.norm(x)

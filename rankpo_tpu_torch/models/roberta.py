@@ -27,7 +27,8 @@ layer; attention-probs dropout inside attention, which then runs the plain
 path (``ops/attention.py``). It is live only when the forward is given a
 ``generator``; each layer draws its masks from a generator of its own,
 seeded from the caller's (:func:`layer_seeds`), so gradient checkpointing
-recomputes the same masks.
+recomputes the same masks, under every ``checkpoint_policy`` ("full",
+"dots", "attn"; ``models/base.py``).
 
 Parameters use HuggingFace's names and ``[out, in]`` layout, so
 ``RobertaEncoder.state_dict()`` keys are the tensor names of an HF
@@ -43,9 +44,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
-from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear
+from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear, remat
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.models.packing import packed_positions
 from rankpo_tpu_torch.ops.attention import dropout, multi_head_attention
@@ -176,27 +175,65 @@ class RobertaLayer(nn.Module):
         self.intermediate = _Dense(h, f)
         self.output = _Dense(f, h, config.layer_norm_eps)
 
-    def forward(self, x, key_mask, attn_impl: str, seed: Optional[int], segment_ids=None):
-        cfg = self.config
+    def qkv(self, x):
+        """The q/k/v projections (JAX ``_layer_qkv``)."""
         b, s, h = x.shape
-        nh = cfg.num_attention_heads
-        d = h // nh
-        gen = site_generator(seed, x.device)  # attention probs, then the two hidden sites
+        nh = self.config.num_attention_heads
         sa = self.attention.self
-        q = linear(x, sa.query).view(b, s, nh, d)
-        k = linear(x, sa.key).view(b, s, nh, d)
-        v = linear(x, sa.value).view(b, s, nh, d)
-        attn = multi_head_attention(
+        return (linear(x, sa.query).view(b, s, nh, h // nh),
+                linear(x, sa.key).view(b, s, nh, h // nh),
+                linear(x, sa.value).view(b, s, nh, h // nh))
+
+    def attend(self, q, k, v, key_mask, attn_impl: str, gen, segment_ids=None):
+        cfg = self.config
+        return multi_head_attention(
             q, k, v, mask=key_mask, causal=False, impl=attn_impl, skip_pad_q=True,
             dropout_rate=cfg.attention_dropout if gen is not None else 0.0,
             generator=gen, segment_ids=segment_ids,
         )
+
+    def post(self, x, attn, gen):
+        """The attention output projection, residual and LayerNorm, the MLP,
+        residual and LayerNorm, each output with its hidden dropout (JAX
+        ``_layer_post``)."""
+        cfg = self.config
+        b, s, h = x.shape
         out = self.attention.output
         a = dropout(linear(attn.reshape(b, s, h), out.dense), cfg.hidden_dropout, gen)
         x = out.LayerNorm(x + a)
         inter = ACTIVATIONS[cfg.hidden_act](linear(x, self.intermediate.dense))
         y = dropout(linear(inter, self.output.dense), cfg.hidden_dropout, gen)
         return self.output.LayerNorm(x + y)
+
+    def _post_from_state(self, x, attn, gen_state):
+        """:meth:`post` with a generator restored from ``gen_state`` (None
+        without dropout), so a recompute draws the same masks."""
+        gen = None
+        if gen_state is not None:
+            gen = torch.Generator(device=x.device)
+            gen.set_state(gen_state)
+        return self.post(x, attn, gen)
+
+    def forward(self, x, key_mask, attn_impl: str, seed: Optional[int], segment_ids=None):
+        gen = site_generator(seed, x.device)  # attention probs, then the two hidden sites
+        q, k, v = self.qkv(x)
+        return self.post(x, self.attend(q, k, v, key_mask, attn_impl, gen, segment_ids), gen)
+
+    def remat_forward(self, policy: str, x, key_mask, attn_impl: str, seed: Optional[int],
+                      segment_ids=None):
+        """The layer recomputed in the backward pass under ``policy``
+        (``models/base.py``). Under "attn" the two regions around the
+        attention call are checkpointed (JAX ``roberta.py:266-285``); the
+        post region restarts the layer's generator from its state after the
+        attention's draws, so the recompute, and the layer without
+        checkpointing, draw the same masks."""
+        if policy != "attn":
+            return remat(self, policy, x, key_mask, attn_impl, seed, segment_ids)
+        gen = site_generator(seed, x.device)
+        q, k, v = remat(self.qkv, "full", x)
+        attn = self.attend(q, k, v, key_mask, attn_impl, gen, segment_ids)
+        state = None if gen is None else gen.get_state()
+        return remat(self._post_from_state, "full", x, attn, state)
 
 
 class _Layers(nn.Module):
@@ -241,11 +278,11 @@ class RobertaEncoder(EncoderModule):
         seeds = layer_seeds(generator, cfg.num_hidden_layers + 1)
         x = dropout(x, cfg.hidden_dropout, site_generator(seeds[0], x.device))
         key_mask = None if segment_ids is not None else attention_mask.to(torch.bool)
-        remat = self.gradient_checkpointing and torch.is_grad_enabled()
+        remat_on = self.gradient_checkpointing and torch.is_grad_enabled()
         for layer, seed in zip(self.encoder.layer, seeds[1:]):
-            if remat:
-                x = checkpoint(layer, x, key_mask, attn_impl, seed, segment_ids,
-                               use_reentrant=False)
+            if remat_on:
+                x = layer.remat_forward(self.checkpoint_policy, x, key_mask, attn_impl, seed,
+                                        segment_ids)
             else:
                 x = layer(x, key_mask, attn_impl, seed, segment_ids)
         return x

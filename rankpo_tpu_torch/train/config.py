@@ -1,11 +1,10 @@
 """Training configuration (port of ``rankpo_tpu.train.config``).
 
 The fields are the JAX package's, so the CLIs take the same flags, plus
-``device``. This slice trains on one card; fields of features that are not
-ported yet are accepted at their defaults and raise, naming ROADMAP.md, when
+``device``. The port trains on one card: ``model_parallel``, ``zero2`` and
+``fsdp`` are accepted at their defaults and raise, naming ROADMAP.md, when
 set to anything else (:meth:`TrainConfig.check_supported`). ``zero1`` is
-accepted and means nothing on one card. ``save_on_preemption`` is accepted
-and not acted on yet (SIGTERM checkpoints, ROADMAP.md Queue 1 item 2).
+accepted and means nothing on one card.
 """
 
 from __future__ import annotations
@@ -14,7 +13,9 @@ import dataclasses
 import json
 from typing import Optional
 
-_ROADMAP = "ROADMAP.md Queue 1 item 2"
+_ROADMAP = "ROADMAP.md Queue 1 item 8"
+OPTIMIZERS = ("adamw", "adamw8bit", "adafactor")
+STRATEGIES = ("no", "steps", "epoch")
 
 
 @dataclasses.dataclass
@@ -37,7 +38,7 @@ class TrainConfig:
     adam_beta2: float = 0.999
     adam_epsilon: float = 1e-8
     max_grad_norm: float = 1.0
-    optim: str = "adamw"  # adamw8bit / adafactor: not ported
+    optim: str = "adamw"  # adamw | adamw8bit | adafactor
 
     # schedule
     num_train_epochs: int = 3
@@ -52,7 +53,7 @@ class TrainConfig:
     bf16: bool = True
     pure_bf16: bool = False
     gradient_checkpointing: bool = False
-    # "full"; "dots" / "attn" are not ported (LlamaEncoder.for_training raises)
+    # full | dots | attn (models/base.py CHECKPOINT_POLICIES)
     gradient_checkpointing_policy: str = "full"
 
     # parallelism (one card: model_parallel, zero2 and fsdp are not ported)
@@ -68,7 +69,7 @@ class TrainConfig:
     save_on_preemption: bool = True
     debug_nans: bool = False
 
-    # evaluation during training (not ported)
+    # evaluation during training (no | steps | epoch)
     eval_strategy: str = "no"
     eval_steps: int = 0
 
@@ -93,18 +94,13 @@ class TrainConfig:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
     def check_supported(self) -> None:
-        """Raise for fields set to features this slice does not port."""
+        """Raise for fields set to features the port does not have (one
+        card: no tensor parallelism or sharded state) and for unknown
+        option values."""
         unported = {
-            "optim": ("adamw", "adamw8bit / adafactor"),
             "model_parallel": (1, "tensor parallelism"),
             "zero2": (False, "sharded gradients"),
             "fsdp": (False, "sharded parameters"),
-            "eval_strategy": ("no", "evaluate and in-training eval"),
-            "resume_from_checkpoint": (None, "optimizer-state checkpoints and resume"),
-            "save_only_model": (True, "optimizer-state checkpoints and resume"),
-            "profile_steps": (0, "profiler traces"),
-            "async_checkpointing": (False, "optimizer-state checkpoints and resume"),
-            "debug_nans": (False, "anomaly detection"),
         }
         for name, (default, what) in unported.items():
             value = getattr(self, name)
@@ -113,7 +109,8 @@ class TrainConfig:
                     f"--{name} {value}: {what} is not ported to "
                     f"rankpo_tpu_torch yet ({_ROADMAP}); leave it at {default!r}"
                 )
-        if self.logging_strategy not in ("no", "steps", "epoch"):
-            raise ValueError(f"unknown logging_strategy {self.logging_strategy!r}")
-        if self.save_strategy not in ("no", "steps", "epoch"):
-            raise ValueError(f"unknown save_strategy {self.save_strategy!r}")
+        if self.optim not in OPTIMIZERS:
+            raise ValueError(f"unknown optim {self.optim!r}; one of {list(OPTIMIZERS)}")
+        for name in ("logging_strategy", "save_strategy", "eval_strategy"):
+            if getattr(self, name) not in STRATEGIES:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}")

@@ -5,9 +5,11 @@
 formulas (``polynomial_schedule``, ``cosine_decay_schedule``,
 ``join_schedules``), value for value, for the eight ``lr_scheduler_type``s.
 
-:func:`make_optimizer` gives ``torch.optim.AdamW`` (optax ``adamw``'s update:
-bias-corrected moments, ``eps`` outside the square root, decoupled weight
-decay on the pre-update parameters) and :func:`clip_grad_norm` applies
+:func:`make_optimizer` gives, by ``config.optim``, ``torch.optim.AdamW``
+(optax ``adamw``'s update: bias-corrected moments, ``eps`` outside the
+square root, decoupled weight decay on the pre-update parameters), the
+blockwise 8-bit AdamW (``train/optim8bit.py``) or optax's Adafactor with
+the JAX package's arguments (``train/adafactor.py``); :func:`clip_grad_norm` applies
 optax's ``clip_by_global_norm`` rule, which scales by ``max_norm / ||g||``
 only when ``||g|| >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` adds
 1e-6 to the norm and scales whenever the norm exceeds the limit). The
@@ -22,7 +24,9 @@ from typing import Callable, Iterable, List, Tuple
 
 import torch
 
-from rankpo_tpu_torch.train.config import TrainConfig
+from rankpo_tpu_torch.train.adafactor import Adafactor
+from rankpo_tpu_torch.train.config import OPTIMIZERS, TrainConfig
+from rankpo_tpu_torch.train.optim8bit import AdamW8bit, TypedStateOptimizer
 
 Schedule = Callable[[int], float]
 
@@ -117,27 +121,54 @@ def make_schedule(config: TrainConfig, total_steps: int) -> Schedule:
 
 def make_optimizer(
     params: Iterable[torch.nn.Parameter], config: TrainConfig, total_steps: int
-) -> Tuple[torch.optim.AdamW, Schedule]:
-    """AdamW over ``params`` and the LR schedule. The optimizer's lr is set
-    from the schedule before every update (``Trainer``)."""
-    if config.optim != "adamw":
-        raise NotImplementedError(
-            f"optim {config.optim!r} is not ported yet (ROADMAP.md Queue 1 "
-            "item 2: adamw8bit / adafactor)"
-        )
+) -> Tuple[torch.optim.Optimizer, Schedule]:
+    """The ``config.optim`` optimizer over ``params`` and the LR schedule
+    (JAX ``state.py:100-151``). The optimizer's lr is set from the schedule
+    before every update (``Trainer``)."""
     params = list(params)
-    on_cuda = all(p.device.type == "cuda" for p in params)
-    optimizer = torch.optim.AdamW(
-        params,
-        lr=config.learning_rate,
-        betas=(config.adam_beta1, config.adam_beta2),
-        eps=config.adam_epsilon,
-        weight_decay=config.weight_decay,
-        # one multi-tensor kernel per group on the card; per-tensor ops on CPU
-        fused=on_cuda,
-        foreach=False if on_cuda else None,
-    )
+    if config.optim == "adamw8bit":
+        optimizer = AdamW8bit(params, lr=config.learning_rate,
+                              betas=(config.adam_beta1, config.adam_beta2),
+                              eps=config.adam_epsilon, weight_decay=config.weight_decay)
+    elif config.optim == "adafactor":
+        optimizer = Adafactor(params, lr=config.learning_rate, momentum=config.adam_beta1,
+                              weight_decay=config.weight_decay or None)
+    elif config.optim == "adamw":
+        on_cuda = all(p.device.type == "cuda" for p in params)
+        optimizer = torch.optim.AdamW(
+            params,
+            lr=config.learning_rate,
+            betas=(config.adam_beta1, config.adam_beta2),
+            eps=config.adam_epsilon,
+            weight_decay=config.weight_decay,
+            # one multi-tensor kernel per group on the card; per-tensor ops on CPU
+            fused=on_cuda,
+            foreach=False if on_cuda else None,
+        )
+    else:
+        raise ValueError(f"unknown optim {config.optim!r}; one of {list(OPTIMIZERS)}")
     return optimizer, make_schedule(config, total_steps)
+
+
+def fast_forward(optimizer: torch.optim.Optimizer, count: int) -> None:
+    """Fresh optimizer state at update ``count`` (zero moments, the step
+    counts at ``count``): a model-only resume, as the JAX trainer sets
+    optax's integer counts (``trainer.py:786-791``), so the bias
+    corrections and Adafactor's decay continue where the run stopped."""
+    if isinstance(optimizer, TypedStateOptimizer):
+        optimizer.fast_forward(count)
+        return
+    for group in optimizer.param_groups:
+        # torch.optim.AdamW's own state layout (its _init_group): the step
+        # a float32 scalar, on the parameter's device when fused
+        fused = group.get("fused")
+        for p in group["params"]:
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32,
+                                     device=p.device if fused else "cpu"),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+            }
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -69,38 +69,54 @@ def make_contrastive_loss_fn(
     del model_config  # the model carries its config
     temperature = validate_temperature(normalize_embeddings, temperature)
 
+    blocks = num_data_shards if use_inbatch_neg and not negatives_cross_device else 1
+
     def loss_fn(model, batch, generator=None):
-        q_reps = _embed_field(model, batch["query"], normalize=normalize_embeddings,
-                              attn_impl=attn_impl, generator=generator)
-        p_reps = _embed_field(model, batch["passage"], normalize=normalize_embeddings,
-                              attn_impl=attn_impl, generator=generator)
-        b = q_reps.shape[0]
-        group_size = p_reps.shape[0] // b
-        row_valid = batch.get("row_valid")
-        device = q_reps.device
-        if use_inbatch_neg and not negatives_cross_device and num_data_shards > 1:
-            loss, scores = info_nce_block_loss(
-                q_reps, p_reps, num_blocks=num_data_shards,
-                temperature=temperature, row_valid=row_valid,
-            )
-            bw = b // num_data_shards
-            targets = (torch.arange(b, device=device) % bw) * group_size
-        else:
-            loss, scores = info_nce_loss(
-                q_reps, p_reps, temperature=temperature,
-                use_inbatch_neg=use_inbatch_neg, row_valid=row_valid,
-            )
-            targets = (torch.arange(b, device=device) * group_size
-                       if use_inbatch_neg else torch.zeros(b, dtype=torch.long, device=device))
-        hits = (scores.argmax(dim=-1) == targets).float()
-        if row_valid is None:
-            accuracy = hits.mean()
-        else:
-            w = row_valid.float()
-            accuracy = (hits * w).sum() / w.sum().clamp_min(1.0)
+        q_reps, p_reps = embed_pair(model, batch, generator, normalize=normalize_embeddings,
+                                    attn_impl=attn_impl)
+        loss, accuracy = contrastive_terms(
+            q_reps, p_reps, temperature=temperature, use_inbatch_neg=use_inbatch_neg,
+            num_blocks=blocks, row_valid=batch.get("row_valid"))
         return loss, {"accuracy": accuracy.detach()}
 
     return loss_fn
+
+
+def embed_pair(model, batch, generator=None, **kwargs):
+    """(query reps, passage reps) of a batch, both fields drawing their
+    dropout from ``generator`` in that order."""
+    q_reps = _embed_field(model, batch["query"], generator=generator, **kwargs)
+    p_reps = _embed_field(model, batch["passage"], generator=generator, **kwargs)
+    return q_reps, p_reps
+
+
+def contrastive_terms(q_reps, p_reps, *, temperature: float, use_inbatch_neg: bool = True,
+                      num_blocks: int = 1, row_valid=None):
+    """(InfoNCE loss, accuracy) of query reps [B, H] against passage reps
+    [B * G, H]: over the whole batch, or per block of rows when
+    ``num_blocks`` > 1 (in-batch negatives within a data shard). Accuracy
+    is the share of rows whose top score is their positive."""
+    b = q_reps.shape[0]
+    group_size = p_reps.shape[0] // b
+    device = q_reps.device
+    if use_inbatch_neg and num_blocks > 1:
+        loss, scores = info_nce_block_loss(
+            q_reps, p_reps, num_blocks=num_blocks, temperature=temperature,
+            row_valid=row_valid,
+        )
+        targets = (torch.arange(b, device=device) % (b // num_blocks)) * group_size
+    else:
+        loss, scores = info_nce_loss(
+            q_reps, p_reps, temperature=temperature, use_inbatch_neg=use_inbatch_neg,
+            row_valid=row_valid,
+        )
+        targets = (torch.arange(b, device=device) * group_size
+                   if use_inbatch_neg else torch.zeros(b, dtype=torch.long, device=device))
+    hits = (scores.argmax(dim=-1) == targets).float()
+    if row_valid is None:
+        return loss, hits.mean()
+    w = row_valid.float()
+    return loss, (hits * w).sum() / w.sum().clamp_min(1.0)
 
 
 def make_rankpo_loss_fn(

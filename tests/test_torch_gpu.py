@@ -711,6 +711,74 @@ def test_trainer_loss_history_repeats_bit_for_bit(cuda, tmp_path):
     assert first == second
 
 
+@pytest.mark.parametrize("policy", ["full", "dots", "attn"])
+def test_remat_policies_bit_equal_on_card(cuda, policy):
+    """The kernels under each checkpointing policy: the loss and every
+    gradient equal the run without checkpointing bit for bit, and "attn"
+    runs K1 once per layer and field (its saved tensors serve the
+    backward), the others twice."""
+    cfg = dataclasses.replace(tiny_llama_config(vocab_size=512), hidden_size=256,
+                              intermediate_size=512, head_dim=64)
+    state = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(2)
+
+    def block(n, s):
+        lens = torch.randint(1, s + 1, (n,), generator=g)
+        ids = torch.randint(3, 512, (n, s), generator=g)
+        mask = (torch.arange(s)[None] < lens[:, None]).int()
+        return {"input_ids": ids.to(cuda), "attention_mask": mask.to(cuda)}
+
+    batch = {"query": block(4, 64), "passage": block(16, 192)}
+    runs = []
+    for remat in (False, True):
+        model = llama.LlamaEncoder.for_training(cfg, state, device=cuda,
+                                                gradient_checkpointing=remat,
+                                                checkpoint_policy=policy)
+        before = port_flash.launches["flash_fwd"]
+        loss, _ = make_contrastive_loss_fn(cfg, temperature=0.05)(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.item(), {n: p.grad for n, p in model.named_parameters()},
+                     port_flash.launches["flash_fwd"] - before))
+    (l0, g0, k0), (l1, g1, k1) = runs
+    assert l1 == l0
+    for name, grad in g0.items():
+        assert torch.equal(g1[name], grad), name
+    layers_fields = cfg.num_hidden_layers * 2
+    assert k0 == layers_fields
+    assert k1 == (layers_fields if policy == "attn" else 2 * layers_fields)
+
+
+def test_adamw8bit_card_step_equals_cpu_step(cuda):
+    """Three 8-bit AdamW steps on the card give the CPU's codes, scales and
+    parameters: every operation is elementwise or a per-block max, and the
+    bias-correction divisions are true divisions on both."""
+    from rankpo_tpu_torch.train.optim8bit import AdamW8bit
+
+    g = torch.Generator().manual_seed(0)
+    shapes = [(10, 300), (7,), (64, 256)]
+    params = [torch.randn(s, generator=g) for s in shapes]
+    grads = [[torch.randn(s, generator=g) * torch.exp(torch.rand(s, generator=g) * 8 - 6)
+              for s in shapes] for _ in range(3)]
+    results = []
+    for device in ("cpu", cuda):
+        ps = [torch.nn.Parameter(p.to(device, copy=True)) for p in params]
+        opt = AdamW8bit(ps, lr=1e-3, weight_decay=0.01)
+        for step in grads:
+            for p, gr in zip(ps, step):
+                p.grad = gr.to(device)
+            opt.step()
+        results.append(([p.detach().cpu() for p in ps],
+                        [{k: v.cpu() for k, v in opt.state[p].items() if torch.is_tensor(v)}
+                         for p in ps]))
+    (cpu_p, cpu_s), (card_p, card_s) = results
+    for a, b in zip(cpu_s, card_s):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+    for a, b in zip(cpu_p, card_p):
+        assert torch.equal(a, b)
+
+
 # ---- the IVF kernels: K4 (probed-block scores), K5/K6 (PQ ADC, rows/cols) ----
 # fp32 sums of the same exact products in another order: the scores are of
 # order 1 (unit rows, or sums of m table entries), and the two orders differ

@@ -66,6 +66,9 @@ MODULES = [
     "rankpo_tpu_torch.cli.autotune",
     "rankpo_tpu_torch.data.packing",
     "rankpo_tpu_torch.models.packing",
+    "rankpo_tpu_torch.train.optim8bit",
+    "rankpo_tpu_torch.train.adafactor",
+    "rankpo_tpu_torch.train.gradcache",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -209,14 +209,16 @@ def _tiny():
     return jcfg, EncoderConfig(**dataclasses.asdict(jcfg))
 
 
-def _trace(stage, accum):
+def _trace(stage, accum, **extra):
+    """4 steps of both trainers on the same weights and data; ``extra``
+    goes into both configs (``optim``, for one)."""
     jcfg, pcfg = _tiny()
     params = jinit(jax.random.key(0), jcfg)
     state = params_from_jax(jax.tree_util.tree_map(np.asarray, params), pcfg)
     tok_p, tok_j = HashTokenizer(vocab_size=256), JHashTokenizer(vocab_size=256)
     common = dict(learning_rate=1e-3, lr_scheduler_type="cosine", warmup_steps=1,
                   per_device_train_batch_size=4, gradient_accumulation_steps=accum,
-                  max_steps=4, save_strategy="no", weight_decay=0.01, seed=3)
+                  max_steps=4, save_strategy="no", weight_decay=0.01, seed=3, **extra)
     if stage == "contrastive":
         rows = _contrastive_rows(n=40)
         ds_p, ds_j = (pdata.ContrastiveDataset(rows, tok_p, 12, 16),
@@ -248,8 +250,11 @@ def _trace(stage, accum):
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("stage", ["contrastive", "rankpo"])
 def test_trainer_trace_matches_jax(stage, accum):
-    jhist, phist, jstate, pstate = _trace(stage, accum)
-    assert len(phist) == len(jhist) == 4
+    assert_trace_matches(*_trace(stage, accum))
+
+
+def assert_trace_matches(jhist, phist, jstate, pstate, steps=4):
+    assert len(phist) == len(jhist) == steps
     for j, p in zip(jhist, phist):
         assert list(p)[:7] == ["global_step", "loss", "learning_rate", "grad_norm",
                                "global_epoch", "epoch", "step"]
@@ -329,16 +334,45 @@ def test_gradient_checkpointing_gives_plain_gradients():
 
 
 def test_unported_checkpoint_policy_and_options_raise():
+    """What one card does not port (tensor parallelism, sharded gradients
+    and parameters) raises naming ROADMAP.md item 8; an unknown
+    checkpointing policy raises ValueError naming the three."""
     _, pcfg = _tiny()
     state = llama.init_params(pcfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llama.LlamaEncoder.for_training(pcfg, state, device="cpu", checkpoint_policy="dots")
-    for field, value in (("optim", "adafactor"), ("fsdp", True), ("eval_strategy", "steps"),
-                         ("resume_from_checkpoint", "latest"), ("profile_steps", 3),
-                         ("async_checkpointing", True), ("model_parallel", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="full.*dots.*attn"):
+        llama.LlamaEncoder.for_training(pcfg, state, device="cpu", checkpoint_policy="nope")
+    for field, value in (("fsdp", True), ("zero2", True), ("model_parallel", 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
             TrainConfig(**{field: value}).check_supported()
     TrainConfig(zero1=True).check_supported()  # accepted, means nothing on one card
+
+
+@pytest.mark.parametrize("field,value", [
+    ("gradient_checkpointing_policy", "dots"), ("optim", "adafactor"),
+    ("eval_strategy", "steps"), ("resume_from_checkpoint", "latest"),
+    ("profile_steps", 1), ("async_checkpointing", True),
+])
+def test_ported_option_trains_one_step(tmp_path, field, value):
+    """Each option the port refused before it had item 2 is accepted and
+    trains a step."""
+    _, pcfg = _tiny()
+    state = llama.init_params(pcfg, torch.Generator().manual_seed(0))
+    cfg = TrainConfig(device="cpu", learning_rate=1e-3, max_steps=1,
+                      per_device_train_batch_size=4, output_dir=str(tmp_path),
+                      save_strategy="steps", save_steps=1, save_only_model=False,
+                      eval_steps=1, profile_start_step=0, **{field: value})
+    cfg.check_supported()
+    model = llama.LlamaEncoder.for_training(
+        pcfg, state, device="cpu", compute_dtype=torch.float32, gradient_checkpointing=True,
+        checkpoint_policy=cfg.gradient_checkpointing_policy)
+    trainer = Trainer(loss_fn=make_contrastive_loss_fn(pcfg, temperature=0.05), model=model,
+                      config=cfg, total_steps=1)
+    ds = pdata.ContrastiveDataset(_contrastive_rows(n=8), HashTokenizer(vocab_size=256), 12, 16)
+    coll = pcoll.ContrastiveCollator(0, 3, 12, 16, seed=0)
+    history = trainer.train(ds, coll, eval_dataset=ds)
+    assert trainer.step == trainer.updates == 1
+    assert np.isfinite(history[0]["loss"])
+    assert (tmp_path / "checkpoint-1" / "opt_state.pt").is_file()
 
 
 def test_epoch_logging_and_checkpoint_rotation(tmp_path):

@@ -116,8 +116,6 @@ def test_two_stages_end_to_end_on_cpu(workdir):
 
 @pytest.mark.parametrize("flag", [
     ["--use_lora", "True"], ["--retrieval_eval_query_file", "q.jsonl"], ["--streaming", "True"],
-    ["--optim", "adafactor"], ["--gradient_checkpointing_policy", "dots"],
-    ["--eval_strategy", "epoch"], ["--grad_cache", "True"],
 ])
 def test_unported_flags_fail(workdir, tmp_path, flag):
     module = run_rankpo if flag[0] == "--use_lora" else run_contrastive
@@ -127,8 +125,27 @@ def test_unported_flags_fail(workdir, tmp_path, flag):
                 "--device", "cpu", *flag]
     else:
         argv = _stage1_argv(workdir, tmp_path, *flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         module.main(argv)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--optim", "adafactor"], ["--gradient_checkpointing_policy", "dots"],
+    ["--eval_strategy", "epoch"], ["--grad_cache", "True"],
+])
+def test_ported_flags_train(workdir, tmp_path, flag):
+    """Flags the port refused before it had item 2 and gradient caching:
+    stage 1 trains with each."""
+    extra = []
+    if flag[0] == "--eval_strategy":  # one whole epoch (4 steps), then its eval
+        extra = ["--eval_data", str(workdir / "train.jsonl"), "--max_steps", "-1",
+                 "--num_train_epochs", "1"]
+    hist = run_contrastive.main(_stage1_argv(workdir, tmp_path, *flag, *extra))
+    steps = [h for h in hist if "loss" in h]
+    assert [h["global_step"] for h in steps] == ([1, 2, 3, 4] if extra else [1, 2, 3])
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in steps)
+    if extra:
+        assert np.isfinite(hist[-1]["eval_loss"])
 
 
 def test_pack_sequences_trains(workdir, tmp_path):
