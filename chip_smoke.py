@@ -68,10 +68,9 @@ version. Phases:
    probe set, then a restart from the file without the corpus encode that
    returns the same hits and scores;
 5. training path: stage 1 (``run_contrastive.main``, 512 synthetic rows;
-   "auto" picks the fused backward) then stage 2 (``run_rankpo.main`` on
-   stage 1's output, 256 synthetic pairs, under
-   ``torch.use_deterministic_algorithms``, so "auto" picks the split
-   backward): finite losses, every parameter moved, the outputs load, the
+   "auto" picks the split backward, K3a and K3b) then stage 2
+   (``run_rankpo.main`` on stage 1's output, 256 synthetic pairs, under
+   ``torch.use_deterministic_algorithms``): finite losses, every parameter moved, the outputs load, the
    kernels' launch counters rose; one micro-batch through the kernels and
    through the plain attention, both held against the plain attention in
    fp32 compute; one profiled stage-1 step;
@@ -81,18 +80,21 @@ version. Phases:
    (fp32) loss on the same sampled examples, no farther than the unpacked
    run's plus 2e-3 (relative; both printed, and packed against unpacked),
    packed stage 1
-   repeating bit for bit from the seed, K1/K2 and K1/K3a/K3b launched with
+   repeating bit for bit from the seed, K1/K2 (stage 1 asks for the fused
+   backward with ``--flash_bwd_impl fused``) and K1/K3a/K3b launched with
    segments; step time, real tokens/s, the pad share packed and unpacked,
    peak memory;
 5f. the single-card training features (after 5p) at Llama-3.2-1B's full
    width and depth, phase 5's settings, through the CLIs: stage 1 under
    gradient checkpointing "full", "dots" and "attn" (bit-equal losses
-   and gradient norms; "attn" launches half of "full"'s K1, the same K2);
+   and gradient norms; "attn" launches half of "full"'s K1, the same
+   K3a and K3b);
    ``--optim adamw8bit`` and ``adafactor`` (first loss bit-equal to
    AdamW's); stage 2 for 2 steps with its optimizer state, resumed with
    ``--resume_from_checkpoint latest`` for 2 more, losses and final
    model.safetensors bit-equal to 4 straight steps (AdamW with a
-   synchronous save; the 8-bit AdamW with ``--async_checkpointing``);
+   synchronous save; the 8-bit AdamW with ``--async_checkpointing``; both
+   at 4 of 16 layers);
    SIGTERM to ``python -m
    rankpo_tpu_torch.cli.run_rankpo`` (2 of 16 layers) after its first
    step: exit 0 with a checkpoint, then resumed; stage 2 with
@@ -105,6 +107,19 @@ version. Phases:
    ``--profile_steps 2`` (its trace names the K1 kernel) and one with
    ``--debug_nans True``; step times, peak memory, checkpoint seconds and
    GB;
+5l. the rest of the training extensions (after 5f) at the same width,
+   depth and settings: ``run_rankpo --use_lora True`` (r 8, alpha 16,
+   deterministic) with the in-training retrieval evaluation over phase 7's
+   queries and the 4096 passages at steps 2 and 4 (K1, K3a, K3b): the
+   adapter count, the first loss bit-equal to 5f's plain stage-2 run from
+   the same checkpoint, the untouched tensors of the saved model bit-equal
+   to the checkpoint and the adapted ones to the merge recomputed from it
+   and the saved adapters, the last eval point's metrics within rtol 1e-6
+   of ``cli.evaluate --bf16`` over the saved model; ``run_contrastive
+   --streaming True`` with the retrieval hook, losses and gradient norms
+   bit-equal to 5f's "full" run; ``InferenceEncoder.encode_packed``
+   against ``encode`` over the 4096 passages (K1 with segments; cosine
+   >= 0.999; passages/s and pad share of each);
 6. the IVF and refine tiers at scale: 2^20 unit rows at D 2048 (a mixture
    around 8192 centres) and 1024 held-out queries, made on the card; three
    indexes built by the IVFIPIndex constructor (bf16 rows, PQ64 rows, PQ64
@@ -144,7 +159,7 @@ version. Phases:
    topk,cluster --lambda_ 0.5`` over 512 rows (no negative is the query
    or a positive of its row, every row has its count), ``get_predictions``
    (Q x C(5, 2) pair rows), and ``run_pipeline --iterations 2`` over 64
-   rows at full width (K1, K2): its final model, its prediction pairs and
+   rows at full width (K1, K3a, K3b): its final model, its prediction pairs and
    its peak device memory; which k-means path ran;
 5b. bge-m3: stage 1 through ``run_contrastive.main`` with the config's
    dropout live (attention takes the plain path with attention-probs
@@ -159,7 +174,7 @@ version. Phases:
    GQA 6:1 at D 128): the corpus encode, single and batched /search
    requests held to the numpy oracle as phase 4 holds them;
 5q. Qwen2-1.5B: 4 stage-1 steps through ``run_contrastive.main`` (K1,
-   K2): finite losses, every parameter moved;
+   K3a, K3b): finite losses, every parameter moved;
 4w. intfloat/e5-mistral-7b-instruct (sliding window 4096) at full width and
    depth: ``cli.serve`` flat over the first 1024 passages (cut from 4096
    for the time limit), held to the numpy oracle as phase 4 holds it,
@@ -167,7 +182,8 @@ version. Phases:
    6001 tokens through the kernels held to the plain attention and shown
    to differ from the same model without the window;
 5w. e5-mistral at full width and 4 of its 32 layers (AdamW's state of 7B
-   parameters does not fit one card): stage 1 (K1, K2) then stage 2 under
+   parameters does not fit one card): stage 1 (K1, K2: ``--flash_bwd_impl
+   fused``) then stage 2 under
    deterministic algorithms (K1, K3a, K3b), 3 steps each, every passage
    4200-6000 words, past the window; windowed launches on every layer; one
    stage-1 micro-batch through the kernels and through plain;
@@ -178,7 +194,8 @@ version. Phases:
    depth: ``cli.serve`` flat over the 4096 passages, held to the numpy
    oracle and the kernels' encoder to the plain attention as phase 4 holds
    them, every encode layer's K1 launch at head_dim 256;
-5g. gemma-2b at full width and depth: stage 1 (K1, K2) then stage 2 under
+5g. gemma-2b at full width and depth: stage 1 (K1, K2: ``--flash_bwd_impl
+   fused``) then stage 2 under
    deterministic algorithms (K1, K3a, K3b), 4 steps each at phase 5's
    shapes, launches at head_dim 256 on every layer; one stage-1
    micro-batch through the kernels, plain and in fp32;
@@ -2186,7 +2203,8 @@ def rerun_stage1(main, argv, out_dir: str, first: dict) -> None:
     """Stage 1 again from the same checkpoint, seed and settings, for 2 steps
     (no warmup at 8 or 2 steps, so both runs take the same first update):
     its losses and gradient norms must equal the first run's bit for bit,
-    as the JAX package promises (docs/DETERMINISM.md)."""
+    as the JAX package promises (docs/DETERMINISM.md): both backwards
+    repeat (K2 sums dq in key-tile order, K3a holds it in registers)."""
     gc.collect()
     torch.cuda.empty_cache()
     history = main([*argv, "--output_dir", out_dir, "--max_steps", "2"])
@@ -2480,7 +2498,7 @@ def phase_training(ckpt: str, tmp: str, seed: int, base_state: dict) -> dict:
         "--num_negatives", "3", "--gradient_accumulation_steps", "2",
         "--temperature", "0.02", "--lr_scheduler_type", "cosine",
         "--warmup_ratio", "0.1", "--gradient_checkpointing", "True", *common]
-    stage1, s1_state = run_stage("stage 1 (contrastive, fused backward)", run_contrastive.main,
+    stage1, s1_state = run_stage("stage 1 (contrastive, split backward)", run_contrastive.main,
                                  [*stage1_argv, "--output_dir", s1], s1, base_state)
     rerun_stage1(run_contrastive.main, stage1_argv, os.path.join(tmp, "stage1_rerun"), stage1)
     stage2, _ = run_stage("stage 2 (RankPO, deterministic: split backward)", run_rankpo.main, [
@@ -2490,7 +2508,8 @@ def phase_training(ckpt: str, tmp: str, seed: int, base_state: dict) -> dict:
     del s1_state
     # 16 layers x 2 fields (query, passage) x micro-steps; stage 1 also runs
     # each forward again in the checkpointed backward
-    need = {"stage1": {"flash_fwd": 2 * 16 * 2 * 16, "flash_bwd_fused": 16 * 2 * 16},
+    need = {"stage1": {"flash_fwd": 2 * 16 * 2 * 16, "flash_dq": 16 * 2 * 16,
+                       "flash_dkv": 16 * 2 * 16},
             "stage2": {"flash_fwd": 16 * 2 * 8, "flash_dq": 16 * 2 * 8,
                        "flash_dkv": 16 * 2 * 8}}
     for stage, nums in (("stage1", stage1), ("stage2", stage2)):
@@ -2606,11 +2625,13 @@ def phase_training_packed(ckpt: str, tmp: str, seed: int, base_state: dict,
               "--max_passage_length", "512", "--save_strategy", "no", "--seed", str(seed),
               "--device", "cuda", "--log_level", "warning", "--pack_sequences", "True",
               "--pack_max_segments", str(PACK_MAX_SEGMENTS)]
+    # stage 1 asks for K2 (the fused backward), so its packed build stays on
+    # a main path now that "auto" is split
     stage1_argv = [
         "--model_name_or_path", ckpt, "--train_data", train, "--num_negatives", "3",
         "--gradient_accumulation_steps", "2", "--temperature", "0.02",
         "--lr_scheduler_type", "cosine", "--warmup_ratio", "0.1",
-        "--gradient_checkpointing", "True", *common]
+        "--gradient_checkpointing", "True", "--flash_bwd_impl", "fused", *common]
     stage1, _ = run_stage("stage 1 packed (contrastive, fused backward)", run_contrastive.main,
                           [*stage1_argv, "--output_dir", s1], s1, base_state,
                           steps=PACKED_STEPS)
@@ -2673,6 +2694,7 @@ FEATURE_STEPS = 4  # steps of each 5f run
 FEATURE_SHORT_STEPS = 3  # the profiled and debug_nans runs
 GRADCACHE_STEPS = 2  # the gradient-cache run and plain accumulation beside it
 SIGTERM_LAYERS = 2  # 5f's SIGTERM run: the body cut to 2 of 16 layers
+RESUME_LAYERS = 4  # 5f's resume pairs: the body cut to 4 of 16 layers
 N_EVAL_PAIRS = 32  # 5f's held-out pairs
 
 
@@ -2949,16 +2971,17 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
 
     1. stage 1 under gradient checkpointing "full", "dots" and "attn":
        losses and gradient norms bit-equal to "full"'s; K1 launches 2 x 16
-       layers x 2 fields x micro-batches ("attn": half), K2 16 x 2 x
+       layers x 2 fields x micro-batches ("attn": half), K3a and K3b 16 x 2 x
        micro-batches under each;
     2. stage 1 with ``--optim adamw8bit`` and ``adafactor``: the first loss
        bit-equal to AdamW's (no update has happened yet);
     3. stage 2 under deterministic algorithms with ``--save_only_model
-       False``: 2 steps, then ``--resume_from_checkpoint latest`` for 2
-       more, losses and model.safetensors bit-equal to 4 straight steps;
-       with AdamW and a synchronous save, then with the 8-bit AdamW and
-       ``--async_checkpointing True`` (its state is a quarter of AdamW's,
-       which keeps the run's disk writes small);
+       False``, the body cut to RESUME_LAYERS of 16 layers (what this
+       tests is the state's round trip; the cut keeps the smoke's clock
+       and disk writes small): 2 steps, then ``--resume_from_checkpoint
+       latest`` for 2 more, losses and model.safetensors bit-equal to 4
+       straight steps; with AdamW and a synchronous save, then with the
+       8-bit AdamW and ``--async_checkpointing True``;
     4. SIGTERM to ``python -m rankpo_tpu_torch.cli.run_rankpo`` (2 of 16
        layers) after its first step: exit 0 with a checkpoint, then resumed;
     5. stage 2 with ``--eval_data`` and ``--eval_strategy steps
@@ -3001,10 +3024,10 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
         n = out[policy] = s1(policy, FEATURE_STEPS, "--gradient_checkpointing_policy", policy)
         log(_feature_line(f"5f stage 1 remat {policy!r}", n))
         k1 = (1 if policy == "attn" else 2) * 16 * 2 * micro
-        got = (n["launches"]["flash_fwd"], n["launches"]["flash_bwd_fused"])
-        if got != (k1, 16 * 2 * micro):
-            raise AssertionError(f"remat {policy}: K1, K2 launched {got}, expected "
-                                 f"{(k1, 16 * 2 * micro)}")
+        got = tuple(n["launches"][name] for name in KERNELS)
+        if got != (k1, 0, 16 * 2 * micro, 16 * 2 * micro):
+            raise AssertionError(f"remat {policy}: K1, K2, K3a, K3b launched {got}, expected "
+                                 f"{(k1, 0, 16 * 2 * micro, 16 * 2 * micro)}")
         same = (n["losses"], n["grad_norms"]) == (out["full"]["losses"], out["full"]["grad_norms"])
         log(f"5f remat {policy!r}: losses and gradient norms bit-equal to 'full': {same}")
         if not same:
@@ -3022,10 +3045,13 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
             raise AssertionError(f"{optim}: first loss {n['losses'][0]} is not AdamW's "
                                  f"{adamw['losses'][0]}")
     done()
-    # ---- 3. resume: AdamW with a synchronous save, the 8-bit AdamW async ----
+    # ---- 3. resume (RESUME_LAYERS layers): AdamW with a synchronous save,
+    # the 8-bit AdamW async ----
     done = timed_step("3 resume")
-    out["resume"] = {"sync": _resume_pair(tmp, ckpt, pairs, seed, "adamw", False),
-                     "async": _resume_pair(tmp, ckpt, pairs, seed, "adamw8bit", True)}
+    ckpt4, _ = make_model_checkpoint(tmp, seed, "llama-3.2-1b", RESUME_LAYERS, False)
+    out["resume"] = {"sync": _resume_pair(tmp, ckpt4, pairs, seed, "adamw", False),
+                     "async": _resume_pair(tmp, ckpt4, pairs, seed, "adamw8bit", True)}
+    shutil.rmtree(ckpt4)
     out["straight"] = out["resume"]["sync"]["straight"]
     out["straight8"] = out["resume"]["async"]["straight"]
     done()
@@ -3087,12 +3113,13 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
     first = n["losses"][0]
     rel = abs(first - ref["fp32"]) / abs(ref["fp32"])
     micro = GRADCACHE_STEPS * 4
-    want = {"gradcache": (3 * 16 * 2 * micro, 16 * 2 * micro),
-            "accum4": (2 * 16 * 2 * micro, 16 * 2 * micro)}
+    want = {"gradcache": (3 * 16 * 2 * micro, 0, 16 * 2 * micro, 16 * 2 * micro),
+            "accum4": (2 * 16 * 2 * micro, 0, 16 * 2 * micro, 16 * 2 * micro)}
     for label, nums in (("gradcache", n), ("accum4", plain)):
-        got = (nums["launches"]["flash_fwd"], nums["launches"]["flash_bwd_fused"])
+        got = tuple(nums["launches"][name] for name in KERNELS)
         if got != want[label]:
-            raise AssertionError(f"5f {label}: K1, K2 launched {got}, expected {want[label]}")
+            raise AssertionError(f"5f {label}: K1, K2, K3a, K3b launched {got}, expected "
+                                 f"{want[label]}")
     n.update(reference=ref, first_loss_rel_fp32=rel)
     log(_feature_line("5f stage 1 batch 8 x accumulation 4 --grad_cache True", n))
     log(_feature_line("5f stage 1 batch 8 x accumulation 4, plain accumulation", plain))
@@ -3125,6 +3152,235 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
         f"and gradient norms bit-equal to the plain run's: {same}")
     if not same:
         raise AssertionError("5f debug_nans changed the losses")
+    done()
+    return out
+
+
+LORA_R, LORA_ALPHA = 8, 16  # 5l's adapters
+LORA_LR = "1e-4"  # 5l's LoRA run (the adapters start at B = 0; the first loss is unchanged)
+
+
+def _retrieval_rows(history) -> list:
+    return [h for h in history if "retrieval_MRR@1" in h]
+
+
+def _count_tokens(calls: list):
+    """Wrap ``InferenceEncoder.embed_batch`` and ``embed_packed_batch`` so
+    each call appends (real tokens, token slots) of the rows it was given:
+    the pad share of an encode as the card saw it. Returns the restore."""
+    from rankpo_tpu_torch.index.encoding import InferenceEncoder
+
+    plain, packed = InferenceEncoder.embed_batch, InferenceEncoder.embed_packed_batch
+
+    def embed_batch(self, batch, *args, **kwargs):
+        mask = batch["attention_mask"]
+        calls.append((int(mask.sum()), mask.size))
+        return plain(self, batch, *args, **kwargs)
+
+    def embed_packed_batch(self, input_ids, segment_ids, *args, **kwargs):
+        calls.append((int((segment_ids != 0).sum()), segment_ids.size))
+        return packed(self, input_ids, segment_ids, *args, **kwargs)
+
+    InferenceEncoder.embed_batch = embed_batch
+    InferenceEncoder.embed_packed_batch = embed_packed_batch
+
+    def restore():
+        InferenceEncoder.embed_batch, InferenceEncoder.embed_packed_batch = plain, packed
+    return restore
+
+
+def phase_training_item7(ckpt: str, tmp: str, seed: int, features: dict,
+                         stage2: dict) -> dict:
+    """Phase 5l, the rest of the training extensions at Llama-3.2-1B's full
+    width and depth, phase 5's lengths and batches, through the CLIs, after
+    5f (``features``, whose runs it is held to) and beside phase 5's full
+    stage 2 (``stage2``):
+
+    1. ``run_rankpo --use_lora True --lora_r 8 --lora_alpha 16`` under
+       deterministic algorithms, 4 steps, with ``--retrieval_eval_query_file
+       / --retrieval_eval_corpus_file`` over phase 7's 256 span queries and
+       the 4096 passages at ``--eval_steps 2``, k 100: the adapter count
+       (16 x (2048·8 + 8·2048 + 2048·8 + 8·512)); the first loss bit-equal
+       to 5f step 5's (the same argv without LoRA from the same checkpoint:
+       B = 0 leaves the base); every tensor of the saved model that no
+       adapter touches bit-equal to the checkpoint, and every adapted one
+       bit-equal to the merge recomputed here from the checkpoint and the
+       saved adapters (so the base did not move); the last eval point's
+       ``retrieval_*`` within rtol 1e-6 of ``cli.evaluate --bf16`` over the
+       saved model at the hook's batch, lengths and k (bit-equality
+       printed); K1, K3a and K3b launched, K2 not; step time and peak
+       memory beside phase 5's stage 2; ``retrieval_eval_runtime``;
+    2. ``run_contrastive --streaming True`` with the retrieval hook at step
+       4 and no eval set, 5f's "full" argv otherwise: losses and gradient
+       norms bit-equal to 5f "full"'s, step for step; its metrics printed;
+    3. ``InferenceEncoder.encode_packed`` against ``encode`` (batch 64) over
+       phase 4's 4096 passages at max length 512, each warmed on the first
+       512 passages: every embedding within cosine 0.999 of the unpacked
+       one (phase 4p's limit); passages/s, the pad share of the batches the
+       card ran and K1's launches (with segments) of each; ``encode_packed``
+       also at ``pack_chunk`` 1024, where the next chunk's tokenization
+       runs while the card works on the last one's rows."""
+    from rankpo_tpu_torch.cli import evaluate, run_contrastive, run_rankpo
+    from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
+    from rankpo_tpu_torch.index.encoding import InferenceEncoder
+    from rankpo_tpu_torch.models import lora
+    from rankpo_tpu_torch.models.hf_io import load_pretrained
+    from rankpo_tpu_torch.ops import flash_attention as flash
+
+    train, pairs = write_training_data(tmp, seed)
+    corpus, corpus_file, _ = _serving_data(seed, tmp)
+    query_file, _, _ = write_eval_queries(tmp, seed, corpus)
+    retrieval = ["--retrieval_eval_query_file", query_file, "--retrieval_eval_corpus_file",
+                 corpus_file, "--retrieval_eval_k", "100", "--eval_strategy", "steps"]
+    out = {}
+
+    def timed_step(label):
+        t = time.perf_counter()
+        return lambda: log(f"5l step {label}: {time.perf_counter() - t:.1f} s")
+
+    # ---- 1. LoRA stage 2 with the in-training retrieval evaluation ----
+    done = timed_step("1 LoRA")
+    lora_dir = os.path.join(tmp, "stage2_lora")
+    n = out["lora"] = run_feature("5l stage 2 LoRA", run_rankpo.main, _feature_argv(
+        ckpt, pairs, lora_dir, seed, "stage2", FEATURE_STEPS, "--use_lora", "True",
+        "--lora_r", str(LORA_R), "--lora_alpha", str(LORA_ALPHA), "--learning_rate", LORA_LR,
+        *retrieval, "--eval_steps", "2"), deterministic=True, keep=True)
+    evals = _retrieval_rows(n["history"])
+    if [h["global_step"] for h in evals] != [2, 4]:
+        raise AssertionError(f"5l LoRA: retrieval eval rows at {evals}")
+    plain_first = features["eval"]["losses"][0]
+    adapters = torch.load(os.path.join(lora_dir, "lora_adapters.pt"), map_location="cuda")
+    n_adapter = sum(t.numel() for t in adapters.values())
+    want_adapter = 16 * (2048 * LORA_R + LORA_R * 2048 + 2048 * LORA_R + LORA_R * 512)
+    _, base = load_pretrained(ckpt)
+    _, saved = load_pretrained(lora_dir)
+    targets = {k[: -len(".lora_a")] + ".weight" for k in adapters if k.endswith(".lora_a")}
+    torch.use_deterministic_algorithms(True)  # as in the run that merged them
+    try:
+        merged = lora.merge_lora({name: base[name].to("cuda", torch.float32) for name in targets},
+                                 adapters, LORA_ALPHA / LORA_R)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    untouched = [name for name in saved if name not in targets]
+    base_same = all(torch.equal(saved[name], base[name].float()) for name in untouched)
+    merge_same = all(torch.equal(saved[name], merged[name].cpu()) for name in targets)
+    moved = sum(not torch.equal(saved[name], base[name].float()) for name in targets)
+    del base, saved, merged, adapters
+    eval_dir = os.path.join(tmp, "eval_lora")
+    t = time.perf_counter()
+    offline = evaluate.main([
+        "--model_name_or_path", lora_dir, "--tokenizer_name", "hash:128256",
+        "--query_data", query_file, "--corpus_data", corpus_file, "--bf16", "--k", "100",
+        "--batch_size", "256", "--max_query_length", "128", "--max_passage_length", "512",
+        "--device", "cuda", "--output_dir", eval_dir, "--log_level", "warning"])["main"]
+    offline_s = time.perf_counter() - t
+    shutil.rmtree(lora_dir)
+    shutil.rmtree(eval_dir)
+    live = {k[len("retrieval_"):]: v for k, v in evals[-1].items()
+            if k.startswith("retrieval_") and k != "retrieval_eval_runtime"}
+    close = set(live) == set(offline) and all(
+        abs(live[k] - offline[k]) <= 1e-6 * abs(offline[k]) for k in offline)
+    bit_equal = live == offline
+    log(_feature_line("5l stage 2 LoRA (r 8, alpha 16, q_proj and v_proj)", n)
+        + f"; adapter parameters {n_adapter} ({want_adapter} expected), phase 5's full stage "
+        f"2: median step {stage2['step_time_s']:.4f} s, peak {stage2['peak_mem_gib']:.2f} GiB")
+    log(f"5l LoRA: first loss {n['losses'][0]!r} against the plain stage-2 run's (5f step 5, "
+        f"the same argv and checkpoint) {plain_first!r}: bit-equal "
+        f"{n['losses'][0] == plain_first}; the {len(untouched)} tensors no adapter touches "
+        f"bit-equal to the checkpoint {base_same}; the {len(targets)} adapted ones "
+        f"bit-equal to the merge of the checkpoint and the saved adapters {merge_same} "
+        f"({moved} moved)")
+    log(f"5l LoRA retrieval eval at steps {[h['global_step'] for h in evals]}: runtime "
+        f"{[h['retrieval_eval_runtime'] for h in evals]} s; the last "
+        f"{ {k: round(v, 6) for k, v in live.items() if '@10' in k or '@100' in k} }; "
+        f"cli.evaluate --bf16 over the saved model ({offline_s:.1f} s): within rtol 1e-6 "
+        f"{close}, bit-equal {bit_equal}")
+    kernels = (n["launches"]["flash_fwd"], n["launches"]["flash_bwd_fused"],
+               n["launches"]["flash_dq"], n["launches"]["flash_dkv"])
+    need_bwd = 16 * 2 * FEATURE_STEPS
+    if not (n_adapter == want_adapter and n["losses"][0] == plain_first and base_same
+            and merge_same and moved == len(targets) and close
+            and kernels[1:] == (0, need_bwd, need_bwd) and kernels[0] > 2 * need_bwd):
+        raise AssertionError(f"5l LoRA: adapters {n_adapter}, first loss {n['losses'][0]} vs "
+                             f"{plain_first}, base {base_same}, merge {merge_same}, moved "
+                             f"{moved}, metrics {live} vs {offline}, K1-K3b {kernels}")
+    n.update(adapter_params=n_adapter, retrieval=live, offline_s=offline_s,
+             retrieval_runtime=[h["retrieval_eval_runtime"] for h in evals],
+             bit_equal_metrics=bit_equal)
+    done()
+    # ---- 2. streaming stage 1, the retrieval hook and no eval set ----
+    done = timed_step("2 streaming")
+    n = out["streaming"] = run_feature("5l stage 1 streaming", run_contrastive.main,
+                                       _feature_argv(ckpt, train, os.path.join(tmp, "stage1_stream"),
+                                                     seed, "stage1", FEATURE_STEPS,
+                                                     "--gradient_checkpointing_policy", "full",
+                                                     "--streaming", "True", *retrieval,
+                                                     "--eval_steps", str(FEATURE_STEPS)))
+    full = features["full"]
+    same = (n["losses"], n["grad_norms"]) == (full["losses"], full["grad_norms"])
+    evals = _retrieval_rows(n["history"])
+    log(_feature_line("5l stage 1 --streaming True", n)
+        + f"; losses and gradient norms bit-equal to 5f 'full' step for step: {same}; "
+        f"retrieval at step {[h['global_step'] for h in evals]}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in evals[-1].items() if k.startswith("retrieval_")))
+    if not same or [h["global_step"] for h in evals] != [FEATURE_STEPS]:
+        raise AssertionError(f"5l streaming: losses {n['losses']} / {full['losses']}, gradient "
+                             f"norms {n['grad_norms']} / {full['grad_norms']}, evals {evals}")
+    n["retrieval"] = evals[-1]
+    done()
+    # ---- 3. the packed corpus encode ----
+    done = timed_step("3 packed encode")
+    encoder = InferenceEncoder.from_pretrained(
+        ckpt, tokenizer=resolve_tokenizer("hash:128256", ckpt), device="cuda")
+    # both paths warmed on the first 512 passages (the packed one reaches
+    # its full batch of 128 rows there), so neither pays first-shape costs
+    encoder.encode(corpus[:512], batch_size=64, max_length=512)
+    encoder.encode_packed(corpus[:512], max_length=512)
+    runs = {  # key -> (label, the call)
+        "encode": ("encode (batch 64)",
+                   lambda: encoder.encode(corpus, batch_size=64, max_length=512)),
+        "encode_packed": ("encode_packed (pack_chunk 8192, the default)",
+                          lambda: encoder.encode_packed(corpus, max_length=512)),
+        "encode_packed_1024": ("encode_packed (pack_chunk 1024)",
+                               lambda: encoder.encode_packed(corpus, max_length=512,
+                                                             pack_chunk=1024)),
+    }
+    enc = {}
+    for key, (label, call) in runs.items():
+        calls = []
+        restore = _count_tokens(calls)
+        flash.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            emb = call()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        wall = time.perf_counter() - t
+        real, slots = map(sum, zip(*calls))
+        enc[key] = {"emb": emb, "wall_s": wall, "passages_per_s": N_PASSAGES / wall,
+                    "pad_share": 1 - real / slots, "batches": len(calls),
+                    "launches": flash.launches["flash_fwd"],
+                    "packed_launches": flash.packed_launches["flash_fwd"]}
+        log(f"5l {label} of {N_PASSAGES} passages (max length 512): {wall:.3f} s = "
+            f"{N_PASSAGES / wall:.1f} passages/s, {len(calls)} batches, pad share "
+            f"{1 - real / slots:.4f}, K1 launches {enc[key]['launches']} "
+            f"({enc[key]['packed_launches']} with segments)")
+    del encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = enc["encode"].pop("emb")
+    cos = {}
+    for key in ("encode_packed", "encode_packed_1024"):
+        b = enc[key].pop("emb")
+        cos[key] = float(((a * b).sum(1) / np.linalg.norm(a, axis=1)
+                          / np.linalg.norm(b, axis=1)).min())
+    log(f"5l encode_packed against encode: min cosine {cos['encode_packed']:.6f}, at "
+        f"pack_chunk 1024 {cos['encode_packed_1024']:.6f} (limit 0.999)")
+    if min(cos.values()) < 0.999 or min(enc[k]["packed_launches"] for k in cos) < 16:
+        raise AssertionError(f"5l encode_packed: min cosines {cos}, {enc}")
+    out["encode"] = {**enc, "min_cosine": min(cos.values())}
     done()
     return out
 
@@ -3236,7 +3492,8 @@ def phase_training_mistral(tmp: str, seed: int) -> dict:
     stage1, s1_state = run_stage(
         "e5-mistral stage 1 (contrastive, window, fused backward)", run_contrastive.main,
         ["--model_name_or_path", ckpt, "--train_data", train, "--output_dir", s1,
-         "--num_negatives", "1", "--temperature", "0.02", *common],
+         "--num_negatives", "1", "--temperature", "0.02", "--flash_bwd_impl", "fused",
+         *common],
         s1, base_state, steps=MISTRAL_STEPS)
     stage2, _ = run_stage(
         "e5-mistral stage 2 (RankPO, window, deterministic: split backward)",
@@ -3275,8 +3532,8 @@ def phase_training_mistral(tmp: str, seed: int) -> dict:
 
 def phase_training_qwen2(tmp: str, seed: int, ckpt: str, base_state: dict) -> dict:
     """Phase 5q, Qwen2-1.5B at full width and depth: QWEN2_STEPS stage-1
-    steps through ``run_contrastive.main`` (K1 and K2 at D 128, 6 query
-    heads per kv head); finite losses, every parameter moved."""
+    steps through ``run_contrastive.main`` (K1, K3a and K3b at D 128, 6
+    query heads per kv head); finite losses, every parameter moved."""
     from rankpo_tpu_torch.cli import run_contrastive
     from rankpo_tpu_torch.models.config import EncoderConfig
 
@@ -3284,7 +3541,7 @@ def phase_training_qwen2(tmp: str, seed: int, ckpt: str, base_state: dict) -> di
     train, _ = write_training_data(tmp, seed)
     out = os.path.join(tmp, "qwen2_stage1")
     stage1, _ = run_stage(
-        "qwen2-1.5b stage 1 (contrastive, fused backward)", run_contrastive.main,
+        "qwen2-1.5b stage 1 (contrastive, split backward)", run_contrastive.main,
         ["--model_name_or_path", ckpt, "--train_data", train, "--output_dir", out,
          "--tokenizer_name", f"hash:{config.vocab_size}", "--bf16", "True",
          "--max_steps", str(QWEN2_STEPS), "--per_device_train_batch_size", "8",
@@ -3296,7 +3553,8 @@ def phase_training_qwen2(tmp: str, seed: int, ckpt: str, base_state: dict) -> di
         out, base_state, steps=QWEN2_STEPS)
     layers = config.num_hidden_layers
     need = {"flash_fwd": 2 * layers * 2 * 2 * QWEN2_STEPS,
-            "flash_bwd_fused": layers * 2 * 2 * QWEN2_STEPS}
+            "flash_dq": layers * 2 * 2 * QWEN2_STEPS,
+            "flash_dkv": layers * 2 * 2 * QWEN2_STEPS}
     for kernel, least in need.items():
         if stage1["launches"][kernel] < least:
             raise AssertionError(f"qwen2-1.5b stage 1: {kernel} launched "
@@ -3330,7 +3588,8 @@ def phase_training_gemma(tmp: str, seed: int, ckpt: str, base_state: dict) -> di
         "gemma-2b stage 1 (contrastive, fused backward)", run_contrastive.main,
         ["--model_name_or_path", ckpt, "--train_data", train, "--output_dir", s1,
          "--num_negatives", "3", "--gradient_accumulation_steps", "2",
-         "--temperature", "0.02", "--gradient_checkpointing", "True", *common],
+         "--temperature", "0.02", "--gradient_checkpointing", "True",
+         "--flash_bwd_impl", "fused", *common],
         s1, base_state, steps=GEMMA_STEPS)
     stage2, _ = run_stage(
         "gemma-2b stage 2 (RankPO, deterministic: split backward)", run_rankpo.main,
@@ -3689,8 +3948,8 @@ def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str) -> dict:
     if n_pairs != N_PIPELINE_ROWS * 3 or not history or not np.all(np.isfinite(history)):
         raise AssertionError(f"pipeline: {n_pairs} pairs, losses {history}")
     pl = out["pipeline"]
-    if pl["launches"]["flash_bwd_fused"] <= 0:
-        raise AssertionError("pipeline: flash_bwd_fused was not launched")
+    if pl["launches"]["flash_dq"] <= 0 or pl["launches"]["flash_dkv"] <= 0:
+        raise AssertionError(f"pipeline: the split backward was not launched: {pl['launches']}")
     log(f"pipeline: 2 iterations over {N_PIPELINE_ROWS} rows at full width in "
         f"{pl['wall_s']:.2f} s wall; {len(history)} finite losses "
         f"{[round(x, 4) for x in history]}; {n_pairs} prediction pairs; peak device "
@@ -4384,6 +4643,8 @@ def main(argv=None) -> int:
         for stage_dir in ("stage1", "stage1_rerun", "stage2"):  # ~15 GB of fp32 files
             shutil.rmtree(os.path.join(tmp, stage_dir))
         features = timed("5f training features", phase_training_features, ckpt, tmp, args.seed)
+        item7 = timed("5l item 7", phase_training_item7, ckpt, tmp, args.seed, features,
+                      train["stage2"])
         evaluation = timed("7 evaluate", phase_evaluate, args.seed, tmp, ckpt)
         mining = timed("8 mining and pipeline", phase_mining, args.seed, tmp, ckpt,
                        os.path.join(tmp, "eval_queries.jsonl"))
@@ -4579,14 +4840,33 @@ def main(argv=None) -> int:
     log(f"numbers ({card}): 5f launches (K1, K2, K3a, K3b): " + "; ".join(
         f"{k} {tuple(features[k]['launches'][name] for name in KERNELS)}"
         for k in feature_keys))
+    lo, st, en = item7["lora"], item7["streaming"], item7["encode"]
+    log(f"numbers ({card}): 5l LoRA stage 2 (r {LORA_R}): {lo['adapter_params']} adapter "
+        f"parameters; median step {lo['step_time_s']:.4f} s, peak {lo['peak_mem_gib']:.2f} GiB "
+        f"(phase 5's full stage 2 {train['stage2']['step_time_s']:.4f} s, "
+        f"{train['stage2']['peak_mem_gib']:.2f} GiB); retrieval_eval_runtime "
+        f"{lo['retrieval_runtime']} s; cli.evaluate over the saved model {lo['offline_s']:.1f} "
+        f"s; metrics bit-equal to it {lo['bit_equal_metrics']}; launches {lo['launches']}")
+    log(f"numbers ({card}): 5l streaming stage 1: median step {st['step_time_s']:.4f} s (5f "
+        f"'full' {features['full']['step_time_s']:.4f}); wall {st['wall_s']:.1f} s; "
+        f"retrieval_eval_runtime {st['retrieval']['retrieval_eval_runtime']} s")
+    log(f"numbers ({card}): 5l corpus encode of {N_PASSAGES} passages: encode "
+        f"{en['encode']['passages_per_s']:.1f} passages/s, pad share "
+        f"{en['encode']['pad_share']:.4f}, K1 {en['encode']['launches']}; encode_packed "
+        f"{en['encode_packed']['passages_per_s']:.1f} passages/s, pad share "
+        f"{en['encode_packed']['pad_share']:.4f}, K1 {en['encode_packed']['launches']}; at "
+        f"pack_chunk 1024 {en['encode_packed_1024']['passages_per_s']:.1f} passages/s, pad "
+        f"share {en['encode_packed_1024']['pad_share']:.4f}; min cosine {en['min_cosine']:.6f}")
     trained = (train["stage1"], train["stage2"], bge["stage1"], bge["stage2"], qwen2["stage1"],
                mistral["stage1"], mistral["stage2"], gemma["stage1"], gemma["stage2"],
-               *mining.values(), *feature_runs)
+               *mining.values(), *feature_runs, lo, st)
     launches = {name: sum(n["launches"][name] for n in trained) for name in KERNELS}
     launches["flash_fwd"] += sum(n["launches"]["flash_fwd"] for n in (
         *serving.values(), *mutation.values(), *evaluation.values(),
         *evaluation_bge.values(), *evaluation_mistral.values(), *evaluation_gemma.values(),
         *serving_models.values()))
+    launches["flash_fwd"] += sum(en[k]["launches"]
+                                 for k in ("encode", "encode_packed", "encode_packed_1024"))
     windowed = {name: mistral["stage1"]["window_launches"][name]
                 + mistral["stage2"]["window_launches"][name] for name in KERNELS}
     windowed["flash_fwd"] += (serving_models[MISTRAL]["window_launches"]
@@ -4607,9 +4887,11 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} ran no launch at head_dim 256 on the gemma-2b paths")
     packed = {name: sum(n["packed_launches"][name] for n in train_packed.values())
               for name in KERNELS}
-    packed["flash_fwd"] += serving_packed["packed_launches"]["flash_fwd"]
+    packed["flash_fwd"] += (serving_packed["packed_launches"]["flash_fwd"]
+                            + en["encode_packed"]["packed_launches"]
+                            + en["encode_packed_1024"]["packed_launches"])
     log(f"numbers ({card}): launches with segments on the packed paths (4p serving, 5p both "
-        f"stages): {packed}")
+        f"stages, 5l encode_packed): {packed}")
     for name, n in packed.items():
         if n <= 0:
             raise AssertionError(f"{name} ran no launch with segments on the packed paths")

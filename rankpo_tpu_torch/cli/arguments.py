@@ -3,9 +3,7 @@ prediction entry points (port of ``rankpo_tpu.cli.arguments``).
 
 The flag surface is the JAX package's (itself the reference's
 ``src/arguments.py``), so the published shell recipes translate unchanged:
-a small argparse generator reads dataclass fields. Fields of features this
-slice does not port stay parseable and are rejected by
-:func:`check_unported` with the ROADMAP.md item that brings them.
+a small argparse generator reads dataclass fields.
 """
 
 from __future__ import annotations
@@ -16,9 +14,6 @@ import json
 import logging
 import sys
 from typing import Optional, Sequence, Type, Union, get_args, get_origin
-
-_ROADMAP = "ROADMAP.md Queue 1 item {}"
-
 
 def _add_field(parser: argparse.ArgumentParser, f: dataclasses.Field) -> None:
     name = "--" + f.name
@@ -89,19 +84,6 @@ def parse_index_kwargs(raw: str) -> Optional[dict]:
     return out
 
 
-def check_unported(args, unported: dict) -> None:
-    """Raise for a field of ``args`` set away from its default when the
-    feature is not ported: ``unported`` maps field -> (default, (what,
-    ROADMAP Queue 1 item))."""
-    for name, (default, (what, item)) in unported.items():
-        value = getattr(args, name)
-        if value != default:
-            raise NotImplementedError(
-                f"--{name} {value}: {what} is not ported to rankpo_tpu_torch "
-                f"yet ({_ROADMAP.format(item)})"
-            )
-
-
 def setup_logging(log_level: str = "info") -> None:
     logging.basicConfig(
         level=getattr(logging, log_level.upper(), logging.INFO),
@@ -132,6 +114,12 @@ class ModelArguments:
                           "'flash_attention_2' maps to the CUDA flash kernels, "
                           "'eager'/'sdpa' (and the JAX package's 'xla') to the "
                           "plain PyTorch attention."},
+    )
+
+    flash_bwd_impl: str = dataclasses.field(
+        default="auto",
+        metadata={"help": "Backward kernels of the flash attention on the card: "
+                          "auto (= split) | split (K3a + K3b) | fused (K2)."},
     )
 
     @property
@@ -166,7 +154,11 @@ class TrainDataArguments:
         default=None,
         metadata={"help": "Bucketed padding multiple (None = fixed max length)."},
     )
-    streaming: bool = dataclasses.field(default=False, metadata={"help": "not ported"})
+    streaming: bool = dataclasses.field(
+        default=False,
+        metadata={"help": "Keep the training rows on disk and tokenize each on "
+                          "access (data/datasets.py StreamingContrastiveDataset)."},
+    )
     pack_sequences: bool = dataclasses.field(
         default=False,
         metadata={"help": "Sequence packing: several texts per row with "
@@ -177,11 +169,28 @@ class TrainDataArguments:
         default=16, metadata={"help": "Packing: max texts per packed row."}
     )
     retrieval_eval_query_file: Optional[str] = dataclasses.field(
-        default=None, metadata={"help": "not ported (in-training retrieval eval)"}
+        default=None,
+        metadata={"help": "In-training retrieval eval: query jsonl (the "
+                          "cli.evaluate schema). At each eval point (per "
+                          "--eval_strategy) the live model encodes it and the "
+                          "retrieval_* metrics join the training log "
+                          "(eval/in_training.py)."},
     )
-    retrieval_eval_corpus_file: Optional[str] = dataclasses.field(default=None)
-    retrieval_eval_k: int = dataclasses.field(default=100)
-    retrieval_eval_index: str = dataclasses.field(default="flat")
+    retrieval_eval_corpus_file: Optional[str] = dataclasses.field(
+        default=None,
+        metadata={"help": "In-training retrieval eval: corpus jsonl (required with "
+                          "--retrieval_eval_query_file)."},
+    )
+    retrieval_eval_k: int = dataclasses.field(
+        default=100,
+        metadata={"help": "In-training retrieval eval: search depth (also caps the "
+                          "metric cutoffs 1,5,10,20,100)."},
+    )
+    retrieval_eval_index: str = dataclasses.field(
+        default="flat",
+        metadata={"help": "In-training retrieval eval: index tier or factory spec "
+                          "('flat', 'refine', 'ivf', 'PCA128,Flat', ...)."},
+    )
 
     def to_json_string(self):
         return _json_str(self)
@@ -215,10 +224,18 @@ class RankPOArguments:
     loss_type: str = dataclasses.field(default="sigmoid")
     label_smoothing: float = dataclasses.field(default=0.0)
     disable_dropout: bool = dataclasses.field(default=True)
-    use_lora: bool = dataclasses.field(default=False, metadata={"help": "not ported"})
+    use_lora: bool = dataclasses.field(
+        default=False,
+        metadata={"help": "Train LoRA adapters over a frozen base; the saved "
+                          "models hold the merge (models/lora.py)."},
+    )
     lora_r: int = dataclasses.field(default=8)
     lora_alpha: float = dataclasses.field(default=16.0)
-    lora_target_modules: str = dataclasses.field(default="auto")
+    lora_target_modules: str = dataclasses.field(
+        default="auto",
+        metadata={"help": "comma-joined projections to adapt; 'auto' = q_proj,v_proj "
+                          "(llama body) or query,value (Roberta/BERT body)"},
+    )
 
     def to_json_string(self):
         return _json_str(self)
@@ -315,10 +332,3 @@ class PredictionArguments:
     def to_json_string(self):
         return _json_str(self)
 
-
-# fields of the groups above whose features this slice does not port
-UNPORTED_DATA = {
-    "streaming": (False, ("the streaming dataset", 7)),
-    "retrieval_eval_query_file": (None, ("in-training retrieval eval", 7)),
-}
-UNPORTED_RANKPO = {"use_lora": (False, ("LoRA", 7))}

@@ -23,8 +23,12 @@ block-diagonal attention). ``--resume_from_checkpoint`` (``latest``,
 built and then its optimizer state and counters (``Trainer.resume_from``);
 ``--grad_cache True`` trains on InfoNCE over the whole accumulation group
 (``train/gradcache.py``); ``--eval_data`` is evaluated by
-``--eval_strategy``. Not ported yet, each rejected with its ROADMAP.md
-item: streaming, in-training retrieval evaluation.
+``--eval_strategy``, and so are ``--retrieval_eval_query_file`` /
+``--retrieval_eval_corpus_file`` (retrieval metrics of the live model,
+``eval/in_training.py``). ``--streaming True`` keeps the rows on disk
+(``data/datasets.py`` ``StreamingContrastiveDataset``): the same items,
+the same batches. ``--flash_bwd_impl`` picks the flash backward kernels
+(default split).
 """
 
 from __future__ import annotations
@@ -39,20 +43,19 @@ import numpy as np
 import torch
 
 from rankpo_tpu_torch.cli.arguments import (
-    UNPORTED_DATA,
     ContrastiveArguments,
     ModelArguments,
     TrainDataArguments,
-    check_unported,
     parse_dataclasses,
     setup_logging,
 )
 from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.collators import ContrastiveCollator
-from rankpo_tpu_torch.data.datasets import ContrastiveDataset
+from rankpo_tpu_torch.data.datasets import ContrastiveDataset, StreamingContrastiveDataset
 from rankpo_tpu_torch.data.packing import PackedContrastiveCollator
 from rankpo_tpu_torch.data.tokenization import prepare_tokenizer, resolve_tokenizer
 from rankpo_tpu_torch.core.device import resolve_device
+from rankpo_tpu_torch.eval.in_training import maybe_attach_retrieval_eval
 from rankpo_tpu_torch.models.base import EncoderModule
 from rankpo_tpu_torch.models.encoder import encoder_class, resize_token_embeddings
 from rankpo_tpu_torch.models.hf_io import load_pretrained, save_pretrained
@@ -126,25 +129,29 @@ def load_resume_weights(resume, config, state):
     return load_pretrained(resume)
 
 
-def build_model(config, state, train_cfg: TrainConfig, device) -> EncoderModule:
+def build_model(config, state, train_cfg: TrainConfig, device,
+                bwd_impl: str = "auto") -> EncoderModule:
     """The config's body (Llama, Qwen2 or Mistral; Roberta/BERT), trainable."""
     policy = policy_from_flags(train_cfg.bf16, train_cfg.pure_bf16)
     return encoder_class(config).for_training(
         config, state, device=device, param_dtype=policy.param_dtype,
         compute_dtype=policy.compute_dtype,
         gradient_checkpointing=train_cfg.gradient_checkpointing,
-        checkpoint_policy=train_cfg.gradient_checkpointing_policy,
+        checkpoint_policy=train_cfg.gradient_checkpointing_policy, bwd_impl=bwd_impl,
     )
 
 
-def make_save_fn(config, tokenizer=None, **card):
+def make_save_fn(config, tokenizer=None, state_fn=None, **card):
     """The trainer's save function: the fp32 model files (the JAX package's
-    load_pretrained reads them too), an HF ``tokenizer`` beside them (so a
-    later stage, evaluation and serving load the added tokens) and the model
-    card, whose arguments ``card`` (stage, tags, base_model, training_args)
-    are the JAX CLI's."""
+    load_pretrained reads them too) of ``state_fn(model)`` (by default the
+    model's state dict), an HF ``tokenizer`` beside them (so a later stage,
+    evaluation and serving load the added tokens) and the model card, whose
+    arguments ``card`` (stage, tags, base_model, training_args) are the JAX
+    CLI's."""
+    state_fn = state_fn or (lambda model: model.state_dict())
+
     def save_params_fn(directory: str, model: torch.nn.Module) -> None:
-        save_pretrained(directory, config, model.state_dict(), dtype=torch.float32)
+        save_pretrained(directory, config, state_fn(model), dtype=torch.float32)
         if hasattr(tokenizer, "save_pretrained"):
             tokenizer.save_pretrained(directory)
         # push_to_hub tagging analog (reference rankpo_trainer.py:647-654)
@@ -176,7 +183,6 @@ def main(argv=None):
         [ModelArguments, TrainDataArguments, ContrastiveArguments, TrainConfig], argv
     )
     setup_logging(train_cfg.log_level)
-    check_unported(data_args, UNPORTED_DATA)
     train_cfg.check_supported()
     device = resolve_device(train_cfg.device)  # before any loading: no CPU fallback
     guard_output_dir(train_cfg)
@@ -189,7 +195,8 @@ def main(argv=None):
     resume = resolve_resume(train_cfg)
     config, state = load_resume_weights(resume, config, state)
     config.normalize = c_args.normalize_embeddings
-    dataset = ContrastiveDataset(
+    dataset_cls = StreamingContrastiveDataset if data_args.streaming else ContrastiveDataset
+    dataset = dataset_cls(
         data_args.train_data, tokenizer,
         max_query_length=data_args.max_query_length,
         max_passage_length=data_args.max_passage_length,
@@ -220,7 +227,7 @@ def main(argv=None):
     total_steps = (train_cfg.max_steps if train_cfg.max_steps > 0
                    else steps_per_epoch * train_cfg.num_train_epochs)
 
-    model = build_model(config, state, train_cfg, device)
+    model = build_model(config, state, train_cfg, device, model_args.flash_bwd_impl)
     del state
     loss_fn = make_contrastive_loss_fn(
         config, temperature=c_args.temperature,
@@ -270,6 +277,7 @@ def main(argv=None):
     if resume:
         logger.info("resuming trainer state from %s", resume)
         trainer.resume_from(resume)
+    maybe_attach_retrieval_eval(trainer, data_args, tokenizer, attn_impl=model_args.attn_impl)
     eval_dataset = None
     if data_args.eval_data:
         eval_dataset = ContrastiveDataset(

@@ -12,24 +12,33 @@ Loads the stage-1 checkpoint, optionally a frozen reference model (unless
 ``torch.no_grad``), the annotated pair jsonl, and trains with the
 sigmoid/hinge preference loss on the single-card ``Trainer``; the saved
 directories get the JAX package's model card, and ``--wandb_project`` logs
-to wandb when it is installed. ``--resume_from_checkpoint`` and
-``--eval_data`` work as in stage 1 (``cli/run_contrastive.py``; JAX
-``run_rankpo.py:52-61, 239-241, 263-273``). LoRA is not ported yet
-(ROADMAP.md Queue 1 item 7).
+to wandb when it is installed. ``--resume_from_checkpoint``,
+``--eval_data`` and the in-training retrieval evaluation work as in stage 1
+(``cli/run_contrastive.py``; JAX ``run_rankpo.py:52-61, 239-241,
+243-273``).
+
+``--use_lora True [--lora_r 8 --lora_alpha 16 --lora_target_modules
+auto]`` trains adapters over the frozen model (``models/lora.py``; JAX
+``run_rankpo.py:159-200, 249-260``): checkpoints and the output hold the
+merged model (and ``lora_adapters.pt``), ``opt_state.pt`` the adapters'
+optimizer state, and the retrieval evaluation encodes with the merged
+weights. A resumed LoRA run takes the checkpoint's merged weights as its
+base, draws fresh adapters from the seed and restores the adapters'
+optimizer state, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
+import torch
+
 from rankpo_tpu_torch.cli.arguments import (
-    UNPORTED_DATA,
-    UNPORTED_RANKPO,
     ModelArguments,
     RankPOArguments,
     TrainDataArguments,
-    check_unported,
     parse_dataclasses,
     setup_logging,
 )
@@ -48,6 +57,8 @@ from rankpo_tpu_torch.data.collators import RankPOCollator
 from rankpo_tpu_torch.data.datasets import PairPreferenceDataset
 from rankpo_tpu_torch.data.packing import PackedRankPOCollator
 from rankpo_tpu_torch.core.device import resolve_device
+from rankpo_tpu_torch.eval.in_training import maybe_attach_retrieval_eval
+from rankpo_tpu_torch.models import lora
 from rankpo_tpu_torch.models.encoder import encoder_class
 from rankpo_tpu_torch.models.hf_io import load_pretrained
 from rankpo_tpu_torch.train.config import TrainConfig
@@ -64,8 +75,6 @@ def main(argv=None):
         [ModelArguments, TrainDataArguments, RankPOArguments, TrainConfig], argv
     )
     setup_logging(train_cfg.log_level)
-    check_unported(data_args, UNPORTED_DATA)
-    check_unported(r_args, UNPORTED_RANKPO)
     train_cfg.check_supported()
     device = resolve_device(train_cfg.device)  # before any loading: no CPU fallback
     guard_output_dir(train_cfg)
@@ -115,8 +124,20 @@ def main(argv=None):
     total_steps = (train_cfg.max_steps if train_cfg.max_steps > 0
                    else steps_per_epoch * train_cfg.num_train_epochs)
 
-    model = build_model(config, state, train_cfg, device)
+    model = build_model(config, state, train_cfg, device, model_args.flash_bwd_impl)
     del state
+    if r_args.use_lora:
+        targets = r_args.lora_target_modules
+        if targets == "auto":
+            targets = lora.auto_targets(config)
+        lora_cfg = lora.LoraConfig(
+            r=r_args.lora_r, alpha=r_args.lora_alpha,
+            target_modules=tuple(m.strip() for m in targets.split(",") if m.strip()))
+        lora.apply_lora(model, lora_cfg, torch.Generator().manual_seed(train_cfg.seed))
+        logger.info(
+            "LoRA: training %.2fM adapter params over a frozen %.2fM base",
+            lora.count_params(p for p in model.parameters() if p.requires_grad) / 1e6,
+            lora.count_params(p for p in model.parameters() if not p.requires_grad) / 1e6)
     loss_fn = make_rankpo_loss_fn(
         config, beta=r_args.beta, gamma_beta_ratio=r_args.gamma_beta_ratio,
         temperature=r_args.temperature, loss_type=r_args.loss_type,
@@ -125,9 +146,11 @@ def main(argv=None):
         reference_free=r_args.reference_free, ref_model=ref_model,
         disable_dropout=r_args.disable_dropout, attn_impl=model_args.attn_impl,
     )
-    save_fn = make_save_fn(
+    save_model = make_save_fn(
         config, tokenizer, stage="rankpo",
-        tags=["rankpo_tpu", "rankpo", "preference-optimization", "dense-retrieval"],
+        state_fn=lora.merged_state_dict if r_args.use_lora else None,
+        tags=["rankpo_tpu", "rankpo", "preference-optimization", "dense-retrieval"]
+             + (["lora"] if r_args.use_lora else []),
         base_model=model_args.model_name_or_path,
         training_args={
             "loss_type": r_args.loss_type,
@@ -137,6 +160,13 @@ def main(argv=None):
             "learning_rate": train_cfg.learning_rate,
         },
     )
+
+    def save_fn(directory: str, model) -> None:
+        save_model(directory, model)
+        if r_args.use_lora:  # the merge's adapters, beside it
+            torch.save(lora.adapter_state_dict(model),
+                       os.path.join(directory, "lora_adapters.pt"))
+
     trainer = Trainer(
         loss_fn=loss_fn, model=model, config=train_cfg,
         total_steps=max(total_steps, 1), save_params_fn=save_fn,
@@ -157,6 +187,7 @@ def main(argv=None):
     if resume:
         logger.info("resuming trainer state from %s", resume)
         trainer.resume_from(resume)
+    maybe_attach_retrieval_eval(trainer, data_args, tokenizer, attn_impl=model_args.attn_impl)
     eval_dataset = None
     if data_args.eval_data:
         eval_dataset = PairPreferenceDataset(

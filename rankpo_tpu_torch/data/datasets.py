@@ -1,14 +1,21 @@
-"""Tokenized in-memory datasets for training, and the loaders of the eval,
-corpus and mining files (port of ``rankpo_tpu.data.datasets``).
+"""Tokenized in-memory datasets for training, the streaming contrastive
+dataset, and the loaders of the eval, corpus and mining files (port of
+``rankpo_tpu.data.datasets``).
 
 Rows are tokenized eagerly on load with one batched tokenizer call per field;
 the result is plain lists of variable-length id sequences consumed by the
 static-shape collators (``data/collators.py``).
+:class:`StreamingContrastiveDataset` keeps the rows on disk and tokenizes
+each on access.
 """
 
 from __future__ import annotations
 
+import json
+import threading
 from typing import List, Tuple
+
+import numpy as np
 
 from rankpo_tpu_torch.utils.jsonl import iter_jsonl
 
@@ -97,6 +104,68 @@ class ContrastiveDataset:
 
     def __getitem__(self, i: int) -> dict:
         return self.rows[i]
+
+
+class StreamingContrastiveDataset:
+    """:class:`ContrastiveDataset`'s rows, kept on disk (JAX
+    ``datasets.py:126-190``): the byte offset of every non-blank line comes
+    from one scan at construction, and each access does a locked seek and
+    read, then parses and tokenizes that row, so resident memory does not
+    grow with the file. The DataLoader's prefetch thread overlaps this host
+    work with the device's. Item ``i`` equals ``ContrastiveDataset``'s on
+    the same file (blank lines are skipped by both). A pickled copy, and
+    each unpickled one, opens its own file handle."""
+
+    def __init__(
+        self,
+        path: str,
+        tokenizer,
+        max_query_length: int = 32,
+        max_passage_length: int = 128,
+    ):
+        self.path = path
+        self.tokenizer = tokenizer
+        self.max_query_length = max_query_length
+        self.max_passage_length = max_passage_length
+        starts, ends = [], []
+        offset = 0
+        with open(path, "rb") as f:
+            for line in f:
+                if line.strip():
+                    starts.append(offset)
+                    ends.append(offset + len(line))
+                offset += len(line)
+        self.spans = np.asarray([starts, ends], dtype=np.int64).reshape(2, -1)
+        self._file = open(path, "rb")
+        self._lock = threading.Lock()  # seek + read must be atomic across threads
+
+    def __len__(self) -> int:
+        return self.spans.shape[1]
+
+    def __getitem__(self, i: int) -> dict:
+        lo, hi = int(self.spans[0, i]), int(self.spans[1, i])
+        with self._lock:
+            self._file.seek(lo)
+            raw = self._file.read(hi - lo)
+        row = json.loads(raw)
+        tok = self.tokenizer
+        return {
+            "query": _batch_tokenize(tok, [row["query"]], self.max_query_length)[0],
+            "positives": _batch_tokenize(tok, row["positives"], self.max_passage_length),
+            "negatives": _batch_tokenize(tok, row["negatives"], self.max_passage_length),
+        }
+
+    def __getstate__(self):
+        # the file handle and the lock are process-local
+        state = self.__dict__.copy()
+        state["_file"] = None
+        state["_lock"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._file = open(self.path, "rb")
+        self._lock = threading.Lock()
 
 
 class PairPreferenceDataset:

@@ -9,22 +9,26 @@ order so each batch is length-homogeneous, then restore the input order.
 ``encode`` returns host fp32.
 
 ``embed_packed_batch`` embeds sequence-packed query rows (serving's
-``pack_queries``). Dropped from the JAX version, because they exist for
-XLA's static shapes or for a device mesh: batch-size padding of the last
-chunk, the bounded in-flight D2H window, mesh sharding; the sequence-packed
-corpus encode (``encode_packed``) is not ported yet (ROADMAP.md).
+``pack_queries``); ``encode_packed`` is the sequence-packed corpus encode.
+An encoder built with ``model=`` encodes with that module's own tensors
+(the in-training retrieval evaluation, ``eval/in_training.py``). Dropped
+from the JAX version, because they exist for XLA's static shapes or for a
+device mesh: batch-size padding of the last chunk (and of the packed
+encode's last rows), the bounded in-flight D2H window, mesh sharding.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.data.collators import _pad_block
+from rankpo_tpu_torch.data.packing import occupancy, pack_token_lists
+from rankpo_tpu_torch.models.base import EncoderModule
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.models.encoder import embed, embed_packed, encoder_class
 from rankpo_tpu_torch.models.packing import scatter_packed_reps
@@ -36,7 +40,7 @@ class InferenceEncoder:
     def __init__(
         self,
         config: EncoderConfig,
-        state: Dict[str, torch.Tensor],
+        state: Optional[Dict[str, torch.Tensor]],
         tokenizer,
         *,
         device="cuda",
@@ -44,14 +48,24 @@ class InferenceEncoder:
         compute_dtype: torch.dtype = torch.bfloat16,
         attn_impl: str = "auto",
         length_multiple: int = 64,
+        model: Optional[EncoderModule] = None,
     ):
+        """The model is built from ``state`` in ``compute_dtype`` on
+        ``device``; or, with ``model`` (and ``state`` None), the encoder
+        runs that module as it stands: its tensors, its device and its
+        compute dtype, no copy. ``model`` may be swapped later."""
         self.config = config
         self.tokenizer = tokenizer
-        self.device = resolve_device(device)
         self.normalize = normalize_embeddings
-        self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
         self.length_multiple = length_multiple
+        if model is not None:
+            if state is not None:
+                raise ValueError("give the encoder a state or a model, not both")
+            self.device = next(model.parameters()).device
+            self.model = model
+            return
+        self.device = resolve_device(device)
         self.model = encoder_class(config).from_state_dict(
             config, state, device=self.device, dtype=compute_dtype
         )
@@ -169,3 +183,72 @@ class InferenceEncoder:
                                     sort_by_length=sort_by_length)
         result = emb.cpu().numpy()
         return result[0] if single else result
+
+    @torch.inference_mode()
+    def encode_packed(
+        self,
+        sentences: List[str],
+        *,
+        max_length: int = 512,
+        pack_length: int = 0,
+        tokens_per_batch: int = 65536,
+        pack_chunk: int = 8192,
+    ) -> np.ndarray:
+        """Sequence-packed encode (JAX ``encoding.py:269-395``): host fp32
+        [N, H] embeddings in input order.
+
+        Each text is truncated to ``max_length``, then bin-packed with its
+        neighbours into rows of ``pack_length`` tokens (0: the chunk's
+        longest text rounded up to a power of two, at least 256), so the
+        rows hold little padding. Each text's embedding is the one
+        :meth:`encode` gives it, up to the kernels' rounding; only the
+        batching differs. ``pack_chunk`` texts are tokenized and packed at
+        a time; rows go to the device in batches of about
+        ``tokens_per_batch`` tokens."""
+        if isinstance(sentences, str):
+            raise ValueError("encode_packed takes a list of texts")
+        sentences = list(sentences)
+        if sentences and not isinstance(sentences[0], str):
+            raise ValueError("Input items should be text.")
+        n = len(sentences)
+        out = torch.zeros((n, self.config.hidden_size), dtype=torch.float32,
+                          device=self.device)
+        pad_id = self.config.pad_token_id or 0
+        for lo in range(0, n, pack_chunk):
+            chunk = sentences[lo : lo + pack_chunk]
+            encoded = self.tokenizer(chunk, max_length=max_length, truncation=True)
+            # an empty tokenization packs as one pad token (a finite
+            # embedding, like the unpacked path's all-pad row)
+            ids_list = [x or [pad_id] for x in encoded["input_ids"]]
+            longest = max(len(x) for x in ids_list)
+            if pack_length:
+                cap = pack_length
+                if longest > cap:
+                    raise ValueError(
+                        f"pack_length {cap} < longest tokenized text {longest}; "
+                        "raise it or lower max_length")
+            else:
+                cap = 256
+                while cap < longest:
+                    cap *= 2
+            # segment caps as powers of two, as the JAX package picks them
+            mseg = 8
+            while mseg < min(cap, 4 * max(1, cap // max(1, longest))):
+                mseg *= 2
+            packed = pack_token_lists(ids_list, cap, mseg, pad_id)
+            m = 8
+            while m < packed.max_segments:
+                m *= 2
+            rows_per_batch = max(1, tokens_per_batch // cap)
+            if lo == 0:
+                logger.info("packed encode: %d texts, rows %dx%d tokens, <=%d texts/row, "
+                            "occupancy %.1f%%", n, rows_per_batch, cap, m,
+                            100 * occupancy(packed))
+            chunk_out = out[lo : lo + len(chunk)]
+            for rlo in range(0, packed.n_rows, rows_per_batch):
+                tidx = packed.text_index[rlo : rlo + rows_per_batch]
+                tidx = np.pad(tidx, ((0, 0), (0, m - tidx.shape[1])), constant_values=-1)
+                chunk_out += self.embed_packed_batch(
+                    packed.input_ids[rlo : rlo + rows_per_batch],
+                    packed.segment_ids[rlo : rlo + rows_per_batch], tidx, len(chunk))
+        return out.cpu().numpy()

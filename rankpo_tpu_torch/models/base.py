@@ -21,6 +21,7 @@ from torch.utils.checkpoint import (
 
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.models.config import EncoderConfig
+from rankpo_tpu_torch.ops.attention import BWD_IMPLS
 
 # the JAX remat_policy values (llama.py:286-323, roberta.py:261-285):
 # "full" recomputes the whole layer in the backward pass; "dots" keeps the
@@ -77,15 +78,19 @@ class EncoderModule(nn.Module):
         compute_dtype: torch.dtype = torch.bfloat16,
         gradient_checkpointing: bool = False,
         checkpoint_policy: str = "full",
+        bwd_impl: str = "auto",
     ) -> "EncoderModule":
         """Trainable build: master parameters in ``param_dtype`` on
         ``device`` (the card unless the caller asks for the CPU; no card
         raises), forward in ``compute_dtype``. ``checkpoint_policy`` is
         the JAX ``remat_policy`` (:data:`CHECKPOINT_POLICIES`), applied
-        with ``gradient_checkpointing``."""
+        with ``gradient_checkpointing``. ``bwd_impl`` picks every layer's
+        flash backward kernels (``ops/attention.py`` ``BWD_IMPLS``)."""
         if checkpoint_policy not in CHECKPOINT_POLICIES:
             raise ValueError(f"unknown remat_policy {checkpoint_policy!r}; "
                              f"one of {list(CHECKPOINT_POLICIES)}")
+        if bwd_impl not in BWD_IMPLS:
+            raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
         device = resolve_device(device)
         with torch.device("meta"):
             model = cls(config)
@@ -97,6 +102,9 @@ class EncoderModule(nn.Module):
         model.compute_dtype = compute_dtype
         model.gradient_checkpointing = gradient_checkpointing
         model.checkpoint_policy = checkpoint_policy
+        for layer in model.modules():
+            if hasattr(layer, "bwd_impl"):
+                layer.bwd_impl = bwd_impl
         return model.requires_grad_(True).train()
 
     @classmethod

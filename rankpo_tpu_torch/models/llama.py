@@ -200,6 +200,7 @@ class LlamaLayer(nn.Module):
             config.hidden_size, config.rms_norm_eps, gemma
         )
         self.mlp = LlamaMLP(config)
+        self.bwd_impl = "auto"  # the flash backward kernels (EncoderModule.for_training)
 
     def qkv(self, x, cos, sin):
         """The input norm, the q/k/v projections and RoPE (JAX ``_layer_qkv``)."""
@@ -218,6 +219,7 @@ class LlamaLayer(nn.Module):
         return multi_head_attention(
             q, k, v, mask=key_mask, causal=True, impl=attn_impl,
             skip_pad_q=True, window=self.config.sliding_window, segment_ids=segment_ids,
+            bwd_impl=self.bwd_impl,
         )
 
     def post(self, x, o):

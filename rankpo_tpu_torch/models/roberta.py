@@ -174,6 +174,7 @@ class RobertaLayer(nn.Module):
         self.attention = _Attention(config)
         self.intermediate = _Dense(h, f)
         self.output = _Dense(f, h, config.layer_norm_eps)
+        self.bwd_impl = "auto"  # the flash backward kernels (EncoderModule.for_training)
 
     def qkv(self, x):
         """The q/k/v projections (JAX ``_layer_qkv``)."""
@@ -189,7 +190,7 @@ class RobertaLayer(nn.Module):
         return multi_head_attention(
             q, k, v, mask=key_mask, causal=False, impl=attn_impl, skip_pad_q=True,
             dropout_rate=cfg.attention_dropout if gen is not None else 0.0,
-            generator=gen, segment_ids=segment_ids,
+            generator=gen, segment_ids=segment_ids, bwd_impl=self.bwd_impl,
         )
 
     def post(self, x, attn, gen):

@@ -174,11 +174,10 @@ def multi_head_attention(
     row. ``window`` (sliding-window attention, with ``causal``) runs on both
     paths: the kernels skip the key tiles outside the band. ``bwd_impl``
     ("auto" | "fused" | "split") picks the backward kernels
-    (``flash_attention.flash_attention_bwd``); "auto" is split, which
-    repeats bit for bit, under ``torch.use_deterministic_algorithms`` and
-    fused otherwise. ``dropout_rate`` > 0 with a ``generator`` runs the
-    plain path with attention-probs dropout on any device and any ``impl``,
-    as the JAX dispatcher does. ``segment_ids`` (packing, see the module
+    (``flash_attention.flash_attention_bwd``); "auto" is split.
+    ``dropout_rate`` > 0 with a ``generator`` runs the plain path with
+    attention-probs dropout on any device and any ``impl``, as the JAX
+    dispatcher does. ``segment_ids`` (packing, see the module
     docstring) runs on every path; the kernels skip the tiles outside each
     query tile's segments."""
     if impl not in IMPLS:

@@ -295,13 +295,15 @@ def flash_attention_fwd(
 
 def resolve_bwd_impl(bwd_impl: str) -> str:
     """"fused" or "split" for a ``bwd_impl`` of :data:`BWD_IMPLS`: "auto" is
-    split under ``torch.use_deterministic_algorithms`` and fused otherwise.
-    Both repeat bit for bit; the split kernels need no workspace and no
-    ordering between blocks."""
+    split, with or without ``torch.use_deterministic_algorithms``: on the
+    H100 the split kernels ran faster than K2 at every shape measured
+    (PERF.md), so the JAX package's VMEM threshold does not apply. Both
+    repeat bit for bit; the split kernels need no workspace and no ordering
+    between blocks."""
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
     if bwd_impl == "auto":
-        return "split" if torch.are_deterministic_algorithms_enabled() else "fused"
+        return "split"
     return bwd_impl
 
 
@@ -331,10 +333,10 @@ def flash_attention_bwd(
       the blocks), as JAX's resident dq block sums it;
     - ``"split"`` (K3a + K3b): the dq kernel loops over key tiles per query
       tile and holds dq in registers;
-    - ``"auto"``: split when ``torch.are_deterministic_algorithms_enabled()``,
-      fused otherwise (:func:`resolve_bwd_impl`). The JAX package picks split
-      above 8·Sq·D > 4 MiB (``flash_attention.py:777``), a VMEM budget for
-      its resident dq block, which the ordered adds do not need.
+    - ``"auto"``: split (:func:`resolve_bwd_impl`). The JAX package picks
+      split above 8·Sq·D > 4 MiB (``flash_attention.py:777``), a VMEM budget
+      for its resident dq block; on the H100 split was the faster at every
+      shape measured, below that size too.
 
     Both give dq, dk and dv that repeat bit for bit. K2 and K3b sum each GQA
     group's dk/dv in the kernel, as ``flash_bwd_fused`` sums them per

@@ -34,7 +34,8 @@ takes it (``trainer.py:208-312``):
 package's ordered keys, plus ``step_time``, ``samples_per_sec``,
 ``tokens_per_sec`` and ``mfu`` (utils/flops.py), stops at ``max_steps``,
 evaluates an eval set by ``eval_strategy`` (``evaluate``: no gradients,
-row-weighted means, ``eval_`` keys), traces ``profile_steps`` steps with
+row-weighted means, ``eval_`` keys) and calls ``retrieval_eval_fn`` there
+(``retrieval_`` keys), traces ``profile_steps`` steps with
 ``torch.profiler`` into ``output_dir/profile/``, and writes checkpoints
 with rotation: the model, and with ``save_only_model=False`` the optimizer
 state and both counters (``train/checkpoint.py``, synchronously or on a
@@ -161,6 +162,9 @@ class Trainer:
         self.updates = 0  # updates applied: the schedule's count, as optax's
         self._history: List[Dict] = []
         self._eval_data = None
+        # model -> {"retrieval_<metric>": value} at each eval point
+        # (eval/in_training.py)
+        self.retrieval_eval_fn: Optional[Callable] = None
         self._preempted = False
 
     # ------------------------------------------------------------------
@@ -281,9 +285,17 @@ class Trainer:
         return {f"eval_{k}": v / n_rows for k, v in sums.items()}
 
     def _maybe_evaluate(self, global_step: int, epoch: int) -> None:
-        if self._eval_data is None:
-            return
-        logs = self.evaluate(*self._eval_data)
+        """The eval set's loss and metrics, and the ``retrieval_eval_fn``
+        metrics on the live model with their wall time
+        (``retrieval_eval_runtime``), as one log line (``trainer.py:427-442``);
+        either may run without the other."""
+        logs: Dict[str, float] = {}
+        if self._eval_data is not None:
+            logs.update(self.evaluate(*self._eval_data))
+        if self.retrieval_eval_fn is not None:
+            t0 = time.time()
+            logs.update(self.retrieval_eval_fn(self.model))
+            logs["retrieval_eval_runtime"] = round(time.time() - t0, 2)
         if logs:
             self._log({"global_step": global_step, "epoch": epoch, **logs})
 

@@ -1,6 +1,6 @@
 """Where a packed training step's time goes, beside the unpacked step, on one card.
 
-    python3 scripts/packed_step_profile.py [--seed 0] [--steps 5]
+    python3 scripts/packed_step_profile.py [--seed 0] [--steps 5] [--stages stage1]
 
 Llama-3.2-1B at full width and depth (random weights from the seed), each
 stage at ``chip_smoke.py``'s phase-5 settings (stage 1: batch 8 x group 4,
@@ -12,8 +12,9 @@ packed, packed, unpacked. Each turn builds the trainer, takes one warm
 step, then times ``--steps`` steps on the host clock (each ending in a
 device synchronisation) and traces one more with ``torch.profiler`` (CUDA
 activity only): device busy time, the idle share of the traced step, and
-the device time by kernel category (``chip_smoke._CATEGORIES``). The
-card's name and power limit open and close the output.
+the device time by kernel category (``chip_smoke._CATEGORIES``), and of
+each flash-attention kernel (K1; K2, or K3a and K3b, by the backward
+"auto" picks). The card's name and power limit open and close the output.
 """
 
 import argparse
@@ -73,6 +74,7 @@ def run(smoke, tmp, seed, state, config, stage: str, packed: bool, steps: int) -
     by_cat = {label: 0.0 for label, _ in smoke._CATEGORIES}
     for name, ms in kernels.items():
         by_cat[next(lab for lab, test in smoke._CATEGORIES if test(name.lower()))] += ms
+    flash = {name: ms for name, ms in kernels.items() if "flash_" in name}
     shapes = {f: tuple(b["input_ids"].shape[1:]) for f, b in groups[-1].items()}
     del trainer, model
     gc.collect()
@@ -81,13 +83,17 @@ def run(smoke, tmp, seed, state, config, stage: str, packed: bool, steps: int) -
             f"{np.median(walls):.1f} ms over {len(walls)} (host clock; {np.round(walls, 1)}); "
             f"traced step {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
             f"{1 - busy / wall:.3f}; device ms by category: "
-            + ", ".join(f"{label} {ms:.1f}" for label, ms in by_cat.items()))
+            + ", ".join(f"{label} {ms:.1f}" for label, ms in by_cat.items())
+            + "; flash kernels: " + ", ".join(f"{name[:60]} {ms:.2f} ms"
+                                              for name, ms in sorted(flash.items())))
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--stages", default="stage1,stage2",
+                        help="comma-joined: stage1, stage2")
     args = parser.parse_args()
     import chip_smoke as smoke
     from rankpo_tpu_torch.models.config import EncoderConfig
@@ -98,7 +104,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="packed_profile_") as tmp:
         ckpt, state = smoke.make_model_checkpoint(tmp, args.seed, "llama-3.2-1b")
         config = EncoderConfig.from_pretrained(ckpt)
-        for stage in ("stage1", "stage2"):
+        for stage in args.stages.split(","):
             for packed in (False, True, True, False):
                 print(run(smoke, tmp, args.seed, state, config, stage, packed, args.steps),
                       flush=True)

@@ -183,17 +183,37 @@ def test_plain_bwd_rounds_like_the_bf16_kernels():
         torch.testing.assert_close(a, r, atol=0.05, rtol=0.02)
 
 
+@pytest.mark.parametrize("body", ["llama", "roberta"])
+def test_for_training_sets_every_layers_bwd_impl(body):
+    """``for_training(bwd_impl=...)`` reaches each layer's attention call
+    (``--flash_bwd_impl``); a value outside ``BWD_IMPLS`` raises."""
+    from rankpo_tpu_torch.models.config import tiny_llama_config, tiny_roberta_config
+    from rankpo_tpu_torch.models.encoder import encoder_class, init_params
+
+    cfg = (tiny_llama_config if body == "llama" else tiny_roberta_config)(vocab_size=64)
+    state = init_params(cfg, torch.Generator().manual_seed(0))
+    cls = encoder_class(cfg)
+    for impl in ("auto", "fused", "split"):
+        model = cls.for_training(cfg, state, device="cpu", bwd_impl=impl)
+        got = {m.bwd_impl for m in model.modules() if hasattr(m, "bwd_impl")}
+        assert got == {impl}
+        assert sum(hasattr(m, "bwd_impl") for m in model.modules()) == cfg.num_hidden_layers
+    with pytest.raises(ValueError, match="bwd_impl"):
+        cls.for_training(cfg, state, device="cpu", bwd_impl="xla")
+
+
 @pytest.mark.parametrize("deterministic", [False, True])
 @pytest.mark.parametrize("impl", ["auto", "fused", "split"])
-def test_auto_bwd_is_split_under_deterministic_algorithms(impl, deterministic):
-    """"auto" picks the bit-reproducible split kernels exactly when torch's
-    deterministic algorithms are on; an explicit choice is kept."""
+def test_auto_bwd_is_split_with_or_without_deterministic_algorithms(impl, deterministic):
+    """"auto" picks the split kernels (the faster on the H100) whether or
+    not torch's deterministic algorithms are on; an explicit choice is
+    kept."""
     before = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(deterministic)
     try:
         got = resolve_bwd_impl(impl)
     finally:
         torch.use_deterministic_algorithms(before)
-    assert got == (("split" if deterministic else "fused") if impl == "auto" else impl)
+    assert got == ("split" if impl == "auto" else impl)
     with pytest.raises(ValueError):
         resolve_bwd_impl("xla")

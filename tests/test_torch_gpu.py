@@ -436,7 +436,26 @@ def test_auto_bwd_under_deterministic_algorithms_runs_split(cuda):
         torch.use_deterministic_algorithms(False)
     flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True, skip_pad_q=True)
     got = {n: port_flash.launches[n] - before[n] for n in port_flash.launches}
-    assert got == {"flash_fwd": 0, "flash_bwd_fused": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert got == {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_dq": 2, "flash_dkv": 2}
+
+
+def test_fused_bwd_impl_reaches_k2_through_the_model(cuda):
+    """``for_training(bwd_impl="fused")`` (the CLIs' ``--flash_bwd_impl
+    fused``) runs K2 in every layer's backward; the default runs K3a and
+    K3b."""
+    cfg = dataclasses.replace(tiny_llama_config(vocab_size=512), hidden_size=256,
+                              intermediate_size=512, head_dim=64)
+    state = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batch = {"input_ids": torch.randint(5, 512, (2, 128), generator=g).to(cuda),
+             "attention_mask": torch.ones(2, 128, dtype=torch.int64, device=cuda)}
+    for impl, ran in (("fused", "flash_bwd_fused"), ("auto", "flash_dq")):
+        model = llama.LlamaEncoder.for_training(cfg, state, device=cuda, bwd_impl=impl)
+        before = dict(port_flash.launches)
+        embed(model, batch).sum().backward()
+        got = {n: port_flash.launches[n] - before[n] for n in port_flash.launches}
+        assert got[ran] == cfg.num_hidden_layers, (impl, got)
+        assert sum(got[n] for n in ("flash_bwd_fused", "flash_dq")) == cfg.num_hidden_layers
 
 
 def test_fused_and_split_bwd_repeat_bit_for_bit(cuda):
@@ -674,7 +693,7 @@ def test_encoder_training_step_flash_against_plain(cuda):
 
 def _trainer_losses(cuda, out_dir):
     """Four Trainer steps on the card from seed 0 with default settings (so
-    the backward's "auto" picks the fused kernel): a small llama at head_dim
+    the backward's "auto" picks the split kernels): a small llama at head_dim
     64, passages of up to 256 tokens (several 64-key tiles, so dq sums over
     key tiles), batch 4 x group 4."""
     cfg = dataclasses.replace(tiny_llama_config(vocab_size=512), hidden_size=256,
@@ -703,9 +722,10 @@ def test_trainer_loss_history_repeats_bit_for_bit(cuda, tmp_path):
     """Two trainers built the same way give equal loss histories, as
     tests/test_train.py asserts for the JAX package (docs/DETERMINISM.md)."""
     assert not torch.are_deterministic_algorithms_enabled()
-    before = port_flash.launches["flash_bwd_fused"]
+    before = dict(port_flash.launches)
     first = _trainer_losses(cuda, tmp_path / "a")
-    assert port_flash.launches["flash_bwd_fused"] > before
+    assert port_flash.launches["flash_dq"] > before["flash_dq"]
+    assert port_flash.launches["flash_bwd_fused"] == before["flash_bwd_fused"]
     second = _trainer_losses(cuda, tmp_path / "b")
     assert len(first) == 4 and np.all(np.isfinite(first))
     assert first == second

@@ -69,6 +69,9 @@ MODULES = [
     "rankpo_tpu_torch.train.optim8bit",
     "rankpo_tpu_torch.train.adafactor",
     "rankpo_tpu_torch.train.gradcache",
+    "rankpo_tpu_torch.data",
+    "rankpo_tpu_torch.models.lora",
+    "rankpo_tpu_torch.eval.in_training",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

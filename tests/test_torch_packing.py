@@ -26,7 +26,12 @@ The same inputs, made from a seed with numpy, go through both packages:
   relative L2 per gradient);
 - both training CLIs with ``--pack_sequences True`` and ``cli.serve`` with
   ``--pack_queries`` on the CPU: hits equal to the unpacked service's and
-  to the JAX service's with ``pack_queries``.
+  to the JAX service's with ``pack_queries``;
+- ``InferenceEncoder.encode_packed`` (the packed corpus encode) in fp32
+  against the port's ``encode`` and JAX ``encode_packed`` on carried-over
+  weights, over several rows a batch and over chunk boundaries: atol 2e-4
+  (tests/test_packing.py ``TestEncodePacked``); an empty list gives [0, H],
+  a bare string raises, as in JAX.
 """
 
 import copy
@@ -712,3 +717,46 @@ def test_serve_cli_pack_queries(serve_checkpoint):
     for got, want in zip(_hits(answers[True]), _hits(answers[False])):
         assert [i for i, _ in got] == [i for i, _ in want]
         np.testing.assert_allclose([s for _, s in got], [s for _, s in want], atol=1e-5)
+
+
+def _packed_encoders():
+    jcfg = jax_tiny_llama(vocab_size=256)
+    params = jenc.init_params(jax.random.key(0), jcfg)
+    pcfg = EncoderConfig(**dataclasses.asdict(jcfg))
+    state = hf_io.params_from_jax(jax.tree_util.tree_map(np.asarray, params), pcfg)
+    jax_e = JaxEncoder(jcfg, params, JaxHashTokenizer(vocab_size=256), mesh=None,
+                       compute_dtype=jnp.float32, length_multiple=8)
+    port_e = InferenceEncoder(pcfg, state, HashTokenizer(vocab_size=256), device="cpu",
+                              compute_dtype=torch.float32, length_multiple=8)
+    return jax_e, port_e
+
+
+ENCODE_PACKED_ATOL = 2e-4
+
+
+@pytest.mark.parametrize("case", ["rows", "chunks"])
+def test_encode_packed_matches_encode_and_jax(case):
+    jax_e, port_e = _packed_encoders()
+    if case == "rows":  # 37 texts, batches of 512 tokens: several rows a batch
+        rng = np.random.RandomState(0)
+        texts = ["word " * int(n) + f"tail{i}" for i, n in enumerate(rng.randint(1, 40, 37))]
+        kw = dict(max_length=48, tokens_per_batch=512)
+    else:  # chunks of 10 texts, one row a batch
+        texts = [f"text {i} " + "pad " * (i % 7) for i in range(23)]
+        kw = dict(max_length=32, tokens_per_batch=256, pack_chunk=10)
+    got = port_e.encode_packed(texts, **kw)
+    assert got.dtype == np.float32 and got.shape == (len(texts), 64)
+    base = port_e.encode(texts, batch_size=8, max_length=kw["max_length"])
+    np.testing.assert_allclose(got, base, atol=ENCODE_PACKED_ATOL)
+    np.testing.assert_allclose(got, jax_e.encode_packed(texts, **kw), atol=ENCODE_PACKED_ATOL)
+
+
+def test_encode_packed_empty_and_validation():
+    jax_e, port_e = _packed_encoders()
+    assert port_e.encode_packed([], max_length=16).shape == (0, 64)
+    assert jax_e.encode_packed([], max_length=16).shape == (0, 64)
+    for enc in (port_e, jax_e):
+        with pytest.raises(ValueError, match="list of texts"):
+            enc.encode_packed("just one string", max_length=16)
+    with pytest.raises(ValueError, match="pack_length"):
+        port_e.encode_packed(["a " * 40], max_length=64, pack_length=16)

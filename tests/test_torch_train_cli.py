@@ -4,8 +4,9 @@ Stage 1 (``rankpo_tpu_torch.cli.run_contrastive``) trains a tiny llama from
 a checkpoint written by the port; stage 2 (``run_rankpo``) trains on stage
 1's output with a frozen reference model. The written directories are read
 back by both packages' ``load_pretrained``: the tensors must be equal bit
-for bit (fp32 files). Flags of features not ported must fail naming
-ROADMAP.md, and ``--device cuda`` must fail without a card.
+for bit (fp32 files). The flags of ROADMAP.md Queue 1 item 7 (LoRA, the
+in-training retrieval evaluation, streaming) train, and ``--device cuda``
+must fail without a card.
 """
 
 import json
@@ -117,16 +118,48 @@ def test_two_stages_end_to_end_on_cpu(workdir):
 @pytest.mark.parametrize("flag", [
     ["--use_lora", "True"], ["--retrieval_eval_query_file", "q.jsonl"], ["--streaming", "True"],
 ])
-def test_unported_flags_fail(workdir, tmp_path, flag):
-    module = run_rankpo if flag[0] == "--use_lora" else run_contrastive
-    if module is run_rankpo:
-        argv = ["--model_name_or_path", str(workdir / "base"), "--tokenizer_name", "hash:256",
-                "--train_data", str(workdir / "pairs.jsonl"), "--output_dir", str(tmp_path),
-                "--device", "cpu", *flag]
-    else:
-        argv = _stage1_argv(workdir, tmp_path, *flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        module.main(argv)
+def test_formerly_unported_flags_train(workdir, tmp_path, flag):
+    """The three flags the port refused before it had ROADMAP.md Queue 1
+    item 7 train, each checked by its own output: LoRA moves only the
+    adapted projections and saves the merge; the retrieval evaluation logs
+    ``retrieval_*`` metrics; streaming gives the eager run's losses."""
+    d = workdir
+    _, base = load_pretrained(str(d / "base"))
+    if flag[0] == "--use_lora":
+        hist = run_rankpo.main([
+            "--model_name_or_path", str(d / "base"), "--tokenizer_name", "hash:256",
+            "--train_data", str(d / "pairs.jsonl"), "--output_dir", str(tmp_path),
+            "--per_device_train_batch_size", "4", "--max_query_length", "16",
+            "--max_passage_length", "32", "--reference_free", "True",
+            "--learning_rate", "1e-2", "--max_steps", "2", "--save_strategy", "no",
+            "--device", "cpu", *flag])
+        assert all(np.isfinite(h["loss"]) for h in hist)
+        _, saved = load_pretrained(str(tmp_path))
+        moved = {n for n in saved if not torch.equal(saved[n], base[n])}
+        assert moved == {f"layers.{i}.self_attn.{p}.weight" for i in range(2)
+                         for p in ("q_proj", "v_proj")}
+        return
+    if flag[0] == "--retrieval_eval_query_file":
+        with open(tmp_path / "q.jsonl", "w") as f:
+            for i in range(4):
+                f.write(json.dumps({"query": {"text": f"w{i} w{i + 1}"},
+                                    "positives": {"index": [i]}}) + "\n")
+        with open(tmp_path / "c.jsonl", "w") as f:
+            for i in range(12):
+                f.write(json.dumps({"text": f"w{i} w{i + 1} w{i + 2}"}) + "\n")
+        flag = ["--retrieval_eval_query_file", str(tmp_path / "q.jsonl"),
+                "--retrieval_eval_corpus_file", str(tmp_path / "c.jsonl"),
+                "--eval_strategy", "steps", "--eval_steps", "3", "--retrieval_eval_k", "10"]
+        hist = run_contrastive.main(_stage1_argv(d, tmp_path / "out", *flag))
+        ev = [h for h in hist if "retrieval_MRR@1" in h]
+        assert len(ev) == 1 and ev[0]["global_step"] == 3
+        assert 0.0 <= ev[0]["retrieval_nDCG@10"] <= 1.0
+        return
+    eager = run_contrastive.main(_stage1_argv(d, tmp_path / "eager", "--save_strategy", "no"))
+    hist = run_contrastive.main(_stage1_argv(d, tmp_path / "out", "--save_strategy", "no",
+                                             *flag))
+    assert [(h["loss"], h["grad_norm"]) for h in hist] == [
+        (h["loss"], h["grad_norm"]) for h in eager]
 
 
 @pytest.mark.parametrize("flag", [
