@@ -43,7 +43,8 @@ version. Phases:
    unpacked kernels on the same texts padded one per row;
 3. exact search on data with exact ties;
 4. serving path, seven times: a bf16 checkpoint written with the port's
-   save_pretrained, a 4096-passage corpus, the HTTP server started by the
+   save_pretrained (the flat tier at full depth, the six others at 4 of
+   16 layers, ``FEATURE_LAYERS``), a 4096-passage corpus, the HTTP server started by the
    CLI in a thread, single-query requests from 8 client threads and batched
    requests. The flat index (K1) and its bf16 and int8 rows
    (``--index_type SQbf16`` / ``SQ8``) are checked against an exact numpy
@@ -61,7 +62,7 @@ version. Phases:
    0.999 of the unpacked service's, K1 launched with segments; /search
    p50/p99 beside phase 4's;
 4m. mutation and persistence over HTTP on flat fp32, ``SQ8``, ``ivf`` (K4)
-   and ``IVF64,PQ64`` (K5), the server run with ``--stable_ids --autosave
+   and ``IVF64,PQ64`` (K5), at 4 of 16 layers, the server run with ``--stable_ids --autosave
    --index_file``: /add of 256 passages (each its own rank 1 as a query),
    /remove of 256 ids (none comes back), a request filtered to a seeded
    half of the ids (every hit allowed), K4/K5 against plain at the mutated
@@ -85,7 +86,8 @@ version. Phases:
    segments; step time, real tokens/s, the pad share packed and unpacked,
    peak memory;
 5f. the single-card training features (after 5p) at Llama-3.2-1B's full
-   width and depth, phase 5's settings, through the CLIs: stage 1 under
+   width and 4 of its 16 layers (``FEATURE_LAYERS``, the cut that pays
+   for 5d), phase 5's settings, through the CLIs: stage 1 under
    gradient checkpointing "full", "dots" and "attn" (bit-equal losses
    and gradient norms; "attn" launches half of "full"'s K1, the same
    K3a and K3b);
@@ -93,8 +95,7 @@ version. Phases:
    AdamW's); stage 2 for 2 steps with its optimizer state, resumed with
    ``--resume_from_checkpoint latest`` for 2 more, losses and final
    model.safetensors bit-equal to 4 straight steps (AdamW with a
-   synchronous save; the 8-bit AdamW with ``--async_checkpointing``; both
-   at 4 of 16 layers);
+   synchronous save; the 8-bit AdamW with ``--async_checkpointing``);
    SIGTERM to ``python -m
    rankpo_tpu_torch.cli.run_rankpo`` (2 of 16 layers) after its first
    step: exit 0 with a checkpoint, then resumed; stage 2 with
@@ -120,6 +121,21 @@ version. Phases:
    bit-equal to 5f's "full" run; ``InferenceEncoder.encode_packed``
    against ``encode`` over the 4096 passages (K1 with segments; cosine
    >= 0.999; passages/s and pad share of each);
+5d. data-parallel training (after 5l) through the CLIs' three multi-host
+   flags: (a) phase 5's stage 1 at world size 1 under NCCL with
+   cross-device negatives and ``--zero1``, then ``--zero2``: losses,
+   gradient norms and the final model bit-equal to phase 5's, its K1 / K3a
+   / K3b launches; (b) two ranks sharing the card under gloo (NCCL takes
+   one rank per device) at 4 of 16 layers: stage 1 at per-device batch 4
+   (global 8 x group 4), accumulation 2, cross-device negatives,
+   ``--zero1``, 4 steps and a checkpoint with the optimizer state, then
+   stage 2 for 2 steps, held to one process on the same global batches
+   (step 1's loss and gradient norm within rtol 2e-4, every step's within
+   ``DP_HISTORY_RTOL``, each tensor's update within ``DP_UPDATE_GAP`` of
+   one process's, identical on both ranks, K1, K3a and K3b on each rank);
+   each rank's optimizer-state bytes, peak memory and step time; (c) the
+   two ranks' checkpoint resumed in one process, its parameters and
+   optimizer state bit-equal to the ranks';
 6. the IVF and refine tiers at scale: 2^20 unit rows at D 2048 (a mixture
    around 8192 centres) and 1024 held-out queries, made on the card; three
    indexes built by the IVFIPIndex constructor (bf16 rows, PQ64 rows, PQ64
@@ -159,7 +175,7 @@ version. Phases:
    topk,cluster --lambda_ 0.5`` over 512 rows (no negative is the query
    or a positive of its row, every row has its count), ``get_predictions``
    (Q x C(5, 2) pair rows), and ``run_pipeline --iterations 2`` over 64
-   rows at full width (K1, K3a, K3b): its final model, its prediction pairs and
+   rows at full width and 4 of 16 layers (K1, K3a, K3b): its final model, its prediction pairs and
    its peak device memory; which k-means path ran;
 5b. bge-m3: stage 1 through ``run_contrastive.main`` with the config's
    dropout live (attention takes the plain path with attention-probs
@@ -2500,6 +2516,8 @@ def phase_training(ckpt: str, tmp: str, seed: int, base_state: dict) -> dict:
         "--warmup_ratio", "0.1", "--gradient_checkpointing", "True", *common]
     stage1, s1_state = run_stage("stage 1 (contrastive, split backward)", run_contrastive.main,
                                  [*stage1_argv, "--output_dir", s1], s1, base_state)
+    # phase 5d's W = 1 runs are held to this file bit for bit
+    stage1["model_crc"] = _file_crc(os.path.join(s1, "model.safetensors"))
     rerun_stage1(run_contrastive.main, stage1_argv, os.path.join(tmp, "stage1_rerun"), stage1)
     stage2, _ = run_stage("stage 2 (RankPO, deterministic: split backward)", run_rankpo.main, [
         "--model_name_or_path", s1, "--train_data", pairs, "--output_dir", s2,
@@ -2694,7 +2712,7 @@ FEATURE_STEPS = 4  # steps of each 5f run
 FEATURE_SHORT_STEPS = 3  # the profiled and debug_nans runs
 GRADCACHE_STEPS = 2  # the gradient-cache run and plain accumulation beside it
 SIGTERM_LAYERS = 2  # 5f's SIGTERM run: the body cut to 2 of 16 layers
-RESUME_LAYERS = 4  # 5f's resume pairs: the body cut to 4 of 16 layers
+FEATURE_LAYERS = 4  # 5f, 5l and 5d's two ranks: the body cut to 4 of 16 layers
 N_EVAL_PAIRS = 32  # 5f's held-out pairs
 
 
@@ -2966,19 +2984,19 @@ def _contrastive_loss_for(config, impl):
 
 def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
     """Phase 5f, the single-card training features at Llama-3.2-1B's full
-    width and depth, phase 5's settings (``_feature_argv``), each run
+    width, the body of ``ckpt`` cut to FEATURE_LAYERS of 16 layers (what
+    these runs test is host logic and the kernels' composition; the cut
+    pays for phase 5d), phase 5's settings (``_feature_argv``), each run
     through its CLI with the launch counters from 0:
 
     1. stage 1 under gradient checkpointing "full", "dots" and "attn":
-       losses and gradient norms bit-equal to "full"'s; K1 launches 2 x 16
-       layers x 2 fields x micro-batches ("attn": half), K3a and K3b 16 x 2 x
-       micro-batches under each;
+       losses and gradient norms bit-equal to "full"'s; K1 launches 2 x
+       layers x 2 fields x micro-batches ("attn": half), K3a and K3b layers
+       x 2 x micro-batches under each;
     2. stage 1 with ``--optim adamw8bit`` and ``adafactor``: the first loss
        bit-equal to AdamW's (no update has happened yet);
     3. stage 2 under deterministic algorithms with ``--save_only_model
-       False``, the body cut to RESUME_LAYERS of 16 layers (what this
-       tests is the state's round trip; the cut keeps the smoke's clock
-       and disk writes small): 2 steps, then ``--resume_from_checkpoint
+       False``: 2 steps, then ``--resume_from_checkpoint
        latest`` for 2 more, losses and model.safetensors bit-equal to 4
        straight steps; with AdamW and a synchronous save, then with the
        8-bit AdamW and ``--async_checkpointing True``;
@@ -3003,8 +3021,10 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
     from rankpo_tpu_torch.data.datasets import ContrastiveDataset, PairPreferenceDataset
     from rankpo_tpu_torch.data.loader import DataLoader
     from rankpo_tpu_torch.data.tokenization import HashTokenizer
+    from rankpo_tpu_torch.models.config import EncoderConfig
 
     train, pairs = write_training_data(tmp, seed)
+    layers = EncoderConfig.from_pretrained(ckpt).num_hidden_layers
     out = {}
 
     def s1(label, steps, *extra, keep=False):
@@ -3023,11 +3043,11 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
     for policy in ("full", "dots", "attn"):
         n = out[policy] = s1(policy, FEATURE_STEPS, "--gradient_checkpointing_policy", policy)
         log(_feature_line(f"5f stage 1 remat {policy!r}", n))
-        k1 = (1 if policy == "attn" else 2) * 16 * 2 * micro
+        k1 = (1 if policy == "attn" else 2) * layers * 2 * micro
         got = tuple(n["launches"][name] for name in KERNELS)
-        if got != (k1, 0, 16 * 2 * micro, 16 * 2 * micro):
+        if got != (k1, 0, layers * 2 * micro, layers * 2 * micro):
             raise AssertionError(f"remat {policy}: K1, K2, K3a, K3b launched {got}, expected "
-                                 f"{(k1, 0, 16 * 2 * micro, 16 * 2 * micro)}")
+                                 f"{(k1, 0, layers * 2 * micro, layers * 2 * micro)}")
         same = (n["losses"], n["grad_norms"]) == (out["full"]["losses"], out["full"]["grad_norms"])
         log(f"5f remat {policy!r}: losses and gradient norms bit-equal to 'full': {same}")
         if not same:
@@ -3045,13 +3065,10 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
             raise AssertionError(f"{optim}: first loss {n['losses'][0]} is not AdamW's "
                                  f"{adamw['losses'][0]}")
     done()
-    # ---- 3. resume (RESUME_LAYERS layers): AdamW with a synchronous save,
-    # the 8-bit AdamW async ----
+    # ---- 3. resume: AdamW with a synchronous save, the 8-bit AdamW async ----
     done = timed_step("3 resume")
-    ckpt4, _ = make_model_checkpoint(tmp, seed, "llama-3.2-1b", RESUME_LAYERS, False)
-    out["resume"] = {"sync": _resume_pair(tmp, ckpt4, pairs, seed, "adamw", False),
-                     "async": _resume_pair(tmp, ckpt4, pairs, seed, "adamw8bit", True)}
-    shutil.rmtree(ckpt4)
+    out["resume"] = {"sync": _resume_pair(tmp, ckpt, pairs, seed, "adamw", False),
+                     "async": _resume_pair(tmp, ckpt, pairs, seed, "adamw8bit", True)}
     out["straight"] = out["resume"]["sync"]["straight"]
     out["straight8"] = out["resume"]["async"]["straight"]
     done()
@@ -3113,8 +3130,8 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
     first = n["losses"][0]
     rel = abs(first - ref["fp32"]) / abs(ref["fp32"])
     micro = GRADCACHE_STEPS * 4
-    want = {"gradcache": (3 * 16 * 2 * micro, 0, 16 * 2 * micro, 16 * 2 * micro),
-            "accum4": (2 * 16 * 2 * micro, 0, 16 * 2 * micro, 16 * 2 * micro)}
+    want = {"gradcache": (3 * layers * 2 * micro, 0, layers * 2 * micro, layers * 2 * micro),
+            "accum4": (2 * layers * 2 * micro, 0, layers * 2 * micro, layers * 2 * micro)}
     for label, nums in (("gradcache", n), ("accum4", plain)):
         got = tuple(nums["launches"][name] for name in KERNELS)
         if got != want[label]:
@@ -3192,15 +3209,15 @@ def _count_tokens(calls: list):
 def phase_training_item7(ckpt: str, tmp: str, seed: int, features: dict,
                          stage2: dict) -> dict:
     """Phase 5l, the rest of the training extensions at Llama-3.2-1B's full
-    width and depth, phase 5's lengths and batches, through the CLIs, after
-    5f (``features``, whose runs it is held to) and beside phase 5's full
-    stage 2 (``stage2``):
+    width, 5f's checkpoint (FEATURE_LAYERS of 16 layers), phase 5's lengths
+    and batches, through the CLIs, after 5f (``features``, whose runs it is
+    held to) and beside phase 5's full stage 2 (``stage2``):
 
     1. ``run_rankpo --use_lora True --lora_r 8 --lora_alpha 16`` under
        deterministic algorithms, 4 steps, with ``--retrieval_eval_query_file
        / --retrieval_eval_corpus_file`` over phase 7's 256 span queries and
        the 4096 passages at ``--eval_steps 2``, k 100: the adapter count
-       (16 x (2048·8 + 8·2048 + 2048·8 + 8·512)); the first loss bit-equal
+       (layers x (2048·8 + 8·2048 + 2048·8 + 8·512)); the first loss bit-equal
        to 5f step 5's (the same argv without LoRA from the same checkpoint:
        B = 0 leaves the base); every tensor of the saved model that no
        adapter touches bit-equal to the checkpoint, and every adapted one
@@ -3209,7 +3226,7 @@ def phase_training_item7(ckpt: str, tmp: str, seed: int, features: dict,
        ``retrieval_*`` within rtol 1e-6 of ``cli.evaluate --bf16`` over the
        saved model at the hook's batch, lengths and k (bit-equality
        printed); K1, K3a and K3b launched, K2 not; step time and peak
-       memory beside phase 5's stage 2; ``retrieval_eval_runtime``;
+       memory beside phase 5's stage 2 (16 layers); ``retrieval_eval_runtime``;
     2. ``run_contrastive --streaming True`` with the retrieval hook at step
        4 and no eval set, 5f's "full" argv otherwise: losses and gradient
        norms bit-equal to 5f "full"'s, step for step; its metrics printed;
@@ -3224,10 +3241,12 @@ def phase_training_item7(ckpt: str, tmp: str, seed: int, features: dict,
     from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
     from rankpo_tpu_torch.index.encoding import InferenceEncoder
     from rankpo_tpu_torch.models import lora
+    from rankpo_tpu_torch.models.config import EncoderConfig
     from rankpo_tpu_torch.models.hf_io import load_pretrained
     from rankpo_tpu_torch.ops import flash_attention as flash
 
     train, pairs = write_training_data(tmp, seed)
+    layers = EncoderConfig.from_pretrained(ckpt).num_hidden_layers
     corpus, corpus_file, _ = _serving_data(seed, tmp)
     query_file, _, _ = write_eval_queries(tmp, seed, corpus)
     retrieval = ["--retrieval_eval_query_file", query_file, "--retrieval_eval_corpus_file",
@@ -3251,7 +3270,7 @@ def phase_training_item7(ckpt: str, tmp: str, seed: int, features: dict,
     plain_first = features["eval"]["losses"][0]
     adapters = torch.load(os.path.join(lora_dir, "lora_adapters.pt"), map_location="cuda")
     n_adapter = sum(t.numel() for t in adapters.values())
-    want_adapter = 16 * (2048 * LORA_R + LORA_R * 2048 + 2048 * LORA_R + LORA_R * 512)
+    want_adapter = layers * (2048 * LORA_R + LORA_R * 2048 + 2048 * LORA_R + LORA_R * 512)
     _, base = load_pretrained(ckpt)
     _, saved = load_pretrained(lora_dir)
     targets = {k[: -len(".lora_a")] + ".weight" for k in adapters if k.endswith(".lora_a")}
@@ -3283,7 +3302,7 @@ def phase_training_item7(ckpt: str, tmp: str, seed: int, features: dict,
     bit_equal = live == offline
     log(_feature_line("5l stage 2 LoRA (r 8, alpha 16, q_proj and v_proj)", n)
         + f"; adapter parameters {n_adapter} ({want_adapter} expected), phase 5's full stage "
-        f"2: median step {stage2['step_time_s']:.4f} s, peak {stage2['peak_mem_gib']:.2f} GiB")
+        f"2 (16 layers): median step {stage2['step_time_s']:.4f} s, peak {stage2['peak_mem_gib']:.2f} GiB")
     log(f"5l LoRA: first loss {n['losses'][0]!r} against the plain stage-2 run's (5f step 5, "
         f"the same argv and checkpoint) {plain_first!r}: bit-equal "
         f"{n['losses'][0] == plain_first}; the {len(untouched)} tensors no adapter touches "
@@ -3297,7 +3316,7 @@ def phase_training_item7(ckpt: str, tmp: str, seed: int, features: dict,
         f"{close}, bit-equal {bit_equal}")
     kernels = (n["launches"]["flash_fwd"], n["launches"]["flash_bwd_fused"],
                n["launches"]["flash_dq"], n["launches"]["flash_dkv"])
-    need_bwd = 16 * 2 * FEATURE_STEPS
+    need_bwd = layers * 2 * FEATURE_STEPS
     if not (n_adapter == want_adapter and n["losses"][0] == plain_first and base_same
             and merge_same and moved == len(targets) and close
             and kernels[1:] == (0, need_bwd, need_bwd) and kernels[0] > 2 * need_bwd):
@@ -3382,6 +3401,470 @@ def phase_training_item7(ckpt: str, tmp: str, seed: int, features: dict,
         raise AssertionError(f"5l encode_packed: min cosines {cos}, {enc}")
     out["encode"] = {**enc, "min_cosine": min(cos.values())}
     done()
+    return out
+
+DP_STEPS = (4, 2)  # 5d's two ranks: stage-1 and stage-2 steps
+DP_PER_RANK = 4  # 5d: per-device batch of each of the two ranks (global 8, phase 5's)
+# 5d(b): the two ranks against one process in bf16 (the kernels' dtype).
+# Step 1 (the same weights and global batch) holds to JAX's multi-process
+# rtol 2e-4. From step 2 each rank's weight gradients, bf16 products over
+# half the rows, and AdamW's near-sign first steps put the runs apart; the
+# same pair in fp32 holds 2e-4 over every step (``--dp_witness``). So every
+# step's loss and gradient norm is held to DP_HISTORY_RTOL, and every
+# tensor's update to DP_UPDATE_GAP: ||w_W2 - w_1|| / ||w_1 - w_start||, the
+# two runs' gap over one process's own move. Both limits lie between the
+# sound pair and a control that trains on other data (``--dp_witness``,
+# PERF.md section 6, PR 18): the history gap 2.3e-3 sound, 3.8e-2 and
+# 1.8e-1 in the control; the update gap 0.056 at the sound pair's worst
+# tensor, 0.65 and 1.40 at the control's median one.
+DP_HISTORY_RTOL = 1e-2
+DP_UPDATE_GAP = 0.2
+
+
+def _digests(tensors: dict) -> dict:
+    """{name: CRC-32 of the tensor's bytes} (the bit-for-bit comparison of
+    states held in different processes)."""
+    out = {}
+    for name, t in tensors.items():
+        if isinstance(t, torch.Tensor):
+            host = t.detach().cpu().contiguous().reshape(-1)
+            out[name] = zlib.crc32(host.view(torch.uint8).numpy().tobytes())
+        else:
+            out[name] = repr(t)
+    return out
+
+
+def _state_digests(trainer) -> dict:
+    """CRC-32 of every trainable parameter and of every optimizer-state
+    tensor the trainer holds (global parameter indices)."""
+    opt = trainer.optimizer.state_dict()["state"]
+    return {"params": _digests(dict(zip(trainer.param_names, trainer.params))),
+            "optimizer": {str(i): _digests(entry) for i, entry in opt.items()}}
+
+
+def _state_bytes(trainer) -> int:
+    return sum(t.numel() * t.element_size() for entry in trainer.optimizer.state.values()
+               for t in entry.values() if isinstance(t, torch.Tensor))
+
+
+@contextlib.contextmanager
+def _capture_trainers(digest_on_start: bool = False):
+    """The Trainers whose ``train`` runs while the context is open (and,
+    with ``digest_on_start``, their state digests as ``train`` starts)."""
+    from rankpo_tpu_torch.train import trainer as trainer_mod
+
+    seen = []
+    original = trainer_mod.Trainer.train
+
+    def train(self, *args, **kwargs):
+        seen.append({"trainer": self,
+                     "start": _state_digests(self) if digest_on_start else None})
+        return original(self, *args, **kwargs)
+
+    trainer_mod.Trainer.train = train
+    try:
+        yield seen
+    finally:
+        trainer_mod.Trainer.train = original
+
+
+def _dp_rank(rank: int, port: int, argvs: list, result_path: str) -> None:
+    """One of 5d's two ranks (started by ``multiprocessing`` with spawn):
+    join the gloo group on cuda:0, run stage 1 then stage 2 through the
+    CLIs with the launch counters from 0 around each, and write the
+    histories, launches, peak memory, optimizer-state bytes and the
+    digests of the final parameters and of this rank's optimizer state."""
+    import torch.distributed as dist
+
+    from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
+    from rankpo_tpu_torch.ops import flash_attention as flash
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    out = {}
+    try:
+        for stage, main, argv in zip(("stage1", "stage2"), (run_contrastive.main,
+                                                           run_rankpo.main), argvs):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            flash.reset_launches()
+            t0 = time.perf_counter()
+            with _capture_trainers() as seen:
+                history = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            trainer = seen[-1]["trainer"]
+            out[stage] = {"history": history, "launches": dict(flash.launches),
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "wall_s": wall, "state_bytes": _state_bytes(trainer),
+                          "owned": len(trainer.optimizer.state),
+                          "step_time_s": _median(history, "step_time")}
+            if stage == "stage1":
+                out[stage]["digests"] = _state_digests(trainer)
+            del seen, trainer
+            log(f"5d rank {rank} {stage}: losses "
+                f"{[round(h['loss'], 6) for h in history]}, median step "
+                f"{out[stage]['step_time_s']:.4f} s, wall {wall:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+
+
+def _dp_rows(train: str, tmp: str, negatives: slice, name: str) -> str:
+    """``train``'s rows, each cut to ``negatives`` (3 of its 7): then a
+    rank's collator draws the same passages for a row as one process's
+    does (only their order differs, which the pooled loss does not see);
+    with 7 to draw from, each rank's sampling stream would pick others."""
+    path = os.path.join(tmp, name)
+    with open(train) as src, open(path, "w") as dst:
+        for line in src:
+            row = json.loads(line)
+            dst.write(json.dumps({**row, "negatives": row["negatives"][negatives]}) + "\n")
+    return path
+
+
+def _dp_pair(ckpt4: str, train: str, pairs: str, tmp: str, seed: int, tag: str,
+             *extra) -> dict:
+    """5d(b)'s pair, ``extra`` flags on both sides: two ranks sharing the
+    card under gloo (per-device batch DP_PER_RANK, cross-device negatives,
+    ``--zero1``; stage 1 for DP_STEPS[0] steps ending in a checkpoint with
+    the optimizer state, then stage 2 for DP_STEPS[1] steps from its
+    output), and one process on the same global batches from the same
+    weights (stage 2 from the ranks' stage-1 model). Returns the ranks'
+    results, the one-process runs, the two ranks' wall seconds and each
+    stage's (start, one process, two ranks) model directories."""
+    import multiprocessing
+
+    from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
+
+    s1_steps, s2_steps = DP_STEPS
+    dp1, dp2, ref1, ref2 = (os.path.join(tmp, f"{tag}_{name}") for name in (
+        "stage1_w2", "stage2_w2", "stage1_w1", "stage2_w1"))
+    per_rank = ["--per_device_train_batch_size", str(DP_PER_RANK)]
+    argvs = [
+        _feature_argv(ckpt4, train, dp1, seed, "stage1", s1_steps, *per_rank,
+                      "--negatives_cross_device", "True", "--zero1", "True",
+                      "--save_strategy", "steps", "--save_steps", "1000",
+                      "--save_only_model", "False", *extra),
+        _feature_argv(dp1, pairs, dp2, seed, "stage2", s2_steps, *per_rank, "--zero1", "True",
+                      *extra)]
+    port = _free_port()
+    ctx = multiprocessing.get_context("spawn")
+    paths = [os.path.join(tmp, f"{tag}_rank{r}.json") for r in range(2)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dp_rank, args=(r, port, argvs, paths[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    wall = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"5d {tag}: the two ranks exited {[p.exitcode for p in procs]}")
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    one = {}
+    for stage, main, argv in (
+            ("stage1", run_contrastive.main,
+             _feature_argv(ckpt4, train, ref1, seed, "stage1", s1_steps, *extra)),
+            ("stage2", run_rankpo.main,
+             _feature_argv(dp1, pairs, ref2, seed, "stage2", s2_steps, *extra))):
+        with _capture_trainers() as seen:
+            n = one[stage] = run_feature(f"5d {tag} W=1 {stage} reference", main, argv,
+                                         keep=True)
+            n["state_bytes"] = _state_bytes(seen[-1]["trainer"])
+            del seen
+    return {"ranks": ranks, "one": one, "wall_s": wall,
+            "dirs": {"stage1": (ckpt4, ref1, dp1), "stage2": (dp1, ref2, dp2)}}
+
+
+def _history_gaps(got: list, ref: list) -> dict:
+    """|got - ref| / |ref| of the loss and the gradient norm, step by step."""
+    out = {}
+    for key in ("loss", "grad_norm"):
+        a = np.array([h[key] for h in got if "loss" in h])
+        b = np.array([h[key] for h in ref if "loss" in h])
+        out[key] = (np.abs(a - b) / np.abs(b)).tolist()
+    return out
+
+
+def _update_gaps(start: str, ref: str, got: str) -> dict:
+    """How far ``got``'s update of each tensor from ``start`` lies from
+    ``ref``'s: ||w_got - w_ref|| / ||w_ref - w_start|| (on the card, fp32;
+    infinite where ``ref`` left a tensor that ``got`` moved). The worst
+    tensor, the median over tensors, the whole model's ratio, the largest
+    |w_got - w_ref| and the share of weights that differ."""
+    from rankpo_tpu_torch.models.hf_io import load_pretrained
+
+    _, w0 = load_pretrained(start)
+    _, w1 = load_pretrained(ref)
+    _, w2 = load_pretrained(got)
+    gaps, apart, moved = {}, 0.0, 0.0
+    largest, differ, count = 0.0, 0, 0
+    for name in w1:
+        a, b = w1[name].cuda().float(), w2[name].cuda().float()
+        step = float(torch.linalg.vector_norm(a - w0[name].cuda().float()))
+        diff = b - a
+        gap = float(torch.linalg.vector_norm(diff))
+        gaps[name] = gap / step if step > 0 else (0.0 if gap == 0 else float("inf"))
+        apart, moved = apart + gap ** 2, moved + step ** 2
+        largest = max(largest, float(diff.abs().max()))
+        differ += int((diff != 0).sum())
+        count += diff.numel()
+    del w0, w1, w2
+    torch.cuda.empty_cache()
+    worst = max(gaps, key=gaps.get)
+    return {"worst": gaps[worst], "worst_tensor": worst,
+            "median": float(np.median(list(gaps.values()))),
+            "model": (apart / moved) ** 0.5, "max_abs": largest, "share_differ": differ / count}
+
+
+def _dp_compare(pair: dict) -> dict:
+    """Each stage of a :func:`_dp_pair` held against its one process: the
+    ranks' logs identical, the history gaps, the update gaps, the K1 / K3a /
+    K3b launches of each rank; stage 1's replicas bit-equal."""
+    ranks, checks = pair["ranks"], {}
+    for stage in ("stage1", "stage2"):
+        h0, h1 = ranks[0][stage]["history"], ranks[1][stage]["history"]
+        checks[stage] = {
+            "ranks_equal": [(h["loss"], h["grad_norm"]) for h in h0]
+            == [(h["loss"], h["grad_norm"]) for h in h1],
+            "rel": _history_gaps(h0, pair["one"][stage]["history"]),
+            "update": _update_gaps(*pair["dirs"][stage]),
+            "launched": [tuple(r[stage]["launches"][k] for k in ("flash_fwd", "flash_dq",
+                                                                 "flash_dkv")) for r in ranks]}
+    checks["replicas"] = (ranks[0]["stage1"]["digests"]["params"]
+                          == ranks[1]["stage1"]["digests"]["params"])
+    return checks
+
+
+def _dp_line(label: str, c: dict) -> str:
+    u = c["update"]
+    return (f"{label}: relative difference to one process by step: loss "
+            f"{[f'{x:.3e}' for x in c['rel']['loss']]}, gradient norm "
+            f"{[f'{x:.3e}' for x in c['rel']['grad_norm']]}; update gap (||w_W2 - w_1|| / "
+            f"||w_1 - w_start||) worst tensor {u['worst']:.4e} ({u['worst_tensor']}), median "
+            f"{u['median']:.4e}, whole model {u['model']:.4e}; max |w_W2 - w_1| "
+            f"{u['max_abs']:.3e}, share of weights that differ {u['share_differ']:.4f}")
+
+
+def phase_data_parallel(ckpt: str, ckpt4: str, tmp: str, seed: int, stage1: dict) -> dict:
+    """Phase 5d, data-parallel training (``core/mesh.py``,
+    ``parallel/sharding.py``, cross-device negatives) through the CLIs:
+
+    (a) world size 1 under NCCL: phase 5's stage 1 (full width and depth,
+        8 steps) with ``--coordinator_address 127.0.0.1:<port>
+        --num_processes 1 --process_id 0 --negatives_cross_device True
+        --zero1 True``, then again with ``--zero2 True``: losses, gradient
+        norms and the final model.safetensors bit-equal to phase 5's stage 1
+        (``stage1``), K1/K3a/K3b launches equal to its;
+    (b) :func:`_dp_pair` on ``ckpt4`` (FEATURE_LAYERS of 16 layers) and
+        phase 5's rows with the 3 negatives the collator draws: two ranks
+        sharing the one card under gloo (NCCL refuses two ranks on one
+        device) against one process on the same global batches, each
+        stage held by :func:`_dp_compare`: the ranks' logs identical, step
+        1's loss and gradient norm (the same weights and batch; stage 2's
+        reference starts from the two ranks' stage-1 model) within rtol
+        2e-4, every step's within DP_HISTORY_RTOL, every tensor's update
+        gap within DP_UPDATE_GAP, K1, K3a and K3b launched on each rank;
+        the stage-1 replicas bit-equal; each rank's optimizer-state bytes,
+        peak memory and step time beside the one process's;
+    (c) the W = 2 checkpoint resumed in one process (``run_contrastive
+        --resume_from_checkpoint``, one more step): its parameters and
+        optimizer state as ``train`` starts bit-equal to what the ranks
+        held."""
+    import torch.distributed as dist
+
+    from rankpo_tpu_torch.cli import run_contrastive
+
+    train, pairs = write_training_data(tmp, seed)
+    out = {}
+
+    def timed_step(label):
+        t = time.perf_counter()
+        return lambda: log(f"5d step {label}: {time.perf_counter() - t:.1f} s")
+
+    # ---- (a) W = 1 under NCCL, bit-equal to phase 5's stage 1 ----
+    done = timed_step("a NCCL world size 1")
+    flags = ["--coordinator_address", f"127.0.0.1:{_free_port()}", "--num_processes", "1",
+             "--process_id", "0", "--negatives_cross_device", "True", "--zero1", "True"]
+    try:
+        for label, extra in (("zero1", []), ("zero2", ["--zero2", "True"])):
+            path = os.path.join(tmp, f"stage1_dp_{label}")
+            n = out[label] = run_feature(
+                f"5d W=1 {label}", run_contrastive.main,
+                _feature_argv(ckpt, train, path, seed, "stage1", 8, *flags, *extra), keep=True)
+            if label == "zero1" and (dist.get_backend() != "nccl" or dist.get_world_size() != 1):
+                raise AssertionError(f"5d: the CLI made a {dist.get_backend()} group of "
+                                     f"{dist.get_world_size()}, not NCCL of 1")
+            crc = _file_crc(os.path.join(path, "model.safetensors"))
+            shutil.rmtree(path)
+            got = tuple(n["launches"][k] for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+            want = tuple(stage1["launches"][k] for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+            same = (n["losses"], n["grad_norms"]) == (stage1["losses"], stage1["grad_norms"])
+            log(_feature_line(f"5d W=1 NCCL --{label}", n) + f"; losses and gradient norms "
+                f"bit-equal to phase 5's stage 1: {same}; model.safetensors bit-equal: "
+                f"{crc == stage1['model_crc']}; K1/K3a/K3b {got} (phase 5: {want})")
+            if not same or crc != stage1["model_crc"] or got != want:
+                raise AssertionError(f"5d W=1 {label}: not phase 5's stage 1 bit for bit")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    done()
+    # ---- (b) two ranks on the one card under gloo ----
+    done = timed_step("b two ranks under gloo")
+    s1_steps = DP_STEPS[0]
+    train_dp = _dp_rows(train, tmp, slice(0, 3), "train_dp.jsonl")
+    pair = _dp_pair(ckpt4, train_dp, pairs, tmp, seed, "dp")
+    ranks, one = pair["ranks"], pair["one"]
+    checks = _dp_compare(pair)
+    _, ref1, dp1 = pair["dirs"]["stage1"]
+    _, ref2, dp2 = pair["dirs"]["stage2"]
+    for path in (ref1, ref2, dp2):
+        shutil.rmtree(path)
+    for stage in ("stage1", "stage2"):
+        c, r0, r1 = checks[stage], ranks[0][stage], ranks[1][stage]
+        log(_dp_line(f"5d W=2 {stage}", c) + f" (limits: step 1 2e-4, every step "
+            f"{DP_HISTORY_RTOL:.0e}, update gap {DP_UPDATE_GAP}); losses "
+            f"{[round(h['loss'], 6) for h in r0['history']]} (one process "
+            f"{[round(x, 6) for x in one[stage]['losses']]}); the ranks' logs identical: "
+            f"{c['ranks_equal']}; K1/K3a/K3b per rank {c['launched']}; median step "
+            f"{r0['step_time_s']:.4f} / {r1['step_time_s']:.4f} s (one process "
+            f"{one[stage]['step_time_s']:.4f} s); peak device memory "
+            f"{r0['peak_mem_gib']:.2f} / {r1['peak_mem_gib']:.2f} GiB (one process "
+            f"{one[stage]['peak_mem_gib']:.2f}); optimizer state {r0['state_bytes'] / 1e9:.3f} / "
+            f"{r1['state_bytes'] / 1e9:.3f} GB over {r0['owned']} / {r1['owned']} tensors (one "
+            f"process {one[stage]['state_bytes'] / 1e9:.3f} GB); wall {r0['wall_s']:.1f} s")
+    log(f"5d W=2 stage 1: the two replicas bit-equal: {checks['replicas']}")
+    for stage in ("stage1", "stage2"):
+        c = checks[stage]
+        if not (c["ranks_equal"] and c["rel"]["loss"][0] <= 2e-4
+                and c["rel"]["grad_norm"][0] <= 2e-4
+                and max(c["rel"]["loss"] + c["rel"]["grad_norm"]) <= DP_HISTORY_RTOL
+                and c["update"]["worst"] <= DP_UPDATE_GAP
+                and all(min(x) > 0 for x in c["launched"])):
+            raise AssertionError(f"5d W=2 {stage}: {c}")
+    if not checks["replicas"]:
+        raise AssertionError("5d W=2: the two replicas' parameters differ")
+    done()
+    # ---- (c) the W = 2 checkpoint resumed in one process ----
+    done = timed_step("c resume on one process")
+    directory = os.path.join(dp1, f"checkpoint-{s1_steps}")
+    with _capture_trainers(digest_on_start=True) as seen:
+        resumed = run_feature("5d resume W=2 -> W=1", run_contrastive.main, _feature_argv(
+            ckpt4, train_dp, dp1, seed, "stage1", s1_steps + 1, "--resume_from_checkpoint",
+            directory, "--overwrite_output_dir", "True"))
+        start = seen[-1]["start"]
+        del seen
+    held = {}
+    for r in ranks:
+        held.update(r["stage1"]["digests"]["optimizer"])
+    same_params = start["params"] == ranks[0]["stage1"]["digests"]["params"]
+    same_state = start["optimizer"] == held
+    log(f"5d resume: checkpoint-{s1_steps} of the two ranks in one process: parameters "
+        f"bit-equal {same_params}, optimizer state of all {len(held)} tensors bit-equal "
+        f"{same_state}; then step {s1_steps + 1}: loss {resumed['losses']}")
+    if not (same_params and same_state and len(resumed["losses"]) == 1):
+        raise AssertionError("5d: the W = 2 checkpoint does not resume bit for bit")
+    done()
+    launches = {name: sum(r[stage]["launches"][name] for r in ranks for stage in r)
+                + sum(one[s]["launches"][name] for s in one)
+                + out["zero1"]["launches"][name] + out["zero2"]["launches"][name]
+                + resumed["launches"][name] for name in KERNELS}
+    return {"w1": {k: out[k] for k in ("zero1", "zero2")}, "ranks": ranks, "one": one,
+            "checks": checks, "dp_wall_s": pair["wall_s"],
+            "launches": launches}
+
+
+def phase_dp_witness(tmp: str, seed: int) -> dict:
+    """The evidence behind 5d(b)'s limits, run alone by ``python3
+    chip_smoke.py --dp_witness`` (about 6 minutes on one card), on the
+    FEATURE_LAYERS checkpoint:
+
+    - the sound pair: 5d(b)'s :func:`_dp_pair` in bf16, as the smoke runs it;
+    - a control, one process on data that differ as a wrong exchange or
+      sampling would make them: stage 1 on the same rows with the other 3
+      of their 7 negatives (the call-12 fault), stage 2 on the preference
+      pairs in another order (``--seed`` + 1), each held to the sound
+      pair's one-process run as the ranks are (history and update gaps);
+    - the witness: the same pair with ``--bf16 False --attn_impl plain``
+      (fp32 products, the plain attention: no kernel runs), which must
+      hold JAX's rtol 2e-4 over every step of both stages.
+
+    Fails unless the witness holds and, for each stage, the sound pair's
+    largest history gap and worst update gap lie at or under
+    DP_HISTORY_RTOL and DP_UPDATE_GAP and the control's above them."""
+    from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
+
+    ckpt4, _ = make_model_checkpoint(tmp, seed, "llama-3.2-1b", FEATURE_LAYERS, False)
+    train, pairs = write_training_data(tmp, seed)
+    train_dp = _dp_rows(train, tmp, slice(0, 3), "train_dp.jsonl")
+    train_other = _dp_rows(train, tmp, slice(3, 6), "train_other.jsonl")
+    out = {}
+    pair = _dp_pair(ckpt4, train_dp, pairs, tmp, seed, "bf16")
+    out["bf16"] = _dp_compare(pair)
+    losses = {"bf16": pair["ranks"][0]}
+    _, ref1, dp1 = pair["dirs"]["stage1"]
+    _, ref2, dp2 = pair["dirs"]["stage2"]
+    control = {}
+    for stage, main, argv, start, ref in (
+            ("stage1", run_contrastive.main, _feature_argv(
+                ckpt4, train_other, os.path.join(tmp, "control1"), seed, "stage1",
+                DP_STEPS[0]), ckpt4, ref1),
+            ("stage2", run_rankpo.main, _feature_argv(
+                dp1, pairs, os.path.join(tmp, "control2"), seed + 1, "stage2", DP_STEPS[1]),
+             dp1, ref2)):
+        n = run_feature(f"5d control {stage}", main, argv, keep=True)
+        got = argv[argv.index("--output_dir") + 1]
+        control[stage] = {"rel": _history_gaps(n["history"], pair["one"][stage]["history"]),
+                          "update": _update_gaps(start, ref, got)}
+        shutil.rmtree(got)
+    out["control"] = control
+    for path in (ref1, dp1, ref2, dp2):
+        shutil.rmtree(path)
+    pair = _dp_pair(ckpt4, train_dp, pairs, tmp, seed, "fp32", "--bf16", "False",
+                    "--attn_impl", "plain")
+    out["fp32"] = _dp_compare(pair)
+    losses["fp32"] = pair["ranks"][0]
+    for path in (*pair["dirs"]["stage1"][1:], *pair["dirs"]["stage2"][1:]):
+        shutil.rmtree(path)
+    for stage in ("stage1", "stage2"):
+        for label in ("bf16", "fp32"):
+            c = out[label][stage]
+            log(_dp_line(f"5d witness {label} pair {stage}", c) + f"; the ranks' logs "
+                f"identical: {c['ranks_equal']}; losses "
+                f"{[round(h['loss'], 6) for h in losses[label][stage]['history']]}")
+        log(_dp_line(f"5d witness control {stage} (one process on other data)",
+                     control[stage]))
+    log(f"5d witness: the fp32 pair's replicas bit-equal: {out['fp32']['replicas']}")
+    failed = []
+    if not (out["fp32"]["replicas"] and all(
+            out["fp32"][s]["ranks_equal"] and max(out["fp32"][s]["rel"]["loss"]
+                                                  + out["fp32"][s]["rel"]["grad_norm"]) <= 2e-4
+            for s in ("stage1", "stage2"))):
+        failed.append("the fp32 pair does not hold rtol 2e-4 over every step")
+    for stage in ("stage1", "stage2"):
+        for key, limit, stat in (
+                ("history", DP_HISTORY_RTOL, lambda c: max(c["rel"]["loss"]
+                                                           + c["rel"]["grad_norm"])),
+                ("update", DP_UPDATE_GAP, lambda c: c["update"]["worst"])):
+            sound, wrong = stat(out["bf16"][stage]), stat(control[stage])
+            log(f"5d witness {stage} {key}: sound pair {sound:.4e} <= limit {limit} < "
+                f"control {wrong:.4e}: {sound <= limit < wrong}")
+            if not sound <= limit < wrong:
+                failed.append(f"{stage} {key}: sound {sound}, limit {limit}, control {wrong}")
+    if failed:
+        raise AssertionError(f"5d witness: {failed}")
     return out
 
 
@@ -3848,13 +4331,14 @@ def write_mining_data(tmp: str, seed: int):
     return mining, raw, queries, corpus_file, rows
 
 
-def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str) -> dict:
+def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str,
+                 pipeline_ckpt: str) -> dict:
     """The mining and prediction paths: ``get_hard_negatives`` (topk and
     cluster, λ 0.5) over N_MINING_ROWS rows, ``get_predictions`` over the
     eval queries and the serving corpus, then ``run_pipeline --iterations
-    2`` over N_PIPELINE_ROWS rows at full width (random bootstrap, stage-1
-    training, mining with the fresh model, training again, prediction
-    pairs). Every mined negative is neither the query nor a positive of its
+    2`` over N_PIPELINE_ROWS rows at full width from ``pipeline_ckpt`` (4
+    of 16 layers in the smoke; random bootstrap, stage-1 training, mining
+    with the fresh model, training again, prediction pairs). Every mined negative is neither the query nor a positive of its
     row, and every row has its count."""
     from rankpo_tpu_torch.cli import get_hard_negatives, get_predictions, run_pipeline
     from rankpo_tpu_torch.data.datasets import iter_jsonl
@@ -3926,7 +4410,7 @@ def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str) -> dict:
 
     pipe_dir = os.path.join(tmp, "pipeline")
     final = run("pipeline", run_pipeline.main, [
-        "--model_name_or_path", ckpt, "--tokenizer_name", "hash:128256",
+        "--model_name_or_path", pipeline_ckpt, "--tokenizer_name", "hash:128256",
         "--raw_data", raw, "--output_dir", pipe_dir, "--iterations", "2",
         "--num_negatives", "3", "--search_range", "0-50",
         "--per_device_train_batch_size", "8", "--learning_rate", "1e-5",
@@ -3950,7 +4434,8 @@ def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str) -> dict:
     pl = out["pipeline"]
     if pl["launches"]["flash_dq"] <= 0 or pl["launches"]["flash_dkv"] <= 0:
         raise AssertionError(f"pipeline: the split backward was not launched: {pl['launches']}")
-    log(f"pipeline: 2 iterations over {N_PIPELINE_ROWS} rows at full width in "
+    layers = json.load(open(os.path.join(pipeline_ckpt, "config.json")))["num_hidden_layers"]
+    log(f"pipeline: 2 iterations over {N_PIPELINE_ROWS} rows at full width, {layers} layers, in "
         f"{pl['wall_s']:.2f} s wall; {len(history)} finite losses "
         f"{[round(x, 4) for x in history]}; {n_pairs} prediction pairs; peak device "
         f"memory {pl['peak_mem_gib']:.2f} GiB; launches {pl['launches']}")
@@ -4597,6 +5082,9 @@ def phase_index_scale(seed: int) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--dp_witness", action="store_true",
+                        help="run only the evidence behind phase 5d(b)'s limits "
+                             "(phase_dp_witness)")
     args = parser.parse_args(argv)
 
     t_all = time.perf_counter()
@@ -4615,6 +5103,12 @@ def main(argv=None) -> int:
         return out
 
     timed("1 build", phase_build)
+    if args.dp_witness:
+        with tempfile.TemporaryDirectory(prefix="rankpo_smoke_") as tmp:
+            phase_dp_witness(tmp, args.seed)
+        log(f"5d witness: {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
     with tempfile.TemporaryDirectory(prefix="rankpo_smoke_") as tmp:
         kern = timed("2 kernels", phase_kernels, args.seed, tmp)
         kern_packed = timed("2p packed kernels", phase_kernels_packed, args.seed)
@@ -4623,9 +5117,14 @@ def main(argv=None) -> int:
         timed("3 search ties", phase_search_ties)
         ckpt, base_state = timed("checkpoint", make_model_checkpoint, tmp, args.seed,
                                  "llama-3.2-1b")
+        # serving's tiers but flat, 4m, 5f, 5l, 5d's two ranks and phase 8's
+        # pipeline run at FEATURE_LAYERS of 16 layers (the cut that pays for 5d)
+        ckpt4, _ = timed("checkpoint", make_model_checkpoint, tmp, args.seed, "llama-3.2-1b",
+                         FEATURE_LAYERS, False)
         serving, mutation = {}, {}
         for tier in SERVE_TIERS:
-            serving[tier] = timed("4 serving", phase_serving, args.seed, tmp, ckpt, tier)
+            serving[tier] = timed("4 serving", phase_serving, args.seed, tmp,
+                                  ckpt if tier == "flat" else ckpt4, tier)
             gc.collect()
             torch.cuda.empty_cache()
         serving_packed = timed("4p packed serving", phase_serving_packed, args.seed, tmp, ckpt,
@@ -4633,7 +5132,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         for tier in MUTATE_TIERS:
-            mutation[tier] = timed("4m mutation", phase_mutation, args.seed, tmp, ckpt, tier)
+            mutation[tier] = timed("4m mutation", phase_mutation, args.seed, tmp, ckpt4, tier)
             gc.collect()
             torch.cuda.empty_cache()
         train = timed("5 training", phase_training, ckpt, tmp, args.seed, base_state)
@@ -4642,12 +5141,16 @@ def main(argv=None) -> int:
         del base_state
         for stage_dir in ("stage1", "stage1_rerun", "stage2"):  # ~15 GB of fp32 files
             shutil.rmtree(os.path.join(tmp, stage_dir))
-        features = timed("5f training features", phase_training_features, ckpt, tmp, args.seed)
-        item7 = timed("5l item 7", phase_training_item7, ckpt, tmp, args.seed, features,
+        features = timed("5f training features", phase_training_features, ckpt4, tmp,
+                         args.seed)
+        item7 = timed("5l item 7", phase_training_item7, ckpt4, tmp, args.seed, features,
                       train["stage2"])
+        dp = timed("5d data parallel", phase_data_parallel, ckpt, ckpt4, tmp, args.seed,
+                   train["stage1"])
         evaluation = timed("7 evaluate", phase_evaluate, args.seed, tmp, ckpt)
         mining = timed("8 mining and pipeline", phase_mining, args.seed, tmp, ckpt,
-                       os.path.join(tmp, "eval_queries.jsonl"))
+                       os.path.join(tmp, "eval_queries.jsonl"), ckpt4)
+        shutil.rmtree(ckpt4)
         # the other bodies at the published widths: bge-m3 trained and
         # evaluated, bge-large-en-v1.5 and Qwen2-1.5B served, Qwen2 trained
         bge = timed("5b bge-m3 training", phase_training_bge, tmp, args.seed)
@@ -4857,9 +5360,33 @@ def main(argv=None) -> int:
         f"{en['encode_packed']['pad_share']:.4f}, K1 {en['encode_packed']['launches']}; at "
         f"pack_chunk 1024 {en['encode_packed_1024']['passages_per_s']:.1f} passages/s, pad "
         f"share {en['encode_packed_1024']['pad_share']:.4f}; min cosine {en['min_cosine']:.6f}")
+    for label, n in dp["w1"].items():
+        log(f"numbers ({card}): 5d stage 1 at world size 1 under NCCL --{label} (full depth): "
+            f"median step {n['step_time_s']:.4f} s (phase 5 "
+            f"{train['stage1']['step_time_s']:.4f}); peak device memory "
+            f"{n['peak_mem_gib']:.2f} GiB (phase 5 {train['stage1']['peak_mem_gib']:.2f}); "
+            f"bit-equal to phase 5's stage 1")
+    for stage in ("stage1", "stage2"):
+        r0, r1, one = dp["ranks"][0][stage], dp["ranks"][1][stage], dp["one"][stage]
+        log(f"numbers ({card}): 5d {stage}, two ranks on one card under gloo "
+            f"({FEATURE_LAYERS} of 16 layers, global batch 8): median step "
+            f"{r0['step_time_s']:.4f} / {r1['step_time_s']:.4f} s (one process "
+            f"{one['step_time_s']:.4f}); peak device memory {r0['peak_mem_gib']:.2f} / "
+            f"{r1['peak_mem_gib']:.2f} GiB (one process {one['peak_mem_gib']:.2f}); optimizer "
+            f"state {r0['state_bytes'] / 1e9:.3f} / {r1['state_bytes'] / 1e9:.3f} GB (one "
+            f"process {one['state_bytes'] / 1e9:.3f}); relative difference to one process, "
+            f"step 1: loss {dp['checks'][stage]['rel']['loss'][0]:.3e}, gradient norm "
+            f"{dp['checks'][stage]['rel']['grad_norm'][0]:.3e}; later steps at most "
+            f"{max(dp['checks'][stage]['rel']['loss'][1:]):.3e} / "
+            f"{max(dp['checks'][stage]['rel']['grad_norm'][1:]):.3e} (limit "
+            f"{DP_HISTORY_RTOL:.0e}); update gap, worst tensor "
+            f"{dp['checks'][stage]['update']['worst']:.4e} (limit {DP_UPDATE_GAP}), whole "
+            f"model {dp['checks'][stage]['update']['model']:.4e}")
+    log(f"numbers ({card}): 5d launches (K1, K2, K3a, K3b): "
+        f"{tuple(dp['launches'][k] for k in KERNELS)}")
     trained = (train["stage1"], train["stage2"], bge["stage1"], bge["stage2"], qwen2["stage1"],
                mistral["stage1"], mistral["stage2"], gemma["stage1"], gemma["stage2"],
-               *mining.values(), *feature_runs, lo, st)
+               *mining.values(), *feature_runs, lo, st, dp)
     launches = {name: sum(n["launches"][name] for n in trained) for name in KERNELS}
     launches["flash_fwd"] += sum(n["launches"]["flash_fwd"] for n in (
         *serving.values(), *mutation.values(), *evaluation.values(),

@@ -98,6 +98,28 @@ def setup_logging(log_level: str = "info") -> None:
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
+class DistributedArguments:
+    """Data-parallel bring-up, one process per card (the torchrun-env
+    analog; ``core/mesh.py`` ``initialize_distributed``). All None = one
+    process."""
+
+    coordinator_address: Optional[str] = dataclasses.field(
+        default=None, metadata={"help": "host:port of rank 0's rendezvous"})
+    num_processes: Optional[int] = dataclasses.field(
+        default=None, metadata={"help": "processes of the run (one per card)"})
+    process_id: Optional[int] = dataclasses.field(
+        default=None, metadata={"help": "this process's rank, 0..num_processes-1"})
+
+    def initialize(self, device="cuda") -> None:
+        """Join the process group (NCCL for a CUDA ``device``, gloo for the
+        CPU); a no-op without a coordinator or when a group exists."""
+        from rankpo_tpu_torch.core.mesh import initialize_distributed
+
+        initialize_distributed(self.coordinator_address, self.num_processes,
+                               self.process_id, device=device)
+
+
+@dataclasses.dataclass
 class ModelArguments:
     model_name_or_path: str = dataclasses.field(
         default=None,

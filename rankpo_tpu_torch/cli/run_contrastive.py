@@ -29,6 +29,16 @@ built and then its optimizer state and counters (``Trainer.resume_from``);
 (``data/datasets.py`` ``StreamingContrastiveDataset``): the same items,
 the same batches. ``--flash_bwd_impl`` picks the flash backward kernels
 (default split).
+
+Data parallel, one process per card: start W processes with
+``--coordinator_address HOST:PORT --num_processes W --process_id r`` (NCCL
+on the cards, gloo with ``--device cpu``). Each process drives
+``cuda:<r % cards>``, every rank is seeded alike, the global batch is
+``--per_device_train_batch_size`` times W, ``--negatives_cross_device``
+pools the passages of every rank and ``--zero1`` shards the optimizer
+state over the ranks (``--zero2`` takes the same path). Rank 0 writes the
+checkpoints, the final model and the summary files; the others wait at a
+barrier.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import torch
 
 from rankpo_tpu_torch.cli.arguments import (
     ContrastiveArguments,
+    DistributedArguments,
     ModelArguments,
     TrainDataArguments,
     parse_dataclasses,
@@ -52,8 +63,12 @@ from rankpo_tpu_torch.cli.arguments import (
 from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.collators import ContrastiveCollator
 from rankpo_tpu_torch.data.datasets import ContrastiveDataset, StreamingContrastiveDataset
-from rankpo_tpu_torch.data.packing import PackedContrastiveCollator
+from rankpo_tpu_torch.data.packing import (
+    PackedContrastiveCollator,
+    configure_multiprocess_packing,
+)
 from rankpo_tpu_torch.data.tokenization import prepare_tokenizer, resolve_tokenizer
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.eval.in_training import maybe_attach_retrieval_eval
 from rankpo_tpu_torch.models.base import EncoderModule
@@ -160,10 +175,45 @@ def make_save_fn(config, tokenizer=None, state_fn=None, **card):
     return save_params_fn
 
 
+def start_processes(dist_args: DistributedArguments, train_cfg: TrainConfig) -> torch.device:
+    """Join the run's process group when it has one (before any loading:
+    no CPU fallback) and return this process's device."""
+    device = resolve_device(train_cfg.device)
+    dist_args.initialize(device)
+    if not mesh.is_distributed():
+        return device
+    device = mesh.rank_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    logger.info("data parallel: rank %d of %d on %s", mesh.process_index(),
+                mesh.process_count(), device)
+    return device
+
+
+def steps_per_epoch(n_rows: int, train_cfg: TrainConfig) -> int:
+    """Optimizer steps in an epoch of the global batch."""
+    return n_rows // (train_cfg.per_device_train_batch_size * mesh.process_count()
+                      * train_cfg.gradient_accumulation_steps)
+
+
+def agree_packing(collator, dataset, train_cfg: TrainConfig) -> None:
+    """With several ranks, fix the packed row budgets every rank uses (one
+    startup all_gather, ``data/packing.py``; JAX ``run_contrastive.py:
+    137-147``)."""
+    if mesh.process_count() > 1:
+        q_rows, p_rows = configure_multiprocess_packing(
+            collator, dataset, train_cfg.per_device_train_batch_size)
+        logger.info("packed multi-process budgets: query %d rows, passage %d rows per "
+                    "rank", q_rows, p_rows)
+
+
 def write_results(train_cfg: TrainConfig, trainer: Trainer, history, n_rows: int,
                   t0: float, save_fn) -> None:
     """Final save at the output root (reference trainer.save_model()) and the
-    run's summary files."""
+    run's summary files, by rank 0; every rank leaves after them."""
+    if not mesh.is_main_process():
+        mesh.barrier()
+        return
     save_fn(train_cfg.output_dir, trainer.model)
     metrics = {
         "train_samples": n_rows,
@@ -176,15 +226,17 @@ def write_results(train_cfg: TrainConfig, trainer: Trainer, history, n_rows: int
     with open(os.path.join(train_cfg.output_dir, "trainer_history.json"), "w") as f:
         json.dump(history, f, indent=2)
     logger.info("train metrics: %s", metrics)
+    mesh.barrier()
 
 
 def main(argv=None):
-    model_args, data_args, c_args, train_cfg = parse_dataclasses(
-        [ModelArguments, TrainDataArguments, ContrastiveArguments, TrainConfig], argv
+    model_args, data_args, c_args, dist_args, train_cfg = parse_dataclasses(
+        [ModelArguments, TrainDataArguments, ContrastiveArguments, DistributedArguments,
+         TrainConfig], argv
     )
     setup_logging(train_cfg.log_level)
     train_cfg.check_supported()
-    device = resolve_device(train_cfg.device)  # before any loading: no CPU fallback
+    device = start_processes(dist_args, train_cfg)
     guard_output_dir(train_cfg)
     set_seed(train_cfg.seed)
     logger.info("model args:\n%s", model_args.to_json_string())
@@ -204,7 +256,8 @@ def main(argv=None):
 
     def make_collator():
         if data_args.pack_sequences:
-            # JAX run_contrastive.py:121-135; one card, so rows_multiple 1
+            # JAX run_contrastive.py:121-135; each rank packs its own rows,
+            # so rows_multiple 1
             return PackedContrastiveCollator(
                 pad_token_id=pad_id, num_negatives=data_args.num_negatives,
                 max_query_length=data_args.max_query_length,
@@ -221,11 +274,12 @@ def main(argv=None):
         )
 
     collator = make_collator()
-    steps_per_epoch = len(dataset) // (
-        train_cfg.per_device_train_batch_size * train_cfg.gradient_accumulation_steps
-    )
+    if data_args.pack_sequences:
+        agree_packing(collator, dataset, train_cfg)
     total_steps = (train_cfg.max_steps if train_cfg.max_steps > 0
-                   else steps_per_epoch * train_cfg.num_train_epochs)
+                   else steps_per_epoch(len(dataset), train_cfg) * train_cfg.num_train_epochs)
+    # the data axis: every rank's passages join the negative pool
+    axis_name = mesh.DATA_AXIS if mesh.is_distributed() else None
 
     model = build_model(config, state, train_cfg, device, model_args.flash_bwd_impl)
     del state
@@ -234,7 +288,7 @@ def main(argv=None):
         use_inbatch_neg=c_args.use_inbatch_neg,
         negatives_cross_device=c_args.negatives_cross_device,
         normalize_embeddings=c_args.normalize_embeddings,
-        attn_impl=model_args.attn_impl,
+        attn_impl=model_args.attn_impl, axis_name=axis_name,
     )
     grad_fn = None
     if c_args.grad_cache:
@@ -242,6 +296,7 @@ def main(argv=None):
             config, temperature=c_args.temperature,
             normalize_embeddings=c_args.normalize_embeddings,
             use_inbatch_neg=c_args.use_inbatch_neg, attn_impl=model_args.attn_impl,
+            axis_name=axis_name,  # the bridge pools every rank's reps, as JAX's
         )
         logger.info("gradient caching: the negative pool spans all %d accumulation steps",
                     train_cfg.gradient_accumulation_steps)
@@ -260,7 +315,8 @@ def main(argv=None):
     trainer = Trainer(
         loss_fn=loss_fn, grad_fn=grad_fn, model=model, config=train_cfg,
         total_steps=max(total_steps, 1), save_params_fn=save_fn,
-        log_fn=maybe_init_wandb(train_cfg.wandb_project, train_cfg.run_name),
+        log_fn=(maybe_init_wandb(train_cfg.wandb_project, train_cfg.run_name)
+                if mesh.is_main_process() else None),
         # analytic FLOPs and tokens at the static padded lengths
         sample_flops=contrastive_sample_flops(
             config, query_len=data_args.max_query_length,

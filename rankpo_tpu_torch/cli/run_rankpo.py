@@ -25,6 +25,11 @@ optimizer state, and the retrieval evaluation encodes with the merged
 weights. A resumed LoRA run takes the checkpoint's merged weights as its
 base, draws fresh adapters from the seed and restores the adapters'
 optimizer state, as the JAX package does.
+
+Data parallel (``--coordinator_address``, ``--num_processes``,
+``--process_id``, ``--zero1`` / ``--zero2``) as in stage 1
+(``cli/run_contrastive.py``); the preference loss needs no collective
+beyond the trainer's gradient exchange.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import time
 import torch
 
 from rankpo_tpu_torch.cli.arguments import (
+    DistributedArguments,
     ModelArguments,
     RankPOArguments,
     TrainDataArguments,
@@ -43,6 +49,7 @@ from rankpo_tpu_torch.cli.arguments import (
     setup_logging,
 )
 from rankpo_tpu_torch.cli.run_contrastive import (
+    agree_packing,
     build_model,
     guard_output_dir,
     load_resume_weights,
@@ -50,13 +57,15 @@ from rankpo_tpu_torch.cli.run_contrastive import (
     resolve_resume,
     set_seed,
     setup_model_and_tokenizer,
+    start_processes,
+    steps_per_epoch,
     write_results,
 )
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.collators import RankPOCollator
 from rankpo_tpu_torch.data.datasets import PairPreferenceDataset
 from rankpo_tpu_torch.data.packing import PackedRankPOCollator
-from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.eval.in_training import maybe_attach_retrieval_eval
 from rankpo_tpu_torch.models import lora
 from rankpo_tpu_torch.models.encoder import encoder_class
@@ -71,12 +80,13 @@ logger = logging.getLogger(__name__)
 
 
 def main(argv=None):
-    model_args, data_args, r_args, train_cfg = parse_dataclasses(
-        [ModelArguments, TrainDataArguments, RankPOArguments, TrainConfig], argv
+    model_args, data_args, r_args, dist_args, train_cfg = parse_dataclasses(
+        [ModelArguments, TrainDataArguments, RankPOArguments, DistributedArguments,
+         TrainConfig], argv
     )
     setup_logging(train_cfg.log_level)
     train_cfg.check_supported()
-    device = resolve_device(train_cfg.device)  # before any loading: no CPU fallback
+    device = start_processes(dist_args, train_cfg)
     guard_output_dir(train_cfg)
     set_seed(train_cfg.seed)
     logger.info("model args:\n%s", model_args.to_json_string())
@@ -104,7 +114,8 @@ def main(argv=None):
 
     def make_collator():
         if data_args.pack_sequences:
-            # JAX run_rankpo.py:75-90; one card, so rows_multiple 1
+            # JAX run_rankpo.py:75-90; each rank packs its own rows, so
+            # rows_multiple 1
             return PackedRankPOCollator(
                 pad_token_id=pad_id, max_query_length=data_args.max_query_length,
                 max_passage_length=data_args.max_passage_length,
@@ -118,11 +129,10 @@ def main(argv=None):
         )
 
     collator = make_collator()
-    steps_per_epoch = len(dataset) // (
-        train_cfg.per_device_train_batch_size * train_cfg.gradient_accumulation_steps
-    )
+    if data_args.pack_sequences:
+        agree_packing(collator, dataset, train_cfg)
     total_steps = (train_cfg.max_steps if train_cfg.max_steps > 0
-                   else steps_per_epoch * train_cfg.num_train_epochs)
+                   else steps_per_epoch(len(dataset), train_cfg) * train_cfg.num_train_epochs)
 
     model = build_model(config, state, train_cfg, device, model_args.flash_bwd_impl)
     del state
@@ -170,7 +180,8 @@ def main(argv=None):
     trainer = Trainer(
         loss_fn=loss_fn, model=model, config=train_cfg,
         total_steps=max(total_steps, 1), save_params_fn=save_fn,
-        log_fn=maybe_init_wandb(train_cfg.wandb_project, train_cfg.run_name),
+        log_fn=(maybe_init_wandb(train_cfg.wandb_project, train_cfg.run_name)
+                if mesh.is_main_process() else None),
         sample_flops=rankpo_sample_flops(
             config, query_len=data_args.max_query_length,
             passage_len=data_args.max_passage_length,

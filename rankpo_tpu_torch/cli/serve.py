@@ -24,7 +24,7 @@ from ``--corpus_data`` and saves it there. ``--pack_queries`` packs each
 group's queries several to a row (``--pack_max_segments`` at most), with
 block-diagonal attention. Flags of features the port does not have yet are
 rejected with the ROADMAP.md item that will bring them: multi-host serving
-(item 8).
+(item 8c).
 """
 
 from __future__ import annotations
@@ -52,9 +52,9 @@ _INDEX_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": t
 
 # flag -> (value that means "off", ROADMAP item that ports it)
 _UNPORTED_FLAGS = {
-    "coordinator_address": (None, "item 8, multi-host serving"),
-    "num_processes": (None, "item 8, multi-host serving"),
-    "process_id": (None, "item 8, multi-host serving"),
+    "coordinator_address": (None, "item 8c, multi-host serving"),
+    "num_processes": (None, "item 8c, multi-host serving"),
+    "process_id": (None, "item 8c, multi-host serving"),
 }
 
 
@@ -297,7 +297,7 @@ def build_parser() -> argparse.ArgumentParser:
     for flag, kind in (("--coordinator_address", str), ("--num_processes", int),
                        ("--process_id", int)):
         parser.add_argument(flag, type=kind, default=None,
-                            help="not ported (ROADMAP.md Queue 1 item 8)")
+                            help="not ported (ROADMAP.md Queue 1 item 8c)")
     return parser
 
 

@@ -11,8 +11,11 @@ gradient-accumulation group); a trailing partial group is dropped.
 skips, so a collator with state (the contrastive collator's sampling RNG,
 the packer's row budget) stands where the uninterrupted run left it.
 
-Multi-process sharding (``process_count > 1``) is not ported: the port
-trains on one card (ROADMAP.md Queue 1 item 8).
+With ``process_count`` > 1 (data-parallel training, one process per card)
+``batch_size`` is the global micro-batch: every process draws the same
+seeded order and takes ``global_ids[process_index::process_count]`` of each
+global batch (JAX ``loader.py:128-132``), ``batch_size / process_count``
+rows; :meth:`DataLoader.replay` replays this process's rows.
 """
 
 from __future__ import annotations
@@ -55,14 +58,19 @@ class DataLoader:
         process_count: int = 1,
         prefetch: int = 2,
     ):
-        if process_count != 1 or process_index != 0:
-            raise NotImplementedError(
-                "multi-process data sharding is not ported: the port trains on "
-                "one card (ROADMAP.md Queue 1 item 8)"
+        if batch_size % process_count != 0:
+            raise ValueError(
+                f"global batch_size {batch_size} must divide evenly over "
+                f"{process_count} processes"
             )
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not in [0, {process_count})")
         self.dataset = dataset
         self.collator = collator
         self.batch_size = batch_size
+        self.local_batch_size = batch_size // process_count
+        self.process_index = process_index
+        self.process_count = process_count
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
@@ -80,6 +88,12 @@ class DataLoader:
             return np.random.default_rng((self.seed, epoch)).permutation(n)
         return np.arange(n)
 
+    def _local_rows(self, order: np.ndarray, step: int) -> list:
+        """This process's rows of global batch ``step`` of ``order``."""
+        lo = step * self.batch_size
+        ids = order[lo : lo + self.batch_size][self.process_index :: self.process_count]
+        return [self.dataset[int(i)] for i in ids]
+
     def replay(self, epoch: int, start_step: int) -> None:
         """Collate, and drop, every micro-batch an uninterrupted run would
         have collated before micro-batch ``start_step`` of ``epoch``: all of
@@ -92,8 +106,7 @@ class DataLoader:
         for e in range(epoch + 1):
             order = self._epoch_order(e)
             for step in range(steps if e < epoch else min(start_step, steps)):
-                lo = step * self.batch_size
-                self.collator([self.dataset[int(i)] for i in order[lo : lo + self.batch_size]])
+                self.collator(self._local_rows(order, step))
 
     def epoch(self, epoch: int = 0, start_step: int = 0, stack: int = 0) -> Iterator[dict]:
         """Iterate one epoch's batches from ``start_step``; with ``stack`` > 0,
@@ -123,9 +136,7 @@ class DataLoader:
                 for step in range(start_step, steps):
                     if stop.is_set():
                         return
-                    lo = step * self.batch_size
-                    ids = order[lo : lo + self.batch_size]
-                    collated = self.collator([self.dataset[int(i)] for i in ids])
+                    collated = self.collator(self._local_rows(order, step))
                     if stack <= 0:
                         if not put(("batch", collated)):
                             return

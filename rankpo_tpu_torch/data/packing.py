@@ -8,9 +8,14 @@ tail); attention is block-diagonal (``ops/flash_attention.py``
 descending, place each text into the fullest bin it fits, open a new bin
 otherwise) with a stable sort and bisect, so one input gives one layout.
 
-The multi-process entries (:func:`sync_packed_budgets`,
-:func:`configure_multiprocess_packing`) need a collective across processes
-and raise: the port trains on one card (ROADMAP.md Queue 1 item 8).
+Data-parallel packing (:func:`configure_multiprocess_packing`): the
+processes agree on FIXED row budgets once, before the training loop, with
+one ``all_gather`` of their probed needs (:func:`sync_packed_budgets`), so
+every rank's packed batches keep one shape for the whole run. The port's
+ranks embed and scatter their own rows and then gather the reps
+(``losses/contrastive.py``), so their slot tables stay local: the JAX
+package's global slot offsets (``set_process_shard``, for global arrays)
+are left at 0.
 """
 
 from __future__ import annotations
@@ -315,17 +320,37 @@ class PackedRankPOCollator:
         self._p.slot_offset = process_index * batch_rows_local * 2
 
 
-_MULTI_PROCESS = ("multi-process packed training needs a collective across processes "
-                  "and is not ported: the port trains on one card (ROADMAP.md Queue 1 "
-                  "item 8)")
-
-
 def sync_packed_budgets(collator, sample_rows, *, slack: float = 0.25):
-    """Agree on fixed packed row budgets across processes: not ported."""
-    raise NotImplementedError(_MULTI_PROCESS)
+    """Agree on FIXED packed row budgets across the processes of the
+    ``torch.distributed`` group (JAX ``packing.py:391-414``): each process
+    probes its packing need on ``sample_rows`` (a local-batch-sized
+    sample), the needs are all-gathered (ONE collective, on the main thread
+    before the training loop: a collective on the loader's thread could
+    interleave with the step's and deadlock the ranks), and every process
+    fixes its budgets to the global max plus ``slack``. Rare overflow then
+    truncates to fit locally (``_BlockPacker``). Returns the (query_rows,
+    passage_rows) fixed. Without a group the needs are this process's."""
+    import torch.distributed as dist
+
+    needs = tuple(int(x) for x in collator.probe_needs(sample_rows))
+    if dist.is_available() and dist.is_initialized():
+        all_needs = [None] * dist.get_world_size()
+        dist.all_gather_object(all_needs, needs)
+    else:
+        all_needs = [needs]
+    q_need, p_need = (max(n[i] for n in all_needs) for i in range(2))
+    return collator.set_budgets(
+        q_need + max(1, int(q_need * slack)),
+        p_need + max(1, int(p_need * slack)),
+    )
 
 
 def configure_multiprocess_packing(collator, dataset, local_batch_rows: int, *,
                                    slack: float = 0.25):
-    """The multi-process packed-training bring-up: not ported."""
-    raise NotImplementedError(_MULTI_PROCESS)
+    """The data-parallel packed-training bring-up both CLIs share (JAX
+    ``packing.py:417-427``): probe a local-batch-sized sample of the
+    dataset and fix the row budgets by :func:`sync_packed_budgets`. Call
+    from the MAIN thread before training. Returns the fixed (query_rows,
+    passage_rows)."""
+    probe = [dataset[i] for i in range(min(local_batch_rows, len(dataset)))]
+    return sync_packed_budgets(collator, probe, slack=slack)

@@ -10,7 +10,8 @@ write ``<checkpoint>.json`` (or ``main.json``), ``-indices.npy`` (int64) and
 from the files on disk.
 
 One process: the JAX version's multi-host branches (rank 0 deciding the
-skip and owning the files) wait for ROADMAP.md Queue 1 item 8.
+skip and owning the files) wait for ROADMAP.md Queue 1 item 8c
+(multi-process evaluation and serving).
 """
 
 from __future__ import annotations

@@ -15,6 +15,10 @@ compute dtype as it goes, one layer at a time), then takes the module back,
 so the encoder holds no weights between eval points and no second full copy
 of the model is ever made. A LoRA model encodes with its merged weights
 (``models/lora.py``), which are computed once per call.
+
+One process: with several data-parallel ranks the hook raises when it is
+made, before training starts (the JAX package encodes each rank's share
+and gathers; ROADMAP.md Queue 1 item 8c, multi-process evaluation).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch.nn.utils import parametrize
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.datasets import load_eval_corpus, load_eval_queries
 from rankpo_tpu_torch.eval.evaluator import evaluate_checkpoint
@@ -58,6 +63,12 @@ class RetrievalEvalHook:
         index_type: str = "flat",
         index_kwargs: Optional[dict] = None,
     ):
+        if mesh.process_count() > 1:
+            raise NotImplementedError(
+                f"in-training retrieval evaluation over {mesh.process_count()} processes is "
+                "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1 item 8c, "
+                "multi-process evaluation); run it in one process or with cli.evaluate "
+                "over the checkpoints")
         self.queries, self.labels = load_eval_queries(query_file)
         self.corpus = load_eval_corpus(corpus_file)
         if not self.queries or not self.corpus:

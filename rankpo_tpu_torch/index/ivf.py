@@ -38,7 +38,8 @@ the plain versions on a CPU tensor), empty and filtered-out slots masked,
 and a stable top-k (ties to the lower position, as ``lax.top_k``). int8 rows
 and the PCA hybrid take the JAX package's own paths without a kernel
 (gather and product; the hybrid scores the projected rows, then reranks its
-top candidates at full width). A mesh raises (ROADMAP.md Queue 1 item 8).
+top candidates at full width). A mesh raises (ROADMAP.md Queue 1 item 8c,
+multi-card IVF).
 
 Every random draw is numpy's ``default_rng`` with the JAX package's seeds, so
 both packages draw the same numbers.
@@ -411,7 +412,7 @@ class IVFIPIndex:
     ):
         require_fp32_matmul()
         if mesh is not None:
-            raise NotImplementedError("IVFIPIndex mesh: " + _NOT_PORTED.format("8, multi-card IVF"))
+            raise NotImplementedError("IVFIPIndex mesh: " + _NOT_PORTED.format("8c, multi-card IVF"))
         # a tensor keeps its device; a numpy array becomes a CPU tensor
         corpus = torch.as_tensor(embeddings, dtype=torch.float32)
         if corpus.dim() != 2:

@@ -5,11 +5,17 @@
   shape [B, B*G] with G = 1 positive + n negatives per query; row i's target
   is column i*G; every other passage of the batch is a negative.
 - In-batch negatives off: per-query scores [B, G] with target 0.
-- Cross-device negatives (``axis_name``) all-gather the passages of every
-  device first. This port trains on one card, where the global batch IS the
-  local batch: ``negatives_cross_device=True`` is the plain global in-batch
-  loss, and passing ``axis_name`` raises (ROADMAP.md Queue 1 item 8:
-  cross-device negatives over ``torch.distributed``).
+- Cross-device negatives (``axis_name="data"``, reference
+  src/modeling.py:287-290): the passages of every rank of the
+  ``torch.distributed`` group are all-gathered first (:func:`gather_concat`,
+  whose backward hands each rank the sum over ranks of the gradient of its
+  own slice, JAX's reduce-scatter transpose), and each rank scores its own
+  queries against the whole pool, row i's target at (rank * B + i) * G.
+  The loss is this rank's mean: the trainer's mean of the gradients over
+  the ranks is then the gradient of the global mean, and its mean of the
+  ranks' losses the global loss (JAX ``pmean``). A loss that were already
+  the global mean would count the world size twice. On one process without
+  a group the global batch is the local one, and ``axis_name`` raises.
 
 Loss = mean cross-entropy, computed in fp32.
 """
@@ -19,6 +25,49 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+
+
+def check_data_axis(axis_name: str) -> None:
+    """Raise unless ``axis_name`` is the data axis (the port's processes are
+    its data axis) and a process group exists."""
+    if axis_name != DATA_AXIS:
+        raise ValueError(f"axis_name {axis_name!r}: the port's only axis is {DATA_AXIS!r}")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"cross-device negatives (axis_name={axis_name!r}) need a torch.distributed "
+            "process group: start every process with --coordinator_address, "
+            "--num_processes and --process_id (core/mesh.py initialize_distributed)")
+
+
+class _AllGather(torch.autograd.Function):
+    """all_gather on the batch dimension; the backward reduce-scatters, so
+    each rank's slice gets the sum over ranks of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = x.new_empty((dist.get_world_size() * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous())
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.new_empty((grad.shape[0] // dist.get_world_size(),) + tuple(grad.shape[1:]))
+        dist.reduce_scatter_tensor(out, grad.contiguous())
+        return out
+
+
+def gather_concat(x: torch.Tensor) -> torch.Tensor:
+    """``x`` of every rank, concatenated in rank order on dim 0;
+    differentiable (the reference's three hand-rolled autograd workarounds,
+    src/modeling.py:26-109, are this one function). Over one rank it is
+    ``x`` itself: a gathered copy would change the products' memory layout,
+    and so their rounding, against a run without a group."""
+    if dist.get_world_size() == 1:
+        return x
+    return _AllGather.apply(x)
 
 
 def similarity_scores(q_reps: torch.Tensor, p_reps: torch.Tensor) -> torch.Tensor:
@@ -53,24 +102,29 @@ def info_nce_loss(
     axis_name: Optional[str] = None,
     row_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (mean loss, scores). q_reps [B, H]; p_reps [B*G, H].
+    """Returns (mean loss over this rank's rows, scores). q_reps [B, H];
+    p_reps [B*G, H].
 
     ``row_valid`` [B] (0/1): rows marked 0 are excluded from the loss mean
     and their passages are masked out of the in-batch negative pool (scores
-    -inf), each row keeping its own target column."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "cross-device negatives (axis_name) are not ported: one card holds "
-            "the whole batch (ROADMAP.md Queue 1 item 8, torch.distributed)"
-        )
+    -inf), each row keeping its own target column. ``axis_name`` ("data")
+    pools the passages of every rank (module docstring)."""
     b = q_reps.shape[0]
     group_size = p_reps.shape[0] // b
     device = q_reps.device
     if use_inbatch_neg:
         targets = torch.arange(b, device=device) * group_size
-        scores = similarity_scores(q_reps, p_reps) / temperature  # [B, B*G]
-        if row_valid is not None:
-            col_valid = torch.repeat_interleave(row_valid.float(), group_size)
+        col_valid = (None if row_valid is None
+                     else torch.repeat_interleave(row_valid.float(), group_size))
+        if axis_name is not None:
+            check_data_axis(axis_name)
+            p_reps = gather_concat(p_reps)
+            # local row i is global row rank * B + i (modeling.py:301-302)
+            targets = targets + dist.get_rank() * b * group_size
+            if col_valid is not None:
+                col_valid = gather_concat(col_valid)
+        scores = similarity_scores(q_reps, p_reps) / temperature  # [B, W*B*G]
+        if col_valid is not None:
             col = torch.arange(scores.shape[1], device=device)
             keep = (col_valid[None, :] > 0) | (col[None, :] == targets[:, None])
             scores = scores.masked_fill(~keep, float("-inf"))

@@ -1,10 +1,13 @@
 """Training configuration (port of ``rankpo_tpu.train.config``).
 
 The fields are the JAX package's, so the CLIs take the same flags, plus
-``device``. The port trains on one card: ``model_parallel``, ``zero2`` and
-``fsdp`` are accepted at their defaults and raise, naming ROADMAP.md, when
-set to anything else (:meth:`TrainConfig.check_supported`). ``zero1`` is
-accepted and means nothing on one card.
+``device``. The port trains data-parallel, one process per card:
+``zero1`` shards the optimizer state over the processes, and ``zero2``
+takes ``zero1``'s path (``parallel/sharding.py``; both mean nothing in one
+process).
+``model_parallel`` and ``fsdp`` are accepted at their defaults and raise,
+naming ROADMAP.md, when set to anything else
+(:meth:`TrainConfig.check_supported`).
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ import dataclasses
 import json
 from typing import Optional
 
-_ROADMAP = "ROADMAP.md Queue 1 item 8"
+from rankpo_tpu_torch.core.mesh import MeshConfig
+
+_ROADMAP = "ROADMAP.md Queue 1 item 8b, sharded models"
 OPTIMIZERS = ("adamw", "adamw8bit", "adafactor")
 STRATEGIES = ("no", "steps", "epoch")
 
@@ -56,7 +61,7 @@ class TrainConfig:
     # full | dots | attn (models/base.py CHECKPOINT_POLICIES)
     gradient_checkpointing_policy: str = "full"
 
-    # parallelism (one card: model_parallel, zero2 and fsdp are not ported)
+    # parallelism (data parallel; model_parallel and fsdp are not ported)
     model_parallel: int = 1
     zero1: bool = True
     zero2: bool = False
@@ -94,21 +99,13 @@ class TrainConfig:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
     def check_supported(self) -> None:
-        """Raise for fields set to features the port does not have (one
-        card: no tensor parallelism or sharded state) and for unknown
-        option values."""
-        unported = {
-            "model_parallel": (1, "tensor parallelism"),
-            "zero2": (False, "sharded gradients"),
-            "fsdp": (False, "sharded parameters"),
-        }
-        for name, (default, what) in unported.items():
-            value = getattr(self, name)
-            if value != default:
-                raise NotImplementedError(
-                    f"--{name} {value}: {what} is not ported to "
-                    f"rankpo_tpu_torch yet ({_ROADMAP}); leave it at {default!r}"
-                )
+        """Raise for fields set to features the port does not have (tensor
+        parallelism, sharded parameters) and for unknown option values."""
+        MeshConfig(model_parallel=self.model_parallel).check_supported()
+        if self.fsdp:
+            raise NotImplementedError(
+                f"--fsdp {self.fsdp}: sharded parameters are not ported to "
+                f"rankpo_tpu_torch yet ({_ROADMAP}); leave it at False")
         if self.optim not in OPTIMIZERS:
             raise ValueError(f"unknown optim {self.optim!r}; one of {list(OPTIMIZERS)}")
         for name in ("logging_strategy", "save_strategy", "eval_strategy"):

@@ -16,7 +16,10 @@ passes over one [accum, B, ...] group:
 
 The gradients equal those of one InfoNCE over the whole group (not the
 mean of per-micro-batch losses), at one micro-batch's activation memory,
-for one more encoder forward. Packed micro-batches scatter their segment
+for one more encoder forward. With cross-device negatives (``axis_name``)
+the bridge pools the passage reps of every rank's group, as the JAX
+bridge's global arrays do (JAX ``gradcache.py:20``); each rank's rep
+gradients are then those of its own rows. Packed micro-batches scatter their segment
 reps back to batch order (``steps._embed_field``), so the bridge sees the
 plain path's rep matrices. Both passes take micro-batch i's dropout from a
 fresh generator of the same seed (the trainer's ``make_generator``), so
@@ -42,6 +45,7 @@ def make_contrastive_gradcache_grad_fn(
     normalize_embeddings: bool = True,
     use_inbatch_neg: bool = True,
     attn_impl: str = "auto",
+    axis_name=None,
 ) -> Callable:
     """Returns grad_fn(model, micro_batches, make_generator) -> (loss,
     metrics) for the ``Trainer``'s ``grad_fn`` hook: ``micro_batches`` is
@@ -66,7 +70,8 @@ def make_contrastive_gradcache_grad_fn(
         # bridge: the full-batch loss and its rep gradients
         with torch.enable_grad():
             loss, accuracy = contrastive_terms(q_all, p_all, temperature=temperature,
-                                               use_inbatch_neg=use_inbatch_neg)
+                                               use_inbatch_neg=use_inbatch_neg,
+                                               axis_name=axis_name)
             loss.backward()
         # every micro-batch of a group holds B rows
         q_grads = q_all.grad.chunk(len(micro_batches))

@@ -18,6 +18,7 @@ import warnings
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from rankpo_tpu_torch.losses.contrastive import (
     info_nce_block_loss,
@@ -58,25 +59,33 @@ def make_contrastive_loss_fn(
     normalize_embeddings: bool = True,
     num_data_shards: int = 1,
     attn_impl: str = "auto",
+    axis_name: Optional[str] = None,
 ) -> Callable:
-    """Contrastive stage (reference src/modeling.py:254-314). On one card the
-    batch is global, so ``negatives_cross_device`` is the global in-batch
-    loss; with ``num_data_shards`` > 1 and neither cross-device negatives
-    the per-block loss runs, as in the JAX package. The temperature guards
-    (modeling.py:186-191) are applied at build time. With a ``generator``
-    dropout is live, as the JAX stage 1 passes an rng on every step
-    (``steps.py:70-86``)."""
+    """Contrastive stage (reference src/modeling.py:254-314). In one process
+    the batch is global, so ``negatives_cross_device`` is the global
+    in-batch loss; with ``num_data_shards`` > 1 and neither cross-device
+    negatives the per-block loss runs, as in the JAX package. With a
+    process group (``axis_name="data"``, the CLIs pass it when the run has
+    one) each rank holds its rows: ``negatives_cross_device`` pools the
+    passages of every rank (``losses/contrastive.py``), and without it each
+    rank keeps its own in-batch negatives and makes no collective (the
+    per-block loss). The temperature guards (modeling.py:186-191) are
+    applied at build time. With a ``generator`` dropout is live, as the JAX
+    stage 1 passes an rng on every step (``steps.py:70-86``)."""
     del model_config  # the model carries its config
     temperature = validate_temperature(normalize_embeddings, temperature)
 
     blocks = num_data_shards if use_inbatch_neg and not negatives_cross_device else 1
+    if axis_name is not None:
+        blocks = 1  # each rank is one block
+    axis = axis_name if negatives_cross_device else None
 
     def loss_fn(model, batch, generator=None):
         q_reps, p_reps = embed_pair(model, batch, generator, normalize=normalize_embeddings,
                                     attn_impl=attn_impl)
         loss, accuracy = contrastive_terms(
             q_reps, p_reps, temperature=temperature, use_inbatch_neg=use_inbatch_neg,
-            num_blocks=blocks, row_valid=batch.get("row_valid"))
+            num_blocks=blocks, row_valid=batch.get("row_valid"), axis_name=axis)
         return loss, {"accuracy": accuracy.detach()}
 
     return loss_fn
@@ -91,11 +100,13 @@ def embed_pair(model, batch, generator=None, **kwargs):
 
 
 def contrastive_terms(q_reps, p_reps, *, temperature: float, use_inbatch_neg: bool = True,
-                      num_blocks: int = 1, row_valid=None):
+                      num_blocks: int = 1, row_valid=None, axis_name=None):
     """(InfoNCE loss, accuracy) of query reps [B, H] against passage reps
     [B * G, H]: over the whole batch, or per block of rows when
-    ``num_blocks`` > 1 (in-batch negatives within a data shard). Accuracy
-    is the share of rows whose top score is their positive."""
+    ``num_blocks`` > 1 (in-batch negatives within a data shard), or against
+    the passages of every rank with ``axis_name`` (cross-device negatives).
+    Accuracy is the share of this rank's rows whose top score is their
+    positive."""
     b = q_reps.shape[0]
     group_size = p_reps.shape[0] // b
     device = q_reps.device
@@ -108,10 +119,13 @@ def contrastive_terms(q_reps, p_reps, *, temperature: float, use_inbatch_neg: bo
     else:
         loss, scores = info_nce_loss(
             q_reps, p_reps, temperature=temperature, use_inbatch_neg=use_inbatch_neg,
-            row_valid=row_valid,
+            row_valid=row_valid, axis_name=axis_name,
         )
-        targets = (torch.arange(b, device=device) * group_size
-                   if use_inbatch_neg else torch.zeros(b, dtype=torch.long, device=device))
+        if not use_inbatch_neg:
+            targets = torch.zeros(b, dtype=torch.long, device=device)
+        else:
+            rank = 0 if axis_name is None else dist.get_rank()
+            targets = (torch.arange(b, device=device) + rank * b) * group_size
     hits = (scores.argmax(dim=-1) == targets).float()
     if row_valid is None:
         return loss, hits.mean()

@@ -1,4 +1,5 @@
-"""Single-card trainer (port of ``rankpo_tpu.train.trainer``).
+"""Trainer, on one card or data-parallel over a process group (port of
+``rankpo_tpu.train.trainer``).
 
 One optimizer step per accumulation group, as ``rankpo_tpu.train.Trainer``
 takes it (``trainer.py:208-312``):
@@ -47,6 +48,23 @@ flight, checkpoints and returns.
 
 Every step ends in one device synchronisation (the finite check reads the
 loss and the norm), so ``step_time`` is the step's wall time.
+
+Data parallel (a ``torch.distributed`` group of W processes, one card each,
+``core/mesh.py``): the global micro-batch is ``per_device_train_batch_size
+* W``, and the loader hands each rank its rows (``data/loader.py``). After
+the accumulation group one bucketed exchange averages the gradients over
+the ranks (``parallel/sharding.py``), before the norm: an ``all_reduce``.
+With ``zero1`` (or ``zero2``, which takes ``zero1``'s path) each rank's
+optimizer holds the tensors it owns, and the owners broadcast the updated
+values. The logged loss and metrics are the means over
+the ranks, the same on every rank; ``samples_per_sec``, ``tokens_per_sec``
+and ``mfu`` count the whole group. ``evaluate`` splits each global batch
+over the ranks and sums row-weighted sums over them. A SIGTERM on any rank
+stops every rank after the same step (the flag rides the step's
+``all_reduce``). Rank 0 writes the files; a checkpoint's optimizer state is
+gathered to it first (every rank takes part), so it is the state one
+process would have written and resumes at any world size. The collectives
+run on the main thread only.
 """
 
 from __future__ import annotations
@@ -60,8 +78,16 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.data.loader import DataLoader
+from rankpo_tpu_torch.parallel.sharding import (
+    ShardedOptimizer,
+    all_reduce_mean_,
+    broadcast_from_owners_,
+    partition_params,
+)
 from rankpo_tpu_torch.train import checkpoint as ckpt
 from rankpo_tpu_torch.train.config import TrainConfig
 from rankpo_tpu_torch.train.state import (
@@ -69,7 +95,9 @@ from rankpo_tpu_torch.train.state import (
     fast_forward,
     global_norm,
     make_optimizer,
+    make_schedule,
 )
+from rankpo_tpu_torch.utils.distributed import _bounds, split_between_processes
 from rankpo_tpu_torch.utils.flops import peak_flops_per_chip
 
 logger = logging.getLogger(__name__)
@@ -157,7 +185,22 @@ class Trainer:
         if peak_flops is None and sample_flops is not None:
             peak_flops = peak_flops_per_chip(self.device)
         self._peak_flops = peak_flops
-        self.optimizer, self.schedule = make_optimizer(self.params, config, total_steps)
+        # data parallel: a process group exists (one process per card)
+        self._dp = mesh.is_distributed()
+        self.world, self.rank = mesh.process_count(), mesh.process_index()
+        # owner rank of each trainable tensor under zero1 / zero2, else None
+        self._owners = None
+        if self._dp and (config.zero1 or config.zero2):
+            self._owners = partition_params(self.params, self.world)
+            self.optimizer = ShardedOptimizer(
+                self.params, self._owners, self.rank,
+                lambda owned: make_optimizer(owned, config, total_steps)[0])
+            self.schedule = make_schedule(config, total_steps)
+        else:
+            self.optimizer, self.schedule = make_optimizer(self.params, config, total_steps)
+        if self._dp and self.world > 1:
+            # every rank starts from rank 0's weights
+            broadcast_from_owners_([p.detach() for p in self.params], [0] * len(self.params))
         self.step = 0  # optimizer steps taken, skipped ones included
         self.updates = 0  # updates applied: the schedule's count, as optax's
         self._history: List[Dict] = []
@@ -165,7 +208,8 @@ class Trainer:
         # model -> {"retrieval_<metric>": value} at each eval point
         # (eval/in_training.py)
         self.retrieval_eval_fn: Optional[Callable] = None
-        self._preempted = False
+        self._sigterm = False  # this process received SIGTERM
+        self._preempted = False  # some rank did: every rank stops after this step
 
     # ------------------------------------------------------------------
     def train_step(self, group: dict) -> Dict[str, float]:
@@ -193,13 +237,22 @@ class Trainer:
             loss_sum = loss_sum * inv
             metric_sums = {k: v * inv for k, v in metric_sums.items()}
             torch._foreach_mul_(grads, inv)
+        stats = [loss_sum.float()] + [v.float() for v in metric_sums.values()]
+        if self._dp:
+            all_reduce_mean_(grads)
+            # the loss and metrics: means over the ranks; the last entry
+            # counts the ranks that received SIGTERM
+            summed = torch.stack(stats + [torch.tensor(float(self._sigterm), device=self.device)])
+            dist.all_reduce(summed)
+            means = summed[:-1] / self.world if self.world > 1 else summed[:-1]
+            stats = [*means.unbind(), summed[-1]]
         grad_norm = global_norm(grads)
-        # one device sync per step: the finite check and the logged values
+        # one device sync per step: the finite check, the logged values and
+        # the SIGTERM count
         names = ["loss", "grad_norm", *metric_sums]
-        values = torch.stack(
-            [loss_sum.float(), grad_norm.float()]
-            + [v.float() for v in metric_sums.values()]
-        ).tolist()
+        values = torch.stack([stats[0], grad_norm.float(), *stats[1:]]).tolist()
+        if self._dp:
+            self._preempted = values.pop() > 0
         out = dict(zip(names, values))
         ok = bool(np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"]))
         if ok or not cfg.skip_nonfinite_updates:
@@ -210,6 +263,8 @@ class Trainer:
                 group_["lr"] = lr
             self.optimizer.step()
             self.updates += 1
+            if self._owners is not None:
+                broadcast_from_owners_([p.detach() for p in self.params], self._owners)
         for p in self.params:
             p.grad = None
         self.step += 1
@@ -252,21 +307,31 @@ class Trainer:
                 f"debug_nans: non-finite {bad} at step {self.step + 1}")
 
     def _generator(self, micro: int) -> torch.Generator:
-        """The dropout generator of micro-batch ``micro`` of this step."""
-        seed = np.random.SeedSequence([self.dropout_seed, self.step, micro])
+        """The dropout generator of micro-batch ``micro`` of this step (and
+        of this rank, with more than one: each rank's rows draw their own
+        masks)."""
+        key = [self.dropout_seed, self.step, micro] + ([self.rank] if self.world > 1 else [])
+        seed = np.random.SeedSequence(key)
         return torch.Generator().manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
 
     # ------------------------------------------------------------------
     def evaluate(self, dataset, collator, batch_size: Optional[int] = None) -> Dict[str, float]:
         """Loss and metrics over ``dataset`` without gradients or dropout
-        (``trainer.py:315-386``): batches in order, the last one partial
-        (an eval set smaller than one batch still gives metrics), combined
-        as means weighted by rows; keys prefixed ``eval_``. The JAX package
-        pads the last batch to its static shape and masks the pad rows out
-        of the loss and the negative pool; unpadded, the port computes the
-        same."""
+        (``trainer.py:315-386``): global batches of ``batch_size`` (by
+        default the per-device eval size times the ranks) in order, the last
+        one partial (an eval set smaller than one batch still gives
+        metrics), combined as means weighted by rows; keys prefixed
+        ``eval_``. The JAX package pads the last batch to its static shape
+        and masks the pad rows out of the loss and the negative pool;
+        unpadded, the port computes the same. With several ranks each takes
+        its contiguous share of every global batch, padded to equal sizes
+        with masked rows (``row_valid``), and the row-weighted sums are
+        summed over the ranks."""
         cfg = self.config
-        size = batch_size or cfg.per_device_eval_batch_size or cfg.per_device_train_batch_size
+        size = batch_size or (
+            (cfg.per_device_eval_batch_size or cfg.per_device_train_batch_size) * self.world)
+        if self.world > 1:
+            return self._evaluate_sharded(dataset, collator, size)
         loader = DataLoader(dataset, collator, batch_size=size, shuffle=False, drop_last=False)
         sums: Dict[str, float] = {}
         n_rows = 0
@@ -280,6 +345,30 @@ class Trainer:
                 for key, value in zip(values, host):
                     sums[key] = sums.get(key, 0.0) + value * rows
                 n_rows += rows
+        if n_rows == 0:
+            return {}
+        return {f"eval_{k}": v / n_rows for k, v in sums.items()}
+
+    def _evaluate_sharded(self, dataset, collator, size: int) -> Dict[str, float]:
+        """``evaluate`` over the ranks (see there)."""
+        sums: Dict[str, float] = {}
+        n_rows = 0
+        with torch.no_grad():
+            for lo in range(0, len(dataset), size):
+                rows = [dataset[i] for i in range(lo, min(lo + size, len(dataset)))]
+                local = split_between_processes(rows, apply_padding=True)
+                start, end, _ = _bounds(len(rows), self.rank, self.world, False)
+                valid = max(0, min(end, len(rows)) - start)
+                batch = _to_device(collator(local), self.device)
+                batch["row_valid"] = (torch.arange(len(local), device=self.device)
+                                      < valid).to(torch.int32)
+                loss, metrics = self.loss_fn(self.model, batch)
+                values = {"loss": loss, **metrics}
+                weighted = torch.stack([v.float() * valid for v in values.values()])
+                dist.all_reduce(weighted)
+                for key, value in zip(values, weighted.tolist()):
+                    sums[key] = sums.get(key, 0.0) + value
+                n_rows += len(rows)
         if n_rows == 0:
             return {}
         return {f"eval_{k}": v / n_rows for k, v in sums.items()}
@@ -309,11 +398,11 @@ class Trainer:
                            else (eval_dataset, eval_collator or collator))
         # preemption: on SIGTERM finish the step in flight, checkpoint and
         # return (trainer.py:464-480)
-        self._preempted = False
+        self._sigterm = self._preempted = False
         old_sigterm = None
         if cfg.save_on_preemption and threading.current_thread() is threading.main_thread():
             def _on_term(signum, frame):
-                self._preempted = True
+                self._sigterm = True
                 logger.warning("SIGTERM received: checkpointing after the current step")
 
             old_sigterm = signal.signal(signal.SIGTERM, _on_term)
@@ -327,14 +416,16 @@ class Trainer:
 
     def _train_loop(self, dataset, collator, profiler: "_StepProfiler") -> List[Dict]:
         cfg = self.config
-        micro = cfg.per_device_train_batch_size
+        # the global micro-batch; the loader gives this rank its rows
+        micro = cfg.per_device_train_batch_size * self.world
         accum = cfg.gradient_accumulation_steps
         loader = DataLoader(dataset, collator, batch_size=micro, shuffle=True,
-                            drop_last=cfg.dataloader_drop_last, seed=cfg.seed)
+                            drop_last=cfg.dataloader_drop_last, seed=cfg.seed,
+                            process_index=self.rank, process_count=self.world)
         steps_per_epoch = loader.steps_per_epoch() // accum
         if steps_per_epoch == 0:
             logger.warning(
-                "dataset (%d rows) is smaller than one optimizer step (batch "
+                "dataset (%d rows) is smaller than one optimizer step (global batch "
                 "%d x accum %d = %d rows): ZERO training steps will run",
                 len(dataset), micro, accum, micro * accum,
             )
@@ -368,8 +459,8 @@ class Trainer:
                     if self.sample_tokens is not None:
                         logs["tokens_per_sec"] = round(samples_per_sec * self.sample_tokens, 1)
                     if self.sample_flops is not None and self._peak_flops:
-                        logs["mfu"] = round(
-                            samples_per_sec * self.sample_flops / self._peak_flops, 4)
+                        logs["mfu"] = round(samples_per_sec * self.sample_flops
+                                            / (self._peak_flops * self.world), 4)
                     buffer, times = [], []
                     self._log(logs)
                 if (cfg.eval_strategy == "steps" and cfg.eval_steps
@@ -382,7 +473,7 @@ class Trainer:
                     self.save_checkpoint(global_step, epoch)
                     ckpt.wait_for_saves()
                     return self._history
-                if self._preempted:
+                if self._preempted or (not self._dp and self._sigterm):
                     self.save_checkpoint(global_step, epoch)
                     ckpt.wait_for_saves()
                     logger.warning("preempted: checkpoint-%d written, exiting training",
@@ -432,26 +523,39 @@ class Trainer:
         the trainer state and, with ``save_only_model=False``, the
         optimizer state with the step and update counters
         (``trainer.py:732-769``). An asynchronous save copies the state to
-        the host here and writes it on the background writer."""
+        the host here and writes it on the background writer. With several
+        ranks every rank takes part in gathering the optimizer state to rank
+        0, which writes the files and rotates; the others return None after
+        the files but the background write are on disk."""
         cfg = self.config
         if cfg.save_strategy == "no":
             return None
         directory = os.path.join(cfg.output_dir, f"checkpoint-{global_step}")
-        os.makedirs(directory, exist_ok=True)
-        if self.save_params_fn is not None:
-            self.save_params_fn(directory, self.model)
-        ckpt.save_trainer_state(directory, {"global_step": global_step, "epoch": epoch}, cfg)
+        main = mesh.is_main_process()
+        payload = None
         if not cfg.save_only_model:
             # the previous write first, so the host holds one copy at a time
             ckpt.wait_for_saves()
-            payload = {"optimizer": ckpt.host_copy(self.optimizer.state_dict()),
-                       "step": self.step, "updates": self.updates}
-            ckpt.save_opt_state(directory, payload, async_save=cfg.async_checkpointing)
-        # the current checkpoint is the newest: rotation never removes it,
-        # and every older write has finished (save_opt_state waited)
-        ckpt.rotate_checkpoints(cfg.output_dir, cfg.save_total_limit)
-        logger.info("saved checkpoint: %s", directory)
-        return directory
+            if isinstance(self.optimizer, ShardedOptimizer):
+                state = self.optimizer.gather_state_dict()
+            else:
+                state = ckpt.host_copy(self.optimizer.state_dict()) if main else None
+            if main:
+                payload = {"optimizer": state, "step": self.step, "updates": self.updates}
+        if main:
+            os.makedirs(directory, exist_ok=True)
+            if self.save_params_fn is not None:
+                self.save_params_fn(directory, self.model)
+            ckpt.save_trainer_state(directory, {"global_step": global_step, "epoch": epoch},
+                                    cfg)
+            if payload is not None:
+                ckpt.save_opt_state(directory, payload, async_save=cfg.async_checkpointing)
+            # the current checkpoint is the newest: rotation never removes
+            # it, and every older write has finished (save_opt_state waited)
+            ckpt.rotate_checkpoints(cfg.output_dir, cfg.save_total_limit)
+            logger.info("saved checkpoint: %s", directory)
+        mesh.barrier()
+        return directory if main else None
 
     def resume_from(self, directory: str) -> None:
         """Restore the step and update counters, and the optimizer state
@@ -463,11 +567,15 @@ class Trainer:
         ckpt.wait_for_saves()
         payload = ckpt.load_opt_state(directory)
         if payload is not None:
+            # a sharded optimizer takes its own tensors' entries
             self.optimizer.load_state_dict(payload["optimizer"])
             self.step, self.updates = int(payload["step"]), int(payload["updates"])
             return
         step = int(ckpt.load_trainer_state(directory).get("global_step", 0))
-        fast_forward(self.optimizer, step)
+        local = (self.optimizer.optimizer if isinstance(self.optimizer, ShardedOptimizer)
+                 else self.optimizer)
+        if local is not None:
+            fast_forward(local, step)
         self.step = self.updates = step
 
 
@@ -484,7 +592,7 @@ class _StepProfiler:
 
     def before_step(self, global_step: int) -> None:
         cfg = self.config
-        if not cfg.profile_steps:
+        if not cfg.profile_steps or not mesh.is_main_process():  # rank 0 traces
             return
         if self._prof is not None and global_step == cfg.profile_start_step + cfg.profile_steps:
             self.stop()

@@ -72,6 +72,10 @@ MODULES = [
     "rankpo_tpu_torch.data",
     "rankpo_tpu_torch.models.lora",
     "rankpo_tpu_torch.eval.in_training",
+    "rankpo_tpu_torch.core.mesh",
+    "rankpo_tpu_torch.parallel",
+    "rankpo_tpu_torch.parallel.sharding",
+    "rankpo_tpu_torch.utils.distributed",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

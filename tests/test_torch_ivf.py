@@ -239,10 +239,10 @@ def test_tensor_input_keeps_device_and_pads():
 
 
 def test_unported_options_raise():
-    """A mesh is not ported (ROADMAP.md Queue 1 item 8); bad storage and PQ
+    """A mesh is not ported (ROADMAP.md Queue 1 item 8c); bad storage and PQ
     options raise ValueError, as in the JAX package."""
     corpus, _ = _corpus_queries(n=200, n_q=1, d=16, seed=4)
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(NotImplementedError, match="item 8c, multi-card"):
         pivf.IVFIPIndex(corpus, mesh=object())
     for kw in ({"store_dtype": "float16"}, {"capacity_slack": 0.5}, {"pq_m": 5},
                {"pq_m": 8, "pq_layout": "cols"}, {"pq_rotate": "random"},

@@ -101,10 +101,38 @@ def test_one_block_equals_global_loss():
     _close(a.item(), b.item(), rtol=1e-6)
 
 
-def test_cross_device_axis_raises_on_one_card():
+def test_cross_device_axis_raises_on_one_card(tmp_path):
+    """Cross-device negatives are ported (two ranks:
+    ``test_torch_distributed.py``). On one card without a process group
+    ``axis_name`` raises, naming the bring-up; in a one-process gloo group
+    it pools the one rank's passages: the global loss and gradients bit for
+    bit, and JAX's within the module's tolerances."""
+    import torch.distributed as dist
+
     q, p = _reps()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         pc.info_nce_loss(torch.from_numpy(q), torch.from_numpy(p), axis_name="data")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        got = []
+        for axis in (None, "data"):
+            tq = torch.from_numpy(q).requires_grad_(True)
+            tp = torch.from_numpy(p).requires_grad_(True)
+            loss, scores = pc.info_nce_loss(tq, tp, temperature=0.05, axis_name=axis)
+            loss.backward()
+            got.append((loss.detach(), scores.detach(), tq.grad, tp.grad))
+        with pytest.raises(ValueError, match="only axis"):
+            pc.info_nce_loss(torch.from_numpy(q), torch.from_numpy(p), axis_name="model")
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    jl, jg = jax.value_and_grad(lambda a, b: jc.info_nce_loss(a, b, temperature=0.05)[0],
+                                argnums=(0, 1))(jnp.asarray(q), jnp.asarray(p))
+    _close(got[1][0], jl)
+    _close(got[1][2], jg[0], rtol=0, atol=GRAD_ATOL)
+    _close(got[1][3], jg[1], rtol=0, atol=GRAD_ATOL)
 
 
 @pytest.mark.parametrize("normalize,temperature", [(True, 0.02), (False, 0.02),

@@ -219,10 +219,26 @@ def test_packed_collators_equal_jax():
 
 
 def test_multi_process_packing_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ppack.sync_packed_budgets(None, [])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ppack.configure_multiprocess_packing(None, [], 4)
+    """Multi-process packing is ported (two ranks agreeing on budgets:
+    ``test_torch_distributed.py``). In one process the agreed budgets are
+    this process's needs plus the slack, JAX's numbers, and the collators
+    then give JAX's arrays bit for bit; the slot tables stay local."""
+    rng = np.random.default_rng(7)
+    kw = dict(pad_token_id=0, max_query_length=16, max_passage_length=24,
+              query_max_segments=4, passage_max_segments=4)
+    rows = _contrastive_rows(rng, 8)
+    for make_p, make_j, data in (
+            (lambda: ppack.PackedContrastiveCollator(num_negatives=2, seed=5, **kw),
+             lambda: jpack.PackedContrastiveCollator(num_negatives=2, seed=5, **kw), rows),
+            (lambda: ppack.PackedRankPOCollator(**kw), lambda: jpack.PackedRankPOCollator(**kw),
+             _pair_rows(rng, 8))):
+        got, want = make_p(), make_j()
+        assert (ppack.configure_multiprocess_packing(got, data, 4)
+                == jpack.configure_multiprocess_packing(want, data, 4))
+        assert ppack.sync_packed_budgets(make_p(), data[:4], slack=0.5) == \
+            jpack.sync_packed_budgets(make_j(), data[:4], slack=0.5)
+        for lo in (0, 4):
+            _tree_equal(got(data[lo:lo + 4]), want(data[lo:lo + 4]))
 
 
 def test_stack_pads_uneven_groups_as_jax():

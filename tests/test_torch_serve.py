@@ -222,10 +222,10 @@ def test_http_server(checkpoint):
     assert not any(port_flash.launches.values())
 
 
-@pytest.mark.parametrize("flag,item", [(["--num_processes", "2"], "item 8"),
-                                       (["--process_id", "0"], "item 8")])
+@pytest.mark.parametrize("flag,item", [(["--num_processes", "2"], "item 8c"),
+                                       (["--process_id", "0"], "item 8c")])
 def test_unported_flags_fail(checkpoint, flag, item, capsys):
-    """Each rejected with its ROADMAP.md item: multi-host serving (8)."""
+    """Each rejected with its ROADMAP.md item: multi-host serving (8c)."""
     with pytest.raises(SystemExit):
         cli.main(_argv(checkpoint, "--device", "cpu", *flag))
     err = capsys.readouterr().err

@@ -196,8 +196,35 @@ def test_loader_and_collator_batches_bit_equal(stage):
 
 
 def test_loader_rejects_multiprocess_sharding():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PLoader([], None, batch_size=4, process_count=2)
+    """Multi-process sharding is ported: each process takes
+    ``global_ids[index::count]`` of every global batch of the seeded order,
+    the JAX loader's rows bit for bit, and the processes' rows together are
+    the one-process batch. A global batch that does not divide over the
+    processes is still rejected, as in JAX."""
+    rows = _contrastive_rows(n=24)
+    ds_p = pdata.ContrastiveDataset(rows, HashTokenizer(vocab_size=256), 12, 16)
+    ds_j = jdata.ContrastiveDataset(rows, JHashTokenizer(vocab_size=256), 12, 16)
+    whole = list(PLoader(ds_p, lambda r: r, batch_size=6, seed=5).epoch(1))
+    for count in (2, 3):
+        shards = []
+        for index in range(count):
+            kw = dict(batch_size=6, seed=5, process_index=index, process_count=count)
+            got = list(PLoader(ds_p, pcoll.ContrastiveCollator(0, 3, 12, 16, seed=1),
+                               **kw).epoch(1, stack=2))
+            want = list(JLoader(ds_j, jcoll.ContrastiveCollator(0, 3, 12, 16, seed=1),
+                                **kw).epoch(1, stack=2))
+            assert len(got) == len(want) == 2
+            for a, b in zip(got, want):
+                _assert_tree_equal(a, b)
+            assert got[0]["query"]["input_ids"].shape[:2] == (2, 6 // count)
+            shards.append(list(PLoader(ds_p, lambda r: r, **kw).epoch(1)))
+        for step, batch in enumerate(whole):
+            merged = [row for shard in shards for row in shard[step]]
+            assert sorted(r["query"] for r in merged) == sorted(r["query"] for r in batch)
+    with pytest.raises(ValueError, match="divide"):
+        PLoader([], None, batch_size=4, process_count=3)
+    with pytest.raises(ValueError, match="divide"):
+        JLoader([], None, batch_size=4, process_count=3)
 
 
 # ---------------------------------------------------------------------------
@@ -334,17 +361,25 @@ def test_gradient_checkpointing_gives_plain_gradients():
 
 
 def test_unported_checkpoint_policy_and_options_raise():
-    """What one card does not port (tensor parallelism, sharded gradients
-    and parameters) raises naming ROADMAP.md item 8; an unknown
-    checkpointing policy raises ValueError naming the three."""
+    """What the port does not have (tensor parallelism, sharded parameters)
+    raises naming ROADMAP.md item 8b; an unknown checkpointing policy raises
+    ValueError naming the three. ``zero1`` and ``zero2`` are ported
+    (``test_torch_zero.py``): accepted, and in one process the trainer
+    keeps the plain optimizer."""
     _, pcfg = _tiny()
     state = llama.init_params(pcfg, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="full.*dots.*attn"):
         llama.LlamaEncoder.for_training(pcfg, state, device="cpu", checkpoint_policy="nope")
-    for field, value in (("fsdp", True), ("zero2", True), ("model_parallel", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+    for field, value in (("fsdp", True), ("model_parallel", 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
             TrainConfig(**{field: value}).check_supported()
-    TrainConfig(zero1=True).check_supported()  # accepted, means nothing on one card
+    for flags in (dict(zero1=True), dict(zero2=True), dict(zero1=False, zero2=True)):
+        cfg = TrainConfig(device="cpu", **flags)
+        cfg.check_supported()
+        model = llama.LlamaEncoder.for_training(pcfg, state, device="cpu")
+        trainer = Trainer(loss_fn=make_contrastive_loss_fn(pcfg), model=model, config=cfg,
+                          total_steps=1)
+        assert isinstance(trainer.optimizer, torch.optim.AdamW)
 
 
 @pytest.mark.parametrize("field,value", [
