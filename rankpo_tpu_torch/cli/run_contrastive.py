@@ -34,11 +34,13 @@ Data parallel, one process per card: start W processes with
 ``--coordinator_address HOST:PORT --num_processes W --process_id r`` (NCCL
 on the cards, gloo with ``--device cpu``). Each process drives
 ``cuda:<r % cards>``, every rank is seeded alike, the global batch is
-``--per_device_train_batch_size`` times W, ``--negatives_cross_device``
-pools the passages of every rank and ``--zero1`` shards the optimizer
-state over the ranks (``--zero2`` takes the same path). Rank 0 writes the
-checkpoints, the final model and the summary files; the others wait at a
-barrier.
+``--per_device_train_batch_size`` times W (JAX's: every device counts),
+``--negatives_cross_device`` pools the passages of every data index and
+``--zero1`` shards the optimizer state over the data group (``--zero2``
+takes the same path). ``--model_parallel mp`` splits the model over mp
+consecutive ranks (tensor parallelism, ``models/base.py``; AdamW only).
+Rank 0 writes the checkpoints (in the one-process layout), the final model
+and the summary files; the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -71,9 +73,10 @@ from rankpo_tpu_torch.data.tokenization import prepare_tokenizer, resolve_tokeni
 from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.eval.in_training import maybe_attach_retrieval_eval
-from rankpo_tpu_torch.models.base import EncoderModule
+from rankpo_tpu_torch.models.base import EncoderModule, TensorParallel
 from rankpo_tpu_torch.models.encoder import encoder_class, resize_token_embeddings
 from rankpo_tpu_torch.models.hf_io import load_pretrained, save_pretrained
+from rankpo_tpu_torch.parallel.sharding import full_state_dict
 from rankpo_tpu_torch.train.checkpoint import latest_checkpoint
 from rankpo_tpu_torch.train.config import TrainConfig
 from rankpo_tpu_torch.train.gradcache import make_contrastive_gradcache_grad_fn
@@ -153,20 +156,27 @@ def build_model(config, state, train_cfg: TrainConfig, device,
         compute_dtype=policy.compute_dtype,
         gradient_checkpointing=train_cfg.gradient_checkpointing,
         checkpoint_policy=train_cfg.gradient_checkpointing_policy, bwd_impl=bwd_impl,
+        tensor_parallel=TensorParallel.current(),
     )
 
 
 def make_save_fn(config, tokenizer=None, state_fn=None, **card):
     """The trainer's save function: the fp32 model files (the JAX package's
     load_pretrained reads them too) of ``state_fn(model)`` (by default the
-    model's state dict), an HF ``tokenizer`` beside them (so a later stage,
+    model's state dict in the one-process layout, ``sharding.
+    full_state_dict``), an HF ``tokenizer`` beside them (so a later stage,
     evaluation and serving load the added tokens) and the model card, whose
     arguments ``card`` (stage, tags, base_model, training_args) are the JAX
-    CLI's."""
-    state_fn = state_fn or (lambda model: model.state_dict())
+    CLI's. Under tensor parallelism every rank of rank 0's model group, and
+    under fsdp every rank, calls it (the gather is a collective) and rank 0
+    writes."""
+    state_fn = state_fn or full_state_dict
 
     def save_params_fn(directory: str, model: torch.nn.Module) -> None:
-        save_pretrained(directory, config, state_fn(model), dtype=torch.float32)
+        state = state_fn(model)
+        if not mesh.is_main_process():
+            return
+        save_pretrained(directory, config, state, dtype=torch.float32)
         if hasattr(tokenizer, "save_pretrained"):
             tokenizer.save_pretrained(directory)
         # push_to_hub tagging analog (reference rankpo_trainer.py:647-654)
@@ -177,16 +187,20 @@ def make_save_fn(config, tokenizer=None, state_fn=None, **card):
 
 def start_processes(dist_args: DistributedArguments, train_cfg: TrainConfig) -> torch.device:
     """Join the run's process group when it has one (before any loading:
-    no CPU fallback) and return this process's device."""
+    no CPU fallback), lay the ranks out on the (data, model) grid of
+    ``--model_parallel`` (``core/mesh.py`` ``make_groups``; JAX's errors
+    when the world does not divide) and return this process's device."""
     device = resolve_device(train_cfg.device)
     dist_args.initialize(device)
+    mesh.make_groups(mesh.MeshConfig(model_parallel=train_cfg.model_parallel))
     if not mesh.is_distributed():
         return device
     device = mesh.rank_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    logger.info("data parallel: rank %d of %d on %s", mesh.process_index(),
-                mesh.process_count(), device)
+    logger.info("rank %d of %d on %s: data index %d of %d, model index %d of %d",
+                mesh.process_index(), mesh.process_count(), device, mesh.data_index(),
+                mesh.data_count(), mesh.model_index(), mesh.model_count())
     return device
 
 
@@ -210,8 +224,11 @@ def agree_packing(collator, dataset, train_cfg: TrainConfig) -> None:
 def write_results(train_cfg: TrainConfig, trainer: Trainer, history, n_rows: int,
                   t0: float, save_fn) -> None:
     """Final save at the output root (reference trainer.save_model()) and the
-    run's summary files, by rank 0; every rank leaves after them."""
+    run's summary files, by rank 0 (the ranks of its model group take part
+    in gathering the model); every rank leaves after them."""
     if not mesh.is_main_process():
+        if trainer.gathers_model():
+            save_fn(train_cfg.output_dir, trainer.model)
         mesh.barrier()
         return
     save_fn(train_cfg.output_dir, trainer.model)

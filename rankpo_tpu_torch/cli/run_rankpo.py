@@ -68,6 +68,7 @@ from rankpo_tpu_torch.data.datasets import PairPreferenceDataset
 from rankpo_tpu_torch.data.packing import PackedRankPOCollator
 from rankpo_tpu_torch.eval.in_training import maybe_attach_retrieval_eval
 from rankpo_tpu_torch.models import lora
+from rankpo_tpu_torch.models.base import TensorParallel
 from rankpo_tpu_torch.models.encoder import encoder_class
 from rankpo_tpu_torch.models.hf_io import load_pretrained
 from rankpo_tpu_torch.train.config import TrainConfig
@@ -86,6 +87,11 @@ def main(argv=None):
     )
     setup_logging(train_cfg.log_level)
     train_cfg.check_supported()
+    if r_args.use_lora and train_cfg.model_parallel > 1:
+        raise NotImplementedError(
+            f"--use_lora with --model_parallel {train_cfg.model_parallel} is not ported "
+            "(ROADMAP.md Queue 1 item 8d): the adapters of a split projection would be "
+            "split too")
     device = start_processes(dist_args, train_cfg)
     guard_output_dir(train_cfg)
     set_seed(train_cfg.seed)
@@ -101,8 +107,10 @@ def main(argv=None):
         ref_path = r_args.ref_model_name_or_path or model_args.model_name_or_path
         _, ref_state = load_pretrained(ref_path)
         # frozen, in the compute dtype: the forward casts to it anyway
+        # sharded as the trained model is (JAX's frozen_specs, trainer.py:183-190)
         ref_model = encoder_class(config).from_state_dict(
-            config, ref_state, device=device, dtype=policy.compute_dtype
+            config, ref_state, device=device, dtype=policy.compute_dtype,
+            tensor_parallel=TensorParallel.current(),
         )
         logger.info("loaded frozen reference model from %s", ref_path)
 

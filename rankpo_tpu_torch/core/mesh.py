@@ -1,12 +1,18 @@
-"""Process-group bring-up for data-parallel training (port of
+"""Process-group bring-up and the (data, model) grid (port of
 ``rankpo_tpu.core.mesh``).
 
 The JAX package builds one ``Mesh`` over every device and lets XLA place
 the collectives. The port runs one process per card (the torchrun model):
-each process drives one device, ``torch.distributed`` carries the
-collectives, and the data axis is the whole process group. Tensor
-parallelism (the mesh's ``model`` axis) is not ported: a
-``model_parallel`` above 1 raises (ROADMAP.md Queue 1 item 8b).
+each process drives one device and ``torch.distributed`` carries the
+collectives. The mesh's two axes become process groups
+(:func:`make_groups`): rank ``r = d * mp + m`` has data index ``d`` and
+model index ``m``, the model axis innermost as JAX's ``make_mesh`` lays the
+devices out (``mesh.py:58-72``). The ranks of one model group hold the
+shards of one tensor-parallel model (``parallel/sharding.py``); the ranks
+of one data group hold the same shard and split the batch. Until
+:func:`make_groups` runs (or after the process group it was made for is
+gone) the data axis is the whole process group and the model axis has one
+rank.
 
 :func:`initialize_distributed` takes the JAX package's three flags
 (``--coordinator_address host:port --num_processes W --process_id r``)
@@ -30,7 +36,6 @@ logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-_NEXT_SLICE = "ROADMAP.md Queue 1 item 8b, sharded models"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,12 +63,108 @@ class MeshConfig:
         return (dp, mp)
 
     def check_supported(self) -> None:
-        """Raise for a model axis: the port has data parallelism only
-        (``TrainConfig.check_supported`` asks here)."""
-        if self.model_parallel > 1:
-            raise NotImplementedError(
-                f"--model_parallel {self.model_parallel}: tensor parallelism is not "
-                f"ported to rankpo_tpu_torch yet ({_NEXT_SLICE}); leave it at 1")
+        """Raise for a model axis below 1 (every other shape is ported;
+        whether the world divides is :meth:`resolve`'s check)."""
+        if self.model_parallel < 1:
+            raise ValueError(f"--model_parallel {self.model_parallel} must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """This rank's place on the (data, model) grid: its two process groups
+    (None without a process group: a world of one) and its indices."""
+
+    dp: int
+    mp: int
+    data: Optional[object]
+    model: Optional[object]
+    data_index: int
+    model_index: int
+    world: Optional[object] = None  # the default group the groups were made in
+
+
+_groups: Optional[Groups] = None
+
+
+def make_groups(config: Optional[MeshConfig] = None) -> Groups:
+    """Build every data group and every model group with
+    ``torch.distributed.new_group``, in the same order on every rank (a
+    collective), and make this rank's two the current ones. Without a
+    process group both are groups of one (None) and nothing is built. The
+    grid's shape is ``config.resolve(world size)``, with JAX's errors."""
+    global _groups
+    config = config or MeshConfig()
+    config.check_supported()
+    world, rank = process_count(), process_index()
+    dp, mp = config.resolve(world)
+    if not is_distributed():
+        _groups = Groups(dp, mp, None, None, 0, 0)
+        return _groups
+    data = model = None
+    for d in range(dp):  # model groups: the mp consecutive ranks of a data index
+        ranks = [d * mp + m for m in range(mp)]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            model = group
+    for m in range(mp):  # data groups: one rank of each model group
+        ranks = [d * mp + m for d in range(dp)]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            data = group
+    _groups = Groups(dp, mp, data, model, rank // mp, rank % mp, dist.group.WORLD)
+    logger.info("rank %d: data index %d of %d, model index %d of %d", rank, rank // mp, dp,
+                rank % mp, mp)
+    return _groups
+
+
+def current_groups() -> Optional[Groups]:
+    """The groups :func:`make_groups` made for the live process group, or
+    None (never made, or made for a group that was since destroyed)."""
+    g = _groups
+    if g is None:
+        return None
+    if g.world is None:
+        return None if is_distributed() else g
+    return g if is_distributed() and g.world is dist.group.WORLD else None
+
+
+def data_group():
+    """The data axis's process group (None: the default group, when no grid
+    was made)."""
+    g = current_groups()
+    return g.data if g is not None else None
+
+
+def data_count() -> int:
+    g = current_groups()
+    return g.dp if g is not None else process_count()
+
+
+def data_index() -> int:
+    g = current_groups()
+    return g.data_index if g is not None else process_index()
+
+
+def model_group():
+    """The model axis's process group (None: one rank)."""
+    g = current_groups()
+    return g.model if g is not None else None
+
+
+def model_count() -> int:
+    g = current_groups()
+    return g.mp if g is not None else 1
+
+
+def model_index() -> int:
+    g = current_groups()
+    return g.model_index if g is not None else 0
+
+
+def group_rank(group, index: int) -> int:
+    """The global rank of ``group``'s ``index``-th rank (``index`` itself
+    for the default group)."""
+    return index if group is None else dist.get_global_rank(group, index)
 
 
 def initialize_distributed(

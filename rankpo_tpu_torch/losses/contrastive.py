@@ -6,11 +6,13 @@
   is column i*G; every other passage of the batch is a negative.
 - In-batch negatives off: per-query scores [B, G] with target 0.
 - Cross-device negatives (``axis_name="data"``, reference
-  src/modeling.py:287-290): the passages of every rank of the
-  ``torch.distributed`` group are all-gathered first (:func:`gather_concat`,
+  src/modeling.py:287-290): the passages of every rank of the data group
+  (``core/mesh.py``: the whole ``torch.distributed`` group without a
+  model axis) are all-gathered first (:func:`gather_concat`,
   whose backward hands each rank the sum over ranks of the gradient of its
   own slice, JAX's reduce-scatter transpose), and each rank scores its own
-  queries against the whole pool, row i's target at (rank * B + i) * G.
+  queries against the whole pool, row i's target at (d * B + i) * G for
+  data index d.
   The loss is this rank's mean: the trainer's mean of the gradients over
   the ranks is then the gradient of the global mean, and its mean of the
   ranks' losses the global loss (JAX ``pmean``). A loss that were already
@@ -26,6 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from rankpo_tpu_torch.core import mesh
 
 DATA_AXIS = "data"
 
@@ -43,31 +47,37 @@ def check_data_axis(axis_name: str) -> None:
 
 
 class _AllGather(torch.autograd.Function):
-    """all_gather on the batch dimension; the backward reduce-scatters, so
-    each rank's slice gets the sum over ranks of its gradient."""
+    """all_gather on the batch dimension over the data group; the backward
+    reduce-scatters, so each rank's slice gets the sum over the data group
+    of its gradient."""
 
     @staticmethod
-    def forward(ctx, x):
-        out = x.new_empty((dist.get_world_size() * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x.contiguous())
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.new_empty((dist.get_world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        out = grad.new_empty((grad.shape[0] // dist.get_world_size(),) + tuple(grad.shape[1:]))
-        dist.reduce_scatter_tensor(out, grad.contiguous())
-        return out
+        group = ctx.group
+        out = grad.new_empty((grad.shape[0] // dist.get_world_size(group),)
+                             + tuple(grad.shape[1:]))
+        dist.reduce_scatter_tensor(out, grad.contiguous(), group=group)
+        return out, None
 
 
 def gather_concat(x: torch.Tensor) -> torch.Tensor:
-    """``x`` of every rank, concatenated in rank order on dim 0;
-    differentiable (the reference's three hand-rolled autograd workarounds,
-    src/modeling.py:26-109, are this one function). Over one rank it is
-    ``x`` itself: a gathered copy would change the products' memory layout,
-    and so their rounding, against a run without a group."""
-    if dist.get_world_size() == 1:
+    """``x`` of every rank of the data group, concatenated in data-index
+    order on dim 0; differentiable (the reference's three hand-rolled
+    autograd workarounds, src/modeling.py:26-109, are this one function).
+    Over one rank it is ``x`` itself: a gathered copy would change the
+    products' memory layout, and so their rounding, against a run without a
+    group."""
+    group = mesh.data_group()
+    if dist.get_world_size(group) == 1:
         return x
-    return _AllGather.apply(x)
+    return _AllGather.apply(x, group)
 
 
 def similarity_scores(q_reps: torch.Tensor, p_reps: torch.Tensor) -> torch.Tensor:
@@ -120,7 +130,7 @@ def info_nce_loss(
             check_data_axis(axis_name)
             p_reps = gather_concat(p_reps)
             # local row i is global row rank * B + i (modeling.py:301-302)
-            targets = targets + dist.get_rank() * b * group_size
+            targets = targets + mesh.data_index() * b * group_size
             if col_valid is not None:
                 col_valid = gather_concat(col_valid)
         scores = similarity_scores(q_reps, p_reps) / temperature  # [B, W*B*G]

@@ -4,10 +4,24 @@ parameters in the compute dtype) and :meth:`EncoderModule.for_training`
 (master parameters in the param dtype, trainable). Both build on the meta
 device, so no throwaway random init is made, and adopt an HF-named state
 dict. :func:`remat` runs a body's layer (or part of one) under a
-gradient-checkpointing policy."""
+gradient-checkpointing policy.
+
+Tensor parallelism (``tensor_parallel``, a :class:`TensorParallel`: the
+model group, its size and this rank's index; ``core/mesh.py``): both builds
+take the FULL state dict and keep this rank's shard
+(``parallel/sharding.py`` ``shard_state``), the bodies are built with the
+local sizes (``hq / mp`` and ``hkv / mp`` heads, ``intermediate / mp``
+MLP columns), and each layer feeds its column-parallel projections through
+:func:`column_input` and sums its row-parallel ones with
+:func:`row_linear`. The attention then runs the kernels unchanged on the
+local heads (GQA kept), as JAX's ``shard_map`` over heads does
+(``rankpo_tpu/ops/attention.py:131-172``). Under every checkpointing policy
+the recompute re-runs the row-parallel sums, so it recomputes the forward's
+values. ``model.tp`` is None in one process and at ``model_parallel`` 1."""
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, Optional
 
@@ -19,6 +33,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.ops.attention import BWD_IMPLS
@@ -54,15 +69,67 @@ def remat(fn, policy: str, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The model axis of a tensor-parallel body: the model group, its size
+    and this rank's index in it."""
+
+    group: object
+    size: int
+    index: int
+
+    @classmethod
+    def current(cls) -> Optional["TensorParallel"]:
+        """The grid's model axis (``core/mesh.py``), None at size 1."""
+        if mesh.model_count() <= 1:
+            return None
+        return cls(mesh.model_group(), mesh.model_count(), mesh.model_index())
+
+
+def column_input(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """The input of column-parallel projections: ``x`` (its gradient summed
+    over the model group under tensor parallelism)."""
+    if tp is None:
+        return x
+    from rankpo_tpu_torch.parallel.sharding import copy_to_model
+
+    return copy_to_model(x, tp.group)
+
+
+def row_linear(x: torch.Tensor, layer: nn.Linear, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """A row-parallel projection: :func:`linear` in one process; under
+    tensor parallelism the rank's partial product summed over the model
+    group with the replicated bias (fp32, rounded once:
+    ``sharding.row_parallel_linear``)."""
+    if tp is None:
+        return linear(x, layer)
+    from rankpo_tpu_torch.parallel.sharding import row_parallel_linear
+
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return row_parallel_linear(x, layer.weight.to(x.dtype), bias, tp.group)
+
+
+def _local_state(config, state, tp: Optional[TensorParallel]):
+    """This rank's shard of the full ``state`` (the whole of it without
+    tensor parallelism)."""
+    if tp is None:
+        return state
+    from rankpo_tpu_torch.parallel.sharding import check_divisible, shard_state
+
+    check_divisible(config, tp.size)
+    return shard_state(state, tp.size, tp.index)
+
+
 class EncoderModule(nn.Module):
     """Token ids [B, S] + right-padded mask [B, S] -> last hidden [B, S, H]
     in ``compute_dtype`` (by default the parameters' dtype). Every body's
     ``forward`` also takes ``segment_ids`` [B, S] (sequence packing,
     ``models/packing.py``) in place of the mask."""
 
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.config = config
+        self.tp = tp
         self.compute_dtype: Optional[torch.dtype] = None
         self.gradient_checkpointing = False
         self.checkpoint_policy = "full"
@@ -79,24 +146,28 @@ class EncoderModule(nn.Module):
         gradient_checkpointing: bool = False,
         checkpoint_policy: str = "full",
         bwd_impl: str = "auto",
+        tensor_parallel: Optional[TensorParallel] = None,
     ) -> "EncoderModule":
         """Trainable build: master parameters in ``param_dtype`` on
         ``device`` (the card unless the caller asks for the CPU; no card
         raises), forward in ``compute_dtype``. ``checkpoint_policy`` is
         the JAX ``remat_policy`` (:data:`CHECKPOINT_POLICIES`), applied
         with ``gradient_checkpointing``. ``bwd_impl`` picks every layer's
-        flash backward kernels (``ops/attention.py`` ``BWD_IMPLS``)."""
+        flash backward kernels (``ops/attention.py`` ``BWD_IMPLS``).
+        ``tensor_parallel``: keep this rank's shard of ``state`` (the module
+        docstring)."""
         if checkpoint_policy not in CHECKPOINT_POLICIES:
             raise ValueError(f"unknown remat_policy {checkpoint_policy!r}; "
                              f"one of {list(CHECKPOINT_POLICIES)}")
         if bwd_impl not in BWD_IMPLS:
             raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
         device = resolve_device(device)
+        state = _local_state(config, state, tensor_parallel)
         with torch.device("meta"):
-            model = cls(config)
+            model = cls(config, tensor_parallel)
         # a copy even where device and dtype match: training updates the
         # parameters in place and must not write into the caller's tensors
-        state = {n: t.to(device=device, dtype=param_dtype, copy=True)
+        state = {n: t.to(device=device, dtype=param_dtype, copy=True).contiguous()
                  for n, t in state.items()}
         model.load_state_dict(state, strict=True, assign=True)
         model.compute_dtype = compute_dtype
@@ -115,14 +186,19 @@ class EncoderModule(nn.Module):
         *,
         device="cuda",
         dtype: torch.dtype = torch.float32,
+        tensor_parallel: Optional[TensorParallel] = None,
     ) -> "EncoderModule":
         """Adopt ``state`` converted to ``dtype`` on ``device`` (the card
         unless the caller asks for the CPU; no card raises). Every parameter
-        must be present; the result is frozen (serving has no backward)."""
+        must be present; the result is frozen (serving has no backward).
+        ``tensor_parallel``: keep this rank's shard (the stage-2 frozen
+        reference, sharded as the trained model is: JAX's
+        ``frozen_specs``)."""
         device = resolve_device(device)
+        state = _local_state(config, state, tensor_parallel)
         with torch.device("meta"):
-            model = cls(config)
-        state = {n: t.to(device=device, dtype=dtype) for n, t in state.items()}
+            model = cls(config, tensor_parallel)
+        state = {n: t.to(device=device, dtype=dtype).contiguous() for n, t in state.items()}
         model.load_state_dict(state, strict=True, assign=True)
         return model.requires_grad_(False).eval()
 

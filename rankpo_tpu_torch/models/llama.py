@@ -48,6 +48,13 @@ JAX ``llama.py:269-275``): several texts per row as contiguous segments,
 RoPE positions restart at each segment (``models/packing.py``), attention
 is block-diagonal and takes no key mask; every layer passes the segments
 to the attention, in the checkpointed recompute too.
+
+Tensor parallelism (``models/base.py``): a layer of model rank i holds
+query heads ``[i * hq / mp, (i + 1) * hq / mp)``, the matching kv heads and
+MLP columns; the input norm's and the post-attention norm's outputs enter
+the column-parallel projections through ``column_input``, and ``o_proj``
+and ``down_proj`` sum their partial products over the model group
+(``row_linear``).
 """
 
 from __future__ import annotations
@@ -58,7 +65,15 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear, remat
+from rankpo_tpu_torch.models.base import (
+    EncoderModule,
+    TensorParallel,
+    column_input,
+    init_state,
+    linear,
+    remat,
+    row_linear,
+)
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.models.packing import packed_positions
 from rankpo_tpu_torch.models.roberta import ACTIVATIONS as GELUS
@@ -164,10 +179,10 @@ class RMSNorm(nn.Module):
 # ---------------------------------------------------------------------------
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, mp: int = 1):
         super().__init__()
         h, d = config.hidden_size, config.head_dim
-        hq, hkv = config.num_attention_heads, config.num_key_value_heads
+        hq, hkv = config.num_attention_heads // mp, config.num_key_value_heads // mp
         qkv_bias = config.attention_qkv_bias  # Qwen2; Llama attention_bias
         self.q_proj = nn.Linear(h, hq * d, bias=qkv_bias)
         self.k_proj = nn.Linear(h, hkv * d, bias=qkv_bias)
@@ -176,30 +191,33 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
-        h, f = config.hidden_size, config.intermediate_size
+        h, f = config.hidden_size, config.intermediate_size // (tp.size if tp else 1)
         self.gate_proj = nn.Linear(h, f, bias=False)
         self.up_proj = nn.Linear(h, f, bias=False)
         self.down_proj = nn.Linear(f, h, bias=False)
         self.act = ACTIVATIONS[config.hidden_act]
+        self.tp = tp
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
+        y = column_input(y, self.tp)
         gate = self.act(linear(y, self.gate_proj))
-        return linear(gate * linear(y, self.up_proj), self.down_proj)
+        return row_linear(gate * linear(y, self.up_proj), self.down_proj, self.tp)
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.config = config
+        self.tp = tp
         gemma = config.is_gemma
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, gemma)
-        self.self_attn = LlamaAttention(config)
+        self.self_attn = LlamaAttention(config, tp.size if tp else 1)
         self.post_attention_layernorm = RMSNorm(
             config.hidden_size, config.rms_norm_eps, gemma
         )
-        self.mlp = LlamaMLP(config)
+        self.mlp = LlamaMLP(config, tp)
         self.bwd_impl = "auto"  # the flash backward kernels (EncoderModule.for_training)
 
     def qkv(self, x, cos, sin):
@@ -208,10 +226,11 @@ class LlamaLayer(nn.Module):
         b, s, _ = x.shape
         d = cfg.head_dim
         attn = self.self_attn
-        y = self.input_layernorm(x)
-        q = linear(y, attn.q_proj).view(b, s, cfg.num_attention_heads, d)
-        k = linear(y, attn.k_proj).view(b, s, cfg.num_key_value_heads, d)
-        v = linear(y, attn.v_proj).view(b, s, cfg.num_key_value_heads, d)
+        y = column_input(self.input_layernorm(x), self.tp)
+        # this rank's heads (all of them without tensor parallelism)
+        q = linear(y, attn.q_proj).view(b, s, -1, d)
+        k = linear(y, attn.k_proj).view(b, s, -1, d)
+        v = linear(y, attn.v_proj).view(b, s, -1, d)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def attend(self, q, k, v, key_mask, attn_impl: str, segment_ids=None):
@@ -225,7 +244,7 @@ class LlamaLayer(nn.Module):
     def post(self, x, o):
         """The output projection, the residual and the MLP (JAX ``_layer_post``)."""
         b, s, _ = x.shape
-        x = x + linear(o.reshape(b, s, -1), self.self_attn.o_proj)
+        x = x + row_linear(o.reshape(b, s, -1), self.self_attn.o_proj, self.tp)
         return x + self.mlp(self.post_attention_layernorm(x))
 
     def forward(self, x, cos, sin, key_mask, attn_impl: str, segment_ids=None):
@@ -250,12 +269,12 @@ class LlamaEncoder(EncoderModule):
     ``segment_ids``) -> last hidden [B, S, H] in ``compute_dtype`` (by
     default the parameters' dtype)."""
 
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp: Optional[TensorParallel] = None):
         check_supported(config)
-        super().__init__(config)
+        super().__init__(config, tp)
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
         self.layers = nn.ModuleList(
-            LlamaLayer(config) for _ in range(config.num_hidden_layers)
+            LlamaLayer(config, tp) for _ in range(config.num_hidden_layers)
         )
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, config.is_gemma)
 

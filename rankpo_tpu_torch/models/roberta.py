@@ -35,6 +35,15 @@ Parameters use HuggingFace's names and ``[out, in]`` layout, so
 ``XLMRobertaModel`` / ``BertModel`` safetensors file without the pooler.
 The builds (``from_state_dict``, ``for_training``) are
 ``models/base.py``'s.
+
+Tensor parallelism (``models/base.py``): a layer of model rank i holds the
+query/key/value heads ``[i * h / mp, (i + 1) * h / mp)`` with their biases
+and the matching ``intermediate`` columns; the attention output and the
+layer output sum their partial products over the model group
+(``row_linear``) before their bias, dropout and LayerNorm, which see the
+replicated activations. The attention-probs dropout draws the mask of all
+heads from the layer's generator and keeps this rank's heads, so the
+masks are one process's.
 """
 
 from __future__ import annotations
@@ -44,7 +53,15 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from rankpo_tpu_torch.models.base import EncoderModule, init_state, linear, remat
+from rankpo_tpu_torch.models.base import (
+    EncoderModule,
+    TensorParallel,
+    column_input,
+    init_state,
+    linear,
+    remat,
+    row_linear,
+)
 from rankpo_tpu_torch.models.config import EncoderConfig
 from rankpo_tpu_torch.models.packing import packed_positions
 from rankpo_tpu_torch.ops.attention import dropout, multi_head_attention
@@ -151,27 +168,29 @@ class _Dense(nn.Module):
 
 
 class _SelfAttention(nn.Module):
-    def __init__(self, h: int):
+    def __init__(self, h: int, local: int):
         super().__init__()
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+        self.query = nn.Linear(h, local)
+        self.key = nn.Linear(h, local)
+        self.value = nn.Linear(h, local)
 
 
 class _Attention(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, mp: int = 1):
         super().__init__()
         h = config.hidden_size
-        self.self = _SelfAttention(h)  # HF's key: "attention.self.query.weight"
-        self.output = _Dense(h, h, config.layer_norm_eps)
+        self.self = _SelfAttention(h, h // mp)  # HF's key: "attention.self.query.weight"
+        self.output = _Dense(h // mp, h, config.layer_norm_eps)
 
 
 class RobertaLayer(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.config = config
-        h, f = config.hidden_size, config.intermediate_size
-        self.attention = _Attention(config)
+        self.tp = tp
+        mp = tp.size if tp else 1
+        h, f = config.hidden_size, config.intermediate_size // mp
+        self.attention = _Attention(config, mp)
         self.intermediate = _Dense(h, f)
         self.output = _Dense(f, h, config.layer_norm_eps)
         self.bwd_impl = "auto"  # the flash backward kernels (EncoderModule.for_training)
@@ -179,11 +198,13 @@ class RobertaLayer(nn.Module):
     def qkv(self, x):
         """The q/k/v projections (JAX ``_layer_qkv``)."""
         b, s, h = x.shape
-        nh = self.config.num_attention_heads
+        d = h // self.config.num_attention_heads
         sa = self.attention.self
-        return (linear(x, sa.query).view(b, s, nh, h // nh),
-                linear(x, sa.key).view(b, s, nh, h // nh),
-                linear(x, sa.value).view(b, s, nh, h // nh))
+        x = column_input(x, self.tp)
+        # this rank's heads (all of them without tensor parallelism)
+        return (linear(x, sa.query).view(b, s, -1, d),
+                linear(x, sa.key).view(b, s, -1, d),
+                linear(x, sa.value).view(b, s, -1, d))
 
     def attend(self, q, k, v, key_mask, attn_impl: str, gen, segment_ids=None):
         cfg = self.config
@@ -191,6 +212,7 @@ class RobertaLayer(nn.Module):
             q, k, v, mask=key_mask, causal=False, impl=attn_impl, skip_pad_q=True,
             dropout_rate=cfg.attention_dropout if gen is not None else 0.0,
             generator=gen, segment_ids=segment_ids, bwd_impl=self.bwd_impl,
+            head_shard=None if self.tp is None else (self.tp.index, self.tp.size),
         )
 
     def post(self, x, attn, gen):
@@ -200,10 +222,12 @@ class RobertaLayer(nn.Module):
         cfg = self.config
         b, s, h = x.shape
         out = self.attention.output
-        a = dropout(linear(attn.reshape(b, s, h), out.dense), cfg.hidden_dropout, gen)
+        a = dropout(row_linear(attn.reshape(b, s, -1), out.dense, self.tp), cfg.hidden_dropout,
+                    gen)
         x = out.LayerNorm(x + a)
-        inter = ACTIVATIONS[cfg.hidden_act](linear(x, self.intermediate.dense))
-        y = dropout(linear(inter, self.output.dense), cfg.hidden_dropout, gen)
+        inter = ACTIVATIONS[cfg.hidden_act](linear(column_input(x, self.tp),
+                                                   self.intermediate.dense))
+        y = dropout(row_linear(inter, self.output.dense, self.tp), cfg.hidden_dropout, gen)
         return self.output.LayerNorm(x + y)
 
     def _post_from_state(self, x, attn, gen_state):
@@ -238,9 +262,10 @@ class RobertaLayer(nn.Module):
 
 
 class _Layers(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
-        self.layer = nn.ModuleList(RobertaLayer(config) for _ in range(config.num_hidden_layers))
+        self.layer = nn.ModuleList(RobertaLayer(config, tp)
+                                   for _ in range(config.num_hidden_layers))
 
 
 class RobertaEncoder(EncoderModule):
@@ -248,11 +273,11 @@ class RobertaEncoder(EncoderModule):
     ``segment_ids``) -> last hidden [B, S, H] in ``compute_dtype`` (by
     default the parameters' dtype)."""
 
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp: Optional[TensorParallel] = None):
         check_supported(config)
-        super().__init__(config)
+        super().__init__(config, tp)
         self.embeddings = Embeddings(config)
-        self.encoder = _Layers(config)
+        self.encoder = _Layers(config, tp)
 
     def forward(
         self,

@@ -48,8 +48,8 @@ _BWD_ARGTYPES = (
     + [_LL] * 13  # q/k/v/do (batch, seq, head) strides, mask batch stride
     + [_I, _I, _I, _I, _P]  # causal skip_pad_q window (-1: none) packed stream
 )
-for _name in ("fused", "dkv", "dq"):
-    _SIGNATURES[f"rankpo_flash_bwd_{_name}_bf16"] = _BWD_ARGTYPES
+for _name in ("fused_bf16", "dkv_bf16", "dq_bf16", "dkv_f32"):
+    _SIGNATURES[f"rankpo_flash_bwd_{_name}"] = _BWD_ARGTYPES
 # corpus pairs start cluster queries out, K Q P cap D groups dtype, stream
 _SIGNATURES["rankpo_ivf_probe_scores"] = [_P] * 6 + [_I] * 7 + [_P]
 # codes probe lut out, K Q P cap m layout route tile blocks, stream

@@ -31,7 +31,7 @@ the Pallas kernel, have no dropout.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -108,15 +108,24 @@ def masked_logits(
     return logits
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout with the JAX package's rule (``roberta._dropout``):
     each entry kept with probability 1 - rate (drawn from ``generator``,
     which must be on x's device) and divided by 1 - rate in x's dtype.
-    The identity for rate 0 or no generator."""
+    The identity for rate 0 or no generator. ``shard`` (dim, index, count):
+    ``x`` is part ``index`` of ``count`` along ``dim`` of a larger tensor;
+    the draw is the whole tensor's and ``x`` keeps its part (the same masks
+    as one process under tensor parallelism)."""
     if rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    shape = list(x.shape)
+    if shard is not None:
+        dim, index, count = shard
+        shape[dim] *= count
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    if shard is not None:
+        keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -130,13 +139,16 @@ def attention_reference(
     generator: Optional[torch.Generator] = None,
     window: Optional[int] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    head_shard: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Plain attention, ported from ``rankpo_tpu.ops.attention._xla_attention``:
     fp32 logits and softmax, probabilities cast to v's dtype for the PV
     product, rows with no valid key (all pad, a pad row of a packed row, or
     a window past every valid key) output zeros, then attention-probs
     dropout when ``dropout_rate`` > 0 and a ``generator`` is given (JAX
-    ``attention.py:71-74``). Returns [B, Sq, Hq, D]."""
+    ``attention.py:71-74``; ``head_shard`` (index, count): these are the
+    kv heads of model rank ``index`` of ``count``, whose dropout mask is cut
+    from the draw over all heads). Returns [B, Sq, Hq, D]."""
     b, sq, hq, d = q.shape
     check_segments(segment_ids, mask, b, sq, k.shape[1])
     logits = masked_logits(q, k, mask, causal, window, segment_ids)
@@ -145,7 +157,8 @@ def attention_reference(
     # logits is a meaningless uniform average); the kernel does the same
     any_valid = logits.amax(dim=-1, keepdim=True) > NEG_INF * 0.5
     probs = torch.where(any_valid, probs, 0.0).to(v.dtype)
-    probs = dropout(probs, dropout_rate, generator)
+    probs = dropout(probs, dropout_rate, generator,
+                    None if head_shard is None else (1, *head_shard))
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, hq, d)
 
@@ -164,6 +177,7 @@ def multi_head_attention(
     bwd_impl: str = "auto",
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    head_shard: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA, key mask, optional causality.
 
@@ -179,13 +193,15 @@ def multi_head_attention(
     attention-probs dropout on any device and any ``impl``, as the JAX
     dispatcher does. ``segment_ids`` (packing, see the module
     docstring) runs on every path; the kernels skip the tiles outside each
-    query tile's segments."""
+    query tile's segments. ``head_shard``: see :func:`attention_reference`
+    (read with dropout only)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     check_segments(segment_ids, mask, q.shape[0], q.shape[1], k.shape[1])
     if dropout_rate > 0.0 and generator is not None:
         return attention_reference(q, k, v, mask, causal, dropout_rate, generator,
-                                   window=window, segment_ids=segment_ids)
+                                   window=window, segment_ids=segment_ids,
+                                   head_shard=head_shard)
     if impl == "plain" or (impl == "auto" and q.device.type == "cpu"):
         return attention_reference(q, k, v, mask, causal, window=window,
                                    segment_ids=segment_ids)

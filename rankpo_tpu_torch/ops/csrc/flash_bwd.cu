@@ -3,6 +3,8 @@
 // Replaces the Pallas TPU kernels of rankpo_tpu/ops/flash_attention.py:
 //   _bwd_fused_kernel (flash_bwd_fused)  -> flash_bwd_kv_wgmma<D, true>
 //   _dkv_kernel       (flash_dkv)        -> flash_bwd_kv_wgmma<D, false>
+//                                           (bf16 dK/dV; with kF32Out fp32,
+//                                           JAX flash_dkv's output dtype)
 //   _dq_kernel        (flash_dq)         -> flash_bwd_dq_wgmma<D>
 //
 // Contract (what the Pallas kernels compute), with the forward's contract
@@ -15,7 +17,10 @@
 //   The fused kernel adds dQ in fp32 into a zeroed [B, Hq, Sq, D] buffer in
 //   key-tile order (below); the dq kernel writes dQ as bf16 [B, Sq, Hq, D].
 //   The kv kernel writes dK/dV as bf16 [B, Sk, Hkv, D], each GQA group
-//   summed in fp32 registers.
+//   summed in fp32 registers; its kF32Out build (unwindowed, unpacked: the
+//   ring attention's steps, parallel/ring_attention.py) writes the fp32
+//   registers as they are, so a caller that sums partials over ring steps
+//   rounds once, as JAX's fp32 flash_dkv lets it.
 //   window (> 0, with causal; -1 = none): the forward's sliding window, row r
 //   sees keys with k_pos > q_pos - window.
 //   Loop bounds are the forward's: keys end one past the last valid key;
@@ -174,6 +179,8 @@ struct BwdArgs {
   __nv_bfloat16* dq;      // dq kernel: bf16 [B, Sq, Hq, D]
   __nv_bfloat16* dk;      // kv kernel: bf16 [B, Sk, Hkv, D]
   __nv_bfloat16* dv;
+  float* dk_f32;          // kv kernel, kF32Out: fp32 [B, Sk, Hkv, D]
+  float* dv_f32;
   int* sync;              // fused: zeroed int32 [1 + B*Hq * q tiles]
   int Sq, Sk, Hq, Hkv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -256,7 +263,8 @@ __device__ __forceinline__ void issue_tt(float (&acc)[D / 2], const unsigned cha
 // header for the roles of its warps. kWindow: built with the window's bounds
 // and tests (window > 0, causal), and kPacked with the segments' (the mask
 // row holds segment ids), so the kernel without them is unchanged.
-template <int D, bool kFusedDq, bool kWindow, bool kPacked>
+// kF32Out (K3b only): dK/dV written in fp32.
+template <int D, bool kFusedDq, bool kWindow, bool kPacked, bool kF32Out = false>
 __global__ void __launch_bounds__(kKvThreads<kFusedDq>, D == 64 ? 2 : 1)
 flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
@@ -584,6 +592,27 @@ flash_bwd_kv_wgmma(const __grid_constant__ CUtensorMap q_map,
 
   // dK/dV of the whole group, bf16 [B, Sk, Hkv, D], this block's columns
   // (zeros for a key tile that ran no queries)
+  if constexpr (kF32Out) {  // fp32: two floats (8 bytes, aligned) per store
+    if (key_a < a.Sk) {
+      const long long o = (((long long)b * a.Sk + key_a) * a.Hkv + hk) * D + col0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kCols / 8; ++n) {
+        *reinterpret_cast<float2*>(a.dk_f32 + o + n * 8) = make_float2(dk[4 * n], dk[4 * n + 1]);
+        *reinterpret_cast<float2*>(a.dv_f32 + o + n * 8) = make_float2(dv[4 * n], dv[4 * n + 1]);
+      }
+    }
+    if (key_b < a.Sk) {
+      const long long o = (((long long)b * a.Sk + key_b) * a.Hkv + hk) * D + col0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kCols / 8; ++n) {
+        *reinterpret_cast<float2*>(a.dk_f32 + o + n * 8) =
+            make_float2(dk[4 * n + 2], dk[4 * n + 3]);
+        *reinterpret_cast<float2*>(a.dv_f32 + o + n * 8) =
+            make_float2(dv[4 * n + 2], dv[4 * n + 3]);
+      }
+    }
+    return;
+  }
   if (key_a < a.Sk) {
     const long long o = (((long long)b * a.Sk + key_a) * a.Hkv + hk) * D + col0 + 2 * t;
 #pragma unroll
@@ -898,9 +927,9 @@ int launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-enum Which { kFused, kDkv, kDq };
+enum Which { kFused, kDkv, kDq, kDkvF32 };
 
-template <int D, bool kFused, bool kWindow, bool kPacked>
+template <int D, bool kFused, bool kWindow, bool kPacked, bool kF32Out = false>
 int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   using T = KvTiles<D, kFused>;
   CUtensorMap m[4];
@@ -909,7 +938,7 @@ int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr int smem = 1024 + (2 + 2 * T::kStages) * T::kTileBytes +
                        (kFused ? 2 * kSwizzleTileBytes + 2 * T::kDqBytes : 0) +
                        (kPacked ? T::kStages * kTile * 4 : 0);
-  auto kernel = flash_bwd_kv_wgmma<D, kFused, kWindow, kPacked>;
+  auto kernel = flash_bwd_kv_wgmma<D, kFused, kWindow, kPacked, kF32Out>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -925,6 +954,9 @@ int dispatch_kernel(Which which, const BwdArgs& a, int B, cudaStream_t st) {
       return launch_kv<D, true, kWindow, kPacked>(a, B, st);
     case kDkv:
       return launch_kv<D, false, kWindow, kPacked>(a, B, st);
+    case kDkvF32:  // built for the ring's steps only: no window, no segments
+      if constexpr (!kWindow && !kPacked) return launch_kv<D, false, false, false, true>(a, B, st);
+      return (int)cudaErrorInvalidValue;
     default:
       return launch_dq<D, kWindow, kPacked>(a, B, st);
   }
@@ -960,8 +992,11 @@ int run(Which which, const void* q, const void* k, const void* v,
   a.delta = delta;
   a.dq_acc = which == kFused ? reinterpret_cast<float*>(dq) : nullptr;
   a.dq = which == kDq ? reinterpret_cast<__nv_bfloat16*>(dq) : nullptr;
-  a.dk = reinterpret_cast<__nv_bfloat16*>(dk);
-  a.dv = reinterpret_cast<__nv_bfloat16*>(dv);
+  const bool f32 = which == kDkvF32;
+  a.dk = f32 ? nullptr : reinterpret_cast<__nv_bfloat16*>(dk);
+  a.dv = f32 ? nullptr : reinterpret_cast<__nv_bfloat16*>(dv);
+  a.dk_f32 = f32 ? reinterpret_cast<float*>(dk) : nullptr;
+  a.dv_f32 = f32 ? reinterpret_cast<float*>(dv) : nullptr;
   a.sync = sync;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -992,7 +1027,8 @@ int run(Which which, const void* q, const void* k, const void* v,
 // of 16 bytes), zeroes the fused kernel's fp32 dq buffer and its int32
 // `sync` buffer (1 + B * Hq * ceil(Sq / 64) * split entries, split 2 at
 // D 256 and 1 otherwise: KvTiles::kSplit), and allocates dk/dv as bf16
-// [B, Sk, Hkv, D]. packed: mask holds segment ids (Sq == Sk).
+// [B, Sk, Hkv, D] (fp32 for rankpo_flash_bwd_dkv_f32). packed: mask holds
+// segment ids (Sq == Sk).
 #define RANKPO_BWD_PARAMS                                                     \
   const void *q, const void *k, const void *v, const int *mask,              \
       const void *dout, const float *lse, const float *delta, void *dq,      \
@@ -1015,6 +1051,13 @@ extern "C" int rankpo_flash_bwd_fused_bf16(RANKPO_BWD_PARAMS) {
 // K3b: dk, dv; dq and sync are ignored
 extern "C" int rankpo_flash_bwd_dkv_bf16(RANKPO_BWD_PARAMS) {
   return run(kDkv, RANKPO_BWD_ARGS);
+}
+
+// K3b with fp32 dk, dv (no window, not packed: anything else returns
+// cudaErrorInvalidValue); dq and sync are ignored
+extern "C" int rankpo_flash_bwd_dkv_f32(RANKPO_BWD_PARAMS) {
+  if (window > 0 || packed) return (int)cudaErrorInvalidValue;
+  return run(kDkvF32, RANKPO_BWD_ARGS);
 }
 
 // K3a: dq (bf16, [B, Sq, Hq, D]); dk, dv and sync are ignored

@@ -9,7 +9,12 @@ with CUDA C++ kernels written for ``sm_90a``, built with nvcc at first use
   ``ops/csrc/flash_fwd.cu``;
 - ``_bwd_fused_kernel`` (K2, ``flash_bwd_fused``), ``_dq_kernel`` (K3a,
   ``flash_dq``) and ``_dkv_kernel`` (K3b, ``flash_dkv``) ->
-  :func:`flash_attention_bwd`, ``ops/csrc/flash_bwd.cu``.
+  :func:`flash_attention_bwd`, ``ops/csrc/flash_bwd.cu``. :func:`flash_dq`
+  and :func:`flash_dkv` launch K3a and K3b alone on given lse and delta, as
+  JAX's two functions do for its ring attention
+  (``parallel/ring_attention.py``); :func:`flash_dkv` runs K3b's fp32-output
+  build (counted in ``f32_launches``), so the ring sums its partials in
+  fp32.
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` around them, in
 the role of JAX's ``_flash`` custom_vjp: its forward saves (q, k, v, mask,
@@ -68,11 +73,13 @@ from rankpo_tpu_torch.ops.attention import (BWD_IMPLS, NEG_INF, allowed_pairs,
 # the main path went through them); incremented only after a launch
 # succeeded. ``window_launches`` counts the launches among them that ran with
 # a sliding window, ``d256_launches`` those at head_dim 256,
-# ``packed_launches`` those with ``segment_ids``.
+# ``packed_launches`` those with ``segment_ids``, ``f32_launches`` those of
+# K3b's fp32-output build (``flash_dkv``).
 launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_dq": 0, "flash_dkv": 0}
 window_launches = dict(launches)
 d256_launches = dict(launches)
 packed_launches = dict(launches)
+f32_launches = dict(launches)
 _count_lock = threading.Lock()
 
 HEAD_DIMS = (64, 128, 256)
@@ -85,11 +92,15 @@ def reset_launches() -> None:
             window_launches[name] = 0
             d256_launches[name] = 0
             packed_launches[name] = 0
+            f32_launches[name] = 0
 
 
-def _count(name: str, window: Optional[int], head_dim: int, packed: bool) -> None:
+def _count(name: str, window: Optional[int], head_dim: int, packed: bool,
+           f32: bool = False) -> None:
     with _count_lock:
         launches[name] += 1
+        if f32:
+            f32_launches[name] += 1
         if window is not None:
             window_launches[name] += 1
         if head_dim == 256:
@@ -307,6 +318,92 @@ def resolve_bwd_impl(bwd_impl: str) -> str:
     return bwd_impl
 
 
+def _check_bwd(q, k, v, mask, do, lse, delta, causal, window, segment_ids) -> torch.Tensor:
+    """The backward kernels' argument checks; returns the int32 mask buffer."""
+    _check_window(window, causal)
+    check_segments(segment_ids, mask, q.shape[0], q.shape[1], k.shape[1])
+    _check_qkv(q, k, v)
+    b, sq, hq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash kernel: do {tuple(do.shape)} {do.dtype} must match q")
+    _check_rows("do", do)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, hq, sq) or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"flash kernel: {name} must be contiguous fp32 {(b, hq, sq)}")
+        if x.device != q.device:
+            raise ValueError(f"flash kernel: {name} must be on {q.device}")
+    return _int_mask(mask, segment_ids, b, k.shape[1], q.device)
+
+
+def _launch_bwd(name, fn, q, k, v, mask, do, lse, delta, dq, dk, dv, sync, causal: bool,
+                skip_pad_q: bool, window: Optional[int], packed: bool,
+                f32: bool = False) -> None:
+    """One backward kernel's launch on the current stream of q's device;
+    counted under ``name`` (and ``f32``: in ``f32_launches``) once it
+    succeeded."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if dq is None else dq.data_ptr(),
+            None if dk is None else dk.data_ptr(),
+            None if dv is None else dv.data_ptr(),
+            None if sync is None else sync.data_ptr(),
+            b, sq, sk, hq, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], mask.stride(0),
+            int(causal), int(skip_pad_q), _check_window(window, causal), int(packed), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    _count(name, window, d, packed, f32)
+
+
+def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+             do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+             causal: bool = False) -> torch.Tensor:
+    """dq [B, Sq, Hq, D] in q's dtype from given lse and delta [B, Hq, Sq]
+    fp32 (JAX ``flash_dq``, ``flash_attention.py:550``): K3a alone on a
+    CUDA tensor (bf16 in), counted as ``flash_dq``; on a CPU tensor the
+    plain version (:func:`flash_attention_bwd_reference`'s dq, cast)."""
+    if q.device.type == "cpu":
+        dq, _, _ = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal)
+        return dq.to(q.dtype)
+    mask = _check_bwd(q, k, v, mask, do, lse, delta, causal, None, None)
+    from rankpo_tpu_torch.ops._build import load_library
+
+    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    _launch_bwd("flash_dq", load_library().rankpo_flash_bwd_dq_bf16, q, k, v, mask, do, lse,
+                delta, dq, None, None, None, causal, False, None, False)
+    return dq
+
+
+def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+              causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [B, Sk, Hkv, D] in fp32, each GQA group summed, from given
+    lse and delta (JAX ``flash_dkv``, ``flash_attention.py:579``): K3b's
+    fp32-output build on a CUDA tensor (bf16 in; no window, no segments, as
+    the ring takes it), counted as ``flash_dkv`` and in ``f32_launches``;
+    on a CPU tensor the
+    plain version (:func:`flash_attention_bwd_reference`, whose dk and dv
+    are fp32)."""
+    if q.device.type == "cpu":
+        _, dk, dv = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal)
+        return dk, dv
+    mask = _check_bwd(q, k, v, mask, do, lse, delta, causal, None, None)
+    from rankpo_tpu_torch.ops._build import load_library
+
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    _launch_bwd("flash_dkv", load_library().rankpo_flash_bwd_dkv_f32, q, k, v, mask, do,
+                lse, delta, None, dk, dv, None, causal, False, None, False, f32=True)
+    return dk, dv
+
+
 def flash_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -343,20 +440,9 @@ def flash_attention_bwd(
     group, and write them in bf16. ``window`` and ``segment_ids`` are the
     forward's."""
     bwd_impl = resolve_bwd_impl(bwd_impl)
-    win = _check_window(window, causal)
-    check_segments(segment_ids, mask, q.shape[0], q.shape[1], k.shape[1])
-    _check_qkv(q, k, v)
+    mask = _check_bwd(q, k, v, mask, do, lse, delta, causal, window, segment_ids)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"flash kernel: do {tuple(do.shape)} {do.dtype} must match q")
-    _check_rows("do", do)
-    for name, x in (("lse", lse), ("delta", delta)):
-        if x.shape != (b, hq, sq) or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"flash kernel: {name} must be contiguous fp32 {(b, hq, sq)}")
-        if x.device != q.device:
-            raise ValueError(f"flash kernel: {name} must be on {q.device}")
-    mask = _int_mask(mask, segment_ids, b, sk, q.device)
     packed = segment_ids is not None
 
     from rankpo_tpu_torch.ops._build import load_library
@@ -379,22 +465,9 @@ def flash_attention_bwd(
         dq = torch.empty((b, sq, hq, d), dtype=torch.bfloat16, device=dev)
         steps = (("flash_dq", lib.rankpo_flash_bwd_dq_bf16),
                  ("flash_dkv", lib.rankpo_flash_bwd_dkv_bf16))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for name, fn in steps:
-            rc = fn(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                None if sync is None else sync.data_ptr(),
-                b, sq, sk, hq, hkv, d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *do.stride()[:3], mask.stride(0),
-                int(causal), int(skip_pad_q), win, int(packed), stream,
-            )
-            if rc != 0:
-                raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-            _count(name, window, d, packed)
+    for name, fn in steps:
+        _launch_bwd(name, fn, q, k, v, mask, do, lse, delta, dq, dk, dv, sync, causal,
+                    skip_pad_q, window, packed)
     if fused:
         dq = dq.permute(0, 2, 1, 3).to(q.dtype)
     return dq, dk, dv

@@ -1,7 +1,13 @@
 """parallel layer of the PyTorch port (see the matching rankpo_tpu.parallel):
-data-parallel gradient exchange and ZeRO optimizer sharding. Ring attention
-and tensor-parallel rules are not ported (ROADMAP.md Queue 1 item 8b)."""
+data-parallel gradient exchange and ZeRO optimizer sharding, the
+tensor-parallel rules (``sharding``), sharded parameters (``fsdp``) and
+ring attention (``ring_attention``)."""
 
+from rankpo_tpu_torch.parallel.ring_attention import (
+    context_parallel_attention,
+    ring_attention_local,
+    ring_flash_attention_local,
+)
 from rankpo_tpu_torch.parallel.sharding import (
     ShardedOptimizer,
     all_reduce_mean_,
@@ -13,5 +19,8 @@ __all__ = [
     "ShardedOptimizer",
     "all_reduce_mean_",
     "broadcast_from_owners_",
+    "context_parallel_attention",
     "partition_params",
+    "ring_attention_local",
+    "ring_flash_attention_local",
 ]

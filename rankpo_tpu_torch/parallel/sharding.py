@@ -1,5 +1,29 @@
-"""Data-parallel gradient exchange and ZeRO-1/ZeRO-2 optimizer sharding
-(port of the data-axis half of ``rankpo_tpu.parallel.sharding``).
+"""Tensor-parallel rules, data-parallel gradient exchange and ZeRO-1/ZeRO-2
+optimizer sharding (port of ``rankpo_tpu.parallel.sharding``).
+
+Tensor parallelism (the model axis, ``core/mesh.py`` ``make_groups``), the
+Megatron layout of JAX's rules (``sharding.py:27-55``): the column-parallel
+projections (Llama's ``q/k/v_proj``, ``gate_proj``, ``up_proj``;
+Roberta's ``query/key/value`` and ``intermediate``, biases with their
+weights, Qwen2's q/k/v biases too) are split on their output features,
+the row-parallel ones (``o_proj``, ``down_proj``; Roberta's attention
+``output.dense`` and layer ``output.dense``) on their input features, and
+embeddings, norms and the row-parallel biases are replicated. A torch
+``Linear`` weight is ``[out, in]`` where JAX's kernel is ``[in, out]``, so
+column-parallel is dim 0 here and row-parallel dim 1 (:func:`tp_dim`).
+:func:`shard_state` cuts a full HF-named state dict to a rank's shard,
+:func:`gather_state` puts the shards of a model group back together. Where
+JAX quietly replicates a weight whose dim the axis does not divide
+(``sharding.py:70-78``), the port raises at build time
+(:func:`check_divisible`). In the bodies :func:`copy_to_model` (identity
+forward, ``all_reduce`` backward) feeds the column-parallel projections and
+:func:`row_parallel_linear` (the rank's partial product, ``all_reduce``
+forward, identity backward into the product's own backward) sums the
+row-parallel ones. Both sum in fp32 and round once; the row-parallel
+partial products are fp32 themselves (``torch.mm(..., out_dtype=
+torch.float32)`` on bf16 operands) with the bias added before the rounding,
+so the forward rounds where one process's bf16 product rounds and the two
+differ by fp32 summation order only.
 
 The JAX package splits every optimizer leaf over the data axis on its
 largest divisible dimension (``zero1_partition_specs``). The port gives
@@ -36,7 +60,210 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from rankpo_tpu_torch.core import mesh
+
 BUCKET_BYTES = 256 * 2**20  # gradients exchanged per collective
+
+# HF module names (suffixes) split over the model axis
+COLUMN_PARALLEL = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                   "mlp.gate_proj", "mlp.up_proj", "attention.self.query",
+                   "attention.self.key", "attention.self.value", "intermediate.dense")
+ROW_PARALLEL = ("self_attn.o_proj", "mlp.down_proj", "output.dense")
+
+
+def tp_dim(name: str) -> Optional[int]:
+    """The dim of tensor ``name`` (HF-named) that the model axis splits:
+    0 for a column-parallel weight or bias, 1 for a row-parallel weight,
+    None for a replicated tensor."""
+    module, _, kind = name.rpartition(".")
+    if module.endswith(COLUMN_PARALLEL):
+        return 0
+    if module.endswith(ROW_PARALLEL) and kind == "weight":
+        return 1
+    return None
+
+
+def check_divisible(config, mp: int) -> None:
+    """Raise unless ``mp`` divides the query heads, the kv heads and the MLP
+    width (each rank's attention runs whole heads)."""
+    if mp <= 1:
+        return
+    sizes = {"num_attention_heads": config.num_attention_heads,
+             "num_key_value_heads": config.num_key_value_heads,
+             "intermediate_size": config.intermediate_size}
+    bad = {k: v for k, v in sizes.items() if v % mp}
+    if bad:
+        raise ValueError(f"--model_parallel {mp} does not divide {bad}: tensor parallelism "
+                         "splits whole heads and MLP columns (the JAX package would "
+                         "replicate such weights instead)")
+
+
+def shard_state(state: Dict[str, torch.Tensor], mp: int, index: int) -> Dict[str, torch.Tensor]:
+    """Model rank ``index``'s shard of a full HF-named state dict (views of
+    the full tensors: the model builds copy them)."""
+    if mp <= 1:
+        return state
+    out = {}
+    for name, t in state.items():
+        dim = tp_dim(name)
+        out[name] = t if dim is None else t.chunk(mp, dim)[index]
+    return out
+
+
+@torch.no_grad()
+def gather_state(state: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The full tensors from every model rank's shard (a collective of the
+    model group; every rank gets them): the split tensors concatenated on
+    their :func:`tp_dim`, the replicated ones as they are."""
+    mp = 1 if group is None else dist.get_world_size(group)
+    if mp <= 1:
+        return dict(state)
+    out = {}
+    for name, t in state.items():
+        dim = tp_dim(name)
+        if dim is None:
+            out[name] = t
+            continue
+        parts = [torch.empty_like(t) for _ in range(mp)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        out[name] = torch.cat(parts, dim)
+    return out
+
+
+def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's state dict in the one-process layout: its own without
+    tensor parallelism or fsdp, else the model group's shards gathered (a
+    collective of the model group), or every tensor from its owner under
+    fsdp (a collective of the data group, ``parallel/fsdp.py``)."""
+    if getattr(model, "fsdp", None) is not None:
+        from rankpo_tpu_torch.parallel.fsdp import full_state_dict as fsdp_state
+
+        return fsdp_state(model)
+    tp = getattr(model, "tp", None)
+    state = model.state_dict()
+    return state if tp is None else gather_state(state, tp.group)
+
+
+def gather_tp_optimizer_state(state: dict, dims: Sequence[Optional[int]],
+                              shapes: Sequence[torch.Size], group) -> Optional[dict]:
+    """One optimizer state dict in the one-process layout from each model
+    rank's (global parameter indices, on the host): every tensor of
+    parameter i shaped like the rank's shard ``shapes[i]`` is concatenated
+    over the ranks on ``dims[i]``; the rest (counts, replicated tensors'
+    moments) is the first rank's. Returns it on the group's first rank,
+    None elsewhere. A collective of the model group."""
+    first = dist.get_rank(group) == 0
+    parts = [None] * dist.get_world_size(group) if first else None
+    dist.gather_object(state, parts, dst=mesh.group_rank(group, 0), group=group)
+    if not first:
+        return None
+    out = {"state": {}, "param_groups": parts[0]["param_groups"]}
+    for i, entry in parts[0]["state"].items():
+        dim = dims[i]
+        out["state"][i] = {
+            key: (torch.cat([p["state"][i][key] for p in parts], dim)
+                  if dim is not None and isinstance(t, torch.Tensor) and t.shape == shapes[i]
+                  else t)
+            for key, t in entry.items()}
+    return out
+
+
+def shard_tp_optimizer_state(full: dict, dims: Sequence[Optional[int]],
+                             shapes: Sequence[torch.Size], mp: int, index: int) -> dict:
+    """Model rank ``index``'s part of a one-process optimizer state dict:
+    every tensor of parameter i shaped like the whole parameter (the
+    shard's ``shapes[i]`` times ``mp`` on ``dims[i]``) cut to the rank's
+    chunk (:func:`gather_tp_optimizer_state` undone)."""
+    out = {"state": {}, "param_groups": full["param_groups"]}
+    for i, entry in full["state"].items():
+        dim = dims[i]
+        whole = None
+        if dim is not None:
+            whole = list(shapes[i])
+            whole[dim] *= mp
+        out["state"][i] = {
+            key: (t.chunk(mp, dim)[index].clone()
+                  if whole is not None and isinstance(t, torch.Tensor)
+                  and list(t.shape) == whole else t)
+            for key, t in entry.items()}
+    return out
+
+
+def _sum_fp32(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the group in fp32, rounded once to x's dtype."""
+    y = x.to(torch.float32, copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_fp32(g, ctx.group), None
+
+
+class _RowParallelLinear(torch.autograd.Function):
+    """x [..., in / mp] times this rank's w [out, in / mp]: the fp32 partial
+    products summed over the model group, the bias added in fp32, rounded
+    once to x's dtype; the backward is one process's (bf16 products)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, group):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = bias is not None
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.dtype == torch.float32:
+            # a copy: selective checkpointing may keep the product itself
+            y = (x2 @ w.t()).clone()
+        elif x.is_cuda:  # fp32 accumulators kept, not rounded to bf16
+            y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:  # the same numbers on the host: bf16 products are exact in fp32
+            y = x2.float() @ w.float().t()
+        dist.all_reduce(y, group=group)
+        if bias is not None:
+            y += bias.float()
+        return y.to(x.dtype).view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = (g2 @ w).view_as(x)
+        dw = g2.t() @ x.reshape(-1, x.shape[-1])
+        db = g2.sum(0) if ctx.has_bias else None
+        return dx, dw, db, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of the column-parallel projections: ``x`` itself; its
+    gradient is the sum of the model ranks' gradients."""
+    return _CopyToModel.apply(x, group)
+
+
+def row_parallel_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                        group) -> torch.Tensor:
+    """A row-parallel projection's output: this rank's partial product
+    summed over the model group (module docstring); ``weight`` and ``bias``
+    in x's dtype."""
+    return _RowParallelLinear.apply(x, weight, bias, group)
+
+
+def tp_global_norm(grads: Sequence[torch.Tensor], split: Sequence[bool], group) -> torch.Tensor:
+    """The gradient norm of the whole model from one model rank's shards
+    (``optax.global_norm`` of JAX's global arrays): the squares of the split
+    tensors summed over the model group, the replicated ones counted once.
+    A collective of the model group."""
+    norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
+    mask = torch.tensor(list(split), device=norms.device)
+    sq = norms.square()
+    split_sq = torch.where(mask, sq, 0.0).sum()
+    dist.all_reduce(split_sq, group=group)
+    return torch.sqrt(split_sq + torch.where(mask, 0.0, sq).sum())
 
 
 def partition_params(tensors: Sequence[torch.Tensor], world: int) -> List[int]:
@@ -95,22 +322,25 @@ def _unflat(flat: torch.Tensor, tensors: Sequence[torch.Tensor], run: List[int])
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Every tensor replaced by its mean over the ranks (a sum, then a
-    division by the world size), in buckets of at most BUCKET_BYTES."""
-    world = dist.get_world_size()
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Every tensor replaced by its mean over the ranks of ``group`` (by
+    default every rank: a sum, then a division by the group's size), in
+    buckets of at most BUCKET_BYTES."""
+    world = dist.get_world_size(group)
     for run in _buckets(tensors, range(len(tensors))):
         flat = _flat(tensors, run)
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         if world > 1:
             flat.div_(world)
         _unflat(flat, tensors, run)
 
 
 @torch.no_grad()
-def broadcast_from_owners_(tensors: Sequence[torch.Tensor], owners: Sequence[int]) -> None:
-    """Every rank's tensors set to their owners' values."""
-    world, rank = dist.get_world_size(), dist.get_rank()
+def broadcast_from_owners_(tensors: Sequence[torch.Tensor], owners: Sequence[int],
+                           group=None) -> None:
+    """Every rank's tensors set to their owners' values; ``owners`` are
+    ranks of ``group`` (by default every rank)."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
     if world == 1:
         return
     for owner in range(world):
@@ -122,7 +352,7 @@ def broadcast_from_owners_(tensors: Sequence[torch.Tensor], owners: Sequence[int
                 t = tensors[run[0]]
                 flat = torch.empty(sum(tensors[i].numel() for i in run), dtype=t.dtype,
                                    device=t.device)
-            dist.broadcast(flat, src=owner)
+            dist.broadcast(flat, src=mesh.group_rank(group, owner), group=group)
             if rank != owner:
                 _unflat(flat, tensors, run)
 
@@ -137,10 +367,12 @@ class ShardedOptimizer:
     any other."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], owners: Sequence[int],
-                 rank: int, build: Callable[[List[torch.nn.Parameter]], torch.optim.Optimizer]):
+                 rank: int, build: Callable[[List[torch.nn.Parameter]], torch.optim.Optimizer],
+                 group=None):
         self.params = list(params)
         self.owners = list(owners)
-        self.rank = rank
+        self.rank = rank  # this rank's index in ``group`` (by default every rank)
+        self.group = group
         self.local = [i for i, o in enumerate(self.owners) if o == rank]
         self.optimizer = build([self.params[i] for i in self.local]) if self.local else None
 
@@ -166,14 +398,17 @@ class ShardedOptimizer:
                                  for g in sd["param_groups"]]}
 
     def gather_state_dict(self) -> Optional[dict]:
-        """Every rank's state dict, copied to the host, merged on rank 0
-        into the state dict of one optimizer over all tensors (one parameter
-        group, indices 0..n-1); None on the other ranks. A collective."""
+        """Every rank's state dict, copied to the host, merged on the
+        group's first rank into the state dict of one optimizer over all
+        tensors (one parameter group, indices 0..n-1); None on the other
+        ranks. A collective of the group."""
         from rankpo_tpu_torch.train.checkpoint import host_copy
 
         mine = host_copy(self.state_dict())
-        parts = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
-        dist.gather_object(mine, parts, dst=0)
+        group = self.group
+        first = dist.get_rank(group) == 0
+        parts = [None] * dist.get_world_size(group) if first else None
+        dist.gather_object(mine, parts, dst=mesh.group_rank(group, 0), group=group)
         if parts is None:
             return None
         state: Dict[int, dict] = {}

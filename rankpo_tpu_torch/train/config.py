@@ -2,12 +2,12 @@
 
 The fields are the JAX package's, so the CLIs take the same flags, plus
 ``device``. The port trains data-parallel, one process per card:
-``zero1`` shards the optimizer state over the processes, and ``zero2``
+``zero1`` shards the optimizer state over the data group, and ``zero2``
 takes ``zero1``'s path (``parallel/sharding.py``; both mean nothing in one
-process).
-``model_parallel`` and ``fsdp`` are accepted at their defaults and raise,
-naming ROADMAP.md, when set to anything else
-(:meth:`TrainConfig.check_supported`).
+process); ``model_parallel`` splits the model over that many ranks
+(tensor parallelism, ``core/mesh.py`` ``make_groups``); ``fsdp`` stores
+each parameter on one rank of the data group (``parallel/fsdp.py``). Both
+together raise, naming ROADMAP.md (:meth:`TrainConfig.check_supported`).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Optional
 
 from rankpo_tpu_torch.core.mesh import MeshConfig
 
-_ROADMAP = "ROADMAP.md Queue 1 item 8b, sharded models"
+_ROADMAP = "ROADMAP.md Queue 1 item 8d"
 OPTIMIZERS = ("adamw", "adamw8bit", "adafactor")
 STRATEGIES = ("no", "steps", "epoch")
 
@@ -61,7 +61,7 @@ class TrainConfig:
     # full | dots | attn (models/base.py CHECKPOINT_POLICIES)
     gradient_checkpointing_policy: str = "full"
 
-    # parallelism (data parallel; model_parallel and fsdp are not ported)
+    # parallelism (data, tensor and sharded-parameter parallel)
     model_parallel: int = 1
     zero1: bool = True
     zero2: bool = False
@@ -99,13 +99,13 @@ class TrainConfig:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
     def check_supported(self) -> None:
-        """Raise for fields set to features the port does not have (tensor
-        parallelism, sharded parameters) and for unknown option values."""
+        """Raise for combinations the port does not have (fsdp with a model
+        axis) and for unknown option values."""
         MeshConfig(model_parallel=self.model_parallel).check_supported()
-        if self.fsdp:
+        if self.fsdp and self.model_parallel > 1:
             raise NotImplementedError(
-                f"--fsdp {self.fsdp}: sharded parameters are not ported to "
-                f"rankpo_tpu_torch yet ({_ROADMAP}); leave it at False")
+                f"--fsdp with --model_parallel {self.model_parallel} is not ported to "
+                f"rankpo_tpu_torch ({_ROADMAP}); use one of them")
         if self.optim not in OPTIMIZERS:
             raise ValueError(f"unknown optim {self.optim!r}; one of {list(OPTIMIZERS)}")
         for name in ("logging_strategy", "save_strategy", "eval_strategy"):

@@ -18,8 +18,8 @@ import warnings
 from typing import Callable, Optional
 
 import torch
-import torch.distributed as dist
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.losses.contrastive import (
     info_nce_block_loss,
     info_nce_loss,
@@ -124,7 +124,7 @@ def contrastive_terms(q_reps, p_reps, *, temperature: float, use_inbatch_neg: bo
         if not use_inbatch_neg:
             targets = torch.zeros(b, dtype=torch.long, device=device)
         else:
-            rank = 0 if axis_name is None else dist.get_rank()
+            rank = 0 if axis_name is None else mesh.data_index()
             targets = (torch.arange(b, device=device) + rank * b) * group_size
     hits = (scores.argmax(dim=-1) == targets).float()
     if row_valid is None:

@@ -51,20 +51,45 @@ loss and the norm), so ``step_time`` is the step's wall time.
 
 Data parallel (a ``torch.distributed`` group of W processes, one card each,
 ``core/mesh.py``): the global micro-batch is ``per_device_train_batch_size
-* W``, and the loader hands each rank its rows (``data/loader.py``). After
-the accumulation group one bucketed exchange averages the gradients over
-the ranks (``parallel/sharding.py``), before the norm: an ``all_reduce``.
-With ``zero1`` (or ``zero2``, which takes ``zero1``'s path) each rank's
-optimizer holds the tensors it owns, and the owners broadcast the updated
-values. The logged loss and metrics are the means over
-the ranks, the same on every rank; ``samples_per_sec``, ``tokens_per_sec``
-and ``mfu`` count the whole group. ``evaluate`` splits each global batch
-over the ranks and sums row-weighted sums over them. A SIGTERM on any rank
-stops every rank after the same step (the flag rides the step's
-``all_reduce``). Rank 0 writes the files; a checkpoint's optimizer state is
-gathered to it first (every rank takes part), so it is the state one
-process would have written and resumes at any world size. The collectives
-run on the main thread only.
+* W``, as JAX's counts every device of its mesh (``trainer.py:485``), and
+the loader hands each data index its rows (``data/loader.py``): W / dp
+times the per-device batch under ``model_parallel``. After the
+accumulation group one bucketed exchange averages the gradients over the
+data group (``parallel/sharding.py``), before the norm: an
+``all_reduce``. With ``zero1`` (or
+``zero2``, which takes ``zero1``'s path) each rank's optimizer holds the
+tensors it owns among its model shard's, and the owners broadcast the
+updated values over the data group. The logged loss and metrics are the
+means over the ranks, the same on every rank; ``samples_per_sec``,
+``tokens_per_sec`` and ``mfu`` count the whole group. ``evaluate`` splits
+each global batch over the data indices and sums row-weighted sums over
+them. A SIGTERM on any rank stops every rank after the same step (the flag
+rides the step's ``all_reduce`` over every rank). Rank 0 writes the files;
+a checkpoint's optimizer state is gathered to it first (every rank takes
+part), so it is the state one process would have written and resumes at
+any world size and model-parallel size. The collectives run on the main
+thread only.
+
+Tensor parallel (a model whose ``tp`` is set, ``models/base.py``): the
+parameters are the rank's shards; the gradient norm sums the squares of
+the split tensors over the model group and counts the replicated ones once
+(``sharding.tp_global_norm``, JAX's norm of its global arrays), so clipping
+and the non-finite skip agree on every rank; the dropout generator is keyed
+by the data index (the ranks of a model group hold the same activations
+and must draw the same masks); checkpoints gather the model
+(``sharding.full_state_dict``) and the optimizer state
+(``sharding.gather_tp_optimizer_state``) into the one-process layout, and
+a resume cuts them to the rank's shards. AdamW only: the 8-bit AdamW's
+blocks and Adafactor's factored moments of a shard are not those of the
+whole tensor (ROADMAP.md Queue 1 item 8d).
+
+fsdp (``config.fsdp`` with a process group; ``parallel/fsdp.py``): every
+parameter is stored on its owner (ZeRO-1's whole-tensor partition over the
+data group) and gathered at each use; its gradient arrives summed on the
+owner during the backward, so the exchange is a division by dp there, the
+norm sums the owners' squares over the data group, each owner updates its
+tensors and nothing is broadcast after the step. Any optimizer; not with a
+model axis or LoRA (item 8d).
 """
 
 from __future__ import annotations
@@ -82,11 +107,16 @@ import torch.distributed as dist
 
 from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.data.loader import DataLoader
+from rankpo_tpu_torch.parallel.fsdp import shard_parameters_
 from rankpo_tpu_torch.parallel.sharding import (
     ShardedOptimizer,
     all_reduce_mean_,
     broadcast_from_owners_,
+    gather_tp_optimizer_state,
     partition_params,
+    shard_tp_optimizer_state,
+    tp_dim,
+    tp_global_norm,
 )
 from rankpo_tpu_torch.train import checkpoint as ckpt
 from rankpo_tpu_torch.train.config import TrainConfig
@@ -188,19 +218,38 @@ class Trainer:
         # data parallel: a process group exists (one process per card)
         self._dp = mesh.is_distributed()
         self.world, self.rank = mesh.process_count(), mesh.process_index()
-        # owner rank of each trainable tensor under zero1 / zero2, else None
+        # the data axis (every rank without a grid) and the model axis
+        self.dp, self.data_rank = mesh.data_count(), mesh.data_index()
+        self.data_group = mesh.data_group()
+        self.tp = getattr(model, "tp", None)
+        self._check_tensor_parallel()
+        if self._dp and self.dp > 1:
+            # every rank starts from its data group's first rank's weights
+            broadcast_from_owners_([p.detach() for p in self.params], [0] * len(self.params),
+                                   group=self.data_group)
+        # fsdp: each parameter stored on its owner only (parallel/fsdp.py)
+        self.fsdp = None
+        if self._dp and config.fsdp:
+            self._check_fsdp()
+            self.fsdp = shard_parameters_(model, self.data_group)
+            self.param_names, self.params = list(self.fsdp.names), list(self.fsdp.params)
+        # the model-axis dim of each trainable tensor (None: replicated)
+        self._tp_dims = [tp_dim(n) if self.tp is not None else None for n in self.param_names]
+        # owner (data index) of each trainable tensor under zero1 / zero2 /
+        # fsdp, else None
         self._owners = None
-        if self._dp and (config.zero1 or config.zero2):
-            self._owners = partition_params(self.params, self.world)
+        if self.fsdp is not None:
+            self._owners = self.fsdp.owners
+        elif self._dp and (config.zero1 or config.zero2):
+            self._owners = partition_params(self.params, self.dp)
+        if self._owners is not None:
             self.optimizer = ShardedOptimizer(
-                self.params, self._owners, self.rank,
-                lambda owned: make_optimizer(owned, config, total_steps)[0])
+                self.params, self._owners, self.data_rank,
+                lambda owned: make_optimizer(owned, config, total_steps)[0],
+                group=self.data_group)
             self.schedule = make_schedule(config, total_steps)
         else:
             self.optimizer, self.schedule = make_optimizer(self.params, config, total_steps)
-        if self._dp and self.world > 1:
-            # every rank starts from rank 0's weights
-            broadcast_from_owners_([p.detach() for p in self.params], [0] * len(self.params))
         self.step = 0  # optimizer steps taken, skipped ones included
         self.updates = 0  # updates applied: the schedule's count, as optax's
         self._history: List[Dict] = []
@@ -210,6 +259,37 @@ class Trainer:
         self.retrieval_eval_fn: Optional[Callable] = None
         self._sigterm = False  # this process received SIGTERM
         self._preempted = False  # some rank did: every rank stops after this step
+
+    def _check_tensor_parallel(self) -> None:
+        """Under tensor parallelism: AdamW only, and no LoRA (ROADMAP.md
+        Queue 1 item 8d); the trainer must see the model's grid."""
+        if self.tp is None:
+            return
+        if self.tp.size != mesh.model_count():
+            raise ValueError(f"the model is split {self.tp.size} ways, the grid's model axis "
+                             f"has {mesh.model_count()} ranks")
+        if self.config.optim != "adamw":
+            raise NotImplementedError(
+                f"--optim {self.config.optim} with --model_parallel {self.tp.size}: the "
+                "8-bit blocks and Adafactor's factored moments of a shard are not the whole "
+                "tensor's; not ported (ROADMAP.md Queue 1 item 8d); use adamw")
+        if any("parametrizations" in n for n in self.param_names):
+            raise NotImplementedError(
+                f"--use_lora with --model_parallel {self.tp.size} is not ported "
+                "(ROADMAP.md Queue 1 item 8d)")
+
+    def _check_fsdp(self) -> None:
+        """fsdp shards every parameter of a model on one model rank, none of
+        them LoRA's (ROADMAP.md Queue 1 item 8d)."""
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"--fsdp with --model_parallel {self.tp.size} is not ported "
+                "(ROADMAP.md Queue 1 item 8d)")
+        if len(self.params) != len(list(self.model.parameters())) or any(
+                "parametrizations" in n for n in self.param_names):
+            raise NotImplementedError(
+                "--fsdp shards every parameter: not with frozen parameters or LoRA "
+                "(ROADMAP.md Queue 1 item 8d)")
 
     # ------------------------------------------------------------------
     def train_step(self, group: dict) -> Dict[str, float]:
@@ -239,14 +319,24 @@ class Trainer:
             torch._foreach_mul_(grads, inv)
         stats = [loss_sum.float()] + [v.float() for v in metric_sums.values()]
         if self._dp:
-            all_reduce_mean_(grads)
-            # the loss and metrics: means over the ranks; the last entry
-            # counts the ranks that received SIGTERM
+            if self.fsdp is None:
+                all_reduce_mean_(grads, self.data_group)
+            elif self.dp > 1:  # the owners hold the sums (the others: empty)
+                torch._foreach_div_(grads, float(self.dp))
+            # the loss and metrics: means over the ranks (the ranks of a
+            # model group hold the same values); the last entry counts the
+            # ranks that received SIGTERM
             summed = torch.stack(stats + [torch.tensor(float(self._sigterm), device=self.device)])
             dist.all_reduce(summed)
             means = summed[:-1] / self.world if self.world > 1 else summed[:-1]
             stats = [*means.unbind(), summed[-1]]
-        grad_norm = global_norm(grads)
+        if self.tp is not None:
+            grad_norm = tp_global_norm(grads, [d is not None for d in self._tp_dims],
+                                       self.tp.group)
+        elif self.fsdp is not None:  # every gradient lies on its owner alone
+            grad_norm = tp_global_norm(grads, [True] * len(grads), self.data_group)
+        else:
+            grad_norm = global_norm(grads)
         # one device sync per step: the finite check, the logged values and
         # the SIGTERM count
         names = ["loss", "grad_norm", *metric_sums]
@@ -263,8 +353,9 @@ class Trainer:
                 group_["lr"] = lr
             self.optimizer.step()
             self.updates += 1
-            if self._owners is not None:
-                broadcast_from_owners_([p.detach() for p in self.params], self._owners)
+            if self._owners is not None and self.fsdp is None:
+                broadcast_from_owners_([p.detach() for p in self.params], self._owners,
+                                       group=self.data_group)
         for p in self.params:
             p.grad = None
         self.step += 1
@@ -308,9 +399,9 @@ class Trainer:
 
     def _generator(self, micro: int) -> torch.Generator:
         """The dropout generator of micro-batch ``micro`` of this step (and
-        of this rank, with more than one: each rank's rows draw their own
-        masks)."""
-        key = [self.dropout_seed, self.step, micro] + ([self.rank] if self.world > 1 else [])
+        of this data index, with more than one: each data index's rows draw
+        their own masks, and the ranks of a model group the same ones)."""
+        key = [self.dropout_seed, self.step, micro] + ([self.data_rank] if self.dp > 1 else [])
         seed = np.random.SeedSequence(key)
         return torch.Generator().manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
 
@@ -330,7 +421,7 @@ class Trainer:
         cfg = self.config
         size = batch_size or (
             (cfg.per_device_eval_batch_size or cfg.per_device_train_batch_size) * self.world)
-        if self.world > 1:
+        if self.dp > 1:
             return self._evaluate_sharded(dataset, collator, size)
         loader = DataLoader(dataset, collator, batch_size=size, shuffle=False, drop_last=False)
         sums: Dict[str, float] = {}
@@ -356,8 +447,10 @@ class Trainer:
         with torch.no_grad():
             for lo in range(0, len(dataset), size):
                 rows = [dataset[i] for i in range(lo, min(lo + size, len(dataset)))]
-                local = split_between_processes(rows, apply_padding=True)
-                start, end, _ = _bounds(len(rows), self.rank, self.world, False)
+                local = split_between_processes(rows, apply_padding=True,
+                                                process_index=self.data_rank,
+                                                process_count=self.dp)
+                start, end, _ = _bounds(len(rows), self.data_rank, self.dp, False)
                 valid = max(0, min(end, len(rows)) - start)
                 batch = _to_device(collator(local), self.device)
                 batch["row_valid"] = (torch.arange(len(local), device=self.device)
@@ -365,7 +458,7 @@ class Trainer:
                 loss, metrics = self.loss_fn(self.model, batch)
                 values = {"loss": loss, **metrics}
                 weighted = torch.stack([v.float() * valid for v in values.values()])
-                dist.all_reduce(weighted)
+                dist.all_reduce(weighted, group=self.data_group)
                 for key, value in zip(values, weighted.tolist()):
                     sums[key] = sums.get(key, 0.0) + value
                 n_rows += len(rows)
@@ -416,12 +509,13 @@ class Trainer:
 
     def _train_loop(self, dataset, collator, profiler: "_StepProfiler") -> List[Dict]:
         cfg = self.config
-        # the global micro-batch; the loader gives this rank its rows
+        # the global micro-batch (per device times every device, as JAX's
+        # trainer.py:485); the loader gives this data index its rows
         micro = cfg.per_device_train_batch_size * self.world
         accum = cfg.gradient_accumulation_steps
         loader = DataLoader(dataset, collator, batch_size=micro, shuffle=True,
                             drop_last=cfg.dataloader_drop_last, seed=cfg.seed,
-                            process_index=self.rank, process_count=self.world)
+                            process_index=self.data_rank, process_count=self.dp)
         steps_per_epoch = loader.steps_per_epoch() // accum
         if steps_per_epoch == 0:
             logger.warning(
@@ -526,7 +620,10 @@ class Trainer:
         the host here and writes it on the background writer. With several
         ranks every rank takes part in gathering the optimizer state to rank
         0, which writes the files and rotates; the others return None after
-        the files but the background write are on disk."""
+        the files but the background write are on disk. Under tensor
+        parallelism the ranks of rank 0's model group, and under fsdp every
+        rank, call ``save_params_fn`` too: it gathers the model (a
+        collective) and rank 0 writes it (:meth:`gathers_model`)."""
         cfg = self.config
         if cfg.save_strategy == "no":
             return None
@@ -536,16 +633,14 @@ class Trainer:
         if not cfg.save_only_model:
             # the previous write first, so the host holds one copy at a time
             ckpt.wait_for_saves()
-            if isinstance(self.optimizer, ShardedOptimizer):
-                state = self.optimizer.gather_state_dict()
-            else:
-                state = ckpt.host_copy(self.optimizer.state_dict()) if main else None
+            state = self.gather_optimizer_state()
             if main:
                 payload = {"optimizer": state, "step": self.step, "updates": self.updates}
         if main:
             os.makedirs(directory, exist_ok=True)
-            if self.save_params_fn is not None:
-                self.save_params_fn(directory, self.model)
+        if self.save_params_fn is not None and (main or self.gathers_model()):
+            self.save_params_fn(directory, self.model)
+        if main:
             ckpt.save_trainer_state(directory, {"global_step": global_step, "epoch": epoch},
                                     cfg)
             if payload is not None:
@@ -557,6 +652,27 @@ class Trainer:
         mesh.barrier()
         return directory if main else None
 
+    def gathers_model(self) -> bool:
+        """Whether this rank takes part in gathering the model for rank 0's
+        files: the ranks of rank 0's model group under tensor parallelism,
+        every rank under fsdp."""
+        return (self.tp is not None and self.data_rank == 0) or self.fsdp is not None
+
+    def gather_optimizer_state(self) -> Optional[dict]:
+        """The optimizer state in the one-process layout on rank 0 (on the
+        host), None elsewhere: each data group's shards merged on its first
+        rank, then each model group's tensor shards concatenated. A
+        collective of every rank."""
+        if isinstance(self.optimizer, ShardedOptimizer):
+            state = self.optimizer.gather_state_dict()
+        else:
+            first = mesh.is_main_process() or self.data_rank == 0
+            state = ckpt.host_copy(self.optimizer.state_dict()) if first else None
+        if self.tp is not None and self.data_rank == 0:
+            state = gather_tp_optimizer_state(state, self._tp_dims,
+                                              [p.shape for p in self.params], self.tp.group)
+        return state if mesh.is_main_process() else None
+
     def resume_from(self, directory: str) -> None:
         """Restore the step and update counters, and the optimizer state
         where the checkpoint holds it (``trainer.py:771-794``). The weights
@@ -567,8 +683,13 @@ class Trainer:
         ckpt.wait_for_saves()
         payload = ckpt.load_opt_state(directory)
         if payload is not None:
+            full = payload["optimizer"]
+            if self.tp is not None:  # this rank's tensor shards
+                full = shard_tp_optimizer_state(full, self._tp_dims,
+                                                [p.shape for p in self.params],
+                                                self.tp.size, self.tp.index)
             # a sharded optimizer takes its own tensors' entries
-            self.optimizer.load_state_dict(payload["optimizer"])
+            self.optimizer.load_state_dict(full)
             self.step, self.updates = int(payload["step"]), int(payload["updates"])
             return
         step = int(ckpt.load_trainer_state(directory).get("global_step", 0))

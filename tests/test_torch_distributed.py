@@ -116,14 +116,21 @@ def test_mesh_config_resolve_matches_jax(dp, mp, n):
 
 
 def test_model_parallel_and_fsdp_raise_naming_item_8b():
+    """Item 8b is ported: ``model_parallel`` (tensor parallelism,
+    ``test_torch_tensor_parallel.py``) takes any size from 1 and a size
+    below 1 raises; ``fsdp`` (``test_torch_fsdp.py``) is accepted; the two
+    together raise naming item 8d, which holds what 8b left."""
     from rankpo_tpu_torch.train.config import TrainConfig
 
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        mesh.MeshConfig(model_parallel=2).check_supported()
+    for mp in (1, 2, 4):
+        mesh.MeshConfig(model_parallel=mp).check_supported()
+        TrainConfig(model_parallel=mp).check_supported()
     mesh.MeshConfig(data_parallel=4).check_supported()
-    for field, value in (("fsdp", True), ("model_parallel", 2)):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            TrainConfig(**{field: value}).check_supported()
+    TrainConfig(fsdp=True).check_supported()
+    with pytest.raises(ValueError, match="must be >= 1"):
+        mesh.MeshConfig(model_parallel=0).check_supported()
+    with pytest.raises(NotImplementedError, match="item 8d"):
+        TrainConfig(fsdp=True, model_parallel=2).check_supported()
 
 
 def test_initialize_distributed_refusals():

@@ -401,6 +401,93 @@ def test_bwd_kernels_match_plain(cuda, shape, causal, skip, full, window, impl):
         assert rel <= BWD_REL_L2, (name, rel)
 
 
+# the ring attention's steps: unwindowed, unpacked, D 64 / 128 / 256
+DKV_F32_SHAPES = [
+    ((2, 512, 512, 32, 8, 64), True, False),
+    ((2, 512, 512, 32, 8, 64), False, False),
+    ((1, 1024, 1024, 32, 8, 64), False, True),
+    ((4, 65, 200, 32, 8, 64), True, False),
+    ((2, 256, 256, 16, 8, 128), True, False),
+    ((2, 256, 256, 16, 16, 128), False, True),
+    ((2, 256, 256, 8, 1, 256), True, False),
+    ((2, 100, 100, 4, 4, 256), False, False),
+]
+
+
+@pytest.mark.parametrize("shape,causal,full", DKV_F32_SHAPES)
+def test_dkv_f32_build_matches_plain(cuda, shape, causal, full):
+    """K3b's fp32-output build (``flash_dkv``): fp32 dk/dv within the
+    bf16 build's limits of the plain version (whose dk/dv are fp32), two
+    launches bit for bit, rounded to bf16 bit-equal to the bf16 build, one
+    ``flash_dkv`` launch counted, in ``f32_launches`` too."""
+    q, k, v, mask, do, lse, delta = _bwd_inputs(shape, causal, False, cuda, full=full)
+    before, before_f32 = dict(port_flash.launches), dict(port_flash.f32_launches)
+    dk, dv = port_flash.flash_dkv(q, k, v, mask, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    for n in before:
+        assert port_flash.launches[n] == before[n] + (n == "flash_dkv")
+        assert port_flash.f32_launches[n] == before_f32[n] + (n == "flash_dkv")
+    again = port_flash.flash_dkv(q, k, v, mask, do, lse, delta, causal=causal)
+    _, dk16, dv16 = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal)
+    _, rk, rv = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal)
+    for a, b, b16, r, name in ((dk, again[0], dk16, rk, "dk"), (dv, again[1], dv16, rv, "dv")):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert torch.equal(a, b), f"{name} differs between two launches"
+        assert torch.equal(a.bfloat16(), b16), f"{name} rounded is not the bf16 build's"
+        err = (a - r).abs().max().item()
+        assert err <= BWD_TOL_OF_MAX * r.abs().max().item(), (name, err)
+        assert ((a - r).norm() / r.norm()).item() <= BWD_REL_L2, name
+
+
+def test_dkv_f32_refuses_window_and_segments(cuda):
+    q, k, v, mask, do, lse, delta = _bwd_inputs((2, 128, 128, 8, 2, 64), True, False, cuda)
+    dq = port_flash.flash_dq(q, k, v, mask, do, lse, delta, causal=True)
+    want, _, _ = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True)
+    assert torch.equal(dq, want)
+    lib = __import__("rankpo_tpu_torch.ops._build", fromlist=["x"]).load_library()
+    for window, packed in ((16, 0), (-1, 1)):
+        rc = lib.rankpo_flash_bwd_dkv_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.int().data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), None, None, None, None, *q.shape[:2],
+            k.shape[1], q.shape[2], k.shape[2], q.shape[3], *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], mask.stride(0), 1, 0, window, packed,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc != 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_of_one_is_flash_attention_bit_for_bit(cuda, causal, tmp_path):
+    """``context_parallel_attention(impl="flash")`` over a process group of
+    one rank: K1, the lse merge, K3a and the fp32 K3b rounded once give
+    ``flash_attention``'s output and gradients bit for bit."""
+    import torch.distributed as dist
+
+    from rankpo_tpu_torch.parallel import ring_attention as ring
+
+    q, k, v, mask, lens = (t.to(cuda) for t in _inputs(2, 1024, 1024, 32, 8, 64, seed=3))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).bfloat16().to(cuda)
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", world_size=1,
+                                rank=0)
+    try:
+        group = dist.new_group([0])
+        got, want = [], []
+        for fn, sink in (
+                (lambda *x: ring.context_parallel_attention(*x, group=group, mask=mask,
+                                                            causal=causal, impl="flash"), got),
+                (lambda *x: flash_attention(*x, mask, causal=causal), want)):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = fn(*leaves)
+            out.backward(do)
+            sink += [out.detach(), *(x.grad for x in leaves)]
+        for a, b, name in zip(got, want, ("out", "dq", "dk", "dv")):
+            assert torch.equal(a, b), name
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 def test_bwd_reads_strided_fused_qkv(cuda):
     """The backward reads q/k/v as views of one fused projection output, as
     the encoder hands them over, without a copy."""

@@ -76,6 +76,8 @@ MODULES = [
     "rankpo_tpu_torch.parallel",
     "rankpo_tpu_torch.parallel.sharding",
     "rankpo_tpu_torch.utils.distributed",
+    "rankpo_tpu_torch.parallel.ring_attention",
+    "rankpo_tpu_torch.parallel.fsdp",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
