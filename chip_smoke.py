@@ -35,7 +35,9 @@ version. Phases:
    head) at a time where the whole call would not fit; and at head_dim 256
    (``D256_SHAPES``: gemma-2b's 8 query heads over one kv head, timed with
    random and full lengths, gemma-7b's 16 / 16 and B 2, S 4096, both
-   timed, a non-causal shape, a ragged Sq < Sk, a window);
+   timed, a non-causal shape, a ragged Sq < Sk, a window); K3b's
+   fp32-output build against plain at the ring's step shapes (B 1, S 8192,
+   32 / 8 heads, D 64), timed beside the bf16 build at the same shape;
 2p. the packed variants of K1, K2, K3a and K3b (``segment_ids``,
    ``PACKED_SHAPES``: BGE's 16 / 16 non-causal, Llama's 32 / 8, Qwen2's
    12 / 2 at D 128, gemma-2b's 8 / 1 at D 256, each over the smoke's
@@ -111,7 +113,7 @@ version. Phases:
    ``--profile_steps 2`` (its trace names the K1 kernel) and one with
    ``--debug_nans True``; step times, peak memory, checkpoint seconds and
    GB;
-5l. the rest of the training extensions (after 5f) at the same width,
+5l. the rest of the training extensions (beside 5t's ranks) at the same width,
    depth and settings: ``run_rankpo --use_lora True`` (r 8, alpha 16,
    deterministic) with the in-training retrieval evaluation over phase 7's
    queries and the 4096 passages at steps 2 and 4 (K1, K3a, K3b): the
@@ -124,8 +126,9 @@ version. Phases:
    bit-equal to 5f's "full" run; ``InferenceEncoder.encode_packed``
    against ``encode`` over the 4096 passages (K1 with segments; cosine
    >= 0.999; passages/s and pad share of each);
-5d. data-parallel training (after 5l) through the CLIs' three multi-host
-   flags: (a) phase 5's stage 1 at world size 1 under NCCL with
+5d. data-parallel training (after 5f) through the CLIs' three multi-host
+   flags: (a) (run while (b)'s ranks run) phase 5's stage 1 at world size
+   1 under NCCL with
    cross-device negatives and ``--zero1``, then ``--zero2``: losses,
    gradient norms and the final model bit-equal to phase 5's, its K1 / K3a
    / K3b launches; (b) two ranks sharing the card under gloo (NCCL takes
@@ -136,11 +139,12 @@ version. Phases:
    (step 1's loss and gradient norm within rtol 2e-4, every step's within
    ``DP_HISTORY_RTOL``, each tensor's update within ``DP_UPDATE_GAP`` of
    one process's, identical on both ranks, K1, K3a and K3b on each rank);
-   each rank's optimizer-state bytes, peak memory and step time; (c) the
-   two ranks' checkpoint resumed in one process, its parameters and
-   optimizer state bit-equal to the ranks';
-5t. sharded models (after 5d): (a) K3b's fp32-output build against its
-   plain version at the ring's step shapes and timed; ring attention
+   each rank's optimizer-state bytes, peak memory and step time; stage 1
+   with the in-training retrieval hook over phase 7's files at its last
+   step, its metrics bit-equal to ``cli.evaluate`` at W = 2 over the saved
+   model; (c) the two ranks' checkpoint resumed in one process, its
+   parameters and optimizer state bit-equal to the ranks';
+5t. sharded models (after 5d): (a) ring attention
    (``context_parallel_attention(impl="flash")``) at Llama's attention
    shapes (32 / 8 heads, D 64, causal, B 1, S 16384, 8192 a rank) over two
    ranks sharing the card under gloo, out, dq, dk and dv within 2^-7 of
@@ -148,8 +152,11 @@ version. Phases:
    K3a / fp32 K3b launched once on rank 0 and twice on rank 1, a ring of
    one bit-equal to ``flash_attention``, the ring's time, the one
    process's and the hops' bytes and seconds; (b) ``--model_parallel 2``
-   and (c) ``--fsdp True``, each a pair of ranks as 5d(b)'s (run at once,
-   four ranks on the card), held to 5d(b)'s one-process runs by 5d(b)'s
+   and (c) ``--fsdp True``, each a pair of ranks as 5d(b)'s ((a), (b) and
+   (c) at once, six ranks on the card, while this process runs 5l, 7, 8,
+   5b, 7b, 4b, 5q, 4w, 5w and 7w, whose times then share the card and the
+   host with them),
+   held to 5d(b)'s one-process runs by 5d(b)'s
    gates (the mp 2 pair's step-1 gate on its stage 2 in fp32, which it also
    runs), K1 at 16 / 4 heads under mp 2, fsdp's bytes a rank within half
    the model's plus the embedding's, each stage-1 checkpoint resumed in
@@ -177,10 +184,10 @@ version. Phases:
    their lookup floor with the load route that ran; (g) first, the flat
    tier over the same rows: exact fp32 (the reference), bf16 rows, int8
    rows and fp32 at recall target 0.95, each with queries/s, batch p50,
-   recall@100 and peak memory; (h) last, ``python -m
-   rankpo_tpu_torch.cli.autotune`` on a synthetic 65,536 x 2048 corpus
+   recall@100 and peak memory; (h) last, ``rankpo_tpu_torch.cli.autotune``
+   (its ``main``, in this process) on a synthetic 65,536 x 2048 corpus
    (Flat's recall 1.0, the recommendation at its target);
-7. evaluation path (after 5t, on the FEATURE_LAYERS checkpoint):
+7. evaluation path (beside 5t's ranks, on the FEATURE_LAYERS checkpoint):
    ``rankpo_tpu_torch.cli.evaluate`` with 256 queries, each a span cut from
    one of the 4096 passages and labelled with it, flat (K1), then
    ``--index_type ivf`` (K1, K4) and ``--index_type refine`` (K1): the
@@ -188,7 +195,8 @@ version. Phases:
    ``compute_metrics`` recomputed on the host over the saved arrays, the
    flat hits equal to numpy_search over the same embeddings outside
    near-ties; wall time, queries/s and passages/s per call, and which
-   metric path (sklearn or numpy) ran;
+   metric path (sklearn or numpy) ran; the flat call with the three
+   process flags at world size 1 (NCCL), held by the same checks;
 8. mining and pipeline paths (after 7, on the FEATURE_LAYERS checkpoint):
    ``get_hard_negatives --method
    topk,cluster --lambda_ 0.5`` over 512 rows (no negative is the query
@@ -196,7 +204,22 @@ version. Phases:
    (Q x C(5, 2) pair rows), and ``run_pipeline --iterations 2`` over 64
    rows at full width and FEATURE_LAYERS (2) of 16 layers (K1, K3a, K3b): its final model, its prediction pairs and
    its peak device memory; which k-means path ran;
-5b. bge-m3: stage 1 through ``run_contrastive.main`` with the config's
+7d, 8's pair, 4d. two ranks sharing the card under gloo (one spawn), each
+   on its own row shard of the corpus: (7d) ``cli.evaluate`` flat then
+   refine on phase 7's checkpoint and files, each rank's shard embeddings
+   bit-equal to a one-process encode of its texts, the flat hits equal to
+   numpy_search over the ranks' embeddings outside near-ties, the saved
+   metrics bit-equal to the host recompute, refine's recall (near-ties
+   counted) >= 0.95, the differences from phase 7's one process printed;
+   (8) ``get_hard_negatives`` writing phase 8's files; (4d) ``cli.serve``
+   flat fp32 at full width and depth: 32 single requests from 8 clients,
+   16-query requests and a filtered one held to numpy_search, p50 and
+   p99, ``/add``, ``/remove`` and ``/save``, SIGTERM to rank 0 and both
+   ranks exiting 0, one process restarted from the W = 2 file serving the
+   W = 2 server's hits; each rank's device, shard rows, K1 launches and
+   peak memory;
+5b. bge-m3 (beside 5t's ranks, after 8): stage 1 through
+   ``run_contrastive.main`` with the config's
    dropout live (attention takes the plain path with attention-probs
    dropout; no flash launch), then stage 2 through ``run_rankpo.main``
    with ``--disable_dropout`` under deterministic algorithms (K1, K3a,
@@ -204,15 +227,16 @@ version. Phases:
    stage-1 micro-batch with dropout off through the kernels and plain;
 7b. ``cli.evaluate`` flat on bge-m3's stage-2 output (K1, CLS pooling):
    metrics bit-equal to the host recompute, hits equal to numpy_search;
-4b. ``cli.serve`` flat from a bge-large-en-v1.5 checkpoint at 8 of its 24
+4b. (beside 5t's ranks, after 7b, as are 5q, 4w, 5w and 7w) ``cli.serve``
+   flat from a bge-large-en-v1.5 checkpoint at 4 of its 24
    layers (BERT
    positions, 2 token types) and from a Qwen2-1.5B one (q/k/v biases,
-   GQA 6:1 at D 128; 8 of its 28 layers): the corpus encode, single and batched /search
+   GQA 6:1 at D 128; 4 of its 28 layers): the corpus encode, single and batched /search
    requests held to the numpy oracle as phase 4 holds them;
 5q. Qwen2-1.5B: 4 stage-1 steps through ``run_contrastive.main`` (K1,
    K3a, K3b): finite losses, every parameter moved;
 4w. intfloat/e5-mistral-7b-instruct (sliding window 4096) at full width and
-   8 of its 32 layers: ``cli.serve`` flat over the first 1024 passages (cut from 4096
+   4 of its 32 layers: ``cli.serve`` flat over the first 1024 passages (cut from 4096
    for the time limit), held to the numpy oracle as phase 4 holds it,
    every encode batch's K1 launches windowed; two passages of 8192 and
    6001 tokens through the kernels held to the plain attention and shown
@@ -226,11 +250,11 @@ version. Phases:
 7w. ``cli.evaluate`` flat on phase 5w's stage-2 output: metrics bit-equal
    to the host recompute, hits equal to numpy_search;
 4g. google/gemma-2b ((1 + w) norms drawn N(0, 0.1), GeGLU, scaled
-   embeddings, 8 query heads over one kv head of 256) at full width and 6
+   embeddings, 8 query heads over one kv head of 256) at full width and 4
    of its 18 layers: ``cli.serve`` flat over the 4096 passages, held to the numpy
    oracle and the kernels' encoder to the plain attention as phase 4 holds
    them, every encode layer's K1 launch at head_dim 256;
-5g. gemma-2b at full width and 6 of 18 layers (GEMMA_LAYERS): stage 1 (K1, K2: ``--flash_bwd_impl
+5g. gemma-2b at full width and 4 of 18 layers (GEMMA_LAYERS): stage 1 (K1, K2: ``--flash_bwd_impl
    fused``) then stage 2 under
    deterministic algorithms (K1, K3a, K3b), 4 steps each at phase 5's
    shapes, launches at head_dim 256 on every layer; one stage-1
@@ -268,6 +292,8 @@ import time
 import urllib.request
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -324,13 +350,13 @@ MODELS = {
 }
 GEMMA = "gemma-2b"
 GEMMA_STEPS = 4  # phase 5g: optimizer steps of each stage
-# cuts by depth that pay for phase 5t: bge-large-en-v1.5 and Qwen2-1.5B
-# (4b, 5q) run at 8 of their 24 / 28 layers, gemma-2b (4g, 5g, 7g) at 6 of
-# its 18, e5-mistral is served (4w) at 8 of its 32; Llama's evaluation and
-# mining (7, 8) at FEATURE_LAYERS
-OTHER_LAYERS = 8
-GEMMA_LAYERS = 6
-MISTRAL_SERVE_LAYERS = 8
+# cuts by depth that pay for phases 5t, 7d and 4d: bge-large-en-v1.5 and
+# Qwen2-1.5B (4b, 5q) run at 4 of their 24 / 28 layers, gemma-2b (4g, 5g,
+# 7g) at 4 of its 18, e5-mistral is served (4w) at 4 of its 32; Llama's
+# evaluation and mining (7, 8) at FEATURE_LAYERS
+OTHER_LAYERS = 4
+GEMMA_LAYERS = 4
+MISTRAL_SERVE_LAYERS = 4
 GEMMA_NORM_STD = 0.1  # the norm offsets' draw
 MISTRAL = "e5-mistral-7b-instruct"
 MISTRAL_PASSAGES = 1024  # phase 4w: the serving corpus cut from 4096 for the time limit
@@ -1411,9 +1437,7 @@ def _serving_data(seed: int, tmp: str, n_passages: int = N_PASSAGES):
     corpus = [" ".join(rng.choice(WORDS, size=n)) for n in lengths][:n_passages]
     corpus_file = os.path.join(
         tmp, "corpus.jsonl" if n_passages == N_PASSAGES else f"corpus_{n_passages}.jsonl")
-    with open(corpus_file, "w") as f:
-        for text in corpus:
-            f.write(json.dumps({"text": text}) + "\n")
+    _write_lines(corpus_file, (json.dumps({"text": text}) + "\n" for text in corpus))
     queries = [" ".join(rng.choice(WORDS, size=n))
                for n in rng.integers(4, 33, 64)]
     return corpus, corpus_file, queries
@@ -2172,6 +2196,17 @@ def _check_ivf_append(service, texts, new_ids, allowed_rank: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+def _write_lines(path: str, lines) -> None:
+    """Write ``lines`` to ``path`` through a temporary file and a rename:
+    the ranks of 5d and 5t read files of ``tmp`` while the phases beside
+    them write the same seeded files again, and a reader must see the old
+    file or the new one whole, never one cut short."""
+    part = f"{path}.{os.getpid()}.part"
+    with open(part, "w") as f:
+        f.writelines(lines)
+    os.replace(part, path)
+
+
 def _text(rng, lo, hi) -> str:
     return " ".join(rng.choice(WORDS, size=int(rng.integers(lo, hi))))
 
@@ -2181,18 +2216,15 @@ def write_training_data(tmp: str, seed: int):
     negatives of 16-480 words) and 256 preference pairs, from the seed."""
     rng = np.random.default_rng(seed + 1)
     train = os.path.join(tmp, "train.jsonl")
-    with open(train, "w") as f:
-        for _ in range(N_TRAIN_ROWS):
-            f.write(json.dumps({
-                "query": _text(rng, 4, 33), "positives": [_text(rng, 16, 481)],
-                "negatives": [_text(rng, 16, 481) for _ in range(7)]}) + "\n")
+    _write_lines(train, [json.dumps({
+        "query": _text(rng, 4, 33), "positives": [_text(rng, 16, 481)],
+        "negatives": [_text(rng, 16, 481) for _ in range(7)]}) + "\n"
+        for _ in range(N_TRAIN_ROWS)])
     pairs = os.path.join(tmp, "pairs.jsonl")
-    with open(pairs, "w") as f:
-        for _ in range(N_PAIRS):
-            f.write(json.dumps({
-                "query": _text(rng, 4, 33), "passage1": _text(rng, 16, 481),
-                "passage2": _text(rng, 16, 481),
-                "preferred": "AB"[int(rng.integers(2))]}) + "\n")
+    _write_lines(pairs, [json.dumps({
+        "query": _text(rng, 4, 33), "passage1": _text(rng, 16, 481),
+        "passage2": _text(rng, 16, 481),
+        "preferred": "AB"[int(rng.integers(2))]}) + "\n" for _ in range(N_PAIRS)])
     return train, pairs
 
 
@@ -2922,43 +2954,58 @@ def _resume_pair(tmp: str, ckpt: str, pairs: str, seed: int, optim: str,
             "opt_gb": opt_gb}
 
 
-def _sigterm_check(ckpt: str, tmp: str, seed: int, pairs: str) -> dict:
-    """``python -m rankpo_tpu_torch.cli.run_rankpo`` in a subprocess on the
-    card from ``ckpt`` (5f's, FEATURE_LAYERS layers at full width: what this
-    tests is host logic), SIGTERM after its first logged step: exit 0,
-    "preempted: checkpoint", a checkpoint with opt_state.pt; then the run
-    resumed in this process to 2 steps past it."""
-    from rankpo_tpu_torch.cli import run_rankpo
-    from rankpo_tpu_torch.train.checkpoint import latest_checkpoint
-
+def _sigterm_start(ckpt: str, tmp: str, seed: int, pairs: str) -> dict:
+    """Start :func:`_sigterm_finish`'s subprocess: ``python -m
+    rankpo_tpu_torch.cli.run_rankpo`` on the card from ``ckpt`` (5f's,
+    FEATURE_LAYERS layers at full width: what this tests is host logic),
+    watched by a thread that sends SIGTERM after its first logged step and
+    waits for it to exit, while this process goes on."""
     out = os.path.join(tmp, "stage2_sigterm")
     argv = _feature_argv(ckpt, pairs, out, seed, "stage2", 100000, "--log_level", "info",
                          "--num_train_epochs", "1000", "--save_strategy", "steps",
                          "--save_steps", "1000000", "--save_only_model", "False")
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "rankpo_tpu_torch.cli.run_rankpo", *argv],
-                            cwd=root, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    lines, signalled, rest = [], None, ""
-    try:
-        deadline = time.time() + 300
-        while time.time() < deadline:
-            line = proc.stdout.readline()
-            if not line:
-                break
-            lines.append(line)
-            if "'global_step': 1," in line:  # the first logged step
-                signalled = time.perf_counter()
-                proc.send_signal(signal.SIGTERM)
-                break
-        rest, _ = proc.communicate(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    output = "".join(lines) + (rest or "")
+    run = {"out": out, "argv": argv, "t0": time.perf_counter(), "lines": [],
+           "signalled": None, "rest": ""}
+    proc = run["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "rankpo_tpu_torch.cli.run_rankpo", *argv], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def watch():
+        try:
+            deadline = time.time() + 300
+            while time.time() < deadline:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                run["lines"].append(line)
+                if "'global_step': 1," in line:  # the first logged step
+                    run["signalled"] = time.perf_counter()
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            run["rest"], _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    run["thread"] = threading.Thread(target=watch, name="sigterm-watch", daemon=True)
+    run["thread"].start()
+    return run
+
+
+def _sigterm_finish(run: dict) -> dict:
+    """The subprocess of :func:`_sigterm_start`, SIGTERM after its first
+    logged step: exit 0, "preempted: checkpoint", a checkpoint with
+    opt_state.pt; then the run resumed in this process to 2 steps past it."""
+    from rankpo_tpu_torch.cli import run_rankpo
+    from rankpo_tpu_torch.train.checkpoint import latest_checkpoint
+
+    run["thread"].join(700)
+    proc, out, argv, t0, signalled = (run[k] for k in ("proc", "out", "argv", "t0",
+                                                        "signalled"))
+    output = "".join(run["lines"]) + (run["rest"] or "")
     found = latest_checkpoint(out)
     step = None
     if found is not None and os.path.isfile(os.path.join(found, "opt_state.pt")):
@@ -3041,7 +3088,8 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
        straight steps; with AdamW and a synchronous save, then with the
        8-bit AdamW and ``--async_checkpointing True``;
     4. SIGTERM to ``python -m rankpo_tpu_torch.cli.run_rankpo`` (2 of 16
-       layers) after its first step: exit 0 with a checkpoint, then resumed;
+       layers) after its first step: exit 0 with a checkpoint, then resumed
+       (the subprocess runs beside steps 5-7; the resume after them);
     5. stage 2 with ``--eval_data`` and ``--eval_strategy steps
        --eval_steps 2``: ``eval_loss`` in the history; the last one held
        bit-equal to the no-grad loss over the same batches computed outside
@@ -3112,10 +3160,9 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
     out["straight"] = out["resume"]["sync"]["straight"]
     out["straight8"] = out["resume"]["async"]["straight"]
     done()
-    # ---- 4. SIGTERM ----
-    done = timed_step("4 SIGTERM")
-    out["sigterm"] = _sigterm_check(ckpt, tmp, seed, pairs)
-    done()
+    # ---- 4. SIGTERM: its subprocess runs beside steps 5-7 (their step times
+    # then share the card and the host with it) ----
+    sigterm = _sigterm_start(ckpt, tmp, seed, pairs)
     # ---- 5. evaluate ----
     done = timed_step("5 evaluate")
     eval_pairs = os.path.join(tmp, "eval_pairs.jsonl")
@@ -3209,6 +3256,9 @@ def phase_training_features(ckpt: str, tmp: str, seed: int) -> dict:
         f"and gradient norms bit-equal to the plain run's: {same}")
     if not same:
         raise AssertionError("5f debug_nans changed the losses")
+    done()
+    done = timed_step("4 SIGTERM (the rest after 7)")
+    out["sigterm"] = _sigterm_finish(sigterm)
     done()
     return out
 
@@ -3520,7 +3570,7 @@ def _dp_rank(rank: int, port: int, tag: str, stages: list, result_path: str) -> 
     final parameters and of this rank's optimizer state."""
     import torch.distributed as dist
 
-    from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
+    from rankpo_tpu_torch.cli import evaluate, run_contrastive, run_rankpo
     from rankpo_tpu_torch.ops import flash_attention as flash
     from rankpo_tpu_torch.parallel.sharding import full_state_dict
 
@@ -3562,6 +3612,24 @@ def _dp_rank(rank: int, port: int, tag: str, stages: list, result_path: str) -> 
                           "heads": sorted(heads),
                           "owned": len(trainer.optimizer.state),
                           "step_time_s": _median(history, "step_time")}
+            if "--retrieval_eval_query_file" in argv:
+                # the hook's numbers against cli.evaluate at W = 2 over the
+                # model saved at its step, with the hook's own settings
+                value = lambda flag: argv[argv.index(flag) + 1]  # noqa: E731
+                flash.reset_launches()
+                offline = evaluate.main([
+                    "--model_name_or_path", value("--output_dir"),
+                    "--tokenizer_name", value("--tokenizer_name"),
+                    "--query_data", value("--retrieval_eval_query_file"),
+                    "--corpus_data", value("--retrieval_eval_corpus_file"), "--bf16",
+                    "--k", value("--retrieval_eval_k"), "--batch_size", "256",
+                    "--max_query_length", value("--max_query_length"),
+                    "--max_passage_length", value("--max_passage_length"), "--device", "cuda",
+                    "--output_dir", value("--output_dir") + f"_eval{rank}",
+                    "--log_level", "warning"])["main"]
+                out[stage]["retrieval"] = {
+                    "hook": [h for h in history if "retrieval_MRR@1" in h],
+                    "offline": offline, "offline_k1": flash.launches["flash_fwd"]}
             if stage == "stage1":
                 out[stage]["digests"] = _state_digests(trainer)
                 if trainer.gathers_model():  # the one-process layout, on rank 0
@@ -3575,7 +3643,7 @@ def _dp_rank(rank: int, port: int, tag: str, stages: list, result_path: str) -> 
                     del full, opt
             del seen, trainer
             log(f"{tag} rank {rank} {stage}: losses "
-                f"{[round(h['loss'], 6) for h in history]}, median step "
+                f"{[round(h['loss'], 6) for h in history if 'loss' in h]}, median step "
                 f"{out[stage]['step_time_s']:.4f} s, wall {wall:.1f} s")
     finally:
         flash.flash_attention_fwd = launch_fwd
@@ -3598,14 +3666,16 @@ def _dp_rows(train: str, tmp: str, negatives: slice, name: str) -> str:
 
 
 def _pair_stages(ckpt_cut: str, train: str, pairs: str, tmp: str, seed: int, tag: str,
-                 start2: str, extra, fp32: bool = False) -> list:
+                 start2: str, extra, fp32: bool = False, retrieval=()) -> list:
     """The (stage, argv) list of a pair's ranks: stage 1 on ``train`` from
     ``ckpt_cut`` for DP_STEPS[0] steps ending in a checkpoint with the
     optimizer state, stage 2 on ``pairs`` from ``start2`` for DP_STEPS[1]
     steps (per-device batch DP_PER_RANK, so a global batch of 8 as JAX
     counts every device; cross-device negatives, ``--zero1``; ``extra`` on
     each), and with ``fp32`` stage 1 for FP32_STAGE1_STEPS steps and stage 2
-    again with FP32_FLAGS."""
+    again with FP32_FLAGS. ``retrieval``: flags of the in-training retrieval
+    evaluation on stage 1 (the ranks then evaluate its model with
+    ``cli.evaluate`` as well, :func:`_dp_rank`)."""
     s1_steps, s2_steps = DP_STEPS
     per_rank = ["--per_device_train_batch_size", str(DP_PER_RANK)]
     out1, out2 = (os.path.join(tmp, f"{tag}_{name}") for name in ("stage1_w2", "stage2_w2"))
@@ -3613,7 +3683,7 @@ def _pair_stages(ckpt_cut: str, train: str, pairs: str, tmp: str, seed: int, tag
         ("stage1", _feature_argv(ckpt_cut, train, out1, seed, "stage1", s1_steps, *per_rank,
                                  "--negatives_cross_device", "True", "--zero1", "True",
                                  "--save_strategy", "steps", "--save_steps", "1000",
-                                 "--save_only_model", "False", *extra)),
+                                 "--save_only_model", "False", *retrieval, *extra)),
         ("stage2", _feature_argv(start2, pairs, out2, seed, "stage2", s2_steps, *per_rank,
                                  "--zero1", "True", *extra))]
     if fp32:
@@ -3642,6 +3712,14 @@ def _launch_ranks(tag: str, tmp: str, target, *args) -> tuple:
     for p in procs:
         p.start()
     return tag, procs, paths, time.perf_counter()
+
+
+def _kill_ranks(launched: tuple) -> None:
+    """Stop the ranks of :func:`_launch_ranks` (a phase beside them failed)."""
+    for p in launched[1]:
+        if p.is_alive():
+            p.kill()
+        p.join(10)
 
 
 def _join_ranks(launched: tuple) -> tuple:
@@ -3675,26 +3753,26 @@ def _shared_pair(ckpt_cut: str, stages: list, ranks: list, wall: float, one: dic
 
 
 def _dp_pair(ckpt_cut: str, train: str, pairs: str, tmp: str, seed: int, tag: str,
-             *extra) -> dict:
+             *extra, retrieval=(), beside=None) -> dict:
     """5d(b)'s pair, ``extra`` flags on both sides: two ranks sharing the
     card under gloo over :func:`_pair_stages` (stage 2 from their stage-1
     output), and one process on the same global batches from the same
-    weights (stage 2 from the ranks' stage-1 model). Returns the ranks'
-    results, the one-process runs, the two ranks' wall seconds and each
-    stage's (start, one process, two ranks) model directories."""
+    weights (stage 2 from the ranks' stage-1 model). ``beside``, if given,
+    runs in this process after stage 1's reference, while the ranks still
+    run. Returns the ranks' results, the one-process runs, the two ranks'
+    wall seconds and each stage's (start, one process, two ranks) model
+    directories."""
     from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
 
     s1_steps, s2_steps = DP_STEPS
     dp1, dp2, ref1, ref2 = (os.path.join(tmp, f"{tag}_{name}") for name in (
         "stage1_w2", "stage2_w2", "stage1_w1", "stage2_w1"))
-    stages = _pair_stages(ckpt_cut, train, pairs, tmp, seed, tag, dp1, extra)
-    ranks, wall = _join_ranks(_launch_ranks(f"5d {tag}", tmp, _dp_rank, f"5d {tag}", stages))
+    stages = _pair_stages(ckpt_cut, train, pairs, tmp, seed, tag, dp1, extra,
+                          retrieval=retrieval)
+    launched = _launch_ranks(f"5d {tag}", tmp, _dp_rank, f"5d {tag}", stages)
     one = {}
-    for stage, main, argv in (
-            ("stage1", run_contrastive.main,
-             _feature_argv(ckpt_cut, train, ref1, seed, "stage1", s1_steps, *extra)),
-            ("stage2", run_rankpo.main,
-             _feature_argv(dp1, pairs, ref2, seed, "stage2", s2_steps, *extra))):
+
+    def reference(stage, main, argv):
         with _capture_trainers() as seen:
             n = one[stage] = run_feature(f"5d {tag} W=1 {stage} reference", main, argv,
                                          keep=True)
@@ -3702,6 +3780,20 @@ def _dp_pair(ckpt_cut: str, train: str, pairs: str, tmp: str, seed: int, tag: st
             n["param_bytes"] = sum(p.numel() * p.element_size()
                                    for p in seen[-1]["trainer"].params)
             del seen
+
+    # stage 1's reference while the ranks run (its step time then shares
+    # the card and the host with them); stage 2's starts from their stage 1
+    reference("stage1", run_contrastive.main,
+              _feature_argv(ckpt_cut, train, ref1, seed, "stage1", s1_steps, *extra))
+    if beside is not None:
+        try:
+            beside()
+        except BaseException:
+            _kill_ranks(launched)
+            raise
+    ranks, wall = _join_ranks(launched)
+    reference("stage2", run_rankpo.main,
+              _feature_argv(dp1, pairs, ref2, seed, "stage2", s2_steps, *extra))
     return {"ranks": ranks, "one": one, "wall_s": wall,
             "dirs": {"stage1": (ckpt_cut, ref1, dp1), "stage2": (dp1, ref2, dp2)}}
 
@@ -3757,8 +3849,8 @@ def _dp_compare(pair: dict) -> dict:
     for stage in ranks[0]:
         h0, h1 = ranks[0][stage]["history"], ranks[1][stage]["history"]
         checks[stage] = {
-            "ranks_equal": [(h["loss"], h["grad_norm"]) for h in h0]
-            == [(h["loss"], h["grad_norm"]) for h in h1],
+            "ranks_equal": [(h["loss"], h["grad_norm"]) for h in h0 if "loss" in h]
+            == [(h["loss"], h["grad_norm"]) for h in h1 if "loss" in h],
             "rel": _history_gaps(h0, pair["one"][stage]["history"]),
             "update": _update_gaps(*pair["dirs"][stage]),
             "launched": [tuple(r[stage]["launches"][k] for k in ("flash_fwd", "flash_dq",
@@ -3806,44 +3898,15 @@ def _dp_line(label: str, c: dict) -> str:
             f"{u['max_abs']:.3e}, share of weights that differ {u['share_differ']:.4f}")
 
 
-def phase_data_parallel(ckpt: str, ckpt_cut: str, tmp: str, seed: int, stage1: dict) -> dict:
-    """Phase 5d, data-parallel training (``core/mesh.py``,
-    ``parallel/sharding.py``, cross-device negatives) through the CLIs:
-
-    (a) world size 1 under NCCL: phase 5's stage 1 (full width and depth,
-        8 steps) with ``--coordinator_address 127.0.0.1:<port>
-        --num_processes 1 --process_id 0 --negatives_cross_device True
-        --zero1 True``, then again with ``--zero2 True``: losses, gradient
-        norms and the final model.safetensors bit-equal to phase 5's stage 1
-        (``stage1``), K1/K3a/K3b launches equal to its;
-    (b) :func:`_dp_pair` on ``ckpt_cut`` (FEATURE_LAYERS of 16 layers) and
-        phase 5's rows with the 3 negatives the collator draws: two ranks
-        sharing the one card under gloo (NCCL refuses two ranks on one
-        device) against one process on the same global batches, each
-        stage held by :func:`_dp_compare`: the ranks' logs identical, step
-        1's loss and gradient norm (the same weights and batch; stage 2's
-        reference starts from the two ranks' stage-1 model) within rtol
-        2e-4, every step's within DP_HISTORY_RTOL, every tensor's update
-        gap within DP_UPDATE_GAP, K1, K3a and K3b launched on each rank;
-        the stage-1 replicas bit-equal; each rank's optimizer-state bytes,
-        peak memory and step time beside the one process's;
-    (c) the W = 2 checkpoint resumed in one process (``run_contrastive
-        --resume_from_checkpoint``, one more step): its parameters and
-        optimizer state as ``train`` starts bit-equal to what the ranks
-        held."""
+def _world_size_1(ckpt: str, train: str, tmp: str, seed: int, stage1: dict,
+                  out: dict) -> None:
+    """5d(a): phase 5's stage 1 through the CLI at world size 1 under NCCL,
+    with ``--zero1`` and then ``--zero2``, each held bit for bit to
+    ``stage1``; the runs go into ``out`` under "zero1" and "zero2"."""
     import torch.distributed as dist
 
     from rankpo_tpu_torch.cli import run_contrastive
 
-    train, pairs = write_training_data(tmp, seed)
-    out = {}
-
-    def timed_step(label):
-        t = time.perf_counter()
-        return lambda: log(f"5d step {label}: {time.perf_counter() - t:.1f} s")
-
-    # ---- (a) W = 1 under NCCL, bit-equal to phase 5's stage 1 ----
-    done = timed_step("a NCCL world size 1")
     flags = ["--coordinator_address", f"127.0.0.1:{_free_port()}", "--num_processes", "1",
              "--process_id", "0", "--negatives_cross_device", "True", "--zero1", "True"]
     try:
@@ -3868,14 +3931,80 @@ def phase_data_parallel(ckpt: str, ckpt_cut: str, tmp: str, seed: int, stage1: d
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    done()
-    # ---- (b) two ranks on the one card under gloo ----
-    done = timed_step("b two ranks under gloo")
-    s1_steps = DP_STEPS[0]
+
+
+def phase_data_parallel(ckpt: str, ckpt_cut: str, tmp: str, seed: int, stage1: dict) -> dict:
+    """Phase 5d, data-parallel training (``core/mesh.py``,
+    ``parallel/sharding.py``, cross-device negatives) through the CLIs:
+
+    (a) world size 1 under NCCL: phase 5's stage 1 (full width and depth,
+        8 steps) with ``--coordinator_address 127.0.0.1:<port>
+        --num_processes 1 --process_id 0 --negatives_cross_device True
+        --zero1 True``, then again with ``--zero2 True``: losses, gradient
+        norms and the final model.safetensors bit-equal to phase 5's stage 1
+        (``stage1``), K1/K3a/K3b launches equal to its;
+    (b) :func:`_dp_pair` on ``ckpt_cut`` (FEATURE_LAYERS of 16 layers) and
+        phase 5's rows with the 3 negatives the collator draws: two ranks
+        sharing the one card under gloo (NCCL refuses two ranks on one
+        device) against one process on the same global batches, each
+        stage held by :func:`_dp_compare`: the ranks' logs identical, step
+        1's loss and gradient norm (the same weights and batch; stage 2's
+        reference starts from the two ranks' stage-1 model) within rtol
+        2e-4, every step's within DP_HISTORY_RTOL, every tensor's update
+        gap within DP_UPDATE_GAP, K1, K3a and K3b launched on each rank;
+        the stage-1 replicas bit-equal; each rank's optimizer-state bytes,
+        peak memory and step time beside the one process's;
+    (c) the W = 2 checkpoint resumed in one process (``run_contrastive
+        --resume_from_checkpoint``, one more step): its parameters and
+        optimizer state as ``train`` starts bit-equal to what the ranks
+        held.
+
+    (a) runs in this process while (b)'s two ranks run (they wait on gloo
+    through host memory and leave the card mostly idle), after (b)'s
+    stage-1 reference: its step times then share the card and the host
+    with them."""
+    train, pairs = write_training_data(tmp, seed)
+    out = {}
+
+    def timed_step(label):
+        t = time.perf_counter()
+        return lambda: log(f"5d step {label}: {time.perf_counter() - t:.1f} s")
+
+    def world_size_1():
+        done = timed_step("a NCCL world size 1, beside (b)'s ranks")
+        _world_size_1(ckpt, train, tmp, seed, stage1, out)
+        done()
+
+    # ---- (b) two ranks on the one card under gloo, (a) beside them ----
+    done = timed_step("b two ranks under gloo, (a) included")
     train_dp = _dp_rows(train, tmp, slice(0, 3), "train_dp.jsonl")
-    pair = _dp_pair(ckpt_cut, train_dp, pairs, tmp, seed, "dp")
+    corpus, corpus_file, _ = _serving_data(seed, tmp)
+    query_file, _, _ = write_eval_queries(tmp, seed, corpus)
+    retrieval = ("--retrieval_eval_query_file", query_file, "--retrieval_eval_corpus_file",
+                 corpus_file, "--retrieval_eval_k", "100", "--eval_strategy", "steps",
+                 "--eval_steps", str(DP_STEPS[0]))
+    pair = _dp_pair(ckpt_cut, train_dp, pairs, tmp, seed, "dp", retrieval=retrieval,
+                    beside=world_size_1)
     ranks, one = pair["ranks"], pair["one"]
     checks = _dp_compare(pair)
+    # the retrieval hook at W = 2 against cli.evaluate at W = 2 over the
+    # stage-1 model saved at its step: the same shard batches, the same bf16
+    # weights, so the same bits
+    hook_equal = True
+    for r, rank in enumerate(ranks):
+        ret = rank["stage1"]["retrieval"]
+        if [h["global_step"] for h in ret["hook"]] != [DP_STEPS[0]]:
+            raise AssertionError(f"5d W=2 hook: eval rows {ret['hook']}")
+        live = {k[len("retrieval_"):]: v for k, v in ret["hook"][0].items()
+                if k.startswith("retrieval_") and k != "retrieval_eval_runtime"}
+        hook_equal &= live == ret["offline"] and ret["offline_k1"] > 0
+        log(f"5d W=2 retrieval hook at step {DP_STEPS[0]}, rank {r} (two ranks on one card, "
+            f"gloo): runtime {ret['hook'][0]['retrieval_eval_runtime']} s; MRR@10 "
+            f"{live.get('MRR@10')}, nDCG@10 {live.get('nDCG@10')}; cli.evaluate at W = 2 "
+            f"over the saved model: bit-equal {live == ret['offline']}; its K1 launches "
+            f"{ret['offline_k1']}")
+    if not hook_equal:
+        raise AssertionError("5d W=2: the retrieval hook disagrees with cli.evaluate at W = 2")
     _, ref1, dp1 = pair["dirs"]["stage1"]
     _, ref2, dp2 = pair["dirs"]["stage2"]
     shutil.rmtree(dp2)  # the one-process runs stay for phase 5t
@@ -3883,7 +4012,7 @@ def phase_data_parallel(ckpt: str, ckpt_cut: str, tmp: str, seed: int, stage1: d
         c, r0, r1 = checks[stage], ranks[0][stage], ranks[1][stage]
         log(_dp_line(f"5d W=2 {stage}", c) + f" (limits: step 1 2e-4, every step "
             f"{DP_HISTORY_RTOL:.0e}, update gap {DP_UPDATE_GAP}); losses "
-            f"{[round(h['loss'], 6) for h in r0['history']]} (one process "
+            f"{[round(h['loss'], 6) for h in r0['history'] if 'loss' in h]} (one process "
             f"{[round(x, 6) for x in one[stage]['losses']]}); the ranks' logs identical: "
             f"{c['ranks_equal']}; K1/K3a/K3b per rank {c['launched']}; median step "
             f"{r0['step_time_s']:.4f} / {r1['step_time_s']:.4f} s (one process "
@@ -4081,10 +4210,20 @@ def check_dkv_f32(seed: int) -> dict:
         del o_lib, leaves
         b_ms, b_by = bound(attention_cost(lens, s_loc, s_loc, hq, hkv, d, "flash_dkv_f32",
                                           causal=False, skip=False))
-        res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        # the bf16 build at the same shape (the split backward's K3b, its
+        # kernels told apart by name): whether the fp32 stores or the shape
+        # cost the time over the bound
+        traced = profile_device_ms(
+            lambda: flash.flash_attention_bwd(q, k, v, mask, do, lse, delta), 10)
+        bf16_ms = float(sum(t for n, t in traced.items() if "flash_bwd_kv" in n))
+        bf16_bound, _ = bound(attention_cost(lens, s_loc, s_loc, hq, hkv, d, "flash_dkv",
+                                             causal=False, skip=False))
+        res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound)
         log(f"time flash_dkv_f32 at {(b, s_loc, s_loc, hq, hkv, d)} non-causal (a ring "
             f"step): kernel {ms:.4f} ms (device time, profiler); plain {plain_ms:.4f} ms; "
-            f"library (SDPA backward alone) {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+            f"library (SDPA backward alone) {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+            f"the bf16 K3b at the same shape {bf16_ms:.4f} ms (bound {bf16_bound:.4f} ms)")
     del q, k, v, do
     torch.cuda.empty_cache()
     return res
@@ -4152,12 +4291,12 @@ def _check_sharded_pair(ckpt_cut: str, tmp: str, seed: int, dp: dict, tag: str, 
             "wall_s": pair["wall_s"]}
 
 
-def phase_sharded(ckpt_cut: str, tmp: str, seed: int, dp: dict) -> dict:
+def phase_sharded(ckpt_cut: str, tmp: str, seed: int, dp: dict, beside=None) -> dict:
     """Phase 5t, sharded models (at FEATURE_LAYERS of 16 layers):
 
-    (a) ring attention (``parallel/ring_attention.py``): K3b's fp32 build
-        checked and timed (:func:`check_dkv_f32`); then two ranks sharing
-        the card under gloo run ``context_parallel_attention(impl="flash")``
+    (a) ring attention (``parallel/ring_attention.py``; K3b's fp32 build
+        is checked and timed in phase 2, :func:`check_dkv_f32`): two ranks
+        sharing the card under gloo run ``context_parallel_attention(impl="flash")``
         at RING_SHAPE (:func:`_ring_rank`): out, dq, dk and dv within 2^-7
         of each tensor's largest |value| of the one-process K1 + K3a + K3b
         on the whole sequence, both ranks' results bit-equal, rank 0 one K1,
@@ -4171,8 +4310,13 @@ def phase_sharded(ckpt_cut: str, tmp: str, seed: int, dp: dict) -> dict:
         and optimizer state within half of one process's plus the
         embedding's;
 
-    (b) and (c) run at once (four ranks on the card), each then held by
-    :func:`_check_sharded_pair`."""
+    (a), (b) and (c) run at once (six ranks on the card), with the
+    one-process fp32 references beside them and then ``beside`` (the
+    phases of this process that need none of 5t's results; the ranks wait
+    on gloo through host memory and leave the card mostly idle, so those
+    phases' times share the card and the host with them); the ring is held
+    next, then each pair by :func:`_check_sharded_pair` as soon as it
+    ends."""
     from rankpo_tpu_torch.cli import run_contrastive, run_rankpo
 
     out = {}
@@ -4181,68 +4325,79 @@ def phase_sharded(ckpt_cut: str, tmp: str, seed: int, dp: dict) -> dict:
         t = time.perf_counter()
         return lambda: log(f"5t step {label}: {time.perf_counter() - t:.1f} s")
 
+    done = timed_step("a, b and c, the ring and the two pairs at once")
+    ring = _launch_ranks("5t ring", tmp, _ring_rank, seed)
+    # (b) and (c): the two pairs
+    shared = dp["shared"]
+    pairs = {"tp": ("mp=2", ("--model_parallel", "2"), [[16, 4]]),
+             "fsdp": ("fsdp", ("--fsdp", "True"), [[32, 8]])}
+    stages, launched = {}, {"ring": ring}
+    try:
+        for key, (_, flags, _) in pairs.items():
+            stages[key] = _pair_stages(ckpt_cut, dp["train_dp"], dp["pairs"], tmp, seed, key,
+                                       shared["stage2_start"], flags, fp32=key == "tp")
+            launched[key] = _launch_ranks(f"5t {key}", tmp, _dp_rank, f"5t {key}", stages[key])
+        # while they run: one process's stages in fp32 with plain attention,
+        # for (b)'s fp32 stages, then the phases beside
+        for stage, main, argv in (
+                ("stage1_fp32", run_contrastive.main,
+                 _feature_argv(ckpt_cut, dp["train_dp"],
+                               os.path.join(tmp, "dp_stage1_w1_fp32"), seed, "stage1",
+                               FP32_STAGE1_STEPS, *FP32_FLAGS)),
+                ("stage2_fp32", run_rankpo.main,
+                 _feature_argv(shared["stage2_start"], dp["pairs"],
+                               os.path.join(tmp, "dp_stage2_w1_fp32"), seed, "stage2",
+                               DP_STEPS[1], *FP32_FLAGS))):
+            with _capture_trainers() as seen:
+                n = shared["runs"][stage] = run_feature(f"5t W=1 {stage} reference", main,
+                                                        argv, keep=True)
+                n["state_bytes"] = _state_bytes(seen[-1]["trainer"])
+                n["param_bytes"] = sum(p.numel() * p.element_size()
+                                       for p in seen[-1]["trainer"].params)
+                del seen
+            shared["dirs"][stage] = argv[argv.index("--output_dir") + 1]
+        if beside is not None:
+            beside()
+        ranks, _ = _join_ranks(ring)
+    except BaseException:
+        for one in launched.values():
+            _kill_ranks(one)
+        raise
     # ---- (a) the ring ----
-    done = timed_step("a ring attention")
-    out["dkv_f32"] = check_dkv_f32(seed)
-    ranks, _ = _join_ranks(_launch_ranks("5t ring", tmp, _ring_rank, seed))
     r0, r1 = ranks
-    launched = [(r["launches"]["flash_fwd"], r["launches"]["flash_dq"],
-                 r["f32_launches"]["flash_dkv"]) for r in ranks]
+    counts = [(r["launches"]["flash_fwd"], r["launches"]["flash_dq"],
+               r["f32_launches"]["flash_dkv"]) for r in ranks]
     # every K3b launch of the ring is the fp32 build's
     launched_dkv = [r["launches"]["flash_dkv"] for r in ranks]
     for name, (e, tol) in r0["errors"].items():
         log(f"5t ring {RING_SHAPE} causal over 2 ranks: {name} max|ring - one process| "
             f"{e:.3e} (limit {tol:.3e})")
     hops = r0["hops"]
-    log(f"5t ring: K1/K3a/K3b fp32 launches per rank {launched} (want (1, 1, 1), (2, 2, 2)); "
+    log(f"5t ring: K1/K3a/K3b fp32 launches per rank {counts} (want (1, 1, 1), (2, 2, 2)); "
         f"both ranks bit-equal {r0['digests'] == r1['digests']}; ring of one bit-equal to "
         f"flash_attention {r0['solo_bit_equal']}; ring forward + backward "
         f"{r0['ring_s']:.4f} / {r1['ring_s']:.4f} s per rank (two ranks sharing one card), "
         f"one process {r0['one_s']:.4f} s (median of {RING_TIMED}, host clock); rank 0's "
         f"hops in the counted run: {hops['hops']}, {hops['bytes'] / 1e6:.1f} MB sent, "
-        f"{hops['seconds']:.4f} s (gloo: through the host)")
+        f"{hops['seconds']:.4f} s (gloo: through the host); these times beside (b)'s and "
+        f"(c)'s ranks")
     if not (all(e <= tol for e, tol in r0["errors"].values())
             and r0["digests"] == r1["digests"] and r0["solo_bit_equal"]
-            and launched == [(1, 1, 1), (2, 2, 2)] and launched_dkv == [1, 2]):
-        raise AssertionError(f"5t ring: {r0['errors']}, launches {launched}")
+            and counts == [(1, 1, 1), (2, 2, 2)] and launched_dkv == [1, 2]):
+        for key in pairs:
+            _kill_ranks(launched[key])
+        raise AssertionError(f"5t ring: {r0['errors']}, launches {counts}")
     out["ring"] = ranks
-    done()
-    # ---- (b) tensor parallelism, (c) fsdp ----
-    shared = dp["shared"]
-    # one process's stages in fp32 with plain attention, for (b)'s fp32 stages
-    for stage, main, argv in (
-            ("stage1_fp32", run_contrastive.main,
-             _feature_argv(ckpt_cut, dp["train_dp"], os.path.join(tmp, "dp_stage1_w1_fp32"),
-                           seed, "stage1", FP32_STAGE1_STEPS, *FP32_FLAGS)),
-            ("stage2_fp32", run_rankpo.main,
-             _feature_argv(shared["stage2_start"], dp["pairs"],
-                           os.path.join(tmp, "dp_stage2_w1_fp32"), seed, "stage2", DP_STEPS[1],
-                           *FP32_FLAGS))):
-        with _capture_trainers() as seen:
-            n = shared["runs"][stage] = run_feature(f"5t W=1 {stage} reference", main, argv,
-                                                    keep=True)
-            n["state_bytes"] = _state_bytes(seen[-1]["trainer"])
-            n["param_bytes"] = sum(p.numel() * p.element_size()
-                                   for p in seen[-1]["trainer"].params)
-            del seen
-        shared["dirs"][stage] = argv[argv.index("--output_dir") + 1]
-    # both pairs at once: four ranks sharing the card (their step times
-    # then share its host and gloo traffic)
-    done = timed_step("b and c, the two pairs at once")
-    pairs = {"tp": ("mp=2", ("--model_parallel", "2"), [[16, 4]]),
-             "fsdp": ("fsdp", ("--fsdp", "True"), [[32, 8]])}
-    stages, launched = {}, {}
-    for key, (_, flags, _) in pairs.items():
-        stages[key] = _pair_stages(ckpt_cut, dp["train_dp"], dp["pairs"], tmp, seed, key,
-                                   shared["stage2_start"], flags, fp32=key == "tp")
-        launched[key] = _launch_ranks(f"5t {key}", tmp, _dp_rank, f"5t {key}", stages[key])
-    joined = {key: _join_ranks(launched[key]) for key in pairs}
-    done()
+    # ---- (b) tensor parallelism, (c) fsdp: mp 2's checks while fsdp still runs ----
     for key, (label, _, heads) in pairs.items():
-        done = timed_step(f"{'b' if key == 'tp' else 'c'} {label} checks")
-        pair = _shared_pair(ckpt_cut, stages[key], *joined[key], shared)
-        out[key] = _check_sharded_pair(ckpt_cut, tmp, seed, dp, key, label, heads, pair)
-        done()
+        try:
+            pair = _shared_pair(ckpt_cut, stages[key], *_join_ranks(launched[key]), shared)
+            out[key] = _check_sharded_pair(ckpt_cut, tmp, seed, dp, key, label, heads, pair)
+        except BaseException:
+            for other in pairs:
+                _kill_ranks(launched[other])
+            raise
+    done()
     for path in (*shared["dirs"].values(), shared["stage2_start"]):
         shutil.rmtree(path)
     launches = {name: sum(r[stage]["launches"][name] for key in ("tp", "fsdp")
@@ -4614,17 +4769,17 @@ def write_eval_queries(tmp: str, seed: int, corpus):
     passage of ``corpus`` and labelled with that passage's index."""
     rng = np.random.default_rng(seed + 3)
     path = os.path.join(tmp, "eval_queries.jsonl")
-    queries, labels = [], []
-    with open(path, "w") as f:
-        for _ in range(N_EVAL_QUERIES):
-            i = int(rng.integers(len(corpus)))
-            words = corpus[i].split()
-            n = min(len(words), int(rng.integers(4, 33)))
-            lo = int(rng.integers(len(words) - n + 1))
-            queries.append(" ".join(words[lo : lo + n]))
-            labels.append([i])
-            f.write(json.dumps({"query": {"text": queries[-1]},
-                                "positives": {"index": labels[-1]}}) + "\n")
+    queries, labels, lines = [], [], []
+    for _ in range(N_EVAL_QUERIES):
+        i = int(rng.integers(len(corpus)))
+        words = corpus[i].split()
+        n = min(len(words), int(rng.integers(4, 33)))
+        lo = int(rng.integers(len(words) - n + 1))
+        queries.append(" ".join(words[lo : lo + n]))
+        labels.append([i])
+        lines.append(json.dumps({"query": {"text": queries[-1]},
+                                 "positives": {"index": labels[-1]}}) + "\n")
+    _write_lines(path, lines)
     return path, queries, labels
 
 
@@ -4645,7 +4800,8 @@ EVAL_TIERS = {"flat": [], "ivf": ["--index_type", "ivf"],
               "refine": ["--index_type", "refine"]}
 
 
-def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> dict:
+def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS),
+                   nccl_flat: bool = False) -> dict:
     """The evaluation path: ``rankpo_tpu_torch.cli.evaluate`` over the
     serving corpus and N_EVAL_QUERIES span queries, flat (K1), then
     ``--index_type ivf`` (K1, K4) and ``--index_type refine`` (K1), or the
@@ -4653,7 +4809,10 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> d
     ``compute_metrics`` recomputed on the host over the saved arrays, and
     the flat hits equal to numpy_search over the embeddings the CLI made
     (read from its encoder as it returns them) outside SCORE_ATOL
-    near-ties. Each encode is timed in the run (a sync on either side)."""
+    near-ties. Each encode is timed in the run (a sync on either side).
+    ``nccl_flat``: the flat call runs with the three process flags at
+    world size 1 (an NCCL group of one, the sharded index over it, the
+    group destroyed after), held by the same checks."""
     from rankpo_tpu_torch.cli import evaluate
     from rankpo_tpu_torch.eval.metrics import compute_metrics
     from rankpo_tpu_torch.index.encoding import InferenceEncoder
@@ -4693,12 +4852,26 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> d
         ivf_gather.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         InferenceEncoder.encode_device = timed_encode
+        if nccl_flat and tier == "flat":
+            extra = [*extra, "--coordinator_address", f"127.0.0.1:{_free_port()}",
+                     "--num_processes", "1", "--process_id", "0"]
         t0 = time.perf_counter()
         try:
             results = evaluate.main([*common, "--output_dir", out_dir, *extra])
             torch.cuda.synchronize()
+            if "--num_processes" in extra:
+                import torch.distributed as dist
+
+                if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+                    raise AssertionError(f"evaluate: the CLI made a {dist.get_backend()} "
+                                         f"group of {dist.get_world_size()}, not NCCL of 1")
         finally:
             InferenceEncoder.encode_device = encode_device
+            if "--num_processes" in extra:
+                import torch.distributed as dist
+
+                if dist.is_initialized():
+                    dist.destroy_process_group()
         wall = time.perf_counter() - t0
         launches = {"flash_fwd": flash.launches["flash_fwd"],
                     "ivf_probe_scores": ivf_gather.launches["ivf_probe_scores"]}
@@ -4734,7 +4907,9 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS)) -> d
         if [n for _, n, _ in encodes] != [N_EVAL_QUERIES, N_PASSAGES]:
             raise AssertionError(f"evaluate ({tier}): encodes of {[n for _, n, _ in encodes]}")
         (q_emb, _, q_s), (c_emb, _, c_s) = encodes
-        log(f"evaluate ({config.model_type}, {tier}): {N_EVAL_QUERIES} queries over {N_PASSAGES} passages in "
+        log(f"evaluate ({config.model_type}, {tier}"
+            + (", NCCL world size 1" if "--num_processes" in extra else "")
+            + f"): {N_EVAL_QUERIES} queries over {N_PASSAGES} passages in "
             f"{wall:.2f} s wall = {N_EVAL_QUERIES / wall:.1f} queries/s, "
             f"{N_PASSAGES / wall:.1f} passages/s (query encode {q_s:.3f} s, corpus encode "
             f"{c_s:.3f} s, the rest checkpoint load, index, search, metrics and files); "
@@ -4804,14 +4979,16 @@ def write_mining_data(tmp: str, seed: int):
 
 
 def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str,
-                 pipeline_ckpt: str) -> dict:
+                 pipeline_ckpt: str, kept: Optional[dict] = None) -> dict:
     """The mining and prediction paths: ``get_hard_negatives`` (topk and
     cluster, λ 0.5) over N_MINING_ROWS rows, ``get_predictions`` over the
     eval queries and the serving corpus, then ``run_pipeline --iterations
     2`` over N_PIPELINE_ROWS rows at full width from ``pipeline_ckpt`` (4
     of 16 layers in the smoke; random bootstrap, stage-1 training, mining
     with the fresh model, training again, prediction pairs). Every mined negative is neither the query nor a positive of its
-    row, and every row has its count."""
+    row, and every row has its count. ``kept`` receives the mining argv
+    (without ``--output_prefix``) and the mined files' text, for 8's pair
+    of ranks."""
     from rankpo_tpu_torch.cli import get_hard_negatives, get_predictions, run_pipeline
     from rankpo_tpu_torch.data.datasets import iter_jsonl
     from rankpo_tpu_torch.ops import flash_attention as flash
@@ -4842,10 +5019,14 @@ def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str,
         return result
 
     mined_dir = os.path.join(tmp, "mined")
-    outputs = run("mining", get_hard_negatives.main, [
-        *common, "--input_file", mining, "--output_prefix", mined_dir,
-        "--max_passage_length", "256", "--method", "topk,cluster", "--lambda_", "0.5",
-        "--num_negatives", str(n_neg), "--search_range", "0-100", "--num_clusters", "10"])
+    mine_argv = [*common, "--input_file", mining, "--max_passage_length", "256",
+                 "--method", "topk,cluster", "--lambda_", "0.5", "--num_negatives",
+                 str(n_neg), "--search_range", "0-100", "--num_clusters", "10"]
+    outputs = run("mining", get_hard_negatives.main,
+                  [*mine_argv, "--output_prefix", mined_dir])
+    if kept is not None:
+        kept["argv"] = mine_argv
+        kept["files"] = {name: open(path).read() for name, path in outputs.items()}
     if sorted(outputs) != ["cluster5.jsonl", "topk.jsonl"]:
         raise AssertionError(f"mining wrote {sorted(outputs)}")
     for name, path in outputs.items():
@@ -4913,6 +5094,353 @@ def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str,
         f"memory {pl['peak_mem_gib']:.2f} GiB; launches {pl['launches']}")
     for path in (pipe_dir, mined_dir):
         shutil.rmtree(path)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 7d, 8 (its pair) and 4d: evaluation, mining and serving over two
+# ranks sharing the card under gloo (NCCL takes one rank per device)
+# ---------------------------------------------------------------------------
+
+MP_ADD = 64  # 4d: passages added over HTTP, then ids removed
+MP_ALLOWED = 512  # 4d: the filtered request's allowed ids
+
+
+def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
+    """One of the two ranks of 7d, 8's pair and 4d (started by
+    ``multiprocessing`` with spawn): join the gloo group on cuda:0, then run
+    ``cli.evaluate`` flat and refine on the FEATURE_LAYERS checkpoint (7d),
+    one ``get_hard_negatives`` (8) and ``cli.serve`` flat at full depth
+    until rank 0 takes SIGTERM (4d), each with the launch counters from 0
+    just before and read just after. Kept for the parent's checks: each
+    rank's shard of the corpus embeddings (``encode_shard``) and the query
+    embeddings (7d), rank 0's searches (the query embeddings, the merged
+    hits, the filter, whether a mutation had come first; 4d)."""
+    import torch.distributed as dist
+
+    from rankpo_tpu_torch.cli import evaluate, get_hard_negatives, serve
+    from rankpo_tpu_torch.core import mesh
+    from rankpo_tpu_torch.index.encoding import InferenceEncoder
+    from rankpo_tpu_torch.index.flat import FlatIPIndex
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.serve.service import RetrievalService
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    originals = (InferenceEncoder.encode_shard, InferenceEncoder.encode,
+                 FlatIPIndex.search_tensor, RetrievalService.add_passages)
+    shards, queries, searches, state = [], [], [], {"mutated": False, "search_s": 0.0}
+
+    def kept_shard(self, *args, **kwargs):
+        emb, n = originals[0](self, *args, **kwargs)
+        shards.append(emb.cpu())
+        return emb, n
+
+    def kept_encode(self, *args, **kwargs):
+        out = originals[1](self, *args, **kwargs)
+        queries.append(out)
+        return out
+
+    def kept_search(self, q, k, **kwargs):
+        t0 = time.perf_counter()
+        s_, i_ = originals[2](self, q, k, **kwargs)
+        state["search_s"] += time.perf_counter() - t0  # the gather copies to the host
+        sel = kwargs.get("sel")
+        searches.append((q.float().cpu().numpy(), s_.cpu().numpy(), i_.cpu().numpy(),
+                         None if sel is None else sel.cpu().numpy(), state["mutated"]))
+        return s_, i_
+
+    def kept_add(self, *args, **kwargs):
+        state["mutated"] = True
+        return originals[3](self, *args, **kwargs)
+
+    InferenceEncoder.encode_shard, InferenceEncoder.encode = kept_shard, kept_encode
+    FlatIPIndex.search_tensor, RetrievalService.add_passages = kept_search, kept_add
+    out = {"device": f"{torch.cuda.current_device()} {torch.cuda.get_device_name()}",
+           "steps": {}}
+
+    def step(name, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        shards.clear()
+        queries.clear()
+        searches.clear()
+        flash.reset_launches()
+        mesh.reset_gather_stats()
+        state["search_s"] = 0.0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out["steps"][name] = {"wall_s": time.perf_counter() - t0,
+                              "launches": flash.launches["flash_fwd"],
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                              "shard_rows": [int(x.shape[0]) for x in shards],
+                              "gathers": dict(mesh.gather_stats),
+                              "search_s": state["search_s"], "result": result}
+        log(f"{name} rank {rank} (two ranks on one card, gloo): device {out['device']}, "
+            f"shard rows {out['steps'][name]['shard_rows']}, K1 launches "
+            f"{flash.launches['flash_fwd']}, peak {out['steps'][name]['peak_mem_gib']:.2f} "
+            f"GiB, {out['steps'][name]['wall_s']:.1f} s")
+
+    try:
+        for tier in ("flat", "refine"):
+            step(f"7d {tier}", lambda: evaluate.main(
+                plan["eval_argv"] + ["--output_dir", plan["eval_dirs"][tier][rank],
+                                     *EVAL_TIERS[tier]]))
+            if tier == "flat":
+                torch.save({"shard": shards[0], "queries": queries[0]}, plan["eval_emb"][rank])
+        step("8 mining", lambda: sorted(get_hard_negatives.main(
+            plan["mine_argv"] + ["--output_prefix", plan["mined"][rank]])))
+        step("4d serving", lambda: serve.main(plan["serve_argv"]))
+        torch.save({"shard": shards[0], "searches": searches}, plan["serve_emb"][rank])
+    finally:
+        (InferenceEncoder.encode_shard, InferenceEncoder.encode, FlatIPIndex.search_tensor,
+         RetrievalService.add_passages) = originals
+        dist.destroy_process_group()
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+
+
+def _tie_aware_recall(idx: np.ndarray, exact_scores_of, exact_kth: np.ndarray) -> float:
+    """The share of returned ids whose exact score clears the exact k-th
+    score less SCORE_ATOL (a hit inside a near-tie at the boundary counts)."""
+    hits = [exact_scores_of(r, row) >= exact_kth[r] - SCORE_ATOL for r, row in enumerate(idx)]
+    return float(np.mean(np.concatenate(hits)))
+
+
+def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: dict) -> dict:
+    """Phases 7d, 8's pair and 4d: two ranks sharing the card under gloo
+    (:func:`_mp_rank`, one spawn for the three), each rank on its own row
+    shard of the corpus.
+
+    7d: ``cli.evaluate`` flat, then refine, on phase 7's FEATURE_LAYERS
+        checkpoint and files: (i) each rank's shard embeddings bit-equal to
+        a one-process ``encode_device`` of the shard's texts on the card;
+        (ii) the flat hits equal to numpy_search over the ranks' embeddings
+        outside SCORE_ATOL near-ties; (iii) the saved metrics bit-equal to
+        ``compute_metrics`` recomputed on the host (and to what both ranks
+        returned; rank 1 writes nothing); refine's recall against the exact
+        search at storage precision (near-ties at the k-th score counted)
+        at least its target 0.95; against phase 7's one-process results the
+        metrics' differences and the differing top-100 ids printed (batch
+        composition only: not gated).
+    8:  one ``get_hard_negatives`` at W = 2 writes phase 8's files.
+    4d: ``cli.serve`` flat fp32 at full width and depth (``ckpt``): /search
+        from 8 clients (32 single requests), 16-query requests and one
+        filtered request, hits equal to numpy_search over the ranks'
+        embeddings outside near-ties, p50 and p99; /add, /remove and /save,
+        SIGTERM to rank 0, both ranks exit 0; then one process restarts from
+        the W = 2 file and serves the W = 2 server's hits."""
+    from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
+    from rankpo_tpu_torch.eval.metrics import compute_metrics
+    from rankpo_tpu_torch.index.encoding import InferenceEncoder
+    from rankpo_tpu_torch.index.flat import numpy_search
+    from rankpo_tpu_torch.ops import flash_attention as flash
+
+    corpus, corpus_file, queries = _serving_data(seed, tmp)
+    query_file, _, labels = write_eval_queries(tmp, seed, corpus)
+    tok = "hash:128256"
+    http_port = _free_port()
+    serve_argv = ["--model_name_or_path", ckpt, "--tokenizer_name", tok,
+                  "--corpus_data", corpus_file, "--max_query_length", "512",
+                  "--max_passage_length", "512", "--batch_size", "64", "--device", "cuda",
+                  "--log_level", "warning"]
+    paths = lambda name: [os.path.join(tmp, f"{name}_r{r}") for r in range(2)]  # noqa: E731
+    plan = {"eval_argv": ["--model_name_or_path", ckpt_cut, "--tokenizer_name", tok,
+                          "--query_data", query_file, "--corpus_data", corpus_file, "--bf16",
+                          "--k", "100", "--batch_size", "64", "--max_query_length", "64",
+                          "--max_passage_length", "512", "--device", "cuda",
+                          "--log_level", "warning"],
+            "eval_dirs": {tier: paths(f"7d_{tier}") for tier in ("flat", "refine")},
+            "eval_emb": paths("7d_emb"), "mine_argv": mining["argv"], "mined": paths("8d"),
+            "serve_argv": [*serve_argv, "--port", str(http_port)],
+            "serve_emb": paths("4d_emb")}
+    out = {}
+    launched = _launch_ranks("7d 8 4d", tmp, _mp_rank, plan)
+    procs = launched[1]
+    # ---- 4d: the server's requests (the ranks run 7d and 8 first) ----
+    t_wait = time.perf_counter()
+    while True:
+        if any(not p.is_alive() for p in procs):
+            raise AssertionError(f"4d: a rank ended before serving: "
+                                 f"{[p.exitcode for p in procs]}")
+        try:
+            if _http(http_port, "/healthz")[1]["ntotal"] == N_PASSAGES:
+                break
+        except OSError:
+            pass
+        if time.perf_counter() - t_wait > 900:
+            raise TimeoutError("4d: the server did not come up")
+        time.sleep(0.5)
+    with ThreadPoolExecutor(8) as pool:
+        singles = list(pool.map(lambda i: _http(http_port, "/search", {
+            "query": queries[i], "k": (10, 100)[i % 2]}), range(32)))
+    batched = [(_http(http_port, "/search", {"queries": queries[16 * j:16 * (j + 1)],
+                                             "k": k}), k)
+               for j, k in enumerate((10, 100, 10, 100))]
+    rng = np.random.default_rng(seed + 40)
+    allowed = np.sort(rng.choice(N_PASSAGES, MP_ALLOWED, replace=False)).tolist()
+    batched.append((_http(http_port, "/search", {"queries": queries[:16], "k": 100,
+                                                 "allowed_ids": allowed}), 100))
+    for (status, body, _), i in zip(singles, range(32)):
+        _check_reply(status, body, 1, (10, 100)[i % 2])
+    for (status, body, _), k in batched:
+        _check_reply(status, body, 16, k)
+    added = [" ".join(rng.choice(WORDS, size=int(n))) for n in rng.integers(16, 481, MP_ADD)]
+    removed = list(range(0, N_PASSAGES, N_PASSAGES // MP_ADD))
+    t_mut = time.perf_counter()
+    for path, payload in (("/add", {"passages": added}), ("/remove", {"ids": removed})):
+        status, body, _ = _http(http_port, path, payload)
+        if status != 200 or body["ntotal"] != N_PASSAGES + (MP_ADD if path == "/add" else 0):
+            raise AssertionError(f"4d {path}: {status} {body}")
+    final = _http(http_port, "/search", {"queries": queries[:16], "k": 100})
+    _check_reply(final[0], final[1], 16, 100)
+    index_file = os.path.join(tmp, "4d_index.npz")
+    status, body, _ = _http(http_port, "/save", {"path": index_file})
+    mutate_s = time.perf_counter() - t_mut
+    if status != 200 or not os.path.isfile(index_file):
+        raise AssertionError(f"4d /save: {status} {body}")
+    procs[0].terminate()  # SIGTERM: rank 0 stops serving and releases rank 1
+    ranks, wall = _join_ranks(launched)
+    lat = np.array([r[2] for r in singles]) * 1e3
+    g4 = ranks[0]["steps"]["4d serving"]
+    out["serving"] = {"gather_s": g4["gathers"]["seconds"], "search_s": g4["search_s"],
+                      "gathers": g4["gathers"]["calls"], "gather_bytes": g4["gathers"]["bytes"],
+                      "p50_ms": float(np.percentile(lat, 50)),
+                      "p99_ms": float(np.percentile(lat, 99)),
+                      "batch16_p50_ms": float(np.percentile([b[0][2] for b in batched[:4]],
+                                                            50) * 1e3),
+                      "mutate_s": mutate_s}
+    for name in ranks[0]["steps"]:
+        for r, rank in enumerate(ranks):
+            if rank["steps"][name]["launches"] <= 0:
+                raise AssertionError(f"{name} rank {r}: K1 was not launched")
+
+    # ---- 7d's checks ----
+    half = N_PASSAGES // 2
+    embs = [torch.load(path, weights_only=False) for path in plan["eval_emb"]]
+    rows = torch.cat([e["shard"] for e in embs]).numpy()[:N_PASSAGES]
+    q7 = embs[0]["queries"]
+    encoder = InferenceEncoder.from_pretrained(
+        ckpt_cut, tokenizer=resolve_tokenizer(tok, ckpt_cut), device="cuda",
+        compute_dtype=torch.bfloat16)
+    for r, e in enumerate(embs):
+        one = encoder.encode_device(corpus[r * half:(r + 1) * half], batch_size=64,
+                                    max_length=512)[0].cpu()
+        if not torch.equal(one, e["shard"][:half]):
+            raise AssertionError(f"7d rank {r}: shard embeddings differ from a one-process "
+                                 "encode of the shard's texts")
+    del encoder
+    if not np.array_equal(embs[1]["queries"], q7):
+        raise AssertionError("7d: the ranks' query embeddings differ")
+    base = os.path.basename(ckpt_cut)
+    got = {}
+    for tier in ("flat", "refine"):
+        stem = os.path.join(plan["eval_dirs"][tier][0], base, "main")
+        with open(stem + ".json") as f:
+            saved = json.load(f)
+        idx, scores = np.load(stem + "-indices.npy"), np.load(stem + "-scores.npy")
+        host = compute_metrics(idx, scores, labels, cutoffs=EVAL_CUTOFFS)
+        returned = [rank["steps"][f"7d {tier}"]["result"]["main"] for rank in ranks]
+        if saved != host or returned != [host, host]:
+            raise AssertionError(f"7d {tier}: saved metrics differ from the host recompute "
+                                 "or from what the ranks returned")
+        if os.path.exists(plan["eval_dirs"][tier][1]):
+            raise AssertionError(f"7d {tier}: rank 1 wrote files")
+        one_stem = os.path.join(tmp, f"eval_llama_{tier}", base, "main")
+        one_idx = np.load(one_stem + "-indices.npy")
+        with open(one_stem + ".json") as f:
+            one_metrics = json.load(f)
+        differing = int(sum(len(set(a) - set(b)) for a, b in zip(idx.tolist(),
+                                                                 one_idx.tolist())))
+        got[tier] = {"idx": idx, "scores": scores, "metrics": host, "differing": differing,
+                     "metric_gaps": {k: host[k] - one_metrics[k] for k in
+                                     ("MRR@10", "Recall@100", "AUC@100", "nDCG@10")}}
+    o_scores, o_idx = numpy_search(rows, q7, 101)
+    n_near = _check_against_oracle(got["flat"]["idx"], got["flat"]["scores"], o_scores, o_idx)
+    rows_b = torch.from_numpy(rows).bfloat16().float().numpy()
+    q_b = torch.from_numpy(q7).bfloat16().float().numpy()
+    e_scores, _ = numpy_search(rows_b, q_b, 100)
+    recall = _tie_aware_recall(got["refine"]["idx"], lambda r, ids: rows_b[ids] @ q_b[r],
+                               e_scores[:, -1])
+    for tier in ("flat", "refine"):
+        g = got[tier]
+        log(f"7d evaluate {tier} at W = 2 (two ranks on one card, gloo): metrics bit-equal to "
+            f"the host recompute; MRR@10 {g['metrics']['MRR@10']:.4f}, nDCG@10 "
+            f"{g['metrics']['nDCG@10']:.4f}; against phase 7's one process (batch "
+            f"composition only, not gated): metric differences "
+            f"{ {k: round(v, 6) for k, v in g['metric_gaps'].items()} }, {g['differing']} "
+            f"of {N_EVAL_QUERIES * 100} top-100 ids differ; ranks' walls "
+            f"{[round(rk['steps'][f'7d {tier}']['wall_s'], 1) for rk in ranks]} s")
+    log(f"7d: each rank's {half} shard rows bit-equal to a one-process encode of its texts; "
+        f"flat hits equal to numpy_search over the ranks' embeddings ({n_near} hits inside "
+        f"{SCORE_ATOL} near-ties not compared); refine recall@100 against the exact search "
+        f"at storage precision (near-ties at the 100th score counted) {recall:.4f} "
+        "(limit 0.95)")
+    if recall < 0.95:
+        raise AssertionError(f"7d refine: recall {recall:.4f} < 0.95")
+
+    # ---- 8's pair ----
+    for name, text in mining["files"].items():
+        with open(os.path.join(plan["mined"][0], name)) as f:
+            if f.read() != text:
+                raise AssertionError(f"8 at W = 2: {name} differs from phase 8's file")
+    if os.path.exists(plan["mined"][1]):
+        raise AssertionError("8 at W = 2: rank 1 wrote files")
+    log(f"8 get_hard_negatives at W = 2 (two ranks on one card, gloo): "
+        f"{sorted(mining['files'])} equal to phase 8's one-process files; walls "
+        f"{[round(rk['steps']['8 mining']['wall_s'], 1) for rk in ranks]} s")
+
+    # ---- 4d's checks: the hits before /add against numpy_search ----
+    served = [torch.load(path, weights_only=False) for path in plan["serve_emb"]]
+    rows4 = torch.cat([e["shard"] for e in served]).numpy()[:N_PASSAGES]
+    n_near4, checked = 0, 0
+    for q, s_, i_, sel, mutated in served[0]["searches"]:
+        if mutated:
+            continue
+        pool = np.arange(N_PASSAGES) if sel is None else np.nonzero(sel)[0]
+        o_s, o_i = numpy_search(rows4[pool], q, i_.shape[1] + 1)
+        n_near4 += _check_against_oracle(i_, s_, o_s, pool[o_i])
+        checked += len(q)
+    if checked < 32 + 4 * 16 + 16:
+        raise AssertionError(f"4d: {checked} queries checked against numpy_search")
+    # one process restarts from the W = 2 file: the W = 2 server's hits
+    port1 = _free_port()
+    flash.reset_launches()
+    server, thread, restart_s = start_server(
+        [*serve_argv, "--port", str(port1), "--index_file", index_file], port1, N_PASSAGES)
+    try:
+        again = _http(port1, "/search", {"queries": queries[:16], "k": 100})
+        restart_k1 = flash.launches["flash_fwd"]
+    finally:
+        stop_server(server, thread)
+    w2_idx, w2_sc = (np.array(x) for x in _served(final[1]))
+    w1_idx, w1_sc = (np.array(x) for x in _served(again[1]))
+    n_near_r = _check_against_oracle(w2_idx[:, :99], w2_sc[:, :99], w1_sc, w1_idx)
+    s4 = out["serving"]
+    log(f"4d serving flat at full depth, W = 2 (two ranks on one card, gloo): {checked} "
+        f"queries' hits equal to numpy_search over the ranks' embeddings ({n_near4} inside "
+        f"{SCORE_ATOL} near-ties not compared); /search single p50 {s4['p50_ms']:.2f} ms "
+        f"p99 {s4['p99_ms']:.2f} ms (8 clients), batch of 16 p50 {s4['batch16_p50_ms']:.2f} "
+        f"ms; /add {MP_ADD}, /remove {MP_ADD}, /search and /save {mutate_s:.2f} s; both "
+        f"ranks exited 0 after SIGTERM; one process restarted from the W = 2 file in "
+        f"{restart_s:.2f} s with the W = 2 server's hits ({n_near_r} inside near-ties); rank "
+        f"0's searches {ranks[0]['steps']['4d serving']['search_s']:.3f} s, of which the "
+        f"{ranks[0]['steps']['4d serving']['gathers']['calls']} all-gathers of the "
+        f"candidates {ranks[0]['steps']['4d serving']['gathers']['seconds']:.3f} s "
+        f"({ranks[0]['steps']['4d serving']['gathers']['bytes'] / 1e6:.2f} MB sent, "
+        "through host memory); "
+        f"ranks' serving walls {[round(rk['steps']['4d serving']['wall_s'], 1) for rk in ranks]} s")
+    out.update(wall_s=wall, ranks=ranks, refine_recall=recall,
+               launches=sum(rk["steps"][n]["launches"] for rk in ranks for n in rk["steps"])
+               + restart_k1)
+    for path in (*plan["eval_dirs"]["flat"], *plan["eval_dirs"]["refine"], *plan["mined"]):
+        if os.path.exists(path):
+            shutil.rmtree(path)
+    for path in (*plan["eval_emb"], *plan["serve_emb"], index_file):
+        os.remove(path)
     return out
 
 
@@ -5378,32 +5906,37 @@ def _flat_tiers_at_scale(corpus, queries) -> dict:
 
 
 def phase_autotune() -> dict:
-    """Phase 6h: ``python -m rankpo_tpu_torch.cli.autotune`` in synthetic
-    mode at 65,536 x 2048 (its default ladder, k 100, target 0.95), its
-    table printed; every spec of the ladder must build and search (the
-    tuner reports a spec that raised as a row with an ``error``), Flat's
-    recall must be 1.0 and the recommended spec must meet the target (the
-    CLI exits 1 when none does)."""
-    root = os.path.dirname(os.path.abspath(__file__))
+    """Phase 6h: ``rankpo_tpu_torch.cli.autotune``'s ``main`` in synthetic
+    mode at 65,536 x 2048 (its default ladder, k 100, target 0.95; in this
+    process, its JSON line kept off the smoke's output), its table printed;
+    every spec of the ladder must build and search (the tuner reports a
+    spec that raised as a row with an ``error``), Flat's recall must be 1.0
+    and the recommended spec must meet the target (the CLI exits 1 when
+    none does)."""
+    import io
+
+    from rankpo_tpu_torch.cli import autotune
+
     with tempfile.TemporaryDirectory(prefix="rankpo_autotune_") as tmp:
         out = os.path.join(tmp, "report.json")
-        cmd = [sys.executable, "-m", "rankpo_tpu_torch.cli.autotune", "--synthetic_rows",
-               str(AUTOTUNE_ROWS), "--synthetic_dim", str(SCALE_D), "--k", "100",
-               "--recall_target", "0.95", "--device", "cuda", "--output_file", out]
-        env = dict(os.environ, PYTHONPATH=root)
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
-                              timeout=900)
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = autotune.main([
+                "--synthetic_rows", str(AUTOTUNE_ROWS), "--synthetic_dim", str(SCALE_D),
+                "--k", "100", "--recall_target", "0.95", "--device", "cuda",
+                "--output_file", out, "--log_level", "warning"])
         wall = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            if not line.startswith("{") and ("qps" in line or "FAILED" in line
-                                             or "recommended" in line):
-                log("autotune | " + line.split("]  ", 1)[-1])
-        if proc.returncode != 0:
-            raise RuntimeError(f"cli.autotune exited {proc.returncode}: "
-                               f"{(proc.stderr or proc.stdout)[-2000:]}")
         with open(out) as f:
-            report = json.load(f)
+            if json.load(f) != json.loads(json.dumps(report)):
+                raise AssertionError("autotune: the report file differs from the report")
+    for row in report["results"]:
+        log(f"autotune | {row['spec']:<24} FAILED: {row['error']}" if "error" in row else
+            f"autotune | {row['spec']:<24} recall {row['recall']:.4f}  {row['qps']:10.1f} qps  "
+            f"{row['memory_mb']:9.2f} MB  build {row['build_s']:6.2f}s"
+            + ("  <- feasible" if row["feasible"] else ""))
+    log(f"autotune | recommended spec: {report['best']}")
+    if report["best"] is None:
+        raise RuntimeError("cli.autotune recommended no spec (its exit code 1)")
     failed = {r["spec"]: r["error"] for r in report["results"] if "error" in r}
     if failed:
         raise AssertionError(f"autotune: specs failed on the card: {failed}")
@@ -5414,7 +5947,7 @@ def phase_autotune() -> dict:
     if not (best["feasible"] and best["recall"] >= 0.95):
         raise AssertionError(f"autotune recommended {report['best']} below its target")
     log(f"autotune at {AUTOTUNE_ROWS} x {SCALE_D}: {len(report['results'])} specs in "
-        f"{wall:.1f} s (process included); recommended {report['best']} (recall "
+        f"{wall:.1f} s; recommended {report['best']} (recall "
         f"{best['recall']}, {best['qps']} queries/s, {best['memory_mb']} MB)")
     return {"wall_s": wall, "report": report}
 
@@ -5568,10 +6101,19 @@ def main(argv=None) -> int:
     card = phase_environment()
     wall = {}
 
+    nested = [0.0]  # seconds of the phases run inside the open ones
+
     def timed(name, fn, *args):
+        # a phase's wall leaves out the phases run beside its ranks
         t = time.perf_counter()
-        out = fn(*args)
-        wall[name] = wall.get(name, 0.0) + time.perf_counter() - t
+        nested.append(0.0)
+        try:
+            out = fn(*args)
+        finally:
+            inner = nested.pop()
+            spent = time.perf_counter() - t
+            nested[-1] += spent
+        wall[name] = wall.get(name, 0.0) + spent - inner
         return out
 
     timed("1 build", phase_build)
@@ -5583,6 +6125,8 @@ def main(argv=None) -> int:
         return 0
     with tempfile.TemporaryDirectory(prefix="rankpo_smoke_") as tmp:
         kern = timed("2 kernels", phase_kernels, args.seed, tmp)
+        # K3b's fp32 build at a ring step, beside the bf16 build (5t's ring runs it)
+        kern["flash_dkv_f32"] = timed("2 kernels", check_dkv_f32, args.seed)
         kern_packed = timed("2p packed kernels", phase_kernels_packed, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5615,50 +6159,71 @@ def main(argv=None) -> int:
             shutil.rmtree(os.path.join(tmp, stage_dir))
         features = timed("5f training features", phase_training_features, ckpt_cut, tmp,
                          args.seed)
-        item7 = timed("5l item 7", phase_training_item7, ckpt_cut, tmp, args.seed, features,
-                      train["stage2"])
         dp = timed("5d data parallel", phase_data_parallel, ckpt, ckpt_cut, tmp, args.seed,
                    train["stage1"])
-        sharded = timed("5t sharded models", phase_sharded, ckpt_cut, tmp, args.seed, dp)
-        # evaluation and mining of the Llama model at FEATURE_LAYERS (a cut
-        # that pays for 5t)
-        evaluation = timed("7 evaluate", phase_evaluate, args.seed, tmp, ckpt_cut)
-        mining = timed("8 mining and pipeline", phase_mining, args.seed, tmp, ckpt_cut,
-                       os.path.join(tmp, "eval_queries.jsonl"), ckpt_cut)
-        shutil.rmtree(ckpt_cut)
-        # the other bodies at the published widths: bge-m3 trained and
-        # evaluated, bge-large-en-v1.5 and Qwen2-1.5B served, Qwen2 trained
-        bge = timed("5b bge-m3 training", phase_training_bge, tmp, args.seed)
-        evaluation_bge = timed("7b bge-m3 evaluate", phase_evaluate, args.seed, tmp,
-                               bge["stage2_dir"], ("flat",))
-        shutil.rmtree(bge["stage2_dir"])
-        shutil.rmtree(os.path.join(tmp, "bge-m3"))
-        serving_models = {}
-        for name in ("bge-large-en-v1.5", "qwen2-1.5b"):
-            ckpt_m, state_m = timed("checkpoint", make_model_checkpoint, tmp, args.seed, name,
-                                    OTHER_LAYERS)
-            serving_models[name] = timed("4b serving", phase_serving, args.seed, tmp, ckpt_m,
-                                         "flat", name)
+        kept, beside = {}, {}
+
+        def beside_5t():
+            # phases that need nothing of 5t, run while its six ranks wait on
+            # gloo: 5l; evaluation and mining of the Llama model at
+            # FEATURE_LAYERS (a cut that pays for 5t); the other bodies at the
+            # published widths but gemma-2b: bge-m3 trained and evaluated,
+            # bge-large-en-v1.5 and Qwen2-1.5B served, Qwen2 trained,
+            # e5-mistral-7b-instruct served, trained and evaluated
+            beside["item7"] = timed("5l item 7", phase_training_item7, ckpt_cut, tmp,
+                                    args.seed, features, train["stage2"])
+            beside["evaluation"] = timed("7 evaluate", phase_evaluate, args.seed, tmp,
+                                         ckpt_cut, tuple(EVAL_TIERS), True)
+            beside["mining"] = timed("8 mining and pipeline", phase_mining, args.seed, tmp,
+                                     ckpt_cut, os.path.join(tmp, "eval_queries.jsonl"),
+                                     ckpt_cut, kept)
+            bge = beside["bge"] = timed("5b bge-m3 training", phase_training_bge, tmp,
+                                        args.seed)
+            beside["evaluation_bge"] = timed("7b bge-m3 evaluate", phase_evaluate, args.seed,
+                                             tmp, bge["stage2_dir"], ("flat",))
+            shutil.rmtree(bge["stage2_dir"])
+            shutil.rmtree(os.path.join(tmp, "bge-m3"))
+            # bge-large-en-v1.5 and Qwen2-1.5B served, Qwen2 trained
+            serving_models = beside["serving_models"] = {}
+            for name in ("bge-large-en-v1.5", "qwen2-1.5b"):
+                ckpt_m, state_m = timed("checkpoint", make_model_checkpoint, tmp, args.seed,
+                                        name, OTHER_LAYERS)
+                serving_models[name] = timed("4b serving", phase_serving, args.seed, tmp,
+                                             ckpt_m, "flat", name)
+                gc.collect()
+                torch.cuda.empty_cache()
+                if name == "qwen2-1.5b":
+                    beside["qwen2"] = timed("5q qwen2-1.5b training", phase_training_qwen2,
+                                            tmp, args.seed, ckpt_m, state_m)
+                del state_m
+                shutil.rmtree(ckpt_m)
+            # e5-mistral-7b-instruct (sliding window 4096): served at
+            # MISTRAL_SERVE_LAYERS, trained at cut depth, the trained model evaluated
+            ckpt_m, _ = timed("checkpoint", make_model_checkpoint, tmp, args.seed, MISTRAL,
+                              MISTRAL_SERVE_LAYERS, False)
+            serving_models[MISTRAL] = timed("4w e5-mistral serving", phase_serving,
+                                            args.seed, tmp, ckpt_m, "flat", MISTRAL,
+                                            MISTRAL_PASSAGES)
+            shutil.rmtree(ckpt_m)
             gc.collect()
             torch.cuda.empty_cache()
-            if name == "qwen2-1.5b":
-                qwen2 = timed("5q qwen2-1.5b training", phase_training_qwen2, tmp, args.seed,
-                              ckpt_m, state_m)
-            del state_m
-            shutil.rmtree(ckpt_m)
-        # e5-mistral-7b-instruct (sliding window 4096): served at
-        # MISTRAL_SERVE_LAYERS, trained at cut depth, the trained model evaluated
-        ckpt_m, _ = timed("checkpoint", make_model_checkpoint, tmp, args.seed, MISTRAL,
-                          MISTRAL_SERVE_LAYERS, False)
-        serving_models[MISTRAL] = timed("4w e5-mistral serving", phase_serving, args.seed,
-                                        tmp, ckpt_m, "flat", MISTRAL, MISTRAL_PASSAGES)
-        shutil.rmtree(ckpt_m)
-        gc.collect()
-        torch.cuda.empty_cache()
-        mistral = timed("5w e5-mistral training", phase_training_mistral, tmp, args.seed)
-        evaluation_mistral = timed("7w e5-mistral evaluate", phase_evaluate, args.seed, tmp,
-                                   mistral["stage2_dir"], ("flat",))
-        shutil.rmtree(mistral["stage2_dir"])
+            mistral = beside["mistral"] = timed("5w e5-mistral training",
+                                                phase_training_mistral, tmp, args.seed)
+            beside["evaluation_mistral"] = timed("7w e5-mistral evaluate", phase_evaluate,
+                                                 args.seed, tmp, mistral["stage2_dir"],
+                                                 ("flat",))
+            shutil.rmtree(mistral["stage2_dir"])
+
+        sharded = timed("5t sharded models", phase_sharded, ckpt_cut, tmp, args.seed, dp,
+                        beside_5t)
+        (item7, evaluation, mining, bge, evaluation_bge, qwen2, mistral,
+         evaluation_mistral) = (beside[k] for k in (
+            "item7", "evaluation", "mining", "bge", "evaluation_bge", "qwen2", "mistral",
+            "evaluation_mistral"))
+        multi = timed("7d 8 4d two ranks", phase_multiprocess, args.seed, tmp, ckpt,
+                      ckpt_cut, kept)
+        shutil.rmtree(ckpt_cut)
+        serving_models = beside["serving_models"]
         # google/gemma-2b (head_dim 256) at full width and GEMMA_LAYERS:
         # served, trained, the trained model evaluated
         ckpt_g, state_g = timed("checkpoint", make_model_checkpoint, tmp, args.seed, GEMMA,
@@ -5859,6 +6424,16 @@ def main(argv=None) -> int:
             f"{DP_HISTORY_RTOL:.0e}); update gap, worst tensor "
             f"{dp['checks'][stage]['update']['worst']:.4e} (limit {DP_UPDATE_GAP}), whole "
             f"model {dp['checks'][stage]['update']['model']:.4e}")
+    s4 = multi["serving"]
+    log(f"numbers ({card}): 4d serving flat at full depth over two ranks on one card (gloo): "
+        f"/search single p50 {s4['p50_ms']:.2f} ms p99 {s4['p99_ms']:.2f} ms (8 clients; "
+        f"phase 4 at W = 1 {serving['flat']['search_single_p50_ms']:.2f} / "
+        f"{serving['flat']['search_single_p99_ms']:.2f}); batch of 16 p50 "
+        f"{s4['batch16_p50_ms']:.2f} ms (W = 1 {serving['flat']['search_batch16_p50_ms']:.2f}); "
+        f"rank 0's searches {s4['search_s']:.3f} s, its {s4['gathers']} all-gathers "
+        f"{s4['gather_s']:.3f} s ({s4['gather_bytes'] / 1e6:.2f} MB); "
+        f"7d refine recall {multi['refine_recall']:.4f}; the two ranks' wall "
+        f"{multi['wall_s']:.1f} s")
     log(f"numbers ({card}): 5d launches (K1, K2, K3a, K3b): "
         f"{tuple(dp['launches'][k] for k in KERNELS)}")
     ring0, ring1 = sharded["ring"]
@@ -5890,6 +6465,8 @@ def main(argv=None) -> int:
         *serving_models.values()))
     launches["flash_fwd"] += sum(en[k]["launches"]
                                  for k in ("encode", "encode_packed", "encode_packed_1024"))
+    launches["flash_fwd"] += multi["launches"] + sum(
+        r["stage1"]["retrieval"]["offline_k1"] for r in dp["ranks"])
     windowed = {name: mistral["stage1"]["window_launches"][name]
                 + mistral["stage2"]["window_launches"][name] for name in KERNELS}
     windowed["flash_fwd"] += (serving_models[MISTRAL]["window_launches"]
@@ -5961,7 +6538,7 @@ def main(argv=None) -> int:
         "bound_by": kern[name]["bound_by"],
         "library_ms": kern[name]["library_ms"],
     } for name in KERNELS]
-    f32 = sharded["dkv_f32"]
+    f32 = kern["flash_dkv_f32"]
     rows.append({
         "name": "flash_attention_bwd_dkv_f32",
         "route": "cuda",

@@ -118,6 +118,27 @@ class DistributedArguments:
         initialize_distributed(self.coordinator_address, self.num_processes,
                                self.process_id, device=device)
 
+    def join(self, device="cuda"):
+        """For evaluation, the tools and serving: join the process group
+        (before any loading; no CPU fallback), lay every rank out on one
+        data group (``core/mesh.py`` ``make_groups``) and return (this
+        rank's device, ``cuda:<rank % cards>`` for a card, and the data
+        group, None in one process without a group)."""
+        import torch
+
+        from rankpo_tpu_torch.core import mesh
+        from rankpo_tpu_torch.core.device import resolve_device
+
+        device = resolve_device(device)
+        self.initialize(device)
+        if not mesh.is_distributed():
+            return device, None
+        mesh.make_groups(mesh.MeshConfig())
+        device = mesh.rank_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        return device, mesh.data_group()
+
 
 @dataclasses.dataclass
 class ModelArguments:

@@ -17,7 +17,9 @@ report with the recommended spec.
 
 ``--device cuda`` (the default) fails without a card; ``--device cpu`` runs
 the plain PyTorch paths. The exit code is 1 when no spec met the target and
-the budget.
+the budget. One process: under a process group of more than one rank it
+raises (ROADMAP.md Queue 1, the rest of item 8c: its ladder benchmarks the
+IVF tiers, which are not ported over several shards).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from rankpo_tpu_torch.cli.arguments import setup_logging
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.core.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -87,6 +90,10 @@ def main(argv=None):
     if args.corpus_data and not args.model_name_or_path:
         parser.error("--corpus_data needs --model_name_or_path")
     device = resolve_device(args.device)  # before any loading: no CPU fallback
+    if mesh.process_count() > 1:
+        raise NotImplementedError(
+            f"cli.autotune over {mesh.process_count()} processes is not ported to "
+            "rankpo_tpu_torch yet (ROADMAP.md Queue 1, the rest of item 8c: multi-card IVF)")
     if args.embeddings:
         emb = np.asarray(np.load(args.embeddings), np.float32)
     elif args.synthetic_rows:

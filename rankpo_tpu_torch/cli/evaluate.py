@@ -11,6 +11,11 @@ checkpoint with ``--evaluate_all_checkpoints``), its ``-indices.npy`` and
 ``-scores.npy``, and ``all_eval_results.json``. ``--device cuda`` (the
 default) fails when no card is visible; ``--device cpu`` runs the plain
 PyTorch path.
+
+Over W processes add ``--coordinator_address host:port --num_processes W
+--process_id r`` to each (one card per rank under NCCL, or gloo with
+``--device cpu``): each rank encodes its own row shard of the corpus into
+a sharded index, and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -20,12 +25,12 @@ import logging
 import torch
 
 from rankpo_tpu_torch.cli.arguments import (
+    DistributedArguments,
     EvaluateArguments,
     parse_dataclasses,
     parse_index_kwargs,
     setup_logging,
 )
-from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
 from rankpo_tpu_torch.eval.evaluator import evaluate_path
 from rankpo_tpu_torch.utils.wandb_utils import log_metric_bar_chart, maybe_init_wandb
@@ -34,9 +39,9 @@ logger = logging.getLogger(__name__)
 
 
 def main(argv=None):
-    (args,) = parse_dataclasses([EvaluateArguments], argv)
+    args, dist_args = parse_dataclasses([EvaluateArguments, DistributedArguments], argv)
     setup_logging(args.log_level)
-    device = resolve_device(args.device)  # before any loading: no CPU fallback
+    device, group = dist_args.join(args.device)  # before any loading: no CPU fallback
     logger.info("evaluation arguments:\n%s", args.to_json_string())
 
     tokenizer = resolve_tokenizer(args.tokenizer_name, args.model_name_or_path)
@@ -61,6 +66,7 @@ def main(argv=None):
         index_type=args.index_type,
         index_recall_target=args.index_recall_target,
         index_kwargs=parse_index_kwargs(args.index_kwargs),
+        group=group,
     )
     for name, metrics in results.items():
         print(f"== {name} ==")

@@ -9,6 +9,9 @@
 
 Writes ``config.json`` (the arguments) and one jsonl per method into
 ``--output_prefix`` (``cluster<λ·10>.jsonl`` per λ for the cluster policy).
+Over W processes add ``--coordinator_address host:port --num_processes W
+--process_id r`` to each: the corpus is row-sharded over the ranks and
+rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -19,13 +22,14 @@ import os
 import torch
 
 from rankpo_tpu_torch.cli.arguments import (
+    DistributedArguments,
     HardNegativeArguments,
     parse_dataclasses,
     parse_index_kwargs,
     setup_logging,
 )
 from rankpo_tpu_torch.cli.run_contrastive import set_seed
-from rankpo_tpu_torch.core.device import resolve_device
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
 from rankpo_tpu_torch.tools.hard_negatives import find_hard_negatives
@@ -34,15 +38,16 @@ logger = logging.getLogger(__name__)
 
 
 def main(argv=None):
-    (args,) = parse_dataclasses([HardNegativeArguments], argv)
+    args, dist_args = parse_dataclasses([HardNegativeArguments, DistributedArguments], argv)
     setup_logging(args.log_level)
-    device = resolve_device(args.device)  # before any loading: no CPU fallback
+    device, group = dist_args.join(args.device)  # before any loading: no CPU fallback
     logger.info("hard-negative arguments:\n%s", args.to_json_string())
     set_seed(args.seed)
 
-    os.makedirs(args.output_prefix, exist_ok=True)
-    with open(os.path.join(args.output_prefix, "config.json"), "w") as f:
-        f.write(args.to_json_string())
+    if mesh.is_main_process():  # rank 0 writes the run's files
+        os.makedirs(args.output_prefix, exist_ok=True)
+        with open(os.path.join(args.output_prefix, "config.json"), "w") as f:
+            f.write(args.to_json_string())
 
     encoder = InferenceEncoder.from_pretrained(
         args.model_name_or_path,
@@ -65,6 +70,7 @@ def main(argv=None):
         index_type=args.index_type,
         index_recall_target=args.index_recall_target,
         index_kwargs=parse_index_kwargs(args.index_kwargs),
+        group=group,
     )
 
 

@@ -6,6 +6,10 @@ AI judge annotates for stage 2.
         --model_name_or_path outputs/stage1 --tokenizer_name hash:128256 \\
         --query_data queries.jsonl --corpus_data corpus.jsonl \\
         --output_file pairs.jsonl --num_predictions 5 --bf16 --device cuda
+
+Over W processes add ``--coordinator_address host:port --num_processes W
+--process_id r`` to each: the corpus is row-sharded over the ranks and
+rank 0 writes the file.
 """
 
 from __future__ import annotations
@@ -15,13 +19,13 @@ import logging
 import torch
 
 from rankpo_tpu_torch.cli.arguments import (
+    DistributedArguments,
     PredictionArguments,
     parse_dataclasses,
     parse_index_kwargs,
     setup_logging,
 )
 from rankpo_tpu_torch.cli.run_contrastive import set_seed
-from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
 from rankpo_tpu_torch.tools.predictions import generate_predictions
@@ -30,9 +34,9 @@ logger = logging.getLogger(__name__)
 
 
 def main(argv=None):
-    (args,) = parse_dataclasses([PredictionArguments], argv)
+    args, dist_args = parse_dataclasses([PredictionArguments, DistributedArguments], argv)
     setup_logging(args.log_level)
-    device = resolve_device(args.device)  # before any loading: no CPU fallback
+    device, group = dist_args.join(args.device)  # before any loading: no CPU fallback
     logger.info("prediction arguments:\n%s", args.to_json_string())
     set_seed(args.seed)
 
@@ -56,6 +60,7 @@ def main(argv=None):
         index_type=args.index_type,
         index_recall_target=args.index_recall_target,
         index_kwargs=parse_index_kwargs(args.index_kwargs),
+        group=group,
     )
 
 

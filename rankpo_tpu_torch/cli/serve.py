@@ -22,9 +22,16 @@ The flags keep the JAX CLI's names. ``--index_file`` loads the index from
 that file when it exists (no corpus encode, no build) and otherwise builds
 from ``--corpus_data`` and saves it there. ``--pack_queries`` packs each
 group's queries several to a row (``--pack_max_segments`` at most), with
-block-diagonal attention. Flags of features the port does not have yet are
-rejected with the ROADMAP.md item that will bring them: multi-host serving
-(item 8c).
+block-diagonal attention.
+
+Over W processes every rank runs this CLI with the same flags plus
+``--coordinator_address host:port --num_processes W --process_id r`` (one
+card per rank under NCCL, or gloo with ``--device cpu``): the flat or
+refine index is row-sharded over the ranks, each encoding its own shard of
+the corpus. Rank 0 serves HTTP through ``serve/multihost.py``'s frontend,
+which replays every request on the other ranks; they exit 0 when rank 0
+stops (shutdown or SIGTERM). An IVF index over several processes is not
+ported (ROADMAP.md Queue 1, the rest of item 8c) and fails at parse time.
 """
 
 from __future__ import annotations
@@ -33,38 +40,38 @@ import argparse
 import json
 import logging
 import os
+import signal
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from rankpo_tpu_torch.cli.arguments import DistributedArguments
+from rankpo_tpu_torch.core import mesh
+from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.data.datasets import load_eval_corpus
 from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
-from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
+from rankpo_tpu_torch.index.io import MULTI_CARD_IVF
 from rankpo_tpu_torch.models.hf_io import load_pretrained
 from rankpo_tpu_torch.serve.batching import MicroBatcher
+from rankpo_tpu_torch.serve.multihost import MultihostFrontend
 from rankpo_tpu_torch.serve.service import RetrievalService, finalize_hits, resolve_tier
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1, {})"
 _INDEX_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
-
-# flag -> (value that means "off", ROADMAP item that ports it)
-_UNPORTED_FLAGS = {
-    "coordinator_address": (None, "item 8c, multi-host serving"),
-    "num_processes": (None, "item 8c, multi-host serving"),
-    "process_id": (None, "item 8c, multi-host serving"),
-}
 
 
 def make_handler(service: RetrievalService, batcher=None, k_max: int = 100,
                  index_file: str | None = None, autosave: bool = False):
-    """``batcher``: a MicroBatcher; single-query requests route through it
-    so concurrent clients share device work. Every path searches at
-    ``k_max`` and slices to the client's k. ``index_file``: the default
-    target of POST /save and of ``autosave``, which persists the index after
-    every successful /add and /remove (the reply waits for the save)."""
+    """``service``: the RetrievalService, or over several processes rank
+    0's MultihostFrontend (the same surface). ``batcher``: a MicroBatcher;
+    single-query requests route through it so concurrent clients share
+    device work. Every path searches at ``k_max`` and slices to the
+    client's k. ``index_file``: the default target of POST /save and of
+    ``autosave``, which persists the index after every successful /add and
+    /remove (the reply waits for the save)."""
 
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: dict):
@@ -294,22 +301,46 @@ def build_parser() -> argparse.ArgumentParser:
                         help="extra fraction of rows (or IVF slots) an /add "
                              "that outgrows the storage pre-pays for later adds")
     parser.add_argument("--log_level", default="info")
-    for flag, kind in (("--coordinator_address", str), ("--num_processes", int),
-                       ("--process_id", int)):
-        parser.add_argument(flag, type=kind, default=None,
-                            help="not ported (ROADMAP.md Queue 1 item 8c)")
+    # several processes: every rank runs this CLI with the same corpus or
+    # index file; rank 0 binds HTTP, the others replay its dispatches
+    parser.add_argument("--coordinator_address", default=None,
+                        help="host:port of rank 0's rendezvous")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="processes of the server (one per card)")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="this process's rank, 0..num_processes-1")
     return parser
 
 
-def make_server(argv=None) -> ThreadingHTTPServer:
-    """Parse flags, load the checkpoint, encode the corpus into the index and
-    bind the HTTP server (not yet serving). The server carries ``service``
-    and ``batcher`` attributes."""
+class Follower:
+    """A rank other than 0 of a multi-process server: ``serve_forever``
+    replays rank 0's dispatches (``MultihostFrontend.follower_loop``) until
+    rank 0 stops; it binds no port."""
+
+    batcher = None
+
+    def __init__(self, frontend: MultihostFrontend):
+        self.frontend = frontend
+        self.service = frontend.service
+
+    def serve_forever(self) -> None:
+        self.frontend.follower_loop()
+
+    def shutdown(self) -> None:
+        pass
+
+    def server_close(self) -> None:
+        pass
+
+
+def make_server(argv=None):
+    """Parse flags, join the processes (if any), load the checkpoint, encode
+    the corpus into the index and bind the HTTP server (not yet serving).
+    The server carries ``service``, ``frontend`` (the service itself in one
+    process) and ``batcher`` attributes. On a rank other than 0 of a
+    multi-process server it returns a :class:`Follower`."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, (off, item) in _UNPORTED_FLAGS.items():
-        if getattr(args, flag) != off:
-            parser.error(f"--{flag} {getattr(args, flag)}: " + _NOT_PORTED.format(item))
     if args.autosave and not args.index_file:
         parser.error("--autosave needs --index_file as the save target")
     if args.index_file and not args.index_file.endswith(".npz"):
@@ -354,13 +385,19 @@ def make_server(argv=None) -> ThreadingHTTPServer:
         level=getattr(logging, args.log_level.upper()),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    device = resolve_device(args.device)  # before any loading: no CPU fallback
+    resolve_device(args.device)  # before anything loads: no CPU fallback
     service_kw = dict(recall_target=args.recall_target, index_dtype=dtype,
                       index_type=args.index_type, index_kwargs=index_kwargs)
     try:  # the tier's checks, before the checkpoint loads
-        resolve_tier(args.index_type, dtype, index_kwargs)
+        tier = resolve_tier(args.index_type, dtype, index_kwargs)[0]
     except ValueError as e:
         parser.error(f"--index_type {args.index_type}: {e}")
+    if tier == "ivf" and (args.num_processes or 1) > 1:
+        parser.error(f"--index_type {args.index_type}: "
+                     + MULTI_CARD_IVF.format(args.num_processes))
+    # this rank's card; an NCCL bring-up that fails raises
+    device, group = DistributedArguments(args.coordinator_address, args.num_processes,
+                                         args.process_id).join(args.device)
     config, state = load_pretrained(args.model_name_or_path)
     tokenizer = resolve_tokenizer(args.tokenizer_name, args.model_name_or_path)
     encoder = InferenceEncoder(config, state, tokenizer, device=device)
@@ -369,7 +406,7 @@ def make_server(argv=None) -> ThreadingHTTPServer:
         encoder, max_query_length=args.max_query_length, stable_ids=args.stable_ids,
         rewarm_after_mutation=args.rewarm_after_mutations,
         mutation_headroom=args.mutation_headroom, pack_queries=args.pack_queries,
-        pack_max_segments=args.pack_max_segments, **service_kw)
+        pack_max_segments=args.pack_max_segments, group=group, **service_kw)
     if restart:
         service.load_index_file(args.index_file)  # no corpus encode, no build
     else:
@@ -379,21 +416,30 @@ def make_server(argv=None) -> ThreadingHTTPServer:
         )
         if args.index_file:
             service.save_index(args.index_file)
+    frontend = service
+    shutdown = []  # the server, once bound: a failed rank shuts it down
+    if group is not None:  # every request runs on every rank
+        frontend = MultihostFrontend(service, on_failure=lambda: [
+            threading.Thread(target=s.shutdown, daemon=True).start() for s in shutdown])
+        if mesh.process_index() != 0:
+            return Follower(frontend)
     if args.warmup != "off":
-        service.warmup(k=args.serving_k_max)
+        frontend.warmup(k=args.serving_k_max)
     batcher = None
     if args.microbatch_wait_ms > 0:
         batcher = MicroBatcher(
-            service, max_batch=args.microbatch_max,
+            frontend, max_batch=args.microbatch_max,
             max_wait_ms=args.microbatch_wait_ms, k_max=args.serving_k_max,
         )
     server = ThreadingHTTPServer(
         (args.host, args.port),
-        make_handler(service, batcher, k_max=args.serving_k_max,
+        make_handler(frontend, batcher, k_max=args.serving_k_max,
                      index_file=args.index_file, autosave=args.autosave),
     )
     server.service = service
+    server.frontend = frontend
     server.batcher = batcher
+    shutdown.append(server)
     logger.info("serving %d passages on %s:%d (%s, torch %s)", service.ntotal,
                 args.host, server.server_address[1], device, torch.__version__)
     return server
@@ -401,12 +447,22 @@ def make_server(argv=None) -> ThreadingHTTPServer:
 
 def main(argv=None):
     server = make_server(argv)
+    if threading.current_thread() is threading.main_thread():
+        # SIGTERM ends serving as a shutdown does: rank 0 then releases the
+        # other ranks, and every process exits 0
+        signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+            target=server.shutdown, daemon=True).start())
     try:
         server.serve_forever()
     finally:
         if server.batcher is not None:
             server.batcher.close()
+        frontend = getattr(server, "frontend", None)
+        if isinstance(frontend, MultihostFrontend):
+            frontend.stop()
         server.server_close()
+    if isinstance(frontend, MultihostFrontend) and frontend.failure is not None:
+        raise RuntimeError("multi-process serving stopped: a rank is gone") from frontend.failure
 
 
 if __name__ == "__main__":

@@ -19,13 +19,30 @@ rank.
 and calls ``torch.distributed.init_process_group`` over TCP: NCCL for CUDA
 devices, gloo for the CPU, or the backend the caller names. A failure to
 bring NCCL up raises; nothing switches to gloo or to the CPU.
+
+Row shards (the sharded index tiers, their encode and serving): a corpus of
+``n`` rows is padded to ``padded_rows(n, dp)``, a multiple of the data
+group's size, and data index ``d`` holds the contiguous global rows
+``shard_bounds(n_padded, dp, d)``, JAX's layout. :func:`all_gather_rows`,
+:func:`broadcast_` and :func:`exchange_rows` move rows between the shards:
+under NCCL on the device, under gloo through host copies (gloo aborts on
+CUDA tensors; ``scripts/ring_hop_probe.py``). Control messages (what a
+serving follower runs next, an evaluation's skip decision) go through
+:func:`broadcast_object` on :func:`control_group`, a gloo group over every
+rank made once: under NCCL a host payload cannot be broadcast, and the
+control group's timeout is its own (an idle serving follower waits on it
+between requests; ``serve/multihost.py`` keeps it alive).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
-from typing import Optional
+import time
+from typing import Optional, Tuple
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -232,3 +249,157 @@ def rank_device(device="cuda", process_id: Optional[int] = None) -> torch.device
         return device
     rank = process_index() if process_id is None else process_id
     return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+# ---------------------------------------------------------------------------
+# row shards over the data group
+
+def padded_rows(n: int, dp: int) -> int:
+    """``n`` rows padded to a multiple of ``dp`` shards (JAX's
+    ``(-n) % n_shards`` pad rows)."""
+    return n + (-n) % dp
+
+
+def shard_bounds(n_padded: int, dp: int, d: int) -> Tuple[int, int]:
+    """Global rows ``[lo, hi)`` of shard ``d`` of ``dp`` over ``n_padded``
+    rows (a multiple of ``dp``)."""
+    rows = n_padded // dp
+    return d * rows, (d + 1) * rows
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def group_index(group) -> int:
+    """This rank's index in ``group`` (its data index for a data group)."""
+    return dist.get_rank(group)
+
+
+def host_collectives(group) -> bool:
+    """Whether ``group``'s collectives take host tensors (gloo)."""
+    return dist.get_backend(group) == "gloo"
+
+
+# all_gather_rows's calls, the bytes each rank sent and the host seconds
+# (under NCCL the enqueue only)
+gather_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_gather_stats() -> None:
+    gather_stats.update(calls=0, bytes=0, seconds=0.0)
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on every rank) concatenated along dim 0
+    in ``group``'s rank order, on ``x``'s device: one all-gather on the
+    device under NCCL, through host copies under gloo. A collective."""
+    t0 = time.perf_counter()
+    w = dist.get_world_size(group)
+    src = x.contiguous()
+    out = src.new_empty((w * src.shape[0],) + tuple(src.shape[1:]))
+    if host_collectives(group):
+        src, out = src.cpu(), out.cpu()
+        dist.all_gather(list(out.chunk(w)) if src.shape[0] else
+                        [src.new_empty(src.shape) for _ in range(w)], src, group=group)
+        out = out.to(x.device)
+    else:
+        dist.all_gather_into_tensor(out, src, group=group)
+    gather_stats["calls"] += 1
+    gather_stats["bytes"] += src.numel() * src.element_size()
+    gather_stats["seconds"] += time.perf_counter() - t0
+    return out
+
+
+def broadcast_(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` (contiguous) overwritten in place with group index ``src``'s
+    tensor; under gloo through a host copy. A collective."""
+    buf = x.cpu() if host_collectives(group) else x
+    dist.broadcast(buf, src=group_rank(group, src), group=group)
+    if buf is not x:
+        x.copy_(buf)
+    return x
+
+
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over ``group`` in place (a sum by default; under gloo
+    through a host copy). A collective."""
+    buf = x.cpu() if host_collectives(group) else x
+    dist.all_reduce(buf, op=op, group=group)
+    if buf is not x:
+        x.copy_(buf)
+    return x
+
+
+def exchange_rows(local: torch.Tensor, src_ids, shard_rows: int, group,
+                  dest: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Rows of a tensor row-sharded over ``group`` (``local``: this rank's
+    global rows ``[d * shard_rows, (d + 1) * shard_rows)``) at the global
+    ids ``src_ids``: position ``j`` takes global row ``src_ids[j]``.
+    ``dest`` (group index per position) names the one rank that keeps each
+    position; None: every rank keeps every position. Returns the kept
+    positions' rows in position order. Each owner in turn broadcasts the
+    rows that another rank keeps (one shard's block in flight at a time);
+    its own it copies. A collective of ``group``."""
+    me, w = dist.get_rank(group), dist.get_world_size(group)
+    src_ids = np.asarray(src_ids, np.int64).reshape(-1)
+    owner = src_ids // shard_rows
+    mine = np.ones(src_ids.size, bool) if dest is None else np.asarray(dest) == me
+    slot = np.cumsum(mine) - 1  # each kept position's row in the output
+    out = local.new_zeros((int(mine.sum()),) + tuple(local.shape[1:]))
+
+    def idx(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(local.device)
+
+    for s in range(w):
+        of_s = owner == s
+        if s == me and (of_s & mine).any():
+            take = of_s & mine
+            out[idx(slot[take])] = local[idx(src_ids[take] - s * shard_rows)]
+        sent = of_s if dest is None else of_s & (np.asarray(dest) != s)
+        if not sent.any():
+            continue
+        if s == me:
+            block = local[idx(src_ids[sent] - s * shard_rows)].contiguous()
+        else:
+            block = local.new_empty((int(sent.sum()),) + tuple(local.shape[1:]))
+        broadcast_(block, s, group)
+        take = mine[sent]
+        if s != me and take.any():
+            out[idx(slot[sent][take])] = block[idx(np.nonzero(take)[0])]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the control plane
+
+CONTROL_TIMEOUT_S = 1800.0  # gloo's default; serving keeps the group alive
+_control: Optional[tuple] = None  # (the default group it was made in, group, timeout s)
+
+
+def control_group(timeout_s: Optional[float] = None):
+    """A gloo group over every rank for control messages, made at the first
+    call (a collective: every rank calls it at the same point) with
+    ``timeout_s`` (default :data:`CONTROL_TIMEOUT_S`); later calls return it."""
+    global _control
+    if _control is not None and _control[0] is dist.group.WORLD:
+        return _control[1]
+    timeout = CONTROL_TIMEOUT_S if timeout_s is None else float(timeout_s)
+    group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=timeout))
+    _control = (dist.group.WORLD, group, timeout)
+    return group
+
+
+def control_timeout() -> float:
+    """The control group's timeout in seconds (it must exist)."""
+    control_group()
+    return _control[2]
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """``obj`` (picklable) from rank ``src`` of ``group`` (default: the
+    control group) to every rank; returns it everywhere. A collective."""
+    group = control_group() if group is None else group
+    box = [obj]
+    dist.broadcast_object_list(box, src=group_rank(group, src), group=group)
+    return box[0]

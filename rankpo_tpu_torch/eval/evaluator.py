@@ -9,9 +9,15 @@ write ``<checkpoint>.json`` (or ``main.json``), ``-indices.npy`` (int64) and
 ``-scores.npy`` (fp32), then the aggregate ``all_eval_results.json`` rebuilt
 from the files on disk.
 
-One process: the JAX version's multi-host branches (rank 0 deciding the
-skip and owning the files) wait for ROADMAP.md Queue 1 item 8c
-(multi-process evaluation and serving).
+Several processes (``group=``, the data group): each rank encodes the
+queries whole and only its own row shard of the corpus
+(``InferenceEncoder.encode_shard``), the index is row-sharded over the
+group (``index/flat.py``, ``index/refined.py``) and every rank gets the same
+hits and metrics. As in the JAX version, rank 0's file system decides
+whether a checkpoint is skipped (broadcast to every rank, so none runs a
+collective encode the others skip) and rank 0 alone writes the metrics,
+the arrays and the aggregate. An IVF index over several shards is not
+ported (ROADMAP.md Queue 1, the rest of item 8c).
 """
 
 from __future__ import annotations
@@ -23,11 +29,18 @@ from datetime import datetime
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.data.datasets import load_eval_corpus, load_eval_queries
 from rankpo_tpu_torch.eval.metrics import compute_metrics
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import build_offline_index, resolve_index_spec
+from rankpo_tpu_torch.index.factory import (
+    build_offline_index,
+    check_sharded_tier,
+    shard_count,
+    resolve_index_spec,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -37,6 +50,7 @@ def get_save_path(
     output_dir: str,
     can_overwrite: bool = True,
     file_type: str = "json",
+    create: bool = True,
 ) -> str:
     """Result-path convention (reference evaluate.py:42-80):
     ``models/run-x/checkpoint-N`` -> ``output_dir/run-x/checkpoint-N.json``;
@@ -48,7 +62,8 @@ def get_save_path(
     else:
         out = os.path.join(output_dir, segs[-1])
         filename = f"main.{file_type}"
-    os.makedirs(out, exist_ok=True)
+    if create:
+        os.makedirs(out, exist_ok=True)
     path = os.path.join(out, filename)
     if not can_overwrite and os.path.isfile(path):
         stem, ext = filename.rsplit(".", 1)
@@ -85,6 +100,7 @@ def evaluate_checkpoint(
     index_type: str = "flat",
     index_recall_target: float = 0.95,
     index_kwargs: Optional[dict] = None,
+    group=None,
 ):
     """Encode -> index -> search -> metrics for one checkpoint.
 
@@ -92,9 +108,12 @@ def evaluate_checkpoint(
     [Q, k] search arrays the caller saves. ``index_type``: "flat" (exact,
     FAISS IndexFlatIP order), "refine" (PCA prefilter and exact rerank) or
     "ivf" (both approximate, tuned to ``index_recall_target``), or a
-    factory spec such as "IVF4096,PQ64" or "PCA128,Flat"."""
+    factory spec such as "IVF4096,PQ64" or "PCA128,Flat". ``group``: the
+    data group the corpus is row-sharded over (a collective; every rank
+    returns the same)."""
     # an invalid spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
+    check_sharded_tier(index_type, shard_count(group))
     if encoder is None:
         kwargs = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
         encoder = InferenceEncoder.from_pretrained(
@@ -102,10 +121,16 @@ def evaluate_checkpoint(
     q_emb = encoder.encode(list(query_texts), batch_size=batch_size,
                            max_length=max_query_length)
     # the corpus embeddings feed only the index: they stay on the device
-    c_emb, n_corpus = encoder.encode_device(
-        list(corpus_texts), batch_size=batch_size, max_length=max_passage_length)
+    if group is None:
+        c_emb, n_corpus = encoder.encode_device(
+            list(corpus_texts), batch_size=batch_size, max_length=max_passage_length)
+    else:  # this rank's shard; a live model runs as many batches on every rank
+        c_emb, n_corpus = encoder.encode_shard(
+            list(corpus_texts), mesh.group_size(group), mesh.group_index(group),
+            batch_size=batch_size, max_length=max_passage_length,
+            group=group if encoder.live_model else None)
     index = build_offline_index(c_emb, n_corpus, index_type, index_kwargs,
-                                index_recall_target)
+                                index_recall_target, group=group)
     scores, indices = index.search(q_emb, k=k, batch_size=batch_size)
     invalid = indices < 0
     if invalid.any():
@@ -139,9 +164,12 @@ def evaluate_path(
     index_type: str = "flat",
     index_recall_target: float = 0.95,
     index_kwargs: Optional[dict] = None,
+    group=None,
 ) -> Dict[str, Dict[str, float]]:
     """Full harness over one model dir or all its checkpoints; returns the
-    metrics of the checkpoints evaluated in this call, by result name."""
+    metrics of the checkpoints evaluated in this call, by result name.
+    ``group``: the data group of a multi-process run (module docstring);
+    every rank returns the same metrics, rank 0 alone writes."""
     queries, labels = load_eval_queries(query_data)
     corpus = load_eval_corpus(corpus_data)
     logger.info("eval: %d queries over %d corpus items", len(queries), len(corpus))
@@ -158,11 +186,18 @@ def evaluate_path(
         logger.error("no checkpoint found under %s", model_path)
         return {}
 
+    main = mesh.is_main_process()
     results: Dict[str, Dict[str, float]] = {}
     save_path = None
     for model in models:
-        save_path = get_save_path(model, output_dir, can_overwrite=True)
-        if os.path.isfile(save_path) and not overwrite_output_dir:
+        save_path = get_save_path(model, output_dir, can_overwrite=True, create=main)
+        skip = os.path.isfile(save_path) and not overwrite_output_dir
+        if group is not None:
+            # rank 0's file system decides for every rank: only rank 0
+            # writes results, and a rank that skipped would leave the
+            # others' collective encode one rank short
+            skip = mesh.broadcast_object(skip)
+        if skip:
             logger.warning("skip %s: results exist at %s", model, save_path)
             continue
         logger.info("evaluating %s", model)
@@ -173,7 +208,11 @@ def evaluate_path(
             max_passage_length=max_passage_length, k=k, cutoffs=cutoffs,
             compute_dtype=compute_dtype, index_type=index_type,
             index_recall_target=index_recall_target, index_kwargs=index_kwargs,
+            group=group,
         )
+        if not main:  # rank 0 owns the files
+            results[os.path.basename(save_path).split(".")[0]] = metrics
+            continue
         with open(save_path, "w") as f:
             json.dump(metrics, f, indent=4)
         if save_arrays:
@@ -187,7 +226,7 @@ def evaluate_path(
     # aggregate (reference evaluate.py:281-287), rebuilt from the on-disk
     # per-checkpoint metrics so previously skipped checkpoints are included
     # and the file never goes stale after an incremental re-run
-    if save_path is not None:
+    if save_path is not None and main:
         agg_results: Dict[str, Dict[str, float]] = {}
         for model in models:
             sp = get_save_path(model, output_dir, can_overwrite=True)
@@ -198,4 +237,6 @@ def evaluate_path(
             agg = os.path.join(os.path.dirname(save_path), "all_eval_results.json")
             with open(agg, "w") as f:
                 json.dump(agg_results, f, indent=4)
+    if group is not None:  # the files exist when any rank returns
+        dist.barrier(group=mesh.control_group())
     return results

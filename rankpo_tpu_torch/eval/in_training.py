@@ -16,9 +16,18 @@ so the encoder holds no weights between eval points and no second full copy
 of the model is ever made. A LoRA model encodes with its merged weights
 (``models/lora.py``), which are computed once per call.
 
-One process: with several data-parallel ranks the hook raises when it is
-made, before training starts (the JAX package encodes each rank's share
-and gathers; ROADMAP.md Queue 1 item 8c, multi-process evaluation).
+Several processes: every rank calls the hook at the same eval point. Each
+rank of the data group encodes the queries whole and its own row shard of
+the corpus (``InferenceEncoder.encode_shard``, every rank of the group
+running as many batches), the index is row-sharded over the data group,
+and every rank returns the same metrics. Under data parallelism (ZeRO-1)
+each rank holds the whole model. Under fsdp the full parameters are
+gathered once at the start of the eval point, in the one-process order,
+and dropped after it (JAX's ``_replicate``), so the encode makes no
+per-access broadcasts. Under tensor parallelism the ranks of a model group
+share a data index, so they encode the same rows in the same batches
+through the split module. An IVF index over several shards is not ported
+(ROADMAP.md Queue 1, the rest of item 8c).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.datasets import load_eval_corpus, load_eval_queries
 from rankpo_tpu_torch.eval.evaluator import evaluate_checkpoint
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import resolve_index_spec
+from rankpo_tpu_torch.index.factory import check_sharded_tier, resolve_index_spec
 
 logger = logging.getLogger(__name__)
 
@@ -63,12 +72,6 @@ class RetrievalEvalHook:
         index_type: str = "flat",
         index_kwargs: Optional[dict] = None,
     ):
-        if mesh.process_count() > 1:
-            raise NotImplementedError(
-                f"in-training retrieval evaluation over {mesh.process_count()} processes is "
-                "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1 item 8c, "
-                "multi-process evaluation); run it in one process or with cli.evaluate "
-                "over the checkpoints")
         self.queries, self.labels = load_eval_queries(query_file)
         self.corpus = load_eval_corpus(corpus_file)
         if not self.queries or not self.corpus:
@@ -86,6 +89,7 @@ class RetrievalEvalHook:
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
         self.index_type, self.index_kwargs = resolve_index_spec(index_type, index_kwargs)
+        check_sharded_tier(self.index_type, mesh.data_count())  # before training starts
         self._encoder: Optional[InferenceEncoder] = None
         logger.info("in-training retrieval eval: %d queries over %d corpus rows (k=%d, "
                     "index=%s)", len(self.queries), len(self.corpus), self.k, index_type)
@@ -98,16 +102,23 @@ class RetrievalEvalHook:
             self._encoder.model = model
         saved_dtype = model.compute_dtype
         model.compute_dtype = self.compute_dtype
+        group = mesh.data_group() if mesh.is_distributed() else None
         try:
-            # a parametrized (LoRA) weight is merged once for the whole call
+            # a parametrized weight (LoRA's merge, fsdp's gather) is computed
+            # once for the whole call and dropped after it
             with parametrize.cached():
+                fsdp = getattr(model, "fsdp", None)
+                if fsdp is not None:  # every gather now, in one order on every rank
+                    for name in fsdp.names:
+                        path, _, attr = name.rpartition(".")
+                        getattr(model.get_submodule(path), attr)
                 metrics, _, _ = evaluate_checkpoint(
                     "<live-model>",  # unused: the encoder is supplied
                     self.queries, self.labels, self.corpus, encoder=self._encoder,
                     batch_size=self.batch_size, max_query_length=self.max_query_length,
                     max_passage_length=self.max_passage_length, k=self.k,
                     cutoffs=self.cutoffs, index_type=self.index_type,
-                    index_kwargs=self.index_kwargs)
+                    index_kwargs=self.index_kwargs, group=group)
         finally:
             model.compute_dtype = saved_dtype
             self._encoder.model = None  # no weights held between eval points

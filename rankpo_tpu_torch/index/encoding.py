@@ -11,10 +11,18 @@ order so each batch is length-homogeneous, then restore the input order.
 ``embed_packed_batch`` embeds sequence-packed query rows (serving's
 ``pack_queries``); ``encode_packed`` is the sequence-packed corpus encode.
 An encoder built with ``model=`` encodes with that module's own tensors
-(the in-training retrieval evaluation, ``eval/in_training.py``). Dropped
-from the JAX version, because they exist for XLA's static shapes or for a
-device mesh: batch-size padding of the last chunk (and of the packed
-encode's last rows), the bounded in-flight D2H window, mesh sharding.
+(the in-training retrieval evaluation, ``eval/in_training.py``).
+
+``encode_shard`` is the multi-process corpus encode: each rank of the data
+group encodes only the texts of its own contiguous row shard
+(``core/mesh.py`` ``shard_bounds``), in the length-sorted batches
+``encode_device`` makes of them, and keeps the rows on its device; no
+embedding crosses processes. The JAX package's ``encode_sharded`` slices
+every global batch across the processes instead, so a passage may fall in
+another batch here than in one process (its bf16 bits may differ). Dropped
+from the JAX version, because they exist for XLA's static shapes: batch-size
+padding of the last chunk (and of the packed encode's last rows), the
+bounded in-flight D2H window.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.data.collators import _pad_block
 from rankpo_tpu_torch.data.packing import occupancy, pack_token_lists
@@ -64,7 +73,9 @@ class InferenceEncoder:
                 raise ValueError("give the encoder a state or a model, not both")
             self.device = next(model.parameters()).device
             self.model = model
+            self.live_model = True
             return
+        self.live_model = False
         self.device = resolve_device(device)
         self.model = encoder_class(config).from_state_dict(
             config, state, device=self.device, dtype=compute_dtype
@@ -164,6 +175,38 @@ class InferenceEncoder:
             inverse = np.empty_like(order)
             inverse[order] = np.arange(n)
             out = out[torch.from_numpy(inverse).to(self.device)]
+        return out, n
+
+    @torch.inference_mode()
+    def encode_shard(self, sentences: List[str], dp: int, d: int, *, batch_size: int = 256,
+                     max_length: int = 512, group=None):
+        """Shard ``d`` of ``dp`` of a row-sharded corpus: (fp32
+        [n_padded / dp, H] on the device, the global rows
+        ``mesh.shard_bounds(n_padded, dp, d)`` with rows past the corpus
+        zero; the corpus's n_total). Only the shard's texts are encoded, in
+        the batches :meth:`encode_device` makes of them alone. ``group``
+        (the data group): every rank of it runs as many batches as the
+        longest shard, the others padding with one masked row a batch (under
+        fsdp and tensor parallelism a forward is a collective)."""
+        n = len(sentences)
+        lo, hi = mesh.shard_bounds(mesh.padded_rows(n, dp), dp, d)
+        texts = list(sentences[lo:min(hi, n)])
+        out = torch.zeros((hi - lo, self.config.hidden_size), dtype=torch.float32,
+                          device=self.device)
+        if texts:
+            out[: len(texts)] = self.encode_device(texts, batch_size=batch_size,
+                                                   max_length=max_length)[0]
+        if group is not None:
+            batches = -(-len(texts) // batch_size)
+            most = torch.tensor([batches], dtype=torch.int64,
+                                device="cpu" if mesh.host_collectives(group) else self.device)
+            mesh.all_reduce_(most, group, op=torch.distributed.ReduceOp.MAX)
+            pad_id = self.config.pad_token_id or 0
+            filler = {"input_ids": np.full((1, self.length_multiple), pad_id, np.int32),
+                      "attention_mask": np.zeros((1, self.length_multiple), np.int32)}
+            filler["attention_mask"][:, 0] = 1
+            for _ in range(int(most.item()) - batches):
+                self.embed_batch(filler)
         return out, n
 
     def encode(

@@ -28,6 +28,8 @@ from typing import Tuple
 
 import torch
 
+from rankpo_tpu_torch.core import mesh
+
 _IVF = re.compile(r"^ivf(\d+)?$")
 _PCA = re.compile(r"^pca(?:r|w)?(\d+)$")  # PCAR/PCAW accepted as PCA
 _PQ = re.compile(r"^pq(\d+)$")
@@ -167,16 +169,49 @@ def resolve_index_spec(index_type: str, index_kwargs=None) -> Tuple[str, dict]:
     return kind, kwargs
 
 
+def shard_count(group) -> int:
+    """The shards of an index over ``group`` (None: one device)."""
+    return 1 if group is None else mesh.group_size(group)
+
+
+def check_sharded_tier(index_type: str, shards: int) -> None:
+    """Raise for a tier that has no sharded build (IVF) over more than one
+    shard."""
+    if index_type == "ivf" and shards > 1:
+        from rankpo_tpu_torch.index.io import MULTI_CARD_IVF
+
+        raise NotImplementedError(MULTI_CARD_IVF.format(shards))
+
+
 def build_offline_index(embeddings, n_total: int, index_type: str,
                         index_kwargs: dict, recall_target: float, *,
-                        as_constructor: bool = False):
+                        as_constructor: bool = False, group=None):
     """The index over ``embeddings`` [N_buf, D] (rows past ``n_total`` are
     padding) on their device, for a tier from :func:`resolve_index_spec`.
     The refine and flat tiers build as the JAX evaluator and prediction tool
     build them (``from_sharded``: refine's PCA second moment of the fp32
     rows, flat int8 scales rounded as XLA rounds them) or, with
     ``as_constructor``, as the JAX mining tool does (the constructors: the
-    moment of the stored rows, the host's int8 rounding)."""
+    moment of the stored rows, the host's int8 rounding). With ``group``,
+    ``embeddings`` is this rank's shard (``InferenceEncoder.encode_shard``)
+    and the index is sharded over the group; ``as_constructor`` then keeps
+    the constructors' rounding and moment on the shard's rows."""
+    if index_type == "ivf" and shard_count(group) == 1:
+        group = None  # one shard: the one-device build
+    check_sharded_tier(index_type, shard_count(group))
+    if group is not None:
+        from rankpo_tpu_torch.index.flat import FlatIPIndex
+        from rankpo_tpu_torch.index.refined import RefineIPIndex
+
+        if index_type == "refine":
+            kwargs = dict(recall_target=recall_target,
+                          reduced_dim=min(256, int(embeddings.shape[1])))
+            kwargs.update(index_kwargs)
+            with torch.inference_mode():
+                return RefineIPIndex.from_sharded(embeddings, n_total, group=group,
+                                                  moment_of_stored=as_constructor, **kwargs)
+        return FlatIPIndex.from_sharded(embeddings, n_total, group=group,
+                                        times_reciprocal=not as_constructor, **index_kwargs)
     if index_type in ("ivf", "refine"):
         from rankpo_tpu_torch.index.ivf import IVFIPIndex
         from rankpo_tpu_torch.index.refined import RefineIPIndex

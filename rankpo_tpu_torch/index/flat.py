@@ -12,6 +12,21 @@ with ``recall_target < 1``, approximate. ``append_sharded`` /
 ``remove_rows`` mutate it (FAISS ``add`` / ``remove_ids``, each returning a
 new index), ``reconstruct`` decodes stored rows, ``range_search`` returns
 every row above a radius.
+
+With ``group=`` (the data group of a multi-process run) the index is
+row-sharded as the JAX index is over its data axis: ``n_padded`` is a
+multiple of the group's size dp, and data index d stores the global rows
+``core/mesh.py`` ``shard_bounds(n_padded, dp, d)`` on its own device. A
+search runs the product and top-k on the shard (ids offset to global rows),
+all-gathers the ``[Q, min(k, rows a shard)]`` candidates over the group in
+rank order and takes a stable top-k of them, so every rank ends with the
+same hits in FAISS's lowest-id tie order (JAX's ``lax.top_k`` over
+shard-ordered candidates). Filters are each shard's slice of the global
+mask; appends and removals keep JAX's global layout (rows whose shard
+changes move through the group, ``mesh.exchange_rows``); ``reconstruct``
+and ``rows`` gather to every rank. Every rank must make the same calls in
+the same order (each is a collective). Without a group everything is one
+device's, as before.
 """
 
 from __future__ import annotations
@@ -21,7 +36,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from rankpo_tpu_torch.ops.topk import bf16_mm, divide_exact, matmul_topk, require_fp32_matmul
+from rankpo_tpu_torch.core import mesh
+from rankpo_tpu_torch.ops.topk import (
+    bf16_mm,
+    divide_exact,
+    exact_topk,
+    matmul_topk,
+    require_fp32_matmul,
+)
 
 _RECON_BATCH = 1024  # reconstruct gathers ids in chunks of this many
 _QUANT_CHUNK = 1 << 16  # rows per chunk of the int8 and bf16 storage casts
@@ -139,6 +161,70 @@ def _chunked_row_gather(fn, idx: np.ndarray, device) -> np.ndarray:
     return np.concatenate(out).astype(np.float32, copy=False)
 
 
+class RowShards:
+    """The row-shard layout the flat and refine tiers share: ``group`` (None:
+    one device), its size ``dp``, this rank's data index ``shard``, the
+    global ``n_total`` and ``n_padded``, and the shard's ``shard_rows`` from
+    global row ``shard_lo`` on."""
+
+    group = None
+    dp, shard = 1, 0
+
+    def _set_layout(self, group, n_padded: int) -> None:
+        self.group = group
+        self.dp = mesh.group_size(group) if group is not None else 1
+        self.shard = mesh.group_index(group) if group is not None else 0
+        if n_padded % self.dp:
+            raise ValueError(f"padded rows ({n_padded}) must be divisible by {self.dp} shards")
+        self.n_padded = int(n_padded)
+        self.shard_rows = self.n_padded // self.dp
+        self.shard_lo = self.shard * self.shard_rows
+
+    def _local_valid(self, n_total: Optional[int] = None) -> int:
+        """Rows of this shard below ``n_total`` (default the index's)."""
+        n = self.n_total if n_total is None else n_total
+        if self.group is None:
+            return n
+        return int(np.clip(n - self.shard_lo, 0, self.shard_rows))
+
+    def _local_mask(self, sel: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+        """This shard's slice of a bool [n_total] eligibility mask, padded
+        with False to the stored rows."""
+        if sel is None:
+            return None
+        rows = self.shard_rows if self.group is not None else self.n_padded
+        lo = self.shard_lo if self.group is not None else 0
+        mask = torch.zeros(rows, dtype=torch.bool, device=device)
+        nv = self._local_valid()
+        mask[:nv] = sel[lo : lo + nv].to(device)
+        return mask
+
+    def _merge(self, scores: torch.Tensor, ids: torch.Tensor, k: int):
+        """The shards' candidates ``[Q, k_local]`` (ids global) gathered over
+        the group in rank order, then a stable top-k of them: every rank gets
+        the same hits, equal scores in ascending-id order."""
+        cand_s = mesh.all_gather_rows(scores.T, self.group).T
+        cand_i = mesh.all_gather_rows(ids.T, self.group).T
+        top_s, pos = exact_topk(cand_s, min(k, cand_s.shape[1]))
+        return top_s, torch.gather(cand_i, 1, pos)
+
+    def _gather_rows(self, storage: torch.Tensor, ids: np.ndarray) -> torch.Tensor:
+        """Stored rows at global ``ids`` on every rank (a collective)."""
+        return mesh.exchange_rows(storage, ids, self.shard_rows, self.group)
+
+    def _relayout(self, storage: torch.Tensor, src_ids: np.ndarray, shard_rows: int,
+                  fill=0.0) -> torch.Tensor:
+        """This rank's ``shard_rows`` rows of a new layout whose global row j
+        is the old global row ``src_ids[j]`` (rows past ``src_ids``: ``fill``);
+        rows whose shard changes move through the group."""
+        n = len(src_ids)
+        dest = np.arange(n) // shard_rows
+        mine = mesh.exchange_rows(storage, src_ids, self.shard_rows, self.group, dest)
+        out = storage.new_full((shard_rows,) + tuple(storage.shape[1:]), fill)
+        out[: mine.shape[0]] = mine
+        return out
+
+
 def numpy_search(
     corpus: np.ndarray, queries: np.ndarray, k: int
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -152,9 +238,10 @@ def numpy_search(
     return out_scores, order.astype(np.int64)
 
 
-class FlatIPIndex:
+class FlatIPIndex(RowShards):
     """Brute-force inner-product index over fp32, bf16 or int8 rows on one
-    device (the device of ``embeddings`` when it is a tensor, else the CPU).
+    device (the device of ``embeddings`` when it is a tensor, else the CPU),
+    or row-sharded over ``group`` (module docstring).
 
     ``embeddings``: [N_buf, D] numpy array or tensor; rows at or past
     ``n_total`` (default N_buf) are padding and never returned. ``dtype``:
@@ -164,27 +251,31 @@ class FlatIPIndex:
     serving mode); ``precision``: the fp32 rows' product ("float32" or
     "default", ``ops/topk.py``). The constructor quantizes with the JAX
     constructor's rounding, :meth:`from_sharded` and appends with its
-    device path's."""
+    device path's. With ``group``, ``embeddings`` is the whole corpus on
+    every rank and each keeps its shard."""
 
     def __init__(self, embeddings, *, n_total: Optional[int] = None, dtype=torch.float32,
-                 recall_target: float = 1.0, precision: Optional[str] = None):
+                 recall_target: float = 1.0, precision: Optional[str] = None, group=None):
         self._init(embeddings, n_total, dtype, recall_target, precision,
-                   times_reciprocal=False)
+                   times_reciprocal=False, group=group, whole=True)
 
     @classmethod
     def from_sharded(cls, embeddings, n_total: int, *, dtype=torch.float32,
-                     recall_target: float = 1.0, precision: Optional[str] = None
-                     ) -> "FlatIPIndex":
+                     recall_target: float = 1.0, precision: Optional[str] = None,
+                     group=None, times_reciprocal: bool = True) -> "FlatIPIndex":
         """Build from device-resident fp32 rows (``InferenceEncoder.
         encode_device``'s layout, rows past ``n_total`` ignored), int8
-        codes rounded as the JAX package's device path rounds them."""
+        codes rounded as the JAX package's device path rounds them
+        (``times_reciprocal=False``: as its host constructor does). With
+        ``group``: this rank's shard (``encode_shard``'s layout) of a corpus
+        of ``n_total`` rows."""
         self = cls.__new__(cls)
         self._init(embeddings, n_total, dtype, recall_target, precision,
-                   times_reciprocal=True)
+                   times_reciprocal=times_reciprocal, group=group, whole=False)
         return self
 
     def _init(self, embeddings, n_total, dtype, recall_target, precision, *,
-              times_reciprocal: bool) -> None:
+              times_reciprocal: bool, group, whole: bool) -> None:
         require_fp32_matmul()
         self.dtype = _as_store_dtype(dtype)
         self.quantized = self.dtype == torch.int8
@@ -195,10 +286,13 @@ class FlatIPIndex:
         rows = torch.as_tensor(embeddings)
         if rows.dim() != 2:
             raise ValueError(f"embeddings must be [N, D], got {tuple(rows.shape)}")
+        self.dim = int(rows.shape[1])
+        if group is not None:
+            self._init_shard(rows, n_total, group, whole, times_reciprocal)
+            return
         self.n_total = int(rows.shape[0] if n_total is None else n_total)
         if not 0 < self.n_total <= rows.shape[0]:
             raise ValueError(f"n_total {self.n_total} outside (0, {rows.shape[0]}]")
-        self.dim = int(rows.shape[1])
         if self.dtype == torch.float32:
             self.corpus = rows.to(torch.float32)
             self.row_scale = None
@@ -212,7 +306,31 @@ class FlatIPIndex:
         # fp32 rows are the caller's tensor (or numpy memory): never written
         self._fill = [-1 if self.dtype == torch.float32 else self.n_total]
 
+    def _init_shard(self, rows: torch.Tensor, n_total, group, whole: bool,
+                    times_reciprocal: bool) -> None:
+        """The shard of a sharded build: ``rows`` the whole corpus
+        (``whole``) or this rank's shard."""
+        dp = mesh.group_size(group)
+        if whole:
+            self.n_total = int(rows.shape[0] if n_total is None else n_total)
+            self._set_layout(group, mesh.padded_rows(self.n_total, dp))
+            local = rows[self.shard_lo : self.shard_lo + self._local_valid()]
+        else:
+            self.n_total = int(n_total)
+            self._set_layout(group, int(rows.shape[0]) * dp)
+            local = rows[: self._local_valid()]
+        if not 0 < self.n_total <= self.n_padded:
+            raise ValueError(f"n_total {self.n_total} outside (0, {self.n_padded}]")
+        if self.dtype == torch.float32 and not whole:
+            self.corpus, self.row_scale = rows.to(torch.float32), None
+        else:
+            self.corpus, self.row_scale = self._encode_rows(
+                local, self.shard_rows, times_reciprocal=times_reciprocal)
+        self._fill = [-1]
+
     def _storage_rows(self, rows: int) -> int:
+        if self.group is not None:
+            return self.shard_rows
         return -(-rows // _ROW_MULTIPLE) * _ROW_MULTIPLE if self.quantized else rows
 
     def _encode_rows(self, rows: torch.Tensor, n_rows: Optional[int] = None, *,
@@ -245,6 +363,8 @@ class FlatIPIndex:
         out = FlatIPIndex.__new__(FlatIPIndex)
         for name in ("dtype", "quantized", "recall_target", "precision", "dim"):
             setattr(out, name, getattr(self, name))
+        if self.group is not None:
+            out._set_layout(self.group, self.n_padded)
         return out
 
     @property
@@ -256,26 +376,27 @@ class FlatIPIndex:
         return self.corpus.device
 
     # ------------------------------------------------------------------
-    def _row_mask(self, sel: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        if sel is None:
-            return None
-        mask = torch.zeros(self.n_padded, dtype=torch.bool, device=self.device)
-        mask[: self.n_total] = sel.to(self.device)
-        return mask
-
     def search_tensor(self, queries: torch.Tensor, k: int, *,
                       sel: Optional[torch.Tensor] = None):
         """Device-side search: (scores fp32 [Q, k'], indices int64 [Q, k'])
         on the index's device, k' = min(k, ntotal). ``sel``: a bool
         [ntotal] eligibility mask (ineligible rows score -inf). int8 storage
-        takes bf16 queries, as the JAX package casts them."""
+        takes bf16 queries, as the JAX package casts them. Sharded: a
+        collective, with the same queries on every rank."""
         k = min(k, self.n_total)
         q = queries.to(self.device)
         if self.quantized:
             q = q.to(torch.bfloat16)
-        return matmul_topk(q, self.corpus, k=k, n_valid=self.n_total,
-                           recall_target=self.recall_target, col_scale=self.row_scale,
-                           precision=self.precision, row_mask=self._row_mask(sel))
+        if self.group is None:
+            return matmul_topk(q, self.corpus, k=k, n_valid=self.n_total,
+                               recall_target=self.recall_target, col_scale=self.row_scale,
+                               precision=self.precision,
+                               row_mask=self._local_mask(sel, self.device))
+        s, i = matmul_topk(q, self.corpus, k=min(k, self.shard_rows),
+                           n_valid=self._local_valid(), recall_target=self.recall_target,
+                           col_scale=self.row_scale, precision=self.precision,
+                           row_mask=self._local_mask(sel, self.device))
+        return self._merge(s, i + self.shard_lo, k)
 
     def search(self, queries, k: int = 100, batch_size: int = 256, *, allowed_ids=None,
                disallowed_ids=None, selector=None):
@@ -315,6 +436,8 @@ class FlatIPIndex:
         rows for later appends. Returns a new index."""
         rows = torch.as_tensor(new_rows, dtype=torch.float32)
         n_new = validate_append_args(rows, n_new, headroom, self.dim)
+        if self.group is not None:
+            return self._append_shard(rows, n_new, headroom)
         new_store, new_scale = self._encode_rows(rows[:n_new].to(self.device))
         out = self._clone_shell()
         n_old, out.n_total = self.n_total, self.n_total + n_new
@@ -337,6 +460,39 @@ class FlatIPIndex:
         out.n_padded = int(corpus.shape[0])
         return out
 
+    def _append_shard(self, rows: torch.Tensor, n_new: int, headroom: float
+                      ) -> "FlatIPIndex":
+        """``append_sharded`` of a sharded index: ``rows`` are the new rows
+        on every rank; each keeps those that land in its shard. Storage grows
+        as JAX's does, to ``ceil((n_total + n_new) * (1 + headroom))`` rows
+        rounded up to a multiple of the group's size."""
+        n_old = self.n_total
+        out = self._clone_shell()
+        out.n_total = n_old + n_new
+        n_padded = self.n_padded
+        if out.n_total > n_padded:
+            n_padded = mesh.padded_rows(int(np.ceil(out.n_total * (1.0 + headroom))), self.dp)
+        out._set_layout(self.group, n_padded)
+        with torch.inference_mode():
+            if n_padded == self.n_padded:
+                corpus = self.corpus.clone()
+                scale = None if self.row_scale is None else self.row_scale.clone()
+            else:  # the layout grows: rows whose shard changes move
+                src = np.arange(n_old)
+                corpus = self._relayout(self.corpus, src, out.shard_rows)
+                scale = (None if self.row_scale is None
+                         else self._relayout(self.row_scale, src, out.shard_rows, 1e-12))
+            lo = max(out.shard_lo, n_old)
+            hi = min(out.shard_lo + out.shard_rows, out.n_total)
+            if hi > lo:
+                store, new_scale = self._encode_rows(
+                    rows[lo - n_old : hi - n_old].to(self.device))
+                corpus[lo - out.shard_lo : hi - out.shard_lo] = store
+                if scale is not None:
+                    scale[lo - out.shard_lo : hi - out.shard_lo] = new_scale
+        out.corpus, out.row_scale, out._fill = corpus, scale, [-1]
+        return out
+
     def remove_rows(self, removed) -> "FlatIPIndex":
         """Drop rows by corpus position (FAISS ``remove_ids``): survivors
         shift down in order; codes and scales are gathered, never
@@ -353,6 +509,16 @@ class FlatIPIndex:
         keep_idx = torch.from_numpy(np.nonzero(keep)[0]).to(self.device)
         if keep_idx.numel() == 0:
             raise ValueError("cannot remove every row; build a new index")
+        if self.group is not None:  # survivors keep the layout, shifted down
+            out = self._clone_shell()
+            out.n_total = int(keep_idx.numel())
+            src = np.nonzero(keep)[0]
+            with torch.inference_mode():
+                out.corpus = self._relayout(self.corpus, src, self.shard_rows)
+                out.row_scale = (None if self.row_scale is None else
+                                 self._relayout(self.row_scale, src, self.shard_rows, 1e-12))
+            out._fill = [-1]
+            return out
         out = self._clone_shell()
         out.n_total = int(keep_idx.numel())
         out.corpus, out.row_scale = self._empty_storage(self.n_padded, self.device)
@@ -376,6 +542,11 @@ class FlatIPIndex:
         ids = _canonical_recon_ids(ids, self.n_total)
         if ids.size == 0:
             return np.zeros((0, self.dim), np.float32)
+        if self.group is not None:
+            rows = self._gather_rows(self.corpus, ids).to(torch.float32)
+            if self.quantized:
+                rows = rows * self._gather_rows(self.row_scale, ids)[:, None]
+            return rows.cpu().numpy()
         return _chunked_row_gather(self._decoded, ids, self.device)
 
     def rows(self) -> np.ndarray:
@@ -384,15 +555,19 @@ class FlatIPIndex:
 
     def _range_counts(self, queries: torch.Tensor, radius: float) -> torch.Tensor:
         """Per query, the rows whose bf16-pass score clears ``radius`` (the
-        JAX count pass: bf16 operands, fp32 sums, times the int8 scale)."""
+        JAX count pass: bf16 operands, fp32 sums, times the int8 scale);
+        sharded, the shards' counts summed."""
         counts = torch.zeros(queries.shape[0], dtype=torch.int64, device=self.device)
         step = max(_ROW_MULTIPLE, (1 << 28) // max(queries.shape[0] * 4, 1))
-        for lo in range(0, self.n_total, step):
-            hi = min(lo + step, self.n_total)
+        n_local = self._local_valid()
+        for lo in range(0, n_local, step):
+            hi = min(lo + step, n_local)
             s = bf16_mm(queries, self.corpus[lo:hi].T)
             if self.quantized:
                 s = s * self.row_scale[lo:hi][None, :]
             counts += (s > radius).sum(dim=1)
+        if self.group is not None:  # the shards' counts summed
+            mesh.all_reduce_(counts, self.group)
         return counts
 
     def range_search(self, queries, radius: float, *, batch_size: int = 256

@@ -12,6 +12,15 @@ pure placement (no k-means, no PCA, no tuning). IVF files carry every option
 capacity, freed slots); flat files carry fp32, bf16 or int8 rows (codes and
 their per-row scales, restored bit-equal, never requantized) and the
 approximate mode's knobs.
+
+Sharded flat and refine indexes (``group=``): :func:`index_state` gathers
+the shards' rows to every rank (a collective) and records the shard count
+as ``tuned_shards``; :func:`save_state` and :func:`write_index` write on
+the group's rank 0 while the others wait at a barrier. A file saved at one
+shard count loads at any other: :func:`index_from_state` re-pads the rows
+to the new multiple and keeps this rank's shard (JAX ``io.py:18-21``). An
+IVF index over several shards is not ported (ROADMAP.md Queue 1, the rest
+of item 8c: multi-card IVF).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.index.flat import FlatIPIndex
 from rankpo_tpu_torch.index.ivf import IVFIPIndex, _as_dtype
@@ -71,31 +81,40 @@ def _unpack(data: Mapping, meta: Dict[str, str], name: str, device
     return torch.from_numpy(arr).to(device)
 
 
+def _whole(index, storage):
+    """A stored tensor's first ``n_total`` rows: gathered to every rank when
+    the index is sharded (a collective)."""
+    if getattr(index, "group", None) is None:
+        return storage
+    return index._gather_rows(storage, np.arange(index.n_total))
+
+
 def index_state(index) -> Dict[str, np.ndarray]:
     """Flat dict of host arrays plus a JSON config capturing everything
-    needed to rebuild ``index`` without training or tuning."""
+    needed to rebuild ``index`` without training or tuning. A collective
+    when the index is sharded."""
     if not isinstance(index, (FlatIPIndex, RefineIPIndex, IVFIPIndex)):
         raise TypeError(f"unsupported index type {type(index).__name__}")
     out: Dict[str, np.ndarray] = {}
     meta: Dict[str, str] = {}
     cfg: Dict = {"format": FORMAT, "n_total": index.n_total, "dim": index.dim,
-                 "tuned_shards": 1}
+                 "tuned_shards": getattr(index, "dp", 1)}
     if isinstance(index, FlatIPIndex):
         cfg["kind"] = "flat"
         cfg["dtype"] = _STORE_NAMES[index.dtype]
         cfg["recall_target"] = index.recall_target
         cfg["precision"] = index.precision
-        _pack(out, meta, "corpus", index.corpus, trim=index.n_total)
+        _pack(out, meta, "corpus", _whole(index, index.corpus), trim=index.n_total)
         if index.quantized:
-            _pack(out, meta, "row_scale", index.row_scale, trim=index.n_total)
+            _pack(out, meta, "row_scale", _whole(index, index.row_scale), trim=index.n_total)
     elif isinstance(index, RefineIPIndex):
         cfg["kind"] = "refine"
         cfg["store_dtype"] = _STORE_NAMES[index.store_dtype]
         cfg["recall_target"] = index.recall_target
         cfg["reduced_dim"] = index.reduced_dim
         cfg["candidates"] = int(index.candidates)
-        _pack(out, meta, "corpus", index.corpus, trim=index.n_total)
-        _pack(out, meta, "corpus_low", index.corpus_low, trim=index.n_total)
+        _pack(out, meta, "corpus", _whole(index, index.corpus), trim=index.n_total)
+        _pack(out, meta, "corpus_low", _whole(index, index.corpus_low), trim=index.n_total)
         _pack(out, meta, "proj", index.proj)
     else:
         cfg["kind"] = "ivf"
@@ -144,7 +163,17 @@ def state_kind(data: Mapping) -> str:
     return json.loads(str(np.asarray(data[CONFIG_KEY])))["kind"]
 
 
-def _load_flat(cfg, data, meta, device):
+def _shard_rows_of(self, data, meta, name: str, device, fill=0.0) -> torch.Tensor:
+    """This rank's shard of a saved [n_total, ...] array, re-padded to the
+    index's layout (zero rows, or ``fill``)."""
+    full = _unpack(data, meta, name, device)
+    nv = self._local_valid()
+    out = full.new_full((self.shard_rows,) + tuple(full.shape[1:]), fill)
+    out[:nv] = full[self.shard_lo : self.shard_lo + nv]
+    return out
+
+
+def _load_flat(cfg, data, meta, device, group):
     require_fp32_matmul()
     self = FlatIPIndex.__new__(FlatIPIndex)
     self.dtype = _as_dtype(cfg["dtype"])
@@ -153,6 +182,13 @@ def _load_flat(cfg, data, meta, device):
     self.precision = cfg["precision"]
     self.n_total = n = int(cfg["n_total"])
     self.dim = int(cfg["dim"])
+    if group is not None:
+        self._set_layout(group, mesh.padded_rows(n, mesh.group_size(group)))
+        self.corpus = _shard_rows_of(self, data, meta, "corpus", device)
+        self.row_scale = (_shard_rows_of(self, data, meta, "row_scale", device, 1e-12)
+                          if self.quantized else None)
+        self._fill = [-1]
+        return self
     self.corpus, self.row_scale = self._empty_storage(self._storage_rows(n), device)
     self.corpus[:n] = _unpack(data, meta, "corpus", device)
     if self.quantized:
@@ -162,7 +198,7 @@ def _load_flat(cfg, data, meta, device):
     return self
 
 
-def _load_refine(cfg, data, meta, device):
+def _load_refine(cfg, data, meta, device, group):
     require_fp32_matmul()
     self = RefineIPIndex.__new__(RefineIPIndex)
     self.device = device
@@ -172,13 +208,24 @@ def _load_refine(cfg, data, meta, device):
     self.recall_target = cfg["recall_target"]
     self.store_dtype = _as_dtype(cfg["store_dtype"])
     self.candidates = int(cfg["candidates"])
+    self.proj = _unpack(data, meta, "proj", device)
+    if group is not None:
+        self._set_layout(group, mesh.padded_rows(self.n_total, mesh.group_size(group)))
+        self.corpus = _shard_rows_of(self, data, meta, "corpus", device)
+        self.corpus_low = _shard_rows_of(self, data, meta, "corpus_low", device)
+        return self
     self.corpus = _unpack(data, meta, "corpus", device)
     self.corpus_low = _unpack(data, meta, "corpus_low", device)
-    self.proj = _unpack(data, meta, "proj", device)
     return self
 
 
-def _load_ivf(cfg, data, meta, device):
+MULTI_CARD_IVF = ("an IVF index over {} shards is not ported to rankpo_tpu_torch yet "
+                  "(ROADMAP.md Queue 1, the rest of item 8c: multi-card IVF)")
+
+
+def _load_ivf(cfg, data, meta, device, group):
+    if group is not None:
+        raise NotImplementedError(MULTI_CARD_IVF.format(mesh.group_size(group)))
     require_fp32_matmul()
     self = IVFIPIndex.__new__(IVFIPIndex)
     self.device = device
@@ -227,21 +274,31 @@ def _load_ivf(cfg, data, meta, device):
 _LOADERS = {"flat": _load_flat, "refine": _load_refine, "ivf": _load_ivf}
 
 
-def index_from_state(data: Mapping, device="cuda"):
+def index_from_state(data: Mapping, device="cuda", group=None):
     """Rebuild an index from ``index_state`` output (or a loaded npz) on
-    ``device`` (the card unless the caller asks for the CPU). Pure
-    placement: no k-means, no tuning."""
+    ``device`` (the card unless the caller asks for the CPU); with
+    ``group``, this rank's shard of it, at any shard count. Pure placement:
+    no k-means, no tuning."""
     cfg = json.loads(str(np.asarray(data[CONFIG_KEY])))
     if cfg.get("format") != FORMAT:
         raise ValueError(f"unknown index file format {cfg.get('format')!r}")
     kind = cfg["kind"]
     if kind not in _LOADERS:
         raise ValueError(f"unknown index kind {kind!r}")
-    return _LOADERS[kind](cfg, data, cfg["arrays"], resolve_device(device))
+    return _LOADERS[kind](cfg, data, cfg["arrays"], resolve_device(device), group)
 
 
-def save_state(state: Dict[str, np.ndarray], path: str) -> None:
-    """npz write through a temp file and an atomic rename."""
+def save_state(state: Dict[str, np.ndarray], path: str, group=None) -> None:
+    """npz write through a temp file and an atomic rename. With ``group``
+    (a collective) the group's rank 0 writes and the others wait at a
+    barrier; a failed write raises on rank 0 after the barrier."""
+    if group is not None:
+        try:
+            if mesh.group_index(group) == 0:
+                save_state(state, path)
+        finally:
+            torch.distributed.barrier(group=group)
+        return
     if not path.endswith(".npz"):
         path += ".npz"
     tmp = f"{path}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
@@ -255,11 +312,13 @@ def save_state(state: Dict[str, np.ndarray], path: str) -> None:
 
 
 def write_index(index, path: str) -> None:
-    """Persist a built index structurally (``.npz`` appended if missing)."""
-    save_state(index_state(index), path)
+    """Persist a built index structurally (``.npz`` appended if missing);
+    a sharded index is gathered, and written by its group's rank 0."""
+    save_state(index_state(index), path, getattr(index, "group", None))
 
 
-def read_index(path: str, device="cuda"):
-    """Load a structurally saved index onto ``device``."""
+def read_index(path: str, device="cuda", group=None):
+    """Load a structurally saved index onto ``device`` (with ``group``,
+    this rank's shard)."""
     with np.load(path, allow_pickle=False) as data:
-        return index_from_state(data, device)
+        return index_from_state(data, device, group)

@@ -21,6 +21,16 @@ each true hit in the projected ordering, then up to 3 verifying searches.
 
 Contract: approximate; the hit set may miss true neighbours, the scores of
 returned hits are exact at storage precision.
+
+With ``group=`` the index is row-sharded over the data group in the flat
+tier's layout (``index/flat.py`` ``RowShards``): each rank runs both stages
+on its own shard with the shard's valid rows and id offset (JAX
+``refined.py:680-700``), and the shards' top-k candidates merge by one
+all-gather and a stable top-k. The second moment is summed over the
+shards; the tuner counts each true hit's rank within its own shard (JAX
+``_hit_shard_ranks``) and verifies with sharded searches, so it measures
+the compound recall of the sharded index. Appends and removals keep the
+global layout, as the flat tier's do.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.index.flat import (
+    RowShards,
     _canonical_recon_ids,
     _chunked_row_gather,
     build_selector_mask,
@@ -63,12 +75,14 @@ def _check_store(store_dtype) -> torch.dtype:
     return dtype
 
 
-class RefineIPIndex:
-    """PCA-prefiltered, exactly reranked approximate IP index on one device.
+class RefineIPIndex(RowShards):
+    """PCA-prefiltered, exactly reranked approximate IP index on one device,
+    or row-sharded over ``group`` (module docstring).
 
     Storage: ``corpus`` [n_padded, D] in ``store_dtype`` (stage 2),
     ``corpus_low`` [n_padded, d'] bf16 (stage 1), ``proj`` [D, d'] fp32.
-    Rows at or past ``n_total`` are zero padding (free append room)."""
+    Rows at or past ``n_total`` are zero padding (free append room).
+    Sharded, ``corpus`` and ``corpus_low`` hold this rank's shard."""
 
     def __init__(
         self,
@@ -83,14 +97,17 @@ class RefineIPIndex:
         tune_k: int = TUNE_K,
         max_candidates: int = 4096,
         seed: int = 0,
+        group=None,
     ):
         """Build from [N_buf, D] fp32 ``embeddings`` (a tensor keeps its
         device; numpy builds on the CPU): the second moment is taken of the
         STORED rows (at ``store_dtype``), as the JAX package's host
-        constructor does; :meth:`from_sharded` takes it of the fp32 rows."""
+        constructor does; :meth:`from_sharded` takes it of the fp32 rows.
+        With ``group``, ``embeddings`` is the whole corpus on every rank and
+        each keeps its shard."""
         self._build(embeddings, n_total, reduced_dim, candidates, recall_target,
                     store_dtype, tune_sample, tune_k, max_candidates, seed,
-                    moment_of_stored=True)
+                    moment_of_stored=True, group=group, whole=True)
 
     @classmethod
     def from_sharded(
@@ -106,26 +123,46 @@ class RefineIPIndex:
         tune_k: int = TUNE_K,
         max_candidates: int = 4096,
         seed: int = 0,
+        group=None,
+        moment_of_stored: bool = False,
     ) -> "RefineIPIndex":
         """Build from a device tensor [N_buf >= n_total, D] fp32 (the
         encoder's output) whose rows past ``n_total`` are padding: the
         second moment is taken of the fp32 rows, as the JAX package's
-        device-resident constructor does."""
+        device-resident constructor does (``moment_of_stored``: of the
+        stored rows, as its host constructor does). With ``group``: this
+        rank's shard (``encode_shard``'s layout) of a corpus of ``n_total``
+        rows."""
         self = cls.__new__(cls)
         self._build(embeddings, n_total, reduced_dim, candidates, recall_target,
                     store_dtype, tune_sample, tune_k, max_candidates, seed,
-                    moment_of_stored=False)
+                    moment_of_stored=moment_of_stored, group=group, whole=False)
         return self
 
     def _build(self, embeddings, n_total, reduced_dim, candidates, recall_target,
                store_dtype, tune_sample, tune_k, max_candidates, seed, *,
-               moment_of_stored: bool):
+               moment_of_stored: bool, group, whole: bool):
         require_fp32_matmul()
         emb = torch.as_tensor(embeddings, dtype=torch.float32)
         if emb.dim() != 2:
             raise ValueError(f"embeddings must be [N, D], got {tuple(emb.shape)}")
-        self.n_padded, self.dim = int(emb.shape[0]), int(emb.shape[1])
-        self.n_total = int(self.n_padded if n_total is None else n_total)
+        self.dim = int(emb.shape[1])
+        if group is None:
+            whole = None
+            self.n_padded = int(emb.shape[0])
+            self.n_total = int(self.n_padded if n_total is None else n_total)
+        elif whole:  # the whole corpus on every rank: keep the shard
+            whole = emb
+            self.n_total = int(emb.shape[0] if n_total is None else n_total)
+            self._set_layout(group, mesh.padded_rows(self.n_total, mesh.group_size(group)))
+            emb = torch.zeros((self.shard_rows, self.dim), device=emb.device)
+            nv = self._local_valid()
+            emb[:nv] = whole[self.shard_lo : self.shard_lo + nv]
+        else:
+            whole = None
+            self.n_total = int(n_total)
+            self._set_layout(group, int(emb.shape[0]) * mesh.group_size(group))
+        rows_here = int(emb.shape[0])
         if not 0 < self.n_total <= self.n_padded:
             raise ValueError(f"n_total {self.n_total} outside (0, {self.n_padded}]")
         if not 0 < reduced_dim <= self.dim:
@@ -134,26 +171,36 @@ class RefineIPIndex:
         self.recall_target = float(recall_target)
         self.store_dtype = _check_store(store_dtype)
         self.device = emb.device
-        if self.n_padded > self.n_total:  # padding rows are zero rows
+        n_valid = self._local_valid()
+        if rows_here > n_valid:  # padding rows are zero rows
             emb = emb.clone()
-            emb[self.n_total:] = 0.0
+            emb[n_valid:] = 0.0
         self.corpus = emb.to(self.store_dtype)
         moment_rows = self.corpus if moment_of_stored else emb
         cov = torch.zeros((self.dim, self.dim), dtype=torch.float32, device=self.device)
-        for lo in range(0, self.n_padded, _ROW_CHUNK):
+        for lo in range(0, rows_here, _ROW_CHUNK):
             rows = moment_rows[lo : lo + _ROW_CHUNK].to(torch.float32)
             cov += rows.T @ rows
+        if self.group is not None:  # the shards' moments summed
+            mesh.all_reduce_(cov, self.group)
         _, v = np.linalg.eigh(cov.cpu().numpy())  # ascending eigenvalues
         self.proj = torch.from_numpy(
             np.ascontiguousarray(v[:, -self.reduced_dim:], np.float32)).to(self.device)
+        if self.group is not None:  # one basis on every rank, bit for bit
+            mesh.broadcast_(self.proj, 0, self.group)
         self.corpus_low = torch.cat([
             (emb[lo : lo + _ROW_CHUNK] @ self.proj).to(torch.bfloat16)
-            for lo in range(0, self.n_padded, _ROW_CHUNK)])
+            for lo in range(0, rows_here, _ROW_CHUNK)])
         if candidates == "auto":
             rng = np.random.default_rng(seed)
             sample_idx = rng.choice(self.n_total, size=min(tune_sample, self.n_total),
                                     replace=False)
-            sample = emb[torch.from_numpy(sample_idx).to(self.device)].cpu().numpy()
+            if whole is not None:
+                sample = whole[torch.from_numpy(sample_idx).to(whole.device)].cpu().numpy()
+            elif self.group is not None:
+                sample = self._gather_rows(emb, sample_idx).cpu().numpy()
+            else:
+                sample = emb[torch.from_numpy(sample_idx).to(self.device)].cpu().numpy()
             self.candidates = self._tune_candidates(sample, tune_k, max_candidates)
         else:
             self.candidates = int(candidates)
@@ -172,15 +219,26 @@ class RefineIPIndex:
         """[S, k] rank of each true hit in its query's projected (fp32)
         ordering over all stored rows: the count of rows scoring strictly
         above it. The candidate stage at count C admits the rows of rank < C,
-        so these ranks give recall(C) for every C."""
+        so these ranks give recall(C) for every C. Sharded, the ordering is
+        the hit's own shard's (each shard admits its own C)."""
         q_low = self._query_low(torch.from_numpy(sample).to(self.device))
         hits = torch.from_numpy(ref_idx.astype(np.int64)).to(self.device)
+        rows = self.corpus_low.shape[0]
+        if self.group is None:
+            here = torch.ones(hits.shape, dtype=torch.bool, device=self.device)
+        else:  # each hit's rank within its own shard, counted by its owner
+            hits = hits - self.shard_lo
+            here = (hits >= 0) & (hits < rows)
+            hits = torch.where(here, hits, 0)
         hs = _bf16_bmm(self.corpus_low[hits], q_low[:, :, None])[..., 0]  # [S, k]
         counts = torch.zeros(hits.shape, dtype=torch.int64, device=self.device)
-        chunk = max(128, min(self.n_padded, _RANK_BUDGET // max(len(sample), 1)))
-        for lo in range(0, self.n_padded, chunk):
+        chunk = max(128, min(rows, _RANK_BUDGET // max(len(sample), 1)))
+        for lo in range(0, rows, chunk):
             s1 = _bf16_mm(q_low, self.corpus_low[lo : lo + chunk].T)  # [S, chunk]
             counts += (s1[:, None, :] > hs[:, :, None]).sum(dim=2)
+        if self.group is not None:
+            counts = torch.where(here, counts, 0)
+            mesh.all_reduce_(counts, self.group)
         return counts.cpu().numpy()
 
     def _exact_stored(self, sample: np.ndarray, k: int) -> np.ndarray:
@@ -192,13 +250,18 @@ class RefineIPIndex:
         q = torch.from_numpy(np.ascontiguousarray(sample, np.float32)).to(self.device)
         best_s = torch.full((q.shape[0], 0), NEG_INF, device=self.device)
         best_i = torch.zeros((q.shape[0], 0), dtype=torch.int64, device=self.device)
-        for lo in range(0, self.n_total, _ROW_CHUNK):
-            hi = min(lo + _ROW_CHUNK, self.n_total)
+        n_local = self._local_valid()
+        offset = self.shard_lo if self.group is not None else 0
+        for lo in range(0, n_local, _ROW_CHUNK):
+            hi = min(lo + _ROW_CHUNK, n_local)
             s = q @ self.corpus[lo:hi].to(torch.float32).T
-            ids = torch.arange(lo, hi, device=self.device).expand(q.shape[0], -1)
+            ids = torch.arange(lo + offset, hi + offset,
+                               device=self.device).expand(q.shape[0], -1)
             cat_s, cat_i = torch.cat([best_s, s], dim=1), torch.cat([best_i, ids], dim=1)
             best_s, pos = exact_topk(cat_s, min(k, cat_s.shape[1]))
             best_i = torch.gather(cat_i, 1, pos)
+        if self.group is not None:
+            best_i = self._merge(best_s, best_i, k)[1]
         return best_i.cpu().numpy()
 
     def _tune_candidates(self, sample: np.ndarray, k: int, max_candidates: int) -> int:
@@ -244,17 +307,19 @@ class RefineIPIndex:
         """Device-side two-stage search: (scores fp32 [Q, k'], indices int64
         [Q, k']), k' = min(k, ntotal). ``sel``: bool [n_total] eligibility
         on the index's device, applied before the candidate pick and again
-        to the candidates."""
+        to the candidates. Sharded: each shard's two stages (C and k
+        capped at its rows), then the merge; a collective."""
         k = min(k, self.n_total)
         c_cand = max(int(candidates if candidates is not None else self.candidates), k)
-        cc = min(c_cand, self.n_padded)
+        rows = self.corpus_low.shape[0]
+        cc = min(c_cand, rows)
         q = queries.to(self.device, torch.float32)
         # stage 1: the product's result rounded to bf16, as JAX asks for it
         s1 = _bf16_mm(self._query_low(q), self.corpus_low.T).to(torch.bfloat16)
         s1 = s1.to(torch.float32)
-        ok = torch.arange(self.n_padded, device=self.device) < self.n_total
+        ok = torch.arange(rows, device=self.device) < self._local_valid()
         if sel is not None:
-            ok[: self.n_total] &= sel
+            ok &= self._local_mask(sel, self.device)
         s1 = torch.where(ok[None, :], s1, NEG_INF)
         _, cand = exact_topk(s1, cc)
         rows = self.corpus[cand]  # [Q, cc, D]
@@ -266,7 +331,10 @@ class RefineIPIndex:
         # than cc rows are eligible
         s2 = torch.where(ok[cand], s2, NEG_INF)
         top_s, pos = exact_topk(s2, min(k, cc))
-        return top_s, torch.gather(cand, 1, pos)
+        top_i = torch.gather(cand, 1, pos)
+        if self.group is None:
+            return top_s, top_i
+        return self._merge(top_s, top_i + self.shard_lo, k)
 
     def search(
         self,
@@ -309,6 +377,8 @@ class RefineIPIndex:
                      "proj", "device"):
             setattr(out, name, getattr(self, name))
         out.n_total, out.n_padded = n_total, n_padded
+        if self.group is not None:
+            out._set_layout(self.group, n_padded)
         return out
 
     def append_sharded(self, new_rows, n_new: int, *,
@@ -325,6 +395,8 @@ class RefineIPIndex:
         n_total = n_old + n_new
         n_padded = (self.n_padded if n_total <= self.n_padded
                     else int(np.ceil(n_total * (1.0 + headroom))))
+        if self.group is not None:
+            return self._append_shard(fresh, n_total, mesh.padded_rows(n_padded, self.dp))
         out = self._clone_shell(n_total, n_padded)
         out.corpus = self.corpus.new_zeros((n_padded, self.dim))
         out.corpus_low = self.corpus_low.new_zeros((n_padded, self.reduced_dim))
@@ -332,6 +404,29 @@ class RefineIPIndex:
         out.corpus_low[:n_old] = self.corpus_low[:n_old]
         out.corpus[n_old:n_total] = fresh.to(self.store_dtype)
         out.corpus_low[n_old:n_total] = (fresh @ self.proj).to(torch.bfloat16)
+        return out
+
+    def _append_shard(self, fresh: torch.Tensor, n_total: int, n_padded: int
+                      ) -> "RefineIPIndex":
+        """``append_sharded`` of a sharded index: ``fresh`` the new rows on
+        every rank, each keeping those that land in its shard; a grown layout
+        moves the rows whose shard changes."""
+        n_old = self.n_total
+        out = self._clone_shell(n_total, n_padded)
+        with torch.inference_mode():
+            if n_padded == self.n_padded:
+                out.corpus, out.corpus_low = self.corpus.clone(), self.corpus_low.clone()
+            else:
+                src = np.arange(n_old)
+                out.corpus = self._relayout(self.corpus, src, out.shard_rows)
+                out.corpus_low = self._relayout(self.corpus_low, src, out.shard_rows)
+            lo = max(out.shard_lo, n_old)
+            hi = min(out.shard_lo + out.shard_rows, n_total)
+            if hi > lo:
+                new = fresh[lo - n_old : hi - n_old]
+                out.corpus[lo - out.shard_lo : hi - out.shard_lo] = new.to(self.store_dtype)
+                out.corpus_low[lo - out.shard_lo : hi - out.shard_lo] = (
+                    (new @ self.proj).to(torch.bfloat16))
         return out
 
     def remove_rows(self, removed) -> "RefineIPIndex":
@@ -352,6 +447,12 @@ class RefineIPIndex:
             raise ValueError("cannot remove every row; build a new index")
         n_keep = int(keep_idx.numel())
         out = self._clone_shell(n_keep, self.n_padded)
+        if self.group is not None:  # survivors keep the layout, shifted down
+            src = np.nonzero(keep)[0]
+            with torch.inference_mode():
+                out.corpus = self._relayout(self.corpus, src, self.shard_rows)
+                out.corpus_low = self._relayout(self.corpus_low, src, self.shard_rows)
+            return out
         out.corpus = self.corpus.new_zeros((self.n_padded, self.dim))
         out.corpus_low = self.corpus_low.new_zeros((self.n_padded, self.reduced_dim))
         out.corpus[:n_keep] = self.corpus[keep_idx]
@@ -364,5 +465,7 @@ class RefineIPIndex:
         ids = _canonical_recon_ids(ids, self.n_total)
         if ids.size == 0:
             return np.zeros((0, self.dim), np.float32)
+        if self.group is not None:
+            return self._gather_rows(self.corpus, ids).to(torch.float32).cpu().numpy()
         return _chunked_row_gather(lambda i: self.corpus[i].to(torch.float32), ids,
                                    self.device)

@@ -125,10 +125,55 @@
 // bytes or the tensor-core peak. The causal and valid-length bounds remove
 // whole tiles, which on right-padded batches is most of the work.
 
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+// The file builds as four objects that nvcc compiles side by side:
+// flash_bwd_d64.cu, flash_bwd_d128.cu and flash_bwd_d256.cu include it with
+// RANKPO_BWD_D set, each holding that head dim's kernels behind
+// dispatch_d<D>; compiled as itself it holds the C entry points, which pick
+// the object by D.
+namespace rankpo_bwd {
+
+struct BwdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const int* mask;
+  const __nv_bfloat16* dout;
+  const float* lse;
+  const float* delta;
+  float* dq_acc;          // fused: fp32 [B*Hq, Sq, D], zeroed by the caller
+  __nv_bfloat16* dq;      // dq kernel: bf16 [B, Sq, Hq, D]
+  __nv_bfloat16* dk;      // kv kernel: bf16 [B, Sk, Hkv, D]
+  __nv_bfloat16* dv;
+  float* dk_f32;          // kv kernel, kF32Out: fp32 [B, Sk, Hkv, D]
+  float* dv_f32;
+  int* sync;              // fused: zeroed int32 [1 + B*Hq * q tiles]
+  int Sq, Sk, Hq, Hkv;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  long long do_sb, do_ss, do_sh, mask_sb;
+  float scale;
+  int causal, skip_pad_q;
+  int window;  // > 0 with causal, else -1
+};
+
+enum Which { kFused, kDkv, kDq, kDkvF32 };
+
+int dispatch_d64(Which which, const BwdArgs& a, int B, int packed, cudaStream_t st);
+int dispatch_d128(Which which, const BwdArgs& a, int B, int packed, cudaStream_t st);
+int dispatch_d256(Which which, const BwdArgs& a, int B, int packed, cudaStream_t st);
+
+}  // namespace rankpo_bwd
+
+#ifdef RANKPO_BWD_D
+
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
+
+using namespace rankpo_bwd;
 
 // ---- dQ summed in key-tile order (the header): the counter of a query tile
 // counts the key tiles that added (the dQ adder warp of each block) ----
@@ -166,29 +211,6 @@ __device__ __forceinline__ int first_kt(int qt, int window, int q_shift) {
   const int x = qt * kTile + q_shift - window - (kTile - 2);
   return x <= 0 ? 0 : (x + kTile - 1) / kTile;
 }
-
-struct BwdArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const int* mask;
-  const __nv_bfloat16* dout;
-  const float* lse;
-  const float* delta;
-  float* dq_acc;          // fused: fp32 [B*Hq, Sq, D], zeroed by the caller
-  __nv_bfloat16* dq;      // dq kernel: bf16 [B, Sq, Hq, D]
-  __nv_bfloat16* dk;      // kv kernel: bf16 [B, Sk, Hkv, D]
-  __nv_bfloat16* dv;
-  float* dk_f32;          // kv kernel, kF32Out: fp32 [B, Sk, Hkv, D]
-  float* dv_f32;
-  int* sync;              // fused: zeroed int32 [1 + B*Hq * q tiles]
-  int Sq, Sk, Hq, Hkv;
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  long long do_sb, do_ss, do_sh, mask_sb;
-  float scale;
-  int causal, skip_pad_q;
-  int window;  // > 0 with causal, else -1
-};
 
 // ---- the kv kernel: K3b, and K2 with its dq ----
 
@@ -927,8 +949,6 @@ int launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-enum Which { kFused, kDkv, kDq, kDkvF32 };
-
 template <int D, bool kFused, bool kWindow, bool kPacked, bool kF32Out = false>
 int launch_kv(const BwdArgs& a, int B, cudaStream_t stream) {
   using T = KvTiles<D, kFused>;
@@ -974,6 +994,26 @@ int dispatch(Which which, const BwdArgs& a, int B, int packed, cudaStream_t st) 
                 : dispatch_window<D, false>(which, a, B, st);
 }
 
+}  // namespace
+
+namespace rankpo_bwd {
+
+#define RANKPO_BWD_PASTE(d) dispatch_d##d
+#define RANKPO_BWD_DISPATCH(d) RANKPO_BWD_PASTE(d)
+
+int RANKPO_BWD_DISPATCH(RANKPO_BWD_D)(Which which, const BwdArgs& a, int B, int packed,
+                                      cudaStream_t st) {
+  return dispatch<RANKPO_BWD_D>(which, a, B, packed, st);
+}
+
+}  // namespace rankpo_bwd
+
+#else  // the entry points
+
+namespace {
+
+using namespace rankpo_bwd;
+
 int run(Which which, const void* q, const void* k, const void* v,
         const int* mask, const void* dout, const float* lse,
         const float* delta, void* dq, void* dk, void* dv, int* sync, int B,
@@ -1013,9 +1053,9 @@ int run(Which which, const void* q, const void* k, const void* v,
   a.window = causal && window > 0 ? window : -1;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (Hq % Hkv != 0 || (packed && Sq != Sk)) return (int)cudaErrorInvalidValue;
-  if (D == 64) return dispatch<64>(which, a, B, packed, st);
-  if (D == 128) return dispatch<128>(which, a, B, packed, st);
-  if (D == 256) return dispatch<256>(which, a, B, packed, st);
+  if (D == 64) return dispatch_d64(which, a, B, packed, st);
+  if (D == 128) return dispatch_d128(which, a, B, packed, st);
+  if (D == 256) return dispatch_d256(which, a, B, packed, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1064,3 +1104,5 @@ extern "C" int rankpo_flash_bwd_dkv_f32(RANKPO_BWD_PARAMS) {
 extern "C" int rankpo_flash_bwd_dq_bf16(RANKPO_BWD_PARAMS) {
   return run(kDq, RANKPO_BWD_ARGS);
 }
+
+#endif  // RANKPO_BWD_D

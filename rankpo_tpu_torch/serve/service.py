@@ -23,6 +23,17 @@ compiles nothing per shape. So a mutation keeps nothing to rebind, and
 ``rewarm_after_mutation`` replays the last warmup after every mutation.
 ``pack_queries`` packs each group's queries several to a row
 (``data/packing.py``) and embeds them with block-diagonal attention.
+
+With ``group=`` (the data group of a multi-process server) the flat and
+refine tiers are row-sharded over the group: each rank encodes only its
+own shard of the corpus (``InferenceEncoder.encode_shard``), every rank
+encodes every query and every added passage (they are small, and no
+embedding then crosses processes), and each search, mutation, save and
+load is a collective of the group that every rank must run in the same
+order; ``serve/multihost.py`` drives the ranks from rank 0. The JAX service
+slices the queries across processes instead (``service.py:1019-1022``).
+Rank 0 writes the index file while the others wait. An IVF index over
+several shards is not ported (ROADMAP.md Queue 1, the rest of item 8c).
 """
 
 from __future__ import annotations
@@ -36,10 +47,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.data.packing import pack_token_lists
 from rankpo_tpu_torch.index import io as index_io
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import resolve_index_spec
+from rankpo_tpu_torch.index.factory import check_sharded_tier, resolve_index_spec, shard_count
 from rankpo_tpu_torch.index.flat import (
     FlatIPIndex,
     build_selector_mask,
@@ -123,6 +135,7 @@ class RetrievalService:
         mutation_headroom: float = 0.25,
         pack_queries: bool = False,
         pack_max_segments: int = 16,
+        group=None,
     ):
         """The index arguments are :func:`resolve_tier`'s; ``recall_target
         < 1`` is also the flat tier's approximate mode. ``stable_ids``:
@@ -136,13 +149,17 @@ class RetrievalService:
         mutation replays the last :meth:`warmup` before it returns.
         ``pack_queries``: each group of up to ``query_batch_size`` queries is
         bin-packed into rows of ``max_query_length`` tokens, at most
-        ``pack_max_segments`` queries a row (JAX ``service.py:983-1030``)."""
+        ``pack_max_segments`` queries a row (JAX ``service.py:983-1030``).
+        ``group``: the data group the index is row-sharded over (module
+        docstring)."""
         self.encoder = encoder
         self.max_query_length = max_query_length
         self.query_batch_size = query_batch_size
         self.recall_target = recall_target
         self.index_type, self.index_dtype, self.index_kwargs = resolve_tier(
             index_type, index_dtype, index_kwargs)
+        check_sharded_tier(self.index_type, shard_count(group))
+        self.group = group
         self.stable_ids = stable_ids
         self.pack_queries = pack_queries
         self.pack_max_segments = pack_max_segments
@@ -185,15 +202,18 @@ class RetrievalService:
         ``constructor``: build as the JAX package's constructors (host
         numpy path: refine's PCA moment of the stored rows, flat's host int8
         rounding) rather than its ``from_sharded`` (device path)."""
+        shard = {} if self.group is None else {"group": self.group}
         with torch.inference_mode():
             if self.index_type == "ivf":
                 return IVFIPIndex(emb, n_total=n, **self._approx_kwargs(overrides))
             if self.index_type == "refine":
                 if constructor:
-                    return RefineIPIndex(emb, n_total=n, **self._approx_kwargs(overrides))
-                return RefineIPIndex.from_sharded(emb, n, **self._approx_kwargs(overrides))
+                    return RefineIPIndex(emb, n_total=n, **self._approx_kwargs(overrides),
+                                         **shard)
+                return RefineIPIndex.from_sharded(emb, n, **self._approx_kwargs(overrides),
+                                                  **shard)
         kwargs = dict(self.index_kwargs, recall_target=self.recall_target,
-                      dtype=(overrides or {}).get("dtype", self.index_dtype))
+                      dtype=(overrides or {}).get("dtype", self.index_dtype), **shard)
         if constructor:
             return FlatIPIndex(emb, n_total=n, **kwargs)
         return FlatIPIndex.from_sharded(emb, n, **kwargs)
@@ -214,8 +234,13 @@ class RetrievalService:
         self._require_stable_for(ids)
         ext_ids = self._validate_ids(ids, len(corpus_texts))
         t0 = time.perf_counter()
-        emb, n = self.encoder.encode_device(
-            list(corpus_texts), batch_size=batch_size, max_length=max_passage_length)
+        if self.group is None:
+            emb, n = self.encoder.encode_device(
+                list(corpus_texts), batch_size=batch_size, max_length=max_passage_length)
+        else:  # this rank's shard of the corpus
+            emb, n = self.encoder.encode_shard(
+                list(corpus_texts), mesh.group_size(self.group), mesh.group_index(self.group),
+                batch_size=batch_size, max_length=max_passage_length)
         self._state = (self._make_index(emb, n), list(corpus_texts), ext_ids)
         logger.info("indexed %d passages in %.1fs", n, time.perf_counter() - t0)
 
@@ -414,7 +439,7 @@ class RetrievalService:
         state = index_io.index_state(index)
         state["corpus_texts"] = np.asarray(texts, dtype=object)
         state["corpus_ext_ids"] = ext_ids
-        index_io.save_state(state, path)
+        index_io.save_state(state, path, self.group)
         logger.info("saved index (%d passages) to %s", index.ntotal, path)
 
     def load_index_file(self, path: str) -> None:
@@ -448,7 +473,8 @@ class RetrievalService:
             ext = (np.asarray(data["corpus_ext_ids"], np.int64)
                    if "corpus_ext_ids" in data else np.arange(len(texts), dtype=np.int64))
             self._check_loaded_ids(ext, len(texts), path)
-            index = index_io.index_from_state(data, device=self.encoder.device)
+            index = index_io.index_from_state(data, device=self.encoder.device,
+                                              group=self.group)
             self._state = (index, texts, ext)
             logger.info("restored %s index (%d passages) from %s — no rebuild", kind,
                         self.ntotal, path)
@@ -618,6 +644,7 @@ class RetrievalService:
 
     def warmup(self, k: int = 10) -> None:
         """One small pass: builds the kernels and starts cuBLAS before the
-        first request (there is nothing to compile per shape)."""
+        first request (there is nothing to compile per shape). Sharded, a
+        collective (``MultihostFrontend.warmup`` runs it on every rank)."""
         self._warmup_spec = {"k": k}
         self.query(["warm up"], k=k, return_passages=False)

@@ -16,6 +16,13 @@ Candidates that are positives of the query, or the query text itself, are
 filtered first (:69-73). When λ is unset the reference sweeps λ ∈ {0.9..0.1}
 (:254-259) and writes one jsonl per method/λ; same here. For the same seed
 and candidates the rows equal the JAX package's.
+
+Several processes (``group=``, the data group): each rank encodes the
+queries and its own row shard of the corpus into a sharded index (every
+rank gets the same hits); the shards' fp32 embeddings are gathered for the
+cluster policy, and rank 0 alone selects and writes the files (the JAX tool
+has every process write the same files, ``hard_negatives.py:125``, which
+races on a shared disk).
 """
 
 from __future__ import annotations
@@ -27,9 +34,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.data.datasets import load_mining_rows
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import build_offline_index, resolve_index_spec
+from rankpo_tpu_torch.index.factory import (
+    build_offline_index,
+    check_sharded_tier,
+    shard_count,
+    resolve_index_spec,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -159,9 +172,11 @@ def find_hard_negatives(
     index_type: str = "flat",
     index_recall_target: float = 0.95,
     index_kwargs: Optional[dict] = None,
+    group=None,
 ) -> Dict[str, str]:
     """Run the full mining pipeline on the encoder's device; returns
-    {output-name: path}."""
+    {output-name: path} (``group``: the data group the corpus is sharded
+    over; the names on every rank, the files from rank 0)."""
     if isinstance(search_range, str):
         lo, hi = (int(x) for x in search_range.split("-"))
     else:
@@ -177,6 +192,7 @@ def find_hard_negatives(
 
     # an invalid spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
+    check_sharded_tier(index_type, shard_count(group))
 
     train_rows, queries, corpus = load_mining_rows(input_file)
     # the reference samples ONE positive per row at load time (:207) for the
@@ -188,19 +204,28 @@ def find_hard_negatives(
     )
     q_emb = encoder.encode(queries, batch_size=batch_size,
                            max_length=max_query_length)
-    c_dev, n_corpus = encoder.encode_device(corpus, batch_size=batch_size,
-                                            max_length=max_passage_length)
-    c_emb = c_dev.cpu().numpy()  # the cluster policy's embeddings, on the host
+    if group is None:
+        c_dev, n_corpus = encoder.encode_device(corpus, batch_size=batch_size,
+                                                max_length=max_passage_length)
+        c_emb = c_dev.cpu().numpy()  # the cluster policy's embeddings, on the host
+    else:
+        c_dev, n_corpus = encoder.encode_shard(
+            corpus, mesh.group_size(group), mesh.group_index(group),
+            batch_size=batch_size, max_length=max_passage_length)
+        c_emb = (mesh.all_gather_rows(c_dev, group)[:n_corpus].cpu().numpy()
+                 if "cluster" in methods else None)
     # the refine tier's PCA moment of the stored rows, as the JAX mining
     # tool's host constructor takes it
     index = build_offline_index(c_dev, n_corpus, index_type, index_kwargs,
-                                index_recall_target, as_constructor=True)
+                                index_recall_target, as_constructor=True, group=group)
     _scores, indices = index.search(q_emb, k=hi, batch_size=batch_size)
     del index, c_dev
     # drop IVF's -1 tail padding (unreachable slots) before sampling
     candidate_ids = [row[lo:hi][row[lo:hi] >= 0] for row in indices]
 
-    os.makedirs(output_prefix, exist_ok=True)
+    main = mesh.is_main_process()
+    if main:
+        os.makedirs(output_prefix, exist_ok=True)
     outputs: Dict[str, str] = {}
     for m in methods:
         for lam in lambdas:
@@ -209,6 +234,11 @@ def find_hard_negatives(
             else:
                 name = f"cluster{int(lam * 10)}.jsonl"
             path = os.path.join(output_prefix, name)
+            outputs[name] = path
+            if not main:  # rank 0 selects and writes
+                if m in ("topk", "sample"):
+                    break
+                continue
             ids = select_negative_ids(
                 candidate_ids,
                 num_negatives=num_negatives,
@@ -221,7 +251,6 @@ def find_hard_negatives(
                 seed=seed,
             )
             _save_mined(path, ids, train_rows, corpus, np.random.default_rng(seed))
-            outputs[name] = path
             if m in ("topk", "sample"):
                 break  # λ sweep applies to cluster only (:296-298)
     return outputs

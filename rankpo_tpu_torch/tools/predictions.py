@@ -16,6 +16,12 @@ Output rows:
    "passage2": ..., "passage_id2": j2, "passage_rank2": r2}
 so an external judge only needs to add "preferred": "A"|"B" to produce
 RankPO training data (data/annotated_pair_data-sample.jsonl schema).
+
+Several processes (``group=``, the data group): each rank encodes the
+queries and its own row shard of the corpus into a sharded index, every
+rank gets the same hits and rows, and rank 0 alone writes the file (the
+JAX tool has every process write the same file, ``predictions.py:156``,
+which races on a shared disk).
 """
 
 from __future__ import annotations
@@ -27,9 +33,15 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.data.datasets import load_eval_corpus, load_eval_queries
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import build_offline_index, resolve_index_spec
+from rankpo_tpu_torch.index.factory import (
+    build_offline_index,
+    check_sharded_tier,
+    shard_count,
+    resolve_index_spec,
+)
 from rankpo_tpu_torch.utils.jsonl import write_jsonl
 
 logger = logging.getLogger(__name__)
@@ -52,8 +64,10 @@ def generate_predictions(
     index_type: str = "flat",
     index_recall_target: float = 0.95,
     index_kwargs: Optional[dict] = None,
+    group=None,
 ) -> List[dict]:
-    """Retrieve candidates and emit annotation-ready pairs.
+    """Retrieve candidates and emit annotation-ready pairs (``group``: the
+    data group the corpus is sharded over; module docstring).
 
     ``method='topk'`` keeps the top ``num_predictions`` of the search range;
     ``'sample'`` draws them uniformly from it. With ``emit_pairs`` every
@@ -68,16 +82,22 @@ def generate_predictions(
 
     # an invalid spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
+    check_sharded_tier(index_type, shard_count(group))
     queries, _labels = load_eval_queries(query_data)
     corpus = load_eval_corpus(corpus_data)
 
     q_emb = encoder.encode(queries, batch_size=batch_size,
                            max_length=max_query_length)
     # the corpus embeddings feed only the index: they stay on the device
-    c_emb, n_corpus = encoder.encode_device(corpus, batch_size=batch_size,
-                                            max_length=max_passage_length)
+    if group is None:
+        c_emb, n_corpus = encoder.encode_device(corpus, batch_size=batch_size,
+                                                max_length=max_passage_length)
+    else:
+        c_emb, n_corpus = encoder.encode_shard(
+            corpus, mesh.group_size(group), mesh.group_index(group),
+            batch_size=batch_size, max_length=max_passage_length)
     index = build_offline_index(c_emb, n_corpus, index_type, index_kwargs,
-                                index_recall_target)
+                                index_recall_target, group=group)
     scores, indices = index.search(q_emb, k=hi, batch_size=batch_size)
 
     rows: List[dict] = []
@@ -123,7 +143,8 @@ def generate_predictions(
                 }
             )
 
-    os.makedirs(os.path.dirname(output_file) or ".", exist_ok=True)
-    write_jsonl(output_file, rows)
-    logger.info("wrote %d prediction rows to %s", len(rows), output_file)
+    if mesh.is_main_process():
+        os.makedirs(os.path.dirname(output_file) or ".", exist_ok=True)
+        write_jsonl(output_file, rows)
+        logger.info("wrote %d prediction rows to %s", len(rows), output_file)
     return rows

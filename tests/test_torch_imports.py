@@ -26,6 +26,7 @@ MODULES = [
     "rankpo_tpu_torch.index.encoding",
     "rankpo_tpu_torch.serve.service",
     "rankpo_tpu_torch.serve.batching",
+    "rankpo_tpu_torch.serve.multihost",
     "rankpo_tpu_torch.cli.serve",
     "rankpo_tpu_torch.core.precision",
     "rankpo_tpu_torch.losses.contrastive",

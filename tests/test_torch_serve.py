@@ -222,10 +222,18 @@ def test_http_server(checkpoint):
     assert not any(port_flash.launches.values())
 
 
-@pytest.mark.parametrize("flag,item", [(["--num_processes", "2"], "item 8c"),
-                                       (["--process_id", "0"], "item 8c")])
+@pytest.mark.parametrize("flag,item", [
+    (["--coordinator_address", "127.0.0.1:1"], "needs --num_processes and --process_id"),
+    (["--index_type", "ivf", "--num_processes", "2"], "item 8c")])
 def test_unported_flags_fail(checkpoint, flag, item, capsys):
-    """Each rejected with its ROADMAP.md item: multi-host serving (8c)."""
+    """The three multi-process flags are ported; what still fails: half a
+    set of them, as ``DistributedArguments.initialize`` fails in the
+    training CLIs, and an IVF index over several processes, at parse time
+    with its ROADMAP.md item (the rest of 8c, multi-card IVF)."""
+    if "--coordinator_address" in flag:
+        with pytest.raises(ValueError, match=item):
+            cli.main(_argv(checkpoint, "--device", "cpu", *flag))
+        return
     with pytest.raises(SystemExit):
         cli.main(_argv(checkpoint, "--device", "cpu", *flag))
     err = capsys.readouterr().err

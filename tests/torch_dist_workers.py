@@ -1,6 +1,8 @@
 """Worker processes for the multi-process tests of the PyTorch port
 (``test_torch_distributed.py``, ``test_torch_zero.py``,
-``test_torch_ring_attention.py``, ``test_torch_tensor_parallel.py``).
+``test_torch_ring_attention.py``, ``test_torch_tensor_parallel.py``), and
+:func:`spawn`, which also runs workers of other modules
+(``torch_serve_workers.py``).
 
 :func:`spawn` starts ``world`` processes with the ``spawn`` start method;
 each joins a gloo group through a file store in the test's directory (no
@@ -32,7 +34,8 @@ def spawn(worker, world: int, out: str, *args, timeout: float = 240.0) -> None:
         sys.path.insert(0, TESTS_DIR)
     ctx = multiprocessing.get_context("spawn")
     store = os.path.join(out, f"store_{worker.__name__}")
-    procs = [ctx.Process(target=_entry, args=(worker.__name__, rank, world, out, store, args),
+    target = f"{worker.__module__}:{worker.__name__}"
+    procs = [ctx.Process(target=_entry, args=(target, rank, world, out, store, args),
                          daemon=True) for rank in range(world)]
     for p in procs:
         p.start()
@@ -56,12 +59,15 @@ def spawn(worker, world: int, out: str, *args, timeout: float = 240.0) -> None:
             + "\n" + "\n".join(errors))
 
 
-def _entry(name, rank, world, out, store, args):
+def _entry(target, rank, world, out, store, args):
+    import importlib
+
     torch.set_num_threads(1)
+    module, name = target.split(":")
     try:
         dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world,
                                 rank=rank)
-        globals()[name](rank, world, out, *args)
+        getattr(importlib.import_module(module), name)(rank, world, out, *args)
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
