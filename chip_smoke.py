@@ -205,12 +205,23 @@ version. Phases:
    rows at full width and FEATURE_LAYERS (2) of 16 layers (K1, K3a, K3b): its final model, its prediction pairs and
    its peak device memory; which k-means path ran;
 7d, 8's pair, 4d. two ranks sharing the card under gloo (one spawn), each
-   on its own row shard of the corpus: (7d) ``cli.evaluate`` flat then
-   refine on phase 7's checkpoint and files, each rank's shard embeddings
-   bit-equal to a one-process encode of its texts, the flat hits equal to
-   numpy_search over the ranks' embeddings outside near-ties, the saved
-   metrics bit-equal to the host recompute, refine's recall (near-ties
-   counted) >= 0.95, the differences from phase 7's one process printed;
+   on its own row shard of the corpus: (7d) ``cli.evaluate`` flat, refine
+   and ivf (bf16 rows, recall target 0.95: the clusters sharded over the
+   ranks, K4 on each rank's own clusters) on phase 7's checkpoint and
+   files, each rank's shard embeddings bit-equal to a one-process encode
+   of its texts, the flat hits equal to numpy_search over the ranks'
+   embeddings outside near-ties, the saved metrics bit-equal to the host
+   recompute, refine's and ivf's recall (near-ties counted) >= 0.95
+   against numpy_search at storage precision, ivf's knobs and hits the
+   same on both ranks, its sharded exact search equal to that numpy_search
+   outside near-ties, and its W = 2 file loaded in one process (total
+   probed clusters kept, full probe = that numpy_search), the differences
+   from phase 7's one process printed; (7f, beside the ranks)
+   ``cli.evaluate`` fp32 without ``--bf16`` at 512 positions: no flash
+   launch, every attention call routed to the plain attention and counted,
+   metrics bit-equal to the host recompute; "auto" at head_dim 32 and 80
+   bit-equal to the plain attention at 512 positions, and raising at 1024
+   (JAX's kernel shapes) for fp32 and head_dim 80;
    (8) ``get_hard_negatives`` writing phase 8's files; (4d) ``cli.serve``
    flat fp32 at full width and depth: 32 single requests from 8 clients,
    16-query requests and a filtered one held to numpy_search, p50 and
@@ -584,6 +595,18 @@ def kernel_ms(times: dict, name: str) -> float:
 
 
 # ---------------------------------------------------------------------------
+def no_reference_routes(label: str) -> None:
+    """A bf16 path at head_dim 64, 128 or 256 (every path whose K1 launches
+    the smoke asserts) sends no attention call to the plain attention under
+    "auto": ``flash_attention.reference_routes`` (reset with the launch
+    counters) is still zero."""
+    from rankpo_tpu_torch.ops import flash_attention as flash
+
+    if any(flash.reference_routes.values()):
+        raise AssertionError(f"{label}: attention calls routed to the plain attention "
+                             f"on a bf16 path: {flash.reference_routes}")
+
+
 def phase_environment() -> str:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -1649,6 +1672,7 @@ def phase_serving(seed: int, tmp: str, ckpt: str, tier: str = "flat", model: str
             group = queries[:16]
             batched.append((_http(port, "/search", {"queries": group, "k": 100, **per_call}),
                             group, 100, per_call))
+        no_reference_routes(f"serving {tier}")
         launches = {"flash_fwd": flash.launches["flash_fwd"],
                     **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
                        for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
@@ -1839,6 +1863,7 @@ def phase_serving_packed(seed: int, tmp: str, ckpt: str, unpacked: dict) -> dict
         for j, k in enumerate((10, 100, 10, 100)):
             group = queries[16 * j : 16 * (j + 1)]
             batched.append((_http(port, "/search", {"queries": group, "k": k}), group, k))
+        no_reference_routes("packed serving")
         packed = dict(flash.packed_launches)
         # ---- end of the packed serving path ----
         for (status, body, _), i in singles:
@@ -2037,6 +2062,7 @@ def phase_mutation(seed: int, tmp: str, ckpt: str, tier: str) -> dict:
     uncounted = {}
 
     def launch_counts():
+        no_reference_routes(f"mutation {tier}")
         return {"flash_fwd": flash.launches["flash_fwd"],
                 **{name: ivf_gather.launches.get(name, 0) + pq_adc.launches.get(name, 0)
                    for name in ("ivf_probe_scores", "pq_adc_rows", "pq_adc_cols")}}
@@ -2254,6 +2280,7 @@ def run_stage(name: str, main, argv, out_dir: str, state_before: dict,
         torch.use_deterministic_algorithms(False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    no_reference_routes(name)
     launches = dict(flash.launches)
     window_launches = dict(flash.window_launches)
     d256_launches = dict(flash.d256_launches)
@@ -2829,6 +2856,7 @@ def run_feature(name: str, main, argv, deterministic: bool = False, keep: bool =
         torch.use_deterministic_algorithms(False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    no_reference_routes(name)
     launches = dict(flash.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     gc.collect()
@@ -3469,6 +3497,7 @@ def phase_training_item7(ckpt: str, tmp: str, seed: int, features: dict,
             restore()
         wall = time.perf_counter() - t
         real, slots = map(sum, zip(*calls))
+        no_reference_routes(f"5l {label}")
         enc[key] = {"emb": emb, "wall_s": wall, "passages_per_s": N_PASSAGES / wall,
                     "pad_share": 1 - real / slots, "batches": len(calls),
                     "launches": flash.launches["flash_fwd"],
@@ -3601,6 +3630,7 @@ def _dp_rank(rank: int, port: int, tag: str, stages: list, result_path: str) -> 
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             trainer = seen[-1]["trainer"]
+            no_reference_routes(f"5d rank {rank} {stage}")
             out[stage] = {"history": history, "launches": dict(flash.launches),
                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                           "wall_s": wall, "state_bytes": _state_bytes(trainer),
@@ -4115,6 +4145,7 @@ def _ring_rank(rank: int, port: int, seed: int, result_path: str) -> None:
         ring.reset_hop_stats()
         got = _fwd_bwd(ring_fn(world), q, k, v, do)
         torch.cuda.synchronize()
+        no_reference_routes(f"5t ring rank {rank}")
         out["launches"] = dict(flash.launches)
         out["f32_launches"] = dict(flash.f32_launches)
         out["hops"] = dict(ring.hop_stats)
@@ -4873,6 +4904,7 @@ def phase_evaluate(seed: int, tmp: str, ckpt: str, tiers=tuple(EVAL_TIERS),
                 if dist.is_initialized():
                     dist.destroy_process_group()
         wall = time.perf_counter() - t0
+        no_reference_routes(f"evaluate {tier}")
         launches = {"flash_fwd": flash.launches["flash_fwd"],
                     "ivf_probe_scores": ivf_gather.launches["ivf_probe_scores"]}
         windowed = flash.window_launches["flash_fwd"]
@@ -5010,6 +5042,7 @@ def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str,
         result = main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        no_reference_routes(name)
         launches = dict(flash.launches)
         # ---- end of the path ----
         out[name] = {"wall_s": wall, "launches": launches,
@@ -5104,33 +5137,52 @@ def phase_mining(seed: int, tmp: str, ckpt: str, eval_queries: str,
 
 MP_ADD = 64  # 4d: passages added over HTTP, then ids removed
 MP_ALLOWED = 512  # 4d: the filtered request's allowed ids
+MP_EVAL_TIERS = {  # 7d: tier -> cli.evaluate's flags
+    "flat": [], "refine": ["--index_type", "refine"],
+    # bf16 rows tuned to recall 0.95 (cli.serve's --index_dtype bfloat16
+    # --recall_target 0.95)
+    "ivf": ["--index_type", "ivf", "--index_recall_target", "0.95",
+            "--index_kwargs", json.dumps({"store_dtype": "bfloat16"})]}
+MP_IVF_RECALL = 0.95  # 7d ivf: recall@100 against the sharded exact search
 
 
 def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
     """One of the two ranks of 7d, 8's pair and 4d (started by
     ``multiprocessing`` with spawn): join the gloo group on cuda:0, then run
-    ``cli.evaluate`` flat and refine on the FEATURE_LAYERS checkpoint (7d),
-    one ``get_hard_negatives`` (8) and ``cli.serve`` flat at full depth
-    until rank 0 takes SIGTERM (4d), each with the launch counters from 0
-    just before and read just after. Kept for the parent's checks: each
-    rank's shard of the corpus embeddings (``encode_shard``) and the query
-    embeddings (7d), rank 0's searches (the query embeddings, the merged
-    hits, the filter, whether a mutation had come first; 4d)."""
+    ``cli.evaluate`` flat, refine and ivf on the FEATURE_LAYERS checkpoint
+    (7d), one ``get_hard_negatives`` (8) and ``cli.serve`` flat at full
+    depth until rank 0 takes SIGTERM (4d), each with the launch counters
+    from 0 just before and read just after. Kept for the parent's checks:
+    each rank's shard of the corpus embeddings (``encode_shard``) and the
+    query embeddings (7d), the ivf index the evaluator built: its knobs, the
+    evaluator's search again and the sharded exact search (k 101) on each
+    rank, and its file (written by rank 0; 7d), rank 0's searches (the
+    query embeddings, the merged hits, the filter, whether a mutation had
+    come first; 4d)."""
     import torch.distributed as dist
 
     from rankpo_tpu_torch.cli import evaluate, get_hard_negatives, serve
     from rankpo_tpu_torch.core import mesh
+    from rankpo_tpu_torch.eval import evaluator
+    from rankpo_tpu_torch.index import io as index_io
     from rankpo_tpu_torch.index.encoding import InferenceEncoder
     from rankpo_tpu_torch.index.flat import FlatIPIndex
     from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.ops import ivf_gather
     from rankpo_tpu_torch.serve.service import RetrievalService
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
                             rank=rank)
     originals = (InferenceEncoder.encode_shard, InferenceEncoder.encode,
-                 FlatIPIndex.search_tensor, RetrievalService.add_passages)
+                 FlatIPIndex.search_tensor, RetrievalService.add_passages,
+                 evaluator.build_offline_index)
     shards, queries, searches, state = [], [], [], {"mutated": False, "search_s": 0.0}
+    built = []
+
+    def kept_build(*args, **kwargs):
+        built.append(originals[4](*args, **kwargs))
+        return built[-1]
 
     def kept_shard(self, *args, **kwargs):
         emb, n = originals[0](self, *args, **kwargs)
@@ -5157,6 +5209,7 @@ def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
 
     InferenceEncoder.encode_shard, InferenceEncoder.encode = kept_shard, kept_encode
     FlatIPIndex.search_tensor, RetrievalService.add_passages = kept_search, kept_add
+    evaluator.build_offline_index = kept_build
     out = {"device": f"{torch.cuda.current_device()} {torch.cuda.get_device_name()}",
            "steps": {}}
 
@@ -5166,15 +5219,19 @@ def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
         shards.clear()
         queries.clear()
         searches.clear()
+        built.clear()
         flash.reset_launches()
+        ivf_gather.reset_launches()
         mesh.reset_gather_stats()
         state["search_s"] = 0.0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
+        no_reference_routes(f"{name} rank {rank}")
         out["steps"][name] = {"wall_s": time.perf_counter() - t0,
                               "launches": flash.launches["flash_fwd"],
+                              "k4": ivf_gather.launches["ivf_probe_scores"],
                               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                               "shard_rows": [int(x.shape[0]) for x in shards],
                               "gathers": dict(mesh.gather_stats),
@@ -5185,22 +5242,124 @@ def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
             f"GiB, {out['steps'][name]['wall_s']:.1f} s")
 
     try:
-        for tier in ("flat", "refine"):
+        for tier in MP_EVAL_TIERS:
             step(f"7d {tier}", lambda: evaluate.main(
                 plan["eval_argv"] + ["--output_dir", plan["eval_dirs"][tier][rank],
-                                     *EVAL_TIERS[tier]]))
+                                     *MP_EVAL_TIERS[tier]]))
             if tier == "flat":
                 torch.save({"shard": shards[0], "queries": queries[0]}, plan["eval_emb"][rank])
+            if tier == "ivf":  # every rank alike: the same collectives in one order
+                index, t0 = built[-1], time.perf_counter()
+                s_, i_ = index.search(queries[0], k=100, batch_size=64)
+                e_s, e_i = index.exact_search(queries[0], k=101)
+                index_io.write_index(index, plan["ivf_file"])
+                out["ivf"] = {"nprobe": index.nprobe, "local_clusters": index.local_clusters,
+                              "n_clusters": index.n_clusters, "capacity": index.capacity,
+                              "build_s": index.build_seconds,
+                              "check_s": time.perf_counter() - t0}
+                torch.save({"idx": i_, "scores": s_, "exact_idx": e_i, "exact_scores": e_s},
+                           plan["ivf_hits"][rank])
+                del index
+                built.clear()
         step("8 mining", lambda: sorted(get_hard_negatives.main(
             plan["mine_argv"] + ["--output_prefix", plan["mined"][rank]])))
         step("4d serving", lambda: serve.main(plan["serve_argv"]))
         torch.save({"shard": shards[0], "searches": searches}, plan["serve_emb"][rank])
     finally:
         (InferenceEncoder.encode_shard, InferenceEncoder.encode, FlatIPIndex.search_tensor,
-         RetrievalService.add_passages) = originals
+         RetrievalService.add_passages, evaluator.build_offline_index) = originals
         dist.destroy_process_group()
     with open(result_path, "w") as f:
         json.dump(out, f)
+
+
+def phase_fp32_evaluate(seed: int, tmp: str, ckpt_cut: str, files: tuple) -> dict:
+    """Phase 7f (run beside 7d's ranks): the "auto" dispatch's rule on the
+    card. ``cli.evaluate`` without ``--bf16`` (fp32 and "auto" attention,
+    the CLI's default) over phase 7's files at FEATURE_LAYERS, passages cut
+    to 512 positions (where JAX's dispatch runs XLA), must exit 0 with no
+    flash launch and every attention call counted in ``reference_routes``
+    (by dtype), its saved metrics bit-equal to ``compute_metrics`` over its
+    saved arrays. Then "auto" on CUDA bf16 tensors of 512 positions at
+    head_dim 32 and 80 (no kernel built, JAX runs XLA): each output
+    bit-equal to ``attention_reference`` on the same tensors, no launch, one
+    route by head_dim each; and at 1024 positions, where JAX runs its
+    kernel, fp32 at head_dim 64 and bf16 at 80 raise, launching and routing
+    nothing. ``files``: (query file, corpus file, labels) as 7d's ranks
+    read them."""
+    from rankpo_tpu_torch.cli import evaluate
+    from rankpo_tpu_torch.eval.metrics import compute_metrics
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.ops.attention import attention_reference, multi_head_attention
+
+    query_file, corpus_file, labels = files
+    out_dir = os.path.join(tmp, "7f_auto")
+    argv = ["--model_name_or_path", ckpt_cut, "--tokenizer_name", "hash:128256",
+            "--query_data", query_file, "--corpus_data", corpus_file, "--k", "100",
+            "--batch_size", "64", "--max_query_length", "64", "--max_passage_length", "512",
+            "--device", "cuda", "--log_level", "warning", "--output_dir", out_dir]
+    # ---- the fp32 evaluate path: counters from 0, the CLI, counters read ----
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    results = evaluate.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = dict(flash.launches), dict(flash.reference_routes)
+    # ---- end of the path ----
+    stem = os.path.join(out_dir, os.path.basename(ckpt_cut), "main")
+    with open(stem + ".json") as f:
+        saved = json.load(f)
+    idx, scores = np.load(stem + "-indices.npy"), np.load(stem + "-scores.npy")
+    host = compute_metrics(idx, scores, labels, cutoffs=EVAL_CUTOFFS)
+    shutil.rmtree(out_dir)
+    if saved != host or results["main"] != host:
+        raise AssertionError("7f fp32 evaluate: saved metrics differ from the host recompute "
+                             "over the saved arrays")
+    if any(launches.values()):
+        raise AssertionError(f"7f: a flash kernel launched on the fp32 path: {launches}")
+    if routes["dtype"] <= 0 or routes["head_dim"]:
+        raise AssertionError(f"7f: reference routes {routes}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+
+    def qkv(s, d, dtype):
+        q = torch.randn(8, s, 32, d, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(8, s, 8, d, device="cuda", generator=gen).to(dtype)
+                for _ in range(2))
+        lens = torch.randint(1, s + 1, (8,), device="cuda", generator=gen)
+        return q, k, v, (torch.arange(s, device="cuda")[None, :] < lens[:, None]).int()
+
+    dims = {}
+    for d in (32, 80):
+        q, k, v, mask = qkv(512, d, torch.bfloat16)
+        flash.reset_launches()
+        got = multi_head_attention(q, k, v, mask=mask, causal=True)
+        torch.cuda.synchronize()
+        dims[d] = dict(flash.reference_routes)
+        if (not torch.equal(got, attention_reference(q, k, v, mask, True))
+                or any(flash.launches.values()) or dims[d] != {"dtype": 0, "head_dim": 1}):
+            raise AssertionError(f"7f: auto at head_dim {d}: routes {dims[d]}, launches "
+                                 f"{flash.launches}")
+    for d, dtype in ((64, torch.float32), (80, torch.bfloat16)):
+        q, k, v, mask = qkv(1024, d, dtype)
+        flash.reset_launches()
+        try:
+            multi_head_attention(q, k, v, mask=mask, causal=True)
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        if ("Queue 3" not in raised or any(flash.launches.values())
+                or any(flash.reference_routes.values())):
+            raise AssertionError(f"7f: auto at S 1024, head_dim {d}, {dtype}: raised "
+                                 f"{raised!r}, launches {flash.launches}, routes "
+                                 f"{flash.reference_routes}")
+    log(f"7f evaluate fp32 without --bf16 (auto attention) at {FEATURE_LAYERS} layers over "
+        f"phase 7's files, passages of 512 positions: exit 0 in {wall:.1f} s, flash launches "
+        f"{launches}, reference_routes {routes}; metrics bit-equal to the host recompute: "
+        f"MRR@10 {host['MRR@10']:.4f}; auto on bf16 [8, 512, 32/8 heads] at head_dim 32 and "
+        f"80: bit-equal to attention_reference, no launch, reference_routes {dims}; auto at "
+        "1024 positions (JAX's kernel shapes) on fp32 head_dim 64 and bf16 head_dim 80: "
+        "raised naming Queue 3, no launch, no route")
+    return {"routes": routes, "wall_s": wall, "head_dim_routes": dims}
 
 
 def _tie_aware_recall(idx: np.ndarray, exact_scores_of, exact_kth: np.ndarray) -> float:
@@ -5215,7 +5374,8 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
     (:func:`_mp_rank`, one spawn for the three), each rank on its own row
     shard of the corpus.
 
-    7d: ``cli.evaluate`` flat, then refine, on phase 7's FEATURE_LAYERS
+    7d: ``cli.evaluate`` flat, refine, then ivf (:func:`_check_mp_ivf`), on
+        phase 7's FEATURE_LAYERS
         checkpoint and files: (i) each rank's shard embeddings bit-equal to
         a one-process ``encode_device`` of the shard's texts on the card;
         (ii) the flat hits equal to numpy_search over the ranks' embeddings
@@ -5226,6 +5386,7 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
         at least its target 0.95; against phase 7's one-process results the
         metrics' differences and the differing top-100 ids printed (batch
         composition only: not gated).
+    7f: :func:`phase_fp32_evaluate` in this process while the ranks run.
     8:  one ``get_hard_negatives`` at W = 2 writes phase 8's files.
     4d: ``cli.serve`` flat fp32 at full width and depth (``ckpt``): /search
         from 8 clients (32 single requests), 16-query requests and one
@@ -5253,13 +5414,20 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
                           "--k", "100", "--batch_size", "64", "--max_query_length", "64",
                           "--max_passage_length", "512", "--device", "cuda",
                           "--log_level", "warning"],
-            "eval_dirs": {tier: paths(f"7d_{tier}") for tier in ("flat", "refine")},
+            "eval_dirs": {tier: paths(f"7d_{tier}") for tier in MP_EVAL_TIERS},
+            "ivf_file": os.path.join(tmp, "7d_ivf.npz"), "ivf_hits": paths("7d_ivf_hits"),
             "eval_emb": paths("7d_emb"), "mine_argv": mining["argv"], "mined": paths("8d"),
             "serve_argv": [*serve_argv, "--port", str(http_port)],
             "serve_emb": paths("4d_emb")}
     out = {}
     launched = _launch_ranks("7d 8 4d", tmp, _mp_rank, plan)
     procs = launched[1]
+    try:  # 7f needs nothing of the ranks: it runs while they evaluate
+        out["fp32_evaluate"] = phase_fp32_evaluate(seed, tmp, ckpt_cut,
+                                                   (query_file, corpus_file, labels))
+    except BaseException:
+        _kill_ranks(launched)
+        raise
     # ---- 4d: the server's requests (the ranks run 7d and 8 first) ----
     t_wait = time.perf_counter()
     while True:
@@ -5337,7 +5505,7 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
         raise AssertionError("7d: the ranks' query embeddings differ")
     base = os.path.basename(ckpt_cut)
     got = {}
-    for tier in ("flat", "refine"):
+    for tier in MP_EVAL_TIERS:
         stem = os.path.join(plan["eval_dirs"][tier][0], base, "main")
         with open(stem + ".json") as f:
             saved = json.load(f)
@@ -5362,10 +5530,10 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
     n_near = _check_against_oracle(got["flat"]["idx"], got["flat"]["scores"], o_scores, o_idx)
     rows_b = torch.from_numpy(rows).bfloat16().float().numpy()
     q_b = torch.from_numpy(q7).bfloat16().float().numpy()
-    e_scores, _ = numpy_search(rows_b, q_b, 100)
+    e_scores, e_idx = numpy_search(rows_b, q_b, 101)  # the oracle at storage precision
     recall = _tie_aware_recall(got["refine"]["idx"], lambda r, ids: rows_b[ids] @ q_b[r],
-                               e_scores[:, -1])
-    for tier in ("flat", "refine"):
+                               e_scores[:, 99])
+    for tier in MP_EVAL_TIERS:
         g = got[tier]
         log(f"7d evaluate {tier} at W = 2 (two ranks on one card, gloo): metrics bit-equal to "
             f"the host recompute; MRR@10 {g['metrics']['MRR@10']:.4f}, nDCG@10 "
@@ -5381,6 +5549,7 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
         "(limit 0.95)")
     if recall < 0.95:
         raise AssertionError(f"7d refine: recall {recall:.4f} < 0.95")
+    out["ivf"] = _check_mp_ivf(plan, ranks, got["ivf"], rows_b, q7, q_b, e_scores, e_idx)
 
     # ---- 8's pair ----
     for name, text in mining["files"].items():
@@ -5413,6 +5582,7 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
         [*serve_argv, "--port", str(port1), "--index_file", index_file], port1, N_PASSAGES)
     try:
         again = _http(port1, "/search", {"queries": queries[:16], "k": 100})
+        no_reference_routes("4d restart")
         restart_k1 = flash.launches["flash_fwd"]
     finally:
         stop_server(server, thread)
@@ -5435,13 +5605,83 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
         f"ranks' serving walls {[round(rk['steps']['4d serving']['wall_s'], 1) for rk in ranks]} s")
     out.update(wall_s=wall, ranks=ranks, refine_recall=recall,
                launches=sum(rk["steps"][n]["launches"] for rk in ranks for n in rk["steps"])
-               + restart_k1)
-    for path in (*plan["eval_dirs"]["flat"], *plan["eval_dirs"]["refine"], *plan["mined"]):
+               + restart_k1,
+               k4_launches=sum(rk["steps"]["7d ivf"]["k4"] for rk in ranks))
+    for path in (*(d for dirs in plan["eval_dirs"].values() for d in dirs), *plan["mined"]):
         if os.path.exists(path):
             shutil.rmtree(path)
-    for path in (*plan["eval_emb"], *plan["serve_emb"], index_file):
+    for path in (*plan["eval_emb"], *plan["serve_emb"], *plan["ivf_hits"], index_file,
+                 plan["ivf_file"]):
         os.remove(path)
     return out
+
+
+def _check_mp_ivf(plan: dict, ranks: list, saved: dict, rows_b: np.ndarray, q: np.ndarray,
+                  q_b: np.ndarray, o_scores: np.ndarray, o_idx: np.ndarray) -> dict:
+    """7d's ivf tier: K4 launched on each rank; both ranks' knobs, hits and
+    sharded exact search the same, and rank 0's hits the evaluator's saved
+    ones; the sharded exact search equal to the host oracle (``o_scores``,
+    ``o_idx``: numpy_search over ``rows_b`` and ``q_b``, the storage
+    precision, 101 deep) outside SCORE_ATOL near-ties; recall@100 against
+    that oracle (near-ties at its 100th score counted) at least
+    MP_IVF_RECALL; the W = 2 file in one process: the total of probed
+    clusters kept, every cluster probed gives the oracle's hits (outside
+    near-ties), and at the rescaled nprobe its recall holds MP_IVF_RECALL
+    (its differing ids against the W = 2 hits printed: one process probes
+    the top 2p clusters of all, each shard its own top p)."""
+    from rankpo_tpu_torch.index import io as index_io
+    from rankpo_tpu_torch.ops import ivf_gather
+
+    k4 = [rk["steps"]["7d ivf"]["k4"] for rk in ranks]
+    if min(k4) < 1:
+        raise AssertionError(f"7d ivf: ivf_probe_scores launches per rank {k4}")
+    knobs = [rk["ivf"] for rk in ranks]
+    keys = ("nprobe", "local_clusters", "n_clusters", "capacity")
+    if [[kn[key] for key in keys] for kn in knobs] != [[knobs[0][key] for key in keys]] * 2:
+        raise AssertionError(f"7d ivf: the ranks' knobs differ: {knobs}")
+    hits = [torch.load(path, weights_only=False) for path in plan["ivf_hits"]]
+    for key in ("idx", "scores", "exact_idx", "exact_scores"):
+        if not np.array_equal(hits[0][key], hits[1][key]):
+            raise AssertionError(f"7d ivf: the ranks' {key} differ")
+    idx, exact_s, exact_i = hits[0]["idx"], hits[0]["exact_scores"], hits[0]["exact_idx"]
+    if not np.array_equal(idx, saved["idx"]):
+        raise AssertionError("7d ivf: rank 0's hits differ from the evaluator's saved ones")
+    def scores_of(r, ids):  # storage precision; an unreachable slot (-1) scores -inf
+        return np.where(ids >= 0, rows_b[np.maximum(ids, 0)] @ q_b[r], -np.inf)
+
+    n_near_exact = _check_against_oracle(exact_i[:, :100], exact_s[:, :100], o_scores, o_idx)
+    recall = _tie_aware_recall(idx, scores_of, o_scores[:, 99])
+    if recall < MP_IVF_RECALL:
+        raise AssertionError(f"7d ivf: recall {recall:.4f} < {MP_IVF_RECALL}")
+    kn = knobs[0]
+    one = index_io.read_index(plan["ivf_file"], device="cuda")
+    ivf_gather.reset_launches()
+    s1, i1 = one.search(q, k=100, batch_size=64)
+    k4_one = ivf_gather.launches["ivf_probe_scores"]
+    fs, fi = one.search(q, k=100, batch_size=64, nprobe=one.n_clusters)
+    n_near = _check_against_oracle(fi, fs, o_scores, o_idx)
+    want_p = min(2 * kn["nprobe"], kn["n_clusters"])
+    recall1 = _tie_aware_recall(i1, scores_of, o_scores[:, 99])
+    differing = int(sum(len(set(a) - set(b)) for a, b in zip(i1.tolist(), idx.tolist())))
+    if one.nprobe != want_p or k4_one < 1 or recall1 < MP_IVF_RECALL:
+        raise AssertionError(f"7d ivf file in one process: nprobe {one.nprobe} (want {want_p}),"
+                             f" K4 launches {k4_one}, recall {recall1:.4f}")
+    log(f"7d ivf at W = 2: K {kn['n_clusters']} ({kn['local_clusters']} a rank), capacity "
+        f"{kn['capacity']}, tuned nprobe {kn['nprobe']} a rank on both ranks; "
+        f"ivf_probe_scores launches per rank {k4}; both ranks' hits and sharded exact search "
+        f"bit-equal; the sharded exact search equal to numpy_search at storage precision "
+        f"({n_near_exact} inside {SCORE_ATOL} near-ties); recall@100 against that "
+        f"numpy_search {recall:.4f} (limit {MP_IVF_RECALL}; near-ties at the 100th score "
+        f"counted); rank 0's build "
+        f"{ {k: round(v, 3) for k, v in kn['build_s'].items()} } s, the checks' search, exact "
+        f"search and file write {kn['check_s']:.2f} s; the W = 2 file in one process: nprobe "
+        f"{one.nprobe} of {one.n_clusters} (total probed kept), every cluster probed equals "
+        f"numpy_search ({n_near} inside {SCORE_ATOL} near-ties), recall "
+        f"{recall1:.4f} at nprobe {one.nprobe}, {differing} of {idx.size} top-100 ids differ "
+        "from the W = 2 hits (not gated)")
+    return {"recall": recall, "file_recall": recall1, "nprobe": kn["nprobe"],
+            "n_clusters": kn["n_clusters"], "differing_file": differing, "k4": k4,
+            "build_s": kn["build_s"]}
 
 
 # ---------------------------------------------------------------------------
@@ -6500,7 +6740,8 @@ def main(argv=None) -> int:
                               for n in (*serving.values(), *mutation.values()))
                           + sum(n["launches"] for n in scale["indexes"].values()
                                 if n["counter"] == counter)
-                          + sum(n["launches"].get(counter, 0) for n in evaluation.values()))
+                          + sum(n["launches"].get(counter, 0) for n in evaluation.values())
+                          + (multi["k4_launches"] if counter == "ivf_probe_scores" else 0))
     launches["flash_dkv_f32"] = sharded["dkv_f32_launches"]
     for name, n in launches.items():
         if n <= 0:

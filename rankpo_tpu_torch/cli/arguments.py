@@ -140,6 +140,21 @@ class DistributedArguments:
         return device, mesh.data_group()
 
 
+_ATTN_HELP = ("Attention impl: auto|plain|flash; the reference's 'flash_attention_2' maps "
+              "to the CUDA flash kernels, 'eager'/'sdpa' (and the JAX package's 'xla') to "
+              "the plain PyTorch attention.")
+
+
+def attn_impl_of(name: str) -> str:
+    """The attention dispatch's impl for an ``--attn_implementation`` value."""
+    return {
+        "flash_attention_2": "flash",
+        "eager": "plain",
+        "sdpa": "plain",
+        "xla": "plain",
+    }.get(name, name)
+
+
 @dataclasses.dataclass
 class ModelArguments:
     model_name_or_path: str = dataclasses.field(
@@ -151,13 +166,8 @@ class ModelArguments:
         metadata={"help": "Tokenizer path if different from the model; "
                           "'hash:<vocab>' selects the hermetic tokenizer."},
     )
-    attn_implementation: str = dataclasses.field(
-        default="auto",
-        metadata={"help": "Attention impl: auto|plain|flash; the reference's "
-                          "'flash_attention_2' maps to the CUDA flash kernels, "
-                          "'eager'/'sdpa' (and the JAX package's 'xla') to the "
-                          "plain PyTorch attention."},
-    )
+    attn_implementation: str = dataclasses.field(default="auto",
+                                                 metadata={"help": _ATTN_HELP})
 
     flash_bwd_impl: str = dataclasses.field(
         default="auto",
@@ -167,12 +177,7 @@ class ModelArguments:
 
     @property
     def attn_impl(self) -> str:
-        return {
-            "flash_attention_2": "flash",
-            "eager": "plain",
-            "sdpa": "plain",
-            "xla": "plain",
-        }.get(self.attn_implementation, self.attn_implementation)
+        return attn_impl_of(self.attn_implementation)
 
     def to_json_string(self):
         return _json_str(self)
@@ -313,6 +318,11 @@ class EvaluateArguments:
     index_recall_target: float = dataclasses.field(
         default=0.95, metadata={"help": "refine/ivf index build-time recall-tune target"})
     index_kwargs: str = dataclasses.field(default="", metadata={"help": _INDEX_KWARGS_HELP})
+    # the port's own flag: under "auto" an fp32 run whose batches reach 1024
+    # positions raises (no kernel here is built for it, ROADMAP.md Queue 3);
+    # "plain" runs it with the plain attention
+    attn_implementation: str = dataclasses.field(default="auto",
+                                                 metadata={"help": _ATTN_HELP})
     wandb_project: str = dataclasses.field(default="")
     log_level: str = dataclasses.field(default="info")
     device: str = dataclasses.field(default="cuda", metadata={"help": _DEVICE_HELP})

@@ -18,8 +18,8 @@ report with the recommended spec.
 ``--device cuda`` (the default) fails without a card; ``--device cpu`` runs
 the plain PyTorch paths. The exit code is 1 when no spec met the target and
 the budget. One process: under a process group of more than one rank it
-raises (ROADMAP.md Queue 1, the rest of item 8c: its ladder benchmarks the
-IVF tiers, which are not ported over several shards).
+raises (ROADMAP.md Queue 1, item 8c-ii: its ladder benchmarks the PQ and
+PCA-hybrid IVF tiers, which are not ported over several shards).
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ def main(argv=None):
     if mesh.process_count() > 1:
         raise NotImplementedError(
             f"cli.autotune over {mesh.process_count()} processes is not ported to "
-            "rankpo_tpu_torch yet (ROADMAP.md Queue 1, the rest of item 8c: multi-card IVF)")
+            "rankpo_tpu_torch yet (ROADMAP.md Queue 1, item 8c-ii)")
     if args.embeddings:
         emb = np.asarray(np.load(args.embeddings), np.float32)
     elif args.synthetic_rows:

@@ -27,6 +27,7 @@ import torch
 from rankpo_tpu_torch.cli.arguments import (
     DistributedArguments,
     EvaluateArguments,
+    attn_impl_of,
     parse_dataclasses,
     parse_index_kwargs,
     setup_logging,
@@ -66,6 +67,7 @@ def main(argv=None):
         index_type=args.index_type,
         index_recall_target=args.index_recall_target,
         index_kwargs=parse_index_kwargs(args.index_kwargs),
+        attn_impl=attn_impl_of(args.attn_implementation),
         group=group,
     )
     for name, metrics in results.items():

@@ -16,8 +16,10 @@ group (``index/flat.py``, ``index/refined.py``) and every rank gets the same
 hits and metrics. As in the JAX version, rank 0's file system decides
 whether a checkpoint is skipped (broadcast to every rank, so none runs a
 collective encode the others skip) and rank 0 alone writes the metrics,
-the arrays and the aggregate. An IVF index over several shards is not
-ported (ROADMAP.md Queue 1, the rest of item 8c).
+the arrays and the aggregate. An IVF index shards its whole clusters over
+the group (``index/ivf.py`` ``from_sharded``, as the JAX evaluator builds
+it); its PQ and PCA-hybrid specs stay one process's (ROADMAP.md Queue 1,
+item 8c-ii).
 """
 
 from __future__ import annotations
@@ -100,6 +102,7 @@ def evaluate_checkpoint(
     index_type: str = "flat",
     index_recall_target: float = 0.95,
     index_kwargs: Optional[dict] = None,
+    attn_impl: str = "auto",
     group=None,
 ):
     """Encode -> index -> search -> metrics for one checkpoint.
@@ -108,16 +111,17 @@ def evaluate_checkpoint(
     [Q, k] search arrays the caller saves. ``index_type``: "flat" (exact,
     FAISS IndexFlatIP order), "refine" (PCA prefilter and exact rerank) or
     "ivf" (both approximate, tuned to ``index_recall_target``), or a
-    factory spec such as "IVF4096,PQ64" or "PCA128,Flat". ``group``: the
-    data group the corpus is row-sharded over (a collective; every rank
-    returns the same)."""
+    factory spec such as "IVF4096,PQ64" or "PCA128,Flat". ``attn_impl``:
+    the encoder's attention dispatch ("auto", "plain" or "flash") when it
+    loads the checkpoint. ``group``: the data group the corpus is
+    row-sharded over (a collective; every rank returns the same)."""
     # an invalid spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
-    check_sharded_tier(index_type, shard_count(group))
+    check_sharded_tier(index_type, shard_count(group), index_kwargs)
     if encoder is None:
         kwargs = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
         encoder = InferenceEncoder.from_pretrained(
-            model_path, tokenizer=tokenizer, device=device, **kwargs)
+            model_path, tokenizer=tokenizer, device=device, attn_impl=attn_impl, **kwargs)
     q_emb = encoder.encode(list(query_texts), batch_size=batch_size,
                            max_length=max_query_length)
     # the corpus embeddings feed only the index: they stay on the device
@@ -164,6 +168,7 @@ def evaluate_path(
     index_type: str = "flat",
     index_recall_target: float = 0.95,
     index_kwargs: Optional[dict] = None,
+    attn_impl: str = "auto",
     group=None,
 ) -> Dict[str, Dict[str, float]]:
     """Full harness over one model dir or all its checkpoints; returns the
@@ -208,7 +213,7 @@ def evaluate_path(
             max_passage_length=max_passage_length, k=k, cutoffs=cutoffs,
             compute_dtype=compute_dtype, index_type=index_type,
             index_recall_target=index_recall_target, index_kwargs=index_kwargs,
-            group=group,
+            attn_impl=attn_impl, group=group,
         )
         if not main:  # rank 0 owns the files
             results[os.path.basename(save_path).split(".")[0]] = metrics

@@ -26,8 +26,9 @@ gathered once at the start of the eval point, in the one-process order,
 and dropped after it (JAX's ``_replicate``), so the encode makes no
 per-access broadcasts. Under tensor parallelism the ranks of a model group
 share a data index, so they encode the same rows in the same batches
-through the split module. An IVF index over several shards is not ported
-(ROADMAP.md Queue 1, the rest of item 8c).
+through the split module. An IVF index shards its whole clusters over the
+data group, as ``cli.evaluate``'s does; PQ and PCA-hybrid IVF specs stay one
+process's (ROADMAP.md Queue 1, item 8c-ii) and raise before training starts.
 """
 
 from __future__ import annotations
@@ -89,7 +90,8 @@ class RetrievalEvalHook:
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
         self.index_type, self.index_kwargs = resolve_index_spec(index_type, index_kwargs)
-        check_sharded_tier(self.index_type, mesh.data_count())  # before training starts
+        # before training starts
+        check_sharded_tier(self.index_type, mesh.data_count(), self.index_kwargs)
         self._encoder: Optional[InferenceEncoder] = None
         logger.info("in-training retrieval eval: %d queries over %d corpus rows (k=%d, "
                     "index=%s)", len(self.queries), len(self.corpus), self.k, index_type)

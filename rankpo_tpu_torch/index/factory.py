@@ -174,13 +174,17 @@ def shard_count(group) -> int:
     return 1 if group is None else mesh.group_size(group)
 
 
-def check_sharded_tier(index_type: str, shards: int) -> None:
-    """Raise for a tier that has no sharded build (IVF) over more than one
-    shard."""
-    if index_type == "ivf" and shards > 1:
-        from rankpo_tpu_torch.index.io import MULTI_CARD_IVF
+def check_sharded_tier(index_type: str, shards: int, index_kwargs=None) -> None:
+    """Raise, before any encode, for an IVF spec that has no sharded build
+    over more than one shard: PQ codes and the PCA hybrid (ROADMAP.md Queue 1
+    item 8c-ii). A plain IVF (fp32, bf16 or int8 rows) shards."""
+    if index_type != "ivf" or shards <= 1:
+        return
+    for key, codec in (("pq_m", "PQ"), ("reduced_dim", "PCA-hybrid")):
+        if (index_kwargs or {}).get(key) is not None:
+            from rankpo_tpu_torch.index.io import SHARDED_IVF_CODEC
 
-        raise NotImplementedError(MULTI_CARD_IVF.format(shards))
+            raise NotImplementedError(SHARDED_IVF_CODEC.format(codec, shards))
 
 
 def build_offline_index(embeddings, n_total: int, index_type: str,
@@ -195,14 +199,22 @@ def build_offline_index(embeddings, n_total: int, index_type: str,
     moment of the stored rows, the host's int8 rounding). With ``group``,
     ``embeddings`` is this rank's shard (``InferenceEncoder.encode_shard``)
     and the index is sharded over the group; ``as_constructor`` then keeps
-    the constructors' rounding and moment on the shard's rows."""
+    the constructors' rounding and moment on the shard's rows (an IVF
+    index: the constructor's int8 scales)."""
     if index_type == "ivf" and shard_count(group) == 1:
         group = None  # one shard: the one-device build
-    check_sharded_tier(index_type, shard_count(group))
+    check_sharded_tier(index_type, shard_count(group), index_kwargs)
     if group is not None:
         from rankpo_tpu_torch.index.flat import FlatIPIndex
+        from rankpo_tpu_torch.index.ivf import IVFIPIndex
         from rankpo_tpu_torch.index.refined import RefineIPIndex
 
+        if index_type == "ivf":
+            kwargs = dict(recall_target=recall_target)
+            kwargs.update(index_kwargs)
+            with torch.inference_mode():
+                return IVFIPIndex.from_sharded(embeddings, n_total, group=group,
+                                               times_reciprocal=not as_constructor, **kwargs)
         if index_type == "refine":
             kwargs = dict(recall_target=recall_target,
                           reduced_dim=min(256, int(embeddings.shape[1])))

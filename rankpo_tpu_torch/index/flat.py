@@ -161,19 +161,36 @@ def _chunked_row_gather(fn, idx: np.ndarray, device) -> np.ndarray:
     return np.concatenate(out).astype(np.float32, copy=False)
 
 
-class RowShards:
-    """The row-shard layout the flat and refine tiers share: ``group`` (None:
-    one device), its size ``dp``, this rank's data index ``shard``, the
-    global ``n_total`` and ``n_padded``, and the shard's ``shard_rows`` from
-    global row ``shard_lo`` on."""
+class Shards:
+    """What every tier sharded over the data group shares: ``group`` (None:
+    one device), its size ``dp``, this rank's data index ``shard``, and the
+    merge of the shards' candidates."""
 
     group = None
     dp, shard = 1, 0
 
-    def _set_layout(self, group, n_padded: int) -> None:
+    def _set_group(self, group) -> None:
         self.group = group
         self.dp = mesh.group_size(group) if group is not None else 1
         self.shard = mesh.group_index(group) if group is not None else 0
+
+    def _merge(self, scores: torch.Tensor, ids: torch.Tensor, k: int):
+        """The shards' candidates ``[Q, k_local]`` (ids global) gathered over
+        the group in rank order, then a stable top-k of them: every rank gets
+        the same hits, equal scores in ascending-id order."""
+        cand_s = mesh.all_gather_rows(scores.T, self.group).T
+        cand_i = mesh.all_gather_rows(ids.T, self.group).T
+        top_s, pos = exact_topk(cand_s, min(k, cand_s.shape[1]))
+        return top_s, torch.gather(cand_i, 1, pos)
+
+
+class RowShards(Shards):
+    """The row-shard layout the flat and refine tiers share: the global
+    ``n_total`` and ``n_padded``, and the shard's ``shard_rows`` from global
+    row ``shard_lo`` on."""
+
+    def _set_layout(self, group, n_padded: int) -> None:
+        self._set_group(group)
         if n_padded % self.dp:
             raise ValueError(f"padded rows ({n_padded}) must be divisible by {self.dp} shards")
         self.n_padded = int(n_padded)
@@ -198,15 +215,6 @@ class RowShards:
         nv = self._local_valid()
         mask[:nv] = sel[lo : lo + nv].to(device)
         return mask
-
-    def _merge(self, scores: torch.Tensor, ids: torch.Tensor, k: int):
-        """The shards' candidates ``[Q, k_local]`` (ids global) gathered over
-        the group in rank order, then a stable top-k of them: every rank gets
-        the same hits, equal scores in ascending-id order."""
-        cand_s = mesh.all_gather_rows(scores.T, self.group).T
-        cand_i = mesh.all_gather_rows(ids.T, self.group).T
-        top_s, pos = exact_topk(cand_s, min(k, cand_s.shape[1]))
-        return top_s, torch.gather(cand_i, 1, pos)
 
     def _gather_rows(self, storage: torch.Tensor, ids: np.ndarray) -> torch.Tensor:
         """Stored rows at global ``ids`` on every rank (a collective)."""

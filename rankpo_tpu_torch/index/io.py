@@ -13,14 +13,18 @@ capacity, freed slots); flat files carry fp32, bf16 or int8 rows (codes and
 their per-row scales, restored bit-equal, never requantized) and the
 approximate mode's knobs.
 
-Sharded flat and refine indexes (``group=``): :func:`index_state` gathers
-the shards' rows to every rank (a collective) and records the shard count
-as ``tuned_shards``; :func:`save_state` and :func:`write_index` write on
-the group's rank 0 while the others wait at a barrier. A file saved at one
-shard count loads at any other: :func:`index_from_state` re-pads the rows
-to the new multiple and keeps this rank's shard (JAX ``io.py:18-21``). An
-IVF index over several shards is not ported (ROADMAP.md Queue 1, the rest
-of item 8c: multi-card IVF).
+Sharded indexes (``group=``): :func:`index_state` gathers the shards' rows
+(an IVF index's slots, in rank order) to every rank (a collective) and
+records the shard count as ``tuned_shards``; :func:`save_state` and
+:func:`write_index` write on the group's rank 0 while the others wait at a
+barrier. A file saved at one shard count loads at any other:
+:func:`index_from_state` re-pads flat and refine rows to the new multiple
+and keeps this rank's shard (JAX ``io.py:18-21``); an IVF file keeps its
+cluster-major layout, each rank takes its whole clusters (the cluster count
+must divide by the new shard count), and the per-shard nprobe is rescaled
+so that the total of probed clusters stays the one tuned (JAX ``_load_ivf``,
+``io.py:297-368``). PQ and PCA-hybrid IVF files load on one device only
+(ROADMAP.md Queue 1, item 8c-ii).
 """
 
 from __future__ import annotations
@@ -71,11 +75,14 @@ def _pack(out: Dict[str, np.ndarray], meta: Dict[str, str], name: str, arr,
     meta[name] = dname
 
 
-def _unpack(data: Mapping, meta: Dict[str, str], name: str, device
+def _unpack(data: Mapping, meta: Dict[str, str], name: str, device, rows: slice = slice(None)
             ) -> Optional[torch.Tensor]:
+    """A saved array (only its ``rows``) on ``device``."""
     if name not in meta:
         return None
-    arr = np.array(data[name])  # a writable copy: torch shares its memory
+    # a writable copy of the rows alone: torch shares its memory, so a view
+    # would keep the whole array alive
+    arr = np.array(data[name][rows])
     if meta[name] == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
@@ -87,6 +94,14 @@ def _whole(index, storage):
     if getattr(index, "group", None) is None:
         return storage
     return index._gather_rows(storage, np.arange(index.n_total))
+
+
+def _all_slots(index, storage):
+    """An IVF per-slot (or per-cluster) tensor of every rank, in rank order
+    (a collective when the index is sharded)."""
+    if storage is None or index.group is None:
+        return storage
+    return mesh.all_gather_rows(storage, index.group)
 
 
 def index_state(index) -> Dict[str, np.ndarray]:
@@ -134,11 +149,11 @@ def index_state(index) -> Dict[str, np.ndarray]:
             # appends to a loaded index place rows by the build's biased scores
             _pack(out, meta, "assign_bias", index._assign_bias_host)
         cfg["candidates"] = index.candidates
-        _pack(out, meta, "corpus", index.corpus)
-        _pack(out, meta, "row_ids", index.row_ids)
-        _pack(out, meta, "centroids", index.centroids)
+        _pack(out, meta, "corpus", _all_slots(index, index.corpus))
+        _pack(out, meta, "row_ids", _all_slots(index, index.row_ids))
+        _pack(out, meta, "centroids", _all_slots(index, index.centroids))
         if index.quantized:
-            _pack(out, meta, "slot_scale", index.slot_scale)
+            _pack(out, meta, "slot_scale", _all_slots(index, index.slot_scale))
         if index.pq_m is not None:
             # fp32 host codebooks [m, 256, ds]; the device bf16 search copy
             # is derived again at load (the same rounding)
@@ -166,10 +181,10 @@ def state_kind(data: Mapping) -> str:
 def _shard_rows_of(self, data, meta, name: str, device, fill=0.0) -> torch.Tensor:
     """This rank's shard of a saved [n_total, ...] array, re-padded to the
     index's layout (zero rows, or ``fill``)."""
-    full = _unpack(data, meta, name, device)
     nv = self._local_valid()
-    out = full.new_full((self.shard_rows,) + tuple(full.shape[1:]), fill)
-    out[:nv] = full[self.shard_lo : self.shard_lo + nv]
+    mine = _unpack(data, meta, name, device, slice(self.shard_lo, self.shard_lo + nv))
+    out = mine.new_full((self.shard_rows,) + tuple(mine.shape[1:]), fill)
+    out[:nv] = mine
     return out
 
 
@@ -219,13 +234,11 @@ def _load_refine(cfg, data, meta, device, group):
     return self
 
 
-MULTI_CARD_IVF = ("an IVF index over {} shards is not ported to rankpo_tpu_torch yet "
-                  "(ROADMAP.md Queue 1, the rest of item 8c: multi-card IVF)")
+SHARDED_IVF_CODEC = ("a {} IVF index over {} shards is not ported to rankpo_tpu_torch yet "
+                     "(ROADMAP.md Queue 1, item 8c-ii)")
 
 
 def _load_ivf(cfg, data, meta, device, group):
-    if group is not None:
-        raise NotImplementedError(MULTI_CARD_IVF.format(mesh.group_size(group)))
     require_fp32_matmul()
     self = IVFIPIndex.__new__(IVFIPIndex)
     self.device = device
@@ -241,22 +254,34 @@ def _load_ivf(cfg, data, meta, device, group):
                  cfg.get("pq_layout") or "rows")
     self.balance_eta = float(cfg.get("balance_eta", 0.0))
     self.kmeans_split = int(cfg.get("kmeans_split", 0))
-    self._set_assign_bias(
-        np.array(data["assign_bias"], np.float32) if "assign_bias" in meta else None)
     self.n_clusters = int(cfg["n_clusters"])
     self.capacity = int(cfg["capacity"])
-    self.local_clusters = self.n_clusters
-    # nprobe is per shard: keep the total probed-cluster count of the mesh
+    n_shards = 1 if group is None else mesh.group_size(group)
+    if n_shards > 1 and (self.pq_m is not None or self.reduced_dim is not None):
+        raise NotImplementedError(SHARDED_IVF_CODEC.format(
+            "PQ" if self.pq_m is not None else "PCA-hybrid", n_shards))
+    if self.n_clusters % n_shards:
+        raise ValueError(
+            f"saved IVF index has {self.n_clusters} clusters, not divisible by "
+            f"{n_shards} shards: rebuild for this group or load it on one device")
+    self._set_group(group)
+    self.local_clusters = self.n_clusters // n_shards
+    # nprobe is per shard: keep the total probed-cluster count of the group
     # the file was tuned on
     total_probed = int(cfg["nprobe"]) * max(int(cfg["tuned_shards"]), 1)
-    self.nprobe = max(1, min(total_probed, self.local_clusters))
+    self.nprobe = max(1, min(-(-total_probed // n_shards), self.local_clusters))
     self.build_seconds = {}
+    self._set_assign_bias(
+        np.array(data["assign_bias"], np.float32) if "assign_bias" in meta else None)
 
-    self.row_ids = _unpack(data, meta, "row_ids", device)
-    self._set_layout_maps(self.row_ids.cpu().numpy())
+    # this rank's whole clusters: a contiguous block of the saved slots
+    own = self._own_slots() if group is not None else slice(None)
+    row_ids = np.array(data["row_ids"], np.int32)
+    self._set_layout_maps(row_ids)
+    self.row_ids = torch.from_numpy(np.ascontiguousarray(row_ids[own])).to(device)
     self._set_centroids(_unpack(data, meta, "centroids", device).to(torch.float32))
-    self.corpus = _unpack(data, meta, "corpus", device)
-    self.slot_scale = (_unpack(data, meta, "slot_scale", device)
+    self.corpus = _unpack(data, meta, "corpus", device, own)
+    self.slot_scale = (_unpack(data, meta, "slot_scale", device, own)
                        if self.quantized else None)
     if self.pq_m is not None:
         self._codebooks_host = np.array(data["pq_codebooks"], np.float32)

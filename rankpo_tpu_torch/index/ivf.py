@@ -1,6 +1,6 @@
 """Inverted-file (clustered) approximate inner-product index on one device
-(port of ``rankpo_tpu.index.ivf.IVFIPIndex``: the FAISS ``IndexIVFFlat`` /
-``IndexIVFPQ`` analog, single device).
+or over the data group (port of ``rankpo_tpu.index.ivf.IVFIPIndex``: the
+FAISS ``IndexIVFFlat`` / ``IndexIVFPQ`` analog).
 
 Build, on the device the embeddings live on:
 
@@ -38,8 +38,28 @@ the plain versions on a CPU tensor), empty and filtered-out slots masked,
 and a stable top-k (ties to the lower position, as ``lax.top_k``). int8 rows
 and the PCA hybrid take the JAX package's own paths without a kernel
 (gather and product; the hybrid scores the projected rows, then reranks its
-top candidates at full width). A mesh raises (ROADMAP.md Queue 1 item 8c,
-multi-card IVF).
+top candidates at full width).
+
+With ``group=`` (the data group of a multi-process run; JAX's ``mesh=``)
+the clusters shard over the group as JAX shards them over its data axis:
+K is rounded up to a multiple of the group's size dp, and data index d
+holds the whole clusters ``[d K/dp, (d+1) K/dp)`` on its own device (their
+centroids, slot rows, ``row_ids``, int8 scales and balance bias), the
+cluster-major layout cut into dp contiguous blocks. Each rank runs the
+Lloyd loop on its own rows and all-reduces the per-cluster sums and counts
+over the group every iteration (JAX's ``lax.psum``), so ``balance_eta``'s
+bias and ``kmeans_split``'s donors come from the summed counts on every
+rank alike; the top-8 candidates are all-gathered in rank order and every
+rank runs the same host fill. A search probes each rank's own top-nprobe
+clusters with K4, and the shards' top-k candidates merge as the flat tier's
+do (``index/flat.py`` ``Shards._merge``: a rank-order all-gather and a
+stable top-k), so every rank returns the same hits; the filter mask stays
+whole (hits are global row ids; JAX replicates it). The tuner ranks each
+true hit's cluster among its own shard's clusters. Every call is then a
+collective of the group, made in the same order on every rank. PQ codes,
+the PCA hybrid, the mutations and the filtered tuner stay one device's
+(ROADMAP.md Queue 1 item 8c-ii), as the streamed build does (JAX's is one
+device's too).
 
 Every random draw is numpy's ``default_rng`` with the JAX package's seeds, so
 both packages draw the same numbers.
@@ -56,8 +76,10 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from rankpo_tpu_torch.core import mesh as cmesh
 from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.index.flat import (
+    Shards,
     _canonical_recon_ids,
     _chunked_row_gather,
     build_selector_mask,
@@ -101,9 +123,12 @@ _OPQ_OUTER = 8  # OPQ alternations (Lloyd fit <-> Procrustes rotation)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
-_NOT_PORTED = "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1 item {})"
+_NOT_SHARDED = ("{} over {} shards is not ported to rankpo_tpu_torch yet (ROADMAP.md "
+                "Queue 1, item 8c-ii)")
 # rows per chunk of the PCA second moment and projection
 _PROJ_CHUNK = 1 << 16
+# slots per collective of a sharded reconstruct
+_RECON_CHUNK = 1 << 14
 
 
 def _resolve_clusters(n_total: int, n_shards: int, requested) -> int:
@@ -175,10 +200,13 @@ def _sync(device: torch.device) -> None:
 
 def _lloyd_body(corpus: torch.Tensor, centroids: torch.Tensor, *, n_iters: int,
                 chunk: int, spherical: bool, balance_eta: float = 0.0,
-                split_r: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                split_r: int = 0, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Lloyd loop over fp32 rows ``corpus`` [N, D] from ``centroids``
     [K, D] (JAX ``_lloyd_body``). Empty clusters keep their previous
-    centroid. Returns ``(centroids, bias)``.
+    centroid. Returns ``(centroids, bias)``. ``group``: ``corpus`` is this
+    rank's rows; each iteration's sums and counts are all-reduced over the
+    group after the chunk loop (whose length may differ by shard), so every
+    rank takes the same steps from the same totals.
 
     ``balance_eta > 0``: rows assign to ``argmax(score - bias)`` and after
     every iteration ``bias += eta * tanh(count / target - 1)`` (balanced
@@ -197,7 +225,7 @@ def _lloyd_body(corpus: torch.Tensor, centroids: torch.Tensor, *, n_iters: int,
         cb_t = cents.T
         sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
         counts = torch.zeros(k, dtype=torch.float32, device=dev)
-        for lo in range(0, corpus.shape[0], chunk):
+        for lo in range(0, corpus.shape[0], max(chunk, 1)):
             rows_b = _bf16(corpus[lo : lo + chunk])
             scores = _bf16_mm(rows_b, cb_t)
             if balance_eta:
@@ -205,6 +233,9 @@ def _lloyd_body(corpus: torch.Tensor, centroids: torch.Tensor, *, n_iters: int,
             assign = torch.argmax(scores, dim=1)
             sums.index_add_(0, assign, rows_b)
             counts += torch.bincount(assign, minlength=k).to(torch.float32)
+        if group is not None:
+            cmesh.all_reduce_(sums, group)
+            cmesh.all_reduce_(counts, group)
         new = sums / torch.clamp_min(counts, 1.0)[:, None]
         new = torch.where((counts > 0.0)[:, None], new, cents)
         if spherical:
@@ -242,7 +273,7 @@ def _assign_top2_body(corpus: torch.Tensor, centroids: torch.Tensor, *,
     cb_t = centroids.T
     out = torch.empty((corpus.shape[0], n_cand), dtype=torch.int32,
                       device=corpus.device)
-    for lo in range(0, corpus.shape[0], chunk):
+    for lo in range(0, corpus.shape[0], max(chunk, 1)):
         scores = _bf16_mm(corpus[lo : lo + chunk], cb_t)
         if bias is not None:
             scores = scores - bias[None, :]
@@ -365,8 +396,9 @@ def _as_dtype(store_dtype) -> torch.dtype:
     return _DTYPES[name]
 
 
-class IVFIPIndex:
-    """Inverted-file inner-product index on one device.
+class IVFIPIndex(Shards):
+    """Inverted-file inner-product index on one device, or its clusters
+    sharded over ``group`` (module docstring).
 
     ``embeddings``: [N_buf, D] tensor (the index is built on, and stays on,
     its device) or numpy array (built on the CPU); rows at or past
@@ -382,7 +414,10 @@ class IVFIPIndex:
     bf16. Contract: approximate (the hit set may miss true neighbours);
     scores are exact at storage precision (int8: against the quantized rows;
     PQ: ADC approximations); a query whose probed clusters hold fewer than k
-    (eligible) rows pads with index -1 / score -inf."""
+    (eligible) rows pads with index -1 / score -inf. With ``group``,
+    ``embeddings`` is the whole corpus on every rank (:meth:`from_sharded`
+    takes each rank's row shard) and the storage tensors hold this rank's
+    clusters; int8 scales round as the JAX constructor rounds them."""
 
     def __init__(
         self,
@@ -409,10 +444,14 @@ class IVFIPIndex:
         max_nprobe: Optional[int] = None,
         seed: int = 0,
         mesh=None,
+        group=None,
     ):
         require_fp32_matmul()
         if mesh is not None:
-            raise NotImplementedError("IVFIPIndex mesh: " + _NOT_PORTED.format("8c, multi-card IVF"))
+            raise NotImplementedError(
+                "IVFIPIndex(mesh=...): rankpo_tpu_torch takes no JAX mesh; the clusters "
+                "shard over group=, the data group's process group (ROADMAP.md Queue 1 "
+                "item 8c, multi-card IVF)")
         # a tensor keeps its device; a numpy array becomes a CPU tensor
         corpus = torch.as_tensor(embeddings, dtype=torch.float32)
         if corpus.dim() != 2:
@@ -426,8 +465,107 @@ class IVFIPIndex:
                     spherical=spherical, balance_eta=balance_eta,
                     kmeans_split=kmeans_split, reduced_dim=reduced_dim,
                     candidates=candidates, pq_m=pq_m, pq_iters=pq_iters,
-                    pq_rotate=pq_rotate, pq_layout=pq_layout, n_clusters=n_clusters)
+                    pq_rotate=pq_rotate, pq_layout=pq_layout, n_clusters=n_clusters,
+                    group=group)
+        per = cmesh.padded_rows(n_total, self.dp) // self.dp  # JAX's row shards
+        lo = self.shard * per
+        local = corpus[lo : lo + self._local_valid_rows(lo, per)]
 
+        def rows_at(idx):
+            return corpus[torch.from_numpy(idx).to(self.device)].cpu().numpy()
+
+        def place(row_ids):
+            self._place_storage(corpus, row_ids[self._own_slots()], seed)
+
+        self._build(local, rows_at, place, seed=seed, kmeans_iters=kmeans_iters, nprobe=nprobe,
+                    max_nprobe=max_nprobe, tune_sample=tune_sample, tune_k=tune_k)
+
+    @classmethod
+    def from_sharded(
+        cls,
+        embeddings,
+        n_total: int,
+        *,
+        group=None,
+        times_reciprocal: bool = True,
+        n_clusters: Union[int, str] = "auto",
+        nprobe: Union[int, str] = "auto",
+        recall_target: float = 0.95,
+        store_dtype=torch.bfloat16,
+        kmeans_iters: int = 10,
+        capacity_slack: float = 1.3,
+        spherical: bool = True,
+        balance_eta: float = 0.0,
+        kmeans_split: int = 0,
+        reduced_dim: Optional[int] = None,
+        candidates: Union[int, str] = "auto",
+        pq_m: Optional[int] = None,
+        pq_iters: int = 25,
+        pq_rotate: str = "none",
+        pq_layout: str = "auto",
+        tune_sample: int = TUNE_SAMPLE,
+        tune_k: int = TUNE_K,
+        max_nprobe: Optional[int] = None,
+        seed: int = 0,
+    ) -> "IVFIPIndex":
+        """Build from device-resident fp32 rows (JAX ``from_sharded``): with
+        ``group``, ``embeddings`` is this rank's row shard in
+        ``InferenceEncoder.encode_shard``'s layout (``n_total`` rows over
+        the group, zero pad rows), else rows past ``n_total`` are ignored.
+        k-means runs on each shard's own rows; the k-means init rows and the
+        tuner's sample reach every rank through ``mesh.exchange_rows``, and
+        each slot's row moves once, to the rank that owns its cluster. int8
+        scales round as XLA does (``times_reciprocal``; False: as the JAX
+        constructor)."""
+        require_fp32_matmul()
+        rows = torch.as_tensor(embeddings, dtype=torch.float32)
+        if rows.dim() != 2:
+            raise ValueError(f"embeddings must be [N, D], got {tuple(rows.shape)}")
+        self = cls.__new__(cls)
+        dp = 1 if group is None else cmesh.group_size(group)
+        if int(rows.shape[0]) * dp < n_total:
+            raise ValueError(f"sharded embeddings rows ({rows.shape[0]} x {dp} shards) must "
+                             f"be >= n_total ({n_total})")
+        self._setup(n_total, int(rows.shape[1]), rows.device, store_dtype=store_dtype,
+                    recall_target=recall_target, capacity_slack=capacity_slack,
+                    spherical=spherical, balance_eta=balance_eta,
+                    kmeans_split=kmeans_split, reduced_dim=reduced_dim,
+                    candidates=candidates, pq_m=pq_m, pq_iters=pq_iters,
+                    pq_rotate=pq_rotate, pq_layout=pq_layout, n_clusters=n_clusters,
+                    group=group)
+        if group is None:
+            local = rows[: self.n_total]
+
+            def rows_at(idx):
+                return local[torch.from_numpy(idx).to(self.device)].cpu().numpy()
+
+            def place(row_ids):
+                self._place_storage(local, row_ids, seed, times_reciprocal=times_reciprocal)
+        else:
+            shard_rows = int(rows.shape[0])
+            local = rows[: self._local_valid_rows(self.shard * shard_rows, shard_rows)]
+
+            def rows_at(idx):
+                return cmesh.exchange_rows(rows, idx, shard_rows, group).cpu().numpy()
+
+            def place(row_ids):
+                self._place_shard(rows, row_ids, times_reciprocal)
+        self._build(local, rows_at, place, seed=seed, kmeans_iters=kmeans_iters,
+                    nprobe=nprobe, max_nprobe=max_nprobe, tune_sample=tune_sample,
+                    tune_k=tune_k)
+        return self
+
+    def _local_valid_rows(self, lo: int, per: int) -> int:
+        """Rows below ``n_total`` of the ``per`` rows of a shard that starts
+        at global row ``lo`` (JAX's ``n_valid_local``)."""
+        return int(np.clip(self.n_total - lo, 0, per))
+
+    def _build(self, local: torch.Tensor, rows_at, place, *, seed, kmeans_iters, nprobe,
+               max_nprobe, tune_sample, tune_k) -> None:
+        """The build both constructors share: k-means over this shard's fp32
+        rows ``local`` from the init rows ``rows_at(ids)`` (host fp32 rows
+        of global ids, on every rank), the host fill, ``place(row_ids)``
+        for the storage, and the tuner over ``rows_at`` of its sample."""
         # --- train: k-means on the device ---
         t0 = time.perf_counter()
         rng = np.random.default_rng(seed)
@@ -435,42 +573,50 @@ class IVFIPIndex:
             self.n_total, size=self.n_clusters,
             replace=self.n_clusters > self.n_total,
         )
-        init = corpus[torch.from_numpy(init_idx).to(self.device)].cpu().numpy()
+        init = rows_at(init_idx)
         if self.spherical:
             init = init / np.maximum(
                 np.linalg.norm(init, axis=1, keepdims=True), 1e-12
             )
-        cand = self._train_and_assign(corpus, init, kmeans_iters)
+        cand = self._train_and_assign(local, init, kmeans_iters)
         t1 = time.perf_counter()
 
-        # --- layout: greedy fill on the host ---
+        # --- layout: greedy fill on the host (every rank alike) ---
         row_ids = _greedy_fill(cand, self.n_total, self.n_clusters, self.capacity)
         self._set_layout_maps(row_ids)
-        self.row_ids = torch.from_numpy(row_ids).to(self.device)
+        self.row_ids = torch.from_numpy(row_ids[self._own_slots()]).to(self.device)
         t2 = time.perf_counter()
 
         # --- storage: rows (or PQ codes) gathered cluster-major on the device
-        self._place_storage(corpus, row_ids, seed)
+        place(row_ids)
         _sync(self.device)
         t3 = time.perf_counter()
         self._init_projection()
 
         t_tune = time.perf_counter()
-        self._finish_tuning(
-            nprobe, max_nprobe, tune_sample, tune_k, seed,
-            sample_fn=lambda idx: corpus[torch.from_numpy(idx).to(self.device)]
-            .cpu().numpy(),
-        )
+        self._finish_tuning(nprobe, max_nprobe, tune_sample, tune_k, seed, sample_fn=rows_at)
         t4 = time.perf_counter()
         self.build_seconds.update(kmeans=t1 - t0, fill=t2 - t1, storage=t3 - t2,
                                   tune=t4 - t_tune)
         self._log_build()
 
+    def _gather_slots(self, storage: torch.Tensor, slots: np.ndarray) -> torch.Tensor:
+        """Stored per-slot rows at global ``slots`` on every rank (a
+        collective)."""
+        return cmesh.exchange_rows(storage, slots, self.local_clusters * self.capacity,
+                                   self.group)
+
+    def _own_slots(self) -> slice:
+        """This rank's slots of the global cluster-major layout."""
+        n = self.local_clusters * self.capacity
+        return slice(self.shard * n, (self.shard + 1) * n)
+
     def _setup(self, n_total: int, dim: int, device, *, store_dtype, recall_target,
                capacity_slack, spherical, balance_eta, kmeans_split, reduced_dim,
-               candidates, pq_m, pq_iters, pq_rotate, pq_layout, n_clusters):
+               candidates, pq_m, pq_iters, pq_rotate, pq_layout, n_clusters, group=None):
         """Validate and set the options both constructors share, the cluster
-        count and the capacity."""
+        count (a multiple of the group's size), the capacity and the shard
+        layout."""
         self.n_total = int(n_total)
         self.dim = int(dim)
         self.device = device
@@ -484,7 +630,12 @@ class IVFIPIndex:
         self.balance_eta = float(balance_eta)
         self._set_hybrid(reduced_dim, candidates)
         self._set_pq(pq_m, pq_iters, pq_rotate, pq_layout)
-        self.n_clusters = _resolve_clusters(self.n_total, 1, n_clusters)
+        dp = 1 if group is None else cmesh.group_size(group)
+        if dp > 1:
+            for name, value in (("pq_m", pq_m), ("reduced_dim", reduced_dim)):
+                if value is not None:
+                    raise NotImplementedError(_NOT_SHARDED.format(f"IVFIPIndex {name}", dp))
+        self.n_clusters = _resolve_clusters(self.n_total, dp, n_clusters)
         self.kmeans_split = int(kmeans_split)
         if not 0 <= self.kmeans_split <= self.n_clusters // 2:
             # past K // 2 the fullest and the emptiest clusters overlap, and
@@ -496,6 +647,8 @@ class IVFIPIndex:
             self.n_total, self.n_clusters, capacity_slack,
             multiple=self._capacity_multiple(),
         )
+        self._set_group(group)
+        self.local_clusters = self.n_clusters // self.dp
         self._set_assign_bias(None)
         self.build_seconds = {}
 
@@ -546,7 +699,7 @@ class IVFIPIndex:
         65536), then every range once to assign and once to place. Device
         memory holds the final storage, the k-means sample and one fp32
         chunk. Pseudo-queries for the nprobe tuner are decoded stored rows
-        (``reconstruct``)."""
+        (``reconstruct``). One device, as JAX's."""
         require_fp32_matmul()
         self = cls.__new__(cls)
         self._setup(n_total, dim, resolve_device(device), store_dtype=store_dtype,
@@ -719,8 +872,15 @@ class IVFIPIndex:
             candidates = int(candidates)
         self.candidates = candidates
 
+    def _local_clusters_of(self, x):
+        """This rank's clusters' entries of a per-cluster array ``x`` [K, ...]
+        (all of them on one device)."""
+        lo = self.shard * self.local_clusters
+        return x[lo : lo + self.local_clusters]
+
     def _set_assign_bias(self, bias: Optional[np.ndarray]):
-        """The balanced build's assignment bias (None or all zero: off).
+        """The balanced build's assignment bias (None or all zero: off), on
+        the host for every cluster and on the device for this rank's.
         Probing ranks clusters by ``q . centroid - bias``, the metric the
         rows were assigned by; score terms stay raw."""
         if bias is None or self.balance_eta == 0.0 or not np.any(bias):
@@ -728,7 +888,9 @@ class IVFIPIndex:
             self.assign_bias = None
         else:
             self._assign_bias_host = np.asarray(bias, np.float32)
-            self.assign_bias = torch.from_numpy(self._assign_bias_host).to(self.device)
+            self.assign_bias = torch.from_numpy(
+                np.ascontiguousarray(self._local_clusters_of(self._assign_bias_host))
+            ).to(self.device)
 
     def _set_pq(self, pq_m, pq_iters, pq_rotate="none", pq_layout="auto"):
         """Validate the product-quantization knobs (residual PQ: ``pq_m``
@@ -793,24 +955,33 @@ class IVFIPIndex:
         self.pq_layout = pq_layout
 
     def _set_centroids(self, centroids: torch.Tensor) -> None:
-        self.centroids = centroids
+        """Every cluster's centroid on the host (the tuner ranks them all),
+        this rank's on the device."""
+        self.centroids = self._local_clusters_of(centroids)
         self._centroids_host = centroids.cpu().numpy().astype(np.float32, copy=False)
 
     def _train_and_assign(self, corpus: torch.Tensor, init_centroids: np.ndarray,
                           kmeans_iters) -> np.ndarray:
-        """The Lloyd loop and the top-``ASSIGN_CANDIDATES`` pass; sets the
-        centroids (and the balanced build's bias) and returns host [N, C]
-        candidate cluster ids."""
+        """The Lloyd loop and the top-``ASSIGN_CANDIDATES`` pass over
+        ``corpus`` (this shard's valid rows); sets the centroids (and the
+        balanced build's bias) and returns host [n_total, C] candidate
+        cluster ids: with a group, every shard's in rank order (one
+        all-gather of ceil(n_total / dp) rows a rank)."""
         budget = _CHUNK_BUDGET_CUDA if corpus.is_cuda else _CHUNK_BUDGET
         chunk = _chunk_rows(corpus.shape[0], self.n_clusters, budget)
         cents, bias = _lloyd_body(
             corpus, torch.from_numpy(init_centroids).to(self.device),
             n_iters=max(0, int(kmeans_iters)), chunk=chunk,
             spherical=self.spherical, balance_eta=self.balance_eta,
-            split_r=self.kmeans_split,
+            split_r=self.kmeans_split, group=self.group,
         )
         cand = _assign_top2_body(corpus, cents, chunk=chunk, n_cand=ASSIGN_CANDIDATES,
                                  bias=bias if self.balance_eta else None)
+        if self.group is not None:
+            per = cmesh.padded_rows(self.n_total, self.dp) // self.dp
+            padded = cand.new_zeros((per, ASSIGN_CANDIDATES))
+            padded[: cand.shape[0]] = cand
+            cand = cmesh.all_gather_rows(padded, self.group)[: self.n_total]
         self._set_centroids(cents)
         self._set_assign_bias(bias.cpu().numpy())
         return cand.cpu().numpy()
@@ -829,9 +1000,12 @@ class IVFIPIndex:
         slot[row_ids[filled]] = filled
         self._slot_of_row = slot
 
-    def _place_storage(self, corpus: torch.Tensor, row_ids: np.ndarray, seed: int):
-        """Cluster-major storage gathered from ``corpus`` chunk by chunk (no
-        fp32 copy of the whole layout); empty slots hold zero rows."""
+    def _place_storage(self, corpus: torch.Tensor, row_ids: np.ndarray, seed: int,
+                       times_reciprocal: bool = False):
+        """Cluster-major storage of the slots ``row_ids`` (this rank's)
+        gathered from the whole ``corpus`` chunk by chunk (no fp32 copy of
+        the whole layout); empty slots hold zero rows. int8 scales round as
+        the JAX constructor's (``times_reciprocal``: as XLA's)."""
         dev = self.device
         perm = torch.from_numpy(np.clip(row_ids, 0, None).astype(np.int64)).to(dev)
         valid = torch.from_numpy(row_ids >= 0).to(dev)
@@ -846,11 +1020,37 @@ class IVFIPIndex:
             sl = slice(lo, lo + _ENCODE_CHUNK)
             rows = torch.where(valid[sl, None], corpus[perm[sl]], 0.0)
             if self.quantized:
-                out[sl], scale[sl] = quantize_rows_int8(rows)
+                out[sl], scale[sl] = quantize_rows_int8(rows, times_reciprocal=times_reciprocal)
             else:
                 out[sl] = rows.to(self.store_dtype)
         self.corpus = out
         self.slot_scale = scale
+
+    def _place_shard(self, shard: torch.Tensor, row_ids: np.ndarray,
+                     times_reciprocal: bool) -> None:
+        """This rank's slots from the row shards ``shard`` (this rank's fp32
+        rows of the global layout): each filled slot's row moves once, from
+        the rank that holds it to the rank that owns its cluster
+        (``mesh.exchange_rows``), and only those rows are written; empty
+        slots hold zero rows (int8: zero codes, scale 1e-12, as a zero row
+        quantizes)."""
+        n_own = self.local_clusters * self.capacity
+        filled = np.nonzero(row_ids >= 0)[0]
+        dest = filled // n_own
+        rows = cmesh.exchange_rows(shard, row_ids[filled], int(shard.shape[0]), self.group,
+                                   dest)
+        slots = torch.from_numpy(filled[dest == self.shard] - self.shard * n_own).to(
+            self.device)
+        self.corpus = torch.zeros((n_own, self.dim), dtype=self.store_dtype, device=self.device)
+        self.slot_scale = (torch.full((n_own,), 1e-12, dtype=torch.float32, device=self.device)
+                           if self.quantized else None)
+        for lo in range(0, rows.shape[0], _ENCODE_CHUNK):
+            sl = slots[lo : lo + _ENCODE_CHUNK]
+            if self.quantized:
+                self.corpus[sl], self.slot_scale[sl] = quantize_rows_int8(
+                    rows[lo : lo + _ENCODE_CHUNK], times_reciprocal=times_reciprocal)
+            else:
+                self.corpus[sl] = rows[lo : lo + _ENCODE_CHUNK].to(self.store_dtype)
 
     def _train_pq_and_encode(self, corpus, perm, valid, row_ids, seed: int):
         """Fit the residual codebooks on a sample of the actual slot
@@ -987,7 +1187,7 @@ class IVFIPIndex:
     # ------------------------------------------------------------------
     def _finish_tuning(self, nprobe, max_nprobe, tune_sample, tune_k, seed,
                        *, sample_fn):
-        self.local_clusters = self.n_clusters
+        self.local_clusters = self.n_clusters // self.dp
         if nprobe == "auto":
             rng = np.random.default_rng(seed + 1)
             n_sample = min(tune_sample, self.n_total)
@@ -1033,15 +1233,19 @@ class IVFIPIndex:
         scores = bf16_host(sample) @ bf16_host(self._centroids_host).T  # [S, K]
         if self._assign_bias_host is not None:
             scores = scores - self._assign_bias_host[None, :]
+        # each shard probes its own top-p clusters: rank a hit's cluster
+        # among its shard's (JAX ivf.py:2064-2077)
         local_clusters = self.local_clusters
-        order = np.argsort(-scores, axis=1, kind="stable")
+        blocks = scores.reshape(n_sample, self.n_clusters // local_clusters, local_clusters)
+        order = np.argsort(-blocks, axis=2, kind="stable")
         rank = np.empty_like(order)
         np.put_along_axis(
             rank, order,
-            np.broadcast_to(np.arange(local_clusters), order.shape), axis=1,
+            np.broadcast_to(np.arange(local_clusters), order.shape), axis=2,
         )
-        cluster = self._cluster_of_row[ref_idx]  # [S, k]
-        need = rank[np.arange(n_sample)[:, None], cluster][ref_idx >= 0]
+        cluster = self._cluster_of_row[ref_idx]  # [S, k] global ids
+        need = rank[np.arange(n_sample)[:, None], cluster // local_clusters,
+                    cluster % local_clusters][ref_idx >= 0]
         required = int(math.ceil(self.recall_target * need.size))
         if required <= 0:
             p = 1
@@ -1100,6 +1304,7 @@ class IVFIPIndex:
         mask = build_selector_mask(self.n_total, allowed_ids, disallowed_ids, selector)
         if mask is None:
             return self.nprobe
+        self._refuse_sharded("IVFIPIndex.tune_filtered_nprobe (nprobe='filtered')")
         key = (k, hashlib.sha1(np.packbits(mask).tobytes()).hexdigest())
         cache = self.__dict__.setdefault("_filtered_nprobes", {})
         if key not in cache:
@@ -1112,10 +1317,11 @@ class IVFIPIndex:
 
     # ------------------------------------------------------------------
     def _effective_probe(self, k: int, nprobe: Optional[int]) -> Tuple[int, int]:
-        """(nprobe, k) with nprobe floored so the probed slots always reach
-        k (probing every cluster covers the whole corpus)."""
+        """(nprobe, per-shard k) with nprobe floored so the shards' merged
+        candidates always reach k (probing every cluster covers the whole
+        corpus)."""
         p = int(nprobe if nprobe is not None else self.nprobe)
-        p = max(p, -(-k // self.capacity))
+        p = max(p, -(-k // (self.dp * self.capacity)))
         p = min(p, self.local_clusters)
         return p, min(k, p * self.capacity)
 
@@ -1241,12 +1447,14 @@ class IVFIPIndex:
         on the index's device, k' = min(k, ntotal). ``sel``: a bool [ntotal]
         eligibility mask on the index's device (ineligible rows score -inf
         after the kernels, before the top-k; the probed clusters do not
-        change). Unreachable tail slots are -inf / -1."""
+        change). Unreachable tail slots are -inf / -1. Sharded, each rank
+        probes its own clusters and the shards' candidates merge (a
+        collective; every rank returns the same)."""
         k = min(k, self.n_total)
         p, kk = self._effective_probe(k, nprobe)
         q = queries.to(self.device, torch.float32)
         probe, cent_s = self._probe_clusters(q, p)
-        hit_ids = self.row_ids.view(self.n_clusters, self.capacity)[probe]
+        hit_ids = self.row_ids.view(self.local_clusters, self.capacity)[probe]
         hit_ids = hit_ids.reshape(q.shape[0], -1)
         ok = hit_ids >= 0  # filled slots, and of those the rows the filter allows
         if sel is not None:
@@ -1259,7 +1467,10 @@ class IVFIPIndex:
             s = self._probe_block(q, probe)
         s = torch.where(ok, s, NEG_INF)
         top_s, pos = exact_topk(s, kk)
-        return top_s, torch.gather(hit_ids, 1, pos).long()
+        top_i = torch.gather(hit_ids, 1, pos).long()
+        if self.group is not None:
+            return self._merge(top_s, top_i, k)
+        return top_s, top_i
 
     def search(
         self,
@@ -1394,6 +1605,7 @@ class IVFIPIndex:
         cluster's capacity grows by the same multiple of the slot rounding
         (``headroom`` pre-pays extra free slots). ``nprobe`` survives.
         Returns a new index."""
+        self._refuse_sharded("IVFIPIndex.append_sharded")
         rows = torch.as_tensor(new_rows, dtype=torch.float32)
         n_new = validate_append_args(rows, n_new, headroom, self.dim)
         rows = rows[:n_new].to(self.device)
@@ -1434,6 +1646,7 @@ class IVFIPIndex:
         renumber down in order. Only ``row_ids`` changes (removed slots
         become empty, -1); the storage tensors are shared with this index,
         and freed slots take later appends."""
+        self._refuse_sharded("IVFIPIndex.remove_rows")
         removed = np.unique(np.asarray(removed, np.int64).reshape(-1))
         if removed.size == 0:
             return self
@@ -1458,23 +1671,39 @@ class IVFIPIndex:
         out._set_layout_maps(new_row_ids)
         return out
 
+    def _refuse_sharded(self, what: str) -> None:
+        if self.dp > 1:
+            raise NotImplementedError(_NOT_SHARDED.format(what, self.dp))
+
     def reconstruct(self, ids) -> np.ndarray:
         """Stored rows of corpus ids as fp32 (FAISS ``reconstruct_batch``):
         fp32/bf16 rows at storage precision, int8 dequantized, PQ as centroid
-        plus codebook decode (un-rotated)."""
+        plus codebook decode (un-rotated). Sharded, the rows reach every
+        rank from the ranks that hold them (a collective)."""
         ids = _canonical_recon_ids(ids, self.n_total)
         if ids.size == 0:
             return np.zeros((0, self.dim), np.float32)
-        return _chunked_row_gather(self._slot_rows, self._slot_of_row[ids], self.device)
+        slots = self._slot_of_row[ids]
+        if self.group is None:
+            return _chunked_row_gather(self._slot_rows, slots, self.device)
+        out = []
+        for lo in range(0, slots.size, _RECON_CHUNK):
+            sl = slots[lo : lo + _RECON_CHUNK]
+            rows = self._gather_slots(self.corpus, sl).to(torch.float32)
+            if self.quantized:
+                rows = rows * self._gather_slots(self.slot_scale, sl)[:, None]
+            out.append(rows.cpu().numpy())
+        return np.concatenate(out)
 
     # ------------------------------------------------------------------
     def _exact_scan(self, queries: torch.Tensor, k: int, sel: Optional[torch.Tensor] = None):
         """Exact top-k over the STORED rows (int8 dequantized through the
         slot scale, PQ decoded as centroid + codebook rows in bf16), chunk
         by chunk with a running stable top-k merge; ``sel`` as in
-        :meth:`search_tensor`."""
+        :meth:`search_tensor`. Sharded, each rank scans its own slots and the
+        shards' top-k merge (JAX's ``_exact_callable``)."""
         cap, dev = self.capacity, self.device
-        n_slots = self.n_clusters * cap
+        n_slots = self.local_clusters * cap
         q_n = queries.shape[0]
         k_local = min(k, n_slots)
         budget = _CHUNK_BUDGET_CUDA if dev.type == "cuda" else _CHUNK_BUDGET
@@ -1518,6 +1747,8 @@ class IVFIPIndex:
             cat_i = torch.cat([best_i, ids_c[None, :].expand(q_n, -1)], dim=1)
             best_s, pos = exact_topk(cat_s, k_local)
             best_i = torch.gather(cat_i, 1, pos)
+        if self.group is not None:
+            return self._merge(best_s, best_i, k)
         return best_s, best_i
 
     def exact_search(self, queries, k: int = 100, batch_size: int = 256, *,

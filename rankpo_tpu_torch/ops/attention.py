@@ -11,17 +11,25 @@ q_pos - k_pos < window, where q_pos = row + Sk - Sq. ``segment_ids`` [B, S]
 1..n and a 0-id pad tail; a query sees the keys of its own segment only
 (block-diagonal attention, combined with ``causal`` and ``window``).
 
-Dispatch is by device, never by a silent fallback: ``impl="auto"`` runs the
-CUDA kernels (``ops/flash_attention.py``) on a CUDA tensor and
-:func:`attention_reference` on a CPU tensor. ``impl="plain"`` forces the
-reference (used to compare the two on the card); ``impl="flash"`` forces the
-kernels, which raise on a CPU tensor. When a gradient is needed, the kernel
-path goes through the ``FlashAttention`` autograd Function (forward K1, the
-backward kernels K2 or K3a + K3b); the reference is differentiated by
-autograd. The kernels take head_dim 64, 128 and 256 (Gemma's): any other
-head_dim raises on a CUDA tensor (ROADMAP.md Queue 2), where the JAX
-dispatcher sends such shapes to its XLA path
-(``rankpo_tpu/ops/attention.py:83-89``).
+Dispatch is by device, dtype and shape, decided before anything launches,
+never by a fallback after a failure: ``impl="auto"`` runs the CUDA kernels
+(``ops/flash_attention.py``) on a CUDA tensor the kernels are built for and
+:func:`attention_reference` on a CPU tensor. The kernels are built for bf16
+at head_dim 64, 128 and 256 (``flash_attention.kernel_fits``). JAX's
+dispatcher runs its Pallas kernel in any dtype at a head_dim that is a
+multiple of 8 and at least 64, from 1024 query positions on (``_use_flash``,
+``rankpo_tpu/ops/attention.py:83-89``), and XLA elsewhere. So a CUDA tensor
+the kernels are not built for (an fp32 model, another head_dim) runs the
+reference under "auto" where JAX runs XLA too (counted in
+``flash_attention.reference_routes``; ``flash_attention.
+routes_to_reference``), and raises where JAX runs its kernel: the kernels
+for those are not built yet (ROADMAP.md Queue 3), and ``impl="plain"`` runs
+the reference there on request. ``impl="plain"`` forces the reference (also
+used to compare the two on the card); ``impl="flash"`` forces the kernels,
+which raise on a CPU tensor and on a dtype or head_dim they are not built
+for. When a gradient is needed, the kernel path goes
+through the ``FlashAttention`` autograd Function (forward K1, the backward
+kernels K2 or K3a + K3b); the reference is differentiated by autograd.
 
 Attention-probs dropout (``dropout_rate`` > 0 with a ``generator``) runs
 :func:`attention_reference` on every device, as the JAX dispatcher sends it
@@ -207,6 +215,17 @@ def multi_head_attention(
                                    segment_ids=segment_ids)
     from rankpo_tpu_torch.ops import flash_attention as flash
 
+    if impl == "auto" and not flash.kernel_fits(q):
+        if not flash.routes_to_reference(q):
+            raise ValueError(
+                f"impl='auto': JAX runs its attention kernel on q {tuple(q.shape)} "
+                f"{q.dtype} (head_dim a multiple of 8, >= 64, at >= "
+                f"{flash.JAX_FLASH_MIN_SEQ} positions), but no kernel here is built for "
+                f"it (bf16 at head_dim {flash.HEAD_DIMS} only; ROADMAP.md Queue 3); "
+                "pass impl='plain' for the plain attention")
+        flash.count_reference_route(q)
+        return attention_reference(q, k, v, mask, causal, window=window,
+                                   segment_ids=segment_ids)
     kw = dict(causal=causal, skip_pad_q=skip_pad_q, window=window, segment_ids=segment_ids)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return flash.flash_attention(q, k, v, mask, bwd_impl=bwd_impl, **kw)

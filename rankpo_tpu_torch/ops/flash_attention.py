@@ -51,8 +51,11 @@ of a query tile's (K1, K3a) or key tile's (K2, K3b) segments, JAX's bounds
 (``flash_attention.py:132-147``, ``:222-233``, ``:314-328``, ``:429-442``).
 At head_dim 256 (Gemma) K1 and K3a run one query head per block, and K2
 and K3b two blocks per key tile, one per 128-column half of dK/dV/dQ, each
-computing the whole S^T and dP^T (``flash_bwd.cu``'s header). Other head
-dims raise on a CUDA tensor (ROADMAP.md Queue 2).
+computing the whole S^T and dP^T (``flash_bwd.cu``'s header). Other dtypes
+and head dims raise here (ROADMAP.md Queue 2); ``ops/attention.py``'s
+"auto" dispatch sends them to the plain attention where JAX's dispatch
+leaves its kernel too (:func:`routes_to_reference`, counted in
+``reference_routes``) and raises where JAX runs it.
 
 :func:`flash_attention_fwd_reference` and :func:`flash_attention_bwd_reference`
 are the plain PyTorch versions of the same contracts, used by the CPU tests
@@ -80,9 +83,45 @@ window_launches = dict(launches)
 d256_launches = dict(launches)
 packed_launches = dict(launches)
 f32_launches = dict(launches)
+# calls that ``ops/attention.py`` sent to the plain attention under
+# impl="auto" on a CUDA tensor (routes_to_reference), by the reason: q's
+# dtype, else its head_dim
+reference_routes = {"dtype": 0, "head_dim": 0}
 _count_lock = threading.Lock()
 
 HEAD_DIMS = (64, 128, 256)
+# JAX's "auto" runs its Pallas kernel from this many query positions on
+JAX_FLASH_MIN_SEQ = 1024
+
+
+def kernel_fits(q: torch.Tensor) -> bool:
+    """Whether the kernels are built for ``q``'s dtype and head_dim (bf16 at
+    HEAD_DIMS)."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in HEAD_DIMS
+
+
+def jax_runs_kernel(q: torch.Tensor) -> bool:
+    """Whether JAX's "auto" dispatch runs its Pallas kernel on ``q`` [B, S,
+    H, D] on the TPU (``_use_flash``, ``rankpo_tpu/ops/attention.py:83-89``):
+    D a multiple of 8 and at least 64, S at least JAX_FLASH_MIN_SEQ, in any
+    dtype."""
+    s, d = q.shape[1], q.shape[-1]
+    return d % 8 == 0 and d >= 64 and s >= JAX_FLASH_MIN_SEQ
+
+
+def routes_to_reference(q: torch.Tensor) -> bool:
+    """The "auto" dispatch's rule on a CUDA tensor, decided from q's dtype
+    and shape alone, before anything launches: the plain attention where no
+    kernel here is built for ``q`` and JAX's dispatch leaves its kernel too.
+    Where JAX runs its kernel but none is built here (fp32, or a head_dim
+    outside HEAD_DIMS, at S >= JAX_FLASH_MIN_SEQ), "auto" raises (ROADMAP.md
+    Queue 3)."""
+    return not kernel_fits(q) and not jax_runs_kernel(q)
+
+
+def count_reference_route(q: torch.Tensor) -> None:
+    with _count_lock:
+        reference_routes["dtype" if q.dtype != torch.bfloat16 else "head_dim"] += 1
 
 
 def reset_launches() -> None:
@@ -93,6 +132,8 @@ def reset_launches() -> None:
             d256_launches[name] = 0
             packed_launches[name] = 0
             f32_launches[name] = 0
+        for name in reference_routes:
+            reference_routes[name] = 0
 
 
 def _count(name: str, window: Optional[int], head_dim: int, packed: bool,

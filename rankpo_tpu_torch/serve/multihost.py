@@ -38,6 +38,7 @@ import numpy as np
 
 from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.index.flat import build_selector_mask
+from rankpo_tpu_torch.index.ivf import IVFIPIndex
 
 logger = logging.getLogger(__name__)
 
@@ -145,7 +146,9 @@ class MultihostFrontend:
             sel[key] = [int(i) for i in (allowed_ids if allowed_ids is not None
                                          else disallowed_ids)]
         if nprobe is not None:
-            raise ValueError("nprobe applies to IVF indexes only (--index_type ivf)")
+            if not isinstance(index, IVFIPIndex):
+                raise ValueError("nprobe applies to IVF indexes only (--index_type ivf)")
+            sel["nprobe"] = int(nprobe)
         if candidates is not None:
             if not hasattr(index, "candidates"):
                 raise ValueError("candidates applies to two-stage indexes only "
@@ -160,6 +163,7 @@ class MultihostFrontend:
     def add_passages(self, texts: Sequence[str], *, ids=None, **kwargs) -> None:
         """Every rank encodes the new texts and appends them to its shard."""
         self._rank0("add_passages")
+        self.service._refuse_mutation()  # before anything is broadcast
         texts = list(texts)
         if not texts or not all(isinstance(t, str) for t in texts):
             raise ValueError("add_passages takes a non-empty list of texts")
@@ -176,6 +180,7 @@ class MultihostFrontend:
 
     def remove_passages(self, ids) -> int:
         self._rank0("remove_passages")
+        self.service._refuse_mutation()
         ids = sorted({int(i) for i in ids})
         n = self.ntotal
         self._require_index()
@@ -222,8 +227,8 @@ class MultihostFrontend:
     def _dispatch(self, msg: Dict) -> None:
         op = msg["op"]
         if op == "query":
-            sel = {key: msg[key] for key in ("allowed_ids", "disallowed_ids", "candidates")
-                   if key in msg}
+            sel = {key: msg[key] for key in ("allowed_ids", "disallowed_ids", "candidates",
+                                             "nprobe") if key in msg}
             self.service.query(msg["texts"], k=msg["k"], return_passages=False, **sel)
         elif op == "add":
             self.service.add_passages(msg["texts"], ids=msg["ids"], **msg["kwargs"])

@@ -25,15 +25,17 @@ compiles nothing per shape. So a mutation keeps nothing to rebind, and
 (``data/packing.py``) and embeds them with block-diagonal attention.
 
 With ``group=`` (the data group of a multi-process server) the flat and
-refine tiers are row-sharded over the group: each rank encodes only its
-own shard of the corpus (``InferenceEncoder.encode_shard``), every rank
-encodes every query and every added passage (they are small, and no
-embedding then crosses processes), and each search, mutation, save and
-load is a collective of the group that every rank must run in the same
-order; ``serve/multihost.py`` drives the ranks from rank 0. The JAX service
-slices the queries across processes instead (``service.py:1019-1022``).
-Rank 0 writes the index file while the others wait. An IVF index over
-several shards is not ported (ROADMAP.md Queue 1, the rest of item 8c).
+refine tiers are row-sharded over the group and the IVF tier's whole
+clusters are (``index/ivf.py``): each rank encodes only its own shard of
+the corpus (``InferenceEncoder.encode_shard``), every rank encodes every
+query and every added passage (they are small, and no embedding then
+crosses processes), and each search, mutation, save and load is a
+collective of the group that every rank must run in the same order;
+``serve/multihost.py`` drives the ranks from rank 0. The JAX service slices
+the queries across processes instead (``service.py:1019-1022``). Rank 0
+writes the index file while the others wait. A sharded IVF index takes no
+``add_passages`` / ``remove_passages``, and its PQ and PCA-hybrid specs
+stay one process's (ROADMAP.md Queue 1, item 8c-ii).
 """
 
 from __future__ import annotations
@@ -158,7 +160,7 @@ class RetrievalService:
         self.recall_target = recall_target
         self.index_type, self.index_dtype, self.index_kwargs = resolve_tier(
             index_type, index_dtype, index_kwargs)
-        check_sharded_tier(self.index_type, shard_count(group))
+        check_sharded_tier(self.index_type, shard_count(group), self.index_kwargs)
         self.group = group
         self.stable_ids = stable_ids
         self.pack_queries = pack_queries
@@ -205,7 +207,12 @@ class RetrievalService:
         shard = {} if self.group is None else {"group": self.group}
         with torch.inference_mode():
             if self.index_type == "ivf":
-                return IVFIPIndex(emb, n_total=n, **self._approx_kwargs(overrides))
+                if self.group is not None and not constructor:
+                    # this rank's shard; int8 scales as the one-process
+                    # server's constructor rounds them
+                    return IVFIPIndex.from_sharded(emb, n, times_reciprocal=False,
+                                                   **self._approx_kwargs(overrides), **shard)
+                return IVFIPIndex(emb, n_total=n, **self._approx_kwargs(overrides), **shard)
             if self.index_type == "refine":
                 if constructor:
                     return RefineIPIndex(emb, n_total=n, **self._approx_kwargs(overrides),
@@ -312,6 +319,14 @@ class RetrievalService:
         return ext
 
     # ------------------------------------------------------------------
+    def _refuse_mutation(self) -> None:
+        """Raise for add / remove on an IVF index sharded over more than one
+        rank (its mutations are not ported), before any collective."""
+        if self.index_type == "ivf" and shard_count(self.group) > 1:
+            raise NotImplementedError(
+                f"add and remove on an IVF index over {shard_count(self.group)} shards are "
+                "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1, item 8c-ii)")
+
     def add_passages(self, texts: Sequence[str], *, max_passage_length: int = 512,
                      batch_size: int = 256, ids=None) -> None:
         """Append passages to the built index (FAISS ``add``; with ``ids``,
@@ -320,6 +335,7 @@ class RetrievalService:
         trained parts and tuned knobs stay as they are, and the new passages
         take the next corpus positions. ``ids``: external ids of the new
         passages (none may be live); default max(live) + 1 onwards."""
+        self._refuse_mutation()
         self._require_stable_for(ids)
         with self._mutate_lock:
             index, old_texts, old_ext = self._state
@@ -358,6 +374,7 @@ class RetrievalService:
         unknown ones are ignored, and the survivors keep theirs. The index
         drops the rows on the device (``remove_rows``); the model never
         runs."""
+        self._refuse_mutation()
         with self._mutate_lock:
             index, old_texts, old_ext = self._state
             if index is None:

@@ -192,7 +192,7 @@ def find_hard_negatives(
 
     # an invalid spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
-    check_sharded_tier(index_type, shard_count(group))
+    check_sharded_tier(index_type, shard_count(group), index_kwargs)
 
     train_rows, queries, corpus = load_mining_rows(input_file)
     # the reference samples ONE positive per row at load time (:207) for the

@@ -82,7 +82,7 @@ def generate_predictions(
 
     # an invalid spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
-    check_sharded_tier(index_type, shard_count(group))
+    check_sharded_tier(index_type, shard_count(group), index_kwargs)
     queries, _labels = load_eval_queries(query_data)
     corpus = load_eval_corpus(corpus_data)
 

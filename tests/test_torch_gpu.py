@@ -728,6 +728,86 @@ def test_other_head_dims_raise_on_card(cuda):
     assert port_flash.launches == before
 
 
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 32), (torch.bfloat16, 80)])
+def test_auto_routes_what_no_kernel_takes_to_the_reference(cuda, dtype, d):
+    """Under impl="auto" a CUDA tensor the kernels are not built for (an fp32
+    model, a head dim outside 64/128/256) at a shape where JAX runs XLA (S
+    64) runs the plain attention, bit for bit, launches nothing and is
+    counted; bf16 at D 64 launches K1 and routes nothing."""
+    from rankpo_tpu_torch.ops.attention import multi_head_attention
+
+    q, k, v, mask, _ = (t.to(cuda) for t in _inputs(2, 64, 64, 4, 2, d))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    port_flash.reset_launches()
+    got = multi_head_attention(q, k, v, mask=mask, causal=True)
+    assert torch.equal(got, attention_reference(q, k, v, mask, True))
+    assert not any(port_flash.launches.values())
+    reason = "dtype" if dtype != torch.bfloat16 else "head_dim"
+    assert port_flash.reference_routes == {"dtype": 0, "head_dim": 0, reason: 1}
+    q, k, v, mask, _ = (t.to(cuda) for t in _inputs(2, 64, 64, 4, 2, 64))
+    port_flash.reset_launches()
+    multi_head_attention(q, k, v, mask=mask, causal=True)
+    assert port_flash.launches["flash_fwd"] == 1
+    assert port_flash.reference_routes == {"dtype": 0, "head_dim": 0}
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 80), (torch.bfloat16, 512)])
+def test_auto_raises_where_jax_runs_a_kernel_not_built_here(cuda, dtype, d):
+    """At S 1024, where JAX's "auto" runs its kernel in any dtype at a head
+    dim that is a multiple of 8 and at least 64, a CUDA tensor no kernel here
+    is built for raises under impl="auto", naming Queue 3, and neither
+    launches nor routes; impl="plain" runs it."""
+    from rankpo_tpu_torch.ops.attention import multi_head_attention
+
+    q, k, v, mask, _ = (t.to(cuda) for t in _inputs(1, 1024, 1024, 2, 1, d))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    port_flash.reset_launches()
+    with pytest.raises(ValueError, match="Queue 3"):
+        multi_head_attention(q, k, v, mask=mask, causal=True)
+    assert not any(port_flash.launches.values())
+    assert port_flash.reference_routes == {"dtype": 0, "head_dim": 0}
+    got = multi_head_attention(q, k, v, mask=mask, causal=True, impl="plain")
+    assert torch.equal(got, attention_reference(q, k, v, mask, True))
+
+
+def test_cli_evaluate_fp32_default_runs_as_plain_attention(cuda, tmp_path):
+    """``cli.evaluate`` without ``--bf16`` (fp32, "auto" attention) runs on
+    the card and gives the metrics and hits of ``--attn_implementation
+    plain``; no kernel launches, every attention call is routed."""
+    import json
+
+    from rankpo_tpu_torch.cli import evaluate
+    from rankpo_tpu_torch.models.hf_io import save_pretrained
+
+    cfg = dataclasses.replace(tiny_llama_config(vocab_size=256), hidden_size=256,
+                              intermediate_size=512)  # head_dim 64
+    ckpt = str(tmp_path / "model")
+    save_pretrained(ckpt, cfg, llama.init_params(cfg, torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    docs = [" ".join(f"w{j}" for j in rng.integers(0, 90, rng.integers(3, 40)))
+            for _ in range(60)]
+    (tmp_path / "c.jsonl").write_text("\n".join(json.dumps({"text": t}) for t in docs))
+    (tmp_path / "q.jsonl").write_text("\n".join(json.dumps({
+        "query": {"text": docs[i][:20]}, "positives": {"index": [i]}}) for i in range(0, 60, 3)))
+    argv = ["--model_name_or_path", ckpt, "--tokenizer_name", "hash:256", "--query_data",
+            str(tmp_path / "q.jsonl"), "--corpus_data", str(tmp_path / "c.jsonl"), "--k", "20",
+            "--cutoffs", "1,5,10,20", "--batch_size", "16", "--device", "cuda"]
+    runs = {}
+    for name, extra in (("auto", []), ("plain", ["--attn_implementation", "plain"])):
+        port_flash.reset_launches()
+        metrics = evaluate.main(argv + ["--output_dir", str(tmp_path / name), *extra])
+        runs[name] = (metrics, dict(port_flash.launches), dict(port_flash.reference_routes),
+                      np.load(tmp_path / name / "model" / "main-indices.npy"))
+    auto, plain = runs["auto"], runs["plain"]
+    assert auto[0] == plain[0]
+    np.testing.assert_array_equal(auto[3], plain[3])
+    assert not any(auto[1].values()) and not any(plain[1].values())
+    assert auto[2]["dtype"] > 0 and auto[2]["head_dim"] == 0
+    assert plain[2] == {"dtype": 0, "head_dim": 0}
+
+
 @pytest.mark.parametrize("window", [None, 70])
 def test_autograd_step_through_function(cuda, window):
     """One backward through the FlashAttention Function against autograd

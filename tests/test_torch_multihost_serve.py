@@ -68,7 +68,7 @@ def frontend_run(workspace):
     workers.save(out, "serve_cfg.pt", cfg)
     workers.spawn(sw.multihost_worker, 2, out, timeout=150.0)
     return out, {tier: [workers.load(out, f"serve_{tier}_{r}.pt") for r in range(2)]
-                 for tier in ("flat", "refine")}
+                 for tier in sw.SERVE_TIERS}
 
 
 SCORE_TOL = 1e-6
@@ -91,14 +91,26 @@ def _same_hits(got, want, tol=SCORE_TOL):
         assert got == want
 
 
-@pytest.mark.parametrize("tier", ["flat", "refine"])
+@pytest.mark.parametrize("tier", ["flat", "refine", "ivf"])
 def test_frontend_hits_equal_one_process(workspace, frontend_run, tier):
+    """Every tier's hits as one process's. A sharded IVF server refuses
+    /add (and /remove) on rank 0 alone, naming item 8c-ii, and sends
+    nothing: the follower replays the same dispatches and serves on, a
+    per-call nprobe included."""
     _, cfg = workspace
     out, ranks = frontend_run
     one = sw.make_service(cfg, tier, None)
     _same_hits(ranks[tier][0]["calls"], sw.serve_ops(one))
     _same_hits(ranks[tier][0]["after"], one.query(["w1 w2 w3", "doc 4"], k=5))
     assert ranks[tier][1]["ntotal"] == one.ntotal
+    if tier == "ivf":
+        checks = ranks[tier][0]["checks"]
+        assert checks["validation"] == ["ValueError", "IndexError"] + [
+            "NotImplementedError"] * 3
+        assert all("item 8c-ii" in m for m in checks["messages"][2:])
+        assert checks["sent_by_failed_validation"] == 0
+        assert all(0 < len(h["hits"]) <= 5 for h in ranks[tier][0]["nprobe_1"])
+        assert ranks[tier][1]["n_dispatches"] == ranks[tier][0]["n_dispatches"]
     # the W = 2 file restarts one process with the W = 2 server's hits, bit for bit
     loaded = sw.make_service(cfg, tier, None)
     loaded.load_index_file(os.path.join(out, f"saved_{tier}.npz"))

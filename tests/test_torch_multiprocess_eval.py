@@ -119,18 +119,27 @@ def _close(got: dict, want: dict):
         np.testing.assert_allclose(got[name], value, rtol=RTOL, atol=1e-12, err_msg=name)
 
 
-@pytest.mark.parametrize("tier", ["flat", "refine"])
+@pytest.mark.parametrize("tier", ["flat", "refine", "ivf"])
 def test_evaluate_path_matches_one_process_and_jax(workspace, eval_run, mesh2, tmp_path, tier):
+    """Flat and refine as one process and as JAX on the mesh; IVF (whose
+    cluster count rounds up to a multiple of the shards, so one process
+    builds another index) as JAX on the mesh, and the in-training hook at
+    W = 2 as ``evaluate_path`` at W = 2."""
     root, ckpt, jcfg = workspace
     out, ranks = eval_run
-    one = _one_process(root, ckpt, tier, tmp_path)["main"]
-    _close(ranks[0][tier]["main"], one)
     assert ranks[1][tier] == ranks[0][tier]  # the followers return the same metrics
     idx2, sc2, saved = _arrays(os.path.join(out, f"w2_{tier}_0"), tier)
-    idx1, sc1, _ = _arrays(str(tmp_path), tier)
-    np.testing.assert_array_equal(idx2, idx1)
-    np.testing.assert_allclose(sc2, sc1, atol=1e-5, rtol=0)
     assert saved == ranks[0][tier]["main"]
+    if tier == "ivf":
+        for r in range(2):
+            _close({k[len("retrieval_"):]: v for k, v in ranks[r]["hook_ivf"].items()
+                    if k != "retrieval_eval_runtime"}, ranks[0][tier]["main"])
+    else:
+        one = _one_process(root, ckpt, tier, tmp_path)["main"]
+        _close(ranks[0][tier]["main"], one)
+        idx1, sc1, _ = _arrays(str(tmp_path), tier)
+        np.testing.assert_array_equal(idx2, idx1)
+        np.testing.assert_allclose(sc2, sc1, atol=1e-5, rtol=0)
     # JAX on a 2-device mesh, the same weights and files
     queries = [json.loads(line)["query"]["text"] for line in open(root / "q.jsonl")]
     labels = [json.loads(line)["positives"]["index"] for line in open(root / "q.jsonl")]
@@ -143,12 +152,13 @@ def test_evaluate_path_matches_one_process_and_jax(workspace, eval_run, mesh2, t
 
 
 def test_ivf_and_autotune_still_refused_at_two_ranks(eval_run):
-    """What is left of item 8c raises on every rank, naming it: the IVF
-    tier (the evaluator, the hook at construction) and cli.autotune."""
+    """What is left of item 8c (8c-ii) raises on every rank, naming it:
+    cli.autotune, and a PQ IVF spec at the hook's construction. A plain
+    IVF runs at W = 2 (``test_evaluate_path_matches_one_process_and_jax``)."""
     _, ranks = eval_run
     for r in range(2):
-        for key in ("ivf_error", "hook_error", "autotune_error"):
-            assert "rest of item 8c" in ranks[r][key], key
+        for key in ("autotune_error", "hook_pq_error"):
+            assert "item 8c-ii" in ranks[r][key], key
 
 
 def test_live_model_shards_run_as_many_batches(eval_run):
@@ -166,7 +176,7 @@ def test_rank0_decides_the_skip_and_alone_writes(eval_run):
     out, ranks = eval_run
     for r in range(2):
         assert ranks[r]["skip"] == {}  # rank 0's file existed: both skipped
-    for tier in ("flat", "refine"):
+    for tier in sw.EVAL_TIERS:
         assert not os.path.exists(os.path.join(out, f"w2_{tier}_1"))
         agg = json.load(open(os.path.join(out, f"w2_{tier}_0", "model",
                                           "all_eval_results.json")))

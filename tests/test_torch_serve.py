@@ -224,12 +224,12 @@ def test_http_server(checkpoint):
 
 @pytest.mark.parametrize("flag,item", [
     (["--coordinator_address", "127.0.0.1:1"], "needs --num_processes and --process_id"),
-    (["--index_type", "ivf", "--num_processes", "2"], "item 8c")])
+    (["--index_type", "IVF8,PQ8", "--num_processes", "2"], "item 8c")])
 def test_unported_flags_fail(checkpoint, flag, item, capsys):
     """The three multi-process flags are ported; what still fails: half a
     set of them, as ``DistributedArguments.initialize`` fails in the
-    training CLIs, and an IVF index over several processes, at parse time
-    with its ROADMAP.md item (the rest of 8c, multi-card IVF)."""
+    training CLIs, and a PQ IVF index over several processes (a plain IVF
+    shards), at parse time with its ROADMAP.md item (8c-ii)."""
     if "--coordinator_address" in flag:
         with pytest.raises(ValueError, match=item):
             cli.main(_argv(checkpoint, "--device", "cpu", *flag))

@@ -140,7 +140,127 @@ def sharded_index_worker(rank, world, out):
 
 
 # ---------------------------------------------------------------------------
+# the IVF tier over the data group
+
+IVF_COMMON = dict(recall_target=0.9, kmeans_iters=5, tune_sample=32, tune_k=10)
+IVF_BUILDS = {  # name -> (constructor or from_sharded, extra kwargs)
+    "bf16": ("ctor", {}),
+    "bf16_sharded": ("sharded", {}),
+    "fp32": ("ctor", {"store_dtype": "float32"}),
+    "int8": ("ctor", {"store_dtype": "int8"}),
+    "int8_sharded": ("sharded", {"store_dtype": "int8"}),
+    "balanced_sharded": ("sharded", {"balance_eta": 0.05}),
+    "split": ("ctor", {"kmeans_split": 2}),
+}
+IVF_FILES = ("w1_partial", "w1_full", "jax_mesh2")
+
+
+def _ivf_build(data: dict, name: str, group):
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+
+    how, kw = IVF_BUILDS[name]
+    x = data["ivf_x"]
+    if how == "ctor":
+        return IVFIPIndex(x, group=group, **IVF_COMMON, **kw)
+    return IVFIPIndex.from_sharded(shard_of(x, group), len(x), group=group, **IVF_COMMON, **kw)
+
+
+def _storage(index) -> dict:
+    """This rank's stored tensors as numpy (bf16 as its int16 bits)."""
+    def bits(t):
+        t = t.cpu()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+    out = {"row_ids": bits(index.row_ids), "centroids": bits(index.centroids),
+           "corpus": bits(index.corpus)}
+    if index.slot_scale is not None:
+        out["slot_scale"] = bits(index.slot_scale)
+    return out
+
+
+def sharded_ivf_ops(data: dict, group) -> dict:
+    """Every build and search of the sharded IVF test. ``shared``: what every
+    rank must return alike; ``local``: this rank's storage."""
+    from rankpo_tpu_torch.index import io
+
+    q = data["ivf_q"]
+    allowed = data["ivf_allowed"]
+    shared, local = {}, {}
+    for name in IVF_BUILDS:
+        index = _ivf_build(data, name, group)
+        res = {"knobs": (index.n_clusters, index.capacity, index.local_clusters, index.nprobe),
+               "centroids_host": index._centroids_host,
+               "search": index.search(q, k=20, batch_size=16),
+               "filtered": index.search(q, k=20, allowed_ids=allowed),
+               "nprobe_2": index.search(q, k=20, nprobe=2),
+               "full": index.search(q, k=20, nprobe=index.local_clusters),
+               "exact": index.exact_search(q, k=20),
+               "exact_filtered": index.exact_search(q, k=20, allowed_ids=allowed),
+               "reconstruct": index.reconstruct(data["ivf_recon_ids"])}
+        shared[name] = res
+        local[name] = _storage(index)
+        if name == "bf16":
+            io.write_index(index, os.path.join(data["out"], "ivf_w2.npz"))
+            shared["w2_file_source"] = (index.nprobe, index.search(q, k=20),
+                                        index.search(q, k=20, nprobe=index.local_clusters))
+    for name in IVF_FILES:
+        loaded = io.read_index(os.path.join(data["out"], f"ivf_{name}.npz"), device="cpu",
+                               group=group)
+        shared[f"file_{name}"] = (loaded.nprobe, loaded.local_clusters,
+                                  loaded.search(q, k=20),
+                                  loaded.search(q, k=20, nprobe=loaded.local_clusters))
+        # the bytes this rank keeps of the file's rows, and those of its own slots
+        local[f"file_{name}"] = (loaded.corpus.untyped_storage().nbytes(),
+                                 loaded.local_clusters * loaded.capacity
+                                 * loaded.corpus.shape[1] * loaded.corpus.element_size())
+    return {"shared": shared, "local": local}
+
+
+def _refusals(data: dict, group) -> dict:
+    """What stays one device's raises at W = 2, naming its ROADMAP item."""
+    from rankpo_tpu_torch.cli import autotune
+    from rankpo_tpu_torch.index import io
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+
+    x = data["ivf_x"][:400]
+    index = IVFIPIndex(x, group=group, n_clusters=8, nprobe=2)
+    calls = {
+        "pq": lambda: IVFIPIndex(x, group=group, pq_m=8),
+        "hybrid": lambda: IVFIPIndex.from_sharded(shard_of(x, group), len(x), group=group,
+                                                  reduced_dim=16),
+        "append": lambda: index.append_sharded(torch.from_numpy(x[:8]), 8),
+        "remove": lambda: index.remove_rows([0, 1]),
+        "filtered_tune": lambda: index.search(x[:2], k=5, nprobe="filtered",
+                                              allowed_ids=[0, 1, 2]),
+        "pq_file": lambda: io.read_index(os.path.join(data["out"], "ivf_pq_w1.npz"),
+                                         device="cpu", group=group),
+        "autotune": lambda: autotune.main(["--synthetic_rows", "64", "--synthetic_dim", "8",
+                                           "--device", "cpu"]),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = "no error"
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+def sharded_ivf_worker(rank, world, out):
+    group = data_group()
+    data = load(out, "ivf_data.pt")
+    data["out"] = out
+    res = sharded_ivf_ops(data, group)
+    res["refusals"] = _refusals(data, group)
+    save(out, f"ivf_{rank}.pt", res)
+
+
+# ---------------------------------------------------------------------------
 # evaluation, the in-training hook and the tools
+
+EVAL_TIERS = ("flat", "refine", "ivf")
+
 
 def eval_worker(rank, world, out):
     """``evaluate_path`` at W = 2 (each rank its own output directory, as on
@@ -152,7 +272,7 @@ def eval_worker(rank, world, out):
     cfg = load(out, "eval_cfg.pt")
     tok = HashTokenizer(256)
     res = {}
-    for tier in ("flat", "refine"):
+    for tier in EVAL_TIERS:
         res[tier] = evaluate_path(
             cfg["ckpt"], cfg["queries"], cfg["corpus"], os.path.join(out, f"w2_{tier}_{rank}"),
             device="cpu", batch_size=cfg["batch_size"], compute_dtype=torch.float32, k=20,
@@ -164,20 +284,24 @@ def eval_worker(rank, world, out):
         os.path.join(out, "w2_flat_0") if rank == 0 else os.path.join(out, "fresh_1"),
         device="cpu", batch_size=cfg["batch_size"], compute_dtype=torch.float32, k=20,
         cutoffs=(1, 5, 10, 20), tokenizer=tok, group=group)
-    try:
-        evaluate_path(cfg["ckpt"], cfg["queries"], cfg["corpus"], os.path.join(out, "ivf"),
-                      device="cpu", index_type="ivf", tokenizer=tok, group=group)
-    except NotImplementedError as e:
-        res["ivf_error"] = str(e)
     res["filler"] = _filler_batches(group, tok)
     from rankpo_tpu_torch.cli import autotune
     from rankpo_tpu_torch.eval.in_training import RetrievalEvalHook
+    from rankpo_tpu_torch.models import llama
+    from rankpo_tpu_torch.models.hf_io import load_pretrained
 
+    # the in-training hook on a live model of the checkpoint's weights, IVF
+    config, state = load_pretrained(cfg["ckpt"])
+    model = llama.LlamaEncoder.for_training(config, state, device="cpu",
+                                            compute_dtype=torch.float32)
+    res["hook_ivf"] = RetrievalEvalHook(
+        tok, cfg["queries"], cfg["corpus"], k=20, cutoffs=(1, 5, 10, 20),
+        batch_size=cfg["batch_size"], compute_dtype=torch.float32, index_type="ivf")(model)
     for name, call in (
             ("autotune", lambda: autotune.main(["--synthetic_rows", "64", "--synthetic_dim",
                                                 "8", "--device", "cpu"])),
-            ("hook", lambda: RetrievalEvalHook(tok, cfg["queries"], cfg["corpus"],
-                                               index_type="IVF16,Flat"))):
+            ("hook_pq", lambda: RetrievalEvalHook(tok, cfg["queries"], cfg["corpus"],
+                                                  index_type="IVF16,PQ8"))):
         try:
             call()
         except NotImplementedError as e:
@@ -249,14 +373,22 @@ def tools_worker(rank, world, out):
 # ---------------------------------------------------------------------------
 # serving
 
+SERVE_TIERS = ("flat", "refine", "ivf")
+
+
 def serve_ops(service, frontend=None) -> list:
     """The calls the multihost test feeds a one-process service and the
-    two-process frontend alike; returns each call's result."""
+    two-process frontend alike; returns each call's result. An IVF server
+    over the group takes no mutation, so its calls are searches only, one
+    with a per-call nprobe that probes every cluster."""
     f = frontend or service
     texts = [f"q w{i} w{i + 3} w{2 * i}" for i in range(6)]
     res = [f.query(texts[0], k=5), f.query(texts, k=8),
            f.query(texts[:3], k=5, allowed_ids=[1, 4, 9, 16, 25, 36]),
            f.query(texts[:3], k=5, disallowed_ids=list(range(0, 40, 2)))]
+    if service.index_type == "ivf":
+        res.append(f.query(texts[:2], k=6, nprobe=service.index.n_clusters))
+        return res
     f.add_passages([f"added w{i} w{i + 1} passage" for i in range(7)])
     res.append(f.query(texts, k=8))
     res.append(f.remove_passages([0, 3, 44, 45]))
@@ -274,7 +406,7 @@ def multihost_worker(rank, world, out):
     cfg = load(out, "serve_cfg.pt")
     mesh.control_group(timeout_s=cfg["control_timeout"])  # before anything else uses it
     group = data_group()
-    for tier in ("flat", "refine"):
+    for tier in SERVE_TIERS:
         _serve_tier(rank, out, cfg, tier, group, idle=tier == "flat")
 
 
@@ -295,13 +427,19 @@ def _serve_tier(rank, out, cfg, tier, group, idle: bool):
                 lambda: frontend.query("x", k=3, allowed_ids=[10 ** 6]),
                 lambda: frontend.remove_passages([10 ** 6]),
                 lambda: frontend.add_passages([]),
-                lambda: frontend.query("x", k=3, nprobe=4)):
+                # a sharded IVF server refuses a valid add; the other tiers
+                # refuse a per-call nprobe
+                (lambda: frontend.add_passages(["a new passage"])) if tier == "ivf"
+                else (lambda: frontend.query("x", k=3, nprobe=4))):
         try:
             bad()
             checks.setdefault("validation", []).append("no error")
-        except (ValueError, IndexError) as e:
+        except (ValueError, IndexError, NotImplementedError) as e:
             checks.setdefault("validation", []).append(type(e).__name__)
+            checks.setdefault("messages", []).append(str(e))
     checks["sent_by_failed_validation"] = frontend.n_dispatches - sent
+    if tier == "ivf":  # a per-call nprobe, replayed on the followers
+        res["nprobe_1"] = frontend.query(["w1 w2 w3", "doc 4"], k=5, nprobe=1)
     frontend.max_payload = 4096
     try:
         frontend.query(["w" * 5000], k=3)
@@ -314,7 +452,7 @@ def _serve_tier(rank, out, cfg, tier, group, idle: bool):
         frontend._broadcast({"op": "remove", "ids": [10 ** 6]})
         try:
             service.remove_passages([10 ** 6])
-        except ValueError as e:
+        except (ValueError, NotImplementedError) as e:
             checks["failed_dispatch"] = str(e)
     if idle:  # past the control group's timeout: the keep-alive holds the follower
         time.sleep(cfg["idle_s"])
@@ -363,10 +501,15 @@ def make_service(cfg: dict, tier: str, group):
     config, state = load_pretrained(cfg["ckpt"])
     encoder = InferenceEncoder(config, state, resolve_tokenizer(cfg["tokenizer"], cfg["ckpt"]),
                                device="cpu", compute_dtype=torch.float32)
-    # refine: C past the corpus, so the sharded and one-process reranks are exhaustive
-    kwargs = {"reduced_dim": 16, "candidates": 64} if tier == "refine" else {}
+    # refine: C past the corpus, and IVF: every cluster probed, so the
+    # sharded and one-process searches are exhaustive (IVF over fp32 rows:
+    # an ulp that a passage's embedding moves with its batch never flips a
+    # bf16 rounding)
+    kwargs = {"refine": {"reduced_dim": 16, "candidates": 64},
+              "ivf": {"nprobe": 64}}.get(tier, {})
     service = RetrievalService(encoder, max_query_length=32, index_type=tier,
-                               index_kwargs=kwargs, group=group)
+                               index_kwargs=kwargs, group=group,
+                               index_dtype=torch.float32 if tier == "ivf" else None)
     service.build_index(load_eval_corpus(cfg["corpus"]), max_passage_length=64,
                         batch_size=16)
     return service
