@@ -46,6 +46,15 @@ version. Phases:
    fused and split dk/dv bit-equal; timed at Llama's shape against the
    segments' bound, plain, SDPA with the block-diagonal mask and the
    unpacked kernels on the same texts padded one per row;
+2f. the generic build (``flash_generic.cu``: fp32, fp16, and bf16 at head
+   dims outside 64/128/256) of K1, K2, K3a and K3b against their plain
+   versions in the inputs' dtype (``GENERIC_SHAPES``: fp32 at
+   Llama-3.2-1B's heads over 4096 positions, fp32 with a window of 1024 at
+   D 128, fp32 over 8 packed rows of 1024, bf16 at D 80, fp16 at D 96,
+   fp32 at D 512 and fp16 at D 1024, where the output columns split over
+   blocks), two launches of each bit-equal, K3b's fp32 dK/dV rounded
+   bit-equal to the split backward's; timed at the first shape against the
+   plain versions, SDPA in fp32 and the fp32 bound (no tensor cores);
 3. exact search on data with exact ties;
 4. serving path, seven times: a bf16 checkpoint written with the port's
    save_pretrained (the flat tier at full depth, the six others at 2 of
@@ -113,6 +122,16 @@ version. Phases:
    ``--profile_steps 2`` (its trace names the K1 kernel) and one with
    ``--debug_nans True``; step times, peak memory, checkpoint seconds and
    GB;
+5r. fp32 stage 1 at the reference's lengths (after 5f): Llama-3.2-1B at full
+   width and OTHER_LAYERS (4) layers, ``run_contrastive.main`` with
+   ``--bf16 False --max_query_length 1280 --max_passage_length 4096``,
+   per-device batch 2 with a positive and a hard negative each over texts
+   that pad every batch past 1024 positions, full checkpointing: one step on
+   "auto" (the generic build, K1, K3a, K3b) and one from the same state
+   with ``--flash_bwd_impl fused`` (K1, K2), no route, step times and peak
+   memory; then one micro-batch in fp32 in this process: the split
+   backward twice (bit-equal), the fused one (gradients within 1e-5 of the
+   split's largest |value|) and the plain attention (loss within 5e-4);
 5l. the rest of the training extensions (beside 5t's ranks) at the same width,
    depth and settings: ``run_rankpo --use_lora True`` (r 8, alpha 16,
    deterministic) with the in-training retrieval evaluation over phase 7's
@@ -217,11 +236,17 @@ version. Phases:
    outside near-ties, and its W = 2 file loaded in one process (total
    probed clusters kept, full probe = that numpy_search), the differences
    from phase 7's one process printed; (7f, beside the ranks)
-   ``cli.evaluate`` fp32 without ``--bf16`` at 512 positions: no flash
-   launch, every attention call routed to the plain attention and counted,
-   metrics bit-equal to the host recompute; "auto" at head_dim 32 and 80
-   bit-equal to the plain attention at 512 positions, and raising at 1024
-   (JAX's kernel shapes) for fp32 and head_dim 80;
+   ``cli.evaluate`` fp32 without ``--bf16`` at ``--max_query_length 1280
+   --max_passage_length 4096`` over 128 synthetic passages of 1023-4095
+   words and 32 queries of 1023-1279: every attention call on the generic
+   build's K1, metrics bit-equal to the host recompute, the 4 longest
+   passages' embeddings within cosine 1 - 1e-6 of the plain attention's;
+   then over phase 7's files at 512 positions: no flash launch, every
+   attention call routed to the plain attention and counted, metrics
+   bit-equal to the host recompute; "auto" at head_dim 32 and 80
+   bit-equal to the plain attention at 512 positions, and at 1024 (JAX's
+   kernel shapes) fp32 at head_dim 64 and bf16 at 80 on the generic build's
+   K1, held to the plain attention;
    (8) ``get_hard_negatives`` writing phase 8's files; (4d) ``cli.serve``
    flat fp32 at full width and depth: 32 single requests from 8 clients,
    16-query requests and a filtered one held to numpy_search, p50 and
@@ -449,6 +474,49 @@ PACKED_SHAPES = [((8, 512, 16, 16, 64), False, None, (17, 481)),
 PACKED_TIMED = 1  # Llama's shape
 PACK_MAX_SEGMENTS = 16
 PACKED_STEPS = 4  # phase 5p: optimizer steps of each packed stage
+# phase 2f, the generic build (flash_generic.cu: fp32, fp16, and bf16 at
+# head dims outside 64/128/256) against its plain versions: (dtype, (B, S,
+# Hq, Hkv, D), window, packed), causal with skip_pad_q. fp32 at
+# Llama-3.2-1B's heads over 4096 positions (5r's passages; timed), a window
+# of 1024 at D 128, 8 packed rows of 1024, bf16 at D 80 and fp16 at D 96,
+# fp32 at D 512 (K3b's and K2's output columns split over blocks) and fp16
+# at D 1024 (all four kernels split them)
+GENERIC_SHAPES = [(torch.float32, (2, 4096, 32, 8, 64), None, False),
+                  (torch.float32, (1, 4096, 32, 8, 128), 1024, False),
+                  (torch.float32, (8, 1024, 32, 8, 64), None, True),
+                  (torch.bfloat16, (4, 1024, 32, 8, 80), None, False),
+                  (torch.float16, (4, 1024, 32, 8, 96), None, False),
+                  (torch.float32, (1, 1024, 8, 2, 512), None, False),
+                  (torch.float16, (1, 1024, 4, 2, 1024), None, False)]
+GENERIC_PACKED_LENS = (64, 1024)  # 2f's packed texts, in tokens
+GENERIC_TIMED = 5  # calls timed at the first shape
+# the generic kernels against their plain versions on the same inputs in the
+# same dtype (tests/test_torch_gpu.py's limits): fp32 within 1e-5 of each
+# tensor's largest |plain| value (fp32 sums in other orders); a tensor
+# rounded to fp16 or bf16 within two ulps of the dtype at the largest |plain|
+# value (the kernels round P before the division by the row sum, the plain
+# forward after it); relative L2 within these
+GENERIC_TOL_OF_MAX = {torch.float32: 1e-5, torch.float16: 2.0**-9, torch.bfloat16: 2.0**-6}
+GENERIC_REL_L2 = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 1e-2}
+GENERIC_KERNELS = {  # name -> profiler name test of its generic kernel
+    "flash_fwd": lambda n: "flash_fwd_generic" in n,
+    "flash_bwd_fused": lambda n: "flash_kv_generic" in n and "true" in n,
+    "flash_dq": lambda n: "flash_dq_generic" in n,
+    "flash_dkv": lambda n: "flash_kv_generic" in n and "false" in n,
+}
+# phase 5r: fp32 stage 1 at the reference's lengths (BASELINE.md:15), texts
+# long enough that every batch pads past 1024 positions (words, one token
+# each, and a CLS)
+FP32_LENGTHS = (1280, 4096)
+FP32_WORDS = ((1100, 1280), (2500, 4096))  # query and passage words, [lo, hi)
+FP32_ROWS = 8
+FP32_LOSS_REL = 5e-4  # 5r: the generic step's loss against the plain attention's
+# phase 7f: fp32 cli.evaluate at 1280 / 4096 over a synthetic corpus
+FP32_EVAL_PASSAGES = 128
+FP32_EVAL_QUERIES = 32
+FP32_EVAL_WORDS = ((1023, 1280), (1023, 4096))  # query and passage words, [lo, hi)
+FP32_EVAL_HELD = 4  # passages whose embeddings are held to the plain attention's
+FP32_EMBED_COS = 1 - 1e-6
 # the plain versions run one (batch, kv head) at a time where one call's
 # fp32 logits would pass this
 PLAIN_CHUNK_BYTES = 2**31
@@ -596,15 +664,20 @@ def kernel_ms(times: dict, name: str) -> float:
 
 # ---------------------------------------------------------------------------
 def no_reference_routes(label: str) -> None:
-    """A bf16 path at head_dim 64, 128 or 256 (every path whose K1 launches
-    the smoke asserts) sends no attention call to the plain attention under
-    "auto": ``flash_attention.reference_routes`` (reset with the launch
-    counters) is still zero."""
+    """A bf16 path at head_dim 64, 128 or 256 (every path whose Hopper
+    kernel launches the smoke asserts) runs the Hopper kernels only: no
+    attention call went to the plain attention under "auto"
+    (``flash_attention.reference_routes``, reset with the launch counters,
+    is still zero) and no launch was one of the generic build
+    (``generic_launches`` still zero)."""
     from rankpo_tpu_torch.ops import flash_attention as flash
 
     if any(flash.reference_routes.values()):
         raise AssertionError(f"{label}: attention calls routed to the plain attention "
                              f"on a bf16 path: {flash.reference_routes}")
+    if any(flash.generic_launches.values()):
+        raise AssertionError(f"{label}: generic-build launches on a bf16 path at the "
+                             f"Hopper kernels' head dims: {flash.generic_launches}")
 
 
 def phase_environment() -> str:
@@ -742,17 +815,17 @@ def _bwd_design_bytes(lens, sq, sk, hq, hkv, d, kind: str, causal: bool = True,
 
 
 def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False,
-                   causal: bool = True, window=None, skip: bool = True):
+                   causal: bool = True, window=None, skip: bool = True, itemsize: int = 2):
     """(bytes, FLOPs) the function of kernel ``kind`` must move and compute
     for these key lengths (skip_pad_q by default, as the encoders call it;
     causal for the llama body, bidirectional for the Roberta body; with a
     ``window``, the band's pairs only): query rows at or past the valid
     length (with skip_pad_q) and masked (query, key) pairs are
     not needed; the outputs are written in full, at the dtype and shape
-    ``flash_attention_bwd`` returns (bf16; dk/dv summed over each GQA
-    group). With ``design``, the bytes are the kernel's own traffic instead,
-    not a bound, as ``_fwd_design_bytes`` and ``_bwd_design_bytes`` count
-    them."""
+    ``flash_attention_bwd`` returns (the inputs' dtype, ``itemsize`` bytes
+    an element: bf16 by default; dk/dv summed over each GQA group). With
+    ``design``, the bytes are the bf16 kernel's own traffic instead, not a
+    bound, as ``_fwd_design_bytes`` and ``_bwd_design_bytes`` count them."""
     lens = np.asarray(lens.cpu(), dtype=np.int64)
     b = len(lens)
     shift = sk - sq
@@ -767,17 +840,17 @@ def attention_cost(lens, sq, sk, hq, hkv, d, kind: str, design: bool = False,
         q_rows += len(valid_rows)
     k_rows = int(lens.sum())
     pairs *= hq
-    read_q = q_rows * hq * d * 2
-    read_kv = 2 * k_rows * hkv * d * 2
+    read_q = q_rows * hq * d * itemsize
+    read_kv = 2 * k_rows * hkv * d * itemsize
     mask = b * sk * 4
     if kind == "flash_fwd":
         nbytes = (_fwd_design_bytes(lens, sq, sk, hq, hkv, d, causal, window, skip)
                   if design else
-                  read_q + read_kv + mask + b * sq * hq * d * 2 + b * hq * sq * 4)
+                  read_q + read_kv + mask + b * sq * hq * d * itemsize + b * hq * sq * 4)
         return nbytes, pairs * 2 * 2 * d
     reads = 2 * read_q + read_kv + mask + 2 * q_rows * hq * 4  # q, do, k, v, lse, delta
-    dq_out = b * sq * hq * d * 2
-    dkv_out = 2 * b * sk * d * hkv * 2
+    dq_out = b * sq * hq * d * itemsize
+    dkv_out = 2 * b * sk * d * hkv * itemsize
     writes, products = {"flash_bwd_fused": (dq_out + dkv_out, 5),
                         "flash_dq": (dq_out, 3), "flash_dkv": (dkv_out, 4),
                         "flash_dkv_f32": (2 * dkv_out, 4)}[kind]
@@ -824,22 +897,25 @@ def _rows_of(x, bs):
     return None if x is None else x[bs]
 
 
-def plain_fwd(q, k, v, mask, causal: bool, window=None, segment_ids=None):
+def plain_fwd(q, k, v, mask, causal: bool, window=None, segment_ids=None,
+              upcast: bool = True):
     """``flash_attention_fwd_reference`` in fp32 (out fp32, lse), sliced by
-    ``_plain_slices``."""
+    ``_plain_slices``; with ``upcast`` False, in the inputs' dtype (P
+    rounded to it, as the kernels round it; out in it)."""
     from rankpo_tpu_torch.ops.flash_attention import flash_attention_fwd_reference
 
+    cast = (lambda x: x.float()) if upcast else (lambda x: x)  # noqa: E731
     slices = _plain_slices(q, k)
     if len(slices) == 1:
-        return flash_attention_fwd_reference(q.float(), k.float(), v.float(), mask,
+        return flash_attention_fwd_reference(cast(q), cast(k), cast(v), mask,
                                              causal=causal, window=window,
                                              segment_ids=segment_ids)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    out = torch.empty(q.shape, dtype=torch.float32 if upcast else q.dtype, device=q.device)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
                       device=q.device)
     for bs, qh, kh in slices:
         out[bs, :, qh], lse[bs, qh] = flash_attention_fwd_reference(
-            q[bs, :, qh].float(), k[bs, :, kh].float(), v[bs, :, kh].float(),
+            cast(q[bs, :, qh]), cast(k[bs, :, kh]), cast(v[bs, :, kh]),
             _rows_of(mask, bs), causal=causal, window=window,
             segment_ids=_rows_of(segment_ids, bs))
     return out, lse
@@ -1153,12 +1229,14 @@ def packed_layout(b: int, s: int, lens_range, seed: int):
     return torch.from_numpy(seg).cuda(), kept
 
 
-def packed_attention_cost(seg, hq, hkv, d, kind: str, causal: bool, window=None):
+def packed_attention_cost(seg, hq, hkv, d, kind: str, causal: bool, window=None,
+                          itemsize: int = 2):
     """(bytes, FLOPs) the function of kernel ``kind`` must move and compute
     on a packed batch: the pairs inside each segment (with ``causal`` the
     triangle, with a ``window`` its band), the segments' query and key rows
     read once (pad rows are not needed), the segment row read, the outputs
-    written in full (as ``attention_cost``)."""
+    written in full (as ``attention_cost``, ``itemsize`` bytes an
+    element)."""
     seg = seg.cpu().numpy()
     b, s = seg.shape
     pairs = 0
@@ -1172,13 +1250,14 @@ def packed_attention_cost(seg, hq, hkv, d, kind: str, causal: bool, window=None)
                     pairs -= (n - window) * (n - window + 1) // 2
     rows = int((seg != 0).sum())
     pairs *= hq
-    read_q = rows * hq * d * 2
-    read_kv = 2 * rows * hkv * d * 2
+    read_q = rows * hq * d * itemsize
+    read_kv = 2 * rows * hkv * d * itemsize
     if kind == "flash_fwd":
-        return read_q + read_kv + b * s * 4 + b * s * hq * (d * 2 + 4), pairs * 2 * 2 * d
+        return (read_q + read_kv + b * s * 4 + b * s * hq * (d * itemsize + 4),
+                pairs * 2 * 2 * d)
     reads = 2 * read_q + read_kv + b * s * 4 + 2 * rows * hq * 4
-    dq_out = b * s * hq * d * 2
-    dkv_out = 2 * b * s * d * hkv * 2
+    dq_out = b * s * hq * d * itemsize
+    dkv_out = 2 * b * s * d * hkv * itemsize
     writes, products = {"flash_bwd_fused": (dq_out + dkv_out, 5),
                         "flash_dq": (dq_out, 3), "flash_dkv": (dkv_out, 4)}[kind]
     return reads + writes, pairs * products * 2 * d
@@ -1374,6 +1453,174 @@ def time_packed(seed: int, gen) -> dict:
             f"{', forward' if fwd else ', backward alone'}) {res[name]['library_ms']:.4f} ms; "
             f"bound {b_ms:.4f} ms ({b_by}); the unpacked kernel on the same texts, {n} rows "
             f"padded to {s}: {unpacked_ms:.4f} ms")
+    return res
+
+
+def _generic_err(got, ref, dtype, what: str, tag: str) -> float:
+    """max|got - ref| of a generic kernel's tensor against its plain
+    version, held to GENERIC_TOL_OF_MAX and GENERIC_REL_L2; raises."""
+    diff = got.float() - ref.float()
+    e = diff.abs().max().item()
+    tol = GENERIC_TOL_OF_MAX[dtype] * ref.float().abs().max().item()
+    rel = (diff.norm() / ref.float().norm()).item()
+    if not (e <= tol and rel <= GENERIC_REL_L2[dtype]):
+        raise AssertionError(f"generic {what} disagrees with plain at {tag}: max|err| {e:.3e} "
+                             f"(limit {tol:.3e}), relative L2 {rel:.3e} (limit "
+                             f"{GENERIC_REL_L2[dtype]:.0e})")
+    return e
+
+
+def phase_kernels_generic(seed: int) -> dict:
+    """Phase 2f: the generic build's K1, K2, K3a and K3b
+    (``flash_generic.cu``) at every GENERIC_SHAPES shape (random key
+    lengths with a length-1 and a full row, or packed rows; causal,
+    skip_pad_q) against their plain versions in the inputs' dtype: out and
+    lse on the rows the kernels run, dq, dk and dv (``GENERIC_TOL_OF_MAX``,
+    ``GENERIC_REL_L2``), two launches of each bit-equal, every launch in
+    ``generic_launches`` and none routed; K3b's fp32 dK/dV (the ring's
+    ``flash_dkv``) rounded to the dtype bit-equal to the split backward's.
+    Then times at the first shape (fp32 at Llama-3.2-1B's heads over 4096
+    positions, 5r's passages): each kernel's device time, the plain
+    versions', SDPA in fp32 with the boolean mask (its backward alone for
+    the backward kernels) and the bound (fp32 at PEAK_FP32_FLOPS, no tensor
+    cores, or the bytes, the larger)."""
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    err = {name: 0.0 for name in KERNELS}
+    res = {}
+    for i, (dtype, (b, s, hq, hkv, d), window, packed) in enumerate(GENERIC_SHAPES):
+        q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+                       for h in (hq, hkv, hkv, hq))
+        if packed:
+            seg, texts = packed_layout(b, s, GENERIC_PACKED_LENS, seed + 200 + i)
+            mask, lens = None, (seg != 0).sum(1)
+            rows = seg != 0
+        else:
+            seg = None
+            lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+            lens[0], lens[-1] = 1, s
+            mask = (torch.arange(s, device="cuda")[None] < lens[:, None]).int()
+            rows = torch.arange(s, device="cuda")[None] < lens[:, None]
+        tag = (f"{str(dtype).split('.')[-1]} {(b, s, s, hq, hkv, d)} causal"
+               + (f", window {window}" if window else "")
+               + (f", {len(texts)} packed texts" if packed else ", random lengths"))
+        kw = dict(causal=True, window=window, segment_ids=seg)
+        flash.reset_launches()
+        with torch.no_grad():
+            out, lse = flash_attention_fwd(q, k, v, mask, skip_pad_q=True, **kw)
+            again = flash_attention_fwd(q, k, v, mask, skip_pad_q=True, **kw)
+            ref, rlse = plain_fwd(q, k, v, mask, upcast=False, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"generic K1: two launches differ at {tag}")
+        errs = {"out": _generic_err(out[rows], ref[rows], dtype, "K1 out", tag)}
+        keep = rows[:, None, :] & (rlse > -1e29)
+        errs["lse"] = (lse - rlse).abs()[keep].max().item()
+        if errs["lse"] > LSE_ATOL:
+            raise AssertionError(f"generic K1 lse disagrees with plain at {tag}: "
+                                 f"{errs['lse']:.3e}")
+        err["flash_fwd"] = max(err["flash_fwd"], errs["out"])
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        plain = plain_bwd(q, k, v, mask, do, lse, delta, **kw)
+        got = {}
+        for impl in ("fused", "split"):
+            got[impl] = flash_attention_bwd(q, k, v, mask, do, lse, delta, skip_pad_q=True,
+                                            bwd_impl=impl, **kw)
+            again = flash_attention_bwd(q, k, v, mask, do, lse, delta, skip_pad_q=True,
+                                        bwd_impl=impl, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got[impl], again)):
+                raise AssertionError(f"generic {impl} backward: two launches differ at {tag}")
+            for j, (a, r) in enumerate(zip(got[impl], plain)):
+                name = ("flash_bwd_fused" if impl == "fused"
+                        else ("flash_dq" if j == 0 else "flash_dkv"))
+                e = _generic_err(a, r, dtype, f"{impl} d{'qkv'[j]}", tag)
+                errs[f"{impl} d{'qkv'[j]}"] = e
+                err[name] = max(err[name], e)
+        same = [torch.equal(x, y) for x, y in zip(got["fused"], got["split"])]
+        f32 = ""
+        if window is None and not packed:  # the ring's K3b: fp32 dK/dV
+            dk32, dv32 = flash.flash_dkv(q, k, v, mask, do, lse, delta, causal=True)
+            _, dk0, dv0 = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=True)
+            if not (torch.equal(dk32.to(dtype), dk0) and torch.equal(dv32.to(dtype), dv0)):
+                raise AssertionError(f"generic K3b fp32 dK/dV rounded differ from the split "
+                                     f"backward's at {tag}")
+            f32 = "; K3b's fp32 dK/dV rounded bit-equal to the split backward's"
+        torch.cuda.synchronize()
+        counted = dict(flash.generic_launches)
+        if (counted["flash_fwd"] != 2 or counted["flash_bwd_fused"] != 2
+                or counted["flash_dq"] < 2 or counted["flash_dkv"] < 2
+                or flash.launches != counted or any(flash.reference_routes.values())):
+            raise AssertionError(f"generic launches at {tag}: {counted}, all {flash.launches}, "
+                                 f"routes {flash.reference_routes}")
+        log(f"2f generic kernels {tag}: max|err| (limits {GENERIC_TOL_OF_MAX[dtype]:.1e} of "
+            f"max|plain|, relative L2 {GENERIC_REL_L2[dtype]:.0e}; lse {LSE_ATOL:.0e}) "
+            + ", ".join(f"{key} {e:.2e}" for key, e in errs.items())
+            + f"; two launches of each bit-equal; fused vs split bit-equal dq {same[0]}, dk "
+            f"{same[1]}, dv {same[2]}{f32}; generic launches {counted}")
+        if i == 0:
+            res = _time_generic(q, k, v, do, mask, lens, lse, delta, tag)
+        del q, k, v, do, out, lse, ref, rlse, plain, got, again
+        torch.cuda.empty_cache()
+    for name in KERNELS:
+        res[name]["max_abs_err"] = err[name]
+    log(f"2f generic kernels: max|err| K1 {err['flash_fwd']:.3e}, K2 "
+        f"{err['flash_bwd_fused']:.3e}, K3a {err['flash_dq']:.3e}, K3b {err['flash_dkv']:.3e} "
+        f"over the {len(GENERIC_SHAPES)} shapes")
+    return res
+
+
+def _time_generic(q, k, v, do, mask, lens, lse, delta, tag: str) -> dict:
+    """2f's times at its first shape (causal, skip_pad_q): each generic
+    kernel's device time (profiler, GENERIC_TIMED calls), the plain
+    versions' and SDPA's in the same dtype (CUDA events), and the bound."""
+    import torch.nn.functional as F
+
+    from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    n = GENERIC_TIMED
+    kw = dict(causal=True, skip_pad_q=True)
+    calls = {"flash_fwd": lambda: flash_attention_fwd(q, k, v, mask, **kw),
+             "fused": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, **kw,
+                                                  bwd_impl="fused"),
+             "split": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta, **kw,
+                                                  bwd_impl="split")}
+    with torch.no_grad():
+        traced = {key: profile_device_ms(fn, n) for key, fn in calls.items()}
+        plain_fwd_ms = cuda_ms(lambda: plain_attention(q, k, v, mask, True), 2, 1)
+        plain_bwd_ms = cuda_ms(lambda: plain_bwd(q, k, v, mask, do, lse, delta, True), 2, 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kt = kt.repeat_interleave(hq // hkv, dim=1)
+        vt = vt.repeat_interleave(hq // hkv, dim=1)
+        bmask = _sdpa_mask(mask, s, s, True)
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask), n)
+    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+    o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=bmask)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do.transpose(1, 2),
+                                                  retain_graph=True), n)
+    del o_lib, leaves
+    found = {"flash_fwd": traced["flash_fwd"], "flash_bwd_fused": traced["fused"],
+             "flash_dq": traced["split"], "flash_dkv": traced["split"]}
+    peak = PEAK_FP32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS
+    res = {}
+    for name, times in found.items():
+        ms = [t for key, t in times.items() if GENERIC_KERNELS[name](key)]
+        if not ms:
+            raise AssertionError(f"{name} generic: no such kernel in the trace: {sorted(times)}")
+        fwd = name == "flash_fwd"
+        b_ms, b_by = bound(attention_cost(lens, s, s, hq, hkv, d, name,
+                                          itemsize=q.element_size()), peak)
+        res[name] = {"ms": float(sum(ms)), "plain_ms": plain_fwd_ms if fwd else plain_bwd_ms,
+                     "library_ms": lib_fwd if fwd else lib_bwd, "bound_ms": b_ms,
+                     "bound_by": b_by}
+        log(f"time {name} generic at {tag}: kernel {res[name]['ms']:.4f} ms (device time, "
+            f"profiler, {n} calls); plain {res[name]['plain_ms']:.4f} ms; library (SDPA "
+            f"{'forward' if fwd else 'backward alone'}, same dtype, boolean mask) "
+            f"{res[name]['library_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+            f"{peak / 1e12:.0f} TFLOP/s, {PEAK_HBM_BYTES / 1e12:.2f} TB/s)")
     return res
 
 
@@ -4764,6 +5011,176 @@ def phase_training_gemma(tmp: str, seed: int, ckpt: str, base_state: dict) -> di
     return {"stage1": stage1, "stage2": stage2, "compare": compare, "stage2_dir": s2}
 
 
+def write_fp32_training_data(tmp: str, seed: int) -> str:
+    """5r's stage-1 rows: FP32_ROWS queries of FP32_WORDS[0] words, each with
+    a positive and a hard negative of FP32_WORDS[1] words, from the seed."""
+    rng = np.random.default_rng(seed + 40)
+    path = os.path.join(tmp, "train_fp32.jsonl")
+    (qlo, qhi), (plo, phi) = FP32_WORDS
+    _write_lines(path, [json.dumps({"query": _text(rng, qlo, qhi),
+                                    "positives": [_text(rng, plo, phi)],
+                                    "negatives": [_text(rng, plo, phi)]}) + "\n"
+                        for _ in range(FP32_ROWS)])
+    return path
+
+
+def _fp32_step(label: str, main, argv) -> dict:
+    """One step of 5r through the stage-1 CLI: the launch counters from 0
+    just before, read just after; its loss, gradient norm, step time, wall
+    and peak device memory."""
+    from rankpo_tpu_torch.ops import flash_attention as flash
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- the path: counters from 0, the CLI, counters read ----
+    flash.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, generic = dict(flash.launches), dict(flash.generic_launches)
+    routes = dict(flash.reference_routes)
+    # ---- end of the path ----
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shutil.rmtree(argv[argv.index("--output_dir") + 1])
+    steps = [h for h in history if "loss" in h]
+    if len(steps) != 1 or not np.isfinite(steps[0]["loss"]) or not np.isfinite(
+            steps[0]["grad_norm"]):
+        raise AssertionError(f"5r {label}: one finite step expected, got {history}")
+    if any(routes.values()) or launches != generic:
+        raise AssertionError(f"5r {label}: routes {routes}, launches {launches} (generic "
+                             f"{generic}): the fp32 step ran outside the generic build")
+    return {"loss": steps[0]["loss"], "grad_norm": steps[0]["grad_norm"],
+            "step_time_s": steps[0].get("step_time"), "wall_s": wall, "peak_mem_gib": peak,
+            "launches": generic}
+
+
+def _fp32_witness(ckpt: str, data: str, seed: int) -> dict:
+    """5r's witness: one stage-1 micro-batch of 5r's rows (2 queries,
+    group 2, FP32_LENGTHS) through the loss in fp32 with full
+    checkpointing, from the same parameters: the generic build with the
+    split backward twice (loss and every gradient bit-equal), with the fused
+    backward (every gradient within GENERIC_TOL_OF_MAX of the split's), and
+    the plain attention (the loss within FP32_LOSS_REL of the split's;
+    gradient cosines printed)."""
+    from rankpo_tpu_torch.data.collators import ContrastiveCollator
+    from rankpo_tpu_torch.data.datasets import ContrastiveDataset, iter_jsonl
+    from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
+    from rankpo_tpu_torch.models.encoder import encoder_class
+    from rankpo_tpu_torch.models.hf_io import load_pretrained
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.train.steps import make_contrastive_loss_fn
+
+    config, state = load_pretrained(ckpt)
+    rows = [r for _, r in zip(range(2), iter_jsonl(data))]
+    tok = resolve_tokenizer(f"hash:{config.vocab_size}", ckpt)
+    ds = ContrastiveDataset(rows, tok, *FP32_LENGTHS)
+    batch = _device_batch(ContrastiveCollator(tok.pad_token_id, 1, *FP32_LENGTHS, seed=seed)(
+        [ds[i] for i in range(len(rows))]))
+    model = encoder_class(config).for_training(config, state, device="cuda",
+                                               compute_dtype=torch.float32,
+                                               gradient_checkpointing=True)
+    del state
+    params = list(model.named_parameters())
+    runs = {}
+    for label, impl, bwd in (("split", "auto", "split"), ("split again", "auto", "split"),
+                             ("fused", "auto", "fused"), ("plain", "plain", "auto")):
+        for m in model.modules():
+            if hasattr(m, "bwd_impl"):
+                m.bwd_impl = bwd
+        flash.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = make_contrastive_loss_fn(config, temperature=0.02, attn_impl=impl)(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[label] = {"loss": loss.item(), "grads": [p.grad for _, p in params],
+                       "s": time.perf_counter() - t0, "generic": dict(flash.generic_launches),
+                       "routes": dict(flash.reference_routes)}
+        for _, p in params:
+            p.grad = None
+    split, fused, plain = runs["split"], runs["fused"], runs["plain"]
+    repeats = split["loss"] == runs["split again"]["loss"] and all(
+        torch.equal(a, b) for a, b in zip(split["grads"], runs["split again"]["grads"]))
+    gaps = [((a - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+            for a, r in zip(fused["grads"], split["grads"])]
+    fused_equal = sum(torch.equal(a, r) for a, r in zip(fused["grads"], split["grads"]))
+    cos = [torch.nn.functional.cosine_similarity(a.flatten(), r.flatten(), dim=0).item()
+           for a, r in zip(split["grads"], plain["grads"])]
+    rel = abs(split["loss"] - plain["loss"]) / abs(plain["loss"])
+    shapes = {field: tuple(block["input_ids"].shape) for field, block in batch.items()}
+    log(f"5r witness, one micro-batch {shapes} in fp32 (full checkpointing): loss generic "
+        f"split {split['loss']:.7f} ({split['s']:.2f} s), again {runs['split again']['loss']:.7f}"
+        f" ({runs['split again']['s']:.2f} s; loss and every gradient bit-equal {repeats}), "
+        f"fused {fused['loss']:.7f} ({fused['s']:.2f} s), plain {plain['loss']:.7f} "
+        f"({plain['s']:.2f} s); relative difference split-plain {rel:.3e} (limit "
+        f"{FP32_LOSS_REL:.0e}); fused vs split: {fused_equal} of {len(params)} gradient "
+        f"tensors bit-equal, worst max|diff| / max|split| {max(gaps):.3e} (limit "
+        f"{GENERIC_TOL_OF_MAX[torch.float32]:.0e}); gradient cosine split-plain min "
+        f"{min(cos):.8f} ({params[int(np.argmin(cos))][0]}); generic launches split "
+        f"{split['generic']}, fused {fused['generic']}, plain {plain['generic']}")
+    for label, r in runs.items():
+        if any(r["routes"].values()):
+            raise AssertionError(f"5r witness {label}: routes {r['routes']}")
+    if (not repeats or rel > FP32_LOSS_REL or max(gaps) > GENERIC_TOL_OF_MAX[torch.float32]
+            or not (split["generic"]["flash_dq"] and split["generic"]["flash_dkv"]
+                    and fused["generic"]["flash_bwd_fused"]) or any(plain["generic"].values())):
+        raise AssertionError("5r witness: the fp32 generic steps disagree (see the line above)")
+    del runs, model
+    return {"loss_rel_plain": rel, "fused_gap": max(gaps), "fused_equal": fused_equal,
+            "n_tensors": len(params), "min_cos_plain": min(cos), "repeats": repeats}
+
+
+def phase_training_fp32(tmp: str, seed: int) -> dict:
+    """Phase 5r: fp32 stage 1 at the reference's lengths. Llama-3.2-1B at
+    full width and OTHER_LAYERS layers (a bf16 checkpoint, trained in fp32
+    with ``--bf16 False``), ``run_contrastive.main`` for one step at
+    ``--max_query_length 1280 --max_passage_length 4096`` over texts that
+    pad every batch past 1024 positions, per-device batch 2 with a
+    positive and a hard negative each, full checkpointing: once on "auto"
+    (the generic build, the split backward: K1, K3a, K3b) and once from the
+    same state with ``--flash_bwd_impl fused`` (K1, K2), each with its
+    counters from 0, no route, its step time and peak memory; the two
+    runs' losses and gradient norms printed side by side. Then the witness
+    (:func:`_fp32_witness`)."""
+    from rankpo_tpu_torch.cli import run_contrastive
+
+    ckpt, _ = make_model_checkpoint(tmp, seed, "llama-3.2-1b", OTHER_LAYERS, False)
+    data = write_fp32_training_data(tmp, seed)
+    out_dir = os.path.join(tmp, "5r")
+    argv = ["--model_name_or_path", ckpt, "--train_data", data, "--output_dir", out_dir,
+            "--tokenizer_name", "hash:128256", "--bf16", "False", "--max_steps", "1",
+            "--per_device_train_batch_size", "2", "--num_negatives", "1",
+            "--learning_rate", "1e-5", "--temperature", "0.02",
+            "--max_query_length", str(FP32_LENGTHS[0]),
+            "--max_passage_length", str(FP32_LENGTHS[1]), "--gradient_checkpointing", "True",
+            "--save_strategy", "no", "--seed", str(seed), "--device", "cuda",
+            "--log_level", "warning"]
+    runs = {"auto": _fp32_step("auto", run_contrastive.main, argv),
+            "fused": _fp32_step("fused", run_contrastive.main,
+                                [*argv, "--flash_bwd_impl", "fused"])}
+    auto, fused = runs["auto"], runs["fused"]
+    if not (auto["launches"]["flash_fwd"] and auto["launches"]["flash_dq"]
+            and auto["launches"]["flash_dkv"] and fused["launches"]["flash_bwd_fused"]):
+        raise AssertionError(f"5r: generic launches {auto['launches']}, {fused['launches']}")
+    for label, r in runs.items():
+        log(f"5r stage 1 fp32 ({label}) at full width, {OTHER_LAYERS} layers, "
+            f"{FP32_LENGTHS[0]} / {FP32_LENGTHS[1]}: loss {r['loss']:.7f}, gradient norm "
+            f"{r['grad_norm']:.7f}, step {r['step_time_s']:.3f} s, wall {r['wall_s']:.1f} s "
+            f"(the CLI with load and save), peak device memory {r['peak_mem_gib']:.2f} GiB; "
+            f"generic launches {r['launches']}")
+    log(f"5r: fused and split steps from the same state: loss bit-equal "
+        f"{auto['loss'] == fused['loss']}, gradient norm bit-equal "
+        f"{auto['grad_norm'] == fused['grad_norm']} (relative gap "
+        f"{abs(auto['grad_norm'] - fused['grad_norm']) / auto['grad_norm']:.3e})")
+    witness = _fp32_witness(ckpt, data, seed)
+    shutil.rmtree(ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "witness": witness}
+
+
 def make_model_checkpoint(tmp: str, seed: int, name: str, layers=None,
                           host_state: bool = True):
     """Random weights of MODELS[name] from the seed (``layers`` cuts the
@@ -5273,52 +5690,126 @@ def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
         json.dump(out, f)
 
 
-def phase_fp32_evaluate(seed: int, tmp: str, ckpt_cut: str, files: tuple) -> dict:
-    """Phase 7f (run beside 7d's ranks): the "auto" dispatch's rule on the
-    card. ``cli.evaluate`` without ``--bf16`` (fp32 and "auto" attention,
-    the CLI's default) over phase 7's files at FEATURE_LAYERS, passages cut
-    to 512 positions (where JAX's dispatch runs XLA), must exit 0 with no
-    flash launch and every attention call counted in ``reference_routes``
-    (by dtype), its saved metrics bit-equal to ``compute_metrics`` over its
-    saved arrays. Then "auto" on CUDA bf16 tensors of 512 positions at
-    head_dim 32 and 80 (no kernel built, JAX runs XLA): each output
-    bit-equal to ``attention_reference`` on the same tensors, no launch, one
-    route by head_dim each; and at 1024 positions, where JAX runs its
-    kernel, fp32 at head_dim 64 and bf16 at 80 raise, launching and routing
-    nothing. ``files``: (query file, corpus file, labels) as 7d's ranks
-    read them."""
+def write_fp32_eval_data(tmp: str, seed: int):
+    """7f's long-text files: FP32_EVAL_PASSAGES passages of FP32_EVAL_WORDS[1]
+    words and FP32_EVAL_QUERIES queries of FP32_EVAL_WORDS[0] words, each a
+    span cut from one passage and labelled with it (one token a word and a
+    CLS). Returns (query file, corpus file, corpus, labels)."""
+    rng = np.random.default_rng(seed + 60)
+    (qlo, qhi), (plo, phi) = FP32_EVAL_WORDS
+    corpus = [_text(rng, plo, phi) for _ in range(FP32_EVAL_PASSAGES)]
+    corpus_file = os.path.join(tmp, "7f_corpus.jsonl")
+    _write_lines(corpus_file, [json.dumps({"text": t}) + "\n" for t in corpus])
+    query_file = os.path.join(tmp, "7f_queries.jsonl")
+    labels, lines = [], []
+    for _ in range(FP32_EVAL_QUERIES):
+        i = int(rng.integers(len(corpus)))
+        words = corpus[i].split()
+        n = min(len(words), int(rng.integers(qlo, qhi)))
+        lo = int(rng.integers(len(words) - n + 1))
+        labels.append([i])
+        lines.append(json.dumps({"query": {"text": " ".join(words[lo:lo + n])},
+                                 "positives": {"index": labels[-1]}}) + "\n")
+    _write_lines(query_file, lines)
+    return query_file, corpus_file, corpus, labels
+
+
+def _evaluate_path(argv: list, out_dir: str, ckpt: str, labels) -> dict:
+    """One ``cli.evaluate`` run: the launch counters from 0 just before,
+    read just after; its saved metrics held bit-equal to ``compute_metrics``
+    over its saved arrays (raises)."""
     from rankpo_tpu_torch.cli import evaluate
     from rankpo_tpu_torch.eval.metrics import compute_metrics
     from rankpo_tpu_torch.ops import flash_attention as flash
-    from rankpo_tpu_torch.ops.attention import attention_reference, multi_head_attention
 
-    query_file, corpus_file, labels = files
-    out_dir = os.path.join(tmp, "7f_auto")
-    argv = ["--model_name_or_path", ckpt_cut, "--tokenizer_name", "hash:128256",
-            "--query_data", query_file, "--corpus_data", corpus_file, "--k", "100",
-            "--batch_size", "64", "--max_query_length", "64", "--max_passage_length", "512",
-            "--device", "cuda", "--log_level", "warning", "--output_dir", out_dir]
-    # ---- the fp32 evaluate path: counters from 0, the CLI, counters read ----
+    # ---- the evaluate path: counters from 0, the CLI, counters read ----
     flash.reset_launches()
     t0 = time.perf_counter()
-    results = evaluate.main(argv)
+    results = evaluate.main([*argv, "--output_dir", out_dir])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, routes = dict(flash.launches), dict(flash.reference_routes)
+    launches, generic = dict(flash.launches), dict(flash.generic_launches)
+    routes = dict(flash.reference_routes)
     # ---- end of the path ----
-    stem = os.path.join(out_dir, os.path.basename(ckpt_cut), "main")
+    stem = os.path.join(out_dir, os.path.basename(ckpt), "main")
     with open(stem + ".json") as f:
         saved = json.load(f)
     idx, scores = np.load(stem + "-indices.npy"), np.load(stem + "-scores.npy")
     host = compute_metrics(idx, scores, labels, cutoffs=EVAL_CUTOFFS)
     shutil.rmtree(out_dir)
     if saved != host or results["main"] != host:
-        raise AssertionError("7f fp32 evaluate: saved metrics differ from the host recompute "
-                             "over the saved arrays")
-    if any(launches.values()):
-        raise AssertionError(f"7f: a flash kernel launched on the fp32 path: {launches}")
+        raise AssertionError(f"7f fp32 evaluate ({out_dir}): saved metrics differ from the "
+                             "host recompute over the saved arrays")
+    return {"wall_s": wall, "launches": launches, "generic": generic, "routes": routes,
+            "metrics": host}
+
+
+def phase_fp32_evaluate(seed: int, tmp: str, ckpt_cut: str, files: tuple) -> dict:
+    """Phase 7f (run beside 7d's ranks): fp32 evaluation, the CLI's default
+    (``cli.evaluate`` without ``--bf16``, "auto" attention), on the
+    FEATURE_LAYERS checkpoint. (a) At the reference's lengths
+    (``--max_query_length 1280 --max_passage_length 4096``, where JAX's
+    dispatch runs its kernel) over a synthetic corpus
+    (:func:`write_fp32_eval_data`): exit 0, every attention call on the
+    generic build's K1 (launches > 0, all generic, none routed), the saved
+    metrics bit-equal to ``compute_metrics`` over its saved arrays, and
+    FP32_EVAL_HELD passage embeddings (the longest) through the generic
+    build within cosine FP32_EMBED_COS of the plain attention's. (b) Over
+    phase 7's files (``files``: query file, corpus file, labels) with
+    passages cut to 512 positions, where JAX's dispatch runs XLA: no flash
+    launch, every attention call counted in ``reference_routes`` (by
+    dtype), metrics bit-equal to the host recompute. (c) "auto" on CUDA
+    bf16 tensors of 512 positions at head_dim 32 and 80 (JAX runs XLA):
+    bit-equal to ``attention_reference``, no launch, one route by head_dim
+    each; and at 1024 positions, where JAX runs its kernel, fp32 at
+    head_dim 64 and bf16 at 80 run the generic build's K1, held to the plain
+    attention in their dtype (GENERIC_TOL_OF_MAX, GENERIC_REL_L2), one
+    generic launch, no route."""
+    from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
+    from rankpo_tpu_torch.index.encoding import InferenceEncoder
+    from rankpo_tpu_torch.ops import flash_attention as flash
+    from rankpo_tpu_torch.ops.attention import attention_reference, multi_head_attention
+
+    # ---- (a) fp32 at 1280 / 4096 ----
+    query_long, corpus_long, corpus, labels_long = write_fp32_eval_data(tmp, seed)
+    base = ["--model_name_or_path", ckpt_cut, "--tokenizer_name", "hash:128256", "--k", "100",
+            "--device", "cuda", "--log_level", "warning"]
+    long_run = _evaluate_path(
+        [*base, "--query_data", query_long, "--corpus_data", corpus_long, "--batch_size", "8",
+         "--max_query_length", str(FP32_LENGTHS[0]),
+         "--max_passage_length", str(FP32_LENGTHS[1])],
+        os.path.join(tmp, "7f_long"), ckpt_cut, labels_long)
+    if (not long_run["generic"]["flash_fwd"] or long_run["launches"] != long_run["generic"]
+            or any(long_run["routes"].values())):
+        raise AssertionError(f"7f at {FP32_LENGTHS}: launches {long_run['launches']}, generic "
+                             f"{long_run['generic']}, routes {long_run['routes']}")
+    tok = resolve_tokenizer("hash:128256", ckpt_cut)
+    encoder = InferenceEncoder.from_pretrained(ckpt_cut, tok, compute_dtype=torch.float32)
+    held = sorted(corpus, key=len)[-FP32_EVAL_HELD:]
+    emb = {}
+    for impl in ("auto", "plain"):
+        encoder.attn_impl = impl
+        emb[impl] = encoder.encode_device(held, batch_size=2, max_length=FP32_LENGTHS[1])[0]
+    cos = (emb["auto"] * emb["plain"]).sum(-1) / (emb["auto"].norm(dim=-1)
+                                                  * emb["plain"].norm(dim=-1))
+    del encoder, emb
+    torch.cuda.empty_cache()
+    if cos.min().item() < FP32_EMBED_COS:
+        raise AssertionError(f"7f: generic-build embeddings vs the plain attention's, cosine "
+                             f"{cos.tolist()}")
+    # ---- (b) fp32 over phase 7's files at 512 positions ----
+    query_file, corpus_file, labels = files
+    short_run = _evaluate_path(
+        [*base, "--query_data", query_file, "--corpus_data", corpus_file, "--batch_size", "64",
+         "--max_query_length", "64", "--max_passage_length", "512"],
+        os.path.join(tmp, "7f_auto"), ckpt_cut, labels)
+    routes = short_run["routes"]
+    if any(short_run["launches"].values()):
+        raise AssertionError(f"7f: a flash kernel launched on the fp32 path at 512 positions: "
+                             f"{short_run['launches']}")
     if routes["dtype"] <= 0 or routes["head_dim"]:
         raise AssertionError(f"7f: reference routes {routes}")
+    # ---- (c) the rule on CUDA tensors ----
     gen = torch.Generator(device="cuda").manual_seed(seed + 50)
 
     def qkv(s, d, dtype):
@@ -5339,27 +5830,38 @@ def phase_fp32_evaluate(seed: int, tmp: str, ckpt_cut: str, files: tuple) -> dic
                 or any(flash.launches.values()) or dims[d] != {"dtype": 0, "head_dim": 1}):
             raise AssertionError(f"7f: auto at head_dim {d}: routes {dims[d]}, launches "
                                  f"{flash.launches}")
+    kernel_errs = {}
     for d, dtype in ((64, torch.float32), (80, torch.bfloat16)):
         q, k, v, mask = qkv(1024, d, dtype)
         flash.reset_launches()
-        try:
-            multi_head_attention(q, k, v, mask=mask, causal=True)
-            raised = ""
-        except ValueError as e:
-            raised = str(e)
-        if ("Queue 3" not in raised or any(flash.launches.values())
-                or any(flash.reference_routes.values())):
-            raise AssertionError(f"7f: auto at S 1024, head_dim {d}, {dtype}: raised "
-                                 f"{raised!r}, launches {flash.launches}, routes "
+        got = multi_head_attention(q, k, v, mask=mask, causal=True)
+        torch.cuda.synchronize()
+        counted = dict(flash.generic_launches)
+        if (counted != {"flash_fwd": 1, "flash_bwd_fused": 0, "flash_dq": 0, "flash_dkv": 0}
+                or flash.launches != counted or any(flash.reference_routes.values())):
+            raise AssertionError(f"7f: auto at S 1024, head_dim {d}, {dtype}: launches "
+                                 f"{flash.launches}, generic {counted}, routes "
                                  f"{flash.reference_routes}")
-    log(f"7f evaluate fp32 without --bf16 (auto attention) at {FEATURE_LAYERS} layers over "
-        f"phase 7's files, passages of 512 positions: exit 0 in {wall:.1f} s, flash launches "
-        f"{launches}, reference_routes {routes}; metrics bit-equal to the host recompute: "
-        f"MRR@10 {host['MRR@10']:.4f}; auto on bf16 [8, 512, 32/8 heads] at head_dim 32 and "
-        f"80: bit-equal to attention_reference, no launch, reference_routes {dims}; auto at "
-        "1024 positions (JAX's kernel shapes) on fp32 head_dim 64 and bf16 head_dim 80: "
-        "raised naming Queue 3, no launch, no route")
-    return {"routes": routes, "wall_s": wall, "head_dim_routes": dims}
+        kernel_errs[d] = _generic_err(got, attention_reference(q, k, v, mask, True), dtype,
+                                      "K1 under auto", f"7f S 1024, head_dim {d}")
+    (qlo, qhi), (plo, phi) = FP32_EVAL_WORDS
+    log(f"7f evaluate fp32 without --bf16 (auto attention) at {FEATURE_LAYERS} layers: (a) "
+        f"{FP32_EVAL_QUERIES} queries of {qlo}-{qhi - 1} words over {FP32_EVAL_PASSAGES} "
+        f"passages of {plo}-{phi - 1} at {FP32_LENGTHS[0]} / {FP32_LENGTHS[1]}: exit 0 in "
+        f"{long_run['wall_s']:.1f} s, generic launches {long_run['generic']}, routes "
+        f"{long_run['routes']}, metrics bit-equal to the host recompute (MRR@10 "
+        f"{long_run['metrics']['MRR@10']:.4f}); the {FP32_EVAL_HELD} longest passages' "
+        f"embeddings vs the plain attention's: min cosine {cos.min().item():.9f} (limit "
+        f"{FP32_EMBED_COS}); (b) phase 7's files at 512 positions: exit 0 in "
+        f"{short_run['wall_s']:.1f} s, flash launches {short_run['launches']}, "
+        f"reference_routes {routes}; metrics bit-equal to the host recompute: MRR@10 "
+        f"{short_run['metrics']['MRR@10']:.4f}; (c) auto on bf16 [8, 512, 32/8 heads] at "
+        f"head_dim 32 and 80: bit-equal to attention_reference, no launch, reference_routes "
+        f"{dims}; auto at 1024 positions on fp32 head_dim 64 and bf16 head_dim 80: one "
+        f"generic K1 each, no route, max|err| against the plain attention "
+        + ", ".join(f"D {d} {e:.3e}" for d, e in kernel_errs.items()))
+    return {"routes": routes, "wall_s": long_run["wall_s"] + short_run["wall_s"],
+            "head_dim_routes": dims, "long": long_run, "min_cos_plain": cos.min().item()}
 
 
 def _tie_aware_recall(idx: np.ndarray, exact_scores_of, exact_kth: np.ndarray) -> float:
@@ -6370,6 +6872,9 @@ def main(argv=None) -> int:
         kern_packed = timed("2p packed kernels", phase_kernels_packed, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
+        kern_generic = timed("2f generic kernels", phase_kernels_generic, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
         timed("3 search ties", phase_search_ties)
         ckpt, base_state = timed("checkpoint", make_model_checkpoint, tmp, args.seed,
                                  "llama-3.2-1b")
@@ -6399,6 +6904,7 @@ def main(argv=None) -> int:
             shutil.rmtree(os.path.join(tmp, stage_dir))
         features = timed("5f training features", phase_training_features, ckpt_cut, tmp,
                          args.seed)
+        fp32_train = timed("5r fp32 training", phase_training_fp32, tmp, args.seed)
         dp = timed("5d data parallel", phase_data_parallel, ckpt, ckpt_cut, tmp, args.seed,
                    train["stage1"])
         kept, beside = {}, {}
@@ -6642,6 +7148,17 @@ def main(argv=None) -> int:
         f"{en['encode_packed']['pad_share']:.4f}, K1 {en['encode_packed']['launches']}; at "
         f"pack_chunk 1024 {en['encode_packed_1024']['passages_per_s']:.1f} passages/s, pad "
         f"share {en['encode_packed_1024']['pad_share']:.4f}; min cosine {en['min_cosine']:.6f}")
+    fw, fp32_eval = fp32_train["witness"], multi["fp32_evaluate"]
+    log(f"numbers ({card}): 5r stage 1 in fp32 at {FP32_LENGTHS[0]} / {FP32_LENGTHS[1]} "
+        f"({OTHER_LAYERS} layers, full width): step "
+        + ", ".join(f"{label} {r['step_time_s']:.3f} s ({r['peak_mem_gib']:.2f} GiB)"
+                    for label, r in fp32_train["runs"].items())
+        + f"; witness loss relative to plain {fw['loss_rel_plain']:.3e}, fused vs split "
+        f"{fw['fused_equal']} of {fw['n_tensors']} gradients bit-equal (worst gap "
+        f"{fw['fused_gap']:.3e}), min gradient cosine with plain {fw['min_cos_plain']:.8f}")
+    log(f"numbers ({card}): 7f fp32 evaluate at {FP32_LENGTHS[0]} / {FP32_LENGTHS[1]}: "
+        f"{fp32_eval['long']['wall_s']:.1f} s, generic K1 {fp32_eval['long']['generic']['flash_fwd']}"
+        f", min embedding cosine with plain {fp32_eval['min_cos_plain']:.9f}")
     for label, n in dp["w1"].items():
         log(f"numbers ({card}): 5d stage 1 at world size 1 under NCCL --{label} (full depth): "
             f"median step {n['step_time_s']:.4f} s (phase 5 "
@@ -6743,6 +7260,16 @@ def main(argv=None) -> int:
                           + sum(n["launches"].get(counter, 0) for n in evaluation.values())
                           + (multi["k4_launches"] if counter == "ivf_probe_scores" else 0))
     launches["flash_dkv_f32"] = sharded["dkv_f32_launches"]
+    # the generic build's launches on its paths: 5r's two CLI steps and
+    # 7f's evaluate at 1280 / 4096
+    generic = {name: sum(r["launches"][name] for r in fp32_train["runs"].values())
+               for name in KERNELS}
+    generic["flash_fwd"] += fp32_eval["long"]["generic"]["flash_fwd"]
+    log(f"numbers ({card}): generic-build launches on the fp32 paths (5r's steps, 7f's "
+        f"evaluate at {FP32_LENGTHS[0]} / {FP32_LENGTHS[1]}): {generic}")
+    for name, n in generic.items():
+        if n <= 0:
+            raise AssertionError(f"{name} of the generic build ran no launch on the fp32 paths")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main paths")
@@ -6805,6 +7332,19 @@ def main(argv=None) -> int:
         "bound_ms": kern_packed[name]["bound_ms"],
         "bound_by": kern_packed[name]["bound_by"],
         "library_ms": kern_packed[name]["library_ms"],
+    } for name in KERNELS]
+    rows += [{
+        "name": names[name] + "_generic",
+        "route": "cuda",
+        "source": "rankpo_tpu_torch/ops/csrc/flash_generic.cu",
+        "replaces": KERNELS[name][0],
+        "launches": generic[name],
+        "max_abs_err": kern_generic[name]["max_abs_err"],
+        "ms": kern_generic[name]["ms"],
+        "plain_ms": kern_generic[name]["plain_ms"],
+        "bound_ms": kern_generic[name]["bound_ms"],
+        "bound_by": kern_generic[name]["bound_by"],
+        "library_ms": kern_generic[name]["library_ms"],
     } for name in KERNELS]
     rows += [{
         "name": name,

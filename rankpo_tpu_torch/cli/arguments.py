@@ -142,7 +142,9 @@ class DistributedArguments:
 
 _ATTN_HELP = ("Attention impl: auto|plain|flash; the reference's 'flash_attention_2' maps "
               "to the CUDA flash kernels, 'eager'/'sdpa' (and the JAX package's 'xla') to "
-              "the plain PyTorch attention.")
+              "the plain PyTorch attention. 'auto' on the card runs the Hopper kernels for "
+              "bf16 at head_dim 64/128/256, the generic kernels (fp32, fp16, other head "
+              "dims) from 1024 positions on, and the plain attention below that.")
 
 
 def attn_impl_of(name: str) -> str:
@@ -318,9 +320,10 @@ class EvaluateArguments:
     index_recall_target: float = dataclasses.field(
         default=0.95, metadata={"help": "refine/ivf index build-time recall-tune target"})
     index_kwargs: str = dataclasses.field(default="", metadata={"help": _INDEX_KWARGS_HELP})
-    # the port's own flag: under "auto" an fp32 run whose batches reach 1024
-    # positions raises (no kernel here is built for it, ROADMAP.md Queue 3);
-    # "plain" runs it with the plain attention
+    # the port's own flag: under "auto" an fp32 run (the default, no --bf16)
+    # runs the generic flash kernels on batches of 1024 positions or more,
+    # where JAX runs its kernel, and the plain attention below; "plain" runs
+    # the plain attention throughout
     attn_implementation: str = dataclasses.field(default="auto",
                                                  metadata={"help": _ATTN_HELP})
     wandb_project: str = dataclasses.field(default="")

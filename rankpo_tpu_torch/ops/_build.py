@@ -50,6 +50,11 @@ _BWD_ARGTYPES = (
 )
 for _name in ("fused_bf16", "dkv_bf16", "dq_bf16", "dkv_f32"):
     _SIGNATURES[f"rankpo_flash_bwd_{_name}"] = _BWD_ARGTYPES
+# the generic build (flash_generic.cu): the bf16 arguments, then the element
+# type (0 fp32, 1 fp16, 2 bf16) and, for the backward, f32_out, before the stream
+_SIGNATURES["rankpo_flash_fwd_generic"] = _SIGNATURES["rankpo_flash_fwd_bf16"][:-1] + [_I, _P]
+for _name in ("fused", "dkv", "dq"):
+    _SIGNATURES[f"rankpo_flash_bwd_{_name}_generic"] = _BWD_ARGTYPES[:-1] + [_I, _I, _P]
 # corpus pairs start cluster queries out, K Q P cap D groups dtype, stream
 _SIGNATURES["rankpo_ivf_probe_scores"] = [_P] * 6 + [_I] * 7 + [_P]
 # codes probe lut out, K Q P cap m layout route tile blocks, stream

@@ -13,21 +13,23 @@ q_pos - k_pos < window, where q_pos = row + Sk - Sq. ``segment_ids`` [B, S]
 
 Dispatch is by device, dtype and shape, decided before anything launches,
 never by a fallback after a failure: ``impl="auto"`` runs the CUDA kernels
-(``ops/flash_attention.py``) on a CUDA tensor the kernels are built for and
-:func:`attention_reference` on a CPU tensor. The kernels are built for bf16
-at head_dim 64, 128 and 256 (``flash_attention.kernel_fits``). JAX's
-dispatcher runs its Pallas kernel in any dtype at a head_dim that is a
-multiple of 8 and at least 64, from 1024 query positions on (``_use_flash``,
-``rankpo_tpu/ops/attention.py:83-89``), and XLA elsewhere. So a CUDA tensor
-the kernels are not built for (an fp32 model, another head_dim) runs the
-reference under "auto" where JAX runs XLA too (counted in
+(``ops/flash_attention.py``) on a CUDA tensor where JAX's dispatcher runs
+its Pallas kernel or the Hopper kernels are built, and
+:func:`attention_reference` on a CPU tensor. The Hopper kernels are built
+for bf16 at head_dim 64, 128 and 256 (``flash_attention.kernel_fits``) and
+run there at every length. JAX's dispatcher runs its Pallas kernel in any
+dtype at a head_dim that is a multiple of 8 and at least 64, from 1024 query
+positions on (``_use_flash``, ``rankpo_tpu/ops/attention.py:83-89``), and
+XLA elsewhere; there the port runs the generic build of the same kernels
+(fp32, fp16, and bf16 at other head dims: ``flash_attention.kernel_for``),
+and the plain attention where JAX runs XLA (counted in
 ``flash_attention.reference_routes``; ``flash_attention.
-routes_to_reference``), and raises where JAX runs its kernel: the kernels
-for those are not built yet (ROADMAP.md Queue 3), and ``impl="plain"`` runs
-the reference there on request. ``impl="plain"`` forces the reference (also
-used to compare the two on the card); ``impl="flash"`` forces the kernels,
-which raise on a CPU tensor and on a dtype or head_dim they are not built
-for. When a gradient is needed, the kernel path goes
+routes_to_reference``; ``flash_attention.auto_build`` names what "auto"
+runs). ``impl="plain"`` forces the reference (also used to
+compare the two on the card); ``impl="flash"`` forces the kernels on the
+build ``kernel_for`` names, and raises on a CPU tensor and where no build
+takes the input (a dtype other than fp32, fp16 and bf16, or a head_dim that
+is not a multiple of 8). When a gradient is needed, the kernel path goes
 through the ``FlashAttention`` autograd Function (forward K1, the backward
 kernels K2 or K3a + K3b); the reference is differentiated by autograd.
 
@@ -96,17 +98,21 @@ def masked_logits(
     causal: bool,
     window: Optional[int] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    scale_q: bool = True,
 ) -> torch.Tensor:
     """Scaled fp32 logits [B, Hkv, G, Sq, Sk] with masked entries at NEG_INF
     (pad keys, and the pairs :func:`allowed_pairs` leaves out). GQA groups
-    ride a reshape of q, so K is never repeated."""
+    ride a reshape of q, so K is never repeated. ``scale_q``: q is scaled
+    in its own dtype first, as ``_xla_attention`` does; else the fp32
+    product is scaled, as the flash kernels compute s = scale * q.k."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     groups = hq // hkv
     scale = 1.0 / (d**0.5)
-    # q is scaled in its own dtype first, as _xla_attention does
-    qf = (q * scale).reshape(b, sq, hkv, groups, d).to(torch.float32)
+    qf = (q * scale if scale_q else q).reshape(b, sq, hkv, groups, d).to(torch.float32)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(torch.float32))
+    if not scale_q:
+        logits = logits * scale
     if mask is not None:
         key_valid = mask.to(torch.bool)[:, None, None, None, :]
         logits.masked_fill_(~key_valid, NEG_INF)
@@ -215,17 +221,16 @@ def multi_head_attention(
                                    segment_ids=segment_ids)
     from rankpo_tpu_torch.ops import flash_attention as flash
 
-    if impl == "auto" and not flash.kernel_fits(q):
-        if not flash.routes_to_reference(q):
-            raise ValueError(
-                f"impl='auto': JAX runs its attention kernel on q {tuple(q.shape)} "
-                f"{q.dtype} (head_dim a multiple of 8, >= 64, at >= "
-                f"{flash.JAX_FLASH_MIN_SEQ} positions), but no kernel here is built for "
-                f"it (bf16 at head_dim {flash.HEAD_DIMS} only; ROADMAP.md Queue 3); "
-                "pass impl='plain' for the plain attention")
+    build = flash.auto_build(q) if impl == "auto" else flash.kernel_for(q)
+    if build == "plain":
         flash.count_reference_route(q)
         return attention_reference(q, k, v, mask, causal, window=window,
                                    segment_ids=segment_ids)
+    if build is None:
+        raise ValueError(
+            f"impl={impl!r}: no flash kernel build takes q {tuple(q.shape)} {q.dtype} (the "
+            "builds take fp32, fp16 and bf16 at a head_dim that is a multiple of 8); pass "
+            "impl='plain' for the plain attention")
     kw = dict(causal=causal, skip_pad_q=skip_pad_q, window=window, segment_ids=segment_ids)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return flash.flash_attention(q, k, v, mask, bwd_impl=bwd_impl, **kw)

@@ -178,38 +178,11 @@ using namespace rankpo_bwd;
 // ---- dQ summed in key-tile order (the header): the counter of a query tile
 // counts the key tiles that added (the dQ adder warp of each block) ----
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void wait_turn(const int* counter, int target) {
-  while (ld_acquire(counter) < target) __nanosleep(32);
-}
-
 // each lane's stores made visible at the device, then one count per warp
 __device__ __forceinline__ void end_turn(int* counter, int lane) {
   __threadfence();
   __syncwarp();
   if (lane == 0) atomicAdd(counter, 1);
-}
-
-// With a window, the last query row that sees a key of the tile starting at
-// key0 is key0 + 63 + window - 1 - q_shift: the kv kernel's query tiles end
-// at (that row) / 64 + 1, none if it is negative.
-__device__ __forceinline__ int window_q_end(int key0, int window, int q_shift) {
-  const int last_row = key0 + kTile - 2 + window - q_shift;
-  return last_row < 0 ? 0 : last_row / kTile + 1;
-}
-
-// The first key tile whose window_q_end passes query tile qt: the least kt
-// with qt * 64 <= kt * 64 + 62 + window - q_shift. The window's key tiles
-// of qt are first_kt(qt) .. the causal and valid-length end, so key tile kt
-// is the (kt - first_kt)-th to add qt's dQ.
-__device__ __forceinline__ int first_kt(int qt, int window, int q_shift) {
-  const int x = qt * kTile + q_shift - window - (kTile - 2);
-  return x <= 0 ? 0 : (x + kTile - 1) / kTile;
 }
 
 // ---- the kv kernel: K3b, and K2 with its dq ----

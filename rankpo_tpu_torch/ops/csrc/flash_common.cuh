@@ -1,7 +1,9 @@
-// What the flash-attention kernels (flash_fwd.cu, flash_bwd.cu) share beside
-// the Hopper pieces of hopper.cuh: the tile size, the JAX kernel's NEG_INF,
-// the bf16 pair packing of an A operand, the valid key extent of a mask
-// row, and the span of a tile's segments in packed mode.
+// What the flash-attention kernels (flash_fwd.cu, flash_bwd.cu and the
+// generic build, flash_generic.cu) share beside the Hopper pieces of
+// hopper.cuh: the tile size, the JAX kernel's NEG_INF, the bf16 pair packing
+// of an A operand, the valid key extent of a mask row, the span of a tile's
+// segments in packed mode, the window's query-tile bounds of a key tile, and
+// the wait on K2's counters.
 
 #pragma once
 
@@ -82,6 +84,35 @@ __device__ __forceinline__ int2 packed_span(const int* mrow, int S, int p0, int 
     hi += warp_hi[i];
   }
   return make_int2(lo, hi);
+}
+
+// dQ summed in key-tile order (K2, flash_bwd.cu's header): a query tile's
+// counter, read with acquire semantics, says how many key tiles have added.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void wait_turn(const int* counter, int target) {
+  while (ld_acquire(counter) < target) __nanosleep(32);
+}
+
+// With a window, the last query row that sees a key of the tile starting at
+// key0 is key0 + 63 + window - 1 - q_shift: the kv kernel's query tiles end
+// at (that row) / 64 + 1, none if it is negative.
+__device__ __forceinline__ int window_q_end(int key0, int window, int q_shift) {
+  const int last_row = key0 + kTile - 2 + window - q_shift;
+  return last_row < 0 ? 0 : last_row / kTile + 1;
+}
+
+// The first key tile whose window_q_end passes query tile qt: the least kt
+// with qt * 64 <= kt * 64 + 62 + window - q_shift. The window's key tiles
+// of qt are first_kt(qt) .. the causal and valid-length end, so key tile kt
+// is the (kt - first_kt)-th to add qt's dQ.
+__device__ __forceinline__ int first_kt(int qt, int window, int q_shift) {
+  const int x = qt * kTile + q_shift - window - (kTile - 2);
+  return x <= 0 ? 0 : (x + kTile - 1) / kTile;
 }
 
 }  // namespace

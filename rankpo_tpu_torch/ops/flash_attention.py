@@ -38,7 +38,7 @@ tile's dQ in key-tile order. K3a is K1's design with a third product: per
 through the ring, and dQ = dS K stays in registers across the key tiles (see
 the kernels' headers). Every kernel repeats bit for bit.
 
-The kernels take bf16 only, head_dim 64, 128 or 256, a key mask, causal,
+The Hopper kernels take bf16 at head_dim 64, 128 or 256, a key mask, causal,
 ``skip_pad_q`` and ``window`` (sliding-window attention, with ``causal``:
 row q sees keys with q_pos - k_pos < window). With a window every kernel
 skips the key tiles (K1, K3a) or query tiles (K2, K3b) outside the band, as
@@ -51,11 +51,19 @@ of a query tile's (K1, K3a) or key tile's (K2, K3b) segments, JAX's bounds
 (``flash_attention.py:132-147``, ``:222-233``, ``:314-328``, ``:429-442``).
 At head_dim 256 (Gemma) K1 and K3a run one query head per block, and K2
 and K3b two blocks per key tile, one per 128-column half of dK/dV/dQ, each
-computing the whole S^T and dP^T (``flash_bwd.cu``'s header). Other dtypes
-and head dims raise here (ROADMAP.md Queue 2); ``ops/attention.py``'s
-"auto" dispatch sends them to the plain attention where JAX's dispatch
-leaves its kernel too (:func:`routes_to_reference`, counted in
-``reference_routes``) and raises where JAX runs it.
+computing the whole S^T and dP^T (``flash_bwd.cu``'s header).
+
+Every other input JAX's kernels take (fp32, fp16, and bf16 at a head_dim
+outside 64/128/256; any head_dim that is a multiple of 8) runs the generic
+build of the same four kernels, ``ops/csrc/flash_generic.cu``: simple SIMT
+kernels with fp32 sums, the element type passed at run time, the same
+masks, tile bounds and outputs, any head_dim (the output columns split over
+blocks where one block's shared memory cannot hold them).
+:func:`kernel_for` names the build that runs (``generic_launches`` counts
+its launches beside ``launches``). ``ops/attention.py``'s "auto" dispatch
+runs the Hopper kernels where they are built, the generic build where JAX's
+dispatch runs its kernel (:func:`jax_runs_kernel`), and the plain attention
+elsewhere (:func:`routes_to_reference`, counted in ``reference_routes``).
 
 :func:`flash_attention_fwd_reference` and :func:`flash_attention_bwd_reference`
 are the plain PyTorch versions of the same contracts, used by the CPU tests
@@ -72,13 +80,15 @@ import torch
 from rankpo_tpu_torch.ops.attention import (BWD_IMPLS, NEG_INF, allowed_pairs,
                                             check_segments, masked_logits)
 
-# launches of each CUDA kernel in this process (read by chip_smoke.py to show
-# the main path went through them); incremented only after a launch
-# succeeded. ``window_launches`` counts the launches among them that ran with
-# a sliding window, ``d256_launches`` those at head_dim 256,
-# ``packed_launches`` those with ``segment_ids``, ``f32_launches`` those of
-# K3b's fp32-output build (``flash_dkv``).
+# launches of each CUDA kernel in this process, either build (read by
+# chip_smoke.py to show the main path went through them); incremented only
+# after a launch succeeded. ``generic_launches`` counts the launches among
+# them of the generic build, ``window_launches`` those that ran with a
+# sliding window, ``d256_launches`` those at head_dim 256,
+# ``packed_launches`` those with ``segment_ids``, ``f32_launches`` those
+# with K3b's fp32 dK/dV (``flash_dkv``).
 launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_dq": 0, "flash_dkv": 0}
+generic_launches = dict(launches)
 window_launches = dict(launches)
 d256_launches = dict(launches)
 packed_launches = dict(launches)
@@ -90,14 +100,29 @@ reference_routes = {"dtype": 0, "head_dim": 0}
 _count_lock = threading.Lock()
 
 HEAD_DIMS = (64, 128, 256)
+# the generic build's element types, by the code its C entry points take
+GENERIC_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # JAX's "auto" runs its Pallas kernel from this many query positions on
 JAX_FLASH_MIN_SEQ = 1024
 
 
 def kernel_fits(q: torch.Tensor) -> bool:
-    """Whether the kernels are built for ``q``'s dtype and head_dim (bf16 at
-    HEAD_DIMS)."""
+    """Whether the Hopper kernels are built for ``q``'s dtype and head_dim
+    (bf16 at HEAD_DIMS)."""
     return q.dtype == torch.bfloat16 and q.shape[-1] in HEAD_DIMS
+
+
+def kernel_for(q: torch.Tensor) -> Optional[str]:
+    """The build that runs the flash kernels on ``q`` [B, S, H, D]:
+    "hopper" (``flash_fwd.cu``, ``flash_bwd.cu``) where :func:`kernel_fits`,
+    "generic" (``flash_generic.cu``) for fp32, fp16 or bf16 at any other
+    head_dim that is a multiple of 8, None for anything else."""
+    if kernel_fits(q):
+        return "hopper"
+    d = q.shape[-1]
+    if q.dtype in GENERIC_DTYPES and d > 0 and d % 8 == 0:
+        return "generic"
+    return None
 
 
 def jax_runs_kernel(q: torch.Tensor) -> bool:
@@ -111,12 +136,19 @@ def jax_runs_kernel(q: torch.Tensor) -> bool:
 
 def routes_to_reference(q: torch.Tensor) -> bool:
     """The "auto" dispatch's rule on a CUDA tensor, decided from q's dtype
-    and shape alone, before anything launches: the plain attention where no
-    kernel here is built for ``q`` and JAX's dispatch leaves its kernel too.
-    Where JAX runs its kernel but none is built here (fp32, or a head_dim
-    outside HEAD_DIMS, at S >= JAX_FLASH_MIN_SEQ), "auto" raises (ROADMAP.md
-    Queue 3)."""
+    and shape alone, before anything launches: the plain attention where the
+    Hopper kernels are not built for ``q`` and JAX's dispatch leaves its
+    kernel too. Where JAX runs its kernel and the Hopper kernels are not
+    built for ``q``, "auto" runs the generic build (:func:`kernel_for`)."""
     return not kernel_fits(q) and not jax_runs_kernel(q)
+
+
+def auto_build(q: torch.Tensor) -> Optional[str]:
+    """What ``impl="auto"`` runs on a CUDA tensor ``q``: "plain" (the plain
+    attention) where :func:`routes_to_reference`, else the build
+    :func:`kernel_for` names ("hopper" or "generic"; None where no build
+    takes ``q``, and "auto" raises)."""
+    return "plain" if routes_to_reference(q) else kernel_for(q)
 
 
 def count_reference_route(q: torch.Tensor) -> None:
@@ -128,6 +160,7 @@ def reset_launches() -> None:
     with _count_lock:
         for name in launches:
             launches[name] = 0
+            generic_launches[name] = 0
             window_launches[name] = 0
             d256_launches[name] = 0
             packed_launches[name] = 0
@@ -137,9 +170,11 @@ def reset_launches() -> None:
 
 
 def _count(name: str, window: Optional[int], head_dim: int, packed: bool,
-           f32: bool = False) -> None:
+           f32: bool = False, generic: bool = False) -> None:
     with _count_lock:
         launches[name] += 1
+        if generic:
+            generic_launches[name] += 1
         if f32:
             f32_launches[name] += 1
         if window is not None:
@@ -174,12 +209,16 @@ def flash_attention_fwd_reference(
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel: (out [B, Sq, Hq, D] in v's dtype,
-    lse [B, Hq, Sq] fp32). Rows with no valid key (pad rows of a packed
-    row among them) give zeros and lse = NEG_INF, as the kernel does.
-    Computes every row (no skip_pad_q)."""
+    lse [B, Hq, Sq] fp32). As every build and JAX's ``_fwd_kernel``:
+    s = scale * q.k in fp32 (q is not rounded to its dtype after scaling,
+    as the plain attention's ``_xla_attention`` order does), P rounded to
+    v's dtype before the PV product. Rows with no valid key (pad rows of a
+    packed row among them) give zeros and lse = NEG_INF, as the kernel
+    does. Computes every row (no skip_pad_q)."""
     b, sq, hq, d = q.shape
     check_segments(segment_ids, mask, b, sq, k.shape[1])
-    logits = masked_logits(q, k, mask, causal, window, segment_ids)  # [B, Hkv, G, Sq, Sk]
+    logits = masked_logits(q, k, mask, causal, window, segment_ids,
+                           scale_q=False)  # [B, Hkv, G, Sq, Sk]
     any_valid = logits.amax(dim=-1) > NEG_INF * 0.5
     lse = torch.where(any_valid, torch.logsumexp(logits, dim=-1), NEG_INF)
     probs = torch.softmax(logits, dim=-1)
@@ -237,37 +276,43 @@ def flash_attention_bwd_reference(
     return dq, dk, dv
 
 
-def _check_rows(name: str, x: torch.Tensor) -> None:
-    """The backward kernels read each [D] row with 16-byte vector loads, and
-    K1 reads tiles by TMA, which needs a 16-byte-aligned base and strides
-    that are multiples of 16 bytes."""
+def _check_rows(name: str, x: torch.Tensor, build: str = "hopper") -> None:
+    """Every build reads rows with a head_dim stride of 1. The Hopper
+    kernels also read tiles by TMA, which needs a 16-byte-aligned base and
+    strides that are multiples of 16 bytes; the generic build reads element
+    by element."""
     if x.stride(3) != 1:
         raise ValueError(f"{name}: head_dim must be contiguous (stride 1)")
-    if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
+    if build == "hopper" and (any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16):
         raise ValueError(
             f"{name}: strides {tuple(x.stride())} and the data pointer must "
             "keep each row 16-byte aligned"
         )
 
 
-def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernels' checks of q, k and v; returns the build that takes them
+    (:func:`kernel_for`)."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(
                 f"flash kernel: {name} is on {x.device}; the kernel runs on "
                 "CUDA tensors only (use impl='plain' for the reference)"
             )
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"flash kernel: {name} must be bfloat16, got {x.dtype}")
         if x.dim() != 4:
             raise ValueError(f"flash kernel: {name} must be [B, S, H, D]")
+    build = kernel_for(q)
+    if build is None:
+        raise ValueError(
+            f"flash kernel: no build takes q {q.dtype} at head_dim {q.shape[-1]} (the "
+            f"Hopper kernels: bf16 at head_dim {HEAD_DIMS}; the generic build: fp32, fp16 "
+            "or bf16 at a head_dim that is a multiple of 8)"
+        )
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash kernel: q, k, v must share one dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"flash kernel: head_dim {d} not in {HEAD_DIMS} (other head dims are "
-            "not ported yet: ROADMAP.md Queue 2)"
-        )
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash kernel: shapes q {q.shape} k {k.shape} v {v.shape}")
     if hq % hkv:
@@ -277,7 +322,8 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if sq == 0 or sk == 0 or b == 0:
         raise ValueError("flash kernel: empty sequence or batch")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_rows(name, x)
+        _check_rows(name, x, build)
+    return build
 
 
 def _int_mask(mask: Optional[torch.Tensor], segment_ids: Optional[torch.Tensor], b: int,
@@ -304,11 +350,11 @@ def flash_attention_fwd(
     window: Optional[int] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] bf16 on one CUDA
-    device, mask [B, Sk] (non-zero = valid key, default all valid).
-    Returns (out [B, Sq, Hq, D] bf16, lse [B, Hq, Sq] fp32). No gradient
-    flows through this call; :class:`FlashAttention` is the differentiable
-    form.
+    """Launch K1: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] in one dtype on one
+    CUDA device, mask [B, Sk] (non-zero = valid key, default all valid), on
+    the build :func:`kernel_for` names. Returns (out [B, Sq, Hq, D] in q's
+    dtype, lse [B, Hq, Sq] fp32). No gradient flows through this call;
+    :class:`FlashAttention` is the differentiable form.
 
     Strided inputs are read in place (no transpose copy). With
     ``skip_pad_q``, query tiles that start at or past the valid key length
@@ -319,7 +365,7 @@ def flash_attention_fwd(
     pad tail, attention within each segment only."""
     win = _check_window(window, causal)
     check_segments(segment_ids, mask, q.shape[0], q.shape[1], k.shape[1])
-    _check_qkv(q, k, v)
+    build = _check_qkv(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     mask = _int_mask(mask, segment_ids, b, sk, q.device)
@@ -328,20 +374,22 @@ def flash_attention_fwd(
     from rankpo_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    out = torch.empty((b, sq, hq, d), dtype=torch.bfloat16, device=q.device)
+    generic = build == "generic"
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.rankpo_flash_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(),
-            b, sq, sk, hq, hkv, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], mask.stride(0),
-            int(causal), int(skip_pad_q), win, int(packed), stream,
-        )
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], mask.stride(0),
+                int(causal), int(skip_pad_q), win, int(packed))
+        if generic:
+            rc = lib.rankpo_flash_fwd_generic(*args, GENERIC_DTYPES[q.dtype], stream)
+        else:
+            rc = lib.rankpo_flash_fwd_bf16(*args, stream)
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {rc}")
-    _count("flash_fwd", window, d, packed)
+    _count("flash_fwd", window, d, packed, generic=generic)
     return out, lse
 
 
@@ -359,34 +407,42 @@ def resolve_bwd_impl(bwd_impl: str) -> str:
     return bwd_impl
 
 
-def _check_bwd(q, k, v, mask, do, lse, delta, causal, window, segment_ids) -> torch.Tensor:
-    """The backward kernels' argument checks; returns the int32 mask buffer."""
+def _check_bwd(q, k, v, mask, do, lse, delta, causal, window,
+               segment_ids) -> Tuple[torch.Tensor, str]:
+    """The backward kernels' argument checks; returns the int32 mask buffer
+    and the build that takes the inputs."""
     _check_window(window, causal)
     check_segments(segment_ids, mask, q.shape[0], q.shape[1], k.shape[1])
-    _check_qkv(q, k, v)
+    build = _check_qkv(q, k, v)
     b, sq, hq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"flash kernel: do {tuple(do.shape)} {do.dtype} must match q")
-    _check_rows("do", do)
+    _check_rows("do", do, build)
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != (b, hq, sq) or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"flash kernel: {name} must be contiguous fp32 {(b, hq, sq)}")
         if x.device != q.device:
             raise ValueError(f"flash kernel: {name} must be on {q.device}")
-    return _int_mask(mask, segment_ids, b, k.shape[1], q.device)
+    return _int_mask(mask, segment_ids, b, k.shape[1], q.device), build
 
 
-def _launch_bwd(name, fn, q, k, v, mask, do, lse, delta, dq, dk, dv, sync, causal: bool,
-                skip_pad_q: bool, window: Optional[int], packed: bool,
+def _launch_bwd(name, build: str, q, k, v, mask, do, lse, delta, dq, dk, dv, sync,
+                causal: bool, skip_pad_q: bool, window: Optional[int], packed: bool,
                 f32: bool = False) -> None:
-    """One backward kernel's launch on the current stream of q's device;
-    counted under ``name`` (and ``f32``: in ``f32_launches``) once it
-    succeeded."""
+    """One backward kernel's launch on the current stream of q's device:
+    ``name`` (flash_bwd_fused, flash_dq or flash_dkv) of ``build``, the
+    Hopper kernel (bf16; ``f32``: K3b's fp32-output build) or the generic
+    one (``f32``: fp32 dk/dv); counted under ``name`` once it succeeded."""
+    from rankpo_tpu_torch.ops._build import load_library
+
+    lib = load_library()
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
+    generic = build == "generic"
+    kind = {"flash_bwd_fused": "fused", "flash_dq": "dq", "flash_dkv": "dkv"}[name]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
+        args = (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             None if dq is None else dq.data_ptr(),
@@ -396,11 +452,17 @@ def _launch_bwd(name, fn, q, k, v, mask, do, lse, delta, dq, dk, dv, sync, causa
             b, sq, sk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], mask.stride(0),
-            int(causal), int(skip_pad_q), _check_window(window, causal), int(packed), stream,
+            int(causal), int(skip_pad_q), _check_window(window, causal), int(packed),
         )
+        if generic:
+            fn = getattr(lib, f"rankpo_flash_bwd_{kind}_generic")
+            rc = fn(*args, GENERIC_DTYPES[q.dtype], int(f32), stream)
+        else:
+            fn = getattr(lib, f"rankpo_flash_bwd_{kind}_{'f32' if f32 else 'bf16'}")
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    _count(name, window, d, packed, f32)
+    _count(name, window, d, packed, f32, generic)
 
 
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
@@ -408,17 +470,16 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[t
              causal: bool = False) -> torch.Tensor:
     """dq [B, Sq, Hq, D] in q's dtype from given lse and delta [B, Hq, Sq]
     fp32 (JAX ``flash_dq``, ``flash_attention.py:550``): K3a alone on a
-    CUDA tensor (bf16 in), counted as ``flash_dq``; on a CPU tensor the
-    plain version (:func:`flash_attention_bwd_reference`'s dq, cast)."""
+    CUDA tensor (the build :func:`kernel_for` names), counted as
+    ``flash_dq``; on a CPU tensor the plain version
+    (:func:`flash_attention_bwd_reference`'s dq, cast)."""
     if q.device.type == "cpu":
         dq, _, _ = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal)
         return dq.to(q.dtype)
-    mask = _check_bwd(q, k, v, mask, do, lse, delta, causal, None, None)
-    from rankpo_tpu_torch.ops._build import load_library
-
-    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    _launch_bwd("flash_dq", load_library().rankpo_flash_bwd_dq_bf16, q, k, v, mask, do, lse,
-                delta, dq, None, None, None, causal, False, None, False)
+    mask, build = _check_bwd(q, k, v, mask, do, lse, delta, causal, None, None)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_dq", build, q, k, v, mask, do, lse, delta, dq, None, None, None, causal,
+                False, None, False)
     return dq
 
 
@@ -426,22 +487,20 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[
               do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
               causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B, Sk, Hkv, D] in fp32, each GQA group summed, from given
-    lse and delta (JAX ``flash_dkv``, ``flash_attention.py:579``): K3b's
-    fp32-output build on a CUDA tensor (bf16 in; no window, no segments, as
-    the ring takes it), counted as ``flash_dkv`` and in ``f32_launches``;
-    on a CPU tensor the
-    plain version (:func:`flash_attention_bwd_reference`, whose dk and dv
-    are fp32)."""
+    lse and delta (JAX ``flash_dkv``, ``flash_attention.py:579``): on a CUDA
+    tensor K3b with fp32 dK/dV (no window, no segments, as the ring takes
+    it): the Hopper build's fp32-output kernel for bf16 at HEAD_DIMS, else
+    the generic build's with ``f32_out``; counted as ``flash_dkv`` and in
+    ``f32_launches``. On a CPU tensor the plain version
+    (:func:`flash_attention_bwd_reference`, whose dk and dv are fp32)."""
     if q.device.type == "cpu":
         _, dk, dv = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, causal=causal)
         return dk, dv
-    mask = _check_bwd(q, k, v, mask, do, lse, delta, causal, None, None)
-    from rankpo_tpu_torch.ops._build import load_library
-
+    mask, build = _check_bwd(q, k, v, mask, do, lse, delta, causal, None, None)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    _launch_bwd("flash_dkv", load_library().rankpo_flash_bwd_dkv_f32, q, k, v, mask, do,
-                lse, delta, None, dk, dv, None, causal, False, None, False, f32=True)
+    _launch_bwd("flash_dkv", build, q, k, v, mask, do, lse, delta, None, dk, dv, None, causal,
+                False, None, False, f32=True)
     return dk, dv
 
 
@@ -460,9 +519,10 @@ def flash_attention_bwd(
     segment_ids: Optional[torch.Tensor] = None,
     bwd_impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels on the forward's inputs and stats:
-    q/do [B, Sq, Hq, D] bf16, k/v [B, Sk, Hkv, D] bf16, lse and delta
-    [B, Hq, Sq] fp32. Returns (dq, dk, dv) in the inputs' dtype (bf16).
+    """Launch the backward kernels on the forward's inputs and stats, on
+    the build :func:`kernel_for` names: q/do [B, Sq, Hq, D], k/v [B, Sk,
+    Hkv, D] in one dtype, lse and delta [B, Hq, Sq] fp32. Returns (dq, dk,
+    dv) in the inputs' dtype.
 
     ``bwd_impl``:
 
@@ -470,7 +530,7 @@ def flash_attention_bwd(
       fp32 in key-tile order (a zeroed int32 workspace of counters orders
       the blocks), as JAX's resident dq block sums it;
     - ``"split"`` (K3a + K3b): the dq kernel loops over key tiles per query
-      tile and holds dq in registers;
+      tile and holds dq on chip;
     - ``"auto"``: split (:func:`resolve_bwd_impl`). The JAX package picks
       split above 8·Sq·D > 4 MiB (``flash_attention.py:777``), a VMEM budget
       for its resident dq block; on the H100 split was the faster at every
@@ -478,17 +538,13 @@ def flash_attention_bwd(
 
     Both give dq, dk and dv that repeat bit for bit. K2 and K3b sum each GQA
     group's dk/dv in the kernel, as ``flash_bwd_fused`` sums them per
-    group, and write them in bf16. ``window`` and ``segment_ids`` are the
-    forward's."""
+    group, and write them in the inputs' dtype. ``window`` and
+    ``segment_ids`` are the forward's."""
     bwd_impl = resolve_bwd_impl(bwd_impl)
-    mask = _check_bwd(q, k, v, mask, do, lse, delta, causal, window, segment_ids)
+    mask, build = _check_bwd(q, k, v, mask, do, lse, delta, causal, window, segment_ids)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     packed = segment_ids is not None
-
-    from rankpo_tpu_torch.ops._build import load_library
-
-    lib = load_library()
     dev = q.device
     fused = bwd_impl == "fused"
     dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=dev)
@@ -497,17 +553,17 @@ def flash_attention_bwd(
     if fused:
         dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
         # the blocks' start order and one counter per (b * h, query tile,
-        # column half: two at head_dim 256, flash_bwd.cu KvTiles::kSplit)
-        halves = 2 if d == 256 else 1
-        sync = torch.zeros(1 + b * hq * -(-sq // 64) * halves, dtype=torch.int32,
-                           device=dev)
-        steps = (("flash_bwd_fused", lib.rankpo_flash_bwd_fused_bf16),)
+        # column block: two at head_dim 256 in the Hopper build,
+        # flash_bwd.cu KvTiles::kSplit; at most one per 64 columns in the
+        # generic build, flash_generic.cu pick_cols)
+        blocks = -(-d // 64) if build == "generic" else (2 if d == 256 else 1)
+        sync = torch.zeros(1 + b * hq * -(-sq // 64) * blocks, dtype=torch.int32, device=dev)
+        steps = ("flash_bwd_fused",)
     else:
-        dq = torch.empty((b, sq, hq, d), dtype=torch.bfloat16, device=dev)
-        steps = (("flash_dq", lib.rankpo_flash_bwd_dq_bf16),
-                 ("flash_dkv", lib.rankpo_flash_bwd_dkv_bf16))
-    for name, fn in steps:
-        _launch_bwd(name, fn, q, k, v, mask, do, lse, delta, dq, dk, dv, sync, causal,
+        dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
+        steps = ("flash_dq", "flash_dkv")
+    for name in steps:
+        _launch_bwd(name, build, q, k, v, mask, do, lse, delta, dq, dk, dv, sync, causal,
                     skip_pad_q, window, packed)
     if fused:
         dq = dq.permute(0, 2, 1, 3).to(q.dtype)

@@ -18,9 +18,11 @@ Two rings, as in JAX:
   K/V shard) pair with its logsumexp and merges the partials by
   ``logaddexp`` (JAX ``_merge``, ``:127-133``); a causal ring skips the
   steps whose K/V shard lies after this rank's queries (rank ``my`` runs
-  steps ``i <= my``). Its backward runs K3a (dq) and K3b's fp32-output
-  build (dk, dv) per step on the forward's merged lse and ``delta =
-  rowsum(dO * O)``; dq accumulates in fp32 on the rank, and the fp32 dk/dv
+  steps ``i <= my``). Its backward runs K3a (dq) and K3b with fp32 dk/dv
+  per step on the forward's merged lse and ``delta = rowsum(dO * O)``, on
+  the build ``flash_attention.kernel_for`` names (the Hopper kernels for
+  bf16 at head_dim 64/128/256, the generic build for fp32, fp16 and other
+  head dims); dq accumulates in fp32 on the rank, and the fp32 dk/dv
   partials travel with their K/V shard and are home after W hops
   (``:192-259``). On CPU tensors the kernels' plain versions run in their
   place (``flash_dq`` / ``flash_dkv`` dispatch by device), as the JAX tests
@@ -178,7 +180,8 @@ def _live(my: int, step: int, causal: bool) -> bool:
 
 class RingFlash(torch.autograd.Function):
     """The flash ring on local shards (JAX ``_ring_flash`` custom_vjp):
-    forward K1 per step, backward K3a + K3b (fp32) per step."""
+    forward K1 per step, backward K3a + K3b (fp32 dk/dv) per step, in the
+    inputs' dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, group, causal: bool):
@@ -237,7 +240,9 @@ def ring_flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                causal: bool = False) -> torch.Tensor:
     """The flash ring on this rank's shards (JAX
     ``ring_flash_attention_local``): q/k/v [B, S_loc, H, D] (GQA), mask
-    [B, S_loc] key validity; bf16 on a CUDA tensor (the kernels' dtype)."""
+    [B, S_loc] key validity; on a CUDA tensor any input a kernel build takes
+    (fp32, fp16 or bf16 at a head_dim that is a multiple of 8), as JAX's
+    ring runs its kernels in any dtype."""
     if mask is None:
         mask = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
     return RingFlash.apply(q, k, v, mask.to(torch.int32), group, causal)

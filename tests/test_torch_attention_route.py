@@ -1,15 +1,18 @@
 """The "auto" attention dispatch's rule (``ops/flash_attention.py``
-``routes_to_reference``): the kernels are built for bf16 at head_dim 64,
-128 and 256 (``kernel_fits``); a CUDA tensor of any other dtype or
-head_dim runs the plain attention, counted in ``reference_routes``, where
-JAX's ``_use_flash`` leaves its Pallas kernel too (S < 1024, head_dim
-below 64 or not a multiple of 8), and raises where JAX runs it. On a CPU
-tensor "auto" is the plain attention whatever the rule says, bit for bit,
-and counts nothing; ``impl="flash"`` raises there. The card's side of the
-rule is in ``tests/test_torch_gpu.py``.
+``auto_build``): the Hopper kernels are built for bf16 at head_dim 64, 128
+and 256 (``kernel_fits``) and run there at every length; the generic build
+takes fp32, fp16 and bf16 at any head_dim that is a multiple of 8
+(``kernel_for``) and runs where JAX's ``_use_flash`` runs its Pallas kernel
+(S >= 1024, head_dim a multiple of 8 and at least 64); a CUDA tensor
+elsewhere runs the plain attention, counted in ``reference_routes``
+(``routes_to_reference``), where JAX runs XLA too. On a CPU tensor "auto"
+is the plain attention whatever the rule says, bit for bit, and counts
+nothing; ``impl="flash"`` raises there. The card's side of the rule is in
+``tests/test_torch_gpu.py``.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from rankpo_tpu_torch.ops.attention import attention_reference, multi_head_atten
 torch.set_num_threads(2)
 
 DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}
+JAX_DTYPES = {"bf16": jnp.bfloat16, "fp16": jnp.float16, "fp32": jnp.float32}
 
 
 def _qkv(d, dtype, b=2, s=24, hq=4, hkv=2, seed=0):
@@ -37,13 +41,48 @@ def test_kernel_fits_bf16_at_built_head_dims_only(dtype, d):
     assert port_flash.kernel_fits(q) == (dtype == "bf16" and d in (64, 128, 256))
 
 
+@pytest.mark.parametrize("d", [8, 32, 60, 64, 72, 80, 96, 100, 128, 256, 320, 512, 1024])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_for_names_the_build(dtype, d):
+    """The Hopper kernels for bf16 at 64, 128 and 256; the generic build for
+    fp32, fp16 and bf16 at every other head_dim that is a multiple of 8;
+    none for another head_dim or dtype."""
+    q = torch.zeros((1, 2, 2, d), dtype=DTYPES[dtype])
+    want = ("hopper" if dtype == "bf16" and d in (64, 128, 256)
+            else "generic" if d % 8 == 0 else None)
+    assert port_flash.kernel_for(q) == want
+    assert port_flash.kernel_for(q.double()) is None
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_auto_rule_against_use_flash_on_the_tpu(dtype, monkeypatch):
+    """What "auto" runs on a CUDA tensor, over a grid of head_dim and
+    length: the Hopper kernels where built, else the generic build where
+    JAX's ``_use_flash`` (backend set to the TPU) runs its kernel, else the
+    plain attention; wherever JAX runs its kernel, some build takes the
+    input."""
+    from rankpo_tpu.ops import attention as jattn
+
+    monkeypatch.setattr(jattn.jax, "default_backend", lambda: "tpu")
+    for s in (64, 512, 1023, 1024, 1280, 4096):
+        for d in (32, 60, 64, 72, 80, 96, 100, 128, 256, 320, 512):
+            q = torch.zeros((1, s, 1, d), dtype=DTYPES[dtype])
+            jax_kernel = jattn._use_flash(jax.ShapeDtypeStruct((1, s, 1, d), JAX_DTYPES[dtype]))
+            hopper = dtype == "bf16" and d in (64, 128, 256)
+            want = "hopper" if hopper else ("generic" if jax_kernel else "plain")
+            assert port_flash.auto_build(q) == want, (s, d)
+            assert port_flash.routes_to_reference(q) == (want == "plain"), (s, d)
+            if jax_kernel:
+                assert port_flash.kernel_for(q) is not None, (s, d)
+
+
 @pytest.mark.parametrize("s", [512, 1023, 1024, 4096])
 @pytest.mark.parametrize("d", [32, 60, 64, 72, 80, 128, 256, 512])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_reference_only_where_jax_leaves_its_kernel(dtype, d, s):
-    """The plain attention where no kernel here is built and JAX runs XLA
-    (its ``_use_flash`` on the same shape); the kernels (which raise for an
-    unbuilt one) everywhere else."""
+    """The plain attention where the Hopper kernels are not built and JAX
+    runs XLA (its ``_use_flash`` on the same shape); a kernel build
+    everywhere else."""
     q = torch.zeros((1, s, 1, d), dtype=DTYPES[dtype])
     jax_kernel = d % 8 == 0 and d >= 64 and s >= 1024
     assert port_flash.jax_runs_kernel(q) == jax_kernel

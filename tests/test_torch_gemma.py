@@ -206,10 +206,11 @@ def test_grads_match_jax_grad_of_xla_at_d256(case):
 
 
 def test_head_dims_the_kernels_take():
-    """The kernels take head_dim 64, 128 and 256 (other head dims raise on
-    a CUDA tensor: tests/test_torch_gpu.py); CPU tensors at head_dim 256
-    never reach a kernel: "auto" runs the plain attention, "flash" and the
-    kernel wrapper raise, and nothing is counted."""
+    """The Hopper kernels take head_dim 64, 128 and 256 (other head dims run
+    the generic build on a CUDA tensor: tests/test_torch_gpu.py); CPU
+    tensors at head_dim 256 never reach a kernel: "auto" runs the plain
+    attention, "flash" and the kernel wrapper raise, and nothing is
+    counted."""
     assert port_flash.HEAD_DIMS == (64, 128, 256)
     before = (dict(port_flash.launches), dict(port_flash.d256_launches))
     q, k, v, _, mask = (torch.from_numpy(a) for a in _inputs(2, 16, 16, 4, 1, 256, [16, 7]))

@@ -488,6 +488,44 @@ def test_ring_of_one_is_flash_attention_bit_for_bit(cuda, causal, tmp_path):
             dist.destroy_process_group()
 
 
+def test_ring_of_one_in_fp32_is_flash_attention_bit_for_bit(cuda, tmp_path):
+    """The flash ring on fp32 inputs (Llama's heads, S 1024): K1, K3a and
+    K3b of the generic build, K3b with fp32 dK/dV, over a process group of
+    one rank give ``flash_attention``'s output and gradients bit for bit,
+    every launch a generic one."""
+    import torch.distributed as dist
+
+    from rankpo_tpu_torch.parallel import ring_attention as ring
+
+    q, k, v, mask, lens = (t.to(cuda) for t in _inputs(2, 1024, 1024, 32, 8, 64, seed=5))
+    q, k, v = q.float(), k.float(), v.float()
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).to(cuda)
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", world_size=1,
+                                rank=0)
+    try:
+        group = dist.new_group([0])
+        got, want = [], []
+        port_flash.reset_launches()
+        for fn, sink in (
+                (lambda *x: ring.context_parallel_attention(*x, group=group, mask=mask,
+                                                            causal=True, impl="flash"), got),
+                (lambda *x: flash_attention(*x, mask, causal=True), want)):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = fn(*leaves)
+            out.backward(do)
+            sink += [out.detach(), *(x.grad for x in leaves)]
+        for a, b, name in zip(got, want, ("out", "dq", "dk", "dv")):
+            assert a.dtype == torch.float32 and torch.equal(a, b), name
+        assert port_flash.generic_launches["flash_dkv"] == 2
+        assert port_flash.f32_launches["flash_dkv"] == 1
+        assert port_flash.launches == port_flash.generic_launches
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 def test_bwd_reads_strided_fused_qkv(cuda):
     """The backward reads q/k/v as views of one fused projection output, as
     the encoder hands them over, without a copy."""
@@ -718,14 +756,102 @@ def test_packed_autograd_through_function(cuda):
 
 
 def test_other_head_dims_raise_on_card(cuda):
-    """Head dims other than 64, 128 and 256 raise on a CUDA tensor, naming
-    the queue that ports them, and launch nothing."""
+    """A head_dim that is not a multiple of 8, and a dtype no build takes
+    (fp64), raise on a CUDA tensor, naming the builds, and launch nothing;
+    head_dims outside 64/128/256 that are multiples of 8 run the generic
+    build (``test_generic_kernels_match_plain``)."""
     before = dict(port_flash.launches)
-    for d in (80, 96, 512):
+    for d, dtype in ((60, torch.bfloat16), (36, torch.float32), (64, torch.float64)):
         q, k, v, mask, _ = (t.to(cuda) for t in _inputs(2, 64, 64, 4, 2, d))
-        with pytest.raises(ValueError, match="Queue 2"):
-            flash_attention_fwd(q, k, v, mask, causal=True)
+        with pytest.raises(ValueError, match="generic build"):
+            flash_attention_fwd(q.to(dtype), k.to(dtype), v.to(dtype), mask, causal=True)
     assert port_flash.launches == before
+
+
+# The generic build (flash_generic.cu: fp32, fp16, and bf16 outside head_dim
+# 64/128/256) against its plain versions on the same inputs in the same
+# dtype: (dtype, (B, Sq, Sk, Hq, Hkv, D), causal, skip_pad_q, every key
+# length full, window). Llama's heads in fp32 at S 1024, D 128, non-causal,
+# ragged Sq < Sk and Sq > Sk, a window, bf16 at D 80 and 32, fp16 at D 96
+# and 64, D 512 (K3b's and K2's output columns split over blocks) and
+# D 1024 (all four split), a window of three keys at D 72
+GENERIC_SHAPES = [
+    (torch.float32, (2, 1024, 1024, 32, 8, 64), True, True, False, None),
+    (torch.float32, (2, 256, 256, 16, 8, 128), True, True, True, None),
+    (torch.float32, (4, 100, 100, 4, 4, 64), False, False, False, None),
+    (torch.float32, (4, 65, 200, 32, 8, 64), True, True, False, None),
+    (torch.float32, (4, 200, 100, 16, 8, 64), True, False, False, None),
+    (torch.float32, (2, 512, 512, 32, 8, 64), True, True, False, 100),
+    (torch.bfloat16, (4, 256, 256, 16, 8, 80), True, True, False, None),
+    (torch.bfloat16, (4, 128, 128, 8, 2, 32), True, True, False, None),
+    (torch.float16, (4, 256, 256, 16, 8, 96), True, True, False, None),
+    (torch.float16, (4, 128, 128, 8, 8, 64), False, True, True, None),
+    (torch.float32, (1, 256, 256, 8, 2, 512), True, True, False, None),
+    (torch.float16, (1, 128, 128, 4, 2, 1024), True, True, False, 50),
+    (torch.bfloat16, (2, 130, 130, 4, 1, 72), True, False, False, 3),
+]
+# the generic kernels against the plain versions in the same dtype: fp32
+# within 1e-5 of each tensor's largest |plain| value (fp32 sums in other
+# orders); a tensor rounded to fp16 or bf16 within two ulps of the dtype at
+# the largest |plain| value (the kernels round P before the division by the
+# row sum, the plain forward after it, and both round the result), and
+# relative L2 within 1e-2 (bf16) and 2e-3 (fp16), as the Hopper build's
+# BWD_REL_L2
+GENERIC_TOL_OF_MAX = {torch.float32: 1e-5, torch.float16: 2.0**-9, torch.bfloat16: 2.0**-6}
+GENERIC_REL_L2 = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 1e-2}
+
+
+def _generic_close(got, ref, dtype, what):
+    diff = got.float() - ref.float()
+    err = diff.abs().max().item()
+    assert err <= GENERIC_TOL_OF_MAX[dtype] * ref.abs().max().item(), (what, err)
+    rel = (diff.norm() / ref.float().norm()).item()
+    assert rel <= GENERIC_REL_L2[dtype], (what, rel)
+
+
+@pytest.mark.parametrize("dtype,shape,causal,skip,full,window", GENERIC_SHAPES)
+def test_generic_kernels_match_plain(cuda, dtype, shape, causal, skip, full, window):
+    """K1, K3a + K3b and K2 of the generic build against their plain
+    versions (``GENERIC_TOL_OF_MAX``, ``GENERIC_REL_L2``), each launch
+    counted in ``generic_launches``, two launches of each bit for bit, and
+    K3b's fp32 dK/dV (``flash_dkv``) rounded to the dtype bit-equal to the
+    split backward's."""
+    b, sq, sk = shape[:3]
+    q, k, v, mask, lens = (t.to(cuda) for t in _inputs(*shape, full=full))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dtype).to(cuda)
+    port_flash.reset_launches()
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention_fwd(q, k, v, mask, skip_pad_q=skip, **kw)
+    again = flash_attention_fwd(q, k, v, mask, skip_pad_q=skip, **kw)
+    ref, rlse = flash_attention_fwd_reference(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    pos = torch.arange(sq, device=cuda)[None] + (sk - sq)
+    rows = pos < lens[:, None] if skip else torch.ones_like(pos, dtype=torch.bool).expand(b, sq)
+    _generic_close(out[rows], ref[rows], dtype, "out")
+    keep = rows[:, None, :] & (rlse > -1e29)
+    assert (lse - rlse).abs()[keep].max().item() <= LSE_ATOL
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    plain = flash_attention_bwd_reference(q, k, v, mask, do, lse, delta, **kw)
+    for impl in ("fused", "split"):
+        grads = flash_attention_bwd(q, k, v, mask, do, lse, delta, skip_pad_q=skip,
+                                    bwd_impl=impl, **kw)
+        again = flash_attention_bwd(q, k, v, mask, do, lse, delta, skip_pad_q=skip,
+                                    bwd_impl=impl, **kw)
+        for a, b_, r, name in zip(grads, again, plain, ("dq", "dk", "dv")):
+            assert a.dtype == dtype and torch.equal(a, b_), (impl, name)
+            _generic_close(a, r, dtype, f"{impl} {name}")
+    dk32, dv32 = port_flash.flash_dkv(q, k, v, mask, do, lse, delta, causal=causal)
+    if window is None:
+        _, dk, dv = flash_attention_bwd(q, k, v, mask, do, lse, delta, causal=causal)
+        assert torch.equal(dk32.to(dtype), dk) and torch.equal(dv32.to(dtype), dv)
+    torch.cuda.synchronize()
+    assert port_flash.generic_launches == {"flash_fwd": 2, "flash_bwd_fused": 2,
+                                           "flash_dq": 2 + (window is None),
+                                           "flash_dkv": 3 + (window is None)}
+    assert port_flash.launches == port_flash.generic_launches
+    assert port_flash.reference_routes == {"dtype": 0, "head_dim": 0}
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
@@ -753,23 +879,42 @@ def test_auto_routes_what_no_kernel_takes_to_the_reference(cuda, dtype, d):
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
-                                     (torch.bfloat16, 80), (torch.bfloat16, 512)])
-def test_auto_raises_where_jax_runs_a_kernel_not_built_here(cuda, dtype, d):
+                                     (torch.bfloat16, 80), (torch.bfloat16, 512),
+                                     (torch.float16, 96)])
+def test_auto_runs_the_generic_build_where_jax_runs_its_kernel(cuda, dtype, d):
     """At S 1024, where JAX's "auto" runs its kernel in any dtype at a head
-    dim that is a multiple of 8 and at least 64, a CUDA tensor no kernel here
-    is built for raises under impl="auto", naming Queue 3, and neither
-    launches nor routes; impl="plain" runs it."""
+    dim that is a multiple of 8 and at least 64, a CUDA tensor the Hopper
+    kernels are not built for runs the generic build under impl="auto":
+    the output and the gradients within the generic tolerances of autograd
+    through the plain attention, every launch counted in
+    ``generic_launches``, nothing routed to the plain attention."""
     from rankpo_tpu_torch.ops.attention import multi_head_attention
 
-    q, k, v, mask, _ = (t.to(cuda) for t in _inputs(1, 1024, 1024, 2, 1, d))
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    port_flash.reset_launches()
-    with pytest.raises(ValueError, match="Queue 3"):
-        multi_head_attention(q, k, v, mask=mask, causal=True)
-    assert not any(port_flash.launches.values())
-    assert port_flash.reference_routes == {"dtype": 0, "head_dim": 0}
-    got = multi_head_attention(q, k, v, mask=mask, causal=True, impl="plain")
-    assert torch.equal(got, attention_reference(q, k, v, mask, True))
+    q, k, v, mask, _ = (t.to(cuda) for t in _inputs(1, 1024, 1024, 4, 2, d))
+    w = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    outs, grads = [], []
+    for impl in ("auto", "plain"):
+        port_flash.reset_launches()
+        leaves = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+        out = multi_head_attention(*leaves, mask=mask, causal=True, impl=impl)
+        (out.float() * w).sum().backward()
+        outs.append(out.detach())
+        grads.append([x.grad for x in leaves])
+        torch.cuda.synchronize()
+        assert port_flash.reference_routes == {"dtype": 0, "head_dim": 0}
+        if impl == "auto":
+            assert port_flash.generic_launches == {"flash_fwd": 1, "flash_bwd_fused": 0,
+                                                   "flash_dq": 1, "flash_dkv": 1}
+            assert port_flash.launches == port_flash.generic_launches
+        else:
+            assert not any(port_flash.launches.values())
+    _generic_close(outs[0], outs[1], dtype, "out")
+    for a, r, name in zip(*grads, ("dq", "dk", "dv")):
+        # autograd through the plain attention keeps dS in fp32 where the
+        # kernels round it to the dtype: cosine, as test_autograd_step_through_function
+        cos = torch.nn.functional.cosine_similarity(a.float().flatten(), r.float().flatten(),
+                                                    dim=0)
+        assert cos.item() >= (1 - 1e-6 if dtype == torch.float32 else 0.999), name
 
 
 def test_cli_evaluate_fp32_default_runs_as_plain_attention(cuda, tmp_path):
