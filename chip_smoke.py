@@ -235,7 +235,23 @@ version. Phases:
    same on both ranks, its sharded exact search equal to that numpy_search
    outside near-ties, and its W = 2 file loaded in one process (total
    probed clusters kept, full probe = that numpy_search), the differences
-   from phase 7's one process printed; (7f, beside the ranks)
+   from phase 7's one process printed; then ``cli.evaluate --index_type
+   IVF64,PQ64`` (K5 on each rank's own codes, K6 never), and from the
+   flat step's shard embeddings ``PCA256,IVF64,SQbf16`` and
+   ``OPQ64,IVF64,PQ64`` built over the ranks: knobs ('rows' layout) and
+   hits the same on both ranks, OPQ's rotation and codebooks bit-equal on
+   them, recall@100 against the sharded exact search >= 0.95 on the
+   tuner's corpus-row pseudo-queries and >= 0.90 on the span queries (the
+   hybrid's printed: its tuner stops short of 0.95 on these rows),
+   every cluster probed = that exact search (PQ: recall >= 0.95, its ADC
+   against the decoded rows), the W = 2 file in one process giving the
+   W = 2 full-probe hits; the ivf and PQ indexes mutated (filled to 32 free
+   slots, 64 rows appended that grow every cluster, each found by its own
+   search at rank 1 (PQ within k 100), 64 ids removed; the same checks);
+   (6w) ``cli.autotune`` at W = 2 on every row (Flat, IVF,SQbf16, PQ64,
+   OPQ64 and the hybrid): the same report on both ranks, each spec's
+   memory within 1% of the same ladder in one process (run beside the
+   ranks); (7f, beside the ranks)
    ``cli.evaluate`` fp32 without ``--bf16`` at ``--max_query_length 1280
    --max_passage_length 4096`` over 128 synthetic passages of 1023-4095
    words and 32 queries of 1023-1279: every attention call on the generic
@@ -5561,31 +5577,113 @@ MP_EVAL_TIERS = {  # 7d: tier -> cli.evaluate's flags
     "ivf": ["--index_type", "ivf", "--index_recall_target", "0.95",
             "--index_kwargs", json.dumps({"store_dtype": "bfloat16"})]}
 MP_IVF_RECALL = 0.95  # 7d ivf: recall@100 against the sharded exact search
+MP_PQ = ["--index_type", "IVF64,PQ64", "--index_recall_target", "0.95"]  # 7d ivfpq
+MP_CODECS = {"hybrid": "PCA256,IVF64,SQbf16",  # 7d: built from the shard embeddings
+             "opq": "OPQ64,IVF64,PQ64"}
+MP_FILLER_LEFT = 32  # 7d mutate: free slots the filler append leaves, so the next grows
+MP_MUTATE = 64  # 7d mutate: rows appended (near the query embeddings), then ids removed
+MP_AUTOTUNE_SPECS = "Flat;IVF,SQbf16;IVF64,PQ64;OPQ64,IVF64,PQ64;PCA256,IVF64,SQbf16"
+MP_AUTOTUNE_MEMORY_RTOL = 0.01  # 6w: each spec's memory at W = 2 against one process
+# 7d ivfpq, hybrid, OPQ: the tuned recall target is held on the tuner's own
+# pseudo-queries, the corpus rows it verified its nprobe on (``_finish_tuning``:
+# TUNE_SAMPLE rows drawn by default_rng(seed + 1), seed 0); the span queries
+# lie off the corpus rows, and on them recall is held at IVF_RECALL_MIN: on
+# these rows the JAX package's own IVF64,PQ64 tuned to 0.95 reads 0.9336
+# there on one device (scripts/ivf_recall_witness.py on the CPU), the port's
+# 0.9360 at W = 2 on the H100
+MP_TUNE_SEED = 1
+
+
+def _mp_index_hits(index, q, path: str, q_rows=None, **extra) -> dict:
+    """What the parent checks of an IVF index over the two ranks (each rank
+    alike: the same collectives in one order): the search at k 100, every
+    cluster probed (the hybrid reranking every probed slot) and the sharded
+    exact search at k 101 of the queries ``q``, and the search and exact
+    search of the corpus-row queries ``q_rows``, saved to ``path`` with
+    ``extra``; returns the knobs and the seconds this took."""
+    t0 = time.perf_counter()
+    s_, i_ = index.search(q, k=100, batch_size=64)
+    f_s, f_i = index.search(q, k=101, batch_size=64, nprobe=index.local_clusters,
+                            candidates=index.local_clusters * index.capacity)
+    e_s, e_i = index.exact_search(q, k=101)
+    if q_rows is not None:
+        extra.update(rows_idx=index.search(q_rows, k=100, batch_size=64)[1],
+                     **dict(zip(("rows_exact_scores", "rows_exact_idx"),
+                                index.exact_search(q_rows, k=101))))
+    torch.save({"idx": i_, "scores": s_, "full_idx": f_i, "full_scores": f_s,
+                "exact_idx": e_i, "exact_scores": e_s, **extra}, path)
+    return {"nprobe": index.nprobe, "local_clusters": index.local_clusters,
+            "n_clusters": index.n_clusters, "capacity": index.capacity,
+            "pq_layout": index.pq_layout, "build_s": dict(index.build_seconds),
+            "check_s": time.perf_counter() - t0}
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _mp_mutate(index, q: np.ndarray, seed: int, path: str, file_path: str) -> dict:
+    """7d mutate over the two ranks: random unit rows fill ``index`` to
+    MP_FILLER_LEFT free slots (headroom 0), MP_MUTATE rows near the query
+    embeddings (cosine ~0.8) are appended (every cluster's capacity grows),
+    searched for themselves (k 100), then MP_MUTATE corpus ids are removed;
+    the result's hits (:func:`_mp_index_hits`) and file. The same rows on
+    every rank, from a seed."""
+    from rankpo_tpu_torch.index import io as index_io
+
+    g = torch.Generator().manual_seed(seed)
+    cap0, t0 = index.capacity, time.perf_counter()
+    free = int((index._row_ids_host < 0).sum())
+    filler = _unit(torch.randn(free - MP_FILLER_LEFT, index.dim, generator=g))
+    index = index.append_sharded(filler.cuda(), filler.shape[0])
+    cap_filled = index.capacity
+    rows = _unit(torch.from_numpy(q[:MP_MUTATE])
+                 + 0.75 * _unit(torch.randn(MP_MUTATE, index.dim, generator=g)))
+    index = index.append_sharded(rows.cuda(), MP_MUTATE)
+    new_ids = np.arange(index.ntotal - MP_MUTATE, index.ntotal)
+    self_idx = index.search(rows.numpy(), k=100, batch_size=64)[1]
+    index = index.remove_rows(np.arange(0, N_PASSAGES, N_PASSAGES // MP_MUTATE))
+    mutate_s = time.perf_counter() - t0
+    knobs = _mp_index_hits(index, q, path, self_idx=self_idx, new_ids=new_ids)
+    index_io.write_index(index, file_path)
+    return dict(knobs, capacity0=cap0, capacity_filled=cap_filled, ntotal=index.ntotal,
+                n_filler=int(filler.shape[0]), mutate_s=mutate_s)
 
 
 def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
-    """One of the two ranks of 7d, 8's pair and 4d (started by
+    """One of the two ranks of 7d, 6w, 8's pair and 4d (started by
     ``multiprocessing`` with spawn): join the gloo group on cuda:0, then run
-    ``cli.evaluate`` flat, refine and ivf on the FEATURE_LAYERS checkpoint
-    (7d), one ``get_hard_negatives`` (8) and ``cli.serve`` flat at full
-    depth until rank 0 takes SIGTERM (4d), each with the launch counters
-    from 0 just before and read just after. Kept for the parent's checks:
-    each rank's shard of the corpus embeddings (``encode_shard``) and the
-    query embeddings (7d), the ivf index the evaluator built: its knobs, the
-    evaluator's search again and the sharded exact search (k 101) on each
-    rank, and its file (written by rank 0; 7d), rank 0's searches (the
-    query embeddings, the merged hits, the filter, whether a mutation had
-    come first; 4d)."""
+    ``cli.evaluate`` flat, refine, ivf and ``IVF64,PQ64`` on the
+    FEATURE_LAYERS checkpoint (7d), the hybrid and OPQ built from the flat
+    step's shard embeddings, the mutation of the ivf and PQ indexes (7d),
+    ``cli.autotune`` over the group on every row (6w), one
+    ``get_hard_negatives`` (8) and ``cli.serve`` flat at full depth until
+    rank 0 takes SIGTERM (4d), each with the launch counters from 0 just
+    before and read just after; after each step that searches PQ codes,
+    each of its K5 launches runs again on the inputs the path gave it (the
+    rank's local codes and probe ids, the search's tables) against the
+    plain version (not counted). Kept for the parent's checks: each rank's
+    shard of the corpus embeddings (``encode_shard``) and the query
+    embeddings (7d), the ivf, PQ, hybrid, OPQ and mutated indexes' knobs,
+    searches, every cluster probed and sharded exact search on each rank
+    (:func:`_mp_index_hits`) and their files (written by rank 0; 7d),
+    rank 0's searches (the query embeddings, the merged hits, the filter,
+    whether a mutation had come first; 4d)."""
+    import io
+
     import torch.distributed as dist
 
-    from rankpo_tpu_torch.cli import evaluate, get_hard_negatives, serve
+    from rankpo_tpu_torch.cli import autotune, evaluate, get_hard_negatives, serve
     from rankpo_tpu_torch.core import mesh
     from rankpo_tpu_torch.eval import evaluator
     from rankpo_tpu_torch.index import io as index_io
     from rankpo_tpu_torch.index.encoding import InferenceEncoder
+    from rankpo_tpu_torch.index.factory import parse_index_spec
     from rankpo_tpu_torch.index.flat import FlatIPIndex
+    from rankpo_tpu_torch.index import ivf
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
     from rankpo_tpu_torch.ops import flash_attention as flash
-    from rankpo_tpu_torch.ops import ivf_gather
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
     from rankpo_tpu_torch.serve.service import RetrievalService
 
     torch.cuda.set_device(0)
@@ -5593,8 +5691,9 @@ def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
                             rank=rank)
     originals = (InferenceEncoder.encode_shard, InferenceEncoder.encode,
                  FlatIPIndex.search_tensor, RetrievalService.add_passages,
-                 evaluator.build_offline_index)
-    shards, queries, searches, state = [], [], [], {"mutated": False, "search_s": 0.0}
+                 evaluator.build_offline_index, ivf.pq_probe_scores)
+    shards, queries, searches = [], [], []
+    state = {"mutated": False, "search_s": 0.0, "in_step": False}
     built = []
 
     def kept_build(*args, **kwargs):
@@ -5624,11 +5723,44 @@ def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
         state["mutated"] = True
         return originals[3](self, *args, **kwargs)
 
+    adc_calls = []  # K5's inputs as the path gave them, checked after the step
+
+    def kept_adc(codes, probe, lut, *, cap):
+        if state["in_step"]:
+            adc_calls.append((codes.clone(), probe.clone(), lut.clone(), cap))
+        return originals[5](codes, probe, lut, cap=cap)
+
+    def check_adc(name):
+        """Each of the step's K5 launches again on its own inputs (the rank's
+        local codes, local probe ids, the search's tables) against the plain
+        version: not counted in the step's launches."""
+        shapes, worst, t0 = set(), 0.0, time.perf_counter()
+        for codes, probe, lut, cap in adc_calls:
+            got = pq_adc.pq_probe_scores(codes, probe, lut, cap=cap)
+            ref = pq_adc.pq_probe_scores_plain(codes, probe, lut, cap=cap)
+            err = (got - ref).abs().max().item()
+            limit = IVF_RTOL_OF_MAX * ref.abs().max().item()
+            shape = (probe.shape[0], probe.shape[1], cap, codes.shape[0] // cap, codes.shape[1])
+            if not err <= limit:
+                raise AssertionError(f"{name} rank {rank}: pq_probe_scores disagrees with plain "
+                                     f"at (Q, P, cap, local clusters, m) {shape}: max|err| "
+                                     f"{err:.3e} (limit {limit:.3e})")
+            shapes.add(shape)
+            worst = max(worst, err / limit if limit else 0.0)
+        launched = out["steps"][name]["k5"]
+        if len(adc_calls) < launched:
+            raise AssertionError(f"{name} rank {rank}: {launched} pq_probe_scores launches, "
+                                 f"{len(adc_calls)} calls seen")
+        out["adc_checks"][name] = {"calls": len(adc_calls), "shapes": sorted(shapes),
+                                   "worst_err_of_limit": worst,
+                                   "check_s": time.perf_counter() - t0}
+        adc_calls.clear()
+
     InferenceEncoder.encode_shard, InferenceEncoder.encode = kept_shard, kept_encode
     FlatIPIndex.search_tensor, RetrievalService.add_passages = kept_search, kept_add
-    evaluator.build_offline_index = kept_build
+    evaluator.build_offline_index, ivf.pq_probe_scores = kept_build, kept_adc
     out = {"device": f"{torch.cuda.current_device()} {torch.cuda.get_device_name()}",
-           "steps": {}}
+           "steps": {}, "adc_checks": {}}
 
     def step(name, fn):
         gc.collect()
@@ -5637,18 +5769,23 @@ def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
         queries.clear()
         searches.clear()
         built.clear()
+        adc_calls.clear()
         flash.reset_launches()
         ivf_gather.reset_launches()
+        pq_adc.reset_launches()
         mesh.reset_gather_stats()
         state["search_s"] = 0.0
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
+        t0, state["in_step"] = time.perf_counter(), True
         result = fn()
         torch.cuda.synchronize()
+        state["in_step"] = False
         no_reference_routes(f"{name} rank {rank}")
         out["steps"][name] = {"wall_s": time.perf_counter() - t0,
                               "launches": flash.launches["flash_fwd"],
                               "k4": ivf_gather.launches["ivf_probe_scores"],
+                              "k5": pq_adc.launches["pq_adc_rows"],
+                              "k6": pq_adc.launches["pq_adc_cols"],
                               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                               "shard_rows": [int(x.shape[0]) for x in shards],
                               "gathers": dict(mesh.gather_stats),
@@ -5665,26 +5802,64 @@ def _mp_rank(rank: int, port: int, plan: dict, result_path: str) -> None:
                                      *MP_EVAL_TIERS[tier]]))
             if tier == "flat":
                 torch.save({"shard": shards[0], "queries": queries[0]}, plan["eval_emb"][rank])
-            if tier == "ivf":  # every rank alike: the same collectives in one order
-                index, t0 = built[-1], time.perf_counter()
-                s_, i_ = index.search(queries[0], k=100, batch_size=64)
-                e_s, e_i = index.exact_search(queries[0], k=101)
-                index_io.write_index(index, plan["ivf_file"])
-                out["ivf"] = {"nprobe": index.nprobe, "local_clusters": index.local_clusters,
-                              "n_clusters": index.n_clusters, "capacity": index.capacity,
-                              "build_s": index.build_seconds,
-                              "check_s": time.perf_counter() - t0}
-                torch.save({"idx": i_, "scores": s_, "exact_idx": e_i, "exact_scores": e_s},
-                           plan["ivf_hits"][rank])
-                del index
+                shards_flat, queries_flat = list(shards), list(queries)
+            if tier == "ivf":
+                out["ivf"] = _mp_index_hits(built[-1], queries[0], plan["ivf_hits"][rank])
+                index_io.write_index(built[-1], plan["ivf_file"])
+                mutable = {"ivf": built[-1]}
                 built.clear()
+        # ---- PQ codes, the hybrid, mutation and autotune over the group
+        group, shard, q7 = mesh.data_group(), shards_flat[0], queries_flat[0]
+        rows_all = mesh.all_gather_rows(shard.cuda(), group)[:N_PASSAGES].cpu().numpy()
+        q_rows = rows_all[np.random.default_rng(MP_TUNE_SEED).choice(
+            N_PASSAGES, ivf.TUNE_SAMPLE, replace=False)]
+        step("7d ivfpq", lambda: evaluate.main(
+            plan["eval_argv"] + ["--output_dir", plan["pq_dirs"][rank], *MP_PQ]))
+        check_adc("7d ivfpq")
+        out["ivfpq"] = _mp_index_hits(built[-1], q7, plan["codec_hits"]["ivfpq"][rank],
+                                      q_rows)
+        index_io.write_index(built[-1], plan["codec_files"]["ivfpq"])
+        mutable["ivfpq"] = built[-1]
+        built.clear()
+
+        def codecs():  # from the shard embeddings, no second encode
+            for name, spec in MP_CODECS.items():
+                kw = dict(parse_index_spec(spec)[1], recall_target=MP_IVF_RECALL)
+                index = IVFIPIndex.from_sharded(shard.cuda(), N_PASSAGES, group=group, **kw)
+                extra = {}
+                if index.pq_rotate != "none":
+                    extra = {"codebooks_crc": zlib.crc32(index._codebooks_host.tobytes()),
+                             "rotation_crc": zlib.crc32(index._rotation_host.tobytes())}
+                out[name] = dict(_mp_index_hits(index, q7, plan["codec_hits"][name][rank],
+                                                q_rows, **extra), **extra)
+                index_io.write_index(index, plan["codec_files"][name])
+                del index
+        step("7d codecs", codecs)
+        check_adc("7d codecs")
+        step("7d mutate", lambda: {tier: _mp_mutate(
+            mutable.pop(tier), q7, 23 + i, plan["mut_hits"][tier][rank],
+            plan["mut_files"][tier]) for i, tier in enumerate(("ivf", "ivfpq"))})
+        check_adc("7d mutate")
+
+        def tune():  # every row on every rank, then the CLI over the group
+            path = plan["autotune_rows"][rank]  # rank 0's: the parent's one-process ladder
+            np.save(path + ".part.npy", rows_all)
+            os.replace(path + ".part.npy", path)
+            with contextlib.redirect_stdout(io.StringIO()):
+                return autotune.main([
+                    "--embeddings", path, "--specs", MP_AUTOTUNE_SPECS,
+                    "--n_queries", "64", "--k", "100", "--recall_target", "0.95",
+                    "--device", "cuda", "--log_level", "warning"])
+        step("6w autotune", tune)
+        check_adc("6w autotune")
         step("8 mining", lambda: sorted(get_hard_negatives.main(
             plan["mine_argv"] + ["--output_prefix", plan["mined"][rank]])))
         step("4d serving", lambda: serve.main(plan["serve_argv"]))
         torch.save({"shard": shards[0], "searches": searches}, plan["serve_emb"][rank])
     finally:
         (InferenceEncoder.encode_shard, InferenceEncoder.encode, FlatIPIndex.search_tensor,
-         RetrievalService.add_passages, evaluator.build_offline_index) = originals
+         RetrievalService.add_passages, evaluator.build_offline_index,
+         ivf.pq_probe_scores) = originals
         dist.destroy_process_group()
     with open(result_path, "w") as f:
         json.dump(out, f)
@@ -5920,13 +6095,22 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
             "ivf_file": os.path.join(tmp, "7d_ivf.npz"), "ivf_hits": paths("7d_ivf_hits"),
             "eval_emb": paths("7d_emb"), "mine_argv": mining["argv"], "mined": paths("8d"),
             "serve_argv": [*serve_argv, "--port", str(http_port)],
-            "serve_emb": paths("4d_emb")}
+            "serve_emb": paths("4d_emb"), "pq_dirs": paths("7d_ivfpq"),
+            "codec_hits": {name: paths(f"7d_{name}_hits") for name in ("ivfpq", *MP_CODECS)},
+            "codec_files": {name: os.path.join(tmp, f"7d_{name}.npz")
+                            for name in ("ivfpq", *MP_CODECS)},
+            "mut_hits": {tier: paths(f"7d_mut_{tier}") for tier in ("ivf", "ivfpq")},
+            "mut_files": {tier: os.path.join(tmp, f"7d_mut_{tier}.npz")
+                          for tier in ("ivf", "ivfpq")},
+            "autotune_rows": [os.path.join(tmp, f"6w_rows_r{r}.npy") for r in range(2)]}
     out = {}
     launched = _launch_ranks("7d 8 4d", tmp, _mp_rank, plan)
     procs = launched[1]
     try:  # 7f needs nothing of the ranks: it runs while they evaluate
         out["fp32_evaluate"] = phase_fp32_evaluate(seed, tmp, ckpt_cut,
                                                    (query_file, corpus_file, labels))
+        # 6w's one-process ladder on rank 0's rows, while the ranks run theirs
+        out["autotune_one"] = _autotune_one_process(plan["autotune_rows"][0], procs)
     except BaseException:
         _kill_ranks(launched)
         raise
@@ -5984,6 +6168,8 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
                                                             50) * 1e3),
                       "mutate_s": mutate_s}
     for name in ranks[0]["steps"]:
+        if name in MP_INDEX_STEPS:  # no encode: they build from kept embeddings
+            continue
         for r, rank in enumerate(ranks):
             if rank["steps"][name]["launches"] <= 0:
                 raise AssertionError(f"{name} rank {r}: K1 was not launched")
@@ -6052,6 +6238,7 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
     if recall < 0.95:
         raise AssertionError(f"7d refine: recall {recall:.4f} < 0.95")
     out["ivf"] = _check_mp_ivf(plan, ranks, got["ivf"], rows_b, q7, q_b, e_scores, e_idx)
+    out.update(_check_mp_codecs(plan, ranks, labels, base, q7, out["autotune_one"]))
 
     # ---- 8's pair ----
     for name, text in mining["files"].items():
@@ -6108,82 +6295,299 @@ def phase_multiprocess(seed: int, tmp: str, ckpt: str, ckpt_cut: str, mining: di
     out.update(wall_s=wall, ranks=ranks, refine_recall=recall,
                launches=sum(rk["steps"][n]["launches"] for rk in ranks for n in rk["steps"])
                + restart_k1,
-               k4_launches=sum(rk["steps"]["7d ivf"]["k4"] for rk in ranks))
-    for path in (*(d for dirs in plan["eval_dirs"].values() for d in dirs), *plan["mined"]):
+               k4_launches=sum(rk["steps"][n]["k4"] for rk in ranks for n in rk["steps"]),
+               k5_launches=sum(rk["steps"][n]["k5"] for rk in ranks for n in rk["steps"]))
+    for path in (*(d for dirs in plan["eval_dirs"].values() for d in dirs), *plan["mined"],
+                 *plan["pq_dirs"]):
         if os.path.exists(path):
             shutil.rmtree(path)
     for path in (*plan["eval_emb"], *plan["serve_emb"], *plan["ivf_hits"], index_file,
-                 plan["ivf_file"]):
+                 plan["ivf_file"], *plan["codec_files"].values(), *plan["mut_files"].values(),
+                 *(p for paths_ in (*plan["codec_hits"].values(), *plan["mut_hits"].values())
+                   for p in paths_), *plan["autotune_rows"]):
         os.remove(path)
+    return out
+
+
+MP_INDEX_STEPS = ("7d codecs", "7d mutate", "6w autotune")  # no encode inside
+
+
+def _autotune_one_process(rows_path: str, procs) -> dict:
+    """6w's one-process ladder (``tools/autotune.py``, the specs and knobs of
+    the ranks' ``cli.autotune``) on rank 0's rows, once its file exists."""
+    from rankpo_tpu_torch.tools.autotune import autotune_index
+
+    t0 = time.perf_counter()
+    while not os.path.exists(rows_path):
+        if any(not p.is_alive() for p in procs):
+            raise AssertionError(f"6w: a rank ended before its rows were written: "
+                                 f"{[p.exitcode for p in procs]}")
+        if time.perf_counter() - t0 > 900:
+            raise TimeoutError("6w: the ranks wrote no rows")
+        time.sleep(0.5)
+    waited, t0 = time.perf_counter() - t0, time.perf_counter()
+    report = autotune_index(np.load(rows_path), specs=MP_AUTOTUNE_SPECS.split(";"), k=100,
+                            recall_target=0.95, n_queries=64, device="cuda")
+    return {"report": report, "wall_s": time.perf_counter() - t0, "waited_s": waited}
+
+
+def _exact_lookup(exact_s: np.ndarray, exact_i: np.ndarray):
+    """``scores_of(r, ids)`` from a sharded exact search's own top list (a
+    hit outside it scores -inf, below its k-th score)."""
+    rows = [dict(zip(i.tolist(), s.tolist())) for s, i in zip(exact_s, exact_i)]
+    return lambda r, ids: np.array([rows[r].get(int(i), -np.inf) for i in ids])
+
+
+def _check_mp_index(label: str, hits_paths: list, file_path: str, knobs: list, q: np.ndarray,
+                    pq: bool, tuned: bool = True, span_limit: float = IVF_RECALL_MIN,
+                    scores_of=None) -> dict:
+    """One IVF index over the two ranks (:func:`_mp_index_hits`): both ranks'
+    knobs and arrays equal; where the index was ``tuned`` on these rows (a
+    mutated index keeps its nprobe: printed only), recall@100 against the
+    sharded exact search at storage precision (near-ties at its 100th score
+    counted; ``scores_of(r, ids)`` gives the exact scores, by default those
+    of that search's own list) at least ``span_limit`` on ``q`` and
+    MP_IVF_RECALL on the corpus-row queries; every cluster probed gives that
+    exact search (PQ: its ADC scores sum otherwise than the decoded rows, so
+    recall@100 at least MP_IVF_RECALL); the W = 2 file in one process: the
+    total of probed clusters kept, every cluster probed gives the W = 2
+    index's full-probe hits (outside SCORE_ATOL near-ties), and at its own
+    nprobe a kernel launches and the recall (``tuned``: at least
+    ``span_limit``; its differing ids against the W = 2 hits printed: one
+    process probes the top 2p clusters of all, each shard its own top p)."""
+    from rankpo_tpu_torch.index import io as index_io
+    from rankpo_tpu_torch.ops import ivf_gather, pq_adc
+
+    keys = ("nprobe", "local_clusters", "n_clusters", "capacity", "pq_layout")
+    if [[kn[k] for k in keys] for kn in knobs] != [[knobs[0][k] for k in keys]] * 2:
+        raise AssertionError(f"{label}: the ranks' knobs differ: {knobs}")
+    hits = [torch.load(path, weights_only=False) for path in hits_paths]
+    for key in hits[0]:
+        if not np.array_equal(hits[0][key], hits[1][key]):
+            raise AssertionError(f"{label}: the ranks' {key} differ")
+    h, kn = hits[0], knobs[0]
+    exact_s, exact_i = h["exact_scores"], h["exact_idx"]
+    scores_of = scores_of or _exact_lookup(exact_s, exact_i)
+    recall = _tie_aware_recall(h["idx"], scores_of, exact_s[:, 99])
+    rows_recall = (_tie_aware_recall(h["rows_idx"], _exact_lookup(h["rows_exact_scores"],
+                                                                   h["rows_exact_idx"]),
+                                     h["rows_exact_scores"][:, 99])
+                   if "rows_idx" in h else None)
+    full = h["full_idx"][:, :100], h["full_scores"][:, :100]
+    if pq:
+        full_recall = _tie_aware_recall(full[0], scores_of, exact_s[:, 99])
+        n_near_full = -1
+    else:
+        n_near_full, full_recall = _check_against_oracle(*full, exact_s, exact_i), 1.0
+    one = index_io.read_index(file_path, device="cuda")
+    want_p = min(2 * kn["nprobe"], kn["n_clusters"])
+    o_s, o_i = one.search(q, k=100, batch_size=64, nprobe=one.n_clusters,
+                          candidates=one.n_clusters * one.capacity)
+    n_near_file = _check_against_oracle(o_i, o_s, h["full_scores"], h["full_idx"])
+    ivf_gather.reset_launches()
+    pq_adc.reset_launches()
+    i1 = one.search(q, k=100, batch_size=64)[1]
+    kernels_one = ivf_gather.launches["ivf_probe_scores"] + pq_adc.launches["pq_adc_rows"]
+    file_recall = _tie_aware_recall(i1, scores_of, exact_s[:, 99])
+    differing = int(sum(len(set(a) - set(b)) for a, b in zip(i1.tolist(), h["idx"].tolist())))
+    short = tuned and (recall < span_limit or (rows_recall or 1.0) < MP_IVF_RECALL
+                       or file_recall < span_limit)
+    if (one.nprobe != want_p or short or full_recall < MP_IVF_RECALL
+            or (one.reduced_dim is None and kernels_one < 1)):
+        raise AssertionError(f"{label}: recall {recall:.4f} (limit {span_limit}), on corpus "
+                             f"rows {rows_recall} (limit {MP_IVF_RECALL}), every cluster probed "
+                             f"{full_recall:.4f} (limit {MP_IVF_RECALL}); the file in one "
+                             f"process nprobe {one.nprobe} (want {want_p}), recall "
+                             f"{file_recall:.4f}, K4/K5 launches {kernels_one}")
+    del one
+    return {"recall": recall, "rows_recall": rows_recall, "full_recall": full_recall,
+            "n_near_full": n_near_full, "n_near_file": n_near_file,
+            "file_recall": file_recall, "differing_file": differing,
+            **{k: kn[k] for k in keys}}
+
+
+def _check_mp_codecs(plan: dict, ranks: list, labels, base: str, q: np.ndarray,
+                     one_report: dict) -> dict:
+    """7d ivfpq, the hybrid, OPQ, the mutations and 6w: K5 launched
+    on each rank wherever PQ codes were searched, K6 never, each launch
+    held to its plain version on its rank (printed here); the PQ
+    evaluate's saved metrics bit-equal to ``compute_metrics`` over its saved
+    arrays and to what both ranks returned (rank 1 writes nothing); each
+    index held by :func:`_check_mp_index` (the ranks' 'rows' layout); OPQ's
+    rotation and codebooks bit-equal on the ranks; each mutated index grew
+    its capacity, its appended rows find themselves at rank 1 (PQ: within k
+    100), both ranks return the same; 6w's reports equal on the ranks, and
+    each spec's memory within MP_AUTOTUNE_MEMORY_RTOL of one process's."""
+    from rankpo_tpu_torch.eval.metrics import compute_metrics
+
+    steps = ("7d ivfpq", "7d codecs", "7d mutate", "6w autotune")
+    k5 = {n: [rk["steps"][n]["k5"] for rk in ranks] for n in steps}
+    k6 = {n: [rk["steps"][n]["k6"] for rk in ranks] for n in steps}
+    if any(n <= 0 for name in steps[:3] for n in k5[name]) or any(
+            n for v in k6.values() for n in v):
+        raise AssertionError(f"7d: pq_probe_scores launches per rank {k5}, the cols "
+                             f"kernel's {k6}")
+    stem = os.path.join(plan["pq_dirs"][0], base, "main")
+    with open(stem + ".json") as f:
+        saved = json.load(f)
+    host = compute_metrics(np.load(stem + "-indices.npy"), np.load(stem + "-scores.npy"),
+                           labels, cutoffs=EVAL_CUTOFFS)
+    returned = [rk["steps"]["7d ivfpq"]["result"]["main"] for rk in ranks]
+    if saved != host or returned != [host, host] or os.path.exists(plan["pq_dirs"][1]):
+        raise AssertionError("7d ivfpq: saved metrics differ from the host recompute or "
+                             "from what the ranks returned, or rank 1 wrote files")
+    adc = {n: [rk["adc_checks"][n] for rk in ranks] for n in steps}
+    shapes = {n: sorted({tuple(s) for a in v for s in a["shapes"]}) for n, v in adc.items()}
+    worst = max(a["worst_err_of_limit"] for v in adc.values() for a in v)
+    log(f"7d K5 on each rank's own shard: every pq_probe_scores launch of {list(steps)} run "
+        f"again on its own inputs (the rank's local codes and probe ids, the search's tables) "
+        f"and held to pq_probe_scores_plain within {IVF_RTOL_OF_MAX} of max|plain|: calls per "
+        f"rank { {n: [a['calls'] for a in v] for n, v in adc.items()} }, (Q, P, cap, local "
+        f"clusters, m) {shapes}, worst max|err| / limit {worst:.3g}, checks "
+        f"{max(sum(a['check_s'] for a in v) for v in zip(*adc.values())):.2f} s a rank")
+    out = {"k5": k5, "pq_metrics": host, "adc_checks": adc}
+    for name in ("ivfpq", *MP_CODECS):
+        knobs = [rk[name] for rk in ranks]
+        if "pq" in (MP_PQ[1] if name == "ivfpq" else MP_CODECS[name]).lower():
+            if any(kn["pq_layout"] != "rows" for kn in knobs):
+                raise AssertionError(f"7d {name}: layout {[kn['pq_layout'] for kn in knobs]}")
+        if name == "opq" and not all(knobs[0][k] == knobs[1][k]
+                                     for k in ("codebooks_crc", "rotation_crc")):
+            raise AssertionError("7d opq: the ranks' rotation or codebooks differ")
+        # the hybrid's tuner (JAX's bounded ladder) stops short of its target
+        # here: PCA256 of these 2048-wide rows ranks too few true neighbours
+        # into its candidate pool even at every cluster (random weights, H100)
+        out[name] = _check_mp_index(f"7d {name}", plan["codec_hits"][name],
+                                    plan["codec_files"][name], knobs, q,
+                                    pq=knobs[0]["pq_layout"] is not None,
+                                    tuned=name != "hybrid")
+        out[name]["build_s"] = knobs[0]["build_s"]
+        log(f"7d {name} at W = 2 ({MP_PQ[1] if name == 'ivfpq' else MP_CODECS[name]}): K "
+            f"{out[name]['n_clusters']} ({out[name]['local_clusters']} a rank), capacity "
+            f"{out[name]['capacity']}, layout {out[name]['pq_layout']}, tuned nprobe "
+            f"{out[name]['nprobe']} a rank on both ranks; both ranks' knobs and hits "
+            f"bit-equal; recall@100 against the sharded exact search on the tuner's "
+            f"corpus-row pseudo-queries {out[name]['rows_recall']:.4f}, on the {len(q)} span "
+            f"queries {out[name]['recall']:.4f} (near-ties counted; "
+            + (f"limits {MP_IVF_RECALL} and {IVF_RECALL_MIN}" if name != "hybrid" else
+               "printed, not held: the tuner stopped short of its target")
+            + "), every cluster probed "
+            + ("equal to it" if out[name]["n_near_full"] >= 0 else
+               f"{out[name]['full_recall']:.4f} of it (ADC against decoded rows)")
+            + f"; the W = 2 file in one process: every cluster probed, the W = 2 full-probe "
+            f"hits ({out[name]['n_near_file']} inside {SCORE_ATOL} near-ties), recall "
+            f"{out[name]['file_recall']:.4f} at nprobe "
+            f"{min(2 * out[name]['nprobe'], out[name]['n_clusters'])} ("
+            + (f"limit {IVF_RECALL_MIN}" if name != "hybrid" else "printed") + "); rank 0's build "
+            f"{ {k: round(v, 3) for k, v in knobs[0]['build_s'].items()} } s, checks "
+            f"{knobs[0]['check_s']:.2f} s")
+    log(f"7d ivfpq at W = 2: metrics bit-equal to the host recompute, MRR@10 "
+        f"{host['MRR@10']:.4f}; pq_probe_scores launches per rank {k5}, the cols kernel "
+        f"{k6} (none)")
+    for tier, mut in (("ivf", [rk["steps"]["7d mutate"]["result"]["ivf"] for rk in ranks]),
+                      ("ivfpq", [rk["steps"]["7d mutate"]["result"]["ivfpq"] for rk in ranks])):
+        m = mut[0]
+        if m["capacity"] <= m["capacity_filled"] or m["capacity_filled"] != m["capacity0"]:
+            raise AssertionError(f"7d mutate {tier}: capacity {m['capacity0']} -> "
+                                 f"{m['capacity_filled']} -> {m['capacity']}")
+        res = _check_mp_index(f"7d mutate {tier}", plan["mut_hits"][tier],
+                              plan["mut_files"][tier], mut, q, pq=tier == "ivfpq", tuned=False)
+        h = torch.load(plan["mut_hits"][tier][0], weights_only=False)
+        ranks_of = [int(np.argmax(row == i)) if (row == i).any() else -1
+                    for row, i in zip(h["self_idx"], h["new_ids"])]
+        found = (np.array(ranks_of) == 0) if tier == "ivf" else (np.array(ranks_of) >= 0)
+        if not found.all():
+            raise AssertionError(f"7d mutate {tier}: appended rows' self ranks {ranks_of}")
+        out[f"mutate_{tier}"] = dict(res, **{k: m[k] for k in (
+            "capacity0", "capacity", "ntotal", "n_filler", "mutate_s")},
+            self_ranks=max(ranks_of))
+        log(f"7d mutate {tier} at W = 2: {m['n_filler']} filler rows, then {MP_MUTATE} rows "
+            f"appended (capacity {m['capacity0']} -> {m['capacity']}), {MP_MUTATE} ids "
+            f"removed, {m['ntotal']} rows, {m['mutate_s']:.2f} s; every appended row found "
+            f"by its own search at rank <= {max(ranks_of) + 1}; both ranks' hits bit-equal; "
+            f"recall@100 against the sharded exact search {res['recall']:.4f} (the build's "
+            f"nprobe {res['nprobe']} kept; not gated), every cluster "
+            + ("probed equal to it" if res["n_near_full"] >= 0 else
+               f"probed {res['full_recall']:.4f} of it")
+            + f"; the mutated W = 2 file in one process gives the full-probe hits "
+            f"({res['n_near_file']} inside near-ties)")
+    reports = [rk["steps"]["6w autotune"]["result"] for rk in ranks]
+    if reports[0] != reports[1] or reports[0]["best"] is None:
+        raise AssertionError(f"6w autotune: the ranks' reports differ or recommend none: "
+                             f"{[r['best'] for r in reports]}")
+    one = {r["spec"]: r for r in one_report["report"]["results"]}
+    gaps = {}
+    for row in reports[0]["results"]:
+        ref = one[row["spec"]]
+        if "error" in row or "error" in ref:
+            raise AssertionError(f"6w autotune {row['spec']}: {row.get('error')} / "
+                                 f"one process {ref.get('error')}")
+        gaps[row["spec"]] = abs(row["memory_mb"] - ref["memory_mb"]) / ref["memory_mb"]
+        log(f"6w autotune | {row['spec']:<26} recall {row['recall']:.4f}  {row['qps']:10.1f} "
+            f"qps  {row['memory_mb']:9.2f} MB  build {row['build_s']:6.2f}s"
+            + ("  <- feasible" if row["feasible"] else "")
+            + f" | one process: recall {ref['recall']:.4f}, {ref['memory_mb']:.2f} MB")
+    if max(gaps.values()) > MP_AUTOTUNE_MEMORY_RTOL:
+        raise AssertionError(f"6w autotune: memory at W = 2 against one process {gaps}")
+    log(f"6w cli.autotune at W = 2 over {N_PASSAGES} rows: both ranks' reports equal, "
+        f"recommended {reports[0]['best']} on both (one process: "
+        f"{one_report['report']['best']}); memory the sum over the ranks, within "
+        f"{max(gaps.values()):.2e} of one process's (limit {MP_AUTOTUNE_MEMORY_RTOL}); the "
+        f"one-process ladder {one_report['wall_s']:.1f} s beside the ranks")
+    out["autotune"] = {"best": reports[0]["best"], "memory_gaps": gaps,
+                       "report": reports[0], "one": one_report}
+    walls = {n: [round(rk["steps"][n]["wall_s"], 1) for rk in ranks] for n in steps}
+    checks = sum(ranks[0][n]["check_s"] for n in ("ivfpq", *MP_CODECS))
+    out["new_steps_s"] = sum(ranks[0]["steps"][n]["wall_s"] for n in steps) + ranks[0][
+        "ivfpq"]["check_s"]
+    log(f"7d's PQ, hybrid and mutation steps and 6w in the two ranks' spawn (walls per "
+        f"rank): {walls}, 7d ivfpq's "
+        f"checks {ranks[0]['ivfpq']['check_s']:.1f} s (index checks in all "
+        f"{checks:.1f} s); total {out['new_steps_s']:.1f} s on rank 0")
     return out
 
 
 def _check_mp_ivf(plan: dict, ranks: list, saved: dict, rows_b: np.ndarray, q: np.ndarray,
                   q_b: np.ndarray, o_scores: np.ndarray, o_idx: np.ndarray) -> dict:
-    """7d's ivf tier: K4 launched on each rank; both ranks' knobs, hits and
-    sharded exact search the same, and rank 0's hits the evaluator's saved
-    ones; the sharded exact search equal to the host oracle (``o_scores``,
-    ``o_idx``: numpy_search over ``rows_b`` and ``q_b``, the storage
-    precision, 101 deep) outside SCORE_ATOL near-ties; recall@100 against
-    that oracle (near-ties at its 100th score counted) at least
-    MP_IVF_RECALL; the W = 2 file in one process: the total of probed
-    clusters kept, every cluster probed gives the oracle's hits (outside
-    near-ties), and at the rescaled nprobe its recall holds MP_IVF_RECALL
-    (its differing ids against the W = 2 hits printed: one process probes
-    the top 2p clusters of all, each shard its own top p)."""
-    from rankpo_tpu_torch.index import io as index_io
-    from rankpo_tpu_torch.ops import ivf_gather
-
+    """7d's ivf tier: K4 launched on each rank; the index held by
+    :func:`_check_mp_index` with recall@100 at least MP_IVF_RECALL on the
+    span queries (and at the W = 2 file's own nprobe in one process),
+    scored at storage precision (``rows_b`` against ``q_b``); rank 0's hits
+    the evaluator's saved ones; the sharded exact search equal to the host
+    oracle (``o_scores``, ``o_idx``: numpy_search over ``rows_b`` and
+    ``q_b``, 101 deep) outside SCORE_ATOL near-ties."""
     k4 = [rk["steps"]["7d ivf"]["k4"] for rk in ranks]
     if min(k4) < 1:
         raise AssertionError(f"7d ivf: ivf_probe_scores launches per rank {k4}")
-    knobs = [rk["ivf"] for rk in ranks]
-    keys = ("nprobe", "local_clusters", "n_clusters", "capacity")
-    if [[kn[key] for key in keys] for kn in knobs] != [[knobs[0][key] for key in keys]] * 2:
-        raise AssertionError(f"7d ivf: the ranks' knobs differ: {knobs}")
-    hits = [torch.load(path, weights_only=False) for path in plan["ivf_hits"]]
-    for key in ("idx", "scores", "exact_idx", "exact_scores"):
-        if not np.array_equal(hits[0][key], hits[1][key]):
-            raise AssertionError(f"7d ivf: the ranks' {key} differ")
-    idx, exact_s, exact_i = hits[0]["idx"], hits[0]["exact_scores"], hits[0]["exact_idx"]
-    if not np.array_equal(idx, saved["idx"]):
-        raise AssertionError("7d ivf: rank 0's hits differ from the evaluator's saved ones")
+
     def scores_of(r, ids):  # storage precision; an unreachable slot (-1) scores -inf
         return np.where(ids >= 0, rows_b[np.maximum(ids, 0)] @ q_b[r], -np.inf)
 
-    n_near_exact = _check_against_oracle(exact_i[:, :100], exact_s[:, :100], o_scores, o_idx)
-    recall = _tie_aware_recall(idx, scores_of, o_scores[:, 99])
-    if recall < MP_IVF_RECALL:
-        raise AssertionError(f"7d ivf: recall {recall:.4f} < {MP_IVF_RECALL}")
-    kn = knobs[0]
-    one = index_io.read_index(plan["ivf_file"], device="cuda")
-    ivf_gather.reset_launches()
-    s1, i1 = one.search(q, k=100, batch_size=64)
-    k4_one = ivf_gather.launches["ivf_probe_scores"]
-    fs, fi = one.search(q, k=100, batch_size=64, nprobe=one.n_clusters)
-    n_near = _check_against_oracle(fi, fs, o_scores, o_idx)
-    want_p = min(2 * kn["nprobe"], kn["n_clusters"])
-    recall1 = _tie_aware_recall(i1, scores_of, o_scores[:, 99])
-    differing = int(sum(len(set(a) - set(b)) for a, b in zip(i1.tolist(), idx.tolist())))
-    if one.nprobe != want_p or k4_one < 1 or recall1 < MP_IVF_RECALL:
-        raise AssertionError(f"7d ivf file in one process: nprobe {one.nprobe} (want {want_p}),"
-                             f" K4 launches {k4_one}, recall {recall1:.4f}")
+    kn = ranks[0]["ivf"]
+    res = _check_mp_index("7d ivf", plan["ivf_hits"], plan["ivf_file"],
+                          [rk["ivf"] for rk in ranks], q, pq=False, span_limit=MP_IVF_RECALL,
+                          scores_of=scores_of)
+    h = torch.load(plan["ivf_hits"][0], weights_only=False)
+    if not np.array_equal(h["idx"], saved["idx"]):
+        raise AssertionError("7d ivf: rank 0's hits differ from the evaluator's saved ones")
+    n_near_exact = _check_against_oracle(h["exact_idx"][:, :100], h["exact_scores"][:, :100],
+                                         o_scores, o_idx)
     log(f"7d ivf at W = 2: K {kn['n_clusters']} ({kn['local_clusters']} a rank), capacity "
         f"{kn['capacity']}, tuned nprobe {kn['nprobe']} a rank on both ranks; "
-        f"ivf_probe_scores launches per rank {k4}; both ranks' hits and sharded exact search "
-        f"bit-equal; the sharded exact search equal to numpy_search at storage precision "
-        f"({n_near_exact} inside {SCORE_ATOL} near-ties); recall@100 against that "
-        f"numpy_search {recall:.4f} (limit {MP_IVF_RECALL}; near-ties at the 100th score "
-        f"counted); rank 0's build "
-        f"{ {k: round(v, 3) for k, v in kn['build_s'].items()} } s, the checks' search, exact "
-        f"search and file write {kn['check_s']:.2f} s; the W = 2 file in one process: nprobe "
-        f"{one.nprobe} of {one.n_clusters} (total probed kept), every cluster probed equals "
-        f"numpy_search ({n_near} inside {SCORE_ATOL} near-ties), recall "
-        f"{recall1:.4f} at nprobe {one.nprobe}, {differing} of {idx.size} top-100 ids differ "
+        f"ivf_probe_scores launches per rank {k4}; both ranks' knobs, hits and sharded exact "
+        f"search bit-equal, rank 0's hits the evaluator's saved ones; the sharded exact "
+        f"search equal to numpy_search at storage precision ({n_near_exact} inside "
+        f"{SCORE_ATOL} near-ties); recall@100 against it {res['recall']:.4f} (limit "
+        f"{MP_IVF_RECALL}; near-ties at the 100th score counted), every cluster probed equal "
+        f"to it ({res['n_near_full']} inside near-ties); rank 0's build "
+        f"{ {k: round(v, 3) for k, v in kn['build_s'].items()} } s, the checks' searches "
+        f"{kn['check_s']:.2f} s; the W = 2 file in one process: nprobe "
+        f"{min(2 * kn['nprobe'], kn['n_clusters'])} of {kn['n_clusters']} (total probed "
+        f"kept), every cluster probed gives the W = 2 full-probe hits ({res['n_near_file']} "
+        f"inside near-ties), recall {res['file_recall']:.4f} at its nprobe (limit "
+        f"{MP_IVF_RECALL}), {res['differing_file']} of {h['idx'].size} top-100 ids differ "
         "from the W = 2 hits (not gated)")
-    return {"recall": recall, "file_recall": recall1, "nprobe": kn["nprobe"],
-            "n_clusters": kn["n_clusters"], "differing_file": differing, "k4": k4,
-            "build_s": kn["build_s"]}
+    return dict(res, k4=k4, build_s=kn["build_s"])
 
 
 # ---------------------------------------------------------------------------
@@ -7258,7 +7662,8 @@ def main(argv=None) -> int:
                           + sum(n["launches"] for n in scale["indexes"].values()
                                 if n["counter"] == counter)
                           + sum(n["launches"].get(counter, 0) for n in evaluation.values())
-                          + (multi["k4_launches"] if counter == "ivf_probe_scores" else 0))
+                          + {"ivf_probe_scores": multi["k4_launches"],
+                             "pq_adc_rows": multi["k5_launches"]}.get(counter, 0))
     launches["flash_dkv_f32"] = sharded["dkv_f32_launches"]
     # the generic build's launches on its paths: 5r's two CLI steps and
     # 7f's evaluate at 1280 / 4096

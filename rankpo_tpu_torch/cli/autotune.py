@@ -17,9 +17,15 @@ report with the recommended spec.
 
 ``--device cuda`` (the default) fails without a card; ``--device cpu`` runs
 the plain PyTorch paths. The exit code is 1 when no spec met the target and
-the budget. One process: under a process group of more than one rank it
-raises (ROADMAP.md Queue 1, item 8c-ii: its ladder benchmarks the PQ and
-PCA-hybrid IVF tiers, which are not ported over several shards).
+the budget.
+
+Over W processes add ``--coordinator_address host:port --num_processes W
+--process_id r`` to each (one card per rank under NCCL, or gloo with
+``--device cpu``), as JAX runs the ladder on its mesh of every local chip:
+every rank holds the whole embedding matrix (a corpus is encoded a shard a
+rank and gathered), the oracle and each tier shard over the ranks
+(``tools/autotune.py``), memory is the sum over the ranks, and every rank
+prints the same report; rank 0 alone writes ``--output_file``.
 """
 
 from __future__ import annotations
@@ -32,9 +38,8 @@ import sys
 import numpy as np
 import torch
 
-from rankpo_tpu_torch.cli.arguments import setup_logging
+from rankpo_tpu_torch.cli.arguments import DistributedArguments, setup_logging
 from rankpo_tpu_torch.core import mesh
-from rankpo_tpu_torch.core.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -80,6 +85,12 @@ def main(argv=None):
     parser.add_argument("--output_file", default=None, help="also write the JSON report here")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cuda' fails when no card is visible")
+    parser.add_argument("--coordinator_address", default=None,
+                        help="host:port of rank 0's rendezvous (multi-process)")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="processes of the run (one per card)")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="this process's rank, 0..num_processes-1")
     parser.add_argument("--log_level", default="info")
     args = parser.parse_args(argv)
 
@@ -89,11 +100,10 @@ def main(argv=None):
         parser.error("pick exactly one of --embeddings / --corpus_data / --synthetic_rows")
     if args.corpus_data and not args.model_name_or_path:
         parser.error("--corpus_data needs --model_name_or_path")
-    device = resolve_device(args.device)  # before any loading: no CPU fallback
-    if mesh.process_count() > 1:
-        raise NotImplementedError(
-            f"cli.autotune over {mesh.process_count()} processes is not ported to "
-            "rankpo_tpu_torch yet (ROADMAP.md Queue 1, item 8c-ii)")
+    # this rank's card and the data group (None in one process); before any
+    # loading: no CPU fallback
+    device, group = DistributedArguments(args.coordinator_address, args.num_processes,
+                                         args.process_id).join(args.device)
     if args.embeddings:
         emb = np.asarray(np.load(args.embeddings), np.float32)
     elif args.synthetic_rows:
@@ -109,9 +119,16 @@ def main(argv=None):
         encoder = InferenceEncoder(config, state, tokenizer, device=device,
                                    compute_dtype=torch.bfloat16)
         del state
-        emb = encoder.encode(load_eval_corpus(args.corpus_data),
-                             batch_size=args.encode_batch_size,
-                             max_length=args.max_passage_length)
+        corpus = load_eval_corpus(args.corpus_data)
+        if group is None:
+            emb = encoder.encode(corpus, batch_size=args.encode_batch_size,
+                                 max_length=args.max_passage_length)
+        else:  # each rank its shard, then every rank every row
+            shard, n = encoder.encode_shard(
+                corpus, mesh.group_size(group), mesh.group_index(group),
+                batch_size=args.encode_batch_size, max_length=args.max_passage_length,
+                group=group)
+            emb = mesh.all_gather_rows(shard, group)[:n].cpu().numpy()
 
     from rankpo_tpu_torch.tools.autotune import autotune_index
 
@@ -119,7 +136,7 @@ def main(argv=None):
     report = autotune_index(
         emb, k=args.k, recall_target=args.recall_target,
         memory_budget_gb=args.memory_budget_gb, specs=specs, n_queries=args.n_queries,
-        batch_size=args.search_batch_size, seed=args.seed, device=device)
+        batch_size=args.search_batch_size, seed=args.seed, device=device, group=group)
     for row in report["results"]:
         if "error" in row:
             logger.info("%-24s FAILED: %s", row["spec"], row["error"])
@@ -130,7 +147,7 @@ def main(argv=None):
     logger.info("recommended spec: %s", report["best"])
     line = json.dumps(report)
     print(line)
-    if args.output_file:
+    if args.output_file and (group is None or mesh.group_index(group) == 0):
         with open(args.output_file, "w", encoding="utf-8") as f:
             f.write(line + "\n")
     return report

@@ -30,12 +30,11 @@ card per rank under NCCL, or gloo with ``--device cpu``): the flat or
 refine index is row-sharded over the ranks, each encoding its own shard of
 the corpus. Rank 0 serves HTTP through ``serve/multihost.py``'s frontend,
 which replays every request on the other ranks; they exit 0 when rank 0
-stops (shutdown or SIGTERM). ``--index_type ivf`` (fp32, bf16 or int8 rows)
-shards its whole clusters over the ranks; such a server answers
-``/search`` (with a per-call ``nprobe``) and ``/save``, and refuses ``/add``
-and ``/remove`` on rank 0 before anything reaches the others. PQ and
-PCA-hybrid IVF specs over several processes are not ported (ROADMAP.md
-Queue 1, item 8c-ii) and fail at parse time.
+stops (shutdown or SIGTERM). An IVF index (``--index_type ivf``, fp32, bf16
+or int8 rows, or a spec such as ``IVF4096,PQ64`` or ``PCA256,IVF4096,Flat``)
+shards its whole clusters over the ranks and answers ``/search`` (with a
+per-call ``nprobe``), ``/add``, ``/remove`` and ``/save`` as one process's
+does.
 """
 
 from __future__ import annotations
@@ -56,7 +55,6 @@ from rankpo_tpu_torch.core.device import resolve_device
 from rankpo_tpu_torch.data.datasets import load_eval_corpus
 from rankpo_tpu_torch.data.tokenization import resolve_tokenizer
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import check_sharded_tier
 from rankpo_tpu_torch.models.hf_io import load_pretrained
 from rankpo_tpu_torch.serve.batching import MicroBatcher
 from rankpo_tpu_torch.serve.multihost import MultihostFrontend
@@ -393,9 +391,8 @@ def make_server(argv=None):
     service_kw = dict(recall_target=args.recall_target, index_dtype=dtype,
                       index_type=args.index_type, index_kwargs=index_kwargs)
     try:  # the tier's checks, before the checkpoint loads
-        tier, _, tier_kwargs = resolve_tier(args.index_type, dtype, index_kwargs)
-        check_sharded_tier(tier, args.num_processes or 1, tier_kwargs)
-    except (ValueError, NotImplementedError) as e:
+        resolve_tier(args.index_type, dtype, index_kwargs)
+    except ValueError as e:
         parser.error(f"--index_type {args.index_type}: {e}")
     # this rank's card; an NCCL bring-up that fails raises
     device, group = DistributedArguments(args.coordinator_address, args.num_processes,

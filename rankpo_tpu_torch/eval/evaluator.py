@@ -18,8 +18,7 @@ whether a checkpoint is skipped (broadcast to every rank, so none runs a
 collective encode the others skip) and rank 0 alone writes the metrics,
 the arrays and the aggregate. An IVF index shards its whole clusters over
 the group (``index/ivf.py`` ``from_sharded``, as the JAX evaluator builds
-it); its PQ and PCA-hybrid specs stay one process's (ROADMAP.md Queue 1,
-item 8c-ii).
+it), its PQ codes and the PCA hybrid too.
 """
 
 from __future__ import annotations
@@ -39,8 +38,6 @@ from rankpo_tpu_torch.eval.metrics import compute_metrics
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
 from rankpo_tpu_torch.index.factory import (
     build_offline_index,
-    check_sharded_tier,
-    shard_count,
     resolve_index_spec,
 )
 
@@ -117,7 +114,6 @@ def evaluate_checkpoint(
     row-sharded over (a collective; every rank returns the same)."""
     # an invalid spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
-    check_sharded_tier(index_type, shard_count(group), index_kwargs)
     if encoder is None:
         kwargs = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
         encoder = InferenceEncoder.from_pretrained(

@@ -27,8 +27,7 @@ and dropped after it (JAX's ``_replicate``), so the encode makes no
 per-access broadcasts. Under tensor parallelism the ranks of a model group
 share a data index, so they encode the same rows in the same batches
 through the split module. An IVF index shards its whole clusters over the
-data group, as ``cli.evaluate``'s does; PQ and PCA-hybrid IVF specs stay one
-process's (ROADMAP.md Queue 1, item 8c-ii) and raise before training starts.
+data group, as ``cli.evaluate``'s does, PQ codes and the PCA hybrid too.
 """
 
 from __future__ import annotations
@@ -44,7 +43,7 @@ from rankpo_tpu_torch.core.precision import policy_from_flags
 from rankpo_tpu_torch.data.datasets import load_eval_corpus, load_eval_queries
 from rankpo_tpu_torch.eval.evaluator import evaluate_checkpoint
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import check_sharded_tier, resolve_index_spec
+from rankpo_tpu_torch.index.factory import resolve_index_spec
 
 logger = logging.getLogger(__name__)
 
@@ -89,9 +88,8 @@ class RetrievalEvalHook:
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
+        # an invalid spec fails before training starts
         self.index_type, self.index_kwargs = resolve_index_spec(index_type, index_kwargs)
-        # before training starts
-        check_sharded_tier(self.index_type, mesh.data_count(), self.index_kwargs)
         self._encoder: Optional[InferenceEncoder] = None
         logger.info("in-training retrieval eval: %d queries over %d corpus rows (k=%d, "
                     "index=%s)", len(self.queries), len(self.corpus), self.k, index_type)

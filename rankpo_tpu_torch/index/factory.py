@@ -174,19 +174,6 @@ def shard_count(group) -> int:
     return 1 if group is None else mesh.group_size(group)
 
 
-def check_sharded_tier(index_type: str, shards: int, index_kwargs=None) -> None:
-    """Raise, before any encode, for an IVF spec that has no sharded build
-    over more than one shard: PQ codes and the PCA hybrid (ROADMAP.md Queue 1
-    item 8c-ii). A plain IVF (fp32, bf16 or int8 rows) shards."""
-    if index_type != "ivf" or shards <= 1:
-        return
-    for key, codec in (("pq_m", "PQ"), ("reduced_dim", "PCA-hybrid")):
-        if (index_kwargs or {}).get(key) is not None:
-            from rankpo_tpu_torch.index.io import SHARDED_IVF_CODEC
-
-            raise NotImplementedError(SHARDED_IVF_CODEC.format(codec, shards))
-
-
 def build_offline_index(embeddings, n_total: int, index_type: str,
                         index_kwargs: dict, recall_target: float, *,
                         as_constructor: bool = False, group=None):
@@ -203,7 +190,6 @@ def build_offline_index(embeddings, n_total: int, index_type: str,
     index: the constructor's int8 scales)."""
     if index_type == "ivf" and shard_count(group) == 1:
         group = None  # one shard: the one-device build
-    check_sharded_tier(index_type, shard_count(group), index_kwargs)
     if group is not None:
         from rankpo_tpu_torch.index.flat import FlatIPIndex
         from rankpo_tpu_torch.index.ivf import IVFIPIndex

@@ -168,6 +168,24 @@ class Shards:
 
     group = None
     dp, shard = 1, 0
+    # the tensor attributes every rank of a group holds whole
+    _replicated: Tuple[str, ...] = ()
+
+    def nbytes(self) -> int:
+        """Bytes of every torch tensor the index holds; over a group, the sum
+        over the ranks with a ``_replicated`` tensor counted once (JAX's
+        global ``nbytes``; a collective)."""
+        own = whole = 0
+        for name, v in vars(self).items():
+            if isinstance(v, torch.Tensor):
+                if name in self._replicated:
+                    whole += v.numel() * v.element_size()
+                else:
+                    own += v.numel() * v.element_size()
+        if self.group is None:
+            return own + whole
+        total = torch.tensor([own], dtype=torch.int64, device=self.device)
+        return int(mesh.all_reduce_(total, self.group).item()) + whole
 
     def _set_group(self, group) -> None:
         self.group = group

@@ -23,8 +23,10 @@ and keeps this rank's shard (JAX ``io.py:18-21``); an IVF file keeps its
 cluster-major layout, each rank takes its whole clusters (the cluster count
 must divide by the new shard count), and the per-shard nprobe is rescaled
 so that the total of probed clusters stays the one tuned (JAX ``_load_ivf``,
-``io.py:297-368``). PQ and PCA-hybrid IVF files load on one device only
-(ROADMAP.md Queue 1, item 8c-ii).
+``io.py:297-368``). PQ codes and the hybrid's projected rows move with
+their slots; the codebooks, the rotation and the PCA basis reach every
+rank whole. A file of transposed ('cols') PQ codes loads on one device
+only: over a group it raises ``ValueError``, as JAX's does on a mesh.
 """
 
 from __future__ import annotations
@@ -162,7 +164,7 @@ def index_state(index) -> Dict[str, np.ndarray]:
                 _pack(out, meta, "pq_rotation", index._rotation_host)
         if index.reduced_dim is not None:
             _pack(out, meta, "proj", index.proj)
-            _pack(out, meta, "corpus_low", index.corpus_low)
+            _pack(out, meta, "corpus_low", _all_slots(index, index.corpus_low))
     cfg["arrays"] = meta
     out[CONFIG_KEY] = np.asarray(json.dumps(cfg))
     return out
@@ -234,10 +236,6 @@ def _load_refine(cfg, data, meta, device, group):
     return self
 
 
-SHARDED_IVF_CODEC = ("a {} IVF index over {} shards is not ported to rankpo_tpu_torch yet "
-                     "(ROADMAP.md Queue 1, item 8c-ii)")
-
-
 def _load_ivf(cfg, data, meta, device, group):
     require_fp32_matmul()
     self = IVFIPIndex.__new__(IVFIPIndex)
@@ -249,17 +247,14 @@ def _load_ivf(cfg, data, meta, device, group):
     self.spherical = bool(cfg["spherical"])
     self._set_hybrid(cfg.get("reduced_dim"), cfg["candidates"])
     # the layout is a physical property of the saved codes: restore it
-    # verbatim (files older than pq_layout are rows)
+    # verbatim (files older than pq_layout are rows); 'cols' raises on a group
     self._set_pq(cfg.get("pq_m"), 1, cfg.get("pq_rotate", "none"),
-                 cfg.get("pq_layout") or "rows")
+                 cfg.get("pq_layout") or "rows", sharded=group is not None)
     self.balance_eta = float(cfg.get("balance_eta", 0.0))
     self.kmeans_split = int(cfg.get("kmeans_split", 0))
     self.n_clusters = int(cfg["n_clusters"])
     self.capacity = int(cfg["capacity"])
     n_shards = 1 if group is None else mesh.group_size(group)
-    if n_shards > 1 and (self.pq_m is not None or self.reduced_dim is not None):
-        raise NotImplementedError(SHARDED_IVF_CODEC.format(
-            "PQ" if self.pq_m is not None else "PCA-hybrid", n_shards))
     if self.n_clusters % n_shards:
         raise ValueError(
             f"saved IVF index has {self.n_clusters} clusters, not divisible by "
@@ -290,7 +285,7 @@ def _load_ivf(cfg, data, meta, device, group):
         self._place_codebooks()
     if self.reduced_dim is not None:
         self.proj = _unpack(data, meta, "proj", device).to(torch.float32)
-        self.corpus_low = _unpack(data, meta, "corpus_low", device)
+        self.corpus_low = _unpack(data, meta, "corpus_low", device, own)
     else:
         self.proj = self.corpus_low = None
     return self

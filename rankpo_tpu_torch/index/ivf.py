@@ -51,15 +51,27 @@ over the group every iteration (JAX's ``lax.psum``), so ``balance_eta``'s
 bias and ``kmeans_split``'s donors come from the summed counts on every
 rank alike; the top-8 candidates are all-gathered in rank order and every
 rank runs the same host fill. A search probes each rank's own top-nprobe
-clusters with K4, and the shards' top-k candidates merge as the flat tier's
-do (``index/flat.py`` ``Shards._merge``: a rank-order all-gather and a
-stable top-k), so every rank returns the same hits; the filter mask stays
+clusters with K4 (K5 over PQ codes; the hybrid picks and reranks its
+candidates per shard), and the shards' top-k candidates merge as the flat
+tier's do (``index/flat.py`` ``Shards._merge``: a rank-order all-gather and
+a stable top-k), so every rank returns the same hits; the filter mask stays
 whole (hits are global row ids; JAX replicates it). The tuner ranks each
 true hit's cluster among its own shard's clusters. Every call is then a
-collective of the group, made in the same order on every rank. PQ codes,
-the PCA hybrid, the mutations and the filtered tuner stay one device's
-(ROADMAP.md Queue 1 item 8c-ii), as the streamed build does (JAX's is one
-device's too).
+collective of the group, made in the same order on every rank.
+
+PQ over the group (JAX ``_pq_from_gathered``): the codebook sample's slots
+come from the global layout and their rows from the ranks that hold them;
+rank 0 fits the codebooks (and the rotation) on the residuals to the
+global centroids and broadcasts them, so every rank holds the same bits;
+each rank encodes its own slots against its own centroids, in the 'rows'
+layout ('cols' is one device's, as in JAX). The hybrid sums its second
+moment over the group and rank 0's eigenvectors reach every rank, which
+projects its own slots. ``append_sharded`` assigns the new rows (whole on
+every rank) against every cluster's centroid and places them on the host
+as one device does; each rank writes its own slots. ``remove_rows``
+renumbers the global ids on the host. The filtered tuner
+(``nprobe="filtered"``, the port's own option) and the streamed build stay
+one device's (JAX's streamed build is too).
 
 Every random draw is numpy's ``default_rng`` with the JAX package's seeds, so
 both packages draw the same numbers.
@@ -123,8 +135,6 @@ _OPQ_OUTER = 8  # OPQ alternations (Lloyd fit <-> Procrustes rotation)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
-_NOT_SHARDED = ("{} over {} shards is not ported to rankpo_tpu_torch yet (ROADMAP.md "
-                "Queue 1, item 8c-ii)")
 # rows per chunk of the PCA second moment and projection
 _PROJ_CHUNK = 1 << 16
 # slots per collective of a sharded reconstruct
@@ -345,6 +355,19 @@ def _pq_reconstruct(codes: torch.Tensor, codebooks_flat: torch.Tensor, m: int,
     return codebooks_flat[flat].reshape(codes.shape[:-1] + (m * ds,))
 
 
+def _procrustes(mtx: torch.Tensor) -> np.ndarray:
+    """The orthogonal ``U V^T`` of the [D, D] cross moment ``mtx`` (its SVD
+    in float64), as fp32 on the host: numpy's for a CPU tensor, as the JAX
+    package computes it on its host, and cuSOLVER's for a CUDA tensor (at D
+    2048 the host's SVDs took most of an OPQ fit's time on the card; the
+    smoke's 7d codecs and 6w steps time it)."""
+    if mtx.is_cuda:
+        u, _, vt = torch.linalg.svd(mtx.double())
+        return np.ascontiguousarray((u @ vt).float().cpu().numpy())
+    u, _, vt = np.linalg.svd(mtx.numpy().astype(np.float64))
+    return np.ascontiguousarray(u @ vt, np.float32)
+
+
 def _greedy_fill(cand: np.ndarray, n_total: int, k: int, capacity: int
                  ) -> np.ndarray:
     """Place every row into a cluster slot: nearest candidate first, then
@@ -419,6 +442,8 @@ class IVFIPIndex(Shards):
     takes each rank's row shard) and the storage tensors hold this rank's
     clusters; int8 scales round as the JAX constructor rounds them."""
 
+    _replicated = ("codebooks", "rotation", "proj")
+
     def __init__(
         self,
         embeddings,
@@ -475,7 +500,7 @@ class IVFIPIndex(Shards):
             return corpus[torch.from_numpy(idx).to(self.device)].cpu().numpy()
 
         def place(row_ids):
-            self._place_storage(corpus, row_ids[self._own_slots()], seed)
+            self._place_storage(corpus, row_ids, seed)
 
         self._build(local, rows_at, place, seed=seed, kmeans_iters=kmeans_iters, nprobe=nprobe,
                     max_nprobe=max_nprobe, tune_sample=tune_sample, tune_k=tune_k)
@@ -549,7 +574,7 @@ class IVFIPIndex(Shards):
                 return cmesh.exchange_rows(rows, idx, shard_rows, group).cpu().numpy()
 
             def place(row_ids):
-                self._place_shard(rows, row_ids, times_reciprocal)
+                self._place_shard(rows, row_ids, seed, times_reciprocal)
         self._build(local, rows_at, place, seed=seed, kmeans_iters=kmeans_iters,
                     nprobe=nprobe, max_nprobe=max_nprobe, tune_sample=tune_sample,
                     tune_k=tune_k)
@@ -629,12 +654,8 @@ class IVFIPIndex(Shards):
         self.spherical = bool(spherical)
         self.balance_eta = float(balance_eta)
         self._set_hybrid(reduced_dim, candidates)
-        self._set_pq(pq_m, pq_iters, pq_rotate, pq_layout)
+        self._set_pq(pq_m, pq_iters, pq_rotate, pq_layout, sharded=group is not None)
         dp = 1 if group is None else cmesh.group_size(group)
-        if dp > 1:
-            for name, value in (("pq_m", pq_m), ("reduced_dim", reduced_dim)):
-                if value is not None:
-                    raise NotImplementedError(_NOT_SHARDED.format(f"IVFIPIndex {name}", dp))
         self.n_clusters = _resolve_clusters(self.n_total, dp, n_clusters)
         self.kmeans_split = int(kmeans_split)
         if not 0 <= self.kmeans_split <= self.n_clusters // 2:
@@ -892,13 +913,15 @@ class IVFIPIndex(Shards):
                 np.ascontiguousarray(self._local_clusters_of(self._assign_bias_host))
             ).to(self.device)
 
-    def _set_pq(self, pq_m, pq_iters, pq_rotate="none", pq_layout="auto"):
+    def _set_pq(self, pq_m, pq_iters, pq_rotate="none", pq_layout="auto",
+                sharded: bool = False):
         """Validate the product-quantization knobs (residual PQ: ``pq_m``
         uint8 codes per slot into per-subvector 256-entry codebooks trained
         on assignment residuals). ``pq_rotate``: 'random' (seeded QR) or
         'opq' (rotation trained against the codec) pre-rotates residuals;
-        ``pq_layout``: 'rows' ``[slots, m]``, 'cols' ``[m, slots]``, or
-        'auto' (the JAX package's rule)."""
+        ``pq_layout``: 'rows' ``[slots, m]``, 'cols' ``[m, slots]`` (one
+        device's: ``sharded``, an index over a group, raises, as JAX's on a
+        mesh), or 'auto' (the JAX package's rule: 'rows' over a group)."""
         self.codebooks = None
         self._codebooks_host = None
         self.rotation = None
@@ -941,11 +964,17 @@ class IVFIPIndex(Shards):
             pq_layout = (
                 "cols"
                 if (
-                    m % 32 == 0
+                    not sharded
+                    and m % 32 == 0
                     and pad_lanes > m  # m x128 already tiles rows free
                     and float(self.n_total) * pad_lanes > _COLS_AUTO_BYTES
                 )
                 else "rows"
+            )
+        if pq_layout == "cols" and sharded:
+            raise ValueError(
+                "pq_layout='cols' is single-device (a group shards the slots, the "
+                "transposed codes' inner axis) — use 'rows' on a group"
             )
         if pq_layout == "cols" and m % 32 != 0:
             raise ValueError(
@@ -1002,17 +1031,26 @@ class IVFIPIndex(Shards):
 
     def _place_storage(self, corpus: torch.Tensor, row_ids: np.ndarray, seed: int,
                        times_reciprocal: bool = False):
-        """Cluster-major storage of the slots ``row_ids`` (this rank's)
-        gathered from the whole ``corpus`` chunk by chunk (no fp32 copy of
-        the whole layout); empty slots hold zero rows. int8 scales round as
-        the JAX constructor's (``times_reciprocal``: as XLA's)."""
+        """Cluster-major storage of this rank's slots of the global layout
+        ``row_ids``, gathered from the whole ``corpus`` chunk by chunk (no
+        fp32 copy of the whole layout); empty slots hold zero rows. int8
+        scales round as the JAX constructor's (``times_reciprocal``: as
+        XLA's)."""
         dev = self.device
-        perm = torch.from_numpy(np.clip(row_ids, 0, None).astype(np.int64)).to(dev)
-        valid = torch.from_numpy(row_ids >= 0).to(dev)
+        own = row_ids[self._own_slots()]
+        perm = torch.from_numpy(np.clip(own, 0, None).astype(np.int64)).to(dev)
+        valid = torch.from_numpy(own >= 0).to(dev)
         if self.pq_m is not None:
-            self._train_pq_and_encode(corpus, perm, valid, row_ids, seed)
+            def sample():
+                slots = self._pq_sample_slot_ids(row_ids, seed)
+                rows = corpus[torch.from_numpy(row_ids[slots].astype(np.int64)).to(dev)]
+                return rows - self._all_centroids()[torch.from_numpy(slots // self.capacity)
+                                                    .to(dev)]
+
+            self._fit_pq_shared(sample, seed)
+            self._encode_pq(lambda lo, hi: corpus[perm[lo:hi]], valid)
             return
-        n_slots = len(row_ids)
+        n_slots = len(own)
         out = torch.empty((n_slots, self.dim), dtype=self.store_dtype, device=dev)
         scale = (torch.empty(n_slots, dtype=torch.float32, device=dev)
                  if self.quantized else None)
@@ -1026,21 +1064,40 @@ class IVFIPIndex(Shards):
         self.corpus = out
         self.slot_scale = scale
 
-    def _place_shard(self, shard: torch.Tensor, row_ids: np.ndarray,
+    def _place_shard(self, shard: torch.Tensor, row_ids: np.ndarray, seed: int,
                      times_reciprocal: bool) -> None:
         """This rank's slots from the row shards ``shard`` (this rank's fp32
         rows of the global layout): each filled slot's row moves once, from
         the rank that holds it to the rank that owns its cluster
         (``mesh.exchange_rows``), and only those rows are written; empty
         slots hold zero rows (int8: zero codes, scale 1e-12, as a zero row
-        quantizes)."""
+        quantizes; PQ: the zero residual's code, as one device writes). PQ
+        first fits its codebooks on rank 0, from the sample's rows sent
+        there."""
         n_own = self.local_clusters * self.capacity
+        shard_rows = int(shard.shape[0])
+        if self.pq_m is not None:
+            slots = self._pq_sample_slot_ids(row_ids, seed)
+            # the sample's rows reach rank 0 alone, the one rank that fits
+            rows = cmesh.exchange_rows(shard, row_ids[slots], shard_rows, self.group,
+                                       np.zeros(len(slots), np.int64))
+            self._fit_pq_shared(lambda: rows - self._all_centroids()[
+                torch.from_numpy(slots // self.capacity).to(self.device)], seed)
         filled = np.nonzero(row_ids >= 0)[0]
         dest = filled // n_own
-        rows = cmesh.exchange_rows(shard, row_ids[filled], int(shard.shape[0]), self.group,
-                                   dest)
+        rows = cmesh.exchange_rows(shard, row_ids[filled], shard_rows, self.group, dest)
         slots = torch.from_numpy(filled[dest == self.shard] - self.shard * n_own).to(
             self.device)
+        if self.pq_m is not None:
+            valid = torch.zeros(n_own, dtype=torch.bool, device=self.device)
+            valid[slots] = True
+            # each own slot's row in ``rows``; an empty slot reads the zero row
+            # put after them
+            rows = torch.cat([rows, rows.new_zeros((1, self.dim))])
+            pos = torch.full((n_own,), rows.shape[0] - 1, dtype=torch.int64, device=self.device)
+            pos[slots] = torch.arange(slots.shape[0], device=self.device)
+            self._encode_pq(lambda lo, hi: rows[pos[lo:hi]], valid)
+            return
         self.corpus = torch.zeros((n_own, self.dim), dtype=self.store_dtype, device=self.device)
         self.slot_scale = (torch.full((n_own,), 1e-12, dtype=torch.float32, device=self.device)
                            if self.quantized else None)
@@ -1052,28 +1109,49 @@ class IVFIPIndex(Shards):
             else:
                 self.corpus[sl] = rows[lo : lo + _ENCODE_CHUNK].to(self.store_dtype)
 
-    def _train_pq_and_encode(self, corpus, perm, valid, row_ids, seed: int):
-        """Fit the residual codebooks on a sample of the actual slot
-        residuals (spilled rows train and encode against the cluster they
-        landed in), then encode every slot; empty slots encode a zero
-        residual."""
-        m = self.pq_m
-        cap = self.capacity
-        dev = self.device
+    def _all_centroids(self) -> torch.Tensor:
+        """Every cluster's centroid [K, D] fp32 on this rank's device (the
+        device ``centroids`` hold this rank's alone)."""
+        if self.group is None:
+            return self.centroids
+        return torch.from_numpy(self._centroids_host).to(self.device)
+
+    def _fit_pq_shared(self, sample, seed: int) -> None:
+        """Fit the codebooks (and the rotation) on the fp32 residual sample
+        ``sample()`` [S, D] (JAX's sample of the actual slot residuals:
+        spilled rows train against the cluster they landed in). Over a
+        group rank 0 alone calls ``sample`` and fits, and broadcasts the
+        fp32 codebooks and rotation, so every rank holds the same bits."""
         t0 = time.perf_counter()
-        sample_slots = torch.from_numpy(self._pq_sample_slot_ids(row_ids, seed)).to(dev)
-        sample = corpus[perm[sample_slots]] - self.centroids[sample_slots // cap]
-        self._fit_pq_codebooks(sample, seed)
-        del sample
-        t1 = time.perf_counter()
+        if self.shard == 0:
+            self._fit_pq_codebooks(sample(), seed)
+        if self.group is not None:
+            m, ds = self.pq_m, self.dim // self.pq_m
+            parts = {"_codebooks_host": (m, PQ_K, ds)}
+            if self.pq_rotate != "none":
+                parts["_rotation_host"] = (self.dim, self.dim)
+            for name, shape in parts.items():
+                buf = (torch.from_numpy(getattr(self, name)).to(self.device) if self.shard == 0
+                       else torch.empty(shape, dtype=torch.float32, device=self.device))
+                setattr(self, name, cmesh.broadcast_(buf, 0, self.group).cpu().numpy())
+            self._place_codebooks()
+        self.build_seconds["pq_fit"] = time.perf_counter() - t0
+
+    def _encode_pq(self, own_rows, valid: torch.Tensor) -> None:
+        """Encode every slot of this rank: ``own_rows(lo, hi)`` gives the
+        fp32 rows of slots [lo, hi), each against its slot's cluster
+        centroid; an empty slot (``valid`` False) encodes a zero
+        residual."""
+        m, cap, dev = self.pq_m, self.capacity, self.device
+        t0 = time.perf_counter()
         cb = torch.from_numpy(self._codebooks_host).to(dev)
-        n_slots = len(row_ids)
+        n_slots = valid.shape[0]
         codes = torch.empty((m, n_slots) if self._pq_cols else (n_slots, m),
                             dtype=torch.uint8, device=dev)
         for lo in range(0, n_slots, _ENCODE_CHUNK):
             hi = min(lo + _ENCODE_CHUNK, n_slots)
             cl = torch.arange(lo, hi, device=dev) // cap
-            res = corpus[perm[lo:hi]] - self.centroids[cl]
+            res = own_rows(lo, hi) - self.centroids[cl]
             res = torch.where(valid[lo:hi, None], res, 0.0)
             block = _pq_encode_block(res, cb, self.rotation)
             if self._pq_cols:
@@ -1083,7 +1161,7 @@ class IVFIPIndex(Shards):
         self.corpus = codes
         self.slot_scale = None
         _sync(dev)
-        self.build_seconds.update(pq_fit=t1 - t0, pq_encode=time.perf_counter() - t1)
+        self.build_seconds["pq_encode"] = time.perf_counter() - t0
 
     @staticmethod
     def _pq_sample_slot_ids(row_ids: np.ndarray, seed: int) -> np.ndarray:
@@ -1099,8 +1177,8 @@ class IVFIPIndex(Shards):
         [S, D] on the device; sets the fp32 host copy and the device search
         copy. 'random' rotates by one seeded QR rotation; 'opq' alternates
         Lloyd fits with orthogonal-Procrustes updates ``rot = U V^T`` of
-        ``X^T decode(encode(X rot))`` (the [D, D] SVD runs on the host in
-        float64)."""
+        ``X^T decode(encode(X rot))`` (the [D, D] SVD in float64,
+        :func:`_procrustes`)."""
         m, ds = self.pq_m, self.dim // self.pq_m
         dev = sample.device
         n_sample = sample.shape[0]
@@ -1132,9 +1210,7 @@ class IVFIPIndex(Shards):
                 cb = fit(z, cb if cb is not None else init_cb(z), inner)
                 codes = _pq_encode_block(z, cb)
                 recon = _pq_reconstruct(codes, cb.reshape(m * PQ_K, ds), m, ds)
-                mtx = (sample.T @ recon).cpu().numpy().astype(np.float64)
-                u, _, vt = np.linalg.svd(mtx)
-                rot = np.ascontiguousarray(u @ vt, np.float32)
+                rot = _procrustes(sample.T @ recon)
         z = sample if rot is None else _rotate_rows(sample, torch.from_numpy(rot).to(dev))
         cb = fit(z, cb if cb is not None else init_cb(z), self.pq_iters)
         self._codebooks_host = cb.cpu().numpy().astype(np.float32, copy=False)
@@ -1161,7 +1237,10 @@ class IVFIPIndex(Shards):
         (int8 dequantized): the uncentred second moment summed on the device
         in fp32 (empty slots are zero rows and add nothing), its top
         ``reduced_dim`` eigenvectors by ``np.linalg.eigh`` on the host, and
-        the bf16 projections of every slot."""
+        the bf16 projections of every slot. Over a group each rank sums its
+        own slots, the moment is all-reduced, and rank 0's basis is
+        broadcast (the same bits on every rank); each rank projects its
+        own slots."""
         if self.reduced_dim is None:
             self.proj = None
             self.corpus_low = None
@@ -1173,9 +1252,17 @@ class IVFIPIndex(Shards):
             rows = self._slot_rows(torch.arange(lo, min(lo + _PROJ_CHUNK, n_slots),
                                                 device=self.device))
             cov += rows.T @ rows
-        _, v = np.linalg.eigh(cov.cpu().numpy())  # ascending eigenvalues
-        self.proj = torch.from_numpy(
-            np.ascontiguousarray(v[:, -self.reduced_dim:], np.float32)).to(self.device)
+        if self.group is not None:
+            cmesh.all_reduce_(cov, self.group)
+        if self.shard == 0:
+            _, v = np.linalg.eigh(cov.cpu().numpy())  # ascending eigenvalues
+            self.proj = torch.from_numpy(
+                np.ascontiguousarray(v[:, -self.reduced_dim:], np.float32)).to(self.device)
+        else:
+            self.proj = torch.empty((self.dim, self.reduced_dim), dtype=torch.float32,
+                                    device=self.device)
+        if self.group is not None:
+            cmesh.broadcast_(self.proj, 0, self.group)
         self.corpus_low = torch.empty((n_slots, self.reduced_dim), dtype=torch.bfloat16,
                                       device=self.device)
         for lo in range(0, n_slots, _PROJ_CHUNK):
@@ -1304,7 +1391,12 @@ class IVFIPIndex(Shards):
         mask = build_selector_mask(self.n_total, allowed_ids, disallowed_ids, selector)
         if mask is None:
             return self.nprobe
-        self._refuse_sharded("IVFIPIndex.tune_filtered_nprobe (nprobe='filtered')")
+        if self.dp > 1:
+            # the port's own option (the JAX package has no filtered tuner):
+            # one device's by design, not a sharded path still to port
+            raise NotImplementedError(
+                f"nprobe='filtered' (IVFIPIndex.tune_filtered_nprobe) runs on one device; "
+                f"over {self.dp} shards pass an int nprobe")
         key = (k, hashlib.sha1(np.packbits(mask).tobytes()).hexdigest())
         cache = self.__dict__.setdefault("_filtered_nprobes", {})
         if key not in cache:
@@ -1365,20 +1457,27 @@ class IVFIPIndex(Shards):
         return probe, torch.gather(qc, 1, probe)
 
     def _slot_rows(self, slots: torch.Tensor) -> torch.Tensor:
-        """Stored rows of ``slots`` as fp32: fp32/bf16 rows as stored, int8
-        codes times their scale, PQ as the codebook decode (un-rotated) plus
-        the slot's centroid."""
-        if self.pq_m is None:
-            rows = self.corpus[slots].to(torch.float32)
-            if self.quantized:
-                rows = rows * self.slot_scale[slots][:, None]
-            return rows
+        """Stored rows of this rank's ``slots`` as fp32 (:meth:`_decode`)."""
         stored = self.corpus[:, slots].T if self._pq_cols else self.corpus[slots]
+        return self._decode(stored, lambda: self.centroids[slots // self.capacity],
+                            self.slot_scale[slots] if self.quantized else None)
+
+    def _decode(self, stored: torch.Tensor, centroids, scale: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+        """fp32 rows of stored slot entries ``stored`` [n, D] (PQ codes [n,
+        m]): fp32/bf16 rows as stored, int8 codes times their ``scale``, PQ
+        as the codebook decode (un-rotated) plus ``centroids()``, each
+        slot's cluster centroid [n, D]."""
+        if self.pq_m is None:
+            rows = stored.to(torch.float32)
+            if self.quantized:
+                rows = rows * scale[:, None]
+            return rows
         m = self.pq_m
         z = _pq_reconstruct(stored, self.codebooks, m, self.dim // m).to(torch.float32)
         if self.rotation is not None:
             z = z @ self.rotation.T  # codes hold z = residual @ rot
-        return z + self.centroids[slots // self.capacity]
+        return z + centroids()
 
     def _rerank_scores(self, queries: torch.Tensor, rows: torch.Tensor,
                        slots: torch.Tensor) -> torch.Tensor:
@@ -1448,7 +1547,8 @@ class IVFIPIndex(Shards):
         eligibility mask on the index's device (ineligible rows score -inf
         after the kernels, before the top-k; the probed clusters do not
         change). Unreachable tail slots are -inf / -1. Sharded, each rank
-        probes its own clusters and the shards' candidates merge (a
+        probes its own clusters (the hybrid picks and reranks its
+        candidates there too) and the shards' candidates merge (a
         collective; every rank returns the same)."""
         k = min(k, self.n_total)
         p, kk = self._effective_probe(k, nprobe)
@@ -1460,14 +1560,15 @@ class IVFIPIndex(Shards):
         if sel is not None:
             ok &= sel[hit_ids.clamp_min(0).long()]
         if self.reduced_dim is not None:
-            return self._search_hybrid(q, probe, hit_ids, ok, k, kk, candidates)
-        if self.pq_m is not None:
-            s = self._probe_block_pq(q, probe, cent_s)
+            top_s, top_i = self._search_hybrid(q, probe, hit_ids, ok, k, kk, candidates)
         else:
-            s = self._probe_block(q, probe)
-        s = torch.where(ok, s, NEG_INF)
-        top_s, pos = exact_topk(s, kk)
-        top_i = torch.gather(hit_ids, 1, pos).long()
+            if self.pq_m is not None:
+                s = self._probe_block_pq(q, probe, cent_s)
+            else:
+                s = self._probe_block(q, probe)
+            s = torch.where(ok, s, NEG_INF)
+            top_s, pos = exact_topk(s, kk)
+            top_i = torch.gather(hit_ids, 1, pos).long()
         if self.group is not None:
             return self._merge(top_s, top_i, k)
         return top_s, top_i
@@ -1531,7 +1632,7 @@ class IVFIPIndex(Shards):
         "pq_rotate", "pq_layout", "codebooks", "_codebooks_host", "rotation",
         "_rotation_host", "n_clusters", "centroids", "_centroids_host",
         "proj", "nprobe", "local_clusters", "balance_eta",
-        "_assign_bias_host", "assign_bias", "kmeans_split",
+        "_assign_bias_host", "assign_bias", "kmeans_split", "group", "dp", "shard",
     )
 
     def _clone_shell(self) -> "IVFIPIndex":
@@ -1545,15 +1646,17 @@ class IVFIPIndex(Shards):
 
     def _grown_storage(self, new_cap: int):
         """Every slot array widened to ``new_cap`` slots per cluster (new
-        slots empty: zero rows and codes, scale 1e-12, id -1). Returns
-        (corpus, slot_scale, corpus_low, row_ids_host)."""
-        k_c, cap = self.n_clusters, self.capacity
+        slots empty: zero rows and codes, scale 1e-12, id -1): this rank's
+        clusters on the device (a growth never crosses a shard), every
+        cluster's ids on the host. Returns (corpus, slot_scale, corpus_low,
+        row_ids_host)."""
+        k_c, cap = self.local_clusters, self.capacity
         corpus = _grow_slots(self.corpus, k_c, cap, new_cap, axis=1 if self._pq_cols else 0)
         slot_scale = (_grow_slots(self.slot_scale, k_c, cap, new_cap, fill=1e-12)
                       if self.slot_scale is not None else None)
         corpus_low = (_grow_slots(self.corpus_low, k_c, cap, new_cap)
                       if self.corpus_low is not None else None)
-        row_ids_host = np.pad(self._row_ids_host.reshape(k_c, cap),
+        row_ids_host = np.pad(self._row_ids_host.reshape(self.n_clusters, cap),
                               ((0, 0), (0, new_cap - cap)), constant_values=-1).reshape(-1)
         return corpus, slot_scale, corpus_low, row_ids_host
 
@@ -1604,15 +1707,19 @@ class IVFIPIndex(Shards):
         (second choice, then spill); when free slots run out, every
         cluster's capacity grows by the same multiple of the slot rounding
         (``headroom`` pre-pays extra free slots). ``nprobe`` survives.
-        Returns a new index."""
-        self._refuse_sharded("IVFIPIndex.append_sharded")
+        Returns a new index. Over a group ``new_rows`` is every new row on
+        every rank: each assigns them against every cluster's centroid, runs
+        the same host placement, and writes the slots of its own clusters
+        (a growth keeps each shard's clusters on it)."""
         rows = torch.as_tensor(new_rows, dtype=torch.float32)
         n_new = validate_append_args(rows, n_new, headroom, self.dim)
         rows = rows[:n_new].to(self.device)
         budget = _CHUNK_BUDGET_CUDA if self.device.type == "cuda" else _CHUNK_BUDGET
-        cand = _assign_top2_body(rows, self.centroids,
+        bias = (None if self._assign_bias_host is None
+                else torch.from_numpy(self._assign_bias_host).to(self.device))
+        cand = _assign_top2_body(rows, self._all_centroids(),
                                  chunk=_chunk_rows(n_new, self.n_clusters, budget),
-                                 bias=self.assign_bias).cpu().numpy()
+                                 bias=bias).cpu().numpy()
         out = self._clone_shell()
         total_free = int((self._row_ids_host < 0).sum())
         if total_free < n_new:
@@ -1628,7 +1735,11 @@ class IVFIPIndex(Shards):
             corpus_low = self.corpus_low.clone() if self.corpus_low is not None else None
             row_ids_host = self._row_ids_host
         slots_np = out._place_free(row_ids_host, cand, out.capacity)
-        slots = torch.from_numpy(slots_np).to(self.device)
+        own = out._own_slots()
+        mine = (slots_np >= own.start) & (slots_np < own.stop)
+        if not mine.all():  # the rows that land in this rank's clusters
+            rows = rows[torch.from_numpy(mine).to(self.device)]
+        slots = torch.from_numpy(slots_np[mine] - own.start).to(self.device)
         out._write_slots(rows, slots, corpus, slot_scale, out.capacity)
         if corpus_low is not None:
             corpus_low[slots] = (rows @ self.proj).to(torch.bfloat16)
@@ -1636,7 +1747,7 @@ class IVFIPIndex(Shards):
         new_row_ids = row_ids_host.copy()
         new_row_ids[slots_np] = np.arange(self.n_total, self.n_total + n_new,
                                           dtype=new_row_ids.dtype)
-        out.row_ids = torch.from_numpy(new_row_ids).to(self.device)
+        out.row_ids = torch.from_numpy(new_row_ids[own]).to(self.device)
         out.n_total = self.n_total + n_new
         out._set_layout_maps(new_row_ids)
         return out
@@ -1645,8 +1756,8 @@ class IVFIPIndex(Shards):
         """Drop rows by corpus position (FAISS ``remove_ids``): survivors
         renumber down in order. Only ``row_ids`` changes (removed slots
         become empty, -1); the storage tensors are shared with this index,
-        and freed slots take later appends."""
-        self._refuse_sharded("IVFIPIndex.remove_rows")
+        and freed slots take later appends. Over a group every rank
+        renumbers the global ids on the host and keeps its own slots'."""
         removed = np.unique(np.asarray(removed, np.int64).reshape(-1))
         if removed.size == 0:
             return self
@@ -1667,13 +1778,9 @@ class IVFIPIndex(Shards):
         is_removed = np.isin(r, removed.astype(r.dtype)) & (r >= 0)
         shift = np.searchsorted(removed, np.clip(r, 0, None)).astype(r.dtype)
         new_row_ids = np.where((r < 0) | is_removed, np.int32(-1), r - shift)
-        out.row_ids = torch.from_numpy(new_row_ids).to(self.device)
+        out.row_ids = torch.from_numpy(new_row_ids[out._own_slots()]).to(self.device)
         out._set_layout_maps(new_row_ids)
         return out
-
-    def _refuse_sharded(self, what: str) -> None:
-        if self.dp > 1:
-            raise NotImplementedError(_NOT_SHARDED.format(what, self.dp))
 
     def reconstruct(self, ids) -> np.ndarray:
         """Stored rows of corpus ids as fp32 (FAISS ``reconstruct_batch``):
@@ -1689,9 +1796,11 @@ class IVFIPIndex(Shards):
         out = []
         for lo in range(0, slots.size, _RECON_CHUNK):
             sl = slots[lo : lo + _RECON_CHUNK]
-            rows = self._gather_slots(self.corpus, sl).to(torch.float32)
-            if self.quantized:
-                rows = rows * self._gather_slots(self.slot_scale, sl)[:, None]
+            rows = self._decode(
+                self._gather_slots(self.corpus, sl),
+                lambda: torch.from_numpy(self._centroids_host[sl // self.capacity]).to(
+                    self.device),
+                self._gather_slots(self.slot_scale, sl) if self.quantized else None)
             out.append(rows.cpu().numpy())
         return np.concatenate(out)
 

@@ -84,6 +84,8 @@ class RefineIPIndex(RowShards):
     Rows at or past ``n_total`` are zero padding (free append room).
     Sharded, ``corpus`` and ``corpus_low`` hold this rank's shard."""
 
+    _replicated = ("proj",)
+
     def __init__(
         self,
         embeddings,

@@ -163,7 +163,6 @@ class MultihostFrontend:
     def add_passages(self, texts: Sequence[str], *, ids=None, **kwargs) -> None:
         """Every rank encodes the new texts and appends them to its shard."""
         self._rank0("add_passages")
-        self.service._refuse_mutation()  # before anything is broadcast
         texts = list(texts)
         if not texts or not all(isinstance(t, str) for t in texts):
             raise ValueError("add_passages takes a non-empty list of texts")
@@ -180,7 +179,6 @@ class MultihostFrontend:
 
     def remove_passages(self, ids) -> int:
         self._rank0("remove_passages")
-        self.service._refuse_mutation()
         ids = sorted({int(i) for i in ids})
         n = self.ntotal
         self._require_index()

@@ -33,9 +33,9 @@ crosses processes), and each search, mutation, save and load is a
 collective of the group that every rank must run in the same order;
 ``serve/multihost.py`` drives the ranks from rank 0. The JAX service slices
 the queries across processes instead (``service.py:1019-1022``). Rank 0
-writes the index file while the others wait. A sharded IVF index takes no
-``add_passages`` / ``remove_passages``, and its PQ and PCA-hybrid specs
-stay one process's (ROADMAP.md Queue 1, item 8c-ii).
+writes the index file while the others wait. A sharded IVF index (rows,
+PQ codes or the PCA hybrid) mutates as the flat tier does: every rank
+appends every added passage's row, and keeps those of its own clusters.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.data.packing import pack_token_lists
 from rankpo_tpu_torch.index import io as index_io
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
-from rankpo_tpu_torch.index.factory import check_sharded_tier, resolve_index_spec, shard_count
+from rankpo_tpu_torch.index.factory import resolve_index_spec
 from rankpo_tpu_torch.index.flat import (
     FlatIPIndex,
     build_selector_mask,
@@ -160,7 +160,6 @@ class RetrievalService:
         self.recall_target = recall_target
         self.index_type, self.index_dtype, self.index_kwargs = resolve_tier(
             index_type, index_dtype, index_kwargs)
-        check_sharded_tier(self.index_type, shard_count(group), self.index_kwargs)
         self.group = group
         self.stable_ids = stable_ids
         self.pack_queries = pack_queries
@@ -319,14 +318,6 @@ class RetrievalService:
         return ext
 
     # ------------------------------------------------------------------
-    def _refuse_mutation(self) -> None:
-        """Raise for add / remove on an IVF index sharded over more than one
-        rank (its mutations are not ported), before any collective."""
-        if self.index_type == "ivf" and shard_count(self.group) > 1:
-            raise NotImplementedError(
-                f"add and remove on an IVF index over {shard_count(self.group)} shards are "
-                "not ported to rankpo_tpu_torch yet (ROADMAP.md Queue 1, item 8c-ii)")
-
     def add_passages(self, texts: Sequence[str], *, max_passage_length: int = 512,
                      batch_size: int = 256, ids=None) -> None:
         """Append passages to the built index (FAISS ``add``; with ``ids``,
@@ -335,7 +326,6 @@ class RetrievalService:
         trained parts and tuned knobs stay as they are, and the new passages
         take the next corpus positions. ``ids``: external ids of the new
         passages (none may be live); default max(live) + 1 onwards."""
-        self._refuse_mutation()
         self._require_stable_for(ids)
         with self._mutate_lock:
             index, old_texts, old_ext = self._state
@@ -374,7 +364,6 @@ class RetrievalService:
         unknown ones are ignored, and the survivors keep theirs. The index
         drops the rows on the device (``remove_rows``); the model never
         runs."""
-        self._refuse_mutation()
         with self._mutate_lock:
             index, old_texts, old_ext = self._state
             if index is None:

@@ -14,9 +14,18 @@ Measurement notes:
     synchronized before and after: the path every consumer (evaluation,
     mining, the serving fallback) takes, results on the host included, so
     the candidates are compared on the same footing.
-  - Memory sums the bytes of every tensor the index holds (storage, scales,
-    centroids, projections, codebooks).
+  - Memory is the index's ``nbytes()``: the bytes of every tensor it holds
+    (storage, scales, centroids, projections, codebooks).
   - Build time is reported, never optimized for: an index builds once.
+
+Over a process group (``group=``, the data group; JAX runs the ladder on
+its mesh, ``local_mesh()``), the oracle and every tier of the ladder are
+sharded over the group, as JAX builds them on that mesh: every rank holds
+the whole embedding matrix and the same queries, and each build and
+search is a collective. Memory is then the sum over the ranks, a tensor
+every rank holds whole (codebooks, rotation, PCA basis) counted once:
+JAX's global ``nbytes``. Each time is the slowest rank's, so
+every rank ranks the specs alike and returns the same report.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from rankpo_tpu_torch.core import mesh
 from rankpo_tpu_torch.core.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -50,10 +60,13 @@ def default_specs(n: int, dim: int) -> List[str]:
     return specs
 
 
-def _device_bytes(index) -> int:
-    """Bytes of every torch tensor the index holds."""
-    return sum(v.numel() * v.element_size() for v in vars(index).values()
-               if isinstance(v, torch.Tensor))
+def _slowest(seconds: float, group, device) -> float:
+    """The largest of the ranks' ``seconds`` (a collective); ``seconds``
+    without a group."""
+    if group is None:
+        return seconds
+    t = torch.tensor([seconds], dtype=torch.float64, device=device)
+    return float(mesh.all_reduce_(t, group, op=torch.distributed.ReduceOp.MAX).item())
 
 
 def _sync(device: torch.device) -> None:
@@ -74,9 +87,12 @@ def autotune_index(
     batch_size: int = 1024,
     seed: int = 0,
     device="cuda",
+    group=None,
 ) -> Dict:
     """Benchmark candidate factory specs on ``embeddings`` (host fp32 [N,
-    D], placed on ``device``) and recommend one.
+    D], placed on ``device``) and recommend one. ``group``: the process
+    group to shard the oracle and every tier over (module docstring; a
+    collective, every rank passes the same embeddings and queries).
 
     Returns {"results": [per-spec dicts], "best": spec or None, "k", ...}.
     ``best`` is the highest-QPS spec with recall >= recall_target and memory
@@ -102,8 +118,9 @@ def autotune_index(
             (len(picks), dim)).astype(np.float32)
     queries = np.asarray(queries, np.float32)
     emb = torch.from_numpy(embeddings).to(device)
+    shard = {} if group is None else {"group": group}
 
-    _, exact_ids = FlatIPIndex(emb).search(queries, k=k, batch_size=batch_size)
+    _, exact_ids = FlatIPIndex(emb, **shard).search(queries, k=k, batch_size=batch_size)
     exact_sets = [set(map(int, row[row >= 0])) for row in exact_ids]
     budget_bytes = memory_budget_gb * (1 << 30) if memory_budget_gb is not None else None
 
@@ -117,14 +134,14 @@ def autotune_index(
             with torch.inference_mode():
                 if kind == "refine":
                     kwargs.setdefault("recall_target", recall_target)
-                    index = RefineIPIndex(emb, **kwargs)
+                    index = RefineIPIndex(emb, **kwargs, **shard)
                 elif kind == "ivf":
                     kwargs.setdefault("recall_target", recall_target)
-                    index = IVFIPIndex(emb, **kwargs)
+                    index = IVFIPIndex(emb, **kwargs, **shard)
                 else:
-                    index = FlatIPIndex(emb, **kwargs)
+                    index = FlatIPIndex(emb, **kwargs, **shard)
             _sync(device)
-            row["build_s"] = round(time.perf_counter() - t0, 3)
+            row["build_s"] = round(_slowest(time.perf_counter() - t0, group, device), 3)
         except Exception as e:  # report, don't end the sweep
             row["error"] = str(e)
             results.append(row)
@@ -145,7 +162,7 @@ def autotune_index(
                 t0 = time.perf_counter()
                 index.search(queries, k=k, batch_size=batch_size)
                 _sync(device)
-                best_dt = min(best_dt, time.perf_counter() - t0)
+                best_dt = min(best_dt, _slowest(time.perf_counter() - t0, group, device))
         except Exception as e:  # e.g. a tuned nprobe that runs out of memory
             row["error"] = str(e)
             results.append(row)
@@ -153,7 +170,7 @@ def autotune_index(
             del index
             continue
         row["qps"] = round(len(queries) / best_dt, 1)
-        mem_bytes = _device_bytes(index)
+        mem_bytes = index.nbytes()
         row["memory_mb"] = round(mem_bytes / (1 << 20), 2)
         row["feasible"] = bool(recall >= recall_target
                                and (budget_bytes is None or mem_bytes <= budget_bytes))

@@ -39,8 +39,6 @@ from rankpo_tpu_torch.data.datasets import load_mining_rows
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
 from rankpo_tpu_torch.index.factory import (
     build_offline_index,
-    check_sharded_tier,
-    shard_count,
     resolve_index_spec,
 )
 
@@ -192,7 +190,6 @@ def find_hard_negatives(
 
     # an invalid spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
-    check_sharded_tier(index_type, shard_count(group), index_kwargs)
 
     train_rows, queries, corpus = load_mining_rows(input_file)
     # the reference samples ONE positive per row at load time (:207) for the

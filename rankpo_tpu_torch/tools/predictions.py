@@ -38,8 +38,6 @@ from rankpo_tpu_torch.data.datasets import load_eval_corpus, load_eval_queries
 from rankpo_tpu_torch.index.encoding import InferenceEncoder
 from rankpo_tpu_torch.index.factory import (
     build_offline_index,
-    check_sharded_tier,
-    shard_count,
     resolve_index_spec,
 )
 from rankpo_tpu_torch.utils.jsonl import write_jsonl
@@ -82,7 +80,6 @@ def generate_predictions(
 
     # an invalid spec fails here, not after the corpus encode
     index_type, index_kwargs = resolve_index_spec(index_type, index_kwargs)
-    check_sharded_tier(index_type, shard_count(group), index_kwargs)
     queries, _labels = load_eval_queries(query_data)
     corpus = load_eval_corpus(corpus_data)
 

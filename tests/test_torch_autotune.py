@@ -4,9 +4,15 @@ default ladder, the same recall for every spec on the same embeddings and
 queries (exact flat and int8 flat storage: their hits are the JAX index's
 outside near-ties, so recall within 1/(Q k) of a hit or two), the memory
 column and budget filter, bad specs reported, and the CLI's synthetic
-corpus bit-equal to the JAX CLI's."""
+corpus bit-equal to the JAX CLI's. At W = 2 (two gloo processes,
+``torch_serve_workers.autotune_worker``) every tier of a ladder with PQ,
+OPQ and the hybrid shards over the group: both ranks return the same
+report (the same ``best``), and each spec's memory equals the one-process
+ladder's (the cluster counts are even, so both build the same shapes)."""
 
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -19,6 +25,10 @@ from rankpo_tpu.tools import default_specs as jax_default_specs
 from rankpo_tpu_torch.cli import autotune as cli
 from rankpo_tpu_torch.index.factory import parse_index_spec
 from rankpo_tpu_torch.tools.autotune import autotune_index, default_specs
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_dist_workers as workers  # noqa: E402
+import torch_serve_workers as sw  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -104,3 +114,55 @@ def test_cli_synthetic(capsys, tmp_path):
     assert json.loads(last) == report == json.loads(out.read_text())
     with pytest.raises(SystemExit):
         cli.main(["--synthetic_rows", "8", "--embeddings", "x.npy", "--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("autotune_w2"))
+    emb = _unit_rows(4096, 32, seed=5)
+    np.save(os.path.join(out, "emb.npy"), emb)
+    workers.spawn(sw.autotune_worker, 2, out, timeout=240.0)
+    return out, emb, [workers.load(out, f"autotune_{r}.pt") for r in range(2)]
+
+
+def test_autotune_at_two_ranks_matches_one_process(two_ranks):
+    """Both ranks' reports are the same (times are the slowest rank's), every
+    spec of the ladder built and searched, and each spec's memory is the
+    one-process ladder's (the sum over the ranks, a replicated codebook,
+    rotation or basis counted once)."""
+    _, emb, ranks = two_ranks
+    got = ranks[0]["tool"]
+    assert ranks[1]["tool"] == got and got["best"] is not None
+    one = autotune_index(emb, specs=sw.AUTOTUNE_SPECS, device="cpu", **sw.AUTOTUNE_KW)
+    mem = {r["spec"]: r["memory_mb"] for r in one["results"]}
+    for row in got["results"]:
+        assert "error" not in row and 0.0 <= row["recall"] <= 1.0, row
+        assert row["memory_mb"] == mem[row["spec"]], row["spec"]
+    assert {r["spec"] for r in got["results"]} == set(sw.AUTOTUNE_SPECS)
+
+
+def test_cli_autotune_at_two_ranks(two_ranks):
+    """``cli.autotune`` joins the process group: both ranks return the same
+    report, and rank 0 alone writes ``--output_file``."""
+    out, _, ranks = two_ranks
+    assert ranks[1]["cli"] == ranks[0]["cli"] and ranks[0]["cli"]["best"] is not None
+    with open(os.path.join(out, "report_0.json")) as f:
+        assert json.loads(f.read()) == ranks[0]["cli"]
+    assert not os.path.exists(os.path.join(out, "report_1.json"))
+
+
+@pytest.mark.parametrize("spec", ["Flat", "SQ8", "PCA16,Flat", "IVF8,PQ8", "OPQ8,IVF8,PQ8",
+                                  "PCA16,IVF8,SQbf16"])
+def test_nbytes_counts_every_tensor_in_one_process(spec):
+    """The memory column is the index's ``nbytes()``: in one process the
+    bytes of every tensor it holds, the ones a group would hold whole
+    (``_replicated``) included."""
+    from rankpo_tpu_torch.index.factory import build_offline_index
+
+    emb = torch.from_numpy(_unit_rows(1024, 32, seed=6))
+    index_type, kwargs = parse_index_spec(spec)
+    index = build_offline_index(emb, len(emb), index_type, kwargs, 0.9)
+    tensors = [v for v in vars(index).values() if isinstance(v, torch.Tensor)]
+    assert index.nbytes() == sum(t.numel() * t.element_size() for t in tensors) > 0
+    assert all(isinstance(getattr(index, name), (torch.Tensor, type(None)))
+               for name in index._replicated)

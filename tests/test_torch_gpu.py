@@ -1310,6 +1310,52 @@ def test_pq_adc_every_launch_shape_gives_the_same_bits(cuda, layout):
         assert torch.equal(got, seq), plan
 
 
+@pytest.mark.parametrize("shard", [0, 1])
+@pytest.mark.parametrize("cap,m,route", [(128, 64, "tma"), (37, 24, "ldg")])
+def test_pq_adc_on_one_shard_of_a_sharded_index(cuda, shard, cap, m, route):
+    """K5 as an index sharded over two ranks launches it: on one shard's
+    codes (its 32 of 64 clusters, a view into the whole layout) with local
+    cluster ids, at the smoke's per-shard capacity (IVF64,PQ64) and at an
+    unaligned one (route "ldg"). Bit-equal to the contract's sequential
+    fp32 sum and to K5 on the whole layout at the global ids, within the
+    plain version's tolerance (it sums in torch's reduction order)."""
+    from rankpo_tpu_torch.ops import pq_adc
+
+    g = torch.Generator().manual_seed(cap + m + shard)
+    k_all, k_local, q_n, p_n = 64, 32, 16, 9
+    codes = torch.randint(0, 256, (k_all * cap, m), generator=g, dtype=torch.uint8).to(cuda)
+    local = codes[shard * k_local * cap:(shard + 1) * k_local * cap]
+    lut = (torch.randn(q_n, m, pq_adc.PQ_K, generator=g) / m**0.5).to(cuda)
+    probe = _probe(k_local, q_n, p_n, g).to(cuda)
+    assert pq_adc.plan_for(local, probe, cap, m).route == route
+    before = pq_adc.launches["pq_adc_rows"]
+    got = pq_adc.pq_probe_scores(local, probe, lut, cap=cap)
+    torch.cuda.synchronize()
+    assert pq_adc.launches["pq_adc_rows"] - before == 1
+    assert torch.equal(got, _sequential_adc(local, probe, lut, cap, False))
+    whole = pq_adc.pq_probe_scores(codes, probe + shard * k_local, lut, cap=cap)
+    assert torch.equal(got, whole)
+    ref = pq_adc.pq_probe_scores_plain(local, probe, lut, cap=cap)
+    err = (got - ref).abs().max().item()
+    assert err <= IVF_RTOL_OF_MAX * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("d", [64, 2048])
+def test_opq_procrustes_on_card_matches_host(cuda, d):
+    """OPQ's rotation update from a CUDA cross moment (cuSOLVER's float64
+    SVD) equals the host's (numpy's, the JAX package's) within 1e-5, and is
+    orthogonal."""
+    from rankpo_tpu_torch.index.ivf import _procrustes
+
+    g = torch.Generator().manual_seed(d)
+    mtx = torch.randn(d, d, generator=g) + 4.0 * torch.eye(d)
+    host = _procrustes(mtx)
+    card = _procrustes(mtx.to(cuda))
+    assert card.dtype == np.float32 and card.shape == (d, d)
+    np.testing.assert_allclose(card, host, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(card @ card.T, np.eye(d), atol=1e-4, rtol=0)
+
+
 def test_ivf_kernels_reject_what_they_do_not_take(cuda):
     from rankpo_tpu_torch.ops import ivf_gather, pq_adc
 

@@ -157,6 +157,33 @@ def test_whole_build_matches_jax(kw):
         np.testing.assert_array_equal(p.slot_scale.numpy(), np.asarray(j.slot_scale))
 
 
+# OPQ (the sharded tests' build: pq_m 8, pq_iters 10) alternates its Lloyd
+# fits and Procrustes rotations eight times, and fp32 sums in another order
+# move the rotation: its codes are held to JAX's at a lower agreement than
+# plain PQ's, in one process as over two shards
+OPQ = dict(recall_target=0.9, kmeans_iters=5, tune_sample=32, tune_k=10, pq_m=8,
+           pq_iters=10, pq_rotate="opq")
+OPQ_BUILD_AGREEMENT = 0.95
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5, 6])
+def test_opq_build_matches_jax_in_one_process(seed):
+    """One process: K, capacity and ``row_ids`` equal JAX's, the tuned
+    nprobe within one, and the filled slots' codes agree in at least
+    OPQ_BUILD_AGREEMENT of their entries (the limit two shards are held to
+    in tests/test_torch_sharded_ivf.py)."""
+    corpus, _ = _corpus_queries(n=2000, n_q=24, d=64, seed=seed)
+    j = jivf.IVFIPIndex(corpus, **OPQ)
+    p = pivf.IVFIPIndex(corpus, **OPQ)
+    assert (p.n_clusters, p.capacity) == (j.n_clusters, j.capacity)
+    assert abs(p.nprobe - j.nprobe) <= 1
+    row_ids = p.row_ids.numpy()
+    np.testing.assert_array_equal(row_ids, np.asarray(j.row_ids))
+    filled = row_ids >= 0
+    same = _storage_bits(p.corpus)[filled] == _storage_bits(j.corpus)[filled]
+    assert same.mean() >= OPQ_BUILD_AGREEMENT, same.mean()
+
+
 # ----------------------------------------------------------------------
 VARIANTS = {  # name -> (JAX constructor kwargs, nprobe)
     "bf16": ({}, 4),

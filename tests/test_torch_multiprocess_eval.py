@@ -103,7 +103,7 @@ def eval_run(workspace):
     os.makedirs(out)
     workers.save(out, "eval_cfg.pt", {"ckpt": ckpt, "queries": str(root / "q.jsonl"),
                                       "corpus": str(root / "c.jsonl"), "batch_size": 8})
-    workers.spawn(sw.eval_worker, 2, out, timeout=150.0)
+    workers.spawn(sw.eval_worker, 2, out, timeout=240.0)
     return out, [workers.load(out, f"eval_{r}.pt") for r in range(2)]
 
 
@@ -151,14 +151,19 @@ def test_evaluate_path_matches_one_process_and_jax(workspace, eval_run, mesh2, t
     _close(ranks[0][tier]["main"], jm)
 
 
-def test_ivf_and_autotune_still_refused_at_two_ranks(eval_run):
-    """What is left of item 8c (8c-ii) raises on every rank, naming it:
-    cli.autotune, and a PQ IVF spec at the hook's construction. A plain
-    IVF runs at W = 2 (``test_evaluate_path_matches_one_process_and_jax``)."""
-    _, ranks = eval_run
+@pytest.mark.parametrize("tier", sw.EVAL_CODECS)
+def test_pq_and_hybrid_specs_at_two_ranks(eval_run, tier):
+    """PQ codes and the PCA hybrid over the group: ``evaluate_path`` at
+    W = 2 returns the same metrics on both ranks, rank 0 writes them, and
+    the in-training hook on a live model of the same weights gives them
+    within 1e-6."""
+    out, ranks = eval_run
+    assert ranks[1][tier] == ranks[0][tier]
+    idx, _, saved = _arrays(os.path.join(out, f"w2_{tier}_0"), tier)
+    assert saved == ranks[0][tier]["main"] and idx.shape == (N_DOCS // 4, K)
     for r in range(2):
-        for key in ("autotune_error", "hook_pq_error"):
-            assert "item 8c-ii" in ranks[r][key], key
+        _close({k[len("retrieval_"):]: v for k, v in ranks[r][f"hook_{tier}"].items()
+                if k != "retrieval_eval_runtime"}, ranks[0][tier]["main"])
 
 
 def test_live_model_shards_run_as_many_batches(eval_run):

@@ -223,21 +223,13 @@ def test_http_server(checkpoint):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--coordinator_address", "127.0.0.1:1"], "needs --num_processes and --process_id"),
-    (["--index_type", "IVF8,PQ8", "--num_processes", "2"], "item 8c")])
-def test_unported_flags_fail(checkpoint, flag, item, capsys):
-    """The three multi-process flags are ported; what still fails: half a
-    set of them, as ``DistributedArguments.initialize`` fails in the
-    training CLIs, and a PQ IVF index over several processes (a plain IVF
-    shards), at parse time with its ROADMAP.md item (8c-ii)."""
-    if "--coordinator_address" in flag:
-        with pytest.raises(ValueError, match=item):
-            cli.main(_argv(checkpoint, "--device", "cpu", *flag))
-        return
-    with pytest.raises(SystemExit):
+    (["--coordinator_address", "127.0.0.1:1"], "needs --num_processes and --process_id")])
+def test_unported_flags_fail(checkpoint, flag, item):
+    """The three multi-process flags are ported, and every index spec
+    shards over several processes; what still fails: half a set of them,
+    as ``DistributedArguments.initialize`` fails in the training CLIs."""
+    with pytest.raises(ValueError, match=item):
         cli.main(_argv(checkpoint, "--device", "cpu", *flag))
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP.md" in err and item in err
 
 
 def test_pack_queries_serves_the_unpacked_hits(checkpoint):

@@ -216,35 +216,128 @@ def sharded_ivf_ops(data: dict, group) -> dict:
     return {"shared": shared, "local": local}
 
 
-def _refusals(data: dict, group) -> dict:
-    """What stays one device's raises at W = 2, naming its ROADMAP item."""
-    from rankpo_tpu_torch.cli import autotune
+# PQ codes and the PCA hybrid over the group: name -> (constructor or
+# from_sharded, extra kwargs), each also built by JAX on its mesh
+IVF_CODEC_BUILDS = {
+    "pq": ("ctor", {"pq_m": 8, "pq_iters": 10}),
+    "pq_sharded": ("sharded", {"pq_m": 8, "pq_iters": 10}),
+    "pq_random": ("ctor", {"pq_m": 16, "pq_iters": 10, "pq_rotate": "random"}),
+    "pq_opq": ("sharded", {"pq_m": 8, "pq_iters": 10, "pq_rotate": "opq"}),
+    "hybrid": ("ctor", {"reduced_dim": 16}),
+    "hybrid_sharded": ("sharded", {"reduced_dim": 16}),
+}
+# the mutation chain on a JAX mesh file of each storage: one append that
+# grows every cluster's capacity, then a removal
+IVF_MUTATED = ("bf16", "int8", "pq")
+IVF_MUTATION = {"append": 1100, "remove_step": 7}
+# files between one process and two: the port's W = 1 builds
+IVF_W1_CODECS = {"pq": {"pq_m": 8, "pq_iters": 10}, "hybrid": {"reduced_dim": 16}}
+
+
+def _codec_build(data: dict, name: str, group):
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+
+    how, kw = IVF_CODEC_BUILDS[name]
+    x = data["ivf_x"]
+    if how == "ctor":
+        return IVFIPIndex(x, group=group, **IVF_COMMON, **kw)
+    return IVFIPIndex.from_sharded(shard_of(x, group), len(x), group=group, **IVF_COMMON, **kw)
+
+
+def _codec_state(index) -> dict:
+    """This rank's storage and the replicated trained parts, as numpy."""
+    out = _storage(index)
+    for name in ("_codebooks_host", "_rotation_host"):
+        if getattr(index, name, None) is not None:
+            out[name] = getattr(index, name)
+    for name in ("proj", "corpus_low"):
+        if getattr(index, name, None) is not None:
+            t = getattr(index, name).cpu()
+            out[name] = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+    return out
+
+
+def full_probe(index, q, k: int = 20):
+    """Every cluster probed (the hybrid reranking every probed slot)."""
+    return index.search(q, k=k, nprobe=index.local_clusters,
+                        candidates=index.local_clusters * index.capacity)
+
+
+def _searches(index, data: dict) -> dict:
+    q = data["ivf_q"]
+    return {"search": index.search(q, k=20, batch_size=16),
+            "full": full_probe(index, q),
+            "exact": index.exact_search(q, k=20),
+            "reconstruct": index.reconstruct(data["ivf_recon_ids"])}
+
+
+def sharded_codec_ops(data: dict, group) -> dict:
+    """PQ and the hybrid over the group: the port's builds, JAX's mesh files
+    loaded at W = 2, the mutation chains, files between W = 1 and W = 2 and
+    the 'cols' rule."""
     from rankpo_tpu_torch.index import io
+    from rankpo_tpu_torch.index.ivf import IVFIPIndex
+
+    out_dir = data["out"]
+    shared, local = {}, {}
+    for name in IVF_CODEC_BUILDS:
+        index = _codec_build(data, name, group)
+        shared[f"codec_{name}"] = dict(
+            _searches(index, data), layout=index.pq_layout,
+            knobs=(index.n_clusters, index.capacity, index.local_clusters, index.nprobe),
+            candidates=index.candidates)
+        local[f"codec_{name}"] = _codec_state(index)
+        if name in ("pq", "hybrid"):  # the W = 2 file, read at W = 1 by the test
+            io.write_index(index, os.path.join(out_dir, f"ivf_w2_{name}.npz"))
+        # JAX's build of the same on its mesh, loaded at W = 2
+        loaded = io.read_index(os.path.join(out_dir, f"ivf_jax_{name}.npz"), device="cpu",
+                               group=group)
+        shared[f"jax_file_{name}"] = dict(_searches(loaded, data), nprobe=loaded.nprobe,
+                                          replicated=_codec_state(loaded).get(
+                                              "_codebooks_host"))
+    for name in IVF_W1_CODECS:
+        loaded = io.read_index(os.path.join(out_dir, f"ivf_w1_{name}.npz"), device="cpu",
+                               group=group)
+        shared[f"w1_file_{name}"] = (loaded.nprobe, loaded.local_clusters,
+                                     full_probe(loaded, data["ivf_q"]))
+    extra = data["ivf_extra"]
+    for name in IVF_MUTATED:
+        index = io.read_index(os.path.join(out_dir, f"ivf_jax_mut_{name}.npz"), device="cpu",
+                              group=group)
+        chain = []
+        grown = index.append_sharded(torch.from_numpy(extra), len(extra))
+        removed = grown.remove_rows(np.arange(0, grown.ntotal, IVF_MUTATION["remove_step"]))
+        for step in (grown, removed):
+            chain.append(dict(_searches(step, data), capacity=step.capacity,
+                              ntotal=step.ntotal, state=_codec_state(step),
+                              self_hits=step.search(extra[:50], k=10)[1]))
+        io.write_index(removed, os.path.join(out_dir, f"ivf_w2_mutated_{name}.npz"))
+        shared[f"mutated_{name}"] = [{k: v for k, v in c.items() if k != "state"}
+                                     for c in chain]
+        local[f"mutated_{name}"] = [c["state"] for c in chain]
+    x = data["ivf_x"][:600]
+    try:
+        IVFIPIndex(x, group=group, n_clusters=8, nprobe=4, pq_m=32, pq_layout="cols")
+        shared["cols"] = "no error"
+    except ValueError as e:
+        shared["cols"] = str(e)
+    shared["auto_layout"] = IVFIPIndex(x, group=group, n_clusters=8, nprobe=4, pq_m=32,
+                                       kmeans_iters=3, pq_iters=5).pq_layout
+    return {"shared": shared, "local": local}
+
+
+def _refusals(data: dict, group) -> dict:
+    """What stays one device's by design raises at W = 2: the port's own
+    filtered tuner."""
     from rankpo_tpu_torch.index.ivf import IVFIPIndex
 
     x = data["ivf_x"][:400]
     index = IVFIPIndex(x, group=group, n_clusters=8, nprobe=2)
-    calls = {
-        "pq": lambda: IVFIPIndex(x, group=group, pq_m=8),
-        "hybrid": lambda: IVFIPIndex.from_sharded(shard_of(x, group), len(x), group=group,
-                                                  reduced_dim=16),
-        "append": lambda: index.append_sharded(torch.from_numpy(x[:8]), 8),
-        "remove": lambda: index.remove_rows([0, 1]),
-        "filtered_tune": lambda: index.search(x[:2], k=5, nprobe="filtered",
-                                              allowed_ids=[0, 1, 2]),
-        "pq_file": lambda: io.read_index(os.path.join(data["out"], "ivf_pq_w1.npz"),
-                                         device="cpu", group=group),
-        "autotune": lambda: autotune.main(["--synthetic_rows", "64", "--synthetic_dim", "8",
-                                           "--device", "cpu"]),
-    }
-    out = {}
-    for name, call in calls.items():
-        try:
-            call()
-            out[name] = "no error"
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return out
+    try:
+        index.search(x[:2], k=5, nprobe="filtered", allowed_ids=[0, 1, 2])
+        return {"filtered_tune": "no error"}
+    except NotImplementedError as e:
+        return {"filtered_tune": str(e)}
 
 
 def sharded_ivf_worker(rank, world, out):
@@ -252,6 +345,9 @@ def sharded_ivf_worker(rank, world, out):
     data = load(out, "ivf_data.pt")
     data["out"] = out
     res = sharded_ivf_ops(data, group)
+    codec = sharded_codec_ops(data, group)
+    res["shared"].update(codec["shared"])
+    res["local"].update(codec["local"])
     res["refusals"] = _refusals(data, group)
     save(out, f"ivf_{rank}.pt", res)
 
@@ -259,7 +355,8 @@ def sharded_ivf_worker(rank, world, out):
 # ---------------------------------------------------------------------------
 # evaluation, the in-training hook and the tools
 
-EVAL_TIERS = ("flat", "refine", "ivf")
+EVAL_TIERS = ("flat", "refine", "ivf", "IVF16,PQ8", "PCA16,IVF16,Flat")
+EVAL_CODECS = EVAL_TIERS[3:]  # PQ codes and the hybrid over the group
 
 
 def eval_worker(rank, world, out):
@@ -285,7 +382,6 @@ def eval_worker(rank, world, out):
         device="cpu", batch_size=cfg["batch_size"], compute_dtype=torch.float32, k=20,
         cutoffs=(1, 5, 10, 20), tokenizer=tok, group=group)
     res["filler"] = _filler_batches(group, tok)
-    from rankpo_tpu_torch.cli import autotune
     from rankpo_tpu_torch.eval.in_training import RetrievalEvalHook
     from rankpo_tpu_torch.models import llama
     from rankpo_tpu_torch.models.hf_io import load_pretrained
@@ -294,18 +390,10 @@ def eval_worker(rank, world, out):
     config, state = load_pretrained(cfg["ckpt"])
     model = llama.LlamaEncoder.for_training(config, state, device="cpu",
                                             compute_dtype=torch.float32)
-    res["hook_ivf"] = RetrievalEvalHook(
-        tok, cfg["queries"], cfg["corpus"], k=20, cutoffs=(1, 5, 10, 20),
-        batch_size=cfg["batch_size"], compute_dtype=torch.float32, index_type="ivf")(model)
-    for name, call in (
-            ("autotune", lambda: autotune.main(["--synthetic_rows", "64", "--synthetic_dim",
-                                                "8", "--device", "cpu"])),
-            ("hook_pq", lambda: RetrievalEvalHook(tok, cfg["queries"], cfg["corpus"],
-                                                  index_type="IVF16,PQ8"))):
-        try:
-            call()
-        except NotImplementedError as e:
-            res[f"{name}_error"] = str(e)
+    for tier in ("ivf", *EVAL_CODECS):
+        res[f"hook_{tier}"] = RetrievalEvalHook(
+            tok, cfg["queries"], cfg["corpus"], k=20, cutoffs=(1, 5, 10, 20),
+            batch_size=cfg["batch_size"], compute_dtype=torch.float32, index_type=tier)(model)
     save(out, f"eval_{rank}.pt", res)
 
 
@@ -358,6 +446,29 @@ def hook_worker(rank, world, out):
     save(out, f"hook_{rank}.pt", res)
 
 
+AUTOTUNE_SPECS = ["Flat", "SQ8", "PCA16,Flat", "IVF16,SQbf16", "IVF16,PQ8", "OPQ8,IVF16,PQ8",
+                  "PCA16,IVF16,Flat"]
+AUTOTUNE_KW = dict(k=10, n_queries=32, repeats=1, recall_target=0.9)
+
+
+def autotune_worker(rank, world, out):
+    """``autotune_index(group=)`` and ``cli.autotune`` (joining the existing
+    group) at W = 2 over the same embeddings on every rank; only rank 0 may
+    write the CLI's report file."""
+    from rankpo_tpu_torch.cli import autotune as cli
+    from rankpo_tpu_torch.tools.autotune import autotune_index
+
+    group = data_group()
+    emb = np.load(os.path.join(out, "emb.npy"))
+    res = {"tool": autotune_index(emb, specs=AUTOTUNE_SPECS, device="cpu", group=group,
+                                  **AUTOTUNE_KW),
+           "cli": cli.main(["--embeddings", os.path.join(out, "emb.npy"), "--specs",
+                            ";".join(AUTOTUNE_SPECS[:2] + AUTOTUNE_SPECS[4:5]), "--k", "10",
+                            "--n_queries", "16", "--device", "cpu", "--log_level", "warning",
+                            "--output_file", os.path.join(out, f"report_{rank}.json")])}
+    save(out, f"autotune_{rank}.pt", res)
+
+
 def tools_worker(rank, world, out):
     """``get_hard_negatives`` and ``get_predictions`` at W = 2, each rank
     naming its own output (only rank 0's may appear)."""
@@ -373,14 +484,14 @@ def tools_worker(rank, world, out):
 # ---------------------------------------------------------------------------
 # serving
 
-SERVE_TIERS = ("flat", "refine", "ivf")
+SERVE_TIERS = ("flat", "refine", "ivf", "ivfpq")
+SERVE_SPECS = {"ivfpq": "IVF8,PQ8"}  # tier -> the service's index_type
 
 
 def serve_ops(service, frontend=None) -> list:
     """The calls the multihost test feeds a one-process service and the
     two-process frontend alike; returns each call's result. An IVF server
-    over the group takes no mutation, so its calls are searches only, one
-    with a per-call nprobe that probes every cluster."""
+    also takes a per-call nprobe that probes every cluster."""
     f = frontend or service
     texts = [f"q w{i} w{i + 3} w{2 * i}" for i in range(6)]
     res = [f.query(texts[0], k=5), f.query(texts, k=8),
@@ -388,7 +499,6 @@ def serve_ops(service, frontend=None) -> list:
            f.query(texts[:3], k=5, disallowed_ids=list(range(0, 40, 2)))]
     if service.index_type == "ivf":
         res.append(f.query(texts[:2], k=6, nprobe=service.index.n_clusters))
-        return res
     f.add_passages([f"added w{i} w{i + 1} passage" for i in range(7)])
     res.append(f.query(texts, k=8))
     res.append(f.remove_passages([0, 3, 44, 45]))
@@ -415,6 +525,8 @@ def _serve_tier(rank, out, cfg, tier, group, idle: bool):
 
     service = make_service(cfg, tier, group)
     frontend = MultihostFrontend(service)
+    if tier in SERVE_SPECS and rank == 0:  # the index before any mutation
+        frontend.save_index(os.path.join(out, f"built_{tier}.npz"))
     if rank != 0:
         frontend.follower_loop()
         save(out, f"serve_{tier}_{rank}.pt", {"n_dispatches": frontend.n_dispatches,
@@ -427,9 +539,10 @@ def _serve_tier(rank, out, cfg, tier, group, idle: bool):
                 lambda: frontend.query("x", k=3, allowed_ids=[10 ** 6]),
                 lambda: frontend.remove_passages([10 ** 6]),
                 lambda: frontend.add_passages([]),
-                # a sharded IVF server refuses a valid add; the other tiers
-                # refuse a per-call nprobe
-                (lambda: frontend.add_passages(["a new passage"])) if tier == "ivf"
+                # an IVF server takes a per-call nprobe; every server refuses
+                # external ids in positional mode
+                (lambda: frontend.add_passages(["a new passage"], ids=[99]))
+                if service.index_type == "ivf"
                 else (lambda: frontend.query("x", k=3, nprobe=4))):
         try:
             bad()
@@ -438,7 +551,7 @@ def _serve_tier(rank, out, cfg, tier, group, idle: bool):
             checks.setdefault("validation", []).append(type(e).__name__)
             checks.setdefault("messages", []).append(str(e))
     checks["sent_by_failed_validation"] = frontend.n_dispatches - sent
-    if tier == "ivf":  # a per-call nprobe, replayed on the followers
+    if service.index_type == "ivf":  # a per-call nprobe, replayed on the followers
         res["nprobe_1"] = frontend.query(["w1 w2 w3", "doc 4"], k=5, nprobe=1)
     frontend.max_payload = 4096
     try:
@@ -452,7 +565,7 @@ def _serve_tier(rank, out, cfg, tier, group, idle: bool):
         frontend._broadcast({"op": "remove", "ids": [10 ** 6]})
         try:
             service.remove_passages([10 ** 6])
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             checks["failed_dispatch"] = str(e)
     if idle:  # past the control group's timeout: the keep-alive holds the follower
         time.sleep(cfg["idle_s"])
@@ -506,8 +619,9 @@ def make_service(cfg: dict, tier: str, group):
     # an ulp that a passage's embedding moves with its batch never flips a
     # bf16 rounding)
     kwargs = {"refine": {"reduced_dim": 16, "candidates": 64},
-              "ivf": {"nprobe": 64}}.get(tier, {})
-    service = RetrievalService(encoder, max_query_length=32, index_type=tier,
+              "ivf": {"nprobe": 64}, "ivfpq": {"nprobe": 64}}.get(tier, {})
+    service = RetrievalService(encoder, max_query_length=32,
+                               index_type=SERVE_SPECS.get(tier, tier),
                                index_kwargs=kwargs, group=group,
                                index_dtype=torch.float32 if tier == "ivf" else None)
     service.build_index(load_eval_corpus(cfg["corpus"]), max_passage_length=64,
