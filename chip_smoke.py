@@ -53,8 +53,9 @@ version. Phases:
    D 128, fp32 over 8 packed rows of 1024, bf16 at D 80, fp16 at D 96,
    fp32 at D 512 and fp16 at D 1024, where the output columns split over
    blocks), two launches of each bit-equal, K3b's fp32 dK/dV rounded
-   bit-equal to the split backward's; timed at the first shape against the
-   plain versions, SDPA in fp32 and the fp32 bound (no tensor cores);
+   bit-equal to the split backward's; timed in fp32, bf16 and fp16 against
+   the plain versions, SDPA in the same dtype and the bounds (fp32: three
+   TF32 passes at the TF32 rate, and the rate without tensor cores);
 3. exact search on data with exact ties;
 4. serving path, seven times: a bf16 checkpoint written with the port's
    save_pretrained (the flat tier at full depth, the six others at 2 of
@@ -505,7 +506,10 @@ GENERIC_SHAPES = [(torch.float32, (2, 4096, 32, 8, 64), None, False),
                   (torch.float32, (1, 1024, 8, 2, 512), None, False),
                   (torch.float16, (1, 1024, 4, 2, 1024), None, False)]
 GENERIC_PACKED_LENS = (64, 1024)  # 2f's packed texts, in tokens
-GENERIC_TIMED = 5  # calls timed at the first shape
+GENERIC_TIMED = 5  # calls timed at each GENERIC_TIMED_SHAPES shape
+# 2f's timed shapes, one per dtype: fp32 (the JSON line's generic rows), bf16
+# at D 80, fp16 at D 96
+GENERIC_TIMED_SHAPES = (0, 3, 4)
 # the generic kernels against their plain versions on the same inputs in the
 # same dtype (tests/test_torch_gpu.py's limits): fp32 within 1e-5 of each
 # tensor's largest |plain| value (fp32 sums in other orders); a tensor
@@ -518,7 +522,7 @@ GENERIC_KERNELS = {  # name -> profiler name test of its generic kernel
     "flash_fwd": lambda n: "flash_fwd_generic" in n,
     "flash_bwd_fused": lambda n: "flash_kv_generic" in n and "true" in n,
     "flash_dq": lambda n: "flash_dq_generic" in n,
-    "flash_dkv": lambda n: "flash_kv_generic" in n and "false" in n,
+    "flash_dkv": lambda n: "flash_dkv_generic" in n,
 }
 # phase 5r: fp32 stage 1 at the reference's lengths (BASELINE.md:15), texts
 # long enough that every batch pads past 1024 positions (words, one token
@@ -546,6 +550,10 @@ K1_SHAPES = [  # K1 alone: (shape, every key length or None for random)
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores (K4's FMAs, K5/K6's adds)
+PEAK_TF32_FLOPS = 495e12  # TF32 tensor cores
+# the generic build's fp32 products: three TF32 passes (flash_generic.cu), the
+# least work of an fp32-accurate product on this card's tensor cores
+TF32_PASSES = 3
 PQ_LOOKUPS_PER_CLOCK = 132 * 32  # K5/K6: shared-memory reads, 32 banks on each of 132 SMs
 # IVF kernels against their plain versions: fp32 sums of the same exact
 # products (K4) or table entries (K5/K6) in another order differ by a few
@@ -879,6 +887,18 @@ def bound(cost, peak_ops: float = PEAK_BF16_FLOPS) -> tuple:
     nbytes, flops = cost
     t_bytes, t_flops = nbytes / PEAK_HBM_BYTES, flops / peak_ops
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def generic_bounds(cost, dtype) -> list:
+    """The generic build's bounds, [(ms, what bounds it)], for ``cost``
+    (bytes, FLOPs) in ``dtype``: in fp32 the bytes against three TF32
+    passes of the FLOPs at PEAK_TF32_FLOPS, then against the FLOPs at
+    PEAK_FP32_FLOPS (no tensor cores); in fp16 and bf16 against
+    PEAK_BF16_FLOPS."""
+    if dtype != torch.float32:
+        return [bound(cost, PEAK_BF16_FLOPS)]
+    nbytes, flops = cost
+    return [bound((nbytes, TF32_PASSES * flops), PEAK_TF32_FLOPS), bound(cost, PEAK_FP32_FLOPS)]
 
 
 def _sdpa_mask(mask, sq, sk, causal: bool = True, window=None):
@@ -1495,11 +1515,11 @@ def phase_kernels_generic(seed: int) -> dict:
     ``GENERIC_REL_L2``), two launches of each bit-equal, every launch in
     ``generic_launches`` and none routed; K3b's fp32 dK/dV (the ring's
     ``flash_dkv``) rounded to the dtype bit-equal to the split backward's.
-    Then times at the first shape (fp32 at Llama-3.2-1B's heads over 4096
-    positions, 5r's passages): each kernel's device time, the plain
-    versions', SDPA in fp32 with the boolean mask (its backward alone for
-    the backward kernels) and the bound (fp32 at PEAK_FP32_FLOPS, no tensor
-    cores, or the bytes, the larger)."""
+    Then times at GENERIC_TIMED_SHAPES, one per dtype (fp32 at Llama-3.2-1B's
+    heads over 4096 positions, 5r's passages; bf16 at D 80; fp16 at D 96):
+    each kernel's device time, the plain versions', SDPA in the same dtype
+    with the boolean mask (its backward alone for the backward kernels) and
+    the bounds (``generic_bounds``). Returns the fp32 shape's."""
     from rankpo_tpu_torch.ops import flash_attention as flash
     from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
@@ -1575,8 +1595,9 @@ def phase_kernels_generic(seed: int) -> dict:
             + ", ".join(f"{key} {e:.2e}" for key, e in errs.items())
             + f"; two launches of each bit-equal; fused vs split bit-equal dq {same[0]}, dk "
             f"{same[1]}, dv {same[2]}{f32}; generic launches {counted}")
-        if i == 0:
-            res = _time_generic(q, k, v, do, mask, lens, lse, delta, tag)
+        if i in GENERIC_TIMED_SHAPES:
+            timed = _time_generic(q, k, v, do, mask, lens, lse, delta, tag)
+            res = timed if i == 0 else res
         del q, k, v, do, out, lse, ref, rlse, plain, got, again
         torch.cuda.empty_cache()
     for name in KERNELS:
@@ -1588,9 +1609,10 @@ def phase_kernels_generic(seed: int) -> dict:
 
 
 def _time_generic(q, k, v, do, mask, lens, lse, delta, tag: str) -> dict:
-    """2f's times at its first shape (causal, skip_pad_q): each generic
-    kernel's device time (profiler, GENERIC_TIMED calls), the plain
-    versions' and SDPA's in the same dtype (CUDA events), and the bound."""
+    """2f's times at one GENERIC_TIMED_SHAPES shape (causal, skip_pad_q):
+    each generic kernel's device time (profiler, GENERIC_TIMED calls), the
+    plain versions' and SDPA's in the same dtype (CUDA events), and the
+    bounds (``generic_bounds``; the first is the JSON line's)."""
     import torch.nn.functional as F
 
     from rankpo_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
@@ -1620,23 +1642,28 @@ def _time_generic(q, k, v, do, mask, lens, lse, delta, tag: str) -> dict:
     del o_lib, leaves
     found = {"flash_fwd": traced["flash_fwd"], "flash_bwd_fused": traced["fused"],
              "flash_dq": traced["split"], "flash_dkv": traced["split"]}
-    peak = PEAK_FP32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS
+    fp32 = q.dtype == torch.float32
+    rates = ([f"{TF32_PASSES} TF32 passes at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s",
+              f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s without tensor cores"] if fp32
+             else [f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s"])
     res = {}
     for name, times in found.items():
         ms = [t for key, t in times.items() if GENERIC_KERNELS[name](key)]
         if not ms:
             raise AssertionError(f"{name} generic: no such kernel in the trace: {sorted(times)}")
         fwd = name == "flash_fwd"
-        b_ms, b_by = bound(attention_cost(lens, s, s, hq, hkv, d, name,
-                                          itemsize=q.element_size()), peak)
+        bounds = generic_bounds(attention_cost(lens, s, s, hq, hkv, d, name,
+                                               itemsize=q.element_size()), q.dtype)
         res[name] = {"ms": float(sum(ms)), "plain_ms": plain_fwd_ms if fwd else plain_bwd_ms,
-                     "library_ms": lib_fwd if fwd else lib_bwd, "bound_ms": b_ms,
-                     "bound_by": b_by}
+                     "library_ms": lib_fwd if fwd else lib_bwd, "bound_ms": bounds[0][0],
+                     "bound_by": bounds[0][1]}
         log(f"time {name} generic at {tag}: kernel {res[name]['ms']:.4f} ms (device time, "
             f"profiler, {n} calls); plain {res[name]['plain_ms']:.4f} ms; library (SDPA "
             f"{'forward' if fwd else 'backward alone'}, same dtype, boolean mask) "
-            f"{res[name]['library_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
-            f"{peak / 1e12:.0f} TFLOP/s, {PEAK_HBM_BYTES / 1e12:.2f} TB/s)")
+            f"{res[name]['library_ms']:.4f} ms; bound "
+            + "; ".join(f"{b_ms:.4f} ms ({b_by}; {rate})"
+                        for (b_ms, b_by), rate in zip(bounds, rates))
+            + f"; {PEAK_HBM_BYTES / 1e12:.2f} TB/s")
     return res
 
 

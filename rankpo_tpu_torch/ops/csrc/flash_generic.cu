@@ -1,12 +1,12 @@
-// Flash attention in any dtype and at any head dim: a generic SIMT build of
-// K1, K3a, K3b and K2 beside the Hopper kernels (flash_fwd.cu, flash_bwd.cu).
+// Flash attention in any dtype and at any head dim: a generic build of K1,
+// K3a, K3b and K2 beside the Hopper kernels (flash_fwd.cu, flash_bwd.cu).
 //
 // Replaces, for the inputs the Hopper kernels are not built for (fp32 and
 // fp16 at any head dim, bf16 at a head dim other than 64, 128 and 256), the
 // Pallas TPU kernels of rankpo_tpu/ops/flash_attention.py:
-//   _fwd_kernel       (:55,  via _flash_fwd_impl :507) -> flash_fwd_generic
-//   _dq_kernel        (:161, via flash_dq :550)        -> flash_dq_generic
-//   _dkv_kernel       (:240, via flash_dkv :579)       -> flash_kv_generic<T, false>
+//   _fwd_kernel       (:55,  via _flash_fwd_impl :507) -> flash_fwd_generic<T, kHeads>
+//   _dq_kernel        (:161, via flash_dq :550)        -> flash_dq_generic<T>
+//   _dkv_kernel       (:240, via flash_dkv :579)       -> flash_dkv_generic<T>
 //   _bwd_fused_kernel (:341, via flash_bwd_fused :621) -> flash_kv_generic<T, true>
 //
 // Contract: the JAX kernels', as the Hopper kernels' headers state it, with
@@ -35,28 +35,85 @@
 //   ticks for the turns a packed key tile passes. No atomics touch an
 //   output, so every output repeats bit for bit.
 //
-// Design: simple SIMT, fp32 FMAs only (no tensor cores, no TF32). A block is
-// 256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns the 4 x 4 patch of
-// rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of every 64 x 64 tile
-// product. Operands are staged in shared memory as fp32 64 x 64 chunks of D
-// (transposed where a product contracts over D, so each step reads a
-// thread's four rows and four columns as two float4), one chunk at a time,
-// so any D runs. The output sums ([64, cols]: O; dQ; dK and dV) live in
-// shared memory, each entry owned by one thread. A block owns `cols` output
-// columns, a multiple of 64 up to what its shared memory holds (opt-in, up
-// to 227 KB); a larger D splits its columns over blocks, each of which
-// recomputes S (and dP) over the whole D.
-//   - K1 and K3a: one block per (batch, query head, 64-row query tile,
-//     column block), the key tiles inside the bounds in order; Q (and dO)
-//     stay staged when D <= 64.
-//   - K3b and K2: one block per (batch, kv head, 64-key tile, column block),
-//     the (query head of the group, query tile) pairs inside the bounds in
-//     order; K2 also stages dS^T and adds each pair's dQ on its turn.
-// What bounds it: at the main path's shapes (fp32, D 64, S 1280 to 4096) the
-// FMAs: 2 (K1), 3 (K3a), 4 (K3b) or 5 (K2) products of 64 x 64 x D per tile
-// pair, against the card's fp32 rate without tensor cores; the fp32 staging
-// from L2 and the transposed stores to shared memory come on top. Not tuned:
-// speed against its bound is later work (ROADMAP Queue 2).
+// K1 and K3b: tensor cores through mma.sync, sums in registers, cp.async.
+//   - Products. bf16 and fp16: m16n8k16 with fp32 sums (the products of two
+//     16-bit values are exact in fp32); a D that is not a multiple of 16 is
+//     padded with zeros in shared memory. fp32: m16n8k8 in TF32 taken as
+//     three passes: each operand x splits into hi = tf32(x) and lo =
+//     tf32(x - hi), rounded as cvt.rna.tf32.f32 rounds (nearest, ties away;
+//     done by two integer ops, rna_tf32), and a b = a_lo b_hi + a_hi b_lo +
+//     a_hi b_hi; the dropped a_lo b_lo is near 2^-22 of the product, so the
+//     result keeps fp32's accuracy at a third of the TF32 rate
+//     (tests/test_torch_flash_generic.py models it on the CPU). The split
+//     is done per fragment, as it is loaded. The accumulator truncates, so
+//     a long sum (O over the key tiles, dK/dV over the pairs) takes each
+//     triple's result by an fp32 add (mma's kFresh). mma.sync, not wgmma:
+//     it takes any D that is a multiple of 8 as n8 tiles, where TF32 wgmma
+//     wants both operands K-major (V transposed in shared memory).
+//   - K1: a block covers one 64-row query tile of kHeads query heads of a
+//     GQA group (2 where the group is even, else 1), 16 rows a warp; in
+//     fp32 a warp carries its rows of both heads, so each K/V fragment,
+//     loaded and split once, feeds two mma (FwdShape). S, P and O stay in
+//     mma fragments; the online softmax runs on them in base 2 (ex2.approx;
+//     a row's 4 threads reduce by shuffles), and a warp whose rows see every
+//     key of the tile tests no pair. P's C fragments become the A operand of
+//     P V without shared memory (fp32: the key order permuted to match, the
+//     same permutation on V's rows). O is written once.
+//   - K3b: one block (4 warps) per (batch, kv head, 64-key tile, column
+//     block), each warp 16 keys; the group's (query head, query tile) pairs
+//     inside the bounds in order. All four products on the tensor cores:
+//     S^T = K Q^T and dP^T = V dO^T over D, then dV += P^T dO and dK +=
+//     dS^T Q with P^T and dS^T taken from the C fragments. dK and dV stay
+//     in fragments over all pairs and are written once.
+//   - Staging: 16-byte cp.async copies into row-major tiles (rows padded by
+//     16 bytes, so the fragment loads hit 32 distinct banks), zeros past S
+//     and D by the copies' source size, in a ring of two stages with one
+//     barrier a stage: K1 loads the next key tile's K and V while it works
+//     on the current one, K3b the next pair's Q and dO. The mask, lse,
+//     delta and segment ids come by 4-byte copies in the same groups. The
+//     wrapper checks the 16-byte alignment of every base pointer and stride
+//     this needs (ops/flash_attention.py _check_rows).
+//   - Large D: D is contracted in chunks of at most kDChunk columns (Q in
+//     K1, K and V in K3b stay staged where D fits one chunk; else every
+//     operand's chunks are staged per step). The output columns a block
+//     holds in registers are capped (K1: 64 in fp32, 128 in 16-bit; K3b:
+//     64), and a larger D splits its columns over blocks, each recomputing
+//     S (and dP) over the whole D. The n-tiles past a block's columns are
+//     multiplied on its last staged column and never stored, so no branch
+//     parts one n-tile's loads and products from the next.
+//   What bounds them at the main path's shapes (fp32, D 64, S 1280 to 4096):
+//   the products, 2 (K1) or 4 (K3b) of 64 x 64 x D per tile pair, at a
+//   third of the 495 TFLOP/s TF32 rate in fp32 and at 989 TFLOP/s in 16-bit.
+//   mma.sync reaches part of that; in fp32 each product also takes its
+//   fragment loads, the splits' integer work and the fresh sums' adds, and
+//   both kernels run at 255 registers with some spills (PERF.md).
+
+// K3a and K2: simple SIMT, fp32 FMAs only. A block is 256 threads; thread
+// (ty, tx) = (tid / 16, tid % 16) owns the 4 x 4 patch of rows 4 ty .. 4 ty
+// + 3 and columns 4 tx .. 4 tx + 3 of every 64 x 64 tile product. Operands
+// are staged in shared memory as fp32 64 x 64 chunks of D (transposed where
+// a product contracts over D, so each step reads a thread's four rows and
+// four columns as two float4), one chunk at a time, so any D runs. The
+// output sums ([64, cols]: dQ; dK and dV) live in shared memory, each entry
+// owned by one thread. A block owns `cols` output columns, a multiple of 64
+// up to what its shared memory holds (opt-in, up to 227 KB); a larger D
+// splits its columns over blocks, each of which recomputes S and dP over
+// the whole D.
+//   - K3a: one block per (batch, query head, 64-row query tile, column
+//     block), the key tiles inside the bounds in order; Q and dO stay
+//     staged when D <= 64.
+//   - K2: one block per (batch, kv head, 64-key tile, column block), the
+//     (query head of the group, query tile) pairs inside the bounds in
+//     order; it also stages dS^T and adds each pair's dQ on its turn.
+// What bounds them: the FMAs, 3 (K3a) or 5 (K2) products of 64 x 64 x D per
+// tile pair, against the card's fp32 rate without tensor cores. Not tuned
+// (ROADMAP Queue 2).
+//
+// The file builds as four objects that nvcc compiles side by side:
+// flash_generic_f32.cu, flash_generic_f16.cu and flash_generic_bf16.cu
+// include it with RANKPO_GEN_T set, each holding that dtype's kernels behind
+// its dispatch function; compiled as itself it holds the C entry points,
+// which pick the object by the dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -64,9 +121,53 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+namespace rankpo_gen {
+
+struct GenArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const int* mask;
+  const float* lse;    // backward: the forward's
+  const float* delta;
+  void* out;           // K1: T [B, Sq, Hq, D]
+  float* lse_out;      // K1: fp32 [B, Hq, Sq]
+  void* dq;            // K3a: T [B, Sq, Hq, D]; K2: fp32 [B, Hq, Sq, D], zeroed
+  void* dk;            // K3b, K2: [B, Sk, Hkv, D] in T, or fp32 with f32_out
+  void* dv;
+  int* sync;           // K2: zeroed int32 [1 + B * Hq * q tiles * col_blocks]
+  int B, Sq, Sk, Hq, Hkv, D;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  long long do_sb, do_ss, do_sh, mask_sb;
+  float scale;
+  int causal, skip_pad_q, window, packed;  // window > 0 with causal, else -1
+  int cols, col_blocks;  // output columns a block owns, blocks over D
+  int f32_out;
+  // K1 and K3b (plan_tc): chunks of D contracted for S and dP, their width,
+  // the staged width where D fits one chunk, a staged row's stride
+  int n_dc, kdc, wq, ld;
+};
+
+enum Which { kFwd, kDq, kDkv, kFused };
+enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };  // ops/flash_attention.py GENERIC_DTYPES
+
+// each dtype's kernels, in its own object; a cudaError_t value
+int dispatch_f32(Which w, const GenArgs& a, cudaStream_t st);
+int dispatch_f16(Which w, const GenArgs& a, cudaStream_t st);
+int dispatch_bf16(Which w, const GenArgs& a, cudaStream_t st);
+
+}  // namespace rankpo_gen
+
+#ifdef RANKPO_GEN_T
+
 #include "flash_common.cuh"
 
 namespace {
+
+using namespace rankpo_gen;
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 64;                // columns of D staged at a time
@@ -94,28 +195,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
-struct GenArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const int* mask;
-  const float* lse;    // backward: the forward's
-  const float* delta;
-  void* out;           // K1: T [B, Sq, Hq, D]
-  float* lse_out;      // K1: fp32 [B, Hq, Sq]
-  void* dq;            // K3a: T [B, Sq, Hq, D]; K2: fp32 [B, Hq, Sq, D], zeroed
-  void* dk;            // K3b, K2: [B, Sk, Hkv, D] in T, or fp32 with f32_out
-  void* dv;
-  int* sync;           // K2: zeroed int32 [1 + B * Hq * q tiles * col_blocks]
-  int B, Sq, Sk, Hq, Hkv, D;
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  long long do_sb, do_ss, do_sh, mask_sb;
-  float scale;
-  int causal, skip_pad_q, window, packed;  // window > 0 with causal, else -1
-  int cols, col_blocks;  // output columns a block owns, blocks over D
-  int f32_out;
-};
 
 // Rows [r0, r0 + 64) and columns [c0, c0 + 64) of one head of a [B, S, H, D]
 // operand (base: the head's row 0, row stride ss) as fp32, transposed into
@@ -148,32 +227,24 @@ __device__ __forceinline__ void product(float (&acc)[4][4], const float* A, cons
   }
 }
 
-// max / sum over the 16 threads (tx) that share a row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// one past the last valid key of the mask row, reduced over the block
+// one past the last valid key of the mask row, reduced over the block of kN
+// threads
+template <int kN = kThreads>
 __device__ __forceinline__ int block_key_end(const int* mrow, int Sk) {
-  __shared__ int warp_end[kThreads / 32];
-  const int e = warp_key_end(mrow, Sk, threadIdx.x, kThreads);
+  __shared__ int warp_end[kN / 32];
+  const int e = warp_key_end(mrow, Sk, threadIdx.x, kN);
   if (threadIdx.x % 32 == 0) warp_end[threadIdx.x / 32] = e;
   __syncthreads();
   int end = 0;
 #pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) end = max(end, warp_end[i]);
+  for (int i = 0; i < kN / 32; ++i) end = max(end, warp_end[i]);
   return end;
 }
 
 // The key tiles [x, y) the query tile at q0 runs: flash_fwd.cu's K1 bounds
-// (the dq kernel's too). Every thread calls it (packed: two barriers).
+// (the dq kernel's too). Every thread of the kN calls it (packed: two
+// barriers).
+template <int kN = kThreads>
 __device__ __forceinline__ int2 key_tiles(const GenArgs& a, const int* mrow, int key_end,
                                           int q0) {
   const int q_shift = a.Sk - a.Sq;
@@ -185,7 +256,7 @@ __device__ __forceinline__ int2 key_tiles(const GenArgs& a, const int* mrow, int
   if (a.skip_pad_q && q0 + q_shift >= key_end) end = 0;
   int begin = a.window > 0 ? max(0, q0 + q_shift - a.window + 1) / kTile : 0;
   if (a.packed) {
-    const int2 span = packed_span<kThreads>(mrow, a.Sk, q0, threadIdx.x);
+    const int2 span = packed_span<kN>(mrow, a.Sk, q0, threadIdx.x);
     begin = max(begin, span.x / kTile);
     end = min(end, (span.y + kTile - 1) / kTile);
   }
@@ -200,120 +271,712 @@ __device__ __forceinline__ bool pair_valid(const GenArgs& a, int kv, int qseg, i
          (a.window <= 0 || key > qpos - a.window);
 }
 
-// ---- K1: O and lse ----
+// ---- K1 and K3b: tensor-core fragments, products and cp.async staging ----
+
+constexpr int kDChunk = 128;    // columns of D a product contracts per staged chunk
+constexpr int kDkvCols = 64;    // K3b: dK/dV columns a block holds in registers
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_generic(const GenArgs a) {
+struct Tc;  // per dtype: mma's k, K1's O columns in registers
+template <>
+struct Tc<float> {
+  static constexpr int kK = 8;  // m16n8k8, TF32
+  static constexpr int kFwdCols = 64;
+};
+template <>
+struct Tc<__half> {
+  static constexpr int kK = 16;  // m16n8k16
+  static constexpr int kFwdCols = 128;
+};
+template <>
+struct Tc<__nv_bfloat16> {
+  static constexpr int kK = 16;
+  static constexpr int kFwdCols = 128;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes (or 4) from global to shared memory by cp.async; src_bytes 0
+// writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + 64) and columns [c0, c0 + w) of one head of a [B, S, H, D]
+// operand (base: the head's row 0, row stride ss) into dst[r][c] (row
+// stride ld) by kN threads, 16 bytes a copy; zeros past S and past D. c0,
+// w and ld are multiples of 16 bytes, and so is D (a multiple of 8).
+template <int kN, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int ld, const T* base, long long ss, int r0,
+                                           int S, int c0, int w, int D) {
+  constexpr int kE = 16 / sizeof(T);
+  const int per_row = w / kE;
+  for (int i = threadIdx.x; i < kTile * per_row; i += kN) {
+    const int r = i / per_row, c = i % per_row * kE;
+    const bool ok = r0 + r < S && c0 + c < D;
+    cp_async16(dst + r * ld + c, ok ? base + (long long)(r0 + r) * ss + c0 + c : base,
+               ok ? 16 : 0);
+  }
+}
+
+// entries [p0, p0 + 64) of a row of n 4-byte values (mask, lse, delta,
+// segment ids) into dst, zeros past n
+template <int kN, typename U>
+__device__ __forceinline__ void stage_row(U* dst, const U* src, int p0, int n) {
+  for (int i = threadIdx.x; i < kTile; i += kN) {
+    const bool ok = p0 + i < n;
+    cp_async4(dst + i, ok ? src + p0 + i : src, ok ? 4 : 0);
+  }
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (nearest, ties
+// away: half of the 13 dropped bits' unit added to the magnitude, then the
+// bits cleared), in two integer ops: cvt's own code adds checks for inf and
+// NaN that cost a third of fp32 K3b's time
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + (a remainder near 2^-22 x), hi and lo TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x by the SFU (MUFU.EX2; about 2 ulp), as the Hopper kernels' __expf
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_16(float (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2], __half) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_16(float (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2], __nv_bfloat16) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Operand registers of one mma: A (16 x kK) as a[part][4], B (kK x 8) as
+// b[part][2]; part 0 holds T's values (fp32: the TF32 hi), part 1 fp32's lo.
+// d += a b. In fp32 the three passes, smallest first; kFresh: they sum into
+// zeros and the result into d by an fp32 add. The tensor core's accumulator
+// truncates, and a sum carried through it over thousands of mma (O over the
+// key tiles, dK over a GQA group at S 4096) drifts by ~1e-4 of its size;
+// K1's S, 3 D / 8 mma long, is summed in d directly, and K3b's S^T and dP^T
+// where D <= 64.
+template <typename T, bool kFresh = true>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[2][4],
+                                    const uint32_t (&b)[2][2]) {
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (kFresh) {
+      float p[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_tf32(p, a[1], b[0]);
+      mma_tf32(p, a[0], b[1]);
+      mma_tf32(p, a[0], b[0]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] += p[i];
+    } else {
+      mma_tf32(d, a[1], b[0]);
+      mma_tf32(d, a[0], b[1]);
+      mma_tf32(d, a[0], b[0]);
+    }
+  } else {
+    mma_16(d, a[0], b[0], T());
+  }
+}
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);  // rounded to T, lo in bits 0-15
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Lane (g, t) = (lane / 4, lane % 4) holds mma.sync's fragments: A rows g
+// and g + 8; B column g; C (16 x 8) rows g, g + 8 and columns 2t, 2t + 1.
+
+// A: rows [r0, r0 + 16) and columns [k0, k0 + kK) of row-major X (stride ld)
+template <typename T>
+__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const T* X, int ld, int r0, int k0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if constexpr (sizeof(T) == 4) {
+    const float* x = X + (r0 + g) * ld + k0 + t;
+    split_tf32(x[0], a[0][0], a[1][0]);
+    split_tf32(x[8 * ld], a[0][1], a[1][1]);
+    split_tf32(x[4], a[0][2], a[1][2]);
+    split_tf32(x[8 * ld + 4], a[0][3], a[1][3]);
+  } else {
+    const T* x = X + (r0 + g) * ld + k0 + 2 * t;
+    a[0][0] = ld32(x);
+    a[0][1] = ld32(x + 8 * ld);
+    a[0][2] = ld32(x + 8);
+    a[0][3] = ld32(x + 8 * ld + 8);
+  }
+}
+
+// B with B[k][n] = Y[n0 + n][k0 + k]: a row-major tile contracted along its
+// rows' columns (K in Q K^T, Q in K Q^T)
+template <typename T>
+__device__ __forceinline__ void load_b_rows(uint32_t (&b)[2][2], const T* Y, int ld, int n0,
+                                            int k0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if constexpr (sizeof(T) == 4) {
+    const float* y = Y + (n0 + g) * ld + k0 + t;
+    split_tf32(y[0], b[0][0], b[1][0]);
+    split_tf32(y[4], b[0][1], b[1][1]);
+  } else {
+    const T* y = Y + (n0 + g) * ld + k0 + 2 * t;
+    b[0][0] = ld32(y);
+    b[0][1] = ld32(y + 8);
+  }
+}
+
+// B with B[k][n] = Z[k0 + k][n0 + n]: a row-major tile contracted along its
+// rows (V in P V, dO and Q in P^T dO and dS^T Q). fp32: k t is row 2t and k
+// t + 4 row 2t + 1, the order a_from_c gives A's k; 16-bit: ldmatrix.trans.
+template <typename T>
+__device__ __forceinline__ void load_b_cols(uint32_t (&b)[2][2], const T* Z, int ld, int k0,
+                                            int n0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if constexpr (sizeof(T) == 4) {
+    const float* z = Z + (k0 + 2 * t) * ld + n0 + g;
+    split_tf32(z[0], b[0][0], b[1][0]);
+    split_tf32(z[ld], b[0][1], b[1][1]);
+  } else {
+    const T* z = Z + (k0 + (lane & 15)) * ld + n0;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(b[0][0]), "=r"(b[0][1])
+                 : "r"(smem_addr(z)));
+  }
+}
+
+// A from C fragments, for a product that contracts the C tile's columns:
+// fp32, the 8 columns of c0 (A's k t <- column 2t, k t + 4 <- column 2t +
+// 1); 16-bit, the 16 columns of c0 and c1, rounded to T.
+template <typename T>
+__device__ __forceinline__ void a_from_c(uint32_t (&a)[2][4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    split_tf32(c0[0], a[0][0], a[1][0]);
+    split_tf32(c0[2], a[0][1], a[1][1]);
+    split_tf32(c0[1], a[0][2], a[1][2]);
+    split_tf32(c0[3], a[0][3], a[1][3]);
+  } else {
+    a[0][0] = pack2<T>(c0[0], c0[1]);
+    a[0][1] = pack2<T>(c0[2], c0[3]);
+    a[0][2] = pack2<T>(c1[0], c1[1]);
+    a[0][3] = pack2<T>(c1[2], c1[3]);
+  }
+}
+
+// ---- K1: O and lse ----
+
+// A warp carries 16 rows of kMT of the block's kHeads query heads (fp32:
+// all of them, so each K and V fragment, loaded and split once, feeds
+// kHeads mma; 16-bit: one, as O's 128 columns fill the registers), so a
+// block is 4 kHeads / kMT warps; as many blocks on an SM as fill 512
+// threads, or two of fp32's 2-head blocks.
+template <typename T, int kHeads>
+struct FwdShape {
+  static constexpr int kMT = sizeof(T) == 4 ? kHeads : 1;
+  static constexpr int kThreadsN = 128 * kHeads / kMT;
+  static constexpr int kMinBlocks = kMT == 2 ? 2 : 512 / kThreadsN;
+};
+
+template <typename T, int kHeads>
+__global__ void __launch_bounds__(FwdShape<T, kHeads>::kThreadsN, FwdShape<T, kHeads>::kMinBlocks)
+    flash_fwd_generic(const GenArgs a) {
+  constexpr int kMT = FwdShape<T, kHeads>::kMT;
+  constexpr int kN = FwdShape<T, kHeads>::kThreadsN;
+  constexpr int kK = Tc<T>::kK;
+  constexpr int kNt = Tc<T>::kFwdCols / 8;  // O's n-tiles a warp may hold
+  constexpr int kPerK = sizeof(T) == 4 ? 1 : 2;  // S's n-tiles per k of P V
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // Q chunk, [d][row]
-  float* Kt = Qt + kTileFloats;                 // K chunk, [d][key]; then P^T, [key][row]
-  float* Vs = Kt + kTileFloats;                 // V chunk, [key][col]
-  float* acc = Vs + kTileFloats;                // O sums, [row][col]
-  float* Pt = Kt;
-  __shared__ int kmask[kTile];
-  const int acc_ld = a.cols + 4;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int per_tile = a.B * a.Hq * a.col_blocks;
+  __shared__ int kmask[2][kTile];
+  const int ld = a.ld, tile = kTile * ld, n_dc = a.n_dc;
+  // One chunk of D: Q staged once, and a stage holds a key tile's K and V.
+  // Else a stage holds a chunk of K with the heads' chunks of Q, or V.
+  const bool one = n_dc == 1;
+  const int stage_sz = tile * (one ? 2 : 1 + kHeads);
+  T* qres = reinterpret_cast<T*>(smem4);  // kHeads tiles [row][d]
+  T* ring = qres + (one ? kHeads * tile : 0);  // two stages
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int slot0 = warp / 4 * kMT, r0 = warp % 4 * 16;  // the warp's first head and rows
+  const int hblocks = a.Hq / kHeads;
+  const int per_tile = a.B * hblocks * a.col_blocks;
   const int n_qt = (a.Sq + kTile - 1) / kTile;
   const int qt = n_qt - 1 - blockIdx.x / per_tile;  // long causal tiles first
   const int cb = blockIdx.x % per_tile % a.col_blocks;
-  const int bh = blockIdx.x % per_tile / a.col_blocks;
-  const int b = bh / a.Hq, h = bh % a.Hq, hk = h / (a.Hq / a.Hkv);
+  const int bhp = blockIdx.x % per_tile / a.col_blocks;
+  const int b = bhp / hblocks, h0 = bhp % hblocks * kHeads;
+  const int hk = h0 / (a.Hq / a.Hkv);
   const int q0 = qt * kTile, col0 = cb * a.cols;
-  const int n_cc = (min(a.cols, a.D - col0) + kChunk - 1) / kChunk;  // column chunks
-  const int n_dc = (a.D + kChunk - 1) / kChunk;                      // chunks of D
+  const int n_nt = min(a.cols, a.D - col0) / 8;  // O's n-tiles of this block
   const int q_shift = a.Sk - a.Sq;
   const int* mrow = a.mask + (long long)b * a.mask_sb;
-  const T* qb = reinterpret_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* qb = reinterpret_cast<const T*>(a.q) + b * a.q_sb + h0 * a.q_sh;
   const T* kb = reinterpret_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* vb = reinterpret_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
-  const int key_end = block_key_end(mrow, a.Sk);
-  const int2 kr = key_tiles(a, mrow, key_end, q0);
-  float m[4], l[4], alpha[4];
-  int qpos[4], qseg[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    qpos[i] = row + q_shift;
-    qseg[i] = a.packed && row < a.Sq ? mrow[row] : 0;
-    for (int cc = 0; cc < n_cc; ++cc) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[(4 * ty + i) * acc_ld + cc * kChunk + 4 * tx + j] = 0.f;
-    }
-  }
-  if (n_dc == 1) stage<true>(Qt, qb, a.q_ss, q0, a.Sq, 0, a.D);
+  const int key_end = block_key_end<kN>(mrow, a.Sk);
+  const int2 kr = key_tiles<kN>(a, mrow, key_end, q0);
+  const int spt = one ? 1 : n_dc + 1;  // stages a key tile
+  const int total = max(0, kr.y - kr.x) * spt;
 
-  for (int kt = kr.x; kt < kr.y; ++kt) {
-    const int key0 = kt * kTile;
-    float s[4][4] = {};
-    for (int dc = 0; dc < n_dc; ++dc) {  // S = Q K^T over the whole D
-      if (n_dc > 1) stage<true>(Qt, qb, a.q_ss, q0, a.Sq, dc * kChunk, a.D);
-      stage<true>(Kt, kb, a.k_ss, key0, a.Sk, dc * kChunk, a.D);
-      if (dc == 0 && tid < kTile) kmask[tid] = key0 + tid < a.Sk ? mrow[key0 + tid] : 0;
-      __syncthreads();
-      product(s, Qt, Kt, ty, tx);
-      __syncthreads();
-    }
-    // the online softmax of JAX's body: fp32 max and sum, P rounded to T
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = pair_valid(a, kmask[4 * tx + j], qseg[i], key0 + 4 * tx + j, qpos[i]);
-        s[i][j] = ok[j] ? a.scale * s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      alpha[i] = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        Pt[(4 * tx + j) * kLd + 4 * ty + i] = round_to<T>(p);
-      }
-      l[i] = l[i] * alpha[i] + row_sum(sum);
-      m[i] = m_new;
-    }
-    for (int cc = 0; cc < n_cc; ++cc) {  // O = O alpha + P V
-      stage<false>(Vs, vb, a.v_ss, key0, a.Sk, col0 + cc * kChunk, a.D);
-      __syncthreads();
-      float o[4][4] = {};
-      product(o, Pt, Vs, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float* p = acc + (4 * ty + i) * acc_ld + cc * kChunk + 4 * tx + j;
-          *p = *p * alpha[i] + o[i][j];
+  // stage s into ring[s % 2], its key tile's mask into kmask[key tile % 2]
+  auto issue = [&](int s) {
+    const int kt = kr.x + s / spt, j = s % spt;
+    T* buf = ring + (s & 1) * stage_sz;
+    if (one) stage_tile<kN>(buf + tile, ld, vb, a.v_ss, kt * kTile, a.Sk, col0, a.cols, a.D);
+    if (j < n_dc) {
+      stage_tile<kN>(buf, ld, kb, a.k_ss, kt * kTile, a.Sk, j * a.kdc, a.kdc, a.D);
+      if (!one) {
+        for (int i = 0; i < kHeads; ++i) {
+          stage_tile<kN>(buf + (1 + i) * tile, ld, qb + i * a.q_sh, a.q_ss, q0, a.Sq, j * a.kdc,
+                         a.kdc, a.D);
         }
       }
-      __syncthreads();
+      if (j == 0) stage_row<kN>(kmask[(s / spt) & 1], mrow, kt * kTile, a.Sk);
+    } else {
+      stage_tile<kN>(buf, ld, vb, a.v_ss, kt * kTile, a.Sk, col0, a.cols, a.D);
+    }
+    cp_async_commit();
+  };
+  if (total > 0) {
+    if (one) {
+      for (int i = 0; i < kHeads; ++i) {
+        stage_tile<kN>(qres + i * tile, ld, qb + i * a.q_sh, a.q_ss, q0, a.Sq, 0, a.kdc, a.D);
+      }
+    }
+    issue(0);  // one group with Q
+  }
+
+  float m[kMT][2], l[kMT][2];
+  int qpos[2], qseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    qpos[i] = row + q_shift;
+    qseg[i] = a.packed && row < a.Sq ? mrow[row] : 0;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      m[mt][i] = kNegInf;
+      l[mt][i] = 0.f;
+    }
+  }
+  float o[kMT][kNt][4] = {};
+  float s[kMT][8][4];  // S, then P: the 64 keys as 8 n-tiles
+  const float scale2 = a.scale * kLog2e;
+
+  // One barrier a stage: past it, stage st has landed for every thread, and
+  // every warp is done with stage st - 1, whose buffer the next stage takes.
+  for (int st = 0; st < total; ++st) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (st + 1 < total) issue(st + 1);
+    const int j = st % spt;
+    const T* buf = ring + (st & 1) * stage_sz;
+    if (j < n_dc) {  // S += Q K^T over this chunk of D
+      if (j == 0) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+        }
+      }
+      const T* qs = one ? qres + slot0 * tile : buf + (1 + slot0) * tile;
+      for (int k0 = 0; k0 < a.kdc; k0 += kK) {
+        uint32_t af[kMT][2][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) load_a<T>(af[mt], qs + mt * tile, ld, r0, k0);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          uint32_t bf[2][2];
+          load_b_rows<T>(bf, buf, ld, n * 8, k0);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) mma<T, false>(s[mt][n], af[mt], bf);
+        }
+      }
+      if (j == n_dc - 1) {
+        // the online softmax of JAX's body: fp32 max and sum in base 2
+        // (s2 = s log2(e), ex2.approx); P rounded to T where it becomes P V's
+        // operand. A warp whose 16 rows see all 64 keys tests no pair.
+        const int key0 = (kr.x + st / spt) * kTile;
+        const int* km = kmask[(st / spt) & 1];
+        const int pos0 = q0 + r0 + q_shift;  // the warp's first row's position
+        const bool full = __all_sync(
+            0xffffffffu, !a.packed && km[lane] != 0 && km[lane + 32] != 0 &&
+                             (!a.causal || key0 + kTile - 1 <= pos0) &&
+                             (a.window <= 0 || key0 > pos0 + 15 - a.window));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          uint32_t ok = 0xffffu;  // bit 2n + e: key n * 8 + 2t + e is valid
+          if (!full) {
+            ok = 0;
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int key = n * 8 + 2 * t + e;
+                ok |= (uint32_t)pair_valid(a, km[key], qseg[i], key0 + key, qpos[i]) << (2 * n + e);
+              }
+            }
+          }
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            float mx = kNegInf;
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& x = s[mt][n][2 * i + e];
+                x = (ok >> (2 * n + e)) & 1u ? scale2 * x : kNegInf;
+                mx = fmaxf(mx, x);
+              }
+            }
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m[mt][i], mx);
+            const float alpha = ex2(m[mt][i] - m_new);
+            float sum = 0.f;
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& x = s[mt][n][2 * i + e];
+                x = (ok >> (2 * n + e)) & 1u ? ex2(x - m_new) : 0.f;
+                sum += x;
+              }
+            }
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            l[mt][i] = l[mt][i] * alpha + sum;
+            m[mt][i] = m_new;
+#pragma unroll
+            for (int n = 0; n < kNt; ++n) {
+              o[mt][n][2 * i] *= alpha;
+              o[mt][n][2 * i + 1] *= alpha;
+            }
+          }
+        }
+      }
+    }
+    if (j == spt - 1) {  // O += P V
+      const T* vs = one ? buf + tile : buf;
+#pragma unroll
+      for (int kk = 0; kk < kTile / kK; ++kk) {
+        uint32_t af[kMT][2][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          a_from_c<T>(af[mt], s[mt][kPerK * kk], s[mt][kPerK * kk + kPerK - 1]);
+        }
+        // every n-tile, past n_nt on the last staged column (never stored):
+        // no branch between the tiles' loads and products
+#pragma unroll
+        for (int n = 0; n < kNt; ++n) {
+          uint32_t bf[2][2];
+          load_b_cols<T>(bf, vs, ld, kk * kK, min(n, n_nt - 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) mma<T>(o[mt][n], af[mt], bf);
+        }
+      }
     }
   }
 
   T* out = reinterpret_cast<T*>(a.out);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= a.Sq) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];  // rows with no valid key: zeros
-    const long long o_row = (((long long)b * a.Sq + row) * a.Hq + h) * a.D;
-    for (int cc = 0; cc < n_cc; ++cc) {
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int h = h0 + slot0 + mt;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cc * kChunk + 4 * tx + j;
-        if (col0 + c < a.D && c < a.cols) {
-          out[o_row + col0 + c] = from_f<T>(acc[(4 * ty + i) * acc_ld + c] / l_safe);
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r0 + g + 8 * i;
+      if (row >= a.Sq) continue;
+      const float l_safe = l[mt][i] == 0.f ? 1.f : l[mt][i];  // no valid key: zeros
+      const long long o_row = (((long long)b * a.Sq + row) * a.Hq + h) * a.D + col0;
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        if (n < n_nt) {
+          out[o_row + n * 8 + 2 * t] = from_f<T>(o[mt][n][2 * i] / l_safe);
+          out[o_row + n * 8 + 2 * t + 1] = from_f<T>(o[mt][n][2 * i + 1] / l_safe);
+        }
+      }
+      if (cb == 0 && t == 0) {  // natural log; NEG_INF where no key was valid
+        a.lse_out[((long long)b * a.Hq + h) * a.Sq + row] =
+            l[mt][i] == 0.f ? kNegInf : m[mt][i] * kLn2 + logf(l[mt][i]);
+      }
+    }
+  }
+}
+
+// ---- K3b: dK, dV ----
+
+template <typename T>
+__global__ void __launch_bounds__(128) flash_dkv_generic(const GenArgs a) {
+  constexpr int kN = 128;
+  constexpr int kK = Tc<T>::kK;
+  constexpr int kNt = kDkvCols / 8;  // dK's and dV's n-tiles a warp may hold
+  constexpr int kPerK = sizeof(T) == 4 ? 1 : 2;
+  extern __shared__ float4 smem4[];
+  __shared__ int kmask[kTile];
+  __shared__ float rows[2][3][kTile];  // a pair's lse, delta, segment ids (int)
+  const int ld = a.ld, tile = kTile * ld, n_dc = a.n_dc;
+  const bool kv_res = n_dc == 1;  // K and V staged once; else per chunk with Q's
+  const int stage_sz = tile * (kv_res ? 2 : 4);  // Q, dO (, K, V)
+  T* kres = reinterpret_cast<T*>(smem4);
+  T* vres = kres + tile;
+  T* ring = kres + (kv_res ? 2 * tile : 0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int k_r0 = warp * 16;  // the warp's keys in the tile
+  const int per_tile = a.B * a.Hkv * a.col_blocks;
+  const int kt = blockIdx.x / per_tile;
+  const int cb = blockIdx.x % per_tile % a.col_blocks;
+  const int bhk = blockIdx.x % per_tile / a.col_blocks;
+  const int b = bhk / a.Hkv, hk = bhk % a.Hkv;
+  const int groups = a.Hq / a.Hkv, h0 = hk * groups;
+  const int key0 = kt * kTile, col0 = cb * a.cols;
+  const int n_nt = min(a.cols, a.D - col0) / 8;
+  const int n_q_tiles = (a.Sq + kTile - 1) / kTile;
+  const int q_shift = a.Sk - a.Sq;
+  const int* mrow = a.mask + (long long)b * a.mask_sb;
+  const T* kb = reinterpret_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const T* vb = reinterpret_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+
+  // the query tiles: flash_bwd.cu's kv-kernel bounds
+  const int key_end = block_key_end<kN>(mrow, a.Sk);
+  int qt_begin = a.causal ? max(0, key0 - q_shift) / kTile : 0;
+  int qt_end = n_q_tiles;
+  if (a.window > 0) qt_end = min(qt_end, window_q_end(key0, a.window, q_shift));
+  if (key0 >= key_end) qt_end = 0;
+  if (a.skip_pad_q) {
+    const int lim = key_end - q_shift;  // tile qt runs iff qt * 64 < lim
+    qt_end = min(qt_end, lim <= 0 ? 0 : (lim + kTile - 1) / kTile);
+  }
+  if (a.packed) {  // only the query tiles of the key tile's segments
+    const int2 span = packed_span<kN>(mrow, a.Sk, key0, tid);
+    qt_begin = max(qt_begin, span.x / kTile);
+    qt_end = min(qt_end, (span.y + kTile - 1) / kTile);
+  }
+  const int nq = max(0, qt_end - qt_begin);
+  const int spp = kv_res ? 1 : n_dc + 1;  // stages a pair: chunks, then the columns
+  const int total = groups * nq * spp;
+  if (tid < kTile) kmask[tid] = key0 + tid < a.Sk ? mrow[key0 + tid] : 0;
+
+  // stage s into ring[s % 2], its pair's rows into rows[pair % 2]
+  auto issue = [&](int s) {
+    const int pair = s / spp, j = s % spp;
+    const int h = h0 + pair / nq, q0 = (qt_begin + pair % nq) * kTile;
+    const long long bh = (long long)b * a.Hq + h;
+    const T* qb = reinterpret_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const T* dob = reinterpret_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
+    T* buf = ring + (s & 1) * stage_sz;
+    if (kv_res) {
+      stage_tile<kN>(buf, ld, qb, a.q_ss, q0, a.Sq, 0, a.wq, a.D);
+      stage_tile<kN>(buf + tile, ld, dob, a.do_ss, q0, a.Sq, 0, a.wq, a.D);
+    } else if (j < n_dc) {
+      const int c0 = j * a.kdc;
+      stage_tile<kN>(buf, ld, qb, a.q_ss, q0, a.Sq, c0, a.kdc, a.D);
+      stage_tile<kN>(buf + tile, ld, dob, a.do_ss, q0, a.Sq, c0, a.kdc, a.D);
+      stage_tile<kN>(buf + 2 * tile, ld, kb, a.k_ss, key0, a.Sk, c0, a.kdc, a.D);
+      stage_tile<kN>(buf + 3 * tile, ld, vb, a.v_ss, key0, a.Sk, c0, a.kdc, a.D);
+    } else {
+      stage_tile<kN>(buf, ld, qb, a.q_ss, q0, a.Sq, col0, a.cols, a.D);
+      stage_tile<kN>(buf + tile, ld, dob, a.do_ss, q0, a.Sq, col0, a.cols, a.D);
+    }
+    if (j == 0) {
+      float* r = rows[pair & 1][0];
+      stage_row<kN>(r, a.lse + bh * a.Sq, q0, a.Sq);
+      stage_row<kN>(r + kTile, a.delta + bh * a.Sq, q0, a.Sq);
+      if (a.packed) stage_row<kN>(reinterpret_cast<int*>(r + 2 * kTile), mrow, q0, a.Sq);
+    }
+    cp_async_commit();
+  };
+  if (total > 0) {
+    if (kv_res) {
+      stage_tile<kN>(kres, ld, kb, a.k_ss, key0, a.Sk, 0, a.wq, a.D);
+      stage_tile<kN>(vres, ld, vb, a.v_ss, key0, a.Sk, 0, a.wq, a.D);
+    }
+    issue(0);  // one group with K and V
+  }
+
+  float dk[kNt][4] = {}, dv[kNt][4] = {};
+  float sT[8][4], dpT[8][4];  // S^T then P^T, dP^T then dS^T: 64 query rows as 8 n-tiles
+  const float scale2 = a.scale * kLog2e;
+
+  // one barrier a stage, as K1's
+  for (int st = 0; st < total; ++st) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (st + 1 < total) issue(st + 1);
+    const int pair = st / spp, j = st % spp;
+    const T* buf = ring + (st & 1) * stage_sz;
+    if (j < n_dc) {  // S^T = K Q^T and dP^T = V dO^T over this chunk of D
+      if (j == 0) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
+        }
+      }
+      const T* ks = kv_res ? kres : buf + 2 * tile;
+      const T* vs = kv_res ? vres : buf + 3 * tile;
+      auto product = [&](auto fresh) {
+        for (int k0 = 0; k0 < a.kdc; k0 += kK) {
+          uint32_t ak[2][4], av[2][4];
+          load_a<T>(ak, ks, ld, k_r0, k0);
+          load_a<T>(av, vs, ld, k_r0, k0);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            uint32_t bf[2][2];
+            load_b_rows<T>(bf, buf, ld, n * 8, k0);
+            mma<T, decltype(fresh)::value>(sT[n], ak, bf);
+            load_b_rows<T>(bf, buf + tile, ld, n * 8, k0);
+            mma<T, decltype(fresh)::value>(dpT[n], av, bf);
+          }
+        }
+      };
+      // S^T and dP^T summed in the accumulator where D is one chunk of at
+      // most 64 (24 mma a sum), else by fp32 adds: dS takes dP - delta,
+      // where the accumulator's drift would not cancel
+      if (kv_res && a.kdc <= 64) {
+        product(std::false_type());
+      } else {
+        product(std::true_type());
+      }
+      if (j == n_dc - 1) {  // P^T and dS^T, in fp32 (rounded to T as operands)
+        // p = 2^(s scale log2(e) - lse log2(e)) by ex2.approx, 0 on a row
+        // with lse = NEG_INF; a warp whose 16 keys and the tile's 64 rows make
+        // only valid pairs tests no pair
+        const int q0 = (qt_begin + pair % nq) * kTile;
+        const float* lse = rows[pair & 1][0];
+        const float* delta = rows[pair & 1][1];
+        const int* qseg = reinterpret_cast<const int*>(rows[pair & 1][2]);
+        const int kpos0 = key0 + k_r0;  // the warp's first key
+        const bool full = __all_sync(
+            0xffffffffu, !a.packed && q0 + kTile <= a.Sq && kmask[k_r0 + (lane & 15)] != 0 &&
+                             (!a.causal || kpos0 + 15 <= q0 + q_shift) &&
+                             (a.window <= 0 || kpos0 > q0 + kTile - 1 + q_shift - a.window));
+        uint32_t ok = ~0u;  // bit 4n + 2e + i: (key g + 8i, row 8n + 2t + e) is valid
+        if (!full) {
+          ok = 0;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = n * 8 + 2 * t + e, row = q0 + r;
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const int key = k_r0 + g + 8 * i;
+                ok |= (uint32_t)(row < a.Sq && pair_valid(a, kmask[key], a.packed ? qseg[r] : 0,
+                                                          key0 + key, row + q_shift))
+                      << (4 * n + 2 * e + i);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = n * 8 + 2 * t + e;
+            const float lse2 = lse[r] * kLog2e, dlt = delta[r];
+            const bool row_ok = lse[r] > 0.5f * kNegInf;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const bool valid = row_ok && ((ok >> (4 * n + 2 * e + i)) & 1u);
+              const float p = valid ? ex2(scale2 * sT[n][2 * i + e] - lse2) : 0.f;
+              dpT[n][2 * i + e] = p * (dpT[n][2 * i + e] - dlt) * a.scale;
+              sT[n][2 * i + e] = p;
+            }
+          }
         }
       }
     }
-    if (cb == 0 && tx == 0) a.lse_out[((long long)b * a.Hq + h) * a.Sq + row] = m[i] + logf(l_safe);
+    if (j == spp - 1) {  // dV += P^T dO, dK += dS^T Q over this block's columns
+      const T* qc = kv_res ? buf + col0 : buf;
+      const T* doc = qc + tile;
+#pragma unroll
+      for (int kk = 0; kk < kTile / kK; ++kk) {
+        uint32_t ap[2][4], ads[2][4];
+        a_from_c<T>(ap, sT[kPerK * kk], sT[kPerK * kk + kPerK - 1]);
+        a_from_c<T>(ads, dpT[kPerK * kk], dpT[kPerK * kk + kPerK - 1]);
+#pragma unroll
+        for (int n = 0; n < kNt; ++n) {  // as K1's P V: no branch
+          const int c = min(n, n_nt - 1) * 8;
+          uint32_t bf[2][2];
+          load_b_cols<T>(bf, doc, ld, kk * kK, c);
+          mma<T>(dv[n], ap, bf);
+          load_b_cols<T>(bf, qc, ld, kk * kK, c);
+          mma<T>(dk[n], ads, bf);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + k_r0 + g + 8 * i;
+    if (key >= a.Sk) continue;
+    const long long o_row = (((long long)b * a.Sk + key) * a.Hkv + hk) * a.D + col0;
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      if (n >= n_nt) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long c = o_row + n * 8 + 2 * t + e;
+        if (a.f32_out) {
+          reinterpret_cast<float*>(a.dk)[c] = dk[n][2 * i + e];
+          reinterpret_cast<float*>(a.dv)[c] = dv[n][2 * i + e];
+        } else {
+          reinterpret_cast<T*>(a.dk)[c] = from_f<T>(dk[n][2 * i + e]);
+          reinterpret_cast<T*>(a.dv)[c] = from_f<T>(dv[n][2 * i + e]);
+        }
+      }
+    }
   }
 }
 
@@ -630,18 +1293,15 @@ __global__ void __launch_bounds__(kThreads) flash_kv_generic(const GenArgs a) {
 
 // ---- launches ----
 
-enum Which { kFwd, kDq, kDkv, kFused };
-enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };  // ops/flash_attention.py GENERIC_DTYPES
-
-// staged 64 x 64 tiles and [64, cols] sums of each kernel's shared memory
-int tiles_of(Which w) { return w == kFwd ? 3 : w == kFused ? 6 : 4; }
-int sums_of(Which w) { return w == kDkv || w == kFused ? 2 : 1; }
+// K3a's and K2's staged 64 x 64 tiles and [64, cols] sums of shared memory
+int tiles_of(Which w) { return w == kFused ? 6 : 4; }
+int sums_of(Which w) { return w == kFused ? 2 : 1; }
 long long smem_bytes(Which w, int cols) {
   return 4LL * (tiles_of(w) * kTileFloats + sums_of(w) * kTile * (cols + 4));
 }
 
-// The fewest blocks over D whose columns (a multiple of 64) fit the shared
-// memory: cols and the number of column blocks.
+// K3a and K2: the fewest blocks over D whose columns (a multiple of 64) fit
+// the shared memory: cols and the number of column blocks.
 void pick_cols(Which w, int D, int* cols, int* blocks) {
   const int d64 = (D + kChunk - 1) / kChunk * kChunk;
   for (int n = 1;; ++n) {
@@ -654,28 +1314,102 @@ void pick_cols(Which w, int D, int* cols, int* blocks) {
   }
 }
 
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// K1 and K3b (kFwd, kDkv) with D contracted in chunks of at most `chunk`
+// columns: D in the fewest chunks (n_dc, each kdc wide, a multiple of mma's
+// k); the output columns in the fewest blocks of at most K1's kFwdCols or
+// K3b's kDkvCols (cols, a multiple of 8); where one chunk covers D, the
+// width staged for it and for every block's columns (wq); the staged row
+// stride, padded by 16 bytes to an odd number of 16-byte units (ld).
+// Returns the dynamic shared memory: K1, kHeads resident Q tiles (one
+// chunk) and two stages of a K or V tile (with kHeads Q tiles past one
+// chunk); K3b, resident K and V (one chunk) and two stages of Q and dO (with
+// K and V past one chunk).
+template <typename T>
+long long plan_chunks(Which w, int heads, int chunk, GenArgs& a) {
+  constexpr int kK = Tc<T>::kK;
+  a.n_dc = (a.D + chunk - 1) / chunk;
+  a.kdc = round_up((a.D + a.n_dc - 1) / a.n_dc, kK);
+  const int max_cols = w == kFwd ? Tc<T>::kFwdCols : kDkvCols;
+  a.col_blocks = (a.D + max_cols - 1) / max_cols;
+  a.cols = round_up((a.D + a.col_blocks - 1) / a.col_blocks, 8);
+  a.wq = a.n_dc == 1 ? round_up(max(a.kdc, a.col_blocks * a.cols), kK) : a.kdc;
+  a.ld = round_up(max(a.wq, a.cols), sizeof(T) == 4 ? 8 : 16) + 16 / (int)sizeof(T);
+  const long long tile = (long long)kTile * a.ld * sizeof(T);
+  const bool one = a.n_dc == 1;
+  if (w == kFwd) return (one ? heads : 0) * tile + 2 * (one ? 2 : 1 + heads) * tile;
+  return (one ? 2 : 0) * tile + 2 * (one ? 2 : 4) * tile;
+}
+
+// the widest chunk (kDChunk, halved) whose plan fits the shared memory
+// beside the kernels' static arrays (under 2 KB)
+template <typename T>
+long long plan_tc(Which w, int heads, GenArgs& a) {
+  long long smem = 0;
+  for (int chunk = kDChunk; chunk >= Tc<T>::kK; chunk /= 2) {
+    smem = plan_chunks<T>(w, heads, chunk, a);
+    if (smem <= kSmemCap - 1024) break;
+  }
+  return smem;
+}
+
 template <typename K>
-int launch(K kernel, long long grid, Which w, const GenArgs& a, cudaStream_t st) {
-  if (grid <= 0 || grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const int smem = (int)smem_bytes(w, a.cols);
-  cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch(K kernel, long long grid, int threads, long long smem, const GenArgs& a,
+           cudaStream_t st) {
+  if (grid <= 0 || grid > 0x7fffffffLL || smem > kSmemCap) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return (int)rc;
-  kernel<<<(unsigned)grid, kThreads, smem, st>>>(a);
+  kernel<<<(unsigned)grid, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(Which w, const GenArgs& a, cudaStream_t st) {
+int dispatch(Which w, GenArgs a, cudaStream_t st) {
   const long long q_tiles = (a.Sq + kTile - 1) / kTile, k_tiles = (a.Sk + kTile - 1) / kTile;
-  const long long per_q = (long long)a.B * a.Hq * a.col_blocks;
-  const long long per_k = (long long)a.B * a.Hkv * a.col_blocks;
   switch (w) {
-    case kFwd: return launch(flash_fwd_generic<T>, q_tiles * per_q, w, a, st);
-    case kDq: return launch(flash_dq_generic<T>, q_tiles * per_q, w, a, st);
-    case kDkv: return launch(flash_kv_generic<T, false>, k_tiles * per_k, w, a, st);
-    default: return launch(flash_kv_generic<T, true>, k_tiles * per_k, w, a, st);
+    case kFwd: {  // two query heads a block where the GQA group is even
+      const int heads = a.Hq / a.Hkv % 2 == 0 ? 2 : 1;
+      const long long smem = plan_tc<T>(w, heads, a);
+      const long long grid = q_tiles * a.B * (a.Hq / heads) * a.col_blocks;
+      return heads == 2
+                 ? launch(flash_fwd_generic<T, 2>, grid, FwdShape<T, 2>::kThreadsN, smem, a, st)
+                 : launch(flash_fwd_generic<T, 1>, grid, FwdShape<T, 1>::kThreadsN, smem, a, st);
+    }
+    case kDkv: {
+      const long long smem = plan_tc<T>(w, 1, a);
+      return launch(flash_dkv_generic<T>, k_tiles * a.B * a.Hkv * a.col_blocks, 128, smem, a,
+                    st);
+    }
+    case kDq:
+      pick_cols(w, a.D, &a.cols, &a.col_blocks);
+      return launch(flash_dq_generic<T>, q_tiles * a.B * a.Hq * a.col_blocks, kThreads,
+                    smem_bytes(w, a.cols), a, st);
+    default:
+      pick_cols(w, a.D, &a.cols, &a.col_blocks);
+      return launch(flash_kv_generic<T, true>, k_tiles * a.B * a.Hkv * a.col_blocks, kThreads,
+                    smem_bytes(w, a.cols), a, st);
   }
 }
+
+}  // namespace
+
+namespace rankpo_gen {
+
+int RANKPO_GEN_NAME(Which w, const GenArgs& a, cudaStream_t st) {
+  return dispatch<RANKPO_GEN_T>(w, a, st);
+}
+
+}  // namespace rankpo_gen
+
+#else  // the entry points
+
+namespace {
+
+using namespace rankpo_gen;
 
 int run(Which w, GenArgs& a, int dtype, void* stream) {
   const bool ok = a.B > 0 && a.Sq > 0 && a.Sk > 0 && a.Hkv > 0 && a.Hq % a.Hkv == 0 &&
@@ -684,12 +1418,11 @@ int run(Which w, GenArgs& a, int dtype, void* stream) {
   if (!ok) return (int)cudaErrorInvalidValue;
   a.scale = (float)(1.0 / sqrt((double)a.D));
   a.window = a.window > 0 ? a.window : -1;
-  pick_cols(w, a.D, &a.cols, &a.col_blocks);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return dispatch<float>(w, a, st);
-    case kF16: return dispatch<__half>(w, a, st);
-    case kBF16: return dispatch<__nv_bfloat16>(w, a, st);
+    case kF32: return dispatch_f32(w, a, st);
+    case kF16: return dispatch_f16(w, a, st);
+    case kBF16: return dispatch_bf16(w, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -788,3 +1521,5 @@ extern "C" int rankpo_flash_bwd_dkv_generic(RANKPO_GEN_BWD_PARAMS) {
 extern "C" int rankpo_flash_bwd_fused_generic(RANKPO_GEN_BWD_PARAMS) {
   return run_bwd(kFused, RANKPO_GEN_BWD_ARGS);
 }
+
+#endif  // RANKPO_GEN_T

@@ -55,10 +55,13 @@ computing the whole S^T and dP^T (``flash_bwd.cu``'s header).
 
 Every other input JAX's kernels take (fp32, fp16, and bf16 at a head_dim
 outside 64/128/256; any head_dim that is a multiple of 8) runs the generic
-build of the same four kernels, ``ops/csrc/flash_generic.cu``: simple SIMT
-kernels with fp32 sums, the element type passed at run time, the same
-masks, tile bounds and outputs, any head_dim (the output columns split over
-blocks where one block's shared memory cannot hold them).
+build of the same four kernels, ``ops/csrc/flash_generic.cu`` (one object
+per dtype): the element type passed at run time, the same masks, tile
+bounds and outputs, any head_dim (the output columns split over blocks
+where one block cannot hold them). Its K1 and K3b run on the tensor cores
+through ``mma.sync`` (bf16/fp16 directly, fp32 as three TF32 passes that
+keep fp32's accuracy) with sums in registers and ``cp.async`` staging; its
+K3a and K2 are simple SIMT kernels with fp32 sums.
 :func:`kernel_for` names the build that runs (``generic_launches`` counts
 its launches beside ``launches``). ``ops/attention.py``'s "auto" dispatch
 runs the Hopper kernels where they are built, the generic build where JAX's
@@ -276,17 +279,19 @@ def flash_attention_bwd_reference(
     return dq, dk, dv
 
 
-def _check_rows(name: str, x: torch.Tensor, build: str = "hopper") -> None:
-    """Every build reads rows with a head_dim stride of 1. The Hopper
-    kernels also read tiles by TMA, which needs a 16-byte-aligned base and
-    strides that are multiples of 16 bytes; the generic build reads element
-    by element."""
+def _check_rows(name: str, x: torch.Tensor) -> None:
+    """Every build reads rows with a head_dim stride of 1, and copies them
+    in 16-byte pieces (the Hopper kernels by TMA, the generic build by
+    cp.async), which needs a 16-byte-aligned base and batch, sequence and
+    head strides that are multiples of 16 bytes. A view that fails either
+    raises; nothing is copied or routed elsewhere."""
     if x.stride(3) != 1:
         raise ValueError(f"{name}: head_dim must be contiguous (stride 1)")
-    if build == "hopper" and (any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16):
+    if any(s * x.element_size() % 16 for s in x.stride()[:3]) or x.data_ptr() % 16:
         raise ValueError(
-            f"{name}: strides {tuple(x.stride())} and the data pointer must "
-            "keep each row 16-byte aligned"
+            f"{name}: 16-byte alignment: strides {tuple(x.stride())} of "
+            f"{x.element_size()}-byte elements and the data pointer must keep "
+            "each row 16-byte aligned"
         )
 
 
@@ -322,7 +327,7 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if sq == 0 or sk == 0 or b == 0:
         raise ValueError("flash kernel: empty sequence or batch")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_rows(name, x, build)
+        _check_rows(name, x)
     return build
 
 
@@ -417,7 +422,7 @@ def _check_bwd(q, k, v, mask, do, lse, delta, causal, window,
     b, sq, hq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"flash kernel: do {tuple(do.shape)} {do.dtype} must match q")
-    _check_rows("do", do, build)
+    _check_rows("do", do)
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != (b, hq, sq) or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"flash kernel: {name} must be contiguous fp32 {(b, hq, sq)}")

@@ -774,7 +774,10 @@ def test_other_head_dims_raise_on_card(cuda):
 # length full, window). Llama's heads in fp32 at S 1024, D 128, non-causal,
 # ragged Sq < Sk and Sq > Sk, a window, bf16 at D 80 and 32, fp16 at D 96
 # and 64, D 512 (K3b's and K2's output columns split over blocks) and
-# D 1024 (all four split), a window of three keys at D 72
+# D 1024 (all four split), a window of three keys at D 72; fp32 at D 72 (a
+# tail that is not a multiple of 16; K1's and K3b's columns in two blocks),
+# fp32 at D 256 (D in chunks, the columns over four blocks) and bf16 at D 80
+# with Sq != Sk
 GENERIC_SHAPES = [
     (torch.float32, (2, 1024, 1024, 32, 8, 64), True, True, False, None),
     (torch.float32, (2, 256, 256, 16, 8, 128), True, True, True, None),
@@ -789,6 +792,9 @@ GENERIC_SHAPES = [
     (torch.float32, (1, 256, 256, 8, 2, 512), True, True, False, None),
     (torch.float16, (1, 128, 128, 4, 2, 1024), True, True, False, 50),
     (torch.bfloat16, (2, 130, 130, 4, 1, 72), True, False, False, 3),
+    (torch.float32, (2, 200, 200, 8, 2, 72), True, True, False, None),
+    (torch.float32, (2, 256, 256, 8, 4, 256), True, True, False, None),
+    (torch.bfloat16, (3, 100, 300, 8, 4, 80), True, True, False, None),
 ]
 # the generic kernels against the plain versions in the same dtype: fp32
 # within 1e-5 of each tensor's largest |plain| value (fp32 sums in other
@@ -852,6 +858,55 @@ def test_generic_kernels_match_plain(cuda, dtype, shape, causal, skip, full, win
                                            "flash_dkv": 3 + (window is None)}
     assert port_flash.launches == port_flash.generic_launches
     assert port_flash.reference_routes == {"dtype": 0, "head_dim": 0}
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 72), (torch.bfloat16, 80),
+                                     (torch.float16, 96)])
+def test_generic_alignment_check_raises(cuda, dtype, d):
+    """The generic build copies rows by 16-byte cp.async: a q, k, v or dO
+    whose data pointer or batch, sequence or head stride is not a multiple
+    of 16 bytes raises a ValueError naming the check, in the forward and the
+    backward, and nothing launches."""
+    q, k, v, mask, _ = (t.to(cuda) for t in _inputs(2, 64, 64, 4, 2, d))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    step = 16 // q.element_size()
+    # rows 4 bytes off a 16-byte boundary; a head stride of d + step / 2
+    # elements (the view of a wider buffer)
+    shifted = torch.zeros(q.numel() + step, dtype=dtype, device=cuda)[1:1 + q.numel()]
+    shifted = shifted.view(q.shape).copy_(q)
+    wide = torch.zeros(2, 64, 4, d + step // 2, dtype=dtype, device=cuda)[..., :d].copy_(q)
+    lse = torch.zeros(2, 4, 64, device=cuda)
+    before = dict(port_flash.launches)
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte alignment"):
+            flash_attention_fwd(bad, k, v, mask, causal=True)
+        with pytest.raises(ValueError, match="16-byte alignment"):
+            flash_attention_bwd(q, k, v, mask, bad, lse, lse, causal=True)
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        flash_attention_fwd(q, wide[:, :, :2], wide[:, :, 2:], mask, causal=True)
+    assert port_flash.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_body_qkv_pass_the_alignment_check(cuda, dtype):
+    """The Llama body's q, k and v (projections viewed as heads, RoPE) in
+    fp32 and fp16 at head_dim 72 pass the generic build's 16-byte check and
+    run its K1, as the body's own forward does."""
+    cfg = dataclasses.replace(tiny_llama_config(vocab_size=512), hidden_size=288,
+                              intermediate_size=512, head_dim=72)
+    state = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    model = llama.LlamaEncoder.from_state_dict(cfg, state, device=cuda, dtype=dtype)
+    x = torch.randn(2, 100, 288, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).to(dtype)
+    cos, sin = llama.rope_cos_sin(cfg, torch.arange(100, device=cuda)[None].expand(2, -1))
+    with torch.inference_mode():
+        q, k, v = model.layers[0].qkv(x, cos, sin)
+        assert port_flash._check_qkv(q, k, v) == "generic"
+        port_flash.reset_launches()
+        out, _ = flash_attention_fwd(q, k, v, None, causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert port_flash.generic_launches["flash_fwd"] == 1
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
