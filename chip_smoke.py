@@ -520,9 +520,9 @@ GENERIC_TOL_OF_MAX = {torch.float32: 1e-5, torch.float16: 2.0**-9, torch.bfloat1
 GENERIC_REL_L2 = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 1e-2}
 GENERIC_KERNELS = {  # name -> profiler name test of its generic kernel
     "flash_fwd": lambda n: "flash_fwd_generic" in n,
-    "flash_bwd_fused": lambda n: "flash_kv_generic" in n and "true" in n,
+    "flash_bwd_fused": lambda n: "flash_dkv_generic" in n and "true" in n,
     "flash_dq": lambda n: "flash_dq_generic" in n,
-    "flash_dkv": lambda n: "flash_dkv_generic" in n,
+    "flash_dkv": lambda n: "flash_dkv_generic" in n and "false" in n,
 }
 # phase 5r: fp32 stage 1 at the reference's lengths (BASELINE.md:15), texts
 # long enough that every batch pads past 1024 positions (words, one token

@@ -6,8 +6,8 @@
 // Pallas TPU kernels of rankpo_tpu/ops/flash_attention.py:
 //   _fwd_kernel       (:55,  via _flash_fwd_impl :507) -> flash_fwd_generic<T, kHeads>
 //   _dq_kernel        (:161, via flash_dq :550)        -> flash_dq_generic<T>
-//   _dkv_kernel       (:240, via flash_dkv :579)       -> flash_dkv_generic<T>
-//   _bwd_fused_kernel (:341, via flash_bwd_fused :621) -> flash_kv_generic<T, true>
+//   _dkv_kernel       (:240, via flash_dkv :579)       -> flash_dkv_generic<T, false>
+//   _bwd_fused_kernel (:341, via flash_bwd_fused :621) -> flash_dkv_generic<T, true>
 //
 // Contract: the JAX kernels', as the Hopper kernels' headers state it, with
 // the element type T (fp32, fp16 or bf16) passed at run time:
@@ -31,11 +31,13 @@
 //   into a zeroed fp32 [B, Hq, Sq, D] buffer in key-tile order by
 //   flash_bwd.cu's scheme: a ticket in sync[0] hands out the blocks' places
 //   in the order they start, key tile slowest, and a counter per (batch *
-//   query head, query tile, column block) gives each key tile its turn, with
-//   ticks for the turns a packed key tile passes. No atomics touch an
-//   output, so every output repeats bit for bit.
+//   query head, query tile, column block) gives each key tile its turn
+//   (each of the block's warps counts once for its rows), with ticks for
+//   the turns a packed key tile passes. No atomics touch an output, so
+//   every output repeats bit for bit.
 //
-// K1 and K3b: tensor cores through mma.sync, sums in registers, cp.async.
+// All four kernels: tensor cores through mma.sync, sums in registers,
+// cp.async.
 //   - Products. bf16 and fp16: m16n8k16 with fp32 sums (the products of two
 //     16-bit values are exact in fp32); a D that is not a multiple of 16 is
 //     padded with zeros in shared memory. fp32: m16n8k8 in TF32 taken as
@@ -46,10 +48,10 @@
 //     result keeps fp32's accuracy at a third of the TF32 rate
 //     (tests/test_torch_flash_generic.py models it on the CPU). The split
 //     is done per fragment, as it is loaded. The accumulator truncates, so
-//     a long sum (O over the key tiles, dK/dV over the pairs) takes each
-//     triple's result by an fp32 add (mma's kFresh). mma.sync, not wgmma:
-//     it takes any D that is a multiple of 8 as n8 tiles, where TF32 wgmma
-//     wants both operands K-major (V transposed in shared memory).
+//     a long sum (O and K3a's dQ over the key tiles, dK/dV over the pairs)
+//     takes each triple's result by an fp32 add (mma's kFresh). mma.sync,
+//     not wgmma: it takes any D that is a multiple of 8 as n8 tiles, where
+//     TF32 wgmma wants both operands K-major (V transposed in shared memory).
 //   - K1: a block covers one 64-row query tile of kHeads query heads of a
 //     GQA group (2 where the group is even, else 1), 16 rows a warp; in
 //     fp32 a warp carries its rows of both heads, so each K/V fragment,
@@ -59,55 +61,58 @@
 //     key of the tile tests no pair. P's C fragments become the A operand of
 //     P V without shared memory (fp32: the key order permuted to match, the
 //     same permutation on V's rows). O is written once.
-//   - K3b: one block (4 warps) per (batch, kv head, 64-key tile, column
-//     block), each warp 16 keys; the group's (query head, query tile) pairs
-//     inside the bounds in order. All four products on the tensor cores:
-//     S^T = K Q^T and dP^T = V dO^T over D, then dV += P^T dO and dK +=
+//   - K3a: K1's layout with one query head a block (4 warps of 16 rows),
+//     the key tiles inside K1's bounds in order. S = Q K^T and dP = dO V^T
+//     with B from K's and V's rows; p = 2^(s scale log2 e - lse log2 e)
+//     and dS = p (dP - delta) scale built in place over dP's registers;
+//     dQ += dS K with dS's C fragments as the A operand, as K1's P V (fp32:
+//     the key order permuted on K's rows). dQ stays in fragments over the
+//     key tiles and is written once, in T.
+//   - K3b and K2 (flash_dkv_generic<T, kFused>): one block (4 warps) per
+//     (batch, kv head, 64-key tile, column block), each warp 16 keys; the
+//     group's (query head, query tile) pairs inside the bounds (K3b head by
+//     head; K2 query tile by query tile from the last, the heads inside, so
+//     the blocks of consecutive key tiles reach a pair at the same index
+//     and a block waits only for the add of the key tile before). S^T = K
+//     Q^T and dP^T = V dO^T over D, then dV += P^T dO and dK +=
 //     dS^T Q with P^T and dS^T taken from the C fragments. dK and dV stay
-//     in fragments over all pairs and are written once.
+//     in fragments over all pairs and are written once. K2 adds a fifth
+//     product for each pair: the warps write dS (rounded to T) from their
+//     C fragments over the stage's Q tile, [query row][key] (fp32: each 8
+//     keys in a_from_c's order), pass one barrier, and each warp takes 16
+//     query rows by the block's columns as dS K over the 64 keys (K from
+//     the resident tile; a sum of 4 or 8 k-steps, kept in the accumulator),
+//     after it has waited for its turn and asked for its rows of the fp32
+//     dQ buffer through L2 (__ldcg), which land during the product; then it
+//     adds and stores them (__stcg). The next pair's loads are in flight
+//     while a warp waits for its turn.
 //   - Staging: 16-byte cp.async copies into row-major tiles (rows padded by
 //     16 bytes, so the fragment loads hit 32 distinct banks), zeros past S
 //     and D by the copies' source size, in a ring of two stages with one
-//     barrier a stage: K1 loads the next key tile's K and V while it works
-//     on the current one, K3b the next pair's Q and dO. The mask, lse,
-//     delta and segment ids come by 4-byte copies in the same groups. The
-//     wrapper checks the 16-byte alignment of every base pointer and stride
-//     this needs (ops/flash_attention.py _check_rows).
+//     barrier a stage (K2: three a pair): K1 and K3a load the next key
+//     tile's K and V while they work on the current one, K3b and K2 the
+//     next pair's Q and dO. The mask, lse, delta and segment ids come by
+//     4-byte copies in the same groups. The wrapper checks the 16-byte
+//     alignment of every base pointer and stride this needs
+//     (ops/flash_attention.py _check_rows).
 //   - Large D: D is contracted in chunks of at most kDChunk columns (Q in
-//     K1, K and V in K3b stay staged where D fits one chunk; else every
-//     operand's chunks are staged per step). The output columns a block
-//     holds in registers are capped (K1: 64 in fp32, 128 in 16-bit; K3b:
-//     64), and a larger D splits its columns over blocks, each recomputing
-//     S (and dP) over the whole D. The n-tiles past a block's columns are
-//     multiplied on its last staged column and never stored, so no branch
-//     parts one n-tile's loads and products from the next.
-//   What bounds them at the main path's shapes (fp32, D 64, S 1280 to 4096):
-//   the products, 2 (K1) or 4 (K3b) of 64 x 64 x D per tile pair, at a
-//   third of the 495 TFLOP/s TF32 rate in fp32 and at 989 TFLOP/s in 16-bit.
-//   mma.sync reaches part of that; in fp32 each product also takes its
-//   fragment loads, the splits' integer work and the fresh sums' adds, and
-//   both kernels run at 255 registers with some spills (PERF.md).
-
-// K3a and K2: simple SIMT, fp32 FMAs only. A block is 256 threads; thread
-// (ty, tx) = (tid / 16, tid % 16) owns the 4 x 4 patch of rows 4 ty .. 4 ty
-// + 3 and columns 4 tx .. 4 tx + 3 of every 64 x 64 tile product. Operands
-// are staged in shared memory as fp32 64 x 64 chunks of D (transposed where
-// a product contracts over D, so each step reads a thread's four rows and
-// four columns as two float4), one chunk at a time, so any D runs. The
-// output sums ([64, cols]: dQ; dK and dV) live in shared memory, each entry
-// owned by one thread. A block owns `cols` output columns, a multiple of 64
-// up to what its shared memory holds (opt-in, up to 227 KB); a larger D
-// splits its columns over blocks, each of which recomputes S and dP over
-// the whole D.
-//   - K3a: one block per (batch, query head, 64-row query tile, column
-//     block), the key tiles inside the bounds in order; Q and dO stay
-//     staged when D <= 64.
-//   - K2: one block per (batch, kv head, 64-key tile, column block), the
-//     (query head of the group, query tile) pairs inside the bounds in
-//     order; it also stages dS^T and adds each pair's dQ on its turn.
-// What bounds them: the FMAs, 3 (K3a) or 5 (K2) products of 64 x 64 x D per
-// tile pair, against the card's fp32 rate without tensor cores. Not tuned
-// (ROADMAP Queue 2).
+//     K1, Q and dO in K3a, K and V in K3b and K2 stay staged where D fits
+//     one chunk; else every operand's chunks are staged per step, and K's
+//     columns for dS K in a stage of their own). The output columns a block
+//     holds in registers are capped (K1 and K3a: 64 in fp32, 128 in 16-bit;
+//     K3b and K2: 64), and a larger D splits its columns over blocks, each
+//     recomputing S (and dP) over the whole D. The n-tiles past a block's
+//     columns are multiplied on its last staged column and never stored, so
+//     no branch parts one n-tile's loads and products from the next.
+//   What bounds them at the main path's shapes (fp32, D 64, S 1280 to 4096;
+//   bf16 and fp16 at other head dims): the products, 2 (K1), 3 (K3a), 4
+//   (K3b) or 5 (K2) of 64 x 64 x D per tile pair, at a third of the 495
+//   TFLOP/s TF32 rate in fp32 and at 989 TFLOP/s in 16-bit. mma.sync
+//   reaches part of that; in fp32 each product also takes its fragment
+//   loads, the splits' integer work and the fresh sums' adds, and the
+//   kernels run near 255 registers (PERF.md). K2 also moves its fp32 dQ
+//   through L2 once a pair: a read and a write of 64 x cols floats, in
+//   key-tile order, so a block may wait on the block of the key tile before.
 //
 // The file builds as four objects that nvcc compiles side by side:
 // flash_generic_f32.cu, flash_generic_f16.cu and flash_generic_bf16.cu
@@ -169,16 +174,8 @@ namespace {
 
 using namespace rankpo_gen;
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 64;                // columns of D staged at a time
-constexpr int kLd = kChunk + 4;           // a staged row, in floats
-constexpr int kTileFloats = kTile * kLd;  // one staged 64 x 64 tile
 // dynamic shared memory a block may ask for, the static arrays' room kept
 constexpr int kSmemCap = 232448 - 1024;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -191,45 +188,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// x rounded to T and back: JAX's p.astype(v.dtype) and ds.astype(q.dtype)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
-
-
-// Rows [r0, r0 + 64) and columns [c0, c0 + 64) of one head of a [B, S, H, D]
-// operand (base: the head's row 0, row stride ss) as fp32, transposed into
-// dst[c][r] (kTrans) or row-major into dst[r][c]; zeros past S and D.
-template <bool kTrans, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* base, long long ss, int r0, int S,
-                                      int c0, int D) {
-  for (int i = threadIdx.x; i < kTile * kChunk; i += kThreads) {
-    const int r = i / kChunk, c = i % kChunk;
-    float x = 0.f;
-    if (r0 + r < S && c0 + c < D) x = to_f(base[(long long)(r0 + r) * ss + c0 + c]);
-    dst[kTrans ? c * kLd + r : r * kLd + c] = x;
-  }
-}
-
-// acc[i][j] += sum over x < 64 of A[x][4 ty + i] * B[x][4 tx + j]
-__device__ __forceinline__ void product(float (&acc)[4][4], const float* A, const float* B,
-                                        int ty, int tx) {
-#pragma unroll 4
-  for (int x = 0; x < kChunk; ++x) {
-    const float4 a4 = *reinterpret_cast<const float4*>(A + x * kLd + 4 * ty);
-    const float4 b4 = *reinterpret_cast<const float4*>(B + x * kLd + 4 * tx);
-    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-    const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
-
 // one past the last valid key of the mask row, reduced over the block of kN
 // threads
-template <int kN = kThreads>
+template <int kN>
 __device__ __forceinline__ int block_key_end(const int* mrow, int Sk) {
   __shared__ int warp_end[kN / 32];
   const int e = warp_key_end(mrow, Sk, threadIdx.x, kN);
@@ -244,7 +205,7 @@ __device__ __forceinline__ int block_key_end(const int* mrow, int Sk) {
 // The key tiles [x, y) the query tile at q0 runs: flash_fwd.cu's K1 bounds
 // (the dq kernel's too). Every thread of the kN calls it (packed: two
 // barriers).
-template <int kN = kThreads>
+template <int kN>
 __device__ __forceinline__ int2 key_tiles(const GenArgs& a, const int* mrow, int key_end,
                                           int q0) {
   const int q_shift = a.Sk - a.Sq;
@@ -271,13 +232,13 @@ __device__ __forceinline__ bool pair_valid(const GenArgs& a, int kv, int qseg, i
          (a.window <= 0 || key > qpos - a.window);
 }
 
-// ---- K1 and K3b: tensor-core fragments, products and cp.async staging ----
+// ---- tensor-core fragments, products and cp.async staging ----
 
 constexpr int kDChunk = 128;    // columns of D a product contracts per staged chunk
-constexpr int kDkvCols = 64;    // K3b: dK/dV columns a block holds in registers
+constexpr int kDkvCols = 64;    // K3b, K2: dK/dV (and dQ) columns a block holds in registers
 
 template <typename T>
-struct Tc;  // per dtype: mma's k, K1's O columns in registers
+struct Tc;  // per dtype: mma's k, K1's O (K3a's dQ) columns in registers
 template <>
 struct Tc<float> {
   static constexpr int kK = 8;  // m16n8k8, TF32
@@ -753,17 +714,26 @@ __global__ void __launch_bounds__(FwdShape<T, kHeads>::kThreadsN, FwdShape<T, kH
   }
 }
 
-// ---- K3b: dK, dV ----
+// ---- K3b (dK, dV) and K2 (with dQ in key-tile order) ----
 
-template <typename T>
+// the end of a warp's dQ turn (K2): its lanes' stores made visible at the
+// device, then one count for the warp
+__device__ __forceinline__ void end_turn(int* counter, int lane) {
+  __threadfence();
+  __syncwarp();
+  if (lane == 0) atomicAdd(counter, 1);
+}
+
+template <typename T, bool kFused>
 __global__ void __launch_bounds__(128) flash_dkv_generic(const GenArgs a) {
-  constexpr int kN = 128;
+  constexpr int kN = 128, kWarps = kN / 32;
   constexpr int kK = Tc<T>::kK;
-  constexpr int kNt = kDkvCols / 8;  // dK's and dV's n-tiles a warp may hold
+  constexpr int kNt = kDkvCols / 8;  // dK's, dV's (K2: dQ's) n-tiles a warp may hold
   constexpr int kPerK = sizeof(T) == 4 ? 1 : 2;
   extern __shared__ float4 smem4[];
   __shared__ int kmask[kTile];
   __shared__ float rows[2][3][kTile];  // a pair's lse, delta, segment ids (int)
+  __shared__ int s_place;
   const int ld = a.ld, tile = kTile * ld, n_dc = a.n_dc;
   const bool kv_res = n_dc == 1;  // K and V staged once; else per chunk with Q's
   const int stage_sz = tile * (kv_res ? 2 : 4);  // Q, dO (, K, V)
@@ -771,11 +741,18 @@ __global__ void __launch_bounds__(128) flash_dkv_generic(const GenArgs a) {
   T* vres = kres + tile;
   T* ring = kres + (kv_res ? 2 * tile : 0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int k_r0 = warp * 16;  // the warp's keys in the tile
+  const int k_r0 = warp * 16;  // the warp's keys in the tile (K2: its query rows of dS K)
+  if constexpr (kFused) {
+    if (tid == 0) s_place = atomicAdd(a.sync, 1);
+    __syncthreads();
+  }
+  // K2: places in start order, key tile slowest, so the key tiles before
+  // this one have started
+  const int place = kFused ? s_place : blockIdx.x;
   const int per_tile = a.B * a.Hkv * a.col_blocks;
-  const int kt = blockIdx.x / per_tile;
-  const int cb = blockIdx.x % per_tile % a.col_blocks;
-  const int bhk = blockIdx.x % per_tile / a.col_blocks;
+  const int kt = place / per_tile;
+  const int cb = place % per_tile % a.col_blocks;
+  const int bhk = place % per_tile / a.col_blocks;
   const int b = bhk / a.Hkv, hk = bhk % a.Hkv;
   const int groups = a.Hq / a.Hkv, h0 = hk * groups;
   const int key0 = kt * kTile, col0 = cb * a.cols;
@@ -796,6 +773,8 @@ __global__ void __launch_bounds__(128) flash_dkv_generic(const GenArgs a) {
     const int lim = key_end - q_shift;  // tile qt runs iff qt * 64 < lim
     qt_end = min(qt_end, lim <= 0 ? 0 : (lim + kTile - 1) / kTile);
   }
+  // K2 takes its dQ turn on every query tile of this unpacked range
+  const int turn_begin = qt_begin, turn_end = max(qt_begin, qt_end);
   if (a.packed) {  // only the query tiles of the key tile's segments
     const int2 span = packed_span<kN>(mrow, a.Sk, key0, tid);
     qt_begin = max(qt_begin, span.x / kTile);
@@ -806,10 +785,40 @@ __global__ void __launch_bounds__(128) flash_dkv_generic(const GenArgs a) {
   const int total = groups * nq * spp;
   if (tid < kTile) kmask[tid] = key0 + tid < a.Sk ? mrow[key0 + tid] : 0;
 
+  // K2's dQ order (the header): each warp of a key tile's block counts once
+  // on (batch * query head, query tile, column block) when its rows have
+  // added, so turn n waits for kWarps * n counts; a tick counts, adding
+  // nothing
+  auto counter_of = [&](long long bh, int qt) {
+    return a.sync + 1 + ((bh * n_q_tiles + qt) * a.col_blocks + cb);
+  };
+  auto turn_of = [&](int qt) {
+    return kt - (a.window > 0 ? first_kt(qt, a.window, q_shift) : 0);
+  };
+  auto pass_turns = [&](int qt_from, int qt_to) {  // ticks: every head's, qt descending
+    for (int qt = qt_to - 1; qt >= qt_from; --qt) {
+      for (int i = 0; i < groups; ++i) {
+        int* counter = counter_of((long long)b * a.Hq + h0 + i, qt);
+        if (turn_of(qt) > 0) wait_turn(counter, kWarps * turn_of(qt));
+        end_turn(counter, lane);
+      }
+    }
+  };
+  // a pair's (query head, query tile): K3b takes the heads in order, each
+  // over its query tiles in order; K2 takes the query tiles from the last,
+  // each over the group's heads, so the blocks of consecutive key tiles
+  // reach a (head, query tile) at the same pair index (their extra pairs,
+  // the causal diagonal's, come last) and a block waits only for the add
+  // of the key tile before
+  auto pair_of = [&](int pair) {
+    return kFused ? make_int2(h0 + pair % groups, qt_end - 1 - pair / groups)
+                  : make_int2(h0 + pair / nq, qt_begin + pair % nq);
+  };
+
   // stage s into ring[s % 2], its pair's rows into rows[pair % 2]
   auto issue = [&](int s) {
     const int pair = s / spp, j = s % spp;
-    const int h = h0 + pair / nq, q0 = (qt_begin + pair % nq) * kTile;
+    const int h = pair_of(pair).x, q0 = pair_of(pair).y * kTile;
     const long long bh = (long long)b * a.Hq + h;
     const T* qb = reinterpret_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
     const T* dob = reinterpret_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
@@ -826,6 +835,7 @@ __global__ void __launch_bounds__(128) flash_dkv_generic(const GenArgs a) {
     } else {
       stage_tile<kN>(buf, ld, qb, a.q_ss, q0, a.Sq, col0, a.cols, a.D);
       stage_tile<kN>(buf + tile, ld, dob, a.do_ss, q0, a.Sq, col0, a.cols, a.D);
+      if (kFused) stage_tile<kN>(buf + 2 * tile, ld, kb, a.k_ss, key0, a.Sk, col0, a.cols, a.D);
     }
     if (j == 0) {
       float* r = rows[pair & 1][0];
@@ -891,7 +901,7 @@ __global__ void __launch_bounds__(128) flash_dkv_generic(const GenArgs a) {
         // p = 2^(s scale log2(e) - lse log2(e)) by ex2.approx, 0 on a row
         // with lse = NEG_INF; a warp whose 16 keys and the tile's 64 rows make
         // only valid pairs tests no pair
-        const int q0 = (qt_begin + pair % nq) * kTile;
+        const int q0 = pair_of(pair).y * kTile;
         const float* lse = rows[pair & 1][0];
         const float* delta = rows[pair & 1][1];
         const int* qseg = reinterpret_cast<const int*>(rows[pair & 1][2]);
@@ -954,7 +964,77 @@ __global__ void __launch_bounds__(128) flash_dkv_generic(const GenArgs a) {
           mma<T>(dk[n], ads, bf);
         }
       }
+      if constexpr (kFused) {  // dQ = dS K, added on the pair's turn
+        const int qt = pair_of(pair).y;
+        const long long bh = (long long)b * a.Hq + pair_of(pair).x;
+        // dS (rounded to T) from the C fragments into the stage's Q tile as
+        // [query row][key], once every warp is done with Q; fp32: each 8
+        // keys in the order a_from_c gives A's k (key 2c at column c, key 2c
+        // + 1 at column c + 4), the order load_b_cols takes K's rows in
+        T* ds = ring + (st & 1) * stage_sz;
+        const int kc0 = sizeof(T) == 4 ? (g & 1) * 4 + g / 2 : g;
+        __syncthreads();
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              ds[(n * 8 + 2 * t + e) * ld + k_r0 + 8 * i + kc0] = from_f<T>(dpT[n][2 * i + e]);
+            }
+          }
+        }
+        __syncthreads();
+        // on the pair's turn, the warp's rows of the fp32 dQ buffer come
+        // through L2 while it takes its 16 query rows by the block's columns
+        // over the 64 keys (a short sum of 8 or 4 k-steps, kept in the
+        // accumulator); the first turn adds to zeros
+        if (a.packed && pair == 0) pass_turns(qt_end, turn_end);
+        int* counter = counter_of(bh, qt);
+        const int turn = turn_of(qt);
+        if (turn > 0) wait_turn(counter, kWarps * turn);
+        float* dst = reinterpret_cast<float*>(a.dq) + (bh * a.Sq + qt * kTile + k_r0) * a.D + col0;
+        float2 old[2][kNt];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int n = 0; n < kNt; ++n) {
+            const bool in = turn > 0 && n < n_nt && qt * kTile + k_r0 + g + 8 * i < a.Sq;
+            old[i][n] = in ? __ldcg(reinterpret_cast<const float2*>(
+                                 dst + (long long)(g + 8 * i) * a.D + n * 8 + 2 * t))
+                           : make_float2(0.f, 0.f);
+          }
+        }
+        const T* kc = kv_res ? kres + col0 : buf + 2 * tile;
+        float dq[kNt][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kTile / kK; ++kk) {
+          uint32_t af[2][4];
+          load_a<T>(af, ds, ld, k_r0, kk * kK);
+#pragma unroll
+          for (int n = 0; n < kNt; ++n) {
+            uint32_t bf[2][2];
+            load_b_cols<T>(bf, kc, ld, kk * kK, min(n, n_nt - 1) * 8);
+            mma<T, false>(dq[n], af, bf);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (qt * kTile + k_r0 + g + 8 * i >= a.Sq) continue;
+#pragma unroll
+          for (int n = 0; n < kNt; ++n) {
+            if (n >= n_nt) continue;
+            const float2 x = make_float2(old[i][n].x + dq[n][2 * i], old[i][n].y + dq[n][2 * i + 1]);
+            __stcg(reinterpret_cast<float2*>(dst + (long long)(g + 8 * i) * a.D + n * 8 + 2 * t), x);
+          }
+        }
+        end_turn(counter, lane);
+        if (a.packed && pair == groups * nq - 1) pass_turns(turn_begin, qt_begin);
+      }
     }
+  }
+  if constexpr (kFused) {
+    if (a.packed && nq == 0) pass_turns(turn_begin, turn_end);  // no pair ran: every turn a tick
   }
 
 #pragma unroll
@@ -982,28 +1062,37 @@ __global__ void __launch_bounds__(128) flash_dkv_generic(const GenArgs a) {
 
 // ---- K3a: dQ ----
 
+// K1's layout with one query head a block: S = Q K^T and dP = dO V^T, then
+// dS = p (dP - delta) scale in place over dP's registers, then dQ += dS K
+// with dS's C fragments as the A operand; dQ stays in fragments over the
+// key tiles and is written once.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dq_generic(const GenArgs a) {
+__global__ void __launch_bounds__(128, 2) flash_dq_generic(const GenArgs a) {
+  constexpr int kN = 128;
+  constexpr int kK = Tc<T>::kK;
+  constexpr int kNt = Tc<T>::kFwdCols / 8;  // dQ's n-tiles a warp may hold
+  constexpr int kPerK = sizeof(T) == 4 ? 1 : 2;  // dS's n-tiles per k of dS K
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // Q chunk, [d][row]
-  float* dOt = Qt + kTileFloats;                // dO chunk, [d][row]
-  float* Kt = dOt + kTileFloats;                // K chunk, [d][key]; then K, [key][col]
-  float* Vt = Kt + kTileFloats;                 // V chunk, [d][key]; then dS^T, [key][row]
-  float* acc = Vt + kTileFloats;                // dQ sums, [row][col]
-  float* Ks = Kt;
-  float* dSt = Vt;
-  __shared__ int kmask[kTile];
-  const int acc_ld = a.cols + 4;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  __shared__ int kmask[2][kTile];
+  const int ld = a.ld, tile = kTile * ld, n_dc = a.n_dc;
+  // One chunk of D: Q and dO staged once, and a stage holds a key tile's K
+  // (S's chunk and every block's columns) and V. Else a stage holds a chunk
+  // of K, V, Q and dO, or K's columns of this block.
+  const bool one = n_dc == 1;
+  const int stage_sz = tile * (one ? 2 : 4);
+  T* qres = reinterpret_cast<T*>(smem4);
+  T* dores = qres + tile;
+  T* ring = qres + (one ? 2 * tile : 0);  // two stages
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;  // the warp's rows in the tile
   const int per_tile = a.B * a.Hq * a.col_blocks;
   const int n_qt = (a.Sq + kTile - 1) / kTile;
-  const int qt = n_qt - 1 - blockIdx.x / per_tile;
+  const int qt = n_qt - 1 - blockIdx.x / per_tile;  // long causal tiles first
   const int cb = blockIdx.x % per_tile % a.col_blocks;
   const int bh = blockIdx.x % per_tile / a.col_blocks;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / (a.Hq / a.Hkv);
   const int q0 = qt * kTile, col0 = cb * a.cols;
-  const int n_cc = (min(a.cols, a.D - col0) + kChunk - 1) / kChunk;
-  const int n_dc = (a.D + kChunk - 1) / kChunk;
+  const int n_nt = min(a.cols, a.D - col0) / 8;  // dQ's n-tiles of this block
   const int q_shift = a.Sk - a.Sq;
   const int* mrow = a.mask + (long long)b * a.mask_sb;
   const T* qb = reinterpret_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -1011,281 +1100,164 @@ __global__ void __launch_bounds__(kThreads) flash_dq_generic(const GenArgs a) {
   const T* kb = reinterpret_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* vb = reinterpret_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
-  const int key_end = block_key_end(mrow, a.Sk);
-  const int2 kr = key_tiles(a, mrow, key_end, q0);
-  float lse[4], delta[4];
-  int qpos[4], qseg[4];
+  const int key_end = block_key_end<kN>(mrow, a.Sk);
+  const int2 kr = key_tiles<kN>(a, mrow, key_end, q0);
+  const int spt = one ? 1 : n_dc + 1;  // stages a key tile
+  const int total = max(0, kr.y - kr.x) * spt;
+
+  // stage s into ring[s % 2], its key tile's mask into kmask[key tile % 2]
+  auto issue = [&](int s) {
+    const int kt = kr.x + s / spt, j = s % spt;
+    T* buf = ring + (s & 1) * stage_sz;
+    if (one) {
+      stage_tile<kN>(buf, ld, kb, a.k_ss, kt * kTile, a.Sk, 0, a.wq, a.D);
+      stage_tile<kN>(buf + tile, ld, vb, a.v_ss, kt * kTile, a.Sk, 0, a.kdc, a.D);
+    } else if (j < n_dc) {
+      const int c0 = j * a.kdc;
+      stage_tile<kN>(buf, ld, kb, a.k_ss, kt * kTile, a.Sk, c0, a.kdc, a.D);
+      stage_tile<kN>(buf + tile, ld, vb, a.v_ss, kt * kTile, a.Sk, c0, a.kdc, a.D);
+      stage_tile<kN>(buf + 2 * tile, ld, qb, a.q_ss, q0, a.Sq, c0, a.kdc, a.D);
+      stage_tile<kN>(buf + 3 * tile, ld, dob, a.do_ss, q0, a.Sq, c0, a.kdc, a.D);
+    } else {
+      stage_tile<kN>(buf, ld, kb, a.k_ss, kt * kTile, a.Sk, col0, a.cols, a.D);
+    }
+    if (j == 0) stage_row<kN>(kmask[(s / spt) & 1], mrow, kt * kTile, a.Sk);
+    cp_async_commit();
+  };
+  if (total > 0) {
+    if (one) {
+      stage_tile<kN>(qres, ld, qb, a.q_ss, q0, a.Sq, 0, a.kdc, a.D);
+      stage_tile<kN>(dores, ld, dob, a.do_ss, q0, a.Sq, 0, a.kdc, a.D);
+    }
+    issue(0);  // one group with Q and dO
+  }
+
+  // the thread's rows g and g + 8: lse in base 2 (NEG_INF past Sq), delta
+  float lse2[2], dlt[2];
+  int qpos[2], qseg[2];
+  bool row_ok[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    const long long st = ((long long)b * a.Hq + h) * a.Sq + row;
-    lse[i] = row < a.Sq ? a.lse[st] : 0.f;
-    delta[i] = row < a.Sq ? a.delta[st] : 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    const bool in = row < a.Sq;
+    const float lse = in ? a.lse[(long long)bh * a.Sq + row] : kNegInf;
+    row_ok[i] = lse > 0.5f * kNegInf;
+    lse2[i] = lse * kLog2e;
+    dlt[i] = in ? a.delta[(long long)bh * a.Sq + row] : 0.f;
     qpos[i] = row + q_shift;
-    qseg[i] = a.packed && row < a.Sq ? mrow[row] : 0;
-    for (int cc = 0; cc < n_cc; ++cc) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[(4 * ty + i) * acc_ld + cc * kChunk + 4 * tx + j] = 0.f;
-    }
+    qseg[i] = a.packed && in ? mrow[row] : 0;
   }
-  if (n_dc == 1) {
-    stage<true>(Qt, qb, a.q_ss, q0, a.Sq, 0, a.D);
-    stage<true>(dOt, dob, a.do_ss, q0, a.Sq, 0, a.D);
-  }
+  float dq[kNt][4] = {};
+  float s[8][4], dp[8][4];  // S then P, dP then dS: the 64 keys as 8 n-tiles
+  const float scale2 = a.scale * kLog2e;
 
-  for (int kt = kr.x; kt < kr.y; ++kt) {
-    const int key0 = kt * kTile;
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int dc = 0; dc < n_dc; ++dc) {  // S = Q K^T and dP = dO V^T
-      if (n_dc > 1) {
-        stage<true>(Qt, qb, a.q_ss, q0, a.Sq, dc * kChunk, a.D);
-        stage<true>(dOt, dob, a.do_ss, q0, a.Sq, dc * kChunk, a.D);
-      }
-      stage<true>(Kt, kb, a.k_ss, key0, a.Sk, dc * kChunk, a.D);
-      stage<true>(Vt, vb, a.v_ss, key0, a.Sk, dc * kChunk, a.D);
-      if (dc == 0 && tid < kTile) kmask[tid] = key0 + tid < a.Sk ? mrow[key0 + tid] : 0;
-      __syncthreads();
-      product(s, Qt, Kt, ty, tx);
-      product(dp, dOt, Vt, ty, tx);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = lse[i] > 0.5f * kNegInf &&
-                        pair_valid(a, kmask[4 * tx + j], qseg[i], key0 + 4 * tx + j, qpos[i]);
-        const float p = ok ? expf(a.scale * s[i][j] - lse[i]) : 0.f;
-        dSt[(4 * tx + j) * kLd + 4 * ty + i] = round_to<T>(p * (dp[i][j] - delta[i]) * a.scale);
-      }
-    }
-    for (int cc = 0; cc < n_cc; ++cc) {  // dQ += dS K
-      stage<false>(Ks, kb, a.k_ss, key0, a.Sk, col0 + cc * kChunk, a.D);
-      __syncthreads();
-      float o[4][4] = {};
-      product(o, dSt, Ks, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[(4 * ty + i) * acc_ld + cc * kChunk + 4 * tx + j] += o[i][j];
-      }
-      __syncthreads();
-    }
-  }
-
-  T* dq = reinterpret_cast<T*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= a.Sq) continue;
-    const long long o_row = (((long long)b * a.Sq + row) * a.Hq + h) * a.D;
-    for (int cc = 0; cc < n_cc; ++cc) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cc * kChunk + 4 * tx + j;
-        if (col0 + c < a.D && c < a.cols) {
-          dq[o_row + col0 + c] = from_f<T>(acc[(4 * ty + i) * acc_ld + c]);
-        }
-      }
-    }
-  }
-}
-
-// ---- K3b (dK, dV) and K2 (with dQ in key-tile order) ----
-
-template <typename T, bool kFused>
-__global__ void __launch_bounds__(kThreads) flash_kv_generic(const GenArgs a) {
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // Q chunk, [d][row]; then Q, [row][col]
-  float* dOt = Qt + kTileFloats;                // dO chunk, [d][row]; then dO, [row][col]
-  float* Kt = dOt + kTileFloats;                // K chunk, [d][key]; then P, [row][key]
-  float* Vt = Kt + kTileFloats;                 // V chunk, [d][key]; then dS, [row][key]
-  float* dSt = Vt + kTileFloats;                // K2: dS^T, [key][row]
-  float* Ks = dSt + (kFused ? kTileFloats : 0);  // K2: K, [key][col]
-  float* dk_acc = Ks + (kFused ? kTileFloats : 0);  // [key][col]
-  const int acc_ld = a.cols + 4;
-  float* dv_acc = dk_acc + kTile * acc_ld;
-  float* Qs = Qt;
-  float* dOs = dOt;
-  float* Ps = Kt;
-  float* dSs = Vt;
-  __shared__ int kmask[kTile];
-  __shared__ int s_place;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  if (kFused) {
-    if (tid == 0) s_place = atomicAdd(a.sync, 1);
+  // one barrier a stage, as K1's
+  for (int st = 0; st < total; ++st) {
+    cp_async_wait<0>();
     __syncthreads();
-  }
-  // K2: places in start order, key tile slowest, so the key tiles before
-  // this one have started
-  const int place = kFused ? s_place : blockIdx.x;
-  const int per_tile = a.B * a.Hkv * a.col_blocks;
-  const int kt = place / per_tile;
-  const int cb = place % per_tile % a.col_blocks;
-  const int bhk = place % per_tile / a.col_blocks;
-  const int b = bhk / a.Hkv, hk = bhk % a.Hkv;
-  const int groups = a.Hq / a.Hkv, h0 = hk * groups;
-  const int key0 = kt * kTile, col0 = cb * a.cols;
-  const int n_cc = (min(a.cols, a.D - col0) + kChunk - 1) / kChunk;
-  const int n_dc = (a.D + kChunk - 1) / kChunk;
-  const int n_q_tiles = (a.Sq + kTile - 1) / kTile;
-  const int q_shift = a.Sk - a.Sq;
-  const int* mrow = a.mask + (long long)b * a.mask_sb;
-  const T* kb = reinterpret_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vb = reinterpret_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-
-  // the query tiles: flash_bwd.cu's kv-kernel bounds
-  const int key_end = block_key_end(mrow, a.Sk);
-  int qt_begin = a.causal ? max(0, key0 - q_shift) / kTile : 0;
-  int qt_end = n_q_tiles;
-  if (a.window > 0) qt_end = min(qt_end, window_q_end(key0, a.window, q_shift));
-  if (key0 >= key_end) qt_end = 0;
-  if (a.skip_pad_q) {
-    const int lim = key_end - q_shift;  // tile qt runs iff qt * 64 < lim
-    qt_end = min(qt_end, lim <= 0 ? 0 : (lim + kTile - 1) / kTile);
-  }
-  // K2 takes its dQ turn on every query tile of this unpacked range
-  const int turn_begin = qt_begin, turn_end = max(qt_begin, qt_end);
-  if (a.packed) {  // only the query tiles of the key tile's segments
-    const int2 span = packed_span<kThreads>(mrow, a.Sk, key0, tid);
-    qt_begin = max(qt_begin, span.x / kTile);
-    qt_end = min(qt_end, (span.y + kTile - 1) / kTile);
-  }
-  const int loop_begin = kFused ? turn_begin : qt_begin;
-  const int loop_end = kFused ? turn_end : qt_end;
-
-  if (tid < kTile) kmask[tid] = key0 + tid < a.Sk ? mrow[key0 + tid] : 0;
+    if (st + 1 < total) issue(st + 1);
+    const int j = st % spt;
+    const T* buf = ring + (st & 1) * stage_sz;
+    if (j < n_dc) {  // S += Q K^T and dP += dO V^T over this chunk of D
+      if (j == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    for (int cc = 0; cc < n_cc; ++cc) {
+        for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        dk_acc[(4 * ty + i) * acc_ld + cc * kChunk + 4 * tx + j] = 0.f;
-        dv_acc[(4 * ty + i) * acc_ld + cc * kChunk + 4 * tx + j] = 0.f;
-      }
-    }
-  }
-  if (kFused && n_dc == 1 && n_cc == 1) stage<false>(Ks, kb, a.k_ss, key0, a.Sk, 0, a.D);
-  __syncthreads();
-
-  for (int g = 0; g < groups; ++g) {
-    const int h = h0 + g;
-    const long long bh = (long long)b * a.Hq + h;
-    const T* qb = reinterpret_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const T* dob = reinterpret_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
-    for (int qt = loop_begin; qt < loop_end; ++qt) {
-      const bool run = qt >= qt_begin && qt < qt_end;  // else a K2 tick
-      const int q0 = qt * kTile;
-      if (run) {
-        float lse[4], delta[4];
-        int qpos[4], qseg[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = q0 + 4 * ty + i;
-          lse[i] = row < a.Sq ? a.lse[bh * a.Sq + row] : 0.f;
-          delta[i] = row < a.Sq ? a.delta[bh * a.Sq + row] : 0.f;
-          qpos[i] = row + q_shift;
-          qseg[i] = a.packed && row < a.Sq ? mrow[row] : 0;
-        }
-        float s[4][4] = {}, dp[4][4] = {};
-        for (int dc = 0; dc < n_dc; ++dc) {  // S = Q K^T and dP = dO V^T
-          stage<true>(Qt, qb, a.q_ss, q0, a.Sq, dc * kChunk, a.D);
-          stage<true>(dOt, dob, a.do_ss, q0, a.Sq, dc * kChunk, a.D);
-          stage<true>(Kt, kb, a.k_ss, key0, a.Sk, dc * kChunk, a.D);
-          stage<true>(Vt, vb, a.v_ss, key0, a.Sk, dc * kChunk, a.D);
-          __syncthreads();
-          product(s, Qt, Kt, ty, tx);
-          product(dp, dOt, Vt, ty, tx);
-          __syncthreads();
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool ok = q0 + 4 * ty + i < a.Sq && lse[i] > 0.5f * kNegInf &&
-                            pair_valid(a, kmask[4 * tx + j], qseg[i], key0 + 4 * tx + j, qpos[i]);
-            const float p = ok ? expf(a.scale * s[i][j] - lse[i]) : 0.f;
-            const float ds = round_to<T>(p * (dp[i][j] - delta[i]) * a.scale);
-            Ps[(4 * ty + i) * kLd + 4 * tx + j] = round_to<T>(p);
-            dSs[(4 * ty + i) * kLd + 4 * tx + j] = ds;
-            if (kFused) dSt[(4 * tx + j) * kLd + 4 * ty + i] = ds;
-          }
-        }
-        for (int cc = 0; cc < n_cc; ++cc) {  // dV += P^T dO, dK += dS^T Q
-          stage<false>(Qs, qb, a.q_ss, q0, a.Sq, col0 + cc * kChunk, a.D);
-          stage<false>(dOs, dob, a.do_ss, q0, a.Sq, col0 + cc * kChunk, a.D);
-          __syncthreads();
-          float dv_o[4][4] = {}, dk_o[4][4] = {};
-          product(dv_o, Ps, dOs, ty, tx);
-          product(dk_o, dSs, Qs, ty, tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int e = (4 * ty + i) * acc_ld + cc * kChunk + 4 * tx + j;
-              dv_acc[e] += dv_o[i][j];
-              dk_acc[e] += dk_o[i][j];
-            }
-          }
-          __syncthreads();
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
         }
       }
-      if (kFused) {
-        // this key tile's turn on (bh, qt, cb): tiles first .. kt - 1 added
-        const int turn = kt - (a.window > 0 ? first_kt(qt, a.window, q_shift) : 0);
-        int* counter = a.sync + 1 + ((bh * n_q_tiles + qt) * a.col_blocks + cb);
-        if (tid == 0 && turn > 0) wait_turn(counter, turn);
-        __syncthreads();
-        if (run) {
-          float* dq = reinterpret_cast<float*>(a.dq) + bh * a.Sq * a.D;
-          for (int cc = 0; cc < n_cc; ++cc) {  // dQ += dS K, in key-tile order
-            if (!(n_dc == 1 && n_cc == 1)) {
-              stage<false>(Ks, kb, a.k_ss, key0, a.Sk, col0 + cc * kChunk, a.D);
-            }
-            __syncthreads();
-            float o[4][4] = {};
-            product(o, dSt, Ks, ty, tx);
+      const T* qs = one ? qres : buf + 2 * tile;
+      const T* dos = one ? dores : buf + 3 * tile;
+      auto product = [&](auto fresh) {
+        for (int k0 = 0; k0 < a.kdc; k0 += kK) {
+          uint32_t aq[2][4], ad[2][4];
+          load_a<T>(aq, qs, ld, r0, k0);
+          load_a<T>(ad, dos, ld, r0, k0);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int row = q0 + 4 * ty + i;
+          for (int n = 0; n < 8; ++n) {
+            uint32_t bf[2][2];
+            load_b_rows<T>(bf, buf, ld, n * 8, k0);
+            mma<T, decltype(fresh)::value>(s[n], aq, bf);
+            load_b_rows<T>(bf, buf + tile, ld, n * 8, k0);
+            mma<T, decltype(fresh)::value>(dp[n], ad, bf);
+          }
+        }
+      };
+      // as K3b's S^T and dP^T: in the accumulator where D is one chunk of
+      // at most 64, else by fp32 adds
+      if (one && a.kdc <= 64) {
+        product(std::false_type());
+      } else {
+        product(std::true_type());
+      }
+      if (j == n_dc - 1) {
+        // p = 2^(s scale log2(e) - lse log2(e)) by ex2.approx on the valid
+        // pairs of rows with a finite lse, dS = p (dP - delta) scale over dP
+        // (rounded to T where it becomes dS K's operand); a warp whose 16
+        // rows see all 64 keys tests no pair
+        const int key0 = (kr.x + st / spt) * kTile;
+        const int* km = kmask[(st / spt) & 1];
+        const int pos0 = q0 + r0 + q_shift;  // the warp's first row's position
+        const bool full = __all_sync(
+            0xffffffffu, !a.packed && km[lane] != 0 && km[lane + 32] != 0 &&
+                             (!a.causal || key0 + kTile - 1 <= pos0) &&
+                             (a.window <= 0 || key0 > pos0 + 15 - a.window));
 #pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                const int c = col0 + cc * kChunk + 4 * tx + j;
-                if (row < a.Sq && c < a.D && c < col0 + a.cols) {
-                  float* dst = dq + (long long)row * a.D + c;
-                  __stcg(dst, (turn > 0 ? __ldcg(dst) : 0.f) + o[i][j]);
-                }
+        for (int i = 0; i < 2; ++i) {
+          uint32_t ok = 0xffffu;  // bit 2n + e: key n * 8 + 2t + e is valid
+          if (!full) {
+            ok = 0;
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int key = n * 8 + 2 * t + e;
+                ok |= (uint32_t)pair_valid(a, km[key], qseg[i], key0 + key, qpos[i]) << (2 * n + e);
               }
             }
-            __syncthreads();
+          }
+          if (!row_ok[i]) ok = 0;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float p = (ok >> (2 * n + e)) & 1u ? ex2(scale2 * s[n][2 * i + e] - lse2[i])
+                                                       : 0.f;
+              dp[n][2 * i + e] = p * (dp[n][2 * i + e] - dlt[i]) * a.scale;
+            }
           }
         }
-        __threadfence();
-        __syncthreads();
-        if (tid == 0) atomicAdd(counter, 1);
+      }
+    }
+    if (j == spt - 1) {  // dQ += dS K over this block's columns
+      const T* kc = one ? buf + col0 : buf;
+#pragma unroll
+      for (int kk = 0; kk < kTile / kK; ++kk) {
+        uint32_t af[2][4];
+        a_from_c<T>(af, dp[kPerK * kk], dp[kPerK * kk + kPerK - 1]);
+        // every n-tile, past n_nt on the last staged column (never stored),
+        // as K1's P V
+#pragma unroll
+        for (int n = 0; n < kNt; ++n) {
+          uint32_t bf[2][2];
+          load_b_cols<T>(bf, kc, ld, kk * kK, min(n, n_nt - 1) * 8);
+          mma<T>(dq[n], af, bf);
+        }
       }
     }
   }
 
+  T* out = reinterpret_cast<T*>(a.dq);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = key0 + 4 * ty + i;
-    if (key >= a.Sk) continue;
-    const long long o_row = (((long long)b * a.Sk + key) * a.Hkv + hk) * a.D;
-    for (int cc = 0; cc < n_cc; ++cc) {
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    if (row >= a.Sq) continue;
+    const long long o_row = (((long long)b * a.Sq + row) * a.Hq + h) * a.D + col0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cc * kChunk + 4 * tx + j;
-        if (col0 + c >= a.D || c >= a.cols) continue;
-        const float dkx = dk_acc[(4 * ty + i) * acc_ld + c];
-        const float dvx = dv_acc[(4 * ty + i) * acc_ld + c];
-        if (a.f32_out) {
-          reinterpret_cast<float*>(a.dk)[o_row + col0 + c] = dkx;
-          reinterpret_cast<float*>(a.dv)[o_row + col0 + c] = dvx;
-        } else {
-          reinterpret_cast<T*>(a.dk)[o_row + col0 + c] = from_f<T>(dkx);
-          reinterpret_cast<T*>(a.dv)[o_row + col0 + c] = from_f<T>(dvx);
-        }
+    for (int n = 0; n < kNt; ++n) {
+      if (n < n_nt) {
+        out[o_row + n * 8 + 2 * t] = from_f<T>(dq[n][2 * i]);
+        out[o_row + n * 8 + 2 * t + 1] = from_f<T>(dq[n][2 * i + 1]);
       }
     }
   }
@@ -1293,49 +1265,33 @@ __global__ void __launch_bounds__(kThreads) flash_kv_generic(const GenArgs a) {
 
 // ---- launches ----
 
-// K3a's and K2's staged 64 x 64 tiles and [64, cols] sums of shared memory
-int tiles_of(Which w) { return w == kFused ? 6 : 4; }
-int sums_of(Which w) { return w == kFused ? 2 : 1; }
-long long smem_bytes(Which w, int cols) {
-  return 4LL * (tiles_of(w) * kTileFloats + sums_of(w) * kTile * (cols + 4));
-}
-
-// K3a and K2: the fewest blocks over D whose columns (a multiple of 64) fit
-// the shared memory: cols and the number of column blocks.
-void pick_cols(Which w, int D, int* cols, int* blocks) {
-  const int d64 = (D + kChunk - 1) / kChunk * kChunk;
-  for (int n = 1;; ++n) {
-    const int c = ((d64 + n - 1) / n + kChunk - 1) / kChunk * kChunk;
-    if (smem_bytes(w, c) <= kSmemCap) {
-      *cols = c;
-      *blocks = (D + c - 1) / c;
-      return;
-    }
-  }
-}
-
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// K1 and K3b (kFwd, kDkv) with D contracted in chunks of at most `chunk`
-// columns: D in the fewest chunks (n_dc, each kdc wide, a multiple of mma's
-// k); the output columns in the fewest blocks of at most K1's kFwdCols or
-// K3b's kDkvCols (cols, a multiple of 8); where one chunk covers D, the
-// width staged for it and for every block's columns (wq); the staged row
-// stride, padded by 16 bytes to an odd number of 16-byte units (ld).
+// A kernel's plan with D contracted in chunks of at most `chunk` columns: D
+// in the fewest chunks (n_dc, each kdc wide, a multiple of mma's k); the
+// output columns in the fewest blocks of at most kFwdCols (K1's O, K3a's dQ)
+// or kDkvCols (K3b's and K2's dK/dV, K2's dQ) (cols, a multiple of 8; K2's
+// `sync` counters assume at most one block per 64 columns); where one chunk
+// covers D, the width staged for it and for every block's columns (wq); the
+// staged row stride, padded by 16 bytes to an odd number of 16-byte units
+// (ld), at least 64 in K2, whose dS tile of 64 keys takes a stage's Q tile.
 // Returns the dynamic shared memory: K1, kHeads resident Q tiles (one
 // chunk) and two stages of a K or V tile (with kHeads Q tiles past one
-// chunk); K3b, resident K and V (one chunk) and two stages of Q and dO (with
-// K and V past one chunk).
+// chunk); K3a, resident Q and dO (one chunk) and two stages of K and V (with
+// Q and dO past one chunk, or K's columns); K3b and K2, resident K and V
+// (one chunk) and two stages of Q and dO (with K and V past one chunk; K2's
+// column stage also K's columns).
 template <typename T>
 long long plan_chunks(Which w, int heads, int chunk, GenArgs& a) {
   constexpr int kK = Tc<T>::kK;
   a.n_dc = (a.D + chunk - 1) / chunk;
   a.kdc = round_up((a.D + a.n_dc - 1) / a.n_dc, kK);
-  const int max_cols = w == kFwd ? Tc<T>::kFwdCols : kDkvCols;
+  const int max_cols = w == kFwd || w == kDq ? Tc<T>::kFwdCols : kDkvCols;
   a.col_blocks = (a.D + max_cols - 1) / max_cols;
   a.cols = round_up((a.D + a.col_blocks - 1) / a.col_blocks, 8);
   a.wq = a.n_dc == 1 ? round_up(max(a.kdc, a.col_blocks * a.cols), kK) : a.kdc;
-  a.ld = round_up(max(a.wq, a.cols), sizeof(T) == 4 ? 8 : 16) + 16 / (int)sizeof(T);
+  const int width = max(max(a.wq, a.cols), w == kFused ? kTile : 0);
+  a.ld = round_up(width, sizeof(T) == 4 ? 8 : 16) + 16 / (int)sizeof(T);
   const long long tile = (long long)kTile * a.ld * sizeof(T);
   const bool one = a.n_dc == 1;
   if (w == kFwd) return (one ? heads : 0) * tile + 2 * (one ? 2 : 1 + heads) * tile;
@@ -1379,19 +1335,16 @@ int dispatch(Which w, GenArgs a, cudaStream_t st) {
                  ? launch(flash_fwd_generic<T, 2>, grid, FwdShape<T, 2>::kThreadsN, smem, a, st)
                  : launch(flash_fwd_generic<T, 1>, grid, FwdShape<T, 1>::kThreadsN, smem, a, st);
     }
-    case kDkv: {
+    case kDq: {
       const long long smem = plan_tc<T>(w, 1, a);
-      return launch(flash_dkv_generic<T>, k_tiles * a.B * a.Hkv * a.col_blocks, 128, smem, a,
-                    st);
+      return launch(flash_dq_generic<T>, q_tiles * a.B * a.Hq * a.col_blocks, 128, smem, a, st);
     }
-    case kDq:
-      pick_cols(w, a.D, &a.cols, &a.col_blocks);
-      return launch(flash_dq_generic<T>, q_tiles * a.B * a.Hq * a.col_blocks, kThreads,
-                    smem_bytes(w, a.cols), a, st);
-    default:
-      pick_cols(w, a.D, &a.cols, &a.col_blocks);
-      return launch(flash_kv_generic<T, true>, k_tiles * a.B * a.Hkv * a.col_blocks, kThreads,
-                    smem_bytes(w, a.cols), a, st);
+    default: {  // kDkv, kFused
+      const long long smem = plan_tc<T>(w, 1, a);
+      const long long grid = k_tiles * a.B * a.Hkv * a.col_blocks;
+      return w == kFused ? launch(flash_dkv_generic<T, true>, grid, 128, smem, a, st)
+                         : launch(flash_dkv_generic<T, false>, grid, 128, smem, a, st);
+    }
   }
 }
 
@@ -1459,7 +1412,7 @@ GenArgs shape_args(const void* q, const void* k, const void* v, const int* mask,
 // dtypes, allocates the outputs (out, dq, dk, dv in T but as below) and, for
 // K2, zeroes the fp32 [B, Hq, Sq, D] dq buffer and the int32 `sync` buffer
 // of 1 + B * Hq * ceil(Sq / 64) * ceil(D / 64) entries (at least the
-// column blocks pick_cols makes). packed: mask holds segment ids (Sq == Sk).
+// column blocks plan_chunks makes). packed: mask holds segment ids (Sq == Sk).
 extern "C" int rankpo_flash_fwd_generic(
     const void* q, const void* k, const void* v, const int* mask, void* out, float* lse, int B,
     int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss, long long q_sh,

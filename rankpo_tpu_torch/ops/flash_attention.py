@@ -58,10 +58,9 @@ outside 64/128/256; any head_dim that is a multiple of 8) runs the generic
 build of the same four kernels, ``ops/csrc/flash_generic.cu`` (one object
 per dtype): the element type passed at run time, the same masks, tile
 bounds and outputs, any head_dim (the output columns split over blocks
-where one block cannot hold them). Its K1 and K3b run on the tensor cores
+where one block cannot hold them). All four run on the tensor cores
 through ``mma.sync`` (bf16/fp16 directly, fp32 as three TF32 passes that
-keep fp32's accuracy) with sums in registers and ``cp.async`` staging; its
-K3a and K2 are simple SIMT kernels with fp32 sums.
+keep fp32's accuracy) with sums in registers and ``cp.async`` staging.
 :func:`kernel_for` names the build that runs (``generic_launches`` counts
 its launches beside ``launches``). ``ops/attention.py``'s "auto" dispatch
 runs the Hopper kernels where they are built, the generic build where JAX's
@@ -560,7 +559,7 @@ def flash_attention_bwd(
         # the blocks' start order and one counter per (b * h, query tile,
         # column block: two at head_dim 256 in the Hopper build,
         # flash_bwd.cu KvTiles::kSplit; at most one per 64 columns in the
-        # generic build, flash_generic.cu pick_cols)
+        # generic build, flash_generic.cu plan_chunks)
         blocks = -(-d // 64) if build == "generic" else (2 if d == 256 else 1)
         sync = torch.zeros(1 + b * hq * -(-sq // 64) * blocks, dtype=torch.int32, device=dev)
         steps = ("flash_bwd_fused",)

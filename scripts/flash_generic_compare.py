@@ -1,4 +1,4 @@
-"""The generic build's K1 and K3b, this checkout's against another's, timed in turns on one card.
+"""The generic build's four kernels, this checkout's against another's, timed in turns on one card.
 
     python3 scripts/flash_generic_compare.py [--parent DIR] [--seed 0]
 
@@ -11,12 +11,13 @@ window (fp32 at B 2, S 4096, 32 / 8 heads, D 64; bf16 at B 4, S 1024, D 80;
 fp16 at D 96), causal with skip_pad_q, random key lengths with a length-1
 and a full row, drawn from one generator seeded ``--seed``.
 
-Each child holds its K1 (out, lse) and its split backward's dk and dv
-(K3a + K3b) to the plain versions in the inputs' dtype, within
-``chip_smoke.py``'s GENERIC_TOL_OF_MAX and GENERIC_REL_L2, and prints the
-device time (torch.profiler, GENERIC_TIMED calls) of K1 and of K3b beside
-the bound at both fp32 rates (``chip_smoke.py`` ``generic_bounds``). The
-card's name and power limit open and close the output.
+Each child holds its K1 (out, lse), its split backward's dq, dk and dv
+(K3a + K3b) and its fused backward's (K2, ``bwd_impl="fused"``) to the
+plain versions in the inputs' dtype, within ``chip_smoke.py``'s
+GENERIC_TOL_OF_MAX and GENERIC_REL_L2, and prints the device time
+(torch.profiler, GENERIC_TIMED calls) of K1, K3a, K3b and K2 beside the
+bound (in fp32 at both fp32 rates; ``chip_smoke.py`` ``generic_bounds``).
+The card's name and power limit open and close the output.
 """
 
 import argparse
@@ -28,6 +29,7 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((0, "fp32 D 64"), (3, "bf16 D 80"), (4, "fp16 D 96"))  # 2f's GENERIC_SHAPES
+LABELS = {"flash_fwd": "K1", "flash_dq": "K3a", "flash_dkv": "K3b", "flash_bwd_fused": "K2"}
 
 
 def _smoke(root: str, name: str):
@@ -85,31 +87,40 @@ def measure(version: str, seed: int) -> None:
                 raise SystemExit(f"{version}: K1 lse disagrees with plain at {label}: "
                                  f"{err['lse']:.3e}")
             delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-            _, dk, dv = flash_attention_bwd(q, k, v, mask, do, lse, delta, bwd_impl="split", **kw)
-            _, pdk, pdv = smoke.plain_bwd(q, k, v, mask, do, lse, delta, True)
-            err["dk"] = smoke._generic_err(dk, pdk, dtype, "K3b dk", label)
-            err["dv"] = smoke._generic_err(dv, pdv, dtype, "K3b dv", label)
-            del ref, rlse, pdk, pdv
+            plain = smoke.plain_bwd(q, k, v, mask, do, lse, delta, True)
+            for impl, kernel in (("split", "K3a + K3b"), ("fused", "K2")):
+                grads = flash_attention_bwd(q, k, v, mask, do, lse, delta, bwd_impl=impl, **kw)
+                for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+                    err[f"{impl} {name}"] = smoke._generic_err(got, want, dtype,
+                                                               f"{kernel} {name}", label)
+                del grads
+            del ref, rlse, plain
+            calls = {"flash_fwd": lambda: flash_attention_fwd(q, k, v, mask, **kw),
+                     "split": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta,
+                                                          bwd_impl="split", **kw),
+                     "fused": lambda: flash_attention_bwd(q, k, v, mask, do, lse, delta,
+                                                          bwd_impl="fused", **kw)}
+            traced = {key: smoke.profile_device_ms(fn, smoke.GENERIC_TIMED)
+                      for key, fn in calls.items()}
             times = {}
-            for name, fn in (("flash_fwd", lambda: flash_attention_fwd(q, k, v, mask, **kw)),
-                             ("flash_dkv", lambda: flash_attention_bwd(
-                                 q, k, v, mask, do, lse, delta, bwd_impl="split", **kw))):
-                traced = smoke.profile_device_ms(fn, smoke.GENERIC_TIMED)
-                found = [t for key, t in traced.items() if names[name](key)]
+            for name, trace in (("flash_fwd", "flash_fwd"), ("flash_dq", "split"),
+                                ("flash_dkv", "split"), ("flash_bwd_fused", "fused")):
+                found = [t for key, t in traced[trace].items() if names[name](key)]
                 if not found:
-                    raise SystemExit(f"{version}: no {name} kernel in the trace: {sorted(traced)}")
+                    raise SystemExit(f"{version}: no {name} kernel in the trace: "
+                                     f"{sorted(traced[trace])}")
                 times[name] = sum(found)
         bounds = {name: smoke.attention_cost(lens, s, s, hq, hkv, d, name,
                                              itemsize=q.element_size())
                   for name in times}
         line = ", ".join(
-            f"{'K1' if name == 'flash_fwd' else 'K3b'} {ms:.4f} ms (bound "
+            f"{LABELS[name]} {ms:.4f} ms (bound "
             + " / ".join(f"{b_ms:.4f}" for b_ms, _ in smoke.generic_bounds(bounds[name],
                                                                            dtype)) + ")"
             for name, ms in times.items())
         print(f"TIME {version} {label}: {line}; max|err| "
               + ", ".join(f"{key} {e:.2e}" for key, e in err.items()), flush=True)
-        del q, k, v, do, out, lse, dk, dv
+        del q, k, v, do, out, lse
         torch.cuda.empty_cache()
 
 

@@ -174,13 +174,14 @@ def test_plain_versions_match_pallas_kernels(dtype, d, case):
         assert not dq[1].any() and not dk[1].any() and not dv[1].any()
 
 
-# The generic build's fp32 K1 and K3b multiply on the tensor cores as three
+# The generic build's fp32 kernels multiply on the tensor cores as three
 # TF32 passes (flash_generic.cu's header): each operand x splits into hi =
 # tf32(x) and lo = tf32(x - hi), and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi
-# with fp32 sums. A model of that product, the forward (O, lse) and K3b's
-# dK/dV on it, against JAX's Pallas kernels in interpret mode in fp32: within
-# the card tests' fp32 limits (tests/test_torch_gpu.py GENERIC_TOL_OF_MAX,
-# GENERIC_REL_L2), where one TF32 pass (hi b_hi alone) misses them.
+# with fp32 sums. A model of that product, the forward (O, lse), K3b's dK/dV
+# and dQ in K3a's and K2's summation orders on it, against JAX's Pallas
+# kernels in interpret mode in fp32: within the card tests' fp32 limits
+# (tests/test_torch_gpu.py GENERIC_TOL_OF_MAX, GENERIC_REL_L2), where one
+# TF32 pass (hi b_hi alone) misses them.
 TF32_TOL_OF_MAX = 1e-5
 TF32_REL_L2 = 1e-5
 TF32_PARAMS = [(d, case) for d in (64, 72, 128) for case in CASES]
@@ -221,10 +222,14 @@ def _valid_pairs(case, b, sq, sk, mask, seg):
     return (mask[:, None, :] != 0) & band[None]
 
 
-def _tf32_model(q, k, v, do, valid, lse_ref, delta_ref, passes):
-    """The kernels' K1 (out, lse) and K3b (dk, dv from the given lse and
-    delta, each GQA group summed) with every product on the TF32 model;
-    softmax and sums in fp32, masked logits at NEG_INF as the kernels."""
+def _tf32_model(q, k, v, do, valid, lse_ref, delta_ref, passes, dq_keys=64):
+    """The kernels' K1 (out, lse), K3b (dk, dv from the given lse and
+    delta, each GQA group summed) and dQ = dS K with every product on the
+    TF32 model; softmax and sums in fp32, masked logits at NEG_INF as the
+    kernels. dQ is summed as the kernels sum it: each run of ``dq_keys``
+    keys one product, the runs added in fp32 in key order (K3a: 8, one
+    m16n8k8 step taken fresh; K2: 64, a key tile's sum added to its fp32
+    buffer in key-tile order)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -233,6 +238,7 @@ def _tf32_model(q, k, v, do, valid, lse_ref, delta_ref, passes):
     lse = np.zeros((b, hq, sq), np.float32)
     dk = np.zeros(k.shape, np.float32)
     dv = np.zeros(v.shape, np.float32)
+    dq = np.zeros(q.shape, np.float32)
     for bi in range(b):
         for h in range(hq):
             qh, kh, vh, gh = q[bi, :, h], k[bi, :, h // groups], v[bi, :, h // groups], do[bi, :, h]
@@ -251,7 +257,9 @@ def _tf32_model(q, k, v, do, valid, lse_ref, delta_ref, passes):
             ds = pb * (dp - delta_ref[bi, h][:, None]) * scale
             dv[bi, :, h // groups] += _tf32_matmul(pb.T, gh, passes)
             dk[bi, :, h // groups] += _tf32_matmul(ds.T, qh, passes)
-    return out, lse, dk, dv
+            for k0 in range(0, sk, dq_keys):
+                dq[bi, :, h] += _tf32_matmul(ds[:, k0:k0 + dq_keys], kh[k0:k0 + dq_keys], passes)
+    return out, lse, dk, dv, dq
 
 
 def _fp32_close(got, ref):
@@ -260,29 +268,40 @@ def _fp32_close(got, ref):
             np.linalg.norm(got - ref) <= TF32_REL_L2 * np.linalg.norm(ref))
 
 
-@pytest.mark.parametrize("d,case", TF32_PARAMS)
-def test_three_tf32_passes_hold_fp32_limits(d, case):
+def _fp32_case(d, case):
+    """The fp32 inputs of a TF32 case (seed 1) as numpy and as JAX's flat
+    heads, JAX's forward statistics, the valid pairs and the kernels'
+    keyword arguments."""
     b, sq, sk, hq, hkv, _, causal, window, _ = CASES[case]
     xs, _, mask, seg, _ = _inputs("fp32", d, case, seed=1)
-    q, k, v, do = (np.asarray(x) for x in xs)
     packed = seg is not None
     q_block, k_block = fit_blocks(sq, sk, 16, 16)
-    qf, kf, vf, gf = (_flatten_heads(x) for x in xs)
+    flat = [_flatten_heads(x) for x in xs]
     mask_bh = jnp.repeat(jnp.asarray(mask), hq, axis=0)
-    o_ref, lse_ref = _flash_fwd_impl(qf, kf, vf, mask_bh, causal, q_block, k_block, True, False,
+    o_ref, lse_ref = _flash_fwd_impl(*flat[:3], mask_bh, causal, q_block, k_block, True, False,
                                      window, packed)
-    delta_ref = jnp.sum(gf * o_ref, axis=-1)
-    dk_ref, dv_ref = flash_dkv(qf, kf, vf, mask_bh, gf, lse_ref, delta_ref, causal=causal,
-                               q_block=q_block, k_block=k_block, interpret=True,
-                               skip_pad_q=False, window=window, packed=packed)
-    ref = {"out": np.asarray(_unflatten_heads(o_ref, b, hq)),
+    delta_ref = jnp.sum(flat[3] * o_ref, axis=-1)
+    kw = dict(causal=causal, q_block=q_block, k_block=k_block, interpret=True,
+              skip_pad_q=False, window=window, packed=packed)
+    return dict(np=[np.asarray(x) for x in xs], flat=flat, mask_bh=mask_bh, o_ref=o_ref,
+                lse_ref=lse_ref, delta_ref=delta_ref, kw=kw,
+                valid=_valid_pairs(case, b, sq, sk, mask, seg))
+
+
+@pytest.mark.parametrize("d,case", TF32_PARAMS)
+def test_three_tf32_passes_hold_fp32_limits(d, case):
+    b, sq, _, hq, hkv = CASES[case][:5]
+    c = _fp32_case(d, case)
+    qf, kf, vf, gf = c["flat"]
+    dk_ref, dv_ref = flash_dkv(qf, kf, vf, c["mask_bh"], gf, c["lse_ref"], c["delta_ref"],
+                               **c["kw"])
+    ref = {"out": np.asarray(_unflatten_heads(c["o_ref"], b, hq)),
            "dk": np.asarray(_unflatten_heads(dk_ref, b, hkv)),
            "dv": np.asarray(_unflatten_heads(dv_ref, b, hkv))}
-    lse_ref = np.asarray(lse_ref).reshape(b, hq, sq)
-    delta_ref = np.asarray(delta_ref).reshape(b, hq, sq)
-    valid = _valid_pairs(case, b, sq, sk, mask, seg)
+    lse_ref = np.asarray(c["lse_ref"]).reshape(b, hq, sq)
+    delta_ref = np.asarray(c["delta_ref"]).reshape(b, hq, sq)
     for passes in (3, 1):
-        out, lse, dk, dv = _tf32_model(q, k, v, do, valid, lse_ref, delta_ref, passes)
+        out, lse, dk, dv, _ = _tf32_model(*c["np"], c["valid"], lse_ref, delta_ref, passes)
         for name, got in (("out", out), ("dk", dk), ("dv", dv)):
             close = _fp32_close(got, ref[name])
             if passes == 3:
@@ -291,3 +310,33 @@ def test_three_tf32_passes_hold_fp32_limits(d, case):
                 assert not all(close), (name, close)
         if passes == 3:
             np.testing.assert_allclose(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+
+
+# keys of dS K that K3a and K2 take as one product before an fp32 add
+DQ_KEYS = {"K3a": 8, "K2": 64}
+
+
+@pytest.mark.parametrize("d,case", TF32_PARAMS)
+def test_three_tf32_passes_hold_fp32_limits_for_dq(d, case):
+    """dQ = dS K on the TF32 model in K3a's and K2's summation orders
+    (``_tf32_model``'s ``dq_keys``), against JAX's ``flash_dq`` and
+    ``flash_bwd_fused`` dq in interpret mode: within the fp32 limits with
+    three passes, not with one."""
+    b, sq, _, hq, _ = CASES[case][:5]
+    c = _fp32_case(d, case)
+    qf, kf, vf, gf = c["flat"]
+    args = (qf, kf, vf, c["mask_bh"], gf, c["lse_ref"], c["delta_ref"])
+    refs = {"flash_dq": flash_dq(*args, **c["kw"]), "flash_bwd_fused": flash_bwd_fused(
+        *args, **c["kw"])[0]}
+    refs = {name: np.asarray(_unflatten_heads(x, b, hq)) for name, x in refs.items()}
+    lse_ref = np.asarray(c["lse_ref"]).reshape(b, hq, sq)
+    delta_ref = np.asarray(c["delta_ref"]).reshape(b, hq, sq)
+    for order, keys in DQ_KEYS.items():
+        for passes in (3, 1):
+            dq = _tf32_model(*c["np"], c["valid"], lse_ref, delta_ref, passes, dq_keys=keys)[4]
+            for name, ref in refs.items():
+                close = _fp32_close(dq, ref)
+                if passes == 3:
+                    assert all(close), (order, name, close)
+                else:  # one pass misses, as for out, dk and dv
+                    assert not all(close), (order, name, close)
