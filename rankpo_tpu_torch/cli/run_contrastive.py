@@ -38,9 +38,11 @@ on the cards, gloo with ``--device cpu``). Each process drives
 ``--negatives_cross_device`` pools the passages of every data index and
 ``--zero1`` shards the optimizer state over the data group (``--zero2``
 takes the same path). ``--model_parallel mp`` splits the model over mp
-consecutive ranks (tensor parallelism, ``models/base.py``; AdamW only).
-Rank 0 writes the checkpoints (in the one-process layout), the final model
-and the summary files; the others wait at a barrier.
+consecutive ranks (tensor parallelism, ``models/base.py``; AdamW for the
+split tensors), ``--fsdp True`` stores each trainable tensor on one rank of
+its data group (``parallel/fsdp.py``), and the two combine. Rank 0 writes
+the checkpoints (in the one-process layout), the final model and the
+summary files; the others wait at a barrier.
 """
 
 from __future__ import annotations

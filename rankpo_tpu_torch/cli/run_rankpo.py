@@ -27,9 +27,13 @@ base, draws fresh adapters from the seed and restores the adapters'
 optimizer state, as the JAX package does.
 
 Data parallel (``--coordinator_address``, ``--num_processes``,
-``--process_id``, ``--zero1`` / ``--zero2``) as in stage 1
-(``cli/run_contrastive.py``); the preference loss needs no collective
-beyond the trainer's gradient exchange.
+``--process_id``, ``--zero1`` / ``--zero2``), ``--model_parallel`` and
+``--fsdp`` as in stage 1 (``cli/run_contrastive.py``); the preference loss
+needs no collective beyond the trainer's gradient exchange. With
+``--use_lora`` under ``--model_parallel`` the adapters are whole on every
+model rank over the split base; under ``--fsdp`` the adapters are sharded
+over the data group and the base stays whole (``models/lora.py``,
+``parallel/fsdp.py``).
 """
 
 from __future__ import annotations
@@ -87,11 +91,6 @@ def main(argv=None):
     )
     setup_logging(train_cfg.log_level)
     train_cfg.check_supported()
-    if r_args.use_lora and train_cfg.model_parallel > 1:
-        raise NotImplementedError(
-            f"--use_lora with --model_parallel {train_cfg.model_parallel} is not ported "
-            "(ROADMAP.md Queue 1 item 8d): the adapters of a split projection would be "
-            "split too")
     device = start_processes(dist_args, train_cfg)
     guard_output_dir(train_cfg)
     set_seed(train_cfg.seed)
@@ -181,9 +180,10 @@ def main(argv=None):
 
     def save_fn(directory: str, model) -> None:
         save_model(directory, model)
-        if r_args.use_lora:  # the merge's adapters, beside it
-            torch.save(lora.adapter_state_dict(model),
-                       os.path.join(directory, "lora_adapters.pt"))
+        if r_args.use_lora:  # the merge's adapters, beside it (gathered under fsdp)
+            adapters = lora.adapter_state_dict(model)
+            if mesh.is_main_process():
+                torch.save(adapters, os.path.join(directory, "lora_adapters.pt"))
 
     trainer = Trainer(
         loss_fn=loss_fn, model=model, config=train_cfg,

@@ -18,6 +18,17 @@ freezes everything else, so only A and B require grad and the Trainer's
 optimizer holds them alone. :func:`merged_state_dict` is the model with the
 adapters folded in (the ``merge_and_unload`` analogue, what the training
 CLI saves), :func:`merge_lora` the same fold over a state dict.
+
+Under tensor parallelism (a model whose ``tp`` is set) the adapters stay
+whole and replicated on every rank of the model group, as JAX keeps them
+(no rule of ``rankpo_tpu/parallel/sharding.py`` matches ``lora_a`` or
+``lora_b``; only the frozen base is split). Each rank's merge folds in its
+slice of the product: a column-parallel target (``tp_dim`` 0) takes the
+columns of B for the rank's output rows, a row-parallel one (``tp_dim`` 1)
+the rows of A for its input columns. A and B pass through
+``sharding.copy_to_model`` before the slice, so each rank's adapter
+gradient is the sum over the model group, and the ranks hold the same
+gradient, optimizer state and update.
 """
 
 from __future__ import annotations
@@ -69,16 +80,32 @@ def merge_weight(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 class LoraMerge(nn.Module):
-    """The parametrization of one targeted weight: ``W -> merge_weight``."""
+    """The parametrization of one targeted weight: ``W -> merge_weight``.
+    With ``tp`` (the model axis) and the weight's split ``dim``, ``W`` is
+    the rank's shard and the whole adapter's slice for it is folded in
+    (module docstring)."""
 
-    def __init__(self, a: torch.Tensor, b: torch.Tensor, scaling: float):
+    def __init__(self, a: torch.Tensor, b: torch.Tensor, scaling: float, tp=None,
+                 dim: Optional[int] = None):
         super().__init__()
         self.lora_a = nn.Parameter(a)
         self.lora_b = nn.Parameter(b)
         self.scaling = scaling
+        self.tp = tp if dim is not None else None
+        self.dim = dim
 
     def forward(self, w: torch.Tensor) -> torch.Tensor:
-        return merge_weight(w, self.lora_a, self.lora_b, self.scaling)
+        a, b = self.lora_a, self.lora_b
+        if self.tp is not None:
+            from rankpo_tpu_torch.parallel.sharding import copy_to_model
+
+            tp = self.tp
+            a, b = copy_to_model(a, tp.group), copy_to_model(b, tp.group)
+            if self.dim == 0:  # the rank's output rows: columns of B
+                b = b.chunk(tp.size, 1)[tp.index]
+            else:  # the rank's input columns: rows of A
+                a = a.chunk(tp.size, 0)[tp.index]
+        return merge_weight(w, a, b, self.scaling)
 
 
 def _layers(model: nn.Module):
@@ -106,17 +133,33 @@ def target_paths(model: nn.Module, config: LoraConfig):
             yield name, i, f"{prefix}.{i}.{table[name]}"
 
 
+def _split_dim(model: nn.Module, path: str) -> Optional[int]:
+    """The model-axis dim of the weight at ``path`` (None without tensor
+    parallelism or for a replicated weight)."""
+    if getattr(model, "tp", None) is None:
+        return None
+    from rankpo_tpu_torch.parallel.sharding import tp_dim
+
+    return tp_dim(f"{path}.weight")
+
+
 def init_adapters(model: nn.Module, config: LoraConfig,
                   generator: torch.Generator) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
     """target -> (A [L, in, r], B [L, r, out]) in fp32: A ~ N(0, 1/d_in)
     drawn from ``generator``, one target after another, B = 0 (JAX
     ``init_lora_params``: a fan-in scale, so the adapter's effective
-    learning rate does not move with r)."""
+    learning rate does not move with r). The shapes are the whole
+    weight's under tensor parallelism, so every model rank draws the same
+    adapters."""
     _check_targets(model, config)
     layers, table = _layers(model)
     out = {}
     for name in config.target_modules:
-        d_out, d_in = layers[0].get_submodule(table[name]).weight.shape
+        shape = list(layers[0].get_submodule(table[name]).weight.shape)
+        dim = _split_dim(model, table[name])
+        if dim is not None:
+            shape[dim] *= model.tp.size
+        d_out, d_in = shape
         a = torch.randn((len(layers), d_in, config.r), generator=generator,
                         dtype=torch.float32, device=generator.device) * (1.0 / float(d_in) ** 0.5)
         out[name] = (a, torch.zeros((len(layers), config.r, d_out), dtype=torch.float32))
@@ -141,24 +184,30 @@ def apply_lora(model: nn.Module, config: LoraConfig,
     :class:`LoraMerge` with the ``adapters`` (:func:`init_adapters` from
     ``generator`` when None), cast to the weight's dtype and device; every
     other parameter, the base weights included, stops requiring grad. An
-    unknown target raises with the list of the body's targets."""
+    unknown target raises with the list of the body's targets. Under
+    tensor parallelism the adapters are the whole ones on every model rank
+    (module docstring)."""
     if adapters is None:
         adapters = init_adapters(model, config, generator)
     model.requires_grad_(False)
+    tp = getattr(model, "tp", None)
     for name, i, path in target_paths(model, config):
         module = model.get_submodule(path)
         w = module.weight
         a, b = adapters[name]
         merge = LoraMerge(a[i].to(w.device, w.dtype, copy=True),
-                          b[i].to(w.device, w.dtype, copy=True), config.scaling)
+                          b[i].to(w.device, w.dtype, copy=True), config.scaling, tp,
+                          _split_dim(model, path))
         parametrize.register_parametrization(module, "weight", merge)
     return model
 
 
+@torch.no_grad()
 def adapter_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     """``{path}.lora_a`` [in, r] and ``{path}.lora_b`` [r, out] of every
-    adapted projection (what ``cli/run_rankpo.py`` saves as
-    ``lora_adapters.pt`` beside the merged model)."""
+    adapted projection, whole (what ``cli/run_rankpo.py`` saves as
+    ``lora_adapters.pt`` beside the merged model). Under fsdp each is
+    gathered from its owner: a collective of the data group."""
     out = {}
     for path, module in model.named_modules():
         if parametrize.is_parametrized(module, "weight"):
@@ -168,15 +217,23 @@ def adapter_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
+@torch.no_grad()
 def merged_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model's HF-named state dict with every adapter folded into its
-    weight (PEFT's ``merge_and_unload``)."""
+    weight (PEFT's ``merge_and_unload``), in the one-process layout: under
+    fsdp the adapters are gathered from their owners (a collective of the
+    data group), under tensor parallelism the merged shards over the model
+    group (a collective of the model group)."""
     state = {n: t for n, t in model.state_dict().items() if ".parametrizations." not in n}
-    with torch.no_grad():
-        for path, module in model.named_modules():
-            if parametrize.is_parametrized(module, "weight"):
-                state[f"{path}.weight"] = module.weight.detach()
-    return state
+    for path, module in model.named_modules():
+        if parametrize.is_parametrized(module, "weight"):
+            state[f"{path}.weight"] = module.weight.detach()
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return state
+    from rankpo_tpu_torch.parallel.sharding import gather_state
+
+    return gather_state(state, tp.group)
 
 
 def merge_lora(state: Dict[str, torch.Tensor], adapters: Dict[str, torch.Tensor],

@@ -74,8 +74,12 @@ ROW_PARALLEL = ("self_attn.o_proj", "mlp.down_proj", "output.dense")
 def tp_dim(name: str) -> Optional[int]:
     """The dim of tensor ``name`` (HF-named) that the model axis splits:
     0 for a column-parallel weight or bias, 1 for a row-parallel weight,
-    None for a replicated tensor."""
+    None for a replicated tensor. LoRA's ``lora_a`` / ``lora_b`` are whole
+    on every model rank (no rule of JAX's matches them), whichever
+    projection they adapt (``models/lora.py``)."""
     module, _, kind = name.rpartition(".")
+    if kind in ("lora_a", "lora_b"):
+        return None
     if module.endswith(COLUMN_PARALLEL):
         return 0
     if module.endswith(ROW_PARALLEL) and kind == "weight":
@@ -132,15 +136,17 @@ def gather_state(state: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tenso
 
 def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The model's state dict in the one-process layout: its own without
-    tensor parallelism or fsdp, else the model group's shards gathered (a
-    collective of the model group), or every tensor from its owner under
-    fsdp (a collective of the data group, ``parallel/fsdp.py``)."""
+    tensor parallelism or fsdp; under fsdp every tensor from its owner (a
+    collective of the data group, ``parallel/fsdp.py``); under
+    tensor parallelism then the model group's shards gathered (a collective
+    of the model group)."""
+    tp = getattr(model, "tp", None)
     if getattr(model, "fsdp", None) is not None:
         from rankpo_tpu_torch.parallel.fsdp import full_state_dict as fsdp_state
 
-        return fsdp_state(model)
-    tp = getattr(model, "tp", None)
-    state = model.state_dict()
+        state = fsdp_state(model)
+    else:
+        state = model.state_dict()
     return state if tp is None else gather_state(state, tp.group)
 
 
@@ -253,17 +259,25 @@ def row_parallel_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[to
     return _RowParallelLinear.apply(x, weight, bias, group)
 
 
-def tp_global_norm(grads: Sequence[torch.Tensor], split: Sequence[bool], group) -> torch.Tensor:
-    """The gradient norm of the whole model from one model rank's shards
-    (``optax.global_norm`` of JAX's global arrays): the squares of the split
-    tensors summed over the model group, the replicated ones counted once.
-    A collective of the model group."""
+def tp_global_norm(grads: Sequence[torch.Tensor], split: Sequence[bool], group,
+                   owned: bool = False, data_group=None) -> torch.Tensor:
+    """The gradient norm of the whole model from one rank's gradients
+    (``optax.global_norm`` of JAX's global arrays). ``owned`` (fsdp): each
+    gradient lies on its owner alone (the other ranks' are empty), so the
+    squares are first summed over ``data_group`` (None: every rank). Then
+    the squares of the split tensors are summed over the model group
+    ``group`` (None: no model axis) and the replicated ones counted once.
+    A collective of those groups."""
     norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
     mask = torch.tensor(list(split), device=norms.device)
     sq = norms.square()
-    split_sq = torch.where(mask, sq, 0.0).sum()
-    dist.all_reduce(split_sq, group=group)
-    return torch.sqrt(split_sq + torch.where(mask, 0.0, sq).sum())
+    parts = torch.stack([torch.where(mask, sq, 0.0).sum(), torch.where(mask, 0.0, sq).sum()])
+    if owned:
+        dist.all_reduce(parts, group=data_group)
+    split_sq, replicated_sq = parts[0].clone(), parts[1]
+    if group is not None:
+        dist.all_reduce(split_sq, group=group)
+    return torch.sqrt(split_sq + replicated_sq)
 
 
 def partition_params(tensors: Sequence[torch.Tensor], world: int) -> List[int]:

@@ -6,8 +6,9 @@ The fields are the JAX package's, so the CLIs take the same flags, plus
 takes ``zero1``'s path (``parallel/sharding.py``; both mean nothing in one
 process); ``model_parallel`` splits the model over that many ranks
 (tensor parallelism, ``core/mesh.py`` ``make_groups``); ``fsdp`` stores
-each parameter on one rank of the data group (``parallel/fsdp.py``). Both
-together raise, naming ROADMAP.md (:meth:`TrainConfig.check_supported`).
+each trainable parameter on one rank of the data group
+(``parallel/fsdp.py``), with a model axis each model rank's shards over its
+data group.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from typing import Optional
 
 from rankpo_tpu_torch.core.mesh import MeshConfig
 
-_ROADMAP = "ROADMAP.md Queue 1 item 8d"
 OPTIMIZERS = ("adamw", "adamw8bit", "adafactor")
 STRATEGIES = ("no", "steps", "epoch")
 
@@ -99,13 +99,10 @@ class TrainConfig:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
     def check_supported(self) -> None:
-        """Raise for combinations the port does not have (fsdp with a model
-        axis) and for unknown option values."""
+        """Raise for a model axis below 1 and for unknown option values
+        (the optimizer on a split model is the trainer's check,
+        ``train/trainer.py``)."""
         MeshConfig(model_parallel=self.model_parallel).check_supported()
-        if self.fsdp and self.model_parallel > 1:
-            raise NotImplementedError(
-                f"--fsdp with --model_parallel {self.model_parallel} is not ported to "
-                f"rankpo_tpu_torch ({_ROADMAP}); use one of them")
         if self.optim not in OPTIMIZERS:
             raise ValueError(f"unknown optim {self.optim!r}; one of {list(OPTIMIZERS)}")
         for name in ("logging_strategy", "save_strategy", "eval_strategy"):

@@ -79,17 +79,24 @@ by the data index (the ranks of a model group hold the same activations
 and must draw the same masks); checkpoints gather the model
 (``sharding.full_state_dict``) and the optimizer state
 (``sharding.gather_tp_optimizer_state``) into the one-process layout, and
-a resume cuts them to the rank's shards. AdamW only: the 8-bit AdamW's
-blocks and Adafactor's factored moments of a shard are not those of the
-whole tensor (ROADMAP.md Queue 1 item 8d).
+a resume cuts them to the rank's shards. LoRA's adapters are whole on every
+model rank (``models/lora.py``): replicated tensors, counted once by the
+norm and passed whole through the checkpoints. The 8-bit AdamW and
+Adafactor take replicated tensors only (LoRA's case): the 8-bit blocks and
+Adafactor's factored moments of a shard are not those of the whole tensor,
+and the JAX package fails on a split model too (:meth:`_check_optimizer`).
 
 fsdp (``config.fsdp`` with a process group; ``parallel/fsdp.py``): every
-parameter is stored on its owner (ZeRO-1's whole-tensor partition over the
-data group) and gathered at each use; its gradient arrives summed on the
-owner during the backward, so the exchange is a division by dp there, the
-norm sums the owners' squares over the data group, each owner updates its
-tensors and nothing is broadcast after the step. Any optimizer; not with a
-model axis or LoRA (item 8d).
+trainable parameter is stored on its owner (ZeRO-1's whole-tensor
+partition over the data group) and gathered at each use, the frozen ones
+(a LoRA base) whole on every rank; a gradient arrives summed on the owner
+during the backward, so the exchange is a division by dp there, the norm
+sums the owners' squares over the data group, each owner updates its
+tensors and nothing is broadcast after the step. Any optimizer. With a
+model axis each model rank's shards are partitioned over its data group:
+the norm sums the owners' squares over the data group, then the split
+tensors' over the model group; checkpoints gather from the owners, then
+over the model group.
 """
 
 from __future__ import annotations
@@ -222,7 +229,9 @@ class Trainer:
         self.dp, self.data_rank = mesh.data_count(), mesh.data_index()
         self.data_group = mesh.data_group()
         self.tp = getattr(model, "tp", None)
-        self._check_tensor_parallel()
+        if self.tp is not None and self.tp.size != mesh.model_count():
+            raise ValueError(f"the model is split {self.tp.size} ways, the grid's model axis "
+                             f"has {mesh.model_count()} ranks")
         if self._dp and self.dp > 1:
             # every rank starts from its data group's first rank's weights
             broadcast_from_owners_([p.detach() for p in self.params], [0] * len(self.params),
@@ -230,11 +239,16 @@ class Trainer:
         # fsdp: each parameter stored on its owner only (parallel/fsdp.py)
         self.fsdp = None
         if self._dp and config.fsdp:
-            self._check_fsdp()
             self.fsdp = shard_parameters_(model, self.data_group)
             self.param_names, self.params = list(self.fsdp.names), list(self.fsdp.params)
-        # the model-axis dim of each trainable tensor (None: replicated)
+        # the model-axis dim of each trainable tensor (None: replicated,
+        # LoRA's adapters among them)
         self._tp_dims = [tp_dim(n) if self.tp is not None else None for n in self.param_names]
+        # each trainable tensor's shape on this model rank (fsdp's storage
+        # is empty off its owner)
+        self._shapes = (list(self.fsdp.shapes) if self.fsdp is not None
+                        else [p.shape for p in self.params])
+        self._check_optimizer()
         # owner (data index) of each trainable tensor under zero1 / zero2 /
         # fsdp, else None
         self._owners = None
@@ -260,36 +274,23 @@ class Trainer:
         self._sigterm = False  # this process received SIGTERM
         self._preempted = False  # some rank did: every rank stops after this step
 
-    def _check_tensor_parallel(self) -> None:
-        """Under tensor parallelism: AdamW only, and no LoRA (ROADMAP.md
-        Queue 1 item 8d); the trainer must see the model's grid."""
-        if self.tp is None:
-            return
-        if self.tp.size != mesh.model_count():
-            raise ValueError(f"the model is split {self.tp.size} ways, the grid's model axis "
-                             f"has {mesh.model_count()} ranks")
-        if self.config.optim != "adamw":
+    def _check_optimizer(self) -> None:
+        """The 8-bit AdamW and Adafactor train no tensor split over the
+        model axis: a shard's 8-bit blocks and factored moments are not the
+        whole tensor's. The JAX package fails there too: its
+        ``param_partition_specs`` (``rankpo_tpu/parallel/sharding.py:77``)
+        matches the kernel rules on the optimizer state's leaves by path
+        and indexes a dim they lack (``IndexError``). A departure of
+        ROADMAP.md Queue 3; LoRA's adapters, whole on every model rank,
+        take any optimizer."""
+        split = [n for n, d in zip(self.param_names, self._tp_dims) if d is not None]
+        if self.config.optim != "adamw" and split:
             raise NotImplementedError(
-                f"--optim {self.config.optim} with --model_parallel {self.tp.size}: the "
-                "8-bit blocks and Adafactor's factored moments of a shard are not the whole "
-                "tensor's; not ported (ROADMAP.md Queue 1 item 8d); use adamw")
-        if any("parametrizations" in n for n in self.param_names):
-            raise NotImplementedError(
-                f"--use_lora with --model_parallel {self.tp.size} is not ported "
-                "(ROADMAP.md Queue 1 item 8d)")
-
-    def _check_fsdp(self) -> None:
-        """fsdp shards every parameter of a model on one model rank, none of
-        them LoRA's (ROADMAP.md Queue 1 item 8d)."""
-        if self.tp is not None:
-            raise NotImplementedError(
-                f"--fsdp with --model_parallel {self.tp.size} is not ported "
-                "(ROADMAP.md Queue 1 item 8d)")
-        if len(self.params) != len(list(self.model.parameters())) or any(
-                "parametrizations" in n for n in self.param_names):
-            raise NotImplementedError(
-                "--fsdp shards every parameter: not with frozen parameters or LoRA "
-                "(ROADMAP.md Queue 1 item 8d)")
+                f"--optim {self.config.optim} with --model_parallel {self.tp.size} would "
+                f"train split tensors ({split[0]}, ...): the 8-bit blocks and Adafactor's "
+                "factored moments of a shard are not the whole tensor's, and the JAX package "
+                "raises IndexError here (rankpo_tpu/parallel/sharding.py:77; ROADMAP.md "
+                "Queue 3); use adamw, or LoRA, whose adapters are whole on every model rank")
 
     # ------------------------------------------------------------------
     def train_step(self, group: dict) -> Dict[str, float]:
@@ -330,11 +331,11 @@ class Trainer:
             dist.all_reduce(summed)
             means = summed[:-1] / self.world if self.world > 1 else summed[:-1]
             stats = [*means.unbind(), summed[-1]]
-        if self.tp is not None:
+        if self.tp is not None or self.fsdp is not None:
+            # fsdp: every gradient lies on its owner alone
             grad_norm = tp_global_norm(grads, [d is not None for d in self._tp_dims],
-                                       self.tp.group)
-        elif self.fsdp is not None:  # every gradient lies on its owner alone
-            grad_norm = tp_global_norm(grads, [True] * len(grads), self.data_group)
+                                       None if self.tp is None else self.tp.group,
+                                       owned=self.fsdp is not None, data_group=self.data_group)
         else:
             grad_norm = global_norm(grads)
         # one device sync per step: the finite check, the logged values and
@@ -669,8 +670,7 @@ class Trainer:
             first = mesh.is_main_process() or self.data_rank == 0
             state = ckpt.host_copy(self.optimizer.state_dict()) if first else None
         if self.tp is not None and self.data_rank == 0:
-            state = gather_tp_optimizer_state(state, self._tp_dims,
-                                              [p.shape for p in self.params], self.tp.group)
+            state = gather_tp_optimizer_state(state, self._tp_dims, self._shapes, self.tp.group)
         return state if mesh.is_main_process() else None
 
     def resume_from(self, directory: str) -> None:
@@ -685,8 +685,7 @@ class Trainer:
         if payload is not None:
             full = payload["optimizer"]
             if self.tp is not None:  # this rank's tensor shards
-                full = shard_tp_optimizer_state(full, self._tp_dims,
-                                                [p.shape for p in self.params],
+                full = shard_tp_optimizer_state(full, self._tp_dims, self._shapes,
                                                 self.tp.size, self.tp.index)
             # a sharded optimizer takes its own tensors' entries
             self.optimizer.load_state_dict(full)

@@ -118,8 +118,8 @@ def test_mesh_config_resolve_matches_jax(dp, mp, n):
 def test_model_parallel_and_fsdp_raise_naming_item_8b():
     """Item 8b is ported: ``model_parallel`` (tensor parallelism,
     ``test_torch_tensor_parallel.py``) takes any size from 1 and a size
-    below 1 raises; ``fsdp`` (``test_torch_fsdp.py``) is accepted; the two
-    together raise naming item 8d, which holds what 8b left."""
+    below 1 raises; ``fsdp`` (``test_torch_fsdp.py``) is accepted, and so
+    are the two together (``test_torch_fsdp_grid.py``)."""
     from rankpo_tpu_torch.train.config import TrainConfig
 
     for mp in (1, 2, 4):
@@ -129,8 +129,10 @@ def test_model_parallel_and_fsdp_raise_naming_item_8b():
     TrainConfig(fsdp=True).check_supported()
     with pytest.raises(ValueError, match="must be >= 1"):
         mesh.MeshConfig(model_parallel=0).check_supported()
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        TrainConfig(fsdp=True, model_parallel=2).check_supported()
+    for mp in (2, 4):
+        TrainConfig(fsdp=True, model_parallel=mp).check_supported()
+    with pytest.raises(ValueError, match="must be >= 1"):
+        TrainConfig(fsdp=True, model_parallel=0).check_supported()
 
 
 def test_initialize_distributed_refusals():

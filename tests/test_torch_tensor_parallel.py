@@ -514,10 +514,13 @@ def test_cli_with_model_parallel_2_matches_one_process(tmp_path, cli):
 
 
 def test_tensor_parallel_refuses_what_it_does_not_take(monkeypatch, tmp_path):
-    """Under a model axis the trainer takes AdamW only (the 8-bit blocks and
-    Adafactor's factored moments of a shard are not the whole tensor's) and
-    no LoRA; ``run_rankpo --use_lora --model_parallel 2`` raises before any
-    process group; both name ROADMAP.md item 8d."""
+    """Under a model axis the trainer takes AdamW for the split tensors
+    only (the 8-bit blocks and Adafactor's factored moments of a shard are
+    not the whole tensor's; JAX fails there too,
+    ``test_torch_lora_sharded.py``) and LoRA with any optimizer (its
+    adapters are whole on every model rank); ``run_rankpo --use_lora
+    --model_parallel 2`` is no longer refused and meets the grid's
+    device-count check in one process."""
     from rankpo_tpu_torch.cli import run_rankpo
     from rankpo_tpu_torch.models import lora
     from rankpo_tpu_torch.train.config import TrainConfig
@@ -528,17 +531,21 @@ def test_tensor_parallel_refuses_what_it_does_not_take(monkeypatch, tmp_path):
     for optim in ("adamw8bit", "adafactor"):
         model = penc.encoder_class(pcfg).for_training(
             pcfg, state, device="cpu", tensor_parallel=TensorParallel(None, 2, 0))
-        with pytest.raises(NotImplementedError, match="item 8d"):
+        with pytest.raises(NotImplementedError, match="JAX package raises IndexError"):
             Trainer(loss_fn=workers.loss_fn_for("stage1"), model=model,
                     config=TrainConfig(device="cpu", optim=optim), total_steps=1)
-    model = penc.encoder_class(pcfg).for_training(
-        pcfg, state, device="cpu", tensor_parallel=TensorParallel(None, 2, 0))
-    lora.apply_lora(model, lora.LoraConfig(r=2, alpha=4, target_modules=("q_proj",)),
-                    adapters={"q_proj": (torch.zeros(2, 64, 2), torch.zeros(2, 2, 32))})
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        Trainer(loss_fn=workers.loss_fn_for("stage1"), model=model,
-                config=TrainConfig(device="cpu"), total_steps=1)
-    with pytest.raises(NotImplementedError, match="item 8d"):
+        model = penc.encoder_class(pcfg).for_training(
+            pcfg, state, device="cpu", tensor_parallel=TensorParallel(None, 2, 0))
+        lora.apply_lora(model, lora.LoraConfig(r=2, alpha=4, target_modules=("q_proj",)),
+                        adapters={"q_proj": (torch.zeros(2, 64, 2), torch.zeros(2, 2, 64))})
+        trainer = Trainer(loss_fn=workers.loss_fn_for("stage1"), model=model,
+                          config=TrainConfig(device="cpu", optim=optim), total_steps=1)
+        assert trainer._tp_dims == [None, None, None, None]
+        # each rank's q_proj merge is its half of the output rows
+        merged = model.layers[0].self_attn.q_proj.weight
+        assert merged.shape == (32, 64)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="does not divide device count 1"):
         run_rankpo.main(["--model_name_or_path", str(tmp_path), "--train_data", "x.jsonl",
                          "--output_dir", str(tmp_path / "out"), "--use_lora", "True",
                          "--model_parallel", "2", "--device", "cpu"])

@@ -361,23 +361,21 @@ def test_gradient_checkpointing_gives_plain_gradients():
 
 
 def test_unported_checkpoint_policy_and_options_raise():
-    """What the port does not have (``fsdp`` with a model axis) raises
-    naming ROADMAP.md item 8d; an unknown checkpointing policy raises
-    ValueError naming the three. ``zero1`` and ``zero2`` are ported
-    (``test_torch_zero.py``): accepted, and in one process the trainer
-    keeps the plain optimizer. ``model_parallel`` and ``fsdp`` are ported
-    (``test_torch_tensor_parallel.py``, ``test_torch_fsdp.py``): accepted
-    by the config; in one process a model axis of 2 raises JAX's
-    device-count error when the grid is made, and ``fsdp`` shards nothing
-    (the trainer keeps the plain optimizer)."""
+    """An unknown checkpointing policy raises ValueError naming the three.
+    ``zero1`` and ``zero2`` are ported (``test_torch_zero.py``): accepted,
+    and in one process the trainer keeps the plain optimizer.
+    ``model_parallel`` and ``fsdp`` are ported, alone and together
+    (``test_torch_tensor_parallel.py``, ``test_torch_fsdp.py``,
+    ``test_torch_fsdp_grid.py``): accepted by the config; in one process a
+    model axis of 2 raises JAX's device-count error when the grid is made,
+    and ``fsdp`` shards nothing (the trainer keeps the plain optimizer)."""
     from rankpo_tpu_torch.core import mesh
 
     _, pcfg = _tiny()
     state = llama.init_params(pcfg, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="full.*dots.*attn"):
         llama.LlamaEncoder.for_training(pcfg, state, device="cpu", checkpoint_policy="nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8d"):
-        TrainConfig(fsdp=True, model_parallel=2).check_supported()
+    TrainConfig(fsdp=True, model_parallel=2).check_supported()
     TrainConfig(model_parallel=2).check_supported()
     TrainConfig(fsdp=True).check_supported()
     with pytest.raises(ValueError, match="does not divide device count 1"):

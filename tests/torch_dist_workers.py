@@ -558,3 +558,145 @@ def fsdp_worker(rank, world, out):
     history = trainer.train(ds, make())
     result["stage1_remat"] = {"history": history, "state": full_state_dict(model)}
     save(out, f"fsdp_{rank}.pt", result)
+
+
+# ---------------------------------------------------------------------------
+# LoRA under a model axis and under fsdp, fsdp with a model axis
+# (test_torch_sharded_lora.py)
+# ---------------------------------------------------------------------------
+
+LORA_OPTIMIZERS = ("adamw", "adamw8bit", "adafactor")
+LORA = dict(r=4, alpha=8.0)
+
+
+def lora_model_from(state: dict, adapters: dict, targets):
+    """:func:`model_from` with LoRA on ``targets``, the adapters
+    ``adapters`` (``lora.adapters_from_jax``'s, whole)."""
+    from rankpo_tpu_torch.models import lora
+
+    return lora.apply_lora(model_from(state), lora.LoraConfig(target_modules=tuple(targets),
+                                                              **LORA), adapters=adapters)
+
+
+def save_lora_model(directory: str, model) -> None:
+    """The merged model in the one-process layout and the whole adapters
+    (every rank that gathers calls this), written by rank 0."""
+    from rankpo_tpu_torch.core import mesh
+    from rankpo_tpu_torch.models import lora
+    from rankpo_tpu_torch.models.hf_io import save_pretrained
+
+    state, adapters = lora.merged_state_dict(model), lora.adapter_state_dict(model)
+    if mesh.is_main_process():
+        save_pretrained(directory, tiny_config(), state, dtype=torch.float32)
+        torch.save(adapters, os.path.join(directory, "lora_adapters.pt"))
+
+
+def held_bytes(trainer) -> tuple:
+    """(trainable parameter bytes, optimizer-state bytes) this rank stores."""
+    params = sum(p.numel() * p.element_size() for p in trainer.params)
+    opt = sum(t.numel() * t.element_size() for s in trainer.optimizer.state.values()
+              for t in s.values() if isinstance(t, torch.Tensor))
+    return params, opt
+
+
+def run_lora_stage(stage: str, state: dict, adapters: dict, targets, out: str,
+                   per_device: int, **extra):
+    """One stage with LoRA through the port's Trainer: (history, trainer)."""
+    from rankpo_tpu_torch.core import mesh
+    from rankpo_tpu_torch.train.trainer import Trainer
+
+    axis = mesh.DATA_AXIS if mesh.is_distributed() else None
+    ds, make = stage_parts(stage)
+    model = lora_model_from(state, adapters, targets)
+    trainer = Trainer(loss_fn=loss_fn_for(stage, axis), model=model,
+                      config=train_config(out, per_device, **extra), total_steps=4,
+                      save_params_fn=save_lora_model)
+    return trainer.train(ds, make()), trainer
+
+
+def _lora_result(history, trainer) -> dict:
+    from rankpo_tpu_torch.models import lora
+
+    return {"history": history, "adapters": lora.adapter_state_dict(trainer.model),
+            "merged": lora.merged_state_dict(trainer.model), "held": held_bytes(trainer),
+            "optimizer": trainer.gather_optimizer_state()}
+
+
+def adapter_grads(model) -> dict:
+    """``{path}.lora_a`` / ``.lora_b`` -> the adapter's gradient."""
+    from torch.nn.utils import parametrize
+
+    out = {}
+    for path, module in model.named_modules():
+        if parametrize.is_parametrized(module, "weight"):
+            merge = module.parametrizations.weight[0]
+            out[f"{path}.lora_a"], out[f"{path}.lora_b"] = merge.lora_a.grad, merge.lora_b.grad
+    return out
+
+
+def sharded_lora_worker(rank, world, out):
+    """Two ranks: at (dp 1, mp 2) each body's embedding loss and adapter
+    gradients with LoRA on every target of the body, and LoRA on stage 2
+    with each optimizer (the AdamW run checkpointing the optimizer state at
+    step 4); then LoRA under fsdp at (dp 2, mp 1) on both stages (stage 2
+    checkpointing). Each run with the history, the whole adapters, the
+    merged model in the one-process layout, the bytes stored and the
+    gathered optimizer state."""
+    from rankpo_tpu_torch.core import mesh
+    from rankpo_tpu_torch.models import lora
+    from rankpo_tpu_torch.models.base import TensorParallel
+    from rankpo_tpu_torch.models.encoder import encoder_class
+
+    data = load(out, "lora_inputs.pt")
+    state, adapters, targets = data["state"], data["adapters"], data["targets"]
+    result = {}
+    mesh.make_groups(mesh.MeshConfig(model_parallel=2))
+    for body, (cfg, body_state, qb, pb, body_adapters, body_targets) in data["bodies"].items():
+        model = encoder_class(cfg).for_training(cfg, body_state, device="cpu",
+                                                compute_dtype=torch.float32,
+                                                tensor_parallel=TensorParallel.current())
+        lora.apply_lora(model, lora.LoraConfig(target_modules=body_targets, **LORA),
+                        adapters=body_adapters)
+        loss = tp_embed_loss(model, qb, pb)
+        loss.backward()
+        result[("body", body)] = {"loss": loss.detach(), "grads": adapter_grads(model),
+                                  "merged": lora.merged_state_dict(model)}
+    for optim in LORA_OPTIMIZERS:
+        extra = dict(optim=optim)
+        if optim == "adamw":
+            extra.update(save_strategy="steps", save_steps=4, save_only_model=False)
+        history, trainer = run_lora_stage("stage2", state, adapters, targets,
+                                          os.path.join(out, "lora_mp2", optim), 2, **extra)
+        result[("mp2", optim)] = _lora_result(history, trainer)
+    mesh.make_groups(mesh.MeshConfig(model_parallel=1))
+    for stage in ("stage1", "stage2"):
+        extra = dict(fsdp=True)
+        if stage == "stage2":
+            extra.update(save_strategy="steps", save_steps=4, save_only_model=False)
+        history, trainer = run_lora_stage(stage, state, adapters, targets,
+                                          os.path.join(out, "lora_fsdp", stage), 2, **extra)
+        result[("fsdp", stage)] = _lora_result(history, trainer)
+    save(out, f"sharded_lora_{rank}.pt", result)
+
+
+def fsdp_grid_worker(rank, world, out):
+    """Four ranks at (dp 2, mp 2) with ``fsdp``: both stages (stage 1
+    checkpointing the optimizer state at step 4), each with the history, the
+    model in the one-process layout, the bytes stored, this rank's shard
+    shapes and the gathered optimizer state."""
+    from rankpo_tpu_torch.core import mesh
+    from rankpo_tpu_torch.parallel.sharding import full_state_dict
+
+    grid = mesh.make_groups(mesh.MeshConfig(model_parallel=2))
+    state = load(out, "grid_state.pt")
+    result = {"grid": (grid.dp, grid.mp, grid.data_index, grid.model_index)}
+    for stage, extra in (("stage1", dict(save_strategy="steps", save_steps=4,
+                                         save_only_model=False)),
+                         ("stage2", {})):
+        history, _, trainer, _ = run_stage(stage, state, os.path.join(out, "fsdp_grid", stage),
+                                           1, fsdp=True, **extra)
+        result[stage] = {"history": history, "state": full_state_dict(trainer.model),
+                         "held": held_bytes(trainer), "shapes": trainer.fsdp.shapes,
+                         "owners": trainer.fsdp.owners,
+                         "optimizer": trainer.gather_optimizer_state()}
+    save(out, f"fsdp_grid_{rank}.pt", result)
